@@ -1,0 +1,476 @@
+"""Smoke test of the PyTorch port on one NVIDIA GPU (written for an H100).
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (any failure exits non-zero and prints no
+result):
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build every CUDA kernel of ``src/repro_torch/csrc`` from source, all
+   ``nvcc`` processes at once, and print the build time and each
+   kernel's register / spill report;
+3. hold each kernel against its plain PyTorch version on the card, in
+   bf16 (atol 2e-2, rtol 2e-2: one bf16 rounding of the output) and fp32
+   (atol 1e-4, rtol 1e-4: summation order), at the serving path's shapes
+   and at the contract's edge cases, and time the kernel, its plain
+   version and ``F.scaled_dot_product_attention`` (a yardstick only; the
+   port never calls it) at the serving path's shapes, beside the bound;
+4. the serving path: full-width Llama-3.2-1B in bf16 (random weights from
+   a seed) through the port's ``BatchMaster`` and one ``NodeEngine``,
+   ~8 requests and a resubmitted prefix, with every kernel's launch count
+   read around that run alone;
+5. a reduced fp32 copy of the model served once on "cuda" (the kernels)
+   and once on "cpu" (the plain versions): the greedy tokens of one page
+   must be identical.
+
+The line before the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# published H100 SXM peaks (NVIDIA data sheet, dense)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
+       torch.float32: dict(atol=1e-4, rtol=1e-4)}
+REPLACES = {
+    "flash_attention":
+        "src/repro/kernels/flash_attention/flash_attention.py:78",
+    "paged_attention":
+        "src/repro/kernels/paged_attention/paged_attention.py:73",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------- timing
+class Timer:
+    """Median device time of one call, with L2 flushed before each launch
+    (the serving path finds each layer's K/V cold)."""
+
+    def __init__(self, dev):
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def _sdpa(q, k, v, **kw):
+    """One ``F.scaled_dot_product_attention`` call on q (B,H,Sq,D), k/v
+    (B,Hkv,Skv,D), GQA included: the library yardstick."""
+    return lambda: F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                                  **kw)
+
+
+# ---------------------------------------------------------------- phase 3
+def _rand(gen, shape, dtype, dev):
+    return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+
+def _check(name, got, want, dtype):
+    err = (got.float() - want.float()).abs().max().item()
+    ok = torch.allclose(got.float(), want.float(), **TOL[dtype])
+    log(f"  {name}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {err})")
+    return err
+
+
+def check_flash(dev, timer):
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def case(tag, dtype, B, Sq, Skv, H, Hkv, D, causal=True, window=0,
+             softcap=0.0, q0=0):
+        q = _rand(gen, (B, Sq, H, D), dtype, dev)
+        k = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
+        v = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
+        qp = (torch.arange(Sq, dtype=torch.int32, device=dev) + q0)[None] \
+            .expand(B, Sq).contiguous()
+        kp = torch.arange(Skv, dtype=torch.int32, device=dev)[None] \
+            .expand(B, Skv).contiguous()
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = flash_attention(q, k, v, qp, kp, **kw)
+        torch.cuda.synchronize()
+        want = flash_attention_plain(q, k, v, qp, kp, **kw)
+        err = _check(f"flash_attention {tag} {str(dtype)[6:]}", got, want,
+                     dtype)
+        return err, (q, k, v, qp, kp, kw)
+
+    # Llama-3.2-1B prefill: 4 prompts of 512 (timed below), and phase 4's
+    # first batch as the engine buckets it (8 prompts, padded to 256)
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        main[dtype] = case("B4 S512 H32/8 D64 causal", dtype, 4, 512, 512,
+                           32, 8, 64)
+        case("offset q Sq64 Skv512", dtype, 2, 64, 512, 32, 8, 64, q0=448)
+    case("B8 S256 H32/8 D64 causal", torch.bfloat16, 8, 256, 256, 32, 8, 64)
+    case("window100 softcap30 S256", torch.float32, 1, 256, 256, 8, 2, 64,
+         window=100, softcap=30.0)
+    case("non-causal Skv96 (true-length mask)", torch.float32, 1, 96, 96, 4,
+         2, 64, causal=False)
+    case("G3 D32 S40", torch.float32, 1, 40, 40, 6, 2, 32)
+    case("D128 S128", torch.float32, 1, 128, 128, 4, 4, 128)
+
+    err, (q, k, v, qp, kp, kw) = main[torch.bfloat16]
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    pairs = int(((kp[0][None, :] <= qp[0][:, None]).sum()).item())
+    flops = 4.0 * D * pairs * B * H
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() \
+        + (qp.numel() + kp.numel()) * 4
+    bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[q.dtype]) * 1e3
+    ms = timer(lambda: flash_attention(q, k, v, qp, kp, **kw))
+    plain_ms = timer(lambda: flash_attention_plain(q, k, v, qp, kp, **kw),
+                     iters=5)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library_ms = timer(_sdpa(qt, kt, vt, is_causal=True))
+    ms32 = timer(lambda: flash_attention(*main[torch.float32][1][:5],
+                                         **main[torch.float32][1][5]))
+    log(f"  flash_attention bf16 B{B} S{S} H{H}/{Hkv} D{D} causal: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms} "
+        f"ms, bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB); fp32 kernel {ms32:.4f} ms")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces=REPLACES["flash_attention"], max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if flops / PEAK_FLOPS[q.dtype]
+                > nbytes / PEAK_BYTES else "bytes",
+                library_ms=library_ms, shape=f"B{B} S{S} H{H}/{Hkv} D{D} "
+                f"causal bf16")
+
+
+def check_paged(dev, timer):
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_attention_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def dense_view(B, S, Hkv, D, dtype):
+        """The engine's slot cache of one layer as a page-16 pool view."""
+        page = math.gcd(S, 16)
+        kc = _rand(gen, (B, S, Hkv, D), dtype, dev)
+        vc = _rand(gen, (B, S, Hkv, D), dtype, dev)
+        table = torch.arange(B * S // page, dtype=torch.int32,
+                             device=dev).reshape(B, S // page)
+        return (kc.view(-1, page, Hkv, D), vc.view(-1, page, Hkv, D), table,
+                kc, vc)
+
+    def case(tag, dtype, q, kp, vp, table, lengths):
+        got = paged_attention(q, kp, vp, table, lengths)
+        torch.cuda.synchronize()
+        want = paged_attention_plain(q, kp, vp, table, lengths)
+        return _check(f"paged_attention {tag} {str(dtype)[6:]}", got, want,
+                      dtype)
+
+    # the serving path's decode shape: 8 slots of a 2048-token cache,
+    # mixed lengths averaging 1024
+    lens = [256, 512, 768, 1024, 1024, 1280, 1536, 1792]
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        B, S, H, Hkv, D = 8, 2048, 32, 8, 64
+        q = _rand(gen, (B, H, D), dtype, dev)
+        kp, vp, table, kc, vc = dense_view(B, S, Hkv, D, dtype)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        err = case("B8 max_len2048 mixed lengths", dtype, q, kp, vp, table,
+                   lengths)
+        main[dtype] = (err, q, kp, vp, table, lengths, kc, vc)
+    # a shuffled page table, qwen2's group of 7
+    B, H, Hkv, D, page, mp = 3, 14, 2, 64, 16, 8
+    pool = B * mp + 6
+    q = _rand(gen, (B, H, D), torch.float32, dev)
+    kp = _rand(gen, (pool, page, Hkv, D), torch.float32, dev)
+    vp = _rand(gen, (pool, page, Hkv, D), torch.float32, dev)
+    table = torch.randperm(pool, generator=gen, device=dev)[:B * mp] \
+        .reshape(B, mp).to(torch.int32)
+    case("shuffled table G7", torch.float32, q, kp, vp, table,
+         torch.tensor([5, 128, 77], dtype=torch.int32, device=dev))
+    # phase 4's prefix-hit tail: batch 1, a dense cache of pow2 length 512
+    q = _rand(gen, (1, 32, 64), torch.bfloat16, dev)
+    kp, vp, table, _, _ = dense_view(1, 512, 8, 64, torch.bfloat16)
+    case("tail B1 S512", torch.bfloat16, q, kp, vp, table,
+         torch.tensor([261], dtype=torch.int32, device=dev))
+    # the shortest tail cache: batch 1, pow2 length 8, G3 D32
+    q = _rand(gen, (1, 6, 32), torch.float32, dev)
+    kp, vp, table, _, _ = dense_view(1, 8, 2, 32, torch.float32)
+    case("tail B1 S8 G3 D32", torch.float32, q, kp, vp, table,
+         torch.tensor([5], dtype=torch.int32, device=dev))
+    # finished slots sit one past the cache
+    q = _rand(gen, (2, 8, 128), torch.float32, dev)
+    kp, vp, table, _, _ = dense_view(2, 64, 2, 128, torch.float32)
+    case("length past cache D128", torch.float32, q, kp, vp, table,
+         torch.tensor([65, 3], dtype=torch.int32, device=dev))
+
+    err, q, kp, vp, table, lengths, kc, vc = main[torch.bfloat16]
+    B, H, D = q.shape
+    Hkv = kp.shape[2]
+    tokens = int(lengths.sum().item())
+    nbytes = (2 * tokens * Hkv * D + 2 * q.numel()) * q.element_size() \
+        + (lengths.numel() + table.numel()) * 4
+    flops = 4.0 * D * H * tokens
+    bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[q.dtype]) * 1e3
+    ms = timer(lambda: paged_attention(q, kp, vp, table, lengths))
+    plain_ms = timer(lambda: paged_attention_plain(q, kp, vp, table,
+                                                   lengths), iters=5)
+    mask = (torch.arange(kc.shape[1], device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    library_ms = timer(_sdpa(q[:, :, None], kc.transpose(1, 2),
+                             vc.transpose(1, 2), attn_mask=mask))
+    e32 = main[torch.float32]
+    ms32 = timer(lambda: paged_attention(*e32[1:6]))
+    log(f"  paged_attention bf16 B{B} max_len{kc.shape[1]} H{H}/{Hkv} D{D} "
+        f"(sum of lengths {tokens}): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms} ms, bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.2f} MB); fp32 kernel {ms32:.4f} ms")
+    return dict(name="paged_attention", route="cuda",
+                source="src/repro_torch/csrc/paged_attention.cu",
+                replaces=REPLACES["paged_attention"], max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="operations" if flops / PEAK_FLOPS[q.dtype]
+                > nbytes / PEAK_BYTES else "bytes",
+                library_ms=library_ms, shape=f"B{B} max_len{kc.shape[1]} "
+                f"H{H}/{Hkv} D{D} sum(len)={tokens} bf16")
+
+
+# ---------------------------------------------------------------- phase 4
+def serve_main_path(dev):
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.api import BatchMaster, BatchRequest
+    from repro_torch.runtime.engine import NodeEngine
+
+    cfg = get_config("llama3_2_1b")
+    page = 16
+    t0 = time.perf_counter()
+    eng = NodeEngine(cfg, max_active=8, max_len=2048, page_size=page,
+                     seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  engine + weights ({T.param_count(cfg) / 1e9:.3f} B params, "
+        f"{cfg.dtype}) {time.perf_counter() - t0:.2f} s")
+    master = BatchMaster([eng], SchedulerConfig(page_size=page))
+    rng = np.random.default_rng(0)
+
+    def prompt(n):
+        return [int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+
+    # warm-up: one short request (below a page, so nothing is published)
+    master.run(master.submit([BatchRequest("warm", prompt(8), 4)]))
+
+    lens = [8, 24, 40, 64, 96, 128, 192, 256]
+    outs = [16, 24, 32, 40, 48, 56, 64, 20]
+    first = [BatchRequest(f"r{i}", prompt(n), m)
+             for i, (n, m) in enumerate(zip(lens, outs))]
+    # a resubmitted prefix: 15 shared pages of r7, then a new tail
+    second = [BatchRequest("p0", first[7].prompt[:15 * page] + prompt(20),
+                           32)]
+    # (seconds, prompt tokens or decode steps) of each call
+    spans = {"prefill": [], "decode": []}
+    orig_prefill, orig_decode = eng.prefill, eng.decode_page
+
+    def timed(kind, fn, count):
+        def run(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            before = count()
+            fn(*a)
+            torch.cuda.synchronize()
+            spans[kind].append((time.perf_counter() - t, count() - before))
+        return run
+
+    eng.prefill = timed("prefill", orig_prefill,
+                        lambda: eng.prefill_tokens)
+    eng.decode_page = timed("decode", orig_decode, lambda: eng.decode_steps)
+    saved0 = eng.prefill_tokens_saved
+
+    kernels.reset_launches()                    # the main path alone
+    t0 = time.perf_counter()
+    results = []
+    for batch in (first, second):
+        bo = master.run(master.submit(batch))
+        results += bo.results
+        if bo.request_counts["completed"] != len(batch) or \
+                bo.request_counts["failed"]:
+            raise AssertionError(f"requests not completed: "
+                                 f"{bo.request_counts}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    eng.prefill, eng.decode_page = orig_prefill, orig_decode
+
+    want = {r.custom_id: r.max_tokens for r in first + second}
+    vpad = T.padded_vocab(cfg)
+    for row in results:
+        toks = row["response"]["tokens"]
+        if len(toks) != want[row["custom_id"]] or \
+                not all(0 <= t < vpad for t in toks):
+            raise AssertionError(f"{row['custom_id']}: bad tokens {toks}")
+    saved = eng.prefill_tokens_saved - saved0
+    if saved <= 0:
+        raise AssertionError("the resubmitted prefix was not reused")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the main path")
+    # the model's logits on a short prompt: finite, of the padded vocab
+    logits, _ = T.prefill(cfg, eng.params, torch.tensor(
+        [first[0].prompt], dtype=torch.int32, device=dev))
+    if logits.shape != (1, 1, vpad) or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad logits {tuple(logits.shape)}")
+
+    out_tokens = sum(len(r["response"]["tokens"]) for r in results)
+    pf_s, pf_tok = map(sum, zip(*spans["prefill"]))
+    dc_s, dc_steps = map(sum, zip(*spans["decode"]))
+    log(f"  served {len(results)} requests, {out_tokens} output tokens in "
+        f"{wall:.3f} s: {out_tokens / wall:.1f} output tokens/s")
+    log(f"  prefill {pf_s * 1e3:.1f} ms for {pf_tok} prompt tokens "
+        f"(prefix reuse saved {saved}); decode {dc_s * 1e3:.1f} ms for "
+        f"{dc_steps} steps = {dc_s * 1e3 / max(dc_steps, 1):.2f} ms/step")
+    log("  prefill calls (ms, prompt tokens forwarded): "
+        + ", ".join(f"({s * 1e3:.1f}, {n})" for s, n in spans["prefill"]))
+    log(f"  kernel launches on the main path: {launches}")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  peak device memory {peak:.2f} GB")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 5
+def reduced_cpu_vs_cuda(dev):
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.api import BatchMaster, BatchRequest
+    from repro_torch.runtime.engine import NodeEngine
+
+    cfg = dataclasses.replace(reduced_config("llama3_2_1b"), dtype="float32")
+    params = T.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    reqs = [(f"s{i}", [int(t) for t in rng.integers(2, cfg.vocab_size, n)])
+            for i, n in enumerate([5, 12, 16, 23])]
+    page = 16
+    def to(tree, target):
+        return {k: to(v, target) if isinstance(v, dict) else v.to(target)
+                for k, v in tree.items()}
+
+    out = {}
+    for device in ("cuda", "cpu"):
+        target = dev if device == "cuda" else torch.device("cpu")
+        eng = NodeEngine(cfg, params=to(params, target), max_active=4,
+                         max_len=128, page_size=page, device=target)
+        master = BatchMaster([eng], SchedulerConfig(page_size=page))
+        before = kernels.launches()
+        bo = master.run(master.submit(
+            [BatchRequest(c, pr, page) for c, pr in reqs]))
+        after = kernels.launches()
+        used = {k: after[k] - before[k] for k in after}
+        out[device] = {r["custom_id"]: r["response"]["tokens"]
+                       for r in bo.results}
+        log(f"  {device}: {bo.request_counts}, kernel launches {used}")
+        if device == "cuda" and min(used.values()) <= 0:
+            raise AssertionError("the cuda run did not launch every kernel")
+        if device == "cpu" and max(used.values()) != 0:
+            raise AssertionError("the cpu run launched a kernel")
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"greedy tokens differ: cuda {out['cuda']} "
+                             f"vs cpu {out['cpu']}")
+    log(f"  greedy tokens of one page identical for {len(reqs)} requests")
+
+
+# ---------------------------------------------------------------- main
+def main() -> int:
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device is available")
+        return 2
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    # fp32 products in full fp32 (the fp32 tolerances assume it)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("== 1. card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+        else f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+
+    log("== 2. build")
+    t0 = time.perf_counter()
+    secs = build.build_all()
+    log(f"  built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
+        f"(per kernel {secs})")
+    for name in secs:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    log("== 3. kernels against their plain versions")
+    timer = Timer(dev)
+    stats = [check_flash(dev, timer), check_paged(dev, timer)]
+    del timer
+    torch.cuda.empty_cache()
+
+    log("== 4. serving path: Llama-3.2-1B bf16, BatchMaster + NodeEngine")
+    torch.cuda.reset_peak_memory_stats(dev)
+    launches = serve_main_path(dev)
+    for s in stats:
+        s["launches"] = launches[s["name"]]
+
+    log("== 5. reduced fp32 model: cuda (kernels) vs cpu (plain versions)")
+    reduced_cpu_vs_cuda(dev)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    print(json.dumps({"kernels": [{k: s[k] for k in keys} for s in stats]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except Exception:
+        traceback.print_exc()
+        code = 1
+    sys.exit(code)

@@ -1,0 +1,10 @@
+"""Qwen2-0.5B: 24L d_model=896 14H (GQA kv=2) d_ff=4864 vocab=151936.
+GQA with QKV bias.  [arXiv:2407.10671; hf]"""
+from repro_torch.models.api import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-0.5b", family="dense",
+    num_layers=24, d_model=896, num_heads=14, num_kv_heads=2,
+    d_ff=4864, vocab_size=151936, head_dim=64, attn_bias=True,
+    rope_theta=1000000.0,
+)

@@ -1,0 +1,116 @@
+"""Decode attention over a paged KV pool: wrapper of the Hopper kernel
+``csrc/paged_attention.cu`` and its plain PyTorch version.
+
+``paged_attention`` runs the plain version for tensors on the CPU.  For
+CUDA tensors it checks them, launches the kernel on the current stream,
+raises if the launch failed and counts the launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels import build
+
+NAME = "paged_attention"
+NEG = -1e30
+MAX_GROUP = 16          # most query heads per kv head the kernel serves
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128)
+_LIB = None
+
+
+def paged_attention_plain(q, k_pool, v_pool, page_table, lengths):
+    """Gather each sequence's pages through the table, then a masked
+    softmax over its first ``lengths`` positions (fp32 statistics)."""
+    B, H, dh = q.shape
+    _, page, Hkv, _ = k_pool.shape
+    max_pages = page_table.shape[1]
+    G = H // Hkv
+    S = max_pages * page
+    tab = page_table.long()
+    k = k_pool[tab].reshape(B, S, Hkv, dh).float()
+    v = v_pool[tab].reshape(B, S, Hkv, -1).float()
+    qg = q.float().reshape(B, Hkv, G, dh) * (1.0 / math.sqrt(dh))
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k)
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, :] < lengths[:, None]
+    s = torch.where(mask[:, None, None, :], s, NEG)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgs,bshd->bhgd", p / torch.clamp_min(l, 1e-30), v)
+    return out.reshape(B, H, -1).to(q.dtype)
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        lib = build.load(NAME)
+        fn = lib.repro_paged_attention_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        _LIB = lib
+    return _LIB
+
+
+def _check(q, k_pool, v_pool, page_table, lengths):
+    dev = q.device
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("page_table", page_table), ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"{NAME}: {name} on {t.device}, q on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{NAME}: {name} must be contiguous")
+    if (q.dtype not in _DTYPES or k_pool.dtype != q.dtype
+            or v_pool.dtype != q.dtype):
+        raise TypeError(f"{NAME}: q/pools must share one of float32/"
+                        f"bfloat16, got {q.dtype}/{k_pool.dtype}/"
+                        f"{v_pool.dtype}")
+    if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError(f"{NAME}: page_table and lengths must be int32")
+    if q.dim() != 3 or k_pool.dim() != 4 or v_pool.shape != k_pool.shape:
+        raise ValueError(f"{NAME}: q (B,H,D), pools (NP,page,Hkv,D); got "
+                         f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}")
+    B, H, D = q.shape
+    Hkv = k_pool.shape[2]
+    if k_pool.shape[3] != D or H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"{NAME}: q {tuple(q.shape)} vs pool "
+                         f"{tuple(k_pool.shape)} (at most {MAX_GROUP} q "
+                         f"heads per kv head)")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim {D} not in {_HEAD_DIMS}")
+    if page_table.dim() != 2 or page_table.shape[0] != B or \
+            lengths.shape != (B,):
+        raise ValueError(f"{NAME}: page_table {tuple(page_table.shape)}, "
+                         f"lengths {tuple(lengths.shape)} vs batch {B}")
+
+
+def paged_attention(q, k_pool, v_pool, page_table, lengths):
+    """q (B,H,D); pools (num_pages, page, Hkv, D); page_table (B,max_pages)
+    int32; lengths (B,) int32 -> (B,H,D) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_attention_plain(q, k_pool, v_pool, page_table, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"{NAME}: unsupported device {q.device}")
+    _check(q, k_pool, v_pool, page_table, lengths)
+    B, H, D = q.shape
+    _, page, Hkv, _ = k_pool.shape
+    out = torch.empty_like(q)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_paged_attention_fwd(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
+            Hkv, D, page, page_table.shape[1], 1.0 / math.sqrt(D),
+            _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
+    kernels.LAUNCHES[NAME] += 1
+    return out

@@ -1,0 +1,119 @@
+"""Where the serving path's time goes on the card: a ``torch.profiler``
+trace of one served batch.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch llama3_2_1b
+
+Builds one ``NodeEngine`` (random weights from ``--seed``), serves a
+warm-up request, then traces a batch of greedy requests through the
+``BatchMaster`` and prints: wall time, output tokens/s, device busy share
+(summed kernel time over wall time; one stream, so kernels do not
+overlap), device time per kernel class, the top kernels by device time,
+and host time per decode step.  ``--trace PATH`` also writes the Chrome
+trace.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.runtime.api import BatchMaster, BatchRequest
+from repro_torch.runtime.engine import NodeEngine
+
+
+def kernel_class(name: str) -> str:
+    n = name.lower()
+    if "flash_fwd_kernel" in n:
+        return "flash_attention kernel"
+    if "paged_decode_kernel" in n:
+        return "paged_attention kernel"
+    if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
+        return "matmul (cuBLAS)"
+    if "memcpy" in n or "memset" in n:
+        return "copies"
+    return "other PyTorch kernels"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3_2_1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=128)
+    ap.add_argument("--max-tokens", type=int, default=48)
+    ap.add_argument("--max-active", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=2048)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--trace", default=None)
+    args = ap.parse_args(argv)
+
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    eng = NodeEngine(cfg, max_active=args.max_active, max_len=args.max_len,
+                     page_size=args.page_size, seed=args.seed)
+    master = BatchMaster([eng], SchedulerConfig(page_size=args.page_size))
+    rng = np.random.default_rng(args.seed)
+
+    def reqs(n, tag, plen, out):
+        return [BatchRequest(f"{tag}{i}", [int(t) for t in rng.integers(
+            2, cfg.vocab_size, plen)], out) for i in range(n)]
+
+    master.run(master.submit(reqs(1, "warm", 8, 4)))
+    torch.cuda.synchronize()
+    steps0 = eng.decode_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bo = master.run(master.submit(reqs(args.requests, "r",
+                                           args.prompt_len,
+                                           args.max_tokens)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = eng.decode_steps - steps0
+    out_tokens = sum(len(r["response"]["tokens"]) for r in bo.results)
+    if bo.request_counts["failed"]:
+        raise SystemExit(f"requests failed: {bo.request_counts}")
+
+    by_class = collections.Counter()
+    by_name = collections.Counter()
+    launches = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            launches += 1
+            us = ev.device_time if hasattr(ev, "device_time") \
+                else ev.cuda_time
+            by_class[kernel_class(ev.name)] += us
+            by_name[ev.name] += us
+    busy_s = sum(by_class.values()) / 1e6
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    print(f"served {len(bo.results)} requests ({args.prompt_len}-token "
+          f"prompts, {args.max_tokens} output tokens) in {wall:.3f} s: "
+          f"{out_tokens / wall:.1f} output tokens/s, {steps} decode steps, "
+          f"{wall / max(steps, 1) * 1e3:.2f} ms wall per step")
+    if busy_s <= 0:
+        print("device busy share: not measured (the trace holds no device "
+              "time)")
+    else:
+        print(f"device busy share: {busy_s / wall:.3f} "
+              f"({busy_s * 1e3:.1f} ms of kernels in {wall * 1e3:.1f} ms)")
+        for cls, us in by_class.most_common():
+            print(f"  {cls}: {us / 1e3:.1f} ms "
+                  f"({us / 1e6 / busy_s:.3f} of device time)")
+        print(f"device kernels: {launches} "
+              f"({launches / max(steps, 1):.0f} per decode step)")
+        print("top kernels by device time:")
+        for name, us in by_name.most_common(12):
+            print(f"  {us / 1e3:9.2f} ms  {name[:100]}")
+    if args.trace:
+        prof.export_chrome_trace(args.trace)
+        print(f"trace written to {args.trace}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,193 @@
+"""Core layers of the dense decoder: norms, RoPE, GQA attention, gated MLP.
+
+PyTorch counterpart of the dense subset of ``repro.models.layers``, with
+the same numerics order (norm reductions and softmax statistics in fp32,
+activations in ``cfg.dtype``) and the same layouts: q heads flat
+(B, S, H, dh), k/v grouped (B, S, Hkv, dh), weights in the JAX einsum
+layouts ``wq (D,H,dh)``, ``wo (H,dh,D)``, ``w1 (D,F)``.
+
+Attention runs through the Hopper kernels of ``repro_torch.kernels``:
+full-sequence attention through ``flash_attention`` and one-token decode
+through ``paged_attention`` (a dense cache is a page pool with the
+identity table).  On CPU tensors those wrappers run their plain PyTorch
+versions.
+
+Caches are written in place (the JAX package donates them instead):
+``cache_update`` and ``attention_decode`` return the same tensors they
+were given.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.models.api import ModelConfig
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.float()
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return xf.to(dt) * w
+
+
+def apply_norm(cfg: ModelConfig, p, x):
+    return rms_norm(x, p["w"])
+
+
+# ---------------------------------------------------------------------------
+# RoPE (rotate-half / neox convention)
+# ---------------------------------------------------------------------------
+
+
+def rope_tables(positions, dh: int, theta: float):
+    """fp32 (cos, sin), each (B, S, dh/2), for ``positions`` (B, S).  All
+    layers of one forward share them."""
+    half = dh // 2
+    inv = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                        device=positions.device)
+                           * 2.0 / dh))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, tables):
+    """Rotate x (B, S, ..., dh) by precomputed ``rope_tables``."""
+    cos, sin = tables
+    half = cos.shape[-1]
+    shape = cos.shape[:2] + (1,) * (x.dim() - 3) + (half,)
+    cos, sin = cos.reshape(shape), sin.reshape(shape)
+    xf = x.float()
+    x1, x2 = xf[..., :half], xf[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     -1).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """x: (B, S, ..., dh); positions: (B, S)."""
+    return apply_rope(x, rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# Attention cores
+# ---------------------------------------------------------------------------
+
+
+def chunked_attention(q, k, v, q_positions, kv_positions, *,
+                      causal: bool = True, window: int = 0,
+                      softcap: float = 0.0):
+    """Full-sequence attention (prefill): the ``flash_attention`` kernel."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           q_positions.to(torch.int32).contiguous(),
+                           kv_positions.to(torch.int32).contiguous(),
+                           causal=causal, window=window, softcap=softcap)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
+                     softcap: float = 0.0):
+    """One-token attention, q (B, 1, H, dh), against a dense cache
+    (B, S, Hkv, dh) whose first ``lengths`` positions are valid.  The cache
+    is passed to ``paged_attention`` as the pool (B*S/page, page, Hkv, dh)
+    with the identity page table: a view, no copy."""
+    if window or softcap:
+        raise NotImplementedError(
+            "decode attention with a window or a softcap is outside the "
+            "paged kernel's contract")
+    B, _, H, dh = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    page = math.gcd(S, 16)
+    k_pool = k_cache.view(B * S // page, page, Hkv, dh)
+    v_pool = v_cache.view(B * S // page, page, Hkv, v_cache.shape[-1])
+    table = torch.arange(B * S // page, dtype=torch.int32,
+                         device=q.device).reshape(B, S // page)
+    o = paged_attention(q.reshape(B, H, dh).contiguous(), k_pool, v_pool,
+                        table, lengths.to(torch.int32).contiguous())
+    return o.reshape(B, 1, H, -1)
+
+
+def cache_update(cache, new, lengths):
+    """Write ``new`` (B, 1, Hkv, dh) at position ``lengths`` of ``cache``
+    (B, S, Hkv, dh), in place.  Rows whose index falls outside [0, S) are
+    no-op writes (finished slots sit at ``lengths == S``)."""
+    B, S = cache.shape[0], cache.shape[1]
+    rows = torch.arange(B, device=cache.device)
+    inb = (lengths >= 0) & (lengths < S)
+    idx = lengths.clamp(0, S - 1).long()
+    cur = cache[rows, idx]
+    val = torch.where(inb.reshape((B,) + (1,) * (cur.dim() - 1)),
+                      new[:, 0].to(cache.dtype), cur)
+    cache[rows, idx] = val
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (flat q heads)
+# ---------------------------------------------------------------------------
+
+
+def _proj_heads(x, w):
+    """x (B,S,D) @ w (D,H,dh) -> (B,S,H,dh)."""
+    D, H, dh = w.shape
+    return torch.matmul(x, w.reshape(D, H * dh)).reshape(
+        x.shape[:-1] + (H, dh))
+
+
+def _merge_heads(o, wo):
+    """o (B,S,H,dh) @ wo (H,dh,D) -> (B,S,D)."""
+    H, dh, D = wo.shape
+    return torch.matmul(o.reshape(o.shape[:-2] + (H * dh,)),
+                        wo.reshape(H * dh, D))
+
+
+def attention_qkv(cfg: ModelConfig, p, x, positions, *, rope_tab=None):
+    """Projections with RoPE; ``rope_tab`` are this forward's shared
+    ``rope_tables`` (computed from ``positions`` when absent)."""
+    q = _proj_heads(x, p["wq"])
+    k = _proj_heads(x, p["wk"])
+    v = _proj_heads(x, p["wv"])
+    if cfg.attn_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    tab = rope_tab if rope_tab is not None else rope_tables(
+        positions, q.shape[-1], cfg.rope_theta)
+    return apply_rope(q, tab), apply_rope(k, tab), v
+
+
+def attention_fwd(cfg: ModelConfig, p, x, positions, *, rope_tab=None):
+    """Causal full-sequence self-attention; returns (out, (k, v)) for the
+    cache."""
+    q, k, v = attention_qkv(cfg, p, x, positions, rope_tab=rope_tab)
+    o = chunked_attention(q, k, v, positions, positions, causal=True,
+                          window=cfg.sliding_window,
+                          softcap=cfg.logit_softcap)
+    return _merge_heads(o, p["wo"]), (k, v)
+
+
+def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
+                     rope_tab=None):
+    """One-token decode; returns (out, k_cache, v_cache), the caches
+    updated in place."""
+    q, k, v = attention_qkv(cfg, p, x, lengths[:, None], rope_tab=rope_tab)
+    cache_update(k_cache, k, lengths)
+    cache_update(v_cache, v, lengths)
+    o = decode_attention(q, k_cache, v_cache, lengths + 1,
+                         window=cfg.sliding_window, softcap=cfg.logit_softcap)
+    return _merge_heads(o, p["wo"]), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# Gated MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_fwd(cfg: ModelConfig, p, x):
+    g = F.silu(torch.matmul(x, p["w1"]))
+    u = torch.matmul(x, p["w3"])
+    return torch.matmul(g * u, p["w2"])

@@ -1,0 +1,269 @@
+"""Dense decoder: parameters, prefill, decode step and the greedy decode
+page.
+
+PyTorch counterpart of the dense subset of ``repro.models.transformer``.
+Parameters are a plain dict in the JAX package's layout: per-layer leaves
+stacked with a leading L (``layers.attn.wq`` is (L, D, H, dh)), so
+``params_from_numpy`` takes the JAX params pytree as numpy unchanged.  The
+layer stack is a Python loop over per-layer views; the decode cache
+``{"k", "v"}`` of (L, B, max_len, Hkv, dh) is written in place.
+"""
+from __future__ import annotations
+
+import math
+import weakref
+from typing import Any, Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import compat
+from repro_torch.models import layers
+from repro_torch.models.api import ModelConfig
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    return -(-cfg.vocab_size // 16) * 16
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    """The slice ported so far: dense decoders with RMSNorm, SwiGLU, full
+    RoPE and no logit softcap (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M)."""
+    if (cfg.family != "dense" or cfg.is_moe or cfg.use_mla
+            or cfg.norm != "rmsnorm" or cfg.act != "silu"
+            or cfg.logit_softcap > 0):
+        raise NotImplementedError(
+            f"{cfg.name}: the PyTorch port serves dense RMSNorm/SwiGLU "
+            f"decoders without a logit softcap so far")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Nested dict of (shape, init) per leaf, in the layout and with the
+    scales of ``repro.models.transformer.init_params`` for a dense decoder;
+    init is the normal draw's std, or "ones" / "zeros"."""
+    _check_dense(cfg)
+    V, D, L = padded_vocab(cfg), cfg.d_model, cfg.num_layers
+    H, Hkv, dh, Fd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
+    sc, lsc = 1.0 / math.sqrt(D), 1.0 / math.sqrt(max(L, 1))
+
+    def norm(stack=()):
+        return {"w": (stack + (D,), "ones")}
+
+    attn = {"wq": ((L, D, H, dh), sc), "wk": ((L, D, Hkv, dh), sc),
+            "wv": ((L, D, Hkv, dh), sc), "wo": ((L, H, dh, D), sc * lsc)}
+    if cfg.attn_bias:
+        attn.update(bq=((L, H, dh), "zeros"), bk=((L, Hkv, dh), "zeros"),
+                    bv=((L, Hkv, dh), "zeros"))
+    return {
+        "embed": ((V, D), 0.01),
+        "lm_head": ((D, V), sc),
+        "final_norm": norm(),
+        "layers": {
+            "ln1": norm((L,)), "attn": attn, "ln2": norm((L,)),
+            "mlp": {"w1": ((L, D, Fd), sc), "w3": ((L, D, Fd), sc),
+                    "w2": ((L, Fd, D), 1.0 / math.sqrt(Fd) * lsc)},
+        },
+    }
+
+
+def _map_spec(spec, fn, path=()):
+    if isinstance(spec, dict):
+        return {k: _map_spec(v, fn, path + (k,)) for k, v in spec.items()}
+    return fn(path, spec)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+    """Random weights drawn from a seeded ``torch.Generator`` on the target
+    device (normal draws in fp32, scaled, cast to ``cfg.dtype``).  They are
+    not the JAX package's draws; use ``params_from_numpy`` for those."""
+    dev = compat.resolve_device(device)
+    dt = compat.torch_dtype(cfg.dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def make(path, spec):
+        shape, scale = spec
+        if scale == "ones":
+            return torch.ones(shape, dtype=dt, device=dev)
+        if scale == "zeros":
+            return torch.zeros(shape, dtype=dt, device=dev)
+        x = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        return (x * scale).to(dt)
+
+    return _map_spec(param_shapes(cfg), make)
+
+
+def params_from_numpy(np_params, cfg: ModelConfig, device=None):
+    """The JAX params pytree, as numpy arrays (``np.asarray`` of each leaf;
+    bf16 leaves as their 16-bit patterns), in the port's layout on
+    ``device``.  Raises on a missing, extra or misshapen leaf."""
+    dev = compat.resolve_device(device)
+    dt = compat.torch_dtype(cfg.dtype)
+    spec = param_shapes(cfg)
+
+    def walk(sp, tree, path):
+        if set(sp) != set(tree):
+            raise ValueError(f"params{'.'.join(('',) + path)}: keys "
+                             f"{sorted(tree)} != {sorted(sp)}")
+        out = {}
+        for k, v in sp.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, tree[k], path + (k,))
+                continue
+            a = np.asarray(tree[k])
+            if tuple(a.shape) != tuple(v[0]):
+                raise ValueError(f"params.{'.'.join(path + (k,))}: shape "
+                                 f"{a.shape} != {v[0]}")
+            if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
+                t = compat.from_numpy(a.view(np.uint16), torch.bfloat16, dev)
+            else:
+                t = torch.from_numpy(np.array(a)).to(dev)
+            out[k] = t.to(dt)
+        return out
+
+    return walk(spec, np_params, ())
+
+
+def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    total = 0
+
+    def count(path, spec):
+        nonlocal total
+        total += math.prod(spec[0])
+
+    _map_spec(param_shapes(cfg), count)
+    return total
+
+
+# id(stacked wq) -> (weak reference to it, per-layer views)
+_PER_LAYER: Dict[int, Tuple[Any, List[Dict[str, Any]]]] = {}
+
+
+def _per_layer(params) -> List[Dict[str, Any]]:
+    """Per-layer views of the stacked leaves, cached while the params
+    live (one view per leaf and layer instead of one per call)."""
+    anchor = params["layers"]["attn"]["wq"]
+    hit = _PER_LAYER.get(id(anchor))
+    if hit is not None and hit[0]() is anchor:
+        return hit[1]
+
+    def index(tree, i):
+        return {k: index(v, i) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+
+    views = [index(params["layers"], i) for i in range(anchor.shape[0])]
+    key = id(anchor)
+    ref = weakref.ref(anchor, lambda _: _PER_LAYER.pop(key, None))
+    _PER_LAYER[key] = (ref, views)
+    return views
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+
+def _embed_tokens(cfg, params, tokens):
+    return params["embed"][tokens.long()]
+
+
+def logits_fn(cfg, params, h):
+    return torch.matmul(h, params["lm_head"]).float()
+
+
+# ---------------------------------------------------------------------------
+# prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
+    """Dense decode cache {"k", "v"}: (L, B, max_len, Hkv, dh) zeros."""
+    _check_dense(cfg)
+    if cfg.sliding_window > 0:
+        raise NotImplementedError("sliding-window ring caches are not "
+                                  "ported yet")
+    dev = compat.resolve_device(device)
+    shape = (cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim)
+    dt = compat.torch_dtype(cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=dev),
+            "v": torch.zeros(shape, dtype=dt, device=dev)}
+
+
+def _backbone(cfg: ModelConfig, params, tokens):
+    """tokens (B, S) -> (final-normed hidden (B, S, D), cache); the cache
+    is (L, B, S, Hkv, dh) per leaf."""
+    _check_dense(cfg)
+    B, S = tokens.shape
+    h = _embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=tokens.device)[None].expand(B, S)
+    tab = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    cache = init_cache(cfg, B, S, tokens.device)
+    for i, p in enumerate(_per_layer(params)):
+        xn = layers.apply_norm(cfg, p["ln1"], h)
+        a, (k, v) = layers.attention_fwd(cfg, p["attn"], xn, positions,
+                                         rope_tab=tab)
+        cache["k"][i] = k
+        cache["v"][i] = v
+        h = h + a
+        xn = layers.apply_norm(cfg, p["ln2"], h)
+        h = h + layers.mlp_fwd(cfg, p["mlp"], xn)
+    return layers.apply_norm(cfg, params["final_norm"], h), cache
+
+
+def prefill(cfg: ModelConfig, params, tokens):
+    """Prefill: returns (last-position logits (B, 1, V), cache)."""
+    h, cache = _backbone(cfg, params, tokens)
+    return logits_fn(cfg, params, h[:, -1:, :]), cache
+
+
+def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
+    """One decode step: tokens (B,), lengths (B,) -> (raw next-token
+    logits (B, V) fp32, cache).  Writes each row's new K/V at ``lengths``
+    in place (dropped for rows at or past the cache length)."""
+    _check_dense(cfg)
+    h = _embed_tokens(cfg, params, tokens[:, None])
+    positions = lengths[:, None]
+    tab = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    for i, p in enumerate(_per_layer(params)):
+        xn = layers.apply_norm(cfg, p["ln1"], h)
+        a, _, _ = layers.attention_decode(cfg, p["attn"], xn, cache["k"][i],
+                                          cache["v"][i], lengths,
+                                          rope_tab=tab)
+        h = h + a
+        xn = layers.apply_norm(cfg, p["ln2"], h)
+        h = h + layers.mlp_fwd(cfg, p["mlp"], xn)
+    h = layers.apply_norm(cfg, params["final_norm"], h)
+    return logits_fn(cfg, params, h)[:, 0, :], cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, lengths):
+    """One greedy decode step -> (next tokens (B,) int32, cache)."""
+    logits, cache = decode_step_logits(cfg, params, cache, tokens, lengths)
+    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+
+
+def decode_page(cfg: ModelConfig, params, cache, tokens, lengths, remaining,
+                steps: int) -> Tuple:
+    """Greedy decode megastep: ``steps`` decode steps with tokens, lengths,
+    ``remaining`` and the cache kept on the device; each step's token
+    feeds the next, and a slot stops advancing once its ``remaining``
+    reaches zero (its writes land one past its valid region, as in the
+    JAX scan).  Returns ``(token_block (steps, B), tokens, lengths,
+    remaining, cache)``; row t is each slot's token after step t."""
+    rows = []
+    for _ in range(steps):
+        nxt, cache = decode_step(cfg, params, cache, tokens, lengths)
+        live = remaining > 0
+        step = live.to(torch.int32)
+        tokens = torch.where(live, nxt, tokens)
+        lengths = lengths + step
+        remaining = remaining - step
+        rows.append(tokens)
+    return torch.stack(rows), tokens, lengths, remaining, cache

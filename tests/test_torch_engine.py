@@ -1,0 +1,170 @@
+"""The port's serving slice as a whole, held to the JAX engine on the CPU.
+
+The JAX ``NodeEngine(seed=0)`` and the port's ``NodeEngine`` built from
+the same weights (``params_from_numpy``) are each driven by their own
+package's ``BatchMaster`` through the same workload: six requests, then a
+second submit whose prompts share full pages with a first-batch prompt
+(a cross-submit prefix hit, teacher-forced tail) and repeat one prompt
+(deduplicated within the batch).  Reduced ``llama3_2_1b`` in fp32.
+Tokens must be identical per ``custom_id``; host-store pages agree to
+1e-5 (the two frameworks sum in different orders).
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from repro.configs import reduced_config as j_reduced
+from repro.core.scheduler import SchedulerConfig as JSchedulerConfig
+from repro.runtime.api import BatchMaster as JBatchMaster
+from repro.runtime.api import BatchRequest as JBatchRequest
+from repro.runtime.engine import NodeEngine as JNodeEngine
+from repro_torch.configs import reduced_config
+from repro_torch.core.scheduler import CoroutineScheduler, SchedulerConfig
+from repro_torch.models import transformer as TT
+from repro_torch.runtime.api import BatchMaster, BatchRequest
+from repro_torch.runtime.engine import NodeEngine
+from repro_torch.sampling import SamplingParams
+
+PAGE = 8
+ENGINE_KW = dict(max_active=3, max_len=128, page_size=PAGE)
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def _cfgs():
+    return (dataclasses.replace(j_reduced("llama3_2_1b"), dtype="float32"),
+            dataclasses.replace(reduced_config("llama3_2_1b"),
+                                dtype="float32"))
+
+
+def _workload(vocab):
+    r = np.random.default_rng(11)
+    first = [(f"a{i}", [int(t) for t in r.integers(2, vocab, int(n))], int(m))
+             for i, (n, m) in enumerate(zip([20, 5, 12, 17, 9, 24],
+                                            [9, 14, 5, 20, 12, 7]))]
+    base = first[0][1]
+    tail = [int(t) for t in r.integers(2, vocab, 5)]
+    second = [("b0", base[:2 * PAGE] + tail, 10),
+              ("b1", base[:PAGE] + tail, 6),
+              ("b2", first[3][1], 8),
+              ("b3", first[3][1], 8)]
+    return first, second
+
+
+def _spy_host_pages(store):
+    """Snapshot each sequence's host KV, in order, when the scheduler drops
+    it (seq ids restart with each batch's scheduler)."""
+    seen = []
+    orig = store.drop
+
+    def drop(seq_id):
+        st = store.seqs.get(seq_id)
+        if st is not None:
+            seen.append((seq_id, {
+                n: np.concatenate(ps, axis=1)[:, :st.length]
+                for n, ps in st.pages.items() if ps}))
+        orig(seq_id)
+
+    store.drop = drop
+    return seen
+
+
+def _serve(master, req_cls, batches):
+    out = {}
+    for batch in batches:
+        bo = master.run(master.submit(
+            [req_cls(custom_id=c, prompt=p, max_tokens=m)
+             for c, p, m in batch]))
+        assert bo.request_counts["failed"] == 0
+        for row in bo.results:
+            out[row["custom_id"]] = row["response"]["tokens"]
+    return out
+
+
+def test_engine_matches_jax_engine_through_batch_master():
+    jcfg, tcfg = _cfgs()
+    jeng = JNodeEngine(jcfg, seed=0, **ENGINE_KW)
+    params = TT.params_from_numpy(jax.tree.map(np.asarray, jeng.params),
+                                  tcfg, device="cpu")
+    teng = NodeEngine(tcfg, params=params, device="cpu", **ENGINE_KW)
+    jpages, tpages = (_spy_host_pages(jeng.host_store),
+                      _spy_host_pages(teng.host_store))
+    batches = _workload(tcfg.vocab_size)
+    want = _serve(JBatchMaster([jeng], JSchedulerConfig(page_size=PAGE)),
+                  JBatchRequest, batches)
+    got = _serve(BatchMaster([teng], SchedulerConfig(page_size=PAGE)),
+                 BatchRequest, batches)
+    assert got == want
+    assert teng.prefill_tokens_saved == jeng.prefill_tokens_saved > 0
+    assert teng.prefill_tokens == jeng.prefill_tokens
+    assert teng.decode_steps == jeng.decode_steps
+    assert [s for s, _ in tpages] == [s for s, _ in jpages]
+    assert len(tpages) == 10
+    for (sid, tleaves), (_, jleaves) in zip(tpages, jpages):
+        assert tleaves.keys() == jleaves.keys() == {"k", "v"}
+        for name, a in jleaves.items():
+            np.testing.assert_allclose(tleaves[name], a, atol=1e-5,
+                                       rtol=1e-5, err_msg=f"{sid}.{name}")
+
+
+def test_one_transfer_per_decode_page():
+    """Transfer spy: exactly ONE device->host copy per decode_page call."""
+    _, tcfg = _cfgs()
+    eng = NodeEngine(tcfg, max_active=3, max_len=128, page_size=8, seed=0,
+                     device="cpu")
+    sched = CoroutineScheduler([eng], SchedulerConfig(page_size=8))
+    sched.submit([[2, 3, 4, 5]] * 3, [20] * 3)
+
+    calls = []
+    in_page = [False]
+    orig_decode, orig_to_host = eng.decode_page, eng._to_host
+
+    def spy_to_host(arr):
+        if in_page[0]:              # ignore prefill/sync transfers
+            calls[-1] += 1
+        return orig_to_host(arr)
+
+    def spy_decode(active, P):
+        calls.append(0)
+        in_page[0] = True
+        try:
+            return orig_decode(active, P)
+        finally:
+            in_page[0] = False
+
+    eng.decode_page, eng._to_host = spy_decode, spy_to_host
+    rep = sched.run(max_ticks=300)
+    assert rep["completed"] == 3
+    assert calls and all(c == 1 for c in calls), calls
+
+
+def test_later_slices_are_refused():
+    """Sampled requests and the module runtime wait for later slices."""
+    _, tcfg = _cfgs()
+    with pytest.raises(NotImplementedError):
+        NodeEngine(tcfg, device="cpu", module_granularity=True)
+    eng = NodeEngine(tcfg, device="cpu", max_active=2, max_len=64,
+                     page_size=8)
+    sched = CoroutineScheduler([eng], SchedulerConfig(page_size=8))
+    sched.submit([[2, 3, 4]], [4],
+                 sampling=[SamplingParams(temperature=0.7, seed=1)])
+    with pytest.raises(NotImplementedError):
+        sched.run(max_ticks=50)
+
+
+def test_serve_cli_on_cpu():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--reduced",
+         "--device", "cpu", "--requests", "4"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "completed: 4 failed: 0" in proc.stdout, proc.stdout

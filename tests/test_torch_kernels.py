@@ -1,0 +1,171 @@
+"""The port's attention kernels, held to the JAX package on the CPU.
+
+On CPU tensors each wrapper of ``repro_torch.kernels`` runs its plain
+PyTorch version; these tests hold those plain versions to the JAX
+functions the serving path runs and to the Pallas kernels in interpret
+mode, on the same inputs made with numpy from a seed.  The CUDA kernels
+themselves are held to the plain versions on the card by
+``chip_smoke.py``.  Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the two
+frameworks sum in different orders).
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as pallas_flash
+from repro.kernels.flash_attention.ref import ref_attention
+from repro.kernels.paged_attention.ops import paged_attention as pallas_paged
+from repro.kernels.paged_attention.ref import ref_paged_attention
+from repro.models import flash as jflash
+from repro.models import layers as jlayers
+from repro_torch import kernels
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_plain)
+from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_attention_plain)
+from repro_torch.models import flash as tflash
+from repro_torch.models import layers as tlayers
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+
+def _qkv(seed, B, Sq, Skv, H, Hkv, dh):
+    r = np.random.default_rng(seed)
+    q = r.standard_normal((B, Sq, H, dh)).astype(np.float32)
+    k = r.standard_normal((B, Skv, Hkv, dh)).astype(np.float32)
+    v = r.standard_normal((B, Skv, Hkv, dh)).astype(np.float32)
+    return q, k, v
+
+
+def _pos(B, start, n):
+    return np.broadcast_to(np.arange(start, start + n, dtype=np.int32)[None],
+                           (B, n)).copy()
+
+
+def _t(*xs):
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in xs]
+
+
+# (name, B, Sq, Skv, H, Hkv, dh, causal, window, softcap)
+PREFILL_CASES = [
+    ("causal_gqa", 2, 64, 64, 4, 2, 32, True, 0, 0.0),
+    ("causal_gqa3", 1, 40, 40, 6, 2, 32, True, 0, 0.0),
+    ("offset_q", 2, 8, 64, 4, 2, 32, True, 0, 0.0),
+    ("window", 2, 64, 64, 4, 1, 32, True, 16, 0.0),
+    ("softcap", 1, 32, 32, 4, 2, 64, True, 0, 5.0),
+    ("noncausal", 2, 32, 48, 4, 4, 32, False, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", PREFILL_CASES,
+                         ids=[c[0] for c in PREFILL_CASES])
+def test_plain_prefill_matches_jax_flash(case):
+    """Plain prefill attention == ``repro.models.flash.flash_attention``
+    (explicit positions; the offset case is the tail recompute's Sq < Skv
+    shape with q positions at the end of the keys)."""
+    _, B, Sq, Skv, H, Hkv, dh, causal, window, softcap = case
+    q, k, v = _qkv(1, B, Sq, Skv, H, Hkv, dh)
+    qp, kp = _pos(B, Skv - Sq, Sq), _pos(B, 0, Skv)
+    chunk = min(512, Skv)
+    want = jflash.flash_attention((causal, window, chunk, softcap),
+                                  *map(jnp.asarray, (q, k, v, qp, kp)))
+    got = flash_attention_plain(*_t(q, k, v, qp, kp), causal=causal,
+                                window=window, softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 16)])
+def test_plain_prefill_matches_pallas_interpret(causal, window):
+    """Plain prefill attention == the Pallas TPU kernel in interpret mode
+    (implicit positions 0..S-1, block-aligned S so its padding does not
+    enter), with GQA."""
+    B, S, H, Hkv, dh = 2, 64, 4, 2, 32
+    q, k, v = _qkv(2, B, S, S, H, Hkv, dh)
+    want = pallas_flash(*map(jnp.asarray, (q, k, v)), causal=causal,
+                        window=window, interpret=True)
+    got = flash_attention_plain(*_t(q, k, v, _pos(B, 0, S), _pos(B, 0, S)),
+                                causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("chunk", [512, 64])
+def test_plain_prefill_masks_true_length(chunk):
+    """Regression for the reference wrapper's padding fault: non-causal
+    attention with Skv = 96 (not a multiple of the 64-key block).  The
+    JAX wrapper ``repro.kernels.flash_attention.ops.flash_attention`` pads
+    the keys to 128 and attends to the zero padding, which puts it 0.127
+    away from ``ref_attention`` here; the port masks at the true Skv and
+    matches the oracle to 1e-5, with one chunk or a ragged last chunk."""
+    B, S, H, Hkv, dh = 1, 96, 4, 2, 32
+    q, k, v = _qkv(3, B, S, S, H, Hkv, dh)
+    want = ref_attention(*map(jnp.asarray, (q, k, v)), causal=False)
+    got = tflash.flash_attention(*_t(q, k, v, _pos(B, 0, S), _pos(B, 0, S)),
+                                 causal=False, chunk=chunk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _pool(seed, B, H, Hkv, dh, page, max_pages, extra):
+    r = np.random.default_rng(seed)
+    num_pages = B * max_pages + extra
+    q = r.standard_normal((B, H, dh)).astype(np.float32)
+    kp = r.standard_normal((num_pages, page, Hkv, dh)).astype(np.float32)
+    vp = r.standard_normal((num_pages, page, Hkv, dh)).astype(np.float32)
+    table = r.permutation(num_pages)[:B * max_pages].reshape(
+        B, max_pages).astype(np.int32)
+    return q, kp, vp, table
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (6, 2), (8, 8)])
+def test_plain_decode_matches_pallas_interpret(H, Hkv):
+    """Plain decode attention == the Pallas paged kernel in interpret mode
+    and its oracle, over a shuffled page table and mixed lengths (one
+    inside a page, one a full table, one ragged)."""
+    B, dh, page, max_pages = 3, 32, 8, 4
+    q, kp, vp, table = _pool(4, B, H, Hkv, dh, page, max_pages, extra=3)
+    lengths = np.array([5, 32, 17], np.int32)
+    args = (q, kp, vp, table, lengths)
+    got = paged_attention_plain(*_t(*args)).numpy()
+    want = pallas_paged(*map(jnp.asarray, args), interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+    oracle = ref_paged_attention(*map(jnp.asarray, args))
+    np.testing.assert_allclose(got, np.asarray(oracle), **TOL)
+
+
+@pytest.mark.parametrize("S", [8, 64, 48])
+def test_dense_decode_view_matches_jax_decode_attention(S):
+    """The port's ``layers.decode_attention`` (the dense slot cache passed
+    to paged attention as a pool view with the identity table) ==
+    ``repro.models.layers.decode_attention``, including a cache of the
+    prefix-hit tail's pow2 length 8 at batch 1 shapes, a length that is
+    not a power of two, and lengths past the cache (finished slots)."""
+    r = np.random.default_rng(5)
+    B, H, Hkv, dh = 3, 6, 2, 32
+    q = r.standard_normal((B, 1, H, dh)).astype(np.float32)
+    kc = r.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    vc = r.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    lengths = np.array([1, S // 2 + 1, S + 1], np.int32)
+    want = jlayers.decode_attention(*map(jnp.asarray, (q, kc, vc, lengths)))
+    got = tlayers.decode_attention(*_t(q, kc, vc, lengths))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_cpu_wrappers_run_plain_and_count_no_launch():
+    """On CPU tensors a wrapper is its plain version and launches nothing:
+    the launch counters stay at zero."""
+    kernels.reset_launches()
+    q, k, v = _qkv(6, 1, 16, 16, 4, 2, 32)
+    pos = _pos(1, 0, 16)
+    a = flash_attention(*_t(q, k, v, pos, pos))
+    b = flash_attention_plain(*_t(q, k, v, pos, pos))
+    assert torch.equal(a, b)
+    qd, kp, vp, table = _pool(7, 2, 4, 2, 32, 8, 2, extra=0)
+    lengths = torch.tensor([3, 16], dtype=torch.int32)
+    c = paged_attention(*_t(qd, kp, vp, table), lengths)
+    d = paged_attention_plain(*_t(qd, kp, vp, table), lengths)
+    assert torch.equal(c, d)
+    assert kernels.launches() == {"flash_attention": 0, "paged_attention": 0}
+    assert set(kernels.KERNELS) == {"flash_attention", "paged_attention"}
+    for name in kernels.KERNELS:
+        op, plain = kernels.get_kernel(name)
+        assert callable(op) and callable(plain)

@@ -1,0 +1,79 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points need a card unless the caller asks for the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import compat
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.models import transformer as TT
+from repro_torch.runtime.engine import NodeEngine
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+PKG = SRC / "repro_torch"
+
+_BLOCKED = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+sys.modules["ml_dtypes"] = None
+import repro_torch
+from repro_torch.runtime.engine import NodeEngine
+from repro_torch.runtime.api import BatchMaster
+from repro_torch.launch import serve
+from repro_torch.kernels.flash_attention import ops as f
+from repro_torch.kernels.paged_attention import ops as p
+from repro_torch.kernels import build
+print("imported", sorted(m for m, mod in sys.modules.items()
+                         if mod is not None
+                         and m.split(".")[0] in ("jax", "repro", "ml_dtypes")))
+"""
+
+
+def test_import_with_jax_and_repro_blocked():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _BLOCKED],
+                          capture_output=True, text=True, env=env,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "imported []" in proc.stdout
+
+
+def test_no_source_imports_jax_or_repro():
+    pat = re.compile(r"^\s*(import|from)\s+(jax|ml_dtypes|repro)\b")
+    files = sorted(PKG.rglob("*.py"))
+    assert len(files) > 20
+    bad = [f"{f.relative_to(SRC)}:{i}: {line.strip()}"
+           for f in files
+           for i, line in enumerate(f.read_text().splitlines(), 1)
+           if pat.match(line)]
+    assert not bad, bad
+
+
+def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config("llama3_2_1b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        NodeEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TT.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compat.resolve_device("cuda")
+    assert compat.resolve_device("cpu").type == "cpu"
+    eng = NodeEngine(cfg, device="cpu", max_active=2, max_len=32,
+                     page_size=8)
+    assert eng.cache["k"].device.type == "cpu"
+
+
+def test_configs_are_the_published_dense_ones():
+    cfg = get_config("llama3_2_1b")
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.vocab_size, cfg.dtype) == \
+        (16, 2048, 32, 8, 64, 128256, "bfloat16")
+    assert get_config("qwen2_0_5b").attn_bias
+    assert get_config("smollm_360m").num_kv_heads == 5
