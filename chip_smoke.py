@@ -14,14 +14,21 @@ result):
    (atol 1e-4, rtol 1e-4: summation order), at the serving path's shapes
    and at the contract's edge cases, and time the kernel, its plain
    version and ``F.scaled_dot_product_attention`` (a yardstick only; the
-   port never calls it) at the serving path's shapes, beside the bound;
-4. the serving path: full-width Llama-3.2-1B in bf16 (random weights from
-   a seed) through the port's ``BatchMaster`` and one ``NodeEngine``,
-   ~8 requests and a resubmitted prefix, with every kernel's launch count
-   read around that run alone;
+   port never calls it) at the serving path's shapes, beside the bound.
+   The fused sampling kernel (fp32, B=8, V=128256, and edge rows) must
+   give exactly its plain version's tokens and top-K ids, its stats to
+   rtol 1e-5 (float summation order), and equal bits over two launches;
+   its yardstick is the port's own shared-sort route (no single PyTorch
+   call computes the function);
+4. the serving paths: full-width Llama-3.2-1B in bf16 (random weights from
+   a seed) through the port's ``BatchMaster`` and one ``NodeEngine``:
+   the greedy path (~8 requests and a resubmitted prefix), then the
+   sampled path (8 requests of mixed SamplingParams with a stop token and
+   top-5 logprobs, submitted twice: the streams must be identical), with
+   every kernel's launch count read around each path alone;
 5. a reduced fp32 copy of the model served once on "cuda" (the kernels)
-   and once on "cpu" (the plain versions): the greedy tokens of one page
-   must be identical.
+   and once on "cpu" (the plain versions), greedy and sampled requests:
+   the tokens of one page must be identical.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -55,6 +62,8 @@ REPLACES = {
         "src/repro/kernels/flash_attention/flash_attention.py:78",
     "paged_attention":
         "src/repro/kernels/paged_attention/paged_attention.py:73",
+    "fused_sampling":
+        "src/repro/kernels/fused_sampling/fused_sampling.py:273",
 }
 
 
@@ -268,7 +277,149 @@ def check_paged(dev, timer):
                 f"H{H}/{Hkv} D{D} sum(len)={tokens} bf16")
 
 
+def check_fused_sampling(dev, timer):
+    from repro_torch import sampling as smp
+    from repro_torch.kernels.fused_sampling.ops import (NEG, fused_sample,
+                                                        fused_sample_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+
+    def rows(B, V, k=None, p=None, min_p=None):
+        x = 2.0 * torch.randn((B, V), generator=gen, device=dev)
+        u = torch.rand((B, V), generator=gen, device=dev).clamp(1e-7,
+                                                                1 - 1e-7)
+        g = -torch.log(-torch.log(u))
+        raw = torch.randn((B, V), generator=gen, device=dev)
+        cyc = torch.arange(B, device=dev)
+
+        def col(v, default, dt):
+            v = default[cyc % len(default)] if v is None else v
+            return torch.as_tensor(v, device=dev).to(dt).expand(B) \
+                .contiguous()
+
+        return (x, g, col(k, torch.tensor([0, 1, 5, 40, 300], device=dev),
+                          torch.int32),
+                col(p, torch.tensor([1.0, 0.95, 0.9, 0.5], device=dev),
+                    torch.float32),
+                col(min_p, torch.tensor([0.0, 0.02, 0.1], device=dev),
+                    torch.float32), raw)
+
+    def case(tag, args, lp_k):
+        x, g, k, p, mp, raw = args
+        kw = dict(raw=raw if lp_k >= 0 else None, lp_k=max(lp_k, 0),
+                  with_lanes=lp_k >= 0)
+        got = fused_sample(x, g, k, p, mp, **kw)
+        again = fused_sample(x, g, k, p, mp, **kw)
+        torch.cuda.synchronize()
+        want = fused_sample_plain(x, g, k, p, mp, **kw)
+        err = 0.0
+        for key, w in want.items():
+            if not torch.equal(got[key], again[key]):
+                raise AssertionError(f"fused_sampling {tag}: {key} differs "
+                                     f"between two launches")
+            if key in ("sampled", "greedy", "top_idx"):
+                if not torch.equal(got[key], w):
+                    raise AssertionError(f"fused_sampling {tag}: {key} "
+                                         f"{got[key].tolist()} != plain "
+                                         f"{w.tolist()}")
+                continue
+            fin = torch.isfinite(w)
+            if not torch.equal(fin, torch.isfinite(got[key])) or \
+                    not torch.allclose(got[key][fin], w[fin], rtol=1e-5,
+                                       atol=1e-6):
+                raise AssertionError(f"fused_sampling {tag}: {key} "
+                                     f"{got[key].tolist()} vs plain "
+                                     f"{w.tolist()}")
+            if fin.any():
+                err = max(err, (got[key][fin] - w[fin]).abs().max().item())
+        if not torch.equal(got["greedy"],
+                           torch.argmax(x, dim=1).to(torch.int32)):
+            raise AssertionError(f"fused_sampling {tag}: greedy != argmax")
+        log(f"  fused_sampling {tag}: tokens exact, max_abs_err={err:.3e}, "
+            f"two launches equal ok")
+        return err
+
+    B, V = 8, 128256                          # the serving path's shape
+    main = rows(B, V)
+    errs = [case("B8 V128256 mixed", main, -1),
+            case("B8 V128256 mixed lanes5", main, 5),
+            case("filters off", rows(4, V, 0, 1.0, 0.0), 0),
+            case("k=1", rows(4, V, 1, 1.0, 0.0), -1),
+            case("top-p only", rows(4, V, 0, 0.6, 0.0), -1),
+            case("min-p only", rows(4, V, 0, 1.0, 0.05), 3),
+            case("odd V 50257 mixed", rows(5, 50257), 2),
+            case("B1 V7 k3", rows(1, 7, 3, 0.9, 0.0), 7)]
+    err = max(errs)
+
+    x, g, k, p, mp, raw = main
+    nbytes = {lanes: B * V * 4 * (3 if lanes else 2) for lanes in (0, 1)}
+    bound = {n: nbytes[n] / PEAK_BYTES * 1e3 for n in nbytes}
+    ms = timer(lambda: fused_sample(x, g, k, p, mp))
+    ms5 = timer(lambda: fused_sample(x, g, k, p, mp, raw=raw, lp_k=5,
+                                     with_lanes=True))
+    plain_ms = timer(lambda: fused_sample_plain(x, g, k, p, mp), iters=5)
+    plain5 = timer(lambda: fused_sample_plain(x, g, k, p, mp, raw=raw,
+                                              lp_k=5, with_lanes=True),
+                   iters=5)
+
+    def sort_route():
+        tau = smp.joint_threshold(x, k, p, mp, 0)
+        s = torch.where(x >= tau[:, None], x + g, NEG)
+        return torch.argmax(s, dim=1), torch.argmax(x, dim=1)
+
+    sort_ms = timer(sort_route, iters=5)
+    log(f"  fused_sampling f32 B{B} V{V} mixed k/p/min_p: kernel {ms:.4f} "
+        f"ms (lanes K=5: {ms5:.4f} ms), plain {plain_ms:.4f} ms (lanes "
+        f"{plain5:.4f} ms), bound {bound[0]:.5f} ms ({nbytes[0] / 1e6:.2f} "
+        f"MB; lanes {bound[1]:.5f} ms, {nbytes[1] / 1e6:.2f} MB)")
+    log(f"  yardstick: the port's shared-sort route on the same rows "
+        f"{sort_ms:.4f} ms; no single PyTorch call computes this function")
+    return dict(name="fused_sampling", route="cuda",
+                source="src/repro_torch/csrc/fused_sampling.cu",
+                replaces=REPLACES["fused_sampling"], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by="bytes",
+                library_ms=None, ms_lanes5=ms5, plain_ms_lanes5=plain5,
+                bound_ms_lanes5=bound[1], sort_route_ms=sort_ms,
+                shape=f"B{B} V{V} f32 mixed k/p/min_p, no lanes")
+
+
 # ---------------------------------------------------------------- phase 4
+class _PageClock:
+    """Host-clock spans of an engine's prefill and decode_page calls,
+    each ended by a synchronize; decode pages are split into sampled
+    (any non-greedy sequence active) and greedy."""
+
+    def __init__(self, eng):
+        self.eng = eng
+        self.spans = {"prefill": [], "decode": [], "sampled": []}
+        self.orig = (eng.prefill, eng.decode_page)
+        eng.prefill = self._wrap("prefill", self.orig[0],
+                                 lambda: eng.prefill_tokens)
+        eng.decode_page = self._wrap("decode", self.orig[1],
+                                     lambda: eng.decode_steps)
+
+    def _wrap(self, kind, fn, count):
+        def run(active, *a):
+            sampled = kind == "decode" and any(
+                not c.sampling.is_greedy_default for c in active)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            before = count()
+            fn(active, *a)
+            torch.cuda.synchronize()
+            self.spans["sampled" if sampled else kind].append(
+                (time.perf_counter() - t, count() - before))
+        return run
+
+    def restore(self):
+        self.eng.prefill, self.eng.decode_page = self.orig
+
+    def per_step(self, kind):
+        s, n = map(sum, zip(*self.spans[kind])) if self.spans[kind] \
+            else (0.0, 0)
+        return s, n, s * 1e3 / max(n, 1)
+
+
 def serve_main_path(dev):
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -301,26 +452,10 @@ def serve_main_path(dev):
     # a resubmitted prefix: 15 shared pages of r7, then a new tail
     second = [BatchRequest("p0", first[7].prompt[:15 * page] + prompt(20),
                            32)]
-    # (seconds, prompt tokens or decode steps) of each call
-    spans = {"prefill": [], "decode": []}
-    orig_prefill, orig_decode = eng.prefill, eng.decode_page
-
-    def timed(kind, fn, count):
-        def run(*a):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            before = count()
-            fn(*a)
-            torch.cuda.synchronize()
-            spans[kind].append((time.perf_counter() - t, count() - before))
-        return run
-
-    eng.prefill = timed("prefill", orig_prefill,
-                        lambda: eng.prefill_tokens)
-    eng.decode_page = timed("decode", orig_decode, lambda: eng.decode_steps)
+    clock = _PageClock(eng)
     saved0 = eng.prefill_tokens_saved
 
-    kernels.reset_launches()                    # the main path alone
+    kernels.reset_launches()                    # the greedy path alone
     t0 = time.perf_counter()
     results = []
     for batch in (first, second):
@@ -333,7 +468,7 @@ def serve_main_path(dev):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launches()
-    eng.prefill, eng.decode_page = orig_prefill, orig_decode
+    clock.restore()
 
     want = {r.custom_id: r.max_tokens for r in first + second}
     vpad = T.padded_vocab(cfg)
@@ -345,9 +480,12 @@ def serve_main_path(dev):
     saved = eng.prefill_tokens_saved - saved0
     if saved <= 0:
         raise AssertionError("the resubmitted prefix was not reused")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+    for name in ("flash_attention", "paged_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the greedy "
+                                 f"path")
+    if launches["fused_sampling"] != 0:
+        raise AssertionError("an all-greedy page launched fused_sampling")
     # the model's logits on a short prompt: finite, of the padded vocab
     logits, _ = T.prefill(cfg, eng.params, torch.tensor(
         [first[0].prompt], dtype=torch.int32, device=dev))
@@ -355,19 +493,119 @@ def serve_main_path(dev):
         raise AssertionError(f"bad logits {tuple(logits.shape)}")
 
     out_tokens = sum(len(r["response"]["tokens"]) for r in results)
-    pf_s, pf_tok = map(sum, zip(*spans["prefill"]))
-    dc_s, dc_steps = map(sum, zip(*spans["decode"]))
-    log(f"  served {len(results)} requests, {out_tokens} output tokens in "
-        f"{wall:.3f} s: {out_tokens / wall:.1f} output tokens/s")
-    log(f"  prefill {pf_s * 1e3:.1f} ms for {pf_tok} prompt tokens "
+    pf_s, pf_tok, _ = clock.per_step("prefill")
+    dc_s, dc_steps, dc_ms = clock.per_step("decode")
+    log(f"  greedy: served {len(results)} requests, {out_tokens} output "
+        f"tokens in {wall:.3f} s: {out_tokens / wall:.1f} output tokens/s")
+    log(f"  greedy: prefill {pf_s * 1e3:.1f} ms for {pf_tok} prompt tokens "
         f"(prefix reuse saved {saved}); decode {dc_s * 1e3:.1f} ms for "
-        f"{dc_steps} steps = {dc_s * 1e3 / max(dc_steps, 1):.2f} ms/step")
-    log("  prefill calls (ms, prompt tokens forwarded): "
-        + ", ".join(f"({s * 1e3:.1f}, {n})" for s, n in spans["prefill"]))
-    log(f"  kernel launches on the main path: {launches}")
+        f"{dc_steps} steps = {dc_ms:.2f} ms/step (greedy pages)")
+    log("  greedy: prefill calls (ms, prompt tokens forwarded): "
+        + ", ".join(f"({s * 1e3:.1f}, {n})"
+                    for s, n in clock.spans["prefill"]))
+    log(f"  kernel launches on the greedy path: {launches}")
+    sampled = serve_sampled_path(dev, eng, master, prompt)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     log(f"  peak device memory {peak:.2f} GB")
-    return launches
+    return launches, sampled
+
+
+def serve_sampled_path(dev, eng, master, prompt):
+    """The sampled path on the same engine: 8 requests of mixed
+    SamplingParams, submitted twice with identical streams required."""
+    from repro_torch import kernels
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.api import BatchRequest
+    from repro_torch.sampling import SamplingParams
+
+    cfg = eng.cfg
+    prompts = [prompt(n) for n in (16, 40, 64, 96, 128, 24, 200, 48)]
+    outs = [12, 40, 48, 32, 24, 40, 36, 44]
+    sps = [SamplingParams(),                            # greedy rider
+           SamplingParams(temperature=0.6, top_p=0.9, seed=1),
+           SamplingParams(temperature=0.8, top_k=40, seed=2),
+           SamplingParams(temperature=0.7, min_p=0.05, seed=3),
+           SamplingParams(temperature=0.9, repetition_penalty=1.2,
+                          presence_penalty=0.3, frequency_penalty=0.2,
+                          seed=4),
+           SamplingParams(temperature=1.0, top_k=50, top_p=0.95, seed=5),
+           None,                                         # the stop row
+           SamplingParams(temperature=0.8, top_p=0.8, seed=7)]
+
+    def batch(stop):
+        rows = []
+        for i, (pr, m, sp) in enumerate(zip(prompts, outs, sps)):
+            if sp is None:
+                sp = SamplingParams(temperature=0.9, top_k=100, seed=6,
+                                    stop=stop)
+            rows.append(BatchRequest(f"s{i}", pr, m, sampling=sp,
+                                     logprobs=i == 3, top_logprobs=5
+                                     if i == 3 else 0))
+        return rows
+
+    def serve(reqs):
+        bo = master.run(master.submit(reqs))
+        if bo.request_counts["completed"] != len(reqs) or \
+                bo.request_counts["failed"]:
+            raise AssertionError(f"sampled requests not completed: "
+                                 f"{bo.request_counts}")
+        return {r["custom_id"]: r["response"] for r in bo.results}
+
+    # a probe run without the stop set picks a token the stop row emits
+    probe = serve(batch(()))
+    stop_tok = probe["s6"]["tokens"][5]
+    runs, clocks, walls, launch = [], [], [], []
+    for _ in range(2):
+        clock = _PageClock(eng)
+        kernels.reset_launches()                # the sampled path alone
+        t0 = time.perf_counter()
+        runs.append(serve(batch((stop_tok,))))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        launch.append(kernels.launches())
+        clock.restore()
+        clocks.append(clock)
+    for name, n in launch[0].items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the sampled "
+                                 f"path")
+    if runs[0] != runs[1]:
+        raise AssertionError("the resubmitted sampled batch gave other "
+                             "streams")
+    vpad = T.padded_vocab(cfg)
+    for cid, resp in runs[0].items():
+        toks = resp["tokens"]
+        if not toks or not all(0 <= t < vpad for t in toks):
+            raise AssertionError(f"{cid}: bad tokens {toks}")
+    s6 = runs[0]["s6"]["tokens"]
+    idx = probe["s6"]["tokens"].index(stop_tok)
+    if s6 != probe["s6"]["tokens"][:idx + 1] or \
+            runs[0]["s6"]["finish_reason"] != "stop":
+        raise AssertionError(f"the stop row did not stop at {stop_tok}: "
+                             f"{s6}")
+    for cid in runs[0]:
+        if cid != "s6" and runs[0][cid]["tokens"] != probe[cid]["tokens"]:
+            raise AssertionError(f"{cid}: the stop row changed a "
+                                 f"neighbour's stream")
+    lp = runs[0]["s3"]["logprobs"]
+    if len(lp["token_logprobs"]) != outs[3] or \
+            any(len(row) != 5 for row in lp["top_logprobs"]) or \
+            not all(math.isfinite(v) and v <= 0
+                    for v in lp["token_logprobs"]):
+        raise AssertionError(f"bad logprobs {lp['token_logprobs'][:4]}")
+    out_tokens = sum(len(r["tokens"]) for r in runs[0].values())
+    for i, (clock, wall) in enumerate(zip(clocks, walls)):
+        s_s, s_n, s_ms = clock.per_step("sampled")
+        g_s, g_n, g_ms = clock.per_step("decode")
+        log(f"  sampled run {i}: {out_tokens} output tokens in {wall:.3f} "
+            f"s: {out_tokens / wall:.1f} output tokens/s; decode "
+            f"{s_ms:.2f} ms/step over {s_n} sampled steps, {g_ms:.2f} "
+            f"ms/step over {g_n} greedy steps")
+    log(f"  sampled: streams identical over two submits; the stop row "
+        f"stopped at token {stop_tok} after {len(s6)} tokens; top-5 "
+        f"logprobs on s3")
+    log(f"  kernel launches on the sampled path: {launch[0]}")
+    return launch[0]
 
 
 # ---------------------------------------------------------------- phase 5
@@ -381,9 +619,16 @@ def reduced_cpu_vs_cuda(dev):
 
     cfg = dataclasses.replace(reduced_config("llama3_2_1b"), dtype="float32")
     params = T.init_params(cfg, seed=3, device="cpu")
+    from repro_torch.sampling import SamplingParams
+
     rng = np.random.default_rng(3)
-    reqs = [(f"s{i}", [int(t) for t in rng.integers(2, cfg.vocab_size, n)])
-            for i, n in enumerate([5, 12, 16, 23])]
+    sps = [SamplingParams(), SamplingParams(),
+           SamplingParams(temperature=0.8, top_k=20, seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, min_p=0.02, seed=2),
+           SamplingParams(temperature=0.7, repetition_penalty=1.3,
+                          presence_penalty=0.2, seed=3, stop=(5, 6))]
+    reqs = [(f"s{i}", [int(t) for t in rng.integers(2, cfg.vocab_size, n)],
+             sp) for i, (n, sp) in enumerate(zip([5, 12, 16, 23, 9], sps))]
     page = 16
     def to(tree, target):
         return {k: to(v, target) if isinstance(v, dict) else v.to(target)
@@ -397,7 +642,7 @@ def reduced_cpu_vs_cuda(dev):
         master = BatchMaster([eng], SchedulerConfig(page_size=page))
         before = kernels.launches()
         bo = master.run(master.submit(
-            [BatchRequest(c, pr, page) for c, pr in reqs]))
+            [BatchRequest(c, pr, page, sampling=sp) for c, pr, sp in reqs]))
         after = kernels.launches()
         used = {k: after[k] - before[k] for k in after}
         out[device] = {r["custom_id"]: r["response"]["tokens"]
@@ -408,9 +653,10 @@ def reduced_cpu_vs_cuda(dev):
         if device == "cpu" and max(used.values()) != 0:
             raise AssertionError("the cpu run launched a kernel")
     if out["cuda"] != out["cpu"]:
-        raise AssertionError(f"greedy tokens differ: cuda {out['cuda']} "
+        raise AssertionError(f"tokens differ: cuda {out['cuda']} "
                              f"vs cpu {out['cpu']}")
-    log(f"  greedy tokens of one page identical for {len(reqs)} requests")
+    log(f"  greedy and sampled tokens of one page identical for "
+        f"{len(reqs)} requests")
 
 
 # ---------------------------------------------------------------- main
@@ -445,15 +691,17 @@ def main() -> int:
 
     log("== 3. kernels against their plain versions")
     timer = Timer(dev)
-    stats = [check_flash(dev, timer), check_paged(dev, timer)]
+    stats = [check_flash(dev, timer), check_paged(dev, timer),
+             check_fused_sampling(dev, timer)]
     del timer
     torch.cuda.empty_cache()
 
-    log("== 4. serving path: Llama-3.2-1B bf16, BatchMaster + NodeEngine")
+    log("== 4. serving paths: Llama-3.2-1B bf16, BatchMaster + NodeEngine")
     torch.cuda.reset_peak_memory_stats(dev)
-    launches = serve_main_path(dev)
-    for s in stats:
-        s["launches"] = launches[s["name"]]
+    greedy, sampled = serve_main_path(dev)
+    for s in stats:     # each kernel's count from the path it was added for
+        s["launches"] = (sampled if s["name"] == "fused_sampling"
+                         else greedy)[s["name"]]
 
     log("== 5. reduced fp32 model: cuda (kernels) vs cpu (plain versions)")
     reduced_cpu_vs_cuda(dev)

@@ -4,12 +4,13 @@ trace of one served batch.
     PYTHONPATH=src python -m repro_torch.launch.profile --arch llama3_2_1b
 
 Builds one ``NodeEngine`` (random weights from ``--seed``), serves a
-warm-up request, then traces a batch of greedy requests through the
-``BatchMaster`` and prints: wall time, output tokens/s, device busy share
-(summed kernel time over wall time; one stream, so kernels do not
-overlap), device time per kernel class, the top kernels by device time,
-and host time per decode step.  ``--trace PATH`` also writes the Chrome
-trace.  Needs a CUDA card.
+warm-up request, then traces a batch of greedy requests (``--sampled``:
+sampled ones, temperature 0.8, top-k 40, top-p 0.95, a seed each)
+through the ``BatchMaster`` and prints: wall time, output tokens/s,
+device busy share (summed kernel time over wall time; one stream, so
+kernels do not overlap), device time per kernel class, the top kernels
+by device time, and host time per decode step.  ``--trace PATH`` also
+writes the Chrome trace.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.runtime.api import BatchMaster, BatchRequest
 from repro_torch.runtime.engine import NodeEngine
+from repro_torch.sampling import SamplingParams
 
 
 def kernel_class(name: str) -> str:
@@ -33,6 +35,8 @@ def kernel_class(name: str) -> str:
         return "flash_attention kernel"
     if "paged_decode_kernel" in n:
         return "paged_attention kernel"
+    if "fused_sample_kernel" in n:
+        return "fused_sampling kernel"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul (cuBLAS)"
     if "memcpy" in n or "memset" in n:
@@ -51,6 +55,7 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sampled", action="store_true")
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
@@ -62,7 +67,9 @@ def main(argv=None):
 
     def reqs(n, tag, plen, out):
         return [BatchRequest(f"{tag}{i}", [int(t) for t in rng.integers(
-            2, cfg.vocab_size, plen)], out) for i in range(n)]
+            2, cfg.vocab_size, plen)], out, sampling=SamplingParams(
+                temperature=0.8, top_k=40, top_p=0.95, seed=i)
+            if args.sampled else SamplingParams()) for i in range(n)]
 
     master.run(master.submit(reqs(1, "warm", 8, 4)))
     torch.cuda.synchronize()
@@ -92,8 +99,10 @@ def main(argv=None):
             by_name[ev.name] += us
     busy_s = sum(by_class.values()) / 1e6
     print(f"device: {torch.cuda.get_device_name(0)}")
-    print(f"served {len(bo.results)} requests ({args.prompt_len}-token "
-          f"prompts, {args.max_tokens} output tokens) in {wall:.3f} s: "
+    kind = "sampled" if args.sampled else "greedy"
+    print(f"served {len(bo.results)} {kind} requests "
+          f"({args.prompt_len}-token prompts, {args.max_tokens} output "
+          f"tokens) in {wall:.3f} s: "
           f"{out_tokens / wall:.1f} output tokens/s, {steps} decode steps, "
           f"{wall / max(steps, 1) * 1e3:.2f} ms wall per step")
     if busy_s <= 0:

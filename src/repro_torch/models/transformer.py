@@ -1,5 +1,5 @@
-"""Dense decoder: parameters, prefill, decode step and the greedy decode
-page.
+"""Dense decoder: parameters, prefill, decode step, the decode page
+(greedy, sampled, with or without logprobs) and its logprob planes.
 
 PyTorch counterpart of the dense subset of ``repro.models.transformer``.
 Parameters are a plain dict in the JAX package's layout: per-layer leaves
@@ -249,21 +249,103 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, lengths):
     return torch.argmax(logits, dim=-1).to(torch.int32), cache
 
 
+def pack_logprob_block(tokens, logits, lp_k: int):
+    """Pack one decode step's (tokens, raw logits) into a single f32 row
+    block, so the whole page still crosses to the host in ONE copy.
+
+    Layout along the last axis (width 2 + 2*lp_k):
+      [0]                 tokens, int32 bit pattern viewed as f32
+      [1]                 log-softmax(logits)[token]
+      [2 : 2+K]           top-K logprob values (descending)
+      [2+K : 2+2K]        top-K token ids, int32 bit pattern viewed as f32
+    The top K break ties to the lowest id (``jax.lax.top_k``'s rule; a
+    stable descending sort, since ``torch.topk`` leaves tie order open).
+    Unpacked on the host by ``unpack_logprob_block``."""
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    tok = tokens.to(torch.int32)
+    chosen = torch.gather(lp, 1, tok[:, None].long())
+    parts = [tok.view(torch.float32)[:, None], chosen]
+    if lp_k > 0:
+        vals, idx = torch.sort(lp, dim=-1, descending=True, stable=True)
+        parts += [vals[:, :lp_k],
+                  idx[:, :lp_k].to(torch.int32).view(torch.float32)]
+    return torch.cat(parts, dim=-1)
+
+
+def pack_plane_from_lanes(tokens, lanes):
+    """The ``pack_logprob_block`` layout from the lanes dict of
+    ``repro_torch.sampling.sample_step`` (chosen logprob + top-K values and
+    ids), so a sampled page reuses the fused-sampling pass for its
+    logprobs instead of a second full-vocabulary log_softmax and sort."""
+    parts = [tokens.to(torch.int32).view(torch.float32)[:, None],
+             lanes["chosen_lp"][:, None]]
+    if lanes["top_vals"] is not None:
+        parts += [lanes["top_vals"],
+                  lanes["top_idx"].to(torch.int32).view(torch.float32)]
+    return torch.cat(parts, dim=-1)
+
+
+def unpack_logprob_block(block_np):
+    """Inverse of ``pack_logprob_block`` for a (steps, B, 2+2K) host array:
+    (tokens (steps, B) int32, chosen logprobs (steps, B) f32, top-K values
+    (steps, B, K) f32 | None, top-K ids (steps, B, K) int32 | None)."""
+    K = (block_np.shape[-1] - 2) // 2
+    tokens = np.ascontiguousarray(block_np[..., 0]).view(np.int32)
+    chosen = block_np[..., 1]
+    if K == 0:
+        return tokens, chosen, None, None
+    vals = block_np[..., 2:2 + K]
+    ids = np.ascontiguousarray(block_np[..., 2 + K:]).view(np.int32)
+    return tokens, chosen, vals, ids
+
+
 def decode_page(cfg: ModelConfig, params, cache, tokens, lengths, remaining,
-                steps: int) -> Tuple:
-    """Greedy decode megastep: ``steps`` decode steps with tokens, lengths,
+                steps: int, sampling=None, lp_k=None, flags=None) -> Tuple:
+    """Decode megastep: ``steps`` decode steps with tokens, lengths,
     ``remaining`` and the cache kept on the device; each step's token
     feeds the next, and a slot stops advancing once its ``remaining``
     reaches zero (its writes land one past its valid region, as in the
     JAX scan).  Returns ``(token_block (steps, B), tokens, lengths,
-    remaining, cache)``; row t is each slot's token after step t."""
+    remaining, cache)``; row t is each slot's token after step t.
+
+    With ``sampling=(sp, state)`` (device rows of ``pack_params`` and the
+    per-slot PRNG / penalty state of ``repro_torch.sampling``) each step
+    draws through ``sample_step`` under the static ``flags`` instead of
+    the argmax; stop-token hits zero a slot's ``remaining`` on the
+    device, and the advanced ``state`` is appended to the returned tuple.
+
+    With ``lp_k`` set (0: the chosen token's logprob only; K > 0: also the
+    top K) each step's row is the packed ``pack_logprob_block`` plane,
+    (steps, B, 2+2K) f32, of the RAW model logits, so logprobs ride the
+    page's one copy and report pre-filter values under sampling too."""
+    if sampling is not None:
+        from repro_torch.sampling import DEFAULT_FLAGS, sample_step
+        sp, state = sampling
+        flags = flags or DEFAULT_FLAGS
     rows = []
     for _ in range(steps):
-        nxt, cache = decode_step(cfg, params, cache, tokens, lengths)
-        live = remaining > 0
-        step = live.to(torch.int32)
+        logits, cache = decode_step_logits(cfg, params, cache, tokens,
+                                           lengths)
+        if sampling is None:
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            live = remaining > 0
+            step = live.to(torch.int32)
+            remaining = remaining - step
+        elif lp_k is None:
+            nxt, live, remaining, state = sample_step(logits, remaining,
+                                                      state, sp, flags)
+            step = live.to(torch.int32)
+        else:
+            nxt, live, remaining, state, lanes = sample_step(
+                logits, remaining, state, sp, flags, lp_k=lp_k)
+            step = live.to(torch.int32)
         tokens = torch.where(live, nxt, tokens)
         lengths = lengths + step
-        remaining = remaining - step
-        rows.append(tokens)
-    return torch.stack(rows), tokens, lengths, remaining, cache
+        if lp_k is None:
+            rows.append(tokens)
+        elif sampling is None:
+            rows.append(pack_logprob_block(tokens, logits, lp_k))
+        else:
+            rows.append(pack_plane_from_lanes(tokens, lanes))
+    out = (torch.stack(rows), tokens, lengths, remaining, cache)
+    return out if sampling is None else out + (state,)

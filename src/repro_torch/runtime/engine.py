@@ -1,13 +1,13 @@
 """Per-node batch-inference engine in PyTorch: real execution on one card
 plus coroutine slots.
 
-Counterpart of ``repro.runtime.engine.NodeEngine`` for the greedy serving
-path of dense decoders.  One NodeEngine owns a dense device decode cache
-with ``max_active`` sequence slots, a paged host store (the single source
-of truth, §5.2), a page allocator, and the prefill / decode steps of
-``models/transformer.py``.  The CoroutineScheduler drives it only through
-the ExecutionBackend slot protocol (core/backend.py, conformance declared
-below), exactly as it drives the JAX engine.
+Counterpart of ``repro.runtime.engine.NodeEngine`` for dense decoders:
+greedy, sampled and logprob requests.  One NodeEngine owns a dense device
+decode cache with ``max_active`` sequence slots, a paged host store (the
+single source of truth, §5.2), a page allocator, and the prefill /
+decode steps of ``models/transformer.py``.  The CoroutineScheduler drives
+it only through the ExecutionBackend slot protocol (core/backend.py,
+conformance declared below), exactly as it drives the JAX engine.
 
 What differs from the JAX engine, and why:
 
@@ -23,15 +23,30 @@ What differs from the JAX engine, and why:
   copy into pinned memory on a side stream with a CUDA event
   (``compat.HostCopy``); ``drain_appends`` waits on the event.
 
-Decode megastep: ``decode_page`` runs ``min(P, max remaining)`` greedy
-steps as pow2 chunks (40 -> 32 + 8) of ``transformer.decode_page``;
-tokens, lengths, the per-slot ``remaining`` countdown and the cache stay
-on the device, and the page's token block crosses to the host in ONE
-copy (counted in ``d2h_transfers``).
+Decode megastep: ``decode_page`` runs ``min(P, max remaining)`` steps
+as pow2 chunks (40 -> 32 + 8) of ``transformer.decode_page``; tokens,
+lengths, the per-slot ``remaining`` countdown and the cache stay on the
+device, and the page's token block crosses to the host in ONE copy
+(counted in ``d2h_transfers``).  When any active coroutine asks for
+logprobs the block is the packed (P, B, 2+2K) plane of
+``transformer.pack_logprob_block`` instead, in the same one copy.
 
-Not in this slice, and refused with ``NotImplementedError``: sampled or
-logprob requests, ``module_granularity=True``, and MoE or sliding-window
-configs.
+Sampling: when any active coroutine carries non-default SamplingParams
+the page runs the sampled variant, with the per-slot PRNG position and
+penalty counts of ``repro_torch.sampling`` carried on the device and a
+static ``SampleFlags`` plan derived on the host from the active batch
+(the fused sampling kernel; penalty / stop / greedy-select skips).  The
+slot's sampling state is re-derived from the coroutine at
+``install_slot`` (keys are fold_in(seed, token index), counts a bincount
+of its tokens), staged on the host and written to the device in one
+batched scatter at the next sampled page, so slot churn never perturbs a
+sequence's stream.  The first token of a sampled prefill batch is drawn
+on the device with key fold_in(seed, 0).  An all-greedy page keeps the
+argmax and never runs the sampler.
+
+Not in this slice, and refused with ``NotImplementedError``:
+``module_granularity=True``, and MoE or sliding-window configs.  The
+JAX engine's looped ``fused=False`` baseline is not ported.
 """
 from __future__ import annotations
 
@@ -43,6 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch import compat
+from repro_torch import sampling as smp
 from repro_torch.core.backend import validate_backend
 from repro_torch.core.coroutine import Phase, SequenceCoroutine, Status
 from repro_torch.core.primitives import PrimitiveStats
@@ -58,6 +74,10 @@ from repro_torch.runtime.faults import (NodeFaults, RetryPolicy,
 # staging-path PCIe-class bandwidth for the ring buffer's timing model
 # (core/plan.py Hardware.host_link_bw); the live gate only uses occupancy
 _HOST_LINK_BW = 32e9
+# the per-slot sampling-params rows the batched sampler consumes
+_SAMPLE_ROW_KEYS = ("temperature", "top_k", "top_p", "min_p",
+                    "repetition_penalty", "presence_penalty",
+                    "frequency_penalty")
 
 
 def _pow2(n: int) -> int:
@@ -79,15 +99,19 @@ class _InFlightSync:
         self.name = name
 
 
-def _require_greedy(cos: Sequence[SequenceCoroutine]) -> None:
-    for c in cos:
-        if not c.sampling.is_greedy_default:
-            raise NotImplementedError(
-                "sampled requests are not ported to repro_torch yet "
-                "(greedy only)")
-        if c.logprobs or c.top_logprobs:
-            raise NotImplementedError(
-                "logprob requests are not ported to repro_torch yet")
+def _np_top_k_idx(x: np.ndarray, k: int) -> np.ndarray:
+    """Indices of the k largest entries, ties broken by the LOWEST index,
+    as on the device plane (``argsort()[::-1]`` would take the highest)."""
+    return np.argsort(-x, kind="stable")[:k]
+
+
+def _np_log_softmax(x: np.ndarray) -> np.ndarray:
+    """Host-side log-softmax over the last axis (prefill logprobs; decode
+    pages compute theirs on the device)."""
+    x = np.asarray(x, np.float32)
+    m = x.max(axis=-1, keepdims=True)
+    e = np.exp(x - m)
+    return (x - m) - np.log(e.sum(axis=-1, keepdims=True))
 
 
 class NodeEngine:
@@ -144,6 +168,27 @@ class NodeEngine:
                                    device=self.device)
         self.slot_owner: List[Optional[int]] = [None] * max_active
         self.synced_len: Dict[int, int] = {}
+
+        # per-slot sampling params (host mirror, uploaded lazily) and the
+        # device sampling state the sampled page carries
+        V = T.padded_vocab(cfg)
+        self._sp_host = smp.pack_params([smp.SamplingParams()] * max_active,
+                                        list(range(max_active)))
+        self._sp_dev: Optional[Dict[str, torch.Tensor]] = None
+        self._sample_state = {
+            "base_key": torch.zeros((max_active, 2), dtype=torch.int64,
+                                    device=self.device),
+            "gen_count": torch.zeros((max_active,), dtype=torch.int32,
+                                     device=self.device),
+            "counts": torch.zeros((max_active, V), dtype=torch.int32,
+                                  device=self.device),
+            "prompt_counts": torch.zeros((max_active, V), dtype=torch.int32,
+                                         device=self.device),
+        }
+        # slot installs stage their re-derived sampling state here (host
+        # numpy, keyed by slot so a re-install overwrites); the next
+        # sampled page writes them all in one batched scatter
+        self._pending_smp: "OrderedDict[int, tuple]" = OrderedDict()
 
         self.decode_steps = 0
         self.tokens_out = 0.0       # heartbeat progress counter
@@ -242,6 +287,7 @@ class NodeEngine:
         self._pending_install[co.slot] = (slices, int(co.last_token),
                                           int(co.length))
         self.synced_len[co.seq_id] = co.length
+        self._install_sampling(co)
 
     def _slot_tensor(self, arr, leaf: torch.Tensor) -> torch.Tensor:
         """A restored (L, len, ...) slice as a device tensor of the leaf's
@@ -306,6 +352,54 @@ class NodeEngine:
             # NODE_FAILURE, whose recovery recomputes the sequences
             return
 
+    def _install_sampling(self, co: SequenceCoroutine):
+        """Bind a slot's sampling params and stage its re-derived state.
+
+        The PRNG position is len(generated) and the penalty counts are
+        bincounts of the coroutine's tokens, so a coroutine arriving by
+        COMBINE or MIGRATE resumes its stream exactly; no device sampling
+        state crosses nodes.  A greedy-default sequence only resets the
+        slot's params row (its state rows are never read: temperature <= 0
+        takes the argmax).  The device write waits for the next sampled
+        page (``_flush_pending_sampling``)."""
+        s = co.slot
+        row = smp.pack_params([co.sampling], [co.seq_id])
+        for k in self._sp_host:
+            self._sp_host[k][s] = row[k][0]
+        self._sp_dev = None             # host mirror dirty; re-upload lazily
+        if co.sampling.is_greedy_default:
+            self._pending_smp.pop(s, None)
+            return
+        V = self._sample_state["counts"].shape[1]
+        st_row = smp.init_state(row["seed"], [co.prompt], [co.generated], V)
+        self._pending_smp[s] = (smp.base_keys_host(st_row["seed"])[0],
+                                st_row["gen_count"][0], st_row["counts"][0],
+                                st_row["prompt_counts"][0])
+
+    def _flush_pending_sampling(self):
+        """Write every staged slot's sampling state to the device: one
+        batched index assignment per state tensor."""
+        if not self._pending_smp:
+            return
+        slots = list(self._pending_smp)
+        rows = list(self._pending_smp.values())
+        self._pending_smp.clear()
+        idx = torch.tensor(slots, dtype=torch.long, device=self.device)
+        for i, name in enumerate(("base_key", "gen_count", "counts",
+                                  "prompt_counts")):
+            leaf = self._sample_state[name]
+            col = np.stack([r[i] for r in rows]).astype(
+                np.int64 if leaf.dtype == torch.int64 else np.int32)
+            leaf[idx] = torch.from_numpy(col).to(self.device)
+
+    def _sp_device(self) -> Dict[str, torch.Tensor]:
+        """Packed per-slot sampling params as device tensors (cached until
+        a slot install dirties the host mirror)."""
+        if self._sp_dev is None:
+            self._sp_dev = {k: torch.from_numpy(v).to(self.device)
+                            for k, v in self._sp_host.items() if k != "seed"}
+        return self._sp_dev
+
     def reconfigure_partition(self, co: SequenceCoroutine, group: List[int]):
         # one card per engine: bookkeeping only
         pass
@@ -323,32 +417,47 @@ class NodeEngine:
     def decode_page(self, active: Sequence[SequenceCoroutine], P: int):
         """Decode up to P tokens for every active sequence: exactly
         ``min(P, max remaining)`` steps as pow2 chunks, then ONE
-        device->host copy of the page's token block."""
+        device->host copy of the page's token block (or logprob plane).
+        Any active sequence with non-default SamplingParams selects the
+        sampled variant, with the per-slot state carried on the device."""
         if self.faults is not None and self.faults.dead:
             return
         self._flush_pending_installs()
         if not active:
             return
-        _require_greedy(active)
         steps = min(P, max(c.remaining for c in active))
         if steps <= 0:
             return
         if self.faults is not None and self.faults.straggler_factor() > 1.0:
             self.straggler_steps += steps
         tot0 = sum(len(c.generated) for c in active)
+        sampled = any(not c.sampling.is_greedy_default for c in active)
+        want_lp = [c for c in active if c.logprobs]
+        lp_k = max(c.top_logprobs for c in want_lp) if want_lp else None
+        flags = (smp.flags_for([c.sampling for c in active],
+                               T.padded_vocab(self.cfg)) if sampled else None)
         rem = torch.zeros((self.max_active,), dtype=torch.int32)
         for co in active:
             rem[co.slot] = co.remaining
         rem = rem.to(self.device)
+        sp = self._sp_device() if sampled else None
+        if sampled:
+            self._flush_pending_sampling()
+        state = self._sample_state
         blocks = []
         left = steps
         while left > 0:
             chunk = 1 << (left.bit_length() - 1)
-            blk, self.tokens, self.lengths, rem, self.cache = T.decode_page(
+            out = T.decode_page(
                 self.cfg, self.params, self.cache, self.tokens, self.lengths,
-                rem, chunk)
+                rem, chunk, sampling=(sp, state) if sampled else None,
+                lp_k=lp_k, flags=flags)
+            blk, self.tokens, self.lengths, rem, self.cache = out[:5]
+            if sampled:
+                state = out[5]
             blocks.append(blk)
             left -= chunk
+        self._sample_state = state
         self.decode_steps += steps
         block = blocks[0] if len(blocks) == 1 else torch.cat(blocks)
         block_np = self._to_host(block)     # the ONE d2h transfer per page
@@ -367,18 +476,40 @@ class NodeEngine:
 
     def _apply_block(self, active: Sequence[SequenceCoroutine], block_np,
                      steps: int):
-        """Apply a (steps, max_active) token block to coroutine state,
-        truncating at each sequence's first stop-token hit."""
+        """Apply a (steps, max_active) token block, or the packed
+        (steps, max_active, 2+2K) logprob plane, to coroutine state,
+        truncating at each sequence's first stop-token hit (the stop token
+        is emitted, then the sequence halts, as on the device)."""
+        lp_np = topv = topi = None
+        if block_np.ndim == 3:
+            toks_np, lp_np, topv, topi = T.unpack_logprob_block(block_np)
+        else:
+            toks_np = block_np
         for co in active:
             n = min(steps, co.remaining)
             if n <= 0:
                 continue
-            toks, hit = co.sampling.truncate_at_stop(
-                [int(t) for t in block_np[:n, co.slot]])
+            toks, hit = co.sampling.truncate_at_stop(toks_np[:n, co.slot])
             co.stopped = co.stopped or hit
             co.generated.extend(toks)
             co.last_token = toks[-1]
             co.length += len(toks)
+            if co.logprobs and lp_np is not None:
+                self._append_logprobs(
+                    co, [float(x) for x in lp_np[:len(toks), co.slot]],
+                    None if topv is None else topv[:len(toks), co.slot],
+                    None if topi is None else topi[:len(toks), co.slot])
+
+    @staticmethod
+    def _append_logprobs(co: SequenceCoroutine, chosen, topv, topi):
+        """Append one block of chosen-token logprobs (and the requested
+        top-K alternatives) aligned with the tokens just applied."""
+        co.token_logprobs.extend(chosen)
+        if co.top_logprobs and topv is not None:
+            k = co.top_logprobs
+            for t in range(len(chosen)):
+                co.top_token_logprobs.append(
+                    [(int(topi[t][j]), float(topv[t][j])) for j in range(k)])
 
     def sync_appends(self, active: Sequence[SequenceCoroutine]):
         """Blocking host-KV sync: stage + drain in one call."""
@@ -648,7 +779,6 @@ class NodeEngine:
             return
         if not cos:
             return
-        _require_greedy(cos)
         idx = self.host_store.prefix_index
         groups: "OrderedDict[tuple, List[SequenceCoroutine]]" = OrderedDict()
         lead_of: Dict[int, int] = {}
@@ -704,10 +834,30 @@ class NodeEngine:
         else:
             logits2d = torch.stack([lead_rows[lead_of[c.seq_id]]
                                     for c in cos])
-        first = np.argmax(self._to_host(logits2d), axis=-1)
+        # first generated token: drawn on the device when any sequence
+        # samples (key fold_in(PRNGKey(seed), 0), counts over the prompt);
+        # all-greedy batches keep the host argmax
+        logits_np = None
+        if any(not c.sampling.is_greedy_default for c in cos):
+            first = self._to_host(self._draw_first(cos, logits2d))
+        else:
+            logits_np = self._to_host(logits2d)
+            first = np.argmax(logits_np, axis=-1)
+        lp_np = None
+        if any(c.logprobs for c in cos):
+            if logits_np is None:       # sampled batch: logits still on dev
+                logits_np = self._to_host(logits2d)
+            lp_np = _np_log_softmax(logits_np)
         for i, co in enumerate(cos):
             co.last_token = int(first[i])
             co.generated.append(co.last_token)
+            if co.logprobs and lp_np is not None:
+                topv = topi = None
+                if co.top_logprobs:
+                    topi = [_np_top_k_idx(lp_np[i], co.top_logprobs)]
+                    topv = [lp_np[i][topi[0]]]
+                self._append_logprobs(
+                    co, [float(lp_np[i, co.last_token])], topv, topi)
             if co.last_token in co.sampling.stop:
                 co.stopped = True
             co.length = co.prompt_len
@@ -718,6 +868,26 @@ class NodeEngine:
         if self.faults is not None:
             f = max(self.faults.straggler_factor(), 1.0)
         self.tokens_out += len(cos) / f
+
+    def _draw_first(self, cos: Sequence[SequenceCoroutine],
+                    logits2d: torch.Tensor) -> torch.Tensor:
+        """The first generated token of each prefilled sequence, drawn on
+        the device through the sampler with key fold_in(base, 0) and the
+        prompt's penalty counts."""
+        n, V = len(cos), T.padded_vocab(self.cfg)
+        sp = smp.pack_params([c.sampling for c in cos],
+                             [c.seq_id for c in cos])
+        st = smp.init_state(sp["seed"], [list(c.prompt) for c in cos],
+                            [[] for _ in cos], V)
+        flags = smp.flags_for([c.sampling for c in cos], V)
+        dev = self.device
+        keys = smp.step_keys(smp.base_keys(st["seed"], dev),
+                             torch.zeros((n,), dtype=torch.int32, device=dev))
+        return smp.sample(
+            logits2d, torch.from_numpy(st["prompt_counts"]).to(dev),
+            torch.from_numpy(st["counts"]).to(dev),
+            {k: torch.from_numpy(sp[k]).to(dev) for k in _SAMPLE_ROW_KEYS},
+            keys, flags)
 
 
 # NodeEngine declares conformance to the formal backend contract; the

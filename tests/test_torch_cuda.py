@@ -9,7 +9,9 @@ The first test builds the kernels from ``src/repro_torch/csrc`` with
 ``nvcc``.  Tolerances: fp32 atol/rtol 1e-4 (summation order), bf16
 atol/rtol 2e-2 (one bf16 rounding of the output).  fp32 products run in
 full fp32 (TF32 off), so the reduced engine's greedy tokens on the card
-equal those of its plain CPU path.
+equal those of its plain CPU path.  The fused sampling kernel's tokens and
+top-K ids are exact against its plain version and bitwise identical over
+two launches; its stats hold to rtol 1e-5 (float summation order).
 """
 import dataclasses
 
@@ -21,11 +23,14 @@ from repro_torch.configs import reduced_config
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
+from repro_torch.kernels.fused_sampling.ops import (fused_sample,
+                                                    fused_sample_plain)
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
 from repro_torch.models import transformer as TT
 from repro_torch.runtime.api import BatchMaster, BatchRequest
 from repro_torch.runtime.engine import NodeEngine
+from repro_torch.sampling import SamplingParams
 
 pytestmark = pytest.mark.cuda
 
@@ -104,6 +109,65 @@ def test_paged_kernel_matches_plain(dev, H, Hkv, D, dtype):
            paged_attention_plain(q, kp, vp, table, lengths), dtype)
 
 
+def _sampling_rows(gen, B, V, dev, k=None, p=None, min_p=None):
+    """Processed logits, Gumbel rows and raw logits (B, V) f32, with mixed
+    per-row top-k / top-p / min-p unless given."""
+    x = 2.0 * torch.randn((B, V), generator=gen, device=dev)
+    g = -torch.log(-torch.log(torch.rand((B, V), generator=gen, device=dev)
+                              .clamp(1e-7, 1 - 1e-7)))
+    raw = torch.randn((B, V), generator=gen, device=dev)
+    cyc = torch.arange(B, device=dev)
+    if k is None:
+        k = torch.tensor([0, 1, 5, 40, 300], device=dev)[cyc % 5]
+    if p is None:
+        p = torch.tensor([1.0, 0.95, 0.9, 0.5], device=dev)[cyc % 4]
+    if min_p is None:
+        min_p = torch.tensor([0.0, 0.02, 0.1], device=dev)[cyc % 3]
+    full = lambda v, dt: torch.as_tensor(v, device=dev).to(dt).expand(
+        B).contiguous()
+    return (x, g, full(k, torch.int32), full(p, torch.float32),
+            full(min_p, torch.float32), raw)
+
+
+def _same_sample(got, want):
+    torch.cuda.synchronize()
+    assert set(got) == set(want)
+    for key in ("sampled", "greedy", "top_idx"):
+        if key in want:
+            assert torch.equal(got[key], want[key]), key
+    for key in ("tau", "m", "l", "m_raw", "l_raw", "top_vals"):
+        if key in want:
+            torch.testing.assert_close(got[key], want[key], rtol=1e-5,
+                                       atol=1e-6, msg=key)
+
+
+# (name, B, V, lp_k, k, p, min_p): None draws mixed rows
+SAMPLING_CASES = [
+    ("mixed_v512", 5, 512, -1, None, None, None),
+    ("mixed_odd_v1000_lanes4", 6, 1000, 4, None, None, None),
+    ("mixed_v4096_lanes0", 4, 4096, 0, None, None, None),
+    ("filters_off", 3, 3001, -1, 0, 1.0, 0.0),
+    ("k1", 3, 2048, 5, 1, 1.0, 0.0),
+    ("top_p_only", 4, 4097, -1, 0, 0.7, 0.0),
+    ("v128256_lanes5", 8, 128256, 5, None, None, None),
+]
+
+
+@pytest.mark.parametrize("case", SAMPLING_CASES,
+                         ids=[c[0] for c in SAMPLING_CASES])
+def test_fused_sampling_kernel_matches_plain(dev, case):
+    _, B, V, lp_k, k, p, min_p = case
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x, g, kk, pp, mp, raw = _sampling_rows(gen, B, V, dev, k, p, min_p)
+    kw = dict(raw=raw if lp_k >= 0 else None, lp_k=max(lp_k, 0),
+              with_lanes=lp_k >= 0)
+    got = fused_sample(x, g, kk, pp, mp, **kw)
+    again = fused_sample(x, g, kk, pp, mp, **kw)
+    _same_sample(got, fused_sample_plain(x, g, kk, pp, mp, **kw))
+    for key in got:            # deterministic: two launches, equal bits
+        assert torch.equal(got[key], again[key]), key
+
+
 def test_each_launch_is_counted_once(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     q = _randn(gen, (1, 16, 4, 64), torch.float32, dev)
@@ -112,14 +176,18 @@ def test_each_launch_is_counted_once(dev):
     qd = _randn(gen, (1, 4, 64), torch.float32, dev)
     table = torch.zeros((1, 1), dtype=torch.int32, device=dev)
     lengths = torch.tensor([16], dtype=torch.int32, device=dev)
+    rows = _sampling_rows(gen, 2, 300, dev)
     kernels.reset_launches()
     flash_attention(q, k, k, pos, pos)
     flash_attention(q, k, k, pos, pos)
     paged_attention(qd, k, k, table, lengths)
+    fused_sample(*rows[:5], raw=rows[5], lp_k=2, with_lanes=True)
     flash_attention_plain(q, k, k, pos, pos)
     paged_attention_plain(qd, k, k, table, lengths)
+    fused_sample_plain(*rows[:5])
     torch.cuda.synchronize()
-    assert kernels.launches() == {"flash_attention": 2, "paged_attention": 1}
+    assert kernels.launches() == {"flash_attention": 2, "paged_attention": 1,
+                                  "fused_sampling": 1}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -146,6 +214,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         paged_attention(qd, k, k, table, lengths)    # a group of 17
     with pytest.raises(TypeError):
         paged_attention(qd[:, :4], k, k, table, lengths.long())
+    x, g, kk, pp, mp, raw = _sampling_rows(gen, 2, 300, dev)
+    with pytest.raises(TypeError):
+        fused_sample(x.half(), g, kk, pp, mp)
+    with pytest.raises(TypeError):
+        fused_sample(x, g, kk.long(), pp, mp)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_sample(x.t().contiguous().t(), g, kk, pp, mp)
+    with pytest.raises(ValueError):
+        fused_sample(x, g[:, :299].contiguous(), kk, pp, mp)
+    with pytest.raises(ValueError):
+        fused_sample(x, g, kk[:1].contiguous(), pp, mp)
+    with pytest.raises(ValueError):
+        fused_sample(x, g, kk, pp, mp.cpu())
+    with pytest.raises(ValueError, match="lp_k"):
+        fused_sample(x, g, kk, pp, mp, raw=raw, lp_k=301, with_lanes=True)
 
 
 def test_reduced_engine_tokens_match_cpu(dev):
@@ -172,7 +255,59 @@ def test_reduced_engine_tokens_match_cpu(dev):
             [BatchRequest(c, p, 20) for c, p in reqs]))
         assert bo.request_counts["completed"] == len(reqs)
         used = kernels.launches()
-        assert (min(used.values()) > 0) == (target.type == "cuda"), used
+        assert used["fused_sampling"] == 0, used     # all-greedy: argmax
+        assert (min(used["flash_attention"], used["paged_attention"]) > 0) \
+            == (target.type == "cuda"), used
         out[target.type] = {r["custom_id"]: r["response"]["tokens"]
                             for r in bo.results}
     assert out["cuda"] == out["cpu"]
+
+
+def test_reduced_sampled_engine_tokens_match_cpu(dev):
+    """Sampled and logprob requests of the reduced fp32 model on the card
+    (the fused sampling kernel) and on the CPU (its plain version):
+    identical tokens and logprobs within 1e-4, and the card's run
+    launched all three kernels."""
+    cfg = dataclasses.replace(reduced_config("llama3_2_1b"), dtype="float32")
+    params = TT.init_params(cfg, seed=6, device="cpu")
+    gen = torch.Generator().manual_seed(6)
+    sps = [SamplingParams(),
+           SamplingParams(temperature=0.8, top_k=20, seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, min_p=0.02, seed=2,
+                          stop=(7,)),
+           SamplingParams(temperature=0.7, repetition_penalty=1.3,
+                          presence_penalty=0.2, frequency_penalty=0.1,
+                          seed=3)]
+    reqs = [BatchRequest(f"s{i}", torch.randint(2, cfg.vocab_size, (n,),
+                                                generator=gen).tolist(), 20,
+                         sampling=sp, logprobs=i % 2 == 1,
+                         top_logprobs=3 if i == 3 else 0)
+            for i, (n, sp) in enumerate(zip([5, 12, 17, 30], sps))]
+
+    def to(tree, target):
+        return {k: to(v, target) if isinstance(v, dict) else v.to(target)
+                for k, v in tree.items()}
+
+    out = {}
+    for target in (dev, torch.device("cpu")):
+        eng = NodeEngine(cfg, params=to(params, target), max_active=4,
+                         max_len=128, page_size=8, device=target)
+        master = BatchMaster([eng], SchedulerConfig(page_size=8))
+        kernels.reset_launches()
+        bo = master.run(master.submit(reqs))
+        assert bo.request_counts["completed"] == len(reqs)
+        used = kernels.launches()
+        if target.type == "cuda":
+            assert min(used.values()) > 0, used
+        else:
+            assert max(used.values()) == 0, used
+        out[target.type] = {r["custom_id"]: r["response"]
+                            for r in bo.results}
+    for cid, want in out["cpu"].items():
+        got = out["cuda"][cid]
+        assert got["tokens"] == want["tokens"], cid
+        if "logprobs" in want:
+            torch.testing.assert_close(
+                torch.tensor(got["logprobs"]["token_logprobs"]),
+                torch.tensor(want["logprobs"]["token_logprobs"]),
+                rtol=1e-4, atol=1e-4)

@@ -8,6 +8,12 @@ second submit whose prompts share full pages with a first-batch prompt
 (deduplicated within the batch).  Reduced ``llama3_2_1b`` in fp32.
 Tokens must be identical per ``custom_id``; host-store pages agree to
 1e-5 (the two frameworks sum in different orders).
+
+The sampled workload mixes greedy rows, temperature, top-k, top-p, min-p,
+penalties, a stop token and logprobs; the JAX engine runs its Pallas
+sampling kernel in interpret mode (``REPRO_SAMPLING_BACKEND``), whose
+histogram threshold the port's kernel route computes.  Tokens are
+identical and logprobs agree to 1e-5.
 """
 import dataclasses
 import os
@@ -24,6 +30,7 @@ from repro.core.scheduler import SchedulerConfig as JSchedulerConfig
 from repro.runtime.api import BatchMaster as JBatchMaster
 from repro.runtime.api import BatchRequest as JBatchRequest
 from repro.runtime.engine import NodeEngine as JNodeEngine
+from repro.sampling import SamplingParams as JSamplingParams
 from repro_torch.configs import reduced_config
 from repro_torch.core.scheduler import CoroutineScheduler, SchedulerConfig
 from repro_torch.models import transformer as TT
@@ -144,17 +151,181 @@ def test_one_transfer_per_decode_page():
 
 
 def test_later_slices_are_refused():
-    """Sampled requests and the module runtime wait for later slices."""
+    """The module runtime waits for a later slice."""
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError):
         NodeEngine(tcfg, device="cpu", module_granularity=True)
+
+
+def test_sampled_and_logprob_requests_are_served():
+    _, tcfg = _cfgs()
     eng = NodeEngine(tcfg, device="cpu", max_active=2, max_len=64,
                      page_size=8)
     sched = CoroutineScheduler([eng], SchedulerConfig(page_size=8))
-    sched.submit([[2, 3, 4]], [4],
-                 sampling=[SamplingParams(temperature=0.7, seed=1)])
-    with pytest.raises(NotImplementedError):
-        sched.run(max_ticks=50)
+    ids = sched.submit([[2, 3, 4], [5, 6]], [6, 9],
+                       sampling=[SamplingParams(temperature=0.7, seed=1),
+                                 SamplingParams(top_k=3, temperature=1.2,
+                                                seed=2)],
+                       logprobs=True, top_logprobs=2)
+    assert sched.run(max_ticks=50)["completed"] == 2
+    for i, n in zip(ids, (6, 9)):
+        co = sched.cos[i]
+        assert len(co.generated) == len(co.token_logprobs) == n
+        assert all(len(alts) == 2 for alts in co.top_token_logprobs)
+        assert all(lp <= 0.0 for lp in co.token_logprobs)
+
+
+def _sampled_workload(vocab, stop_token):
+    """Mixed SamplingParams kwargs, logprob flags and a cross-submit prefix
+    hit; rows are (custom_id, prompt, max_tokens, sampling kwargs,
+    logprobs, top_logprobs)."""
+    r = np.random.default_rng(5)
+
+    def prompt(n):
+        return [int(t) for t in r.integers(2, vocab, n)]
+
+    first = [("a0", prompt(20), 9, {}, True, 0),
+             ("a1", prompt(5), 14, dict(temperature=0.8, top_k=20, seed=1),
+              False, 0),
+             ("a2", prompt(12), 5, dict(temperature=1.1, top_p=0.9, seed=2),
+              True, 3),
+             ("a3", prompt(17), 20, dict(temperature=0.7, min_p=0.05,
+                                         repetition_penalty=1.3,
+                                         presence_penalty=0.2,
+                                         frequency_penalty=0.1, seed=3),
+              False, 0),
+             ("a4", prompt(9), 16, dict(temperature=0.9, seed=4,
+                                        stop=(stop_token,)), True, 0),
+             ("a5", prompt(24), 7, dict(temperature=1.0, top_k=50, top_p=0.8,
+                                        seed=5), True, 0)]
+    second = [("b0", first[0][1][:2 * PAGE] + prompt(5), 6,
+               dict(temperature=0.9, top_k=30, seed=9), False, 0),
+              ("b1", prompt(11), 16, {}, True, 2),
+              ("b2", prompt(6), 18, {}, False, 0)]
+    return first, second
+
+
+def _serve_sampled(master, req_cls, sp_cls, batches):
+    out = {}
+    for batch in batches:
+        bo = master.run(master.submit(
+            [req_cls(custom_id=c, prompt=p, max_tokens=m,
+                     sampling=sp_cls(**kw), logprobs=lp, top_logprobs=k)
+             for c, p, m, kw, lp, k in batch]))
+        assert bo.request_counts["failed"] == 0
+        for row in bo.results:
+            out[row["custom_id"]] = row["response"]
+    return out
+
+
+def test_sampled_engine_matches_jax_engine_through_batch_master(monkeypatch):
+    monkeypatch.setenv("REPRO_SAMPLING_BACKEND", "pallas_interpret")
+    jcfg, tcfg = _cfgs()
+    jeng = JNodeEngine(jcfg, seed=0, **ENGINE_KW)
+    params = TT.params_from_numpy(jax.tree.map(np.asarray, jeng.params),
+                                  tcfg, device="cpu")
+
+    def port():
+        eng = NodeEngine(tcfg, params=params, device="cpu", **ENGINE_KW)
+        return eng, BatchMaster([eng], SchedulerConfig(page_size=PAGE))
+
+    # a stop token the stop row really emits: its 5th token without one
+    probe = _serve_sampled(port()[1], BatchRequest, SamplingParams,
+                           _sampled_workload(tcfg.vocab_size, -1))
+    stop = probe["a4"]["tokens"][4]
+    batches = _sampled_workload(tcfg.vocab_size, stop)
+    want = _serve_sampled(JBatchMaster([jeng],
+                                       JSchedulerConfig(page_size=PAGE)),
+                          JBatchRequest, JSamplingParams, batches)
+    teng, master = port()
+    got = _serve_sampled(master, BatchRequest, SamplingParams, batches)
+    assert got.keys() == want.keys()
+    for cid, w in want.items():
+        g = got[cid]
+        assert g["tokens"] == w["tokens"], cid
+        assert g["finish_reason"] == w["finish_reason"], cid
+        assert ("logprobs" in g) == ("logprobs" in w), cid
+        if "logprobs" in w:
+            np.testing.assert_allclose(g["logprobs"]["token_logprobs"],
+                                       w["logprobs"]["token_logprobs"],
+                                       atol=1e-5, rtol=1e-5, err_msg=cid)
+            if "top_logprobs" in w:
+                gt, wt = (g["logprobs"]["top_logprobs"],
+                          w["logprobs"]["top_logprobs"])
+                assert [[t for t, _ in row] for row in gt] == \
+                    [[t for t, _ in row] for row in wt], cid
+                np.testing.assert_allclose(
+                    [[v for _, v in row] for row in gt],
+                    [[v for _, v in row] for row in wt], atol=1e-5,
+                    rtol=1e-5, err_msg=cid)
+    assert got["a4"]["finish_reason"] == "stop"
+    assert got["a4"]["tokens"] == probe["a4"]["tokens"][:5]
+    assert got["a0"]["tokens"] != got["b0"]["tokens"]
+    assert teng.prefill_tokens_saved == jeng.prefill_tokens_saved > 0
+    assert teng.decode_steps == jeng.decode_steps
+
+
+def test_seed_reproducible_across_batch_composition():
+    """A fixed per-sequence seed yields the identical stream alone, with
+    co-resident neighbours, and in a wider slot array."""
+    _, tcfg = _cfgs()
+    rng = np.random.default_rng(11)
+    target = [int(t) for t in rng.integers(2, tcfg.vocab_size, 7)]
+    sp = SamplingParams(temperature=0.8, top_k=30, seed=123)
+
+    def stream(extra, max_active):
+        eng = NodeEngine(tcfg, max_active=max_active, max_len=128,
+                         page_size=8, seed=0, device="cpu")
+        sched = CoroutineScheduler([eng], SchedulerConfig(page_size=8))
+        prompts = [target] + extra
+        sps = [sp] + [SamplingParams(temperature=1.1, seed=50 + i)
+                      for i in range(len(extra))]
+        ids = sched.submit(prompts, [16] * len(prompts), sampling=sps)
+        assert sched.run(max_ticks=500)["completed"] == len(prompts)
+        return sched.cos[ids[0]].generated
+
+    def prompt(n):
+        return [int(t) for t in rng.integers(2, tcfg.vocab_size, n)]
+
+    alone = stream([], 3)
+    crowded = stream([prompt(5), prompt(9)], 3)
+    wider = stream([prompt(6)], 4)
+    assert alone == crowded == wider
+    assert len(alone) == 16
+
+
+def test_sampled_one_transfer_per_decode_page():
+    """Transfer spy: sampled decode with logprobs on still performs
+    exactly ONE device->host copy per decode_page."""
+    _, tcfg = _cfgs()
+    eng = NodeEngine(tcfg, max_active=3, max_len=128, page_size=8, seed=0,
+                     device="cpu")
+    sched = CoroutineScheduler([eng], SchedulerConfig(page_size=8))
+    sched.submit([[2, 3, 4, 5]] * 3, [20] * 3,
+                 sampling=SamplingParams(temperature=0.8, top_k=30,
+                                         top_p=0.9, seed=5),
+                 logprobs=True, top_logprobs=2)
+    calls = []
+    in_page = [False]
+    orig_decode, orig_to_host = eng.decode_page, eng._to_host
+
+    def spy_to_host(arr):
+        if in_page[0]:
+            calls[-1] += 1
+        return orig_to_host(arr)
+
+    def spy_decode(active, P):
+        calls.append(0)
+        in_page[0] = True
+        try:
+            return orig_decode(active, P)
+        finally:
+            in_page[0] = False
+
+    eng.decode_page, eng._to_host = spy_decode, spy_to_host
+    rep = sched.run(max_ticks=300)
+    assert rep["completed"] == 3
+    assert calls and all(c == 1 for c in calls), calls
 
 
 def test_serve_cli_on_cpu():

@@ -22,6 +22,8 @@ from repro.models import layers as jlayers
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
+from repro_torch.kernels.fused_sampling.ops import (fused_sample,
+                                                    fused_sample_plain)
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
 from repro_torch.models import flash as tflash
@@ -164,8 +166,18 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     c = paged_attention(*_t(qd, kp, vp, table), lengths)
     d = paged_attention_plain(*_t(qd, kp, vp, table), lengths)
     assert torch.equal(c, d)
-    assert kernels.launches() == {"flash_attention": 0, "paged_attention": 0}
-    assert set(kernels.KERNELS) == {"flash_attention", "paged_attention"}
+    r = np.random.default_rng(8)
+    rows = [torch.from_numpy(r.standard_normal((2, 50)).astype(np.float32))
+            for _ in range(2)]
+    k = torch.tensor([0, 5], dtype=torch.int32)
+    p, mp = torch.tensor([0.9, 1.0]), torch.tensor([0.0, 0.1])
+    e = fused_sample(*rows, k, p, mp)
+    f = fused_sample_plain(*rows, k, p, mp)
+    assert all(torch.equal(e[key], f[key]) for key in f)
+    assert kernels.launches() == {"flash_attention": 0, "paged_attention": 0,
+                                  "fused_sampling": 0}
+    assert set(kernels.KERNELS) == {"flash_attention", "paged_attention",
+                                    "fused_sampling"}
     for name in kernels.KERNELS:
         op, plain = kernels.get_kernel(name)
         assert callable(op) and callable(plain)

@@ -204,3 +204,117 @@ def test_decode_page_tokens_match_over_two_pages(arch, over):
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         assert tblk.dtype == torch.int32
         jstate, tstate = (jt, jln, jrem), (tt, tln, trem)
+
+
+def test_pack_logprob_block_round_trips_and_matches_jax():
+    """The packed plane's layout: int32 token and id bit patterns survive
+    the f32 view exactly; values agree with JAX's pack to 1e-6, and ids
+    (with a deliberate tie) exactly."""
+    r = np.random.default_rng(8)
+    B, V, K = 4, 300, 5
+    logits = r.normal(0.0, 2.0, (B, V)).astype(np.float32)
+    logits[:, 40] = logits[:, 7] = 12.0          # tie on top: lowest id first
+    tokens = np.array([0, 123, 299, 7], np.int32)
+    for k in (0, K):
+        got = TT.pack_logprob_block(torch.from_numpy(tokens),
+                                    torch.from_numpy(logits), k).numpy()
+        want = np.asarray(JT.pack_logprob_block(jnp.asarray(tokens),
+                                                jnp.asarray(logits), k))
+        assert got.shape == want.shape == (B, 2 + 2 * k)
+        gt, gc, gv, gi = TT.unpack_logprob_block(got[None])
+        wt, wc, wv, wi = JT.unpack_logprob_block(want[None])
+        np.testing.assert_array_equal(gt[0], tokens)
+        np.testing.assert_array_equal(gt, wt)
+        np.testing.assert_allclose(gc, wc, **TOL)
+        if k:
+            np.testing.assert_array_equal(gi, wi)
+            assert list(gi[0, 0, :2]) == [7, 40]
+            np.testing.assert_allclose(gv, wv, **TOL)
+        else:
+            assert gv is None and gi is None
+
+
+# (sampled, lp_k): the greedy logprob page, the sampled page, and the
+# sampled page with logprob lanes from the fused sampling pass
+PAGE_VARIANTS = [(False, 3), (True, None), (True, 2)]
+
+
+@pytest.mark.parametrize("sampled,lp_k", PAGE_VARIANTS,
+                         ids=["greedy_lp3", "sampled", "sampled_lp2"])
+def test_decode_page_sampled_and_logprobs_match_jax(sampled, lp_k):
+    """Two pages of 8 steps against JAX's ``decode_page`` with the Pallas
+    sampling kernel in interpret mode: identical token blocks (or plane
+    token columns and ids), planes within 1e-5, equal countdowns and
+    sampling state.  One slot finishes mid-page, one carries a stop set
+    and one is never live."""
+    from repro import sampling as JS
+    from repro_torch import sampling as TS
+
+    jcfg, tcfg = _cfgs("llama3_2_1b")
+    np_params = _jax_params(jcfg)
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    tparams = TT.params_from_numpy(np_params, tcfg, device="cpu")
+    B, S0, max_len, P = 4, 8, 64, 8
+    V = TT.padded_vocab(tcfg)
+    toks = np.random.default_rng(9).integers(2, jcfg.vocab_size, (B, S0),
+                                             dtype=np.int32)
+    jlog, jpc = JT.prefill(jcfg, AXES, jparams, {"tokens": jnp.asarray(toks)})
+    first = np.argmax(np.asarray(jlog)[:, 0], axis=-1).astype(np.int32)
+    jcache = {n: JT.init_cache(jcfg, B, max_len)[n].at[:, :, :S0].set(jpc[n])
+              for n in ("k", "v")}
+    tcache = TT.init_cache(tcfg, B, max_len, "cpu")
+    for n in ("k", "v"):
+        tcache[n][:, :, :S0] = torch.from_numpy(np.array(jpc[n]))
+    lengths = np.full((B,), S0, np.int32)
+    remaining = np.array([16, 11, 16, 0], np.int32)
+    jkw, tkw = {"lp_k": lp_k}, {"lp_k": lp_k}
+    if sampled:
+        sps = [TS.SamplingParams(),
+               TS.SamplingParams(temperature=0.8, top_k=20, seed=1),
+               TS.SamplingParams(temperature=1.1, top_p=0.9, seed=2,
+                                 stop=tuple(range(0, V, V // 8))),
+               TS.SamplingParams(temperature=0.7, repetition_penalty=1.3,
+                                 presence_penalty=0.2, seed=3)]
+        packed = TS.pack_params(sps, list(range(B)))
+        st = TS.init_state(packed["seed"], [list(t) for t in toks],
+                           [[int(f)] for f in first], V)
+        flags = TS.flags_for(sps, V)
+        jflags = JS.SampleFlags("pallas_interpret", flags.pen, flags.kc,
+                                flags.mixed, flags.stops)
+        jkw.update(flags=jflags, sampling=(
+            {k: jnp.asarray(v) for k, v in packed.items() if k != "seed"},
+            {"base_key": JS.base_keys(st["seed"]),
+             **{n: jnp.asarray(st[n]) for n in
+                ("gen_count", "counts", "prompt_counts")}}))
+        tkw.update(flags=flags, sampling=(
+            {k: torch.from_numpy(v) for k, v in packed.items() if k != "seed"},
+            {"base_key": TS.base_keys(st["seed"], "cpu"),
+             **{n: torch.from_numpy(st[n]) for n in
+                ("gen_count", "counts", "prompt_counts")}}))
+    jstate = tuple(map(jnp.asarray, (first, lengths, remaining)))
+    tstate = tuple(map(torch.from_numpy, (first.copy(), lengths.copy(),
+                                          remaining.copy())))
+    for _ in range(2):
+        jout = JT.decode_page(jcfg, AXES, jparams, jcache, *jstate, P, **jkw)
+        tout = TT.decode_page(tcfg, tparams, tcache, *tstate, P, **tkw)
+        jblk, tblk = np.asarray(jout[0]), tout[0].numpy()
+        if lp_k is None:
+            np.testing.assert_array_equal(tblk, jblk)
+        else:
+            jt, jc, jv, ji = JT.unpack_logprob_block(jblk)
+            tt, tc, tv, ti = TT.unpack_logprob_block(tblk)
+            np.testing.assert_array_equal(tt, jt)
+            np.testing.assert_array_equal(ti, ji)
+            np.testing.assert_allclose(tc, jc, atol=1e-5, rtol=1e-5)
+            np.testing.assert_allclose(tv, jv, atol=1e-5, rtol=1e-5)
+        for g, w in zip(tout[1:4], jout[1:4]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        jcache, tcache = jout[4], tout[4]
+        jstate, tstate = tuple(jout[1:4]), tuple(tout[1:4])
+        if sampled:
+            for n in ("base_key", "gen_count", "counts", "prompt_counts"):
+                np.testing.assert_array_equal(
+                    tout[5][n].numpy(),
+                    np.asarray(jout[5][n]).astype(tout[5][n].numpy().dtype))
+            jkw["sampling"] = (jkw["sampling"][0], jout[5])
+            tkw["sampling"] = (tkw["sampling"][0], tout[5])

@@ -9,7 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch import compat
+from repro_torch import compat, sampling
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import transformer as TT
 from repro_torch.runtime.engine import NodeEngine
@@ -28,7 +28,9 @@ from repro_torch.runtime.api import BatchMaster
 from repro_torch.launch import serve
 from repro_torch.kernels.flash_attention import ops as f
 from repro_torch.kernels.paged_attention import ops as p
+from repro_torch.kernels.fused_sampling import ops as fs
 from repro_torch.kernels import build
+from repro_torch.sampling import processors, sample
 print("imported", sorted(m for m, mod in sys.modules.items()
                          if mod is not None
                          and m.split(".")[0] in ("jax", "repro", "ml_dtypes")))
@@ -48,6 +50,9 @@ def test_no_source_imports_jax_or_repro():
     pat = re.compile(r"^\s*(import|from)\s+(jax|ml_dtypes|repro)\b")
     files = sorted(PKG.rglob("*.py"))
     assert len(files) > 20
+    names = {str(f.relative_to(PKG)) for f in files}
+    assert {"sampling/processors.py", "sampling/sample.py",
+            "kernels/fused_sampling/ops.py"} <= names
     bad = [f"{f.relative_to(SRC)}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -64,6 +69,9 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
         TT.init_params(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         compat.resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sampling.base_keys([1])
+    assert sampling.base_keys([1], "cpu").device.type == "cpu"
     assert compat.resolve_device("cpu").type == "cpu"
     eng = NodeEngine(cfg, device="cpu", max_active=2, max_len=32,
                      page_size=8)
