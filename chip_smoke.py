@@ -19,16 +19,32 @@ result):
    give exactly its plain version's tokens and top-K ids, its stats to
    rtol 1e-5 (float summation order), and equal bits over two launches;
    its yardstick is the port's own shared-sort route (no single PyTorch
-   call computes the function);
+   call computes the function).  The grouped expert GEMM (``moe_gemm``)
+   is held to its plain version in bf16 and fp32 at Qwen3-30B-A3B's
+   decode and 8x256-prefill shapes (w1 and w2), as the dispatch lays them
+   out, and at edge cases (an expert with no rows, unused trailing
+   blocks, ragged D and F, E=4 F=64); its yardsticks are one
+   ``torch.bmm`` over the reference's (E, C, D) capacity buffer and,
+   where the card's torch has it, ``torch._grouped_mm``;
 4. the serving paths: full-width Llama-3.2-1B in bf16 (random weights from
    a seed) through the port's ``BatchMaster`` and one ``NodeEngine``:
    the greedy path (~8 requests and a resubmitted prefix), then the
    sampled path (8 requests of mixed SamplingParams with a stop token and
    top-5 logprobs, submitted twice: the streams must be identical), with
-   every kernel's launch count read around each path alone;
-5. a reduced fp32 copy of the model served once on "cuda" (the kernels)
-   and once on "cpu" (the plain versions), greedy and sampled requests:
-   the tokens of one page must be identical.
+   every kernel's launch count read around each path alone: each path
+   must launch its kernels, and the dense paths never ``moe_gemm``;
+5. reduced fp32 copies of Llama-3.2-1B and of Qwen3-30B-A3B (the MoE one
+   with module granularity, b_attn 2 of 4 slots) served once on "cuda"
+   (the kernels) and once on "cpu" (the plain versions), greedy and
+   sampled requests: the tokens of one page must be identical;
+6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
+   seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
+   module granularity (Algorithm 1: attention in sub-batches of 4 of the
+   8 slots, COMBINE before each MoE layer): 8 greedy requests, then the
+   model's default SamplingParams with seeds, submitted twice (identical
+   streams required), then the greedy batch once more on a monolithic
+   engine sharing the weights (how many streams agree is printed, not
+   gated: bf16 sub-batched products may round differently).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +52,7 @@ The line before the last is ``{"kernels": [...]}``; the last is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import statistics
@@ -64,11 +81,26 @@ REPLACES = {
         "src/repro/kernels/paged_attention/paged_attention.py:73",
     "fused_sampling":
         "src/repro/kernels/fused_sampling/fused_sampling.py:273",
+    "moe_gemm": "src/repro/kernels/moe_gemm/moe_gemm.py:31",
 }
+# the kernels each serving path must launch; the others it must not
+DENSE_GREEDY = ("flash_attention", "paged_attention")
+DENSE_SAMPLED = DENSE_GREEDY + ("fused_sampling",)
+MOE_GREEDY = DENSE_GREEDY + ("moe_gemm",)
+MOE_SAMPLED = MOE_GREEDY + ("fused_sampling",)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def check_launches(path: str, used, expected) -> None:
+    """The path launched each of its kernels and none of the others."""
+    for name, n in used.items():
+        if (n > 0) != (name in expected):
+            want = "> 0" if name in expected else "0"
+            raise AssertionError(f"{path}: {name} launched {n} times "
+                                 f"(expected {want})")
 
 
 # ---------------------------------------------------------------- timing
@@ -383,6 +415,133 @@ def check_fused_sampling(dev, timer):
                 shape=f"B{B} V{V} f32 mixed k/p/min_p, no lanes")
 
 
+def _routed(gen, dev, T, E, k, experts=None):
+    """The dispatch of T tokens' top-k of random router logits (over
+    ``experts`` only, if given), at the block size the MoE layer picks.
+    Returns (plan, rows_of): ``rows_of(x)`` lays x (T, width) out as the
+    layer does, sorted by expert and padded per expert."""
+    from repro_torch.kernels.moe_gemm import ops
+    logits = torch.randn((T, E), generator=gen, device=dev)
+    if experts is not None:
+        mask = torch.full((E,), -1e30, device=dev)
+        mask[list(experts)] = 0.0
+        logits = logits + mask
+    ids = torch.topk(logits, k, dim=-1).indices
+    plan = ops.dispatch_plan(ids, E, ops.pick_block_t(T * k, E))
+    tok = torch.arange(T, device=dev).repeat_interleave(k)
+    return plan, lambda x: ops.gather_rows(x, plan, tok)
+
+
+def _gemm_bound(plan, xs, w, n_choices):
+    """Least time for one call on these inputs: the touched experts'
+    weights, the used rows of x and the whole output, once each, or the
+    products of the real choices at the card's peak, whichever is
+    larger."""
+    E, D, Fo = w.shape
+    be = plan.block_expert
+    used = be[be >= 0]
+    es = w.element_size()
+    nbytes = (int(torch.unique(used).numel()) * D * Fo * es
+              + int(used.numel()) * plan.block_t * D * es
+              + xs.shape[0] * Fo * es + be.numel() * 4)
+    flops = 2.0 * n_choices * D * Fo
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[w.dtype]
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", \
+        nbytes, flops
+
+
+def check_moe_gemm(dev, timer):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
+                                                  grouped_gemm_plain)
+    from repro_torch.models.moe import expert_capacity
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+
+    def case(tag, dtype, xs, plan, w):
+        bt = plan.block_t
+        got = grouped_gemm(xs, w, plan.block_expert, block_t=bt)
+        torch.cuda.synchronize()
+        want = grouped_gemm_plain(xs, w, plan.block_expert, block_t=bt)
+        return _check(f"moe_gemm {tag} {str(dtype)[6:]}", got, want, dtype)
+
+    # Qwen3-30B-A3B: E=128, top-8, D=2048, expert F=768; a decode step of
+    # 8 slots and the 8 x 256 prefill batch
+    E, k, D, Fe = 128, 8, 2048, 768
+    main = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        w1 = (0.02 * torch.randn((E, D, Fe), generator=gen, device=dev)) \
+            .to(dtype)
+        w2 = (0.03 * torch.randn((E, Fe, D), generator=gen, device=dev)) \
+            .to(dtype)
+        for T, name in ((8, "decode B8"), (2048, "prefill 8x256")):
+            plan, rows_of = _routed(gen, dev, T, E, k)
+            xs = rows_of(_rand(gen, (T, D), dtype, dev))
+            err1 = case(f"{name} w1 bt{plan.block_t} rows{xs.shape[0]}",
+                        dtype, xs, plan, w1)
+            case(f"{name} w2 (F->D)", dtype,
+                 rows_of(_rand(gen, (T, Fe), dtype, dev)), plan, w2)
+            main[(dtype, T)] = (err1, xs, plan, w1)
+        del w1, w2
+    # an expert with no rows (3 and 7 never chosen), ragged D and F
+    for dtype in (torch.bfloat16, torch.float32):
+        w = _rand(gen, (8, 72, 100), dtype, dev)
+        plan, rows_of = _routed(gen, dev, 24, 8, 2,
+                                experts=(0, 1, 2, 4, 5, 6))
+        case("E8 two empty experts D72 F100", dtype,
+             rows_of(_rand(gen, (24, 72), dtype, dev)), plan, w)
+        # the reduced models' experts: E=4, D=128, F=64, top-2
+        w = _rand(gen, (4, 128, 64), dtype, dev)
+        plan, rows_of = _routed(gen, dev, 64, 4, 2)
+        case("reduced E4 D128 F64", dtype,
+             rows_of(_rand(gen, (64, 128), dtype, dev)), plan, w)
+
+    cfg = get_config("qwen3_moe_30b")
+    rows = {}
+    for T in (8, 2048):
+        err, xs, plan, w1 = main[(torch.bfloat16, T)]
+        be, bt = plan.block_expert, plan.block_t
+        bound, by, nbytes, flops = _gemm_bound(plan, xs, w1, T * k)
+        ms = timer(lambda: grouped_gemm(xs, w1, be, block_t=bt))
+        plain_ms = timer(lambda: grouped_gemm_plain(xs, w1, be, block_t=bt),
+                         iters=5)
+        # the reference's own contraction: one bmm over (E, C, D)
+        buf = _rand(gen, (E, expert_capacity(cfg, T), D), torch.bfloat16,
+                    dev)
+        bmm_ms = timer(lambda: torch.bmm(buf, w1))
+        gmm_ms = None
+        if hasattr(torch, "_grouped_mm"):
+            counts = torch.bincount(torch.topk(torch.randn(
+                (T, E), generator=gen, device=dev), k).indices.reshape(-1),
+                minlength=E)
+            xa = _rand(gen, (T * k, D), torch.bfloat16, dev)
+            offs = torch.cumsum(counts, 0).to(torch.int32)
+            gmm_ms = timer(lambda: torch._grouped_mm(xa, w1, offs=offs))
+        used = int((be >= 0).sum().item())
+        log(f"  moe_gemm bf16 {'decode B8' if T == 8 else 'prefill 8x256'} "
+            f"w1 (T={T}, top-{k} of {E}, rows {xs.shape[0]}, block_t {bt}, "
+            f"{used} used blocks): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, bmm over (E,C,D) {bmm_ms:.4f} ms, torch._grouped_mm "
+            f"{gmm_ms} ms, bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} "
+            f"MB, {flops / 1e9:.2f} GFLOP)")
+        rows[T] = dict(err=err, ms=ms, plain_ms=plain_ms, bmm_ms=bmm_ms,
+                       gmm_ms=gmm_ms, bound=bound, by=by, bt=bt,
+                       rows=xs.shape[0])
+        del buf
+    d, p = rows[8], rows[2048]
+    err32 = max(main[(torch.float32, T)][0] for T in (8, 2048))
+    return dict(name="moe_gemm", route="cuda",
+                source="src/repro_torch/csrc/moe_gemm.cu",
+                replaces=REPLACES["moe_gemm"],
+                max_abs_err=max(d["err"], p["err"]), max_abs_err_fp32=err32,
+                ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound"],
+                bound_by=d["by"], library_ms=d["bmm_ms"],
+                grouped_mm_ms=d["gmm_ms"], prefill=p,
+                shape=f"decode B8 top-{k} of {E}, D{D} F{Fe} bf16, rows "
+                      f"{d['rows']} block_t {d['bt']}; library: torch.bmm "
+                      f"over the (E, C, D) capacity buffer")
+
+
 # ---------------------------------------------------------------- phase 4
 class _PageClock:
     """Host-clock spans of an engine's prefill and decode_page calls,
@@ -480,12 +639,7 @@ def serve_main_path(dev):
     saved = eng.prefill_tokens_saved - saved0
     if saved <= 0:
         raise AssertionError("the resubmitted prefix was not reused")
-    for name in ("flash_attention", "paged_attention"):
-        if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched on the greedy "
-                                 f"path")
-    if launches["fused_sampling"] != 0:
-        raise AssertionError("an all-greedy page launched fused_sampling")
+    check_launches("the greedy path", launches, DENSE_GREEDY)
     # the model's logits on a short prompt: finite, of the padded vocab
     logits, _ = T.prefill(cfg, eng.params, torch.tensor(
         [first[0].prompt], dtype=torch.int32, device=dev))
@@ -551,7 +705,11 @@ def serve_sampled_path(dev, eng, master, prompt):
                                  f"{bo.request_counts}")
         return {r["custom_id"]: r["response"] for r in bo.results}
 
-    # a probe run without the stop set picks a token the stop row emits
+    # a probe run without the stop set picks a token the stop row emits;
+    # a first pass publishes the prompts, so the probe and the measured
+    # runs all take the prefix-hit path (in bf16 a fresh prefill and a
+    # teacher-forced tail may round a first token differently)
+    serve(batch(()))
     probe = serve(batch(()))
     stop_tok = probe["s6"]["tokens"][5]
     runs, clocks, walls, launch = [], [], [], []
@@ -565,10 +723,7 @@ def serve_sampled_path(dev, eng, master, prompt):
         launch.append(kernels.launches())
         clock.restore()
         clocks.append(clock)
-    for name, n in launch[0].items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on the sampled "
-                                 f"path")
+    check_launches("the sampled path", launch[0], DENSE_SAMPLED)
     if runs[0] != runs[1]:
         raise AssertionError("the resubmitted sampled batch gave other "
                              "streams")
@@ -610,6 +765,21 @@ def serve_sampled_path(dev, eng, master, prompt):
 
 # ---------------------------------------------------------------- phase 5
 def reduced_cpu_vs_cuda(dev):
+    from repro_torch.sampling import SamplingParams
+
+    sps = [SamplingParams(), SamplingParams(),
+           SamplingParams(temperature=0.8, top_k=20, seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, min_p=0.02, seed=2),
+           SamplingParams(temperature=0.7, repetition_penalty=1.3,
+                          presence_penalty=0.2, seed=3, stop=(5, 6))]
+    _reduced_pair(dev, "llama3_2_1b", {}, sps, DENSE_SAMPLED)
+    _reduced_pair(dev, "qwen3_moe_30b",
+                  dict(module_granularity=True, b_attn=2), sps, MOE_SAMPLED)
+
+
+def _reduced_pair(dev, arch, engine_kw, sps, expected):
+    """The reduced fp32 model served on "cuda" (the kernels) and on "cpu"
+    (the plain versions): the tokens of one page must be identical."""
     from repro_torch import kernels
     from repro_torch.configs import reduced_config
     from repro_torch.core.scheduler import SchedulerConfig
@@ -617,19 +787,13 @@ def reduced_cpu_vs_cuda(dev):
     from repro_torch.runtime.api import BatchMaster, BatchRequest
     from repro_torch.runtime.engine import NodeEngine
 
-    cfg = dataclasses.replace(reduced_config("llama3_2_1b"), dtype="float32")
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
     params = T.init_params(cfg, seed=3, device="cpu")
-    from repro_torch.sampling import SamplingParams
-
     rng = np.random.default_rng(3)
-    sps = [SamplingParams(), SamplingParams(),
-           SamplingParams(temperature=0.8, top_k=20, seed=1),
-           SamplingParams(temperature=1.1, top_p=0.9, min_p=0.02, seed=2),
-           SamplingParams(temperature=0.7, repetition_penalty=1.3,
-                          presence_penalty=0.2, seed=3, stop=(5, 6))]
     reqs = [(f"s{i}", [int(t) for t in rng.integers(2, cfg.vocab_size, n)],
              sp) for i, (n, sp) in enumerate(zip([5, 12, 16, 23, 9], sps))]
     page = 16
+
     def to(tree, target):
         return {k: to(v, target) if isinstance(v, dict) else v.to(target)
                 for k, v in tree.items()}
@@ -638,7 +802,8 @@ def reduced_cpu_vs_cuda(dev):
     for device in ("cuda", "cpu"):
         target = dev if device == "cuda" else torch.device("cpu")
         eng = NodeEngine(cfg, params=to(params, target), max_active=4,
-                         max_len=128, page_size=page, device=target)
+                         max_len=128, page_size=page, device=target,
+                         **engine_kw)
         master = BatchMaster([eng], SchedulerConfig(page_size=page))
         before = kernels.launches()
         bo = master.run(master.submit(
@@ -647,16 +812,117 @@ def reduced_cpu_vs_cuda(dev):
         used = {k: after[k] - before[k] for k in after}
         out[device] = {r["custom_id"]: r["response"]["tokens"]
                        for r in bo.results}
-        log(f"  {device}: {bo.request_counts}, kernel launches {used}")
-        if device == "cuda" and min(used.values()) <= 0:
-            raise AssertionError("the cuda run did not launch every kernel")
-        if device == "cpu" and max(used.values()) != 0:
-            raise AssertionError("the cpu run launched a kernel")
+        log(f"  {arch} {engine_kw} {device}: {bo.request_counts}, kernel "
+            f"launches {used}")
+        check_launches(f"reduced {arch} on {device}", used,
+                       expected if device == "cuda" else ())
     if out["cuda"] != out["cpu"]:
-        raise AssertionError(f"tokens differ: cuda {out['cuda']} "
+        raise AssertionError(f"{arch}: tokens differ: cuda {out['cuda']} "
                              f"vs cpu {out['cpu']}")
-    log(f"  greedy and sampled tokens of one page identical for "
+    log(f"  {arch}: greedy and sampled tokens of one page identical for "
         f"{len(reqs)} requests")
+
+
+# ---------------------------------------------------------------- phase 6
+def serve_moe_path(dev):
+    """Full-width Qwen3-30B-A3B through one module-granularity engine:
+    greedy, then sampled twice; then the greedy batch on a monolithic
+    engine sharing the weights.  Returns the greedy and sampled launch
+    counts."""
+    from repro_torch import kernels
+    from repro_torch.configs import default_sampling, get_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.api import BatchMaster, BatchRequest
+    from repro_torch.runtime.engine import NodeEngine
+
+    cfg = get_config("qwen3_moe_30b")
+    page = 16
+    kw = dict(max_active=8, max_len=2048, page_size=page, device=dev)
+    t0 = time.perf_counter()
+    eng = NodeEngine(cfg, seed=0, module_granularity=True, b_attn=4, **kw)
+    torch.cuda.synchronize()
+    log(f"  engine + weights ({T.param_count(cfg) / 1e9:.2f} B params, "
+        f"{T.param_count(cfg, active_only=True) / 1e9:.2f} B active, "
+        f"{cfg.dtype}) {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    rng = np.random.default_rng(6)
+    vpad = T.padded_vocab(cfg)
+
+    def prompt(n):
+        return [int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+
+    def serve(engine, reqs, tag):
+        master = BatchMaster([engine], SchedulerConfig(page_size=page))
+        clock = _PageClock(engine)
+        kernels.reset_launches()
+        t = time.perf_counter()
+        bo = master.run(master.submit(reqs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        used = kernels.launches()
+        clock.restore()
+        if bo.request_counts["completed"] != len(reqs) or \
+                bo.request_counts["failed"]:
+            raise AssertionError(f"{tag}: requests not completed: "
+                                 f"{bo.request_counts}")
+        out = {r["custom_id"]: r["response"] for r in bo.results}
+        for cid, resp in out.items():
+            toks = resp["tokens"]
+            if not toks or not all(0 <= t < vpad for t in toks):
+                raise AssertionError(f"{tag} {cid}: bad tokens {toks}")
+        n_out = sum(len(r["tokens"]) for r in out.values())
+        pf_s, pf_tok, _ = clock.per_step("prefill")
+        kind = "decode" if tag.startswith("greedy") else "sampled"
+        dc_s, dc_steps, dc_ms = clock.per_step(kind)
+        log(f"  {tag}: {len(out)} requests, {n_out} output tokens in "
+            f"{wall:.3f} s: {n_out / wall:.1f} output tokens/s; prefill "
+            f"{pf_s * 1e3:.1f} ms for {pf_tok} prompt tokens; decode "
+            f"{dc_ms:.2f} ms/step over {dc_steps} steps; launches {used}")
+        return out, used, dict(wall=wall, tokens=n_out, prefill_ms=pf_s * 1e3,
+                               decode_ms=dc_ms, steps=dc_steps)
+
+    serve(eng, [BatchRequest("warm", prompt(8), 4)], "greedy warm-up")
+    lens = [8, 24, 40, 64, 96, 128, 192, 256]
+    outs = [16, 20, 24, 28, 32, 36, 40, 48]
+    prompts = [prompt(n) for n in lens]
+    greedy = [BatchRequest(f"g{i}", pr, m)
+              for i, (pr, m) in enumerate(zip(prompts, outs))]
+    g_out, g_used, g_num = serve(eng, greedy, "greedy, module granularity")
+    check_launches("the MoE greedy path", g_used, MOE_GREEDY)
+    for r in greedy:
+        if len(g_out[r.custom_id]["tokens"]) != r.max_tokens:
+            raise AssertionError(f"{r.custom_id}: "
+                                 f"{len(g_out[r.custom_id]['tokens'])} "
+                                 f"tokens, asked for {r.max_tokens}")
+
+    sampled = [BatchRequest(f"s{i}", pr, m, sampling=default_sampling(
+        "qwen3_moe_30b", seed=100 + i))
+        for i, (pr, m) in enumerate(zip(prompts, outs))]
+    runs = [serve(eng, sampled, f"sampled run {j}, module granularity")
+            for j in range(2)]
+    check_launches("the MoE sampled path", runs[0][1], MOE_SAMPLED)
+    if runs[0][0] != runs[1][0]:
+        raise AssertionError("the resubmitted sampled MoE batch gave other "
+                             "streams")
+    log(f"  sampled ({default_sampling('qwen3_moe_30b')}): streams "
+        f"identical over two submits")
+
+    logits, _ = T.prefill(cfg, eng.params, torch.tensor(
+        [prompts[0]], dtype=torch.int32, device=dev))
+    if logits.shape != (1, 1, vpad) or not torch.isfinite(logits).all():
+        raise AssertionError(f"bad MoE logits {tuple(logits.shape)}")
+
+    mono = NodeEngine(cfg, params=eng.params, **kw)
+    serve(mono, [BatchRequest("warm", prompt(8), 4)], "greedy warm-up")
+    m_out, m_used, m_num = serve(mono, greedy, "greedy, monolithic")
+    check_launches("the MoE monolithic path", m_used, MOE_GREEDY)
+    agree = sum(m_out[c]["tokens"] == g_out[c]["tokens"] for c in g_out)
+    log(f"  monolithic vs module granularity: {agree} of {len(g_out)} "
+        f"greedy streams identical (bf16: not a gate)")
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  peak device memory {peak:.2f} GB")
+    return g_used, runs[0][1]
 
 
 # ---------------------------------------------------------------- main
@@ -692,19 +958,26 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     timer = Timer(dev)
     stats = [check_flash(dev, timer), check_paged(dev, timer),
-             check_fused_sampling(dev, timer)]
+             check_fused_sampling(dev, timer), check_moe_gemm(dev, timer)]
     del timer
     torch.cuda.empty_cache()
 
     log("== 4. serving paths: Llama-3.2-1B bf16, BatchMaster + NodeEngine")
     torch.cuda.reset_peak_memory_stats(dev)
     greedy, sampled = serve_main_path(dev)
-    for s in stats:     # each kernel's count from the path it was added for
-        s["launches"] = (sampled if s["name"] == "fused_sampling"
-                         else greedy)[s["name"]]
+    gc.collect()                    # the Llama engine sits in ref cycles
+    torch.cuda.empty_cache()
 
-    log("== 5. reduced fp32 model: cuda (kernels) vs cpu (plain versions)")
+    log("== 5. reduced fp32 models: cuda (kernels) vs cpu (plain versions)")
     reduced_cpu_vs_cuda(dev)
+
+    log("== 6. the MoE path: Qwen3-30B-A3B bf16, module granularity")
+    torch.cuda.reset_peak_memory_stats(dev)
+    moe_greedy, _ = serve_moe_path(dev)
+    for s in stats:     # each kernel's count from the path it was added for
+        s["launches"] = {"fused_sampling": sampled,
+                         "moe_gemm": moe_greedy}.get(s["name"],
+                                                     greedy)[s["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")

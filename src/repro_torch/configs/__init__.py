@@ -1,5 +1,5 @@
-"""Architecture registry of the PyTorch port: one module per dense
-architecture the port serves so far (copies of ``repro.configs``).
+"""Architecture registry of the PyTorch port: one module per architecture
+the port serves so far, dense and MoE (copies of ``repro.configs``).
 ``get_config(name)`` returns the full published config;
 ``reduced_config(name)`` returns a tiny same-family config for CPU smoke
 tests (same code paths, small dims)."""
@@ -12,6 +12,8 @@ ARCH_IDS = [
     "llama3_2_1b",
     "qwen2_0_5b",
     "smollm_360m",
+    "phi3_5_moe",
+    "qwen3_moe_30b",
 ]
 
 
@@ -23,6 +25,8 @@ SAMPLING_DEFAULTS = {
     "qwen2_0_5b": dict(temperature=0.7, top_p=0.8, top_k=20,
                        repetition_penalty=1.1),
     "smollm_360m": dict(temperature=0.6, top_p=0.92),
+    "phi3_5_moe": dict(temperature=0.7, top_p=0.95),
+    "qwen3_moe_30b": dict(temperature=0.6, top_p=0.95, top_k=20),
 }
 
 

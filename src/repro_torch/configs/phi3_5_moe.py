@@ -1,0 +1,11 @@
+"""Phi-3.5-MoE (42B, 6.6B active): 32L d_model=4096 32H (GQA kv=8)
+MoE 16 experts top-2, expert d_ff=6400, vocab=32064.
+[hf:microsoft/Phi-3.5-MoE-instruct; hf]"""
+from repro_torch.models.api import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi3.5-moe-42b-a6.6b", family="moe",
+    num_layers=32, d_model=4096, num_heads=32, num_kv_heads=8,
+    d_ff=0, vocab_size=32064, head_dim=128,
+    num_experts=16, experts_per_token=2, moe_d_ff=6400,
+)

@@ -17,6 +17,7 @@ KERNELS = {
     "flash_attention": ("flash_attention", "flash_attention_plain"),
     "paged_attention": ("paged_attention", "paged_attention_plain"),
     "fused_sampling": ("fused_sample", "fused_sample_plain"),
+    "moe_gemm": ("grouped_gemm", "grouped_gemm_plain"),
 }
 
 # launches of each kernel since the last reset: a wrapper adds one where

@@ -2,6 +2,8 @@
 trace of one served batch.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch llama3_2_1b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen3_moe_30b \
+        --module-granularity --b-attn 4
 
 Builds one ``NodeEngine`` (random weights from ``--seed``), serves a
 warm-up request, then traces a batch of greedy requests (``--sampled``:
@@ -9,8 +11,12 @@ sampled ones, temperature 0.8, top-k 40, top-p 0.95, a seed each)
 through the ``BatchMaster`` and prints: wall time, output tokens/s,
 device busy share (summed kernel time over wall time; one stream, so
 kernels do not overlap), device time per kernel class, the top kernels
-by device time, and host time per decode step.  ``--trace PATH`` also
-writes the Chrome trace.  Needs a CUDA card.
+by device time, and host time per decode step.  ``--module-granularity``
+and ``--b-attn`` decode through the Algorithm-1 module runtime; on a MoE
+model the classes split out the ``moe_gemm`` kernel and the sort /
+scatter / scan / search kernels of its dispatch (the sampled pages'
+penalty counts land there too).  ``--trace PATH`` also writes the
+Chrome trace.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -37,6 +43,11 @@ def kernel_class(name: str) -> str:
         return "paged_attention kernel"
     if "fused_sample_kernel" in n:
         return "fused_sampling kernel"
+    if "grouped_gemm_kernel" in n:
+        return "moe_gemm kernel"
+    if any(k in n for k in ("sort", "scatter", "scan", "searchsorted",
+                            "index_put", "bincount")):
+        return "sort / scatter / scan / search (MoE dispatch, penalties)"
     if any(k in n for k in ("gemm", "gemv", "cutlass", "xmma", "nvjet")):
         return "matmul (cuBLAS)"
     if "memcpy" in n or "memset" in n:
@@ -56,12 +67,16 @@ def main(argv=None):
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sampled", action="store_true")
+    ap.add_argument("--module-granularity", action="store_true")
+    ap.add_argument("--b-attn", type=int, default=0)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     eng = NodeEngine(cfg, max_active=args.max_active, max_len=args.max_len,
-                     page_size=args.page_size, seed=args.seed)
+                     page_size=args.page_size, seed=args.seed,
+                     module_granularity=args.module_granularity,
+                     b_attn=args.b_attn)
     master = BatchMaster([eng], SchedulerConfig(page_size=args.page_size))
     rng = np.random.default_rng(args.seed)
 
@@ -99,7 +114,9 @@ def main(argv=None):
             by_name[ev.name] += us
     busy_s = sum(by_class.values()) / 1e6
     print(f"device: {torch.cuda.get_device_name(0)}")
-    kind = "sampled" if args.sampled else "greedy"
+    kind = ("sampled" if args.sampled else "greedy") + (
+        f", module granularity (b_attn {eng.b_attn})"
+        if args.module_granularity else "")
     print(f"served {len(bo.results)} {kind} requests "
           f"({args.prompt_len}-token prompts, {args.max_tokens} output "
           f"tokens) in {wall:.3f} s: "

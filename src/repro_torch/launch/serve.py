@@ -3,6 +3,12 @@ card and serves a batch of greedy requests through the BatchMaster.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3_2_1b
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_30b \
+        --module-granularity --b-attn 4
+
+``--module-granularity`` decodes through the Algorithm-1 module runtime:
+attention in sub-batches of ``--b-attn`` slots (0: all of them), COMBINE
+before each FFN/MoE layer.
 
 The weights are random, drawn from ``--seed``.  Without a CUDA card the
 default ``--device cuda`` raises; ``--device cpu`` runs the plain
@@ -34,12 +40,16 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--module-granularity", action="store_true")
+    ap.add_argument("--b-attn", type=int, default=0)
     args = ap.parse_args(argv)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     engines = [NodeEngine(cfg, node_id=i, max_active=args.max_active,
                           max_len=args.max_len, page_size=args.page_size,
-                          seed=args.seed, device=args.device)
+                          seed=args.seed, device=args.device,
+                          module_granularity=args.module_granularity,
+                          b_attn=args.b_attn)
                for i in range(args.nodes)]
     master = BatchMaster(engines, SchedulerConfig(page_size=args.page_size))
     rng = np.random.default_rng(args.seed)

@@ -19,6 +19,7 @@ were given.
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -187,7 +188,13 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
 # ---------------------------------------------------------------------------
 
 
+def activation(cfg: ModelConfig):
+    """The gated MLP's activation: silu, or gelu in its tanh form."""
+    return F.silu if cfg.act == "silu" else partial(F.gelu,
+                                                    approximate="tanh")
+
+
 def mlp_fwd(cfg: ModelConfig, p, x):
-    g = F.silu(torch.matmul(x, p["w1"]))
+    g = activation(cfg)(torch.matmul(x, p["w1"]))
     u = torch.matmul(x, p["w3"])
     return torch.matmul(g * u, p["w2"])

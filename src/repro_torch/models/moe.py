@@ -1,0 +1,104 @@
+"""Mixture-of-Experts layer on one device.
+
+PyTorch counterpart of the single-device path of ``repro.models.moe``:
+the router, the capacity-bounded MoE (``_moe_local``), shared experts and
+the dense oracle ``moe_ref``.  Parameters keep the JAX layout:
+``wg (D, E)`` in fp32 whatever ``cfg.dtype`` is, ``w1 / w3 (E, D, F)``,
+``w2 (E, F, D)`` and an optional ``shared`` gated MLP.
+
+The reference computes ``_moe_local`` as a dense einsum over all E experts
+on an (E, C, D) capacity buffer.  The port keeps its semantics (the
+capacity C counts every row of the forward, and a choice whose rank among
+its expert's choices in flat token-major order is >= C is dropped) but
+runs only the kept choices, sorted by expert, through the ``moe_gemm``
+grouped GEMM: three launches per layer.  The result equals the
+reference's.  The expert-parallel shard_map path waits for the multi-GPU
+slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.moe_gemm import ops as moe_ops
+from repro_torch.models import layers
+from repro_torch.models.api import ModelConfig
+
+
+def expert_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Static per-expert slot count for a local token pool of size
+    ``tokens``."""
+    c = math.ceil(tokens * cfg.experts_per_token / cfg.num_experts
+                  * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)  # round up to 8, floor of 8 slots
+
+
+def _route(cfg: ModelConfig, wg, xt):
+    """Router: (vals (T,k) fp32, ids (T,k) int64, aux fp32 scalar).  Top-k
+    breaks ties to the lowest expert id (``lax.top_k``'s rule; a stable
+    descending sort, since ``torch.topk`` leaves tie order open)."""
+    logits = torch.matmul(xt.float(), wg)
+    probs = torch.softmax(logits, dim=-1)
+    k = cfg.experts_per_token
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, ids = vals[:, :k], ids[:, :k]
+    vals = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    # Switch-style load-balance aux: E * sum_e f_e * p_e
+    E = cfg.num_experts
+    f = torch.zeros((E,), dtype=torch.float32, device=xt.device) \
+        .index_add_(0, ids.reshape(-1),
+                    torch.ones((ids.numel(),), device=xt.device)) \
+        / ids.numel() * E
+    aux = torch.sum(f * probs.mean(0))
+    return vals, ids, aux
+
+
+def _moe_local(cfg: ModelConfig, p, x):
+    """Capacity-bounded MoE on one device, x (B, S, D) -> ((B, S, D),
+    aux), through the grouped GEMM on the kept choices."""
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    vals, ids, aux = _route(cfg, p["wg"], xt)
+    T, k, E = xt.shape[0], cfg.experts_per_token, cfg.num_experts
+    plan = moe_ops.dispatch_plan(ids, E, moe_ops.pick_block_t(T * k, E),
+                                 capacity=expert_capacity(cfg, T))
+    tok = torch.arange(T, device=x.device).repeat_interleave(k)
+    y = moe_ops.grouped_ffn(moe_ops.gather_rows(xt, plan, tok), plan,
+                            p["w1"], p["w3"], p["w2"],
+                            act=layers.activation(cfg))
+    # dropped choices read row 0 and weigh 0, as the reference's fill
+    gathered = y[plan.dest.clamp(max=plan.rows - 1)]
+    w = torch.where(plan.keep, vals.reshape(-1), 0.0).to(x.dtype)
+    out = (gathered * w[:, None]).reshape(T, k, D).sum(1)
+    return out.reshape(B, S, D), aux
+
+
+def moe_fwd(cfg: ModelConfig, p, x):
+    """MoE with shared experts, x (B, S, D) -> ((B, S, D), aux)."""
+    y, aux = _moe_local(cfg, p, x)
+    if cfg.num_shared_experts > 0:
+        y = y + layers.mlp_fwd(cfg, p["shared"], x)
+    return y, aux
+
+
+def moe_ref(cfg: ModelConfig, p, x):
+    """Oracle: the exact dense computation over all experts, no capacity
+    drops (fp32 sums)."""
+    B, S, D = x.shape
+    xt = x.reshape(-1, D)
+    vals, ids, _ = _route(cfg, p["wg"], xt)
+    act = layers.activation(cfg)
+    xf = xt.float()
+    w_full = torch.zeros((xt.shape[0], cfg.num_experts),
+                         dtype=torch.float32, device=x.device)
+    w_full.scatter_(1, ids, vals)
+    out = torch.zeros((xt.shape[0], D), dtype=torch.float32,
+                      device=x.device)
+    for e in range(cfg.num_experts):
+        h = act(xf @ p["w1"][e].float()) * (xf @ p["w3"][e].float())
+        out += w_full[:, e:e + 1] * (h @ p["w2"][e].float())
+    y = out.reshape(B, S, D).to(x.dtype)
+    if cfg.num_shared_experts > 0:
+        y = y + layers.mlp_fwd(cfg, p["shared"], x)
+    return y

@@ -1,24 +1,26 @@
-"""Dense decoder: parameters, prefill, decode step, the decode page
-(greedy, sampled, with or without logprobs) and its logprob planes.
+"""Decoder: parameters, prefill, decode step, the decode page (greedy,
+sampled, with or without logprobs) and its logprob planes.
 
-PyTorch counterpart of the dense subset of ``repro.models.transformer``.
-Parameters are a plain dict in the JAX package's layout: per-layer leaves
-stacked with a leading L (``layers.attn.wq`` is (L, D, H, dh)), so
-``params_from_numpy`` takes the JAX params pytree as numpy unchanged.  The
-layer stack is a Python loop over per-layer views; the decode cache
+PyTorch counterpart of ``repro.models.transformer`` for the families the
+port serves so far: dense decoders and MoE decoders without MLA
+(``models/moe.py`` for the expert layer).  Parameters are a plain dict in
+the JAX package's layout: per-layer leaves stacked with a leading L
+(``layers.attn.wq`` is (L, D, H, dh), ``layers.moe.w1`` (L, E, D, F)),
+so ``params_from_numpy`` takes the JAX params pytree as numpy unchanged.
+The layer stack is a Python loop over per-layer views; the decode cache
 ``{"k", "v"}`` of (L, B, max_len, Hkv, dh) is written in place.
 """
 from __future__ import annotations
 
 import math
 import weakref
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import compat
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.api import ModelConfig
 
 
@@ -26,15 +28,19 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // 16) * 16
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    """The slice ported so far: dense decoders with RMSNorm, SwiGLU, full
-    RoPE and no logit softcap (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M)."""
-    if (cfg.family != "dense" or cfg.is_moe or cfg.use_mla
-            or cfg.norm != "rmsnorm" or cfg.act != "silu"
+def check_served(cfg: ModelConfig) -> None:
+    """What the port serves so far: dense and MoE decoders with RMSNorm,
+    a gated MLP, full RoPE attention, no sliding window and no logit
+    softcap (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M, Qwen3-30B-A3B,
+    Phi-3.5-MoE).  MLA, windows and the other families wait for later
+    slices."""
+    if (cfg.family not in ("dense", "moe") or cfg.use_mla
+            or cfg.sliding_window > 0 or cfg.norm != "rmsnorm"
             or cfg.logit_softcap > 0):
         raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port serves dense RMSNorm/SwiGLU "
-            f"decoders without a logit softcap so far")
+            f"{cfg.name}: the PyTorch port serves dense and MoE RMSNorm "
+            f"decoders without MLA, a sliding window or a logit softcap "
+            f"so far")
 
 
 # ---------------------------------------------------------------------------
@@ -43,10 +49,12 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """Nested dict of (shape, init) per leaf, in the layout and with the
-    scales of ``repro.models.transformer.init_params`` for a dense decoder;
-    init is the normal draw's std, or "ones" / "zeros"."""
-    _check_dense(cfg)
+    """Nested dict of (shape, init[, dtype]) per leaf, in the layout and
+    with the scales of ``repro.models.transformer.init_params``; init is
+    the normal draw's std, or "ones" / "zeros"; dtype, where given,
+    overrides ``cfg.dtype`` (the MoE router ``wg`` stays fp32, as
+    ``repro.models.moe.init_moe`` keeps it)."""
+    check_served(cfg)
     V, D, L = padded_vocab(cfg), cfg.d_model, cfg.num_layers
     H, Hkv, dh, Fd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     sc, lsc = 1.0 / math.sqrt(D), 1.0 / math.sqrt(max(L, 1))
@@ -59,15 +67,25 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.attn_bias:
         attn.update(bq=((L, H, dh), "zeros"), bk=((L, Hkv, dh), "zeros"),
                     bv=((L, Hkv, dh), "zeros"))
+
+    def mlp(F, stack=(L,)):
+        return {"w1": (stack + (D, F), sc), "w3": (stack + (D, F), sc),
+                "w2": (stack + (F, D), 1.0 / math.sqrt(F) * lsc)}
+
+    block = {"ln1": norm((L,)), "attn": attn, "ln2": norm((L,))}
+    if cfg.is_moe:
+        E = cfg.num_experts
+        block["moe"] = dict(wg=((L, D, E), sc, "float32"),
+                            **mlp(cfg.moe_d_ff, (L, E)))
+        if cfg.num_shared_experts > 0:
+            block["moe"]["shared"] = mlp(cfg.shared_d_ff)
+    else:
+        block["mlp"] = mlp(Fd)
     return {
         "embed": ((V, D), 0.01),
         "lm_head": ((D, V), sc),
         "final_norm": norm(),
-        "layers": {
-            "ln1": norm((L,)), "attn": attn, "ln2": norm((L,)),
-            "mlp": {"w1": ((L, D, Fd), sc), "w3": ((L, D, Fd), sc),
-                    "w2": ((L, Fd, D), 1.0 / math.sqrt(Fd) * lsc)},
-        },
+        "layers": block,
     }
 
 
@@ -77,24 +95,39 @@ def _map_spec(spec, fn, path=()):
     return fn(path, spec)
 
 
+def _leaf_dtype(cfg: ModelConfig, spec) -> torch.dtype:
+    return compat.torch_dtype(spec[2] if len(spec) > 2 else cfg.dtype)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random weights drawn from a seeded ``torch.Generator`` on the target
-    device (normal draws in fp32, scaled, cast to ``cfg.dtype``).  They are
-    not the JAX package's draws; use ``params_from_numpy`` for those."""
+    device (normal draws in fp32, scaled, cast to each leaf's dtype).  A
+    stacked layer leaf is drawn one layer at a time into its final tensor,
+    so the fp32 temporary is one layer's (Qwen3-30B-A3B's ``moe.w1`` is
+    19.3 GB in bf16; drawn whole, its fp32 draw alone would take 38.7 GB).
+    They are not the JAX package's draws; use ``params_from_numpy`` for
+    those."""
     dev = compat.resolve_device(device)
-    dt = compat.torch_dtype(cfg.dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
 
+    def draw(shape, scale, dt):
+        x = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        return (x * scale).to(dt)
+
     def make(path, spec):
-        shape, scale = spec
+        shape, scale, dt = spec[0], spec[1], _leaf_dtype(cfg, spec)
         if scale == "ones":
             return torch.ones(shape, dtype=dt, device=dev)
         if scale == "zeros":
             return torch.zeros(shape, dtype=dt, device=dev)
-        x = torch.randn(shape, generator=gen, device=dev,
-                        dtype=torch.float32)
-        return (x * scale).to(dt)
+        if path[0] != "layers":
+            return draw(shape, scale, dt)
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for i in range(shape[0]):
+            out[i] = draw(shape[1:], scale, dt)
+        return out
 
     return _map_spec(param_shapes(cfg), make)
 
@@ -104,7 +137,6 @@ def params_from_numpy(np_params, cfg: ModelConfig, device=None):
     bf16 leaves as their 16-bit patterns), in the port's layout on
     ``device``.  Raises on a missing, extra or misshapen leaf."""
     dev = compat.resolve_device(device)
-    dt = compat.torch_dtype(cfg.dtype)
     spec = param_shapes(cfg)
 
     def walk(sp, tree, path):
@@ -124,18 +156,23 @@ def params_from_numpy(np_params, cfg: ModelConfig, device=None):
                 t = compat.from_numpy(a.view(np.uint16), torch.bfloat16, dev)
             else:
                 t = torch.from_numpy(np.array(a)).to(dev)
-            out[k] = t.to(dt)
+            out[k] = t.to(_leaf_dtype(cfg, v))
         return out
 
     return walk(spec, np_params, ())
 
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters in all leaves; with ``active_only`` the routed experts
+    count k of E (shared experts and the router count whole)."""
     total = 0
 
     def count(path, spec):
         nonlocal total
-        total += math.prod(spec[0])
+        n = math.prod(spec[0])
+        if active_only and path[-2:-1] == ("moe",) and path[-1] != "wg":
+            n = n // cfg.num_experts * cfg.experts_per_token
+        total += n
 
     _map_spec(param_shapes(cfg), count)
     return total
@@ -184,10 +221,7 @@ def logits_fn(cfg, params, h):
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
     """Dense decode cache {"k", "v"}: (L, B, max_len, Hkv, dh) zeros."""
-    _check_dense(cfg)
-    if cfg.sliding_window > 0:
-        raise NotImplementedError("sliding-window ring caches are not "
-                                  "ported yet")
+    check_served(cfg)
     dev = compat.resolve_device(device)
     shape = (cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim)
     dt = compat.torch_dtype(cfg.dtype)
@@ -195,10 +229,19 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
+def ffn(cfg: ModelConfig, p, h):
+    """The layer's second half on the residual stream h: RMSNorm, then
+    the MoE (``models/moe.py``) or the gated MLP, added back to h."""
+    xn = layers.apply_norm(cfg, p["ln2"], h)
+    if cfg.is_moe:
+        return h + moe.moe_fwd(cfg, p["moe"], xn)[0]
+    return h + layers.mlp_fwd(cfg, p["mlp"], xn)
+
+
 def _backbone(cfg: ModelConfig, params, tokens):
     """tokens (B, S) -> (final-normed hidden (B, S, D), cache); the cache
     is (L, B, S, Hkv, dh) per leaf."""
-    _check_dense(cfg)
+    check_served(cfg)
     B, S = tokens.shape
     h = _embed_tokens(cfg, params, tokens)
     positions = torch.arange(S, dtype=torch.int32,
@@ -211,9 +254,7 @@ def _backbone(cfg: ModelConfig, params, tokens):
                                          rope_tab=tab)
         cache["k"][i] = k
         cache["v"][i] = v
-        h = h + a
-        xn = layers.apply_norm(cfg, p["ln2"], h)
-        h = h + layers.mlp_fwd(cfg, p["mlp"], xn)
+        h = ffn(cfg, p, h + a)
     return layers.apply_norm(cfg, params["final_norm"], h), cache
 
 
@@ -227,7 +268,7 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
     """One decode step: tokens (B,), lengths (B,) -> (raw next-token
     logits (B, V) fp32, cache).  Writes each row's new K/V at ``lengths``
     in place (dropped for rows at or past the cache length)."""
-    _check_dense(cfg)
+    check_served(cfg)
     h = _embed_tokens(cfg, params, tokens[:, None])
     positions = lengths[:, None]
     tab = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -236,11 +277,14 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
         a, _, _ = layers.attention_decode(cfg, p["attn"], xn, cache["k"][i],
                                           cache["v"][i], lengths,
                                           rope_tab=tab)
-        h = h + a
-        xn = layers.apply_norm(cfg, p["ln2"], h)
-        h = h + layers.mlp_fwd(cfg, p["mlp"], xn)
+        h = ffn(cfg, p, h + a)
+    return head_logits(cfg, params, h), cache
+
+
+def head_logits(cfg: ModelConfig, params, h):
+    """Final norm + LM head on one position, h (B, 1, D) -> (B, V) fp32."""
     h = layers.apply_norm(cfg, params["final_norm"], h)
-    return logits_fn(cfg, params, h)[:, 0, :], cache
+    return logits_fn(cfg, params, h)[:, 0, :]
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, lengths):
@@ -318,14 +362,26 @@ def decode_page(cfg: ModelConfig, params, cache, tokens, lengths, remaining,
     top K) each step's row is the packed ``pack_logprob_block`` plane,
     (steps, B, 2+2K) f32, of the RAW model logits, so logprobs ride the
     page's one copy and report pre-filter values under sampling too."""
+    return page_loop(
+        lambda c, t, ln: decode_step_logits(cfg, params, c, t, ln), cache,
+        tokens, lengths, remaining, steps, sampling=sampling, lp_k=lp_k,
+        flags=flags)
+
+
+def page_loop(step_logits: Callable, cache, tokens, lengths, remaining,
+              steps: int, sampling=None, lp_k=None, flags=None) -> Tuple:
+    """The decode page's loop around one model step, ``step_logits(cache,
+    tokens, lengths) -> (logits (B, V), cache)``: the monolithic step of
+    ``decode_page`` or the module-granularity step of
+    ``core.forward.ModuleRuntime``.  Arguments and return as
+    ``decode_page``."""
     if sampling is not None:
         from repro_torch.sampling import DEFAULT_FLAGS, sample_step
         sp, state = sampling
         flags = flags or DEFAULT_FLAGS
     rows = []
     for _ in range(steps):
-        logits, cache = decode_step_logits(cfg, params, cache, tokens,
-                                           lengths)
+        logits, cache = step_logits(cache, tokens, lengths)
         if sampling is None:
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
             live = remaining > 0

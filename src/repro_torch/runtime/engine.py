@@ -1,13 +1,14 @@
 """Per-node batch-inference engine in PyTorch: real execution on one card
 plus coroutine slots.
 
-Counterpart of ``repro.runtime.engine.NodeEngine`` for dense decoders:
-greedy, sampled and logprob requests.  One NodeEngine owns a dense device
-decode cache with ``max_active`` sequence slots, a paged host store (the
-single source of truth, §5.2), a page allocator, and the prefill /
-decode steps of ``models/transformer.py``.  The CoroutineScheduler drives
-it only through the ExecutionBackend slot protocol (core/backend.py,
-conformance declared below), exactly as it drives the JAX engine.
+Counterpart of ``repro.runtime.engine.NodeEngine`` for dense and MoE
+decoders: greedy, sampled and logprob requests.  One NodeEngine owns a
+dense device decode cache with ``max_active`` sequence slots, a paged
+host store (the single source of truth, §5.2), a page allocator, and the
+prefill / decode steps of ``models/transformer.py``.  The
+CoroutineScheduler drives it only through the ExecutionBackend slot
+protocol (core/backend.py, conformance declared below), exactly as it
+drives the JAX engine.
 
 What differs from the JAX engine, and why:
 
@@ -44,9 +45,15 @@ sequence's stream.  The first token of a sampled prefill batch is drawn
 on the device with key fold_in(seed, 0).  An all-greedy page keeps the
 argmax and never runs the sampler.
 
-Not in this slice, and refused with ``NotImplementedError``:
-``module_granularity=True``, and MoE or sliding-window configs.  The
-JAX engine's looped ``fused=False`` baseline is not ported.
+Module granularity (Algorithm 1): with ``module_granularity=True`` each
+pow2 decode chunk runs through ``core.forward.ModuleRuntime``: attention
+per sub-batch of ``b_attn`` rows (default ``max_active``: one sub-batch),
+then COMBINE of the sub-batches into the whole batch before each FFN/MoE.
+Prefill stays monolithic, as in the JAX engine.
+
+Not in this slice, and refused with ``NotImplementedError``: MLA and
+sliding-window configs, and the other families.  The JAX engine's looped
+``fused=False`` baseline is not ported.
 """
 from __future__ import annotations
 
@@ -61,6 +68,7 @@ from repro_torch import compat
 from repro_torch import sampling as smp
 from repro_torch.core.backend import validate_backend
 from repro_torch.core.coroutine import Phase, SequenceCoroutine, Status
+from repro_torch.core.forward import ModuleRuntime
 from repro_torch.core.primitives import PrimitiveStats
 from repro_torch.memory.allocator import PageAllocator
 from repro_torch.memory.buffers import RingBuffer
@@ -119,21 +127,15 @@ class NodeEngine:
                  max_active: int = 8, max_len: int = 256,
                  page_size: int = 32, num_devices: int = 1,
                  device_pages: Optional[int] = None,
-                 module_granularity: bool = False, overlap: bool = True,
+                 module_granularity: bool = False, b_attn: int = 0,
+                 overlap: bool = True,
                  ring_buffer_bytes: Optional[int] = None,
                  restore_ring_bytes: Optional[int] = None, seed: int = 0,
                  params=None, device=None,
                  faults: Optional[NodeFaults] = None,
                  retry_policy: Optional[RetryPolicy] = None,
                  enable_prefix: bool = True):
-        if cfg.family != "dense" or cfg.sliding_window != 0:
-            raise NotImplementedError(
-                f"{cfg.name}: the PyTorch engine serves dense decoders "
-                f"without a sliding window so far")
-        if module_granularity:
-            raise NotImplementedError(
-                "module_granularity=True (the Algorithm-1 module runtime) "
-                "is not ported to repro_torch yet")
+        T.check_served(cfg)
         self.device = compat.resolve_device(device)
         self.cfg = cfg
         self.node_id = node_id
@@ -145,6 +147,9 @@ class NodeEngine:
 
         self.params = (params if params is not None
                        else T.init_params(cfg, seed, self.device))
+        self.module_rt = (ModuleRuntime(cfg, self.params)
+                          if module_granularity else None)
+        self.b_attn = b_attn or max_active
         self.host_store = HostKVStore(page_size, enable_prefix=enable_prefix)
         total_pages = device_pages or (max_active * max_len // page_size * 2)
         self.allocator = PageAllocator(total_pages, page_size)
@@ -448,10 +453,16 @@ class NodeEngine:
         left = steps
         while left > 0:
             chunk = 1 << (left.bit_length() - 1)
-            out = T.decode_page(
-                self.cfg, self.params, self.cache, self.tokens, self.lengths,
-                rem, chunk, sampling=(sp, state) if sampled else None,
-                lp_k=lp_k, flags=flags)
+            smp_arg = (sp, state) if sampled else None
+            if self.module_rt is not None:
+                out = self.module_rt.forward_decode_page(
+                    self.tokens, self.cache, self.lengths, rem, self.b_attn,
+                    chunk, sampling=smp_arg, lp_k=lp_k, flags=flags)
+            else:
+                out = T.decode_page(
+                    self.cfg, self.params, self.cache, self.tokens,
+                    self.lengths, rem, chunk, sampling=smp_arg, lp_k=lp_k,
+                    flags=flags)
             blk, self.tokens, self.lengths, rem, self.cache = out[:5]
             if sampled:
                 state = out[5]

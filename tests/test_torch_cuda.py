@@ -11,7 +11,9 @@ atol/rtol 2e-2 (one bf16 rounding of the output).  fp32 products run in
 full fp32 (TF32 off), so the reduced engine's greedy tokens on the card
 equal those of its plain CPU path.  The fused sampling kernel's tokens and
 top-K ids are exact against its plain version and bitwise identical over
-two launches; its stats hold to rtol 1e-5 (float summation order).
+two launches; its stats hold to rtol 1e-5 (float summation order).  The
+grouped GEMM holds to its plain version at the same fp32 / bf16
+tolerances, with unused (-1) blocks, empty experts and ragged D and F.
 """
 import dataclasses
 
@@ -25,6 +27,8 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
                                                     fused_sample_plain)
+from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
+                                              grouped_gemm_plain, moe_ffn)
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
 from repro_torch.models import transformer as TT
@@ -182,12 +186,19 @@ def test_each_launch_is_counted_once(dev):
     flash_attention(q, k, k, pos, pos)
     paged_attention(qd, k, k, table, lengths)
     fused_sample(*rows[:5], raw=rows[5], lp_k=2, with_lanes=True)
+    x = _randn(gen, (32, 64), torch.float32, dev)
+    w = _randn(gen, (2, 64, 16), torch.float32, dev)
+    be = torch.tensor([1, -1], dtype=torch.int32, device=dev)
+    grouped_gemm(x, w, be, block_t=16)
+    grouped_gemm(x, w, be, block_t=16)
+    grouped_gemm(x, w, be, block_t=16)
     flash_attention_plain(q, k, k, pos, pos)
     paged_attention_plain(qd, k, k, table, lengths)
     fused_sample_plain(*rows[:5])
+    grouped_gemm_plain(x, w, be, block_t=16)
     torch.cuda.synchronize()
     assert kernels.launches() == {"flash_attention": 2, "paged_attention": 1,
-                                  "fused_sampling": 1}
+                                  "fused_sampling": 1, "moe_gemm": 3}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -229,6 +240,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fused_sample(x, g, kk, pp, mp.cpu())
     with pytest.raises(ValueError, match="lp_k"):
         fused_sample(x, g, kk, pp, mp, raw=raw, lp_k=301, with_lanes=True)
+    xs = _randn(gen, (64, 32), torch.bfloat16, dev)
+    ws = _randn(gen, (3, 32, 24), torch.bfloat16, dev)
+    be = torch.zeros((4,), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="block_t"):
+        grouped_gemm(xs, ws, be[:3].contiguous(), block_t=24)
+    with pytest.raises(ValueError, match="block_expert"):
+        grouped_gemm(xs, ws, be[:2].contiguous(), block_t=16)
+    with pytest.raises(TypeError):
+        grouped_gemm(xs, ws, be.long(), block_t=16)
+    with pytest.raises(TypeError):
+        grouped_gemm(xs, ws.float(), be, block_t=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        grouped_gemm(xs.t().contiguous().t(), ws, be, block_t=16)
+    with pytest.raises(ValueError):
+        grouped_gemm(xs, ws[:, :16].contiguous(), be, block_t=16)
 
 
 def test_reduced_engine_tokens_match_cpu(dev):
@@ -297,8 +323,11 @@ def test_reduced_sampled_engine_tokens_match_cpu(dev):
         bo = master.run(master.submit(reqs))
         assert bo.request_counts["completed"] == len(reqs)
         used = kernels.launches()
-        if target.type == "cuda":
-            assert min(used.values()) > 0, used
+        if target.type == "cuda":       # a dense model: no grouped GEMM
+            assert min(used[k] for k in ("flash_attention",
+                                         "paged_attention",
+                                         "fused_sampling")) > 0, used
+            assert used["moe_gemm"] == 0, used
         else:
             assert max(used.values()) == 0, used
         out[target.type] = {r["custom_id"]: r["response"]
@@ -311,3 +340,90 @@ def test_reduced_sampled_engine_tokens_match_cpu(dev):
                 torch.tensor(got["logprobs"]["token_logprobs"]),
                 torch.tensor(want["logprobs"]["token_logprobs"]),
                 rtol=1e-4, atol=1e-4)
+
+
+# (name, T rows, D, F, E, block_t, experts of the used blocks); the rest of
+# the T / block_t blocks are unused (-1).  Expert E-1 gets no block.
+GEMM_CASES = [
+    ("decode_bt16_ragged_f", 16 * 20, 256, 96, 8, 16, [0, 3, 5, 6, 2, 1]),
+    ("reduced_bt32_f64", 32 * 8, 128, 64, 4, 32, [0, 0, 1, 2]),
+    ("ragged_d72_f100_bt64", 64 * 5, 72, 100, 3, 64, [1, 0, 1]),
+    ("odd_d36_bt16", 16 * 6, 36, 40, 2, 16, [0, 0, 0]),
+    ("qwen3_w1_bt128", 128 * 6, 2048, 768, 16, 128, [4, 9, 9, 0]),
+    ("qwen3_w2_bt16", 16 * 12, 768, 2048, 16, 16, [3, 7, 8, 12, 14, 0, 1]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", GEMM_CASES, ids=[c[0] for c in GEMM_CASES])
+def test_moe_gemm_kernel_matches_plain(dev, case, dtype):
+    _, T, D, F, E, bt, used = case
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = _randn(gen, (T, D), dtype, dev)
+    w = (0.1 * torch.randn((E, D, F), generator=gen, device=dev)).to(dtype)
+    be = torch.full((T // bt,), -1, dtype=torch.int32, device=dev)
+    be[:len(used)] = torch.tensor(used, dtype=torch.int32, device=dev)
+    got = grouped_gemm(x, w, be, block_t=bt)
+    want = grouped_gemm_plain(x, w, be, block_t=bt)
+    _close(got, want, dtype)
+    assert not got[len(used) * bt:].any()
+
+
+def test_moe_ffn_on_the_card_matches_cpu(dev):
+    """The dispatch, three grouped GEMMs and the weighted sum on the card
+    against the same op on the CPU (the plain version), fp32."""
+    gen = torch.Generator().manual_seed(8)
+    T, D, F, E, k = 40, 64, 96, 8, 2
+    x = torch.randn((T, D), generator=gen)
+    ids = torch.stack([torch.randperm(E, generator=gen)[:k]
+                       for _ in range(T)]).to(torch.int32)
+    vals = torch.rand((T, k), generator=gen)
+    ws = [0.1 * torch.randn(s, generator=gen)
+          for s in ((E, D, F), (E, D, F), (E, F, D))]
+    kernels.reset_launches()
+    got = moe_ffn(x.to(dev), ids.to(dev), vals.to(dev),
+                  *(a.to(dev) for a in ws), num_experts=E, block_t=16)
+    assert kernels.launches()["moe_gemm"] == 3
+    want = moe_ffn(x, ids, vals, *ws, num_experts=E, block_t=16)
+    torch.testing.assert_close(got.cpu(), want, **TOL[torch.float32])
+
+
+def test_reduced_moe_module_engine_tokens_match_cpu(dev):
+    """Reduced fp32 qwen3 MoE with module granularity (b_attn 2 of 4
+    slots), greedy and sampled requests, on the card (the kernels) and on
+    the CPU (the plain versions): identical tokens, and the card's run
+    launched all four kernels."""
+    cfg = dataclasses.replace(reduced_config("qwen3_moe_30b"),
+                              dtype="float32")
+    params = TT.init_params(cfg, seed=9, device="cpu")
+    gen = torch.Generator().manual_seed(9)
+    sps = [SamplingParams(), SamplingParams(),
+           SamplingParams(temperature=0.8, top_k=20, seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, seed=2)]
+    reqs = [BatchRequest(f"s{i}", torch.randint(2, cfg.vocab_size, (n,),
+                                                generator=gen).tolist(), 20,
+                         sampling=sp)
+            for i, (n, sp) in enumerate(zip([5, 12, 17, 30], sps))]
+
+    def to(tree, target):
+        return {k: to(v, target) if isinstance(v, dict) else v.to(target)
+                for k, v in tree.items()}
+
+    out = {}
+    for target in (dev, torch.device("cpu")):
+        eng = NodeEngine(cfg, params=to(params, target), max_active=4,
+                         max_len=128, page_size=8, device=target,
+                         module_granularity=True, b_attn=2)
+        master = BatchMaster([eng], SchedulerConfig(page_size=8))
+        kernels.reset_launches()
+        bo = master.run(master.submit(reqs))
+        assert bo.request_counts["completed"] == len(reqs)
+        used = kernels.launches()
+        if target.type == "cuda":
+            assert min(used.values()) > 0, used
+        else:
+            assert max(used.values()) == 0, used
+        out[target.type] = {r["custom_id"]: r["response"]["tokens"]
+                            for r in bo.results}
+    assert out["cuda"] == out["cpu"]

@@ -119,6 +119,42 @@ def test_engine_matches_jax_engine_through_batch_master():
                                        rtol=1e-5, err_msg=f"{sid}.{name}")
 
 
+def _moe_cfgs():
+    return (dataclasses.replace(j_reduced("qwen3_moe_30b"), dtype="float32"),
+            dataclasses.replace(reduced_config("qwen3_moe_30b"),
+                                dtype="float32"))
+
+
+# Algorithm 1 in both engines: attention in sub-batches of 2 of 4 slots,
+# COMBINE before each MoE layer
+MOE_KW = dict(max_active=4, max_len=128, page_size=PAGE,
+              module_granularity=True, b_attn=2)
+
+
+def test_moe_module_engine_matches_jax_engine_through_batch_master():
+    """Reduced qwen3 MoE with module granularity: the greedy workload,
+    its prefix hit included, gives the JAX engine's tokens."""
+    jcfg, tcfg = _moe_cfgs()
+    jeng = JNodeEngine(jcfg, seed=0, **MOE_KW)
+    params = TT.params_from_numpy(jax.tree.map(np.asarray, jeng.params),
+                                  tcfg, device="cpu")
+    teng = NodeEngine(tcfg, params=params, device="cpu", **MOE_KW)
+    assert teng.module_rt is not None and teng.b_attn == 2
+    batches = _workload(tcfg.vocab_size)
+    want = _serve(JBatchMaster([jeng], JSchedulerConfig(page_size=PAGE)),
+                  JBatchRequest, batches)
+    got = _serve(BatchMaster([teng], SchedulerConfig(page_size=PAGE)),
+                 BatchRequest, batches)
+    assert got == want
+    assert teng.prefill_tokens_saved == jeng.prefill_tokens_saved > 0
+    assert teng.decode_steps == jeng.decode_steps
+
+
+def test_moe_module_sampled_engine_matches_jax_engine(monkeypatch):
+    monkeypatch.setenv("REPRO_SAMPLING_BACKEND", "pallas_interpret")
+    _sampled_parity(*_moe_cfgs(), MOE_KW)
+
+
 def test_one_transfer_per_decode_page():
     """Transfer spy: exactly ONE device->host copy per decode_page call."""
     _, tcfg = _cfgs()
@@ -151,10 +187,17 @@ def test_one_transfer_per_decode_page():
 
 
 def test_later_slices_are_refused():
-    """The module runtime waits for a later slice."""
+    """MLA (a reduced MoE config with ``use_mla``) and sliding windows
+    wait for later slices."""
     _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError):
-        NodeEngine(tcfg, device="cpu", module_granularity=True)
+    mla = dataclasses.replace(reduced_config("qwen3_moe_30b"), use_mla=True,
+                              q_lora_rank=64, kv_lora_rank=32,
+                              rope_head_dim=16)
+    for cfg in (mla, dataclasses.replace(tcfg, sliding_window=64)):
+        with pytest.raises(NotImplementedError):
+            NodeEngine(cfg, device="cpu", module_granularity=True)
+        with pytest.raises(NotImplementedError):
+            TT.init_params(cfg, device="cpu")
 
 
 def test_sampled_and_logprob_requests_are_served():
@@ -220,13 +263,18 @@ def _serve_sampled(master, req_cls, sp_cls, batches):
 
 def test_sampled_engine_matches_jax_engine_through_batch_master(monkeypatch):
     monkeypatch.setenv("REPRO_SAMPLING_BACKEND", "pallas_interpret")
-    jcfg, tcfg = _cfgs()
-    jeng = JNodeEngine(jcfg, seed=0, **ENGINE_KW)
+    _sampled_parity(*_cfgs(), ENGINE_KW)
+
+
+def _sampled_parity(jcfg, tcfg, engine_kw):
+    """The sampled workload through both engines: identical tokens and
+    finish reasons, logprobs within 1e-5, the stop row stopped."""
+    jeng = JNodeEngine(jcfg, seed=0, **engine_kw)
     params = TT.params_from_numpy(jax.tree.map(np.asarray, jeng.params),
                                   tcfg, device="cpu")
 
     def port():
-        eng = NodeEngine(tcfg, params=params, device="cpu", **ENGINE_KW)
+        eng = NodeEngine(tcfg, params=params, device="cpu", **engine_kw)
         return eng, BatchMaster([eng], SchedulerConfig(page_size=PAGE))
 
     # a stop token the stop row really emits: its 5th token without one

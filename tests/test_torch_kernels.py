@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
                                                     fused_sample_plain)
+from repro_torch.kernels.moe_gemm.ops import grouped_gemm, grouped_gemm_plain
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
 from repro_torch.models import flash as tflash
@@ -174,10 +175,15 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     e = fused_sample(*rows, k, p, mp)
     f = fused_sample_plain(*rows, k, p, mp)
     assert all(torch.equal(e[key], f[key]) for key in f)
+    x = torch.from_numpy(r.standard_normal((32, 8)).astype(np.float32))
+    w = torch.from_numpy(r.standard_normal((2, 8, 5)).astype(np.float32))
+    be = torch.tensor([1, -1], dtype=torch.int32)
+    assert torch.equal(grouped_gemm(x, w, be, block_t=16),
+                       grouped_gemm_plain(x, w, be, block_t=16))
     assert kernels.launches() == {"flash_attention": 0, "paged_attention": 0,
-                                  "fused_sampling": 0}
+                                  "fused_sampling": 0, "moe_gemm": 0}
     assert set(kernels.KERNELS) == {"flash_attention", "paged_attention",
-                                    "fused_sampling"}
+                                    "fused_sampling", "moe_gemm"}
     for name in kernels.KERNELS:
         op, plain = kernels.get_kernel(name)
         assert callable(op) and callable(plain)

@@ -61,10 +61,13 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("arch,dtype", [("llama3_2_1b", "float32"),
                                         ("qwen2_0_5b", "float32"),
-                                        ("llama3_2_1b", "bfloat16")])
+                                        ("llama3_2_1b", "bfloat16"),
+                                        ("qwen3_moe_30b", "float32"),
+                                        ("qwen3_moe_30b", "bfloat16")])
 def test_params_from_numpy_round_trips(arch, dtype):
     """Every leaf of the JAX pytree arrives unchanged (bf16 bit for bit,
-    compared as uint16 patterns)."""
+    compared as uint16 patterns), in its own dtype: the MoE router ``wg``
+    stays fp32 in a bf16 model, as in the JAX package."""
     jcfg = dataclasses.replace(j_reduced(arch), dtype=dtype)
     tcfg = dataclasses.replace(reduced_config(arch), dtype=dtype)
     np_params = _np_tree(JT.init_params(jcfg, jax.random.PRNGKey(0)))
@@ -74,14 +77,19 @@ def test_params_from_numpy_round_trips(arch, dtype):
     assert want.keys() == got.keys()
     for name, a in want.items():
         t = got[name]
-        assert str(t.dtype) == f"torch.{dtype}", name
-        if dtype == "bfloat16":
+        leaf_dt = "float32" if a.dtype == np.float32 else dtype
+        assert str(t.dtype) == f"torch.{leaf_dt}", name
+        if leaf_dt == "bfloat16":
             np.testing.assert_array_equal(
                 t.view(torch.int16).numpy().view(np.uint16),
                 a.view(np.uint16), err_msg=name)
         else:
             np.testing.assert_array_equal(t.numpy(), a, err_msg=name)
     assert TT.param_count(tcfg) == JT.param_count(jcfg)
+    assert TT.param_count(tcfg, active_only=True) == \
+        JT.param_count(jcfg, active_only=True)
+    if tcfg.is_moe:
+        assert got[".layers.moe.wg"].dtype == torch.float32
 
 
 def test_params_from_numpy_rejects_wrong_shapes():
@@ -144,7 +152,8 @@ def test_cache_update_matches_and_drops_out_of_range():
     np.testing.assert_array_equal(t.numpy()[2:], cache[2:])
 
 
-@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen2_0_5b"])
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen2_0_5b",
+                                  "qwen3_moe_30b", "phi3_5_moe"])
 def test_prefill_logits_and_cache_match(arch):
     jcfg, tcfg = _cfgs(arch)
     np_params = _jax_params(jcfg, bias_rng=np.random.default_rng(4)
@@ -163,9 +172,10 @@ def test_prefill_logits_and_cache_match(arch):
 
 
 # smollm's published 15 heads / 5 kv heads cut to 6 / 2: a head count and
-# a GQA group (3) that are not powers of two
+# a GQA group (3) that are not powers of two; the two MoE decoders
 DECODE_CASES = [("llama3_2_1b", {}), ("qwen2_0_5b", {}),
-                ("smollm_360m", dict(num_heads=6, num_kv_heads=2))]
+                ("smollm_360m", dict(num_heads=6, num_kv_heads=2)),
+                ("qwen3_moe_30b", {}), ("phi3_5_moe", {})]
 
 
 @pytest.mark.parametrize("arch,over", DECODE_CASES,

@@ -29,7 +29,10 @@ from repro_torch.launch import serve
 from repro_torch.kernels.flash_attention import ops as f
 from repro_torch.kernels.paged_attention import ops as p
 from repro_torch.kernels.fused_sampling import ops as fs
+from repro_torch.kernels.moe_gemm import ops as mg
 from repro_torch.kernels import build
+from repro_torch.core import forward
+from repro_torch.models import moe
 from repro_torch.sampling import processors, sample
 print("imported", sorted(m for m, mod in sys.modules.items()
                          if mod is not None
@@ -52,7 +55,8 @@ def test_no_source_imports_jax_or_repro():
     assert len(files) > 20
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"sampling/processors.py", "sampling/sample.py",
-            "kernels/fused_sampling/ops.py"} <= names
+            "kernels/fused_sampling/ops.py", "core/forward.py",
+            "models/moe.py", "kernels/moe_gemm/ops.py"} <= names
     bad = [f"{f.relative_to(SRC)}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -85,3 +89,14 @@ def test_configs_are_the_published_dense_ones():
         (16, 2048, 32, 8, 64, 128256, "bfloat16")
     assert get_config("qwen2_0_5b").attn_bias
     assert get_config("smollm_360m").num_kv_heads == 5
+    q = get_config("qwen3_moe_30b")
+    assert (q.family, q.num_layers, q.d_model, q.num_heads, q.num_kv_heads,
+            q.head_dim, q.vocab_size, q.num_experts, q.experts_per_token,
+            q.moe_d_ff, q.rope_theta) == \
+        ("moe", 48, 2048, 32, 4, 128, 151936, 128, 8, 768, 1e6)
+    assert round(TT.param_count(q) / 1e9, 2) == 30.53
+    assert round(TT.param_count(q, active_only=True) / 1e9, 2) == 3.35
+    p = get_config("phi3_5_moe")
+    assert (p.num_layers, p.d_model, p.num_heads, p.num_kv_heads,
+            p.vocab_size, p.num_experts, p.experts_per_token,
+            p.moe_d_ff) == (32, 4096, 32, 8, 32064, 16, 2, 6400)
