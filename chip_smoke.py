@@ -25,7 +25,11 @@ result):
    out, and at edge cases (an expert with no rows, unused trailing
    blocks, ragged D and F, E=4 F=64); its yardsticks are one
    ``torch.bmm`` over the reference's (E, C, D) capacity buffer and,
-   where the card's torch has it, ``torch._grouped_mm``;
+   where the card's torch has it, ``torch._grouped_mm``.  The SSD state
+   scan (``ssd_scan``) must give its plain version's bits (``torch.equal``)
+   at Mamba2-370M's 8x256 and 32768-token prefill shapes, the JAX test's
+   shapes, one chunk, a ragged N*P and an unaligned view; no PyTorch
+   call computes a linear recurrence, so it has no library yardstick;
 4. the serving paths: full-width Llama-3.2-1B in bf16 (random weights from
    a seed) through the port's ``BatchMaster`` and one ``NodeEngine``:
    the greedy path (~8 requests and a resubmitted prefix), then the
@@ -36,7 +40,9 @@ result):
 5. reduced fp32 copies of Llama-3.2-1B and of Qwen3-30B-A3B (the MoE one
    with module granularity, b_attn 2 of 4 slots) served once on "cuda"
    (the kernels) and once on "cpu" (the plain versions), greedy and
-   sampled requests: the tokens of one page must be identical;
+   sampled requests: the tokens of one page must be identical; reduced
+   fp32 Mamba2-370M at model level the same way (identical greedy and
+   sampled tokens, the prefill state to atol/rtol 1e-4);
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
    seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
    module granularity (Algorithm 1: attention in sub-batches of 4 of the
@@ -44,7 +50,15 @@ result):
    model's default SamplingParams with seeds, submitted twice (identical
    streams required), then the greedy batch once more on a monolithic
    engine sharing the weights (how many streams agree is printed, not
-   gated: bf16 sub-batched products may round differently).
+   gated: bf16 sub-batched products may round differently);
+7. the SSM path: full-width Mamba2-370M in bf16 (random weights from a
+   seed) at model level (``prefill``, then ``decode_page``s of 16 steps;
+   ``NodeEngine`` serves no SSM, as the JAX engine does not): 8 prompts
+   of 256 greedy, the same prompts sampled (T 0.8, top-k 40, top-p 0.95,
+   a seed a row, top-5 logprobs) twice with identical streams required,
+   then one 32768-token prompt and 16 greedy steps; each part must
+   launch ``ssd_scan`` (once a layer per prefill), the sampled parts
+   ``fused_sampling``, and none the attention or MoE kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -82,12 +96,15 @@ REPLACES = {
     "fused_sampling":
         "src/repro/kernels/fused_sampling/fused_sampling.py:273",
     "moe_gemm": "src/repro/kernels/moe_gemm/moe_gemm.py:31",
+    "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
 }
 # the kernels each serving path must launch; the others it must not
 DENSE_GREEDY = ("flash_attention", "paged_attention")
 DENSE_SAMPLED = DENSE_GREEDY + ("fused_sampling",)
 MOE_GREEDY = DENSE_GREEDY + ("moe_gemm",)
 MOE_SAMPLED = MOE_GREEDY + ("fused_sampling",)
+SSM_GREEDY = ("ssd_scan",)
+SSM_SAMPLED = SSM_GREEDY + ("fused_sampling",)
 
 
 def log(msg: str) -> None:
@@ -542,6 +559,79 @@ def check_moe_gemm(dev, timer):
                       f"over the (E, C, D) capacity buffer")
 
 
+def _scan_bound(states):
+    """Least time for one scan: states and decay read once, prev and final
+    written once, or 2 FLOP per element and chunk at the fp32 peak."""
+    B, H, nc, N, P = states.shape
+    nbytes = 4 * (2 * states.numel() + B * H * nc + B * H * N * P)
+    flops = 2.0 * states.numel()
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", \
+        nbytes
+
+
+def check_ssd_scan(dev, timer):
+    """The scan must give its plain version's bits (``torch.equal``) on
+    ``prev`` and ``final``: it rounds the product and the sum separately,
+    as the plain ``h * d + s`` does."""
+    from repro_torch.kernels.ssd_scan.ops import (ssd_state_scan,
+                                                  ssd_state_scan_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+
+    def case(tag, shape, offset=0):
+        B, H, nc = shape[:3]
+        # offset > 0: a contiguous view off the 16-byte grid (scalar path)
+        s = torch.randn(math.prod(shape) + offset, generator=gen,
+                        device=dev)[offset:].view(shape)
+        d = torch.rand((B, H, nc), generator=gen, device=dev) * 0.9 + 0.05
+        got = ssd_state_scan(s, d)
+        torch.cuda.synchronize()
+        want = ssd_state_scan_plain(s, d)
+        for name, g, w in zip(("prev", "final"), got, want):
+            if not torch.equal(g, w):
+                err = (g - w).abs().max().item()
+                raise AssertionError(f"ssd_scan {tag}: {name} differs from "
+                                     f"its plain version (max abs err "
+                                     f"{err})")
+        log(f"  ssd_scan {tag} {shape}: prev and final equal in bits")
+        return s, d
+
+    # mamba2_370m's prefill of 8 x 256 tokens and of one 32768-token
+    # prompt (H=32, N=128, P=64, chunks of 64); the JAX test's shapes; a
+    # 64-token prompt (one chunk); a ragged N*P and an unaligned view
+    main = {"prefill 8x256": case("prefill 8x256", (8, 32, 4, 128, 64)),
+            "prompt 32768": case("prompt 32768", (1, 32, 512, 128, 64))}
+    case("JAX test", (2, 4, 8, 16, 8))
+    case("JAX test", (1, 2, 16, 32, 16))
+    case("nc=1", (8, 32, 1, 128, 64))
+    case("ragged N*P=21", (2, 3, 5, 7, 3))
+    case("unaligned view", (2, 4, 6, 16, 8), offset=1)
+    case("reduced mamba2 N16 P16", (4, 16, 2, 16, 16))
+
+    rows = {}
+    for tag, (s, d) in main.items():
+        bound, by, nbytes = _scan_bound(s)
+        ms = timer(lambda: ssd_state_scan(s, d))
+        plain_ms = timer(lambda: ssd_state_scan_plain(s, d), iters=5)
+        log(f"  ssd_scan {tag} {tuple(s.shape)} fp32: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({nbytes / 1e6:.1f} MB: {nbytes / ms / 1e9:.3f} TB/s); no "
+            f"single PyTorch call computes a linear recurrence")
+        rows[tag] = dict(ms=ms, plain_ms=plain_ms, bound=bound, by=by,
+                         nbytes=nbytes)
+    p = rows["prefill 8x256"]
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/csrc/ssd_scan.cu",
+                replaces=REPLACES["ssd_scan"], max_abs_err=0.0,
+                ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound"],
+                bound_by=p["by"], library_ms=None,
+                long_prompt=rows["prompt 32768"],
+                shape="(B,H,nc,N,P)=(8,32,4,128,64) fp32, mamba2_370m's "
+                      "8x256 prefill; library: none (no single PyTorch "
+                      "call computes a first-order linear recurrence)")
+
+
 # ---------------------------------------------------------------- phase 4
 class _PageClock:
     """Host-clock spans of an engine's prefill and decode_page calls,
@@ -764,6 +854,11 @@ def serve_sampled_path(dev, eng, master, prompt):
 
 
 # ---------------------------------------------------------------- phase 5
+def _to(tree, target):
+    return {k: _to(v, target) if isinstance(v, dict) else v.to(target)
+            for k, v in tree.items()}
+
+
 def reduced_cpu_vs_cuda(dev):
     from repro_torch.sampling import SamplingParams
 
@@ -775,6 +870,7 @@ def reduced_cpu_vs_cuda(dev):
     _reduced_pair(dev, "llama3_2_1b", {}, sps, DENSE_SAMPLED)
     _reduced_pair(dev, "qwen3_moe_30b",
                   dict(module_granularity=True, b_attn=2), sps, MOE_SAMPLED)
+    _reduced_ssm_pair(dev)
 
 
 def _reduced_pair(dev, arch, engine_kw, sps, expected):
@@ -793,15 +889,10 @@ def _reduced_pair(dev, arch, engine_kw, sps, expected):
     reqs = [(f"s{i}", [int(t) for t in rng.integers(2, cfg.vocab_size, n)],
              sp) for i, (n, sp) in enumerate(zip([5, 12, 16, 23, 9], sps))]
     page = 16
-
-    def to(tree, target):
-        return {k: to(v, target) if isinstance(v, dict) else v.to(target)
-                for k, v in tree.items()}
-
     out = {}
     for device in ("cuda", "cpu"):
         target = dev if device == "cuda" else torch.device("cpu")
-        eng = NodeEngine(cfg, params=to(params, target), max_active=4,
+        eng = NodeEngine(cfg, params=_to(params, target), max_active=4,
                          max_len=128, page_size=page, device=target,
                          **engine_kw)
         master = BatchMaster([eng], SchedulerConfig(page_size=page))
@@ -821,6 +912,61 @@ def _reduced_pair(dev, arch, engine_kw, sps, expected):
                              f"vs cpu {out['cpu']}")
     log(f"  {arch}: greedy and sampled tokens of one page identical for "
         f"{len(reqs)} requests")
+
+
+def _reduced_ssm_pair(dev):
+    """Reduced fp32 Mamba-2 at model level (``launch/model_level.py``:
+    prefill, then decode pages) on "cuda" (the scan kernel, the sampling
+    kernel on sampled pages) and on "cpu" (the plain versions): greedy and
+    sampled tokens must be identical, and the prefill's state must agree
+    to atol/rtol 1e-4 (cuBLAS and the CPU sum the products in other
+    orders; the scan itself gives its plain version's bits)."""
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.model_level import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.sampling import SamplingParams
+
+    cfg = dataclasses.replace(reduced_config("mamba2_370m"), dtype="float32")
+    params = T.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(2, cfg.vocab_size, (4, 128)).tolist()
+    sps = [SamplingParams(), SamplingParams(temperature=0.8, top_k=20,
+                                            seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, min_p=0.02, seed=2),
+           SamplingParams(temperature=0.7, repetition_penalty=1.3,
+                          presence_penalty=0.2, seed=3, stop=(5, 6))]
+    out, state = {}, {}
+    for device in ("cuda", "cpu"):
+        target = dev if device == "cuda" else torch.device("cpu")
+        p = _to(params, target)
+        before = kernels.launches()
+        g = generate(cfg, p, prompts, [16, 5, 12, 16])
+        used_g = {k: v - before[k] for k, v in kernels.launches().items()}
+        before = kernels.launches()
+        smp_out = generate(cfg, p, prompts, 16, sampling=sps)
+        used_s = {k: v - before[k] for k, v in kernels.launches().items()}
+        _, cache = T.prefill(cfg, p, torch.tensor(prompts, dtype=torch.int32,
+                                                  device=target))
+        state[device] = cache["state"].cpu()
+        out[device] = (g.tokens, smp_out.tokens)
+        log(f"  mamba2_370m (reduced, model level) {device}: kernel "
+            f"launches greedy {used_g}, sampled {used_s}")
+        check_launches(f"reduced mamba2 greedy on {device}", used_g,
+                       SSM_GREEDY if device == "cuda" else ())
+        check_launches(f"reduced mamba2 sampled on {device}", used_s,
+                       SSM_SAMPLED if device == "cuda" else ())
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"mamba2: tokens differ: cuda {out['cuda']} "
+                             f"vs cpu {out['cpu']}")
+    err = (state["cuda"] - state["cpu"]).abs().max().item()
+    if not torch.allclose(state["cuda"], state["cpu"], atol=1e-4,
+                          rtol=1e-4):
+        raise AssertionError(f"mamba2: prefill state differs, max abs err "
+                             f"{err}")
+    log(f"  mamba2_370m: greedy and sampled tokens identical for "
+        f"{len(prompts)} prompts of 128; prefill state max abs err "
+        f"{err:.3e}")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -925,6 +1071,102 @@ def serve_moe_path(dev):
     return g_used, runs[0][1]
 
 
+# ---------------------------------------------------------------- phase 7
+def _ssd_peak_estimate(cfg, b: int, s: int) -> int:
+    """Bytes of the fp32 intermediates one layer's ``ssd_chunked`` holds at
+    its peak: x in chunks, the (b, h, nc, Q, Q) mask weights and their
+    product with C.B, y, the chunk states and ``prev``, and B or C
+    broadcast to every head inside a product."""
+    h, p, n, Q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, min(64, s)
+    nc = s // Q
+    return 4 * (3 * b * h * s * p + 3 * b * h * nc * Q * Q
+                + 2 * b * h * nc * n * p + b * h * nc * Q * n)
+
+
+def serve_ssm_path(dev):
+    """Full-width Mamba2-370M (bf16, random weights from seed 0) at model
+    level: 8 prompts of 256 greedy, the same prompts sampled twice
+    (identical streams required, top-5 logprobs), then one 32768-token
+    prompt and 16 greedy decode steps.  Returns the path's launch
+    counts (every count set to 0 after the warm-up)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.model_level import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.sampling import SamplingParams
+
+    cfg = get_config("mamba2_370m")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  weights ({T.param_count(cfg) / 1e6:.3f} M params, {cfg.dtype}) "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+    rng = np.random.default_rng(7)
+    vpad = T.padded_vocab(cfg)
+    generate(cfg, params, rng.integers(2, cfg.vocab_size, (1, 64)).tolist(),
+             4)                                         # warm-up
+    torch.cuda.synchronize()
+
+    def run(tag, prompts, outs, expected, **kw):
+        before = kernels.launches()
+        torch.cuda.reset_peak_memory_stats(dev)
+        g = generate(cfg, params, prompts, outs, **kw)
+        used = {k: v - before[k] for k, v in kernels.launches().items()}
+        check_launches(f"the SSM path, {tag}", used, expected)
+        want = np.broadcast_to(np.asarray(outs), (len(prompts),))
+        for i, toks in enumerate(g.tokens):
+            if len(toks) != want[i] or not all(0 <= t < vpad for t in toks):
+                raise AssertionError(f"{tag} row {i}: bad tokens {toks}")
+        wall = g.prefill_s + g.decode_s
+        log(f"  {tag}: prefill {g.prefill_s * 1e3:.1f} ms for "
+            f"{len(prompts)}x{len(prompts[0])} tokens; decode "
+            f"{g.decode_s * 1e3 / g.decode_steps:.2f} ms/step over "
+            f"{g.decode_steps} steps ({g.pages} pages); {g.out_tokens} "
+            f"output tokens in {wall:.3f} s: {g.out_tokens / wall:.1f} "
+            f"output tokens/s; peak device memory "
+            f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB; "
+            f"launches {used}")
+        return g, used
+
+    kernels.reset_launches()                    # the SSM path alone
+    prompts = rng.integers(2, cfg.vocab_size, (8, 256)).tolist()
+    outs = [16, 20, 24, 28, 32, 36, 40, 48]
+    run("greedy 8x256", prompts, outs, SSM_GREEDY)
+    sps = [SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
+                          seed=100 + i) for i in range(8)]
+    runs = [run(f"sampled run {j}, 8x256", prompts, outs, SSM_SAMPLED,
+                sampling=sps, lp_k=5)[0] for j in range(2)]
+    if runs[0].tokens != runs[1].tokens or \
+            runs[0].logprobs != runs[1].logprobs:
+        raise AssertionError("the resubmitted sampled SSM batch gave other "
+                             "streams")
+    chosen, vals, ids = runs[0].logprobs[3]
+    if len(chosen) != outs[3] or any(len(v) != 5 for v in vals) or \
+            not all(math.isfinite(c) and c <= 0 for c in chosen):
+        raise AssertionError(f"bad SSM logprobs {chosen[:4]}")
+    log("  sampled (T 0.8, top-k 40, top-p 0.95, a seed a row): streams "
+        "and top-5 logprob planes identical over two submits")
+    S = 32768
+    est = _ssd_peak_estimate(cfg, 1, S)
+    long_prompt = rng.integers(2, cfg.vocab_size, (1, S)).tolist()
+    g, used = run(f"greedy 1x{S}", long_prompt, 17, SSM_GREEDY)
+    if used["ssd_scan"] != cfg.num_layers:
+        raise AssertionError(f"the {S}-token prefill launched ssd_scan "
+                             f"{used['ssd_scan']} times, not once a layer")
+    log(f"  {S}-token prompt: one layer's ssd_chunked intermediates "
+        f"reckoned at {est / 1e9:.2f} GB (fp32); the weights "
+        f"{T.param_count(cfg) * 2 / 1e9:.2f} GB")
+    launches = kernels.launches()
+    logits, cache = T.prefill(cfg, params, torch.tensor(
+        [prompts[0]], dtype=torch.int32, device=dev))
+    if logits.shape != (1, 1, vpad) or not torch.isfinite(logits).all() \
+            or not torch.isfinite(cache["state"]).all():
+        raise AssertionError(f"bad SSM logits {tuple(logits.shape)}")
+    log(f"  kernel launches on the SSM path: {launches}")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -958,7 +1200,8 @@ def main() -> int:
     log("== 3. kernels against their plain versions")
     timer = Timer(dev)
     stats = [check_flash(dev, timer), check_paged(dev, timer),
-             check_fused_sampling(dev, timer), check_moe_gemm(dev, timer)]
+             check_fused_sampling(dev, timer), check_moe_gemm(dev, timer),
+             check_ssd_scan(dev, timer)]
     del timer
     torch.cuda.empty_cache()
 
@@ -974,10 +1217,14 @@ def main() -> int:
     log("== 6. the MoE path: Qwen3-30B-A3B bf16, module granularity")
     torch.cuda.reset_peak_memory_stats(dev)
     moe_greedy, _ = serve_moe_path(dev)
+    gc.collect()                    # the MoE engines sit in ref cycles
+    torch.cuda.empty_cache()
+
+    log("== 7. the SSM path: Mamba2-370M bf16, model level")
+    ssm = serve_ssm_path(dev)
     for s in stats:     # each kernel's count from the path it was added for
-        s["launches"] = {"fused_sampling": sampled,
-                         "moe_gemm": moe_greedy}.get(s["name"],
-                                                     greedy)[s["name"]]
+        s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
+                         "ssd_scan": ssm}.get(s["name"], greedy)[s["name"]]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")

@@ -1,5 +1,5 @@
 """Architecture registry of the PyTorch port: one module per architecture
-the port serves so far, dense and MoE (copies of ``repro.configs``).
+the port serves so far, dense, MoE and SSM (copies of ``repro.configs``).
 ``get_config(name)`` returns the full published config;
 ``reduced_config(name)`` returns a tiny same-family config for CPU smoke
 tests (same code paths, small dims)."""
@@ -14,6 +14,7 @@ ARCH_IDS = [
     "smollm_360m",
     "phi3_5_moe",
     "qwen3_moe_30b",
+    "mamba2_370m",
 ]
 
 

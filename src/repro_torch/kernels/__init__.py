@@ -18,6 +18,7 @@ KERNELS = {
     "paged_attention": ("paged_attention", "paged_attention_plain"),
     "fused_sampling": ("fused_sample", "fused_sample_plain"),
     "moe_gemm": ("grouped_gemm", "grouped_gemm_plain"),
+    "ssd_scan": ("ssd_state_scan", "ssd_state_scan_plain"),
 }
 
 # launches of each kernel since the last reset: a wrapper adds one where

@@ -1,0 +1,143 @@
+"""Model-level serving of a batch of equal-length prompts, with no engine:
+``prefill``, the first token drawn from its logits, then ``decode_page``s
+until every row has its tokens.
+
+This is how the port serves the SSM family (``NodeEngine`` refuses it,
+as the JAX engine does): through the model functions the JAX package's
+``launch/steps.py`` builds its prefill and decode cells on.  Greedy rows
+take the argmax; with ``sampling`` every row draws through the port's
+sampler (the first token with key fold_in(seed, 0) and the prompt's
+penalty counts, as ``NodeEngine`` draws it; then ``decode_page``'s
+sampled steps).  With ``lp_k`` every page carries the logprob plane of
+the raw logits (the chosen token's logprob and, for lp_k > 0, the top
+lp_k).  Each page crosses to the host in one copy of its token block.
+
+    from repro_torch.launch.model_level import generate
+    out = generate(cfg, params, prompts, 32, sampling=[SamplingParams(
+        temperature=0.8, top_k=40, seed=i) for i in range(len(prompts))])
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch import sampling as smp
+from repro_torch.models import transformer as T
+
+
+@dataclasses.dataclass
+class Generation:
+    tokens: List[List[int]]          # per row, the generated tokens
+    # per row, (chosen logprob, top values, top ids) of each token, with
+    # lp_k set; None otherwise
+    logprobs: Optional[List[tuple]]
+    prefill_s: float                 # host clock, ended by a synchronize
+    decode_s: float
+    decode_steps: int                # steps run by the decode pages
+    pages: int
+
+    @property
+    def out_tokens(self) -> int:
+        return sum(len(t) for t in self.tokens)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def generate(cfg, params, prompts, max_tokens: Union[int, Sequence[int]], *,
+             sampling: Optional[Sequence[smp.SamplingParams]] = None,
+             lp_k: Optional[int] = None, page_steps: int = 16
+             ) -> Generation:
+    """Serve ``prompts`` (B equal-length token lists) on the device of
+    ``params``: each row gets ``max_tokens`` tokens (an int or one per
+    row), fewer when a sampled row hits a stop token.  Each
+    ``decode_page`` runs ``page_steps`` steps."""
+    dev = params["embed"].device
+    B = len(prompts)
+    toks = torch.tensor(np.asarray(prompts, np.int32), device=dev)
+    S = toks.shape[1]
+    V = T.padded_vocab(cfg)
+    want = np.broadcast_to(np.asarray(max_tokens, np.int32), (B,)).copy()
+    if (want < 1).any():
+        raise ValueError("every row needs max_tokens >= 1")
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = T.prefill(cfg, params, toks)
+    logits = logits[:, 0]
+    if sampling is None:
+        first = torch.argmax(logits, dim=-1).to(torch.int32)
+        page_kw = {}
+    else:
+        sp = smp.pack_params(list(sampling), list(range(B)))
+        flags = smp.flags_for(list(sampling), V)
+        rows = {k: torch.from_numpy(v).to(dev) for k, v in sp.items()
+                if k != "seed"}
+        st = smp.init_state(sp["seed"], [list(p) for p in prompts],
+                            [[] for _ in range(B)], V)
+        base = smp.base_keys(st["seed"], dev)
+        prompt_counts = torch.from_numpy(st["prompt_counts"]).to(dev)
+        first = smp.sample(
+            logits, prompt_counts, torch.from_numpy(st["counts"]).to(dev),
+            rows, smp.step_keys(base, torch.zeros((B,), dtype=torch.int32,
+                                                   device=dev)), flags)
+    first_np = first.cpu().numpy()
+    prefill_s = time.perf_counter() - t0
+
+    tokens = [[int(t)] for t in first_np]
+    remaining = want - 1
+    if sampling is not None:
+        for i, s in enumerate(sampling):
+            if int(first_np[i]) in s.stop:
+                remaining[i] = 0
+        st = smp.init_state(sp["seed"], [list(p) for p in prompts],
+                            [[int(t)] for t in first_np], V)
+        state = {"base_key": base,
+                 "gen_count": torch.from_numpy(st["gen_count"]).to(dev),
+                 "counts": torch.from_numpy(st["counts"]).to(dev),
+                 "prompt_counts": prompt_counts}
+        page_kw = dict(sampling=(rows, state), flags=flags)
+    lps = None
+    if lp_k is not None:
+        plane = T.pack_logprob_block(first, logits, lp_k).cpu().numpy()
+        _, c, v, i = T.unpack_logprob_block(plane[None])
+        lps = [([float(c[0, b])], [] if v is None else [v[0, b].tolist()],
+                [] if i is None else [i[0, b].tolist()]) for b in range(B)]
+
+    cur = first
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+    rem = torch.from_numpy(remaining).to(dev)
+    decode_s, steps, pages = 0.0, 0, 0
+    while remaining.max() > 0:
+        t = time.perf_counter()
+        out = T.decode_page(cfg, params, cache, cur, lengths, rem,
+                            page_steps, lp_k=lp_k, **page_kw)
+        block, cur, new_lengths, rem, cache = out[:5]
+        if sampling is not None:
+            page_kw["sampling"] = (rows, out[5])
+        block_np = block.cpu().numpy()
+        live = (new_lengths - lengths).cpu().numpy()
+        remaining = rem.cpu().numpy()
+        decode_s += time.perf_counter() - t
+        steps += page_steps
+        pages += 1
+        lengths = new_lengths
+        if lp_k is None:
+            page_toks = block_np
+        else:
+            page_toks, c, v, i = T.unpack_logprob_block(block_np)
+        for b in range(B):
+            n = int(live[b])
+            tokens[b] += page_toks[:n, b].tolist()
+            if lp_k is not None:
+                lps[b][0].extend(c[:n, b].tolist())
+                if v is not None:
+                    lps[b][1].extend(v[:n, b].tolist())
+                    lps[b][2].extend(i[:n, b].tolist())
+    return Generation(tokens, lps, prefill_s, decode_s, steps, pages)

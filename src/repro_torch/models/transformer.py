@@ -2,13 +2,16 @@
 sampled, with or without logprobs) and its logprob planes.
 
 PyTorch counterpart of ``repro.models.transformer`` for the families the
-port serves so far: dense decoders and MoE decoders without MLA
-(``models/moe.py`` for the expert layer).  Parameters are a plain dict in
-the JAX package's layout: per-layer leaves stacked with a leading L
-(``layers.attn.wq`` is (L, D, H, dh), ``layers.moe.w1`` (L, E, D, F)),
-so ``params_from_numpy`` takes the JAX params pytree as numpy unchanged.
-The layer stack is a Python loop over per-layer views; the decode cache
-``{"k", "v"}`` of (L, B, max_len, Hkv, dh) is written in place.
+port serves so far: dense decoders, MoE decoders without MLA
+(``models/moe.py`` for the expert layer) and Mamba-2 SSMs
+(``models/ssm.py``).  Parameters are a plain dict in the JAX package's
+layout: per-layer leaves stacked with a leading L (``layers.attn.wq`` is
+(L, D, H, dh), ``layers.moe.w1`` (L, E, D, F), ``layers.ssm.wx`` (L, D,
+W)), so ``params_from_numpy`` takes the JAX params pytree as numpy
+unchanged.  The layer stack is a Python loop over per-layer views; the
+decode cache is written in place: ``{"k", "v"}`` of (L, B, max_len,
+Hkv, dh) for attention, ``{"conv_x", "conv_B", "conv_C", "state"}`` of
+(L, B, ...) for an SSM, whose prefill cache is its decode cache.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch import compat
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.api import ModelConfig
 
 
@@ -28,19 +31,31 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return -(-cfg.vocab_size // 16) * 16
 
 
-def check_served(cfg: ModelConfig) -> None:
-    """What the port serves so far: dense and MoE decoders with RMSNorm,
-    a gated MLP, full RoPE attention, no sliding window and no logit
-    softcap (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M, Qwen3-30B-A3B,
-    Phi-3.5-MoE).  MLA, windows and the other families wait for later
-    slices."""
-    if (cfg.family not in ("dense", "moe") or cfg.use_mla
+def check_model(cfg: ModelConfig) -> None:
+    """What the port's model functions serve so far: dense and MoE
+    decoders with RMSNorm, a gated MLP, full RoPE attention, no sliding
+    window and no logit softcap (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M,
+    Qwen3-30B-A3B, Phi-3.5-MoE), and Mamba-2 SSMs (Mamba2-370M).  MLA,
+    windows and the other families wait for later slices."""
+    if (cfg.family not in ("dense", "moe", "ssm") or cfg.use_mla
             or cfg.sliding_window > 0 or cfg.norm != "rmsnorm"
             or cfg.logit_softcap > 0):
         raise NotImplementedError(
-            f"{cfg.name}: the PyTorch port serves dense and MoE RMSNorm "
-            f"decoders without MLA, a sliding window or a logit softcap "
-            f"so far")
+            f"{cfg.name}: the PyTorch port's model functions serve dense "
+            f"and MoE RMSNorm decoders without MLA, a sliding window or a "
+            f"logit softcap, and Mamba-2 SSMs, so far")
+
+
+def check_served(cfg: ModelConfig) -> None:
+    """What ``NodeEngine`` serves: the dense and MoE decoders of
+    ``check_model``.  The SSM family is served at model level only
+    (``prefill``, ``decode_page``), as the JAX engine refuses it too."""
+    check_model(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"{cfg.name}: NodeEngine serves dense and MoE decoders; the "
+            f"{cfg.family} family is served at model level (prefill, "
+            f"decode_page)")
 
 
 # ---------------------------------------------------------------------------
@@ -51,16 +66,23 @@ def check_served(cfg: ModelConfig) -> None:
 def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """Nested dict of (shape, init[, dtype]) per leaf, in the layout and
     with the scales of ``repro.models.transformer.init_params``; init is
-    the normal draw's std, or "ones" / "zeros"; dtype, where given,
-    overrides ``cfg.dtype`` (the MoE router ``wg`` stays fp32, as
-    ``repro.models.moe.init_moe`` keeps it)."""
-    check_served(cfg)
+    the normal draw's std, or "ones" / "zeros" / "a_log" (the SSM's fixed
+    ``A_log``, ``ssm.a_log_init``); dtype, where given, overrides
+    ``cfg.dtype`` (the MoE router ``wg`` and the SSM's ``dt_bias``,
+    ``A_log`` and ``D_skip`` stay fp32, as the JAX package keeps them)."""
+    check_model(cfg)
     V, D, L = padded_vocab(cfg), cfg.d_model, cfg.num_layers
     H, Hkv, dh, Fd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
     sc, lsc = 1.0 / math.sqrt(D), 1.0 / math.sqrt(max(L, 1))
 
     def norm(stack=()):
         return {"w": (stack + (D,), "ones")}
+
+    top = {"embed": ((V, D), 0.01), "lm_head": ((D, V), sc),
+           "final_norm": norm()}
+    if cfg.family == "ssm":
+        return dict(top, layers={"ln1": norm((L,)),
+                                 "ssm": ssm.param_spec(cfg, (L,))})
 
     attn = {"wq": ((L, D, H, dh), sc), "wk": ((L, D, Hkv, dh), sc),
             "wv": ((L, D, Hkv, dh), sc), "wo": ((L, H, dh, D), sc * lsc)}
@@ -81,12 +103,7 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
             block["moe"]["shared"] = mlp(cfg.shared_d_ff)
     else:
         block["mlp"] = mlp(Fd)
-    return {
-        "embed": ((V, D), 0.01),
-        "lm_head": ((D, V), sc),
-        "final_norm": norm(),
-        "layers": block,
-    }
+    return dict(top, layers=block)
 
 
 def _map_spec(spec, fn, path=()):
@@ -122,6 +139,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
             return torch.ones(shape, dtype=dt, device=dev)
         if scale == "zeros":
             return torch.zeros(shape, dtype=dt, device=dev)
+        if scale == "a_log":
+            return ssm.a_log_init(shape[-1], dev).expand(shape).to(dt) \
+                .contiguous()
         if path[0] != "layers":
             return draw(shape, scale, dt)
         out = torch.empty(shape, dtype=dt, device=dev)
@@ -178,20 +198,32 @@ def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     return total
 
 
-# id(stacked wq) -> (weak reference to it, per-layer views)
+# id(stacked ln1.w) -> (weak reference to it, per-layer views)
 _PER_LAYER: Dict[int, Tuple[Any, List[Dict[str, Any]]]] = {}
+
+
+def _layer_view(t, i):
+    """``t[i]`` sharing t's storage but not holding the tensor ``t``
+    itself (a plain ``t[i]`` keeps its base alive), so the cache entry
+    below dies with the params."""
+    v = t[i]
+    return torch.empty(0, dtype=t.dtype, device=t.device).set_(
+        v.untyped_storage(), v.storage_offset(), v.size(), v.stride())
 
 
 def _per_layer(params) -> List[Dict[str, Any]]:
     """Per-layer views of the stacked leaves, cached while the params
-    live (one view per leaf and layer instead of one per call)."""
-    anchor = params["layers"]["attn"]["wq"]
+    live (one view per leaf and layer instead of one per call).  The
+    views hold the leaves' storage, not the leaves, so dropping the
+    params drops the anchor, whose weak reference evicts the entry and
+    frees the weights."""
+    anchor = params["layers"]["ln1"]["w"]
     hit = _PER_LAYER.get(id(anchor))
     if hit is not None and hit[0]() is anchor:
         return hit[1]
 
     def index(tree, i):
-        return {k: index(v, i) if isinstance(v, dict) else v[i]
+        return {k: index(v, i) if isinstance(v, dict) else _layer_view(v, i)
                 for k, v in tree.items()}
 
     views = [index(params["layers"], i) for i in range(anchor.shape[0])]
@@ -220,9 +252,15 @@ def logits_fn(cfg, params, h):
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
-    """Dense decode cache {"k", "v"}: (L, B, max_len, Hkv, dh) zeros."""
-    check_served(cfg)
+    """Decode cache of zeros: {"k", "v"} of (L, B, max_len, Hkv, dh), or
+    for an SSM ``ssm.init_ssm_cache``'s leaves with a leading L (no
+    ``max_len`` axis: the state does not grow)."""
+    check_model(cfg)
     dev = compat.resolve_device(device)
+    if cfg.family == "ssm":
+        one = ssm.init_ssm_cache(cfg, B, compat.torch_dtype(cfg.dtype), dev)
+        return {k: v.new_zeros((cfg.num_layers,) + v.shape)
+                for k, v in one.items()}
     shape = (cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim)
     dt = compat.torch_dtype(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -240,10 +278,19 @@ def ffn(cfg: ModelConfig, p, h):
 
 def _backbone(cfg: ModelConfig, params, tokens):
     """tokens (B, S) -> (final-normed hidden (B, S, D), cache); the cache
-    is (L, B, S, Hkv, dh) per leaf."""
-    check_served(cfg)
+    is (L, B, S, Hkv, dh) per leaf, or an SSM's decode cache."""
+    check_model(cfg)
     B, S = tokens.shape
     h = _embed_tokens(cfg, params, tokens)
+    if cfg.family == "ssm":
+        cache = init_cache(cfg, B, S, tokens.device)
+        for i, p in enumerate(_per_layer(params)):
+            xn = layers.apply_norm(cfg, p["ln1"], h)
+            y, c = ssm.ssm_fwd(cfg, p["ssm"], xn, return_state=True)
+            for name, t in c.items():
+                cache[name][i] = t
+            h = h + y
+        return layers.apply_norm(cfg, params["final_norm"], h), cache
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     tab = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
@@ -267,9 +314,19 @@ def prefill(cfg: ModelConfig, params, tokens):
 def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
     """One decode step: tokens (B,), lengths (B,) -> (raw next-token
     logits (B, V) fp32, cache).  Writes each row's new K/V at ``lengths``
-    in place (dropped for rows at or past the cache length)."""
-    check_served(cfg)
+    in place (dropped for rows at or past the cache length); an SSM
+    advances every row's conv caches and state in place (``lengths`` is
+    not read: a finished row's state advances too, and its tokens are
+    discarded, as in the JAX scan)."""
+    check_model(cfg)
     h = _embed_tokens(cfg, params, tokens[:, None])
+    if cfg.family == "ssm":
+        for i, p in enumerate(_per_layer(params)):
+            xn = layers.apply_norm(cfg, p["ln1"], h)
+            y, _ = ssm.ssm_decode(cfg, p["ssm"], xn,
+                                  {k: v[i] for k, v in cache.items()})
+            h = h + y
+        return head_logits(cfg, params, h), cache
     positions = lengths[:, None]
     tab = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     for i, p in enumerate(_per_layer(params)):

@@ -14,6 +14,8 @@ top-K ids are exact against its plain version and bitwise identical over
 two launches; its stats hold to rtol 1e-5 (float summation order).  The
 grouped GEMM holds to its plain version at the same fp32 / bf16
 tolerances, with unused (-1) blocks, empty experts and ragged D and F.
+The SSD state scan gives its plain version's bits (``torch.equal``: it
+rounds the product and the sum separately, as ``h * d + s`` does).
 """
 import dataclasses
 
@@ -31,6 +33,9 @@ from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
                                               grouped_gemm_plain, moe_ffn)
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
+from repro_torch.kernels.ssd_scan.ops import (ssd_state_scan,
+                                              ssd_state_scan_plain)
+from repro_torch.launch.model_level import generate
 from repro_torch.models import transformer as TT
 from repro_torch.runtime.api import BatchMaster, BatchRequest
 from repro_torch.runtime.engine import NodeEngine
@@ -192,13 +197,19 @@ def test_each_launch_is_counted_once(dev):
     grouped_gemm(x, w, be, block_t=16)
     grouped_gemm(x, w, be, block_t=16)
     grouped_gemm(x, w, be, block_t=16)
+    st = _randn(gen, (1, 2, 3, 4, 8), torch.float32, dev)
+    dec = torch.rand((1, 2, 3), generator=gen, device=dev)
+    ssd_state_scan(st, dec)
+    ssd_state_scan(st, dec)
     flash_attention_plain(q, k, k, pos, pos)
     paged_attention_plain(qd, k, k, table, lengths)
     fused_sample_plain(*rows[:5])
     grouped_gemm_plain(x, w, be, block_t=16)
+    ssd_state_scan_plain(st, dec)
     torch.cuda.synchronize()
     assert kernels.launches() == {"flash_attention": 2, "paged_attention": 1,
-                                  "fused_sampling": 1, "moe_gemm": 3}
+                                  "fused_sampling": 1, "moe_gemm": 3,
+                                  "ssd_scan": 2}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -255,6 +266,22 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         grouped_gemm(xs.t().contiguous().t(), ws, be, block_t=16)
     with pytest.raises(ValueError):
         grouped_gemm(xs, ws[:, :16].contiguous(), be, block_t=16)
+    st = _randn(gen, (2, 3, 4, 8, 8), torch.float32, dev)
+    dec = torch.rand((2, 3, 4), generator=gen, device=dev)
+    with pytest.raises(TypeError):
+        ssd_state_scan(st.bfloat16(), dec)
+    with pytest.raises(TypeError):
+        ssd_state_scan(st, dec.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_state_scan(st.transpose(3, 4).contiguous().transpose(3, 4), dec)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_state_scan(st, dec.transpose(0, 1).contiguous().transpose(0, 1))
+    with pytest.raises(ValueError):
+        ssd_state_scan(st[0], dec[0])                # wrong ranks
+    with pytest.raises(ValueError):
+        ssd_state_scan(st, dec[:, :, :3].contiguous())
+    with pytest.raises(ValueError):
+        ssd_state_scan(st, dec.cpu())
 
 
 def test_reduced_engine_tokens_match_cpu(dev):
@@ -393,7 +420,7 @@ def test_reduced_moe_module_engine_tokens_match_cpu(dev):
     """Reduced fp32 qwen3 MoE with module granularity (b_attn 2 of 4
     slots), greedy and sampled requests, on the card (the kernels) and on
     the CPU (the plain versions): identical tokens, and the card's run
-    launched all four kernels."""
+    launched its four kernels and not the scan."""
     cfg = dataclasses.replace(reduced_config("qwen3_moe_30b"),
                               dtype="float32")
     params = TT.init_params(cfg, seed=9, device="cpu")
@@ -420,10 +447,85 @@ def test_reduced_moe_module_engine_tokens_match_cpu(dev):
         bo = master.run(master.submit(reqs))
         assert bo.request_counts["completed"] == len(reqs)
         used = kernels.launches()
-        if target.type == "cuda":
-            assert min(used.values()) > 0, used
+        if target.type == "cuda":       # an attention model: no scan
+            assert min(used[k] for k in ("flash_attention",
+                                         "paged_attention",
+                                         "fused_sampling",
+                                         "moe_gemm")) > 0, used
+            assert used["ssd_scan"] == 0, used
         else:
             assert max(used.values()) == 0, used
         out[target.type] = {r["custom_id"]: r["response"]["tokens"]
                             for r in bo.results}
     assert out["cuda"] == out["cpu"]
+
+
+# (B, H, nc, N, P): the JAX test's shapes, one chunk, mamba2_370m's width
+# at a short prompt, a ragged N*P (the scalar path)
+SCAN_CASES = [(2, 4, 8, 16, 8), (1, 2, 16, 32, 16), (2, 3, 1, 16, 8),
+              (2, 32, 4, 128, 64), (2, 3, 5, 7, 3)]
+
+
+@pytest.mark.parametrize("shape", SCAN_CASES,
+                         ids=["x".join(map(str, c)) for c in SCAN_CASES])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_ssd_scan_kernel_matches_plain_bits(dev, shape, offset):
+    """Equal bits on ``prev`` and ``final``; offset 1 is a contiguous view
+    off the 16-byte grid, which takes the scalar path."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    B, H, nc = shape[:3]
+    n = B * H * nc * shape[3] * shape[4]
+    st = torch.randn(n + offset, generator=gen, device=dev)[offset:] \
+        .view(shape)
+    dec = torch.rand((B, H, nc), generator=gen, device=dev) * 0.9 + 0.05
+    got = ssd_state_scan(st, dec)
+    torch.cuda.synchronize()
+    want = ssd_state_scan_plain(st, dec)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert not got[0][:, :, 0].any()
+
+
+def test_reduced_ssm_model_level_tokens_match_cpu(dev):
+    """Reduced fp32 mamba2_370m at model level (prefill, then decode
+    pages) on the card (the scan kernel; the sampling kernel on sampled
+    pages) and on the CPU (the plain versions): identical greedy and
+    sampled tokens, and no attention or MoE kernel launched."""
+    cfg = dataclasses.replace(reduced_config("mamba2_370m"), dtype="float32")
+    params = TT.init_params(cfg, seed=11, device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    prompts = torch.randint(2, cfg.vocab_size, (4, 128),
+                            generator=gen).tolist()
+    sps = [SamplingParams(),
+           SamplingParams(temperature=0.8, top_k=20, seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, seed=2, stop=(7,)),
+           SamplingParams(temperature=0.7, repetition_penalty=1.3, seed=3)]
+
+    def to(tree, target):
+        return {k: to(v, target) if isinstance(v, dict) else v.to(target)
+                for k, v in tree.items()}
+
+    out = {}
+    for target in (dev, torch.device("cpu")):
+        p = to(params, target)
+        kernels.reset_launches()
+        greedy = generate(cfg, p, prompts, [20, 3, 17, 20])
+        used = kernels.launches()
+        sampled = generate(cfg, p, prompts, 20, sampling=sps, lp_k=2)
+        used_s = {k: v - used[k] for k, v in kernels.launches().items()}
+        if target.type == "cuda":
+            assert used["ssd_scan"] == cfg.num_layers, used
+            assert used_s["ssd_scan"] == cfg.num_layers, used_s
+            assert used_s["fused_sampling"] > 0, used_s
+            assert used["fused_sampling"] == 0, used
+            for name in ("flash_attention", "paged_attention", "moe_gemm"):
+                assert used[name] == used_s[name] == 0, name
+        else:
+            assert max(used.values()) == max(used_s.values()) == 0
+        out[target.type] = (greedy.tokens, sampled.tokens,
+                            sampled.logprobs)
+    assert out["cuda"][:2] == out["cpu"][:2]
+    for g, w in zip(out["cuda"][2], out["cpu"][2]):
+        assert g[2] == w[2]                                 # top-2 ids
+        torch.testing.assert_close(torch.tensor(g[0]), torch.tensor(w[0]),
+                                   rtol=1e-4, atol=1e-4)

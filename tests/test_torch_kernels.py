@@ -27,6 +27,8 @@ from repro_torch.kernels.fused_sampling.ops import (fused_sample,
 from repro_torch.kernels.moe_gemm.ops import grouped_gemm, grouped_gemm_plain
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
+from repro_torch.kernels.ssd_scan.ops import (ssd_state_scan,
+                                              ssd_state_scan_plain)
 from repro_torch.models import flash as tflash
 from repro_torch.models import layers as tlayers
 
@@ -180,10 +182,16 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     be = torch.tensor([1, -1], dtype=torch.int32)
     assert torch.equal(grouped_gemm(x, w, be, block_t=16),
                        grouped_gemm_plain(x, w, be, block_t=16))
+    st = torch.from_numpy(r.standard_normal((1, 2, 3, 4, 4))
+                          .astype(np.float32))
+    dec = torch.from_numpy(r.random((1, 2, 3)).astype(np.float32))
+    for g, w in zip(ssd_state_scan(st, dec), ssd_state_scan_plain(st, dec)):
+        assert torch.equal(g, w)
     assert kernels.launches() == {"flash_attention": 0, "paged_attention": 0,
-                                  "fused_sampling": 0, "moe_gemm": 0}
+                                  "fused_sampling": 0, "moe_gemm": 0,
+                                  "ssd_scan": 0}
     assert set(kernels.KERNELS) == {"flash_attention", "paged_attention",
-                                    "fused_sampling", "moe_gemm"}
+                                    "fused_sampling", "moe_gemm", "ssd_scan"}
     for name in kernels.KERNELS:
         op, plain = kernels.get_kernel(name)
         assert callable(op) and callable(plain)

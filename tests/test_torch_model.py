@@ -59,15 +59,41 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
+def _prompt_len(cfg):
+    """8 prompt tokens; an SSM gets 128, two chunks of its SSD scan."""
+    return 128 if cfg.family == "ssm" else 8
+
+
+def _prefilled(jcfg, tcfg, jparams, toks, max_len):
+    """JAX prefill of ``toks`` (B, S0): the greedy first tokens and the
+    same decode cache in both packages (the prompt's K/V at the head of a
+    ``max_len`` cache; an SSM's prefill cache is its decode cache)."""
+    B, S0 = toks.shape
+    jlog, jpc = JT.prefill(jcfg, AXES, jparams, {"tokens": jnp.asarray(toks)})
+    first = np.argmax(np.asarray(jlog)[:, 0], axis=-1).astype(np.int32)
+    if tcfg.family == "ssm":
+        return first, jpc, {n: torch.from_numpy(np.array(a))
+                            for n, a in jpc.items()}
+    jcache = {n: JT.init_cache(jcfg, B, max_len)[n].at[:, :, :S0].set(jpc[n])
+              for n in ("k", "v")}
+    tcache = TT.init_cache(tcfg, B, max_len, "cpu")
+    for n in ("k", "v"):
+        tcache[n][:, :, :S0] = torch.from_numpy(np.array(jpc[n]))
+    return first, jcache, tcache
+
+
 @pytest.mark.parametrize("arch,dtype", [("llama3_2_1b", "float32"),
                                         ("qwen2_0_5b", "float32"),
                                         ("llama3_2_1b", "bfloat16"),
                                         ("qwen3_moe_30b", "float32"),
-                                        ("qwen3_moe_30b", "bfloat16")])
+                                        ("qwen3_moe_30b", "bfloat16"),
+                                        ("mamba2_370m", "float32"),
+                                        ("mamba2_370m", "bfloat16")])
 def test_params_from_numpy_round_trips(arch, dtype):
     """Every leaf of the JAX pytree arrives unchanged (bf16 bit for bit,
     compared as uint16 patterns), in its own dtype: the MoE router ``wg``
-    stays fp32 in a bf16 model, as in the JAX package."""
+    and the SSM's ``dt_bias``, ``A_log`` and ``D_skip`` stay fp32 in a
+    bf16 model, as in the JAX package."""
     jcfg = dataclasses.replace(j_reduced(arch), dtype=dtype)
     tcfg = dataclasses.replace(reduced_config(arch), dtype=dtype)
     np_params = _np_tree(JT.init_params(jcfg, jax.random.PRNGKey(0)))
@@ -90,6 +116,9 @@ def test_params_from_numpy_round_trips(arch, dtype):
         JT.param_count(jcfg, active_only=True)
     if tcfg.is_moe:
         assert got[".layers.moe.wg"].dtype == torch.float32
+    if tcfg.family == "ssm":
+        for leaf in ("dt_bias", "A_log", "D_skip"):
+            assert got[f".layers.ssm.{leaf}"].dtype == torch.float32
 
 
 def test_params_from_numpy_rejects_wrong_shapes():
@@ -98,6 +127,26 @@ def test_params_from_numpy_rejects_wrong_shapes():
     np_params["lm_head"] = np_params["lm_head"][:, :-16]
     with pytest.raises(ValueError):
         TT.params_from_numpy(np_params, tcfg, device="cpu")
+
+
+def test_per_layer_views_do_not_keep_params_alive():
+    """The per-layer view cache shares the weights' storage while the
+    params live, and lets them go with the params (a cache that held the
+    stacked leaves kept every model a process had built on the card)."""
+    import gc
+    import weakref
+
+    cfg = reduced_config("mamba2_370m")
+    params = TT.init_params(cfg, seed=0, device="cpu")
+    views = TT._per_layer(params)
+    assert TT._per_layer(params) is views
+    wx = params["layers"]["ssm"]["wx"]
+    assert views[1]["ssm"]["wx"].data_ptr() == wx[1].data_ptr()
+    assert torch.equal(views[1]["ssm"]["wx"], wx[1])
+    refs = [weakref.ref(params["layers"]["ln1"]["w"]), weakref.ref(wx)]
+    del params, views, wx
+    gc.collect()
+    assert all(r() is None for r in refs)
 
 
 def test_rms_norm_and_rope_match():
@@ -153,7 +202,8 @@ def test_cache_update_matches_and_drops_out_of_range():
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen2_0_5b",
-                                  "qwen3_moe_30b", "phi3_5_moe"])
+                                  "qwen3_moe_30b", "phi3_5_moe",
+                                  "mamba2_370m"])
 def test_prefill_logits_and_cache_match(arch):
     jcfg, tcfg = _cfgs(arch)
     np_params = _jax_params(jcfg, bias_rng=np.random.default_rng(4)
@@ -166,16 +216,19 @@ def test_prefill_logits_and_cache_match(arch):
                               {"tokens": jnp.asarray(toks)})
     tlog, tcache = TT.prefill(tcfg, tparams, torch.from_numpy(toks))
     np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), **FWD_TOL)
-    for name in ("k", "v"):
+    assert set(tcache) == set(jcache)       # k, v; or an SSM's four leaves
+    for name in jcache:
         np.testing.assert_allclose(tcache[name].numpy(),
-                                   np.asarray(jcache[name]), **FWD_TOL)
+                                   np.asarray(jcache[name]), **FWD_TOL,
+                                   err_msg=name)
 
 
 # smollm's published 15 heads / 5 kv heads cut to 6 / 2: a head count and
-# a GQA group (3) that are not powers of two; the two MoE decoders
+# a GQA group (3) that are not powers of two; the two MoE decoders; the SSM
 DECODE_CASES = [("llama3_2_1b", {}), ("qwen2_0_5b", {}),
                 ("smollm_360m", dict(num_heads=6, num_kv_heads=2)),
-                ("qwen3_moe_30b", {}), ("phi3_5_moe", {})]
+                ("qwen3_moe_30b", {}), ("phi3_5_moe", {}),
+                ("mamba2_370m", {})]
 
 
 @pytest.mark.parametrize("arch,over", DECODE_CASES,
@@ -189,16 +242,10 @@ def test_decode_page_tokens_match_over_two_pages(arch, over):
                             if jcfg.attn_bias else None)
     jparams = jax.tree.map(jnp.asarray, np_params)
     tparams = TT.params_from_numpy(np_params, tcfg, device="cpu")
-    B, S0, max_len, P = 3, 8, 64, 8
+    B, S0, max_len, P = 3, _prompt_len(tcfg), 64, 8
     toks = np.random.default_rng(7).integers(2, jcfg.vocab_size, (B, S0),
                                              dtype=np.int32)
-    jlog, jpc = JT.prefill(jcfg, AXES, jparams, {"tokens": jnp.asarray(toks)})
-    first = np.argmax(np.asarray(jlog)[:, 0], axis=-1).astype(np.int32)
-    jcache = {n: JT.init_cache(jcfg, B, max_len)[n].at[:, :, :S0].set(jpc[n])
-              for n in ("k", "v")}
-    tcache = TT.init_cache(tcfg, B, max_len, "cpu")
-    for n in ("k", "v"):
-        tcache[n][:, :, :S0] = torch.from_numpy(np.array(jpc[n]))
+    first, jcache, tcache = _prefilled(jcfg, tcfg, jparams, toks, max_len)
     lengths = np.full((B,), S0, np.int32)
     remaining = np.array([16, 11, 0], np.int32)
     jstate = tuple(map(jnp.asarray, (first, lengths, remaining)))
@@ -257,24 +304,30 @@ def test_decode_page_sampled_and_logprobs_match_jax(sampled, lp_k):
     token columns and ids), planes within 1e-5, equal countdowns and
     sampling state.  One slot finishes mid-page, one carries a stop set
     and one is never live."""
+    _check_page_variant("llama3_2_1b", sampled, lp_k)
+
+
+@pytest.mark.parametrize("sampled,lp_k", PAGE_VARIANTS,
+                         ids=["greedy_lp3", "sampled", "sampled_lp2"])
+def test_ssm_decode_page_sampled_and_logprobs_match_jax(sampled, lp_k):
+    """The same pages on reduced Mamba-2 after a two-chunk prompt: the
+    SSM's decode cache advances in place, a finished row's state too."""
+    _check_page_variant("mamba2_370m", sampled, lp_k)
+
+
+def _check_page_variant(arch, sampled, lp_k):
     from repro import sampling as JS
     from repro_torch import sampling as TS
 
-    jcfg, tcfg = _cfgs("llama3_2_1b")
+    jcfg, tcfg = _cfgs(arch)
     np_params = _jax_params(jcfg)
     jparams = jax.tree.map(jnp.asarray, np_params)
     tparams = TT.params_from_numpy(np_params, tcfg, device="cpu")
-    B, S0, max_len, P = 4, 8, 64, 8
+    B, S0, max_len, P = 4, _prompt_len(tcfg), 64, 8
     V = TT.padded_vocab(tcfg)
     toks = np.random.default_rng(9).integers(2, jcfg.vocab_size, (B, S0),
                                              dtype=np.int32)
-    jlog, jpc = JT.prefill(jcfg, AXES, jparams, {"tokens": jnp.asarray(toks)})
-    first = np.argmax(np.asarray(jlog)[:, 0], axis=-1).astype(np.int32)
-    jcache = {n: JT.init_cache(jcfg, B, max_len)[n].at[:, :, :S0].set(jpc[n])
-              for n in ("k", "v")}
-    tcache = TT.init_cache(tcfg, B, max_len, "cpu")
-    for n in ("k", "v"):
-        tcache[n][:, :, :S0] = torch.from_numpy(np.array(jpc[n]))
+    first, jcache, tcache = _prefilled(jcfg, tcfg, jparams, toks, max_len)
     lengths = np.full((B,), S0, np.int32)
     remaining = np.array([16, 11, 16, 0], np.int32)
     jkw, tkw = {"lp_k": lp_k}, {"lp_k": lp_k}
@@ -328,3 +381,21 @@ def test_decode_page_sampled_and_logprobs_match_jax(sampled, lp_k):
                     np.asarray(jout[5][n]).astype(tout[5][n].numpy().dtype))
             jkw["sampling"] = (jkw["sampling"][0], jout[5])
             tkw["sampling"] = (tkw["sampling"][0], tout[5])
+
+
+def test_node_engine_refuses_the_ssm_family_in_both_packages():
+    """Both engines serve dense and MoE caches only; the SSM is served at
+    model level (``prefill`` / ``decode_page``).  The port's serving
+    entry point builds a ``NodeEngine``, so it refuses too."""
+    from repro.runtime.engine import NodeEngine as JEngine
+    from repro_torch.launch import serve
+    from repro_torch.runtime.engine import NodeEngine
+
+    with pytest.raises(AssertionError):
+        JEngine(j_reduced("mamba2_370m"), max_active=2, max_len=32)
+    with pytest.raises(NotImplementedError, match="model level"):
+        NodeEngine(reduced_config("mamba2_370m"), device="cpu",
+                   max_active=2, max_len=32)
+    with pytest.raises(NotImplementedError, match="model level"):
+        serve.main(["--arch", "mamba2_370m", "--reduced", "--device", "cpu",
+                    "--requests", "1"])

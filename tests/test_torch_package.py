@@ -9,7 +9,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch import compat, sampling
+from repro_torch import compat, kernels, sampling
+from repro_torch.kernels import build
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import transformer as TT
 from repro_torch.runtime.engine import NodeEngine
@@ -30,9 +31,11 @@ from repro_torch.kernels.flash_attention import ops as f
 from repro_torch.kernels.paged_attention import ops as p
 from repro_torch.kernels.fused_sampling import ops as fs
 from repro_torch.kernels.moe_gemm import ops as mg
+from repro_torch.kernels.ssd_scan import ops as ss
 from repro_torch.kernels import build
 from repro_torch.core import forward
-from repro_torch.models import moe
+from repro_torch.models import moe, ssm
+from repro_torch.launch import model_level, profile
 from repro_torch.sampling import processors, sample
 print("imported", sorted(m for m, mod in sys.modules.items()
                          if mod is not None
@@ -56,7 +59,8 @@ def test_no_source_imports_jax_or_repro():
     names = {str(f.relative_to(PKG)) for f in files}
     assert {"sampling/processors.py", "sampling/sample.py",
             "kernels/fused_sampling/ops.py", "core/forward.py",
-            "models/moe.py", "kernels/moe_gemm/ops.py"} <= names
+            "models/moe.py", "kernels/moe_gemm/ops.py", "models/ssm.py",
+            "kernels/ssd_scan/ops.py", "launch/model_level.py"} <= names
     bad = [f"{f.relative_to(SRC)}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -100,3 +104,34 @@ def test_configs_are_the_published_dense_ones():
     assert (p.num_layers, p.d_model, p.num_heads, p.num_kv_heads,
             p.vocab_size, p.num_experts, p.experts_per_token,
             p.moe_d_ff) == (32, 4096, 32, 8, 32064, 16, 2, 6400)
+
+
+def test_ssm_config_is_the_published_one():
+    """Mamba2-370M at full width: 48 layers, d_model 1024, d_inner 2048,
+    32 SSM heads of 64, state 128, one group, conv 4, vocab 50280 padded
+    to 50288, an untied head; 419,730,944 parameters, as the JAX
+    package's ``param_count`` gives them."""
+    m = get_config("mamba2_370m")
+    assert (m.family, m.num_layers, m.d_model, m.d_inner, m.ssm_heads,
+            m.ssm_head_dim, m.ssm_state, m.ssm_groups, m.ssm_conv,
+            m.vocab_size, TT.padded_vocab(m), m.tie_embeddings,
+            m.dtype) == ("ssm", 48, 1024, 2048, 32, 64, 128, 1, 4, 50280,
+                         50288, False, "bfloat16")
+    assert TT.param_count(m) == 419_730_944
+    spec = TT.param_shapes(m)
+    assert set(spec["layers"]) == {"ln1", "ssm"}
+    assert spec["lm_head"][0] == (1024, 50288)
+
+
+def test_five_kernels_are_registered_each_with_its_source():
+    """Every TPU kernel of the JAX package has its Hopper counterpart:
+    five registered names, each with a wrapper, a plain version, a
+    launch counter and a ``csrc/<name>.cu`` that ``build.py`` finds."""
+    assert set(kernels.KERNELS) == {"flash_attention", "paged_attention",
+                                    "fused_sampling", "moe_gemm",
+                                    "ssd_scan"}
+    assert sorted(kernels.KERNELS) == build.kernel_names()
+    assert set(kernels.launches()) == set(kernels.KERNELS)
+    for name in kernels.KERNELS:
+        op, plain = kernels.get_kernel(name)
+        assert callable(op) and callable(plain)
