@@ -15,6 +15,15 @@ result):
    and at the contract's edge cases, and time the kernel, its plain
    version and ``F.scaled_dot_product_attention`` (a yardstick only; the
    port never calls it) at the serving path's shapes, beside the bound.
+   Prefill attention runs bf16 on the tensor cores (``wgmma``, K/V by
+   TMA) and fp32 on the CUDA cores: its bf16 cases reach the tensor-core
+   route's edges (ragged tiles, more K/V tiles than ring stages, q blocks
+   at an offset down to Sq = 1, window + softcap, the true-length mask,
+   D = 32 with a group of 3, D = 128), every launch must land on the
+   route of its type, two bf16 launches must give equal bits, and it is
+   timed at four bf16 causal shapes (Llama-3.2-1B 4x512, 8x256 and one
+   2048-token prompt, Qwen3-30B-A3B 8x256 at D = 128) and in fp32 at
+   4x512.
    The fused sampling kernel (fp32, B=8, V=128256, and edge rows) must
    give exactly its plain version's tokens and top-K ids, its stats to
    rtol 1e-5 (float summation order), and equal bits over two launches;
@@ -36,7 +45,8 @@ result):
    sampled path (8 requests of mixed SamplingParams with a stop token and
    top-5 logprobs, submitted twice: the streams must be identical), with
    every kernel's launch count read around each path alone: each path
-   must launch its kernels, and the dense paths never ``moe_gemm``;
+   must launch its kernels, and the dense paths never ``moe_gemm``; every
+   flash launch of a path must be on the tensor-core route;
 5. reduced fp32 copies of Llama-3.2-1B and of Qwen3-30B-A3B (the MoE one
    with module granularity, b_attn 2 of 4 slots) served once on "cuda"
    (the kernels) and once on "cpu" (the plain versions), greedy and
@@ -50,7 +60,8 @@ result):
    model's default SamplingParams with seeds, submitted twice (identical
    streams required), then the greedy batch once more on a monolithic
    engine sharing the weights (how many streams agree is printed, not
-   gated: bf16 sub-batched products may round differently);
+   gated: bf16 sub-batched products may round differently); every flash
+   launch on the tensor-core route;
 7. the SSM path: full-width Mamba2-370M in bf16 (random weights from a
    seed) at model level (``prefill``, then ``decode_page``s of 16 steps;
    ``NodeEngine`` serves no SSM, as the JAX engine does not): 8 prompts
@@ -69,7 +80,6 @@ import dataclasses
 import gc
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -120,31 +130,27 @@ def check_launches(path: str, used, expected) -> None:
                                  f"(expected {want})")
 
 
+def reset_counts() -> None:
+    """Every kernel's launch count, and flash's counts by route, to 0."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import ops
+    kernels.reset_launches()
+    ops.reset_routes()
+
+
+def check_flash_route(path: str, used) -> None:
+    """Every flash launch of a bf16 path took the tensor-core route."""
+    from repro_torch.kernels.flash_attention import ops
+    routes = dict(ops.ROUTE_LAUNCHES)
+    if routes["simt"] or routes["wgmma"] != used["flash_attention"]:
+        raise AssertionError(f"{path}: flash launches by route {routes} of "
+                             f"{used['flash_attention']} (expected all on "
+                             f"wgmma)")
+    log(f"  {path}: {routes['wgmma']} flash launches, all on the wgmma "
+        f"route")
+
+
 # ---------------------------------------------------------------- timing
-class Timer:
-    """Median device time of one call, with L2 flushed before each launch
-    (the serving path finds each layer's K/V cold)."""
-
-    def __init__(self, dev):
-        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
-
-    def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        pairs = []
-        for _ in range(iters):
-            self.flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            pairs.append((s, e))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in pairs)
-
-
 def _sdpa(q, k, v, **kw):
     """One ``F.scaled_dot_product_attention`` call on q (B,H,Sq,D), k/v
     (B,Hkv,Skv,D), GQA included: the library yardstick."""
@@ -167,11 +173,31 @@ def _check(name, got, want, dtype):
     return err
 
 
+def _flash_bound(q, k, v, qp, kp):
+    """(bound ms, bound_by, GFLOP, MB) of one causal prefill attention
+    call: each input read once and the output written once, at the card's
+    memory rate, against the operations of the (q, key) pairs the causal
+    mask lets through (every batch row has the same positions here) at
+    the card's peak rate for the storage type."""
+    B, _, H, D = q.shape
+    pairs = int((kp[0][None, :] <= qp[0][:, None]).sum().item())
+    flops = 4.0 * D * pairs * B * H
+    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() \
+        + (qp.numel() + kp.numel()) * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", flops / 1e9,
+            nbytes / 1e6)
+
+
 def check_flash(dev, timer):
+    from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
+    ops.reset_routes()
+    calls = {"wgmma": 0, "simt": 0}
 
     def case(tag, dtype, B, Sq, Skv, H, Hkv, D, causal=True, window=0,
              softcap=0.0, q0=0):
@@ -184,6 +210,7 @@ def check_flash(dev, timer):
             .expand(B, Skv).contiguous()
         kw = dict(causal=causal, window=window, softcap=softcap)
         got = flash_attention(q, k, v, qp, kp, **kw)
+        calls[ops.route(dtype)] += 1
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, qp, kp, **kw)
         err = _check(f"flash_attention {tag} {str(dtype)[6:]}", got, want,
@@ -197,41 +224,78 @@ def check_flash(dev, timer):
         main[dtype] = case("B4 S512 H32/8 D64 causal", dtype, 4, 512, 512,
                            32, 8, 64)
         case("offset q Sq64 Skv512", dtype, 2, 64, 512, 32, 8, 64, q0=448)
-    case("B8 S256 H32/8 D64 causal", torch.bfloat16, 8, 256, 256, 32, 8, 64)
+    timed = {"B4 S512 H32/8 D64": main[torch.bfloat16]}
+    timed["B8 S256 H32/8 D64"] = case("B8 S256 H32/8 D64 causal",
+                                      torch.bfloat16, 8, 256, 256, 32, 8, 64)
     case("window100 softcap30 S256", torch.float32, 1, 256, 256, 8, 2, 64,
          window=100, softcap=30.0)
     case("non-causal Skv96 (true-length mask)", torch.float32, 1, 96, 96, 4,
          2, 64, causal=False)
     case("G3 D32 S40", torch.float32, 1, 40, 40, 6, 2, 32)
     case("D128 S128", torch.float32, 1, 128, 128, 4, 4, 128)
+    # the tensor-core route's edges: ragged tiles, more K/V tiles than
+    # ring stages, offset q blocks, window + softcap, the true-length
+    # mask, D32 with a group of 3, D128 at Qwen3-30B-A3B's heads
+    case("S200 (ragged tiles)", torch.bfloat16, 2, 200, 200, 32, 8, 64)
+    timed["B1 S2048 H32/8 D64"] = case("B1 S2048 H32/8 D64 causal",
+                                       torch.bfloat16, 1, 2048, 2048, 32, 8,
+                                       64)
+    case("offset q Sq1 Skv512", torch.bfloat16, 2, 1, 512, 32, 8, 64,
+         q0=511)
+    case("window100 softcap30 S256", torch.bfloat16, 1, 256, 256, 8, 2, 64,
+         window=100, softcap=30.0)
+    case("non-causal Skv96 (true-length mask)", torch.bfloat16, 1, 96, 96,
+         4, 2, 64, causal=False)
+    case("G3 D32 S40", torch.bfloat16, 1, 40, 40, 6, 2, 32)
+    timed["B8 S256 H32/4 D128"] = case("B8 S256 H32/4 D128 causal",
+                                       torch.bfloat16, 8, 256, 256, 32, 4,
+                                       128)
+    if ops.ROUTE_LAUNCHES != calls:
+        raise AssertionError(f"flash_attention launches by route "
+                             f"{ops.ROUTE_LAUNCHES}, expected {calls}")
+    log(f"  flash_attention launches by route: {calls} (bf16 -> wgmma, "
+        f"fp32 -> simt)")
 
     err, (q, k, v, qp, kp, kw) = main[torch.bfloat16]
-    B, S, H, D = q.shape
-    Hkv = k.shape[2]
-    pairs = int(((kp[0][None, :] <= qp[0][:, None]).sum()).item())
-    flops = 4.0 * D * pairs * B * H
-    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() \
-        + (qp.numel() + kp.numel()) * 4
-    bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[q.dtype]) * 1e3
-    ms = timer(lambda: flash_attention(q, k, v, qp, kp, **kw))
-    plain_ms = timer(lambda: flash_attention_plain(q, k, v, qp, kp, **kw),
-                     iters=5)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library_ms = timer(_sdpa(qt, kt, vt, is_causal=True))
+    again = [flash_attention(q, k, v, qp, kp, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(again[0], again[1]):
+        raise AssertionError("flash_attention bf16: two launches gave "
+                             "other bits")
+    log("  flash_attention bf16 B4 S512: two launches, equal bits")
+
+    rows = {}
+    for shape, (e, (q, k, v, qp, kp, kw)) in timed.items():
+        bound_ms, bound_by, gflop, mb = _flash_bound(q, k, v, qp, kp)
+        ms = timer(lambda: flash_attention(q, k, v, qp, kp, **kw))
+        plain_ms = timer(lambda: flash_attention_plain(q, k, v, qp, kp,
+                                                       **kw), iters=5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = timer(_sdpa(qt, kt, vt, is_causal=True))
+        # the host's side of one call (the wrapper's checks, four tensor
+        # maps and a ctypes call; SDPA's dispatch), beside the card's
+        host_us = timer.host_us(lambda: flash_attention(q, k, v, qp, kp,
+                                                        **kw))
+        library_host_us = timer.host_us(_sdpa(qt, kt, vt, is_causal=True))
+        rows[shape] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms, host_us=host_us,
+                           library_host_us=library_host_us)
+        log(f"  flash_attention bf16 {shape} causal: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; {gflop:.2f} GFLOP, {mb:.1f} "
+            f"MB); host {host_us:.1f} us a call, sdpa's "
+            f"{library_host_us:.1f} us")
     ms32 = timer(lambda: flash_attention(*main[torch.float32][1][:5],
                                          **main[torch.float32][1][5]))
-    log(f"  flash_attention bf16 B{B} S{S} H{H}/{Hkv} D{D} causal: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms} "
-        f"ms, bound {bound_ms:.4f} ms ({flops / 1e9:.2f} GFLOP, "
-        f"{nbytes / 1e6:.1f} MB); fp32 kernel {ms32:.4f} ms")
+    log(f"  flash_attention fp32 B4 S512 H32/8 D64 causal: kernel "
+        f"{ms32:.4f} ms (CUDA cores)")
+    print(json.dumps({"flash_attention_shapes": rows}), flush=True)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
-                replaces=REPLACES["flash_attention"], max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="operations" if flops / PEAK_FLOPS[q.dtype]
-                > nbytes / PEAK_BYTES else "bytes",
-                library_ms=library_ms, shape=f"B{B} S{S} H{H}/{Hkv} D{D} "
-                f"causal bf16")
+                replaces=REPLACES["flash_attention"],
+                shape="B4 S512 H32/8 D64 causal bf16",
+                **rows["B4 S512 H32/8 D64"])
 
 
 def check_paged(dev, timer):
@@ -704,7 +768,7 @@ def serve_main_path(dev):
     clock = _PageClock(eng)
     saved0 = eng.prefill_tokens_saved
 
-    kernels.reset_launches()                    # the greedy path alone
+    reset_counts()                              # the greedy path alone
     t0 = time.perf_counter()
     results = []
     for batch in (first, second):
@@ -730,6 +794,7 @@ def serve_main_path(dev):
     if saved <= 0:
         raise AssertionError("the resubmitted prefix was not reused")
     check_launches("the greedy path", launches, DENSE_GREEDY)
+    check_flash_route("the greedy path", launches)
     # the model's logits on a short prompt: finite, of the padded vocab
     logits, _ = T.prefill(cfg, eng.params, torch.tensor(
         [first[0].prompt], dtype=torch.int32, device=dev))
@@ -805,12 +870,13 @@ def serve_sampled_path(dev, eng, master, prompt):
     runs, clocks, walls, launch = [], [], [], []
     for _ in range(2):
         clock = _PageClock(eng)
-        kernels.reset_launches()                # the sampled path alone
+        reset_counts()                          # the sampled path alone
         t0 = time.perf_counter()
         runs.append(serve(batch((stop_tok,))))
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launch.append(kernels.launches())
+        check_flash_route("the sampled path", launch[-1])
         clock.restore()
         clocks.append(clock)
     check_launches("the sampled path", launch[0], DENSE_SAMPLED)
@@ -1001,12 +1067,13 @@ def serve_moe_path(dev):
     def serve(engine, reqs, tag):
         master = BatchMaster([engine], SchedulerConfig(page_size=page))
         clock = _PageClock(engine)
-        kernels.reset_launches()
+        reset_counts()
         t = time.perf_counter()
         bo = master.run(master.submit(reqs))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         used = kernels.launches()
+        check_flash_route(tag, used)
         clock.restore()
         if bo.request_counts["completed"] != len(reqs) or \
                 bo.request_counts["failed"]:
@@ -1173,6 +1240,7 @@ def main() -> int:
         log("chip_smoke: no CUDA device is available")
         return 2
     from repro_torch.kernels import build
+    from repro_torch.launch.timing import Timer
 
     dev = torch.device("cuda", 0)
     # fp32 products in full fp32 (the fp32 tolerances assume it)

@@ -3,7 +3,12 @@ and its plain PyTorch version (``models/flash.py``).
 
 ``flash_attention`` runs the plain version for tensors on the CPU.  For
 CUDA tensors it checks them, launches the kernel on the current stream,
-raises if the launch failed and counts the launch.
+raises if the launch failed and counts the launch.  The kernel has two
+routes, chosen here by the storage type: bf16 runs on the tensor cores
+(``wgmma``, K/V tiles by TMA), fp32 on the CUDA cores.  Each launch is
+counted in ``kernels.LAUNCHES`` and, by route, in ``ROUTE_LAUNCHES``.
+A bf16 input the tensor-core route cannot take raises; it never goes to
+the fp32 route.
 """
 from __future__ import annotations
 
@@ -19,7 +24,36 @@ from repro_torch.models import flash
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+_ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 _LIB = None
+# The most shared memory one CTA may take on an H100 (227 KiB).
+_SMEM_LIMIT = 227 * 1024
+
+# launches by route since the last reset_routes()
+ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
+
+
+def route(dtype) -> str:
+    """The kernel route of a storage type: "wgmma" (bf16, tensor cores) or
+    "simt" (fp32, CUDA cores)."""
+    if dtype not in _ROUTES:
+        raise TypeError(f"{NAME}: no route for {dtype}")
+    return _ROUTES[dtype]
+
+
+def max_keys(D: int) -> int:
+    """The most keys (Skv) the tensor-core route takes at head dim D.  Its
+    CTA's shared memory (``Geo<D>::smem_bytes`` in ``csrc/
+    flash_attention.cu``) is Q, a 4-stage K/V ring, barriers and positions,
+    1280 * D + 2188 bytes, then 12 bytes a 64-key tile for the tile list
+    and each tile's kv position range: ~354K keys at D = 128, ~791K at 64,
+    ~1.0M at 32."""
+    return (_SMEM_LIMIT - 1280 * D - 2188) // 12 * 64
+
+
+def reset_routes() -> None:
+    for key in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[key] = 0
 
 
 def flash_attention_plain(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
@@ -28,16 +62,20 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
                                  window=window, softcap=softcap)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry point ``repro_flash_attention_fwd`` of a
+    loaded library."""
+    fn = lib.repro_flash_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = build.load(NAME)
-        fn = lib.repro_flash_attention_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-                       + [ctypes.c_float] * 2
-                       + [ctypes.c_int, ctypes.c_void_p])
-        _LIB = lib
+        _LIB = bind(build.load(NAME))
     return _LIB
 
 
@@ -68,6 +106,19 @@ def _check(q, k, v, q_pos, kv_pos):
         raise ValueError(f"{NAME}: positions {tuple(q_pos.shape)}, "
                          f"{tuple(kv_pos.shape)} vs q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
+    if route(q.dtype) == "wgmma":
+        # TMA reads q/k/v from a 16-byte-aligned base (its row strides,
+        # D * 2 bytes and up, are multiples of 16 at every head dim)
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{NAME}: bf16 {name} must start on a "
+                                 f"16-byte boundary for TMA, its address "
+                                 f"is {t.data_ptr():#x}")
+        if Skv > max_keys(D):
+            raise ValueError(f"{NAME}: bf16 takes at most {max_keys(D)} "
+                             f"keys at head dim {D} (its tile list must "
+                             f"fit the CTA's 227 KiB of shared memory), "
+                             f"got Skv {Skv}")
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
@@ -80,10 +131,19 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     _check(q, k, v, q_pos, kv_pos)
+    out = launch(_lib(), q, k, v, q_pos, kv_pos, causal=causal,
+                 window=window, softcap=softcap)
+    kernels.LAUNCHES[NAME] += 1
+    ROUTE_LAUNCHES[route(q.dtype)] += 1
+    return out
+
+
+def launch(lib, q, k, v, q_pos, kv_pos, *, causal, window, softcap):
+    """One launch of ``repro_flash_attention_fwd`` from ``lib`` on checked
+    CUDA tensors; raises if the launch failed.  Counts nothing."""
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_fwd(
@@ -93,5 +153,4 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
             1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
-    kernels.LAUNCHES[NAME] += 1
     return out

@@ -1,0 +1,53 @@
+"""How the port times a kernel on the card: one method, used by
+``chip_smoke.py`` and ``launch/flash_ab.py`` alike.
+
+``Timer(dev)(fn)`` is the median device time of one call in ms: CUDA
+events around each launch, L2 flushed before each (the serving path finds
+each layer's K/V cold).  The events also see the card wait for the host,
+where a call's host side outlasts the flush before it.
+``Timer.host_us(fn)`` is the host's time to issue one call, in µs.
+"""
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+
+class Timer:
+    """Median device time of one call, with L2 flushed before each launch
+    (the serving path finds each layer's K/V cold)."""
+
+    def __init__(self, dev):
+        self.flush = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+
+    def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    @staticmethod
+    def host_us(fn, calls: int = 200) -> float:
+        """Mean host time to issue one call, in µs: ``calls`` calls back to
+        back with no synchronisation between them (far fewer launches than
+        the card's queue holds, so the host never waits for the card)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) / calls * 1e6

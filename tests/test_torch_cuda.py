@@ -6,7 +6,11 @@ one; on a machine with a card:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The first test builds the kernels from ``src/repro_torch/csrc`` with
-``nvcc``.  Tolerances: fp32 atol/rtol 1e-4 (summation order), bf16
+``nvcc``.  Prefill attention has two routes: bf16 on the tensor cores
+(``wgmma``, K/V by TMA) and fp32 on the CUDA cores; every flash case runs
+in both types, and the bf16 route is also held to equal bits over two
+launches, to its per-route launch count and to its refusal of a base
+TMA cannot read.  Tolerances: fp32 atol/rtol 1e-4 (summation order), bf16
 atol/rtol 2e-2 (one bf16 rounding of the output).  fp32 products run in
 full fp32 (TF32 off), so the reduced engine's greedy tokens on the card
 equal those of its plain CPU path.  The fused sampling kernel's tokens and
@@ -18,6 +22,7 @@ The SSD state scan gives its plain version's bits (``torch.equal``: it
 rounds the product and the sum separately, as ``h * d + s`` does).
 """
 import dataclasses
+from pathlib import Path
 
 import pytest
 import torch
@@ -25,6 +30,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.configs import reduced_config
 from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
@@ -79,6 +85,9 @@ FLASH_CASES = [
     ("noncausal_skv96", 1, 96, 96, 4, 2, 64, False, 0, 0.0),
     ("gqa3_d32", 1, 40, 40, 6, 2, 32, True, 0, 0.0),
     ("mha_d128", 1, 70, 70, 4, 4, 128, True, 0, 0.0),
+    # more K/V tiles than ring stages, and a ragged last tile
+    ("causal_s1000", 1, 1000, 1000, 4, 2, 64, True, 0, 0.0),
+    ("offset_sq1", 2, 1, 300, 8, 2, 64, True, 0, 0.0),
 ]
 
 
@@ -95,6 +104,99 @@ def test_flash_kernel_matches_plain(dev, case, dtype):
     kw = dict(causal=causal, window=window, softcap=softcap)
     _close(flash_attention(q, k, v, qp, kp, **kw),
            flash_attention_plain(q, k, v, qp, kp, **kw), dtype)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_kernel_rows_at_different_offsets(dev, D):
+    """One batch whose rows hold q blocks at different offsets into their
+    keys (a prefix hit's tail beside a fresh prompt), in bf16 on the
+    tensor cores."""
+    B, Sq, Skv, H, Hkv = 3, 70, 330, 8, 2
+    gen = torch.Generator(device=dev).manual_seed(4)
+    q = _randn(gen, (B, Sq, H, D), torch.bfloat16, dev)
+    k = _randn(gen, (B, Skv, Hkv, D), torch.bfloat16, dev)
+    v = _randn(gen, (B, Skv, Hkv, D), torch.bfloat16, dev)
+    starts = torch.tensor([0, 130, Skv - Sq], dtype=torch.int32, device=dev)
+    qp = (starts[:, None] + torch.arange(Sq, dtype=torch.int32,
+                                         device=dev)).contiguous()
+    kp = _pos(B, 0, Skv, dev)
+    _close(flash_attention(q, k, v, qp, kp),
+           flash_attention_plain(q, k, v, qp, kp), torch.bfloat16)
+
+
+def test_flash_bf16_is_deterministic_and_routes_count(dev):
+    """bf16 gives equal bits over two launches; bf16 launches count on the
+    wgmma route and fp32 ones on the simt route, each in the kernel's
+    total as well."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q = _randn(gen, (2, 300, 8, 64), torch.bfloat16, dev)
+    k = _randn(gen, (2, 300, 2, 64), torch.bfloat16, dev)
+    pos = _pos(2, 0, 300, dev)
+    kernels.reset_launches()
+    fa_ops.reset_routes()
+    a = flash_attention(q, k, k, pos, pos, window=100, softcap=30.0)
+    b = flash_attention(q, k, k, pos, pos, window=100, softcap=30.0)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert fa_ops.ROUTE_LAUNCHES == {"wgmma": 2, "simt": 0}
+    flash_attention(q.float(), k.float(), k.float(), pos, pos)
+    assert fa_ops.ROUTE_LAUNCHES == {"wgmma": 2, "simt": 1}
+    assert kernels.launches()["flash_attention"] == 3
+
+
+def test_flash_bf16_rejects_a_misaligned_base(dev):
+    """TMA needs a 16-byte-aligned base: a contiguous bf16 view that
+    starts 2 bytes in raises and never falls back to the fp32 route."""
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def shifted(shape):         # contiguous, 2 bytes past an aligned base
+        flat = _randn(gen, (1 + shape.numel(),), torch.bfloat16, dev)
+        return flat[1:].view(shape)
+
+    q = _randn(gen, (1, 16, 4, 64), torch.bfloat16, dev)
+    k = _randn(gen, (1, 16, 2, 64), torch.bfloat16, dev)
+    q_off, k_off = shifted(q.shape), shifted(k.shape)
+    assert q_off.is_contiguous() and q_off.data_ptr() % 16 == 2
+    pos = _pos(1, 0, 16, dev)
+    fa_ops.reset_routes()
+    for args in ((q_off, k, k), (q, k_off, k), (q, k, k_off)):
+        with pytest.raises(ValueError, match="16-byte"):
+            flash_attention(*args, pos, pos)
+    assert fa_ops.ROUTE_LAUNCHES == {"wgmma": 0, "simt": 0}
+
+
+def test_flash_bf16_runs_at_its_key_limit(dev):
+    """At D = 128, the head dim with the fewest keys, the tensor-core
+    route launches at ``max_keys`` keys (the wrapper's limit agrees with
+    the kernel's shared memory) and matches its plain version; one key
+    more raises before any launch."""
+    D, n = 128, fa_ops.max_keys(128)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = _randn(gen, (1, 64, 1, D), torch.bfloat16, dev)
+    k = _randn(gen, (1, n + 1, 1, D), torch.bfloat16, dev)
+    v = _randn(gen, (1, n + 1, 1, D), torch.bfloat16, dev)
+    qp = _pos(1, n - 64, 64, dev)
+    kp = _pos(1, 0, n + 1, dev)
+    kw = dict(causal=False)
+    args = (q, k[:, :n], v[:, :n], qp, kp[:, :n].contiguous())
+    _close(flash_attention(*args, **kw),
+           flash_attention_plain(*args, **kw), torch.bfloat16)
+    with pytest.raises(ValueError, match=f"at most {n} keys"):
+        flash_attention(q, k, v, qp, kp, **kw)
+
+
+def test_flash_ab_against_itself(dev):
+    """The parent-versus-change timing tool, given this checkout as the
+    other one: both builds give equal bits at every timed shape, and
+    every time is a positive reading."""
+    from repro_torch.launch import flash_ab
+    rows = flash_ab.compare(Path(__file__).resolve().parents[1])
+    assert [r["shape"] for r in rows] == [
+        f"B{B} S{S} H{H}/{Hkv} D{D}" for B, S, H, Hkv, D in flash_ab.SHAPES]
+    for r in rows:
+        assert r["max_abs_diff"] == 0.0
+        assert len(r["this_ms"]) == len(r["other_ms"]) == 2
+        assert min(r["this_ms"] + r["other_ms"]) > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -20,6 +20,7 @@ from repro.kernels.paged_attention.ref import ref_paged_attention
 from repro.models import flash as jflash
 from repro.models import layers as jlayers
 from repro_torch import kernels
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
@@ -195,3 +196,72 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     for name in kernels.KERNELS:
         op, plain = kernels.get_kernel(name)
         assert callable(op) and callable(plain)
+
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt"),
+                                         (torch.float16, None)])
+def test_flash_route_follows_the_storage_type(dtype, route):
+    """The wrapper's route choice needs no card: bf16 goes to the
+    tensor-core kernel, fp32 to the CUDA-core one, and any other type has
+    no route (the wrapper raises rather than converting it)."""
+    if route is None:
+        with pytest.raises(TypeError):
+            fa_ops.route(dtype)
+    else:
+        assert fa_ops.route(dtype) == route
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_tma_alignment_check(dtype):
+    """The check the wrapper runs before a launch: a contiguous bf16 view
+    that starts 2 bytes past an aligned base cannot feed TMA and raises
+    ValueError naming the cause; fp32 (the CUDA-core route) takes any
+    base.  On the CPU the wrapper runs the plain version whatever the
+    base, and counts no launch on either route."""
+    r = np.random.default_rng(9)
+    B, S, H, Hkv, dh = 1, 16, 4, 2, 32
+    flat = torch.from_numpy(r.standard_normal(1 + B * S * H * dh)
+                            .astype(np.float32)).to(dtype)
+    q_off = flat[1:].view(B, S, H, dh)
+    assert q_off.is_contiguous() and q_off.data_ptr() % 16
+    q, k, v = _t(*_qkv(10, B, S, S, H, Hkv, dh))
+    k, v = k.to(dtype), v.to(dtype)
+    pos = torch.from_numpy(_pos(B, 0, S))
+    fa_ops._check(q.to(dtype), k, v, pos, pos)
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="16-byte"):
+            fa_ops._check(q_off, k, v, pos, pos)
+    else:
+        fa_ops._check(q_off, k, v, pos, pos)
+    fa_ops.reset_routes()
+    kernels.reset_launches()
+    got = flash_attention(q_off, k, v, pos, pos)
+    assert torch.equal(got, flash_attention_plain(q_off, k, v, pos, pos))
+    assert fa_ops.ROUTE_LAUNCHES == {"wgmma": 0, "simt": 0}
+    assert kernels.launches()["flash_attention"] == 0
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_bf16_key_limit_check(D):
+    """The tensor-core route's tile list lives in shared memory, so the
+    wrapper refuses a bf16 call with more keys than ``max_keys(D)`` with
+    a ValueError that names the limit, before any launch; at the limit,
+    and in fp32 (the CUDA-core route) past it, the check passes.  The
+    tensors are never written, so their pages are never touched."""
+    n = fa_ops.max_keys(D)
+    assert n % 64 == 0 and 1280 * D + 2188 + 12 * (n // 64) <= 227 * 1024
+    assert 1280 * D + 2188 + 12 * (n // 64 + 1) > 227 * 1024
+    q = torch.zeros((1, 1, 1, D), dtype=torch.bfloat16)
+    qp = torch.zeros((1, 1), dtype=torch.int32)
+    for Skv in (n, n + 1):
+        k = torch.empty((1, Skv, 1, D), dtype=torch.bfloat16)
+        kp = torch.empty((1, Skv), dtype=torch.int32)
+        if Skv > n:
+            with pytest.raises(ValueError, match=f"at most {n} keys"):
+                fa_ops._check(q, k, k, qp, kp)
+            k32 = torch.empty((1, Skv, 1, D), dtype=torch.float32)
+            fa_ops._check(q.float(), k32, k32, qp, kp)
+        else:
+            fa_ops._check(q, k, k, qp, kp)

@@ -35,7 +35,7 @@ from repro_torch.kernels.ssd_scan import ops as ss
 from repro_torch.kernels import build
 from repro_torch.core import forward
 from repro_torch.models import moe, ssm
-from repro_torch.launch import model_level, profile
+from repro_torch.launch import flash_ab, model_level, profile, timing
 from repro_torch.sampling import processors, sample
 print("imported", sorted(m for m, mod in sys.modules.items()
                          if mod is not None
