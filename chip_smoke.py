@@ -24,6 +24,17 @@ result):
    timed at four bf16 causal shapes (Llama-3.2-1B 4x512, 8x256 and one
    2048-token prompt, Qwen3-30B-A3B 8x256 at D = 128) and in fp32 at
    4x512.
+   Decode attention (``paged_attention``, each sequence and kv head split
+   across a cluster of 8 CTAs and merged in distributed shared memory;
+   bf16 products on ``mma.sync``, fp32 on the CUDA cores) is held to its
+   plain version at the four decode shapes it is timed at (Llama-3.2-1B
+   B8 over a 2048-token cache, Qwen3-30B-A3B B8 and its b_attn 4
+   sub-batch at D = 128, the B1 prefix-hit tail) and at the contract's
+   edges in both types (length 0 must give exact zeros, length 1, ranks
+   left empty, a full table and one past it, groups of 16, 4, 7 and 3);
+   every launch must land on the route of its type, two launches must
+   give equal bits in both types, and the fp32 route is timed at the
+   first shape.
    The fused sampling kernel (fp32, B=8, V=128256, and edge rows) must
    give exactly its plain version's tokens and top-K ids, its stats to
    rtol 1e-5 (float summation order), and equal bits over two launches;
@@ -46,7 +57,7 @@ result):
    top-5 logprobs, submitted twice: the streams must be identical), with
    every kernel's launch count read around each path alone: each path
    must launch its kernels, and the dense paths never ``moe_gemm``; every
-   flash launch of a path must be on the tensor-core route;
+   flash and paged launch of a path must be on its tensor-core route;
 5. reduced fp32 copies of Llama-3.2-1B and of Qwen3-30B-A3B (the MoE one
    with module granularity, b_attn 2 of 4 slots) served once on "cuda"
    (the kernels) and once on "cpu" (the plain versions), greedy and
@@ -61,7 +72,7 @@ result):
    streams required), then the greedy batch once more on a monolithic
    engine sharing the weights (how many streams agree is printed, not
    gated: bf16 sub-batched products may round differently); every flash
-   launch on the tensor-core route;
+   and paged launch on its tensor-core route;
 7. the SSM path: full-width Mamba2-370M in bf16 (random weights from a
    seed) at model level (``prefill``, then ``decode_page``s of 16 steps;
    ``NodeEngine`` serves no SSM, as the JAX engine does not): 8 prompts
@@ -131,23 +142,30 @@ def check_launches(path: str, used, expected) -> None:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count, and flash's counts by route, to 0."""
+    """Every kernel's launch count, and the attention kernels' counts by
+    route, to 0."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
     kernels.reset_launches()
     ops.reset_routes()
+    paged_ops.reset_routes()
 
 
-def check_flash_route(path: str, used) -> None:
-    """Every flash launch of a bf16 path took the tensor-core route."""
+def check_routes(path: str, used) -> None:
+    """Every attention launch of a bf16 path took the tensor-core route:
+    wgmma for flash, mma for paged."""
     from repro_torch.kernels.flash_attention import ops
-    routes = dict(ops.ROUTE_LAUNCHES)
-    if routes["simt"] or routes["wgmma"] != used["flash_attention"]:
-        raise AssertionError(f"{path}: flash launches by route {routes} of "
-                             f"{used['flash_attention']} (expected all on "
-                             f"wgmma)")
-    log(f"  {path}: {routes['wgmma']} flash launches, all on the wgmma "
-        f"route")
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    for name, mod, tc in (("flash_attention", ops, "wgmma"),
+                          ("paged_attention", paged_ops, "mma")):
+        routes = dict(mod.ROUTE_LAUNCHES)
+        if routes["simt"] or routes[tc] != used[name]:
+            raise AssertionError(f"{path}: {name} launches by route {routes} "
+                                 f"of {used[name]} (expected all on {tc})")
+    log(f"  {path}: {used['flash_attention']} flash launches, all on the "
+        f"wgmma route; {used['paged_attention']} paged launches, all on "
+        f"the mma route")
 
 
 # ---------------------------------------------------------------- timing
@@ -299,10 +317,14 @@ def check_flash(dev, timer):
 
 
 def check_paged(dev, timer):
+    from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention, paged_attention_plain)
+    from repro_torch.launch.flash_ab import PAGED_SHAPES, paged_label
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
+    ops.reset_routes()
+    calls = {"mma": 0, "simt": 0}
 
     def dense_view(B, S, Hkv, D, dtype):
         """The engine's slot cache of one layer as a page-16 pool view."""
@@ -314,80 +336,126 @@ def check_paged(dev, timer):
         return (kc.view(-1, page, Hkv, D), vc.view(-1, page, Hkv, D), table,
                 kc, vc)
 
+    def shuffled(B, H, Hkv, D, page, mp, dtype):
+        """A pool with 6 spare pages and a shuffled page table."""
+        pool = B * mp + 6
+        q = _rand(gen, (B, H, D), dtype, dev)
+        kp = _rand(gen, (pool, page, Hkv, D), dtype, dev)
+        vp = _rand(gen, (pool, page, Hkv, D), dtype, dev)
+        table = torch.randperm(pool, generator=gen, device=dev)[:B * mp] \
+            .reshape(B, mp).to(torch.int32)
+        return q, kp, vp, table
+
     def case(tag, dtype, q, kp, vp, table, lengths):
         got = paged_attention(q, kp, vp, table, lengths)
+        calls[ops.route(dtype)] += 1
         torch.cuda.synchronize()
         want = paged_attention_plain(q, kp, vp, table, lengths)
+        for r in (lengths <= 0).nonzero().flatten().tolist():
+            if got[r].any() or not torch.equal(got[r], want[r]):
+                raise AssertionError(f"paged_attention {tag}: the length-0 "
+                                     f"row {r} is not exact zeros")
         return _check(f"paged_attention {tag} {str(dtype)[6:]}", got, want,
                       dtype)
 
-    # the serving path's decode shape: 8 slots of a 2048-token cache,
-    # mixed lengths averaging 1024
-    lens = [256, 512, 768, 1024, 1024, 1280, 1536, 1792]
-    main = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        B, S, H, Hkv, D = 8, 2048, 32, 8, 64
-        q = _rand(gen, (B, H, D), dtype, dev)
-        kp, vp, table, kc, vc = dense_view(B, S, Hkv, D, dtype)
+    # the four timed decode shapes (Llama-3.2-1B, Qwen3-30B-A3B monolithic
+    # and at b_attn 4, the prefix-hit tail), in bf16; the first in fp32
+    timed = {}
+    for B, S, H, Hkv, D, lens in PAGED_SHAPES:
+        label = paged_label(B, S, H, Hkv, D, lens)
+        q = _rand(gen, (B, H, D), torch.bfloat16, dev)
+        kp, vp, table, kc, vc = dense_view(B, S, Hkv, D, torch.bfloat16)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        err = case("B8 max_len2048 mixed lengths", dtype, q, kp, vp, table,
-                   lengths)
-        main[dtype] = (err, q, kp, vp, table, lengths, kc, vc)
-    # a shuffled page table, qwen2's group of 7
-    B, H, Hkv, D, page, mp = 3, 14, 2, 64, 16, 8
-    pool = B * mp + 6
+        err = case(label, torch.bfloat16, q, kp, vp, table, lengths)
+        timed[label] = (err, (q, kp, vp, table, lengths), kc, vc)
+    B, S, H, Hkv, D, lens = PAGED_SHAPES[0]
     q = _rand(gen, (B, H, D), torch.float32, dev)
-    kp = _rand(gen, (pool, page, Hkv, D), torch.float32, dev)
-    vp = _rand(gen, (pool, page, Hkv, D), torch.float32, dev)
-    table = torch.randperm(pool, generator=gen, device=dev)[:B * mp] \
-        .reshape(B, mp).to(torch.int32)
-    case("shuffled table G7", torch.float32, q, kp, vp, table,
-         torch.tensor([5, 128, 77], dtype=torch.int32, device=dev))
-    # phase 4's prefix-hit tail: batch 1, a dense cache of pow2 length 512
-    q = _rand(gen, (1, 32, 64), torch.bfloat16, dev)
-    kp, vp, table, _, _ = dense_view(1, 512, 8, 64, torch.bfloat16)
-    case("tail B1 S512", torch.bfloat16, q, kp, vp, table,
-         torch.tensor([261], dtype=torch.int32, device=dev))
-    # the shortest tail cache: batch 1, pow2 length 8, G3 D32
-    q = _rand(gen, (1, 6, 32), torch.float32, dev)
-    kp, vp, table, _, _ = dense_view(1, 8, 2, 32, torch.float32)
-    case("tail B1 S8 G3 D32", torch.float32, q, kp, vp, table,
-         torch.tensor([5], dtype=torch.int32, device=dev))
-    # finished slots sit one past the cache
-    q = _rand(gen, (2, 8, 128), torch.float32, dev)
-    kp, vp, table, _, _ = dense_view(2, 64, 2, 128, torch.float32)
-    case("length past cache D128", torch.float32, q, kp, vp, table,
-         torch.tensor([65, 3], dtype=torch.int32, device=dev))
+    kp, vp, table, _, _ = dense_view(B, S, Hkv, D, torch.float32)
+    main32 = (q, kp, vp, table, torch.tensor(lens, dtype=torch.int32,
+                                             device=dev))
+    case(paged_label(*PAGED_SHAPES[0]), torch.float32, *main32)
+    # the contract's edges in both types, on shuffled tables of 40 pages
+    # (10 tiles: ranks of one and two tiles): a free slot (length 0, exact
+    # zeros), length 1, a length shorter than one rank's share (ranks left
+    # empty), the full table and one past it; groups of 16 (D128), 4 (D64)
+    # and qwen2's 7; then the shortest tail cache (B1 S8 G3 D32) and
+    # finished slots one past a dense cache
+    edge = [0, 1, 40, 640, 641, 333]
+    for dtype in (torch.bfloat16, torch.float32):
+        for H, Hkv, D in ((32, 2, 128), (32, 8, 64), (14, 2, 64)):
+            args = shuffled(len(edge), H, Hkv, D, 16, 40, dtype)
+            case(f"edges G{H // Hkv} D{D}", dtype, *args,
+                 torch.tensor(edge, dtype=torch.int32, device=dev))
+        q = _rand(gen, (1, 6, 32), dtype, dev)
+        kp, vp, table, _, _ = dense_view(1, 8, 2, 32, dtype)
+        case("tail B1 S8 G3 D32", dtype, q, kp, vp, table,
+             torch.tensor([5], dtype=torch.int32, device=dev))
+        q = _rand(gen, (2, 8, 128), dtype, dev)
+        kp, vp, table, _, _ = dense_view(2, 64, 2, 128, dtype)
+        case("length past cache D128", dtype, q, kp, vp, table,
+             torch.tensor([65, 3], dtype=torch.int32, device=dev))
+    if ops.ROUTE_LAUNCHES != calls:
+        raise AssertionError(f"paged_attention launches by route "
+                             f"{ops.ROUTE_LAUNCHES}, expected {calls}")
+    log(f"  paged_attention launches by route: {calls} (bf16 -> mma, "
+        f"fp32 -> simt)")
+    for tag, args in (("bf16", timed[paged_label(*PAGED_SHAPES[0])][1]),
+                      ("fp32", main32)):
+        again = [paged_attention(*args) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not torch.equal(again[0], again[1]):
+            raise AssertionError(f"paged_attention {tag}: two launches gave "
+                                 f"other bits")
+        log(f"  paged_attention {tag} {paged_label(*PAGED_SHAPES[0])}: two "
+            f"launches, equal bits")
 
-    err, q, kp, vp, table, lengths, kc, vc = main[torch.bfloat16]
-    B, H, D = q.shape
-    Hkv = kp.shape[2]
-    tokens = int(lengths.sum().item())
-    nbytes = (2 * tokens * Hkv * D + 2 * q.numel()) * q.element_size() \
-        + (lengths.numel() + table.numel()) * 4
-    flops = 4.0 * D * H * tokens
-    bound_ms = max(nbytes / PEAK_BYTES, flops / PEAK_FLOPS[q.dtype]) * 1e3
-    ms = timer(lambda: paged_attention(q, kp, vp, table, lengths))
-    plain_ms = timer(lambda: paged_attention_plain(q, kp, vp, table,
-                                                   lengths), iters=5)
-    mask = (torch.arange(kc.shape[1], device=dev)[None, :]
-            < lengths[:, None])[:, None, None, :]
-    library_ms = timer(_sdpa(q[:, :, None], kc.transpose(1, 2),
-                             vc.transpose(1, 2), attn_mask=mask))
-    e32 = main[torch.float32]
-    ms32 = timer(lambda: paged_attention(*e32[1:6]))
-    log(f"  paged_attention bf16 B{B} max_len{kc.shape[1]} H{H}/{Hkv} D{D} "
-        f"(sum of lengths {tokens}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms} ms, bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.2f} MB); fp32 kernel {ms32:.4f} ms")
+    def bound(q, kp, table, lengths):
+        """(bound ms, bound_by, MB): the cached K/V rows of the valid
+        positions, the page-table entries they use, q, the lengths and the
+        output, each once, at the card's memory rate, against the QK and
+        PV products at its peak for the storage type."""
+        page, Hkv, D = kp.shape[1:]
+        tokens = int(lengths.clamp(0, table.shape[1] * page).sum().item())
+        pages = int(((lengths.clamp(0, table.shape[1] * page) + page - 1)
+                     // page).sum().item())
+        nbytes = (2 * tokens * Hkv * D + 2 * q.numel()) * q.element_size() \
+            + (lengths.numel() + pages) * 4
+        flops = 4.0 * D * q.shape[1] * tokens
+        t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops > t_bytes else "bytes", nbytes / 1e6)
+
+    rows = {}
+    for label, (e, args, kc, vc) in timed.items():
+        q, kp, vp, table, lengths = args
+        bound_ms, bound_by, mb = bound(q, kp, table, lengths)
+        ms = timer(lambda: paged_attention(*args))
+        plain_ms = timer(lambda: paged_attention_plain(*args), iters=5)
+        mask = (torch.arange(kc.shape[1], device=dev)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        sdpa = _sdpa(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
+                     attn_mask=mask)
+        library_ms = timer(sdpa)
+        host_us = timer.host_us(lambda: paged_attention(*args))
+        library_host_us = timer.host_us(sdpa)
+        rows[label] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           library_ms=library_ms, host_us=host_us,
+                           library_host_us=library_host_us)
+        log(f"  paged_attention bf16 {label}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}; {mb:.2f} MB); host "
+            f"{host_us:.1f} us a call, sdpa's {library_host_us:.1f} us")
+    first = paged_label(*PAGED_SHAPES[0])
+    ms32 = timer(lambda: paged_attention(*main32))
+    rows[first]["fp32_ms"] = ms32
+    log(f"  paged_attention fp32 {first}: kernel {ms32:.4f} ms (CUDA cores)")
+    print(json.dumps({"paged_attention_shapes": rows}), flush=True)
     return dict(name="paged_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_attention.cu",
-                replaces=REPLACES["paged_attention"], max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by="operations" if flops / PEAK_FLOPS[q.dtype]
-                > nbytes / PEAK_BYTES else "bytes",
-                library_ms=library_ms, shape=f"B{B} max_len{kc.shape[1]} "
-                f"H{H}/{Hkv} D{D} sum(len)={tokens} bf16")
+                replaces=REPLACES["paged_attention"],
+                shape=f"{first} bf16", **{k: v for k, v in rows[first].items()
+                                           if k != "fp32_ms"})
 
 
 def check_fused_sampling(dev, timer):
@@ -794,7 +862,7 @@ def serve_main_path(dev):
     if saved <= 0:
         raise AssertionError("the resubmitted prefix was not reused")
     check_launches("the greedy path", launches, DENSE_GREEDY)
-    check_flash_route("the greedy path", launches)
+    check_routes("the greedy path", launches)
     # the model's logits on a short prompt: finite, of the padded vocab
     logits, _ = T.prefill(cfg, eng.params, torch.tensor(
         [first[0].prompt], dtype=torch.int32, device=dev))
@@ -876,7 +944,7 @@ def serve_sampled_path(dev, eng, master, prompt):
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
         launch.append(kernels.launches())
-        check_flash_route("the sampled path", launch[-1])
+        check_routes("the sampled path", launch[-1])
         clock.restore()
         clocks.append(clock)
     check_launches("the sampled path", launch[0], DENSE_SAMPLED)
@@ -1073,7 +1141,7 @@ def serve_moe_path(dev):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         used = kernels.launches()
-        check_flash_route(tag, used)
+        check_routes(tag, used)
         clock.restore()
         if bo.request_counts["completed"] != len(reqs) or \
                 bo.request_counts["failed"]:
@@ -1262,7 +1330,8 @@ def main() -> int:
         f"(per kernel {secs})")
     for name in secs:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or \
+                    "Compiling entry" in line:
                 log(f"  {name}: {line.strip()}")
 
     log("== 3. kernels against their plain versions")

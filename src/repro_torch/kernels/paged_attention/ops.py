@@ -3,7 +3,13 @@
 
 ``paged_attention`` runs the plain version for tensors on the CPU.  For
 CUDA tensors it checks them, launches the kernel on the current stream,
-raises if the launch failed and counts the launch.
+raises if the launch failed and counts the launch.  The kernel splits each
+(sequence, kv head) across a cluster of 8 CTAs and merges their partial
+softmax states in distributed shared memory.  Its products have two
+routes, chosen by the storage type: bf16 on the tensor cores
+(``mma.sync``), fp32 on the CUDA cores; each launch is counted in
+``kernels.LAUNCHES`` and, by route, in ``ROUTE_LAUNCHES``.  A row of length
+0 (a free slot) gives zeros, as the TPU kernel does.
 """
 from __future__ import annotations
 
@@ -20,12 +26,31 @@ NEG = -1e30
 MAX_GROUP = 16          # most query heads per kv head the kernel serves
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+_ROUTES = {torch.float32: "simt", torch.bfloat16: "mma"}
 _LIB = None
+
+# launches by route since the last reset_routes()
+ROUTE_LAUNCHES = {"mma": 0, "simt": 0}
+
+
+def route(dtype) -> str:
+    """The product route of a storage type: "mma" (bf16, tensor cores) or
+    "simt" (fp32, CUDA cores)."""
+    if dtype not in _ROUTES:
+        raise TypeError(f"{NAME}: no route for {dtype}")
+    return _ROUTES[dtype]
+
+
+def reset_routes() -> None:
+    for key in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[key] = 0
 
 
 def paged_attention_plain(q, k_pool, v_pool, page_table, lengths):
     """Gather each sequence's pages through the table, then a masked
-    softmax over its first ``lengths`` positions (fp32 statistics)."""
+    softmax over its first ``lengths`` positions (fp32 statistics).  A row
+    with ``lengths <= 0`` attends to nothing and gives zeros, as
+    ``paged_attention_tpu`` does."""
     B, H, dh = q.shape
     _, page, Hkv, _ = k_pool.shape
     max_pages = page_table.shape[1]
@@ -43,18 +68,24 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lengths):
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgs,bshd->bhgd", p / torch.clamp_min(l, 1e-30), v)
+    out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
     return out.reshape(B, H, -1).to(q.dtype)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry point ``repro_paged_attention_fwd`` of a
+    loaded library."""
+    fn = lib.repro_paged_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    return lib
 
 
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = build.load(NAME)
-        fn = lib.repro_paged_attention_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        _LIB = lib
+        _LIB = bind(build.load(NAME))
     return _LIB
 
 
@@ -89,6 +120,12 @@ def _check(q, k_pool, v_pool, page_table, lengths):
             lengths.shape != (B,):
         raise ValueError(f"{NAME}: page_table {tuple(page_table.shape)}, "
                          f"lengths {tuple(lengths.shape)} vs batch {B}")
+    # K/V rows arrive by 16-byte cp.async (their strides, D * 2 bytes and
+    # up, are multiples of 16 at every head dim)
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{NAME}: {name} must start on a 16-byte "
+                             f"boundary, its address is {t.data_ptr():#x}")
 
 
 def paged_attention(q, k_pool, v_pool, page_table, lengths):
@@ -99,10 +136,18 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     _check(q, k_pool, v_pool, page_table, lengths)
+    out = launch(_lib(), q, k_pool, v_pool, page_table, lengths)
+    kernels.LAUNCHES[NAME] += 1
+    ROUTE_LAUNCHES[route(q.dtype)] += 1
+    return out
+
+
+def launch(lib, q, k_pool, v_pool, page_table, lengths):
+    """One launch of ``repro_paged_attention_fwd`` from ``lib`` on checked
+    CUDA tensors; raises if the launch failed.  Counts nothing."""
     B, H, D = q.shape
     _, page, Hkv, _ = k_pool.shape
     out = torch.empty_like(q)
-    lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_paged_attention_fwd(
@@ -112,5 +157,4 @@ def paged_attention(q, k_pool, v_pool, page_table, lengths):
             _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
-    kernels.LAUNCHES[NAME] += 1
     return out

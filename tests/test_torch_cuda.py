@@ -10,7 +10,12 @@ The first test builds the kernels from ``src/repro_torch/csrc`` with
 (``wgmma``, K/V by TMA) and fp32 on the CUDA cores; every flash case runs
 in both types, and the bf16 route is also held to equal bits over two
 launches, to its per-route launch count and to its refusal of a base
-TMA cannot read.  Tolerances: fp32 atol/rtol 1e-4 (summation order), bf16
+TMA cannot read.  Decode attention splits each (sequence, kv head) across
+a cluster of 8 CTAs, bf16 products on ``mma.sync`` and fp32 on the CUDA
+cores: it is held to its plain version on shuffled tables at edge lengths
+(0 gives exact zeros) and at the four timed decode shapes, to equal bits
+over two launches in both types, to its per-route launch count and to its
+refusal of a pool ``cp.async`` cannot read.  Tolerances: fp32 atol/rtol 1e-4 (summation order), bf16
 atol/rtol 2e-2 (one bf16 rounding of the output).  fp32 products run in
 full fp32 (TF32 off), so the reduced engine's greedy tokens on the card
 equal those of its plain CPU path.  The fused sampling kernel's tokens and
@@ -22,6 +27,7 @@ The SSD state scan gives its plain version's bits (``torch.equal``: it
 rounds the product and the sum separately, as ``h * d + s`` does).
 """
 import dataclasses
+import math
 from pathlib import Path
 
 import pytest
@@ -37,10 +43,12 @@ from repro_torch.kernels.fused_sampling.ops import (fused_sample,
                                                     fused_sample_plain)
 from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
                                               grouped_gemm_plain, moe_ffn)
+from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
 from repro_torch.kernels.ssd_scan.ops import (ssd_state_scan,
                                               ssd_state_scan_plain)
+from repro_torch.launch.flash_ab import LENGTHS, PAGED_SHAPES, paged_label
 from repro_torch.launch.model_level import generate
 from repro_torch.models import transformer as TT
 from repro_torch.runtime.api import BatchMaster, BatchRequest
@@ -199,14 +207,30 @@ def test_flash_ab_against_itself(dev):
         assert min(r["this_ms"] + r["other_ms"]) > 0
 
 
+def test_paged_ab_against_itself(dev):
+    """The same tool for the decode kernel (``--kernel paged_attention``):
+    equal bits and positive readings at its four shapes."""
+    from repro_torch.launch import flash_ab
+    rows = flash_ab.compare(Path(__file__).resolve().parents[1],
+                            kernel="paged_attention")
+    assert [r["shape"] for r in rows] == [
+        paged_label(*s) for s in flash_ab.PAGED_SHAPES]
+    for r in rows:
+        assert r["max_abs_diff"] == 0.0
+        assert len(r["this_ms"]) == len(r["other_ms"]) == 2
+        assert min(r["this_ms"] + r["other_ms"]) > 0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("H,Hkv,D", [(8, 2, 64), (14, 2, 64), (6, 2, 32),
-                                     (4, 4, 128)])
+                                     (4, 4, 128), (32, 2, 128)])
 def test_paged_kernel_matches_plain(dev, H, Hkv, D, dtype):
     """A shuffled page table with spare pages, and lengths inside a page,
-    across pages, at the table's end and past it (clamped)."""
-    B, page, max_pages = 4, 16, 9
+    across pages, at the table's end and past it (clamped), 0 (a free
+    slot: exact zeros), 1, and shorter than one rank's share of the
+    cluster's split; groups of 4, 7, 3, 1 and 16 q heads per kv head."""
+    B, page, max_pages = 8, 16, 40
     gen = torch.Generator(device=dev).manual_seed(1)
     pool = B * max_pages + 5
     q = _randn(gen, (B, H, D), dtype, dev)
@@ -214,10 +238,77 @@ def test_paged_kernel_matches_plain(dev, H, Hkv, D, dtype):
     vp = _randn(gen, (pool, page, Hkv, D), dtype, dev)
     table = torch.randperm(pool, generator=gen, device=dev)[:B * max_pages] \
         .reshape(B, max_pages).to(torch.int32)
-    lengths = torch.tensor([3, 70, page * max_pages, page * max_pages + 1],
+    full = page * max_pages
+    lengths = torch.tensor([3, 70, full, full + 1, 0, 1, 100, 333],
                            dtype=torch.int32, device=dev)
+    got = paged_attention(q, kp, vp, table, lengths)
+    _close(got, paged_attention_plain(q, kp, vp, table, lengths), dtype)
+    assert torch.equal(got[4], torch.zeros_like(got[4]))
+
+
+def _paged_dense(gen, B, S, H, Hkv, D, dtype, dev):
+    """q and one layer's slot cache as the serving path passes them: a
+    page-16 pool view with the identity table."""
+    page = math.gcd(S, 16)
+    q = _randn(gen, (B, H, D), dtype, dev)
+    kp = _randn(gen, (B * S // page, page, Hkv, D), dtype, dev)
+    vp = _randn(gen, (B * S // page, page, Hkv, D), dtype, dev)
+    table = torch.arange(B * S // page, dtype=torch.int32,
+                         device=dev).reshape(B, S // page)
+    return q, kp, vp, table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", PAGED_SHAPES,
+                         ids=[paged_label(*s) for s in PAGED_SHAPES])
+def test_paged_kernel_matches_plain_at_timed_shapes(dev, shape, dtype):
+    """The four decode shapes ``chip_smoke.py`` times (Llama-3.2-1B and
+    Qwen3-30B-A3B decode, Qwen3's b_attn = 4 sub-batch, the prefix-hit
+    tail), at full size."""
+    B, S, H, Hkv, D, lens = shape
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q, kp, vp, table = _paged_dense(gen, B, S, H, Hkv, D, dtype, dev)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     _close(paged_attention(q, kp, vp, table, lengths),
            paged_attention_plain(q, kp, vp, table, lengths), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_paged_is_deterministic_and_routes_count(dev, dtype):
+    """Two launches give equal bits (the cluster merges in rank order, with
+    no atomics); bf16 launches count on the mma route, fp32 ones on the
+    simt route, each in the kernel's total as well."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q, kp, vp, table = _paged_dense(gen, 8, 2048, 32, 8, 64, dtype, dev)
+    lengths = torch.tensor(LENGTHS, dtype=torch.int32, device=dev)
+    kernels.reset_launches()
+    pa_ops.reset_routes()
+    a = paged_attention(q, kp, vp, table, lengths)
+    b = paged_attention(q, kp, vp, table, lengths)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert pa_ops.ROUTE_LAUNCHES == {"mma": 2 * (dtype == torch.bfloat16),
+                                     "simt": 2 * (dtype == torch.float32)}
+    assert kernels.launches()["paged_attention"] == 2
+
+
+def test_paged_rejects_a_misaligned_pool(dev):
+    """K/V rows arrive by 16-byte cp.async: a contiguous pool view that
+    starts 2 bytes in raises before any launch."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q, kp, vp, table = _paged_dense(gen, 1, 32, 4, 2, 64, torch.bfloat16,
+                                    dev)
+    flat = _randn(gen, (1 + kp.numel(),), torch.bfloat16, dev)
+    shifted = flat[1:].view(kp.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 2
+    lengths = torch.tensor([20], dtype=torch.int32, device=dev)
+    pa_ops.reset_routes()
+    for args in ((shifted, vp), (kp, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            paged_attention(q, *args, table, lengths)
+    assert pa_ops.ROUTE_LAUNCHES == {"mma": 0, "simt": 0}
 
 
 def _sampling_rows(gen, B, V, dev, k=None, p=None, min_p=None):
