@@ -43,9 +43,18 @@ result):
    is held to its plain version in bf16 and fp32 at Qwen3-30B-A3B's
    decode and 8x256-prefill shapes (w1 and w2), as the dispatch lays them
    out, and at edge cases (an expert with no rows, unused trailing
-   blocks, ragged D and F, E=4 F=64); its yardsticks are one
-   ``torch.bmm`` over the reference's (E, C, D) capacity buffer and,
-   where the card's torch has it, ``torch._grouped_mm``.  The SSD state
+   blocks, ragged D and F, E=4 F=64); its bf16 prefill shapes run on the
+   ``wgmma`` route (block_t 128), decode on ``mma``, fp32 on ``simt``,
+   and the wgmma route is also held at its edges (D = 72, not a multiple
+   of its 64-deep k-tile; 16 k-tiles, more than its ring's stages; an
+   expert with three consecutive blocks and one with none; block_t 64
+   and 256; F = 64 at block_t 128; a ragged column tile), unused blocks
+   must give exact zeros, every launch must land on the route
+   ``ops.route`` names, and two prefill launches must give equal bits.
+   It is timed at decode and at both prefill shapes (with the wrapper's
+   host µs a call); its yardsticks are one ``torch.bmm`` over the
+   reference's (E, C, D) capacity buffer and, where the card's torch has
+   it, ``torch._grouped_mm``.  The SSD state
    scan (``ssd_scan``) must give its plain version's bits (``torch.equal``)
    at Mamba2-370M's 8x256 and 32768-token prefill shapes, the JAX test's
    shapes, one chunk, a ragged N*P and an unaligned view; no PyTorch
@@ -61,7 +70,8 @@ result):
 5. reduced fp32 copies of Llama-3.2-1B and of Qwen3-30B-A3B (the MoE one
    with module granularity, b_attn 2 of 4 slots) served once on "cuda"
    (the kernels) and once on "cpu" (the plain versions), greedy and
-   sampled requests: the tokens of one page must be identical; reduced
+   sampled requests: the tokens of one page must be identical, and every
+   fp32 ``moe_gemm`` launch must be on the ``simt`` route; reduced
    fp32 Mamba2-370M at model level the same way (identical greedy and
    sampled tokens, the prefill state to atol/rtol 1e-4);
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
@@ -72,7 +82,9 @@ result):
    streams required), then the greedy batch once more on a monolithic
    engine sharing the weights (how many streams agree is printed, not
    gated: bf16 sub-batched products may round differently); every flash
-   and paged launch on its tensor-core route;
+   and paged launch on its tensor-core route, and every ``moe_gemm``
+   launch at block_t >= 64 (the greedy 8x256 prefill batch) on ``wgmma``,
+   every other one (decode's block_t 16) on ``mma``, none on ``simt``;
 7. the SSM path: full-width Mamba2-370M in bf16 (random weights from a
    seed) at model level (``prefill``, then ``decode_page``s of 16 steps;
    ``NodeEngine`` serves no SSM, as the JAX engine does not): 8 prompts
@@ -142,30 +154,72 @@ def check_launches(path: str, used, expected) -> None:
 
 
 def reset_counts() -> None:
-    """Every kernel's launch count, and the attention kernels' counts by
-    route, to 0."""
+    """Every kernel's launch count, and the counts by route of the kernels
+    that have routes, to 0."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
     kernels.reset_launches()
     ops.reset_routes()
     paged_ops.reset_routes()
+    moe_ops.reset_routes()
 
 
 def check_routes(path: str, used) -> None:
-    """Every attention launch of a bf16 path took the tensor-core route:
-    wgmma for flash, mma for paged."""
+    """Every attention launch of a bf16 path took the tensor-core route
+    (wgmma for flash, mma for paged), and every grouped-GEMM launch a
+    tensor-core one (wgmma or mma), none the fp32 simt route."""
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
-    for name, mod, tc in (("flash_attention", ops, "wgmma"),
-                          ("paged_attention", paged_ops, "mma")):
+    for name, mod, tc in (("flash_attention", ops, ("wgmma",)),
+                          ("paged_attention", paged_ops, ("mma",)),
+                          ("moe_gemm", moe_ops, ("wgmma", "mma"))):
         routes = dict(mod.ROUTE_LAUNCHES)
-        if routes["simt"] or routes[tc] != used[name]:
+        if routes["simt"] or sum(routes[r] for r in tc) != used[name]:
             raise AssertionError(f"{path}: {name} launches by route {routes} "
                                  f"of {used[name]} (expected all on {tc})")
     log(f"  {path}: {used['flash_attention']} flash launches, all on the "
         f"wgmma route; {used['paged_attention']} paged launches, all on "
-        f"the mma route")
+        f"the mma route; moe_gemm by route {dict(moe_ops.ROUTE_LAUNCHES)}")
+
+
+class _GemmRoutes:
+    """Records the block_t and the route of every grouped-GEMM launch while
+    a path runs (``grouped_ffn`` calls ``ops.grouped_gemm``, wrapped here
+    until ``restore``)."""
+
+    def __init__(self):
+        from repro_torch.kernels.moe_gemm import ops
+        self.ops, self.orig, self.seen = ops, ops.grouped_gemm, []
+
+        def record(x, w, block_expert, *, block_t=128):
+            before = dict(ops.ROUTE_LAUNCHES)
+            out = self.orig(x, w, block_expert, block_t=block_t)
+            taken = [r for r, n in ops.ROUTE_LAUNCHES.items()
+                     if n != before[r]]
+            self.seen.append((block_t, taken))
+            return out
+        ops.grouped_gemm = record
+
+    def restore(self):
+        self.ops.grouped_gemm = self.orig
+
+    def check(self, path: str, prefill: bool) -> None:
+        """Every launch at block_t >= 64 (a prefill batch's) took wgmma and
+        every other one (decode's block_t 16) mma; ``prefill``: the path
+        had at least one launch at block_t >= 64."""
+        bad = [(bt, r) for bt, r in self.seen
+               if r != ["wgmma" if bt >= 64 else "mma"]]
+        wide = sum(bt >= 64 for bt, _ in self.seen)
+        if bad or (prefill and not wide):
+            raise AssertionError(f"{path}: grouped-GEMM launches (block_t, "
+                                 f"route) off the rule: {bad[:5]}; "
+                                 f"{wide} of {len(self.seen)} at "
+                                 f"block_t >= 64")
+        log(f"  {path}: {wide} grouped-GEMM launches at block_t >= 64, all "
+            f"on wgmma; {len(self.seen) - wide} at block_t < 64, all on mma")
 
 
 # ---------------------------------------------------------------- timing
@@ -601,23 +655,48 @@ def _gemm_bound(plan, xs, w, n_choices):
 
 def check_moe_gemm(dev, timer):
     from repro_torch.configs import get_config
+    from repro_torch.kernels.moe_gemm import ops
     from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
                                                   grouped_gemm_plain)
     from repro_torch.models.moe import expert_capacity
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
+    ops.reset_routes()
+    calls = {"wgmma": 0, "mma": 0, "simt": 0}
 
-    def case(tag, dtype, xs, plan, w):
-        bt = plan.block_t
-        got = grouped_gemm(xs, w, plan.block_expert, block_t=bt)
+    def case(tag, dtype, xs, w, be, bt):
+        got = grouped_gemm(xs, w, be, block_t=bt)
+        r = ops.route(dtype, bt, xs.shape[1], w.shape[2],
+                      xs.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+        calls[r] += 1
         torch.cuda.synchronize()
-        want = grouped_gemm_plain(xs, w, plan.block_expert, block_t=bt)
-        return _check(f"moe_gemm {tag} {str(dtype)[6:]}", got, want, dtype)
+        want = grouped_gemm_plain(xs, w, be, block_t=bt)
+        err = _check(f"moe_gemm {tag} {str(dtype)[6:]} ({r})", got, want,
+                     dtype)
+        unused = (be < 0).repeat_interleave(bt)
+        if got[unused].any():
+            raise AssertionError(f"moe_gemm {tag}: unused blocks' rows are "
+                                 f"not exact zeros")
+        return err
+
+    def planned(tag, dtype, xs, plan, w):
+        return case(tag, dtype, xs, w, plan.block_expert, plan.block_t)
+
+    def explicit(tag, experts, n_blocks, bt, E, D, Fo):
+        """bf16 blocks of ``experts`` in order, then unused ones; x random
+        in every row, unused ones included."""
+        be = torch.full((n_blocks,), -1, dtype=torch.int32, device=dev)
+        be[:len(experts)] = torch.tensor(experts, dtype=torch.int32,
+                                         device=dev)
+        xs = _rand(gen, (n_blocks * bt, D), torch.bfloat16, dev)
+        w = (0.1 * torch.randn((E, D, Fo), generator=gen, device=dev)) \
+            .bfloat16()
+        return case(tag, torch.bfloat16, xs, w, be, bt)
 
     # Qwen3-30B-A3B: E=128, top-8, D=2048, expert F=768; a decode step of
     # 8 slots and the 8 x 256 prefill batch
     E, k, D, Fe = 128, 8, 2048, 768
-    main = {}
+    main, prefill_w2 = {}, None
     for dtype in (torch.bfloat16, torch.float32):
         w1 = (0.02 * torch.randn((E, D, Fe), generator=gen, device=dev)) \
             .to(dtype)
@@ -626,69 +705,106 @@ def check_moe_gemm(dev, timer):
         for T, name in ((8, "decode B8"), (2048, "prefill 8x256")):
             plan, rows_of = _routed(gen, dev, T, E, k)
             xs = rows_of(_rand(gen, (T, D), dtype, dev))
-            err1 = case(f"{name} w1 bt{plan.block_t} rows{xs.shape[0]}",
-                        dtype, xs, plan, w1)
-            case(f"{name} w2 (F->D)", dtype,
-                 rows_of(_rand(gen, (T, Fe), dtype, dev)), plan, w2)
+            err1 = planned(f"{name} w1 bt{plan.block_t} rows{xs.shape[0]}",
+                           dtype, xs, plan, w1)
+            xs2 = rows_of(_rand(gen, (T, Fe), dtype, dev))
+            err2 = planned(f"{name} w2 (F->D)", dtype, xs2, plan, w2)
             main[(dtype, T)] = (err1, xs, plan, w1)
-        del w1, w2
+            if dtype == torch.bfloat16 and T == 2048:
+                prefill_w2 = (err2, xs2, plan, w2)
     # an expert with no rows (3 and 7 never chosen), ragged D and F
     for dtype in (torch.bfloat16, torch.float32):
         w = _rand(gen, (8, 72, 100), dtype, dev)
         plan, rows_of = _routed(gen, dev, 24, 8, 2,
                                 experts=(0, 1, 2, 4, 5, 6))
-        case("E8 two empty experts D72 F100", dtype,
-             rows_of(_rand(gen, (24, 72), dtype, dev)), plan, w)
+        planned("E8 two empty experts D72 F100", dtype,
+                rows_of(_rand(gen, (24, 72), dtype, dev)), plan, w)
         # the reduced models' experts: E=4, D=128, F=64, top-2
         w = _rand(gen, (4, 128, 64), dtype, dev)
         plan, rows_of = _routed(gen, dev, 64, 4, 2)
-        case("reduced E4 D128 F64", dtype,
-             rows_of(_rand(gen, (64, 128), dtype, dev)), plan, w)
+        planned("reduced E4 D128 F64", dtype,
+                rows_of(_rand(gen, (64, 128), dtype, dev)), plan, w)
+    # the wgmma route's edges: D not a multiple of its 64-deep k-tile, an
+    # expert with three consecutive blocks and one with none, unused
+    # trailing blocks (exact zeros), block_t 64, F = 64 at block_t 128
+    # (the second 64-column box wholly past F), more k-tiles than ring
+    # stages, block_t 256 with a ragged column tile
+    explicit("bt64 D72 F96 (ragged k-tile), expert 0 x3, expert 2 none",
+             [1, 0, 0, 0], 6, 64, 3, 72, 96)
+    explicit("bt128 D128 F64", [0, 1, 1], 5, 128, 4, 128, 64)
+    explicit("bt64 D1024 F256 (16 k-tiles)", [2, 2, 2, 0], 6, 64, 4, 1024,
+             256)
+    explicit("bt256 D512 F200 (ragged column tile)", [3, 1], 3, 256, 4,
+             512, 200)
+    if ops.ROUTE_LAUNCHES != calls:
+        raise AssertionError(f"moe_gemm launches by route "
+                             f"{ops.ROUTE_LAUNCHES}, expected {calls}")
+    log(f"  moe_gemm launches by route: {calls} (each on ops.route's "
+        f"choice)")
+
+    _, xs, plan, w1 = main[(torch.bfloat16, 2048)]
+    again = [grouped_gemm(xs, w1, plan.block_expert, block_t=plan.block_t)
+             for _ in range(2)]
+    torch.cuda.synchronize()
+    if not torch.equal(again[0], again[1]):
+        raise AssertionError("moe_gemm bf16 prefill w1: two launches gave "
+                             "other bits")
+    log("  moe_gemm bf16 prefill 8x256 w1 (wgmma): two launches, equal "
+        "bits")
+    del again
 
     cfg = get_config("qwen3_moe_30b")
     rows = {}
-    for T in (8, 2048):
-        err, xs, plan, w1 = main[(torch.bfloat16, T)]
+    timed = {"decode B8 w1": (8, main[(torch.bfloat16, 8)]),
+             "prefill 8x256 w1": (2048, main[(torch.bfloat16, 2048)]),
+             "prefill 8x256 w2": (2048, prefill_w2)}
+    for label, (T, (err, xs, plan, w)) in timed.items():
         be, bt = plan.block_expert, plan.block_t
-        bound, by, nbytes, flops = _gemm_bound(plan, xs, w1, T * k)
-        ms = timer(lambda: grouped_gemm(xs, w1, be, block_t=bt))
-        plain_ms = timer(lambda: grouped_gemm_plain(xs, w1, be, block_t=bt),
+        Din, Fo = w.shape[1], w.shape[2]
+        r = ops.route(torch.bfloat16, bt, Din, Fo, True)
+        bound, by, nbytes, flops = _gemm_bound(plan, xs, w, T * k)
+        ms = timer(lambda: grouped_gemm(xs, w, be, block_t=bt))
+        host_us = timer.host_us(lambda: grouped_gemm(xs, w, be, block_t=bt))
+        plain_ms = timer(lambda: grouped_gemm_plain(xs, w, be, block_t=bt),
                          iters=5)
         # the reference's own contraction: one bmm over (E, C, D)
-        buf = _rand(gen, (E, expert_capacity(cfg, T), D), torch.bfloat16,
+        buf = _rand(gen, (E, expert_capacity(cfg, T), Din), torch.bfloat16,
                     dev)
-        bmm_ms = timer(lambda: torch.bmm(buf, w1))
+        bmm_ms = timer(lambda: torch.bmm(buf, w))
         gmm_ms = None
         if hasattr(torch, "_grouped_mm"):
             counts = torch.bincount(torch.topk(torch.randn(
                 (T, E), generator=gen, device=dev), k).indices.reshape(-1),
                 minlength=E)
-            xa = _rand(gen, (T * k, D), torch.bfloat16, dev)
+            xa = _rand(gen, (T * k, Din), torch.bfloat16, dev)
             offs = torch.cumsum(counts, 0).to(torch.int32)
-            gmm_ms = timer(lambda: torch._grouped_mm(xa, w1, offs=offs))
+            gmm_ms = timer(lambda: torch._grouped_mm(xa, w, offs=offs))
         used = int((be >= 0).sum().item())
-        log(f"  moe_gemm bf16 {'decode B8' if T == 8 else 'prefill 8x256'} "
-            f"w1 (T={T}, top-{k} of {E}, rows {xs.shape[0]}, block_t {bt}, "
-            f"{used} used blocks): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bmm over (E,C,D) {bmm_ms:.4f} ms, torch._grouped_mm "
-            f"{gmm_ms} ms, bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} "
-            f"MB, {flops / 1e9:.2f} GFLOP)")
-        rows[T] = dict(err=err, ms=ms, plain_ms=plain_ms, bmm_ms=bmm_ms,
-                       gmm_ms=gmm_ms, bound=bound, by=by, bt=bt,
-                       rows=xs.shape[0])
+        log(f"  moe_gemm bf16 {label} (T={T}, top-{k} of {E}, D{Din} "
+            f"F{Fo}, rows {xs.shape[0]}, block_t {bt}, {used} used blocks, "
+            f"{r} route): kernel {ms:.4f} ms, host {host_us:.1f} us a "
+            f"call, plain {plain_ms:.4f} ms, bmm over (E,C,D) {bmm_ms:.4f} "
+            f"ms, torch._grouped_mm {gmm_ms} ms, bound {bound:.4f} ms by "
+            f"{by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        rows[label] = dict(max_abs_err=err, ms=ms, host_us=host_us,
+                           plain_ms=plain_ms, bmm_ms=bmm_ms, gmm_ms=gmm_ms,
+                           bound_ms=bound, bound_by=by, block_t=bt,
+                           rows=xs.shape[0], route=r)
         del buf
-    d, p = rows[8], rows[2048]
+    print(json.dumps({"moe_gemm_shapes": rows}), flush=True)
+    d = rows["decode B8 w1"]
+    err16 = max(main[(torch.bfloat16, T)][0] for T in (8, 2048))
     err32 = max(main[(torch.float32, T)][0] for T in (8, 2048))
     return dict(name="moe_gemm", route="cuda",
                 source="src/repro_torch/csrc/moe_gemm.cu",
-                replaces=REPLACES["moe_gemm"],
-                max_abs_err=max(d["err"], p["err"]), max_abs_err_fp32=err32,
-                ms=d["ms"], plain_ms=d["plain_ms"], bound_ms=d["bound"],
-                bound_by=d["by"], library_ms=d["bmm_ms"],
-                grouped_mm_ms=d["gmm_ms"], prefill=p,
+                replaces=REPLACES["moe_gemm"], max_abs_err=err16,
+                max_abs_err_fp32=err32, ms=d["ms"], plain_ms=d["plain_ms"],
+                bound_ms=d["bound_ms"], bound_by=d["bound_by"],
+                library_ms=d["bmm_ms"], grouped_mm_ms=d["gmm_ms"],
                 shape=f"decode B8 top-{k} of {E}, D{D} F{Fe} bf16, rows "
-                      f"{d['rows']} block_t {d['bt']}; library: torch.bmm "
-                      f"over the (E, C, D) capacity buffer")
+                      f"{d['rows']} block_t {d['block_t']} (mma route); "
+                      f"library: torch.bmm over the (E, C, D) capacity "
+                      f"buffer; prefill shapes in the moe_gemm_shapes line")
 
 
 def _scan_bound(states):
@@ -1013,6 +1129,7 @@ def _reduced_pair(dev, arch, engine_kw, sps, expected):
     from repro_torch import kernels
     from repro_torch.configs import reduced_config
     from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.models import transformer as T
     from repro_torch.runtime.api import BatchMaster, BatchRequest
     from repro_torch.runtime.engine import NodeEngine
@@ -1030,11 +1147,17 @@ def _reduced_pair(dev, arch, engine_kw, sps, expected):
                          max_len=128, page_size=page, device=target,
                          **engine_kw)
         master = BatchMaster([eng], SchedulerConfig(page_size=page))
+        moe_ops.reset_routes()
         before = kernels.launches()
         bo = master.run(master.submit(
             [BatchRequest(c, pr, page, sampling=sp) for c, pr, sp in reqs]))
         after = kernels.launches()
         used = {k: after[k] - before[k] for k in after}
+        if moe_ops.ROUTE_LAUNCHES != {"wgmma": 0, "mma": 0,
+                                      "simt": used["moe_gemm"]}:
+            raise AssertionError(f"reduced fp32 {arch}: moe_gemm launches "
+                                 f"by route {moe_ops.ROUTE_LAUNCHES} (fp32 "
+                                 f"takes simt)")
         out[device] = {r["custom_id"]: r["response"]["tokens"]
                        for r in bo.results}
         log(f"  {arch} {engine_kw} {device}: {bo.request_counts}, kernel "
@@ -1132,16 +1255,21 @@ def serve_moe_path(dev):
     def prompt(n):
         return [int(t) for t in rng.integers(2, cfg.vocab_size, n)]
 
-    def serve(engine, reqs, tag):
+    def serve(engine, reqs, tag, prefill=False):
         master = BatchMaster([engine], SchedulerConfig(page_size=page))
         clock = _PageClock(engine)
+        gemms = _GemmRoutes()
         reset_counts()
         t = time.perf_counter()
-        bo = master.run(master.submit(reqs))
+        try:
+            bo = master.run(master.submit(reqs))
+        finally:
+            gemms.restore()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         used = kernels.launches()
         check_routes(tag, used)
+        gemms.check(tag, prefill)
         clock.restore()
         if bo.request_counts["completed"] != len(reqs) or \
                 bo.request_counts["failed"]:
@@ -1169,7 +1297,8 @@ def serve_moe_path(dev):
     prompts = [prompt(n) for n in lens]
     greedy = [BatchRequest(f"g{i}", pr, m)
               for i, (pr, m) in enumerate(zip(prompts, outs))]
-    g_out, g_used, g_num = serve(eng, greedy, "greedy, module granularity")
+    g_out, g_used, g_num = serve(eng, greedy, "greedy, module granularity",
+                                 prefill=True)
     check_launches("the MoE greedy path", g_used, MOE_GREEDY)
     for r in greedy:
         if len(g_out[r.custom_id]["tokens"]) != r.max_tokens:
@@ -1196,7 +1325,8 @@ def serve_moe_path(dev):
 
     mono = NodeEngine(cfg, params=eng.params, **kw)
     serve(mono, [BatchRequest("warm", prompt(8), 4)], "greedy warm-up")
-    m_out, m_used, m_num = serve(mono, greedy, "greedy, monolithic")
+    m_out, m_used, m_num = serve(mono, greedy, "greedy, monolithic",
+                                 prefill=True)
     check_launches("the MoE monolithic path", m_used, MOE_GREEDY)
     agree = sum(m_out[c]["tokens"] == g_out[c]["tokens"] for c in g_out)
     log(f"  monolithic vs module granularity: {agree} of {len(g_out)} "

@@ -75,8 +75,6 @@
 // In both routes keys are masked at the true Skv: nothing is padded, so
 // padding is never attended to.
 
-#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled
-
 #include <climits>
 #include <type_traits>
 
@@ -316,11 +314,6 @@ struct Geo {
     return 1024 + kList + 4 * (1 + 3 * size_t(ntiles));
   }
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x; -1e30 gives 0
   float y;
@@ -617,7 +610,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
         for (int r = 0; r < 4; ++r)
-          a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          a[kk][r] =
+              sm90::pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
       }
       sm90::fence_regs(o);
       sm90::wgmma_fence();
@@ -656,8 +650,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const int col = 8 * j + c0, box = col / G::kBoxCols;
     const uint32_t tile = q_rows + box * BQ * G::kRowBytes;
     const uint32_t cb = (col % G::kBoxCols) * 2;
-    const uint32_t v0 = pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
-    const uint32_t v1 = pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
+    const uint32_t v0 = sm90::pack_bf16(o[4 * j] / d0, o[4 * j + 1] / d0);
+    const uint32_t v1 = sm90::pack_bf16(o[4 * j + 2] / d1, o[4 * j + 3] / d1);
     asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(
                      tile + swz(r0 * G::kRowBytes + cb)),
                  "r"(v0)
@@ -679,32 +673,12 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
-// (cudaGetDriverEntryPoint*), so that the library needs no -lcuda.
-PFN_cuTensorMapEncodeTiled_v12000 encoder() {
-  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res{};
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &res);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &res);
-#endif
-    return res == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // The 4-D map {D, heads, rows, B} (innermost first) of a contiguous bf16
 // tensor (B, rows, heads, D), read in boxes of {<=64, 1, box_rows, 1}.
 // TMA needs a 16-byte-aligned base; the wrapper checks it.
 cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int heads,
                      int rows, int B, int box_rows) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = sm90::map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads),
                               cuuint64_t(rows), cuuint64_t(B)};

@@ -2,8 +2,24 @@
 its plain PyTorch version, and the dispatch around it.
 
 ``grouped_gemm`` runs the plain version for tensors on the CPU.  For CUDA
-tensors it checks them, launches the kernel on the current stream, raises
-if the launch failed and counts the launch.
+tensors it checks them, names the kernel's route with ``route()``,
+launches the kernel on the current stream, raises if the launch failed
+and counts the launch in ``kernels.LAUNCHES`` and, by route, in
+``ROUTE_LAUNCHES``.  The three routes (the kernel's note says how each
+works):
+
+- ``"wgmma"``: bf16 with ``block_t`` a multiple of 64, D and F multiples
+  of 8 and 16-byte-aligned x and w (TMA's stride and alignment rules):
+  every prefill launch of the serving path.  128 x 128 output tiles on
+  ``wgmma``, x and w tiles fed by TMA into a 6-stage ring, the output
+  stored by TMA.
+- ``"mma"``: every other bf16 call, decode's ``block_t`` 16 among them.
+  64-column tiles on ``mma.sync``.
+- ``"simt"``: fp32, on the CUDA cores.
+
+No route stands in for another: a launch the named route refuses raises.
+The kernel is bound by bytes: at Qwen3-30B-A3B's 8 x 256 prefill it must
+read 403 MB of expert weights, at decode ~157 MB of the touched experts'.
 
 Counterparts of ``repro.kernels.moe_gemm``: ``grouped_gemm`` of
 ``grouped_gemm_tpu`` (same arguments), ``sort_tokens_by_expert`` of the
@@ -30,7 +46,30 @@ from repro_torch.kernels import build
 
 NAME = "moe_gemm"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODES = {"simt": 0, "mma": 1, "wgmma": 2}
 _LIB = None
+
+# launches by route since the last reset_routes()
+ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "simt": 0}
+
+
+def route(dtype, block_t: int, D: int, F: int, aligned: bool) -> str:
+    """The kernel's route for a call: "simt" for fp32; for bf16 "wgmma"
+    when ``block_t`` is a multiple of 64, D and F are multiples of 8 (TMA
+    strides of 16 bytes) and ``aligned`` (x and w start on 16-byte
+    boundaries), else "mma"."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{NAME}: no route for {dtype}")
+    if block_t % 64 == 0 and D % 8 == 0 and F % 8 == 0 and aligned:
+        return "wgmma"
+    return "mma"
+
+
+def reset_routes() -> None:
+    for key in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -53,15 +92,20 @@ def grouped_gemm_plain(x, w, block_expert, *, block_t: int = 128):
     return out.reshape(T, Fo)
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry point ``repro_grouped_gemm`` of a loaded
+    library."""
+    fn = lib.repro_grouped_gemm
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                   + [ctypes.c_void_p])
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = build.load(NAME)
-        fn = lib.repro_grouped_gemm
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        _LIB = lib
+        _LIB = bind(build.load(NAME))
     return _LIB
 
 
@@ -98,11 +142,22 @@ def grouped_gemm(x, w, block_expert, *, block_t: int = 128):
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {x.device}")
     _check(x, w, block_expert, block_t)
+    r = route(x.dtype, block_t, x.shape[1], w.shape[2],
+              x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    out = launch(_lib(), x, w, block_expert, block_t, r)
+    kernels.LAUNCHES[NAME] += 1
+    ROUTE_LAUNCHES[r] += 1
+    return out
+
+
+def launch(lib, x, w, block_expert, block_t: int, route_name: str):
+    """One launch of ``repro_grouped_gemm`` from ``lib`` (see ``bind``) on
+    checked CUDA tensors, on route ``route_name``; raises if the launch
+    failed.  Counts nothing."""
     T, D = x.shape
     E, _, Fo = w.shape
     out = torch.empty((T, Fo), dtype=x.dtype, device=x.device)
     vec = 16 // x.element_size()          # elements of one 16-byte load
-    lib = _lib()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_grouped_gemm(
@@ -110,10 +165,10 @@ def grouped_gemm(x, w, block_expert, *, block_t: int = 128):
             out.data_ptr(), T, D, Fo, E, block_t,
             int(x.data_ptr() % 16 == 0 and D % vec == 0),
             int(w.data_ptr() % 16 == 0 and Fo % vec == 0),
-            _DTYPES[x.dtype], stream)
+            _DTYPES[x.dtype], _ROUTE_CODES[route_name], stream)
     if err != 0:
-        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
-    kernels.LAUNCHES[NAME] += 1
+        raise RuntimeError(f"{NAME} kernel launch failed on the "
+                           f"{route_name} route: CUDA error {err}")
     return out
 
 

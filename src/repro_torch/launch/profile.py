@@ -46,18 +46,24 @@ from repro_torch.runtime.engine import NodeEngine
 from repro_torch.sampling import SamplingParams
 
 
+# the __global__ functions of each hand-written kernel, csrc/<kernel>.cu
+KERNEL_ENTRIES = {
+    "flash_attention": ("flash_fwd_kernel", "flash_fwd_wgmma"),
+    "paged_attention": ("paged_split_kernel",),
+    "fused_sampling": ("fused_sample_kernel",),
+    "moe_gemm": ("grouped_gemm_kernel", "grouped_gemm_wgmma"),
+    "ssd_scan": ("ssd_scan_kernel",),
+}
+
+
 def kernel_class(name: str) -> str:
+    """The class of a device kernel's name in the trace: a hand-written
+    kernel by its entry points (before the library names they share words
+    with), then PyTorch's and cuBLAS's kernels by what their names hold."""
     n = name.lower()
-    if "flash_fwd_kernel" in n:
-        return "flash_attention kernel"
-    if "paged_decode_kernel" in n:
-        return "paged_attention kernel"
-    if "fused_sample_kernel" in n:
-        return "fused_sampling kernel"
-    if "grouped_gemm_kernel" in n:
-        return "moe_gemm kernel"
-    if "ssd_scan_kernel" in n:
-        return "ssd_scan kernel"
+    for kernel, entries in KERNEL_ENTRIES.items():
+        if any(e in n for e in entries):
+            return f"{kernel} kernel"
     if any(k in n for k in ("sort", "scatter", "scan", "searchsorted",
                             "index_put", "bincount")):
         return "sort / scatter / scan / search (MoE dispatch, penalties)"

@@ -22,7 +22,10 @@ equal those of its plain CPU path.  The fused sampling kernel's tokens and
 top-K ids are exact against its plain version and bitwise identical over
 two launches; its stats hold to rtol 1e-5 (float summation order).  The
 grouped GEMM holds to its plain version at the same fp32 / bf16
-tolerances, with unused (-1) blocks, empty experts and ragged D and F.
+tolerances, with unused (-1) blocks (exact zeros), empty experts and
+ragged D and F, on each of its routes (bf16 at block_t 64 and up on
+``wgmma``, other bf16 calls on ``mma.sync``, fp32 on the CUDA cores), to
+equal bits over two launches and to its per-route launch count.
 The SSD state scan gives its plain version's bits (``torch.equal``: it
 rounds the product and the sum separately, as ``h * d + s`` does).
 """
@@ -41,6 +44,7 @@ from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
                                                     fused_sample_plain)
+from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
                                               grouped_gemm_plain, moe_ffn)
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -215,6 +219,23 @@ def test_paged_ab_against_itself(dev):
                             kernel="paged_attention")
     assert [r["shape"] for r in rows] == [
         paged_label(*s) for s in flash_ab.PAGED_SHAPES]
+    for r in rows:
+        assert r["max_abs_diff"] == 0.0
+        assert len(r["this_ms"]) == len(r["other_ms"]) == 2
+        assert min(r["this_ms"] + r["other_ms"]) > 0
+
+
+def test_gemm_ab_against_itself(dev):
+    """The same tool for the grouped GEMM (``--kernel moe_gemm``): equal
+    bits and positive readings at its decode and two prefill shapes, the
+    prefill ones on the wgmma route."""
+    from repro_torch.launch import flash_ab
+    rows = flash_ab.compare(Path(__file__).resolve().parents[1],
+                            kernel="moe_gemm")
+    assert [r["shape"].split(" rows")[0] for r in rows] == [
+        label for label, *_ in flash_ab.GEMM_SHAPES]
+    assert [r["shape"].endswith("(wgmma)") for r in rows] == [False, True,
+                                                              True]
     for r in rows:
         assert r["max_abs_diff"] == 0.0
         assert len(r["this_ms"]) == len(r["other_ms"]) == 2
@@ -563,7 +584,9 @@ def test_reduced_sampled_engine_tokens_match_cpu(dev):
 
 
 # (name, T rows, D, F, E, block_t, experts of the used blocks); the rest of
-# the T / block_t blocks are unused (-1).  Expert E-1 gets no block.
+# the T / block_t blocks are unused (-1).  Expert E-1 gets no block.  In
+# bf16, block_t a multiple of 64 with D and F multiples of 8 takes the
+# wgmma route, the rest the mma route (``ops.route``); fp32 takes simt.
 GEMM_CASES = [
     ("decode_bt16_ragged_f", 16 * 20, 256, 96, 8, 16, [0, 3, 5, 6, 2, 1]),
     ("reduced_bt32_f64", 32 * 8, 128, 64, 4, 32, [0, 0, 1, 2]),
@@ -571,6 +594,10 @@ GEMM_CASES = [
     ("odd_d36_bt16", 16 * 6, 36, 40, 2, 16, [0, 0, 0]),
     ("qwen3_w1_bt128", 128 * 6, 2048, 768, 16, 128, [4, 9, 9, 0]),
     ("qwen3_w2_bt16", 16 * 12, 768, 2048, 16, 16, [3, 7, 8, 12, 14, 0, 1]),
+    ("wgmma_d72_f96_bt64", 64 * 6, 72, 96, 3, 64, [1, 0, 0, 0]),
+    ("wgmma_f64_bt128", 128 * 4, 128, 64, 4, 128, [0, 1, 1]),
+    ("wgmma_w2_bt64", 64 * 8, 768, 2048, 8, 64, [2, 2, 5, 0, 6]),
+    ("wgmma_f200_bt256", 256 * 3, 1024, 200, 4, 256, [3, 1]),
 ]
 
 
@@ -588,6 +615,40 @@ def test_moe_gemm_kernel_matches_plain(dev, case, dtype):
     want = grouped_gemm_plain(x, w, be, block_t=bt)
     _close(got, want, dtype)
     assert not got[len(used) * bt:].any()
+
+
+def test_moe_gemm_is_deterministic_and_routes_count(dev):
+    """The wgmma route gives equal bits over two launches (no split-K, no
+    atomics); each launch counts on the route ``ops.route`` names: wgmma
+    at block_t 128, mma at block_t 16 and for a base TMA cannot read,
+    simt for fp32, each in the kernel's total as well."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    T, D, F, E, bt = 128 * 8, 2048, 768, 8, 128
+    x = _randn(gen, (T, D), torch.bfloat16, dev)
+    w = (0.05 * torch.randn((E, D, F), generator=gen, device=dev)).bfloat16()
+    be = torch.tensor([0, 0, 0, 2, 5, 7, -1, -1], dtype=torch.int32,
+                      device=dev)
+    kernels.reset_launches()
+    moe_ops.reset_routes()
+    a = grouped_gemm(x, w, be, block_t=bt)
+    b = grouped_gemm(x, w, be, block_t=bt)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert moe_ops.ROUTE_LAUNCHES == {"wgmma": 2, "mma": 0, "simt": 0}
+    be16 = be.repeat_interleave(bt // 16).contiguous()
+    c = grouped_gemm(x, w, be16, block_t=16)
+    flat = torch.empty((T * D + 1,), dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(T, D)
+    shifted.copy_(x)
+    assert moe_ops.route(torch.bfloat16, bt, D, F, False) == "mma"
+    d = grouped_gemm(shifted, w, be, block_t=bt)
+    grouped_gemm(x.float(), w.float(), be, block_t=bt)
+    torch.cuda.synchronize()
+    assert moe_ops.ROUTE_LAUNCHES == {"wgmma": 2, "mma": 2, "simt": 1}
+    assert kernels.launches()["moe_gemm"] == 5
+    want = grouped_gemm_plain(x, w, be, block_t=bt)
+    for got in (a, c, d):
+        _close(got, want, torch.bfloat16)
 
 
 def test_moe_ffn_on_the_card_matches_cpu(dev):
