@@ -35,11 +35,20 @@ result):
    every launch must land on the route of its type, two launches must
    give equal bits in both types, and the fp32 route is timed at the
    first shape.
-   The fused sampling kernel (fp32, B=8, V=128256, and edge rows) must
-   give exactly its plain version's tokens and top-K ids, its stats to
-   rtol 1e-5 (float summation order), and equal bits over two launches;
-   its yardstick is the port's own shared-sort route (no single PyTorch
-   call computes the function).  The grouped expert GEMM (``moe_gemm``)
+   The fused sampling kernel (each row split across a cluster of 8 CTAs,
+   its slices parked in shared memory; fp32, B=8, V=128256, and edge
+   rows: the batch-1 prefix tail, Qwen3's V151936 with lanes, V256000,
+   the largest slice, V7 with ranks left empty, 40 lanes in two rounds, a
+   maximum tied across a rank boundary, crossings on a refinement level's
+   catch-all bucket) must give exactly its plain
+   version's tokens and top-K ids, its stats to rtol 1e-5 (float
+   summation order), and equal bits over two launches, and must refuse a
+   row past its V limit; it is timed at B8 V128256 without and with 5
+   lanes, B1 V128256 and B8 V151936 with 5 lanes, by CUDA events and
+   alone in ``torch.profiler``'s trace (with the wrapper's host µs a
+   call), its residency is queried
+   (``cudaOccupancyMaxActiveClusters``), and its yardstick is the port's
+   own shared-sort route (no single PyTorch call computes the function).  The grouped expert GEMM (``moe_gemm``)
    is held to its plain version in bf16 and fp32 at Qwen3-30B-A3B's
    decode and 8x256-prefill shapes (w1 and w2), as the dispatch lays them
    out, and at edge cases (an expert with no rows, unused trailing
@@ -514,30 +523,17 @@ def check_paged(dev, timer):
 
 def check_fused_sampling(dev, timer):
     from repro_torch import sampling as smp
+    from repro_torch.kernels.fused_sampling import ops as fs_ops
     from repro_torch.kernels.fused_sampling.ops import (NEG, fused_sample,
                                                         fused_sample_plain)
+    from repro_torch.launch.flash_ab import (SAMPLING_SHAPES, catch_all_rows,
+                                             sampling_rows)
+    from repro_torch.launch.profile import KERNEL_ENTRIES
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
 
     def rows(B, V, k=None, p=None, min_p=None):
-        x = 2.0 * torch.randn((B, V), generator=gen, device=dev)
-        u = torch.rand((B, V), generator=gen, device=dev).clamp(1e-7,
-                                                                1 - 1e-7)
-        g = -torch.log(-torch.log(u))
-        raw = torch.randn((B, V), generator=gen, device=dev)
-        cyc = torch.arange(B, device=dev)
-
-        def col(v, default, dt):
-            v = default[cyc % len(default)] if v is None else v
-            return torch.as_tensor(v, device=dev).to(dt).expand(B) \
-                .contiguous()
-
-        return (x, g, col(k, torch.tensor([0, 1, 5, 40, 300], device=dev),
-                          torch.int32),
-                col(p, torch.tensor([1.0, 0.95, 0.9, 0.5], device=dev),
-                    torch.float32),
-                col(min_p, torch.tensor([0.0, 0.02, 0.1], device=dev),
-                    torch.float32), raw)
+        return sampling_rows(gen, B, V, dev, k, p, min_p)
 
     def case(tag, args, lp_k):
         x, g, k, p, mp, raw = args
@@ -572,30 +568,89 @@ def check_fused_sampling(dev, timer):
             raise AssertionError(f"fused_sampling {tag}: greedy != argmax")
         log(f"  fused_sampling {tag}: tokens exact, max_abs_err={err:.3e}, "
             f"two launches equal ok")
-        return err
+        return got, err
+
+    def tied(V):
+        """Two rows whose max, draw and top raw entry are tied across the
+        boundary between ranks 0 and 1: row 0 keeps only the tied pair
+        (k = 2), row 1 keeps every entry."""
+        x, g, k, p, mp, raw = rows(2, V, torch.tensor([2, 0]), 1.0, 0.0)
+        w = fs_ops.slice_width(V)
+        for t, val in ((x, 30.0), (g, 10.0), (raw, 9.0)):
+            t[:, w - 1:w + 1] = val
+        return w, (x, g, k, p, mp, raw)
 
     B, V = 8, 128256                          # the serving path's shape
     main = rows(B, V)
-    errs = [case("B8 V128256 mixed", main, -1),
+    w, tie = tied(V)
+    outs = [case("B8 V128256 mixed", main, -1),
             case("B8 V128256 mixed lanes5", main, 5),
             case("filters off", rows(4, V, 0, 1.0, 0.0), 0),
             case("k=1", rows(4, V, 1, 1.0, 0.0), -1),
             case("top-p only", rows(4, V, 0, 0.6, 0.0), -1),
             case("min-p only", rows(4, V, 0, 1.0, 0.05), 3),
             case("odd V 50257 mixed", rows(5, 50257), 2),
-            case("B1 V7 k3", rows(1, 7, 3, 0.9, 0.0), 7)]
-    err = max(errs)
+            case("B1 V7 k3 (ranks with empty slices)",
+                 rows(1, 7, 3, 0.9, 0.0), 7),
+            case("B1 V128256 top-p 0.9 (prefix tail)",
+                 rows(1, V, 0, 0.9, 0.0), -1),
+            case("B8 V151936 mixed lanes5", rows(8, 151936), 5),
+            case("B2 V256000 mixed lanes5 (largest slice, raw not parked)",
+                 rows(2, 256000), 5),
+            case("B2 V128256 lanes40 (two rounds of lane lists)",
+                 rows(2, V), 40),
+            case("crossings on a catch-all bucket", catch_all_rows(gen, V, dev),
+                 2),
+            case(f"tie across the rank boundary at {w}", tie, 3)]
+    got = outs[-1][0]
+    if got["sampled"].tolist() != [w - 1] * 2 or \
+            got["greedy"].tolist() != [w - 1] * 2 or \
+            got["top_idx"][:, :2].tolist() != [[w - 1, w]] * 2:
+        raise AssertionError(f"fused_sampling tie: {got['sampled'].tolist()}"
+                             f" {got['greedy'].tolist()} "
+                             f"{got['top_idx'].tolist()}, want the lower "
+                             f"index {w - 1}")
+    err = max(e for _, e in outs)
+    limit = fs_ops.max_vocab()
+    too_long = rows(1, limit + 1)
+    try:
+        fused_sample(*too_long[:5])
+    except ValueError as exc:
+        log(f"  fused_sampling V {limit + 1} refused: {exc}")
+    else:
+        raise AssertionError(f"fused_sampling took V {limit + 1} past its "
+                             f"limit {limit}")
+    del too_long
+    for Vq, lanes in ((V, False), (V, True), (151936, True), (256000, True)):
+        r = fs_ops.residency(Vq, lanes)
+        log(f"  fused_sampling residency V{Vq}{' lanes' if lanes else ''}: "
+            f"{r['smem_bytes']} B of shared memory a CTA (raw parked: "
+            f"{r['park_raw']}), {r['clusters']} clusters of 8 CTAs resident "
+            f"(cudaOccupancyMaxActiveClusters)")
+
+    shapes = {}
+    for Bs, Vs, lanes in SAMPLING_SHAPES:
+        x, g, k, p, mp, raw = main if (Bs, Vs) == (B, V) else rows(Bs, Vs)
+        kw = dict(raw=raw if lanes >= 0 else None, lp_k=max(lanes, 0),
+                  with_lanes=lanes >= 0)
+        label = f"B{Bs} V{Vs}" + (f" lanes{lanes}" if lanes >= 0 else "")
+        nbytes = Bs * Vs * 4 * (3 if lanes >= 0 else 2)
+        ms = timer(lambda: fused_sample(x, g, k, p, mp, **kw))
+        alone_ms = timer.kernel_ms(lambda: fused_sample(x, g, k, p, mp, **kw),
+                                   KERNEL_ENTRIES["fused_sampling"])
+        plain_ms = timer(lambda: fused_sample_plain(x, g, k, p, mp, **kw),
+                         iters=5)
+        host_us = timer.host_us(lambda: fused_sample(x, g, k, p, mp, **kw))
+        shapes[label] = dict(ms=ms, kernel_alone_ms=alone_ms,
+                             plain_ms=plain_ms,
+                             bound_ms=nbytes / PEAK_BYTES * 1e3,
+                             host_us=host_us)
+        log(f"  fused_sampling f32 {label} mixed k/p/min_p: kernel {ms:.4f} "
+            f"ms ({alone_ms:.4f} ms alone in the profiler's trace), plain "
+            f"{plain_ms:.4f} ms, bound {shapes[label]['bound_ms']:.6f} ms "
+            f"({nbytes / 1e6:.2f} MB); host {host_us:.1f} us a call")
 
     x, g, k, p, mp, raw = main
-    nbytes = {lanes: B * V * 4 * (3 if lanes else 2) for lanes in (0, 1)}
-    bound = {n: nbytes[n] / PEAK_BYTES * 1e3 for n in nbytes}
-    ms = timer(lambda: fused_sample(x, g, k, p, mp))
-    ms5 = timer(lambda: fused_sample(x, g, k, p, mp, raw=raw, lp_k=5,
-                                     with_lanes=True))
-    plain_ms = timer(lambda: fused_sample_plain(x, g, k, p, mp), iters=5)
-    plain5 = timer(lambda: fused_sample_plain(x, g, k, p, mp, raw=raw,
-                                              lp_k=5, with_lanes=True),
-                   iters=5)
 
     def sort_route():
         tau = smp.joint_threshold(x, k, p, mp, 0)
@@ -603,18 +658,18 @@ def check_fused_sampling(dev, timer):
         return torch.argmax(s, dim=1), torch.argmax(x, dim=1)
 
     sort_ms = timer(sort_route, iters=5)
-    log(f"  fused_sampling f32 B{B} V{V} mixed k/p/min_p: kernel {ms:.4f} "
-        f"ms (lanes K=5: {ms5:.4f} ms), plain {plain_ms:.4f} ms (lanes "
-        f"{plain5:.4f} ms), bound {bound[0]:.5f} ms ({nbytes[0] / 1e6:.2f} "
-        f"MB; lanes {bound[1]:.5f} ms, {nbytes[1] / 1e6:.2f} MB)")
-    log(f"  yardstick: the port's shared-sort route on the same rows "
+    log(f"  yardstick: the port's shared-sort route on the B8 V128256 rows "
         f"{sort_ms:.4f} ms; no single PyTorch call computes this function")
+    print(json.dumps({"fused_sampling_shapes": shapes}), flush=True)
+    first, lanes5 = shapes["B8 V128256"], shapes["B8 V128256 lanes5"]
     return dict(name="fused_sampling", route="cuda",
                 source="src/repro_torch/csrc/fused_sampling.cu",
-                replaces=REPLACES["fused_sampling"], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound[0], bound_by="bytes",
-                library_ms=None, ms_lanes5=ms5, plain_ms_lanes5=plain5,
-                bound_ms_lanes5=bound[1], sort_route_ms=sort_ms,
+                replaces=REPLACES["fused_sampling"], max_abs_err=err,
+                ms=first["ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], bound_by="bytes",
+                library_ms=None, ms_lanes5=lanes5["ms"],
+                plain_ms_lanes5=lanes5["plain_ms"],
+                bound_ms_lanes5=lanes5["bound_ms"], sort_route_ms=sort_ms,
                 shape=f"B{B} V{V} f32 mixed k/p/min_p, no lanes")
 
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels, in
-// PTX: shared-memory barriers (mbarrier), TMA tensor loads, wgmma
-// shared-memory descriptors and the wgmma instructions of the kernels;
-// and, on the host, the driver's tensor-map encoder.
+// PTX: shared-memory barriers (mbarrier), 16-byte cp.async, the cluster
+// barrier, TMA tensor loads, wgmma shared-memory descriptors and the wgmma
+// instructions of the kernels; and, on the host, the driver's tensor-map
+// encoder.
 // The PTX ISA's "asynchronous warpgroup level matrix" section defines the
 // layouts named here.
 #pragma once
@@ -105,6 +106,41 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         __trap();
     }
   } while (!done);
+}
+
+// -------------------------------------------------- cp.async, clusters
+// 16 bytes from global to shared memory, through L2 only; both addresses
+// 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The cluster barrier in two halves.  arrive.relaxed orders nothing (the
+// first use only says "this CTA has started"); arrive.release makes this
+// thread's earlier writes, remote ones included, visible to the threads
+// that wait; wait acquires them.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------- TMA

@@ -4,7 +4,10 @@ with optional raw-logit logprob lanes): wrapper of the Hopper kernel
 
 ``fused_sample`` runs the plain version for tensors on the CPU.  For CUDA
 tensors it checks them, launches the kernel on the current stream, raises
-if the launch failed and counts the launch.
+if the launch failed and counts the launch.  The kernel splits each row
+across a cluster of CTAs, each with its slice of the row in shared memory,
+so it takes V up to ``max_vocab()`` (337,888, past every vocabulary of the
+repo's configs) and the wrapper refuses a longer row.
 
 The plain version is ``repro.kernels.fused_sampling.ref`` batched over
 rows: online-softmax stats, then the threshold found by LEVELS rounds of
@@ -20,6 +23,7 @@ which moves no crossing.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Optional
 
 import torch
@@ -149,16 +153,61 @@ def fused_sample_plain(logits, gumbel, k, p, min_p, raw=None, *,
 # ---------------------------------------------------------------------------
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a loaded library:
+    ``repro_fused_sample`` and, where the library has them (not before
+    the cluster kernel), ``repro_fused_sample_max_vocab``,
+    ``repro_fused_sample_slice_width`` and
+    ``repro_fused_sample_residency``."""
+    fn = lib.repro_fused_sample
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 10)
+    if hasattr(lib, "repro_fused_sample_max_vocab"):
+        lib.repro_fused_sample_max_vocab.restype = ctypes.c_int
+        lib.repro_fused_sample_max_vocab.argtypes = []
+        lib.repro_fused_sample_slice_width.restype = ctypes.c_int
+        lib.repro_fused_sample_slice_width.argtypes = [ctypes.c_int]
+        lib.repro_fused_sample_residency.restype = ctypes.c_int
+        lib.repro_fused_sample_residency.argtypes = (
+            [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = build.load(NAME)
-        fn = lib.repro_fused_sample
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p] * 10)
-        _LIB = lib
+        _LIB = bind(build.load(NAME))
     return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def max_vocab() -> int:
+    """The longest row the kernel takes: each rank's slice of x must fit
+    its CTA's shared memory beside the histograms (``csrc/
+    fused_sampling.cu``'s layout)."""
+    return _lib().repro_fused_sample_max_vocab()
+
+
+def slice_width(V: int) -> int:
+    """The entries each CTA of a row's cluster owns at V: rank r's slice
+    of the row starts at ``r * slice_width(V)``."""
+    return _lib().repro_fused_sample_slice_width(V)
+
+
+def residency(V: int, with_lanes: bool) -> Dict[str, int]:
+    """The launch a call at V makes: its dynamic shared memory in bytes,
+    whether the raw row is parked beside x, and how many clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``)."""
+    smem, park, clusters = (ctypes.c_int() for _ in range(3))
+    err = _lib().repro_fused_sample_residency(
+        V, int(with_lanes), ctypes.byref(smem), ctypes.byref(park),
+        ctypes.byref(clusters))
+    if err != 0:
+        raise RuntimeError(f"{NAME}: residency query failed: CUDA error "
+                           f"{err}")
+    return dict(smem_bytes=smem.value, park_raw=bool(park.value),
+                clusters=clusters.value)
 
 
 def _check(logits, gumbel, k, p, min_p, raw, lp_k, with_lanes):
@@ -209,36 +258,49 @@ def fused_sample(logits, gumbel, k, p, min_p, raw=None, *, lp_k: int = 0,
     if logits.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {logits.device}")
     _check(logits, gumbel, k, p, min_p, raw, lp_k, with_lanes)
+    V, limit = logits.shape[1], max_vocab()
+    if V > limit:
+        raise ValueError(f"{NAME}: V {V} above the kernel's limit {limit} "
+                         f"(a rank's slice of the row must fit its CTA's "
+                         f"shared memory)")
+    out = launch(_lib(), logits, gumbel, k, p, min_p, raw, lp_k=lp_k,
+                 with_lanes=with_lanes)
+    kernels.LAUNCHES[NAME] += 1
+    return out
+
+
+def launch(lib, logits, gumbel, k, p, min_p, raw, *, lp_k: int,
+           with_lanes: bool) -> Dict[str, torch.Tensor]:
+    """One launch of ``repro_fused_sample`` from ``lib`` on checked CUDA
+    tensors; raises if the launch failed.  Counts nothing.  The outputs
+    are views of one int32 and one float32 buffer."""
     B, V = logits.shape
     dev = logits.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = {"sampled": torch.empty((B,), **i32),
-           "greedy": torch.empty((B,), **i32),
-           "tau": torch.empty((B,), **f32), "m": torch.empty((B,), **f32),
-           "l": torch.empty((B,), **f32)}
-    lanes = lp_k if with_lanes else -1
+    K = lp_k if with_lanes else 0
+    ints = torch.empty((B * (2 + K),), dtype=torch.int32, device=dev)
+    floats = torch.empty((B * (3 + 2 * with_lanes + K),),
+                         dtype=torch.float32, device=dev)
+    out = {"sampled": ints[:B], "greedy": ints[B:2 * B],
+           "tau": floats[:B], "m": floats[B:2 * B], "l": floats[2 * B:3 * B]}
     if with_lanes:
-        out["m_raw"] = torch.empty((B,), **f32)
-        out["l_raw"] = torch.empty((B,), **f32)
-        if lp_k > 0:
-            out["top_vals"] = torch.empty((B, lp_k), **f32)
-            out["top_idx"] = torch.empty((B, lp_k), **i32)
+        out["m_raw"] = floats[3 * B:4 * B]
+        out["l_raw"] = floats[4 * B:5 * B]
+        if K > 0:
+            out["top_vals"] = floats[5 * B:].view(B, K)
+            out["top_idx"] = ints[2 * B:].view(B, K)
 
     def ptr(name: str) -> Optional[int]:
         t = out.get(name)
         return None if t is None else t.data_ptr()
 
-    lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.repro_fused_sample(
             logits.data_ptr(), gumbel.data_ptr(), k.data_ptr(), p.data_ptr(),
             min_p.data_ptr(), raw.data_ptr() if with_lanes else None, B, V,
-            lanes, ptr("sampled"), ptr("greedy"), ptr("tau"), ptr("m"),
-            ptr("l"), ptr("m_raw"), ptr("l_raw"), ptr("top_vals"),
-            ptr("top_idx"), stream)
+            lp_k if with_lanes else -1, ptr("sampled"), ptr("greedy"),
+            ptr("tau"), ptr("m"), ptr("l"), ptr("m_raw"), ptr("l_raw"),
+            ptr("top_vals"), ptr("top_idx"), stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
-    kernels.LAUNCHES[NAME] += 1
     return out

@@ -2,7 +2,7 @@
 turns.
 
     PYTHONPATH=src python -m repro_torch.launch.flash_ab --other DIR \
-        [--kernel {flash_attention,paged_attention,moe_gemm}]
+        [--kernel {flash_attention,paged_attention,moe_gemm,fused_sampling}]
 
 DIR is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -19,10 +19,19 @@ top-8 of 128 experts, rows laid out by the MoE layer's own dispatch
 (``GEMM_SHAPES``); this checkout's kernel runs on the route ``ops.route``
 names; an older library whose entry point has no route argument (before
 the wgmma route) is declared by this tool with its own arguments and picks
-its route itself.  At each shape
+its route itself; ``--kernel fused_sampling`` the sampler at the serving
+path's rows (``SAMPLING_SHAPES``: Llama-3.2-1B's B8 V128256 without lanes
+and with K = 5 logprob lanes, the batch-1 prefix tail, Qwen3's B8 V151936
+with K = 5; mixed top-k / top-p / min-p rows), checks that ``sampled``,
+``greedy``, ``tau``, ``m``, ``m_raw``, ``top_idx`` and ``top_vals`` equal
+the other's bits and ``l`` and ``l_raw`` agree to 1e-6 relative, and times
+each checkout's own Python wrapper's host side (``Timer.host_us`` of its
+``fused_sample``, in a process of its own).  At each shape
 the two run in the order other, this, this, other, each timed as
 ``chip_smoke.py`` times a kernel (``launch/timing.py``: median of 20
-launches, L2 flushed before each, CUDA events).  Prints the card's name
+launches, L2 flushed before each, CUDA events) and by the duration of the
+kernel alone in ``torch.profiler``'s device trace (``Timer.kernel_ms``),
+which leaves out any wait for the host.  Prints the card's name
 and power limit, one line per shape, and a JSON line of every time.
 Needs a CUDA card.
 """
@@ -34,16 +43,20 @@ import importlib
 import json
 import math
 import re
+import os
 import subprocess
+import sys
 import types
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.launch.profile import KERNEL_ENTRIES
 from repro_torch.launch.timing import Timer
 
-KERNELS = ("flash_attention", "paged_attention", "moe_gemm")
+KERNELS = ("flash_attention", "paged_attention", "moe_gemm",
+           "fused_sampling")
 # (B, S, H, Hkv, D): Llama-3.2-1B's 4 x 512 and 8 x 256 prefill batches,
 # Qwen3-30B-A3B's 8 x 256, and one 2048-token prompt
 SHAPES = [(4, 512, 32, 8, 64), (8, 256, 32, 8, 64), (8, 256, 32, 4, 128),
@@ -63,9 +76,87 @@ GEMM_SHAPES = [("decode B8 w1", 8, 2048, 768),
                ("prefill 8x256 w2", 2048, 768, 2048)]
 GEMM_EXPERTS, GEMM_TOP_K = 128, 8
 
+# (B, V, lanes): Llama-3.2-1B's sampled decode batch without and with K = 5
+# logprob lanes, the batch-1 steps of a prefix-hit tail, Qwen3-30B-A3B's
+# batch with lanes; lanes -1 is no lanes
+SAMPLING_SHAPES = [(8, 128256, -1), (8, 128256, 5), (1, 128256, -1),
+                   (8, 151936, 5)]
+# (label, k, p): B8 V128256 rows without lanes whose filters run the
+# histogram passes apart (min_p 0): none, tau_k's three count passes,
+# tau_p's coarse count pass and two mass passes, all five
+SAMPLING_PASSES = [("0 passes", 0, 1.0), ("3 count passes", 40, 1.0),
+                   ("1 count + 2 mass passes", 0, 0.9),
+                   ("5 passes", 40, 0.9)]
+# outputs that must equal the other kernel's bits; l and l_raw are sums in
+# another order and agree to SAMPLING_RTOL
+SAMPLING_EXACT = ("sampled", "greedy", "tau", "m", "m_raw", "top_idx",
+                  "top_vals")
+SAMPLING_RTOL = 1e-6
+
+# the host side of a checkout's own sampling wrapper, run with that
+# checkout's src first on the path
+_HOST_PROBE = """
+import torch
+from repro_torch.kernels.fused_sampling.ops import fused_sample
+from repro_torch.launch.profile import KERNEL_ENTRIES
+from repro_torch.launch.timing import Timer
+dev = torch.device("cuda", 0)
+gen = torch.Generator(device=dev).manual_seed(0)
+B, V = 8, 128256
+x = torch.randn((B, V), generator=gen, device=dev)
+k = torch.tensor([0, 1, 5, 40, 300, 0, 1, 5], dtype=torch.int32, device=dev)
+p = torch.full((B,), 0.9, device=dev)
+mp = torch.full((B,), 0.02, device=dev)
+print(Timer.host_us(lambda: fused_sample(x, x, k, p, mp)))
+"""
+
 
 def paged_label(B, S, H, Hkv, D, lengths) -> str:
     return f"B{B} max_len{S} H{H}/{Hkv} D{D} sum(len)={sum(lengths)}"
+
+
+def sampling_rows(gen, B, V, dev, k=None, p=None, min_p=None):
+    """Processed logits, Gumbel rows and raw logits (B, V) f32, with mixed
+    per-row top-k / top-p / min-p unless given."""
+    x = 2.0 * torch.randn((B, V), generator=gen, device=dev)
+    g = -torch.log(-torch.log(torch.rand((B, V), generator=gen, device=dev)
+                              .clamp(1e-7, 1 - 1e-7)))
+    raw = torch.randn((B, V), generator=gen, device=dev)
+    cyc = torch.arange(B, device=dev)
+    if k is None:
+        k = torch.tensor([0, 1, 5, 40, 300], device=dev)[cyc % 5]
+    if p is None:
+        p = torch.tensor([1.0, 0.95, 0.9, 0.5], device=dev)[cyc % 4]
+    if min_p is None:
+        min_p = torch.tensor([0.0, 0.02, 0.1], device=dev)[cyc % 3]
+    full = lambda v, dt: torch.as_tensor(v, device=dev).to(dt).expand(
+        B).contiguous()
+    return (x, g, full(k, torch.int32), full(p, torch.float32),
+            full(min_p, torch.float32), raw)
+
+
+def catch_all_rows(gen, V, dev):
+    """Three rows (V >= 8) whose crossings land on a histogram's catch-all
+    bucket past the coarse level, where the kernel sums that bucket's mass
+    apart: a top-2 whose second value falls in the lowest bucket of level 1
+    (row 0) and of level 2 (row 1, with top-p 0.9, so that this bucket's
+    mass, in the kept mass, moves tau), with the rest 3 nats or more under
+    the max; and a top-p 0.9 whose level-1 mass crossing falls in the
+    lowest bucket (row 2, k 0, the rest 40 nats under).  Each row's two
+    top values sit at ends of the row, in different ranks' slices."""
+    x = -3.0 - 2.0 * torch.randn((3, V), generator=gen, device=dev).abs()
+    x[2] = -40.0 - torch.rand((V,), generator=gen, device=dev)
+    w1, w2 = 2.0 ** -11, 2.0 ** -19          # level 1 and 2 bucket widths
+    second = torch.tensor([-0.1249, -(10 * w1 + 255.5 * w2), -0.1249],
+                          device=dev)
+    x[:, 1] = 0.0
+    x[:, V - 2] = second
+    g = -torch.log(-torch.log(torch.rand((3, V), generator=gen, device=dev)
+                              .clamp(1e-7, 1 - 1e-7)))
+    raw = torch.randn((3, V), generator=gen, device=dev)
+    k = torch.tensor([2, 2, 0], dtype=torch.int32, device=dev)
+    p = torch.tensor([1.0, 0.9, 0.9], device=dev)
+    return x, g, k, p, torch.zeros(3, device=dev), raw
 
 
 def _ops(kernel: str):
@@ -163,10 +254,60 @@ def _gemm_cases(gen, dev):
                lambda lib, a=(xs, w, be, bt, r): ops.launch(lib, *a))
 
 
+def _sampling_cases(gen, dev):
+    """(shape, call(lib)) at each sampling shape."""
+    ops = _ops("fused_sampling")
+    for B, V, lanes in SAMPLING_SHAPES:
+        x, g, k, p, mp, raw = sampling_rows(gen, B, V, dev)
+        kw = dict(raw=raw if lanes >= 0 else None, lp_k=max(lanes, 0),
+                  with_lanes=lanes >= 0)
+        ops._check(x, g, k, p, mp, kw["raw"], kw["lp_k"], kw["with_lanes"])
+        yield (f"B{B} V{V}" + (f" lanes{lanes}" if lanes >= 0 else ""),
+               lambda lib, a=(x, g, k, p, mp), kw=kw: ops.launch(lib, *a,
+                                                                **kw))
+    for label, k, p in SAMPLING_PASSES:
+        x, g, k, p, mp, _ = sampling_rows(gen, 8, 128256, dev, k, p, 0.0)
+        yield (f"B8 V128256 {label}",
+               lambda lib, a=(x, g, k, p, mp): ops.launch(
+                   lib, *a, None, lp_k=0, with_lanes=False))
+
+
+def _difference(got, want) -> dict:
+    """How this kernel's outputs differ from the other's: the largest
+    absolute difference of a tensor; for the sampler's dict, the outputs
+    whose bits differ and the largest relative difference of l / l_raw
+    (raises where SAMPLING_EXACT or SAMPLING_RTOL does not hold)."""
+    if not isinstance(got, dict):
+        return dict(max_abs_diff=(got.float() - want.float()).abs().max()
+                    .item())
+    unequal = sorted(key for key in got if not torch.equal(got[key],
+                                                           want[key]))
+    rel = max(((got[key] - want[key]).abs() / want[key].abs()).max().item()
+              for key in ("l", "l_raw") if key in got)
+    if set(unequal) - {"l", "l_raw"} or rel > SAMPLING_RTOL:
+        raise AssertionError(f"fused_sampling: {unequal} differ from the "
+                             f"other kernel's (l rel {rel:.3e})")
+    return dict(unequal_bits=unequal, max_rel_diff_l=rel)
+
+
+def wrapper_host_us(root: Path) -> float:
+    """``Timer.host_us`` of the checkout at ``root``'s own ``fused_sample``
+    at B8 V128256 (its kernel built into its own ``build/``), in a process
+    of its own."""
+    env = dict(os.environ, PYTHONPATH=str(root.resolve() / "src"))
+    env.pop("REPRO_TORCH_BUILD_DIR", None)
+    proc = subprocess.run([sys.executable, "-c", _HOST_PROBE], env=env,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"host probe of {root} failed:\n{proc.stderr}")
+    return float(proc.stdout.strip().splitlines()[-1])
+
+
 def compare(other: Path, kernel: str = "flash_attention") -> list:
     """One row a shape: the other kernel's two times and this one's (ms,
-    in the order other, this, this, other) and the largest difference
-    between their outputs."""
+    in the order other, this, this, other), each by CUDA events around the
+    call and by the profiler's duration of the kernel alone, and how
+    their outputs differ."""
     if kernel not in KERNELS:
         raise ValueError(f"flash_ab: no A/B for {kernel}, only {KERNELS}")
     dev = torch.device("cuda", 0)
@@ -174,18 +315,24 @@ def compare(other: Path, kernel: str = "flash_attention") -> list:
     timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = {"flash_attention": _flash_cases, "paged_attention": _paged_cases,
-             "moe_gemm": _gemm_cases}[kernel]
+             "moe_gemm": _gemm_cases, "fused_sampling": _sampling_cases}[kernel]
     rows = []
     for shape, fn in cases(gen, dev):
         def call(name):
             return fn(libs[name])
 
-        diff = (call("this").float() - call("other").float()).abs().max()
+        diff = _difference(call("this"), call("other"))
         times = {name: [] for name in libs}
+        alone = {name: [] for name in libs}
         for name in ("other", "this", "this", "other"):
             times[name].append(timer(lambda: call(name)))
+        for name in ("other", "this", "this", "other"):
+            alone[name].append(timer.kernel_ms(lambda: call(name),
+                                               KERNEL_ENTRIES[kernel]))
         rows.append(dict(shape=shape, other_ms=times["other"],
-                         this_ms=times["this"], max_abs_diff=diff.item()))
+                         this_ms=times["this"],
+                         other_kernel_ms=alone["other"],
+                         this_kernel_ms=alone["this"], **diff))
     return rows
 
 
@@ -204,11 +351,28 @@ def main(argv=None) -> int:
     print(smi.stdout.strip(), flush=True)
     rows = compare(args.other, args.kernel)
     for r in rows:
+        diff = (f"max |this - other| {r['max_abs_diff']:.3e}"
+                if "max_abs_diff" in r else
+                f"bits differ in {r['unequal_bits']}, l rel "
+                f"{r['max_rel_diff_l']:.3e}")
         print(f"{args.kernel} {r['shape']}: other {r['other_ms'][0]:.4f} / "
               f"{r['other_ms'][1]:.4f} ms, this {r['this_ms'][0]:.4f} / "
-              f"{r['this_ms'][1]:.4f} ms (max |this - other| "
-              f"{r['max_abs_diff']:.3e})")
-    print(json.dumps({"flash_ab": rows, "kernel": args.kernel}))
+              f"{r['this_ms'][1]:.4f} ms; kernel alone: other "
+              f"{r['other_kernel_ms'][0]:.4f} / {r['other_kernel_ms'][1]:.4f}"
+              f" ms, this {r['this_kernel_ms'][0]:.4f} / "
+              f"{r['this_kernel_ms'][1]:.4f} ms ({diff})", flush=True)
+    result = {"flash_ab": rows, "kernel": args.kernel}
+    if args.kernel == "fused_sampling":
+        here = Path(__file__).resolve().parents[3]
+        host = {"other": [], "this": []}
+        for name in ("other", "this", "this", "other"):
+            host[name].append(wrapper_host_us(args.other if name == "other"
+                                              else here))
+        print(f"fused_sample wrapper host side, B8 V128256: other "
+              f"{host['other'][0]:.1f} / {host['other'][1]:.1f} us, this "
+              f"{host['this'][0]:.1f} / {host['this'][1]:.1f} us a call")
+        result["wrapper_host_us"] = host
+    print(json.dumps(result))
     return 0
 
 

@@ -6,6 +6,9 @@ events around each launch, L2 flushed before each (the serving path finds
 each layer's K/V cold).  The events also see the card wait for the host,
 where a call's host side outlasts the flush before it.
 ``Timer.host_us(fn)`` is the host's time to issue one call, in µs.
+``Timer.kernel_ms(fn, entries)`` is the median duration of the named
+kernel alone, from ``torch.profiler``'s device trace, L2 flushed before
+each call: what the events would read if the host were never late.
 """
 from __future__ import annotations
 
@@ -37,6 +40,31 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    def kernel_ms(self, fn, entries, iters: int = 20,
+                  warmup: int = 3) -> float:
+        """Median device duration in ms of the one kernel a call of ``fn``
+        launches whose name holds one of ``entries``, L2 flushed before
+        each call (over the kernels the trace kept: at least half)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.device_time if hasattr(ev, "device_time") else ev.cuda_time
+              for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and any(e in ev.name for e in entries)]
+        if len(us) < iters // 2:   # the trace may drop a few records
+            raise RuntimeError(f"kernel_ms: {len(us)} kernels named "
+                               f"{entries} in {iters} calls")
+        return statistics.median(us) / 1e3
 
     @staticmethod
     def host_us(fn, calls: int = 200) -> float:

@@ -18,9 +18,13 @@ over two launches in both types, to its per-route launch count and to its
 refusal of a pool ``cp.async`` cannot read.  Tolerances: fp32 atol/rtol 1e-4 (summation order), bf16
 atol/rtol 2e-2 (one bf16 rounding of the output).  fp32 products run in
 full fp32 (TF32 off), so the reduced engine's greedy tokens on the card
-equal those of its plain CPU path.  The fused sampling kernel's tokens and
-top-K ids are exact against its plain version and bitwise identical over
-two launches; its stats hold to rtol 1e-5 (float summation order).  The
+equal those of its plain CPU path.  The fused sampling kernel (each row
+split across a cluster of 8 CTAs) gives its plain version's tokens and
+top-K ids exactly, bitwise identical over two launches, at the serving
+shapes, the batch-1 prefix tail, V 256000 (the largest slice), V 7 (ranks
+left empty), 40 lanes (two rounds) and a maximum tied across a rank
+boundary, and refuses a row past its limit; its stats hold to rtol 1e-5
+(float summation order).  The
 grouped GEMM holds to its plain version at the same fp32 / bf16
 tolerances, with unused (-1) blocks (exact zeros), empty experts and
 ragged D and F, on each of its routes (bf16 at block_t 64 and up on
@@ -42,6 +46,7 @@ from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
+from repro_torch.kernels.fused_sampling import ops as fs_ops
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
                                                     fused_sample_plain)
 from repro_torch.kernels.moe_gemm import ops as moe_ops
@@ -52,7 +57,9 @@ from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
 from repro_torch.kernels.ssd_scan.ops import (ssd_state_scan,
                                               ssd_state_scan_plain)
-from repro_torch.launch.flash_ab import LENGTHS, PAGED_SHAPES, paged_label
+from repro_torch.launch.flash_ab import (LENGTHS, PAGED_SHAPES,
+                                         catch_all_rows, paged_label,
+                                         sampling_rows)
 from repro_torch.launch.model_level import generate
 from repro_torch.models import transformer as TT
 from repro_torch.runtime.api import BatchMaster, BatchRequest
@@ -335,21 +342,7 @@ def test_paged_rejects_a_misaligned_pool(dev):
 def _sampling_rows(gen, B, V, dev, k=None, p=None, min_p=None):
     """Processed logits, Gumbel rows and raw logits (B, V) f32, with mixed
     per-row top-k / top-p / min-p unless given."""
-    x = 2.0 * torch.randn((B, V), generator=gen, device=dev)
-    g = -torch.log(-torch.log(torch.rand((B, V), generator=gen, device=dev)
-                              .clamp(1e-7, 1 - 1e-7)))
-    raw = torch.randn((B, V), generator=gen, device=dev)
-    cyc = torch.arange(B, device=dev)
-    if k is None:
-        k = torch.tensor([0, 1, 5, 40, 300], device=dev)[cyc % 5]
-    if p is None:
-        p = torch.tensor([1.0, 0.95, 0.9, 0.5], device=dev)[cyc % 4]
-    if min_p is None:
-        min_p = torch.tensor([0.0, 0.02, 0.1], device=dev)[cyc % 3]
-    full = lambda v, dt: torch.as_tensor(v, device=dev).to(dt).expand(
-        B).contiguous()
-    return (x, g, full(k, torch.int32), full(p, torch.float32),
-            full(min_p, torch.float32), raw)
+    return sampling_rows(gen, B, V, dev, k, p, min_p)
 
 
 def _same_sample(got, want):
@@ -373,6 +366,11 @@ SAMPLING_CASES = [
     ("k1", 3, 2048, 5, 1, 1.0, 0.0),
     ("top_p_only", 4, 4097, -1, 0, 0.7, 0.0),
     ("v128256_lanes5", 8, 128256, 5, None, None, None),
+    ("b1_v128256_prefix_tail", 1, 128256, -1, 0, 0.9, 0.0),
+    ("v151936_lanes5", 8, 151936, 5, None, None, None),
+    ("b2_v256000_lanes5_largest_slice", 2, 256000, 5, None, None, None),
+    ("b1_v7_empty_ranks", 1, 7, 7, 3, 0.9, 0.0),
+    ("lanes40_two_rounds", 3, 4096, 40, None, None, None),
 ]
 
 
@@ -389,6 +387,55 @@ def test_fused_sampling_kernel_matches_plain(dev, case):
     _same_sample(got, fused_sample_plain(x, g, kk, pp, mp, **kw))
     for key in got:            # deterministic: two launches, equal bits
         assert torch.equal(got[key], again[key]), key
+
+
+def test_fused_sampling_tie_across_a_rank_boundary(dev):
+    """A maximum, a draw and a top raw entry tied between the last entry
+    of rank 0's slice and the first of rank 1's: greedy, the draw and the
+    lanes take the lower index, in a row that keeps only the pair (k = 2)
+    and in one that keeps every entry."""
+    V = 128256
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x, g, kk, pp, mp, raw = _sampling_rows(gen, 2, V, dev,
+                                           torch.tensor([2, 0]), 1.0, 0.0)
+    w = fs_ops.slice_width(V)
+    assert 0 < w < V and w % 4 == 0
+    for t, val in ((x, 30.0), (g, 10.0), (raw, 9.0)):
+        t[:, w - 1:w + 1] = val
+    kw = dict(raw=raw, lp_k=3, with_lanes=True)
+    got = fused_sample(x, g, kk, pp, mp, **kw)
+    _same_sample(got, fused_sample_plain(x, g, kk, pp, mp, **kw))
+    assert got["sampled"].tolist() == [w - 1, w - 1]
+    assert got["greedy"].tolist() == [w - 1, w - 1]
+    assert got["top_idx"][:, :2].tolist() == [[w - 1, w], [w - 1, w]]
+
+
+@pytest.mark.parametrize("V", [1000, 128256])
+def test_fused_sampling_crossings_on_the_catch_all_bucket(dev, V):
+    """Crossings that land on a refinement level's catch-all bucket, whose
+    mass the kernel sums in a pass of its own: the kernel keeps its plain
+    version's tokens, and the kept sets are the pair of top values."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x, g, kk, pp, mp, raw = catch_all_rows(gen, V, dev)
+    kw = dict(raw=raw, lp_k=2, with_lanes=True)
+    got = fused_sample(x, g, kk, pp, mp, **kw)
+    want = fused_sample_plain(x, g, kk, pp, mp, **kw)
+    _same_sample(got, want)
+    assert set(got["sampled"].tolist()) <= {1, V - 2}
+    assert torch.equal(got["tau"], want["tau"])
+
+
+def test_fused_sampling_refuses_a_row_past_its_limit(dev):
+    """One entry past ``max_vocab()`` raises before any launch; the limit
+    takes every vocabulary of the repo's configs (256000 the largest)."""
+    limit = fs_ops.max_vocab()
+    assert limit >= 256000
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x, g, kk, pp, mp, _ = _sampling_rows(gen, 1, limit + 1, dev)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match=f"limit {limit}"):
+        fused_sample(x, g, kk, pp, mp)
+    assert kernels.launches()["fused_sampling"] == 0
 
 
 def test_each_launch_is_counted_once(dev):
