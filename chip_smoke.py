@@ -101,7 +101,26 @@ result):
    a seed a row, top-5 logprobs) twice with identical streams required,
    then one 32768-token prompt and 16 greedy steps; each part must
    launch ``ssd_scan`` (once a layer per prefill), the sampled parts
-   ``fused_sampling``, and none the attention or MoE kernels.
+   ``fused_sampling``, and none the attention or MoE kernels;
+8. the batch job: full-width Llama-3.2-1B in bf16 (random weights from
+   seed 0) behind the port's ``StreamingJobDriver``, two ``NodeEngine``
+   replicas (8 slots, 2048 positions, pages of 16) sharing the weights,
+   a window of 24 and ledger segments of 16 rows.  First a probe: 8
+   requests served one at a time, as one batch and mixed with 8 others
+   must give identical tokens (a request's output is a function of the
+   request, not of its batch; the row counts at which a bf16 row of the
+   MLP's down projection changes its bits are logged beside it).  Then
+   (a) the 48-request long-tail job
+   (every fourth row sampled) in this process, launching the attention
+   kernels on their tensor-core routes and ``fused_sampling``, never
+   ``moe_gemm``; (b) the same job in a child (``python -m
+   repro_torch.launch.job``, fork + exec) SIGKILLed after 16 journaled
+   rows, leaving no output; (c) a child resuming it: completed, 48 rows
+   merged, at least 16 skipped, at most one segment replayed, and an
+   output equal to (a)'s byte for byte; (d) the weights saved, restored
+   memory-mapped onto the card (every leaf ``torch.equal``, 4 greedy
+   requests give the original's tokens), and a sequence pool snapshotted
+   after two ticks restored into a fresh engine that completes it.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -112,6 +131,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -298,8 +318,9 @@ def check_flash(dev, timer):
                      dtype)
         return err, (q, k, v, qp, kp, kw)
 
-    # Llama-3.2-1B prefill: 4 prompts of 512 (timed below), and phase 4's
-    # first batch as the engine buckets it (8 prompts, padded to 256)
+    # Llama-3.2-1B prefill: 4 prompts of 512 (timed below), and a batch of
+    # 8 prompts padded to 256 (the engine's bucket for an MoE batch; a
+    # dense engine forwards each prompt alone, phase 8)
     main = {}
     for dtype in (torch.bfloat16, torch.float32):
         main[dtype] = case("B4 S512 H32/8 D64 causal", dtype, 4, 512, 512,
@@ -1487,6 +1508,262 @@ def serve_ssm_path(dev):
     return launches
 
 
+# ---------------------------------------------------------------- phase 8
+JOB_N = 48
+
+
+def write_job_input(path: Path, vocab: int) -> None:
+    """Phase 8's job: 48 long-tail requests (prompts ~Poisson(128) up to
+    1024, budgets lognormal of mean 48 up to 256); every fourth samples
+    (T 0.8, seed 1000 + i)."""
+    from repro_torch.data.pipeline import LongTailRequestStream
+    with open(path, "w", encoding="utf-8", newline="\n") as f:
+        for i, r in enumerate(LongTailRequestStream(
+                JOB_N, seed=0, mean_in=128, mean_out=48, vocab=vocab,
+                max_in_cap=1024, max_out_cap=256)):
+            if i % 4 == 3:
+                r["body"].update(temperature=0.8, seed=1000 + i)
+            f.write(json.dumps(r) + "\n")
+
+
+def _serve_tokens(cfg, params, dev, reqs):
+    """{custom_id: tokens} of ``reqs`` served as one submit on a fresh
+    engine (no prefix index carried over) sharing ``params``."""
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.launch import job
+    from repro_torch.runtime.api import BatchMaster
+    from repro_torch.runtime.engine import NodeEngine
+    eng = NodeEngine(cfg, params=params, device=dev, **job.ENGINE)
+    master = BatchMaster([eng], SchedulerConfig(page_size=16))
+    bo = master.run(master.submit(reqs))
+    if bo.request_counts["completed"] != len(reqs):
+        raise AssertionError(f"probe requests not completed: "
+                             f"{bo.request_counts}")
+    return {r["custom_id"]: r["response"]["tokens"] for r in bo.results}
+
+
+def gemm_row_counts(dev):
+    """The row counts M at which row 0 of a bf16 (M, 8192) x (8192, 2048)
+    product (Llama-3.2-1B's MLP down projection) differs in bits from the
+    same row at M = 1: cuBLAS picks its kernel by the shape, which is why
+    a dense engine prefills each prompt alone."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    x = _rand(gen, (4096, 8192), torch.bfloat16, dev)
+    w = _rand(gen, (8192, 2048), torch.bfloat16, dev) * 0.02
+    ref = torch.matmul(x[:1], w)
+    return [m for m in (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+            if not torch.equal(torch.matmul(x[:m], w)[:1], ref)]
+
+
+def probe_batch_invariance(cfg, params, dev, reqs):
+    """Serve ``reqs[:8]`` one at a time, as one batch of 8, and mixed with
+    ``reqs[8:16]`` (16 requests through 8 slots).  Returns the differences
+    from the requests served alone: (variant, custom_id, token index,
+    alone's token, the variant's token)."""
+    alone = {}
+    for r in reqs[:8]:
+        alone.update(_serve_tokens(cfg, params, dev, [r]))
+    diffs = []
+    for variant, batch in (("batch of 8", reqs[:8]),
+                           ("mixed with 8 others", reqs[:16])):
+        got = _serve_tokens(cfg, params, dev, batch)
+        for cid, want in alone.items():
+            have = got[cid]
+            if have != want:
+                i = next((j for j, (a, b) in enumerate(zip(want, have))
+                          if a != b), min(len(want), len(have)))
+                diffs.append((variant, cid, i,
+                              want[i] if i < len(want) else None,
+                              have[i] if i < len(have) else None))
+    return diffs
+
+
+def _journaled(ledger_root: Path) -> int:
+    """Distinct custom_ids with an output record in a ledger's segments,
+    read without opening (and so without repairing) the ledger."""
+    ids = set()
+    for seg in sorted(ledger_root.glob("seg-*.jsonl")):
+        for line in seg.read_bytes().splitlines():
+            try:
+                rec = json.loads(line)
+            except ValueError:
+                continue                            # a torn tail line
+            if rec.get("kind") == "output":
+                ids.add(rec["custom_id"])
+    return len(ids)
+
+
+def serve_batch_job(dev, card: str):
+    """Full-width Llama-3.2-1B bf16 (random weights from seed 0) behind the
+    port's streaming job driver: the batch-invariance probe; (a) the
+    48-request job, two NodeEngine replicas sharing the weights, in this
+    process; (b) the same job in a child SIGKILLed after 16 journaled
+    rows; (c) a child resuming it, whose output must equal (a)'s bytes;
+    (d) checkpoints of the weights and of a sequence pool.  Returns (a)'s
+    launch counts."""
+    import shutil
+    import signal
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import CoroutineScheduler, SchedulerConfig
+    from repro_torch.launch import job
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import checkpoint
+    from repro_torch.runtime.api import BatchRequest
+    from repro_torch.runtime.engine import NodeEngine
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3_2_1b")
+    params = job.load_params(cfg, device=dev)
+    work = ROOT / "build" / "phase8"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    inp = work / "in.jsonl"
+    write_job_input(inp, cfg.vocab_size)
+    reqs = [BatchRequest.from_json(line)
+            for line in inp.read_text().splitlines()]
+
+    t0 = time.perf_counter()
+    diffs = probe_batch_invariance(cfg, params, dev, reqs)
+    if diffs:
+        raise AssertionError(
+            "bf16 decode depends on the batch: (variant, request, token "
+            f"index, alone, batched) {diffs}")
+    log(f"  batch-invariance probe: {reqs[0].custom_id}..{reqs[7].custom_id}"
+        f" served alone, as a batch of 8 and mixed with 8 others give "
+        f"identical tokens ({time.perf_counter() - t0:.1f} s); a bf16 "
+        f"(M, 8192) x (8192, 2048) product's row 0 differs from M = 1 at "
+        f"M in {gemm_row_counts(dev)}")
+
+    # (a) the clean job, its launch counts read around it alone
+    out_a = work / "clean.jsonl"
+    drv = job.make_driver(str(inp), str(out_a), str(work / "led_clean"),
+                          job.engine_factory(cfg, params, dev))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = drv.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launches()
+    check_launches("the batch job", launches, DENSE_SAMPLED)
+    check_routes("the batch job", launches)
+    rows = [json.loads(line) for line in out_a.read_text().splitlines()]
+    want = {r.custom_id: r.max_tokens for r in reqs}
+    vpad = T.padded_vocab(cfg)
+    if res.status != "completed" or res.merged_records != JOB_N or \
+            [r["custom_id"] for r in rows] != [r.custom_id for r in reqs]:
+        raise AssertionError(f"clean job: {res.status}, "
+                             f"{res.merged_records} rows merged")
+    for row in rows:
+        toks = row["response"]["tokens"]
+        if row["status_code"] != 200 or \
+                len(toks) != want[row["custom_id"]] or \
+                not all(0 <= t < vpad for t in toks):
+            raise AssertionError(f"{row['custom_id']}: bad row {row}")
+    out_tokens = sum(len(r["response"]["tokens"]) for r in rows)
+    led = res.report["ledger"]
+    log(f"  (a) clean job: {JOB_N} requests, {out_tokens} output tokens in "
+        f"{wall:.3f} s: {out_tokens / wall:.1f} output tokens/s; ledger "
+        f"{led['sealed_segments']} sealed segments + the live one, "
+        f"{led['partials_journaled']} partial blocks; {res.rounds} driver "
+        f"rounds, 2 replicas, requeued {res.requeued}; on {card}")
+    log(f"  kernel launches on the batch job: {launches}")
+    del drv
+
+    # (b) killed after 16 journaled rows, (c) resumed: children by exec
+    out_k, led_k = work / "killed.jsonl", work / "led_killed"
+    cmd = [sys.executable, "-m", "repro_torch.launch.job", str(inp),
+           str(out_k), str(led_k)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd + ["--kill-after", "16"], capture_output=True,
+                       text=True, env=env, cwd=ROOT, timeout=300)
+    t_kill = time.perf_counter() - t0
+    if p.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the killed child exited {p.returncode}, not "
+                             f"-SIGKILL:\n{p.stderr[-3000:]}")
+    if out_k.exists():
+        raise AssertionError("the killed child published a merged output")
+    n_kill = _journaled(led_k)
+    if n_kill < 16:
+        raise AssertionError(f"the killed child journaled {n_kill} rows")
+    log(f"  (b) child killed by SIGKILL after {n_kill} journaled rows "
+        f"({t_kill:.1f} s with start-up); no merged output")
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                       cwd=ROOT, timeout=300)
+    t_resume = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"the resumed child exited {p.returncode}:\n"
+                             f"{p.stderr[-3000:]}")
+    info = json.loads(p.stdout.strip().splitlines()[-1])
+    if info["status"] != "completed" or info["merged"] != JOB_N or \
+            info["skipped"] < 16 or info["replayed"] > 1:
+        raise AssertionError(f"the resumed child reported {info}")
+    if out_k.read_bytes() != out_a.read_bytes():
+        resumed = [json.loads(line) for line in
+                   out_k.read_text().splitlines()]
+        bad = [(x["custom_id"], x["response"]["tokens"][:8],
+                y["response"]["tokens"][:8])
+               for x, y in zip(rows, resumed) if x != y]
+        raise AssertionError(f"resumed output differs from the clean run "
+                             f"in {len(bad)} rows: {bad[:4]}")
+    log(f"  (c) resumed child: {info}; output equals the clean run's "
+        f"{out_a.stat().st_size} bytes ({t_resume:.1f} s with start-up)")
+
+    # (d) checkpoints: the weights (bf16) and an in-flight sequence pool
+    ck = work / "ckpt"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(str(ck), params, extra={"arch": "llama3_2_1b"})
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat, extra = checkpoint.restore(str(ck), mmap=True)
+    restored = checkpoint.unflatten_into(T.param_template(cfg), flat,
+                                         device=dev)
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    nbytes = sum(a.nbytes for a in flat.values())
+    a_leaves = checkpoint._flatten(params)
+    b_leaves = checkpoint._flatten(restored)
+    if a_leaves.keys() != b_leaves.keys() or extra["arch"] != "llama3_2_1b" \
+            or not all(b_leaves[k].dtype == v.dtype and
+                       torch.equal(b_leaves[k], v)
+                       for k, v in a_leaves.items()):
+        raise AssertionError("restored checkpoint leaves differ")
+    greedy = [BatchRequest(f"g{i}", reqs[i].prompt, 24) for i in range(4)]
+    if _serve_tokens(cfg, restored, dev, greedy) != \
+            _serve_tokens(cfg, params, dev, greedy):
+        raise AssertionError("the restored weights serve other tokens")
+    del flat, restored
+    log(f"  (d) checkpoint of {len(a_leaves)} {cfg.dtype} leaves, "
+        f"{nbytes / 1e9:.3f}"
+        f" GB: save {t_save:.2f} s, restore (mmap) + copy to the card "
+        f"{t_restore:.2f} s; every leaf torch.equal; 4 greedy requests "
+        f"give the original's tokens")
+    eng = NodeEngine(cfg, params=params, device=dev, **job.ENGINE)
+    sched = CoroutineScheduler([eng], SchedulerConfig(page_size=16))
+    sched.submit([r.prompt for r in reqs[:6]], [24] * 6)
+    for _ in range(2):
+        sched._node_tick(0, eng)
+    checkpoint.snapshot_pool(str(work / "pool"), sched)
+    eng2 = NodeEngine(cfg, params=params, device=dev, **job.ENGINE)
+    sched2 = CoroutineScheduler([eng2], SchedulerConfig(page_size=16))
+    n_pool = checkpoint.restore_pool(str(work / "pool"), sched2)
+    rep = sched2.run(max_ticks=2000)
+    if n_pool != 6 or rep["completed"] != 6 or \
+            any(len(c.generated) != 24 for c in sched2.cos.values()):
+        raise AssertionError(f"restored pool: {n_pool} sequences, "
+                             f"{rep['completed']} completed")
+    log(f"  (d) pool of {n_pool} sequences snapshotted after two ticks "
+        f"restored into a fresh engine: all completed")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1503,8 +1780,9 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
-    log(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-        else f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
@@ -1544,6 +1822,12 @@ def main() -> int:
 
     log("== 7. the SSM path: Mamba2-370M bf16, model level")
     ssm = serve_ssm_path(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== 8. the batch job: Llama-3.2-1B bf16, streaming driver, "
+        "SIGKILL + resume, checkpoints")
+    serve_batch_job(dev, card)
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm}.get(s["name"], greedy)[s["name"]]

@@ -8,8 +8,10 @@ with a plain PyTorch version beside it that runs for CPU tensors.  Entry
 points take ``device=``, default ``"cuda"``, and raise without a card
 unless the caller asks for ``"cpu"``.
 
-Ported so far: the greedy serving path of dense decoders
+Ported so far: serving of dense and MoE decoders
 (``runtime/engine.py::NodeEngine`` driven by the copied scheduler and
-``runtime/api.py::BatchMaster``), with the prefill and decode attention
-kernels.
+``runtime/api.py::BatchMaster``) and of the SSM at model level, with all
+five kernels; and the batch-job surface: write-ahead ledgers, the
+streaming job driver (``launch/job.py``), the long-tail request stream,
+the cluster simulator and checkpoints.
 """

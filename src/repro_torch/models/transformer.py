@@ -152,6 +152,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     return _map_spec(param_shapes(cfg), make)
 
 
+def param_template(cfg: ModelConfig):
+    """The parameter tree as tensors on the ``meta`` device: each leaf's
+    shape and dtype without storage (what ``checkpoint.unflatten_into``
+    fills)."""
+    return _map_spec(param_shapes(cfg), lambda path, spec: torch.empty(
+        spec[0], dtype=_leaf_dtype(cfg, spec), device="meta"))
+
+
 def params_from_numpy(np_params, cfg: ModelConfig, device=None):
     """The JAX params pytree, as numpy arrays (``np.asarray`` of each leaf;
     bf16 leaves as their 16-bit patterns), in the port's layout on

@@ -42,8 +42,8 @@ class BatchRequest:
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "BatchRequest":
-        """Build from an already-parsed input line — a streaming job
-        feeder peeks ``custom_id`` before deciding whether to materialize the
+        """Build from an already-parsed input line — the streaming driver
+        peeks ``custom_id`` before deciding whether to materialize the
         request at all (resume skip / duplicate skip)."""
         body = d.get("body", d)
         sp = SamplingParams(
@@ -79,7 +79,7 @@ class BatchObject:
 
 @dataclasses.dataclass
 class _LiveBatch:
-    """Working state of one incremental (feeder-fed) batch: a long-lived
+    """Working state of one incremental (driver-fed) batch: a long-lived
     scheduler that requests are appended to over time and pumped round by
     round.  Memory is bounded by the in-flight set, not the job: finished
     sequences are retired from the scheduler the moment their row is
@@ -101,7 +101,7 @@ class BatchMaster:
     * ``submit`` + ``run``/``stream`` — the OpenAI-style one-shot batch
       (whole request list up front, results retained on the batch object).
     * ``open`` + ``append``/``pump`` — the incremental surface the
-      streaming job feeder uses: requests trickle in under a bounded
+      streaming job driver feeds: requests trickle in under a bounded
       window, each ``pump`` runs ONE scheduler round and returns its
       records, finished rows are popped (not retained), and ``cancel``
       hands back whatever never finished (replica drain/requeue)."""
@@ -139,7 +139,7 @@ class BatchMaster:
         """Start a long-lived incremental batch: the scheduler exists
         immediately, requests arrive later via ``append``, and the caller
         pumps rounds explicitly.  This is one elastic data-parallel
-        *replica* from a streaming job feeder's point of view."""
+        *replica* from the streaming driver's point of view."""
         bid = f"batch_{uuid.uuid4().hex[:12]}"
         bo = BatchObject(id=bid, status="in_progress")
         self.batches[bid] = bo
@@ -243,8 +243,9 @@ class BatchMaster:
 
     def report(self, bid: str) -> Dict[str, Any]:
         """The scheduler report behind one batch — live (current state) or
-        final (snapshot taken at close/cancel).  One scheduler's view; a
-        job-level report merges these across replicas."""
+        final (snapshot taken at close/cancel).  One scheduler's view; the
+        driver-level ``StreamingJobDriver.report()`` merges these across
+        replicas."""
         lb = self._live.get(bid)
         if lb is not None:
             return lb.sched.report()

@@ -14,8 +14,12 @@ What differs from the JAX engine, and why:
 
 * PyTorch runs eagerly, so there are no jitted executables to bucket or
   cache; the shapes the JAX engine buckets to bound its jit caches (pow2
-  prefill batches and lengths, pow2 decode chunks) are kept, so both
-  engines compute on the same padded shapes.
+  prefill batches and lengths, pow2 decode chunks) are kept.
+* A dense model's fresh prompts are prefilled one at a time (an MoE
+  batch stays whole): cuBLAS picks a bf16 GEMM's kernel by its shape (a
+  row of the MLP's down projection has other bits at 128 rows than at
+  256), so a shared batch's padding would make a request's tokens depend
+  on its batch, and a resumed job would not repeat a clean run's bytes.
 * Caches are written in place where JAX donates them.
 * Host pages of a bf16 cache are ``uint16`` bit views (numpy has no
   bf16); ``compat.to_numpy`` / ``compat.from_numpy`` convert at the
@@ -821,7 +825,12 @@ class NodeEngine:
         lead_rows: Dict[int, torch.Tensor] = {}
         fresh_logits = None
         if fresh:
-            fresh_logits = self._prefill_fresh(fresh, lead_rows)
+            # a dense prompt is forwarded alone, so the shapes it meets
+            # are a function of the prompt (module docstring); expert
+            # capacity couples an MoE batch's rows, as in the JAX engine
+            batches = [fresh] if self.cfg.is_moe else [[c] for c in fresh]
+            fresh_logits = torch.cat(
+                [self._prefill_fresh(b, lead_rows)[:len(b)] for b in batches])
         for lead in leads:
             chain = hits.get(lead.seq_id)
             if chain is not None:

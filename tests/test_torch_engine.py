@@ -342,6 +342,39 @@ def test_seed_reproducible_across_batch_composition():
     assert len(alone) == 16
 
 
+@pytest.mark.parametrize("arch, batched", [("llama3_2_1b", False),
+                                            ("qwen3_moe_30b", True)])
+def test_prefill_batches_by_family(arch, batched):
+    """A dense engine forwards each fresh prompt alone, so a request's
+    prefill shapes are a function of its prompt (on the card a bf16 GEMM's
+    kernel depends on its row count); an MoE batch stays whole, its rows
+    coupled by expert capacity.  The tokens are the same either way."""
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    rng = np.random.default_rng(4)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+               for n in (5, 12, 9)]
+
+    def serve(batch):
+        eng = NodeEngine(cfg, max_active=4, max_len=64, page_size=8, seed=0,
+                         device="cpu")
+        sizes = []
+        orig = eng._prefill_fresh
+
+        def spy(fresh, lead_rows):
+            sizes.append(len(fresh))
+            return orig(fresh, lead_rows)
+        eng._prefill_fresh = spy
+        sched = CoroutineScheduler([eng], SchedulerConfig(page_size=8))
+        ids = sched.submit(batch, [6] * len(batch))
+        assert sched.run(max_ticks=300)["completed"] == len(batch)
+        return [sched.cos[i].generated for i in ids], sizes
+
+    together, sizes = serve(prompts)
+    assert sizes == ([3] if batched else [1, 1, 1])
+    if not batched:
+        assert together == [serve([p])[0][0] for p in prompts]
+
+
 def test_sampled_one_transfer_per_decode_page():
     """Transfer spy: sampled decode with logprobs on still performs
     exactly ONE device->host copy per decode_page."""

@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and
 its entry points need a card unless the caller asks for the CPU."""
+import json
 import os
 import re
 import subprocess
@@ -13,6 +14,8 @@ from repro_torch import compat, kernels, sampling
 from repro_torch.kernels import build
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.models import transformer as TT
+from repro_torch.launch import job
+from repro_torch.runtime import checkpoint
 from repro_torch.runtime.engine import NodeEngine
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -37,6 +40,11 @@ from repro_torch.core import forward
 from repro_torch.models import moe, ssm
 from repro_torch.launch import flash_ab, model_level, profile, timing
 from repro_torch.sampling import processors, sample
+from repro_torch.runtime import checkpoint, cluster, ledger
+from repro_torch.data import pipeline
+from repro_torch import driver
+from repro_torch.driver import replica, source
+from repro_torch.launch import job
 print("imported", sorted(m for m, mod in sys.modules.items()
                          if mod is not None
                          and m.split(".")[0] in ("jax", "repro", "ml_dtypes")))
@@ -60,7 +68,10 @@ def test_no_source_imports_jax_or_repro():
     assert {"sampling/processors.py", "sampling/sample.py",
             "kernels/fused_sampling/ops.py", "core/forward.py",
             "models/moe.py", "kernels/moe_gemm/ops.py", "models/ssm.py",
-            "kernels/ssd_scan/ops.py", "launch/model_level.py"} <= names
+            "kernels/ssd_scan/ops.py", "launch/model_level.py",
+            "runtime/ledger.py", "runtime/cluster.py", "runtime/checkpoint.py",
+            "data/pipeline.py", "driver/__init__.py", "driver/driver.py",
+            "driver/replica.py", "driver/source.py", "launch/job.py"} <= names
     bad = [f"{f.relative_to(SRC)}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -84,6 +95,35 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     eng = NodeEngine(cfg, device="cpu", max_active=2, max_len=32,
                      page_size=8)
     assert eng.cache["k"].device.type == "cpu"
+
+
+def test_job_and_checkpoint_restore_need_a_card_unless_asked_for_cpu(
+        monkeypatch, tmp_path):
+    """``launch.job`` and ``checkpoint.unflatten_into`` default to cuda and
+    raise without a card; given ``device="cpu"`` they run there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced_config("llama3_2_1b")
+    params = TT.init_params(cfg, 0, "cpu")
+    checkpoint.save(str(tmp_path / "c"), params)
+    flat, _ = checkpoint.restore(str(tmp_path / "c"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.unflatten_into(TT.param_template(cfg), flat)
+    got = checkpoint.unflatten_into(TT.param_template(cfg), flat,
+                                    device="cpu")
+    assert got["embed"].device.type == "cpu"
+    assert torch.equal(got["embed"], params["embed"])
+    inp = tmp_path / "in.jsonl"
+    inp.write_text('{"custom_id": "a", "body": {"prompt": [2, 3, 4], '
+                   '"max_tokens": 3}}\n')
+    args = [str(inp), str(tmp_path / "out.jsonl"), str(tmp_path / "led"),
+            "--reduced"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        job.main(args)
+    assert not (tmp_path / "led").exists()
+    res = job.main(args + ["--device", "cpu", "--replicas", "1"])
+    assert res.status == "completed" and res.merged_records == 1
+    row = json.loads((tmp_path / "out.jsonl").read_text())
+    assert row["custom_id"] == "a" and len(row["response"]["tokens"]) == 3
 
 
 def test_configs_are_the_published_dense_ones():
