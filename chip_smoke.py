@@ -19,11 +19,12 @@ result):
    TMA) and fp32 on the CUDA cores: its bf16 cases reach the tensor-core
    route's edges (ragged tiles, more K/V tiles than ring stages, q blocks
    at an offset down to Sq = 1, window + softcap, the true-length mask,
-   D = 32 with a group of 3, D = 128), every launch must land on the
-   route of its type, two bf16 launches must give equal bits, and it is
-   timed at four bf16 causal shapes (Llama-3.2-1B 4x512, 8x256 and one
-   2048-token prompt, Qwen3-30B-A3B 8x256 at D = 128) and in fp32 at
-   4x512.
+   D = 32 with a group of 3, D = 128, and MLA's q/k heads of 192 against
+   v heads of 128 in both types), every launch must land on the route of
+   its type, two bf16 launches must give equal bits, and it is timed at
+   five bf16 causal shapes (Llama-3.2-1B 4x512, 8x256 and one 2048-token
+   prompt, Qwen3-30B-A3B 8x256 at D = 128, DeepSeek-R1's MLA prefill 2x1024
+   with 128 heads at q/k 192, v 128) and in fp32 at 4x512.
    Decode attention (``paged_attention``, each sequence and kv head split
    across a cluster of 8 CTAs and merged in distributed shared memory;
    bf16 products on ``mma.sync``, fp32 on the CUDA cores) is held to its
@@ -51,7 +52,9 @@ result):
    own shared-sort route (no single PyTorch call computes the function).  The grouped expert GEMM (``moe_gemm``)
    is held to its plain version in bf16 and fp32 at Qwen3-30B-A3B's
    decode and 8x256-prefill shapes (w1 and w2), as the dispatch lays them
-   out, and at edge cases (an expert with no rows, unused trailing
+   out, at DeepSeek-R1's (E 256, top-8, D 7168, expert F 2048: decode B8
+   and an 8x512 prefill, w1 and w2, the plain version taken 32 blocks at
+   a time), and at edge cases (an expert with no rows, unused trailing
    blocks, ragged D and F, E=4 F=64); its bf16 prefill shapes run on the
    ``wgmma`` route (block_t 128), decode on ``mma``, fp32 on ``simt``,
    and the wgmma route is also held at its edges (D = 72, not a multiple
@@ -80,7 +83,10 @@ result):
    with module granularity, b_attn 2 of 4 slots) served once on "cuda"
    (the kernels) and once on "cpu" (the plain versions), greedy and
    sampled requests: the tokens of one page must be identical, and every
-   fp32 ``moe_gemm`` launch must be on the ``simt`` route; reduced
+   fp32 ``moe_gemm`` launch must be on the ``simt`` route; reduced fp32
+   DeepSeek-R1 (MLA, head_dim 128 + rope 64, so its prefill runs the
+   fp32 flash kernel at q/k 192, v 128: every flash launch there must be
+   at those head dims) the same way, monolithic; reduced
    fp32 Mamba2-370M at model level the same way (identical greedy and
    sampled tokens, the prefill state to atol/rtol 1e-4);
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
@@ -120,7 +126,25 @@ result):
    output equal to (a)'s byte for byte; (d) the weights saved, restored
    memory-mapped onto the card (every leaf ``torch.equal``, 4 greedy
    requests give the original's tokens), and a sequence pool snapshotted
-   after two ticks restored into a fresh engine that completes it.
+   after two ticks restored into a fresh engine that completes it;
+9. the MLA path: DeepSeek-R1 in bf16 at every published width (d_model
+   7168, 128 heads of 128 + 64, q_lora 1536, kv_lora 512, 256 experts
+   top-8 of d_ff 2048 and one shared expert of 2048, vocab 129280) with
+   its depth cut from 61 layers to 2 (49.7 GB of weights; 3 layers would
+   leave too little of the card's 80 GB), random weights from seed 0,
+   through ``BatchMaster`` and one monolithic ``NodeEngine`` (8 slots,
+   2048 positions, pages of 16): 8 greedy requests (prompts 64-512,
+   32-64 output tokens) and a resubmitted 15-page prefix whose tail runs
+   through ``mla_decode``, then 8 requests under the model's default
+   SamplingParams; it logs the memory, the weights' draw, prefill and
+   decode times and the launches per kernel; every flash launch must be
+   on the wgmma route at q/k 192, v 128, every grouped-GEMM launch on
+   ``ops.route``'s rule (wgmma at prefill, mma at decode), the sampled
+   path must launch ``fused_sampling`` at V 129280, and no path
+   ``paged_attention`` (MLA decode is plain PyTorch: no TPU kernel
+   computes it); then one B8 decode step's device time (the profiler's
+   trace) split into a layer's MLA attention, a layer's MoE FFN and the
+   whole step, beside its wall.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -167,6 +191,10 @@ MOE_GREEDY = DENSE_GREEDY + ("moe_gemm",)
 MOE_SAMPLED = MOE_GREEDY + ("fused_sampling",)
 SSM_GREEDY = ("ssd_scan",)
 SSM_SAMPLED = SSM_GREEDY + ("fused_sampling",)
+MLA_GREEDY = ("flash_attention", "moe_gemm")
+MLA_SAMPLED = MLA_GREEDY + ("fused_sampling",)
+# MLA's prefill head dims at DeepSeek-R1's widths: q/k 128 + 64, v 128
+MLA_HEADS = (192, 128)
 
 
 def log(msg: str) -> None:
@@ -251,6 +279,36 @@ class _GemmRoutes:
             f"on wgmma; {len(self.seen) - wide} at block_t < 64, all on mma")
 
 
+class _FlashShapes:
+    """Records the (q/k, v) head dims and the route of every flash launch
+    while a path runs (the wrapper's ``ops.launch``, wrapped here until
+    ``restore``)."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops
+        self.ops, self.orig, self.seen = ops, ops.launch, []
+
+        def record(lib, q, k, v, *a, **kw):
+            self.seen.append((q.shape[3], v.shape[3], ops.route(q.dtype)))
+            return self.orig(lib, q, k, v, *a, **kw)
+        ops.launch = record
+
+    def restore(self):
+        self.ops.launch = self.orig
+
+    def check(self, path: str, dims, route: str) -> int:
+        """Every launch was at head dims ``dims`` on ``route``, and there
+        was at least one; returns their count."""
+        bad = [s for s in self.seen if s != (*dims, route)]
+        if bad or not self.seen:
+            raise AssertionError(f"{path}: flash launches (q/k, v, route) "
+                                 f"off {(*dims, route)}: {bad[:5]} of "
+                                 f"{len(self.seen)}")
+        log(f"  {path}: {len(self.seen)} flash launches, all at q/k "
+            f"{dims[0]}, v {dims[1]} on the {route} route")
+        return len(self.seen)
+
+
 # ---------------------------------------------------------------- timing
 def _sdpa(q, k, v, **kw):
     """One ``F.scaled_dot_product_attention`` call on q (B,H,Sq,D), k/v
@@ -276,15 +334,17 @@ def _check(name, got, want, dtype):
 
 def _flash_bound(q, k, v, qp, kp):
     """(bound ms, bound_by, GFLOP, MB) of one causal prefill attention
-    call: each input read once and the output written once, at the card's
-    memory rate, against the operations of the (q, key) pairs the causal
-    mask lets through (every batch row has the same positions here) at
+    call: each input read once and the output (q's shape at v's head dim)
+    written once, at the card's memory rate, against the operations of
+    the (q, key) pairs the causal mask lets through (every batch row has
+    the same positions here: 2 * Dqk for the score, 2 * Dv for P V) at
     the card's peak rate for the storage type."""
     B, _, H, D = q.shape
+    Dv = v.shape[3]
     pairs = int((kp[0][None, :] <= qp[0][:, None]).sum().item())
-    flops = 4.0 * D * pairs * B * H
-    nbytes = (q.numel() * 2 + k.numel() + v.numel()) * q.element_size() \
-        + (qp.numel() + kp.numel()) * 4
+    flops = 2.0 * (D + Dv) * pairs * B * H
+    nbytes = (q.numel() + q.numel() // D * Dv + k.numel() + v.numel()) \
+        * q.element_size() + (qp.numel() + kp.numel()) * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes", flops / 1e9,
@@ -301,10 +361,10 @@ def check_flash(dev, timer):
     calls = {"wgmma": 0, "simt": 0}
 
     def case(tag, dtype, B, Sq, Skv, H, Hkv, D, causal=True, window=0,
-             softcap=0.0, q0=0):
+             softcap=0.0, q0=0, Dv=None):
         q = _rand(gen, (B, Sq, H, D), dtype, dev)
         k = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
-        v = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
+        v = _rand(gen, (B, Skv, Hkv, Dv or D), dtype, dev)
         qp = (torch.arange(Sq, dtype=torch.int32, device=dev) + q0)[None] \
             .expand(B, Sq).contiguous()
         kp = torch.arange(Skv, dtype=torch.int32, device=dev)[None] \
@@ -352,6 +412,17 @@ def check_flash(dev, timer):
     timed["B8 S256 H32/4 D128"] = case("B8 S256 H32/4 D128 causal",
                                        torch.bfloat16, 8, 256, 256, 32, 4,
                                        128)
+    # DeepSeek-R1's MLA prefill: 128 heads, q/k 192 (128 + RoPE 64) against
+    # v 128, on both routes; a ragged one and an offset q block
+    dqk, dv = MLA_HEADS
+    timed["B2 S1024 H128 D192/128"] = case(
+        "MLA B2 S1024 H128 D192/128 causal", torch.bfloat16, 2, 1024, 1024,
+        128, 128, dqk, Dv=dv)
+    for dtype in (torch.bfloat16, torch.float32):
+        case("MLA S200 H8 D192/128 (ragged tiles)", dtype, 2, 200, 200, 8,
+             8, dqk, Dv=dv)
+        case("MLA offset q Sq40 Skv300 D192/128", dtype, 1, 40, 300, 8, 8,
+             dqk, q0=260, Dv=dv)
     if ops.ROUTE_LAUNCHES != calls:
         raise AssertionError(f"flash_attention launches by route "
                              f"{ops.ROUTE_LAUNCHES}, expected {calls}")
@@ -373,21 +444,27 @@ def check_flash(dev, timer):
         plain_ms = timer(lambda: flash_attention_plain(q, k, v, qp, kp,
                                                        **kw), iters=5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = timer(_sdpa(qt, kt, vt, is_causal=True))
+        # SDPA may refuse a v narrower than q/k on this card's torch
+        try:
+            library_ms = timer(_sdpa(qt, kt, vt, is_causal=True))
+            library_host_us = timer.host_us(_sdpa(qt, kt, vt,
+                                                  is_causal=True))
+        except RuntimeError as e:
+            log(f"  sdpa refuses {shape}: {str(e).splitlines()[0]}")
+            library_ms = library_host_us = None
         # the host's side of one call (the wrapper's checks, four tensor
         # maps and a ctypes call; SDPA's dispatch), beside the card's
         host_us = timer.host_us(lambda: flash_attention(q, k, v, qp, kp,
                                                         **kw))
-        library_host_us = timer.host_us(_sdpa(qt, kt, vt, is_causal=True))
         rows[shape] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
                            library_ms=library_ms, host_us=host_us,
                            library_host_us=library_host_us)
         log(f"  flash_attention bf16 {shape} causal: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"plain {plain_ms:.4f} ms, sdpa {library_ms} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}; {gflop:.2f} GFLOP, {mb:.1f} "
             f"MB); host {host_us:.1f} us a call, sdpa's "
-            f"{library_host_us:.1f} us")
+            f"{library_host_us} us")
     ms32 = timer(lambda: flash_attention(*main[torch.float32][1][:5],
                                          **main[torch.float32][1][5]))
     log(f"  flash_attention fp32 B4 S512 H32/8 D64 causal: kernel "
@@ -729,6 +806,19 @@ def _gemm_bound(plan, xs, w, n_choices):
         nbytes, flops
 
 
+def _plain_blocks(xs, w, be, *, block_t, chunk=32):
+    """``grouped_gemm_plain`` taken ``chunk`` blocks at a time: each block's
+    rows depend only on its rows and its expert, and the plain version
+    gathers one fp32 weight a block (58.7 MB a block at DeepSeek-R1's
+    widths, ~30 GB for its 8x512 prefill in one call)."""
+    from repro_torch.kernels.moe_gemm.ops import grouped_gemm_plain
+    bt, rows = block_t, chunk * block_t
+    return torch.cat([grouped_gemm_plain(xs[i:i + rows], w,
+                                         be[i // bt:(i + rows) // bt],
+                                         block_t=bt)
+                      for i in range(0, xs.shape[0], rows)])
+
+
 def check_moe_gemm(dev, timer):
     from repro_torch.configs import get_config
     from repro_torch.kernels.moe_gemm import ops
@@ -812,6 +902,32 @@ def check_moe_gemm(dev, timer):
              256)
     explicit("bt256 D512 F200 (ragged column tile)", [3, 1], 3, 256, 4,
              512, 200)
+    # DeepSeek-R1: E=256, top-8, D=7168, expert F=2048, bf16 (a weight is
+    # 7.5 GB): a decode step of 8 slots (block_t 16, mma) and an 8 x 512
+    # prefill batch (block_t 128, wgmma), w1 and w2
+    E2, D2, F2 = 256, 7168, 2048
+    ds_w = {"w1": torch.randn((E2, D2, F2), generator=gen, device=dev,
+                              dtype=torch.bfloat16).mul_(0.02),
+            "w2": torch.randn((E2, F2, D2), generator=gen, device=dev,
+                              dtype=torch.bfloat16).mul_(0.03)}
+    deepseek = {}
+    for T, name in ((8, "decode B8"), (4096, "prefill 8x512")):
+        plan, rows_of = _routed(gen, dev, T, E2, k)
+        be, bt = plan.block_expert, plan.block_t
+        for wname, w in ds_w.items():
+            xs = rows_of(_rand(gen, (T, w.shape[1]), torch.bfloat16, dev))
+            got = grouped_gemm(xs, w, be, block_t=bt)
+            r = ops.route(torch.bfloat16, bt, w.shape[1], w.shape[2], True)
+            calls[r] += 1
+            torch.cuda.synchronize()
+            err = _check(f"moe_gemm DeepSeek {name} {wname} bt{bt} rows"
+                         f"{xs.shape[0]} bf16 ({r})", got,
+                         _plain_blocks(xs, w, be, block_t=bt), torch.bfloat16)
+            if got[(be < 0).repeat_interleave(bt)].any():
+                raise AssertionError(f"moe_gemm DeepSeek {name}: unused "
+                                     f"blocks' rows are not exact zeros")
+            deepseek[f"DeepSeek {name} {wname}"] = (T, (err, xs, plan, w))
+            del got
     if ops.ROUTE_LAUNCHES != calls:
         raise AssertionError(f"moe_gemm launches by route "
                              f"{ops.ROUTE_LAUNCHES}, expected {calls}")
@@ -829,34 +945,36 @@ def check_moe_gemm(dev, timer):
         "bits")
     del again
 
-    cfg = get_config("qwen3_moe_30b")
     rows = {}
     timed = {"decode B8 w1": (8, main[(torch.bfloat16, 8)]),
              "prefill 8x256 w1": (2048, main[(torch.bfloat16, 2048)]),
-             "prefill 8x256 w2": (2048, prefill_w2)}
+             "prefill 8x256 w2": (2048, prefill_w2), **deepseek}
     for label, (T, (err, xs, plan, w)) in timed.items():
         be, bt = plan.block_expert, plan.block_t
-        Din, Fo = w.shape[1], w.shape[2]
+        Ew, Din, Fo = w.shape
+        cfg = get_config("deepseek_r1" if label.startswith("DeepSeek")
+                         else "qwen3_moe_30b")
+        plain = _plain_blocks if label.startswith("DeepSeek") \
+            else grouped_gemm_plain
         r = ops.route(torch.bfloat16, bt, Din, Fo, True)
         bound, by, nbytes, flops = _gemm_bound(plan, xs, w, T * k)
         ms = timer(lambda: grouped_gemm(xs, w, be, block_t=bt))
         host_us = timer.host_us(lambda: grouped_gemm(xs, w, be, block_t=bt))
-        plain_ms = timer(lambda: grouped_gemm_plain(xs, w, be, block_t=bt),
-                         iters=5)
+        plain_ms = timer(lambda: plain(xs, w, be, block_t=bt), iters=5)
         # the reference's own contraction: one bmm over (E, C, D)
-        buf = _rand(gen, (E, expert_capacity(cfg, T), Din), torch.bfloat16,
+        buf = _rand(gen, (Ew, expert_capacity(cfg, T), Din), torch.bfloat16,
                     dev)
         bmm_ms = timer(lambda: torch.bmm(buf, w))
         gmm_ms = None
         if hasattr(torch, "_grouped_mm"):
             counts = torch.bincount(torch.topk(torch.randn(
-                (T, E), generator=gen, device=dev), k).indices.reshape(-1),
-                minlength=E)
+                (T, Ew), generator=gen, device=dev), k).indices.reshape(-1),
+                minlength=Ew)
             xa = _rand(gen, (T * k, Din), torch.bfloat16, dev)
             offs = torch.cumsum(counts, 0).to(torch.int32)
             gmm_ms = timer(lambda: torch._grouped_mm(xa, w, offs=offs))
         used = int((be >= 0).sum().item())
-        log(f"  moe_gemm bf16 {label} (T={T}, top-{k} of {E}, D{Din} "
+        log(f"  moe_gemm bf16 {label} (T={T}, top-{k} of {Ew}, D{Din} "
             f"F{Fo}, rows {xs.shape[0]}, block_t {bt}, {used} used blocks, "
             f"{r} route): kernel {ms:.4f} ms, host {host_us:.1f} us a "
             f"call, plain {plain_ms:.4f} ms, bmm over (E,C,D) {bmm_ms:.4f} "
@@ -868,6 +986,7 @@ def check_moe_gemm(dev, timer):
                            rows=xs.shape[0], route=r)
         del buf
     print(json.dumps({"moe_gemm_shapes": rows}), flush=True)
+    del deepseek, ds_w, timed
     d = rows["decode B8 w1"]
     err16 = max(main[(torch.bfloat16, T)][0] for T in (8, 2048))
     err32 = max(main[(torch.float32, T)][0] for T in (8, 2048))
@@ -1196,12 +1315,21 @@ def reduced_cpu_vs_cuda(dev):
     _reduced_pair(dev, "llama3_2_1b", {}, sps, DENSE_SAMPLED)
     _reduced_pair(dev, "qwen3_moe_30b",
                   dict(module_granularity=True, b_attn=2), sps, MOE_SAMPLED)
+    # MLA at DeepSeek-R1's head dims, so its prefill runs the fp32 flash
+    # kernel at q/k 192, v 128; monolithic (module granularity refuses MLA)
+    _reduced_pair(dev, "deepseek_r1", {}, sps, MLA_SAMPLED,
+                  over=dict(head_dim=MLA_HEADS[1],
+                            rope_head_dim=MLA_HEADS[0] - MLA_HEADS[1]),
+                  flash_dims=MLA_HEADS)
     _reduced_ssm_pair(dev)
 
 
-def _reduced_pair(dev, arch, engine_kw, sps, expected):
-    """The reduced fp32 model served on "cuda" (the kernels) and on "cpu"
-    (the plain versions): the tokens of one page must be identical."""
+def _reduced_pair(dev, arch, engine_kw, sps, expected, over=None,
+                  flash_dims=None):
+    """The reduced fp32 model (``over`` replacing fields) served on "cuda"
+    (the kernels) and on "cpu" (the plain versions): the tokens of one page
+    must be identical.  With ``flash_dims`` every flash launch on "cuda"
+    must be at those (q/k, v) head dims, on the fp32 route."""
     from repro_torch import kernels
     from repro_torch.configs import reduced_config
     from repro_torch.core.scheduler import SchedulerConfig
@@ -1210,7 +1338,8 @@ def _reduced_pair(dev, arch, engine_kw, sps, expected):
     from repro_torch.runtime.api import BatchMaster, BatchRequest
     from repro_torch.runtime.engine import NodeEngine
 
-    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
+                              **(over or {}))
     params = T.init_params(cfg, seed=3, device="cpu")
     rng = np.random.default_rng(3)
     reqs = [(f"s{i}", [int(t) for t in rng.integers(2, cfg.vocab_size, n)],
@@ -1225,8 +1354,13 @@ def _reduced_pair(dev, arch, engine_kw, sps, expected):
         master = BatchMaster([eng], SchedulerConfig(page_size=page))
         moe_ops.reset_routes()
         before = kernels.launches()
-        bo = master.run(master.submit(
-            [BatchRequest(c, pr, page, sampling=sp) for c, pr, sp in reqs]))
+        shapes = _FlashShapes()
+        try:
+            bo = master.run(master.submit(
+                [BatchRequest(c, pr, page, sampling=sp)
+                 for c, pr, sp in reqs]))
+        finally:
+            shapes.restore()
         after = kernels.launches()
         used = {k: after[k] - before[k] for k in after}
         if moe_ops.ROUTE_LAUNCHES != {"wgmma": 0, "mma": 0,
@@ -1240,6 +1374,8 @@ def _reduced_pair(dev, arch, engine_kw, sps, expected):
             f"launches {used}")
         check_launches(f"reduced {arch} on {device}", used,
                        expected if device == "cuda" else ())
+        if flash_dims is not None and device == "cuda":
+            shapes.check(f"reduced {arch} on cuda", flash_dims, "simt")
     if out["cuda"] != out["cpu"]:
         raise AssertionError(f"{arch}: tokens differ: cuda {out['cuda']} "
                              f"vs cpu {out['cpu']}")
@@ -1764,6 +1900,211 @@ def serve_batch_job(dev, card: str):
     return launches
 
 
+# ---------------------------------------------------------------- phase 9
+def serve_mla_path(dev):
+    """DeepSeek-R1 at every published width, its depth cut to 2 layers
+    (bf16, random weights from seed 0), through ``BatchMaster`` and one
+    monolithic ``NodeEngine``: 8 greedy requests and a resubmitted prefix
+    (its tail through ``mla_decode``), then 8 requests under the model's
+    default SamplingParams.  Returns the greedy and the sampled launch
+    counts."""
+    from repro_torch import kernels
+    from repro_torch.configs import default_sampling, get_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.api import BatchMaster, BatchRequest
+    from repro_torch.runtime.engine import NodeEngine
+
+    full = get_config("deepseek_r1")
+    cfg = dataclasses.replace(full, num_layers=2)
+    log(f"  {cfg.name} at its published widths; one cut: num_layers "
+        f"{full.num_layers} -> {cfg.num_layers} (the weights of 3 layers, "
+        f"72.8 GB, would leave too little of the card)")
+    page = 16
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"  weights ({T.param_count(cfg) / 1e9:.3f} B params, "
+        f"{T.param_count(cfg, active_only=True) / 1e9:.3f} B active, "
+        f"{cfg.dtype}) drawn in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated, peak "
+        f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    eng = NodeEngine(cfg, params=params, max_active=8, max_len=2048,
+                     page_size=page, device=dev)
+    nbytes = sum(t.numel() * t.element_size() for t in eng.cache.values())
+    log(f"  slot cache {({n: tuple(t.shape) for n, t in eng.cache.items()})}"
+        f", {nbytes / 1e6:.1f} MB")
+    master = BatchMaster([eng], SchedulerConfig(page_size=page))
+    rng = np.random.default_rng(9)
+    vpad = T.padded_vocab(cfg)
+
+    def prompt(n):
+        return [int(t) for t in rng.integers(2, cfg.vocab_size, n)]
+
+    def serve(batches, tag, expected, prefill=True):
+        clock = _PageClock(eng)
+        gemms, shapes = _GemmRoutes(), _FlashShapes()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        out = {}
+        try:
+            for reqs in batches:
+                bo = master.run(master.submit(reqs))
+                if bo.request_counts["completed"] != len(reqs) or \
+                        bo.request_counts["failed"]:
+                    raise AssertionError(f"{tag}: requests not completed: "
+                                         f"{bo.request_counts}")
+                out.update({r["custom_id"]: r["response"]
+                            for r in bo.results})
+        finally:
+            gemms.restore()
+            shapes.restore()
+            clock.restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        used = kernels.launches()
+        check_launches(tag, used, expected)
+        gemms.check(tag, prefill)
+        shapes.check(tag, MLA_HEADS, "wgmma")
+        want = {r.custom_id: r.max_tokens for reqs in batches for r in reqs}
+        for cid, resp in out.items():
+            toks = resp["tokens"]
+            if not toks or len(toks) > want[cid] or \
+                    not all(0 <= t < vpad for t in toks):
+                raise AssertionError(f"{tag} {cid}: bad tokens {toks}")
+        n_out = sum(len(r["tokens"]) for r in out.values())
+        pf_s, pf_tok, _ = clock.per_step("prefill")
+        kind = "sampled" if expected == MLA_SAMPLED else "decode"
+        _, dc_steps, dc_ms = clock.per_step(kind)
+        log(f"  {tag}: {len(out)} requests, {n_out} output tokens in "
+            f"{wall:.3f} s: {n_out / wall:.1f} output tokens/s; prefill "
+            f"{pf_s * 1e3:.1f} ms for {pf_tok} prompt tokens (calls: "
+            + ", ".join(f"{s * 1e3:.1f} ms / {n}"
+                        for s, n in clock.spans["prefill"])
+            + f"); decode {dc_ms:.2f} ms/step over {dc_steps} steps; peak "
+            f"device memory {torch.cuda.max_memory_allocated(dev) / 1e9:.2f}"
+            f" GB; launches {used}")
+        return out, used
+
+    # one 64-token prompt: 512 choices over 256 experts, block_t 16 (mma)
+    serve([[BatchRequest("warm", prompt(64), 4)]], "greedy warm-up",
+          MLA_GREEDY, prefill=False)
+    lens = [64, 96, 128, 192, 256, 320, 384, 512]
+    outs = [32, 36, 40, 44, 48, 52, 56, 64]
+    greedy = [BatchRequest(f"g{i}", prompt(n), m)
+              for i, (n, m) in enumerate(zip(lens, outs))]
+    # a resubmitted prefix: 15 shared pages of g7, then a new tail of 20
+    # tokens teacher-forced through mla_decode
+    hit = [BatchRequest("p0", greedy[7].prompt[:15 * page] + prompt(20), 32)]
+    saved0 = eng.prefill_tokens_saved
+    g_out, g_used = serve([greedy, hit], "greedy + prefix hit", MLA_GREEDY)
+    if eng.prefill_tokens_saved - saved0 != 15 * page:
+        raise AssertionError(f"the resubmitted prefix saved "
+                             f"{eng.prefill_tokens_saved - saved0} tokens, "
+                             f"not {15 * page}")
+    for r in greedy + hit:
+        if len(g_out[r.custom_id]["tokens"]) != r.max_tokens:
+            raise AssertionError(f"{r.custom_id}: "
+                                 f"{len(g_out[r.custom_id]['tokens'])} "
+                                 f"tokens, asked for {r.max_tokens}")
+    sampled = [BatchRequest(f"s{i}", prompt(n), m, sampling=default_sampling(
+        "deepseek_r1", seed=200 + i)) for i, (n, m) in enumerate(zip(lens,
+                                                                     outs))]
+    _, s_used = serve([sampled], "sampled (the model card's T 0.6, top-p "
+                      "0.95)", MLA_SAMPLED)
+
+    # the model's logits on two prompts and one decode step after them:
+    # finite, of the padded vocabulary
+    toks = torch.tensor([greedy[0].prompt, greedy[1].prompt[:64]],
+                        dtype=torch.int32, device=dev)
+    logits, pc = T.prefill(cfg, params, toks)
+    cache = T.init_cache(cfg, 2, 128, dev)
+    for n, t in pc.items():
+        cache[n][:, :, :64] = t
+    step, _ = T.decode_step_logits(
+        cfg, params, cache, torch.argmax(logits[:, 0], -1).to(torch.int32),
+        torch.full((2,), 64, dtype=torch.int32, device=dev))
+    if logits.shape != (2, 1, vpad) or step.shape != (2, vpad) or \
+            not torch.isfinite(logits).all() or \
+            not torch.isfinite(step).all():
+        raise AssertionError(f"bad MLA logits {tuple(logits.shape)}, "
+                             f"{tuple(step.shape)}")
+    log(f"  prefill and decode-step logits finite, of V {vpad}")
+    _mla_step_split(cfg, params, dev)
+    return g_used, s_used
+
+
+def _device_ms(fn, n: int = 4):
+    """(device ms a call, {kernel class: device ms a call}) of ``fn``,
+    from ``torch.profiler``'s trace of ``n`` calls after one warm-up: the
+    kernels' own time, without the host's gaps between them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile import kernel_class
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = ev.device_time if hasattr(ev, "device_time") \
+                else ev.cuda_time
+            c = kernel_class(ev.name)
+            by[c] = by.get(c, 0.0) + us / 1e3 / n
+    return sum(by.values()), by
+
+
+def _mla_step_split(cfg, params, dev):
+    """Where one decode step's device time goes at phase 9's batch (8
+    rows at position 1024 of a 2048-position cache of random latents):
+    one layer's absorbed MLA decode attention (fp32 PyTorch), one layer's
+    MoE FFN (router, dispatch, three ``moe_gemm`` launches, the shared
+    expert) and the whole step (2 layers, final norm, LM head), each
+    summed from the profiler's device trace; and the step's time on the
+    host's clock beside it."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+
+    B = 8
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    cache = {n: t.normal_(generator=gen)
+             for n, t in T.init_cache(cfg, B, 2048, dev).items()}
+    lengths = torch.full((B,), 1024, dtype=torch.int32, device=dev)
+    toks = torch.randint(2, cfg.vocab_size, (B,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    x = torch.randn((B, 1, cfg.d_model), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    tab = layers.rope_tables(lengths[:, None], cfg.rope_head_dim,
+                             cfg.rope_theta)
+    p0 = T._per_layer(params)[0]
+    attn, _ = _device_ms(lambda: layers.mla_decode(
+        cfg, p0["attn"], x, cache["ckv"][0], cache["kr"][0], lengths,
+        rope_tab=tab))
+    ffn, ffn_by = _device_ms(lambda: T.ffn(cfg, p0, x))
+    step, step_by = _device_ms(lambda: T.decode_step_logits(
+        cfg, params, cache, toks, lengths))
+    t = time.perf_counter()
+    for _ in range(4):
+        T.decode_step_logits(cfg, params, cache, toks, lengths)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / 4
+    log(f"  a B8 decode step at position 1024, device time from the "
+        f"profiler's trace: MLA decode attention {attn:.3f} ms a layer, MoE "
+        f"FFN {ffn:.3f} ms a layer ("
+        + ", ".join(f"{c} {ms:.3f}" for c, ms in sorted(
+            ffn_by.items(), key=lambda kv: -kv[1]))
+        + f"), the whole step {step:.3f} ms ("
+        + ", ".join(f"{c} {ms:.3f}" for c, ms in sorted(
+            step_by.items(), key=lambda kv: -kv[1]))
+        + f"); the step's wall {wall:.3f} ms (host clock): device busy "
+        f"{step / wall:.3f}")
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1828,6 +2169,16 @@ def main() -> int:
     log("== 8. the batch job: Llama-3.2-1B bf16, streaming driver, "
         "SIGKILL + resume, checkpoints")
     serve_batch_job(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log("== 9. the MLA path: DeepSeek-R1 bf16 at its published widths, 2 "
+        "layers")
+    torch.cuda.reset_peak_memory_stats(dev)
+    mla_greedy, mla_sampled = serve_mla_path(dev)
+    log(f"  phase 9 launches: greedy {mla_greedy}, sampled {mla_sampled}")
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm}.get(s["name"], greedy)[s["name"]]

@@ -1,5 +1,6 @@
 """Architecture registry of the PyTorch port: one module per architecture
-the port serves so far, dense, MoE and SSM (copies of ``repro.configs``).
+the port serves so far, dense, MoE (DeepSeek-R1's MLA among them) and SSM
+(copies of ``repro.configs``).
 ``get_config(name)`` returns the full published config;
 ``reduced_config(name)`` returns a tiny same-family config for CPU smoke
 tests (same code paths, small dims)."""
@@ -15,6 +16,7 @@ ARCH_IDS = [
     "phi3_5_moe",
     "qwen3_moe_30b",
     "mamba2_370m",
+    "deepseek_r1",   # the paper's own model
 ]
 
 
@@ -28,6 +30,7 @@ SAMPLING_DEFAULTS = {
     "smollm_360m": dict(temperature=0.6, top_p=0.92),
     "phi3_5_moe": dict(temperature=0.7, top_p=0.95),
     "qwen3_moe_30b": dict(temperature=0.6, top_p=0.95, top_k=20),
+    "deepseek_r1": dict(temperature=0.6, top_p=0.95),
 }
 
 

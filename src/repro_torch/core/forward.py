@@ -44,6 +44,19 @@ class ModuleTrace:
     tokens: int
 
 
+def check_module_granularity(cfg: ModelConfig) -> None:
+    """What ``ModuleRuntime`` serves: ``NodeEngine``'s decoders with GQA
+    attention.  MLA raises: the runtime splits attention over the {k, v}
+    cache, and the JAX ``ModuleRuntime`` (which reads ``cache["k"]``) has
+    no MLA path either."""
+    T.check_served(cfg)
+    if cfg.use_mla:
+        raise NotImplementedError(
+            f"{cfg.name}: module granularity splits GQA attention over the "
+            f"{{k, v}} cache; MLA's latent cache has no such path (nor has "
+            f"the JAX ModuleRuntime)")
+
+
 class ModuleRuntime:
     """A model's decode step split at the paper's yield points.
 
@@ -52,7 +65,7 @@ class ModuleRuntime:
     as memory-prohibitive by the paper)."""
 
     def __init__(self, cfg: ModelConfig, params):
-        T.check_served(cfg)
+        check_module_granularity(cfg)
         self.cfg = cfg
         self.params = params
         self.layer_params = T._per_layer(params)

@@ -2,13 +2,17 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/flash_attention.py
 // ::flash_attention_tpu, under the contract of repro/models/flash.py
-// ::flash_attention that the serving path runs: q (B, Sq, H, D) against
-// k/v (B, Skv, Hkv, D) with explicit q/kv positions, causal and
-// sliding-window masks, a tanh logit softcap, Sq != Skv (the tail recompute
-// after a prefix hit starts at an offset) and GQA (q head h reads kv head
-// h / (H / Hkv)).  Output (B, Sq, H, D) in the input type; softmax
-// statistics and accumulators in fp32.  A masked score is the finite
-// rt::kNeg, never -inf, as in the plain version.
+// ::flash_attention that the serving path runs: q (B, Sq, H, DQK) against
+// k (B, Skv, Hkv, DQK) and v (B, Skv, Hkv, DV) with explicit q/kv
+// positions, causal and sliding-window masks, a tanh logit softcap, Sq !=
+// Skv (the tail recompute after a prefix hit starts at an offset) and GQA
+// (q head h reads kv head h / (H / Hkv)).  Output (B, Sq, H, DV) in the
+// input type; the scale is 1/sqrt(DQK); softmax statistics and
+// accumulators in fp32.  A masked score is the finite rt::kNeg, never
+// -inf, as in the plain version.  The head dims are template parameters:
+// (DQK, DV) = (32, 32), (64, 64), (128, 128), and (192, 128), MLA's
+// prefill (DeepSeek-R1: a 128-wide no-RoPE part and a 64-wide RoPE part
+// in q and k, v 128 wide).
 //
 // What bounds it on an H100: at the serving path's prefill shape (B=4,
 // S=512, H=32, D=64, causal, bf16) the work is ~4.3 GFLOP against ~21 MB
@@ -37,7 +41,7 @@
 // done with it, so the two warpgroups run apart by up to two tiles.  Per
 // tile and warpgroup: a tile none of its rows may attend to is skipped;
 // S = Q K^T by wgmma m64n64k16 with both operands in shared memory
-// (K-major: D is contiguous in a key row); the scale 1/sqrt(D) is applied
+// (K-major: D is contiguous in a key row); the scale 1/sqrt(DQK) is applied
 // to S in fp32, then the softcap, then the mask from the positions (a
 // tile every row attends to in full, without softcap, skips the mask and
 // folds the scale into the exponent's FMA), then the online softmax in
@@ -53,23 +57,29 @@
 // first.  No atomics: two launches on the same inputs give equal bits.
 // Tile sizes: 128 q rows share each K/V tile between two warpgroups
 // (half the K/V traffic of 64-row CTAs); 64-key tiles keep S at 32
-// registers a thread beside O's D/2 (122 registers at D = 64, two CTAs an
-// SM; 155 at D = 128, one).  128-key tiles, a third ring stage or four
+// registers a thread beside O's DV/2 (122 registers at D = 64, two CTAs an
+// SM; 155 at D = 128, one).  At (192, 128) V keeps its own width: a stage
+// is a 24 KiB K tile (three 64-column boxes, so S = Q K^T runs 12 k16
+// steps) and a 16 KiB V tile, and the CTA's shared memory is the 48 KiB Q
+// tile, a ring of 4 such stages (160 KiB) and the tile list; a V padded to
+// 192 would leave the list almost no room.  O is written back over the
+// first two of Q's three boxes.  128-key tiles, a third ring stage or four
 // stages with loads three tiles ahead, an O += P V of the previous tile
 // started beside the next S (overlapping the softmax), and two CTAs an SM
 // at D = 128 were each measured no faster on an H100 (PERF.md).  No
 // producer warp, no warp specialisation and no ping-pong between the
 // warpgroups: those are the next steps.  The tile list takes 12 bytes of
 // shared memory a 64-key tile, so D = 128 takes up to ~354K keys (~791K at
-// D = 64); past that the wrapper refuses the call (ops.py's max_keys).
+// D = 64, ~92K at (192, 128)); past that the wrapper refuses the call
+// (ops.py's max_keys).
 //
 // fp32 runs the first version of this kernel, on the CUDA cores (wgmma
 // takes no fp32 operands, and TF32 would keep ~3 digits): one CTA per
 // (64-row q tile, q head, batch row), 256 threads; the q tile is loaded
-// once (pre-scaled by 1/sqrt(D)); the CTA walks 64-key tiles of K and V
+// once (pre-scaled by 1/sqrt(DQK)); the CTA walks 64-key tiles of K and V
 // through shared memory with an online softmax (running max m, sum l and
 // the fp32 accumulator in registers: each thread owns 4 rows x 4 keys of
-// the score tile and 4 rows x D/16 output columns), and skips a tile no
+// the score tile and 4 rows x DV/16 output columns), and skips a tile no
 // row of the CTA may attend to before its K/V are read.
 //
 // In both routes keys are masked at the true Skv: nothing is padded, so
@@ -93,30 +103,30 @@ constexpr int BK = 64;       // keys per K/V tile
 constexpr int NT = 256;      // threads: 16 row groups x 16 lanes
 constexpr int PS = BK + 4;   // row stride of the probability tile
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ q_pos,
                  const int* __restrict__ kv_pos, T* __restrict__ out, int Sq,
                  int Skv, int H, int Hkv, int causal, int window,
                  float softcap, float scale) {
-  constexpr int DP = D + 1;   // padded row stride of the Q and K tiles
-  constexpr int DC = D / 16;  // output columns per thread
+  constexpr int DP = DQK + 1;  // padded row stride of the Q and K tiles
+  constexpr int DC = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qs = smem;            // BQ x DP
   float* Ks = Qs + BQ * DP;    // BK x DP
-  float* Vs = Ks + BK * DP;    // BK x D
-  float* Ps = Vs + BK * D;     // BQ x PS
+  float* Vs = Ks + BK * DP;    // BK x DV
+  float* Ps = Vs + BK * DV;    // BQ x PS
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, d = e % D, qi = q0 + r;
+  for (int e = tid; e < BQ * DQK; e += NT) {
+    const int r = e / DQK, d = e % DQK, qi = q0 + r;
     float x = 0.f;
     if (qi < Sq)
-      x = rt::to_f32(q[(((size_t)b * Sq + qi) * H + h) * D + d]) * scale;
+      x = rt::to_f32(q[(((size_t)b * Sq + qi) * H + h) * DQK + d]) * scale;
     Qs[r * DP + d] = x;
   }
 
@@ -163,16 +173,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (!__syncthreads_or(any)) continue;
 
 #pragma unroll 4
-    for (int e = tid; e < BK * D; e += NT) {
-      const int c = e / D, d = e % D, kj = k0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (kj < Skv) {
-        const size_t off = (((size_t)b * Skv + kj) * Hkv + hk) * D + d;
-        kx = rt::to_f32(k[off]);
-        vx = rt::to_f32(v[off]);
-      }
-      Ks[c * DP + d] = kx;
-      Vs[c * D + d] = vx;
+    for (int e = tid; e < BK * DQK; e += NT) {
+      const int c = e / DQK, d = e % DQK, kj = k0 + c;
+      Ks[c * DP + d] =
+          kj < Skv ? rt::to_f32(k[(((size_t)b * Skv + kj) * Hkv + hk) * DQK +
+                                  d])
+                   : 0.f;
+    }
+#pragma unroll 4
+    for (int e = tid; e < BK * DV; e += NT) {
+      const int c = e / DV, d = e % DV, kj = k0 + c;
+      Vs[c * DV + d] =
+          kj < Skv ? rt::to_f32(v[(((size_t)b * Skv + kj) * Hkv + hk) * DV +
+                                  d])
+                   : 0.f;
     }
     __syncthreads();
 
@@ -182,7 +196,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float a[4], c[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = Qs[(ty * 4 + i) * DP + d];
@@ -234,7 +248,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i) p[i] = Ps[(ty * 4 + i) * PS + c];
 #pragma unroll
-      for (int cc = 0; cc < DC; ++cc) w[cc] = Vs[c * D + tx + 16 * cc];
+      for (int cc = 0; cc < DC; ++cc) w[cc] = Vs[c * DV + tx + 16 * cc];
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -248,21 +262,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty * 4 + i;
     if (qi >= Sq) continue;
     const float lsafe = fmaxf(l[i], 1e-30f);
-    T* o = out + (((size_t)b * Sq + qi) * H + h) * D;
+    T* o = out + (((size_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc)
       o[tx + 16 * cc] = rt::from_f32<T>(acc[i][cc] / lsafe);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* kv_pos, void* out, int B,
                    int Sq, int Skv, int H, int Hkv, int causal, int window,
                    float softcap, float scale, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * PS);
-  auto kern = flash_fwd_kernel<T, D>;
+      sizeof(float) * (BQ * (DQK + 1) + BK * (DQK + 1) + BK * DV + BQ * PS);
+  auto kern = flash_fwd_kernel<T, DQK, DV>;
   cudaError_t err = rt::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
@@ -288,23 +302,31 @@ constexpr int STAGES = 4;  // K/V ring
 constexpr int AHEAD = 2;   // tiles loaded ahead of the one computed
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared-memory geometry of a head dim.  A TMA box is at most 64 bf16
-// columns (128 bytes, the swizzle's width); D = 128 takes two boxes a
-// tile, stored one after the other.
-template <int D>
+// Shared-memory geometry of a pair of head dims.  A TMA box is at most 64
+// bf16 columns (128 bytes, the swizzle's width); a wider row takes several
+// boxes a tile, stored one after the other: Q and K DQK / 64 of them, V
+// DV / 64.  Both head dims share the box width, so one swizzle and one
+// descriptor stride serve every tile.
+template <int DQK, int DV>
 struct Geo {
-  static constexpr int kBoxCols = D < 64 ? D : 64;
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxCols = DQK < 64 ? DQK : 64;
+  static_assert((DV < 64 ? DV : 64) == kBoxCols && DV <= DQK &&
+                    DQK % kBoxCols == 0 && DV % kBoxCols == 0,
+                "head dims of one box width, DV <= DQK");
+  static constexpr int kQKBoxes = DQK / kBoxCols;
+  static constexpr int kVBoxes = DV / kBoxCols;
   static constexpr int kRowBytes = kBoxCols * 2;
   static constexpr uint32_t kAtom = 8 * kRowBytes;  // 8 rows of a box
   static constexpr uint64_t kSwizzle =
-      D < 64 ? sm90::kSwizzle64 : sm90::kSwizzle128;
+      kBoxCols < 64 ? sm90::kSwizzle64 : sm90::kSwizzle128;
   static constexpr int kKSteps = kBoxCols / 16;     // k16 steps a box
-  static constexpr uint32_t kQBytes = BQ * D * 2;
-  static constexpr uint32_t kTileBytes = BK * D * 2;  // one K or V tile
+  static constexpr uint32_t kQBytes = BQ * DQK * 2;  // O reuses its boxes
+  static constexpr uint32_t kKBytes = BK * DQK * 2;  // one K tile
+  static constexpr uint32_t kVBytes = BK * DV * 2;   // one V tile
+  static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
   // offsets from the 1024-aligned base: Q, then per stage K and V
   static constexpr uint32_t kKV = kQBytes;
-  static constexpr uint32_t kBars = kKV + STAGES * 2 * kTileBytes;
+  static constexpr uint32_t kBars = kKV + STAGES * kStageBytes;
   // barriers: full[STAGES], empty[STAGES], q
   static constexpr uint32_t kKvPos = kBars + 8 * (2 * STAGES + 1);
   static constexpr uint32_t kRed = kKvPos + STAGES * BK * 4;  // int [2][NW]
@@ -321,7 +343,7 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x; -1e30 gives 0
   return y;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
@@ -331,7 +353,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const int* __restrict__ kv_pos, int Sq, int Skv, int H,
                 int Hkv, int causal, int window, float softcap,
                 float scale) {
-  using G = Geo<D>;
+  using G = Geo<DQK, DV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
@@ -365,21 +387,22 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     sm90::fence_mbar_init();
     sm90::mbar_expect_tx(bar_q, G::kQBytes);
 #pragma unroll
-    for (int i = 0; i < G::kBoxes; ++i)
+    for (int i = 0; i < G::kQKBoxes; ++i)
       sm90::tma_load_4d(sQ + i * BQ * G::kRowBytes, &tq, bar_q,
                         i * G::kBoxCols, h, q0, b);
   }
   auto load_kv = [&](int t, int st) {
-    const uint32_t k_dst = sQ + G::kKV + st * 2 * G::kTileBytes;
-    const uint32_t v_dst = k_dst + G::kTileBytes;
-    sm90::mbar_expect_tx(bar_full + 8 * st, 2 * G::kTileBytes);
+    const uint32_t k_dst = sQ + G::kKV + st * G::kStageBytes;
+    const uint32_t v_dst = k_dst + G::kKBytes;
+    sm90::mbar_expect_tx(bar_full + 8 * st, G::kStageBytes);
 #pragma unroll
-    for (int i = 0; i < G::kBoxes; ++i) {
+    for (int i = 0; i < G::kQKBoxes; ++i)
       sm90::tma_load_4d(k_dst + i * BK * G::kRowBytes, &tk, bar_full + 8 * st,
                         i * G::kBoxCols, hk, t * BK, b);
+#pragma unroll
+    for (int i = 0; i < G::kVBoxes; ++i)
       sm90::tma_load_4d(v_dst + i * BK * G::kRowBytes, &tv, bar_full + 8 * st,
                         i * G::kBoxCols, hk, t * BK, b);
-    }
   };
   // entry i of the tile list into stage i % STAGES, by threads < BK
   // (warps 0 and 1): thread 0 starts the TMA, each thread writes the kv
@@ -482,9 +505,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const float s_mul = softcap > 0.f ? scale / softcap : scale * kLog2e;
   const float cap_mul = softcap * kLog2e;
 
-  float o[D / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m0 = rt::kNeg, m1 = rt::kNeg, l0 = 0.f, l1 = 0.f;  // m in log2 units
   const uint32_t q_rows = sQ + 64 * wg * G::kRowBytes;
 
@@ -504,8 +527,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     const bool full =
         k0 + BK <= Skv && (!causal || khi[t] <= wq_min) &&
         (window <= 0 || (long long)klo[t] > (long long)wq_max - window);
-    const uint32_t k_tile = sQ + G::kKV + st * 2 * G::kTileBytes;
-    const uint32_t v_tile = k_tile + G::kTileBytes;
+    const uint32_t k_tile = sQ + G::kKV + st * G::kStageBytes;
+    const uint32_t v_tile = k_tile + G::kKBytes;
     sm90::mbar_wait(bar_full + 8 * st, (it / STAGES) & 1);
     if (!skip) {
       // S = Q K^T
@@ -515,7 +538,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       sm90::fence_regs(s);
       sm90::wgmma_fence();
 #pragma unroll
-      for (int k = 0; k < D / 16; ++k) {
+      for (int k = 0; k < DQK / 16; ++k) {
         const int box = k / G::kKSteps, col = (k % G::kKSteps) * 32;
         const uint64_t da =
             sm90::desc(q_rows + box * BQ * G::kRowBytes + col, 16, G::kAtom,
@@ -596,7 +619,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       l0 = l0 * corr0 + sum0;  // this thread's share; the quad sums last
       l1 = l1 * corr1 + sum1;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         o[4 * j] *= corr0;
         o[4 * j + 1] *= corr0;
         o[4 * j + 2] *= corr1;
@@ -620,7 +643,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         const uint64_t dv =
             sm90::desc(v_tile + kk * 16 * G::kRowBytes, BK * G::kRowBytes,
                        G::kAtom, G::kSwizzle);
-        sm90::wgmma_rs<D>(o, a[kk], dv);
+        sm90::wgmma_rs<DV>(o, a[kk], dv);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
@@ -643,10 +666,10 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   // 16-byte chunk c of a row moves to c ^ (row % 8) (128-byte swizzle) or
   // c ^ (row / 2 % 4) (64-byte): the bits 7.. of the offset into 4..
   auto swz = [](uint32_t off) {
-    return off ^ (((off >> 7) & (D < 64 ? 3u : 7u)) << 4);
+    return off ^ (((off >> 7) & (G::kBoxCols < 64 ? 3u : 7u)) << 4);
   };
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DV / 8; ++j) {
     const int col = 8 * j + c0, box = col / G::kBoxCols;
     const uint32_t tile = q_rows + box * BQ * G::kRowBytes;
     const uint32_t cb = (col % G::kBoxCols) * 2;
@@ -665,7 +688,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   sm90::named_barrier(1 + wg, 128);
   if (tid % 128 == 0 && q0 + 64 * wg < Sq) {
 #pragma unroll
-    for (int i = 0; i < G::kBoxes; ++i)
+    for (int i = 0; i < G::kVBoxes; ++i)
       sm90::tma_store_4d(&to, q_rows + i * BQ * G::kRowBytes,
                          i * G::kBoxCols, h, q0 + 64 * wg, b);
     sm90::bulk_commit();
@@ -696,19 +719,19 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int heads,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* kv_pos, void* out, int B,
                    int Sq, int Skv, int H, int Hkv, int causal, int window,
                    float softcap, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
-  cudaError_t err = make_map(&tq, q, D, H, Sq, B, BQ);
-  if (err == cudaSuccess) err = make_map(&tk, k, D, Hkv, Skv, B, BK);
-  if (err == cudaSuccess) err = make_map(&tv, v, D, Hkv, Skv, B, BK);
-  if (err == cudaSuccess) err = make_map(&to, out, D, H, Sq, B, 64);
+  cudaError_t err = make_map(&tq, q, DQK, H, Sq, B, BQ);
+  if (err == cudaSuccess) err = make_map(&tk, k, DQK, Hkv, Skv, B, BK);
+  if (err == cudaSuccess) err = make_map(&tv, v, DV, Hkv, Skv, B, BK);
+  if (err == cudaSuccess) err = make_map(&to, out, DV, H, Sq, B, 64);
   if (err != cudaSuccess) return err;
-  const size_t smem = Geo<D>::smem_bytes((Skv + BK - 1) / BK);
-  auto kern = flash_fwd_wgmma<D>;
+  const size_t smem = Geo<DQK, DV>::smem_bytes((Skv + BK - 1) / BK);
+  auto kern = flash_fwd_wgmma<DQK, DV>;
   err = rt::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
@@ -720,58 +743,59 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace tc
 
 // fp32 -> CUDA cores, bf16 -> tensor cores
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* kv_pos, void* out, int B,
                    int Sq, int Skv, int H, int Hkv, int causal, int window,
                    float softcap, float scale, cudaStream_t stream) {
   if constexpr (std::is_same_v<T, float>)
-    return simt::launch<float, D>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H,
-                                  Hkv, causal, window, softcap, scale,
-                                  stream);
+    return simt::launch<float, DQK, DV>(q, k, v, q_pos, kv_pos, out, B, Sq,
+                                        Skv, H, Hkv, causal, window, softcap,
+                                        scale, stream);
   else
-    return tc::launch<D>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
-                         causal, window, softcap, scale, stream);
+    return tc::launch<DQK, DV>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H,
+                               Hkv, causal, window, softcap, scale, stream);
 }
 
+// The instantiated (DQK, DV) pairs; ops.py's HEAD_DIMS lists the same.
 template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     const int* q_pos, const int* kv_pos, void* out, int B,
-                     int Sq, int Skv, int H, int Hkv, int causal, int window,
-                     float softcap, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 32:
-      return launch<T, 32>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
+cudaError_t dispatch(int DQK, int DV, const void* q, const void* k,
+                     const void* v, const int* q_pos, const int* kv_pos,
+                     void* out, int B, int Sq, int Skv, int H, int Hkv,
+                     int causal, int window, float softcap, float scale,
+                     cudaStream_t stream) {
+#define REPRO_FLASH_CASE(A, C)                                            \
+  if (DQK == A && DV == C)                                                \
+    return launch<T, A, C>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, \
                            causal, window, softcap, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
-                           causal, window, softcap, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv,
-                            causal, window, softcap, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  REPRO_FLASH_CASE(32, 32)
+  REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(128, 128)
+  REPRO_FLASH_CASE(192, 128)
+#undef REPRO_FLASH_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success).
+// DQK is the head dim of q and k, DV that of v and out.
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* kv_pos, void* out, int B, int Sq, int Skv, int H, int Hkv,
-    int D, int causal, int window, float softcap, float scale, int dtype,
-    void* stream) {
+    int DQK, int DV, int causal, int window, float softcap, float scale,
+    int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
-    return dispatch<float>(D, q, k, v, qp, kp, out, B, Sq, Skv, H, Hkv,
-                           causal, window, softcap, scale, s);
+    return dispatch<float>(DQK, DV, q, k, v, qp, kp, out, B, Sq, Skv, H,
+                           Hkv, causal, window, softcap, scale, s);
   if (dtype == rt::kBF16)
-    return dispatch<__nv_bfloat16>(D, q, k, v, qp, kp, out, B, Sq, Skv, H,
-                                   Hkv, causal, window, softcap, scale, s);
+    return dispatch<__nv_bfloat16>(DQK, DV, q, k, v, qp, kp, out, B, Sq, Skv,
+                                   H, Hkv, causal, window, softcap, scale,
+                                   s);
   return cudaErrorInvalidValue;
 }

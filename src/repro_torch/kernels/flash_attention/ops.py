@@ -8,12 +8,15 @@ routes, chosen here by the storage type: bf16 runs on the tensor cores
 (``wgmma``, K/V tiles by TMA), fp32 on the CUDA cores.  Each launch is
 counted in ``kernels.LAUNCHES`` and, by route, in ``ROUTE_LAUNCHES``.
 A bf16 input the tensor-core route cannot take raises; it never goes to
-the fp32 route.
+the fp32 route.  V may be narrower than q and k (MLA's prefill: q/k heads
+of 192, v heads of 128) for the instantiated pairs of ``HEAD_DIMS``; V is
+never padded, and any other pair raises.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -23,7 +26,8 @@ from repro_torch.models import flash
 
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+# the (q/k, v) head dims the kernel is instantiated for, on both routes
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
 _ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 _LIB = None
 # The most shared memory one CTA may take on an H100 (227 KiB).
@@ -41,14 +45,17 @@ def route(dtype) -> str:
     return _ROUTES[dtype]
 
 
-def max_keys(D: int) -> int:
-    """The most keys (Skv) the tensor-core route takes at head dim D.  Its
-    CTA's shared memory (``Geo<D>::smem_bytes`` in ``csrc/
-    flash_attention.cu``) is Q, a 4-stage K/V ring, barriers and positions,
-    1280 * D + 2188 bytes, then 12 bytes a 64-key tile for the tile list
-    and each tile's kv position range: ~354K keys at D = 128, ~791K at 64,
-    ~1.0M at 32."""
-    return (_SMEM_LIMIT - 1280 * D - 2188) // 12 * 64
+def max_keys(dqk: int, dv: Optional[int] = None) -> int:
+    """The most keys (Skv) the tensor-core route takes at q/k head dim
+    ``dqk`` and v head dim ``dv`` (``dqk`` when absent).  Its CTA's shared
+    memory (``Geo<DQK, DV>::smem_bytes`` in ``csrc/flash_attention.cu``) is
+    a 128-row Q tile (256 * dqk bytes), a 4-stage ring of 64-key K and V
+    tiles (512 * (dqk + dv)), barriers, positions and the 1024-byte
+    alignment (2188), then 12 bytes a 64-key tile for the tile list and
+    each tile's kv position range: ~354K keys at (128, 128), ~791K at
+    (64, 64), ~1.0M at (32, 32), ~92K at (192, 128)."""
+    fixed = 256 * dqk + 512 * (dqk + (dqk if dv is None else dv)) + 2188
+    return (_SMEM_LIMIT - fixed) // 12 * 64
 
 
 def reset_routes() -> None:
@@ -67,7 +74,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     loaded library."""
     fn = lib.repro_flash_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     return lib
 
@@ -92,16 +99,18 @@ def _check(q, k, v, q_pos, kv_pos):
                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if q_pos.dtype != torch.int32 or kv_pos.dtype != torch.int32:
         raise TypeError(f"{NAME}: positions must be int32")
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"{NAME}: q (B,Sq,H,D), k/v (B,Skv,Hkv,D); got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"{NAME}: q (B,Sq,H,Dqk), k (B,Skv,Hkv,Dqk), v "
+                         f"(B,Skv,Hkv,Dv); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or k.shape[3] != D or H % Hkv:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"{NAME}: head dim {D} not in {_HEAD_DIMS}")
+    if (D, Dv) not in HEAD_DIMS:
+        raise ValueError(f"{NAME}: head dim (q/k {D}, v {Dv}) not in "
+                         f"{HEAD_DIMS}")
     if q_pos.shape != (B, Sq) or kv_pos.shape != (B, Skv):
         raise ValueError(f"{NAME}: positions {tuple(q_pos.shape)}, "
                          f"{tuple(kv_pos.shape)} vs q {tuple(q.shape)}, "
@@ -114,17 +123,18 @@ def _check(q, k, v, q_pos, kv_pos):
                 raise ValueError(f"{NAME}: bf16 {name} must start on a "
                                  f"16-byte boundary for TMA, its address "
                                  f"is {t.data_ptr():#x}")
-        if Skv > max_keys(D):
-            raise ValueError(f"{NAME}: bf16 takes at most {max_keys(D)} "
-                             f"keys at head dim {D} (its tile list must "
-                             f"fit the CTA's 227 KiB of shared memory), "
-                             f"got Skv {Skv}")
+        if Skv > max_keys(D, Dv):
+            raise ValueError(f"{NAME}: bf16 takes at most "
+                             f"{max_keys(D, Dv)} keys at head dim (q/k {D}, "
+                             f"v {Dv}) (its tile list must fit the CTA's "
+                             f"227 KiB of shared memory), got Skv {Skv}")
 
 
 def flash_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
                     softcap=0.0):
-    """q (B,Sq,H,D), k/v (B,Skv,Hkv,D), q_pos (B,Sq) / kv_pos (B,Skv)
-    int32 -> (B,Sq,H,D) in q's dtype."""
+    """q (B,Sq,H,Dqk), k (B,Skv,Hkv,Dqk), v (B,Skv,Hkv,Dv), q_pos (B,Sq) /
+    kv_pos (B,Skv) int32 -> (B,Sq,H,Dv) in q's dtype; the scale is
+    1/sqrt(Dqk)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal,
                                      window=window, softcap=softcap)
@@ -142,13 +152,13 @@ def launch(lib, q, k, v, q_pos, kv_pos, *, causal, window, softcap):
     """One launch of ``repro_flash_attention_fwd`` from ``lib`` on checked
     CUDA tensors; raises if the launch failed.  Counts nothing."""
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, D,
+            kv_pos.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, D, Dv,
             int(bool(causal)), int(window), float(softcap),
             1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
     if err != 0:

@@ -178,7 +178,28 @@ def build_other(root: Path, kernel: str = "flash_attention") -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     if kernel == "moe_gemm" and not _gemm_takes_route(src):
         return _bind_gemm_without_route(lib)
+    if kernel == "flash_attention" and not _flash_takes_dv(src):
+        return _bind_flash_without_dv(lib)
     return _ops(kernel).bind(lib)
+
+
+def _flash_takes_dv(src: Path) -> bool:
+    """Whether a ``flash_attention.cu``'s C entry point takes v's head dim
+    apart from q's (``int DV``, added for MLA's prefill)."""
+    sig = re.search(r"repro_flash_attention_fwd\(([^)]*)\)", src.read_text())
+    return sig is not None and "int DV" in sig.group(1)
+
+
+def _bind_flash_without_dv(lib: ctypes.CDLL):
+    """An older library's ``repro_flash_attention_fwd``, with one head dim,
+    behind the current signature: v's head dim (equal to q's at every
+    shape timed here) is dropped."""
+    fn = lib.repro_flash_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    return types.SimpleNamespace(
+        repro_flash_attention_fwd=lambda *args: fn(*args[:12], *args[13:]))
 
 
 def _gemm_takes_route(src: Path) -> bool:

@@ -5,6 +5,8 @@ card and serves a batch of greedy requests through the BatchMaster.
     PYTHONPATH=src python -m repro_torch.launch.serve --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_30b \
         --module-granularity --b-attn 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_r1 \
+        --reduced --device cpu
 
 ``--module-granularity`` decodes through the Algorithm-1 module runtime:
 attention in sub-batches of ``--b-attn`` slots (0: all of them), COMBINE
@@ -12,7 +14,10 @@ before each FFN/MoE layer.
 
 The weights are random, drawn from ``--seed``.  Without a CUDA card the
 default ``--device cuda`` raises; ``--device cpu`` runs the plain
-PyTorch path.
+PyTorch path.  A config whose weights exceed the card's memory is refused
+before any is drawn (the full ``deepseek_r1``: 1.41 TB of bf16 weights;
+``chip_smoke.py`` serves it at full width with its depth cut to 2
+layers).
 """
 from __future__ import annotations
 
@@ -22,8 +27,10 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.core.scheduler import SchedulerConfig
+from repro_torch.models import transformer as T
 from repro_torch.runtime.api import BatchMaster, BatchRequest
 from repro_torch.runtime.engine import NodeEngine
 
@@ -45,6 +52,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    device = compat.resolve_device(args.device)
+    if device.type == "cuda":
+        weights = T.param_count(cfg) * compat.torch_dtype(cfg.dtype).itemsize
+        card = torch.cuda.get_device_properties(device).total_memory
+        if weights > card:
+            raise SystemExit(
+                f"serve: {cfg.name}'s weights take {weights / 1e9:.1f} GB in "
+                f"{cfg.dtype}, more than the card's {card / 1e9:.1f} GB; it "
+                f"does not fit one card (pass --reduced)")
     engines = [NodeEngine(cfg, node_id=i, max_active=args.max_active,
                           max_len=args.max_len, page_size=args.page_size,
                           seed=args.seed, device=args.device,

@@ -3,11 +3,13 @@ attention.
 
 Forward of ``repro.models.flash._flash_fwd_impl`` (the contract the JAX
 package's prefill runs): GQA with flat q heads (B, Sq, H, dh) against
-grouped k/v (B, Skv, Hkv, dh) without repeating K/V, explicit q/kv
-positions, causal and sliding-window masks, a tanh logit softcap, and
-Sq != Skv.  Softmax statistics are fp32.  Unlike the JAX scan, the loop
-takes a ragged last chunk, so Skv need not be a multiple of the chunk and
-keys are masked at the true Skv.
+grouped k (B, Skv, Hkv, dh) and v (B, Skv, Hkv, dv) without repeating
+K/V, explicit q/kv positions, causal and sliding-window masks, a tanh
+logit softcap, and Sq != Skv.  dv may differ from dh (MLA's prefill: q/k
+heads of 192, v heads of 128); the scale is 1/sqrt(dh).  Softmax
+statistics are fp32.  Unlike the JAX scan, the loop takes a ragged last
+chunk, so Skv need not be a multiple of the chunk and keys are masked at
+the true Skv.
 
 ``kernels/flash_attention`` holds the Hopper kernel of the same contract;
 its wrapper runs this function for tensors on the CPU.
@@ -35,8 +37,8 @@ def _mask(q_pos, kv_pos, causal: bool, window: int):
 def flash_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
                     window: int = 0, softcap: float = 0.0,
                     chunk: int = 512):
-    """q (B,Sq,H,dh), k/v (B,Skv,Hkv,dh), positions (B,Sq)/(B,Skv) int ->
-    (B,Sq,H,dv) in q's dtype."""
+    """q (B,Sq,H,dh), k (B,Skv,Hkv,dh), v (B,Skv,Hkv,dv), positions
+    (B,Sq)/(B,Skv) int -> (B,Sq,H,dv) in q's dtype."""
     B, Sq, H, dh = q.shape
     Skv, Hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Hkv

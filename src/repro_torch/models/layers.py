@@ -1,20 +1,24 @@
-"""Core layers of the dense decoder: norms, RoPE, GQA attention, gated MLP.
+"""Core layers of the decoders: norms, RoPE, GQA and MLA attention, gated
+MLP.
 
-PyTorch counterpart of the dense subset of ``repro.models.layers``, with
-the same numerics order (norm reductions and softmax statistics in fp32,
-activations in ``cfg.dtype``) and the same layouts: q heads flat
-(B, S, H, dh), k/v grouped (B, S, Hkv, dh), weights in the JAX einsum
-layouts ``wq (D,H,dh)``, ``wo (H,dh,D)``, ``w1 (D,F)``.
+PyTorch counterpart of ``repro.models.layers`` for the dense and MoE
+decoders, with the same numerics order (norm reductions and softmax
+statistics in fp32, activations in ``cfg.dtype``) and the same layouts:
+q heads flat (B, S, H, dh), k/v grouped (B, S, Hkv, dh), weights in the
+JAX einsum layouts ``wq (D,H,dh)``, ``wo (H,dh,D)``, ``w1 (D,F)``, and
+MLA's ``wq_b (r_q,H,dn+dr)``, ``wk_b / wv_b (r_kv,H,dn)``.
 
 Attention runs through the Hopper kernels of ``repro_torch.kernels``:
-full-sequence attention through ``flash_attention`` and one-token decode
+full-sequence attention through ``flash_attention`` (MLA's prefill too,
+at q/k heads of dn + dr and v heads of dn) and one-token GQA decode
 through ``paged_attention`` (a dense cache is a page pool with the
-identity table).  On CPU tensors those wrappers run their plain PyTorch
-versions.
+identity table).  MLA's absorbed decode attends over the latent cache in
+fp32 PyTorch, as the JAX package's einsums do: no TPU kernel computes
+it.  On CPU tensors the kernel wrappers run their plain PyTorch versions.
 
 Caches are written in place (the JAX package donates them instead):
-``cache_update`` and ``attention_decode`` return the same tensors they
-were given.
+``cache_update``, ``attention_decode`` and ``mla_decode`` return the same
+tensors they were given.
 """
 from __future__ import annotations
 
@@ -77,6 +81,12 @@ def rope(x, positions, theta: float):
     return apply_rope(x, rope_tables(positions, x.shape[-1], theta))
 
 
+def rope_dim(cfg: ModelConfig) -> int:
+    """The width RoPE rotates: MLA's ``rope_head_dim`` slice, else the
+    whole head."""
+    return cfg.rope_head_dim if cfg.use_mla else cfg.head_dim
+
+
 # ---------------------------------------------------------------------------
 # Attention cores
 # ---------------------------------------------------------------------------
@@ -115,8 +125,9 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
 
 
 def cache_update(cache, new, lengths):
-    """Write ``new`` (B, 1, Hkv, dh) at position ``lengths`` of ``cache``
-    (B, S, Hkv, dh), in place.  Rows whose index falls outside [0, S) are
+    """Write ``new`` (B, 1, ...) at position ``lengths`` of ``cache``
+    (B, S, ...), in place: (B, S, Hkv, dh) K/V, or MLA's (B, S, r) latent
+    leaves.  Rows whose index falls outside [0, S) are
     no-op writes (finished slots sit at ``lengths == S``)."""
     B, S = cache.shape[0], cache.shape[1]
     rows = torch.arange(B, device=cache.device)
@@ -181,6 +192,68 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
     o = decode_attention(q, k_cache, v_cache, lengths + 1,
                          window=cfg.sliding_window, softcap=cfg.logit_softcap)
     return _merge_heads(o, p["wo"]), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA attention (DeepSeek-style latent KV)
+# ---------------------------------------------------------------------------
+
+
+def mla_project(cfg: ModelConfig, p, x, positions, *, rope_tab=None):
+    """Low-rank projections with RoPE on the ``rope_head_dim`` slices:
+    (q_nope (B,S,H,dn), q_rope (B,S,H,dr), c_kv (B,S,r_kv), k_rope
+    (B,S,dr)).  ``rope_tab`` are tables at ``rope_head_dim``."""
+    dn, r = cfg.head_dim, cfg.kv_lora_rank
+    tab = rope_tab if rope_tab is not None else rope_tables(
+        positions, cfg.rope_head_dim, cfg.rope_theta)
+    cq = rms_norm(torch.matmul(x, p["wq_a"]), p["q_norm"])
+    q = _proj_heads(cq, p["wq_b"])
+    q_nope, q_rope = q[..., :dn], apply_rope(q[..., dn:], tab)
+    ckv = torch.matmul(x, p["wkv_a"])
+    c_kv = rms_norm(ckv[..., :r], p["kv_norm"])
+    # k_rope carries a head axis of one while it is rotated
+    k_rope = apply_rope(ckv[..., r:][:, :, None, :], tab)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_fwd(cfg: ModelConfig, p, x, positions, *, rope_tab=None):
+    """Prefill: decompress the latent KV and run causal MHA through the
+    flash kernel, q/k heads of dn + dr against v heads of dn; returns
+    (out, (c_kv, k_rope)) for the cache."""
+    q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, positions,
+                                               rope_tab=rope_tab)
+    k_nope = _proj_heads(c_kv, p["wk_b"])
+    v = _proj_heads(c_kv, p["wv_b"])
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        k_nope.shape[:3] + (cfg.rope_head_dim,))], -1)
+    o = chunked_attention(q, k, v, positions, positions, causal=True)
+    return _merge_heads(o, p["wo"]), (c_kv, k_rope)
+
+
+def mla_decode(cfg: ModelConfig, p, x, ckv_cache, krope_cache, lengths, *,
+               rope_tab=None):
+    """Absorbed one-token decode in latent space: writes the token's c_kv
+    and k_rope at ``lengths`` of the (B, S, r) caches in place, then
+    attends over positions < lengths + 1 in fp32; returns (out,
+    ckv_cache, krope_cache)."""
+    q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, lengths[:, None],
+                                               rope_tab=rope_tab)
+    cache_update(ckv_cache, c_kv, lengths)
+    cache_update(krope_cache, k_rope, lengths)
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
+    scale = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_head_dim)
+    ckv = ckv_cache.float()
+    s = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), ckv)
+         + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
+                        krope_cache.float())) * scale
+    S = ckv_cache.shape[1]
+    mask = torch.arange(S, device=x.device)[None, :] < (lengths + 1)[:, None]
+    s = torch.where(mask[:, None, None, :], s, -1e30)
+    pattn = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqs,bsr->bqhr", pattn, ckv).to(x.dtype)
+    o = torch.einsum("bqhr,rhk->bqhk", o_lat, p["wv_b"])
+    return _merge_heads(o, p["wo"]), ckv_cache, krope_cache
 
 
 # ---------------------------------------------------------------------------

@@ -2,16 +2,19 @@
 sampled, with or without logprobs) and its logprob planes.
 
 PyTorch counterpart of ``repro.models.transformer`` for the families the
-port serves so far: dense decoders, MoE decoders without MLA
-(``models/moe.py`` for the expert layer) and Mamba-2 SSMs
-(``models/ssm.py``).  Parameters are a plain dict in the JAX package's
-layout: per-layer leaves stacked with a leading L (``layers.attn.wq`` is
-(L, D, H, dh), ``layers.moe.w1`` (L, E, D, F), ``layers.ssm.wx`` (L, D,
-W)), so ``params_from_numpy`` takes the JAX params pytree as numpy
-unchanged.  The layer stack is a Python loop over per-layer views; the
-decode cache is written in place: ``{"k", "v"}`` of (L, B, max_len,
-Hkv, dh) for attention, ``{"conv_x", "conv_B", "conv_C", "state"}`` of
-(L, B, ...) for an SSM, whose prefill cache is its decode cache.
+port serves so far: dense decoders, MoE decoders (``models/moe.py`` for
+the expert layer), with GQA or, as DeepSeek-R1, MLA attention, and
+Mamba-2 SSMs (``models/ssm.py``).  Parameters are a plain dict in the JAX
+package's layout: per-layer leaves stacked with a leading L
+(``layers.attn.wq`` is (L, D, H, dh), ``layers.attn.wq_b`` (L, r_q, H,
+dn + dr), ``layers.moe.w1`` (L, E, D, F), ``layers.ssm.wx`` (L, D, W)),
+so ``params_from_numpy`` takes the JAX params pytree as numpy unchanged.
+The layer stack is a Python loop over per-layer views; the decode cache
+is written in place: ``{"k", "v"}`` of (L, B, max_len, Hkv, dh) for GQA
+attention, ``{"ckv", "kr"}`` of (L, B, max_len, kv_lora_rank) and (L, B,
+max_len, rope_head_dim) for MLA, ``{"conv_x", "conv_B", "conv_C",
+"state"}`` of (L, B, ...) for an SSM, whose prefill cache is its decode
+cache.
 """
 from __future__ import annotations
 
@@ -35,15 +38,19 @@ def check_model(cfg: ModelConfig) -> None:
     """What the port's model functions serve so far: dense and MoE
     decoders with RMSNorm, a gated MLP, full RoPE attention, no sliding
     window and no logit softcap (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M,
-    Qwen3-30B-A3B, Phi-3.5-MoE), and Mamba-2 SSMs (Mamba2-370M).  MLA,
-    windows and the other families wait for later slices."""
-    if (cfg.family not in ("dense", "moe", "ssm") or cfg.use_mla
+    Qwen3-30B-A3B, Phi-3.5-MoE), MoE decoders with MLA (DeepSeek-R1: the
+    JAX package builds MLA in MoE layers only), and Mamba-2 SSMs
+    (Mamba2-370M).  Windows and the other families wait for later
+    slices."""
+    if (cfg.family not in ("dense", "moe", "ssm")
+            or (cfg.use_mla and cfg.family != "moe")
             or cfg.sliding_window > 0 or cfg.norm != "rmsnorm"
             or cfg.logit_softcap > 0):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port's model functions serve dense "
-            f"and MoE RMSNorm decoders without MLA, a sliding window or a "
-            f"logit softcap, and Mamba-2 SSMs, so far")
+            f"and MoE RMSNorm decoders (MLA in MoE decoders only) without "
+            f"a sliding window or a logit softcap, and Mamba-2 SSMs, so "
+            f"far")
 
 
 def check_served(cfg: ModelConfig) -> None:
@@ -84,8 +91,18 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         return dict(top, layers={"ln1": norm((L,)),
                                  "ssm": ssm.param_spec(cfg, (L,))})
 
-    attn = {"wq": ((L, D, H, dh), sc), "wk": ((L, D, Hkv, dh), sc),
-            "wv": ((L, D, Hkv, dh), sc), "wo": ((L, H, dh, D), sc * lsc)}
+    if cfg.use_mla:     # repro.models.layers.init_mla
+        r_q, r_kv, dr = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim
+        attn = {"wq_a": ((L, D, r_q), sc), "q_norm": ((L, r_q), "ones"),
+                "wq_b": ((L, r_q, H, dh + dr), 1.0 / math.sqrt(r_q)),
+                "wkv_a": ((L, D, r_kv + dr), sc),
+                "kv_norm": ((L, r_kv), "ones"),
+                "wk_b": ((L, r_kv, H, dh), 1.0 / math.sqrt(r_kv)),
+                "wv_b": ((L, r_kv, H, dh), 1.0 / math.sqrt(r_kv)),
+                "wo": ((L, H, dh, D), sc * lsc)}
+    else:
+        attn = {"wq": ((L, D, H, dh), sc), "wk": ((L, D, Hkv, dh), sc),
+                "wv": ((L, D, Hkv, dh), sc), "wo": ((L, H, dh, D), sc * lsc)}
     if cfg.attn_bias:
         attn.update(bq=((L, H, dh), "zeros"), bk=((L, Hkv, dh), "zeros"),
                     bv=((L, Hkv, dh), "zeros"))
@@ -118,10 +135,12 @@ def _leaf_dtype(cfg: ModelConfig, spec) -> torch.dtype:
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     """Random weights drawn from a seeded ``torch.Generator`` on the target
-    device (normal draws in fp32, scaled, cast to each leaf's dtype).  A
-    stacked layer leaf is drawn one layer at a time into its final tensor,
-    so the fp32 temporary is one layer's (Qwen3-30B-A3B's ``moe.w1`` is
-    19.3 GB in bf16; drawn whole, its fp32 draw alone would take 38.7 GB).
+    device (normal draws in fp32, scaled in place, cast to each leaf's
+    dtype).  A stacked layer leaf is drawn one layer at a time into its
+    final tensor, and a leaf with an expert axis one (layer, expert) at a
+    time, so the fp32 temporary is one expert's matrix at most
+    (DeepSeek-R1's ``moe.w1`` is 7.5 GB a layer in bf16; drawn a layer at
+    a time its fp32 draw would take 15.0 GB, an expert at a time 58.7 MB).
     They are not the JAX package's draws; use ``params_from_numpy`` for
     those."""
     dev = compat.resolve_device(device)
@@ -131,7 +150,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     def draw(shape, scale, dt):
         x = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32)
-        return (x * scale).to(dt)
+        return x.mul_(scale).to(dt)
 
     def make(path, spec):
         shape, scale, dt = spec[0], spec[1], _leaf_dtype(cfg, spec)
@@ -145,8 +164,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
         if path[0] != "layers":
             return draw(shape, scale, dt)
         out = torch.empty(shape, dtype=dt, device=dev)
+        experts = path[-2] == "moe" and len(shape) == 4   # (L, E, ., .)
         for i in range(shape[0]):
-            out[i] = draw(shape[1:], scale, dt)
+            if experts:
+                for e in range(shape[1]):
+                    out[i, e] = draw(shape[2:], scale, dt)
+            else:
+                out[i] = draw(shape[1:], scale, dt)
         return out
 
     return _map_spec(param_shapes(cfg), make)
@@ -192,7 +216,9 @@ def params_from_numpy(np_params, cfg: ModelConfig, device=None):
 
 def param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     """Parameters in all leaves; with ``active_only`` the routed experts
-    count k of E (shared experts and the router count whole)."""
+    count k of E (shared experts and the router count whole: a shared
+    expert runs for every token, where the JAX ``param_count`` scales it
+    by k/E too)."""
     total = 0
 
     def count(path, spec):
@@ -260,17 +286,23 @@ def logits_fn(cfg, params, h):
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
-    """Decode cache of zeros: {"k", "v"} of (L, B, max_len, Hkv, dh), or
-    for an SSM ``ssm.init_ssm_cache``'s leaves with a leading L (no
-    ``max_len`` axis: the state does not grow)."""
+    """Decode cache of zeros: {"k", "v"} of (L, B, max_len, Hkv, dh); for
+    MLA {"ckv", "kr"} of (L, B, max_len, kv_lora_rank) and (L, B, max_len,
+    rope_head_dim); for an SSM ``ssm.init_ssm_cache``'s leaves with a
+    leading L (no ``max_len`` axis: the state does not grow)."""
     check_model(cfg)
     dev = compat.resolve_device(device)
-    if cfg.family == "ssm":
-        one = ssm.init_ssm_cache(cfg, B, compat.torch_dtype(cfg.dtype), dev)
-        return {k: v.new_zeros((cfg.num_layers,) + v.shape)
-                for k, v in one.items()}
-    shape = (cfg.num_layers, B, max_len, cfg.num_kv_heads, cfg.head_dim)
     dt = compat.torch_dtype(cfg.dtype)
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        one = ssm.init_ssm_cache(cfg, B, dt, dev)
+        return {k: v.new_zeros((L,) + v.shape) for k, v in one.items()}
+    if cfg.use_mla:
+        return {"ckv": torch.zeros((L, B, max_len, cfg.kv_lora_rank),
+                                   dtype=dt, device=dev),
+                "kr": torch.zeros((L, B, max_len, cfg.rope_head_dim),
+                                  dtype=dt, device=dev)}
+    shape = (L, B, max_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
@@ -286,7 +318,7 @@ def ffn(cfg: ModelConfig, p, h):
 
 def _backbone(cfg: ModelConfig, params, tokens):
     """tokens (B, S) -> (final-normed hidden (B, S, D), cache); the cache
-    is (L, B, S, Hkv, dh) per leaf, or an SSM's decode cache."""
+    is ``init_cache``'s leaves at max_len S, or an SSM's decode cache."""
     check_model(cfg)
     B, S = tokens.shape
     h = _embed_tokens(cfg, params, tokens)
@@ -301,14 +333,15 @@ def _backbone(cfg: ModelConfig, params, tokens):
         return layers.apply_norm(cfg, params["final_norm"], h), cache
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
-    tab = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
     cache = init_cache(cfg, B, S, tokens.device)
+    names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
+    attn_fwd = layers.mla_fwd if cfg.use_mla else layers.attention_fwd
     for i, p in enumerate(_per_layer(params)):
         xn = layers.apply_norm(cfg, p["ln1"], h)
-        a, (k, v) = layers.attention_fwd(cfg, p["attn"], xn, positions,
-                                         rope_tab=tab)
-        cache["k"][i] = k
-        cache["v"][i] = v
+        a, kv = attn_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
+        for name, t in zip(names, kv):
+            cache[name][i] = t
         h = ffn(cfg, p, h + a)
     return layers.apply_norm(cfg, params["final_norm"], h), cache
 
@@ -321,11 +354,11 @@ def prefill(cfg: ModelConfig, params, tokens):
 
 def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
     """One decode step: tokens (B,), lengths (B,) -> (raw next-token
-    logits (B, V) fp32, cache).  Writes each row's new K/V at ``lengths``
-    in place (dropped for rows at or past the cache length); an SSM
-    advances every row's conv caches and state in place (``lengths`` is
-    not read: a finished row's state advances too, and its tokens are
-    discarded, as in the JAX scan)."""
+    logits (B, V) fp32, cache).  Writes each row's new K/V (MLA: c_kv and
+    k_rope) at ``lengths`` in place (dropped for rows at or past the cache
+    length); an SSM advances every row's conv caches and state in place
+    (``lengths`` is not read: a finished row's state advances too, and its
+    tokens are discarded, as in the JAX scan)."""
     check_model(cfg)
     h = _embed_tokens(cfg, params, tokens[:, None])
     if cfg.family == "ssm":
@@ -336,12 +369,14 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
             h = h + y
         return head_logits(cfg, params, h), cache
     positions = lengths[:, None]
-    tab = layers.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
+    names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
+    attn_decode = (layers.mla_decode if cfg.use_mla
+                   else layers.attention_decode)
     for i, p in enumerate(_per_layer(params)):
         xn = layers.apply_norm(cfg, p["ln1"], h)
-        a, _, _ = layers.attention_decode(cfg, p["attn"], xn, cache["k"][i],
-                                          cache["v"][i], lengths,
-                                          rope_tab=tab)
+        a, _, _ = attn_decode(cfg, p["attn"], xn, cache[names[0]][i],
+                              cache[names[1]][i], lengths, rope_tab=tab)
         h = ffn(cfg, p, h + a)
     return head_logits(cfg, params, h), cache
 

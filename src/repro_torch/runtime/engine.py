@@ -2,13 +2,13 @@
 plus coroutine slots.
 
 Counterpart of ``repro.runtime.engine.NodeEngine`` for dense and MoE
-decoders: greedy, sampled and logprob requests.  One NodeEngine owns a
-dense device decode cache with ``max_active`` sequence slots, a paged
-host store (the single source of truth, §5.2), a page allocator, and the
-prefill / decode steps of ``models/transformer.py``.  The
-CoroutineScheduler drives it only through the ExecutionBackend slot
-protocol (core/backend.py, conformance declared below), exactly as it
-drives the JAX engine.
+decoders, MLA ones (DeepSeek-R1) among them: greedy, sampled and logprob
+requests.  One NodeEngine owns a dense device decode cache with
+``max_active`` sequence slots, a paged host store (the single source of
+truth, §5.2), a page allocator, and the prefill / decode steps of
+``models/transformer.py``.  The CoroutineScheduler drives it only
+through the ExecutionBackend slot protocol (core/backend.py, conformance
+declared below), exactly as it drives the JAX engine.
 
 What differs from the JAX engine, and why:
 
@@ -55,9 +55,16 @@ per sub-batch of ``b_attn`` rows (default ``max_active``: one sub-batch),
 then COMBINE of the sub-batches into the whole batch before each FFN/MoE.
 Prefill stays monolithic, as in the JAX engine.
 
-Not in this slice, and refused with ``NotImplementedError``: MLA and
-sliding-window configs, and the other families.  The JAX engine's looped
-``fused=False`` baseline is not ported.
+The cache's leaves are whatever ``transformer.init_cache`` gives: GQA's
+{"k", "v"} (L, B, S, Hkv, dh), or MLA's latent {"ckv", "kr"} (L, B, S,
+r) with no head axis; the host pages, staging blobs and installs handle
+each leaf by its trailing dims, and all leaves share one dtype.
+
+Not in this slice, and refused with ``NotImplementedError``: MLA with
+``module_granularity=True`` (the JAX ``ModuleRuntime`` reads GQA's
+``cache["k"]``, so the reference has no such path), sliding-window
+configs, and the other families.  The JAX engine's looped ``fused=False``
+baseline is not ported.
 """
 from __future__ import annotations
 
@@ -72,7 +79,8 @@ from repro_torch import compat
 from repro_torch import sampling as smp
 from repro_torch.core.backend import validate_backend
 from repro_torch.core.coroutine import Phase, SequenceCoroutine, Status
-from repro_torch.core.forward import ModuleRuntime
+from repro_torch.core.forward import (ModuleRuntime,
+                                      check_module_granularity)
 from repro_torch.core.primitives import PrimitiveStats
 from repro_torch.memory.allocator import PageAllocator
 from repro_torch.memory.buffers import RingBuffer
@@ -140,6 +148,8 @@ class NodeEngine:
                  retry_policy: Optional[RetryPolicy] = None,
                  enable_prefix: bool = True):
         T.check_served(cfg)
+        if module_granularity:
+            check_module_granularity(cfg)
         self.device = compat.resolve_device(device)
         self.cfg = cfg
         self.node_id = node_id
@@ -170,7 +180,11 @@ class NodeEngine:
 
         # device slot arrays
         self.cache = T.init_cache(cfg, max_active, max_len, self.device)
-        self.dtype = self.cache["k"].dtype     # host pages: uint16 if bf16
+        # host pages: uint16 if bf16; a staged blob concatenates the
+        # leaves, so they must share one dtype (as in the JAX engine)
+        dtypes = {leaf.dtype for leaf in self.cache.values()}
+        assert len(dtypes) == 1, f"cache leaves of mixed dtypes {dtypes}"
+        self.dtype = dtypes.pop()
         self.tokens = torch.zeros((max_active,), dtype=torch.int32,
                                   device=self.device)
         self.lengths = torch.zeros((max_active,), dtype=torch.int32,

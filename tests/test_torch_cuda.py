@@ -125,6 +125,49 @@ def test_flash_kernel_matches_plain(dev, case, dtype):
            flash_attention_plain(q, k, v, qp, kp, **kw), dtype)
 
 
+# (name, B, Sq, Skv, H, q0): MLA's prefill head dims, q/k 192 and v 128
+MLA_FLASH_CASES = [("causal_s200", 2, 200, 200, 4, 0),
+                   ("offset_q", 1, 40, 300, 8, 260)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", MLA_FLASH_CASES,
+                         ids=[c[0] for c in MLA_FLASH_CASES])
+def test_flash_kernel_takes_a_narrower_v(dev, case, dtype):
+    """q/k heads of 192 against v heads of 128 (DeepSeek-R1's MLA
+    prefill) on the route of the dtype, against the plain version: the
+    output is (B, Sq, H, 128), scaled by 1/sqrt(192)."""
+    _, B, Sq, Skv, H, q0 = case
+    gen = torch.Generator(device=dev).manual_seed(12)
+    q = _randn(gen, (B, Sq, H, 192), dtype, dev)
+    k = _randn(gen, (B, Skv, H, 192), dtype, dev)
+    v = _randn(gen, (B, Skv, H, 128), dtype, dev)
+    qp, kp = _pos(B, q0, Sq, dev), _pos(B, 0, Skv, dev)
+    fa_ops.reset_routes()
+    got = flash_attention(q, k, v, qp, kp)
+    assert got.shape == (B, Sq, H, 128)
+    assert fa_ops.ROUTE_LAUNCHES[fa_ops.route(dtype)] == 1
+    _close(got, flash_attention_plain(q, k, v, qp, kp), dtype)
+
+
+def test_flash_bf16_mla_runs_at_its_key_limit(dev):
+    """At (q/k 192, v 128) the tensor-core route launches at
+    ``max_keys(192, 128)`` keys and matches its plain version; one key
+    more raises before any launch."""
+    n = fa_ops.max_keys(192, 128)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q = _randn(gen, (1, 64, 1, 192), torch.bfloat16, dev)
+    k = _randn(gen, (1, n + 1, 1, 192), torch.bfloat16, dev)
+    v = _randn(gen, (1, n + 1, 1, 128), torch.bfloat16, dev)
+    qp, kp = _pos(1, n - 64, 64, dev), _pos(1, 0, n + 1, dev)
+    args = (q, k[:, :n], v[:, :n], qp, kp[:, :n].contiguous())
+    _close(flash_attention(*args), flash_attention_plain(*args),
+           torch.bfloat16)
+    with pytest.raises(ValueError, match=f"at most {n} keys"):
+        flash_attention(q, k, v, qp, kp)
+
+
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_flash_kernel_rows_at_different_offsets(dev, D):
     """One batch whose rows hold q blocks at different offsets into their
@@ -661,6 +704,32 @@ def test_moe_gemm_kernel_matches_plain(dev, case, dtype):
     got = grouped_gemm(x, w, be, block_t=bt)
     want = grouped_gemm_plain(x, w, be, block_t=bt)
     _close(got, want, dtype)
+    assert not got[len(used) * bt:].any()
+
+
+@pytest.mark.parametrize("bt", [16, 128], ids=["decode_mma",
+                                              "prefill_wgmma"])
+@pytest.mark.parametrize("wname", ["w1", "w2"])
+def test_moe_gemm_at_deepseek_widths(dev, bt, wname):
+    """DeepSeek-R1's expert weights, E 256 of (D 7168, F 2048) as w1 and
+    (2048, 7168) as w2, bf16: the last expert's weight starts 3.7e9
+    elements in (past a 32-bit index), on the route of its block_t."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    E, D, F = 256, 7168, 2048
+    shape = (E, D, F) if wname == "w1" else (E, F, D)
+    w = torch.randn(shape, generator=gen, device=dev,
+                    dtype=torch.bfloat16).mul_(0.02)
+    used = [255, 0, 128, 255, 17]
+    T = bt * (len(used) + 2)
+    x = _randn(gen, (T, shape[1]), torch.bfloat16, dev)
+    be = torch.full((T // bt,), -1, dtype=torch.int32, device=dev)
+    be[:len(used)] = torch.tensor(used, dtype=torch.int32, device=dev)
+    moe_ops.reset_routes()
+    got = grouped_gemm(x, w, be, block_t=bt)
+    assert moe_ops.ROUTE_LAUNCHES[moe_ops.route(torch.bfloat16, bt,
+                                                shape[1], shape[2],
+                                                True)] == 1
+    _close(got, grouped_gemm_plain(x, w, be, block_t=bt), torch.bfloat16)
     assert not got[len(used) * bt:].any()
 
 

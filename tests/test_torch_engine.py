@@ -187,17 +187,19 @@ def test_one_transfer_per_decode_page():
 
 
 def test_later_slices_are_refused():
-    """MLA (a reduced MoE config with ``use_mla``) and sliding windows
-    wait for later slices."""
+    """Sliding windows wait for a later slice; MLA is served, but not with
+    module granularity (the JAX ``ModuleRuntime`` has no MLA path)."""
     _, tcfg = _cfgs()
-    mla = dataclasses.replace(reduced_config("qwen3_moe_30b"), use_mla=True,
-                              q_lora_rank=64, kv_lora_rank=32,
-                              rope_head_dim=16)
-    for cfg in (mla, dataclasses.replace(tcfg, sliding_window=64)):
-        with pytest.raises(NotImplementedError):
-            NodeEngine(cfg, device="cpu", module_granularity=True)
-        with pytest.raises(NotImplementedError):
-            TT.init_params(cfg, device="cpu")
+    window = dataclasses.replace(tcfg, sliding_window=64)
+    with pytest.raises(NotImplementedError):
+        NodeEngine(window, device="cpu", module_granularity=True)
+    with pytest.raises(NotImplementedError):
+        TT.init_params(window, device="cpu")
+    mla = dataclasses.replace(reduced_config("deepseek_r1"), dtype="float32")
+    with pytest.raises(NotImplementedError, match="MLA"):
+        NodeEngine(mla, device="cpu", module_granularity=True)
+    assert set(NodeEngine(mla, device="cpu", max_active=2, max_len=32,
+                          page_size=8).cache) == {"ckv", "kr"}
 
 
 def test_sampled_and_logprob_requests_are_served():
