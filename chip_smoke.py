@@ -24,7 +24,14 @@ result):
    its type, two bf16 launches must give equal bits, and it is timed at
    five bf16 causal shapes (Llama-3.2-1B 4x512, 8x256 and one 2048-token
    prompt, Qwen3-30B-A3B 8x256 at D = 128, DeepSeek-R1's MLA prefill 2x1024
-   with 128 heads at q/k 192, v 128) and in fp32 at 4x512.
+   with 128 heads at q/k 192, v 128), at the windowed decoders' prefill
+   (H2O-Danube-1.8B at (80, 80), 32/8 heads, window 4096: B8 S512 and B1
+   S6144; RecurrentGemma-2B at (256, 256), 10/1 heads, window 2048,
+   softcap 30: B8 S512 and B1 S3072; each also held in fp32), and in
+   fp32 at 4x512.  Each timed bf16 row also gives the kernel alone in
+   ``torch.profiler``'s trace and its window-aware bound; SDPA runs with
+   a windowed mask where the window binds, and not at all under a
+   softcap (it has none).
    Decode attention (``paged_attention``, each sequence and kv head split
    across a cluster of 8 CTAs and merged in distributed shared memory;
    bf16 products on ``mma.sync``, fp32 on the CUDA cores) is held to its
@@ -69,8 +76,10 @@ result):
    it, ``torch._grouped_mm``.  The SSD state
    scan (``ssd_scan``) must give its plain version's bits (``torch.equal``)
    at Mamba2-370M's 8x256 and 32768-token prefill shapes, the JAX test's
-   shapes, one chunk, a ragged N*P and an unaligned view; no PyTorch
-   call computes a linear recurrence, so it has no library yardstick;
+   shapes, one chunk, a ragged N*P and an unaligned view, and is timed
+   at the first two by CUDA events and alone in the profiler's trace; no
+   PyTorch call computes a linear recurrence, so it has no library
+   yardstick;
 4. the serving paths: full-width Llama-3.2-1B in bf16 (random weights from
    a seed) through the port's ``BatchMaster`` and one ``NodeEngine``:
    the greedy path (~8 requests and a resubmitted prefix), then the
@@ -88,7 +97,11 @@ result):
    fp32 flash kernel at q/k 192, v 128: every flash launch there must be
    at those head dims) the same way, monolithic; reduced
    fp32 Mamba2-370M at model level the same way (identical greedy and
-   sampled tokens, the prefill state to atol/rtol 1e-4);
+   sampled tokens, the prefill state to atol/rtol 1e-4); reduced fp32
+   H2O-Danube-1.8B and RecurrentGemma-2B (window 64) at their published
+   head dims, 80 and 256, at model level the same way: 4 prompts of 96
+   decoded past the window's wrap, identical greedy and sampled tokens,
+   every flash launch at (80, 80) / (256, 256) on the fp32 route;
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
    seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
    module granularity (Algorithm 1: attention in sub-batches of 4 of the
@@ -144,7 +157,22 @@ result):
    ``paged_attention`` (MLA decode is plain PyTorch: no TPU kernel
    computes it); then one B8 decode step's device time (the profiler's
    trace) split into a layer's MLA attention, a layer's MoE FFN and the
-   whole step, beside its wall.
+   whole step, beside its wall;
+10. the windowed decoders: H2O-Danube-1.8B (24 layers, d_model 2560,
+    32/8 heads of 80, sliding window 4096, vocab 32000) and
+    RecurrentGemma-2B (26 layers: 8 units of two RG-LRU and one local
+    attention layer and 2 tail RG-LRU layers, 10 heads of 256 on one kv
+    head, window 2048, logit softcap 30, vocab 256000) in bf16 at every
+    published width and full depth, random weights from seed 0, at model
+    level (``generate``; ``NodeEngine`` serves neither, as the JAX engine
+    does not): 8 prompts of 512 greedy (64 tokens), the model card's
+    sampling twice with top-5 logprobs (identical streams required), then
+    one prompt longer than the window (6144 and 3072 tokens) decoded 32
+    steps past it; every flash launch at the model's head dim on wgmma,
+    ``fused_sampling`` on the sampled runs, no other kernel (ring decode
+    is PyTorch); it logs the weights, prefill and decode times, peak
+    memory, launches by route and the phase's seconds, and a B8 decode
+    step's device time split by the profiler, beside its wall.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -193,8 +221,27 @@ SSM_GREEDY = ("ssd_scan",)
 SSM_SAMPLED = SSM_GREEDY + ("fused_sampling",)
 MLA_GREEDY = ("flash_attention", "moe_gemm")
 MLA_SAMPLED = MLA_GREEDY + ("fused_sampling",)
+WINDOW_GREEDY = ("flash_attention",)
+WINDOW_SAMPLED = WINDOW_GREEDY + ("fused_sampling",)
 # MLA's prefill head dims at DeepSeek-R1's widths: q/k 128 + 64, v 128
 MLA_HEADS = (192, 128)
+# the windowed decoders' prefill attention, timed in phase 3:
+# tag -> (B, S, H, Hkv, D, window, softcap)
+WINDOWED_FLASH = {
+    "danube B8 S512 H32/8 D80 w4096": (8, 512, 32, 8, 80, 4096, 0.0),
+    "danube B1 S6144 H32/8 D80 w4096": (1, 6144, 32, 8, 80, 4096, 0.0),
+    "rgemma B8 S512 H10/1 D256 w2048 cap30": (8, 512, 10, 1, 256, 2048,
+                                              30.0),
+    "rgemma B1 S3072 H10/1 D256 w2048 cap30": (1, 3072, 10, 1, 256, 2048,
+                                               30.0),
+}
+# Their queries (and those of the other windowed, softcapped rows of phase
+# 3) are scaled so that q.k / sqrt(D) has a std of SPREAD: the
+# softmax then rests on a few keys, so a key moved across the window's
+# edge moves an output by a whole v row, and the softcap of 30 bites (at
+# scores of std 1, tanh(s / 30) * 30 ~ s); their bf16 outputs are held to
+# atol min(2e-2, 0.05 * rms(plain)), rtol 2e-2
+SPREAD = 15.0
 
 
 def log(msg: str) -> None:
@@ -322,9 +369,18 @@ def _rand(gen, shape, dtype, dev):
     return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
 
-def _check(name, got, want, dtype):
+def _scaled_tol(want, dtype):
+    """The windowed rows' tolerance: bf16's atol tied to the output's
+    scale, never looser than ``TOL``."""
+    if dtype != torch.bfloat16:
+        return TOL[dtype]
+    rms = want.float().pow(2).mean().sqrt().item()
+    return dict(TOL[dtype], atol=min(TOL[dtype]["atol"], 0.05 * rms))
+
+
+def _check(name, got, want, dtype, tol=None):
     err = (got.float() - want.float()).abs().max().item()
-    ok = torch.allclose(got.float(), want.float(), **TOL[dtype])
+    ok = torch.allclose(got.float(), want.float(), **(tol or TOL[dtype]))
     log(f"  {name}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
     if not ok or not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: kernel disagrees with its plain "
@@ -332,16 +388,19 @@ def _check(name, got, want, dtype):
     return err
 
 
-def _flash_bound(q, k, v, qp, kp):
+def _flash_bound(q, k, v, qp, kp, window=0):
     """(bound ms, bound_by, GFLOP, MB) of one causal prefill attention
     call: each input read once and the output (q's shape at v's head dim)
     written once, at the card's memory rate, against the operations of
-    the (q, key) pairs the causal mask lets through (every batch row has
-    the same positions here: 2 * Dqk for the score, 2 * Dv for P V) at
-    the card's peak rate for the storage type."""
+    the (q, key) pairs the causal mask and the window let through (every
+    batch row has the same positions here: 2 * Dqk for the score, 2 * Dv
+    for P V) at the card's peak rate for the storage type."""
     B, _, H, D = q.shape
     Dv = v.shape[3]
-    pairs = int((kp[0][None, :] <= qp[0][:, None]).sum().item())
+    ok = kp[0][None, :] <= qp[0][:, None]
+    if window > 0:
+        ok &= kp[0][None, :] > qp[0][:, None] - window
+    pairs = int(ok.sum().item())
     flops = 2.0 * (D + Dv) * pairs * B * H
     nbytes = (q.numel() + q.numel() // D * Dv + k.numel() + v.numel()) \
         * q.element_size() + (qp.numel() + kp.numel()) * 4
@@ -349,6 +408,27 @@ def _flash_bound(q, k, v, qp, kp):
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes", flops / 1e9,
             nbytes / 1e6)
+
+
+def _refuses_wrong_windows(name, q, k, v, qp, kp, kw, want, tol):
+    """The windowed rows' check must see a kernel whose window edge is off
+    by one 64-key tile (where the window binds) or that drops the softcap:
+    the plain version so wronged must fail the row's tolerance."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    wrongs = {}
+    if 0 < kw["window"] < k.shape[1]:
+        wrongs["window one tile wider"] = dict(kw, window=kw["window"] + 64)
+    if kw["softcap"]:
+        wrongs["softcap dropped"] = dict(kw, softcap=0.0)
+    for what, wkw in wrongs.items():
+        wrong = flash_attention_plain(q, k, v, qp, kp, **wkw).float()
+        off = ~torch.isclose(wrong, want.float(), **tol)
+        log(f"  {name}: the check refuses the {what}: "
+            f"{int(off.sum())} of {off.numel()} outputs out of tolerance, "
+            f"max abs err {(wrong - want.float()).abs().max().item():.3e} "
+            f"(atol {tol['atol']:.3e})")
+        if not off.any():
+            raise AssertionError(f"{name}: the check cannot see the {what}")
 
 
 def check_flash(dev, timer):
@@ -360,9 +440,13 @@ def check_flash(dev, timer):
     ops.reset_routes()
     calls = {"wgmma": 0, "simt": 0}
 
+    bad = []      # every row is checked before phase 3 fails
+
     def case(tag, dtype, B, Sq, Skv, H, Hkv, D, causal=True, window=0,
-             softcap=0.0, q0=0, Dv=None):
+             softcap=0.0, q0=0, Dv=None, spread=False):
         q = _rand(gen, (B, Sq, H, D), dtype, dev)
+        if spread:
+            q = (q.float() * SPREAD).to(dtype)
         k = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
         v = _rand(gen, (B, Skv, Hkv, Dv or D), dtype, dev)
         qp = (torch.arange(Sq, dtype=torch.int32, device=dev) + q0)[None] \
@@ -374,8 +458,15 @@ def check_flash(dev, timer):
         calls[ops.route(dtype)] += 1
         torch.cuda.synchronize()
         want = flash_attention_plain(q, k, v, qp, kp, **kw)
-        err = _check(f"flash_attention {tag} {str(dtype)[6:]}", got, want,
-                     dtype)
+        name = f"flash_attention {tag} {str(dtype)[6:]}"
+        tol = _scaled_tol(want, dtype) if spread else None
+        try:
+            err = _check(name, got, want, dtype, tol)
+        except AssertionError:
+            bad.append(name)
+            err = None
+        if spread and dtype == torch.bfloat16:
+            _refuses_wrong_windows(name, q, k, v, qp, kp, kw, want, tol)
         return err, (q, k, v, qp, kp, kw)
 
     # Llama-3.2-1B prefill: 4 prompts of 512 (timed below), and a batch of
@@ -390,7 +481,7 @@ def check_flash(dev, timer):
     timed["B8 S256 H32/8 D64"] = case("B8 S256 H32/8 D64 causal",
                                       torch.bfloat16, 8, 256, 256, 32, 8, 64)
     case("window100 softcap30 S256", torch.float32, 1, 256, 256, 8, 2, 64,
-         window=100, softcap=30.0)
+         window=100, softcap=30.0, spread=True)
     case("non-causal Skv96 (true-length mask)", torch.float32, 1, 96, 96, 4,
          2, 64, causal=False)
     case("G3 D32 S40", torch.float32, 1, 40, 40, 6, 2, 32)
@@ -405,7 +496,7 @@ def check_flash(dev, timer):
     case("offset q Sq1 Skv512", torch.bfloat16, 2, 1, 512, 32, 8, 64,
          q0=511)
     case("window100 softcap30 S256", torch.bfloat16, 1, 256, 256, 8, 2, 64,
-         window=100, softcap=30.0)
+         window=100, softcap=30.0, spread=True)
     case("non-causal Skv96 (true-length mask)", torch.bfloat16, 1, 96, 96,
          4, 2, 64, causal=False)
     case("G3 D32 S40", torch.bfloat16, 1, 40, 40, 6, 2, 32)
@@ -423,6 +514,19 @@ def check_flash(dev, timer):
              8, dqk, Dv=dv)
         case("MLA offset q Sq40 Skv300 D192/128", dtype, 1, 40, 300, 8, 8,
              dqk, q0=260, Dv=dv)
+    # the windowed decoders' prefill at their widths (phase 10's shapes),
+    # on both routes: H2O-Danube-1.8B at (80, 80), 32 q heads on 8 kv
+    # heads, window 4096 (binding only past it); RecurrentGemma-2B at
+    # (256, 256), 10 q heads on one kv head, window 2048, softcap 30
+    for tag, (B, S, H, Hkv, D, w, cap) in WINDOWED_FLASH.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            got = case(tag, dtype, B, S, S, H, Hkv, D, window=w, softcap=cap,
+                       spread=True)
+            if dtype == torch.bfloat16:
+                timed[tag] = got
+    if bad:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version at {bad}")
     if ops.ROUTE_LAUNCHES != calls:
         raise AssertionError(f"flash_attention launches by route "
                              f"{ops.ROUTE_LAUNCHES}, expected {calls}")
@@ -437,31 +541,47 @@ def check_flash(dev, timer):
                              "other bits")
     log("  flash_attention bf16 B4 S512: two launches, equal bits")
 
+    from repro_torch.launch.profile import KERNEL_ENTRIES
     rows = {}
     for shape, (e, (q, k, v, qp, kp, kw)) in timed.items():
-        bound_ms, bound_by, gflop, mb = _flash_bound(q, k, v, qp, kp)
+        bound_ms, bound_by, gflop, mb = _flash_bound(q, k, v, qp, kp,
+                                                     kw["window"])
         ms = timer(lambda: flash_attention(q, k, v, qp, kp, **kw))
+        alone_ms = timer.kernel_ms(lambda: flash_attention(q, k, v, qp, kp,
+                                                           **kw),
+                                   KERNEL_ENTRIES["flash_attention"])
         plain_ms = timer(lambda: flash_attention_plain(q, k, v, qp, kp,
                                                        **kw), iters=5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        # SDPA may refuse a v narrower than q/k on this card's torch
-        try:
-            library_ms = timer(_sdpa(qt, kt, vt, is_causal=True))
-            library_host_us = timer.host_us(_sdpa(qt, kt, vt,
-                                                  is_causal=True))
-        except RuntimeError as e:
-            log(f"  sdpa refuses {shape}: {str(e).splitlines()[0]}")
-            library_ms = library_host_us = None
+        Sq, Skv = q.shape[1], k.shape[1]
+        if kw["window"] and kw["window"] < Skv:     # a windowed causal mask
+            ok = kp[0][None, :] <= qp[0][:, None]
+            ok &= kp[0][None, :] > qp[0][:, None] - kw["window"]
+            sdpa_kw = dict(attn_mask=ok)
+        else:
+            sdpa_kw = dict(is_causal=True)
+        # SDPA has no softcap ("—"), and may refuse a v narrower than q/k
+        # on this card's torch
+        library_ms = library_host_us = None
+        if kw["softcap"]:
+            log(f"  sdpa: no softcap, no library yardstick for {shape}")
+        else:
+            try:
+                library_ms = timer(_sdpa(qt, kt, vt, **sdpa_kw))
+                library_host_us = timer.host_us(_sdpa(qt, kt, vt, **sdpa_kw))
+            except RuntimeError as e:
+                log(f"  sdpa refuses {shape}: {str(e).splitlines()[0]}")
         # the host's side of one call (the wrapper's checks, four tensor
         # maps and a ctypes call; SDPA's dispatch), beside the card's
         host_us = timer.host_us(lambda: flash_attention(q, k, v, qp, kp,
                                                         **kw))
-        rows[shape] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=library_ms, host_us=host_us,
-                           library_host_us=library_host_us)
-        log(f"  flash_attention bf16 {shape} causal: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sdpa {library_ms} ms, bound "
+        rows[shape] = dict(max_abs_err=e, ms=ms, kernel_alone_ms=alone_ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms,
+                           host_us=host_us, library_host_us=library_host_us)
+        log(f"  flash_attention bf16 {shape} causal: kernel {ms:.4f} ms "
+            f"({alone_ms:.4f} ms alone in the profiler's trace), plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}; {gflop:.2f} GFLOP, {mb:.1f} "
             f"MB); host {host_us:.1f} us a call, sdpa's "
             f"{library_host_us} us")
@@ -695,6 +815,8 @@ def check_fused_sampling(dev, timer):
             case("B8 V151936 mixed lanes5", rows(8, 151936), 5),
             case("B2 V256000 mixed lanes5 (largest slice, raw not parked)",
                  rows(2, 256000), 5),
+            case("B8 V256000 mixed lanes5 (RecurrentGemma-2B's vocabulary)",
+                 rows(8, 256000), 5),
             case("B2 V128256 lanes40 (two rounds of lane lists)",
                  rows(2, V), 40),
             case("crossings on a catch-all bucket", catch_all_rows(gen, V, dev),
@@ -727,7 +849,8 @@ def check_fused_sampling(dev, timer):
             f"(cudaOccupancyMaxActiveClusters)")
 
     shapes = {}
-    for Bs, Vs, lanes in SAMPLING_SHAPES:
+    # and RecurrentGemma-2B's vocabulary: B8 V256000 with 5 lanes
+    for Bs, Vs, lanes in SAMPLING_SHAPES + [(8, 256000, 5)]:
         x, g, k, p, mp, raw = main if (Bs, Vs) == (B, V) else rows(Bs, Vs)
         kw = dict(raw=raw if lanes >= 0 else None, lp_k=max(lanes, 0),
                   with_lanes=lanes >= 0)
@@ -1052,22 +1175,28 @@ def check_ssd_scan(dev, timer):
     case("unaligned view", (2, 4, 6, 16, 8), offset=1)
     case("reduced mamba2 N16 P16", (4, 16, 2, 16, 16))
 
+    from repro_torch.launch.profile import KERNEL_ENTRIES
     rows = {}
     for tag, (s, d) in main.items():
         bound, by, nbytes = _scan_bound(s)
         ms = timer(lambda: ssd_state_scan(s, d))
+        alone_ms = timer.kernel_ms(lambda: ssd_state_scan(s, d),
+                                   KERNEL_ENTRIES["ssd_scan"])
         plain_ms = timer(lambda: ssd_state_scan_plain(s, d), iters=5)
-        log(f"  ssd_scan {tag} {tuple(s.shape)} fp32: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms by {by} "
-            f"({nbytes / 1e6:.1f} MB: {nbytes / ms / 1e9:.3f} TB/s); no "
-            f"single PyTorch call computes a linear recurrence")
-        rows[tag] = dict(ms=ms, plain_ms=plain_ms, bound=bound, by=by,
-                         nbytes=nbytes)
+        log(f"  ssd_scan {tag} {tuple(s.shape)} fp32: kernel {ms:.4f} ms "
+            f"({alone_ms:.4f} ms alone in the profiler's trace: "
+            f"{bound / alone_ms:.3f} of its bound), plain {plain_ms:.4f} "
+            f"ms, bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB: "
+            f"{nbytes / ms / 1e9:.3f} TB/s); no single PyTorch call "
+            f"computes a linear recurrence")
+        rows[tag] = dict(ms=ms, kernel_alone_ms=alone_ms, plain_ms=plain_ms,
+                         bound=bound, by=by, nbytes=nbytes)
     p = rows["prefill 8x256"]
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/csrc/ssd_scan.cu",
                 replaces=REPLACES["ssd_scan"], max_abs_err=0.0,
-                ms=p["ms"], plain_ms=p["plain_ms"], bound_ms=p["bound"],
+                ms=p["ms"], kernel_alone_ms=p["kernel_alone_ms"],
+                plain_ms=p["plain_ms"], bound_ms=p["bound"],
                 bound_by=p["by"], library_ms=None,
                 long_prompt=rows["prompt 32768"],
                 shape="(B,H,nc,N,P)=(8,32,4,128,64) fp32, mamba2_370m's "
@@ -1322,6 +1451,10 @@ def reduced_cpu_vs_cuda(dev):
                             rope_head_dim=MLA_HEADS[0] - MLA_HEADS[1]),
                   flash_dims=MLA_HEADS)
     _reduced_ssm_pair(dev)
+    # the windowed decoders at the published head dims, so their prefill
+    # runs the fp32 flash kernel at (80, 80) and (256, 256)
+    _reduced_windowed_pair(dev, "h2o_danube_1_8b", 80)
+    _reduced_windowed_pair(dev, "recurrentgemma_2b", 256)
 
 
 def _reduced_pair(dev, arch, engine_kw, sps, expected, over=None,
@@ -1436,6 +1569,61 @@ def _reduced_ssm_pair(dev):
     log(f"  mamba2_370m: greedy and sampled tokens identical for "
         f"{len(prompts)} prompts of 128; prefill state max abs err "
         f"{err:.3e}")
+
+
+def _reduced_windowed_pair(dev, arch, head_dim):
+    """A reduced fp32 windowed decoder (window 64) at head dim
+    ``head_dim`` at model level (``generate``: prefill, the rings
+    re-laid, decode pages) on "cuda" (the flash kernel's fp32 route at
+    (head_dim, head_dim), the sampling kernel on sampled pages; ring
+    decode is PyTorch) and on "cpu" (the plain versions): 4 prompts of 96
+    tokens, past the window, decoded past its wrap; greedy and sampled
+    tokens must be identical."""
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.model_level import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.sampling import SamplingParams
+
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
+                              head_dim=head_dim)
+    params = T.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(2, cfg.vocab_size, (4, 96)).tolist()
+    sps = [SamplingParams(), SamplingParams(temperature=0.8, top_k=20,
+                                            seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, min_p=0.02, seed=2),
+           SamplingParams(temperature=0.7, repetition_penalty=1.3,
+                          presence_penalty=0.2, seed=3, stop=(5, 6))]
+    out = {}
+    for device in ("cuda", "cpu"):
+        target = dev if device == "cuda" else torch.device("cpu")
+        p = _to(params, target)
+        shapes = _FlashShapes()
+        try:
+            before = kernels.launches()
+            g = generate(cfg, p, prompts, [16, 5, 12, 40])
+            used_g = {k: v - before[k] for k, v in kernels.launches().items()}
+            before = kernels.launches()
+            smp_out = generate(cfg, p, prompts, 40, sampling=sps)
+            used_s = {k: v - before[k] for k, v in kernels.launches().items()}
+        finally:
+            shapes.restore()
+        out[device] = (g.tokens, smp_out.tokens)
+        log(f"  {arch} (reduced, head dim {head_dim}, model level) {device}:"
+            f" kernel launches greedy {used_g}, sampled {used_s}")
+        check_launches(f"reduced {arch} greedy on {device}", used_g,
+                       WINDOW_GREEDY if device == "cuda" else ())
+        check_launches(f"reduced {arch} sampled on {device}", used_s,
+                       WINDOW_SAMPLED if device == "cuda" else ())
+        if device == "cuda":
+            shapes.check(f"reduced {arch} on cuda", (head_dim, head_dim),
+                         "simt")
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"{arch}: tokens differ: cuda {out['cuda']} vs "
+                             f"cpu {out['cpu']}")
+    log(f"  {arch}: greedy and sampled tokens identical for {len(prompts)} "
+        f"prompts of 96 (window 64), decoded to position 135")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2105,11 +2293,162 @@ def _mla_step_split(cfg, params, dev):
         f"{step / wall:.3f}")
 
 
+# --------------------------------------------------------------- phase 10
+def serve_windowed_path(dev, arch: str, long_len: int):
+    """A windowed decoder at every published width and full depth (bf16,
+    random weights from seed 0) at model level (``generate``: prefill,
+    the rings re-laid for decode, pages of 16): 8 prompts of 512 greedy
+    (64 tokens), the model card's sampling twice with top-5 logprobs
+    (identical streams required), then one prompt of ``long_len`` tokens,
+    longer than the window, decoded 32 steps past it; then one B8 decode
+    step's device time by kernel class (``_window_step_split``).  Every
+    flash launch must be at the model's head dim on the wgmma route, the
+    sampled runs must launch ``fused_sampling``, and no part the other
+    kernels (ring decode is PyTorch).  Returns {part: numbers}."""
+    from repro_torch import kernels
+    from repro_torch.configs import default_sampling, get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.model_level import generate
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    D = cfg.head_dim
+    window = cfg.sliding_window or cfg.local_window
+    if long_len <= window:
+        raise AssertionError(f"{arch}: the long prompt must outrun the "
+                             f"window {window}")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     _leaves(params)) / 1e9
+    log(f"  {arch}: {T.param_count(cfg) / 1e9:.3f} B parameters "
+        f"({weights_gb:.3f} GB, {cfg.dtype}) drawn in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+    rng = np.random.default_rng(11)
+    vpad = T.padded_vocab(cfg)
+    generate(cfg, params, rng.integers(2, cfg.vocab_size, (1, 64)).tolist(),
+             4)                                         # warm-up
+    torch.cuda.synchronize()
+    parts = {}
+
+    def run(tag, prompts, outs, expected, **kw):
+        reset_counts()              # this part alone
+        torch.cuda.reset_peak_memory_stats(dev)
+        shapes = _FlashShapes()
+        try:
+            g = generate(cfg, params, prompts, outs, **kw)
+        finally:
+            shapes.restore()
+        used = kernels.launches()
+        check_launches(f"{arch} {tag}", used, expected)
+        shapes.check(f"{arch} {tag}", (D, D), "wgmma")
+        want = np.broadcast_to(np.asarray(outs), (len(prompts),))
+        for i, toks in enumerate(g.tokens):
+            if len(toks) != want[i] or not all(0 <= t < vpad for t in toks):
+                raise AssertionError(f"{arch} {tag} row {i}: bad tokens "
+                                     f"{toks[:8]}")
+        wall = g.prefill_s + g.decode_s
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        parts[tag] = dict(prefill_ms=g.prefill_s * 1e3,
+                          decode_ms_per_step=g.decode_s * 1e3
+                          / g.decode_steps, steps=g.decode_steps,
+                          out_tokens=g.out_tokens,
+                          tokens_per_s=g.out_tokens / wall, peak_gb=peak,
+                          launches=used,
+                          flash_routes=dict(ops.ROUTE_LAUNCHES))
+        log(f"  {arch} {tag}: prefill {g.prefill_s * 1e3:.1f} ms for "
+            f"{len(prompts)}x{len(prompts[0])} tokens; decode "
+            f"{g.decode_s * 1e3 / g.decode_steps:.2f} ms/step over "
+            f"{g.decode_steps} steps ({g.pages} pages); {g.out_tokens} "
+            f"output tokens in {wall:.3f} s ({g.out_tokens / wall:.1f} "
+            f"tokens/s); peak device memory {peak:.2f} GB; launches "
+            f"{used}, flash by route {dict(ops.ROUTE_LAUNCHES)}")
+        return g
+
+    prompts = rng.integers(2, cfg.vocab_size, (8, 512)).tolist()
+    run("greedy 8x512", prompts, 64, WINDOW_GREEDY)
+    sps = [default_sampling(arch, seed=100 + i) for i in range(8)]
+    runs = [run(f"sampled run {j}, 8x512", prompts, 64, WINDOW_SAMPLED,
+                sampling=sps, lp_k=5) for j in range(2)]
+    if runs[0].tokens != runs[1].tokens or \
+            runs[0].logprobs != runs[1].logprobs:
+        raise AssertionError(f"{arch}: the resubmitted sampled batch gave "
+                             f"other streams")
+    chosen, vals, _ = runs[0].logprobs[3]
+    if len(chosen) != 64 or any(len(v) != 5 for v in vals) or \
+            not all(math.isfinite(c) and c <= 0 for c in chosen):
+        raise AssertionError(f"{arch}: bad logprobs {chosen[:4]}")
+    card = ", ".join(f"{k} {v}" for k, v in
+                     dataclasses.asdict(sps[0]).items()
+                     if k in ("temperature", "top_k", "top_p"))
+    log(f"  {arch} sampled ({card}, a seed a row): streams and top-5 "
+        f"logprob planes identical over two runs")
+    long_prompt = rng.integers(2, cfg.vocab_size, (1, long_len)).tolist()
+    run(f"greedy 1x{long_len}", long_prompt, 33, WINDOW_GREEDY)
+    log(f"  {arch}: the {long_len}-token prompt outruns the window of "
+        f"{window}: its ring of {window} slots wraps at every step")
+    parts["B8 decode step"] = _window_step_split(cfg, params, dev, prompts)
+    logits, _ = T.prefill(cfg, params, torch.tensor([prompts[0]],
+                                                    dtype=torch.int32,
+                                                    device=dev))
+    if logits.shape != (1, 1, vpad) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{arch}: bad logits {tuple(logits.shape)}")
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 10 {arch} took {secs:.1f} s")
+    del params
+    return dict(weights_gb=weights_gb, seconds=secs, parts=parts)
+
+
+def _window_step_split(cfg, params, dev, prompts):
+    """Where one decode step's device time goes at phase 10's batch: the
+    8 prompts prefilled, their rings re-laid for 64 more positions, one
+    step at position 512 (``decode_step_logits``; its cache writes land
+    on the same slot each call), summed by kernel class from the
+    profiler's trace, beside the step's wall on the host's clock."""
+    from repro_torch.models import transformer as T
+    toks = torch.tensor(prompts, dtype=torch.int32, device=dev)
+    B, S = toks.shape
+    _, pre = T.prefill(cfg, params, toks)
+    cache = T.install_rings(cfg, T.init_cache(cfg, B, S + 64, dev), pre)
+    del pre
+    lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+
+    def step():
+        return T.decode_step_logits(cfg, params, cache, toks[:, -1], lengths)
+
+    device_ms, by = _device_ms(step)
+    t = time.perf_counter()
+    for _ in range(4):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / 4
+    log(f"  {cfg.name}: a B{B} decode step at position {S}, device time "
+        f"from the profiler's trace {device_ms:.3f} ms ("
+        + ", ".join(f"{c} {ms:.3f}" for c, ms in sorted(
+            by.items(), key=lambda kv: -kv[1]))
+        + f"); the step's wall {wall:.3f} ms (host clock): device busy "
+        f"{device_ms / wall:.3f}")
+    return dict(device_ms=device_ms, wall_ms=wall, busy=device_ms / wall,
+                by_class=by)
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
         return 2
+    t_start = time.perf_counter()
     from repro_torch.kernels import build
     from repro_torch.launch.timing import Timer
 
@@ -2143,6 +2482,8 @@ def main() -> int:
     stats = [check_flash(dev, timer), check_paged(dev, timer),
              check_fused_sampling(dev, timer), check_moe_gemm(dev, timer),
              check_ssd_scan(dev, timer)]
+    log(f"  kernel-alone readings traced again after a dropped record: "
+        f"{timer.retraced} rounds")
     del timer
     torch.cuda.empty_cache()
 
@@ -2179,10 +2520,19 @@ def main() -> int:
     log(f"  phase 9 launches: greedy {mla_greedy}, sampled {mla_sampled}")
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("== 10. the windowed decoders: H2O-Danube-1.8B and "
+        "RecurrentGemma-2B bf16 at every published width, model level")
+    windowed = {arch: serve_windowed_path(dev, arch, n) for arch, n in
+                (("h2o_danube_1_8b", 6144), ("recurrentgemma_2b", 3072))}
+    print(json.dumps({"windowed_path": windowed}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm}.get(s["name"], greedy)[s["name"]]
 
+    log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     print(json.dumps({"kernels": [{k: s[k] for k in keys} for s in stats]}))

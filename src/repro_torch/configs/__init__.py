@@ -1,5 +1,6 @@
 """Architecture registry of the PyTorch port: one module per architecture
-the port serves so far, dense, MoE (DeepSeek-R1's MLA among them) and SSM
+the port serves so far, dense (H2O-Danube-1.8B's sliding window among
+them), MoE (DeepSeek-R1's MLA among them), SSM and hybrid (RecurrentGemma)
 (copies of ``repro.configs``).
 ``get_config(name)`` returns the full published config;
 ``reduced_config(name)`` returns a tiny same-family config for CPU smoke
@@ -13,9 +14,11 @@ ARCH_IDS = [
     "llama3_2_1b",
     "qwen2_0_5b",
     "smollm_360m",
+    "h2o_danube_1_8b",
     "phi3_5_moe",
     "qwen3_moe_30b",
     "mamba2_370m",
+    "recurrentgemma_2b",
     "deepseek_r1",   # the paper's own model
 ]
 
@@ -28,8 +31,10 @@ SAMPLING_DEFAULTS = {
     "qwen2_0_5b": dict(temperature=0.7, top_p=0.8, top_k=20,
                        repetition_penalty=1.1),
     "smollm_360m": dict(temperature=0.6, top_p=0.92),
+    "h2o_danube_1_8b": dict(temperature=0.7, top_p=0.95),
     "phi3_5_moe": dict(temperature=0.7, top_p=0.95),
     "qwen3_moe_30b": dict(temperature=0.6, top_p=0.95, top_k=20),
+    "recurrentgemma_2b": dict(temperature=1.0, top_k=64, top_p=0.95),
     "deepseek_r1": dict(temperature=0.6, top_p=0.95),
 }
 

@@ -10,9 +10,10 @@
 // input type; the scale is 1/sqrt(DQK); softmax statistics and
 // accumulators in fp32.  A masked score is the finite rt::kNeg, never
 // -inf, as in the plain version.  The head dims are template parameters:
-// (DQK, DV) = (32, 32), (64, 64), (128, 128), and (192, 128), MLA's
-// prefill (DeepSeek-R1: a 128-wide no-RoPE part and a 64-wide RoPE part
-// in q and k, v 128 wide).
+// (DQK, DV) = (32, 32), (64, 64), (80, 80) (H2O-Danube-1.8B), (128, 128),
+// (192, 128), MLA's prefill (DeepSeek-R1: a 128-wide no-RoPE part and a
+// 64-wide RoPE part in q and k, v 128 wide), and (256, 256)
+// (RecurrentGemma-2B's local attention, one kv head for 10 q heads).
 //
 // What bounds it on an H100: at the serving path's prefill shape (B=4,
 // S=512, H=32, D=64, causal, bf16) the work is ~4.3 GFLOP against ~21 MB
@@ -63,15 +64,24 @@
 // steps) and a 16 KiB V tile, and the CTA's shared memory is the 48 KiB Q
 // tile, a ring of 4 such stages (160 KiB) and the tile list; a V padded to
 // 192 would leave the list almost no room.  O is written back over the
-// first two of Q's three boxes.  128-key tiles, a third ring stage or four
-// stages with loads three tiles ahead, an O += P V of the previous tile
-// started beside the next S (overlapping the softmax), and two CTAs an SM
-// at D = 128 were each measured no faster on an H100 (PERF.md).  No
-// producer warp, no warp specialisation and no ping-pong between the
-// warpgroups: those are the next steps.  The tile list takes 12 bytes of
-// shared memory a 64-key tile, so D = 128 takes up to ~354K keys (~791K at
-// D = 64, ~92K at (192, 128)); past that the wrapper refuses the call
-// (ops.py's max_keys).
+// first two of Q's three boxes.  At (80, 80) a row is two 64-column boxes
+// over a tensor map of extent 80: the second box arrives zero-filled past
+// column 80 and the TMA store drops O's columns past it, so nothing is
+// padded in device memory; S = Q K^T runs 5 k16 steps, O += P V runs at
+// N = 128 (1.6x the products of N = 80, but the 128-byte swizzle and the
+// descriptor strides of every other pair; 16-column boxes would need a
+// 32-byte swizzle and five TMA boxes a row).  At (256, 256) Q takes 64 KiB
+// and a K + V stage 64 KiB, so the ring has 2 stages, loads one tile
+// ahead (Geo::kStages), and O += P V is two N = 128 products over V's two
+// halves (O is 128 fp32 registers a thread).  128-key tiles, a third ring
+// stage or four stages with loads three tiles ahead, an O += P V of the
+// previous tile started beside the next S (overlapping the softmax), and
+// two CTAs an SM at D = 128 were each measured no faster on an H100
+// (PERF.md).  No producer warp, no warp specialisation and no ping-pong
+// between the warpgroups: those are the next steps.  The tile list takes
+// 12 bytes of shared memory a 64-key tile, so D = 128 takes up to ~354K
+// keys (~791K at D = 64, ~92K at (192, 128), ~182K at (256, 256)); past
+// that the wrapper refuses the call (repro_flash_max_keys).
 //
 // fp32 runs the first version of this kernel, on the CUDA cores (wgmma
 // takes no fp32 operands, and TF32 would keep ~3 digits): one CTA per
@@ -298,42 +308,58 @@ constexpr int BQ = 128;  // query rows per CTA: two warpgroups of 64
 constexpr int BK = 64;   // keys per K/V tile
 constexpr int NT = 256;  // threads: two warpgroups
 constexpr int NW = NT / 32;
-constexpr int STAGES = 4;  // K/V ring
-constexpr int AHEAD = 2;   // tiles loaded ahead of the one computed
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kSmemLimit = 227 * 1024;  // the most a CTA may take
 
 // Shared-memory geometry of a pair of head dims.  A TMA box is at most 64
 // bf16 columns (128 bytes, the swizzle's width); a wider row takes several
-// boxes a tile, stored one after the other: Q and K DQK / 64 of them, V
-// DV / 64.  Both head dims share the box width, so one swizzle and one
-// descriptor stride serve every tile.
+// boxes a tile, stored one after the other: Q and K ceil(DQK / 64) of them,
+// V ceil(DV / 64).  Both head dims share the box width, so one swizzle and
+// one descriptor stride serve every tile.  A head dim that is not a
+// multiple of the box (80) takes one more box, whose columns past the head
+// dim arrive as zeros (the tensor map's extent is the head dim): S = Q K^T
+// runs DQK / 16 k16 steps and never reads them; O += P V runs at the padded
+// width kDVP (128 at DV = 80: wgmma's N over whole swizzle atoms), and the
+// store drops O's columns past DV.
 template <int DQK, int DV>
 struct Geo {
   static constexpr int kBoxCols = DQK < 64 ? DQK : 64;
   static_assert((DV < 64 ? DV : 64) == kBoxCols && DV <= DQK &&
-                    DQK % kBoxCols == 0 && DV % kBoxCols == 0,
+                    DQK % 16 == 0 && DV % 8 == 0,
                 "head dims of one box width, DV <= DQK");
-  static constexpr int kQKBoxes = DQK / kBoxCols;
-  static constexpr int kVBoxes = DV / kBoxCols;
+  static constexpr int kQKBoxes = (DQK + kBoxCols - 1) / kBoxCols;
+  static constexpr int kVBoxes = (DV + kBoxCols - 1) / kBoxCols;
+  static constexpr int kDVP = kVBoxes * kBoxCols;  // O's accumulator columns
   static constexpr int kRowBytes = kBoxCols * 2;
   static constexpr uint32_t kAtom = 8 * kRowBytes;  // 8 rows of a box
   static constexpr uint64_t kSwizzle =
       kBoxCols < 64 ? sm90::kSwizzle64 : sm90::kSwizzle128;
   static constexpr int kKSteps = kBoxCols / 16;     // k16 steps a box
-  static constexpr uint32_t kQBytes = BQ * DQK * 2;  // O reuses its boxes
-  static constexpr uint32_t kKBytes = BK * DQK * 2;  // one K tile
-  static constexpr uint32_t kVBytes = BK * DV * 2;   // one V tile
+  // O reuses Q's boxes
+  static constexpr uint32_t kQBytes = BQ * kQKBoxes * kRowBytes;
+  static constexpr uint32_t kKBytes = BK * kQKBoxes * kRowBytes;  // K tile
+  static constexpr uint32_t kVBytes = BK * kVBoxes * kRowBytes;   // V tile
   static constexpr uint32_t kStageBytes = kKBytes + kVBytes;
+  // the K/V ring: 4 stages, loads two tiles ahead of the one computed,
+  // where Q and four stages leave the tile list 19 KiB or more of the 227;
+  // else 2 stages, one tile ahead ((256, 256): Q 64 KiB, a stage 64 KiB)
+  static constexpr int kStages =
+      kQBytes + 4 * kStageBytes <= 208 * 1024 ? 4 : 2;
+  static constexpr int kAhead = kStages / 2;
   // offsets from the 1024-aligned base: Q, then per stage K and V
   static constexpr uint32_t kKV = kQBytes;
-  static constexpr uint32_t kBars = kKV + STAGES * kStageBytes;
-  // barriers: full[STAGES], empty[STAGES], q
-  static constexpr uint32_t kKvPos = kBars + 8 * (2 * STAGES + 1);
-  static constexpr uint32_t kRed = kKvPos + STAGES * BK * 4;  // int [2][NW]
+  static constexpr uint32_t kBars = kKV + kStages * kStageBytes;
+  // barriers: full[kStages], empty[kStages], q
+  static constexpr uint32_t kKvPos = kBars + 8 * (2 * kStages + 1);
+  static constexpr uint32_t kRed = kKvPos + kStages * BK * 4;  // int [2][NW]
   // int n, then per K/V tile: the list, the kv position min and max
   static constexpr uint32_t kList = kRed + 2 * NW * 4;
   static size_t smem_bytes(int ntiles) {
     return 1024 + kList + 4 * (1 + 3 * size_t(ntiles));
+  }
+  // the most keys whose tile list fits the CTA's shared memory
+  static int max_keys() {
+    return int((kSmemLimit - smem_bytes(0)) / 12) * BK;
   }
 };
 
@@ -354,6 +380,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 int Hkv, int causal, int window, float softcap,
                 float scale) {
   using G = Geo<DQK, DV>;
+  constexpr int STAGES = G::kStages, AHEAD = G::kAhead;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
@@ -505,9 +532,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
   const float s_mul = softcap > 0.f ? scale / softcap : scale * kLog2e;
   const float cap_mul = softcap * kLog2e;
 
-  float o[DV / 2];
+  float o[G::kDVP / 2];
 #pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < G::kDVP / 2; ++i) o[i] = 0.f;
   float m0 = rt::kNeg, m1 = rt::kNeg, l0 = 0.f, l1 = 0.f;  // m in log2 units
   const uint32_t q_rows = sQ + 64 * wg * G::kRowBytes;
 
@@ -619,7 +646,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
       l0 = l0 * corr0 + sum0;  // this thread's share; the quad sums last
       l1 = l1 * corr1 + sum1;
 #pragma unroll
-      for (int j = 0; j < DV / 8; ++j) {
+      for (int j = 0; j < G::kDVP / 8; ++j) {
         o[4 * j] *= corr0;
         o[4 * j + 1] *= corr0;
         o[4 * j + 2] *= corr1;
@@ -643,7 +670,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
         const uint64_t dv =
             sm90::desc(v_tile + kk * 16 * G::kRowBytes, BK * G::kRowBytes,
                        G::kAtom, G::kSwizzle);
-        sm90::wgmma_rs<DV>(o, a[kk], dv);
+        sm90::wgmma_rs<G::kDVP>(o, a[kk], dv, 2 * BK * G::kRowBytes);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
@@ -770,13 +797,37 @@ cudaError_t dispatch(int DQK, int DV, const void* q, const void* k,
                            causal, window, softcap, scale, stream);
   REPRO_FLASH_CASE(32, 32)
   REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(80, 80)
   REPRO_FLASH_CASE(128, 128)
   REPRO_FLASH_CASE(192, 128)
+  REPRO_FLASH_CASE(256, 256)
 #undef REPRO_FLASH_CASE
   return cudaErrorInvalidValue;
 }
 
+// The most keys the tensor-core route takes at a pair (Geo::max_keys).
+int max_keys(int DQK, int DV) {
+#define REPRO_FLASH_CASE(A, C) \
+  if (DQK == A && DV == C) return tc::Geo<A, C>::max_keys();
+  REPRO_FLASH_CASE(32, 32)
+  REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(80, 80)
+  REPRO_FLASH_CASE(128, 128)
+  REPRO_FLASH_CASE(192, 128)
+  REPRO_FLASH_CASE(256, 256)
+#undef REPRO_FLASH_CASE
+  return 0;
+}
+
 }  // namespace
+
+// The most keys (Skv) the tensor-core route takes at head dims (DQK, DV):
+// its tile list, 12 bytes a 64-key tile, shares the CTA's 227 KiB of
+// shared memory with the Q tile and the K/V ring.  0 for a pair the kernel
+// is not instantiated for.
+extern "C" int repro_flash_max_keys(int DQK, int DV) {
+  return max_keys(DQK, DV);
+}
 
 // Returns the CUDA error of the launch (0 on success).
 // DQK is the head dim of q and k, DV that of v and out.

@@ -10,7 +10,9 @@ counted in ``kernels.LAUNCHES`` and, by route, in ``ROUTE_LAUNCHES``.
 A bf16 input the tensor-core route cannot take raises; it never goes to
 the fp32 route.  V may be narrower than q and k (MLA's prefill: q/k heads
 of 192, v heads of 128) for the instantiated pairs of ``HEAD_DIMS``; V is
-never padded, and any other pair raises.
+never padded in device memory, and any other pair raises.  A head dim
+that is not a multiple of the tensor-core route's 64-column box (80) is
+padded in shared memory only.
 """
 from __future__ import annotations
 
@@ -27,11 +29,10 @@ from repro_torch.models import flash
 NAME = "flash_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the (q/k, v) head dims the kernel is instantiated for, on both routes
-HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (192, 128))
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128),
+             (256, 256))
 _ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 _LIB = None
-# The most shared memory one CTA may take on an H100 (227 KiB).
-_SMEM_LIMIT = 227 * 1024
 
 # launches by route since the last reset_routes()
 ROUTE_LAUNCHES = {"wgmma": 0, "simt": 0}
@@ -47,15 +48,13 @@ def route(dtype) -> str:
 
 def max_keys(dqk: int, dv: Optional[int] = None) -> int:
     """The most keys (Skv) the tensor-core route takes at q/k head dim
-    ``dqk`` and v head dim ``dv`` (``dqk`` when absent).  Its CTA's shared
-    memory (``Geo<DQK, DV>::smem_bytes`` in ``csrc/flash_attention.cu``) is
-    a 128-row Q tile (256 * dqk bytes), a 4-stage ring of 64-key K and V
-    tiles (512 * (dqk + dv)), barriers, positions and the 1024-byte
-    alignment (2188), then 12 bytes a 64-key tile for the tile list and
-    each tile's kv position range: ~354K keys at (128, 128), ~791K at
-    (64, 64), ~1.0M at (32, 32), ~92K at (192, 128)."""
-    fixed = 256 * dqk + 512 * (dqk + (dqk if dv is None else dv)) + 2188
-    return (_SMEM_LIMIT - fixed) // 12 * 64
+    ``dqk`` and v head dim ``dv`` (``dqk`` when absent), as the built
+    kernel computes it (``repro_flash_max_keys``): its tile list, 12 bytes
+    a 64-key tile, shares the CTA's 227 KiB of shared memory with the Q
+    tile and the K/V ring.  ~354K keys at (128, 128) and at (80, 80),
+    ~791K at (64, 64), ~1.0M at (32, 32), ~92K at (192, 128), ~182K at
+    (256, 256)."""
+    return _lib().repro_flash_max_keys(dqk, dqk if dv is None else dv)
 
 
 def reset_routes() -> None:
@@ -70,12 +69,16 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry point ``repro_flash_attention_fwd`` of a
-    loaded library."""
+    """Declare the C entry points of a loaded library:
+    ``repro_flash_attention_fwd`` and, where the library has it (not
+    before head dims 80 and 256), ``repro_flash_max_keys``."""
     fn = lib.repro_flash_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    if hasattr(lib, "repro_flash_max_keys"):
+        lib.repro_flash_max_keys.restype = ctypes.c_int
+        lib.repro_flash_max_keys.argtypes = [ctypes.c_int] * 2
     return lib
 
 
@@ -123,9 +126,10 @@ def _check(q, k, v, q_pos, kv_pos):
                 raise ValueError(f"{NAME}: bf16 {name} must start on a "
                                  f"16-byte boundary for TMA, its address "
                                  f"is {t.data_ptr():#x}")
-        if Skv > max_keys(D, Dv):
+        limit = max_keys(D, Dv)
+        if Skv > limit:
             raise ValueError(f"{NAME}: bf16 takes at most "
-                             f"{max_keys(D, Dv)} keys at head dim (q/k {D}, "
+                             f"{limit} keys at head dim (q/k {D}, "
                              f"v {Dv}) (its tile list must fit the CTA's "
                              f"227 KiB of shared memory), got Skv {Skv}")
 

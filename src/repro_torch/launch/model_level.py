@@ -2,9 +2,14 @@
 ``prefill``, the first token drawn from its logits, then ``decode_page``s
 until every row has its tokens.
 
-This is how the port serves the SSM family (``NodeEngine`` refuses it,
-as the JAX engine does): through the model functions the JAX package's
-``launch/steps.py`` builds its prefill and decode cells on.  Greedy rows
+This is how the port serves the SSM and hybrid families and
+sliding-window decoders (``NodeEngine`` refuses them, as the JAX engine
+does): through the model functions the JAX package's ``launch/steps.py``
+builds its prefill and decode cells on.  A windowed model's prefill
+rings (min(window, S) slots) are re-laid into a decode cache of
+min(window, S + the most tokens a row gets) slots
+(``transformer.install_rings``), so decode past the window's wrap
+matches the teacher-forced forward.  Greedy rows
 take the argmax; with ``sampling`` every row draws through the port's
 sampler (the first token with key fold_in(seed, 0) and the prompt's
 penalty counts, as ``NodeEngine`` draws it; then ``decode_page``'s
@@ -50,6 +55,10 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _windowed(cfg) -> bool:
+    return cfg.family == "hybrid" or cfg.sliding_window > 0
+
+
 def generate(cfg, params, prompts, max_tokens: Union[int, Sequence[int]], *,
              sampling: Optional[Sequence[smp.SamplingParams]] = None,
              lp_k: Optional[int] = None, page_steps: int = 16
@@ -58,6 +67,11 @@ def generate(cfg, params, prompts, max_tokens: Union[int, Sequence[int]], *,
     ``params``: each row gets ``max_tokens`` tokens (an int or one per
     row), fewer when a sampled row hits a stop token.  Each
     ``decode_page`` runs ``page_steps`` steps."""
+    if cfg.family != "ssm" and not _windowed(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: model-level serving takes the SSM and hybrid "
+            f"families and sliding-window decoders; full-attention "
+            f"decoders are served by NodeEngine")
     dev = params["embed"].device
     B = len(prompts)
     toks = torch.tensor(np.asarray(prompts, np.int32), device=dev)
@@ -70,6 +84,9 @@ def generate(cfg, params, prompts, max_tokens: Union[int, Sequence[int]], *,
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = T.prefill(cfg, params, toks)
+    if _windowed(cfg):
+        rings = T.init_cache(cfg, B, S + int(want.max()), dev)
+        cache = T.install_rings(cfg, rings, cache)
     logits = logits[:, 0]
     if sampling is None:
         first = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -1,5 +1,5 @@
-"""Core layers of the decoders: norms, RoPE, GQA and MLA attention, gated
-MLP.
+"""Core layers of the decoders: norms, RoPE, GQA and MLA attention,
+sliding-window attention over a ring cache, gated MLP.
 
 PyTorch counterpart of ``repro.models.layers`` for the dense and MoE
 decoders, with the same numerics order (norm reductions and softmax
@@ -14,11 +14,19 @@ at q/k heads of dn + dr and v heads of dn) and one-token GQA decode
 through ``paged_attention`` (a dense cache is a page pool with the
 identity table).  MLA's absorbed decode attends over the latent cache in
 fp32 PyTorch, as the JAX package's einsums do: no TPU kernel computes
-it.  On CPU tensors the kernel wrappers run their plain PyTorch versions.
+it.  So does sliding-window decode over a ring cache
+(``attention_decode_ring``: H2O-Danube, RecurrentGemma's local
+attention), whose window and softcap lie outside the paged kernel's
+contract.  On CPU tensors the kernel wrappers run their plain PyTorch
+versions.
 
 Caches are written in place (the JAX package donates them instead):
-``cache_update``, ``attention_decode`` and ``mla_decode`` return the same
-tensors they were given.
+``cache_update``, ``attention_decode``, ``attention_decode_ring`` and
+``mla_decode`` return the same tensors they were given.
+
+``cfg.logit_softcap`` caps the attention scores as well as the logits,
+as the reference applies it (``repro.models.layers.attention_fwd`` and
+``decode_attention_ring``); the port follows it.
 """
 from __future__ import annotations
 
@@ -124,6 +132,32 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     return o.reshape(B, 1, H, -1)
 
 
+def decode_attention_ring(q, k_cache, v_cache, pos_cache, lengths, *,
+                          window: int, softcap: float = 0.0):
+    """One-token attention, q (B, 1, H, dh), against a ring cache (B, Wc,
+    Hkv, dh) whose slots hold the positions ``pos_cache`` (B, Wc) (-1:
+    empty): a slot counts if its position is below ``lengths`` and within
+    ``window`` of the newest, ``lengths`` - 1.  fp32 scores and softmax,
+    as the reference's einsums."""
+    B, _, H, dh = q.shape
+    Wc, Hkv, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, dh).float() * (1.0 / math.sqrt(dh))
+    s = torch.einsum("bhgd,bshd->bhgs", qg, k_cache.float())
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
+    last = lengths[:, None]
+    mask = (pos_cache >= 0) & (pos_cache < last) \
+        & (pos_cache > last - 1 - window)
+    s = torch.where(mask[:, None, None, :], s, -1e30)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgs,bshd->bhgd", p / torch.clamp_min(l, 1e-30),
+                       v_cache.float())
+    return out.reshape(B, 1, H, dv).to(q.dtype)
+
+
 def cache_update(cache, new, lengths):
     """Write ``new`` (B, 1, ...) at position ``lengths`` of ``cache``
     (B, S, ...), in place: (B, S, Hkv, dh) K/V, or MLA's (B, S, r) latent
@@ -172,13 +206,15 @@ def attention_qkv(cfg: ModelConfig, p, x, positions, *, rope_tab=None):
     return apply_rope(q, tab), apply_rope(k, tab), v
 
 
-def attention_fwd(cfg: ModelConfig, p, x, positions, *, rope_tab=None):
-    """Causal full-sequence self-attention; returns (out, (k, v)) for the
-    cache."""
+def attention_fwd(cfg: ModelConfig, p, x, positions, *, rope_tab=None,
+                  window=None):
+    """Causal full-sequence self-attention over ``window`` keys
+    (``cfg.sliding_window`` when absent; 0: all); returns (out, (k, v))
+    for the cache."""
     q, k, v = attention_qkv(cfg, p, x, positions, rope_tab=rope_tab)
+    w = cfg.sliding_window if window is None else window
     o = chunked_attention(q, k, v, positions, positions, causal=True,
-                          window=cfg.sliding_window,
-                          softcap=cfg.logit_softcap)
+                          window=w, softcap=cfg.logit_softcap)
     return _merge_heads(o, p["wo"]), (k, v)
 
 
@@ -192,6 +228,25 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
     o = decode_attention(q, k_cache, v_cache, lengths + 1,
                          window=cfg.sliding_window, softcap=cfg.logit_softcap)
     return _merge_heads(o, p["wo"]), k_cache, v_cache
+
+
+def attention_decode_ring(cfg: ModelConfig, p, x, k_cache, v_cache,
+                          pos_cache, lengths, *, window=None, rope_tab=None):
+    """One-token sliding-window decode against a ring cache of Wc slots
+    (B, Wc, Hkv, dh), ``pos_cache`` (B, Wc): the token at position
+    ``lengths`` goes to slot ``lengths % Wc``, in place; attends over
+    ``window`` positions (``cfg.sliding_window`` when absent).  Returns
+    (out, k_cache, v_cache, pos_cache)."""
+    w = cfg.sliding_window if window is None else window
+    q, k, v = attention_qkv(cfg, p, x, lengths[:, None], rope_tab=rope_tab)
+    slot = lengths % k_cache.shape[1]
+    cache_update(k_cache, k, slot)
+    cache_update(v_cache, v, slot)
+    rows = torch.arange(pos_cache.shape[0], device=pos_cache.device)
+    pos_cache[rows, slot.long()] = lengths.to(pos_cache.dtype)
+    o = decode_attention_ring(q, k_cache, v_cache, pos_cache, lengths + 1,
+                              window=w, softcap=cfg.logit_softcap)
+    return _merge_heads(o, p["wo"]), k_cache, v_cache, pos_cache
 
 
 # ---------------------------------------------------------------------------

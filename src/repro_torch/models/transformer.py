@@ -2,19 +2,32 @@
 sampled, with or without logprobs) and its logprob planes.
 
 PyTorch counterpart of ``repro.models.transformer`` for the families the
-port serves so far: dense decoders, MoE decoders (``models/moe.py`` for
-the expert layer), with GQA or, as DeepSeek-R1, MLA attention, and
-Mamba-2 SSMs (``models/ssm.py``).  Parameters are a plain dict in the JAX
+port serves so far: dense decoders (H2O-Danube's sliding window among
+them), MoE decoders (``models/moe.py`` for the expert layer), with GQA
+or, as DeepSeek-R1, MLA attention, Mamba-2 SSMs (``models/ssm.py``) and
+the RecurrentGemma hybrid (units of RG-LRU, RG-LRU and local-attention
+sublayers, ``models/rglru.py``).  Parameters are a plain dict in the JAX
 package's layout: per-layer leaves stacked with a leading L
 (``layers.attn.wq`` is (L, D, H, dh), ``layers.attn.wq_b`` (L, r_q, H,
 dn + dr), ``layers.moe.w1`` (L, E, D, F), ``layers.ssm.wx`` (L, D, W)),
-so ``params_from_numpy`` takes the JAX params pytree as numpy unchanged.
-The layer stack is a Python loop over per-layer views; the decode cache
-is written in place: ``{"k", "v"}`` of (L, B, max_len, Hkv, dh) for GQA
-attention, ``{"ckv", "kr"}`` of (L, B, max_len, kv_lora_rank) and (L, B,
-max_len, rope_head_dim) for MLA, ``{"conv_x", "conv_B", "conv_C",
-"state"}`` of (L, B, ...) for an SSM, whose prefill cache is its decode
-cache.
+the hybrid's with a leading unit (``units.b0.t.wx`` is (n_units, D, W))
+or tail-layer axis, so ``params_from_numpy`` takes the JAX params pytree
+as numpy unchanged.  The layer stack is a Python loop over per-layer
+views; the decode cache is written in place: ``{"k", "v"}`` of (L, B,
+max_len, Hkv, dh) for GQA attention, ``{"k", "v", "pos"}`` rings of
+min(window, max_len) slots for a sliding window, ``{"ckv", "kr"}`` of (L,
+B, max_len, kv_lora_rank) and (L, B, max_len, rope_head_dim) for MLA,
+``{"conv_x", "conv_B", "conv_C", "state"}`` of (L, B, ...) for an SSM,
+whose prefill cache is its decode cache, and for the hybrid
+``{"units": {"b0", "b1": RG-LRU state and conv, "b2": ring}, "tail": ...}``.
+
+A windowed prefill returns the reference's ring, min(window, S) slots
+(``_to_ring``); ``install_ring`` re-lays it into ``init_cache``'s ring of
+min(window, max_len) slots before decode.  Decoding straight from the
+prefill's ring, as the reference's shapes would have it, writes position
+S into slot S % S = 0 while position 0 is still in the window whenever S
+< window: the port repairs that, and its decode equals the
+teacher-forced forward.
 """
 from __future__ import annotations
 
@@ -26,7 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch import compat
-from repro_torch.models import layers, moe, ssm
+from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.api import ModelConfig
 
 
@@ -36,33 +49,53 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 def check_model(cfg: ModelConfig) -> None:
     """What the port's model functions serve so far: dense and MoE
-    decoders with RMSNorm, a gated MLP, full RoPE attention, no sliding
-    window and no logit softcap (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M,
-    Qwen3-30B-A3B, Phi-3.5-MoE), MoE decoders with MLA (DeepSeek-R1: the
-    JAX package builds MLA in MoE layers only), and Mamba-2 SSMs
-    (Mamba2-370M).  Windows and the other families wait for later
-    slices."""
-    if (cfg.family not in ("dense", "moe", "ssm")
+    decoders with RMSNorm, a gated MLP and full RoPE attention
+    (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M, Qwen3-30B-A3B, Phi-3.5-MoE),
+    dense ones with a sliding window too (H2O-Danube-1.8B), MoE decoders
+    with MLA (DeepSeek-R1: the JAX package builds MLA in MoE layers only),
+    Mamba-2 SSMs (Mamba2-370M), and the RG-LRU + local-attention hybrid
+    with its logit softcap (RecurrentGemma-2B).  The encoder-decoder and
+    vision families (Whisper, Pixtral) are not ported yet."""
+    if cfg.family in ("audio", "vlm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family (an encoder, "
+            f"cross-attention, LayerNorm, sinusoid positions) is not "
+            f"ported yet; Whisper and Pixtral are the port's next models")
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
             or (cfg.use_mla and cfg.family != "moe")
-            or cfg.sliding_window > 0 or cfg.norm != "rmsnorm"
-            or cfg.logit_softcap > 0):
+            or (cfg.sliding_window > 0 and cfg.family != "dense")
+            or cfg.norm != "rmsnorm"
+            or (cfg.logit_softcap > 0 and cfg.family != "hybrid")):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port's model functions serve dense "
-            f"and MoE RMSNorm decoders (MLA in MoE decoders only) without "
-            f"a sliding window or a logit softcap, and Mamba-2 SSMs, so "
-            f"far")
+            f"and MoE RMSNorm decoders (MLA in MoE decoders only, a "
+            f"sliding window in dense ones only), Mamba-2 SSMs and the "
+            f"RecurrentGemma hybrid (the only family with a logit "
+            f"softcap), so far")
 
 
 def check_served(cfg: ModelConfig) -> None:
     """What ``NodeEngine`` serves: the dense and MoE decoders of
-    ``check_model``.  The SSM family is served at model level only
-    (``prefill``, ``decode_page``), as the JAX engine refuses it too."""
+    ``check_model`` without a sliding window.  The SSM and hybrid
+    families and windowed decoders are served at model level only
+    (``prefill``, ``install_ring``, ``decode_page``), as the JAX engine
+    refuses them too."""
     check_model(cfg)
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe") or cfg.sliding_window > 0:
+        what = (f"the {cfg.family} family" if cfg.family not in
+                ("dense", "moe") else "a sliding-window decoder")
         raise NotImplementedError(
-            f"{cfg.name}: NodeEngine serves dense and MoE decoders; the "
-            f"{cfg.family} family is served at model level (prefill, "
+            f"{cfg.name}: NodeEngine serves dense and MoE decoders with "
+            f"full attention; {what} is served at model level (prefill, "
             f"decode_page)")
+
+
+def _hybrid_counts(cfg: ModelConfig):
+    """(#full units, #tail rec layers) of the hybrid's block pattern:
+    RecurrentGemma-2B's 26 layers are 8 (rec, rec, attn) units and 2
+    tail rec layers."""
+    unit = len(cfg.block_pattern)
+    return cfg.num_layers // unit, cfg.num_layers % unit
 
 
 # ---------------------------------------------------------------------------
@@ -75,8 +108,11 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     with the scales of ``repro.models.transformer.init_params``; init is
     the normal draw's std, or "ones" / "zeros" / "a_log" (the SSM's fixed
     ``A_log``, ``ssm.a_log_init``); dtype, where given, overrides
-    ``cfg.dtype`` (the MoE router ``wg`` and the SSM's ``dt_bias``,
-    ``A_log`` and ``D_skip`` stay fp32, as the JAX package keeps them)."""
+    ``cfg.dtype`` (the MoE router ``wg``, the SSM's ``dt_bias``,
+    ``A_log`` and ``D_skip`` and the RG-LRU's ``lam`` stay fp32, as the
+    JAX package keeps them).  The hybrid's sublayers are stacked per
+    unit position (``units.b0`` .. ``b2``, leading n_units) and its tail
+    (leading n_tail)."""
     check_model(cfg)
     V, D, L = padded_vocab(cfg), cfg.d_model, cfg.num_layers
     H, Hkv, dh, Fd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_ff
@@ -91,6 +127,34 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         return dict(top, layers={"ln1": norm((L,)),
                                  "ssm": ssm.param_spec(cfg, (L,))})
 
+    def gqa(stack):
+        a = {"wq": (stack + (D, H, dh), sc), "wk": (stack + (D, Hkv, dh), sc),
+             "wv": (stack + (D, Hkv, dh), sc),
+             "wo": (stack + (H, dh, D), sc * lsc)}
+        if cfg.attn_bias:
+            a.update(bq=(stack + (H, dh), "zeros"),
+                     bk=(stack + (Hkv, dh), "zeros"),
+                     bv=(stack + (Hkv, dh), "zeros"))
+        return a
+
+    def mlp(F, stack=(L,)):
+        return {"w1": (stack + (D, F), sc), "w3": (stack + (D, F), sc),
+                "w2": (stack + (F, D), 1.0 / math.sqrt(F) * lsc)}
+
+    if cfg.family == "hybrid":      # repro.models.transformer._init_rg_*
+        n_units, n_tail = _hybrid_counts(cfg)
+
+        def sub(kind, stack):
+            t = rglru.param_spec(cfg, stack) if kind == "rec" else gqa(stack)
+            return {"ln1": norm(stack), "t": t, "ln2": norm(stack),
+                    "mlp": mlp(Fd, stack)}
+
+        out = dict(top, units={f"b{i}": sub(kind, (n_units,))
+                               for i, kind in enumerate(cfg.block_pattern)})
+        if n_tail:
+            out["tail"] = sub("rec", (n_tail,))
+        return out
+
     if cfg.use_mla:     # repro.models.layers.init_mla
         r_q, r_kv, dr = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim
         attn = {"wq_a": ((L, D, r_q), sc), "q_norm": ((L, r_q), "ones"),
@@ -101,15 +165,7 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                 "wv_b": ((L, r_kv, H, dh), 1.0 / math.sqrt(r_kv)),
                 "wo": ((L, H, dh, D), sc * lsc)}
     else:
-        attn = {"wq": ((L, D, H, dh), sc), "wk": ((L, D, Hkv, dh), sc),
-                "wv": ((L, D, Hkv, dh), sc), "wo": ((L, H, dh, D), sc * lsc)}
-    if cfg.attn_bias:
-        attn.update(bq=((L, H, dh), "zeros"), bk=((L, Hkv, dh), "zeros"),
-                    bv=((L, Hkv, dh), "zeros"))
-
-    def mlp(F, stack=(L,)):
-        return {"w1": (stack + (D, F), sc), "w3": (stack + (D, F), sc),
-                "w2": (stack + (F, D), 1.0 / math.sqrt(F) * lsc)}
+        attn = gqa((L,))
 
     block = {"ln1": norm((L,)), "attn": attn, "ln2": norm((L,))}
     if cfg.is_moe:
@@ -161,7 +217,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
         if scale == "a_log":
             return ssm.a_log_init(shape[-1], dev).expand(shape).to(dt) \
                 .contiguous()
-        if path[0] != "layers":
+        if scale == "lam":
+            return rglru.lam_init(shape, gen, dev).to(dt)
+        if path[0] not in ("layers", "units", "tail"):
             return draw(shape, scale, dt)
         out = torch.empty(shape, dtype=dt, device=dev)
         experts = path[-2] == "moe" and len(shape) == 4   # (L, E, ., .)
@@ -245,13 +303,16 @@ def _layer_view(t, i):
         v.untyped_storage(), v.storage_offset(), v.size(), v.stride())
 
 
-def _per_layer(params) -> List[Dict[str, Any]]:
-    """Per-layer views of the stacked leaves, cached while the params
-    live (one view per leaf and layer instead of one per call).  The
-    views hold the leaves' storage, not the leaves, so dropping the
-    params drops the anchor, whose weak reference evicts the entry and
-    frees the weights."""
-    anchor = params["layers"]["ln1"]["w"]
+def _per_layer(params, stack: str = "layers") -> List[Dict[str, Any]]:
+    """Per-layer views of the leaves stacked under ``stack`` ("layers",
+    or the hybrid's "units" and "tail"), cached while the params live
+    (one view per leaf and layer instead of one per call).  The views
+    hold the leaves' storage, not the leaves, so dropping the params
+    drops the anchor (the stack's first leaf), whose weak reference
+    evicts the entry and frees the weights."""
+    anchor = params[stack]
+    while isinstance(anchor, dict):
+        anchor = next(iter(anchor.values()))
     hit = _PER_LAYER.get(id(anchor))
     if hit is not None and hit[0]() is anchor:
         return hit[1]
@@ -260,7 +321,7 @@ def _per_layer(params) -> List[Dict[str, Any]]:
         return {k: index(v, i) if isinstance(v, dict) else _layer_view(v, i)
                 for k, v in tree.items()}
 
-    views = [index(params["layers"], i) for i in range(anchor.shape[0])]
+    views = [index(params[stack], i) for i in range(anchor.shape[0])]
     key = id(anchor)
     ref = weakref.ref(anchor, lambda _: _PER_LAYER.pop(key, None))
     _PER_LAYER[key] = (ref, views)
@@ -273,11 +334,18 @@ def _per_layer(params) -> List[Dict[str, Any]]:
 
 
 def _embed_tokens(cfg, params, tokens):
-    return params["embed"][tokens.long()]
+    h = params["embed"][tokens.long()]
+    if cfg.family == "hybrid":      # gemma: times sqrt(d_model), rounded
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
+                             device=h.device)   # to h's dtype first
+    return h
 
 
 def logits_fn(cfg, params, h):
-    return torch.matmul(h, params["lm_head"]).float()
+    logits = torch.matmul(h, params["lm_head"]).float()
+    if cfg.logit_softcap > 0:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
 
 
 # ---------------------------------------------------------------------------
@@ -285,18 +353,49 @@ def logits_fn(cfg, params, h):
 # ---------------------------------------------------------------------------
 
 
+def _ring_cache(lead, B: int, Wc: int, Hkv: int, dh: int, dt, dev):
+    """An empty ring: k / v zeros (*lead, B, Wc, Hkv, dh), positions -1."""
+    return {"k": torch.zeros(lead + (B, Wc, Hkv, dh), dtype=dt, device=dev),
+            "v": torch.zeros(lead + (B, Wc, Hkv, dh), dtype=dt, device=dev),
+            "pos": torch.full(lead + (B, Wc), -1, dtype=torch.int32,
+                              device=dev)}
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
     """Decode cache of zeros: {"k", "v"} of (L, B, max_len, Hkv, dh); for
-    MLA {"ckv", "kr"} of (L, B, max_len, kv_lora_rank) and (L, B, max_len,
-    rope_head_dim); for an SSM ``ssm.init_ssm_cache``'s leaves with a
-    leading L (no ``max_len`` axis: the state does not grow)."""
+    a sliding window a ring {"k", "v", "pos"} of min(window, max_len)
+    slots (positions -1: empty); for MLA {"ckv", "kr"} of (L, B, max_len,
+    kv_lora_rank) and (L, B, max_len, rope_head_dim); for an SSM
+    ``ssm.init_ssm_cache``'s leaves with a leading L (no ``max_len`` axis:
+    the state does not grow); for the hybrid {"units": {"b<i>": RG-LRU
+    cache or ring of min(local_window, max_len)}, "tail": RG-LRU cache},
+    leaves with a leading n_units / n_tail."""
     check_model(cfg)
     dev = compat.resolve_device(device)
     dt = compat.torch_dtype(cfg.dtype)
     L = cfg.num_layers
+    Hkv, dh = cfg.num_kv_heads, cfg.head_dim
     if cfg.family == "ssm":
         one = ssm.init_ssm_cache(cfg, B, dt, dev)
         return {k: v.new_zeros((L,) + v.shape) for k, v in one.items()}
+    if cfg.family == "hybrid":
+        n_units, n_tail = _hybrid_counts(cfg)
+        Wc = min(cfg.local_window, max_len)
+
+        def rec(n):
+            one = rglru.init_rglru_cache(cfg, B, dt, dev)
+            return {k: v.new_zeros((n,) + v.shape) for k, v in one.items()}
+
+        cache = {"units": {
+            f"b{i}": rec(n_units) if kind == "rec" else
+            _ring_cache((n_units,), B, Wc, Hkv, dh, dt, dev)
+            for i, kind in enumerate(cfg.block_pattern)}}
+        if n_tail:
+            cache["tail"] = rec(n_tail)
+        return cache
+    if cfg.sliding_window > 0:
+        return _ring_cache((L,), B, min(cfg.sliding_window, max_len), Hkv,
+                           dh, dt, dev)
     if cfg.use_mla:
         return {"ckv": torch.zeros((L, B, max_len, cfg.kv_lora_rank),
                                    dtype=dt, device=dev),
@@ -316,9 +415,131 @@ def ffn(cfg: ModelConfig, p, h):
     return h + layers.mlp_fwd(cfg, p["mlp"], xn)
 
 
+def _to_ring(k, v, positions, window: int):
+    """Full (B, S, Hkv, dh) K/V folded into the reference's prefill ring of
+    Wc = min(window, S) slots: the last Wc positions, each at slot
+    position % Wc, positions (B, Wc) int32 (-1: empty)."""
+    B, S = k.shape[0], k.shape[1]
+    Wc = min(window, S)
+    k_r, v_r = k[:, S - Wc:], v[:, S - Wc:]
+    pos_r = positions[:, S - Wc:].to(torch.int32)
+    rows = torch.arange(B, device=k.device)[:, None]
+    slot = (pos_r % Wc).long()
+    k_ring, v_ring = torch.zeros_like(k_r), torch.zeros_like(v_r)
+    k_ring[rows, slot] = k_r
+    v_ring[rows, slot] = v_r
+    pos_ring = torch.full((B, Wc), -1, dtype=torch.int32, device=k.device)
+    pos_ring[rows, slot] = pos_r
+    return {"k": k_ring, "v": v_ring, "pos": pos_ring}
+
+
+def install_ring(dst, src):
+    """Re-lay a prefill ring ``src`` ({"k", "v", "pos"} of Ws slots, as
+    ``_to_ring`` makes it, with any leading axes) into ``dst``, a ring of
+    ``init_cache``'s Wd = min(window, max_len) slots with the same leading
+    axes, in place: each of the newest Wd positions p goes to slot p % Wd;
+    the other slots are emptied (zeros, position -1).  Decode then writes
+    position p at slot p % Wd of the ring it reads, whatever the prompt's
+    length.  Returns ``dst``."""
+    Ws, Wd = src["pos"].shape[-1], dst["pos"].shape[-1]
+    sp = src["pos"].reshape(-1, Ws).long()
+    n = sp.shape[0]
+    keep = (sp >= 0) & (sp > sp.amax(dim=-1, keepdim=True) - Wd)
+    rows = torch.arange(n, device=sp.device)[:, None].expand(n, Ws)[keep]
+    slots = (sp % Wd)[keep]
+    dpos = dst["pos"].view(n, Wd)
+    dpos.fill_(-1)
+    dpos[rows, slots] = sp[keep].to(dpos.dtype)
+    for name in ("k", "v"):
+        tail = dst[name].shape[-2:]
+        d = dst[name].view((n, Wd) + tail)
+        d.zero_()
+        d[rows, slots] = src[name].reshape((n, Ws) + tail)[keep] \
+            .to(d.dtype)
+    return dst
+
+
+def install_rings(cfg: ModelConfig, dst, src):
+    """``install_ring`` for every ring of a windowed model's cache: the
+    whole cache of a sliding-window decoder, the attention positions of
+    the hybrid's units.  The RG-LRU leaves (fixed size) are copied.
+    Returns ``dst``."""
+    if cfg.family != "hybrid":
+        return install_ring(dst, src)
+    pairs = [(dst["units"][b], c) for b, c in src["units"].items()]
+    if "tail" in src:
+        pairs.append((dst["tail"], src["tail"]))
+    for d, c in pairs:
+        if "pos" in c:
+            install_ring(d, c)
+        else:
+            for k, t in c.items():
+                d[k].copy_(t)
+    return dst
+
+
+def _rg_sub_fwd(cfg, p, h, positions, tab, kind):
+    """One hybrid sublayer over the sequence: RMSNorm, RG-LRU or local
+    attention (window ``cfg.local_window``), RMSNorm, gelu MLP; returns
+    (h, its prefill cache: the RG-LRU's state and conv, or the ring)."""
+    xn = layers.apply_norm(cfg, p["ln1"], h)
+    if kind == "rec":
+        y, cache = rglru.rglru_fwd(cfg, p["t"], xn, return_state=True)
+    else:
+        y, (k, v) = layers.attention_fwd(cfg, p["t"], xn, positions,
+                                         rope_tab=tab,
+                                         window=cfg.local_window)
+        cache = _to_ring(k, v, positions, cfg.local_window)
+    h = h + y
+    return h + layers.mlp_fwd(cfg, p["mlp"],
+                              layers.apply_norm(cfg, p["ln2"], h)), cache
+
+
+def _rg_sub_decode(cfg, p, h, c, lengths, tab, kind):
+    """One hybrid sublayer's decode step; its cache ``c`` (one unit's or
+    tail layer's views) is written in place."""
+    xn = layers.apply_norm(cfg, p["ln1"], h)
+    if kind == "rec":
+        y, _ = rglru.rglru_decode(cfg, p["t"], xn, c)
+    else:
+        y, _, _, _ = layers.attention_decode_ring(
+            cfg, p["t"], xn, c["k"], c["v"], c["pos"], lengths,
+            window=cfg.local_window, rope_tab=tab)
+    h = h + y
+    return h + layers.mlp_fwd(cfg, p["mlp"],
+                              layers.apply_norm(cfg, p["ln2"], h))
+
+
+def _stacked(per_layer):
+    """A list of per-layer cache dicts -> one dict of stacked leaves."""
+    return {k: torch.stack([c[k] for c in per_layer])
+            for k in per_layer[0]}
+
+
+def _hybrid_backbone(cfg, params, h, positions, tab):
+    units = []
+    for p in _per_layer(params, "units"):
+        c = {}
+        for i, kind in enumerate(cfg.block_pattern):
+            h, c[f"b{i}"] = _rg_sub_fwd(cfg, p[f"b{i}"], h, positions, tab,
+                                        kind)
+        units.append(c)
+    cache = {"units": {b: _stacked([u[b] for u in units])
+                       for b in units[0]}}
+    if "tail" in params:
+        tail = []
+        for p in _per_layer(params, "tail"):
+            h, c = _rg_sub_fwd(cfg, p, h, positions, tab, "rec")
+            tail.append(c)
+        cache["tail"] = _stacked(tail)
+    return h, cache
+
+
 def _backbone(cfg: ModelConfig, params, tokens):
     """tokens (B, S) -> (final-normed hidden (B, S, D), cache); the cache
-    is ``init_cache``'s leaves at max_len S, or an SSM's decode cache."""
+    is ``init_cache``'s leaves at max_len S, an SSM's decode cache, or for
+    a window the reference's prefill rings of min(window, S) slots
+    (``install_rings`` takes them to a decode cache)."""
     check_model(cfg)
     B, S = tokens.shape
     h = _embed_tokens(cfg, params, tokens)
@@ -334,6 +555,19 @@ def _backbone(cfg: ModelConfig, params, tokens):
     positions = torch.arange(S, dtype=torch.int32,
                              device=tokens.device)[None].expand(B, S)
     tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
+    if cfg.family == "hybrid":
+        h, cache = _hybrid_backbone(cfg, params, h, positions, tab)
+        return layers.apply_norm(cfg, params["final_norm"], h), cache
+    if cfg.sliding_window > 0:
+        rings = []
+        for p in _per_layer(params):
+            xn = layers.apply_norm(cfg, p["ln1"], h)
+            a, (k, v) = layers.attention_fwd(cfg, p["attn"], xn, positions,
+                                             rope_tab=tab)
+            rings.append(_to_ring(k, v, positions, cfg.sliding_window))
+            h = ffn(cfg, p, h + a)
+        return layers.apply_norm(cfg, params["final_norm"], h), \
+            _stacked(rings)
     cache = init_cache(cfg, B, S, tokens.device)
     names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
     attn_fwd = layers.mla_fwd if cfg.use_mla else layers.attention_fwd
@@ -356,9 +590,10 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
     """One decode step: tokens (B,), lengths (B,) -> (raw next-token
     logits (B, V) fp32, cache).  Writes each row's new K/V (MLA: c_kv and
     k_rope) at ``lengths`` in place (dropped for rows at or past the cache
-    length); an SSM advances every row's conv caches and state in place
-    (``lengths`` is not read: a finished row's state advances too, and its
-    tokens are discarded, as in the JAX scan)."""
+    length; a ring writes slot ``lengths % Wc``); an SSM and an RG-LRU
+    advance every row's conv caches and state in place (a finished row's
+    state advances too, and its tokens are discarded, as in the JAX
+    scan)."""
     check_model(cfg)
     h = _embed_tokens(cfg, params, tokens[:, None])
     if cfg.family == "ssm":
@@ -370,6 +605,24 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
         return head_logits(cfg, params, h), cache
     positions = lengths[:, None]
     tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
+    if cfg.family == "hybrid":
+        for u, p in enumerate(_per_layer(params, "units")):
+            for i, kind in enumerate(cfg.block_pattern):
+                c = {k: t[u] for k, t in cache["units"][f"b{i}"].items()}
+                h = _rg_sub_decode(cfg, p[f"b{i}"], h, c, lengths, tab, kind)
+        if "tail" in cache:
+            for j, p in enumerate(_per_layer(params, "tail")):
+                c = {k: t[j] for k, t in cache["tail"].items()}
+                h = _rg_sub_decode(cfg, p, h, c, lengths, tab, "rec")
+        return head_logits(cfg, params, h), cache
+    if cfg.sliding_window > 0:
+        for i, p in enumerate(_per_layer(params)):
+            xn = layers.apply_norm(cfg, p["ln1"], h)
+            a, _, _, _ = layers.attention_decode_ring(
+                cfg, p["attn"], xn, cache["k"][i], cache["v"][i],
+                cache["pos"][i], lengths, rope_tab=tab)
+            h = ffn(cfg, p, h + a)
+        return head_logits(cfg, params, h), cache
     names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
     attn_decode = (layers.mla_decode if cfg.use_mla
                    else layers.attention_decode)

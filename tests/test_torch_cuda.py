@@ -31,7 +31,13 @@ ragged D and F, on each of its routes (bf16 at block_t 64 and up on
 ``wgmma``, other bf16 calls on ``mma.sync``, fp32 on the CUDA cores), to
 equal bits over two launches and to its per-route launch count.
 The SSD state scan gives its plain version's bits (``torch.equal``: it
-rounds the product and the sum separately, as ``h * d + s`` does).
+rounds the product and the sum separately, as ``h * d + s`` does).  Flash
+runs at the windowed decoders' head dims, (80, 80) and (256, 256), in
+both types, windowed and softcapped with scores spread so that a window
+edge off by a tile or a dropped cap fails (bf16 atol tied to the output's
+scale, at most 2e-2), and at its key limit, which is the built kernel's
+(``repro_flash_max_keys``); reduced fp32 H2O-Danube and RecurrentGemma
+at those head dims give the CPU's tokens at model level.
 """
 import dataclasses
 import math
@@ -89,11 +95,27 @@ def _pos(B, start, n, dev):
         .expand(B, n).contiguous()
 
 
-def _close(got, want, dtype):
+def _close(got, want, dtype, tol=None):
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == dtype
     assert torch.isfinite(got.float()).all()
-    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(tol or TOL[dtype]))
+
+
+# The windowed decoders' cases scale q so that q.k / sqrt(D) has a std of
+# SPREAD: the softmax rests on a few keys, so a key moved across the
+# window's edge moves an output by a whole v row, and a softcap of 30
+# bites (at scores of std 1, tanh(s / 30) * 30 ~ s).  Their bf16 outputs
+# are held to atol min(2e-2, 0.05 * rms(plain)), never looser than TOL.
+SPREAD = 15.0
+
+
+def _spread_tol(want, dtype):
+    if dtype != torch.bfloat16:
+        return TOL[dtype]
+    rms = want.float().pow(2).mean().sqrt().item()
+    return dict(TOL[dtype], atol=min(TOL[dtype]["atol"], 0.05 * rms))
 
 
 # (name, B, Sq, Skv, H, Hkv, D, causal, window, softcap)
@@ -149,6 +171,79 @@ def test_flash_kernel_takes_a_narrower_v(dev, case, dtype):
     assert got.shape == (B, Sq, H, 128)
     assert fa_ops.ROUTE_LAUNCHES[fa_ops.route(dtype)] == 1
     _close(got, flash_attention_plain(q, k, v, qp, kp), dtype)
+
+
+# (name, B, Sq, Skv, H, Hkv, q0, window, softcap): the windowed decoders'
+# head dims, 80 (H2O-Danube-1.8B: 32/8 heads, window 4096) and 256
+# (RecurrentGemma-2B: 10/1 heads, window 2048, softcap 30), at narrower
+# heads and windows that prompts here outrun (keys past the window on both
+# sides of a 64-key tile), ragged tiles and an offset q block
+WINDOW_FLASH_CASES = [
+    ("causal_s200", 2, 200, 200, 8, 2, 0, 0, 0.0),
+    ("window100_s700", 1, 700, 700, 8, 2, 0, 100, 0.0),
+    ("window100_softcap30_s700", 1, 700, 700, 5, 1, 0, 100, 30.0),
+    ("offset_q_window64_softcap30", 2, 40, 300, 5, 1, 260, 64, 30.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [80, 256])
+@pytest.mark.parametrize("case", WINDOW_FLASH_CASES,
+                         ids=[c[0] for c in WINDOW_FLASH_CASES])
+def test_flash_kernel_at_head_dims_80_and_256(dev, case, D, dtype):
+    """Head dims (80, 80) and (256, 256) on the route of the dtype against
+    the plain version: bf16 pads a row of 80 to two 64-column boxes in
+    shared memory only (the output holds exactly 80 columns a head) and
+    runs 2 ring stages at 256; windowed, softcapped, GQA and MQA, with
+    scores spread (``SPREAD``) so that the window's edge and the cap show."""
+    _, B, Sq, Skv, H, Hkv, q0, window, softcap = case
+    gen = torch.Generator(device=dev).manual_seed(14)
+    q = (_randn(gen, (B, Sq, H, D), torch.float32, dev) * SPREAD).to(dtype)
+    k = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+    v = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+    qp, kp = _pos(B, q0, Sq, dev), _pos(B, 0, Skv, dev)
+    kw = dict(window=window, softcap=softcap)
+    fa_ops.reset_routes()
+    got = flash_attention(q, k, v, qp, kp, **kw)
+    assert got.shape == (B, Sq, H, D)
+    assert fa_ops.ROUTE_LAUNCHES[fa_ops.route(dtype)] == 1
+    want = flash_attention_plain(q, k, v, qp, kp, **kw)
+    _close(got, want, dtype, _spread_tol(want, dtype))
+
+
+# the tensor-core route's key limit at each pair, from its shared memory:
+# a 128-row Q tile, a ring of 64-key K + V stages (4; 2 at (256, 256)),
+# barriers, positions and alignment, then 12 bytes a 64-key tile in 227 KiB
+MAX_KEYS = {(32, 32): 1009600, (64, 64): 791104, (80, 80): 354240,
+            (128, 128): 354240, (192, 128): 92096, (256, 256): 182336}
+
+
+def test_flash_max_keys_of_every_pair(dev):
+    """``ops.max_keys`` is the built kernel's limit (``Geo::max_keys``)
+    for every instantiated pair, and 0 for a pair it does not take."""
+    assert {p: fa_ops.max_keys(*p) for p in fa_ops.HEAD_DIMS} == MAX_KEYS
+    assert fa_ops.max_keys(96) == 0
+
+
+@pytest.mark.parametrize("D", [80, 256])
+def test_flash_bf16_windowed_runs_at_its_key_limit(dev, D):
+    """At (80, 80) (a row in two 64-column boxes) and (256, 256) (2 ring
+    stages) the tensor-core route launches at ``max_keys(D)`` keys with one
+    kv head for two q heads, windowed and softcapped, and matches its plain
+    version; one key more raises before any launch."""
+    n = fa_ops.max_keys(D)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q = _randn(gen, (1, 64, 2, D), torch.bfloat16, dev)
+    k = _randn(gen, (1, n + 1, 1, D), torch.bfloat16, dev)
+    v = _randn(gen, (1, n + 1, 1, D), torch.bfloat16, dev)
+    qp, kp = _pos(1, n - 64, 64, dev), _pos(1, 0, n + 1, dev)
+    kw = dict(window=2048, softcap=30.0)
+    args = (q, k[:, :n], v[:, :n], qp, kp[:, :n].contiguous())
+    _close(flash_attention(*args, **kw), flash_attention_plain(*args, **kw),
+           torch.bfloat16)
+    with pytest.raises(ValueError, match=f"at most {n} keys"):
+        flash_attention(q, k, v, qp, kp, **kw)
 
 
 def test_flash_bf16_mla_runs_at_its_key_limit(dev):
@@ -899,3 +994,47 @@ def test_reduced_ssm_model_level_tokens_match_cpu(dev):
         assert g[2] == w[2]                                 # top-2 ids
         torch.testing.assert_close(torch.tensor(g[0]), torch.tensor(w[0]),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch,head_dim", [("h2o_danube_1_8b", 80),
+                                           ("recurrentgemma_2b", 256)])
+def test_reduced_windowed_model_level_tokens_match_cpu(dev, arch, head_dim):
+    """A reduced fp32 windowed decoder (window 64) at its published head
+    dim at model level, on the card (the flash kernel's fp32 route at
+    (head_dim, head_dim); the sampling kernel on sampled pages; ring
+    decode is PyTorch) and on the CPU: prompts of 80 decoded past the
+    window's wrap give identical greedy and sampled tokens, and no
+    paged, MoE or scan kernel is launched."""
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
+                              head_dim=head_dim)
+    params = TT.init_params(cfg, seed=12, device="cpu")
+    gen = torch.Generator().manual_seed(12)
+    prompts = torch.randint(2, cfg.vocab_size, (3, 80),
+                            generator=gen).tolist()
+    sps = [SamplingParams(),
+           SamplingParams(temperature=0.8, top_k=20, seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, seed=2, stop=(7,))]
+
+    def to(tree, target):
+        return {k: to(v, target) if isinstance(v, dict) else v.to(target)
+                for k, v in tree.items()}
+
+    out = {}
+    for target in (dev, torch.device("cpu")):
+        p = to(params, target)
+        kernels.reset_launches()
+        fa_ops.reset_routes()
+        greedy = generate(cfg, p, prompts, [30, 3, 17])
+        used = kernels.launches()
+        sampled = generate(cfg, p, prompts, 30, sampling=sps)
+        used_s = {k: v - used[k] for k, v in kernels.launches().items()}
+        if target.type == "cuda":
+            assert used["flash_attention"] == used_s["flash_attention"] > 0
+            assert fa_ops.ROUTE_LAUNCHES["wgmma"] == 0
+            assert used_s["fused_sampling"] > 0 == used["fused_sampling"]
+            for name in ("paged_attention", "moe_gemm", "ssd_scan"):
+                assert used[name] == used_s[name] == 0, name
+        else:
+            assert max(used.values()) == max(used_s.values()) == 0
+        out[target.type] = (greedy.tokens, sampled.tokens)
+    assert out["cuda"] == out["cpu"]

@@ -187,14 +187,18 @@ def test_one_transfer_per_decode_page():
 
 
 def test_later_slices_are_refused():
-    """Sliding windows wait for a later slice; MLA is served, but not with
-    module granularity (the JAX ``ModuleRuntime`` has no MLA path)."""
+    """Sliding windows are served at model level only (the JAX engine
+    refuses them too), so both engine modes refuse them, naming model
+    level, while the model functions take them; MLA is served, but not
+    with module granularity (the JAX ``ModuleRuntime`` has no MLA path)."""
     _, tcfg = _cfgs()
     window = dataclasses.replace(tcfg, sliding_window=64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="model level"):
         NodeEngine(window, device="cpu", module_granularity=True)
-    with pytest.raises(NotImplementedError):
-        TT.init_params(window, device="cpu")
+    with pytest.raises(NotImplementedError, match="model level"):
+        NodeEngine(window, device="cpu", max_active=2, max_len=32)
+    assert set(TT.init_cache(window, 2, 32, "cpu")) == {"k", "v", "pos"}
+    TT.init_params(window, device="cpu")
     mla = dataclasses.replace(reduced_config("deepseek_r1"), dtype="float32")
     with pytest.raises(NotImplementedError, match="MLA"):
         NodeEngine(mla, device="cpu", module_granularity=True)

@@ -205,17 +205,20 @@ def test_flash_wrapper_takes_only_instantiated_head_dims(dqk, dv, ok):
             fa_ops._check(q, k, v, pos, pos)
 
 
-def test_flash_bf16_mla_key_limit_check():
+def test_flash_bf16_mla_key_limit_check(monkeypatch):
     """At (q/k 192, v 128) the tensor-core route's shared memory is the
     48 KiB Q tile, a 4-stage ring of 24 KiB K and 16 KiB V tiles, 2188
     bytes of barriers, positions and alignment, then 12 bytes a 64-key
     tile: the wrapper takes ``max_keys(192, 128)`` keys in bf16 and
     refuses one more, naming the limit; fp32 (the CUDA-core route) takes
-    it.  The tensors are never written."""
-    n = fa_ops.max_keys(192, 128)
+    it.  The limit is the built kernel's (``repro_flash_max_keys``, held
+    on the card by ``tests/test_torch_cuda.py``); here it is that layout's.
+    The tensors are never written."""
     fixed = 128 * 192 * 2 + 4 * 64 * (192 + 128) * 2 + 2188
-    assert n % 64 == 0 and fixed + 12 * (n // 64) <= 227 * 1024 \
-        < fixed + 12 * (n // 64 + 1)
+    n = (227 * 1024 - fixed) // 12 * 64
+    monkeypatch.setattr(fa_ops, "max_keys",
+                        lambda dqk, dv=None: n if (dqk, dv) == (192, 128)
+                        else 0)
     q = torch.zeros((1, 1, 1, 192), dtype=torch.bfloat16)
     qp = torch.zeros((1, 1), dtype=torch.int32)
     for Skv in (n, n + 1):
