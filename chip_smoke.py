@@ -27,32 +27,45 @@ result):
    with 128 heads at q/k 192, v 128), at the windowed decoders' prefill
    (H2O-Danube-1.8B at (80, 80), 32/8 heads, window 4096: B8 S512 and B1
    S6144; RecurrentGemma-2B at (256, 256), 10/1 heads, window 2048,
-   softcap 30: B8 S512 and B1 S3072; each also held in fp32), and in
-   fp32 at 4x512.  Each timed bf16 row also gives the kernel alone in
+   softcap 30: B8 S512 and B1 S3072; each also held in fp32), at the
+   served encoder-decoder's and vision decoder's prefill (Whisper-base's
+   encoder self-attention B8 S1536 and its cross-attention B8 Sq32
+   Skv1536, both non-causal, and its decoder's causal B8 S32, 8 heads of
+   64; Pixtral-12B's causal B8 S1536, 1024 patches + 512 tokens, 32/8
+   heads of 128; each also held in fp32; the plain version with the
+   encoder's mask made causal must fail the encoder row's tolerance), and
+   in fp32 at 4x512.  Each timed bf16 row also gives the kernel alone in
    ``torch.profiler``'s trace and its window-aware bound; SDPA runs with
    a windowed mask where the window binds, and not at all under a
    softcap (it has none).
    Decode attention (``paged_attention``, each sequence and kv head split
    across a cluster of 8 CTAs and merged in distributed shared memory;
    bf16 products on ``mma.sync``, fp32 on the CUDA cores) is held to its
-   plain version at the four decode shapes it is timed at (Llama-3.2-1B
+   plain version at the seven decode shapes it is timed at (Llama-3.2-1B
    B8 over a 2048-token cache, Qwen3-30B-A3B B8 and its b_attn 4
-   sub-batch at D = 128, the B1 prefix-hit tail) and at the contract's
+   sub-batch at D = 128, the B1 prefix-hit tail; Whisper-base's decoder
+   self-attention over 96 positions and its cross-attention over 1536,
+   both at G = 1, D 64, and Pixtral-12B's at G = 4, D 128 over 1600; each
+   of these three also in fp32, and the plain version with the cross row's
+   length one page short must fail its tolerance) and at the contract's
    edges in both types (length 0 must give exact zeros, length 1, ranks
    left empty, a full table and one past it, groups of 16, 4, 7 and 3);
    every launch must land on the route of its type, two launches must
-   give equal bits in both types, and the fp32 route is timed at the
-   first shape.
+   give equal bits in both types, each timed row is also read alone in
+   the profiler's trace, and the fp32 route is timed at the first shape.
    The fused sampling kernel (each row split across a cluster of 8 CTAs,
    its slices parked in shared memory; fp32, B=8, V=128256, and edge
    rows: the batch-1 prefix tail, Qwen3's V151936 with lanes, V256000,
-   the largest slice, V7 with ranks left empty, 40 lanes in two rounds, a
+   the largest slice, Whisper-base's V51872 (no multiple of 128) and
+   Pixtral-12B's V131072 with lanes, V7 with ranks left empty, 40 lanes
+   in two rounds, a
    maximum tied across a rank boundary, crossings on a refinement level's
    catch-all bucket) must give exactly its plain
    version's tokens and top-K ids, its stats to rtol 1e-5 (float
    summation order), and equal bits over two launches, and must refuse a
    row past its V limit; it is timed at B8 V128256 without and with 5
-   lanes, B1 V128256 and B8 V151936 with 5 lanes, by CUDA events and
+   lanes, B1 V128256, and B8 with 5 lanes at V151936, V256000, V51872
+   and V131072, by CUDA events and
    alone in ``torch.profiler``'s trace (with the wrapper's host µs a
    call), its residency is queried
    (``cudaOccupancyMaxActiveClusters``), and its yardstick is the port's
@@ -102,6 +115,12 @@ result):
    head dims, 80 and 256, at model level the same way: 4 prompts of 96
    decoded past the window's wrap, identical greedy and sampled tokens,
    every flash launch at (80, 80) / (256, 256) on the fp32 route;
+   reduced fp32 Whisper-base (MHA of 64: G = 1) and Pixtral-12B (heads of
+   128, G = 4) at model level the same way, with 32 stub frames / 8 stub
+   patches: identical greedy and sampled tokens, every flash launch at the
+   head dim on the fp32 route (Whisper's encoder and cross-attention
+   non-causal), every decode attention through ``paged_attention`` at the
+   model's group;
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
    seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
    module granularity (Algorithm 1: attention in sub-batches of 4 of the
@@ -172,7 +191,25 @@ result):
     ``fused_sampling`` on the sampled runs, no other kernel (ring decode
     is PyTorch); it logs the weights, prefill and decode times, peak
     memory, launches by route and the phase's seconds, and a B8 decode
-    step's device time split by the profiler, beside its wall.
+    step's device time split by the profiler, beside its wall;
+11. the encoder-decoder and the vision decoder: Whisper-base (6 encoder
+    and 6 decoder layers, d_model 512, 8 heads of 64 on 8, LayerNorm,
+    sinusoid positions, 1536 stub frames, vocab 51865) and Pixtral-12B
+    (40 layers, d_model 5120, 32/8 heads of 128, 1024 stub patches before
+    the prompt, vocab 131072; 24.5 GB) in bf16 at every published width
+    and full depth, random weights from seed 0, stub frames and patches
+    from a seed at the reference frontend stub's scale, at model level
+    (``generate``; ``NodeEngine`` serves neither, as the JAX engine does
+    not): 8 rows with prompts of 32 / 512 greedy (64 tokens), then
+    explicit sampling with a seed a row and top-5 logprobs twice
+    (identical streams required); every flash launch at the model's head
+    dim on wgmma (Whisper: 12 of its 18 a prefill non-causal),
+    ``paged_attention`` on every decode step (Whisper twice a layer at
+    G = 1, one over the 1536-key cross cache; Pixtral once a layer at
+    G = 4), ``fused_sampling`` on the sampled runs only, no MoE or scan
+    kernel; it logs the weights, prefill and decode times, peak memory,
+    launches by route and the phase's seconds, and a B8 decode step's
+    device time split by the profiler, beside its wall.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -234,6 +271,26 @@ WINDOWED_FLASH = {
                                               30.0),
     "rgemma B1 S3072 H10/1 D256 w2048 cap30": (1, 3072, 10, 1, 256, 2048,
                                                30.0),
+}
+# the served encoder-decoder's and vision decoder's prefill attention,
+# timed in phase 3: tag -> (B, Sq, Skv, H, Hkv, D, causal)
+ENCODER_FLASH = "whisper enc B8 S1536 H8/8 D64"
+SERVED_FLASH = {
+    ENCODER_FLASH: (8, 1536, 1536, 8, 8, 64, False),
+    "whisper dec B8 S32 H8/8 D64": (8, 32, 32, 8, 8, 64, True),
+    "whisper cross B8 Sq32 Skv1536 H8/8 D64": (8, 32, 1536, 8, 8, 64,
+                                               False),
+    "pixtral B8 S1536 H32/8 D128": (8, 1536, 1536, 32, 8, 128, True),
+}
+# ... and their decode attention: tag -> (B, max_len, H, Hkv, D, lengths);
+# Whisper's self-attention cache (a 32-token prompt and 64 tokens) and its
+# cross-attention cache (1536 frames), both MHA (G = 1); Pixtral's cache
+# after 1024 patches, 512 tokens and 64 more (G = 4)
+CROSS_PAGED = "whisper cross"
+SERVED_PAGED = {
+    "whisper self": (8, 96, 8, 8, 64, [96] * 8),
+    CROSS_PAGED: (8, 1536, 8, 8, 64, [1536] * 8),
+    "pixtral": (8, 1600, 32, 8, 128, [1600] * 8),
 }
 # Their queries (and those of the other windowed, softcapped rows of phase
 # 3) are scaled so that q.k / sqrt(D) has a std of SPREAD: the
@@ -334,9 +391,11 @@ class _FlashShapes:
     def __init__(self):
         from repro_torch.kernels.flash_attention import ops
         self.ops, self.orig, self.seen = ops, ops.launch, []
+        self.non_causal = 0
 
         def record(lib, q, k, v, *a, **kw):
             self.seen.append((q.shape[3], v.shape[3], ops.route(q.dtype)))
+            self.non_causal += not kw["causal"]
             return self.orig(lib, q, k, v, *a, **kw)
         ops.launch = record
 
@@ -354,6 +413,26 @@ class _FlashShapes:
         log(f"  {path}: {len(self.seen)} flash launches, all at q/k "
             f"{dims[0]}, v {dims[1]} on the {route} route")
         return len(self.seen)
+
+
+class _PagedShapes:
+    """Records the (group, head dim, keys of the table, route) of every
+    paged-attention launch while a path runs (the wrapper's
+    ``ops.launch``, wrapped here until ``restore``)."""
+
+    def __init__(self):
+        from repro_torch.kernels.paged_attention import ops
+        self.ops, self.orig, self.seen = ops, ops.launch, []
+
+        def record(lib, q, k_pool, v_pool, table, lengths):
+            self.seen.append((q.shape[1] // k_pool.shape[2], q.shape[2],
+                              table.shape[1] * k_pool.shape[1],
+                              ops.route(q.dtype)))
+            return self.orig(lib, q, k_pool, v_pool, table, lengths)
+        ops.launch = record
+
+    def restore(self):
+        self.ops.launch = self.orig
 
 
 # ---------------------------------------------------------------- timing
@@ -388,16 +467,19 @@ def _check(name, got, want, dtype, tol=None):
     return err
 
 
-def _flash_bound(q, k, v, qp, kp, window=0):
-    """(bound ms, bound_by, GFLOP, MB) of one causal prefill attention
-    call: each input read once and the output (q's shape at v's head dim)
-    written once, at the card's memory rate, against the operations of
-    the (q, key) pairs the causal mask and the window let through (every
-    batch row has the same positions here: 2 * Dqk for the score, 2 * Dv
-    for P V) at the card's peak rate for the storage type."""
+def _flash_bound(q, k, v, qp, kp, window=0, causal=True):
+    """(bound ms, bound_by, GFLOP, MB) of one prefill attention call: each
+    input read once and the output (q's shape at v's head dim) written
+    once, at the card's memory rate, against the operations of the (q,
+    key) pairs the mask lets through (causal and windowed, or every pair
+    when non-causal; every batch row has the same positions here: 2 * Dqk
+    for the score, 2 * Dv for P V) at the card's peak rate for the
+    storage type."""
     B, _, H, D = q.shape
     Dv = v.shape[3]
-    ok = kp[0][None, :] <= qp[0][:, None]
+    ok = kp[0][None, :] <= qp[0][:, None] if causal else \
+        torch.ones((qp.shape[1], kp.shape[1]), dtype=torch.bool,
+                   device=q.device)
     if window > 0:
         ok &= kp[0][None, :] > qp[0][:, None] - window
     pairs = int(ok.sum().item())
@@ -408,6 +490,19 @@ def _flash_bound(q, k, v, qp, kp, window=0):
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops > t_bytes else "bytes", flops / 1e9,
             nbytes / 1e6)
+
+
+def _refuses_wrong(name, want, wrong, what, tol):
+    """The row's check must see a kernel that computes ``wrong`` (a plain
+    version wronged on purpose) in place of ``want``: some output must
+    fall outside the row's tolerance ``tol``."""
+    off = ~torch.isclose(wrong.float(), want.float(), **tol)
+    log(f"  {name}: the check refuses the {what}: {int(off.sum())} of "
+        f"{off.numel()} outputs out of tolerance, max abs err "
+        f"{(wrong.float() - want.float()).abs().max().item():.3e} (atol "
+        f"{tol['atol']:.3e})")
+    if not off.any():
+        raise AssertionError(f"{name}: the check cannot see the {what}")
 
 
 def _refuses_wrong_windows(name, q, k, v, qp, kp, kw, want, tol):
@@ -421,14 +516,8 @@ def _refuses_wrong_windows(name, q, k, v, qp, kp, kw, want, tol):
     if kw["softcap"]:
         wrongs["softcap dropped"] = dict(kw, softcap=0.0)
     for what, wkw in wrongs.items():
-        wrong = flash_attention_plain(q, k, v, qp, kp, **wkw).float()
-        off = ~torch.isclose(wrong, want.float(), **tol)
-        log(f"  {name}: the check refuses the {what}: "
-            f"{int(off.sum())} of {off.numel()} outputs out of tolerance, "
-            f"max abs err {(wrong - want.float()).abs().max().item():.3e} "
-            f"(atol {tol['atol']:.3e})")
-        if not off.any():
-            raise AssertionError(f"{name}: the check cannot see the {what}")
+        _refuses_wrong(name, want, flash_attention_plain(q, k, v, qp, kp,
+                                                         **wkw), what, tol)
 
 
 def check_flash(dev, timer):
@@ -524,6 +613,24 @@ def check_flash(dev, timer):
                        spread=True)
             if dtype == torch.bfloat16:
                 timed[tag] = got
+    # the served encoder-decoder and vision decoder at their widths (phase
+    # 11's shapes), on both routes: Whisper-base's encoder self-attention
+    # over 1536 frames and its cross-attention of 32 decoder positions on
+    # them, both non-causal, and its decoder's causal self-attention over
+    # a 32-token prompt, 8 heads of 64 (MHA); Pixtral-12B's causal prefill
+    # of 1024 patches + 512 tokens, 32/8 heads of 128
+    for tag, (B, Sq, Skv, H, Hkv, D, causal) in SERVED_FLASH.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            got = case(f"{tag} {'causal' if causal else 'non-causal'}",
+                       dtype, B, Sq, Skv, H, Hkv, D, causal=causal)
+            if dtype == torch.bfloat16:
+                timed[tag] = got
+    # the check must see a kernel that masks the encoder causally
+    _, (q, k, v, qp, kp, kw) = timed[ENCODER_FLASH]
+    want = flash_attention_plain(q, k, v, qp, kp, **kw)
+    _refuses_wrong(f"flash_attention {ENCODER_FLASH}", want,
+                   flash_attention_plain(q, k, v, qp, kp, causal=True),
+                   "mask made causal", TOL[torch.bfloat16])
     if bad:
         raise AssertionError(f"flash_attention disagrees with its plain "
                              f"version at {bad}")
@@ -545,7 +652,8 @@ def check_flash(dev, timer):
     rows = {}
     for shape, (e, (q, k, v, qp, kp, kw)) in timed.items():
         bound_ms, bound_by, gflop, mb = _flash_bound(q, k, v, qp, kp,
-                                                     kw["window"])
+                                                     kw["window"],
+                                                     kw["causal"])
         ms = timer(lambda: flash_attention(q, k, v, qp, kp, **kw))
         alone_ms = timer.kernel_ms(lambda: flash_attention(q, k, v, qp, kp,
                                                            **kw),
@@ -559,7 +667,7 @@ def check_flash(dev, timer):
             ok &= kp[0][None, :] > qp[0][:, None] - kw["window"]
             sdpa_kw = dict(attn_mask=ok)
         else:
-            sdpa_kw = dict(is_causal=True)
+            sdpa_kw = dict(is_causal=kw["causal"])
         # SDPA has no softcap ("—"), and may refuse a v narrower than q/k
         # on this card's torch
         library_ms = library_host_us = None
@@ -579,7 +687,8 @@ def check_flash(dev, timer):
                            plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms,
                            host_us=host_us, library_host_us=library_host_us)
-        log(f"  flash_attention bf16 {shape} causal: kernel {ms:.4f} ms "
+        mask = "causal" if kw["causal"] else "non-causal"
+        log(f"  flash_attention bf16 {shape} {mask}: kernel {ms:.4f} ms "
             f"({alone_ms:.4f} ms alone in the profiler's trace), plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}; {gflop:.2f} GFLOP, {mb:.1f} "
@@ -649,6 +758,33 @@ def check_paged(dev, timer):
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
         err = case(label, torch.bfloat16, q, kp, vp, table, lengths)
         timed[label] = (err, (q, kp, vp, table, lengths), kc, vc)
+    # the served encoder-decoder's and vision decoder's decode shapes, in
+    # both types, bf16 timed: Whisper's self- and cross-attention at G = 1
+    # (D 64: 8 outputs a cluster rank), Pixtral's at G = 4, D 128.  The
+    # cross cache's last page holds, for row 0, a key along each head's
+    # query (queries scaled by SPREAD), so a kernel that stops one page
+    # short moves row 0's outputs by a whole v row
+    for tag, (B, S, H, Hkv, D, lens) in SERVED_PAGED.items():
+        label = f"{tag} {paged_label(B, S, H, Hkv, D, lens)}"
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _rand(gen, (B, H, D), dtype, dev)
+            kp, vp, table, kc, vc = dense_view(B, S, Hkv, D, dtype)
+            if tag == CROSS_PAGED:
+                q = (q.float() * SPREAD).to(dtype)
+                kc[0, -1] = q[0].reshape(Hkv, H // Hkv, D)[:, 0]
+            err = case(label, dtype, q, kp, vp, table, lengths)
+            if dtype == torch.bfloat16:
+                timed[label] = (err, (q, kp, vp, table, lengths), kc, vc)
+                if tag == CROSS_PAGED:
+                    short = (lengths - 16).contiguous()
+                    _refuses_wrong(f"paged_attention {label}",
+                                   paged_attention_plain(q, kp, vp, table,
+                                                         lengths),
+                                   paged_attention_plain(q, kp, vp, table,
+                                                         short),
+                                   "length one page short",
+                                   TOL[torch.bfloat16])
     B, S, H, Hkv, D, lens = PAGED_SHAPES[0]
     q = _rand(gen, (B, H, D), torch.float32, dev)
     kp, vp, table, _, _ = dense_view(B, S, Hkv, D, torch.float32)
@@ -706,11 +842,14 @@ def check_paged(dev, timer):
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops > t_bytes else "bytes", nbytes / 1e6)
 
+    from repro_torch.launch.profile import KERNEL_ENTRIES
     rows = {}
     for label, (e, args, kc, vc) in timed.items():
         q, kp, vp, table, lengths = args
         bound_ms, bound_by, mb = bound(q, kp, table, lengths)
         ms = timer(lambda: paged_attention(*args))
+        alone_ms = timer.kernel_ms(lambda: paged_attention(*args),
+                                   KERNEL_ENTRIES["paged_attention"])
         plain_ms = timer(lambda: paged_attention_plain(*args), iters=5)
         mask = (torch.arange(kc.shape[1], device=dev)[None, :]
                 < lengths[:, None])[:, None, None, :]
@@ -719,11 +858,12 @@ def check_paged(dev, timer):
         library_ms = timer(sdpa)
         host_us = timer.host_us(lambda: paged_attention(*args))
         library_host_us = timer.host_us(sdpa)
-        rows[label] = dict(max_abs_err=e, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           library_ms=library_ms, host_us=host_us,
-                           library_host_us=library_host_us)
-        log(f"  paged_attention bf16 {label}: kernel {ms:.4f} ms, plain "
+        rows[label] = dict(max_abs_err=e, ms=ms, kernel_alone_ms=alone_ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms,
+                           host_us=host_us, library_host_us=library_host_us)
+        log(f"  paged_attention bf16 {label}: kernel {ms:.4f} ms "
+            f"({alone_ms:.4f} ms alone in the profiler's trace), plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{bound_ms:.6f} ms ({bound_by}; {mb:.2f} MB); host "
             f"{host_us:.1f} us a call, sdpa's {library_host_us:.1f} us")
@@ -817,6 +957,10 @@ def check_fused_sampling(dev, timer):
                  rows(2, 256000), 5),
             case("B8 V256000 mixed lanes5 (RecurrentGemma-2B's vocabulary)",
                  rows(8, 256000), 5),
+            case("B8 V51872 mixed lanes5 (Whisper-base's padded vocabulary,"
+                 " no multiple of 128)", rows(8, 51872), 5),
+            case("B8 V131072 mixed lanes5 (Pixtral-12B's vocabulary)",
+                 rows(8, 131072), 5),
             case("B2 V128256 lanes40 (two rounds of lane lists)",
                  rows(2, V), 40),
             case("crossings on a catch-all bucket", catch_all_rows(gen, V, dev),
@@ -849,8 +993,10 @@ def check_fused_sampling(dev, timer):
             f"(cudaOccupancyMaxActiveClusters)")
 
     shapes = {}
-    # and RecurrentGemma-2B's vocabulary: B8 V256000 with 5 lanes
-    for Bs, Vs, lanes in SAMPLING_SHAPES + [(8, 256000, 5)]:
+    # and RecurrentGemma-2B's, Whisper-base's and Pixtral-12B's
+    # vocabularies: B8 with 5 lanes
+    for Bs, Vs, lanes in SAMPLING_SHAPES + [(8, 256000, 5), (8, 51872, 5),
+                                            (8, 131072, 5)]:
         x, g, k, p, mp, raw = main if (Bs, Vs) == (B, V) else rows(Bs, Vs)
         kw = dict(raw=raw if lanes >= 0 else None, lp_k=max(lanes, 0),
                   with_lanes=lanes >= 0)
@@ -1455,6 +1601,12 @@ def reduced_cpu_vs_cuda(dev):
     # runs the fp32 flash kernel at (80, 80) and (256, 256)
     _reduced_windowed_pair(dev, "h2o_danube_1_8b", 80)
     _reduced_windowed_pair(dev, "recurrentgemma_2b", 256)
+    # the encoder-decoder and the vision decoder at their published head
+    # dims and groups: Whisper's MHA of 64 (G = 1), Pixtral's 128 (G = 4)
+    _reduced_encdec_pair(dev, "whisper_base",
+                         dict(num_heads=4, num_kv_heads=4, head_dim=64))
+    _reduced_encdec_pair(dev, "pixtral_12b",
+                         dict(num_heads=8, num_kv_heads=2, head_dim=128))
 
 
 def _reduced_pair(dev, arch, engine_kw, sps, expected, over=None,
@@ -1624,6 +1776,78 @@ def _reduced_windowed_pair(dev, arch, head_dim):
                              f"cpu {out['cpu']}")
     log(f"  {arch}: greedy and sampled tokens identical for {len(prompts)} "
         f"prompts of 96 (window 64), decoded to position 135")
+
+
+def _reduced_encdec_pair(dev, arch, over):
+    """Reduced fp32 Whisper (32 stub frames) or Pixtral (8 stub patches)
+    with the fields ``over`` replaced, at model level (``generate``:
+    prefill, the cache installed, decode pages) on "cuda" (the flash
+    kernel's fp32 route, non-causal in Whisper's encoder and
+    cross-attention; ``paged_attention`` for every decode attention,
+    twice a layer in Whisper; the sampling kernel on sampled pages) and
+    on "cpu" (the plain versions): 4 prompts of 24, greedy and sampled
+    tokens must be identical."""
+    from repro_torch import kernels
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.model_level import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.sampling import SamplingParams
+
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32", **over)
+    params = T.init_params(cfg, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(2, cfg.vocab_size, (4, 24)).tolist()
+    n = cfg.encoder_seq if cfg.family == "audio" else cfg.num_patches
+    stub = (rng.standard_normal((4, n, cfg.d_model)) * 0.02).astype(
+        np.float32)
+    extra = {"frames" if cfg.family == "audio" else "patches": stub}
+    sps = [SamplingParams(), SamplingParams(temperature=0.8, top_k=20,
+                                            seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, min_p=0.02, seed=2),
+           SamplingParams(temperature=0.7, repetition_penalty=1.3,
+                          presence_penalty=0.2, seed=3, stop=(5, 6))]
+    G, D = cfg.num_heads // cfg.num_kv_heads, cfg.head_dim
+    out = {}
+    for device in ("cuda", "cpu"):
+        target = dev if device == "cuda" else torch.device("cpu")
+        p = _to(params, target)
+        shapes, paged = _FlashShapes(), _PagedShapes()
+        try:
+            before = kernels.launches()
+            g = generate(cfg, p, prompts, [16, 5, 12, 40], **extra)
+            used_g = {k: v - before[k] for k, v in kernels.launches().items()}
+            before = kernels.launches()
+            smp_out = generate(cfg, p, prompts, 40, sampling=sps, **extra)
+            used_s = {k: v - before[k] for k, v in kernels.launches().items()}
+        finally:
+            shapes.restore()
+            paged.restore()
+        out[device] = (g.tokens, smp_out.tokens)
+        log(f"  {arch} (reduced, G {G}, D {D}, model level) {device}: "
+            f"kernel launches greedy {used_g}, sampled {used_s}")
+        check_launches(f"reduced {arch} greedy on {device}", used_g,
+                       DENSE_GREEDY if device == "cuda" else ())
+        check_launches(f"reduced {arch} sampled on {device}", used_s,
+                       DENSE_SAMPLED if device == "cuda" else ())
+        if device == "cuda":
+            shapes.check(f"reduced {arch} on cuda", (D, D), "simt")
+            want_nc = 2 * (cfg.encoder_layers + cfg.num_layers) \
+                if cfg.family == "audio" else 0
+            if shapes.non_causal != want_nc:
+                raise AssertionError(f"reduced {arch}: {shapes.non_causal} "
+                                     f"non-causal flash launches, expected "
+                                     f"{want_nc}")
+            bad = [x for x in paged.seen if x[:2] != (G, D)
+                   or x[3] != "simt"]
+            if bad or not paged.seen:
+                raise AssertionError(f"reduced {arch}: paged launches (G, "
+                                     f"D, keys, route) off ({G}, {D}, ., "
+                                     f"simt): {bad[:4]}")
+    if out["cuda"] != out["cpu"]:
+        raise AssertionError(f"{arch}: tokens differ: cuda {out['cuda']} vs "
+                             f"cpu {out['cpu']}")
+    log(f"  {arch}: greedy and sampled tokens identical for {len(prompts)} "
+        f"prompts of 24 after {n} stub {next(iter(extra))}")
 
 
 # ---------------------------------------------------------------- phase 6
@@ -2435,6 +2659,185 @@ def _window_step_split(cfg, params, dev, prompts):
                 by_class=by)
 
 
+# --------------------------------------------------------------- phase 11
+def serve_encdec_vlm_path(dev, arch: str, prompt_len: int):
+    """Whisper-base or Pixtral-12B at every published width and full depth
+    (bf16, random weights from seed 0) at model level (``generate``:
+    prefill, the cache installed at a multiple of 16 positions, pages of
+    16): 8 rows of stub frames (1536) or patches (1024) from a seed at
+    ``frontend_stub``'s 0.02 scale and prompts of ``prompt_len``, 64
+    greedy tokens, then explicit sampling with a seed a row and top-5
+    logprobs twice (identical streams required); then one B8 decode
+    step's device time by kernel class.  Every flash launch must be at
+    the model's head dim on wgmma (Whisper: its encoder's and
+    cross-attention's launches non-causal, 12 of 18 a prefill; Pixtral:
+    40 causal), ``paged_attention`` must run on every decode step
+    (Whisper twice a layer at G = 1, its cross-attention over 1536 keys;
+    Pixtral once a layer at G = 4), ``fused_sampling`` on the sampled runs
+    only, and no MoE or scan kernel.  Returns {part: numbers}."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.launch.model_level import generate
+    from repro_torch.models import transformer as T
+    from repro_torch.sampling import SamplingParams
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    audio = cfg.family == "audio"
+    D, G = cfg.head_dim, cfg.num_heads // cfg.num_kv_heads
+    log(f"  {arch}: {torch.cuda.memory_allocated(dev) / 1e9:.3f} GB "
+        f"allocated before its weights are drawn")
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     _leaves(params)) / 1e9
+    log(f"  {arch}: {T.param_count(cfg) / 1e9:.3f} B parameters "
+        f"({weights_gb:.3f} GB, {cfg.dtype}) drawn in "
+        f"{time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.3f} GB allocated")
+    rng = np.random.default_rng(11)
+    vpad = T.padded_vocab(cfg)
+    n_stub = cfg.encoder_seq if audio else cfg.num_patches
+    name = "frames" if audio else "patches"
+
+    def stub(B):
+        return (rng.standard_normal((B, n_stub, cfg.d_model)) * 0.02) \
+            .astype(np.float32)
+
+    generate(cfg, params, rng.integers(2, cfg.vocab_size, (1, 16)).tolist(),
+             4, **{name: stub(1)})                      # warm-up
+    torch.cuda.synchronize()
+    prompts = rng.integers(2, cfg.vocab_size, (8, prompt_len)).tolist()
+    extra = {name: stub(8)}
+    positions = prompt_len + (0 if audio else n_stub)
+    # flash launches a prefill, and how many of them non-causal
+    per_prefill = (cfg.encoder_layers + 2 * cfg.num_layers if audio
+                   else cfg.num_layers)
+    nc_per_prefill = cfg.encoder_layers + cfg.num_layers if audio else 0
+    # paged launches a decode step
+    per_step = 2 * cfg.num_layers if audio else cfg.num_layers
+    parts = {}
+
+    def run(tag, expected, **kw):
+        reset_counts()              # this part alone
+        torch.cuda.reset_peak_memory_stats(dev)
+        shapes, paged = _FlashShapes(), _PagedShapes()
+        try:
+            g = generate(cfg, params, prompts, 64, **extra, **kw)
+        finally:
+            shapes.restore()
+            paged.restore()
+        used = kernels.launches()
+        check_launches(f"{arch} {tag}", used, expected)
+        shapes.check(f"{arch} {tag}", (D, D), "wgmma")
+        if (len(shapes.seen), shapes.non_causal) != (per_prefill,
+                                                     nc_per_prefill):
+            raise AssertionError(f"{arch} {tag}: {len(shapes.seen)} flash "
+                                 f"launches, {shapes.non_causal} "
+                                 f"non-causal (expected {per_prefill}, "
+                                 f"{nc_per_prefill})")
+        keys = sorted({x[2] for x in paged.seen})
+        bad = [x for x in paged.seen if x[0] != G or x[1] != D
+               or x[3] != "mma"]
+        if bad or len(paged.seen) != per_step * g.decode_steps or \
+                dict(paged_ops.ROUTE_LAUNCHES)["simt"]:
+            raise AssertionError(f"{arch} {tag}: {len(paged.seen)} paged "
+                                 f"launches over {g.decode_steps} steps "
+                                 f"(expected {per_step} a step, all at G "
+                                 f"{G}, D {D} on mma): {bad[:4]}")
+        if audio and cfg.encoder_seq not in keys:
+            raise AssertionError(f"{arch} {tag}: no paged launch over the "
+                                 f"{cfg.encoder_seq}-key cross cache")
+        for i, toks in enumerate(g.tokens):
+            if len(toks) != 64 or not all(0 <= t < vpad for t in toks):
+                raise AssertionError(f"{arch} {tag} row {i}: bad tokens "
+                                     f"{toks[:8]}")
+        wall = g.prefill_s + g.decode_s
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        parts[tag] = dict(prefill_ms=g.prefill_s * 1e3,
+                          decode_ms_per_step=g.decode_s * 1e3
+                          / g.decode_steps, steps=g.decode_steps,
+                          out_tokens=g.out_tokens,
+                          tokens_per_s=g.out_tokens / wall, peak_gb=peak,
+                          launches=used, non_causal_flash=shapes.non_causal,
+                          paged_keys=keys,
+                          flash_routes=dict(ops.ROUTE_LAUNCHES),
+                          paged_routes=dict(paged_ops.ROUTE_LAUNCHES))
+        log(f"  {arch} {tag}: prefill {g.prefill_s * 1e3:.1f} ms for 8 x "
+            f"({n_stub} {name} + {prompt_len} tokens); decode "
+            f"{g.decode_s * 1e3 / g.decode_steps:.2f} ms/step over "
+            f"{g.decode_steps} steps ({g.pages} pages); {g.out_tokens} "
+            f"output tokens in {wall:.3f} s ({g.out_tokens / wall:.1f} "
+            f"tokens/s); peak device memory {peak:.2f} GB; launches "
+            f"{used}; flash by route {dict(ops.ROUTE_LAUNCHES)}, "
+            f"{shapes.non_causal} non-causal; paged by route "
+            f"{dict(paged_ops.ROUTE_LAUNCHES)} at G {G}, D {D}, over "
+            f"{keys} keys")
+        return g
+
+    run("greedy 8 rows", DENSE_GREEDY)
+    sps = [SamplingParams(temperature=0.8, top_k=40, top_p=0.95,
+                          seed=100 + i) for i in range(8)]
+    runs = [run(f"sampled run {j}, 8 rows", DENSE_SAMPLED, sampling=sps,
+                lp_k=5) for j in range(2)]
+    if runs[0].tokens != runs[1].tokens or \
+            runs[0].logprobs != runs[1].logprobs:
+        raise AssertionError(f"{arch}: the resubmitted sampled batch gave "
+                             f"other streams")
+    chosen, vals, _ = runs[0].logprobs[3]
+    if len(chosen) != 64 or any(len(v) != 5 for v in vals) or \
+            not all(math.isfinite(c) and c <= 0 for c in chosen):
+        raise AssertionError(f"{arch}: bad logprobs {chosen[:4]}")
+    log(f"  {arch} sampled (T 0.8, top-k 40, top-p 0.95, a seed a row, V "
+        f"{vpad}): streams and top-5 logprob planes identical over two "
+        f"runs")
+    parts["B8 decode step"] = _encdec_step_split(cfg, params, dev, prompts,
+                                                 extra, positions)
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 11 {arch} took {secs:.1f} s")
+    del params
+    return dict(weights_gb=weights_gb, seconds=secs, parts=parts)
+
+
+def _encdec_step_split(cfg, params, dev, prompts, extra, positions):
+    """Where one decode step's device time goes at phase 11's batch: the 8
+    rows prefilled, their cache installed for 64 more positions, one step
+    at the first generated position (``decode_step_logits``; its cache
+    writes land on the same position each call), summed by kernel class
+    from the profiler's trace, beside the step's wall on the host's
+    clock."""
+    from repro_torch.models import transformer as T
+    toks = torch.tensor(prompts, dtype=torch.int32, device=dev)
+    B = toks.shape[0]
+    kw = {k: torch.from_numpy(v).to(dev) for k, v in extra.items()}
+    _, pre = T.prefill(cfg, params, toks, **kw)
+    cache = T.install_cache(cfg, T.init_cache(cfg, B, positions + 64, dev),
+                            pre)
+    del pre
+    lengths = torch.full((B,), positions, dtype=torch.int32, device=dev)
+
+    def step():
+        return T.decode_step_logits(cfg, params, cache, toks[:, -1], lengths)
+
+    device_ms, by = _device_ms(step)
+    t = time.perf_counter()
+    for _ in range(4):
+        step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3 / 4
+    log(f"  {cfg.name}: a B{B} decode step at position {positions}, device "
+        f"time from the profiler's trace {device_ms:.3f} ms ("
+        + ", ".join(f"{c} {ms:.3f}" for c, ms in sorted(
+            by.items(), key=lambda kv: -kv[1]))
+        + f"); the step's wall {wall:.3f} ms (host clock): device busy "
+        f"{device_ms / wall:.3f}")
+    return dict(device_ms=device_ms, wall_ms=wall, busy=device_ms / wall,
+                by_class=by)
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2528,6 +2931,16 @@ def main() -> int:
     print(json.dumps({"windowed_path": windowed}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("== 11. the encoder-decoder and the vision decoder: Whisper-base "
+        "and Pixtral-12B bf16 at every published width and full depth, "
+        "model level")
+    served = {}
+    for arch, n in (("whisper_base", 32), ("pixtral_12b", 512)):
+        served[arch] = serve_encdec_vlm_path(dev, arch, n)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(json.dumps({"encdec_vlm_path": served}), flush=True)
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm}.get(s["name"], greedy)[s["name"]]

@@ -1,7 +1,7 @@
 """Architecture registry of the PyTorch port: one module per architecture
-the port serves so far, dense (H2O-Danube-1.8B's sliding window among
-them), MoE (DeepSeek-R1's MLA among them), SSM and hybrid (RecurrentGemma)
-(copies of ``repro.configs``).
+of the JAX package, dense (H2O-Danube-1.8B's sliding window among them),
+encoder-decoder (Whisper), vision (Pixtral), MoE (DeepSeek-R1's MLA among
+them), SSM and hybrid (RecurrentGemma) (copies of ``repro.configs``).
 ``get_config(name)`` returns the full published config;
 ``reduced_config(name)`` returns a tiny same-family config for CPU smoke
 tests (same code paths, small dims)."""
@@ -15,6 +15,8 @@ ARCH_IDS = [
     "qwen2_0_5b",
     "smollm_360m",
     "h2o_danube_1_8b",
+    "whisper_base",
+    "pixtral_12b",
     "phi3_5_moe",
     "qwen3_moe_30b",
     "mamba2_370m",

@@ -2,14 +2,20 @@
 ``prefill``, the first token drawn from its logits, then ``decode_page``s
 until every row has its tokens.
 
-This is how the port serves the SSM and hybrid families and
-sliding-window decoders (``NodeEngine`` refuses them, as the JAX engine
-does): through the model functions the JAX package's ``launch/steps.py``
-builds its prefill and decode cells on.  A windowed model's prefill
-rings (min(window, S) slots) are re-laid into a decode cache of
-min(window, S + the most tokens a row gets) slots
-(``transformer.install_rings``), so decode past the window's wrap
-matches the teacher-forced forward.  Greedy rows
+This is how the port serves the SSM and hybrid families, sliding-window
+decoders, the Whisper encoder-decoder and the Pixtral vision decoder
+(``NodeEngine`` refuses them, as the JAX engine does): through the model
+functions the JAX package's ``launch/steps.py`` builds its prefill and
+decode cells on.  A windowed model's prefill rings (min(window, S)
+slots) are re-laid into a decode cache of min(window, S + the most
+tokens a row gets) slots (``transformer.install_rings``), so decode past
+the window's wrap matches the teacher-forced forward.  Whisper's and
+Pixtral's prefill caches go into a decode cache of S + the most tokens a
+row gets, rounded up to 16 positions (``transformer.install_cache``):
+decode attention views the cache as pages of gcd(length, 16) positions,
+so the round-up keeps its pages at 16.  Whisper takes stub ``frames``
+(B, encoder_seq, D), Pixtral optional stub ``patches`` (B, P, D) placed
+before the prompt (its positions then count them).  Greedy rows
 take the argmax; with ``sampling`` every row draws through the port's
 sampler (the first token with key fold_in(seed, 0) and the prompt's
 penalty counts, as ``NodeEngine`` draws it; then ``decode_page``'s
@@ -59,34 +65,53 @@ def _windowed(cfg) -> bool:
     return cfg.family == "hybrid" or cfg.sliding_window > 0
 
 
+def _as_tensor(x, dev):
+    """An fp32 tensor on ``dev`` from a tensor or a numpy array."""
+    if x is None:
+        return None
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
+        np.asarray(x, np.float32))
+    return t.to(dev, torch.float32)
+
+
 def generate(cfg, params, prompts, max_tokens: Union[int, Sequence[int]], *,
              sampling: Optional[Sequence[smp.SamplingParams]] = None,
-             lp_k: Optional[int] = None, page_steps: int = 16
-             ) -> Generation:
+             lp_k: Optional[int] = None, page_steps: int = 16,
+             frames=None, patches=None) -> Generation:
     """Serve ``prompts`` (B equal-length token lists) on the device of
     ``params``: each row gets ``max_tokens`` tokens (an int or one per
     row), fewer when a sampled row hits a stop token.  Each
-    ``decode_page`` runs ``page_steps`` steps."""
-    if cfg.family != "ssm" and not _windowed(cfg):
+    ``decode_page`` runs ``page_steps`` steps.  Whisper needs ``frames``
+    (B, encoder_seq, D) and Pixtral takes ``patches`` (B, P, D), tensors
+    or numpy arrays (fp32)."""
+    if cfg.family not in ("ssm", "audio", "vlm") and not _windowed(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: model-level serving takes the SSM and hybrid "
-            f"families and sliding-window decoders; full-attention "
-            f"decoders are served by NodeEngine")
+            f"{cfg.name}: model-level serving takes the SSM, hybrid, "
+            f"encoder-decoder and vision families and sliding-window "
+            f"decoders; full-attention decoders are served by NodeEngine")
     dev = params["embed"].device
     B = len(prompts)
     toks = torch.tensor(np.asarray(prompts, np.int32), device=dev)
-    S = toks.shape[1]
     V = T.padded_vocab(cfg)
     want = np.broadcast_to(np.asarray(max_tokens, np.int32), (B,)).copy()
     if (want < 1).any():
         raise ValueError("every row needs max_tokens >= 1")
+    frames, patches = _as_tensor(frames, dev), _as_tensor(patches, dev)
+    # the positions before the first generated token: Pixtral's count its
+    # patches
+    S = toks.shape[1] + (0 if patches is None else patches.shape[1])
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = T.prefill(cfg, params, toks)
+    logits, cache = T.prefill(cfg, params, toks, frames=frames,
+                              patches=patches)
     if _windowed(cfg):
         rings = T.init_cache(cfg, B, S + int(want.max()), dev)
         cache = T.install_rings(cfg, rings, cache)
+    elif cfg.family in ("audio", "vlm"):
+        max_len = -(-(S + int(want.max())) // 16) * 16
+        cache = T.install_cache(cfg, T.init_cache(cfg, B, max_len, dev),
+                                cache)
     logits = logits[:, 0]
     if sampling is None:
         first = torch.argmax(logits, dim=-1).to(torch.int32)

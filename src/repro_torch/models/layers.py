@@ -1,18 +1,21 @@
-"""Core layers of the decoders: norms, RoPE, GQA and MLA attention,
-sliding-window attention over a ring cache, gated MLP.
+"""Core layers of the models: norms (RMSNorm, LayerNorm), RoPE and
+sinusoid positions, GQA and MLA attention, cross-attention on encoder
+states, sliding-window attention over a ring cache, gated MLP.
 
-PyTorch counterpart of ``repro.models.layers`` for the dense and MoE
-decoders, with the same numerics order (norm reductions and softmax
-statistics in fp32, activations in ``cfg.dtype``) and the same layouts:
+PyTorch counterpart of ``repro.models.layers``, with the same numerics
+order (norm reductions and softmax statistics in fp32, activations in
+``cfg.dtype``) and the same layouts:
 q heads flat (B, S, H, dh), k/v grouped (B, S, Hkv, dh), weights in the
 JAX einsum layouts ``wq (D,H,dh)``, ``wo (H,dh,D)``, ``w1 (D,F)``, and
 MLA's ``wq_b (r_q,H,dn+dr)``, ``wk_b / wv_b (r_kv,H,dn)``.
 
 Attention runs through the Hopper kernels of ``repro_torch.kernels``:
 full-sequence attention through ``flash_attention`` (MLA's prefill too,
-at q/k heads of dn + dr and v heads of dn) and one-token GQA decode
-through ``paged_attention`` (a dense cache is a page pool with the
-identity table).  MLA's absorbed decode attends over the latent cache in
+at q/k heads of dn + dr and v heads of dn; an encoder's self-attention
+and cross-attention non-causal, the latter at Sq != Skv) and one-token
+GQA decode through ``paged_attention`` (a dense cache is a page pool with
+the identity table; cross-attention decode reads the encoder's K/V cache
+the same way).  MLA's absorbed decode attends over the latent cache in
 fp32 PyTorch, as the JAX package's einsums do: no TPU kernel computes
 it.  So does sliding-window decode over a ring cache
 (``attention_decode_ring``: H2O-Danube, RecurrentGemma's local
@@ -52,8 +55,20 @@ def rms_norm(x, w, eps: float = 1e-6):
     return xf.to(dt) * w
 
 
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """LayerNorm with fp32 statistics, normalised in fp32, cast, then the
+    affine in x's dtype (the reference's order)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(dt) * w + b
+
+
 def apply_norm(cfg: ModelConfig, p, x):
-    return rms_norm(x, p["w"])
+    if cfg.norm == "rmsnorm":
+        return rms_norm(x, p["w"])
+    return layer_norm(x, p["w"], p["b"])
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +102,17 @@ def apply_rope(x, tables):
 def rope(x, positions, theta: float):
     """x: (B, S, ..., dh); positions: (B, S)."""
     return apply_rope(x, rope_tables(positions, x.shape[-1], theta))
+
+
+def sinusoid_pos(positions, d: int, dtype):
+    """Whisper-style sinusoid embedding: positions (B, S) -> (B, S, d),
+    [sin | cos] of fp32 angles, cast to ``dtype``."""
+    half = d // 2
+    inv = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                  device=positions.device)
+                    * (math.log(10000.0) / max(half - 1, 1)))
+    ang = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
 
 
 def rope_dim(cfg: ModelConfig) -> int:
@@ -193,41 +219,77 @@ def _merge_heads(o, wo):
                         wo.reshape(H * dh, D))
 
 
-def attention_qkv(cfg: ModelConfig, p, x, positions, *, rope_tab=None):
-    """Projections with RoPE; ``rope_tab`` are this forward's shared
-    ``rope_tables`` (computed from ``positions`` when absent)."""
+def _q_proj(cfg: ModelConfig, p, x):
     q = _proj_heads(x, p["wq"])
-    k = _proj_heads(x, p["wk"])
-    v = _proj_heads(x, p["wv"])
+    return q + p["bq"] if cfg.attn_bias else q
+
+
+def kv_from_states(cfg: ModelConfig, p, states):
+    """(k, v), each (B, Se, Hkv, dh), of encoder states (B, Se, D): the
+    cross-attention's source, without RoPE."""
+    k = _proj_heads(states, p["wk"])
+    v = _proj_heads(states, p["wv"])
     if cfg.attn_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
+
+
+def attention_qkv(cfg: ModelConfig, p, x, positions, *, rope_tab=None,
+                  use_rope: bool = True):
+    """Projections, with RoPE unless ``use_rope`` is False; ``rope_tab``
+    are this forward's shared ``rope_tables`` (computed from
+    ``positions`` when absent)."""
+    q = _q_proj(cfg, p, x)
+    k, v = kv_from_states(cfg, p, x)
+    if not use_rope:
+        return q, k, v
     tab = rope_tab if rope_tab is not None else rope_tables(
         positions, q.shape[-1], cfg.rope_theta)
     return apply_rope(q, tab), apply_rope(k, tab), v
 
 
 def attention_fwd(cfg: ModelConfig, p, x, positions, *, rope_tab=None,
-                  window=None):
-    """Causal full-sequence self-attention over ``window`` keys
-    (``cfg.sliding_window`` when absent; 0: all); returns (out, (k, v))
-    for the cache."""
-    q, k, v = attention_qkv(cfg, p, x, positions, rope_tab=rope_tab)
+                  window=None, causal: bool = True, use_rope: bool = True,
+                  kv=None, kv_positions=None):
+    """Full-sequence attention over ``window`` keys (``cfg.sliding_window``
+    when absent; 0: all), causal unless ``causal`` is False; returns (out,
+    (k, v)) for the cache.  With ``kv=(k, v)`` (``kv_from_states`` of
+    encoder states) at ``kv_positions`` the queries attend to those
+    (cross-attention) and no RoPE is applied to them."""
+    if kv is not None:
+        q, (k, v), kv_pos = _q_proj(cfg, p, x), kv, kv_positions
+    else:
+        q, k, v = attention_qkv(cfg, p, x, positions, rope_tab=rope_tab,
+                                use_rope=use_rope)
+        kv_pos = positions
     w = cfg.sliding_window if window is None else window
-    o = chunked_attention(q, k, v, positions, positions, causal=True,
+    o = chunked_attention(q, k, v, positions, kv_pos, causal=causal,
                           window=w, softcap=cfg.logit_softcap)
     return _merge_heads(o, p["wo"]), (k, v)
 
 
 def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
-                     rope_tab=None):
+                     rope_tab=None, use_rope: bool = True):
     """One-token decode; returns (out, k_cache, v_cache), the caches
     updated in place."""
-    q, k, v = attention_qkv(cfg, p, x, lengths[:, None], rope_tab=rope_tab)
+    q, k, v = attention_qkv(cfg, p, x, lengths[:, None], rope_tab=rope_tab,
+                            use_rope=use_rope)
     cache_update(k_cache, k, lengths)
     cache_update(v_cache, v, lengths)
     o = decode_attention(q, k_cache, v_cache, lengths + 1,
                          window=cfg.sliding_window, softcap=cfg.logit_softcap)
     return _merge_heads(o, p["wo"]), k_cache, v_cache
+
+
+def cross_attention_decode(cfg: ModelConfig, p, x, xk, xv):
+    """One token's cross-attention, x (B, 1, D), over every position of
+    the encoder's K/V cache ``xk`` / ``xv`` (B, Se, Hkv, dh), through
+    ``paged_attention`` (``decode_attention``: the identity page table,
+    lengths Se); the cache is read, never written."""
+    q = _q_proj(cfg, p, x)
+    enc_len = torch.full((x.shape[0],), xk.shape[1], dtype=torch.int32,
+                         device=x.device)
+    return _merge_heads(decode_attention(q, xk, xv, enc_len), p["wo"])
 
 
 def attention_decode_ring(cfg: ModelConfig, p, x, k_cache, v_cache,

@@ -1,12 +1,16 @@
-"""Decoder: parameters, prefill, decode step, the decode page (greedy,
+"""Models: parameters, prefill, decode step, the decode page (greedy,
 sampled, with or without logprobs) and its logprob planes.
 
-PyTorch counterpart of ``repro.models.transformer`` for the families the
-port serves so far: dense decoders (H2O-Danube's sliding window among
+PyTorch counterpart of ``repro.models.transformer`` for every family of
+the JAX package: dense decoders (H2O-Danube's sliding window among
 them), MoE decoders (``models/moe.py`` for the expert layer), with GQA
-or, as DeepSeek-R1, MLA attention, Mamba-2 SSMs (``models/ssm.py``) and
+or, as DeepSeek-R1, MLA attention, Mamba-2 SSMs (``models/ssm.py``),
 the RecurrentGemma hybrid (units of RG-LRU, RG-LRU and local-attention
-sublayers, ``models/rglru.py``).  Parameters are a plain dict in the JAX
+sublayers, ``models/rglru.py``), the Whisper encoder-decoder (LayerNorm,
+sinusoid positions, a non-causal encoder over stub frame embeddings,
+decoder layers with cross-attention on its states) and the Pixtral
+vision decoder (stub patch embeddings through an adapter, placed before
+the token embeddings).  Parameters are a plain dict in the JAX
 package's layout: per-layer leaves stacked with a leading L
 (``layers.attn.wq`` is (L, D, H, dh), ``layers.attn.wq_b`` (L, r_q, H,
 dn + dr), ``layers.moe.w1`` (L, E, D, F), ``layers.ssm.wx`` (L, D, W)),
@@ -18,8 +22,12 @@ max_len, Hkv, dh) for GQA attention, ``{"k", "v", "pos"}`` rings of
 min(window, max_len) slots for a sliding window, ``{"ckv", "kr"}`` of (L,
 B, max_len, kv_lora_rank) and (L, B, max_len, rope_head_dim) for MLA,
 ``{"conv_x", "conv_B", "conv_C", "state"}`` of (L, B, ...) for an SSM,
-whose prefill cache is its decode cache, and for the hybrid
-``{"units": {"b0", "b1": RG-LRU state and conv, "b2": ring}, "tail": ...}``.
+whose prefill cache is its decode cache, for the hybrid
+``{"units": {"b0", "b1": RG-LRU state and conv, "b2": ring}, "tail": ...}``,
+and for the encoder-decoder ``{"k", "v"}`` of (L, B, max_len, Hkv, dh)
+beside the encoder's cross-attention K/V ``{"xk", "xv"}`` of (L, B,
+encoder_seq, Hkv, dh); ``install_cache`` takes a prefill's cache of
+either full-attention family into ``init_cache``'s longer one.
 
 A windowed prefill returns the reference's ring, min(window, S) slots
 (``_to_ring``); ``install_ring`` re-lays it into ``init_cache``'s ring of
@@ -48,46 +56,45 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def check_model(cfg: ModelConfig) -> None:
-    """What the port's model functions serve so far: dense and MoE
-    decoders with RMSNorm, a gated MLP and full RoPE attention
-    (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M, Qwen3-30B-A3B, Phi-3.5-MoE),
-    dense ones with a sliding window too (H2O-Danube-1.8B), MoE decoders
-    with MLA (DeepSeek-R1: the JAX package builds MLA in MoE layers only),
-    Mamba-2 SSMs (Mamba2-370M), and the RG-LRU + local-attention hybrid
-    with its logit softcap (RecurrentGemma-2B).  The encoder-decoder and
-    vision families (Whisper, Pixtral) are not ported yet."""
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (an encoder, "
-            f"cross-attention, LayerNorm, sinusoid positions) is not "
-            f"ported yet; Whisper and Pixtral are the port's next models")
-    if (cfg.family not in ("dense", "moe", "ssm", "hybrid")
+    """What the port's model functions serve: every family of the JAX
+    package.  Dense and MoE decoders with RMSNorm, a gated MLP and full
+    RoPE attention (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M, Qwen3-30B-A3B,
+    Phi-3.5-MoE), dense ones with a sliding window too (H2O-Danube-1.8B),
+    MoE decoders with MLA (DeepSeek-R1: the JAX package builds MLA in MoE
+    layers only), Mamba-2 SSMs (Mamba2-370M), the RG-LRU +
+    local-attention hybrid with its logit softcap (RecurrentGemma-2B),
+    the encoder-decoder with LayerNorm, a tanh-GELU gated MLP, sinusoid
+    positions and cross-attention (Whisper-base), and the vision decoder
+    with its patch prefix (Pixtral-12B)."""
+    if (cfg.family not in ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
             or (cfg.use_mla and cfg.family != "moe")
             or (cfg.sliding_window > 0 and cfg.family != "dense")
-            or cfg.norm != "rmsnorm"
+            or (cfg.norm != "rmsnorm" and cfg.family != "audio")
             or (cfg.logit_softcap > 0 and cfg.family != "hybrid")):
         raise NotImplementedError(
             f"{cfg.name}: the PyTorch port's model functions serve dense "
             f"and MoE RMSNorm decoders (MLA in MoE decoders only, a "
-            f"sliding window in dense ones only), Mamba-2 SSMs and the "
+            f"sliding window in dense ones only), Mamba-2 SSMs, the "
             f"RecurrentGemma hybrid (the only family with a logit "
-            f"softcap), so far")
+            f"softcap), the Whisper encoder-decoder (the only family with "
+            f"LayerNorm) and the Pixtral vision decoder")
 
 
 def check_served(cfg: ModelConfig) -> None:
     """What ``NodeEngine`` serves: the dense and MoE decoders of
-    ``check_model`` without a sliding window.  The SSM and hybrid
-    families and windowed decoders are served at model level only
-    (``prefill``, ``install_ring``, ``decode_page``), as the JAX engine
-    refuses them too."""
+    ``check_model`` without a sliding window.  The SSM, hybrid,
+    encoder-decoder and vision families and windowed decoders are served
+    at model level only (``launch/model_level.py::generate``: ``prefill``,
+    ``install_rings`` / ``install_cache``, ``decode_page``), as the JAX
+    engine refuses them too."""
     check_model(cfg)
     if cfg.family not in ("dense", "moe") or cfg.sliding_window > 0:
         what = (f"the {cfg.family} family" if cfg.family not in
                 ("dense", "moe") else "a sliding-window decoder")
         raise NotImplementedError(
             f"{cfg.name}: NodeEngine serves dense and MoE decoders with "
-            f"full attention; {what} is served at model level (prefill, "
-            f"decode_page)")
+            f"full attention; {what} is served at model level "
+            f"(launch/model_level.py::generate: prefill, decode_page)")
 
 
 def _hybrid_counts(cfg: ModelConfig):
@@ -119,7 +126,9 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     sc, lsc = 1.0 / math.sqrt(D), 1.0 / math.sqrt(max(L, 1))
 
     def norm(stack=()):
-        return {"w": (stack + (D,), "ones")}
+        if cfg.norm == "rmsnorm":
+            return {"w": (stack + (D,), "ones")}
+        return {"w": (stack + (D,), "ones"), "b": (stack + (D,), "zeros")}
 
     top = {"embed": ((V, D), 0.01), "lm_head": ((D, V), sc),
            "final_norm": norm()}
@@ -155,6 +164,16 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
             out["tail"] = sub("rec", (n_tail,))
         return out
 
+    if cfg.family == "audio":       # _init_enc_layer, _init_dec_layer
+        E = (cfg.encoder_layers,)
+        return dict(top, enc_layers={"ln1": norm(E), "attn": gqa(E),
+                                     "ln2": norm(E), "mlp": mlp(Fd, E)},
+                    enc_norm=norm(),
+                    layers={"ln1": norm((L,)), "attn": gqa((L,)),
+                            "ln2": norm((L,)), "xattn": gqa((L,)),
+                            "ln3": norm((L,)), "mlp": mlp(Fd)},
+                    adapter=((D, D), sc))
+
     if cfg.use_mla:     # repro.models.layers.init_mla
         r_q, r_kv, dr = cfg.q_lora_rank, cfg.kv_lora_rank, cfg.rope_head_dim
         attn = {"wq_a": ((L, D, r_q), sc), "q_norm": ((L, r_q), "ones"),
@@ -176,7 +195,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
             block["moe"]["shared"] = mlp(cfg.shared_d_ff)
     else:
         block["mlp"] = mlp(Fd)
-    return dict(top, layers=block)
+    out = dict(top, layers=block)
+    if cfg.family == "vlm":
+        out["adapter"] = ((D, D), sc)
+    return out
 
 
 def _map_spec(spec, fn, path=()):
@@ -219,7 +241,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
                 .contiguous()
         if scale == "lam":
             return rglru.lam_init(shape, gen, dev).to(dt)
-        if path[0] not in ("layers", "units", "tail"):
+        if path[0] not in ("layers", "enc_layers", "units", "tail"):
             return draw(shape, scale, dt)
         out = torch.empty(shape, dtype=dt, device=dev)
         experts = path[-2] == "moe" and len(shape) == 4   # (L, E, ., .)
@@ -305,8 +327,9 @@ def _layer_view(t, i):
 
 def _per_layer(params, stack: str = "layers") -> List[Dict[str, Any]]:
     """Per-layer views of the leaves stacked under ``stack`` ("layers",
-    or the hybrid's "units" and "tail"), cached while the params live
-    (one view per leaf and layer instead of one per call).  The views
+    the encoder's "enc_layers", or the hybrid's "units" and "tail"),
+    cached while the params live (one view per leaf and layer instead of
+    one per call).  The views
     hold the leaves' storage, not the leaves, so dropping the params
     drops the anchor (the stack's first leaf), whose weak reference
     evicts the entry and frees the weights."""
@@ -369,7 +392,9 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
     ``ssm.init_ssm_cache``'s leaves with a leading L (no ``max_len`` axis:
     the state does not grow); for the hybrid {"units": {"b<i>": RG-LRU
     cache or ring of min(local_window, max_len)}, "tail": RG-LRU cache},
-    leaves with a leading n_units / n_tail."""
+    leaves with a leading n_units / n_tail; for the encoder-decoder
+    {"k", "v"} beside the cross-attention's {"xk", "xv"} of (L, B,
+    encoder_seq, Hkv, dh)."""
     check_model(cfg)
     dev = compat.resolve_device(device)
     dt = compat.torch_dtype(cfg.dtype)
@@ -402,8 +427,35 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None):
                 "kr": torch.zeros((L, B, max_len, cfg.rope_head_dim),
                                   dtype=dt, device=dev)}
     shape = (L, B, max_len, cfg.num_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev)}
+    cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev)}
+    if cfg.family == "audio":
+        xshape = (L, B, cfg.encoder_seq, Hkv, dh)
+        cache.update(xk=torch.zeros(xshape, dtype=dt, device=dev),
+                     xv=torch.zeros(xshape, dtype=dt, device=dev))
+    return cache
+
+
+def install_cache(cfg: ModelConfig, dst, src):
+    """A full-attention prefill's cache ``src`` into ``dst``, a longer
+    cache of ``init_cache``, in place: the (L, B, S, Hkv, dh) ``k`` and
+    ``v`` into dst's first S positions; the encoder-decoder's ``xk`` and
+    ``xv`` (encoder_seq positions in both) copied as they are.  Returns
+    ``dst``."""
+    if cfg.family not in ("dense", "moe", "audio", "vlm") or \
+            cfg.sliding_window > 0 or cfg.use_mla:
+        raise NotImplementedError(f"{cfg.name}: install_cache takes a "
+                                  f"full-attention GQA cache")
+    S = src["k"].shape[2]
+    if S > dst["k"].shape[2]:
+        raise ValueError(f"install_cache: a prefill of {S} positions into "
+                         f"a cache of {dst['k'].shape[2]}")
+    for name in ("k", "v"):
+        dst[name][:, :, :S] = src[name]
+    for name in ("xk", "xv"):
+        if name in src:
+            dst[name].copy_(src[name])
+    return dst
 
 
 def ffn(cfg: ModelConfig, p, h):
@@ -510,6 +562,75 @@ def _rg_sub_decode(cfg, p, h, c, lengths, tab, kind):
                               layers.apply_norm(cfg, p["ln2"], h))
 
 
+def _assemble_inputs(cfg, params, tokens, patches=None):
+    """Token embeddings, after Pixtral's stub patch embeddings (B, P, D)
+    times ``adapter`` when given (positions then run over P + S); for the
+    encoder-decoder plus sinusoid positions.  Returns (h, positions)."""
+    h = _embed_tokens(cfg, params, tokens)
+    if cfg.family == "vlm" and patches is not None:
+        pe = torch.matmul(patches.float(), params["adapter"].float())
+        h = torch.cat([pe.to(h.dtype), h], dim=1)
+    B, S = h.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device)[None].expand(B, S)
+    if cfg.family == "audio":
+        h = h + layers.sinusoid_pos(positions, cfg.d_model, h.dtype)
+    return h, positions
+
+
+def _encode(cfg, params, frames):
+    """The encoder over stub frame embeddings (B, Se, D): ``adapter``,
+    sinusoid positions, non-causal self-attention layers without RoPE,
+    then ``enc_norm``.  Returns (states (B, Se, D), positions (B, Se))."""
+    dt = compat.torch_dtype(cfg.dtype)
+    h = torch.matmul(frames.float(), params["adapter"].float()).to(dt)
+    B, S = h.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device)[None].expand(B, S)
+    h = h + layers.sinusoid_pos(positions, cfg.d_model, h.dtype)
+    for p in _per_layer(params, "enc_layers"):
+        xn = layers.apply_norm(cfg, p["ln1"], h)
+        a, _ = layers.attention_fwd(cfg, p["attn"], xn, positions,
+                                    causal=False, use_rope=False)
+        h = h + a
+        h = h + layers.mlp_fwd(cfg, p["mlp"],
+                               layers.apply_norm(cfg, p["ln2"], h))
+    return layers.apply_norm(cfg, params["enc_norm"], h), positions
+
+
+def _dec_layer_fwd(cfg, p, h, positions, enc, enc_pos):
+    """One decoder layer of the encoder-decoder over the sequence: causal
+    self-attention without RoPE, non-causal cross-attention on the
+    encoder states, the MLP.  Returns (h, (k, v, xk, xv))."""
+    xn = layers.apply_norm(cfg, p["ln1"], h)
+    a, (k, v) = layers.attention_fwd(cfg, p["attn"], xn, positions,
+                                     causal=True, use_rope=False)
+    h = h + a
+    xk, xv = layers.kv_from_states(cfg, p["xattn"], enc)
+    xn = layers.apply_norm(cfg, p["ln2"], h)
+    a, _ = layers.attention_fwd(cfg, p["xattn"], xn, positions,
+                                causal=False, kv=(xk, xv),
+                                kv_positions=enc_pos)
+    h = h + a
+    h = h + layers.mlp_fwd(cfg, p["mlp"], layers.apply_norm(cfg, p["ln3"],
+                                                            h))
+    return h, (k, v, xk, xv)
+
+
+def _dec_layer_decode(cfg, p, h, c, lengths):
+    """One decoder layer's decode step; its cache ``c`` (one layer's
+    views of k, v, xk, xv) is written in place (k and v at ``lengths``)."""
+    xn = layers.apply_norm(cfg, p["ln1"], h)
+    a, _, _ = layers.attention_decode(cfg, p["attn"], xn, c["k"], c["v"],
+                                      lengths, use_rope=False)
+    h = h + a
+    xn = layers.apply_norm(cfg, p["ln2"], h)
+    h = h + layers.cross_attention_decode(cfg, p["xattn"], xn, c["xk"],
+                                          c["xv"])
+    return h + layers.mlp_fwd(cfg, p["mlp"],
+                              layers.apply_norm(cfg, p["ln3"], h))
+
+
 def _stacked(per_layer):
     """A list of per-layer cache dicts -> one dict of stacked leaves."""
     return {k: torch.stack([c[k] for c in per_layer])
@@ -535,14 +656,34 @@ def _hybrid_backbone(cfg, params, h, positions, tab):
     return h, cache
 
 
-def _backbone(cfg: ModelConfig, params, tokens):
-    """tokens (B, S) -> (final-normed hidden (B, S, D), cache); the cache
-    is ``init_cache``'s leaves at max_len S, an SSM's decode cache, or for
+def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
+              patches=None):
+    """tokens (B, S) -> (final-normed hidden (B, S', D), cache); the cache
+    is ``init_cache``'s leaves at max_len S', an SSM's decode cache, or for
     a window the reference's prefill rings of min(window, S) slots
-    (``install_rings`` takes them to a decode cache)."""
+    (``install_rings`` takes them to a decode cache).  S' is S, or P + S
+    with Pixtral's ``patches`` (B, P, D) placed first; the
+    encoder-decoder needs ``frames`` (B, encoder_seq, D)."""
     check_model(cfg)
-    B, S = tokens.shape
-    h = _embed_tokens(cfg, params, tokens)
+    if (frames is not None and cfg.family != "audio") or \
+            (patches is not None and cfg.family != "vlm"):
+        raise ValueError(f"{cfg.name}: frames are Whisper's input and "
+                         f"patches Pixtral's, not the {cfg.family} "
+                         f"family's")
+    h, positions = _assemble_inputs(cfg, params, tokens, patches)
+    B, S = positions.shape
+    if cfg.family == "audio":
+        got = None if frames is None else tuple(frames.shape)
+        if got is None or got[1:] != (cfg.encoder_seq, cfg.d_model):
+            raise ValueError(f"{cfg.name}: prefill needs frames of (B, "
+                             f"{cfg.encoder_seq}, {cfg.d_model}), got {got}")
+        enc, enc_pos = _encode(cfg, params, frames)
+        cache = init_cache(cfg, B, S, tokens.device)
+        for i, p in enumerate(_per_layer(params)):
+            h, kv = _dec_layer_fwd(cfg, p, h, positions, enc, enc_pos)
+            for name, t in zip(("k", "v", "xk", "xv"), kv):
+                cache[name][i] = t
+        return layers.apply_norm(cfg, params["final_norm"], h), cache
     if cfg.family == "ssm":
         cache = init_cache(cfg, B, S, tokens.device)
         for i, p in enumerate(_per_layer(params)):
@@ -552,8 +693,6 @@ def _backbone(cfg: ModelConfig, params, tokens):
                 cache[name][i] = t
             h = h + y
         return layers.apply_norm(cfg, params["final_norm"], h), cache
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device)[None].expand(B, S)
     tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
     if cfg.family == "hybrid":
         h, cache = _hybrid_backbone(cfg, params, h, positions, tab)
@@ -580,9 +719,11 @@ def _backbone(cfg: ModelConfig, params, tokens):
     return layers.apply_norm(cfg, params["final_norm"], h), cache
 
 
-def prefill(cfg: ModelConfig, params, tokens):
-    """Prefill: returns (last-position logits (B, 1, V), cache)."""
-    h, cache = _backbone(cfg, params, tokens)
+def prefill(cfg: ModelConfig, params, tokens, *, frames=None, patches=None):
+    """Prefill: returns (last-position logits (B, 1, V), cache).  Whisper
+    needs ``frames`` (B, encoder_seq, D); Pixtral takes ``patches`` (B, P,
+    D) before the tokens, so its cache holds P + S positions."""
+    h, cache = _backbone(cfg, params, tokens, frames=frames, patches=patches)
     return logits_fn(cfg, params, h[:, -1:, :]), cache
 
 
@@ -593,9 +734,18 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
     length; a ring writes slot ``lengths % Wc``); an SSM and an RG-LRU
     advance every row's conv caches and state in place (a finished row's
     state advances too, and its tokens are discarded, as in the JAX
-    scan)."""
+    scan).  The encoder-decoder adds sinusoid positions at ``lengths``
+    and reads its cross-attention cache; Pixtral's ``lengths`` count its
+    patches."""
     check_model(cfg)
     h = _embed_tokens(cfg, params, tokens[:, None])
+    if cfg.family == "audio":
+        h = h + layers.sinusoid_pos(lengths[:, None], cfg.d_model, h.dtype)
+        for i, p in enumerate(_per_layer(params)):
+            h = _dec_layer_decode(cfg, p, h,
+                                  {k: t[i] for k, t in cache.items()},
+                                  lengths)
+        return head_logits(cfg, params, h), cache
     if cfg.family == "ssm":
         for i, p in enumerate(_per_layer(params)):
             xn = layers.apply_norm(cfg, p["ln1"], h)

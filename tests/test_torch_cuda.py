@@ -37,7 +37,12 @@ both types, windowed and softcapped with scores spread so that a window
 edge off by a tile or a dropped cap fails (bf16 atol tied to the output's
 scale, at most 2e-2), and at its key limit, which is the built kernel's
 (``repro_flash_max_keys``); reduced fp32 H2O-Danube and RecurrentGemma
-at those head dims give the CPU's tokens at model level.
+at those head dims give the CPU's tokens at model level.  Flash runs
+non-causal at Whisper-base's encoder (B8 S1536, MHA of 64) and cross
+shapes (Sq 32 on Skv 1536), paged attention at G = 1 (D 64) and at the
+served Whisper and Pixtral-12B decode shapes; the checks must see a
+causal encoder mask and a cross row one page short; reduced fp32
+Whisper and Pixtral give the CPU's tokens at model level.
 """
 import dataclasses
 import math
@@ -129,6 +134,10 @@ FLASH_CASES = [
     # more K/V tiles than ring stages, and a ragged last tile
     ("causal_s1000", 1, 1000, 1000, 4, 2, 64, True, 0, 0.0),
     ("offset_sq1", 2, 1, 300, 8, 2, 64, True, 0, 0.0),
+    # Whisper-base's encoder self-attention over 1536 frames and its
+    # cross-attention of 32 decoder positions on them, MHA of 64
+    ("noncausal_enc_b8_s1536", 8, 1536, 1536, 8, 8, 64, False, 0, 0.0),
+    ("cross_b8_sq32_skv1536", 8, 32, 1536, 8, 8, 64, False, 0, 0.0),
 ]
 
 
@@ -390,12 +399,13 @@ def test_gemm_ab_against_itself(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("H,Hkv,D", [(8, 2, 64), (14, 2, 64), (6, 2, 32),
-                                     (4, 4, 128), (32, 2, 128)])
+                                     (4, 4, 128), (32, 2, 128), (8, 8, 64)])
 def test_paged_kernel_matches_plain(dev, H, Hkv, D, dtype):
     """A shuffled page table with spare pages, and lengths inside a page,
     across pages, at the table's end and past it (clamped), 0 (a free
     slot: exact zeros), 1, and shorter than one rank's share of the
-    cluster's split; groups of 4, 7, 3, 1 and 16 q heads per kv head."""
+    cluster's split; groups of 4, 7, 3, 1 (D 128 and Whisper's D 64: 8
+    outputs a cluster rank) and 16 q heads per kv head."""
     B, page, max_pages = 8, 16, 40
     gen = torch.Generator(device=dev).manual_seed(1)
     pool = B * max_pages + 5
@@ -438,6 +448,60 @@ def test_paged_kernel_matches_plain_at_timed_shapes(dev, shape, dtype):
     lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     _close(paged_attention(q, kp, vp, table, lengths),
            paged_attention_plain(q, kp, vp, table, lengths), dtype)
+
+
+# (name, B, max_len, H, Hkv, D, length): Whisper-base's decoder
+# self-attention cache and its 1536-frame cross cache (G = 1), Pixtral-12B's
+# cache after 1024 patches + 512 tokens + 64 (G = 4)
+SERVED_PAGED = [("whisper_self", 8, 96, 8, 8, 64, 96),
+                ("whisper_cross", 8, 1536, 8, 8, 64, 1536),
+                ("pixtral", 8, 1600, 32, 8, 128, 1600)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", SERVED_PAGED,
+                         ids=[s[0] for s in SERVED_PAGED])
+def test_paged_kernel_matches_plain_at_served_encdec_vlm_shapes(dev, shape,
+                                                                 dtype):
+    """The decode shapes of Whisper-base and Pixtral-12B at full size,
+    each row at the cache's full length, as ``decode_attention`` passes
+    them (a page-16 view with the identity table)."""
+    _, B, S, H, Hkv, D, n = shape
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q, kp, vp, table = _paged_dense(gen, B, S, H, Hkv, D, dtype, dev)
+    lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+    _close(paged_attention(q, kp, vp, table, lengths),
+           paged_attention_plain(q, kp, vp, table, lengths), dtype)
+
+
+def test_the_checks_see_a_causal_encoder_and_a_short_cross_row(dev):
+    """The served shapes' checks must see a wrong kernel: at the encoder's
+    shape the plain version with the mask made causal, and at the cross
+    cache's a row's length one page (16 keys) short, each fail the bf16
+    tolerance the kernel is held to.  The cross cache's last page holds,
+    for row 0, a key along each head's query (queries scaled by SPREAD),
+    so row 0's output rests on that page."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    dt = torch.bfloat16
+    q = _randn(gen, (8, 1536, 8, 64), dt, dev)
+    k = _randn(gen, (8, 1536, 8, 64), dt, dev)
+    v = _randn(gen, (8, 1536, 8, 64), dt, dev)
+    pos = _pos(8, 0, 1536, dev)
+    want = flash_attention_plain(q, k, v, pos, pos, causal=False)
+    _close(flash_attention(q, k, v, pos, pos, causal=False), want, dt)
+    wrong = flash_attention_plain(q, k, v, pos, pos, causal=True)
+    assert not torch.isclose(wrong.float(), want.float(), **TOL[dt]).all()
+    q, kp, vp, table = _paged_dense(gen, 8, 1536, 8, 8, 64, dt, dev)
+    q = (q.float() * SPREAD).to(dt)
+    kp.view(8, 1536, 8, 64)[0, -1] = q[0]
+    lengths = torch.full((8,), 1536, dtype=torch.int32, device=dev)
+    want = paged_attention_plain(q, kp, vp, table, lengths)
+    _close(paged_attention(q, kp, vp, table, lengths), want, dt)
+    lengths[0] -= 16
+    wrong = paged_attention_plain(q, kp, vp, table, lengths)
+    assert not torch.isclose(wrong[0].float(), want[0].float(),
+                             **TOL[dt]).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -509,6 +573,10 @@ SAMPLING_CASES = [
     ("b2_v256000_lanes5_largest_slice", 2, 256000, 5, None, None, None),
     ("b1_v7_empty_ranks", 1, 7, 7, 3, 0.9, 0.0),
     ("lanes40_two_rounds", 3, 4096, 40, None, None, None),
+    # Whisper-base's padded vocabulary (no multiple of 128) and
+    # Pixtral-12B's
+    ("v51872_lanes5_whisper", 8, 51872, 5, None, None, None),
+    ("v131072_lanes5_pixtral", 8, 131072, 5, None, None, None),
 ]
 
 
@@ -1034,6 +1102,54 @@ def test_reduced_windowed_model_level_tokens_match_cpu(dev, arch, head_dim):
             assert used_s["fused_sampling"] > 0 == used["fused_sampling"]
             for name in ("paged_attention", "moe_gemm", "ssd_scan"):
                 assert used[name] == used_s[name] == 0, name
+        else:
+            assert max(used.values()) == max(used_s.values()) == 0
+        out[target.type] = (greedy.tokens, sampled.tokens)
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("whisper_base", dict(num_heads=4, num_kv_heads=4, head_dim=64)),
+    ("pixtral_12b", dict(num_heads=8, num_kv_heads=2, head_dim=128))],
+    ids=["whisper_base", "pixtral_12b"])
+def test_reduced_encdec_vlm_model_level_tokens_match_cpu(dev, arch, over):
+    """Reduced fp32 Whisper (32 stub frames, MHA of 64: G = 1) and Pixtral
+    (8 stub patches, heads of 128: G = 4) at model level, on the card
+    (the flash kernel's fp32 route, non-causal in Whisper's encoder and
+    cross-attention; ``paged_attention`` for every decode attention; the
+    sampling kernel on sampled pages) and on the CPU: identical greedy
+    and sampled tokens, and no MoE or scan kernel."""
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32", **over)
+    params = TT.init_params(cfg, seed=17, device="cpu")
+    gen = torch.Generator().manual_seed(17)
+    prompts = torch.randint(2, cfg.vocab_size, (3, 24),
+                            generator=gen).tolist()
+    n = cfg.encoder_seq if cfg.family == "audio" else cfg.num_patches
+    stub = torch.randn((3, n, cfg.d_model), generator=gen) * 0.02
+    extra = {"frames" if cfg.family == "audio" else "patches": stub}
+    sps = [SamplingParams(),
+           SamplingParams(temperature=0.8, top_k=20, seed=1),
+           SamplingParams(temperature=1.1, top_p=0.9, seed=2, stop=(7,))]
+
+    def to(tree, target):
+        return {k: to(v, target) if isinstance(v, dict) else v.to(target)
+                for k, v in tree.items()}
+
+    out = {}
+    for target in (dev, torch.device("cpu")):
+        p = to(params, target)
+        kernels.reset_launches()
+        fa_ops.reset_routes()
+        greedy = generate(cfg, p, prompts, [30, 3, 17], **extra)
+        used = kernels.launches()
+        sampled = generate(cfg, p, prompts, 30, sampling=sps, **extra)
+        used_s = {k: v - used[k] for k, v in kernels.launches().items()}
+        if target.type == "cuda":
+            for u in (used, used_s):
+                assert u["flash_attention"] > 0 and u["paged_attention"] > 0
+                assert u["moe_gemm"] == u["ssd_scan"] == 0
+            assert fa_ops.ROUTE_LAUNCHES["wgmma"] == 0
+            assert used_s["fused_sampling"] > 0 == used["fused_sampling"]
         else:
             assert max(used.values()) == max(used_s.values()) == 0
         out[target.type] = (greedy.tokens, sampled.tokens)

@@ -45,6 +45,8 @@ from repro_torch.data import pipeline
 from repro_torch import driver
 from repro_torch.driver import replica, source
 from repro_torch.launch import job
+from repro_torch.configs import pixtral_12b, whisper_base
+from repro_torch.models import layers, transformer
 print("imported", sorted(m for m, mod in sys.modules.items()
                          if mod is not None
                          and m.split(".")[0] in ("jax", "repro", "ml_dtypes")))
@@ -71,7 +73,8 @@ def test_no_source_imports_jax_or_repro():
             "kernels/ssd_scan/ops.py", "launch/model_level.py",
             "runtime/ledger.py", "runtime/cluster.py", "runtime/checkpoint.py",
             "data/pipeline.py", "driver/__init__.py", "driver/driver.py",
-            "driver/replica.py", "driver/source.py", "launch/job.py"} <= names
+            "driver/replica.py", "driver/source.py", "launch/job.py",
+            "configs/whisper_base.py", "configs/pixtral_12b.py"} <= names
     bad = [f"{f.relative_to(SRC)}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -161,6 +164,40 @@ def test_ssm_config_is_the_published_one():
     spec = TT.param_shapes(m)
     assert set(spec["layers"]) == {"ln1", "ssm"}
     assert spec["lm_head"][0] == (1024, 50288)
+
+
+def test_encdec_and_vision_configs_are_the_published_ones(monkeypatch):
+    """Whisper-base: 6 encoder and 6 decoder layers, d_model 512, 8 heads
+    of 64 on 8 kv heads, d_ff 2048, vocab 51865 padded to 51872,
+    LayerNorm, tanh GELU, 1536 stub frames; 110,034,944 parameters.
+    Pixtral-12B: 40 layers, d_model 5120, 32 heads of 128 on 8, d_ff
+    14336, vocab 131072, RoPE theta 1e9, 1024 stub patches; 12,273,996,800
+    parameters (24.5 GB in bf16).  The counts are the JAX package's
+    ``param_count``s.  The port's ``init_params`` needs a card unless
+    asked for the CPU."""
+    w = get_config("whisper_base")
+    assert (w.family, w.num_layers, w.encoder_layers, w.d_model,
+            w.num_heads, w.num_kv_heads, w.head_dim, w.d_ff, w.vocab_size,
+            TT.padded_vocab(w), w.norm, w.act, w.encoder_seq) == \
+        ("audio", 6, 6, 512, 8, 8, 64, 2048, 51865, 51872, "layernorm",
+         "gelu", 1536)
+    assert TT.param_count(w) == 110_034_944
+    spec = TT.param_shapes(w)
+    assert spec["adapter"][0] == (512, 512)
+    assert spec["enc_layers"]["ln1"]["b"][0] == (6, 512)
+    assert spec["layers"]["xattn"]["wq"][0] == (6, 512, 8, 64)
+    p = get_config("pixtral_12b")
+    assert (p.family, p.num_layers, p.d_model, p.num_heads, p.num_kv_heads,
+            p.head_dim, p.d_ff, p.vocab_size, p.rope_theta,
+            p.num_patches) == ("vlm", 40, 5120, 32, 8, 128, 14336, 131072,
+                               1e9, 1024)
+    assert TT.param_count(p) == 12_273_996_800
+    assert TT.param_shapes(p)["adapter"][0] == (5120, 5120)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TT.init_params(reduced_config("whisper_base"))
+    assert TT.init_params(reduced_config("pixtral_12b"), 0, "cpu")[
+        "adapter"].device.type == "cpu"
 
 
 def test_five_kernels_are_registered_each_with_its_source():

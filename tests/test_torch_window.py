@@ -419,7 +419,9 @@ def test_reference_prefill_ring_drops_position_zero():
 
 def test_engines_refuse_windowed_decoders_and_later_families():
     """``NodeEngine`` serves no sliding window in either package (the port
-    names model level); Whisper and Pixtral are not ported yet."""
+    names model level); the later families, Whisper and Pixtral, pass the
+    port's ``check_model`` and are refused by ``check_served`` with a
+    pointer to model-level serving."""
     from repro.runtime.engine import NodeEngine as JEngine
     jcfg, tcfg = _cfgs()
     with pytest.raises(AssertionError):
@@ -427,9 +429,10 @@ def test_engines_refuse_windowed_decoders_and_later_families():
     with pytest.raises(NotImplementedError, match="model level"):
         NodeEngine(tcfg, device="cpu", max_active=2, max_len=32)
     for arch in ("whisper_base", "pixtral_12b"):
-        cfg = jax_configs.get_config(arch)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TT.check_model(cfg)
+        cfg = torch_configs.get_config(arch)
+        TT.check_model(cfg)
+        with pytest.raises(NotImplementedError, match="model_level.py"):
+            TT.check_served(cfg)
     dense = dataclasses.replace(reduced_config("llama3_2_1b"),
                                 dtype="float32")
     with pytest.raises(NotImplementedError, match="NodeEngine"):
