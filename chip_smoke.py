@@ -37,7 +37,25 @@ result):
    in fp32 at 4x512.  Each timed bf16 row also gives the kernel alone in
    ``torch.profiler``'s trace and its window-aware bound; SDPA runs with
    a windowed mask where the window binds, and not at all under a
-   softcap (it has none).
+   softcap (it has none).  Every checked forward row also launches the
+   training route (``flash_attention_lse``): its out must equal the
+   serving launch's bits and its per-row log-sum-exp the plain forward's
+   (fp32 atol 1e-4, bf16 atol 1e-3, rtol 1e-4); the fp32 B4 S512 row is
+   timed like the bf16 ones (alone, bound, SDPA).
+   The flash backward (``flash_attention_bwd``: preprocess, dK/dV and dQ
+   launches, bf16 products on ``mma.sync``, fp32 on the CUDA cores, fp32
+   sums) is held to its plain version on
+   the same out and lse in bf16 at the training shapes (SmolLM-360M B8
+   S4096 H15/5 and Llama-3.2-1B B4 S4096 H32/8 at (64, 64), B4 S2048
+   H32/4 at (128, 128), causal), in fp32 at SmolLM's, and in both types
+   at the edges (S = 100, S = 1, G = 1 and 3, non-causal at Sq != Skv, an
+   offset q block); tolerances tied to the scale of the three gradients
+   (fp32 atol 1e-4 x the largest |gradient|, rtol 1e-4; bf16 atol
+   min(2e-2, 0.05 rms), rtol 2e-2); two launches must give equal bits and
+   every call land on its type's route; the training shapes are timed
+   through the wrapper, alone (its three kernels' medians summed), plain,
+   and against SDPA's backward (``autograd.grad``) beside the bound (2.5
+   times the forward's operations).
    Decode attention (``paged_attention``, each sequence and kv head split
    across a cluster of 8 CTAs and merged in distributed shared memory;
    bf16 products on ``mma.sync``, fp32 on the CUDA cores) is held to its
@@ -120,7 +138,10 @@ result):
    patches: identical greedy and sampled tokens, every flash launch at the
    head dim on the fp32 route (Whisper's encoder and cross-attention
    non-causal), every decode attention through ``paged_attention`` at the
-   model's group;
+   model's group; reduced fp32 SmolLM-360M trained on "cuda" and on
+   "cpu": ``forward_loss`` and every leaf's gradient, then one
+   ``train_step``'s loss, grad norm and AdamW moments, with the flash
+   forward launched twice a layer (remat) and the backward once;
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
    seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
    module granularity (Algorithm 1: attention in sub-batches of 4 of the
@@ -209,7 +230,19 @@ result):
     G = 4), ``fused_sampling`` on the sampled runs only, no MoE or scan
     kernel; it logs the weights, prefill and decode times, peak memory,
     launches by route and the phase's seconds, and a B8 decode step's
-    device time split by the profiler, beside its wall.
+    device time split by the profiler, beside its wall;
+12. training: SmolLM-360M (32 layers, d_model 960, 15/5 heads of 64,
+    vocab 49152; 409M parameters) in bf16 at every published width and
+    full depth, random weights from seed 0, 8 steps of
+    ``launch/steps.py::train_step`` on 16 x 4096 tokens of
+    ``SyntheticLMStream`` (seed 0) in 2 microbatches, remat on, AdamW lr
+    1e-3: the loss must be finite and fall; every step must launch the
+    flash forward 128 times (2 x 32 layers x 2 microbatches: remat runs
+    each layer twice), all on wgmma, the backward wrapper 64 times, all on
+    its bf16 route, and no other kernel; it logs s/step, tokens/s, peak
+    memory, a step's device time by kernel class beside its wall, the
+    model FLOPs' share of the bf16 dense peak (``smollm_train_mfu``), and
+    whether a second run from seed 0 repeats the first two losses' bits.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -221,6 +254,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -239,9 +273,16 @@ PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
        torch.float32: dict(atol=1e-4, rtol=1e-4)}
+# the flash forward's log-sum-exp: fp32 statistics from the same inputs
+# (the bf16 route sums exp2 of fp32 scores from bf16 products)
+LSE_TOL = {torch.bfloat16: dict(atol=1e-3, rtol=1e-4),
+           torch.float32: dict(atol=1e-4, rtol=1e-4)}
 REPLACES = {
     "flash_attention":
         "src/repro/kernels/flash_attention/flash_attention.py:78",
+    # the VJP of the reference's flash attention (pure JAX: the TPU kernel
+    # has no backward of its own)
+    "flash_attention_bwd": "src/repro/models/flash.py:87",
     "paged_attention":
         "src/repro/kernels/paged_attention/paged_attention.py:73",
     "fused_sampling":
@@ -319,10 +360,12 @@ def reset_counts() -> None:
     that have routes, to 0."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
     from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
     kernels.reset_launches()
     ops.reset_routes()
+    bwd_ops.reset_routes()
     paged_ops.reset_routes()
     moe_ops.reset_routes()
 
@@ -523,7 +566,8 @@ def _refuses_wrong_windows(name, q, k, v, qp, kp, kw, want, tol):
 def check_flash(dev, timer):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
+        flash_attention, flash_attention_lse, flash_attention_plain)
+    from repro_torch.models import flash
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     ops.reset_routes()
@@ -544,14 +588,27 @@ def check_flash(dev, timer):
             .expand(B, Skv).contiguous()
         kw = dict(causal=causal, window=window, softcap=softcap)
         got = flash_attention(q, k, v, qp, kp, **kw)
-        calls[ops.route(dtype)] += 1
+        # the training launch: the same out, bit for bit, and each row's
+        # log-sum-exp (fp32, natural-log units) against the plain one's
+        got2, lse = flash_attention_lse(q, k, v, qp, kp, **kw)
+        calls[ops.route(dtype)] += 2
         torch.cuda.synchronize()
-        want = flash_attention_plain(q, k, v, qp, kp, **kw)
+        want, want_lse = flash.flash_attention(q, k, v, qp, kp, **kw,
+                                               return_lse=True)
         name = f"flash_attention {tag} {str(dtype)[6:]}"
         tol = _scaled_tol(want, dtype) if spread else None
+        lse_err = (lse - want_lse).abs().max().item()
         try:
             err = _check(name, got, want, dtype, tol)
-        except AssertionError:
+            if not torch.equal(got, got2) or not torch.allclose(
+                    lse, want_lse, **LSE_TOL[dtype]):
+                raise AssertionError(f"{name}: lse max abs err {lse_err}, "
+                                     f"out with lse equal: "
+                                     f"{torch.equal(got, got2)}")
+            log(f"  {name} lse: max_abs_err={lse_err:.3e} ok; out with lse "
+                f"equal bits")
+        except AssertionError as e:
+            log(f"  {e}")
             bad.append(name)
             err = None
         if spread and dtype == torch.bfloat16:
@@ -566,7 +623,8 @@ def check_flash(dev, timer):
         main[dtype] = case("B4 S512 H32/8 D64 causal", dtype, 4, 512, 512,
                            32, 8, 64)
         case("offset q Sq64 Skv512", dtype, 2, 64, 512, 32, 8, 64, q0=448)
-    timed = {"B4 S512 H32/8 D64": main[torch.bfloat16]}
+    timed = {"B4 S512 H32/8 D64": main[torch.bfloat16],
+             "fp32 B4 S512 H32/8 D64": main[torch.float32]}
     timed["B8 S256 H32/8 D64"] = case("B8 S256 H32/8 D64 causal",
                                       torch.bfloat16, 8, 256, 256, 32, 8, 64)
     case("window100 softcap30 S256", torch.float32, 1, 256, 256, 8, 2, 64,
@@ -688,22 +746,183 @@ def check_flash(dev, timer):
                            bound_by=bound_by, library_ms=library_ms,
                            host_us=host_us, library_host_us=library_host_us)
         mask = "causal" if kw["causal"] else "non-causal"
-        log(f"  flash_attention bf16 {shape} {mask}: kernel {ms:.4f} ms "
+        log(f"  flash_attention {str(q.dtype)[6:]} {shape} {mask}: "
+            f"kernel {ms:.4f} ms "
             f"({alone_ms:.4f} ms alone in the profiler's trace), plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms} ms, bound "
             f"{bound_ms:.4f} ms ({bound_by}; {gflop:.2f} GFLOP, {mb:.1f} "
             f"MB); host {host_us:.1f} us a call, sdpa's "
             f"{library_host_us} us")
-    ms32 = timer(lambda: flash_attention(*main[torch.float32][1][:5],
-                                         **main[torch.float32][1][5]))
-    log(f"  flash_attention fp32 B4 S512 H32/8 D64 causal: kernel "
-        f"{ms32:.4f} ms (CUDA cores)")
     print(json.dumps({"flash_attention_shapes": rows}), flush=True)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces=REPLACES["flash_attention"],
                 shape="B4 S512 H32/8 D64 causal bf16",
                 **rows["B4 S512 H32/8 D64"])
+
+
+# the training shapes of the flash backward, timed in phase 3:
+# tag -> (B, S, H, Hkv, D)
+TRAIN_FLASH = {
+    "smollm B8 S4096 H15/5 D64": (8, 4096, 15, 5, 64),
+    "llama B4 S4096 H32/8 D64": (4, 4096, 32, 8, 64),
+    "B4 S2048 H32/4 D128": (4, 2048, 32, 4, 128),
+}
+
+
+def _grad_tol(wants, dtype):
+    """The backward's tolerance, tied to the scale of its three gradients
+    (one may be ~0 throughout: at S = 1, dq and dk are 0 in exact
+    arithmetic): fp32 atol 1e-4 x the largest |gradient|, rtol 1e-4
+    (summation order); bf16 ``_scaled_tol``'s atol over all three, rtol
+    2e-2 (one bf16 rounding of each gradient)."""
+    if dtype == torch.float32:
+        scale = max(w.float().abs().max().item() for w in wants)
+        return dict(atol=1e-4 * scale, rtol=1e-4)
+    rms = math.sqrt(sum(w.float().pow(2).sum().item() for w in wants)
+                    / sum(w.numel() for w in wants))
+    return dict(TOL[dtype], atol=min(TOL[dtype]["atol"], 0.05 * rms))
+
+
+def _flash_bwd_bound(q, k, causal=True):
+    """(bound ms, bound_by, GFLOP, MB) of one backward call: q, k, v, out,
+    dout and lse read once, dq, dk, dv written once, at the card's memory
+    rate, against 2.5 times the forward's operations (every batch row has
+    the same positions here) at its peak for the storage type."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    pairs = Sq * (Sq + 1) // 2 if causal and Sq == Skv else Sq * Skv
+    flops = 2.5 * 2.0 * (D + D) * pairs * B * H
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+        + B * Sq * H * 4 + (B * Sq + B * Skv) * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes", flops / 1e9,
+            nbytes / 1e6)
+
+
+def check_flash_bwd(dev, timer):
+    """The flash backward's kernel against its plain version on the same
+    out and lse, in bf16 at the training shapes and in both types at the
+    edges; equal bits over two launches; every call on the route of its
+    type; timed at the training shapes through the wrapper, alone (the sum
+    of its three kernels' medians in the profiler's trace), its plain
+    version and SDPA's backward (``autograd.grad`` of one
+    ``scaled_dot_product_attention``, timed alone) beside the bound."""
+    from repro_torch.kernels.flash_attention_bwd import ops
+    from repro_torch.kernels.flash_attention_bwd.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.launch.profile import KERNEL_ENTRIES
+    from repro_torch.models import flash
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    ops.reset_routes()
+    calls = {"simt": 0, "mma": 0}
+    bad = []
+
+    def case(tag, dtype, B, Sq, Skv, H, Hkv, D, causal=True, q0=0):
+        q = _rand(gen, (B, Sq, H, D), dtype, dev)
+        k = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
+        v = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
+        qp = (torch.arange(Sq, dtype=torch.int32, device=dev) + q0)[None] \
+            .expand(B, Sq).contiguous()
+        kp = torch.arange(Skv, dtype=torch.int32, device=dev)[None] \
+            .expand(B, Skv).contiguous()
+        out, lse = flash.flash_attention(q, k, v, qp, kp, causal=causal,
+                                         return_lse=True)
+        dout = _rand(gen, (B, Sq, H, D), dtype, dev)
+        args = (q, k, v, qp, kp, out, lse, dout)
+        got = flash_attention_bwd(*args, causal=causal)
+        calls[ops.route(dtype)] += 1
+        torch.cuda.synchronize()
+        want = flash_attention_bwd_plain(*args, causal=causal)
+        tol = _grad_tol(want, dtype)
+        errs, ok = [], True
+        for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+            errs.append((g.float() - w.float()).abs().max().item())
+            if not torch.allclose(g.float(), w.float(), **tol) or \
+                    not torch.isfinite(g.float()).all():
+                bad.append(f"{tag} {str(dtype)[6:]} {name}")
+                ok = False
+        log(f"  flash_attention_bwd {tag} {str(dtype)[6:]}: max_abs_err "
+            f"dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (atol "
+            f"{tol['atol']:.3e}, rtol {tol['rtol']}) "
+            f"{'ok' if ok else 'FAIL'}")
+        return max(errs), args, causal
+
+    timed = {}
+    for tag, (B, S, H, Hkv, D) in TRAIN_FLASH.items():
+        timed[tag] = case(f"{tag} causal", torch.bfloat16, B, S, S, H, Hkv,
+                          D)
+    B, S, H, Hkv, D = TRAIN_FLASH["smollm B8 S4096 H15/5 D64"]
+    case("smollm B8 S4096 H15/5 D64 causal", torch.float32, B, S, S, H,
+         Hkv, D)
+    for dtype in (torch.bfloat16, torch.float32):
+        case("S100 (ragged tiles)", dtype, 2, 100, 100, 8, 2, 64)
+        case("S1", dtype, 2, 1, 1, 8, 2, 64)
+        case("G1 D32 S128", dtype, 1, 128, 128, 4, 4, 32)
+        case("G3 D32 S96", dtype, 1, 96, 96, 6, 2, 32)
+        case("non-causal Sq40 Skv130 D128", dtype, 2, 40, 130, 4, 2, 128,
+             causal=False)
+        case("offset q Sq64 Skv200", dtype, 1, 64, 200, 8, 2, 64, q0=136)
+    if bad:
+        raise AssertionError(f"flash_attention_bwd disagrees with its plain "
+                             f"version at {bad}")
+    if ops.ROUTE_LAUNCHES != calls:
+        raise AssertionError(f"flash_attention_bwd calls by route "
+                             f"{ops.ROUTE_LAUNCHES}, expected {calls}")
+    log(f"  flash_attention_bwd calls by route: {calls} (each call: "
+        f"preprocess, dK/dV, dQ; bf16 on mma.sync, fp32 on the CUDA "
+        f"cores)")
+    _, args, causal = timed["smollm B8 S4096 H15/5 D64"]
+    again = [flash_attention_bwd(*args) for _ in range(2)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*again)):
+        raise AssertionError("flash_attention_bwd bf16: two launches gave "
+                             "other bits")
+    log("  flash_attention_bwd bf16 smollm B8 S4096: two launches, equal "
+        "bits")
+    del again
+
+    rows = {}
+    for shape, (e, args, causal) in timed.items():
+        q, k, v, qp, kp, out, lse, dout = args
+        bound_ms, bound_by, gflop, mb = _flash_bwd_bound(q, k, causal)
+        ms = timer(lambda: flash_attention_bwd(*args), iters=10)
+        alone_ms = sum(timer.kernel_ms(lambda: flash_attention_bwd(*args),
+                                       (entry,), iters=10)
+                       for entry in KERNEL_ENTRIES["flash_attention_bwd"]
+                       if not entry.endswith("_simt"))     # bf16: mma
+        plain_ms = timer(lambda: flash_attention_bwd_plain(*args), iters=3,
+                         warmup=1)
+        library_ms = None
+        try:
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                          for x in (q, k, v))
+            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                               enable_gqa=True)
+            g = dout.transpose(1, 2)
+            library_ms = timer(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), g, retain_graph=True), iters=10)
+            del o
+        except RuntimeError as exc:
+            log(f"  sdpa backward refuses {shape}: "
+                f"{str(exc).splitlines()[0]}")
+        rows[shape] = dict(max_abs_err=e, ms=ms, kernel_alone_ms=alone_ms,
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms)
+        log(f"  flash_attention_bwd bf16 {shape} causal: kernel {ms:.4f} ms "
+            f"({alone_ms:.4f} ms alone: its three kernels in the "
+            f"profiler's trace), plain {plain_ms:.4f} ms, sdpa backward "
+            f"{library_ms} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{gflop:.2f} GFLOP, {mb:.1f} MB)")
+    print(json.dumps({"flash_attention_bwd_shapes": rows}), flush=True)
+    del timed
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                replaces=REPLACES["flash_attention_bwd"],
+                shape="smollm B8 S4096 H15/5 D64 causal bf16",
+                **rows["smollm B8 S4096 H15/5 D64"])
 
 
 def check_paged(dev, timer):
@@ -787,10 +1006,10 @@ def check_paged(dev, timer):
                                    TOL[torch.bfloat16])
     B, S, H, Hkv, D, lens = PAGED_SHAPES[0]
     q = _rand(gen, (B, H, D), torch.float32, dev)
-    kp, vp, table, _, _ = dense_view(B, S, Hkv, D, torch.float32)
+    kp, vp, table, kc32, vc32 = dense_view(B, S, Hkv, D, torch.float32)
     main32 = (q, kp, vp, table, torch.tensor(lens, dtype=torch.int32,
                                              device=dev))
-    case(paged_label(*PAGED_SHAPES[0]), torch.float32, *main32)
+    err32 = case(paged_label(*PAGED_SHAPES[0]), torch.float32, *main32)
     # the contract's edges in both types, on shuffled tables of 40 pages
     # (10 tiles: ranks of one and two tiles): a free slot (length 0, exact
     # zeros), length 1, a length shorter than one rank's share (ranks left
@@ -844,6 +1063,8 @@ def check_paged(dev, timer):
 
     from repro_torch.launch.profile import KERNEL_ENTRIES
     rows = {}
+    first = paged_label(*PAGED_SHAPES[0])
+    timed[f"fp32 {first}"] = (err32, main32, kc32, vc32)
     for label, (e, args, kc, vc) in timed.items():
         q, kp, vp, table, lengths = args
         bound_ms, bound_by, mb = bound(q, kp, table, lengths)
@@ -862,21 +1083,17 @@ def check_paged(dev, timer):
                            plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms,
                            host_us=host_us, library_host_us=library_host_us)
-        log(f"  paged_attention bf16 {label}: kernel {ms:.4f} ms "
+        log(f"  paged_attention {str(q.dtype)[6:]} {label}: kernel "
+            f"{ms:.4f} ms "
             f"({alone_ms:.4f} ms alone in the profiler's trace), plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{bound_ms:.6f} ms ({bound_by}; {mb:.2f} MB); host "
             f"{host_us:.1f} us a call, sdpa's {library_host_us:.1f} us")
-    first = paged_label(*PAGED_SHAPES[0])
-    ms32 = timer(lambda: paged_attention(*main32))
-    rows[first]["fp32_ms"] = ms32
-    log(f"  paged_attention fp32 {first}: kernel {ms32:.4f} ms (CUDA cores)")
     print(json.dumps({"paged_attention_shapes": rows}), flush=True)
     return dict(name="paged_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces=REPLACES["paged_attention"],
-                shape=f"{first} bf16", **{k: v for k, v in rows[first].items()
-                                           if k != "fp32_ms"})
+                shape=f"{first} bf16", **rows[first])
 
 
 def check_fused_sampling(dev, timer):
@@ -1214,6 +1431,7 @@ def check_moe_gemm(dev, timer):
         "bits")
     del again
 
+    from repro_torch.launch.profile import KERNEL_ENTRIES
     rows = {}
     timed = {"decode B8 w1": (8, main[(torch.bfloat16, 8)]),
              "prefill 8x256 w1": (2048, main[(torch.bfloat16, 2048)]),
@@ -1228,6 +1446,9 @@ def check_moe_gemm(dev, timer):
         r = ops.route(torch.bfloat16, bt, Din, Fo, True)
         bound, by, nbytes, flops = _gemm_bound(plan, xs, w, T * k)
         ms = timer(lambda: grouped_gemm(xs, w, be, block_t=bt))
+        alone_ms = timer.kernel_ms(lambda: grouped_gemm(xs, w, be,
+                                                        block_t=bt),
+                                   KERNEL_ENTRIES["moe_gemm"])
         host_us = timer.host_us(lambda: grouped_gemm(xs, w, be, block_t=bt))
         plain_ms = timer(lambda: plain(xs, w, be, block_t=bt), iters=5)
         # the reference's own contraction: one bmm over (E, C, D)
@@ -1245,11 +1466,13 @@ def check_moe_gemm(dev, timer):
         used = int((be >= 0).sum().item())
         log(f"  moe_gemm bf16 {label} (T={T}, top-{k} of {Ew}, D{Din} "
             f"F{Fo}, rows {xs.shape[0]}, block_t {bt}, {used} used blocks, "
-            f"{r} route): kernel {ms:.4f} ms, host {host_us:.1f} us a "
+            f"{r} route): kernel {ms:.4f} ms ({alone_ms:.4f} ms alone in "
+            f"the profiler's trace), host {host_us:.1f} us a "
             f"call, plain {plain_ms:.4f} ms, bmm over (E,C,D) {bmm_ms:.4f} "
             f"ms, torch._grouped_mm {gmm_ms} ms, bound {bound:.4f} ms by "
             f"{by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-        rows[label] = dict(max_abs_err=err, ms=ms, host_us=host_us,
+        rows[label] = dict(max_abs_err=err, ms=ms, kernel_alone_ms=alone_ms,
+                           host_us=host_us,
                            plain_ms=plain_ms, bmm_ms=bmm_ms, gmm_ms=gmm_ms,
                            bound_ms=bound, bound_by=by, block_t=bt,
                            rows=xs.shape[0], route=r)
@@ -1607,6 +1830,78 @@ def reduced_cpu_vs_cuda(dev):
                          dict(num_heads=4, num_kv_heads=4, head_dim=64))
     _reduced_encdec_pair(dev, "pixtral_12b",
                          dict(num_heads=8, num_kv_heads=2, head_dim=128))
+    _reduced_train_pair(dev)
+
+
+def _reduced_train_pair(dev):
+    """Reduced fp32 SmolLM-360M trained on "cuda" (the flash forward with
+    lse and the backward kernel, fp32 on the CUDA cores) and on "cpu"
+    (the plain versions): ``forward_loss`` and every leaf's gradient
+    (loss rtol 1e-5; gradients atol 1e-4, rtol 1e-3, as the CPU tests hold
+    the port to JAX), then one ``train_step`` each: its loss and grad norm
+    (rtol 1e-5) and the AdamW moments m and v it leaves, which carry the
+    gradients (atol 1e-6, rtol 1e-3; the params themselves move by about
+    lr * sign(g) in a first step, either way where g ~ 0).  Remat launches
+    the flash forward twice a layer and the backward once."""
+    from repro_torch import kernels, optim
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
+    from repro_torch.launch.steps import loss_and_grads, train_step
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(reduced_config("smollm_360m"), dtype="float32")
+    L = cfg.num_layers
+    gen = torch.Generator().manual_seed(13)
+    toks = torch.randint(2, cfg.vocab_size, (4, 128), generator=gen,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    params = {"cpu": T.init_params(cfg, seed=3, device="cpu")}
+    params["cuda"] = optim.tree_map(lambda t: t.to(dev), params["cpu"])
+    got = {}
+    for device, pt in params.items():
+        b = {k: t.to(pt["embed"].device) for k, t in batch.items()}
+        reset_counts()
+        loss, grads = loss_and_grads(cfg, pt, b)
+        used = kernels.launches()
+        want = {"flash_attention": 2 * L, "flash_attention_bwd": L} \
+            if device == "cuda" else {}
+        if {k: n for k, n in used.items() if n} != want or (
+                device == "cuda" and (
+                    ops.ROUTE_LAUNCHES != {"wgmma": 0, "simt": 2 * L}
+                    or bwd_ops.ROUTE_LAUNCHES != {"simt": L,
+                                                  "mma": 0})):
+            raise AssertionError(f"reduced smollm training on {device}: "
+                                 f"launches {used}, flash routes "
+                                 f"{ops.ROUTE_LAUNCHES}, backward routes "
+                                 f"{bwd_ops.ROUTE_LAUNCHES} (expected "
+                                 f"{want}, all fp32)")
+        opt = optim.init_opt_state(pt)
+        out = train_step(cfg, pt, opt, b, optim.AdamWConfig(lr=1e-3,
+                                                            zero1=False))
+        got[device] = (loss, optim.tree_leaves(grads), out, opt)
+    (lc, gc_, oc, optc), (lg, gg, og, optg) = got["cpu"], got["cuda"]
+    gerr = max((a.cpu() - b).abs().max().item() for a, b in zip(gg, gc_))
+    ok = torch.allclose(lg.cpu(), lc, rtol=1e-5, atol=0) and all(
+        torch.allclose(a.cpu(), b, atol=1e-4, rtol=1e-3)
+        for a, b in zip(gg, gc_))
+    for key in ("loss", "grad_norm"):
+        ok &= torch.allclose(og[key].cpu(), oc[key], rtol=1e-5, atol=0)
+    merr = 0.0
+    for (_, a), (_, b) in zip(optim._pairs(params["cuda"], optg["leaves"]),
+                              optim._pairs(params["cpu"], optc["leaves"])):
+        for key in ("m", "v"):
+            merr = max(merr, (a[key].cpu() - b[key]).abs().max().item())
+            ok &= torch.allclose(a[key].cpu(), b[key], atol=1e-6, rtol=1e-3)
+    log(f"  reduced smollm_360m fp32 training: loss cuda {lg.item():.6f} cpu "
+        f"{lc.item():.6f}, {len(gg)} leaf gradients max abs err "
+        f"{gerr:.3e}; train_step loss {og['loss'].item():.6f} / "
+        f"{oc['loss'].item():.6f}, grad norm {og['grad_norm'].item():.6f} / "
+        f"{oc['grad_norm'].item():.6f}, AdamW moments max abs err "
+        f"{merr:.3e}; flash {2 * L} launches (remat), backward {L}, all "
+        f"fp32 {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("reduced smollm_360m: training on cuda differs "
+                             "from cpu")
 
 
 def _reduced_pair(dev, arch, engine_kw, sps, expected, over=None,
@@ -2838,6 +3133,131 @@ def _encdec_step_split(cfg, params, dev, prompts, extra, positions):
                 by_class=by)
 
 
+# --------------------------------------------------------------- phase 12
+def _model_flops(cfg, B: int, S: int) -> float:
+    """One training step's model operations (no recompute): 6 per
+    parameter and token for every matrix product (all parameters but the
+    embedding table, which is gathered), and causal attention's forward
+    (2 (D + D) a (q, key) pair a head) plus its backward (2.5 times)."""
+    from repro_torch.models import transformer as T
+    n = T.param_count(cfg) - T.padded_vocab(cfg) * cfg.d_model
+    attn = 2.0 * 2 * cfg.head_dim * S * (S + 1) / 2 * cfg.num_heads * B
+    return 6.0 * n * B * S + 3.5 * attn * cfg.num_layers
+
+
+def train_smollm_path(dev):
+    """Full-width, full-depth SmolLM-360M (bf16, random weights from seed
+    0) trained 8 steps through ``launch/steps.py::train_step``: batches of
+    16 x 4096 from ``SyntheticLMStream`` (seed 0) in 2 microbatches of 8,
+    remat on, AdamW lr 1e-3.  The loss must be finite and fall; each step
+    must launch the flash forward 2 x 32 x 2 times (remat runs each layer
+    twice), all on wgmma, the backward wrapper 32 x 2 times, all on its
+    bf16 route, and no other kernel.  Logs s/step, tokens/s, peak memory,
+    a step's device time by kernel class beside its wall, the model FLOPs'
+    share of the bf16 dense peak (``mfu``), and whether a second run from
+    seed 0 gives the first two losses' bits.  Returns (launches of the 8
+    steps, numbers)."""
+    from repro_torch import kernels, optim
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = get_config("smollm_360m")
+    L, steps, GB, S, n_mb = cfg.num_layers, 8, 16, 4096, 2
+    ocfg = optim.AdamWConfig(lr=1e-3, zero1=False)
+    stream = SyntheticLMStream(DataConfig(global_batch=GB, seq_len=S,
+                                          vocab_size=cfg.vocab_size, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in stream.batch_at(i).items()}
+               for i in range(steps + 2)]
+
+    def run(n):
+        params = T.init_params(cfg, 0, dev)
+        opt = optim.init_opt_state(params)
+        losses, secs = [], []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(cfg, params, opt, batches[i], ocfg,
+                             microbatches=n_mb, remat=True)
+            losses.append(out["loss"].item())
+            secs.append(time.perf_counter() - t0)
+            log(f"  step {i}: loss {losses[-1]:.6f}, grad norm "
+                f"{out['grad_norm'].item():.4f}, {secs[-1]:.3f} s")
+        return params, opt, losses, secs
+
+    gb = T.param_count(cfg) * 2 / 1e9
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    params, opt, losses, secs = run(steps)
+    used = kernels.launches()
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    fwd, bwd = 2 * L * n_mb * steps, L * n_mb * steps
+    want = {"flash_attention": fwd, "flash_attention_bwd": bwd}
+    if {k: n for k, n in used.items() if n} != want or \
+            ops.ROUTE_LAUNCHES != {"wgmma": fwd, "simt": 0} or \
+            bwd_ops.ROUTE_LAUNCHES != {"simt": 0, "mma": bwd}:
+        raise AssertionError(f"smollm training: launches {used}, flash by "
+                             f"route {ops.ROUTE_LAUNCHES}, backward by route "
+                             f"{bwd_ops.ROUTE_LAUNCHES} (expected {want}, "
+                             f"flash on wgmma, backward on mma)")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"smollm training: losses {losses} (finite "
+                             f"and falling expected)")
+    step_s = statistics.median(secs[1:])
+    tokens = GB * S
+    mfu = _model_flops(cfg, GB, S) / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"  smollm_360m bf16 ({T.param_count(cfg):,} parameters, {gb:.3f} "
+        f"GB), {steps} steps of {GB} x {S} in {n_mb} microbatches, remat: "
+        f"losses {[round(x, 4) for x in losses]}; {step_s:.3f} s/step "
+        f"(median of steps 1-{steps - 1}; step 0 {secs[0]:.3f} s), "
+        f"{tokens / step_s:.1f} tokens/s; peak device memory {peak:.2f} GB; "
+        f"launches {used}; flash by route {dict(ops.ROUTE_LAUNCHES)}, "
+        f"backward by route {dict(bwd_ops.ROUTE_LAUNCHES)} (a step: "
+        f"{2 * L * n_mb} forward, {L * n_mb} backward calls)")
+    print(json.dumps({"smollm_train_mfu": mfu,
+                      "model_flop_per_step": _model_flops(cfg, GB, S),
+                      "s_per_step": step_s}), flush=True)
+
+    # a step's device time by kernel class (the profiler's trace), beside
+    # the wall of the same step on the host's clock
+    i = iter(range(steps, steps + 2))
+
+    def one():
+        train_step(cfg, params, opt, batches[next(i)], ocfg,
+                   microbatches=n_mb, remat=True)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    device_ms, by = _device_ms(one, n=1)
+    wall = (time.perf_counter() - t0) * 1e3 / 2
+    log(f"  smollm_360m a training step: device time from the profiler's "
+        f"trace {device_ms:.1f} ms ("
+        + ", ".join(f"{c} {ms:.1f}" for c, ms in sorted(
+            by.items(), key=lambda kv: -kv[1]))
+        + f"); the step's wall {wall:.1f} ms (host clock, mean of the "
+        f"untraced and the traced step): device busy {device_ms / wall:.3f}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, _, again, _ = run(2)
+    same = again == losses[:2]
+    log(f"  a second run from seed 0: losses {again} "
+        f"{'equal' if same else 'NOT equal'} to the first run's bits "
+        f"(the embedding's backward adds rows in an unspecified order)")
+    secs_phase = time.perf_counter() - t_phase
+    log(f"  phase 12 took {secs_phase:.1f} s")
+    return used, dict(losses=losses, step_s=step_s, step_secs=secs,
+                      tokens_per_s=tokens / step_s, peak_gb=peak, mfu=mfu,
+                      device_ms=device_ms, wall_ms=wall, by_class=by,
+                      rerun_equal=same, seconds=secs_phase)
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -2882,9 +3302,9 @@ def main() -> int:
 
     log("== 3. kernels against their plain versions")
     timer = Timer(dev)
-    stats = [check_flash(dev, timer), check_paged(dev, timer),
-             check_fused_sampling(dev, timer), check_moe_gemm(dev, timer),
-             check_ssd_scan(dev, timer)]
+    stats = [check_flash(dev, timer), check_flash_bwd(dev, timer),
+             check_paged(dev, timer), check_fused_sampling(dev, timer),
+             check_moe_gemm(dev, timer), check_ssd_scan(dev, timer)]
     log(f"  kernel-alone readings traced again after a dropped record: "
         f"{timer.retraced} rounds")
     del timer
@@ -2941,9 +3361,17 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     print(json.dumps({"encdec_vlm_path": served}), flush=True)
+
+    log("== 12. training: SmolLM-360M bf16 at every published width and "
+        "full depth, 8 steps of 16 x 4096")
+    trained, train_stats = train_smollm_path(dev)
+    print(json.dumps({"train_path": train_stats}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
-                         "ssd_scan": ssm}.get(s["name"], greedy)[s["name"]]
+                         "ssd_scan": ssm, "flash_attention_bwd": trained}.get(
+            s["name"], greedy)[s["name"]]
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -94,6 +94,15 @@
 //
 // In both routes keys are masked at the true Skv: nothing is padded, so
 // padding is never attended to.
+//
+// For training, the forward also writes each row's log-sum-exp when the
+// caller passes an lse buffer (B, Sq, H) fp32 (null on the serving path,
+// which then runs exactly as without it): m + log(max(l, 1e-30)) in
+// natural-log units of the scaled (and softcapped) scores, as the plain
+// version's return_lse.  The fp32 route keeps m in those units; the bf16
+// route keeps it in log2 units with the scale folded in, so it writes
+// m * ln 2 + log(l) (a row with no key to attend to keeps m = kNeg).  The
+// backward, csrc/flash_attention_bwd.cu, recomputes P = exp(S - lse).
 
 #include <climits>
 #include <type_traits>
@@ -117,9 +126,9 @@ template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ q_pos,
-                 const int* __restrict__ kv_pos, T* __restrict__ out, int Sq,
-                 int Skv, int H, int Hkv, int causal, int window,
-                 float softcap, float scale) {
+                 const int* __restrict__ kv_pos, T* __restrict__ out,
+                 float* __restrict__ lse, int Sq, int Skv, int H, int Hkv,
+                 int causal, int window, float softcap, float scale) {
   constexpr int DP = DQK + 1;  // padded row stride of the Q and K tiles
   constexpr int DC = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -272,6 +281,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + ty * 4 + i;
     if (qi >= Sq) continue;
     const float lsafe = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * Sq + qi) * H + h] = m[i] + logf(lsafe);
     T* o = out + (((size_t)b * Sq + qi) * H + h) * DV;
 #pragma unroll
     for (int cc = 0; cc < DC; ++cc)
@@ -281,9 +292,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int Sq, int Skv, int H, int Hkv, int causal, int window,
-                   float softcap, float scale, cudaStream_t stream) {
+                   const int* q_pos, const int* kv_pos, void* out,
+                   float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                   int causal, int window, float softcap, float scale,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (BQ * (DQK + 1) + BK * (DQK + 1) + BK * DV + BQ * PS);
   auto kern = flash_fwd_kernel<T, DQK, DV>;
@@ -292,8 +304,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), Sq, Skv,
-      H, Hkv, causal, window, softcap, scale);
+      static_cast<const T*>(v), q_pos, kv_pos, static_cast<T*>(out), lse, Sq,
+      Skv, H, Hkv, causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -309,6 +321,7 @@ constexpr int BK = 64;   // keys per K/V tile
 constexpr int NT = 256;  // threads: two warpgroups
 constexpr int NW = NT / 32;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr size_t kSmemLimit = 227 * 1024;  // the most a CTA may take
 
 // Shared-memory geometry of a pair of head dims.  A TMA box is at most 64
@@ -376,9 +389,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tv,
                 const __grid_constant__ CUtensorMap to,
                 const int* __restrict__ q_pos,
-                const int* __restrict__ kv_pos, int Sq, int Skv, int H,
-                int Hkv, int causal, int window, float softcap,
-                float scale) {
+                const int* __restrict__ kv_pos, float* __restrict__ lse,
+                int Sq, int Skv, int H, int Hkv, int causal, int window,
+                float softcap, float scale) {
   using G = Geo<DQK, DV>;
   constexpr int STAGES = G::kStages, AHEAD = G::kAhead;
   extern __shared__ unsigned char smem_raw[];
@@ -689,6 +702,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {  // m from log2 to natural units
+    if (qin0)
+      lse[((size_t)b * Sq + qi0) * H + h] =
+          (m0 == rt::kNeg ? rt::kNeg : m0 * kLn2) + logf(d0);
+    if (qin1)
+      lse[((size_t)b * Sq + qi1) * H + h] =
+          (m1 == rt::kNeg ? rt::kNeg : m1 * kLn2) + logf(d1);
+  }
   const int r0 = 16 * wl + lane / 4;  // this thread's first row of the 64
   // 16-byte chunk c of a row moves to c ^ (row % 8) (128-byte swizzle) or
   // c ^ (row / 2 % 4) (64-byte): the bits 7.. of the offset into 4..
@@ -748,9 +769,10 @@ cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int heads,
 
 template <int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int Sq, int Skv, int H, int Hkv, int causal, int window,
-                   float softcap, float scale, cudaStream_t stream) {
+                   const int* q_pos, const int* kv_pos, void* out,
+                   float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                   int causal, int window, float softcap, float scale,
+                   cudaStream_t stream) {
   CUtensorMap tq, tk, tv, to;
   cudaError_t err = make_map(&tq, q, DQK, H, Sq, B, BQ);
   if (err == cudaSuccess) err = make_map(&tk, k, DQK, Hkv, Skv, B, BK);
@@ -762,8 +784,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   err = rt::allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(tq, tk, tv, to, q_pos, kv_pos, Sq, Skv,
-                                   H, Hkv, causal, window, softcap, scale);
+  kern<<<grid, NT, smem, stream>>>(tq, tk, tv, to, q_pos, kv_pos, lse, Sq,
+                                   Skv, H, Hkv, causal, window, softcap,
+                                   scale);
   return cudaGetLastError();
 }
 
@@ -772,29 +795,31 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // fp32 -> CUDA cores, bf16 -> tensor cores
 template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* q_pos, const int* kv_pos, void* out, int B,
-                   int Sq, int Skv, int H, int Hkv, int causal, int window,
-                   float softcap, float scale, cudaStream_t stream) {
+                   const int* q_pos, const int* kv_pos, void* out,
+                   float* lse, int B, int Sq, int Skv, int H, int Hkv,
+                   int causal, int window, float softcap, float scale,
+                   cudaStream_t stream) {
   if constexpr (std::is_same_v<T, float>)
-    return simt::launch<float, DQK, DV>(q, k, v, q_pos, kv_pos, out, B, Sq,
-                                        Skv, H, Hkv, causal, window, softcap,
-                                        scale, stream);
+    return simt::launch<float, DQK, DV>(q, k, v, q_pos, kv_pos, out, lse, B,
+                                        Sq, Skv, H, Hkv, causal, window,
+                                        softcap, scale, stream);
   else
-    return tc::launch<DQK, DV>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H,
-                               Hkv, causal, window, softcap, scale, stream);
+    return tc::launch<DQK, DV>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv,
+                               H, Hkv, causal, window, softcap, scale,
+                               stream);
 }
 
 // The instantiated (DQK, DV) pairs; ops.py's HEAD_DIMS lists the same.
 template <typename T>
 cudaError_t dispatch(int DQK, int DV, const void* q, const void* k,
                      const void* v, const int* q_pos, const int* kv_pos,
-                     void* out, int B, int Sq, int Skv, int H, int Hkv,
-                     int causal, int window, float softcap, float scale,
-                     cudaStream_t stream) {
-#define REPRO_FLASH_CASE(A, C)                                            \
-  if (DQK == A && DV == C)                                                \
-    return launch<T, A, C>(q, k, v, q_pos, kv_pos, out, B, Sq, Skv, H, Hkv, \
-                           causal, window, softcap, scale, stream);
+                     void* out, float* lse, int B, int Sq, int Skv, int H,
+                     int Hkv, int causal, int window, float softcap,
+                     float scale, cudaStream_t stream) {
+#define REPRO_FLASH_CASE(A, C)                                              \
+  if (DQK == A && DV == C)                                                  \
+    return launch<T, A, C>(q, k, v, q_pos, kv_pos, out, lse, B, Sq, Skv, H, \
+                           Hkv, causal, window, softcap, scale, stream);
   REPRO_FLASH_CASE(32, 32)
   REPRO_FLASH_CASE(64, 64)
   REPRO_FLASH_CASE(80, 80)
@@ -830,23 +855,25 @@ extern "C" int repro_flash_max_keys(int DQK, int DV) {
 }
 
 // Returns the CUDA error of the launch (0 on success).
-// DQK is the head dim of q and k, DV that of v and out.
+// DQK is the head dim of q and k, DV that of v and out.  lse (B, Sq, H)
+// fp32 receives each row's log-sum-exp, or is null (the serving path).
 extern "C" int repro_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* q_pos,
-    const void* kv_pos, void* out, int B, int Sq, int Skv, int H, int Hkv,
-    int DQK, int DV, int causal, int window, float softcap, float scale,
-    int dtype, void* stream) {
+    const void* kv_pos, void* out, void* lse, int B, int Sq, int Skv, int H,
+    int Hkv, int DQK, int DV, int causal, int window, float softcap,
+    float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   const int* qp = static_cast<const int*>(q_pos);
   const int* kp = static_cast<const int*>(kv_pos);
+  float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
-    return dispatch<float>(DQK, DV, q, k, v, qp, kp, out, B, Sq, Skv, H,
+    return dispatch<float>(DQK, DV, q, k, v, qp, kp, out, ls, B, Sq, Skv, H,
                            Hkv, causal, window, softcap, scale, s);
   if (dtype == rt::kBF16)
-    return dispatch<__nv_bfloat16>(DQK, DV, q, k, v, qp, kp, out, B, Sq, Skv,
-                                   H, Hkv, causal, window, softcap, scale,
-                                   s);
+    return dispatch<__nv_bfloat16>(DQK, DV, q, k, v, qp, kp, out, ls, B, Sq,
+                                   Skv, H, Hkv, causal, window, softcap,
+                                   scale, s);
   return cudaErrorInvalidValue;
 }

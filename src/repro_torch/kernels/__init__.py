@@ -15,6 +15,8 @@ from typing import Dict
 # name -> (wrapper, plain PyTorch version), both in kernels/<name>/ops.py
 KERNELS = {
     "flash_attention": ("flash_attention", "flash_attention_plain"),
+    "flash_attention_bwd": ("flash_attention_bwd",
+                            "flash_attention_bwd_plain"),
     "paged_attention": ("paged_attention", "paged_attention_plain"),
     "fused_sampling": ("fused_sample", "fused_sample_plain"),
     "moe_gemm": ("grouped_gemm", "grouped_gemm_plain"),

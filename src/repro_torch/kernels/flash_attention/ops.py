@@ -13,6 +13,13 @@ of 192, v heads of 128) for the instantiated pairs of ``HEAD_DIMS``; V is
 never padded in device memory, and any other pair raises.  A head dim
 that is not a multiple of the tensor-core route's 64-column box (80) is
 padded in shared memory only.
+
+Under autograd (grad enabled and q, k or v requiring grad)
+``flash_attention`` goes through ``FlashAttentionFn``: its forward runs
+the kernel with the rows' log-sum-exp (``flash_attention_lse``), its
+backward the kernel of ``kernels/flash_attention_bwd`` (on the CPU both
+plain versions).  The serving path, whose weights never require grad,
+keeps the launch without ``lse``.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
 from repro_torch.models import flash
 
 NAME = "flash_attention"
@@ -70,11 +78,12 @@ def flash_attention_plain(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a loaded library:
-    ``repro_flash_attention_fwd`` and, where the library has it (not
-    before head dims 80 and 256), ``repro_flash_max_keys``."""
+    ``repro_flash_attention_fwd`` (with its ``lse`` pointer) and, where the
+    library has it (not before head dims 80 and 256),
+    ``repro_flash_max_keys``."""
     fn = lib.repro_flash_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     if hasattr(lib, "repro_flash_max_keys"):
         lib.repro_flash_max_keys.restype = ctypes.c_int
@@ -138,7 +147,11 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
                     softcap=0.0):
     """q (B,Sq,H,Dqk), k (B,Skv,Hkv,Dqk), v (B,Skv,Hkv,Dv), q_pos (B,Sq) /
     kv_pos (B,Skv) int32 -> (B,Sq,H,Dv) in q's dtype; the scale is
-    1/sqrt(Dqk)."""
+    1/sqrt(Dqk).  Differentiable in q, k and v (``FlashAttentionFn``)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, q_pos, kv_pos, causal,
+                                      window, softcap)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, q_pos, kv_pos, causal=causal,
                                      window=window, softcap=softcap)
@@ -152,19 +165,73 @@ def flash_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
     return out
 
 
-def launch(lib, q, k, v, q_pos, kv_pos, *, causal, window, softcap):
+def flash_attention_lse(q, k, v, q_pos, kv_pos, *, causal=True, window=0,
+                        softcap=0.0):
+    """``flash_attention``'s (out, lse): lse (B,Sq,H) fp32 is each row's
+    log-sum-exp in natural-log units of the scaled (and softcapped)
+    scores, what the backward recomputes P from.  Not differentiable."""
+    if q.device.type == "cpu":
+        return flash.flash_attention(q, k, v, q_pos, kv_pos, causal=causal,
+                                     window=window, softcap=softcap,
+                                     return_lse=True)
+    if q.device.type != "cuda":
+        raise ValueError(f"{NAME}: unsupported device {q.device}")
+    _check(q, k, v, q_pos, kv_pos)
+    out = launch(_lib(), q, k, v, q_pos, kv_pos, causal=causal,
+                 window=window, softcap=softcap, with_lse=True)
+    kernels.LAUNCHES[NAME] += 1
+    ROUTE_LAUNCHES[route(q.dtype)] += 1
+    return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` under autograd: the forward kernel with ``lse``
+    on CUDA (the plain forward on the CPU), saving q, k, v, the positions,
+    out and lse; the backward kernel on CUDA (the plain backward on the
+    CPU).  On the card a backward the kernel cannot take (a window, a
+    softcap, an uninstantiated head dim) raises ``ValueError`` before the
+    forward runs."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap):
+        if q.device.type == "cuda":
+            bwd_ops.check_supported(q, k, v, window=window, softcap=softcap)
+        out, lse = flash_attention_lse(q, k, v, q_pos, kv_pos,
+                                       causal=causal, window=window,
+                                       softcap=softcap)
+        ctx.save_for_backward(q, k, v, q_pos, kv_pos, out, lse)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_pos, kv_pos, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:        # the kernel's 16-byte tile loads
+            dout = dout.clone()
+        dq, dk, dv = bwd_ops.flash_attention_bwd(
+            q, k, v, q_pos, kv_pos, out, lse, dout, **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def launch(lib, q, k, v, q_pos, kv_pos, *, causal, window, softcap,
+           with_lse=False):
     """One launch of ``repro_flash_attention_fwd`` from ``lib`` on checked
-    CUDA tensors; raises if the launch failed.  Counts nothing."""
+    CUDA tensors; raises if the launch failed.  Counts nothing.  Returns
+    out, or with ``with_lse`` (out, lse (B,Sq,H) fp32)."""
     B, Sq, H, D = q.shape
     Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((B, Sq, H, Dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
-            kv_pos.data_ptr(), out.data_ptr(), B, Sq, Skv, H, Hkv, D, Dv,
-            int(bool(causal)), int(window), float(softcap),
+            kv_pos.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), B, Sq, Skv, H, Hkv, D,
+            Dv, int(bool(causal)), int(window), float(softcap),
             1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
-    return out
+    return (out, lse) if with_lse else out

@@ -178,28 +178,35 @@ def build_other(root: Path, kernel: str = "flash_attention") -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     if kernel == "moe_gemm" and not _gemm_takes_route(src):
         return _bind_gemm_without_route(lib)
-    if kernel == "flash_attention" and not _flash_takes_dv(src):
-        return _bind_flash_without_dv(lib)
+    if kernel == "flash_attention" and not _flash_takes(src, "lse"):
+        return _bind_flash_older(lib, _flash_takes(src, "int DV"))
     return _ops(kernel).bind(lib)
 
 
-def _flash_takes_dv(src: Path) -> bool:
-    """Whether a ``flash_attention.cu``'s C entry point takes v's head dim
-    apart from q's (``int DV``, added for MLA's prefill)."""
+def _flash_takes(src: Path, arg: str) -> bool:
+    """Whether a ``flash_attention.cu``'s C entry point names ``arg``: v's
+    head dim apart from q's (``int DV``, added for MLA's prefill) or the
+    log-sum-exp buffer (``lse``, added for training)."""
     sig = re.search(r"repro_flash_attention_fwd\(([^)]*)\)", src.read_text())
-    return sig is not None and "int DV" in sig.group(1)
+    return sig is not None and arg in sig.group(1)
 
 
-def _bind_flash_without_dv(lib: ctypes.CDLL):
-    """An older library's ``repro_flash_attention_fwd``, with one head dim,
-    behind the current signature: v's head dim (equal to q's at every
-    shape timed here) is dropped."""
+def _bind_flash_older(lib: ctypes.CDLL, takes_dv: bool):
+    """An older library's ``repro_flash_attention_fwd``, without the
+    ``lse`` pointer (null at every call timed here) and, before MLA, with
+    one head dim, behind the current signature: those arguments are
+    dropped (v's head dim equals q's at every shape timed here)."""
     fn = lib.repro_flash_attention_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * (8 + takes_dv)
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
-    return types.SimpleNamespace(
-        repro_flash_attention_fwd=lambda *args: fn(*args[:12], *args[13:]))
+
+    def call(*args):
+        if args[6] is not None:
+            raise ValueError("an older flash library writes no lse")
+        args = args[:6] + args[7:]
+        return fn(*args) if takes_dv else fn(*args[:12], *args[13:])
+    return types.SimpleNamespace(repro_flash_attention_fwd=call)
 
 
 def _gemm_takes_route(src: Path) -> bool:

@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import compat
 from repro_torch.models import layers, moe, rglru, ssm
@@ -717,6 +718,93 @@ def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
             cache[name][i] = t
         h = ffn(cfg, p, h + a)
     return layers.apply_norm(cfg, params["final_norm"], h), cache
+
+
+# ---------------------------------------------------------------------------
+# training: forward_loss and the chunked cross-entropy
+# ---------------------------------------------------------------------------
+
+CE_CHUNK = 512
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """What ``forward_loss`` trains: the dense decoders.  Each other family
+    raises ``ValueError`` naming what its training still needs."""
+    check_model(cfg)
+    needs = {
+        "moe": "the MoE aux loss and a backward of the moe_gemm kernel "
+               "(dX on transposed weights, a per-expert dW)",
+        "ssm": "a backward of the ssd_scan kernel (the reverse scan)",
+        "hybrid": "a backward of the RG-LRU scan",
+        "audio": "the encoder-decoder's trunk under autograd",
+        "vlm": "the vision decoder's patch prefix under autograd",
+    }
+    if cfg.use_mla:
+        raise ValueError(f"{cfg.name}: training MLA needs the flash "
+                         f"backward at q/k 192, v 128 and {needs['moe']}")
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: forward_loss trains the dense "
+                         f"decoders; the {cfg.family} family needs "
+                         f"{needs[cfg.family]}")
+
+
+def _chunk_ce(cfg, params, h, labels):
+    """(sum of the valid rows' losses, their count) of one chunk: fp32
+    logits, logsumexp minus the label's logit, labels < 0 left out."""
+    logits = logits_fn(cfg, params, h)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])
+    valid = (labels >= 0).float()
+    return ((lse - ll[..., 0]) * valid).sum(), valid.sum()
+
+
+def _chunked_ce(cfg: ModelConfig, params, h, labels):
+    """Mean cross-entropy of ``labels`` (B, S) against the logits of the
+    final hidden states ``h`` (B, S, D), without the (B, S, V) logits:
+    chunks of ``CE_CHUNK`` positions, each under ``torch.utils.checkpoint``
+    so its backward recomputes the chunk's (B, c, V) fp32 logits instead
+    of keeping them (``repro.models.transformer._chunked_ce``'s
+    ``jax.checkpoint``).  The label of position t scores position t's
+    logits, unshifted, as the reference does."""
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, h.shape[1], CE_CHUNK):
+        t, n = checkpoint(_chunk_ce, cfg, params, h[:, s0:s0 + CE_CHUNK],
+                          labels[:, s0:s0 + CE_CHUNK], use_reentrant=False,
+                          preserve_rng_state=False)
+        tot, cnt = tot + t, cnt + n
+    return tot / torch.clamp_min(cnt, 1.0)
+
+
+def _train_layer(cfg, stack, i, h, positions, tab):
+    """Layer ``i`` of the training trunk: its leaves indexed from the
+    stacked ones (``t[i]``, which autograd follows back to them)."""
+    p = _map_spec(stack, lambda path, t: t[i])
+    xn = layers.apply_norm(cfg, p["ln1"], h)
+    a, _ = layers.attention_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
+    return ffn(cfg, p, h + a)
+
+
+def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
+    """Training loss of a dense decoder: ``batch["tokens"]`` (B, S) through
+    the layer stack, the final norm and the chunked cross-entropy against
+    ``batch["labels"]`` (B, S) (< 0: ignored).  The trunk builds no
+    cache; with ``remat`` each layer runs under ``torch.utils.checkpoint``
+    and is recomputed in the backward (``_stack_fwd``'s
+    ``jax.checkpoint``).  Differentiable in every leaf of ``params`` that
+    requires grad."""
+    check_trainable(cfg)
+    h, positions = _assemble_inputs(cfg, params, batch["tokens"])
+    tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
+    stack = params["layers"]
+    for i in range(cfg.num_layers):
+        if remat:
+            h = checkpoint(_train_layer, cfg, stack, i, h, positions, tab,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            h = _train_layer(cfg, stack, i, h, positions, tab)
+    h = layers.apply_norm(cfg, params["final_norm"], h)
+    return _chunked_ce(cfg, params, h, batch["labels"])
 
 
 def prefill(cfg: ModelConfig, params, tokens, *, frames=None, patches=None):

@@ -42,7 +42,16 @@ non-causal at Whisper-base's encoder (B8 S1536, MHA of 64) and cross
 shapes (Sq 32 on Skv 1536), paged attention at G = 1 (D 64) and at the
 served Whisper and Pixtral-12B decode shapes; the checks must see a
 causal encoder mask and a cross row one page short; reduced fp32
-Whisper and Pixtral give the CPU's tokens at model level.
+Whisper and Pixtral give the CPU's tokens at model level.  The flash
+forward writes each row's log-sum-exp on both routes at every head-dim
+pair (held to the plain forward's); the backward kernel holds to its plain
+version on the same out and lse in both types (fp32 atol 1e-4 x the
+largest |gradient| of dq, dk, dv, rtol 1e-4; bf16 2e-2 x the same, rtol
+2e-2: one bf16 rounding of each gradient) at ragged tiles, S = 1, G = 1
+and 3, non-causal at Sq != Skv and head dims 32, 64, 128, gives equal bits over two launches, counts
+by route, and refuses a window or a softcap; reduced fp32 SmolLM-360M's
+``forward_loss`` and every gradient on the card equal the CPU's (loss
+rtol 1e-5, grads atol 1e-4, rtol 1e-3) with the launches remat implies.
 """
 import dataclasses
 import math
@@ -57,6 +66,9 @@ from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_plain)
+from repro_torch.kernels.flash_attention_bwd import ops as fb_ops
+from repro_torch.kernels.flash_attention_bwd.ops import (
+    flash_attention_bwd, flash_attention_bwd_plain)
 from repro_torch.kernels.fused_sampling import ops as fs_ops
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
                                                     fused_sample_plain)
@@ -669,14 +681,18 @@ def test_each_launch_is_counted_once(dev):
     ssd_state_scan(st, dec)
     ssd_state_scan(st, dec)
     flash_attention_plain(q, k, k, pos, pos)
+    out, lse = fa_ops.flash_attention_lse(q, k, k, pos, pos)
+    flash_attention_bwd(q, k, k, pos, pos, out, lse, out)
     paged_attention_plain(qd, k, k, table, lengths)
     fused_sample_plain(*rows[:5])
     grouped_gemm_plain(x, w, be, block_t=16)
     ssd_state_scan_plain(st, dec)
+    flash_attention_bwd_plain(q, k, k, pos, pos, out, lse, out)
     torch.cuda.synchronize()
-    assert kernels.launches() == {"flash_attention": 2, "paged_attention": 1,
-                                  "fused_sampling": 1, "moe_gemm": 3,
-                                  "ssd_scan": 2}
+    assert kernels.launches() == {"flash_attention": 3,
+                                  "flash_attention_bwd": 1,
+                                  "paged_attention": 1, "fused_sampling": 1,
+                                  "moe_gemm": 3, "ssd_scan": 2}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -1154,3 +1170,132 @@ def test_reduced_encdec_vlm_model_level_tokens_match_cpu(dev, arch, over):
             assert max(used.values()) == max(used_s.values()) == 0
         out[target.type] = (greedy.tokens, sampled.tokens)
     assert out["cuda"] == out["cpu"]
+
+
+# ---------------------------------------------------------------- training
+
+# (tag, B, Sq, Skv, H, Hkv, D, causal, q offset)
+BWD_CASES = [
+    ("S100_ragged", 2, 100, 100, 4, 2, 64, True, 0),
+    ("S1", 2, 1, 1, 4, 2, 64, True, 0),
+    ("G1_D32", 1, 128, 128, 4, 4, 32, True, 0),
+    ("G3_D32", 1, 96, 96, 6, 2, 32, True, 0),
+    ("noncausal_Sq40_Skv130_D128", 2, 40, 130, 4, 2, 128, False, 0),
+    ("offset_q_Sq64_Skv200_D64", 1, 64, 200, 8, 2, 64, True, 136),
+    ("D128_S200", 1, 200, 200, 4, 1, 128, True, 0),
+]
+
+
+def _grad_tol(want, dtype):
+    """fp32: summation order; bf16: one bf16 rounding of each gradient;
+    both tied to the scale of the three gradients ``want`` (one of them
+    may be ~0 throughout: at S = 1, dq and dk are 0 in exact arithmetic)."""
+    scale = max(w.float().abs().max().item() for w in want)
+    r = 1e-4 if dtype == torch.float32 else 2e-2
+    return dict(atol=r * scale, rtol=r)
+
+
+def _bwd_inputs(gen, dev, dtype, B, Sq, Skv, H, Hkv, D, causal, q0):
+    q = _randn(gen, (B, Sq, H, D), dtype, dev)
+    k = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+    v = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+    qp, kp = _pos(B, q0, Sq, dev), _pos(B, 0, Skv, dev)
+    out, lse = fa_ops.flash.flash_attention(q, k, v, qp, kp, causal=causal,
+                                            return_lse=True)
+    dout = _randn(gen, (B, Sq, H, D), dtype, dev)
+    return q, k, v, qp, kp, out, lse, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_flash_bwd_kernel_matches_plain(dev, case, dtype):
+    _, B, Sq, Skv, H, Hkv, D, causal, q0 = case
+    gen = torch.Generator(device=dev).manual_seed(31)
+    args = _bwd_inputs(gen, dev, dtype, B, Sq, Skv, H, Hkv, D, causal, q0)
+    got = flash_attention_bwd(*args, causal=causal)
+    want = flash_attention_bwd_plain(*args, causal=causal)
+    tol = _grad_tol(want, dtype)
+    for g, w in zip(got, want):
+        _close(g, w, dtype, tol)
+
+
+def test_flash_bwd_is_deterministic_and_routes_count(dev):
+    gen = torch.Generator(device=dev).manual_seed(32)
+    kernels.reset_launches()
+    fb_ops.reset_routes()
+    for dtype in (torch.bfloat16, torch.float32):
+        args = _bwd_inputs(gen, dev, dtype, 2, 300, 300, 8, 2, 64, True, 0)
+        a = flash_attention_bwd(*args)
+        b = flash_attention_bwd(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert fb_ops.ROUTE_LAUNCHES == {"simt": 2, "mma": 2}
+    assert kernels.launches()["flash_attention_bwd"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dims", fa_ops.HEAD_DIMS,
+                         ids=[f"{a}_{b}" for a, b in fa_ops.HEAD_DIMS])
+def test_flash_forward_writes_lse_on_both_routes(dev, dims, dtype):
+    """The kernel's lse (natural-log units; the wgmma route converts its
+    log2 running max) against the plain forward's, causal over a ragged
+    tile and non-causal at Sq != Skv; out is unchanged by asking."""
+    D, Dv = dims
+    gen = torch.Generator(device=dev).manual_seed(33)
+    for Sq, Skv, causal in ((200, 200, True), (40, 130, False)):
+        q = _randn(gen, (2, Sq, 4, D), dtype, dev)
+        k = _randn(gen, (2, Skv, 2, D), dtype, dev)
+        v = _randn(gen, (2, Skv, 2, Dv), dtype, dev)
+        qp, kp = _pos(2, Skv - Sq, Sq, dev), _pos(2, 0, Skv, dev)
+        out, lse = fa_ops.flash_attention_lse(q, k, v, qp, kp, causal=causal)
+        _, want = fa_ops.flash.flash_attention(q, k, v, qp, kp,
+                                               causal=causal,
+                                               return_lse=True)
+        torch.cuda.synchronize()
+        assert lse.dtype == torch.float32 and lse.shape == (2, Sq, 4)
+        torch.testing.assert_close(lse, want, atol=1e-3 if dtype ==
+                                   torch.bfloat16 else 1e-4, rtol=1e-4)
+        assert torch.equal(out, flash_attention(q, k, v, qp, kp,
+                                                causal=causal))
+
+
+def test_flash_bwd_refuses_a_window_or_a_softcap_on_the_card(dev):
+    gen = torch.Generator(device=dev).manual_seed(34)
+    args = _bwd_inputs(gen, dev, torch.float32, 1, 64, 64, 4, 2, 64, True, 0)
+    for kw in (dict(window=16), dict(softcap=30.0)):
+        with pytest.raises(ValueError, match="window or softcap"):
+            flash_attention_bwd(*args, **kw)
+        q, k, v = (t.clone().requires_grad_(True) for t in args[:3])
+        with pytest.raises(ValueError, match="window or softcap"):
+            flash_attention(q, k, v, args[3], args[4], **kw)
+
+
+def test_reduced_forward_loss_on_the_card_matches_cpu(dev):
+    """Reduced fp32 SmolLM-360M (2 layers, heads of 32): the loss and the
+    gradient of every leaf on the card (flash forward with lse and the
+    backward kernel) against the CPU's plain versions; remat launches the
+    forward twice a layer and the backward once."""
+    from repro_torch import optim
+    from repro_torch.launch.steps import loss_and_grads
+    cfg = dataclasses.replace(reduced_config("smollm_360m"), dtype="float32")
+    cpu = TT.init_params(cfg, 0, "cpu")
+    cuda = optim.tree_map(lambda t: t.to(dev), cpu)
+    gen = torch.Generator().manual_seed(35)
+    toks = torch.randint(2, cfg.vocab_size, (2, 96), generator=gen,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    want_l, want_g = loss_and_grads(cfg, cpu, batch)
+    kernels.reset_launches()
+    fb_ops.reset_routes()
+    got_l, got_g = loss_and_grads(cfg, cuda, {k: t.to(dev)
+                                              for k, t in batch.items()})
+    torch.cuda.synchronize()
+    used = kernels.launches()
+    assert used["flash_attention"] == 2 * cfg.num_layers
+    assert used["flash_attention_bwd"] == cfg.num_layers
+    assert fb_ops.ROUTE_LAUNCHES == {"simt": cfg.num_layers, "mma": 0}
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=0)
+    for g, w in zip(optim.tree_leaves(got_g), optim.tree_leaves(want_g)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)

@@ -22,7 +22,10 @@ from repro.models import layers as jlayers
 from repro_torch import kernels
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_lse,
                                                      flash_attention_plain)
+from repro_torch.kernels.flash_attention_bwd.ops import (
+    flash_attention_bwd, flash_attention_bwd_plain)
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
                                                     fused_sample_plain)
 from repro_torch.kernels.moe_gemm.ops import grouped_gemm, grouped_gemm_plain
@@ -161,6 +164,7 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     the launch counters stay at zero."""
     kernels.reset_launches()
     q, k, v = _qkv(6, 1, 16, 16, 4, 2, 32)
+    k_attn = k
     pos = _pos(1, 0, 16)
     a = flash_attention(*_t(q, k, v, pos, pos))
     b = flash_attention_plain(*_t(q, k, v, pos, pos))
@@ -188,11 +192,19 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     dec = torch.from_numpy(r.random((1, 2, 3)).astype(np.float32))
     for g, w in zip(ssd_state_scan(st, dec), ssd_state_scan_plain(st, dec)):
         assert torch.equal(g, w)
-    assert kernels.launches() == {"flash_attention": 0, "paged_attention": 0,
-                                  "fused_sampling": 0, "moe_gemm": 0,
-                                  "ssd_scan": 0}
-    assert set(kernels.KERNELS) == {"flash_attention", "paged_attention",
-                                    "fused_sampling", "moe_gemm", "ssd_scan"}
+    qt, kt, vt, pt = _t(q, k_attn, v, pos)
+    out, lse = flash_attention_lse(qt, kt, vt, pt, pt)
+    for g, w in zip(flash_attention_bwd(qt, kt, vt, pt, pt, out, lse, out),
+                    flash_attention_bwd_plain(qt, kt, vt, pt, pt, out, lse,
+                                              out)):
+        assert torch.equal(g, w)
+    assert kernels.launches() == {"flash_attention": 0,
+                                  "flash_attention_bwd": 0,
+                                  "paged_attention": 0, "fused_sampling": 0,
+                                  "moe_gemm": 0, "ssd_scan": 0}
+    assert set(kernels.KERNELS) == {"flash_attention", "flash_attention_bwd",
+                                    "paged_attention", "fused_sampling",
+                                    "moe_gemm", "ssd_scan"}
     for name in kernels.KERNELS:
         op, plain = kernels.get_kernel(name)
         assert callable(op) and callable(plain)

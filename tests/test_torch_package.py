@@ -47,6 +47,9 @@ from repro_torch.driver import replica, source
 from repro_torch.launch import job
 from repro_torch.configs import pixtral_12b, whisper_base
 from repro_torch.models import layers, transformer
+from repro_torch import optim
+from repro_torch.kernels.flash_attention_bwd import ops as fb
+from repro_torch.launch import steps, train
 print("imported", sorted(m for m, mod in sys.modules.items()
                          if mod is not None
                          and m.split(".")[0] in ("jax", "repro", "ml_dtypes")))
@@ -74,7 +77,9 @@ def test_no_source_imports_jax_or_repro():
             "runtime/ledger.py", "runtime/cluster.py", "runtime/checkpoint.py",
             "data/pipeline.py", "driver/__init__.py", "driver/driver.py",
             "driver/replica.py", "driver/source.py", "launch/job.py",
-            "configs/whisper_base.py", "configs/pixtral_12b.py"} <= names
+            "configs/whisper_base.py", "configs/pixtral_12b.py",
+            "optim.py", "launch/steps.py", "launch/train.py",
+            "kernels/flash_attention_bwd/ops.py"} <= names
     bad = [f"{f.relative_to(SRC)}:{i}: {line.strip()}"
            for f in files
            for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -201,12 +206,13 @@ def test_encdec_and_vision_configs_are_the_published_ones(monkeypatch):
 
 
 def test_five_kernels_are_registered_each_with_its_source():
-    """Every TPU kernel of the JAX package has its Hopper counterpart:
-    five registered names, each with a wrapper, a plain version, a
-    launch counter and a ``csrc/<name>.cu`` that ``build.py`` finds."""
-    assert set(kernels.KERNELS) == {"flash_attention", "paged_attention",
-                                    "fused_sampling", "moe_gemm",
-                                    "ssd_scan"}
+    """Every TPU kernel of the JAX package has its Hopper counterpart, and
+    prefill attention's backward its own kernel: six registered names,
+    each with a wrapper, a plain version, a launch counter and a
+    ``csrc/<name>.cu`` that ``build.py`` finds."""
+    assert set(kernels.KERNELS) == {"flash_attention", "flash_attention_bwd",
+                                    "paged_attention", "fused_sampling",
+                                    "moe_gemm", "ssd_scan"}
     assert sorted(kernels.KERNELS) == build.kernel_names()
     assert set(kernels.launches()) == set(kernels.KERNELS)
     for name in kernels.KERNELS:
