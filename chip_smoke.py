@@ -43,8 +43,8 @@ result):
    (fp32 atol 1e-4, bf16 atol 1e-3, rtol 1e-4); the fp32 B4 S512 row is
    timed like the bf16 ones (alone, bound, SDPA).
    The flash backward (``flash_attention_bwd``: preprocess, dK/dV and dQ
-   launches, bf16 products on ``mma.sync``, fp32 on the CUDA cores, fp32
-   sums) is held to its plain version on
+   launches, bf16 products on ``wgmma`` with tiles by TMA, fp32 on the
+   CUDA cores, fp32 sums) is held to its plain version on
    the same out and lse in bf16 at the training shapes (SmolLM-360M B8
    S4096 H15/5 and Llama-3.2-1B B4 S4096 H32/8 at (64, 64), B4 S2048
    H32/4 at (128, 128), causal), in fp32 at SmolLM's, and in both types
@@ -804,8 +804,8 @@ def _flash_bwd_bound(q, k, causal=True):
 def check_flash_bwd(dev, timer):
     """The flash backward's kernel against its plain version on the same
     out and lse, in bf16 at the training shapes and in both types at the
-    edges; equal bits over two launches; every call on the route of its
-    type; timed at the training shapes through the wrapper, alone (the sum
+    edges; equal bits over two launches at D 64 and 128; every call on the
+    route of its type (bf16 on wgmma); timed at the training shapes through the wrapper, alone (the sum
     of its three kernels' medians in the profiler's trace), its plain
     version and SDPA's backward (``autograd.grad`` of one
     ``scaled_dot_product_attention``, timed alone) beside the bound."""
@@ -817,7 +817,7 @@ def check_flash_bwd(dev, timer):
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     ops.reset_routes()
-    calls = {"simt": 0, "mma": 0}
+    calls = {"simt": 0, "wgmma": 0}
     bad = []
 
     def case(tag, dtype, B, Sq, Skv, H, Hkv, D, causal=True, q0=0):
@@ -872,17 +872,16 @@ def check_flash_bwd(dev, timer):
         raise AssertionError(f"flash_attention_bwd calls by route "
                              f"{ops.ROUTE_LAUNCHES}, expected {calls}")
     log(f"  flash_attention_bwd calls by route: {calls} (each call: "
-        f"preprocess, dK/dV, dQ; bf16 on mma.sync, fp32 on the CUDA "
+        f"preprocess, dK/dV, dQ; bf16 on wgmma, fp32 on the CUDA "
         f"cores)")
-    _, args, causal = timed["smollm B8 S4096 H15/5 D64"]
-    again = [flash_attention_bwd(*args) for _ in range(2)]
-    torch.cuda.synchronize()
-    if not all(torch.equal(a, b) for a, b in zip(*again)):
-        raise AssertionError("flash_attention_bwd bf16: two launches gave "
-                             "other bits")
-    log("  flash_attention_bwd bf16 smollm B8 S4096: two launches, equal "
-        "bits")
-    del again
+    for shape in ("smollm B8 S4096 H15/5 D64", "B4 S2048 H32/4 D128"):
+        again = [flash_attention_bwd(*timed[shape][1]) for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*again)):
+            raise AssertionError(f"flash_attention_bwd bf16 {shape}: two "
+                                 f"launches gave other bits")
+        log(f"  flash_attention_bwd bf16 {shape}: two launches, equal bits")
+        del again
 
     rows = {}
     for shape, (e, args, causal) in timed.items():
@@ -892,7 +891,7 @@ def check_flash_bwd(dev, timer):
         alone_ms = sum(timer.kernel_ms(lambda: flash_attention_bwd(*args),
                                        (entry,), iters=10)
                        for entry in KERNEL_ENTRIES["flash_attention_bwd"]
-                       if not entry.endswith("_simt"))     # bf16: mma
+                       if not entry.endswith("_simt"))     # bf16: wgmma
         plain_ms = timer(lambda: flash_attention_bwd_plain(*args), iters=3,
                          warmup=1)
         library_ms = None
@@ -1869,7 +1868,7 @@ def _reduced_train_pair(dev):
                 device == "cuda" and (
                     ops.ROUTE_LAUNCHES != {"wgmma": 0, "simt": 2 * L}
                     or bwd_ops.ROUTE_LAUNCHES != {"simt": L,
-                                                  "mma": 0})):
+                                                  "wgmma": 0})):
             raise AssertionError(f"reduced smollm training on {device}: "
                                  f"launches {used}, flash routes "
                                  f"{ops.ROUTE_LAUNCHES}, backward routes "
@@ -3200,11 +3199,11 @@ def train_smollm_path(dev):
     want = {"flash_attention": fwd, "flash_attention_bwd": bwd}
     if {k: n for k, n in used.items() if n} != want or \
             ops.ROUTE_LAUNCHES != {"wgmma": fwd, "simt": 0} or \
-            bwd_ops.ROUTE_LAUNCHES != {"simt": 0, "mma": bwd}:
+            bwd_ops.ROUTE_LAUNCHES != {"simt": 0, "wgmma": bwd}:
         raise AssertionError(f"smollm training: launches {used}, flash by "
                              f"route {ops.ROUTE_LAUNCHES}, backward by route "
                              f"{bwd_ops.ROUTE_LAUNCHES} (expected {want}, "
-                             f"flash on wgmma, backward on mma)")
+                             f"flash and backward on wgmma)")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"smollm training: losses {losses} (finite "

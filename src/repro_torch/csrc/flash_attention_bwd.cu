@@ -15,43 +15,110 @@
 // What bounds it on an H100: at the training shape (SmolLM-360M, B=8,
 // S=4096, H=15 on 5, D=64, causal) the work is ~0.65 TFLOP (2.5 times the
 // forward's) against ~0.4 GB of q, k, v, out, dout, lse, dq, dk, dv: far
-// past the card's balance point, so operations bound it.  mma.sync with
-// fragments read from shared memory by plain loads, no asynchronous
-// copies and no warp specialisation keep it far from that bound; wgmma
-// and TMA are the next step.
+// past the card's balance point, so the tensor cores' rate bounds it.
 //
-// Two routes, chosen by the storage type: bf16 runs the products of each
-// step on the tensor cores (mma.sync m16n8k16, fp32 sums; tiles kept bf16
-// in shared memory; P and dS, the fp32 A operands of the second products,
-// go in as bf16 hi + lo pairs, two mma each, where FlashAttention-2 rounds
-// them to bf16 once: with one rounding the gradients' near-zero elements
-// missed the plain version's tolerance); fp32 runs them on the CUDA cores
-// in fp32.  Both take three launches on the caller's stream:
-//   1. preprocess: Dl = rowsum(dout * out) in fp32, one warp a (b, s, h);
-//   2. dK/dV: one CTA per (64-key tile, kv head, batch row) keeps its K and
-//      V tiles in shared memory and walks the G q heads of its kv head
-//      and, for each, the 64-row q tiles some row of which may attend to
-//      one of its keys (causal: from its diagonal on; a tile is skipped by
-//      a block vote on the exact mask, before its Q and dO are read).  Each
-//      step recomputes S = Q K^T * scale and P = exp(S - lse) (0 where
-//      masked), dP = dO V^T and dS = P (dP - Dl), and adds dV += P^T dO and
-//      dK += dS^T Q; dK is scaled once at the end;
-//   3. dQ: one CTA per (64-row q tile, q head, batch row) keeps its Q and dO
-//      tiles and walks the key tiles it may attend to, recomputing S, P, dP
-//      and dS as above, and adds dQ += dS K, scaled at the end.
-// On the CUDA cores each thread owns 4 x 4 of a 64 x 64 score tile (rows
-// 4 ty.., keys tx + 16 j) and 4 rows x D/16 columns of an accumulator; on
-// the tensor cores each of 4 warps owns 16 keys (dK/dV) or 16 q rows (dQ)
-// and the dK/dV step takes 64 q rows (32 at D = 128, for registers).
-// Every sum runs in a fixed order and nothing is added across CTAs, so the
-// GQA fold needs no atomics and two launches on the same inputs give equal
-// bits.  Keys are masked at the true Skv and rows at the true Sq: nothing
-// is padded.
+// Three launches on the caller's stream, and no atomics:
+//   1. preprocess: Dl = rowsum(dout * out) in fp32;
+//   2. dK/dV: one CTA per (key tile, kv head, batch row) walks the q tiles
+//      of its G q heads that may attend to its keys and adds, each step,
+//      dV += P^T dO and dK += dS^T Q, recomputing S^T = K Q^T, P^T =
+//      exp(S^T scale - lse) (0 where masked), dP^T = V dO^T and dS^T =
+//      P^T (dP^T - Dl); dK is scaled once at the end;
+//   3. dQ: one CTA per (q tile, q head, batch row) walks the key tiles it
+//      may attend to, recomputing S, P, dP and dS, and adds dQ += dS K,
+//      scaled at the end.
+// Splitting dK/dV from dQ recomputes S and dP once more, but each CTA owns
+// its outputs whole: nothing is added across CTAs (the GQA fold of dK/dV
+// over the G q heads is a loop inside the CTA), every sum runs in a fixed
+// order, and two launches on the same inputs give equal bits.
+//
+// bf16 (namespace wg) runs the products on the tensor cores by wgmma, on
+// tiles that TMA brings:
+// - The preprocess also writes, for each (batch row, q head), the rows'
+//   lse (in log2 units), Dl and q positions side by side into fp32
+//   scratch, (B, H, 3, Sqp) with Sq padded to Sqp, a multiple of 64
+//   (padding rows 0), and the kv positions as (B, Skvp): one TMA box then
+//   reads a q tile's 3 x BN values (over lse's own (B, Sq, H) layout a box
+//   would have an inner extent of one float, and TMA needs 16 bytes), and
+//   the padding keeps every row stride a multiple of 16 bytes whatever Sq
+//   and Skv are.
+// - A CTA is two consumer warpgroups of 64 rows each (wgmma's M) and one
+//   producer warp, whose lane 0 issues every TMA load.  Two consumers
+//   share each streamed tile: half the TMA loads and shared-memory fills
+//   of one consumer a CTA.  No setmaxnreg: the SM reserves a 288-thread
+//   CTA's registers as for 384 threads, so ptxas caps every thread at 168
+//   (224 failed to launch), and with a producer warpgroup lowered by
+//   setmaxnreg ptxas still compiled the consumers to 168 (the same spills),
+//   so it would free nothing they could use.
+// - dK/dV: the CTA's keys of K and V are loaded once (128-byte swizzle,
+//   64-byte at D = 32; two 64-column boxes a row at D = 128).  Q, dO and
+//   the (lse, Dl, position) rows of each visited q tile stream through a
+//   4-stage ring: a stage's "full" mbarrier counts its TMA bytes, its
+//   "empty" one the 8 consumer warps done with it.  Per step and consumer:
+//   S^T = K Q^T and dP^T = V dO^T by SS wgmma (both operands K-major over
+//   D; N = BN q rows), P^T and dS^T in the accumulators' registers, each
+//   split into bf16 hi + lo A fragments (the accumulator's columns 16 kk..
+//   are the A fragment of k step kk, as for the forward's P V), then dV +=
+//   P^T dO and dK += dS^T Q by RS wgmma, twice each (hi, lo), dO and Q
+//   being MN-major B operands (D contiguous in a row).
+// - Registers (168 a thread): dK and dV take D/2 fp32 each, S^T and dP^T
+//   BN/2 each, their hi + lo fragments BN/4 each.  D = 32 and 64: each
+//   consumer owns 64 of the CTA's 128 keys and adds both, BN = 64 (at D =
+//   64 this fills the 168 with a few bytes spilled).
+//   D = 128: dK and dV alone would take 128, so both consumers own the
+//   CTA's 64 keys, consumer 0 adds dV (from S^T only) and consumer 1 dK,
+//   BN = 32; that recomputes S^T once more (7 units of product work where
+//   the others do 6) but spills nothing.  The two roles are separate
+//   instantiations of the walk: ptxas serializes every wgmma of a kernel
+//   that issues one on a branch it cannot prove uniform.
+// - dQ: the CTA's 128 q rows of Q and dO are loaded once; K, V and the kv
+//   positions of each visited 64-key tile stream through the ring; S = Q
+//   K^T and dP = dO V^T by SS wgmma, P and dS in registers, dQ += dS K by
+//   an RS wgmma pair with K as the MN-major B.  No online softmax: lse is
+//   given.  A thread holds D/2 + 32 + 32 + 32 registers of it.
+// - Visits: before the loop the whole CTA reads the positions and keeps in
+//   shared memory the least and greatest position of every tile it may
+//   walk (8 bytes a tile).  The producer and the consumers then walk the
+//   same tiles in the same order, each dropping a tile that lies wholly
+//   above the causal limit for every row of the CTA, so the producer loads
+//   ahead with no vote.  A consumer skips the products of a tile none of
+//   its 64 rows may attend to, and the per-element mask of one whose every
+//   pair is allowed.  The tile index is the grid's slowest dimension, taken
+//   from the heaviest end under a causal mask (dK/dV's first key tiles,
+//   dQ's last q tiles): the longest CTAs of every head start first, and the
+//   last wave is short ones.
+// - Shared memory: dK/dV holds K and V (16, 32, 32 KiB at D = 32, 64, 128)
+//   and 4 stages of 9, 17, 17 KiB; dQ holds Q and dO (16, 32, 64 KiB) and
+//   4 stages of 9, 17, 33 KiB.  The tile ranges take what is left of the
+//   227 KiB, which caps Sq and Skv (repro_flash_bwd_max_len: ~237K at
+//   D = 128).
+// - Where the time goes (PERF.md, SmolLM-360M's shape): the loads and
+//   barriers alone (no products, no exponentials) take ~0.3 ms a kernel;
+//   the rest is the products and, in dQ, the exponentials and splits,
+//   which the two consumers overlap poorly.  Measured no faster on an
+//   H100: the consumers taking turns at the tensor cores (named barriers),
+//   a 6-stage ring, 32 q rows a dK/dV step at D = 64.
+// Why the hi + lo split stays: P and dS are fp32 A operands; rounded to
+// bf16 once (as FlashAttention-2 does), the gradients' near-zero elements
+// missed the plain version's tolerance at the training shapes, so each
+// goes in as hi + lo (x = hi + lo to ~16 bits), two products each.  With
+// the recomputed S and dP that is 10 units of product work where the bound
+// counts 5: this design's floor is twice the bound.
+//
+// fp32 (the simt kernels, the first version, unchanged) runs the same
+// three steps on the CUDA cores: each thread owns 4 x 4 of a 64 x 64 score
+// tile (rows 4 ty.., keys tx + 16 j) and 4 rows x D/16 columns of an
+// accumulator; a tile is skipped by a block vote on the exact mask before
+// its Q and dO (or K and V) are read.
+// Keys are masked at the true Skv and rows at the true Sq: nothing is
+// padded in the inputs.
 
+#include <climits>
 #include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -60,16 +127,14 @@ constexpr int BK = 64;      // keys per tile
 constexpr int NT = 256;     // threads: 16 row groups x 16 lanes
 constexpr int PS = BK + 4;  // row stride of the P / dS tiles (16-byte rows)
 
-// Dl[r] = sum_d dout[r, d] * out[r, d] for the B * Sq * H rows r.
+// n rounded up to a multiple of 64: the padded row count of the bf16
+// route's scratch
+__host__ __device__ constexpr int pad64(int n) { return (n + 63) / 64 * 64; }
+
+// sum_d g[d] * o[d] over one row, in every lane of the warp
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_preprocess(const T* __restrict__ out, const T* __restrict__ dout,
-                     float* __restrict__ Dl, long long rows) {
-  const long long r = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;
-  const T* o = out + r * D;
-  const T* g = dout + r * D;
+__device__ __forceinline__ float row_dot(const T* __restrict__ o,
+                                         const T* __restrict__ g, int lane) {
   float acc = 0.f;
 #pragma unroll
   for (int d = lane; d < D; d += 32)
@@ -77,7 +142,75 @@ flash_bwd_preprocess(const T* __restrict__ out, const T* __restrict__ dout,
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) Dl[r] = acc;
+  return acc;
+}
+
+// Dl = rowsum(dout * out).  Plain (fp32 route): one warp a row, Dl is
+// (B, Sq, H).  Tiled (bf16 route): D / 8 lanes a row, and Dl is the wgmma
+// kernels' scratch: for each (b, h) three rows of Sqp fp32, lse, Dl and the
+// q position's bits (rows s >= Sq hold 0), rows running s fastest so that
+// neighbours write side by side; then, from the blocks of blockIdx.y = 1,
+// the kv positions
+// as (B, Skvp) int32 (keys past Skv hold 0).
+template <typename T, int D, bool kTiled>
+__global__ void __launch_bounds__(NT)
+flash_bwd_preprocess(const T* __restrict__ out, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const int* __restrict__ q_pos,
+                     const int* __restrict__ kv_pos, float* __restrict__ Dl,
+                     int B, int Sq, int Skv, int H) {
+  if constexpr (!kTiled) {
+    const int lane = threadIdx.x % 32;
+    const long long w = (long long)blockIdx.x * (NT / 32) + threadIdx.x / 32;
+    if (w >= (long long)B * Sq * H) return;
+    const float acc = row_dot<T, D>(out + w * D, dout + w * D, lane);
+    if (lane == 0) Dl[w] = acc;
+  } else {
+    const int Sqp = pad64(Sq), Skvp = pad64(Skv);
+    if (blockIdx.y == 1) {
+      const long long e = (long long)blockIdx.x * NT + threadIdx.x;
+      if (e >= (long long)B * Skvp) return;
+      const int b = int(e / Skvp), j = int(e % Skvp);
+      reinterpret_cast<int*>(Dl + 3LL * B * H * Sqp)[e] =
+          j < Skv ? kv_pos[(size_t)b * Skv + j] : 0;
+      return;
+    }
+    // D / 8 lanes a row, 16 bytes of out and dout each
+    constexpr int L = D / 8;
+    const long long r = ((long long)blockIdx.x * NT + threadIdx.x) / L;
+    const int sub = threadIdx.x % L;
+    const bool live = r < (long long)B * H * Sqp;  // a row's lanes agree
+    const int s = int(r % Sqp);
+    const long long bh = r / Sqp;  // b * H + h
+    float acc = 0.f, ls = 0.f;
+    int qp = 0;
+    if (live && s < Sq) {
+      const int h = int(bh % H), b = int(bh / H);
+      const long long row = ((long long)b * Sq + s) * H + h;
+      const uint4 o = reinterpret_cast<const uint4*>(out + row * D)[sub];
+      const uint4 g = reinterpret_cast<const uint4*>(dout + row * D)[sub];
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
+      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 x = __bfloat1622float2(o2[i]);
+        const float2 y = __bfloat1622float2(g2[i]);
+        acc = fmaf(y.x, x.x, acc);
+        acc = fmaf(y.y, x.y, acc);
+      }
+      ls = lse[row];
+      qp = q_pos[(size_t)b * Sq + s];
+    }
+#pragma unroll
+    for (int off = L / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (live && sub == 0) {  // lse in log2 units: the kernels take 2^x
+      float* o = Dl + bh * 3 * Sqp + s;
+      o[0] = ls * 1.4426950408889634f;
+      o[Sqp] = acc;
+      o[2 * Sqp] = __int_as_float(qp);
+    }
+  }
 }
 
 // rows [r0, r0 + 64) of a (B, S, heads, D) tensor at (b, head) into a
@@ -369,395 +502,693 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the same three steps on the tensor cores (mma.sync m16n8k16, fp32
-// sums).  Tiles stay bf16 in shared memory (rows padded by 8 values, so the
-// fragment reads meet no bank conflict); each of 4 warps owns 16 rows of
-// the CTA's 64 (keys in dK/dV, q rows in dQ).  P and dS pass from the score
-// registers to the next product as A fragments of bf16 hi + lo pairs
-// (frag_split); everything else is as in the fp32 kernels above.
+// bf16: tensor cores (wgmma), tiles by TMA; a producer warp and two
+// consumer warpgroups a CTA (the note at the head of the file)
 // ---------------------------------------------------------------------------
-namespace tc {
-
-constexpr int NW = 4;            // warps: 16 rows each
-constexpr int NTC = 32 * NW;     // threads
-constexpr int ROWS = 16 * NW;    // keys (dK/dV) or q rows (dQ) per CTA
+namespace wg {
 
 using bf16 = __nv_bfloat16;
 
+constexpr int NC = 2;               // consumer warpgroups
+constexpr int NT = 128 * NC + 32;   // threads: the consumers, then the
+                                    // producer warp
+constexpr int BR = 64 * NC;         // q rows of a dQ CTA
+constexpr int BK = 64;              // keys a dQ step
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr size_t kSmemLimit = 227 * 1024;  // the most a CTA may take
+
+__host__ __device__ constexpr uint32_t up1024(uint32_t x) {
+  return (x + 1023) & ~1023u;
+}
+
+// Shared-memory geometry at head dim D, offsets from a 1024-aligned base.
+// A TMA box is at most 64 bf16 columns (128 bytes, the swizzle's width);
+// D = 128 takes two boxes a row, stored one after the other.
 template <int D>
 struct Geo {
-  static constexpr int LD = D + 8;                // bf16 row stride
-  static constexpr int BQ = D == 128 ? 32 : 64;   // q rows a dK/dV step
+  static constexpr int kBoxCols = D < 64 ? D : 64;
+  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kRowBytes = kBoxCols * 2;
+  static constexpr uint32_t kRow = kBoxes * kRowBytes;  // bytes a tile row
+  static constexpr uint32_t kAtom = 8 * kRowBytes;      // 8 rows of a box
+  static constexpr uint64_t kSwizzle =
+      D < 64 ? sm90::kSwizzle64 : sm90::kSwizzle128;
+  static constexpr int kKSteps = kBoxCols / 16;  // k16 steps a box
+  static constexpr int BN = D == 128 ? 32 : 64;  // q rows a dK/dV step
+  static constexpr int kStages = 4;              // ring stages
+  // D = 128: dK and dV would take 128 of a consumer's 168 registers, so the
+  // two consumers share one 64-key tile, consumer 0 adding dV and consumer
+  // 1 dK (both recompute S^T); below it each owns 64 keys and adds both
+  static constexpr bool kSplit = D == 128;
+  static constexpr int BKV = kSplit ? 64 : 64 * NC;  // keys of a dK/dV CTA
+  // dK/dV: K and V (BKV rows), then the ring: per stage Q and dO (BN rows)
+  // and the (lse, Dl, q position) rows, 3 x BN fp32
+  static constexpr uint32_t kKvTx = 2 * BN * kRow + 3 * BN * 4;
+  static constexpr uint32_t kKvStage = up1024(kKvTx);
+  static constexpr uint32_t kKvRing = 2 * BKV * kRow;
+  // barriers full[kStages], empty[kStages] and the first loads', then int
+  // lo[4], hi[4] (the positions of 4 warps' 32 rows), then per tile walked
+  // its least and greatest position
+  static constexpr uint32_t kKvBars = kKvRing + kStages * kKvStage;
+  static constexpr uint32_t kKvRed = kKvBars + 8 * (2 * kStages + 1);
+  static constexpr uint32_t kKvRanges = kKvRed + 8 * 4;
+  // dQ: Q and dO (BR rows), then per stage K and V (BK rows) and the kv
+  // positions (BK int32)
+  static constexpr uint32_t kQTx = 2 * BK * kRow + BK * 4;
+  static constexpr uint32_t kQStage = up1024(kQTx);
+  static constexpr uint32_t kQRing = 2 * BR * kRow;
+  static constexpr uint32_t kQBars = kQRing + kStages * kQStage;
+  static constexpr uint32_t kQRed = kQBars + 8 * (2 * kStages + 1);
+  static constexpr uint32_t kQRanges = kQRed + 8 * 4;
+  static size_t smem_kv(int nqt) {
+    return 1024 + kKvRanges + 8 * size_t(nqt);
+  }
+  static size_t smem_q(int nkt) { return 1024 + kQRanges + 8 * size_t(nkt); }
+  // the most q rows (dK/dV's BN-row tiles) and keys (dQ's 64-key tiles)
+  // whose ranges fit the CTA's shared memory
+  static int max_len() {
+    const size_t q = (kSmemLimit - smem_kv(0)) / 8 * BN;
+    const size_t k = (kSmemLimit - smem_q(0)) / 8 * BK;
+    return int(q < k ? q : k);
+  }
 };
 
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ float ex2(float x) {  // 2^x
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+__device__ __forceinline__ void warp_minmax(int& lo, int& hi) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
 }
 
-// The A fragment of k step kq from two accumulator tiles of 8 columns (the
-// C layout of s[2 kq], s[2 kq + 1] is the A layout of their 16 columns),
-// split into bf16 hi and lo parts (x = hi + lo to ~16 bits), so that the
-// product with bf16 B keeps the fp32 P and dS almost whole.
-__device__ __forceinline__ void frag_split(uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4],
-                                           const float (&c0)[4],
-                                           const float (&c1)[4]) {
-  const float x[8] = {c0[0], c0[1], c0[2], c0[3],
-                      c1[0], c1[1], c1[2], c1[3]};
+// The least and greatest position of each tile of ROWS rows of pos[0, n)
+// into lo[], hi[] (a tile's rows past n are left out; a tile always has
+// one), the CTA's warps taking the tiles in turn.
+template <int ROWS>
+__device__ __forceinline__ void tile_ranges(const int* __restrict__ pos,
+                                            int n, int* lo, int* hi) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int t = warp; t * ROWS < n; t += NT / 32) {
+    int a = INT_MAX, z = INT_MIN;
+#pragma unroll
+    for (int j = lane; j < ROWS; j += 32)
+      if (t * ROWS + j < n) {
+        const int p = pos[t * ROWS + j];
+        a = min(a, p);
+        z = max(z, p);
+      }
+    warp_minmax(a, z);
+    if (lane == 0) {
+      lo[t] = a;
+      hi[t] = z;
+    }
+  }
+}
+
+// The position range of the CTA's rows [r0, min(r0 + rows, n)), 32 a warp,
+// by warps 0..3: red[w] the least of warp w's rows, red[4 + w] the greatest
+// (INT_MAX and INT_MIN for a warp with none).
+__device__ __forceinline__ void row_ranges(const int* __restrict__ pos,
+                                           int r0, int rows, int n,
+                                           int* red) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 4) return;
+  const int r = r0 + 32 * warp + lane;
+  int a = INT_MAX, z = INT_MIN;
+  if (32 * warp + lane < rows && r < n) a = z = pos[r];
+  warp_minmax(a, z);
+  if (lane == 0) {
+    red[warp] = a;
+    red[4 + warp] = z;
+  }
+}
+
+// The A fragments of k step kk from an accumulator x (the C layout of its
+// columns 16 kk.. is the A layout of k step kk), split into bf16 hi and lo
+// parts (x = hi + lo to ~16 bits), so that products with bf16 B keep the
+// fp32 P and dS almost whole.
+template <int N>
+__device__ __forceinline__ void split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                      const float (&x)[N], int kk) {
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x[2 * r], x[2 * r + 1]);
-    const float2 hf = __bfloat1622float2(h);
+    const float a = x[8 * kk + 2 * r], c = x[8 * kk + 2 * r + 1];
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
+    const float2 f = __bfloat1622float2(h);
     hi[r] = *reinterpret_cast<const uint32_t*>(&h);
-    lo[r] = pack(x[2 * r] - hf.x, x[2 * r + 1] - hf.y);
+    lo[r] = sm90::pack_bf16(a - f.x, c - f.y);
   }
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 of one column from rows r and r + 1 (row stride LD)
-template <int LD>
-__device__ __forceinline__ uint32_t col2(const bf16* p) {
-  const uint16_t lo = *reinterpret_cast<const uint16_t*>(p);
-  const uint16_t hi = *reinterpret_cast<const uint16_t*>(p + LD);
-  return static_cast<uint32_t>(lo) | (static_cast<uint32_t>(hi) << 16);
-}
-
-// rows [r0, r0 + n) of a (B, S, heads, D) bf16 tensor at (b, head) into
-// an n x LD tile by 16-byte copies; rows past S are zeros
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst,
-                                          const bf16* __restrict__ src, int b,
-                                          int r0, int n, int S, int heads,
-                                          int head) {
-  constexpr int LD = Geo<D>::LD, V = D / 8;
-  for (int e = threadIdx.x; e < n * V; e += NTC) {
-    const int r = e / V, c = (e % V) * 8, ri = r0 + r;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (ri < S)
-      x = *reinterpret_cast<const uint4*>(
-          src + (((size_t)b * S + ri) * heads + head) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = x;
+// d = A B^T over D: A's 64 rows at a_rows, B's N rows at b_rows, both
+// K-major in boxes of 64 columns a_box and b_box bytes apart.
+template <int N, int D>
+__device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a_rows,
+                                           uint32_t a_box, uint32_t b_rows,
+                                           uint32_t b_box) {
+  using G = Geo<D>;
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const int bx = k / G::kKSteps, col = (k % G::kKSteps) * 32;
+    sm90::wgmma_ss<N>(
+        d, sm90::desc(a_rows + bx * a_box + col, 16, G::kAtom, G::kSwizzle),
+        sm90::desc(b_rows + bx * b_box + col, 16, G::kAtom, G::kSwizzle), k);
   }
 }
 
-// A fragment of rows 16 w .. of a tile, k step kk
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t,
-                                       int row, int col) {
-  a[0] = ld32(t + row * LD + col);
-  a[1] = ld32(t + (row + 8) * LD + col);
-  a[2] = ld32(t + row * LD + col + 8);
-  a[3] = ld32(t + (row + 8) * LD + col + 8);
+// Two bf16 to global memory (4 bytes, aligned).
+__device__ __forceinline__ void store2(bf16* p, float a, float c) {
+  *reinterpret_cast<uint32_t*>(p) = sm90::pack_bf16(a, c);
 }
 
-// S^T = K Q^T and dP^T = V dO^T for this warp's 16 keys against BQ q rows,
-// then P^T = exp(S^T scale - lse) (0 where masked) and dS^T = P^T (dP^T -
-// Dl) in place; dV += P^T dO and dK += dS^T Q.
+// dK/dV of BKV keys of one kv head.  A consumer thread holds keys r0 and
+// r0 + 8 of its 64 (rows of S^T), q columns 8 j + c0 + {0, 1}.
 template <int D>
-__global__ void __launch_bounds__(NTC)
-flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const int* __restrict__ q_pos,
-                   const int* __restrict__ kv_pos,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ Dl,
-                   const bf16* __restrict__ dout, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
-                   int causal, float scale) {
-  constexpr int LD = Geo<D>::LD, BQ = Geo<D>::BQ, NQ = BQ / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // ROWS x LD
-  bf16* Vs = Ks + ROWS * LD;                      // ROWS x LD
-  bf16* Qs = Vs + ROWS * LD;                      // BQ x LD
-  bf16* dOs = Qs + BQ * LD;                       // BQ x LD
-  int* qpos = reinterpret_cast<int*>(dOs + BQ * LD);  // BQ
-  float* ls = reinterpret_cast<float*>(qpos + BQ);    // BQ
-  float* dl = ls + BQ;                                 // BQ
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tld,
+                     const int* __restrict__ q_pos,
+                     const int* __restrict__ kv_pos, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
+                     int causal, float scale) {
+  using G = Geo<D>;
+  constexpr int BN = G::BN, BKV = G::BKV, RB = G::kRowBytes;
+  constexpr bool kSplit = G::kSplit;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* base = smem_raw + pad;
+  const uint32_t sK = raw + pad, sV = sK + BKV * G::kRow;
+  const uint32_t bar_full = sK + G::kKvBars;  // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * G::kStages;
+  const uint32_t bar_kv = bar_empty + 8 * G::kStages;
+  int* red = reinterpret_cast<int*>(base + G::kKvRed);
+  const int nqt = (Sq + BN - 1) / BN;
+  int* qlo = reinterpret_cast<int*>(base + G::kKvRanges);
+  int* qhi = qlo + nqt;
 
-  const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * ROWS;
-  const int G = H / Hkv;
+  // grid (kv heads x batch rows, key tiles): the key tiles with the most q
+  // tiles (the first, when causal) of every head launch first
+  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
+  const int k0 = blockIdx.y * BKV;
+  const int groups = H / Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, row = 16 * warp + g;
 
-  load_tile<D>(Ks, k, b, k0, ROWS, Skv, Hkv, hk);
-  load_tile<D>(Vs, v, b, k0, ROWS, Skv, Hkv, hk);
-  int kp[2];
-  bool kin[2];
+  if (threadIdx.x == 0) {  // K and V at once; the ranges overlap them
+    for (int st = 0; st < G::kStages; ++st) {
+      sm90::mbar_init(bar_full + 8 * st, 1);
+      sm90::mbar_init(bar_empty + 8 * st, 4 * NC);
+    }
+    sm90::mbar_init(bar_kv, 1);
+    sm90::fence_mbar_init();
+    sm90::mbar_expect_tx(bar_kv, 2 * BKV * G::kRow);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kj = k0 + row + 8 * i;
-    kin[i] = kj < Skv;
-    kp[i] = kin[i] ? kv_pos[(size_t)b * Skv + kj] : 0;
+    for (int i = 0; i < G::kBoxes; ++i) {
+      sm90::tma_load_4d(sK + i * BKV * RB, &tk, bar_kv, i * G::kBoxCols, hk,
+                        k0, b);
+      sm90::tma_load_4d(sV + i * BKV * RB, &tv, bar_kv, i * G::kBoxCols, hk,
+                        k0, b);
+    }
   }
-  // keys row, row + 8 (C layout: [0..1] row, [2..3] row + 8), columns
-  // 8 j + 2 t + {0, 1}
-  float acc_k[ND][4], acc_v[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+  row_ranges(kv_pos + (size_t)b * Skv, k0, BKV, Skv, red);
+  tile_ranges<BN>(q_pos + (size_t)b * Sq, Sq, qlo, qhi);
+  __syncthreads();
+  const int klo = min(min(red[0], red[1]), min(red[2], red[3]));
+  // q tile t is walked if a row of it may attend to a key of the CTA
+  auto walked = [&](int t) { return !causal || qhi[t] >= klo; };
 
-  const int nqt = (Sq + BQ - 1) / BQ;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = hk * G + gi;
-    for (int qt = 0; qt < nqt; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // the last step's readers are done
-      if (threadIdx.x < BQ) {
-        const int qi = q0 + threadIdx.x;
-        const size_t r = ((size_t)b * Sq + qi) * H + h;
-        qpos[threadIdx.x] = qi < Sq ? q_pos[(size_t)b * Sq + qi] : 0;
-        ls[threadIdx.x] = qi < Sq ? lse[r] : 0.f;
-        dl[threadIdx.x] = qi < Sq ? Dl[r] : 0.f;
-      }
-      __syncthreads();
-      // this thread's pairs: keys row, row + 8; q columns 8 n + 2 t + e
-      unsigned ok = 0;  // bit 4 n + 2 i + e
+  if (warp == 4 * NC) {  // the producer warp: lane 0 issues every load
+    if (lane == 0) {
+      int i = 0;
+      for (int g = 0; g < groups; ++g) {
+        const int h = hk * groups + g;
+        for (int t = 0; t < nqt; ++t) {
+          if (!walked(t)) continue;
+          const int st = i % G::kStages;
+          if (i >= G::kStages)  // the stage's previous tile is consumed
+            sm90::mbar_wait(bar_empty + 8 * st, (i / G::kStages - 1) & 1);
+          const uint32_t dst = sK + G::kKvRing + st * G::kKvStage;
+          const uint32_t full = bar_full + 8 * st;
+          sm90::mbar_expect_tx(full, G::kKvTx);
 #pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int qc = 8 * n + 2 * t + e;
-          const bool qin = q0 + qc < Sq;
-          const int qp = qpos[qc];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const bool o = qin && kin[i] && (!causal || kp[i] <= qp);
-            ok |= unsigned(o) << (4 * n + 2 * i + e);
+          for (int bx = 0; bx < G::kBoxes; ++bx) {
+            sm90::tma_load_4d(dst + bx * BN * RB, &tq, full,
+                              bx * G::kBoxCols, h, t * BN, b);
+            sm90::tma_load_4d(dst + BN * G::kRow + bx * BN * RB, &tdo, full,
+                              bx * G::kBoxCols, h, t * BN, b);
           }
-        }
-      if (!__syncthreads_or(ok != 0)) continue;
-      load_tile<D>(Qs, q, b, q0, BQ, Sq, H, h);
-      load_tile<D>(dOs, dout, b, q0, BQ, Sq, H, h);
-      __syncthreads();
-
-      float s[NQ][4], dp[NQ][4];
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        uint32_t ak[4], av[4];
-        frag_a<LD>(ak, Ks, row, 16 * kk + 2 * t);
-        frag_a<LD>(av, Vs, row, 16 * kk + 2 * t);
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          const bf16* qr = Qs + (8 * n + g) * LD + 16 * kk + 2 * t;
-          const bf16* dr = dOs + (8 * n + g) * LD + 16 * kk + 2 * t;
-          mma(s[n], ak, ld32(qr), ld32(qr + 8));
-          mma(dp[n], av, ld32(dr), ld32(dr + 8));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int e4 = 0; e4 < 4; ++e4) {
-          const int i = e4 >> 1, e = e4 & 1, qc = 8 * n + 2 * t + e;
-          const bool o = (ok >> (4 * n + 2 * i + e)) & 1u;
-          const float p = o ? expf(s[n][e4] * scale - ls[qc]) : 0.f;
-          s[n][e4] = p;
-          dp[n][e4] = p * (dp[n][e4] - dl[qc]);
-        }
-#pragma unroll
-      for (int kq = 0; kq < BQ / 16; ++kq) {
-        uint32_t ph[4], pl[4], sh[4], sl[4];
-        frag_split(ph, pl, s[2 * kq], s[2 * kq + 1]);
-        frag_split(sh, sl, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-        for (int j = 0; j < ND; ++j) {
-          const bf16* gr = dOs + (16 * kq + 2 * t) * LD + 8 * j + g;
-          const bf16* qr = Qs + (16 * kq + 2 * t) * LD + 8 * j + g;
-          const uint32_t g0 = col2<LD>(gr), g1 = col2<LD>(gr + 8 * LD);
-          const uint32_t q0b = col2<LD>(qr), q1b = col2<LD>(qr + 8 * LD);
-          mma(acc_v[j], ph, g0, g1);
-          mma(acc_v[j], pl, g0, g1);
-          mma(acc_k[j], sh, q0b, q1b);
-          mma(acc_k[j], sl, q0b, q1b);
+          sm90::tma_load_4d(dst + 2 * BN * G::kRow, &tld, full, t * BN, 0, h,
+                            b);
+          ++i;
         }
       }
     }
+    return;
   }
 
+  // ---- consumer cw (warps 4 cw..): keys kw0 + r0 and + 8
+  const int cw = warp / 4;
+  const int kw = kSplit ? 0 : 64 * cw;  // this consumer's first key row
+  const int r0 = 16 * (warp % 4) + lane / 4, c0 = 2 * (lane % 4);
+  const int kw0 = k0 + kw, kr0 = kw0 + r0, kr1 = kr0 + 8;
+  const bool kin0 = kr0 < Skv, kin1 = kr1 < Skv;
+  const int kp0 = kin0 ? kv_pos[(size_t)b * Skv + kr0] : 0;
+  const int kp1 = kin1 ? kv_pos[(size_t)b * Skv + kr1] : 0;
+  // the position range of this consumer's keys (warps kw / 32, + 1)
+  const int wlo = min(red[kw / 32], red[kw / 32 + 1]);
+  const int whi = max(red[4 + kw / 32], red[4 + kw / 32 + 1]);
+  const bool wany = kw0 < Skv, wall = kw0 + 64 <= Skv;
+  const float sl2e = scale * kLog2e;
+  const uint32_t k_rows = sK + kw * RB, v_rows = sV + kw * RB;
+  sm90::mbar_wait(bar_kv, 0);
+
+  // The walk of one consumer.  DV, DK: whether it adds dV and dK (both
+  // below D = 128; under the split consumer 0 adds dV, needing P^T only,
+  // and consumer 1 dK).  Compile-time, so that no wgmma sits on a branch
+  // ptxas cannot see to be warpgroup-uniform (it then serializes them).
+  auto walk = [&](auto dv_flag, auto dk_flag) {
+    constexpr bool DV = decltype(dv_flag)::value, DK = decltype(dk_flag)::value;
+    float acc_v[DV ? D / 2 : 1], acc_k[DK ? D / 2 : 1];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int kj = k0 + row + 8 * i;
-    if (kj >= Skv) continue;
-    const size_t base = (((size_t)b * Skv + kj) * Hkv + hk) * D + 2 * t;
+    for (int e = 0; e < (DV ? D / 2 : 1); ++e) acc_v[e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + base + 8 * j) = pack(
-          acc_k[j][2 * i] * scale, acc_k[j][2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + base + 8 * j) =
-          pack(acc_v[j][2 * i], acc_v[j][2 * i + 1]);
+    for (int e = 0; e < (DK ? D / 2 : 1); ++e) acc_k[e] = 0.f;
+    int i = 0;
+    for (int g = 0; g < groups; ++g) {
+      for (int t = 0; t < nqt; ++t) {
+        if (!walked(t)) continue;
+        const int st = i % G::kStages, q0 = t * BN;
+        // no key of this consumer meets a row of the tile (skip), or every
+        // pair is allowed (no per-element mask)
+        const bool skip = !wany || (causal && qhi[t] < wlo);
+        const bool full =
+            wall && q0 + BN <= Sq && (!causal || whi <= qlo[t]);
+        const uint32_t sQ = sK + G::kKvRing + st * G::kKvStage;
+        const uint32_t sdO = sQ + BN * G::kRow;
+        const float* ld = reinterpret_cast<const float*>(
+            base + G::kKvRing + st * G::kKvStage + 2 * BN * G::kRow);
+        sm90::mbar_wait(bar_full + 8 * st, (i / G::kStages) & 1);
+        if (!skip) {
+          // S^T = K Q^T and (for dK) dP^T = V dO^T
+          float s[BN / 2], dp[BN / 2];
+#pragma unroll
+          for (int e = 0; e < BN / 2; ++e) s[e] = dp[e] = 0.f;
+          sm90::fence_regs(s);
+          sm90::fence_regs(dp);
+          sm90::wgmma_fence();
+          ss_product<BN, D>(s, k_rows, BKV * RB, sQ, BN * RB);
+          if constexpr (DK)
+            ss_product<BN, D>(dp, v_rows, BKV * RB, sdO, BN * RB);
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(s);
+          sm90::fence_regs(dp);
+
+          // P^T = exp(S^T scale - lse) (0 where masked) into s, dS^T = P^T
+          // (dP^T - Dl) into dp, for q columns c = 8 j + c0 + e (the lse
+          // row is in log2 units)
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + c0 + e;
+              float p0 = ex2(fmaf(s[4 * j + e], sl2e, -ld[c]));
+              float p1 = ex2(fmaf(s[4 * j + 2 + e], sl2e, -ld[c]));
+              if (!full) {
+                const int qp = __float_as_int(ld[2 * BN + c]);
+                const bool qin = q0 + c < Sq;
+                p0 = qin && kin0 && (!causal || kp0 <= qp) ? p0 : 0.f;
+                p1 = qin && kin1 && (!causal || kp1 <= qp) ? p1 : 0.f;
+              }
+              s[4 * j + e] = p0;
+              s[4 * j + 2 + e] = p1;
+              if constexpr (DK) {
+                const float dl = ld[BN + c];
+                dp[4 * j + e] = p0 * (dp[4 * j + e] - dl);
+                dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl);
+              }
+            }
+          }
+
+          // dV += P^T dO, then dK += dS^T Q: k steps of 16 q rows, B
+          // MN-major (its 64-column boxes BN rows apart); each accumulator's
+          // products issued together
+          uint32_t ph[DV ? BN / 16 : 1][4], pl[DV ? BN / 16 : 1][4];
+          uint32_t sh[DK ? BN / 16 : 1][4], sl[DK ? BN / 16 : 1][4];
+#pragma unroll
+          for (int kk = 0; kk < BN / 16; ++kk) {
+            if constexpr (DV) split(ph[kk], pl[kk], s, kk);
+            if constexpr (DK) split(sh[kk], sl[kk], dp, kk);
+          }
+          sm90::fence_regs(acc_v);
+          sm90::fence_regs(acc_k);
+          sm90::wgmma_fence();
+          if constexpr (DV) {
+#pragma unroll
+            for (int kk = 0; kk < BN / 16; ++kk) {
+              const uint64_t bdo = sm90::desc(sdO + kk * 16 * RB, BN * RB,
+                                              G::kAtom, G::kSwizzle);
+              sm90::wgmma_rs<D>(acc_v, ph[kk], bdo);
+              sm90::wgmma_rs<D>(acc_v, pl[kk], bdo);
+            }
+          }
+          if constexpr (DK) {
+#pragma unroll
+            for (int kk = 0; kk < BN / 16; ++kk) {
+              const uint64_t bq = sm90::desc(sQ + kk * 16 * RB, BN * RB,
+                                             G::kAtom, G::kSwizzle);
+              sm90::wgmma_rs<D>(acc_k, sh[kk], bq);
+              sm90::wgmma_rs<D>(acc_k, sl[kk], bq);
+            }
+          }
+          sm90::wgmma_commit();
+          sm90::wgmma_wait_all();
+          sm90::fence_regs(acc_v);
+          sm90::fence_regs(acc_k);
+        }
+        if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // this warp
+        ++i;                                                    // is done
+      }
     }
-  }
+
+    // dK (scaled once) and dV in bf16, keys past Skv not written
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (!(r == 0 ? kin0 : kin1)) continue;
+        const size_t o =
+            (((size_t)b * Skv + (r == 0 ? kr0 : kr1)) * Hkv + hk) * D +
+            8 * j + c0;
+        if constexpr (DV)
+          store2(dv + o, acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+        if constexpr (DK)
+          store2(dk + o, acc_k[4 * j + 2 * r] * scale,
+                 acc_k[4 * j + 2 * r + 1] * scale);
+      }
+    }
+  };
+  using yes = std::true_type;
+  using no = std::false_type;
+  if constexpr (!kSplit)
+    walk(yes{}, yes{});
+  else if (cw == 0)
+    walk(yes{}, no{});
+  else
+    walk(no{}, yes{});
 }
 
-// S = Q K^T and dP = dO V^T for this warp's 16 q rows against a 64-key
-// tile, P and dS in place, dQ += dS K.
+// dQ of BR q rows of one q head.  A consumer thread holds rows r0 and
+// r0 + 8 of its 64, columns 8 j + c0 + {0, 1}.
 template <int D>
-__global__ void __launch_bounds__(NTC)
-flash_bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const int* __restrict__ q_pos,
-                 const int* __restrict__ kv_pos,
-                 const float* __restrict__ lse, const float* __restrict__ Dl,
-                 const bf16* __restrict__ dout, bf16* __restrict__ dq, int Sq,
-                 int Skv, int H, int Hkv, int causal, float scale) {
-  constexpr int LD = Geo<D>::LD, NK = 64 / 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // ROWS x LD
-  bf16* dOs = Qs + ROWS * LD;                     // ROWS x LD
-  bf16* Ks = dOs + ROWS * LD;                     // 64 x LD
-  bf16* Vs = Ks + 64 * LD;                        // 64 x LD
-  int* kpos = reinterpret_cast<int*>(Vs + 64 * LD);  // 64
+__global__ void __launch_bounds__(NT, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   const __grid_constant__ CUtensorMap tkp,
+                   const int* __restrict__ q_pos,
+                   const int* __restrict__ kv_pos,
+                   const float* __restrict__ scratch, bf16* __restrict__ dq,
+                   int Sq, int Skv, int H, int Hkv, int causal, float scale) {
+  using G = Geo<D>;
+  constexpr int RB = G::kRowBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* base = smem_raw + pad;
+  const uint32_t sQ = raw + pad, sdO = sQ + BR * G::kRow;
+  const uint32_t bar_full = sQ + G::kQBars;  // + 8 * stage
+  const uint32_t bar_empty = bar_full + 8 * G::kStages;
+  const uint32_t bar_q = bar_empty + 8 * G::kStages;
+  int* red = reinterpret_cast<int*>(base + G::kQRed);
+  const int nkt = (Skv + BK - 1) / BK;
+  int* klo = reinterpret_cast<int*>(base + G::kQRanges);
+  int* khi = klo + nkt;
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;  // last tile first
+  // grid (q heads x batch rows, q tiles): the last q tiles (the most key
+  // tiles, when causal) of every head launch first
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BR;
   const int hk = h / (H / Hkv);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, row = 16 * warp + g;
 
-  load_tile<D>(Qs, q, b, q0, ROWS, Sq, H, h);
-  load_tile<D>(dOs, dout, b, q0, ROWS, Sq, H, h);
-  int qp[2];
-  bool qin[2];
-  float lr[2], dlr[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + row + 8 * i;
-    const size_t r = ((size_t)b * Sq + qi) * H + h;
-    qin[i] = qi < Sq;
-    qp[i] = qin[i] ? q_pos[(size_t)b * Sq + qi] : 0;
-    lr[i] = qin[i] ? lse[r] : 0.f;
-    dlr[i] = qin[i] ? Dl[r] : 0.f;
-  }
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  const int nkt = (Skv + 63) / 64;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * 64;
-    __syncthreads();  // the last step's readers are done
-    if (threadIdx.x < 64) {
-      const int kj = k0 + threadIdx.x;
-      kpos[threadIdx.x] = kj < Skv ? kv_pos[(size_t)b * Skv + kj] : 0;
+  if (threadIdx.x == 0) {  // Q and dO at once; the ranges overlap them
+    for (int st = 0; st < G::kStages; ++st) {
+      sm90::mbar_init(bar_full + 8 * st, 1);
+      sm90::mbar_init(bar_empty + 8 * st, 4 * NC);
     }
-    __syncthreads();
-    unsigned ok = 0;  // bit 4 n + 2 i + e: row + 8 i, key 8 n + 2 t + e
+    sm90::mbar_init(bar_q, 1);
+    sm90::fence_mbar_init();
+    sm90::mbar_expect_tx(bar_q, 2 * BR * G::kRow);
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+    for (int i = 0; i < G::kBoxes; ++i) {
+      sm90::tma_load_4d(sQ + i * BR * RB, &tq, bar_q, i * G::kBoxCols, h,
+                        q0, b);
+      sm90::tma_load_4d(sdO + i * BR * RB, &tdo, bar_q, i * G::kBoxCols, h,
+                        q0, b);
+    }
+  }
+  row_ranges(q_pos + (size_t)b * Sq, q0, BR, Sq, red);
+  tile_ranges<BK>(kv_pos + (size_t)b * Skv, Skv, klo, khi);
+  __syncthreads();
+  const int qhi = max(max(red[4], red[5]), max(red[6], red[7]));
+  // key tile t is walked if a row of the CTA may attend to a key of it
+  auto walked = [&](int t) { return !causal || klo[t] <= qhi; };
+
+  if (warp == 4 * NC) {  // the producer warp: lane 0 issues every load
+    if (lane == 0) {
+      int i = 0;
+      for (int t = 0; t < nkt; ++t) {
+        if (!walked(t)) continue;
+        const int st = i % G::kStages;
+        if (i >= G::kStages)  // the stage's previous tile is consumed
+          sm90::mbar_wait(bar_empty + 8 * st, (i / G::kStages - 1) & 1);
+        const uint32_t dst = sQ + G::kQRing + st * G::kQStage;
+        const uint32_t full = bar_full + 8 * st;
+        sm90::mbar_expect_tx(full, G::kQTx);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kc = 8 * n + 2 * t + e;
-        const bool kin = k0 + kc < Skv;
-        const int kpv = kpos[kc];
+        for (int bx = 0; bx < G::kBoxes; ++bx) {
+          sm90::tma_load_4d(dst + bx * BK * RB, &tk, full, bx * G::kBoxCols,
+                            hk, t * BK, b);
+          sm90::tma_load_4d(dst + BK * G::kRow + bx * BK * RB, &tv, full,
+                            bx * G::kBoxCols, hk, t * BK, b);
+        }
+        sm90::tma_load_4d(dst + 2 * BK * G::kRow, &tkp, full, t * BK, b, 0,
+                          0);
+        ++i;
+      }
+    }
+    return;
+  }
+
+  // ---- consumer cw (warps 4 cw..): q rows qi0 = qw0 + r0 and qi0 + 8
+  const int cw = warp / 4;
+  const int r0 = 16 * (warp % 4) + lane / 4, c0 = 2 * (lane % 4);
+  const int qw0 = q0 + 64 * cw, qi0 = qw0 + r0, qi1 = qi0 + 8;
+  const bool qin0 = qi0 < Sq, qin1 = qi1 < Sq;
+  const int qp0 = qin0 ? q_pos[(size_t)b * Sq + qi0] : 0;
+  const int qp1 = qin1 ? q_pos[(size_t)b * Sq + qi1] : 0;
+  const int Sqp = pad64(Sq);
+  // this head's rows of the scratch: lse in log2 units, then Dl
+  const float* lrow = scratch + ((size_t)b * H + h) * 3 * Sqp;
+  const float l2_0 = qin0 ? lrow[qi0] : 0.f, l2_1 = qin1 ? lrow[qi1] : 0.f;
+  const float dl0 = qin0 ? lrow[Sqp + qi0] : 0.f;
+  const float dl1 = qin1 ? lrow[Sqp + qi1] : 0.f;
+  // the position range of this consumer's rows (warps 2 cw, 2 cw + 1)
+  const int wlo = min(red[2 * cw], red[2 * cw + 1]);
+  const int whi = max(red[4 + 2 * cw], red[4 + 2 * cw + 1]);
+  const bool wany = qw0 < Sq, wall = qw0 + 64 <= Sq;
+  const float sl2e = scale * kLog2e;
+  const uint32_t q_rows = sQ + 64 * cw * RB, do_rows = sdO + 64 * cw * RB;
+
+  float acc[D / 2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const bool o = qin[i] && kin && (!causal || kpv <= qp[i]);
-          ok |= unsigned(o) << (4 * n + 2 * i + e);
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  sm90::mbar_wait(bar_q, 0);
+  int i = 0;
+  for (int t = 0; t < nkt; ++t) {
+    if (!walked(t)) continue;
+    const int st = i % G::kStages, k0 = t * BK;
+    const bool skip = !wany || (causal && klo[t] > whi);
+    const bool full = wall && k0 + BK <= Skv && (!causal || khi[t] <= wlo);
+    const uint32_t sK = sQ + G::kQRing + st * G::kQStage;
+    const uint32_t sV = sK + BK * G::kRow;
+    const int* kvp = reinterpret_cast<const int*>(
+        base + G::kQRing + st * G::kQStage + 2 * BK * G::kRow);
+    sm90::mbar_wait(bar_full + 8 * st, (i / G::kStages) & 1);
+
+    if (!skip) {
+      // S = Q K^T, dP = dO V^T
+      float s[BK / 2], dp[BK / 2];
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) s[e] = dp[e] = 0.f;
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      sm90::wgmma_fence();
+      ss_product<BK, D>(s, q_rows, BR * RB, sK, BK * RB);
+      ss_product<BK, D>(dp, do_rows, BR * RB, sV, BK * RB);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(s);
+      sm90::fence_regs(dp);
+      // dS = P (dP - Dl), P = exp(S scale - lse) (0 where masked), for
+      // keys c = 8 j + c0 + e
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p0 = ex2(fmaf(s[4 * j + e], sl2e, -l2_0));
+          float p1 = ex2(fmaf(s[4 * j + 2 + e], sl2e, -l2_1));
+          if (!full) {
+            const int c = 8 * j + c0 + e, kp = kvp[c];
+            const bool kin = k0 + c < Skv;
+            p0 = qin0 && kin && (!causal || kp <= qp0) ? p0 : 0.f;
+            p1 = qin1 && kin && (!causal || kp <= qp1) ? p1 : 0.f;
+          }
+          dp[4 * j + e] = p0 * (dp[4 * j + e] - dl0);
+          dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl1);
         }
       }
-    if (!__syncthreads_or(ok != 0)) continue;
-    load_tile<D>(Ks, k, b, k0, 64, Skv, Hkv, hk);
-    load_tile<D>(Vs, v, b, k0, 64, Skv, Hkv, hk);
-    __syncthreads();
 
-    float s[NK][4], dp[NK][4];
+      // dQ += dS K: k steps of 16 keys, K MN-major (its 64-column boxes BK
+      // rows apart)
+      uint32_t sh[BK / 16][4], sl[BK / 16][4];
 #pragma unroll
-    for (int n = 0; n < NK; ++n)
+      for (int kk = 0; kk < BK / 16; ++kk) split(sh[kk], sl[kk], dp, kk);
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t aq[4], ag[4];
-      frag_a<LD>(aq, Qs, row, 16 * kk + 2 * t);
-      frag_a<LD>(ag, dOs, row, 16 * kk + 2 * t);
-#pragma unroll
-      for (int n = 0; n < NK; ++n) {
-        const bf16* kr = Ks + (8 * n + g) * LD + 16 * kk + 2 * t;
-        const bf16* vr = Vs + (8 * n + g) * LD + 16 * kk + 2 * t;
-        mma(s[n], aq, ld32(kr), ld32(kr + 8));
-        mma(dp[n], ag, ld32(vr), ld32(vr + 8));
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t bk = sm90::desc(sK + kk * 16 * RB, BK * RB, G::kAtom,
+                                       G::kSwizzle);
+        sm90::wgmma_rs<D>(acc, sh[kk], bk);
+        sm90::wgmma_rs<D>(acc, sl[kk], bk);
       }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(acc);
     }
-#pragma unroll
-    for (int n = 0; n < NK; ++n)
-#pragma unroll
-      for (int e4 = 0; e4 < 4; ++e4) {
-        const int i = e4 >> 1, e = e4 & 1;
-        const bool o = (ok >> (4 * n + 2 * i + e)) & 1u;
-        const float p = o ? expf(s[n][e4] * scale - lr[i]) : 0.f;
-        dp[n][e4] = p * (dp[n][e4] - dlr[i]);
-      }
-#pragma unroll
-    for (int kq = 0; kq < 4; ++kq) {
-      uint32_t sh[4], sl[4];
-      frag_split(sh, sl, dp[2 * kq], dp[2 * kq + 1]);
-#pragma unroll
-      for (int j = 0; j < ND; ++j) {
-        const bf16* kr = Ks + (16 * kq + 2 * t) * LD + 8 * j + g;
-        const uint32_t k0b = col2<LD>(kr), k1b = col2<LD>(kr + 8 * LD);
-        mma(acc[j], sh, k0b, k1b);
-        mma(acc[j], sl, k0b, k1b);
-      }
-    }
+    if (lane == 0) sm90::mbar_arrive(bar_empty + 8 * st);  // this warp is
+    ++i;                                                    // done with it
   }
 
+  // dQ (scaled once) in bf16, rows past Sq not written
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + row + 8 * i;
-    if (qi >= Sq) continue;
-    bf16* o = dq + (((size_t)b * Sq + qi) * H + h) * D + 2 * t;
-#pragma unroll
-    for (int j = 0; j < ND; ++j)
-      *reinterpret_cast<uint32_t*>(o + 8 * j) =
-          pack(acc[j][2 * i] * scale, acc[j][2 * i + 1] * scale);
+  for (int j = 0; j < D / 8; ++j) {
+    if (qin0)
+      store2(dq + (((size_t)b * Sq + qi0) * H + h) * D + 8 * j + c0,
+             acc[4 * j] * scale, acc[4 * j + 1] * scale);
+    if (qin1)
+      store2(dq + (((size_t)b * Sq + qi1) * H + h) * D + 8 * j + c0,
+             acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
   }
 }
 
+// The 4-D map {D, heads, rows, B} (innermost first) of a contiguous bf16
+// tensor (B, rows, heads, D), read in boxes of {<=64, 1, box_rows, 1} with
+// the 128-byte swizzle (64-byte at D = 32); rows past `rows` arrive as
+// zeros.  TMA needs a 16-byte-aligned base; the wrapper checks it.
+cudaError_t make_map(CUtensorMap* map, const void* ptr, int D, int heads,
+                     int rows, int B, int box_rows) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = sm90::map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {cuuint64_t(D), cuuint64_t(heads),
+                              cuuint64_t(rows), cuuint64_t(B)};
+  const cuuint64_t strides[3] = {cuuint64_t(D) * 2,
+                                 cuuint64_t(heads) * D * 2,
+                                 cuuint64_t(rows) * heads * D * 2};
+  const cuuint32_t box[4] = {cuuint32_t(D < 64 ? D : 64), 1,
+                             cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The 4-D map of contiguous 32-bit words of extents `dims` (innermost
+// first, the innermost a multiple of 64: the scratch's padded rows), read
+// in boxes of {box0, box1, 1, 1} without swizzle.
+cudaError_t make_map32(CUtensorMap* map, const void* ptr,
+                       CUtensorMapDataType type, const int (&dims)[4],
+                       int box0, int box1) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = sm90::map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t ext[4] = {cuuint64_t(dims[0]), cuuint64_t(dims[1]),
+                             cuuint64_t(dims[2]), cuuint64_t(dims[3])};
+  const cuuint64_t strides[3] = {ext[0] * 4, ext[0] * ext[1] * 4,
+                                 ext[0] * ext[1] * ext[2] * 4};
+  const cuuint32_t box[4] = {cuuint32_t(box0), cuuint32_t(box1), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, type, 4, const_cast<void*>(ptr), ext, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The dK/dV and dQ launches, after the preprocess has filled `scratch`.
 template <int D>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
-                   const int* q_pos, const int* kv_pos, const float* lse,
-                   const float* Dl, const bf16* dout, bf16* dq, bf16* dk,
-                   bf16* dv, int B, int Sq, int Skv, int H, int Hkv,
-                   int causal, float scale, cudaStream_t stream) {
-  constexpr int LD = Geo<D>::LD, BQ = Geo<D>::BQ;
-  const size_t smem_kv = 2 * (2 * ROWS * LD + 2 * BQ * LD) + 3 * 4 * BQ;
-  auto kern_kv = flash_bwd_dkdv_mma<D>;
-  cudaError_t err = rt::allow_smem(kern_kv, smem_kv);
+                   const int* q_pos, const int* kv_pos, const bf16* dout,
+                   float* scratch, bf16* dq, bf16* dk, bf16* dv, int B,
+                   int Sq, int Skv, int H, int Hkv, int causal, float scale,
+                   cudaStream_t stream) {
+  using G = Geo<D>;
+  if (Sq > G::max_len() || Skv > G::max_len()) return cudaErrorInvalidValue;
+  const int Sqp = pad64(Sq), Skvp = pad64(Skv);
+  CUtensorMap tq, tdo, tk, tv, tld, tq2, tdo2, tk2, tv2, tkp;
+  cudaError_t err = make_map(&tq, q, D, H, Sq, B, G::BN);
+  if (err == cudaSuccess) err = make_map(&tdo, dout, D, H, Sq, B, G::BN);
+  if (err == cudaSuccess) err = make_map(&tk, k, D, Hkv, Skv, B, G::BKV);
+  if (err == cudaSuccess) err = make_map(&tv, v, D, Hkv, Skv, B, G::BKV);
+  if (err == cudaSuccess)
+    err = make_map32(&tld, scratch, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                     {Sqp, 3, H, B}, G::BN, 3);
+  if (err == cudaSuccess) err = make_map(&tq2, q, D, H, Sq, B, BR);
+  if (err == cudaSuccess) err = make_map(&tdo2, dout, D, H, Sq, B, BR);
+  if (err == cudaSuccess) err = make_map(&tk2, k, D, Hkv, Skv, B, BK);
+  if (err == cudaSuccess) err = make_map(&tv2, v, D, Hkv, Skv, B, BK);
+  if (err == cudaSuccess)
+    err = make_map32(&tkp, scratch + 3LL * B * H * Sqp,
+                     CU_TENSOR_MAP_DATA_TYPE_INT32, {Skvp, B, 1, 1}, BK, 1);
   if (err != cudaSuccess) return err;
-  kern_kv<<<dim3((Skv + ROWS - 1) / ROWS, Hkv, B), NTC, smem_kv, stream>>>(
-      q, k, v, q_pos, kv_pos, lse, Dl, dout, dk, dv, Sq, Skv, H, Hkv, causal,
+
+  const size_t smem_kv = G::smem_kv((Sq + G::BN - 1) / G::BN);
+  auto kern_kv = flash_bwd_dkdv_wgmma<D>;
+  err = rt::allow_smem(kern_kv, smem_kv);
+  if (err != cudaSuccess) return err;
+  kern_kv<<<dim3(Hkv * B, (Skv + G::BKV - 1) / G::BKV), NT, smem_kv,
+              stream>>>(
+      tq, tdo, tk, tv, tld, q_pos, kv_pos, dk, dv, Sq, Skv, H, Hkv, causal,
       scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem_q = 2 * (2 * ROWS * LD + 2 * 64 * LD) + 4 * 64;
-  auto kern_q = flash_bwd_dq_mma<D>;
+
+  const size_t smem_q = G::smem_q((Skv + BK - 1) / BK);
+  auto kern_q = flash_bwd_dq_wgmma<D>;
   err = rt::allow_smem(kern_q, smem_q);
   if (err != cudaSuccess) return err;
-  kern_q<<<dim3((Sq + ROWS - 1) / ROWS, H, B), NTC, smem_q, stream>>>(
-      q, k, v, q_pos, kv_pos, lse, Dl, dout, dq, Sq, Skv, H, Hkv, causal,
-      scale);
+  kern_q<<<dim3(H * B, (Sq + BR - 1) / BR), NT, smem_q, stream>>>(
+      tq2, tdo2, tk2, tv2, tkp, q_pos, kv_pos, scratch, dq, Sq, Skv, H, Hkv,
+      causal, scale);
   return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace wg
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
@@ -769,20 +1200,33 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
+  const T* ot = static_cast<const T*>(out);
   const T* gt = static_cast<const T*>(dout);
 
-  const long long rows = (long long)B * Sq * H;
-  flash_bwd_preprocess<T, D><<<(unsigned)((rows + NT / 32 - 1) / (NT / 32)),
-                               NT, 0, stream>>>(static_cast<const T*>(out),
-                                                gt, Dl, rows);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
-    return tc::launch<D>(qt, kt, vt, q_pos, kv_pos, lse, Dl, gt,
+    const long long rows = (long long)B * H * pad64(Sq);
+    const long long kvs = (long long)B * pad64(Skv);
+    constexpr int RPB = NT / (D / 8);  // rows a block
+    const long long br = (rows + RPB - 1) / RPB, bk = (kvs + NT - 1) / NT;
+    const long long blocks = br > bk ? br : bk;
+    flash_bwd_preprocess<T, D, true><<<dim3((unsigned)blocks, 2), NT, 0,
+                                       stream>>>(ot, gt, lse, q_pos, kv_pos,
+                                                 Dl, B, Sq, Skv, H);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return wg::launch<D>(qt, kt, vt, q_pos, kv_pos, gt, Dl,
                          static_cast<T*>(dq), static_cast<T*>(dk),
                          static_cast<T*>(dv), B, Sq, Skv, H, Hkv, causal,
                          scale, stream);
   } else {
+    const long long rows = (long long)B * Sq * H;
+    constexpr int WB = NT / 32;  // rows (warps) a block
+    flash_bwd_preprocess<T, D, false><<<(unsigned)((rows + WB - 1) / WB), NT,
+                                        0, stream>>>(ot, gt, lse, q_pos,
+                                                     kv_pos, Dl, B, Sq, Skv,
+                                                     H);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
     const size_t smem_kv =
         sizeof(float) * (2 * BK * DP + 2 * BQ * DP + 2 * BQ * PS);
     auto kern_kv = flash_bwd_dkdv_simt<T, D>;
@@ -826,8 +1270,21 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// The most q rows (Sq) and keys (Skv) the bf16 route takes at head dim D:
+// its tile ranges, 8 bytes a tile, share each CTA's 227 KiB of shared
+// memory with the tiles it keeps and its ring.  0 for a head dim the kernel
+// is not instantiated for.
+extern "C" int repro_flash_bwd_max_len(int D) {
+  if (D == 32) return wg::Geo<32>::max_len();
+  if (D == 64) return wg::Geo<64>::max_len();
+  if (D == 128) return wg::Geo<128>::max_len();
+  return 0;
+}
+
 // Returns the CUDA error of the three launches (0 on success).  D is the
-// head dim of q, k and v alike; Dl is fp32 scratch of B * Sq * H.
+// head dim of q, k and v alike.  Dl is fp32 scratch: B * Sq * H for fp32;
+// 3 * B * H * Sqp + B * Skvp for bf16, Sqp and Skvp being Sq and Skv
+// rounded up to a multiple of 64 (16-byte aligned, as TMA reads it).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* kv_pos, const void* out, const void* lse, const void* dout,

@@ -6,12 +6,14 @@
 For CUDA tensors it checks them, launches the kernel's three launches
 (preprocess, dK/dV, dQ) on the current stream, raises if a launch
 failed and counts the call once in ``kernels.LAUNCHES`` and, by route,
-in ``ROUTE_LAUNCHES``: "mma" for bf16 inputs (the products on the
-tensor cores, ``mma.sync``, fp32 sums; bf16 bases must be 16-byte
-aligned), "simt" for fp32 inputs (the CUDA cores).  A window or a softcap, which the plain version takes, is
-refused on the card (``ValueError``); it never falls back to the plain
-version.  ``kernels/flash_attention/ops.py::FlashAttentionFn`` calls it
-from autograd.
+in ``ROUTE_LAUNCHES``: "wgmma" for bf16 inputs (the products on the
+tensor cores by ``wgmma``, the tiles brought by TMA, fp32 sums; q, k, v,
+out and dout must start on a 16-byte boundary, and Sq and Skv may not pass
+``max_len``), "simt" for fp32 inputs (the CUDA cores).  A window or a
+softcap, which the plain version takes, is refused on the card
+(``ValueError``); it never falls back to the plain version.
+``kernels/flash_attention/ops.py::FlashAttentionFn`` calls it from
+autograd.
 """
 from __future__ import annotations
 
@@ -28,19 +30,40 @@ NAME = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims the kernel is instantiated for (q, k and v alike)
 HEAD_DIMS = (32, 64, 128)
-_ROUTES = {torch.float32: "simt", torch.bfloat16: "mma"}
+_ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 _LIB = None
 
 # calls by route since the last reset_routes()
-ROUTE_LAUNCHES = {"simt": 0, "mma": 0}
+ROUTE_LAUNCHES = {"simt": 0, "wgmma": 0}
 
 
 def route(dtype) -> str:
     """The kernel route of a storage type: "simt" (fp32, CUDA cores) or
-    "mma" (bf16, tensor cores)."""
+    "wgmma" (bf16, tensor cores)."""
     if dtype not in _ROUTES:
         raise TypeError(f"{NAME}: no route for {dtype}")
     return _ROUTES[dtype]
+
+
+def max_len(D: int) -> int:
+    """The most q rows (Sq) and keys (Skv) the bf16 route takes at head
+    dim ``D``, as the built kernel computes it (``repro_flash_bwd_max_len``):
+    the least and greatest position of each tile it walks, 8 bytes a tile,
+    share each CTA's 227 KiB of shared memory with its tiles and its ring.
+    ~237K at D = 128."""
+    return _lib().repro_flash_bwd_max_len(D)
+
+
+def scratch_len(dtype, B: int, Sq: int, Skv: int, H: int) -> int:
+    """fp32 words of the kernel's scratch: Dl (B, Sq, H) on the fp32 route;
+    on the bf16 route, for each (batch row, q head) the rows' lse, Dl and q
+    positions side by side, (B, H, 3, Sqp), then the kv positions (B,
+    Skvp), Sqp and Skvp being Sq and Skv rounded up to a multiple of 64 (so
+    that every row TMA reads starts on a 16-byte boundary)."""
+    if route(dtype) == "simt":
+        return B * Sq * H
+    pad = lambda n: -(-n // 64) * 64
+    return 3 * B * H * pad(Sq) + B * pad(Skv)
 
 
 def reset_routes() -> None:
@@ -56,10 +79,16 @@ def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, dout, *,
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a loaded library:
+    ``repro_flash_attention_bwd`` and, where the library has it (not
+    before the wgmma route), ``repro_flash_bwd_max_len``."""
     fn = lib.repro_flash_attention_bwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    if hasattr(lib, "repro_flash_bwd_max_len"):
+        lib.repro_flash_bwd_max_len.restype = ctypes.c_int
+        lib.repro_flash_bwd_max_len.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -112,12 +141,6 @@ def _check(q, k, v, q_pos, kv_pos, out, lse, dout, window, softcap):
     Skv, Hkv = k.shape[1], k.shape[2]
     if k.shape[0] != B or H % Hkv:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if route(q.dtype) == "mma":
-        for name, t in (("q", q), ("k", k), ("v", v), ("dout", dout)):
-            if t.data_ptr() % 16:
-                raise ValueError(f"{NAME}: bf16 {name} must start on a "
-                                 f"16-byte boundary (16-byte tile loads), "
-                                 f"its address is {t.data_ptr():#x}")
     if out.shape != q.shape or dout.shape != q.shape or \
             lse.shape != (B, Sq, H):
         raise ValueError(f"{NAME}: out {tuple(out.shape)}, dout "
@@ -128,6 +151,25 @@ def _check(q, k, v, q_pos, kv_pos, out, lse, dout, window, softcap):
         raise ValueError(f"{NAME}: positions {tuple(q_pos.shape)}, "
                          f"{tuple(kv_pos.shape)} vs q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
+    if route(q.dtype) == "wgmma":
+        # TMA reads q, k, v and dout in tiles, the preprocess out and dout
+        # 16 bytes a lane: each base on a 16-byte boundary (the row strides,
+        # H * D * 2 and Hkv * D * 2 bytes, are multiples of 16 at every head
+        # dim of HEAD_DIMS)
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                        ("dout", dout)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{NAME}: bf16 {name} must start on a "
+                                 f"16-byte boundary (TMA and 16-byte loads "
+                                 f"read its tiles), its address is "
+                                 f"{t.data_ptr():#x}")
+        limit = max_len(D)
+        if max(Sq, Skv) > limit:
+            raise ValueError(f"{NAME}: bf16 takes at most {limit} q rows "
+                             f"and keys at head dim {D} (each CTA keeps "
+                             f"the position range of every tile it walks "
+                             f"in its 227 KiB of shared memory), got Sq "
+                             f"{Sq}, Skv {Skv}")
 
 
 def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
@@ -156,14 +198,15 @@ def launch(lib, q, k, v, q_pos, kv_pos, out, lse, dout, *, causal):
     B, Sq, H, D = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    dl = torch.empty((B, Sq, H), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(scratch_len(q.dtype, B, Sq, Skv, H),
+                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dl.data_ptr(), B, Sq, Skv, H, Hkv, D, int(bool(causal)),
+            scratch.data_ptr(), B, Sq, Skv, H, Hkv, D, int(bool(causal)),
             1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")

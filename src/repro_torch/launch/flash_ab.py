@@ -2,7 +2,8 @@
 turns.
 
     PYTHONPATH=src python -m repro_torch.launch.flash_ab --other DIR \
-        [--kernel {flash_attention,paged_attention,moe_gemm,fused_sampling}]
+        [--kernel {flash_attention,flash_attention_bwd,paged_attention,
+                   moe_gemm,fused_sampling}]
 
 DIR is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -10,7 +11,13 @@ parent commit, unpacked with ``git archive`` into a directory that
 with this checkout's nvcc flags beside this checkout's own kernel; both
 are called through the same C entry point on the same inputs (random, from
 seed 0).  ``--kernel flash_attention`` (the default) runs the bf16 causal
-prefill shapes that ``chip_smoke.py`` times; ``--kernel paged_attention``
+prefill shapes that ``chip_smoke.py`` times; ``--kernel
+flash_attention_bwd`` the backward at ``chip_smoke.py`` phase 3's three
+bf16 causal training shapes (``BWD_SHAPES``; out and lse from this
+checkout's forward), holding the two checkouts' (dq, dk, dv) to each other
+with phase 3's tolerance (``bwd_tol``), its "alone" time the sum over the
+library's own bf16 ``__global__`` functions, read from its source (the
+preprocess, dK/dV and dQ kernels); ``--kernel paged_attention``
 the four bf16 decode shapes it times (``PAGED_SHAPES``: the serving path's
 slot cache as a page-16 pool view with the identity table);
 ``--kernel moe_gemm`` the grouped expert GEMM at Qwen3-30B-A3B's decode
@@ -55,12 +62,17 @@ from repro_torch.kernels import build
 from repro_torch.launch.profile import KERNEL_ENTRIES
 from repro_torch.launch.timing import Timer
 
-KERNELS = ("flash_attention", "paged_attention", "moe_gemm",
-           "fused_sampling")
+KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention",
+           "moe_gemm", "fused_sampling")
 # (B, S, H, Hkv, D): Llama-3.2-1B's 4 x 512 and 8 x 256 prefill batches,
 # Qwen3-30B-A3B's 8 x 256, and one 2048-token prompt
 SHAPES = [(4, 512, 32, 8, 64), (8, 256, 32, 8, 64), (8, 256, 32, 4, 128),
           (1, 2048, 32, 8, 64)]
+# (B, S, H, Hkv, D): the backward's training shapes, chip_smoke.py's
+# TRAIN_FLASH: SmolLM-360M's and Llama-3.2-1B's heads at 4096 tokens, and
+# heads of 128 at 2048
+BWD_SHAPES = [(8, 4096, 15, 5, 64), (4, 4096, 32, 8, 64),
+              (4, 2048, 32, 4, 128)]
 # (B, max_len, H, Hkv, D, lengths): Llama-3.2-1B's dense decode (8 slots of
 # a 2048-token cache), Qwen3-30B-A3B's monolithic decode and its attention
 # sub-batch at b_attn = 4, and the prefix-hit tail (batch 1, a cache of
@@ -243,6 +255,42 @@ def _flash_cases(gen, dev):
                    lib, *a, causal=True, window=0, softcap=0.0))
 
 
+def _bwd_cases(gen, dev):
+    """(shape, call(lib)) at each backward shape: random q, k, v, dout;
+    out and lse from this checkout's forward kernel."""
+    ops = _ops("flash_attention_bwd")
+    fwd = _ops("flash_attention")
+    for B, S, H, Hkv, D in BWD_SHAPES:
+        q = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((B, S, Hkv, D), generator=gen, device=dev)
+                .bfloat16() for _ in range(2))
+        dout = torch.randn((B, S, H, D), generator=gen, device=dev).bfloat16()
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None] \
+            .expand(B, S).contiguous()
+        out, lse = fwd.flash_attention_lse(q, k, v, pos, pos)
+        args = (q, k, v, pos, pos, out, lse, dout)
+        ops._check(*args, 0, 0.0)
+        yield (f"B{B} S{S} H{H}/{Hkv} D{D} causal",
+               lambda lib, a=args: ops.launch(lib, *a, causal=True))
+
+
+def bwd_tol(wants) -> dict:
+    """chip_smoke.py phase 3's bf16 tolerance of the backward, tied to the
+    scale of its three gradients: atol min(2e-2, 0.05 x their rms), rtol
+    2e-2 (one bf16 rounding of each gradient)."""
+    rms = math.sqrt(sum(w.float().pow(2).sum().item() for w in wants)
+                    / sum(w.numel() for w in wants))
+    return dict(atol=min(2e-2, 0.05 * rms), rtol=2e-2)
+
+
+def bf16_entries(src: Path) -> tuple:
+    """The ``__global__`` functions of a ``flash_attention_bwd.cu`` that a
+    bf16 call launches: all but the fp32 route's (``*_simt``)."""
+    names = re.findall(r"__global__\s+void\s+(?:__\w+__\([^)]*\)\s*)*"
+                       r"(\w+)\s*\(", src.read_text())
+    return tuple(n for n in names if not n.endswith("_simt"))
+
+
 def _paged_cases(gen, dev):
     """(shape, call(lib)) at each paged shape."""
     ops = _ops("paged_attention")
@@ -305,6 +353,14 @@ def _difference(got, want) -> dict:
     absolute difference of a tensor; for the sampler's dict, the outputs
     whose bits differ and the largest relative difference of l / l_raw
     (raises where SAMPLING_EXACT or SAMPLING_RTOL does not hold)."""
+    if isinstance(got, tuple):  # the backward's (dq, dk, dv)
+        tol = bwd_tol(want)
+        for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+            if not torch.allclose(g.float(), w.float(), **tol):
+                raise AssertionError(f"flash_attention_bwd: {name} differs "
+                                     f"from the other kernel's past {tol}")
+        return dict(max_abs_diff=max((g.float() - w.float()).abs().max()
+                                     .item() for g, w in zip(got, want)))
     if not isinstance(got, dict):
         return dict(max_abs_diff=(got.float() - want.float()).abs().max()
                     .item())
@@ -340,10 +396,20 @@ def compare(other: Path, kernel: str = "flash_attention") -> list:
         raise ValueError(f"flash_ab: no A/B for {kernel}, only {KERNELS}")
     dev = torch.device("cuda", 0)
     libs = {"this": _ops(kernel)._lib(), "other": build_other(other, kernel)}
+    # the kernels timed alone, each group's median summed: the backward's
+    # three launches one by one, by each library's own names
+    groups = {name: (KERNEL_ENTRIES[kernel],) for name in libs}
+    if kernel == "flash_attention_bwd":
+        here = Path(__file__).resolve().parents[3]
+        groups = {name: tuple((e,) for e in bf16_entries(
+            root / "src" / "repro_torch" / "csrc" / f"{kernel}.cu"))
+            for name, root in (("this", here), ("other", other))}
     timer = Timer(dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = {"flash_attention": _flash_cases, "paged_attention": _paged_cases,
-             "moe_gemm": _gemm_cases, "fused_sampling": _sampling_cases}[kernel]
+    cases = {"flash_attention": _flash_cases,
+             "flash_attention_bwd": _bwd_cases,
+             "paged_attention": _paged_cases, "moe_gemm": _gemm_cases,
+             "fused_sampling": _sampling_cases}[kernel]
     rows = []
     for shape, fn in cases(gen, dev):
         def call(name):
@@ -355,8 +421,8 @@ def compare(other: Path, kernel: str = "flash_attention") -> list:
         for name in ("other", "this", "this", "other"):
             times[name].append(timer(lambda: call(name)))
         for name in ("other", "this", "this", "other"):
-            alone[name].append(timer.kernel_ms(lambda: call(name),
-                                               KERNEL_ENTRIES[kernel]))
+            alone[name].append(sum(timer.kernel_ms(lambda: call(name), g)
+                                   for g in groups[name]))
         rows.append(dict(shape=shape, other_ms=times["other"],
                          this_ms=times["this"],
                          other_kernel_ms=alone["other"],

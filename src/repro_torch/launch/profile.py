@@ -50,8 +50,8 @@ from repro_torch.sampling import SamplingParams
 KERNEL_ENTRIES = {
     "flash_attention": ("flash_fwd_kernel", "flash_fwd_wgmma"),
     "flash_attention_bwd": ("flash_bwd_preprocess", "flash_bwd_dkdv_simt",
-                            "flash_bwd_dq_simt", "flash_bwd_dkdv_mma",
-                            "flash_bwd_dq_mma"),
+                            "flash_bwd_dq_simt", "flash_bwd_dkdv_wgmma",
+                            "flash_bwd_dq_wgmma"),
     "paged_attention": ("paged_split_kernel",),
     "fused_sampling": ("fused_sample_kernel",),
     "moe_gemm": ("grouped_gemm_kernel", "grouped_gemm_wgmma"),

@@ -377,6 +377,23 @@ def test_flash_ab_against_itself(dev):
         assert min(r["this_ms"] + r["other_ms"]) > 0
 
 
+def test_bwd_ab_against_itself(dev):
+    """The same tool for the backward (``--kernel flash_attention_bwd``):
+    equal bits at its three training shapes, and every time, through the
+    wrapper and alone (its three kernels summed), a positive reading."""
+    from repro_torch.launch import flash_ab
+    rows = flash_ab.compare(Path(__file__).resolve().parents[1],
+                            kernel="flash_attention_bwd")
+    assert [r["shape"] for r in rows] == [
+        f"B{B} S{S} H{H}/{Hkv} D{D} causal"
+        for B, S, H, Hkv, D in flash_ab.BWD_SHAPES]
+    for r in rows:
+        assert r["max_abs_diff"] == 0.0
+        assert len(r["this_kernel_ms"]) == len(r["other_kernel_ms"]) == 2
+        assert min(r["this_ms"] + r["other_ms"] + r["this_kernel_ms"]
+                   + r["other_kernel_ms"]) > 0
+
+
 def test_paged_ab_against_itself(dev):
     """The same tool for the decode kernel (``--kernel paged_attention``):
     equal bits and positive readings at its four shapes."""
@@ -1183,6 +1200,13 @@ BWD_CASES = [
     ("noncausal_Sq40_Skv130_D128", 2, 40, 130, 4, 2, 128, False, 0),
     ("offset_q_Sq64_Skv200_D64", 1, 64, 200, 8, 2, 64, True, 136),
     ("D128_S200", 1, 200, 200, 4, 1, 128, True, 0),
+    # a key tile walks more q tiles than the ring has stages, over G = 3
+    # heads, the last tile ragged
+    ("ring_S1000_G3", 1, 1000, 1000, 6, 2, 64, True, 0),
+    # a single key tile (the q rows continue after it) under many q tiles
+    ("one_key_tile_Sq700_Skv48", 2, 700, 48, 4, 2, 64, True, 48),
+    # D = 128 at the training length with G = 8: the register budget
+    ("D128_S4096_G8", 1, 4096, 4096, 8, 1, 128, True, 0),
 ]
 
 
@@ -1230,8 +1254,22 @@ def test_flash_bwd_is_deterministic_and_routes_count(dev):
         b = flash_attention_bwd(*args)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert fb_ops.ROUTE_LAUNCHES == {"simt": 2, "mma": 2}
+    assert fb_ops.ROUTE_LAUNCHES == {"simt": 2, "wgmma": 2}
     assert kernels.launches()["flash_attention_bwd"] == 4
+
+
+@pytest.mark.parametrize("D", [32, 128])
+def test_flash_bwd_bf16_gives_equal_bits_at_every_head_dim(dev, D):
+    """Two launches of the wgmma route on the same inputs give the same
+    bits at head dims 32 and 128 too (64: the test above), causal over
+    ragged tiles with G = 4."""
+    gen = torch.Generator(device=dev).manual_seed(36)
+    args = _bwd_inputs(gen, dev, torch.bfloat16, 2, 300, 300, 8, 2, D, True,
+                       0)
+    a = flash_attention_bwd(*args)
+    b = flash_attention_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -1295,7 +1333,7 @@ def test_reduced_forward_loss_on_the_card_matches_cpu(dev):
     used = kernels.launches()
     assert used["flash_attention"] == 2 * cfg.num_layers
     assert used["flash_attention_bwd"] == cfg.num_layers
-    assert fb_ops.ROUTE_LAUNCHES == {"simt": cfg.num_layers, "mma": 0}
+    assert fb_ops.ROUTE_LAUNCHES == {"simt": cfg.num_layers, "wgmma": 0}
     torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=0)
     for g, w in zip(optim.tree_leaves(got_g), optim.tree_leaves(want_g)):
         torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)

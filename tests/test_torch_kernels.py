@@ -8,6 +8,9 @@ themselves are held to the plain versions on the card by
 ``chip_smoke.py``.  Tolerance: atol 1e-5 / rtol 1e-5 in fp32 (the two
 frameworks sum in different orders).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -24,6 +27,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_lse,
                                                      flash_attention_plain)
+from repro_torch.kernels.flash_attention_bwd import ops as fb_ops
 from repro_torch.kernels.flash_attention_bwd.ops import (
     flash_attention_bwd, flash_attention_bwd_plain)
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
@@ -284,3 +288,211 @@ def test_flash_bf16_key_limit_check(D, monkeypatch):
             fa_ops._check(q.float(), k32, k32, qp, kp)
         else:
             fa_ops._check(q, k, k, qp, kp)
+
+
+# ------------------------------------------------ the backward's wrapper
+
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma"),
+                                         (torch.float32, "simt"),
+                                         (torch.float16, None)])
+def test_flash_bwd_route_follows_the_storage_type(dtype, route):
+    """bf16 goes to the wgmma kernels, fp32 to the CUDA-core ones, any
+    other type has no route (the wrapper raises rather than converting)."""
+    if route is None:
+        with pytest.raises(TypeError):
+            fb_ops.route(dtype)
+    else:
+        assert fb_ops.route(dtype) == route
+
+
+def _bwd_args(dtype, B=1, Sq=16, Skv=16, H=4, Hkv=2, D=32):
+    r = np.random.default_rng(11)
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(12, B, Sq, Skv, H, Hkv, D)))
+    out = torch.from_numpy(r.standard_normal((B, Sq, H, D))
+                           .astype(np.float32)).to(dtype)
+    lse = torch.zeros((B, Sq, H), dtype=torch.float32)
+    qp, kp = (torch.from_numpy(_pos(B, 0, n)) for n in (Sq, Skv))
+    return [q, k, v, qp, kp, out, lse, out.clone()]
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "out", "dout"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+def test_flash_bwd_checks_what_tma_needs(name, dtype, monkeypatch):
+    """The wrapper's check before a launch: a contiguous bf16 view 2 bytes
+    past an aligned base cannot feed TMA (nor the preprocess's 16-byte
+    loads) and raises a ValueError naming the tensor and the cause; fp32
+    (the CUDA-core route) takes any base.  The length limit is the built
+    kernel's (``max_len``); here any limit the 16 rows are within."""
+    monkeypatch.setattr(fb_ops, "max_len", lambda D: 64)
+    args = _bwd_args(dtype)
+    i = ["q", "k", "v", "q_pos", "kv_pos", "out", "lse", "dout"].index(name)
+    t = args[i]
+    flat = torch.zeros(1 + t.numel(), dtype=dtype)
+    off = flat[1:].view(t.shape)
+    off.copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    fb_ops._check(*args, 0, 0.0)
+    args[i] = off
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match=f"bf16 {name} must start on a "
+                                             f"16-byte boundary"):
+            fb_ops._check(*args, 0, 0.0)
+    else:
+        fb_ops._check(*args, 0, 0.0)
+
+
+@pytest.mark.parametrize("D", [16, 48, 80, 256])
+def test_flash_bwd_refuses_a_head_dim_it_has_no_kernel_for(D):
+    """Head dims outside HEAD_DIMS (32, 64, 128) are refused before any
+    launch, in both types."""
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="the kernel takes one of"):
+            fb_ops._check(*_bwd_args(dtype, D=D), 0, 0.0)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_bwd_length_limit_check(D, monkeypatch):
+    """The bf16 route keeps each tile's position range in shared memory,
+    so the wrapper refuses a bf16 call whose Sq or Skv passes ``max_len``
+    with a ValueError naming the limit; at the limit, and in fp32 past
+    it, the check passes."""
+    n = 40
+    monkeypatch.setattr(fb_ops, "max_len", lambda d: n)
+    for Sq, Skv, ok in ((n, n, True), (n + 1, n, False), (n, n + 1, False)):
+        args = _bwd_args(torch.bfloat16, Sq=Sq, Skv=Skv, D=D)
+        if ok:
+            fb_ops._check(*args, 0, 0.0)
+        else:
+            with pytest.raises(ValueError, match=f"at most {n} q rows"):
+                fb_ops._check(*args, 0, 0.0)
+            fb_ops._check(*_bwd_args(torch.float32, Sq=Sq, Skv=Skv, D=D),
+                          0, 0.0)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H", [(2, 100, 130, 4), (1, 1, 1, 1),
+                                        (8, 4096, 4096, 15)])
+def test_flash_bwd_scratch_len(B, Sq, Skv, H):
+    """The scratch: Dl (B, Sq, H) in fp32; in bf16 the (B, H, 3, Sqp) rows
+    of lse, Dl and q positions and the (B, Skvp) kv positions, Sq and Skv
+    padded to multiples of 64, so that every row starts on a 16-byte
+    boundary."""
+    pad = lambda n: (n + 63) // 64 * 64
+    assert fb_ops.scratch_len(torch.float32, B, Sq, Skv, H) == B * Sq * H
+    got = fb_ops.scratch_len(torch.bfloat16, B, Sq, Skv, H)
+    assert got == 3 * B * H * pad(Sq) + B * pad(Skv)
+    assert (3 * B * H * pad(Sq) * 4) % 16 == 0 and (pad(Sq) * 4) % 16 == 0
+
+
+# The wgmma kernels' walk (csrc/flash_attention_bwd.cu), modelled in numpy
+# from the constants of the source: the tiles a CTA walks, and the tiles a
+# consumer skips or takes without its per-element mask, from the tiles'
+# least and greatest positions.  Held to a brute-force reading of the mask.
+_BWD_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+            / "csrc" / "flash_attention_bwd.cu").read_text()
+
+
+def _geo(D):
+    """(BN, keys of a dK/dV CTA, keys of a consumer's range) at head dim D,
+    read from the source's Geo."""
+    bn = re.search(r"static constexpr int BN = D == 128 \? (\d+) : (\d+);",
+                   _BWD_SRC)
+    split = re.search(r"static constexpr bool kSplit = D == (\d+);",
+                      _BWD_SRC)
+    assert bn and split, "Geo's BN / kSplit lines changed"
+    BN = int(bn.group(1)) if D == 128 else int(bn.group(2))
+    is_split = D == int(split.group(1))
+    return BN, (64 if is_split else 128), is_split
+
+
+def _ranges(pos, n, rows):
+    return [(pos[t:min(t + rows, n)].min(), pos[t:min(t + rows, n)].max())
+            for t in range(0, n, rows)]
+
+
+def _walks(q_pos, kv_pos, causal, D):
+    """Per dK/dV consumer (CTA, c) and dQ consumer: {tile: full} of the
+    streamed tiles it multiplies, as the kernels decide."""
+    Sq, Skv = len(q_pos), len(kv_pos)
+    BN, BKV, split = _geo(D)
+    dkdv, dq = {}, {}
+    qr = _ranges(q_pos, Sq, BN)
+    for k0 in range(0, Skv, BKV):
+        klo = kv_pos[k0:min(k0 + BKV, Skv)].min()
+        for c in (0,) if split else (0, 1):
+            kw0 = k0 + 64 * c
+            if kw0 >= Skv:
+                continue
+            wlo, whi = kv_pos[kw0:min(kw0 + 64, Skv)].min(), \
+                kv_pos[kw0:min(kw0 + 64, Skv)].max()
+            got = {}
+            for t, (lo, hi) in enumerate(qr):
+                if causal and hi < klo:          # not walked
+                    continue
+                if causal and hi < wlo:          # skipped
+                    continue
+                got[t] = (kw0 + 64 <= Skv and (t + 1) * BN <= Sq
+                          and (not causal or whi <= lo))
+            dkdv[(kw0, min(kw0 + 64, Skv))] = got
+    kr = _ranges(kv_pos, Skv, 64)
+    for q0 in range(0, Sq, 128):
+        qhi = q_pos[q0:min(q0 + 128, Sq)].max()
+        for qw0 in (q0, q0 + 64):
+            if qw0 >= Sq:
+                continue
+            wlo, whi = q_pos[qw0:min(qw0 + 64, Sq)].min(), \
+                q_pos[qw0:min(qw0 + 64, Sq)].max()
+            got = {}
+            for t, (lo, hi) in enumerate(kr):
+                if causal and (lo > qhi or lo > whi):
+                    continue
+                got[t] = (qw0 + 64 <= Sq and (t + 1) * 64 <= Skv
+                          and (not causal or hi <= wlo))
+            dq[(qw0, min(qw0 + 64, Sq))] = got
+    return BN, dkdv, dq
+
+
+def _position_sets():
+    r = np.random.default_rng(13)
+    return {
+        "causal S300": (np.arange(300), np.arange(300), True),
+        "offset q Sq100 Skv300": (np.arange(200, 300), np.arange(300), True),
+        "non-causal Sq40 Skv130": (np.arange(40), np.arange(130), False),
+        "causal Sq1000 G-ring": (np.arange(1000), np.arange(1000), True),
+        "one key tile Sq700 Skv48": (np.arange(48, 748), np.arange(48),
+                                     True),
+        "packed rows, shuffled": (r.permutation(260), r.permutation(260),
+                                  True),
+    }
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("case", list(_position_sets()))
+def test_flash_bwd_walk_covers_the_mask(case, D):
+    """Every allowed (q row, key) pair is multiplied by its dK/dV consumer
+    and by its dQ consumer; a tile taken without the per-element mask has
+    every pair allowed and in range; and where positions rise with the
+    index (every set but the shuffled one) a consumer multiplies exactly
+    the tiles that hold an allowed pair of its rows."""
+    q_pos, kv_pos, causal = _position_sets()[case]
+    Sq, Skv = len(q_pos), len(kv_pos)
+    allowed = np.ones((Sq, Skv), bool) if not causal else \
+        kv_pos[None, :] <= q_pos[:, None]
+    BN, dkdv, dq = _walks(q_pos, kv_pos, causal, D)
+    monotone = case != "packed rows, shuffled"
+    for (a, z), got in dkdv.items():
+        want = {i // BN for i in range(Sq) if allowed[i, a:z].any()}
+        assert want <= set(got), (case, a)
+        if monotone:
+            assert want == set(got), (case, a)
+        for t, full in got.items():
+            if full:
+                assert allowed[t * BN:(t + 1) * BN, a:z].all()
+    for (a, z), got in dq.items():
+        want = {j // 64 for j in range(Skv) if allowed[a:z, j].any()}
+        assert want <= set(got), (case, a)
+        if monotone:
+            assert want == set(got), (case, a)
+        for t, full in got.items():
+            if full:
+                assert allowed[a:z, t * 64:(t + 1) * 64].all()
