@@ -47,15 +47,23 @@ result):
    CUDA cores, fp32 sums) is held to its plain version on
    the same out and lse in bf16 at the training shapes (SmolLM-360M B8
    S4096 H15/5 and Llama-3.2-1B B4 S4096 H32/8 at (64, 64), B4 S2048
-   H32/4 at (128, 128), causal), in fp32 at SmolLM's, and in both types
-   at the edges (S = 100, S = 1, G = 1 and 3, non-causal at Sq != Skv, an
-   offset q block); tolerances tied to the scale of the three gradients
-   (fp32 atol 1e-4 x the largest |gradient|, rtol 1e-4; bf16 atol
-   min(2e-2, 0.05 rms), rtol 2e-2); two launches must give equal bits and
-   every call land on its type's route; the training shapes are timed
-   through the wrapper, alone (its three kernels' medians summed), plain,
-   and against SDPA's backward (``autograd.grad``) beside the bound (2.5
-   times the forward's operations).
+   H32/4 at (128, 128), causal; H2O-Danube-1.8B's B4 S8192 H32/8 at (80,
+   80) with its window of 4096; B4 S2048 at D 64 and 128 with a softcap of
+   30; the windowed and softcapped rows with scores spread by SPREAD), in
+   fp32 at SmolLM's, and in both types at the edges (S = 100, S = 1, G = 1
+   and 3, non-causal at Sq != Skv, an offset q block; D 80 windowed and
+   softcapped over ragged tiles and at an offset, tiles wholly past a
+   window, a softcap at D 128, a window without the causal mask);
+   tolerances tied to the scale of the three gradients (fp32 atol 1e-4 x
+   the largest |gradient|, rtol 1e-4; bf16 atol min(2e-2, 0.05 rms), rtol
+   2e-2), and the plain version with a window one tile wider must fail a
+   windowed bf16 row's; two launches must give equal bits (D 64, 128 and
+   the windowed D 80) and every call land on its type's route; the
+   training shapes are timed through the wrapper, alone (its three
+   kernels' medians summed), plain, and against SDPA's backward
+   (``autograd.grad``; the window as a boolean mask on the
+   memory-efficient backend; none under a softcap) beside the bound (2.5
+   times the forward's operations on the pairs the mask lets through).
    Decode attention (``paged_attention``, each sequence and kv head split
    across a cluster of 8 CTAs and merged in distributed shared memory;
    bf16 products on ``mma.sync``, fp32 on the CUDA cores) is held to its
@@ -104,7 +112,17 @@ result):
    It is timed at decode and at both prefill shapes (with the wrapper's
    host µs a call); its yardsticks are one ``torch.bmm`` over the
    reference's (E, C, D) capacity buffer and, where the card's torch has
-   it, ``torch._grouped_mm``.  The SSD state
+   it, ``torch._grouped_mm``.  The grouped GEMM's backward at
+   Qwen3-30B-A3B's training shape (4 x 4096 tokens, top-8 of 128 experts,
+   D 2048, F 768, block_t 128): the weight gradient (``moe_gemm_wgrad``,
+   one CTA per expert and output tile on ``mma.sync``) of w1/w3 (D x F)
+   and w2 (F x D) against its plain version in bf16 with equal bits over
+   two launches, at the edges in both types (ragged widths, empty
+   experts, unused blocks, block_t 16 and 64, blocks of one expert apart),
+   and dX through the forward kernel on the transposed weights (on
+   ``wgmma``); timed beside their bounds, the weight gradient also alone,
+   plain and against one ``torch._grouped_mm`` grouped along the rows.
+   The SSD state
    scan (``ssd_scan``) must give its plain version's bits (``torch.equal``)
    at Mamba2-370M's 8x256 and 32768-token prefill shapes, the JAX test's
    shapes, one chunk, a ragged N*P and an unaligned view, and is timed
@@ -138,10 +156,12 @@ result):
    patches: identical greedy and sampled tokens, every flash launch at the
    head dim on the fp32 route (Whisper's encoder and cross-attention
    non-causal), every decode attention through ``paged_attention`` at the
-   model's group; reduced fp32 SmolLM-360M trained on "cuda" and on
-   "cpu": ``forward_loss`` and every leaf's gradient, then one
-   ``train_step``'s loss, grad norm and AdamW moments, with the flash
-   forward launched twice a layer (remat) and the backward once;
+   model's group; reduced fp32 SmolLM-360M, Qwen3-30B-A3B and
+   H2O-Danube-1.8B (at head dim 80, S 160 past its window of 64) trained
+   on "cuda" and on "cpu": ``forward_loss`` and every leaf's gradient,
+   then one ``train_step``'s loss, grad norm and AdamW moments, with the
+   flash forward launched twice a layer (remat) and the backward once, and
+   an MoE layer's grouped GEMM 9 times and its weight gradient 3 times;
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
    seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
    module granularity (Algorithm 1: attention in sub-batches of 4 of the
@@ -241,8 +261,28 @@ result):
     each layer twice), all on wgmma, the backward wrapper 64 times, all on
     its bf16 route, and no other kernel; it logs s/step, tokens/s, peak
     memory, a step's device time by kernel class beside its wall, the
-    model FLOPs' share of the bf16 dense peak (``smollm_train_mfu``), and
-    whether a second run from seed 0 repeats the first two losses' bits.
+    model FLOPs' share of the bf16 dense peak (``smollm_360m_train_mfu``),
+    and whether a second run from seed 0 repeats the first two losses'
+    bits.  Then H2O-Danube-1.8B (24 layers, d_model 2560, 32/8 heads of
+    80, window 4096, vocab 32000) at every published width and full depth
+    the same way: 5 steps of 4 x 8192 tokens in 2 microbatches, so that
+    the window binds (the third step's loss rises past the first's at lr
+    1e-3, in bf16 and fp32 alike, and the fifth falls below it); no plain
+    version may run on either leg;
+13. training the MoE family: Qwen3-30B-A3B (d_model 2048, 32/4 heads of
+    128, 128 experts top-8 of expert d_ff 768, vocab 151936) in bf16 at
+    every published width, its depth cut 48 -> 4 (3.11 B parameters,
+    ~49.8 GB of weights, fp32 masters and moments and bf16 gradients),
+    random weights from seed 0, 4 steps of 4 x 4096 tokens in one
+    microbatch, remat on, AdamW lr 1e-3: the loss must be finite, fall
+    and hold the aux (the first step's loss is its cross-entropy plus
+    0.01 x the layers' aux over their count), the recompute must route as
+    the forward did, bit for bit; each step must launch the flash forward
+    twice a layer and the backward once, the grouped GEMM 9 times a layer
+    (forward, recompute, dX), all on wgmma, its weight gradient 3 times a
+    layer, and no plain version; it logs s/step, tokens/s, peak memory,
+    the capacity drops, a step's device time by kernel class beside its
+    wall and the active-parameter MFU (``qwen3_moe_train_mfu``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -288,6 +328,9 @@ REPLACES = {
     "fused_sampling":
         "src/repro/kernels/fused_sampling/fused_sampling.py:273",
     "moe_gemm": "src/repro/kernels/moe_gemm/moe_gemm.py:31",
+    # the expert einsum whose derivative XLA takes in the reference (no TPU
+    # kernel computes the weight gradient)
+    "moe_gemm_wgrad": "src/repro/models/moe.py:70",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
 }
 # the kernels each serving path must launch; the others it must not
@@ -762,12 +805,19 @@ def check_flash(dev, timer):
 
 
 # the training shapes of the flash backward, timed in phase 3:
-# tag -> (B, S, H, Hkv, D)
+# tag -> (B, S, H, Hkv, D, window, softcap)
 TRAIN_FLASH = {
-    "smollm B8 S4096 H15/5 D64": (8, 4096, 15, 5, 64),
-    "llama B4 S4096 H32/8 D64": (4, 4096, 32, 8, 64),
-    "B4 S2048 H32/4 D128": (4, 2048, 32, 4, 128),
+    "smollm B8 S4096 H15/5 D64": (8, 4096, 15, 5, 64, 0, 0.0),
+    "llama B4 S4096 H32/8 D64": (4, 4096, 32, 8, 64, 0, 0.0),
+    "B4 S2048 H32/4 D128": (4, 2048, 32, 4, 128, 0, 0.0),
+    # H2O-Danube-1.8B's training shape (phase 12's microbatch of 2 rows,
+    # twice): the window binds past 4096 of the 8192 positions
+    "danube B4 S8192 H32/8 D80 w4096": (4, 8192, 32, 8, 80, 4096, 0.0),
+    # softcapped rows (RecurrentGemma's cap of 30) at D 64 and 128
+    "B4 S2048 H32/8 D64 cap30": (4, 2048, 32, 8, 64, 0, 30.0),
+    "B4 S2048 H32/4 D128 cap30": (4, 2048, 32, 4, 128, 0, 30.0),
 }
+DANUBE_BWD = "danube B4 S8192 H32/8 D80 w4096"
 
 
 def _grad_tol(wants, dtype):
@@ -784,14 +834,25 @@ def _grad_tol(wants, dtype):
     return dict(TOL[dtype], atol=min(TOL[dtype]["atol"], 0.05 * rms))
 
 
-def _flash_bwd_bound(q, k, causal=True):
+def _pairs(Sq, Skv, causal, window, q0=0):
+    """(q, key) pairs a row's mask lets through, positions q0.. against
+    0..: causal and windowed, or every pair."""
+    qp = torch.arange(Sq, dtype=torch.int64) + q0
+    hi = torch.clamp(qp + 1, max=Skv) if causal else torch.full_like(qp, Skv)
+    lo = torch.clamp(qp - window + 1, min=0) if window > 0 else \
+        torch.zeros_like(qp)
+    return int(torch.clamp(hi - lo, min=0).sum())
+
+
+def _flash_bwd_bound(q, k, causal=True, window=0):
     """(bound ms, bound_by, GFLOP, MB) of one backward call: q, k, v, out,
     dout and lse read once, dq, dk, dv written once, at the card's memory
-    rate, against 2.5 times the forward's operations (every batch row has
-    the same positions here) at its peak for the storage type."""
+    rate, against 2.5 times the forward's operations on the pairs the mask
+    lets through (causal and windowed; every batch row has the same
+    positions here) at its peak for the storage type."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
-    pairs = Sq * (Sq + 1) // 2 if causal and Sq == Skv else Sq * Skv
+    pairs = _pairs(Sq, Skv, causal, window, Skv - Sq if causal else 0)
     flops = 2.5 * 2.0 * (D + D) * pairs * B * H
     nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
         + B * Sq * H * 4 + (B * Sq + B * Skv) * 4
@@ -801,14 +862,66 @@ def _flash_bwd_bound(q, k, causal=True):
             nbytes / 1e6)
 
 
+def _sdpa_bwd_ms(timer, q, k, v, dout, kw):
+    """SDPA's backward (``autograd.grad`` of one call) on the same inputs,
+    timed alone: causal through ``is_causal``; a window through a boolean
+    mask on the memory-efficient backend.  None where SDPA cannot compute
+    the function (a softcap) or refuses the call."""
+    if kw["softcap"]:
+        return None
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = dout.transpose(1, 2)
+    if kw["window"] <= 0:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        try:
+            o = F.scaled_dot_product_attention(qt, kt, vt,
+                                               is_causal=kw["causal"],
+                                               enable_gqa=True)
+            return timer(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), g, retain_graph=True), iters=10)
+        except RuntimeError as exc:
+            log(f"  sdpa backward refuses B{q.shape[0]} S{q.shape[1]} "
+                f"D{q.shape[3]} {kw}: {str(exc).splitlines()[0]}")
+            return None
+    S = q.shape[1]
+    i = torch.arange(S, device=q.device)
+    mask = (i[None, :] <= i[:, None]) & \
+        (i[None, :] > i[:, None] - kw["window"])
+    G = q.shape[2] // k.shape[2]
+    # GQA through enable_gqa, else with K and V repeated to the q heads
+    for gqa in (True, False):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k if gqa else k.repeat_interleave(G, 2),
+                                v if gqa else v.repeat_interleave(G, 2)))
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                o = F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=gqa)
+                ms = timer(lambda: torch.autograd.grad(
+                    o, (qt, kt, vt), g, retain_graph=True), iters=5)
+            how = "enable_gqa" if gqa else "K/V repeated to the q heads"
+            log(f"  sdpa backward with the window as a boolean mask "
+                f"(memory-efficient backend, {how}): {ms:.4f} ms")
+            return ms
+        except RuntimeError as exc:
+            log(f"  sdpa backward (mask, enable_gqa={gqa}) refuses "
+                f"B{q.shape[0]} S{S} D{q.shape[3]}: "
+                f"{str(exc).splitlines()[0]}")
+    return None
+
+
 def check_flash_bwd(dev, timer):
     """The flash backward's kernel against its plain version on the same
-    out and lse, in bf16 at the training shapes and in both types at the
-    edges; equal bits over two launches at D 64 and 128; every call on the
-    route of its type (bf16 on wgmma); timed at the training shapes through the wrapper, alone (the sum
-    of its three kernels' medians in the profiler's trace), its plain
-    version and SDPA's backward (``autograd.grad`` of one
-    ``scaled_dot_product_attention``, timed alone) beside the bound."""
+    out and lse, in bf16 at the training shapes (windowed and softcapped
+    ones with spread scores) and in both types at the edges; equal bits
+    over two launches at D 64, 80 (windowed) and 128; every call on the
+    route of its type (bf16 on wgmma); timed at the training shapes
+    through the wrapper, alone (the sum of its three kernels' medians in
+    the profiler's trace), its plain version and SDPA's backward
+    (``autograd.grad`` of one ``scaled_dot_product_attention``, timed
+    alone; with a boolean mask for the window, none under a softcap)
+    beside the bound."""
     from repro_torch.kernels.flash_attention_bwd import ops
     from repro_torch.kernels.flash_attention_bwd.ops import (
         flash_attention_bwd, flash_attention_bwd_plain)
@@ -820,22 +933,26 @@ def check_flash_bwd(dev, timer):
     calls = {"simt": 0, "wgmma": 0}
     bad = []
 
-    def case(tag, dtype, B, Sq, Skv, H, Hkv, D, causal=True, q0=0):
+    def case(tag, dtype, B, Sq, Skv, H, Hkv, D, causal=True, q0=0,
+             window=0, softcap=0.0, spread=False):
         q = _rand(gen, (B, Sq, H, D), dtype, dev)
+        if spread:
+            q = (q.float() * SPREAD).to(dtype)
         k = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
         v = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
         qp = (torch.arange(Sq, dtype=torch.int32, device=dev) + q0)[None] \
             .expand(B, Sq).contiguous()
         kp = torch.arange(Skv, dtype=torch.int32, device=dev)[None] \
             .expand(B, Skv).contiguous()
-        out, lse = flash.flash_attention(q, k, v, qp, kp, causal=causal,
-                                         return_lse=True)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        out, lse = flash.flash_attention(q, k, v, qp, kp, return_lse=True,
+                                         **kw)
         dout = _rand(gen, (B, Sq, H, D), dtype, dev)
         args = (q, k, v, qp, kp, out, lse, dout)
-        got = flash_attention_bwd(*args, causal=causal)
+        got = flash_attention_bwd(*args, **kw)
         calls[ops.route(dtype)] += 1
         torch.cuda.synchronize()
-        want = flash_attention_bwd_plain(*args, causal=causal)
+        want = flash_attention_bwd_plain(*args, **kw)
         tol = _grad_tol(want, dtype)
         errs, ok = [], True
         for g, w, name in zip(got, want, ("dq", "dk", "dv")):
@@ -848,13 +965,22 @@ def check_flash_bwd(dev, timer):
             f"dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (atol "
             f"{tol['atol']:.3e}, rtol {tol['rtol']}) "
             f"{'ok' if ok else 'FAIL'}")
-        return max(errs), args, causal
+        if window and window < Skv and dtype == torch.bfloat16:
+            # the check sees a backward whose window edge is a tile off
+            wrong = flash_attention_bwd_plain(*args, **dict(
+                kw, window=window + 64))
+            if all(torch.allclose(x.float(), w.float(), **tol)
+                   for x, w in zip(wrong, want)):
+                raise AssertionError(f"flash_attention_bwd {tag}: the check "
+                                     f"cannot see a window one tile wider")
+            del wrong
+        return max(errs), args, kw
 
     timed = {}
-    for tag, (B, S, H, Hkv, D) in TRAIN_FLASH.items():
+    for tag, (B, S, H, Hkv, D, w, cap) in TRAIN_FLASH.items():
         timed[tag] = case(f"{tag} causal", torch.bfloat16, B, S, S, H, Hkv,
-                          D)
-    B, S, H, Hkv, D = TRAIN_FLASH["smollm B8 S4096 H15/5 D64"]
+                          D, window=w, softcap=cap, spread=bool(w or cap))
+    B, S, H, Hkv, D = TRAIN_FLASH["smollm B8 S4096 H15/5 D64"][:5]
     case("smollm B8 S4096 H15/5 D64 causal", torch.float32, B, S, S, H,
          Hkv, D)
     for dtype in (torch.bfloat16, torch.float32):
@@ -865,6 +991,19 @@ def check_flash_bwd(dev, timer):
         case("non-causal Sq40 Skv130 D128", dtype, 2, 40, 130, 4, 2, 128,
              causal=False)
         case("offset q Sq64 Skv200", dtype, 1, 64, 200, 8, 2, 64, q0=136)
+        # the window, the softcap and D 80 at the walk's edges
+        case("D80 S300 G4 w96 cap30", dtype, 2, 300, 300, 8, 2, 80,
+             window=96, softcap=30.0, spread=True)
+        case("D80 S100 (ragged tiles) w48", dtype, 2, 100, 100, 8, 2, 80,
+             window=48, spread=True)
+        case("D80 offset q Sq64 Skv300 w100", dtype, 1, 64, 300, 8, 2, 80,
+             q0=236, window=100, spread=True)
+        case("D64 S1000 w128 (tiles past the window)", dtype, 1, 1000, 1000,
+             4, 2, 64, window=128, spread=True)
+        case("D128 S300 cap30", dtype, 2, 300, 300, 8, 2, 128, softcap=30.0,
+             spread=True)
+        case("D32 non-causal Sq40 Skv130 w24", dtype, 2, 40, 130, 4, 2, 32,
+             causal=False, window=24, spread=True)
     if bad:
         raise AssertionError(f"flash_attention_bwd disagrees with its plain "
                              f"version at {bad}")
@@ -874,8 +1013,10 @@ def check_flash_bwd(dev, timer):
     log(f"  flash_attention_bwd calls by route: {calls} (each call: "
         f"preprocess, dK/dV, dQ; bf16 on wgmma, fp32 on the CUDA "
         f"cores)")
-    for shape in ("smollm B8 S4096 H15/5 D64", "B4 S2048 H32/4 D128"):
-        again = [flash_attention_bwd(*timed[shape][1]) for _ in range(2)]
+    for shape in ("smollm B8 S4096 H15/5 D64", "B4 S2048 H32/4 D128",
+                  DANUBE_BWD):
+        _, args, kw = timed[shape]
+        again = [flash_attention_bwd(*args, **kw) for _ in range(2)]
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(*again)):
             raise AssertionError(f"flash_attention_bwd bf16 {shape}: two "
@@ -884,32 +1025,22 @@ def check_flash_bwd(dev, timer):
         del again
 
     rows = {}
-    for shape, (e, args, causal) in timed.items():
+    for shape, (e, args, kw) in timed.items():
         q, k, v, qp, kp, out, lse, dout = args
-        bound_ms, bound_by, gflop, mb = _flash_bwd_bound(q, k, causal)
-        ms = timer(lambda: flash_attention_bwd(*args), iters=10)
-        alone_ms = sum(timer.kernel_ms(lambda: flash_attention_bwd(*args),
-                                       (entry,), iters=10)
-                       for entry in KERNEL_ENTRIES["flash_attention_bwd"]
-                       if not entry.endswith("_simt"))     # bf16: wgmma
-        plain_ms = timer(lambda: flash_attention_bwd_plain(*args), iters=3,
-                         warmup=1)
-        library_ms = None
-        try:
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
-                          for x in (q, k, v))
-            o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                               enable_gqa=True)
-            g = dout.transpose(1, 2)
-            library_ms = timer(lambda: torch.autograd.grad(
-                o, (qt, kt, vt), g, retain_graph=True), iters=10)
-            del o
-        except RuntimeError as exc:
-            log(f"  sdpa backward refuses {shape}: "
-                f"{str(exc).splitlines()[0]}")
+        bound_ms, bound_by, gflop, mb = _flash_bwd_bound(
+            q, k, kw["causal"], kw["window"])
+        ms = timer(lambda: flash_attention_bwd(*args, **kw), iters=10)
+        alone_ms = sum(timer.kernel_ms(
+            lambda: flash_attention_bwd(*args, **kw), (entry,), iters=10)
+            for entry in KERNEL_ENTRIES["flash_attention_bwd"]
+            if not entry.endswith("_simt"))     # bf16: wgmma
+        plain_ms = timer(lambda: flash_attention_bwd_plain(*args, **kw),
+                         iters=2, warmup=1)
+        library_ms = _sdpa_bwd_ms(timer, q, k, v, dout, kw)
         rows[shape] = dict(max_abs_err=e, ms=ms, kernel_alone_ms=alone_ms,
                            plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=library_ms)
+                           bound_by=bound_by, library_ms=library_ms,
+                           window=kw["window"], softcap=kw["softcap"])
         log(f"  flash_attention_bwd bf16 {shape} causal: kernel {ms:.4f} ms "
             f"({alone_ms:.4f} ms alone: its three kernels in the "
             f"profiler's trace), plain {plain_ms:.4f} ms, sdpa backward "
@@ -1493,6 +1624,198 @@ def check_moe_gemm(dev, timer):
                       f"buffer; prefill shapes in the moe_gemm_shapes line")
 
 
+# Qwen3-30B-A3B's training shape of the grouped GEMM's backward (phase 13's
+# batch of 4 x 4096 tokens, top-8 of 128 experts), timed in phase 3
+TRAIN_MOE = dict(T=4 * 4096, E=128, k=8, D=2048, F=768)
+
+
+def _wgrad_bound(plan, n_choices, E, M, N, es):
+    """Least time for one weight-gradient call on these inputs: the used
+    rows of x and dy read once and dw (E, M, N) written once, or 2 M N
+    operations a kept choice at the card's peak, whichever is larger."""
+    be = plan.block_expert
+    used = int((be >= 0).sum().item())
+    nbytes = (used * plan.block_t * (M + N) * es + E * M * N * es
+              + be.numel() * 4)
+    flops = 2.0 * n_choices * M * N
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.bfloat16]
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", \
+        nbytes, flops
+
+
+def _wgrad_plain_blocks(x, dy, be, E, bt, chunk=128):
+    """``grouped_gemm_wgrad_plain`` taken ``chunk`` blocks at a time into
+    one fp32 sum (its per-block products at the training shape take ~7
+    GB at once), cast to x's dtype at the end."""
+    from repro_torch.kernels.moe_gemm_wgrad.ops import \
+        grouped_gemm_wgrad_plain
+    dw = torch.zeros((E, x.shape[1], dy.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    for i in range(0, be.numel(), chunk):
+        rows = slice(i * bt, (i + chunk) * bt)
+        dw += grouped_gemm_wgrad_plain(x[rows].float(), dy[rows].float(),
+                                       be[i:i + chunk], E, block_t=bt)
+    return dw.to(x.dtype)
+
+
+def _grouped_mm_wgrad_ms(timer, gen, dev, T, E, k, M, N):
+    """The yardstick: one ``torch._grouped_mm`` over the choices packed by
+    expert (each group padded to 16 rows), grouped along the reduction
+    (x^T (M, rows) times dy (rows, N) -> (E, M, N)).  None where the
+    card's torch has no such call or refuses every operand layout tried."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    counts = torch.bincount(torch.topk(torch.randn(
+        (T, E), generator=gen, device=dev), k).indices.reshape(-1),
+        minlength=E)
+    counts = (counts + 15) // 16 * 16
+    R = int(counts.sum().item())
+    offs = torch.cumsum(counts, 0).to(torch.int32)
+    xa = _rand(gen, (R, M), torch.bfloat16, dev)
+    ya = _rand(gen, (R, N), torch.bfloat16, dev)
+    layouts = {"x^T view, dy": (xa.t(), ya),
+               "x^T copy, dy column-major": (xa.t().contiguous(),
+                                             ya.t().contiguous().t()),
+               "x^T copy, dy": (xa.t().contiguous(), ya)}
+    for name, (a, b) in layouts.items():
+        try:
+            out = torch._grouped_mm(a, b, offs=offs)
+            if out.shape != (E, M, N):
+                raise RuntimeError(f"output {tuple(out.shape)}")
+            ms = timer(lambda: torch._grouped_mm(a, b, offs=offs))
+            log(f"  torch._grouped_mm weight gradient ({name}, {R} rows): "
+                f"{ms:.4f} ms")
+            return ms
+        except RuntimeError as exc:
+            log(f"  torch._grouped_mm refuses {name}: "
+                f"{str(exc).splitlines()[0]}")
+    return None
+
+
+def check_moe_gemm_wgrad(dev, timer):
+    """The grouped GEMM's backward at Qwen3-30B-A3B's training shape: the
+    weight gradient (``moe_gemm_wgrad``) of w1/w3 (D x F) and w2 (F x D)
+    against its plain version in bf16, equal bits over two launches, the
+    edges in both types (ragged widths, empty experts, unused blocks,
+    block_t 16 and 64, non-contiguous blocks of one expert); dX through
+    the forward kernel on the transposed weights (wgmma) against its plain
+    version; each timed beside its bound, the weight gradient also against
+    one ``torch._grouped_mm`` (a yardstick only)."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
+                                                  grouped_gemm_plain)
+    from repro_torch.kernels.moe_gemm_wgrad import ops as wops
+    from repro_torch.launch.profile import KERNEL_ENTRIES
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    T, E, k, D, Fe = (TRAIN_MOE[n] for n in ("T", "E", "k", "D", "F"))
+    plan, rows_of = _routed(gen, dev, T, E, k)
+    be, bt = plan.block_expert, plan.block_t
+    n_choices = int(plan.keep.sum().item())
+    rows, errs, timed = {}, {}, {}
+    wgrad = wops.grouped_gemm_wgrad
+    for label, (M, N) in (("w1/w3 dW (D x F)", (D, Fe)),
+                          ("w2 dW (F x D)", (Fe, D))):
+        x = rows_of(_rand(gen, (T, M), torch.bfloat16, dev))
+        dy = rows_of(_rand(gen, (T, N), torch.bfloat16, dev))
+        got = wgrad(x, dy, be, E, block_t=bt)
+        torch.cuda.synchronize()
+        errs[label] = _check(f"moe_gemm_wgrad {label} bt{bt} rows "
+                             f"{x.shape[0]} bf16", got,
+                             _wgrad_plain_blocks(x, dy, be, E, bt),
+                             torch.bfloat16)
+        again = wgrad(x, dy, be, E, block_t=bt)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"moe_gemm_wgrad {label}: two launches "
+                                 f"gave other bits")
+        log(f"  moe_gemm_wgrad bf16 {label}: two launches, equal bits")
+        timed[label] = (x, dy, M, N)
+        del got, again
+    # the edges, both types: ragged widths, experts with no block, unused
+    # blocks, block_t 16 and 64, one expert's blocks apart
+    for dtype in (torch.bfloat16, torch.float32):
+        for tag, experts, bte, M, N, Ee in (
+                ("ragged M72 N100, empty experts, bt16", [2, 0, 0, 1, -1],
+                 16, 72, 100, 4),
+                ("bt64 M128 N64, expert 1 x3", [1, 1, 1, 0, -1], 64, 128, 64,
+                 3),
+                ("blocks of one expert apart, M136 N200", [0, 2, 0, 1, 2],
+                 64, 136, 200, 3)):
+            bee = torch.tensor(experts, dtype=torch.int32, device=dev)
+            x = _rand(gen, (len(experts) * bte, M), dtype, dev)
+            dy = _rand(gen, (len(experts) * bte, N), dtype, dev)
+            got = wgrad(x, dy, bee, Ee, block_t=bte)
+            torch.cuda.synchronize()
+            want = wops.grouped_gemm_wgrad_plain(x, dy, bee, Ee, block_t=bte)
+            scale = want.float().abs().max().item()
+            _check(f"moe_gemm_wgrad {tag} {str(dtype)[6:]}", got, want,
+                   dtype, dict(atol=TOL[dtype]["atol"] * max(scale, 1.0),
+                               rtol=TOL[dtype]["rtol"]))
+            if any(got[e].any() for e in set(range(Ee)) - set(experts)):
+                raise AssertionError(f"moe_gemm_wgrad {tag}: an expert "
+                                     f"with no block is not zeros")
+    # dX: the forward kernel on the transposed weights, w1^T (E, F, D) and
+    # w2^T (E, D, F), as GroupedGemmFn's backward lays them out
+    dx_rows = {}
+    for label, (Fi, Do) in (("dX of w1/w3 (dy F -> D)", (Fe, D)),
+                            ("dX of w2 (dy D -> F)", (D, Fe))):
+        wt = (0.02 * torch.randn((E, Do, Fi), generator=gen, device=dev)) \
+            .bfloat16().transpose(1, 2).contiguous()
+        dy = rows_of(_rand(gen, (T, Fi), torch.bfloat16, dev))
+        ops.reset_routes()
+        got = grouped_gemm(dy, wt, be, block_t=bt)
+        torch.cuda.synchronize()
+        if ops.ROUTE_LAUNCHES["wgmma"] != 1:
+            raise AssertionError(f"moe_gemm {label}: launched by route "
+                                 f"{ops.ROUTE_LAUNCHES} (expected wgmma)")
+        err = _check(f"moe_gemm {label} bt{bt} bf16", got,
+                     grouped_gemm_plain(dy, wt, be, block_t=bt),
+                     torch.bfloat16)
+        bound, by, nbytes, flops = _gemm_bound(plan, dy, wt, n_choices)
+        ms = timer(lambda: grouped_gemm(dy, wt, be, block_t=bt))
+        dx_rows[label] = dict(max_abs_err=err, ms=ms, bound_ms=bound,
+                              bound_by=by, route="wgmma")
+        log(f"  moe_gemm bf16 {label} (training shape, {n_choices} kept "
+            f"choices, rows {dy.shape[0]}): kernel {ms:.4f} ms, bound "
+            f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        del wt, dy, got
+    # time the weight gradient at the training shape
+    for label, (x, dy, M, N) in timed.items():
+        bound, by, nbytes, flops = _wgrad_bound(plan, n_choices, E, M, N, 2)
+        ms = timer(lambda: wgrad(x, dy, be, E, block_t=bt), iters=10)
+        alone = timer.kernel_ms(lambda: wgrad(x, dy, be, E, block_t=bt),
+                                KERNEL_ENTRIES["moe_gemm_wgrad"], iters=10)
+        plain_ms = timer(lambda: _wgrad_plain_blocks(x, dy, be, E, bt),
+                         iters=2, warmup=1)
+        lib = _grouped_mm_wgrad_ms(timer, gen, dev, T, E, k, M, N)
+        rows[label] = dict(max_abs_err=errs[label], ms=ms,
+                           kernel_alone_ms=alone, plain_ms=plain_ms,
+                           bound_ms=bound, bound_by=by, library_ms=lib,
+                           rows=x.shape[0], block_t=bt,
+                           kept_choices=n_choices)
+        log(f"  moe_gemm_wgrad bf16 {label} (T={T}, top-{k} of {E}, "
+            f"{n_choices} kept choices, rows {x.shape[0]}, block_t {bt}): "
+            f"kernel {ms:.4f} ms ({alone:.4f} ms alone in the profiler's "
+            f"trace), plain {plain_ms:.4f} ms, torch._grouped_mm {lib} ms, "
+            f"bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+    print(json.dumps({"moe_gemm_train_shapes": {**rows, **dx_rows}}),
+          flush=True)
+    del timed
+    r = rows["w1/w3 dW (D x F)"]
+    return dict(name="moe_gemm_wgrad", route="cuda",
+                source="src/repro_torch/csrc/moe_gemm_wgrad.cu",
+                replaces=REPLACES["moe_gemm_wgrad"],
+                max_abs_err=r["max_abs_err"], ms=r["ms"],
+                plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], library_ms=r["library_ms"],
+                shape=f"w1/w3 dW at 4 x 4096 tokens, top-{k} of {E}, D{D} "
+                      f"F{Fe} bf16, rows {r['rows']} block_t {bt}; library: "
+                      f"torch._grouped_mm grouped along the rows")
+
+
 def _scan_bound(states):
     """Least time for one scan: states and decay read once, prev and final
     written once, or 2 FLOP per element and chunk at the fp32 peak."""
@@ -1829,29 +2152,41 @@ def reduced_cpu_vs_cuda(dev):
                          dict(num_heads=4, num_kv_heads=4, head_dim=64))
     _reduced_encdec_pair(dev, "pixtral_12b",
                          dict(num_heads=8, num_kv_heads=2, head_dim=128))
-    _reduced_train_pair(dev)
+    _reduced_train_pair(dev, "smollm_360m")
+    # the MoE family: the grouped GEMM's forward, dX and weight gradient
+    # (fp32: near-ties in top-k would make bf16 routing differ)
+    _reduced_train_pair(dev, "qwen3_moe_30b")
+    # the windowed decoder at Danube's head dim 80, S 160 past its reduced
+    # window of 64: the backward kernel with a window at D 80
+    _reduced_train_pair(dev, "h2o_danube_1_8b", over=dict(head_dim=80),
+                        S=160)
 
 
-def _reduced_train_pair(dev):
-    """Reduced fp32 SmolLM-360M trained on "cuda" (the flash forward with
-    lse and the backward kernel, fp32 on the CUDA cores) and on "cpu"
-    (the plain versions): ``forward_loss`` and every leaf's gradient
+def _reduced_train_pair(dev, arch, over=None, S=128):
+    """A reduced fp32 model (``over`` replacing fields) trained on "cuda"
+    (the flash forward with lse, the backward kernel and for MoE the
+    grouped GEMM and its weight gradient, fp32 on the CUDA cores) and on
+    "cpu" (the plain versions): ``forward_loss`` and every leaf's gradient
     (loss rtol 1e-5; gradients atol 1e-4, rtol 1e-3, as the CPU tests hold
     the port to JAX), then one ``train_step`` each: its loss and grad norm
     (rtol 1e-5) and the AdamW moments m and v it leaves, which carry the
     gradients (atol 1e-6, rtol 1e-3; the params themselves move by about
     lr * sign(g) in a first step, either way where g ~ 0).  Remat launches
-    the flash forward twice a layer and the backward once."""
+    the flash forward twice a layer and the backward once; an MoE layer's
+    grouped GEMM 9 times (3 forward, 3 recomputed, 3 dX) and its weight
+    gradient 3 times."""
     from repro_torch import kernels, optim
     from repro_torch.configs import reduced_config
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.launch.steps import loss_and_grads, train_step
     from repro_torch.models import transformer as T
-    cfg = dataclasses.replace(reduced_config("smollm_360m"), dtype="float32")
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
+                              **(over or {}))
     L = cfg.num_layers
     gen = torch.Generator().manual_seed(13)
-    toks = torch.randint(2, cfg.vocab_size, (4, 128), generator=gen,
+    toks = torch.randint(2, cfg.vocab_size, (4, S), generator=gen,
                          dtype=torch.int32)
     batch = {"tokens": toks, "labels": toks}
     params = {"cpu": T.init_params(cfg, seed=3, device="cpu")}
@@ -1862,17 +2197,22 @@ def _reduced_train_pair(dev):
         reset_counts()
         loss, grads = loss_and_grads(cfg, pt, b)
         used = kernels.launches()
-        want = {"flash_attention": 2 * L, "flash_attention_bwd": L} \
-            if device == "cuda" else {}
+        want = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+        if cfg.is_moe:
+            want.update(moe_gemm=9 * L, moe_gemm_wgrad=3 * L)
+        if device == "cpu":
+            want = {}
         if {k: n for k, n in used.items() if n} != want or (
                 device == "cuda" and (
                     ops.ROUTE_LAUNCHES != {"wgmma": 0, "simt": 2 * L}
-                    or bwd_ops.ROUTE_LAUNCHES != {"simt": L,
-                                                  "wgmma": 0})):
-            raise AssertionError(f"reduced smollm training on {device}: "
+                    or bwd_ops.ROUTE_LAUNCHES != {"simt": L, "wgmma": 0}
+                    or moe_ops.ROUTE_LAUNCHES["simt"] !=
+                    want.get("moe_gemm", 0))):
+            raise AssertionError(f"reduced {arch} training on {device}: "
                                  f"launches {used}, flash routes "
                                  f"{ops.ROUTE_LAUNCHES}, backward routes "
-                                 f"{bwd_ops.ROUTE_LAUNCHES} (expected "
+                                 f"{bwd_ops.ROUTE_LAUNCHES}, grouped GEMM "
+                                 f"routes {moe_ops.ROUTE_LAUNCHES} (expected "
                                  f"{want}, all fp32)")
         opt = optim.init_opt_state(pt)
         out = train_step(cfg, pt, opt, b, optim.AdamWConfig(lr=1e-3,
@@ -1891,16 +2231,16 @@ def _reduced_train_pair(dev):
         for key in ("m", "v"):
             merr = max(merr, (a[key].cpu() - b[key]).abs().max().item())
             ok &= torch.allclose(a[key].cpu(), b[key], atol=1e-6, rtol=1e-3)
-    log(f"  reduced smollm_360m fp32 training: loss cuda {lg.item():.6f} cpu "
+    log(f"  reduced {arch} fp32 training (S {S}): loss cuda {lg.item():.6f} cpu "
         f"{lc.item():.6f}, {len(gg)} leaf gradients max abs err "
         f"{gerr:.3e}; train_step loss {og['loss'].item():.6f} / "
         f"{oc['loss'].item():.6f}, grad norm {og['grad_norm'].item():.6f} / "
         f"{oc['grad_norm'].item():.6f}, AdamW moments max abs err "
-        f"{merr:.3e}; flash {2 * L} launches (remat), backward {L}, all "
-        f"fp32 {'ok' if ok else 'FAIL'}")
+        f"{merr:.3e}; launches {want} "
+        f"(remat), all fp32 {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("reduced smollm_360m: training on cuda differs "
-                             "from cpu")
+        raise AssertionError(f"reduced {arch}: training on cuda differs "
+                             f"from cpu")
 
 
 def _reduced_pair(dev, arch, engine_kw, sps, expected, over=None,
@@ -2741,10 +3081,11 @@ def serve_mla_path(dev):
     return g_used, s_used
 
 
-def _device_ms(fn, n: int = 4):
+def _device_ms(fn, n: int = 4, names=None):
     """(device ms a call, {kernel class: device ms a call}) of ``fn``,
     from ``torch.profiler``'s trace of ``n`` calls after one warm-up: the
-    kernels' own time, without the host's gaps between them."""
+    kernels' own time, without the host's gaps between them.  ``names``, a
+    dict, also gets each kernel name's device ms a call."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.profile import kernel_class
@@ -2761,7 +3102,15 @@ def _device_ms(fn, n: int = 4):
                 else ev.cuda_time
             c = kernel_class(ev.name)
             by[c] = by.get(c, 0.0) + us / 1e3 / n
+            if names is not None:
+                names[ev.name] = names.get(ev.name, 0.0) + us / 1e3 / n
     return sum(by.values()), by
+
+
+def _top_kernels(names, k: int = 8) -> str:
+    """The ``k`` kernel names with the most device time, shortened."""
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:k]
+    return "; ".join(f"{ms:.1f} ms {name[:90]}" for name, ms in top)
 
 
 def _mla_step_split(cfg, params, dev):
@@ -3133,29 +3482,65 @@ def _encdec_step_split(cfg, params, dev, prompts, extra, positions):
 
 
 # --------------------------------------------------------------- phase 12
-def _model_flops(cfg, B: int, S: int) -> float:
+def _model_flops(cfg, B: int, S: int, active_only: bool = False) -> float:
     """One training step's model operations (no recompute): 6 per
     parameter and token for every matrix product (all parameters but the
-    embedding table, which is gathered), and causal attention's forward
-    (2 (D + D) a (q, key) pair a head) plus its backward (2.5 times)."""
+    embedding table, which is gathered; with ``active_only`` an MoE
+    layer's routed experts count k of E), and attention's forward over the
+    pairs its causal (and windowed) mask lets through (2 (D + D) a pair and
+    head) plus its backward (2.5 times)."""
     from repro_torch.models import transformer as T
-    n = T.param_count(cfg) - T.padded_vocab(cfg) * cfg.d_model
-    attn = 2.0 * 2 * cfg.head_dim * S * (S + 1) / 2 * cfg.num_heads * B
+    n = T.param_count(cfg, active_only=active_only) \
+        - T.padded_vocab(cfg) * cfg.d_model
+    pairs = _pairs(S, S, True, cfg.sliding_window)
+    attn = 2.0 * 2 * cfg.head_dim * pairs * cfg.num_heads * B
     return 6.0 * n * B * S + 3.5 * attn * cfg.num_layers
 
 
-def train_smollm_path(dev):
-    """Full-width, full-depth SmolLM-360M (bf16, random weights from seed
-    0) trained 8 steps through ``launch/steps.py::train_step``: batches of
-    16 x 4096 from ``SyntheticLMStream`` (seed 0) in 2 microbatches of 8,
-    remat on, AdamW lr 1e-3.  The loss must be finite and fall; each step
-    must launch the flash forward 2 x 32 x 2 times (remat runs each layer
-    twice), all on wgmma, the backward wrapper 32 x 2 times, all on its
-    bf16 route, and no other kernel.  Logs s/step, tokens/s, peak memory,
-    a step's device time by kernel class beside its wall, the model FLOPs'
-    share of the bf16 dense peak (``mfu``), and whether a second run from
-    seed 0 gives the first two losses' bits.  Returns (launches of the 8
-    steps, numbers)."""
+class _PlainCalls:
+    """Counts the calls of the kernels' plain versions while a path runs
+    (each wrapped in its module until ``restore``): a card's path must
+    make none."""
+    NAMES = (("repro_torch.kernels.flash_attention.ops",
+              "flash_attention_plain"),
+             ("repro_torch.kernels.flash_attention_bwd.ops",
+              "flash_attention_bwd_plain"),
+             ("repro_torch.kernels.moe_gemm.ops", "grouped_gemm_plain"),
+             ("repro_torch.kernels.moe_gemm_wgrad.ops",
+              "grouped_gemm_wgrad_plain"))
+
+    def __init__(self):
+        import importlib
+        self.calls, self.orig = {}, []
+        for mod_name, fn_name in self.NAMES:
+            mod = importlib.import_module(mod_name)
+            fn = getattr(mod, fn_name)
+            self.orig.append((mod, fn_name, fn))
+            self.calls[fn_name] = 0
+
+            def counted(*a, _f=fn, _n=fn_name, **kw):
+                self.calls[_n] += 1
+                return _f(*a, **kw)
+            setattr(mod, fn_name, counted)
+
+    def restore(self):
+        for mod, name, fn in self.orig:
+            setattr(mod, name, fn)
+
+
+def train_dense_path(dev, arch: str, steps: int, GB: int, S: int,
+                     n_mb: int):
+    """A full-width, full-depth dense decoder (bf16, random weights from
+    seed 0) trained ``steps`` steps through ``launch/steps.py::train_step``:
+    batches of GB x S from ``SyntheticLMStream`` (seed 0) in ``n_mb``
+    microbatches, remat on, AdamW lr 1e-3.  The loss must be finite and
+    fall; each step must launch the flash forward 2 x L x n_mb times (remat
+    runs each layer twice), all on wgmma, the backward wrapper L x n_mb
+    times, all on its bf16 route, no other kernel and no plain version.
+    Logs s/step, tokens/s, peak memory, a step's device time by kernel
+    class beside its wall, the model FLOPs' share of the bf16 dense peak
+    (``mfu``), and whether a second run from seed 0 gives the first two
+    losses' bits.  Returns (launches of the steps, numbers)."""
     from repro_torch import kernels, optim
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
@@ -3165,8 +3550,8 @@ def train_smollm_path(dev):
     from repro_torch.models import transformer as T
 
     t_phase = time.perf_counter()
-    cfg = get_config("smollm_360m")
-    L, steps, GB, S, n_mb = cfg.num_layers, 8, 16, 4096, 2
+    cfg = get_config(arch)
+    L = cfg.num_layers
     ocfg = optim.AdamWConfig(lr=1e-3, zero1=False)
     stream = SyntheticLMStream(DataConfig(global_batch=GB, seq_len=S,
                                           vocab_size=cfg.vocab_size, seed=0))
@@ -3185,42 +3570,50 @@ def train_smollm_path(dev):
                              microbatches=n_mb, remat=True)
             losses.append(out["loss"].item())
             secs.append(time.perf_counter() - t0)
-            log(f"  step {i}: loss {losses[-1]:.6f}, grad norm "
+            log(f"  {arch} step {i}: loss {losses[-1]:.6f}, grad norm "
                 f"{out['grad_norm'].item():.4f}, {secs[-1]:.3f} s")
         return params, opt, losses, secs
 
     gb = T.param_count(cfg) * 2 / 1e9
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts()
-    params, opt, losses, secs = run(steps)
+    plain = _PlainCalls()
+    try:
+        params, opt, losses, secs = run(steps)
+    finally:
+        plain.restore()
     used = kernels.launches()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     fwd, bwd = 2 * L * n_mb * steps, L * n_mb * steps
     want = {"flash_attention": fwd, "flash_attention_bwd": bwd}
     if {k: n for k, n in used.items() if n} != want or \
             ops.ROUTE_LAUNCHES != {"wgmma": fwd, "simt": 0} or \
-            bwd_ops.ROUTE_LAUNCHES != {"simt": 0, "wgmma": bwd}:
-        raise AssertionError(f"smollm training: launches {used}, flash by "
+            bwd_ops.ROUTE_LAUNCHES != {"simt": 0, "wgmma": bwd} or \
+            any(plain.calls.values()):
+        raise AssertionError(f"{arch} training: launches {used}, flash by "
                              f"route {ops.ROUTE_LAUNCHES}, backward by route "
-                             f"{bwd_ops.ROUTE_LAUNCHES} (expected {want}, "
-                             f"flash and backward on wgmma)")
+                             f"{bwd_ops.ROUTE_LAUNCHES}, plain versions "
+                             f"called {plain.calls} (expected {want}, flash "
+                             f"and backward on wgmma, no plain version)")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
-        raise AssertionError(f"smollm training: losses {losses} (finite "
+        raise AssertionError(f"{arch} training: losses {losses} (finite "
                              f"and falling expected)")
     step_s = statistics.median(secs[1:])
     tokens = GB * S
-    mfu = _model_flops(cfg, GB, S) / step_s / PEAK_FLOPS[torch.bfloat16]
-    log(f"  smollm_360m bf16 ({T.param_count(cfg):,} parameters, {gb:.3f} "
-        f"GB), {steps} steps of {GB} x {S} in {n_mb} microbatches, remat: "
-        f"losses {[round(x, 4) for x in losses]}; {step_s:.3f} s/step "
-        f"(median of steps 1-{steps - 1}; step 0 {secs[0]:.3f} s), "
+    flops = _model_flops(cfg, GB, S)
+    mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"  {arch} bf16 ({T.param_count(cfg):,} parameters, {gb:.3f} GB, "
+        f"window {cfg.sliding_window}), {steps} steps of {GB} x {S} in "
+        f"{n_mb} microbatches, remat: losses "
+        f"{[round(x, 4) for x in losses]}; {step_s:.3f} s/step (median of "
+        f"steps 1-{steps - 1}; step 0 {secs[0]:.3f} s), "
         f"{tokens / step_s:.1f} tokens/s; peak device memory {peak:.2f} GB; "
         f"launches {used}; flash by route {dict(ops.ROUTE_LAUNCHES)}, "
         f"backward by route {dict(bwd_ops.ROUTE_LAUNCHES)} (a step: "
-        f"{2 * L * n_mb} forward, {L * n_mb} backward calls)")
-    print(json.dumps({"smollm_train_mfu": mfu,
-                      "model_flop_per_step": _model_flops(cfg, GB, S),
+        f"{2 * L * n_mb} forward, {L * n_mb} backward calls); plain "
+        f"versions called {plain.calls}")
+    print(json.dumps({f"{arch}_train_mfu": mfu, "model_flop_per_step": flops,
                       "s_per_step": step_s}), flush=True)
 
     # a step's device time by kernel class (the profiler's trace), beside
@@ -3233,28 +3626,237 @@ def train_smollm_path(dev):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    device_ms, by = _device_ms(one, n=1)
+    names = {}
+    device_ms, by = _device_ms(one, n=1, names=names)
     wall = (time.perf_counter() - t0) * 1e3 / 2
-    log(f"  smollm_360m a training step: device time from the profiler's "
+    log(f"  {arch} a training step: device time from the profiler's "
         f"trace {device_ms:.1f} ms ("
         + ", ".join(f"{c} {ms:.1f}" for c, ms in sorted(
             by.items(), key=lambda kv: -kv[1]))
         + f"); the step's wall {wall:.1f} ms (host clock, mean of the "
-        f"untraced and the traced step): device busy {device_ms / wall:.3f}")
+        f"untraced and the traced step): device busy {device_ms / wall:.3f}"
+        f"; its top kernels: {_top_kernels(names)}")
     del params, opt
     gc.collect()
     torch.cuda.empty_cache()
     _, _, again, _ = run(2)
     same = again == losses[:2]
-    log(f"  a second run from seed 0: losses {again} "
+    log(f"  {arch} a second run from seed 0: losses {again} "
         f"{'equal' if same else 'NOT equal'} to the first run's bits "
         f"(the embedding's backward adds rows in an unspecified order)")
+    gc.collect()
+    torch.cuda.empty_cache()
     secs_phase = time.perf_counter() - t_phase
-    log(f"  phase 12 took {secs_phase:.1f} s")
+    log(f"  phase 12 {arch} took {secs_phase:.1f} s")
     return used, dict(losses=losses, step_s=step_s, step_secs=secs,
                       tokens_per_s=tokens / step_s, peak_gb=peak, mfu=mfu,
                       device_ms=device_ms, wall_ms=wall, by_class=by,
                       rerun_equal=same, seconds=secs_phase)
+
+
+def train_smollm_path(dev):
+    """Phase 12's SmolLM-360M leg: 8 steps of 16 x 4096 in 2 microbatches
+    (``train_dense_path``)."""
+    return train_dense_path(dev, "smollm_360m", 8, 16, 4096, 2)
+
+
+def train_danube_path(dev):
+    """Phase 12's H2O-Danube-1.8B leg (24 layers, d_model 2560, 32/8 heads
+    of 80, window 4096): 5 steps of 4 x 8192 in 2 microbatches, so that the
+    window binds (``train_dense_path``).  Five, not three: at AdamW's lr
+    1e-3 the third step's loss rises past the first's (by ~0.9 nats, in
+    bf16 and in fp32 on the CUDA-core kernels alike: the optimizer's
+    dynamics at this width, PERF.md) and the fifth falls below it."""
+    return train_dense_path(dev, "h2o_danube_1_8b", 5, 4, 8192, 2)
+
+
+# --------------------------------------------------------------- phase 13
+# Qwen3-30B-A3B trained at every published width, its depth cut 48 -> 4:
+# 3.11 B parameters, ~49.8 GB of bf16 weights, fp32 masters and moments
+# and bf16 gradients on the card's 80 GB
+MOE_TRAIN_LAYERS = 4
+
+
+def train_moe_path(dev):
+    """Qwen3-30B-A3B (d_model 2048, 32/4 heads of 128, 128 experts top-8 of
+    expert d_ff 768, vocab 151936) in bf16 at every published width with
+    ``MOE_TRAIN_LAYERS`` of its 48 layers, random weights from seed 0,
+    trained 4 steps through ``launch/steps.py::train_step`` on 4 x 4096
+    tokens of ``SyntheticLMStream`` (seed 0), one microbatch, remat on,
+    AdamW lr 1e-3.  The loss must be finite and fall and carry the aux
+    (read off the first step: loss = cross-entropy + AUX_COEF x the layers'
+    aux over their count, rtol 1e-5); each step must launch the flash
+    forward twice a layer (remat) and the backward once, all on wgmma, the
+    grouped GEMM 9 times a layer (3 forward, 3 recomputed, 3 dX), all on
+    wgmma, its weight gradient 3 times a layer, no other kernel and no
+    plain version.  Logs s/step, tokens/s, peak memory, the capacity drops
+    of the first step, a step's device time by kernel class beside its
+    wall, and the model FLOPs over active parameters' share of the bf16
+    dense peak.  Returns (launches of the steps, numbers)."""
+    from repro_torch import kernels, optim
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.launch.steps import train_step
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    full = get_config("qwen3_moe_30b")
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
+    L, steps, GB, S = cfg.num_layers, 4, 4, 4096
+    ocfg = optim.AdamWConfig(lr=1e-3, zero1=False)
+    stream = SyntheticLMStream(DataConfig(global_batch=GB, seq_len=S,
+                                          vocab_size=cfg.vocab_size, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in stream.batch_at(i).items()}
+               for i in range(steps + 2)]
+    n_params = T.param_count(cfg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, 0, dev)
+    opt = optim.init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"  qwen3_moe_30b bf16, {L} of {full.num_layers} layers: "
+        f"{n_params:,} parameters ({T.param_count(cfg, active_only=True):,} "
+        f"active), weights + fp32 masters and moments drawn in "
+        f"{init_s:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
+
+    # the first step's aux, cross-entropy and dispatch plans
+    auxes, ces, plans = [], [], []
+    orig_moe, orig_ce, orig_plan = moe.moe_fwd, T._chunked_ce, \
+        moe_ops.dispatch_plan
+
+    def rec_moe(c, p, x):
+        y, aux = orig_moe(c, p, x)
+        auxes.append(aux.detach())
+        return y, aux
+
+    def rec_ce(*a):
+        ce = orig_ce(*a)
+        ces.append(ce.detach())
+        return ce
+
+    def rec_plan(*a, **kw):
+        plan = orig_plan(*a, **kw)
+        plans.append(plan)
+        return plan
+
+    reset_counts()
+    plain = _PlainCalls()
+    losses, secs = [], []
+    try:
+        for i in range(steps):
+            if i == 0:
+                moe.moe_fwd, T._chunked_ce = rec_moe, rec_ce
+                moe_ops.dispatch_plan = rec_plan
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(cfg, params, opt, batches[i], ocfg,
+                             microbatches=1, remat=True)
+            losses.append(out["loss"].item())
+            secs.append(time.perf_counter() - t0)
+            moe.moe_fwd, T._chunked_ce = orig_moe, orig_ce
+            moe_ops.dispatch_plan = orig_plan
+            log(f"  qwen3_moe_30b step {i}: loss {losses[-1]:.6f}, grad "
+                f"norm {out['grad_norm'].item():.4f}, {secs[-1]:.3f} s")
+    finally:
+        moe.moe_fwd, T._chunked_ce = orig_moe, orig_ce
+        moe_ops.dispatch_plan = orig_plan
+        plain.restore()
+    used = kernels.launches()
+    routes = dict(moe_ops.ROUTE_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_bwd": L * steps, "moe_gemm": 9 * L * steps,
+            "moe_gemm_wgrad": 3 * L * steps}
+    if {k: n for k, n in used.items() if n} != want or \
+            ops.ROUTE_LAUNCHES != {"wgmma": want["flash_attention"],
+                                   "simt": 0} or \
+            bwd_ops.ROUTE_LAUNCHES != {"simt": 0, "wgmma": L * steps} or \
+            routes != {"wgmma": want["moe_gemm"], "mma": 0, "simt": 0} or \
+            any(plain.calls.values()):
+        raise AssertionError(f"qwen3_moe_30b training: launches {used}, "
+                             f"flash by route {ops.ROUTE_LAUNCHES}, "
+                             f"backward by route {bwd_ops.ROUTE_LAUNCHES}, "
+                             f"grouped GEMM by route {routes}, plain "
+                             f"versions called {plain.calls} (expected "
+                             f"{want}, all on wgmma, no plain version)")
+    # the first step's loss: its cross-entropy + the forward's L layers'
+    # aux; the recompute (layers in reverse) must route as the forward did
+    aux_first = [float(a) for a in auxes[:L]]
+    want_loss = float(ces[0]) + T.AUX_COEF * sum(aux_first) / L
+    if not all(math.isfinite(a) and a > 0 for a in aux_first) or \
+            not math.isclose(losses[0], want_loss, rel_tol=1e-5):
+        raise AssertionError(f"qwen3_moe_30b training: the first step's "
+                             f"loss {losses[0]} is not its cross-entropy "
+                             f"{float(ces[0])} + {T.AUX_COEF} x the aux "
+                             f"{aux_first} / {L}")
+    same_route = len(plans) == 2 * L and all(
+        torch.equal(a.dest, b.dest) and torch.equal(a.block_expert,
+                                                    b.block_expert)
+        for a, b in zip(plans[:L], plans[L:][::-1]))
+    if not same_route:
+        raise AssertionError(f"qwen3_moe_30b training: the recompute routed "
+                             f"otherwise than the forward ({len(plans)} "
+                             f"plans for {L} layers)")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"qwen3_moe_30b training: losses {losses} "
+                             f"(finite and falling expected)")
+    kept = [(int(p.keep.sum()), p.keep.numel()) for p in plans[:L]]
+    del plans
+    step_s = statistics.median(secs[1:])
+    tokens = GB * S
+    flops = _model_flops(cfg, GB, S, active_only=True)
+    mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    log(f"  qwen3_moe_30b {steps} steps of {GB} x {S}, one microbatch, "
+        f"remat: losses {[round(x, 4) for x in losses]} (step 0: "
+        f"cross-entropy {float(ces[0]):.6f} + {T.AUX_COEF} x aux "
+        f"{[round(a, 4) for a in aux_first]} / {L}; the recompute routed "
+        f"as the forward, bit for bit); {step_s:.3f} s/step "
+        f"(median of steps 1-{steps - 1}; step 0 {secs[0]:.3f} s), "
+        f"{tokens / step_s:.1f} tokens/s; peak device memory {peak:.2f} GB; "
+        f"capacity drops of step 0 by layer "
+        f"{[n - k for k, n in kept]} of {kept[0][1]} choices; launches "
+        f"{used}; grouped GEMM by route {routes}; plain versions called "
+        f"{plain.calls}; active-parameter MFU {mfu:.4f}")
+    print(json.dumps({"qwen3_moe_train_mfu": mfu,
+                      "model_flop_per_step": flops, "s_per_step": step_s}),
+          flush=True)
+
+    i = iter(range(steps, steps + 2))
+
+    def one():
+        train_step(cfg, params, opt, batches[next(i)], ocfg,
+                   microbatches=1, remat=True)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    names = {}
+    device_ms, by = _device_ms(one, n=1, names=names)
+    wall = (time.perf_counter() - t0) * 1e3 / 2
+    log(f"  qwen3_moe_30b a training step: device time from the profiler's "
+        f"trace {device_ms:.1f} ms ("
+        + ", ".join(f"{c} {ms:.1f}" for c, ms in sorted(
+            by.items(), key=lambda kv: -kv[1]))
+        + f"); the step's wall {wall:.1f} ms (host clock, mean of the "
+        f"untraced and the traced step): device busy {device_ms / wall:.3f}"
+        f"; its top kernels: {_top_kernels(names)}")
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    secs_phase = time.perf_counter() - t_phase
+    log(f"  phase 13 took {secs_phase:.1f} s")
+    return used, dict(layers=L, params=n_params, losses=losses,
+                      step_s=step_s, step_secs=secs,
+                      tokens_per_s=tokens / step_s, peak_gb=peak, mfu=mfu,
+                      init_s=init_s, drops=[n - k for k, n in kept],
+                      choices=kept[0][1], device_ms=device_ms, wall_ms=wall,
+                      by_class=by, seconds=secs_phase)
 
 
 def _leaves(tree):
@@ -3303,7 +3905,8 @@ def main() -> int:
     timer = Timer(dev)
     stats = [check_flash(dev, timer), check_flash_bwd(dev, timer),
              check_paged(dev, timer), check_fused_sampling(dev, timer),
-             check_moe_gemm(dev, timer), check_ssd_scan(dev, timer)]
+             check_moe_gemm(dev, timer), check_moe_gemm_wgrad(dev, timer),
+             check_ssd_scan(dev, timer)]
     log(f"  kernel-alone readings traced again after a dropped record: "
         f"{timer.retraced} rounds")
     del timer
@@ -3362,14 +3965,27 @@ def main() -> int:
     print(json.dumps({"encdec_vlm_path": served}), flush=True)
 
     log("== 12. training: SmolLM-360M bf16 at every published width and "
-        "full depth, 8 steps of 16 x 4096")
+        "full depth, 8 steps of 16 x 4096; H2O-Danube-1.8B the same, 5 "
+        "steps of 4 x 8192")
     trained, train_stats = train_smollm_path(dev)
     print(json.dumps({"train_path": train_stats}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    _, danube_stats = train_danube_path(dev)
+    print(json.dumps({"train_path_danube": danube_stats}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"== 13. training: Qwen3-30B-A3B bf16 at every published width, "
+        f"{MOE_TRAIN_LAYERS} of its 48 layers, 4 steps of 4 x 4096")
+    moe_trained, moe_train_stats = train_moe_path(dev)
+    print(json.dumps({"train_path_moe": moe_train_stats}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
-                         "ssd_scan": ssm, "flash_attention_bwd": trained}.get(
+                         "ssd_scan": ssm, "flash_attention_bwd": trained,
+                         "moe_gemm_wgrad": moe_trained}.get(
             s["name"], greedy)[s["name"]]
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")

@@ -102,7 +102,7 @@ class ModuleRuntime:
                 if on_yield is not None:
                     on_yield("attention", l, g)     # intra-forward YIELD
             # COMBINE: the yielded sub-batches -> one B_moe batch
-            h = T.ffn(cfg, p, torch.cat(parts, dim=0))
+            h = T.ffn(cfg, p, torch.cat(parts, dim=0))[0]
             if traces is not None:
                 traces.append(ModuleTrace("moe" if cfg.is_moe else "mlp", l,
                                           B, B))

@@ -7,10 +7,12 @@
 // v (B, Skv, Hkv, D) with explicit q/kv positions, causal or not, Sq != Skv
 // and GQA (q head h reads kv head h / (H / Hkv)); from the forward's out
 // (B, Sq, H, D), its log-sum-exp lse (B, Sq, H) fp32 (natural-log units of
-// the scaled scores) and dout (B, Sq, H, D), it writes dq, dk, dv in the
-// input type.  The scale is 1/sqrt(D); every sum is fp32.  A window or a
-// softcap is not taken (the wrapper raises).  Head dims 32, 64 and 128 are
-// instantiated.
+// the scaled, softcapped scores) and dout (B, Sq, H, D), it writes dq, dk,
+// dv in the input type.  The scale is 1/sqrt(D); every sum is fp32.  A
+// sliding window masks the keys at or below q position - window; a tanh
+// softcap takes S = tanh(S_pre / cap) cap before the mask and multiplies
+// dS by its chain factor 1 - (S / cap)^2, as the reference's _bwd does.
+// Head dims 32, 64, 80 (H2O-Danube-1.8B) and 128 are instantiated.
 //
 // What bounds it on an H100: at the training shape (SmolLM-360M, B=8,
 // S=4096, H=15 on 5, D=64, causal) the work is ~0.65 TFLOP (2.5 times the
@@ -22,8 +24,9 @@
 //   2. dK/dV: one CTA per (key tile, kv head, batch row) walks the q tiles
 //      of its G q heads that may attend to its keys and adds, each step,
 //      dV += P^T dO and dK += dS^T Q, recomputing S^T = K Q^T, P^T =
-//      exp(S^T scale - lse) (0 where masked), dP^T = V dO^T and dS^T =
-//      P^T (dP^T - Dl); dK is scaled once at the end;
+//      exp(S^T scale - lse) (0 where masked; under a softcap exp(tanh(S^T
+//      scale / cap) cap - lse)), dP^T = V dO^T and dS^T = P^T (dP^T - Dl)
+//      (times the softcap's chain factor); dK is scaled once at the end;
 //   3. dQ: one CTA per (q tile, q head, batch row) walks the key tiles it
 //      may attend to, recomputing S, P, dP and dS, and adds dQ += dS K,
 //      scaled at the end.
@@ -64,13 +67,25 @@
 // - Registers (168 a thread): dK and dV take D/2 fp32 each, S^T and dP^T
 //   BN/2 each, their hi + lo fragments BN/4 each.  D = 32 and 64: each
 //   consumer owns 64 of the CTA's 128 keys and adds both, BN = 64 (at D =
-//   64 this fills the 168 with a few bytes spilled).
+//   64 this fills the 168 with a few bytes spilled).  D = 80: each consumer
+//   owns 64 keys and adds both, BN = 32 (dK and dV take 80, S^T and dP^T
+//   32 and their fragments 32: D = 64's budget).  Its rows are two
+//   64-column TMA boxes over maps of extent 80, the second arriving
+//   zero-filled past column 80 (as the forward's); S^T = K Q^T and dP^T run
+//   5 k16 steps, and a product at N = 80 is an n64 product over the first
+//   box and an n16 over the second (sm90::wgmma_rs<80>), whose registers lie
+//   as one n80 product's.  ptxas: dQ 144-166 registers, dK/dV 161-168, no
+//   spills (PERF.md).
 //   D = 128: dK and dV alone would take 128, so both consumers own the
 //   CTA's 64 keys, consumer 0 adds dV (from S^T only) and consumer 1 dK,
 //   BN = 32; that recomputes S^T once more (7 units of product work where
 //   the others do 6) but spills nothing.  The two roles are separate
 //   instantiations of the walk: ptxas serializes every wgmma of a kernel
 //   that issues one on a branch it cannot prove uniform.
+// - A softcap and a window are compile-time flags of both walks (CAP, WIN;
+//   four instantiations a head dim): with them as runtime branches the
+//   uncapped, unwindowed walks lost registers to code they never run and
+//   took ~7% longer at the training shapes of the dense decoders.
 // - dQ: the CTA's 128 q rows of Q and dO are loaded once; K, V and the kv
 //   positions of each visited 64-key tile stream through the ring; S = Q
 //   K^T and dP = dO V^T by SS wgmma, P and dS in registers, dQ += dS K by
@@ -80,18 +95,21 @@
 //   shared memory the least and greatest position of every tile it may
 //   walk (8 bytes a tile).  The producer and the consumers then walk the
 //   same tiles in the same order, each dropping a tile that lies wholly
-//   above the causal limit for every row of the CTA, so the producer loads
-//   ahead with no vote.  A consumer skips the products of a tile none of
-//   its 64 rows may attend to, and the per-element mask of one whose every
-//   pair is allowed.  The tile index is the grid's slowest dimension, taken
-//   from the heaviest end under a causal mask (dK/dV's first key tiles,
+//   above the causal limit or wholly outside the window for every row of
+//   the CTA (a dK/dV CTA visits q tiles only from its least key position
+//   up to its greatest + window, a dQ CTA key tiles only from its least q
+//   position - window up to its greatest), so the producer loads ahead with
+//   no vote.  A consumer skips the products of a tile none of its 64 rows
+//   may attend to, and the per-element mask of one whose every pair is
+//   allowed (the softcap's tanh and chain factor stay).  The tile index is
+//   the grid's slowest dimension, taken from the heaviest end under a causal mask (dK/dV's first key tiles,
 //   dQ's last q tiles): the longest CTAs of every head start first, and the
 //   last wave is short ones.
-// - Shared memory: dK/dV holds K and V (16, 32, 32 KiB at D = 32, 64, 128)
-//   and 4 stages of 9, 17, 17 KiB; dQ holds Q and dO (16, 32, 64 KiB) and
-//   4 stages of 9, 17, 33 KiB.  The tile ranges take what is left of the
-//   227 KiB, which caps Sq and Skv (repro_flash_bwd_max_len: ~237K at
-//   D = 128).
+// - Shared memory: dK/dV holds K and V (16, 32, 64, 32 KiB at D = 32, 64,
+//   80, 128) and 4 stages of 9, 17, 17, 17 KiB; dQ holds Q and dO (16, 32,
+//   64, 64 KiB) and 4 stages of 9, 17, 33, 33 KiB.  The tile ranges take
+//   what is left of the 227 KiB, which caps Sq and Skv
+//   (repro_flash_bwd_max_len: 244,928 at D = 80 and 128).
 // - Where the time goes (PERF.md, SmolLM-360M's shape): the loads and
 //   barriers alone (no products, no exponentials) take ~0.3 ms a kernel;
 //   the rest is the products and, in dQ, the exponentials and splits,
@@ -131,6 +149,13 @@ constexpr int PS = BK + 4;  // row stride of the P / dS tiles (16-byte rows)
 // route's scratch
 __host__ __device__ constexpr int pad64(int n) { return (n + 63) / 64 * 64; }
 
+// Lanes of the bf16 preprocess a row: D / 8 (16 bytes each) rounded up to a
+// power of two (16 at D = 80, whose last 6 lanes read nothing), so that a
+// row's lanes sit in one warp and sum by butterfly shuffles.
+__host__ __device__ constexpr int row_lanes(int D) {
+  return D / 8 <= 4 ? 4 : D / 8 <= 8 ? 8 : 16;
+}
+
 // sum_d g[d] * o[d] over one row, in every lane of the warp
 template <typename T, int D>
 __device__ __forceinline__ float row_dot(const T* __restrict__ o,
@@ -146,7 +171,7 @@ __device__ __forceinline__ float row_dot(const T* __restrict__ o,
 }
 
 // Dl = rowsum(dout * out).  Plain (fp32 route): one warp a row, Dl is
-// (B, Sq, H).  Tiled (bf16 route): D / 8 lanes a row, and Dl is the wgmma
+// (B, Sq, H).  Tiled (bf16 route): row_lanes(D) lanes a row, and Dl is the wgmma
 // kernels' scratch: for each (b, h) three rows of Sqp fp32, lse, Dl and the
 // q position's bits (rows s >= Sq hold 0), rows running s fastest so that
 // neighbours write side by side; then, from the blocks of blockIdx.y = 1,
@@ -175,8 +200,8 @@ flash_bwd_preprocess(const T* __restrict__ out, const T* __restrict__ dout,
           j < Skv ? kv_pos[(size_t)b * Skv + j] : 0;
       return;
     }
-    // D / 8 lanes a row, 16 bytes of out and dout each
-    constexpr int L = D / 8;
+    // L lanes a row, 16 bytes of out and dout each (D / 8 of them)
+    constexpr int L = row_lanes(D);
     const long long r = ((long long)blockIdx.x * NT + threadIdx.x) / L;
     const int sub = threadIdx.x % L;
     const bool live = r < (long long)B * H * Sqp;  // a row's lanes agree
@@ -187,16 +212,20 @@ flash_bwd_preprocess(const T* __restrict__ out, const T* __restrict__ dout,
     if (live && s < Sq) {
       const int h = int(bh % H), b = int(bh / H);
       const long long row = ((long long)b * Sq + s) * H + h;
-      const uint4 o = reinterpret_cast<const uint4*>(out + row * D)[sub];
-      const uint4 g = reinterpret_cast<const uint4*>(dout + row * D)[sub];
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o);
-      const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&g);
+      if (sub < D / 8) {
+        const uint4 o = reinterpret_cast<const uint4*>(out + row * D)[sub];
+        const uint4 g = reinterpret_cast<const uint4*>(dout + row * D)[sub];
+        const __nv_bfloat162* o2 =
+            reinterpret_cast<const __nv_bfloat162*>(&o);
+        const __nv_bfloat162* g2 =
+            reinterpret_cast<const __nv_bfloat162*>(&g);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 x = __bfloat1622float2(o2[i]);
-        const float2 y = __bfloat1622float2(g2[i]);
-        acc = fmaf(y.x, x.x, acc);
-        acc = fmaf(y.y, x.y, acc);
+        for (int i = 0; i < 4; ++i) {
+          const float2 x = __bfloat1622float2(o2[i]);
+          const float2 y = __bfloat1622float2(g2[i]);
+          acc = fmaf(y.x, x.x, acc);
+          acc = fmaf(y.y, x.y, acc);
+        }
       }
       ls = lse[row];
       qp = q_pos[(size_t)b * Sq + s];
@@ -231,14 +260,17 @@ __device__ __forceinline__ void load_tile(float* dst,
 
 // The 4 x 4 scores of this thread, S = A B^T and dP = C E^T over D (A, C:
 // the q-side tiles Q, dO; B, E: the key-side tiles K, V), then P and dS in
-// place of them: P = exp(S * scale - lse) where ok, else 0; dS = P (dP - Dl).
+// place of them: P = exp(S * scale - lse) where ok, else 0; dS = P (dP -
+// Dl).  Under a softcap S * scale becomes tanh(S * scale / cap) cap and dS
+// takes the chain factor 1 - tanh^2.
 template <int D>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
                                        const float* Ks, const float* Vs,
                                        int ty, int tx, const bool (&ok)[4][4],
                                        const float (&lse)[4],
                                        const float (&dl)[4], float scale,
-                                       float (&p)[4][4], float (&ds)[4][4]) {
+                                       float softcap, float (&p)[4][4],
+                                       float (&ds)[4][4]) {
   constexpr int DP = D + 1;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -269,9 +301,15 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const float pij = ok[i][j] ? expf(p[i][j] * scale - lse[i]) : 0.f;
+      float x = p[i][j] * scale, chain = 1.f;
+      if (softcap > 0.f) {
+        const float th = tanhf(x / softcap);
+        x = th * softcap;
+        chain = 1.f - th * th;
+      }
+      const float pij = ok[i][j] ? expf(x - lse[i]) : 0.f;
       p[i][j] = pij;
-      ds[i][j] = pij * (ds[i][j] - dl[i]);
+      ds[i][j] = pij * (ds[i][j] - dl[i]) * chain;
     }
 }
 
@@ -280,7 +318,7 @@ __device__ __forceinline__ int pair_mask(const int (&qp)[4],
                                          const bool (&qin)[4],
                                          const int (&kp)[4],
                                          const bool (&kin)[4], int causal,
-                                         bool (&ok)[4][4]) {
+                                         int window, bool (&ok)[4][4]) {
   int any = 0;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -288,6 +326,7 @@ __device__ __forceinline__ int pair_mask(const int (&qp)[4],
     for (int j = 0; j < 4; ++j) {
       bool o = qin[i] && kin[j];
       if (causal) o = o && kp[j] <= qp[i];
+      if (window > 0) o = o && kp[j] > qp[i] - window;
       ok[i][j] = o;
       any |= o;
     }
@@ -302,7 +341,8 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ Dl, const T* __restrict__ dout,
                     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv,
-                    int H, int Hkv, int causal, float scale) {
+                    int H, int Hkv, int causal, int window, float softcap,
+                    float scale) {
   constexpr int DP = D + 1, DC = D / 16;
   extern __shared__ float smem[];
   float* Ks = smem;             // BK x DP
@@ -350,7 +390,7 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
         dl[i] = qin[i] ? Dl[row] : 0.f;
       }
       bool ok[4][4];
-      const int any = pair_mask(qp, qin, kp, kin, causal, ok);
+      const int any = pair_mask(qp, qin, kp, kin, causal, window, ok);
       // also the barrier between the last step's readers and this step's
       // writers of Qs, dOs, Ps and dSs (and, first, the K/V loads)
       if (!__syncthreads_or(any)) continue;
@@ -359,7 +399,7 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 
       float p[4][4], ds[4][4];
-      scores<D>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, p, ds);
+      scores<D>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, softcap, p, ds);
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -412,7 +452,8 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
                   const int* __restrict__ kv_pos,
                   const float* __restrict__ lse, const float* __restrict__ Dl,
                   const T* __restrict__ dout, T* __restrict__ dq, int Sq,
-                  int Skv, int H, int Hkv, int causal, float scale) {
+                  int Skv, int H, int Hkv, int causal, int window,
+                  float softcap, float scale) {
   constexpr int DP = D + 1, DC = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;             // BQ x DP
@@ -458,7 +499,7 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
       kp[j] = kin[j] ? kv_pos[(size_t)b * Skv + kj] : 0;
     }
     bool ok[4][4];
-    const int any = pair_mask(qp, qin, kp, kin, causal, ok);
+    const int any = pair_mask(qp, qin, kp, kin, causal, window, ok);
     // also the barrier between the last step's readers and this step's
     // writers of Ks, Vs and dSs (and, first, the Q/dO loads)
     if (!__syncthreads_or(any)) continue;
@@ -467,7 +508,7 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     float p[4][4], ds[4][4];
-    scores<D>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, p, ds);
+    scores<D>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, softcap, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -523,18 +564,20 @@ __host__ __device__ constexpr uint32_t up1024(uint32_t x) {
 
 // Shared-memory geometry at head dim D, offsets from a 1024-aligned base.
 // A TMA box is at most 64 bf16 columns (128 bytes, the swizzle's width);
-// D = 128 takes two boxes a row, stored one after the other.
+// D = 80 and 128 take two boxes a row, stored one after the other (at 80
+// the second holds columns 64..79 and zeros).
 template <int D>
 struct Geo {
   static constexpr int kBoxCols = D < 64 ? D : 64;
-  static constexpr int kBoxes = D / kBoxCols;
+  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;
   static constexpr int kRowBytes = kBoxCols * 2;
   static constexpr uint32_t kRow = kBoxes * kRowBytes;  // bytes a tile row
   static constexpr uint32_t kAtom = 8 * kRowBytes;      // 8 rows of a box
   static constexpr uint64_t kSwizzle =
       D < 64 ? sm90::kSwizzle64 : sm90::kSwizzle128;
   static constexpr int kKSteps = kBoxCols / 16;  // k16 steps a box
-  static constexpr int BN = D == 128 ? 32 : 64;  // q rows a dK/dV step
+  // q rows a dK/dV step
+  static constexpr int BN = D == 80 || D == 128 ? 32 : 64;
   static constexpr int kStages = 4;              // ring stages
   // D = 128: dK and dV would take 128 of a consumer's 168 registers, so the
   // two consumers share one 64-key tile, consumer 0 adding dV and consumer
@@ -668,8 +711,10 @@ __device__ __forceinline__ void store2(bf16* p, float a, float c) {
 }
 
 // dK/dV of BKV keys of one kv head.  A consumer thread holds keys r0 and
-// r0 + 8 of its 64 (rows of S^T), q columns 8 j + c0 + {0, 1}.
-template <int D>
+// r0 + 8 of its 64 (rows of S^T), q columns 8 j + c0 + {0, 1}.  CAP: a
+// softcap, WIN: a window (window > 0); separate instantiations, so that
+// the walk without them keeps its registers.
+template <int D, bool CAP, bool WIN>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
@@ -679,7 +724,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const int* __restrict__ q_pos,
                      const int* __restrict__ kv_pos, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
-                     int causal, float scale) {
+                     int causal, int window, float softcap, float scale) {
   using G = Geo<D>;
   constexpr int BN = G::BN, BKV = G::BKV, RB = G::kRowBytes;
   constexpr bool kSplit = G::kSplit;
@@ -723,8 +768,14 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   tile_ranges<BN>(q_pos + (size_t)b * Sq, Sq, qlo, qhi);
   __syncthreads();
   const int klo = min(min(red[0], red[1]), min(red[2], red[3]));
-  // q tile t is walked if a row of it may attend to a key of the CTA
-  auto walked = [&](int t) { return !causal || qhi[t] >= klo; };
+  const int khi = max(max(red[4], red[5]), max(red[6], red[7]));
+  // q tile t is walked if a row of it may attend to a key of the CTA: not
+  // wholly above the causal limit, nor wholly past the window (q positions
+  // only up to the greatest key's + window)
+  auto walked = [&](int t) {
+    return (!causal || qhi[t] >= klo) &&
+           (!WIN || (long long)qlo[t] - window < khi);
+  };
 
   if (warp == 4 * NC) {  // the producer warp: lane 0 issues every load
     if (lane == 0) {
@@ -768,6 +819,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   const int whi = max(red[4 + kw / 32], red[4 + kw / 32 + 1]);
   const bool wany = kw0 < Skv, wall = kw0 + 64 <= Skv;
   const float sl2e = scale * kLog2e;
+  // under a softcap: S scale / cap, and the capped score's log2 factor
+  const float s_cap = softcap > 0.f ? scale / softcap : 0.f;
+  const float cap_l2e = softcap * kLog2e;
   const uint32_t k_rows = sK + kw * RB, v_rows = sV + kw * RB;
   sm90::mbar_wait(bar_kv, 0);
 
@@ -789,9 +843,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
         const int st = i % G::kStages, q0 = t * BN;
         // no key of this consumer meets a row of the tile (skip), or every
         // pair is allowed (no per-element mask)
-        const bool skip = !wany || (causal && qhi[t] < wlo);
+        const bool skip = !wany || (causal && qhi[t] < wlo) ||
+                          (WIN && (long long)qlo[t] - window >= whi);
         const bool full =
-            wall && q0 + BN <= Sq && (!causal || whi <= qlo[t]);
+            wall && q0 + BN <= Sq && (!causal || whi <= qlo[t]) &&
+            (!WIN || (long long)qhi[t] - window < wlo);
         const uint32_t sQ = sK + G::kKvRing + st * G::kKvStage;
         const uint32_t sdO = sQ + BN * G::kRow;
         const float* ld = reinterpret_cast<const float*>(
@@ -813,28 +869,41 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           sm90::fence_regs(s);
           sm90::fence_regs(dp);
 
-          // P^T = exp(S^T scale - lse) (0 where masked) into s, dS^T = P^T
-          // (dP^T - Dl) into dp, for q columns c = 8 j + c0 + e (the lse
-          // row is in log2 units)
+          // P^T = exp(S^T scale - lse) (0 where masked; under a softcap
+          // exp(tanh(S^T scale / cap) cap - lse)) into s, dS^T = P^T (dP^T -
+          // Dl) (times the softcap's 1 - tanh^2) into dp, for q columns c =
+          // 8 j + c0 + e (the lse row is in log2 units)
 #pragma unroll
           for (int j = 0; j < BN / 8; ++j) {
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int c = 8 * j + c0 + e;
-              float p0 = ex2(fmaf(s[4 * j + e], sl2e, -ld[c]));
-              float p1 = ex2(fmaf(s[4 * j + 2 + e], sl2e, -ld[c]));
+              float p0, p1, ch0 = 1.f, ch1 = 1.f;
+              if constexpr (CAP) {
+                const float t0 = tanhf(s[4 * j + e] * s_cap);
+                const float t1 = tanhf(s[4 * j + 2 + e] * s_cap);
+                p0 = ex2(fmaf(t0, cap_l2e, -ld[c]));
+                p1 = ex2(fmaf(t1, cap_l2e, -ld[c]));
+                ch0 = 1.f - t0 * t0;
+                ch1 = 1.f - t1 * t1;
+              } else {
+                p0 = ex2(fmaf(s[4 * j + e], sl2e, -ld[c]));
+                p1 = ex2(fmaf(s[4 * j + 2 + e], sl2e, -ld[c]));
+              }
               if (!full) {
                 const int qp = __float_as_int(ld[2 * BN + c]);
                 const bool qin = q0 + c < Sq;
-                p0 = qin && kin0 && (!causal || kp0 <= qp) ? p0 : 0.f;
-                p1 = qin && kin1 && (!causal || kp1 <= qp) ? p1 : 0.f;
+                const bool w0 = !WIN || kp0 > qp - window;
+                const bool w1 = !WIN || kp1 > qp - window;
+                p0 = qin && kin0 && w0 && (!causal || kp0 <= qp) ? p0 : 0.f;
+                p1 = qin && kin1 && w1 && (!causal || kp1 <= qp) ? p1 : 0.f;
               }
               s[4 * j + e] = p0;
               s[4 * j + 2 + e] = p1;
               if constexpr (DK) {
                 const float dl = ld[BN + c];
-                dp[4 * j + e] = p0 * (dp[4 * j + e] - dl);
-                dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl);
+                dp[4 * j + e] = p0 * (dp[4 * j + e] - dl) * ch0;
+                dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl) * ch1;
               }
             }
           }
@@ -857,8 +926,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
             for (int kk = 0; kk < BN / 16; ++kk) {
               const uint64_t bdo = sm90::desc(sdO + kk * 16 * RB, BN * RB,
                                               G::kAtom, G::kSwizzle);
-              sm90::wgmma_rs<D>(acc_v, ph[kk], bdo);
-              sm90::wgmma_rs<D>(acc_v, pl[kk], bdo);
+              sm90::wgmma_rs<D>(acc_v, ph[kk], bdo, BN * RB);
+              sm90::wgmma_rs<D>(acc_v, pl[kk], bdo, BN * RB);
             }
           }
           if constexpr (DK) {
@@ -866,8 +935,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
             for (int kk = 0; kk < BN / 16; ++kk) {
               const uint64_t bq = sm90::desc(sQ + kk * 16 * RB, BN * RB,
                                              G::kAtom, G::kSwizzle);
-              sm90::wgmma_rs<D>(acc_k, sh[kk], bq);
-              sm90::wgmma_rs<D>(acc_k, sl[kk], bq);
+              sm90::wgmma_rs<D>(acc_k, sh[kk], bq, BN * RB);
+              sm90::wgmma_rs<D>(acc_k, sl[kk], bq, BN * RB);
             }
           }
           sm90::wgmma_commit();
@@ -908,8 +977,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 // dQ of BR q rows of one q head.  A consumer thread holds rows r0 and
-// r0 + 8 of its 64, columns 8 j + c0 + {0, 1}.
-template <int D>
+// r0 + 8 of its 64, columns 8 j + c0 + {0, 1}.  CAP, WIN: as dK/dV's.
+template <int D, bool CAP, bool WIN>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo,
@@ -919,7 +988,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const int* __restrict__ q_pos,
                    const int* __restrict__ kv_pos,
                    const float* __restrict__ scratch, bf16* __restrict__ dq,
-                   int Sq, int Skv, int H, int Hkv, int causal, float scale) {
+                   int Sq, int Skv, int H, int Hkv, int causal, int window,
+                   float softcap, float scale) {
   using G = Geo<D>;
   constexpr int RB = G::kRowBytes;
   extern __shared__ unsigned char smem_raw[];
@@ -961,9 +1031,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   row_ranges(q_pos + (size_t)b * Sq, q0, BR, Sq, red);
   tile_ranges<BK>(kv_pos + (size_t)b * Skv, Skv, klo, khi);
   __syncthreads();
+  const int qlo = min(min(red[0], red[1]), min(red[2], red[3]));
   const int qhi = max(max(red[4], red[5]), max(red[6], red[7]));
-  // key tile t is walked if a row of the CTA may attend to a key of it
-  auto walked = [&](int t) { return !causal || klo[t] <= qhi; };
+  // key tile t is walked if a row of the CTA may attend to a key of it: not
+  // wholly above the causal limit, nor wholly before the window (key
+  // positions only from the least row's - window)
+  auto walked = [&](int t) {
+    return (!causal || klo[t] <= qhi) &&
+           (!WIN || (long long)khi[t] > (long long)qlo - window);
+  };
 
   if (warp == 4 * NC) {  // the producer warp: lane 0 issues every load
     if (lane == 0) {
@@ -1009,6 +1085,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const int whi = max(red[4 + 2 * cw], red[4 + 2 * cw + 1]);
   const bool wany = qw0 < Sq, wall = qw0 + 64 <= Sq;
   const float sl2e = scale * kLog2e;
+  const float s_cap = softcap > 0.f ? scale / softcap : 0.f;
+  const float cap_l2e = softcap * kLog2e;
   const uint32_t q_rows = sQ + 64 * cw * RB, do_rows = sdO + 64 * cw * RB;
 
   float acc[D / 2];
@@ -1020,8 +1098,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   for (int t = 0; t < nkt; ++t) {
     if (!walked(t)) continue;
     const int st = i % G::kStages, k0 = t * BK;
-    const bool skip = !wany || (causal && klo[t] > whi);
-    const bool full = wall && k0 + BK <= Skv && (!causal || khi[t] <= wlo);
+    const bool skip =
+        !wany || (causal && klo[t] > whi) ||
+        (WIN && (long long)khi[t] <= (long long)wlo - window);
+    const bool full =
+        wall && k0 + BK <= Skv && (!causal || khi[t] <= wlo) &&
+        (!WIN || (long long)klo[t] > (long long)whi - window);
     const uint32_t sK = sQ + G::kQRing + st * G::kQStage;
     const uint32_t sV = sK + BK * G::kRow;
     const int* kvp = reinterpret_cast<const int*>(
@@ -1042,22 +1124,35 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_wait_all();
       sm90::fence_regs(s);
       sm90::fence_regs(dp);
-      // dS = P (dP - Dl), P = exp(S scale - lse) (0 where masked), for
-      // keys c = 8 j + c0 + e
+      // dS = P (dP - Dl) (times the softcap's 1 - tanh^2), P = exp(S scale
+      // - lse) (0 where masked; under a softcap exp(tanh(S scale / cap) cap
+      // - lse)), for keys c = 8 j + c0 + e
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float p0 = ex2(fmaf(s[4 * j + e], sl2e, -l2_0));
-          float p1 = ex2(fmaf(s[4 * j + 2 + e], sl2e, -l2_1));
+          float p0, p1, ch0 = 1.f, ch1 = 1.f;
+          if constexpr (CAP) {
+            const float t0 = tanhf(s[4 * j + e] * s_cap);
+            const float t1 = tanhf(s[4 * j + 2 + e] * s_cap);
+            p0 = ex2(fmaf(t0, cap_l2e, -l2_0));
+            p1 = ex2(fmaf(t1, cap_l2e, -l2_1));
+            ch0 = 1.f - t0 * t0;
+            ch1 = 1.f - t1 * t1;
+          } else {
+            p0 = ex2(fmaf(s[4 * j + e], sl2e, -l2_0));
+            p1 = ex2(fmaf(s[4 * j + 2 + e], sl2e, -l2_1));
+          }
           if (!full) {
             const int c = 8 * j + c0 + e, kp = kvp[c];
             const bool kin = k0 + c < Skv;
-            p0 = qin0 && kin && (!causal || kp <= qp0) ? p0 : 0.f;
-            p1 = qin1 && kin && (!causal || kp <= qp1) ? p1 : 0.f;
+            const bool w0 = !WIN || kp > qp0 - window;
+            const bool w1 = !WIN || kp > qp1 - window;
+            p0 = qin0 && kin && w0 && (!causal || kp <= qp0) ? p0 : 0.f;
+            p1 = qin1 && kin && w1 && (!causal || kp <= qp1) ? p1 : 0.f;
           }
-          dp[4 * j + e] = p0 * (dp[4 * j + e] - dl0);
-          dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl1);
+          dp[4 * j + e] = p0 * (dp[4 * j + e] - dl0) * ch0;
+          dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl1) * ch1;
         }
       }
 
@@ -1072,8 +1167,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t bk = sm90::desc(sK + kk * 16 * RB, BK * RB, G::kAtom,
                                        G::kSwizzle);
-        sm90::wgmma_rs<D>(acc, sh[kk], bk);
-        sm90::wgmma_rs<D>(acc, sl[kk], bk);
+        sm90::wgmma_rs<D>(acc, sh[kk], bk, BK * RB);
+        sm90::wgmma_rs<D>(acc, sl[kk], bk, BK * RB);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
@@ -1145,8 +1240,8 @@ template <int D>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
                    const int* q_pos, const int* kv_pos, const bf16* dout,
                    float* scratch, bf16* dq, bf16* dk, bf16* dv, int B,
-                   int Sq, int Skv, int H, int Hkv, int causal, float scale,
-                   cudaStream_t stream) {
+                   int Sq, int Skv, int H, int Hkv, int causal, int window,
+                   float softcap, float scale, cudaStream_t stream) {
   using G = Geo<D>;
   if (Sq > G::max_len() || Skv > G::max_len()) return cudaErrorInvalidValue;
   const int Sqp = pad64(Sq), Skvp = pad64(Skv);
@@ -1168,23 +1263,30 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
   if (err != cudaSuccess) return err;
 
   const size_t smem_kv = G::smem_kv((Sq + G::BN - 1) / G::BN);
-  auto kern_kv = flash_bwd_dkdv_wgmma<D>;
+  const bool cap = softcap > 0.f, win = window > 0;
+  auto kern_kv = cap ? (win ? &flash_bwd_dkdv_wgmma<D, true, true>
+                            : &flash_bwd_dkdv_wgmma<D, true, false>)
+                     : (win ? &flash_bwd_dkdv_wgmma<D, false, true>
+                            : &flash_bwd_dkdv_wgmma<D, false, false>);
   err = rt::allow_smem(kern_kv, smem_kv);
   if (err != cudaSuccess) return err;
   kern_kv<<<dim3(Hkv * B, (Skv + G::BKV - 1) / G::BKV), NT, smem_kv,
               stream>>>(
       tq, tdo, tk, tv, tld, q_pos, kv_pos, dk, dv, Sq, Skv, H, Hkv, causal,
-      scale);
+      window, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   const size_t smem_q = G::smem_q((Skv + BK - 1) / BK);
-  auto kern_q = flash_bwd_dq_wgmma<D>;
+  auto kern_q = cap ? (win ? &flash_bwd_dq_wgmma<D, true, true>
+                           : &flash_bwd_dq_wgmma<D, true, false>)
+                    : (win ? &flash_bwd_dq_wgmma<D, false, true>
+                           : &flash_bwd_dq_wgmma<D, false, false>);
   err = rt::allow_smem(kern_q, smem_q);
   if (err != cudaSuccess) return err;
   kern_q<<<dim3(H * B, (Sq + BR - 1) / BR), NT, smem_q, stream>>>(
       tq2, tdo2, tk2, tv2, tkp, q_pos, kv_pos, scratch, dq, Sq, Skv, H, Hkv,
-      causal, scale);
+      causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
@@ -1195,7 +1297,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* kv_pos, const void* out,
                    const float* lse, const void* dout, void* dq, void* dk,
                    void* dv, float* Dl, int B, int Sq, int Skv, int H,
-                   int Hkv, int causal, float scale, cudaStream_t stream) {
+                   int Hkv, int causal, int window, float softcap,
+                   float scale, cudaStream_t stream) {
   constexpr int DP = D + 1;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -1206,7 +1309,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     const long long rows = (long long)B * H * pad64(Sq);
     const long long kvs = (long long)B * pad64(Skv);
-    constexpr int RPB = NT / (D / 8);  // rows a block
+    constexpr int RPB = NT / row_lanes(D);  // rows a block
     const long long br = (rows + RPB - 1) / RPB, bk = (kvs + NT - 1) / NT;
     const long long blocks = br > bk ? br : bk;
     flash_bwd_preprocess<T, D, true><<<dim3((unsigned)blocks, 2), NT, 0,
@@ -1217,7 +1320,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     return wg::launch<D>(qt, kt, vt, q_pos, kv_pos, gt, Dl,
                          static_cast<T*>(dq), static_cast<T*>(dk),
                          static_cast<T*>(dv), B, Sq, Skv, H, Hkv, causal,
-                         scale, stream);
+                         window, softcap, scale, stream);
   } else {
     const long long rows = (long long)B * Sq * H;
     constexpr int WB = NT / 32;  // rows (warps) a block
@@ -1234,7 +1337,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     kern_kv<<<dim3((Skv + BK - 1) / BK, Hkv, B), NT, smem_kv, stream>>>(
         qt, kt, vt, q_pos, kv_pos, lse, Dl, gt, static_cast<T*>(dk),
-        static_cast<T*>(dv), Sq, Skv, H, Hkv, causal, scale);
+        static_cast<T*>(dv), Sq, Skv, H, Hkv, causal, window, softcap,
+        scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
@@ -1245,7 +1349,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     kern_q<<<dim3((Sq + BQ - 1) / BQ, H, B), NT, smem_q, stream>>>(
         qt, kt, vt, q_pos, kv_pos, lse, Dl, gt, static_cast<T*>(dq), Sq,
-        Skv, H, Hkv, causal, scale);
+        Skv, H, Hkv, causal, window, softcap, scale);
     return cudaGetLastError();
   }
 }
@@ -1256,13 +1360,16 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                      const int* q_pos, const int* kv_pos, const void* out,
                      const float* lse, const void* dout, void* dq, void* dk,
                      void* dv, float* Dl, int B, int Sq, int Skv, int H,
-                     int Hkv, int causal, float scale, cudaStream_t stream) {
+                     int Hkv, int causal, int window, float softcap,
+                     float scale, cudaStream_t stream) {
 #define REPRO_FLASH_BWD_CASE(A)                                             \
   if (D == A)                                                               \
     return launch<T, A>(q, k, v, q_pos, kv_pos, out, lse, dout, dq, dk, dv, \
-                        Dl, B, Sq, Skv, H, Hkv, causal, scale, stream);
+                        Dl, B, Sq, Skv, H, Hkv, causal, window, softcap,    \
+                        scale, stream);
   REPRO_FLASH_BWD_CASE(32)
   REPRO_FLASH_BWD_CASE(64)
+  REPRO_FLASH_BWD_CASE(80)
   REPRO_FLASH_BWD_CASE(128)
 #undef REPRO_FLASH_BWD_CASE
   return cudaErrorInvalidValue;
@@ -1277,19 +1384,21 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 extern "C" int repro_flash_bwd_max_len(int D) {
   if (D == 32) return wg::Geo<32>::max_len();
   if (D == 64) return wg::Geo<64>::max_len();
+  if (D == 80) return wg::Geo<80>::max_len();
   if (D == 128) return wg::Geo<128>::max_len();
   return 0;
 }
 
 // Returns the CUDA error of the three launches (0 on success).  D is the
-// head dim of q, k and v alike.  Dl is fp32 scratch: B * Sq * H for fp32;
+// head dim of q, k and v alike; window <= 0 and softcap <= 0 mean none.  Dl is fp32 scratch: B * Sq * H for fp32;
 // 3 * B * H * Sqp + B * Skvp for bf16, Sqp and Skvp being Sq and Skv
 // rounded up to a multiple of 64 (16-byte aligned, as TMA reads it).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* kv_pos, const void* out, const void* lse, const void* dout,
     void* dq, void* dk, void* dv, void* Dl, int B, int Sq, int Skv, int H,
-    int Hkv, int D, int causal, float scale, int dtype, void* stream) {
+    int Hkv, int D, int causal, int window, float softcap, float scale,
+    int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   const int* qp = static_cast<const int*>(q_pos);
@@ -1299,10 +1408,11 @@ extern "C" int repro_flash_attention_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
     return dispatch<float>(D, q, k, v, qp, kp, out, ls, dout, dq, dk, dv, dl,
-                           B, Sq, Skv, H, Hkv, causal, scale, s);
+                           B, Sq, Skv, H, Hkv, causal, window, softcap,
+                           scale, s);
   if (dtype == rt::kBF16)
     return dispatch<__nv_bfloat16>(D, q, k, v, qp, kp, out, ls, dout, dq, dk,
-                                   dv, dl, B, Sq, Skv, H, Hkv, causal, scale,
-                                   s);
+                                   dv, dl, B, Sq, Skv, H, Hkv, causal, window,
+                                   softcap, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -352,11 +352,13 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared memory,
-// MN-major).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
+// d[OFF ..] (64 x 64) += A (64 x 16, registers) * B (16 x 64, shared
+// memory, MN-major): the accumulator's 32 registers from OFF on.
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n64_at(float (&d)[N],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  static_assert(OFF + 32 <= N, "wgmma_rs_n64_at: registers past d");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16\n{"
@@ -365,14 +367,14 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31},\n"
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7]),
+        "+f"(d[OFF + 8]), "+f"(d[OFF + 9]), "+f"(d[OFF + 10]), "+f"(d[OFF + 11]),
+        "+f"(d[OFF + 12]), "+f"(d[OFF + 13]), "+f"(d[OFF + 14]), "+f"(d[OFF + 15]),
+        "+f"(d[OFF + 16]), "+f"(d[OFF + 17]), "+f"(d[OFF + 18]), "+f"(d[OFF + 19]),
+        "+f"(d[OFF + 20]), "+f"(d[OFF + 21]), "+f"(d[OFF + 22]), "+f"(d[OFF + 23]),
+        "+f"(d[OFF + 24]), "+f"(d[OFF + 25]), "+f"(d[OFF + 26]), "+f"(d[OFF + 27]),
+        "+f"(d[OFF + 28]), "+f"(d[OFF + 29]), "+f"(d[OFF + 30]), "+f"(d[OFF + 31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -415,8 +417,28 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[N],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[OFF ..] (64 x 16) += A (64 x 16, registers) * B (16 x 16, shared
+// memory, MN-major): the accumulator's 8 registers from OFF on.
+template <int OFF, int N>
+__device__ __forceinline__ void wgmma_rs_n16_at(float (&d)[N],
+                                                const uint32_t (&a)[4],
+                                                uint64_t db) {
+  static_assert(OFF + 8 <= N, "wgmma_rs_n16_at: registers past d");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16\n{"
+      "%0, %1, %2, %3, %4, %5, %6, %7},\n"
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[OFF + 0]), "+f"(d[OFF + 1]), "+f"(d[OFF + 2]), "+f"(d[OFF + 3]),
+        "+f"(d[OFF + 4]), "+f"(d[OFF + 5]), "+f"(d[OFF + 6]), "+f"(d[OFF + 7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (64 x N) += A (64 x 16, registers) * B (16 x N, shared memory,
-// MN-major); at N = 256 `half` is the byte offset of B's columns 128..
+// MN-major); at N = 256 `half` is the byte offset of B's columns 128..,
+// at N = 80 that of its columns 64.. (the second 64-column box, of which
+// the product reads the first 16 columns: an n64 and an n16 product, whose
+// accumulator registers lie in the order of one n80 product's)
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db,
@@ -424,13 +446,16 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 32) {
     wgmma_rs_n32(d, a, db);
   } else if constexpr (N == 64) {
-    wgmma_rs_n64(d, a, db);
+    wgmma_rs_n64_at<0>(d, a, db);
+  } else if constexpr (N == 80) {
+    wgmma_rs_n64_at<0>(d, a, db);
+    wgmma_rs_n16_at<32>(d, a, db + (half >> 4));
   } else if constexpr (N == 128) {
     wgmma_rs_n128<0>(d, a, db);
   } else {
     // two products of 128 columns; B's second half starts `half` bytes
     // after its first (two 64-column swizzle atoms along N, LBO apart)
-    static_assert(N == 256, "wgmma_rs: N is 32, 64, 128 or 256");
+    static_assert(N == 256, "wgmma_rs: N is 32, 64, 80, 128 or 256");
     wgmma_rs_n128<0>(d, a, db);
     wgmma_rs_n128<64>(d, a, db + (half >> 4));
   }

@@ -20,6 +20,8 @@ KERNELS = {
     "paged_attention": ("paged_attention", "paged_attention_plain"),
     "fused_sampling": ("fused_sample", "fused_sample_plain"),
     "moe_gemm": ("grouped_gemm", "grouped_gemm_plain"),
+    # the grouped GEMM's weight gradient (its backward's dW; no TPU kernel)
+    "moe_gemm_wgrad": ("grouped_gemm_wgrad", "grouped_gemm_wgrad_plain"),
     "ssd_scan": ("ssd_state_scan", "ssd_state_scan_plain"),
 }
 

@@ -188,9 +188,10 @@ class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` under autograd: the forward kernel with ``lse``
     on CUDA (the plain forward on the CPU), saving q, k, v, the positions,
     out and lse; the backward kernel on CUDA (the plain backward on the
-    CPU).  On the card a backward the kernel cannot take (a window, a
-    softcap, an uninstantiated head dim) raises ``ValueError`` before the
-    forward runs."""
+    CPU), with the forward's causal flag, window and softcap.  On the card a
+    backward the kernel cannot take (v's head dim apart from q's, an
+    uninstantiated head dim) raises ``ValueError`` before the forward
+    runs."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap):

@@ -9,9 +9,10 @@ failed and counts the call once in ``kernels.LAUNCHES`` and, by route,
 in ``ROUTE_LAUNCHES``: "wgmma" for bf16 inputs (the products on the
 tensor cores by ``wgmma``, the tiles brought by TMA, fp32 sums; q, k, v,
 out and dout must start on a 16-byte boundary, and Sq and Skv may not pass
-``max_len``), "simt" for fp32 inputs (the CUDA cores).  A window or a
-softcap, which the plain version takes, is refused on the card
-(``ValueError``); it never falls back to the plain version.
+``max_len``), "simt" for fp32 inputs (the CUDA cores).  Both routes take a
+sliding window and a tanh softcap, as the plain version does; v's head dim
+apart from q's (MLA) and head dims outside ``HEAD_DIMS`` are refused on
+the card (``ValueError``); it never falls back to the plain version.
 ``kernels/flash_attention/ops.py::FlashAttentionFn`` calls it from
 autograd.
 """
@@ -29,7 +30,7 @@ from repro_torch.models import flash
 NAME = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims the kernel is instantiated for (q, k and v alike)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
 _ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 _LIB = None
 
@@ -50,7 +51,7 @@ def max_len(D: int) -> int:
     dim ``D``, as the built kernel computes it (``repro_flash_bwd_max_len``):
     the least and greatest position of each tile it walks, 8 bytes a tile,
     share each CTA's 227 KiB of shared memory with its tiles and its ring.
-    ~237K at D = 128."""
+    244,928 at D = 80 and 128."""
     return _lib().repro_flash_bwd_max_len(D)
 
 
@@ -84,8 +85,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     before the wgmma route), ``repro_flash_bwd_max_len``."""
     fn = lib.repro_flash_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+                   + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     if hasattr(lib, "repro_flash_bwd_max_len"):
         lib.repro_flash_bwd_max_len.restype = ctypes.c_int
         lib.repro_flash_bwd_max_len.argtypes = [ctypes.c_int]
@@ -101,20 +102,17 @@ def _lib():
 
 def check_supported(q, k, v, *, window=0, softcap=0.0) -> None:
     """Raise ``ValueError`` where the card's kernel cannot take the
-    backward: a window, a softcap, v's head dim apart from q's, or a head
-    dim it is not instantiated for.  ``FlashAttentionFn`` asks before its
-    forward runs."""
-    if window > 0 or softcap > 0:
-        raise ValueError(f"{NAME}: the card's backward takes no window or "
-                         f"softcap (window {window}, softcap {softcap}); "
-                         f"only the plain version on the CPU does")
+    backward: v's head dim apart from q's (MLA's 192 / 128 waits for its
+    own instantiation), or a head dim it is not instantiated for (256,
+    RecurrentGemma's, among them).  Any ``window`` and ``softcap`` are
+    taken.  ``FlashAttentionFn`` asks before its forward runs."""
     D, Dk, Dv = q.shape[-1], k.shape[-1], v.shape[-1]
     if not D == Dk == Dv or D not in HEAD_DIMS:
         raise ValueError(f"{NAME}: head dims q {D}, k {Dk}, v {Dv}; the "
                          f"kernel takes one of {HEAD_DIMS} for all three")
 
 
-def _check(q, k, v, q_pos, kv_pos, out, lse, dout, window, softcap):
+def _check(q, k, v, q_pos, kv_pos, out, lse, dout, window=0, softcap=0.0):
     check_supported(q, k, v, window=window, softcap=softcap)
     dev = q.device
     named = (("q", q), ("k", k), ("v", v), ("q_pos", q_pos),
@@ -185,13 +183,14 @@ def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
         raise ValueError(f"{NAME}: unsupported device {q.device}")
     _check(q, k, v, q_pos, kv_pos, out, lse, dout, window, softcap)
     grads = launch(_lib(), q, k, v, q_pos, kv_pos, out, lse, dout,
-                   causal=causal)
+                   causal=causal, window=window, softcap=softcap)
     kernels.LAUNCHES[NAME] += 1
     ROUTE_LAUNCHES[route(q.dtype)] += 1
     return grads
 
 
-def launch(lib, q, k, v, q_pos, kv_pos, out, lse, dout, *, causal):
+def launch(lib, q, k, v, q_pos, kv_pos, out, lse, dout, *, causal,
+           window=0, softcap=0.0):
     """One call of ``repro_flash_attention_bwd`` from ``lib`` (its three
     launches) on checked CUDA tensors; raises if a launch failed.  Counts
     nothing."""
@@ -207,7 +206,8 @@ def launch(lib, q, k, v, q_pos, kv_pos, out, lse, dout, *, causal):
             kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             scratch.data_ptr(), B, Sq, Skv, H, Hkv, D, int(bool(causal)),
-            1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
+            int(window), float(softcap), 1.0 / math.sqrt(D),
+            _DTYPES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
     return dq, dk, dv

@@ -18,6 +18,16 @@ works):
 - ``"simt"``: fp32, on the CUDA cores.
 
 No route stands in for another: a launch the named route refuses raises.
+
+Under autograd (grad enabled and x or w requiring it) ``grouped_gemm``
+runs ``GroupedGemmFn``: its forward is the call above; its backward is
+dX = grouped_gemm(dY, w^T, block_expert), the same kernel on the
+expert-transposed weight (E, F, D) (transposed by a copy here: a layout
+flag that reads w transposed is later work), and dW from
+``kernels/moe_gemm_wgrad`` (``repro_grouped_gemm_wgrad``, one CTA per
+expert and output tile walking the expert's blocks).  On the CPU both are
+the plain versions.
+
 The kernel is bound by bytes: at Qwen3-30B-A3B's 8 x 256 prefill it must
 read 403 MB of expert weights, at decode ~157 MB of the touched experts'.
 
@@ -43,6 +53,7 @@ import torch.nn.functional as F
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.moe_gemm_wgrad import ops as wgrad_ops
 
 NAME = "moe_gemm"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -136,7 +147,16 @@ def _check(x, w, block_expert, block_t):
 def grouped_gemm(x, w, block_expert, *, block_t: int = 128):
     """x (T, D) rows sorted by expert, padded per expert to ``block_t``;
     w (E, D, F); block_expert (T / block_t,) int32 expert of each block
-    (-1: unused, zero rows) -> (T, F) in x's dtype, fp32 accumulation."""
+    (-1: unused, zero rows) -> (T, F) in x's dtype, fp32 accumulation.
+    Differentiable in x and w (``GroupedGemmFn``)."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return GroupedGemmFn.apply(x, w, block_expert, block_t)
+    return _grouped_gemm(x, w, block_expert, block_t)
+
+
+def _grouped_gemm(x, w, block_expert, block_t: int):
+    """The kernel on CUDA tensors, the plain version on CPU ones; outside
+    autograd."""
     if x.device.type == "cpu":
         return grouped_gemm_plain(x, w, block_expert, block_t=block_t)
     if x.device.type != "cuda":
@@ -148,6 +168,32 @@ def grouped_gemm(x, w, block_expert, *, block_t: int = 128):
     kernels.LAUNCHES[NAME] += 1
     ROUTE_LAUNCHES[r] += 1
     return out
+
+
+class GroupedGemmFn(torch.autograd.Function):
+    """``grouped_gemm`` under autograd, saving x and w.  Backward: dX =
+    grouped_gemm(dY, w^T) (the kernel on CUDA, the plain version on the
+    CPU) and dW = ``grouped_gemm_wgrad`` (E, D, F) in w's dtype; unused
+    blocks' rows get zero dX and add nothing to dW."""
+
+    @staticmethod
+    def forward(ctx, x, w, block_expert, block_t):
+        ctx.save_for_backward(x, w, block_expert)
+        ctx.block_t = block_t
+        return _grouped_gemm(x, w, block_expert, block_t)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, be = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _grouped_gemm(dy, w.transpose(1, 2).contiguous(), be,
+                               ctx.block_t)
+        if ctx.needs_input_grad[1]:
+            dw = wgrad_ops.grouped_gemm_wgrad(x, dy, be, w.shape[0],
+                                              block_t=ctx.block_t)
+        return dx, dw, None, None
 
 
 def launch(lib, x, w, block_expert, block_t: int, route_name: str):
@@ -221,6 +267,24 @@ def dispatch_plan(expert_ids, num_experts: int, block_t: int,
     be = torch.searchsorted(cum, starts, right=True)
     be = torch.where(be < E, be, -1).to(torch.int32)
     return DispatchPlan(dest, dest < rows, be, order, rows, block_t)
+
+
+def combine_index(plan: DispatchPlan):
+    """(N,) int64: each choice's row of the sorted buffer to gather its
+    expert output from: ``dest`` for a kept choice, and for a dropped one a
+    row no kept choice holds (padding or an unused block, so its output is
+    zeros), a different one for each.  The buffer's ``rows`` >= N + E x
+    block_t leave at least as many such rows as there are drops.  Distinct
+    rows keep the gather's backward (an accumulating scatter) from
+    serializing on one row: with ``dest``'s shared drop row it took 466.7 ms
+    of a 1045.5 ms training step at Qwen3-30B-A3B's widths on an H100
+    (PERF.md)."""
+    taken = torch.zeros((plan.rows + 1,), dtype=torch.int32,
+                        device=plan.dest.device)
+    taken[plan.dest] = 1                     # drops mark the extra row
+    free = torch.argsort(taken[:plan.rows], stable=True)   # free rows first
+    drop_rank = torch.cumsum((~plan.keep).long(), 0) - 1
+    return torch.where(plan.keep, plan.dest, free[drop_rank.clamp(min=0)])
 
 
 def pick_block_t(n_choices: int, num_experts: int) -> int:

@@ -192,7 +192,34 @@ def build_other(root: Path, kernel: str = "flash_attention") -> ctypes.CDLL:
         return _bind_gemm_without_route(lib)
     if kernel == "flash_attention" and not _flash_takes(src, "lse"):
         return _bind_flash_older(lib, _flash_takes(src, "int DV"))
+    if kernel == "flash_attention_bwd" and not _bwd_takes_window(src):
+        return _bind_bwd_older(lib)
     return _ops(kernel).bind(lib)
+
+
+def _bwd_takes_window(src: Path) -> bool:
+    """Whether a ``flash_attention_bwd.cu``'s C entry point takes a window
+    and a softcap (added for H2O-Danube-1.8B's training)."""
+    sig = re.search(r"repro_flash_attention_bwd\(([^)]*)\)", src.read_text())
+    return sig is not None and "int window" in sig.group(1)
+
+
+def _bind_bwd_older(lib: ctypes.CDLL):
+    """An older library's ``repro_flash_attention_bwd``, without the window
+    and softcap arguments, behind the current signature: both must be 0 (as
+    at every shape timed here) and are dropped."""
+    fn = lib.repro_flash_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+    def call(*args):
+        if args[19] or args[20]:
+            raise ValueError("an older backward takes no window or softcap")
+        return fn(*args[:19], *args[21:])
+    return types.SimpleNamespace(repro_flash_attention_bwd=call,
+                                 repro_flash_bwd_max_len=getattr(
+                                     lib, "repro_flash_bwd_max_len", None))
 
 
 def _flash_takes(src: Path, arg: str) -> bool:

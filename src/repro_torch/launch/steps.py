@@ -4,8 +4,9 @@
 ``train_step`` takes the loss's gradients (``models/transformer.py::
 forward_loss``) with respect to every parameter leaf, over ``microbatches``
 slices of the batch on dim 0 (grads accumulated in fp32, summed and then
-divided by the count, as the reference's scan does), and applies one
-AdamW step (``optim.apply_updates``).  The mesh, the shardings and
+divided by the count, as the reference's scan does; the loss, an MoE
+decoder's aux included, is averaged the same way), and applies one AdamW
+step (``optim.apply_updates``).  The mesh, the shardings and
 ``build_cell`` wait for the port's multi-GPU slice.
 """
 from __future__ import annotations

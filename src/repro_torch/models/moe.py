@@ -14,6 +14,13 @@ runs only the kept choices, sorted by expert, through the ``moe_gemm``
 grouped GEMM: three launches per layer.  The result equals the
 reference's.  The expert-parallel shard_map path waits for the multi-GPU
 slice.
+
+Under autograd the router (an fp32 matmul and softmax), the gather and the
+combine stay plain torch ops, and the grouped GEMMs run
+``moe_gemm``'s ``GroupedGemmFn`` (dX and dW kernels on the card); a
+dropped choice weighs 0 in the combine, so it gets no gradient, as the
+reference's fill gather gives none.  ``moe_fwd`` returns the layer's
+load-balance aux beside its output; ``forward_loss`` adds it to the loss.
 """
 from __future__ import annotations
 
@@ -67,8 +74,8 @@ def _moe_local(cfg: ModelConfig, p, x):
     y = moe_ops.grouped_ffn(moe_ops.gather_rows(xt, plan, tok), plan,
                             p["w1"], p["w3"], p["w2"],
                             act=layers.activation(cfg))
-    # dropped choices read row 0 and weigh 0, as the reference's fill
-    gathered = y[plan.dest.clamp(max=plan.rows - 1)]
+    # dropped choices read zero rows and weigh 0, as the reference's fill
+    gathered = y[moe_ops.combine_index(plan)]
     w = torch.where(plan.keep, vals.reshape(-1), 0.0).to(x.dtype)
     out = (gathered * w[:, None]).reshape(T, k, D).sum(1)
     return out.reshape(B, S, D), aux

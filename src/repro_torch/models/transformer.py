@@ -461,11 +461,13 @@ def install_cache(cfg: ModelConfig, dst, src):
 
 def ffn(cfg: ModelConfig, p, h):
     """The layer's second half on the residual stream h: RMSNorm, then
-    the MoE (``models/moe.py``) or the gated MLP, added back to h."""
+    the MoE (``models/moe.py``) or the gated MLP, added back to h.  Returns
+    (h, aux): the MoE's load-balance aux (fp32 scalar), None for the MLP."""
     xn = layers.apply_norm(cfg, p["ln2"], h)
     if cfg.is_moe:
-        return h + moe.moe_fwd(cfg, p["moe"], xn)[0]
-    return h + layers.mlp_fwd(cfg, p["mlp"], xn)
+        y, aux = moe.moe_fwd(cfg, p["moe"], xn)
+        return h + y, aux
+    return h + layers.mlp_fwd(cfg, p["mlp"], xn), None
 
 
 def _to_ring(k, v, positions, window: int):
@@ -705,7 +707,7 @@ def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
             a, (k, v) = layers.attention_fwd(cfg, p["attn"], xn, positions,
                                              rope_tab=tab)
             rings.append(_to_ring(k, v, positions, cfg.sliding_window))
-            h = ffn(cfg, p, h + a)
+            h = ffn(cfg, p, h + a)[0]
         return layers.apply_norm(cfg, params["final_norm"], h), \
             _stacked(rings)
     cache = init_cache(cfg, B, S, tokens.device)
@@ -716,7 +718,7 @@ def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
         a, kv = attn_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
         for name, t in zip(names, kv):
             cache[name][i] = t
-        h = ffn(cfg, p, h + a)
+        h = ffn(cfg, p, h + a)[0]
     return layers.apply_norm(cfg, params["final_norm"], h), cache
 
 
@@ -725,15 +727,18 @@ def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
 # ---------------------------------------------------------------------------
 
 CE_CHUNK = 512
+# weight of the MoE load-balance aux in the loss, over the layers
+# (``repro.models.transformer.AUX_COEF``)
+AUX_COEF = 0.01
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """What ``forward_loss`` trains: the dense decoders.  Each other family
-    raises ``ValueError`` naming what its training still needs."""
+    """What ``forward_loss`` trains: the dense decoders (H2O-Danube's
+    sliding window among them) and the MoE decoders with GQA attention.
+    Each other family raises ``ValueError`` naming what its training
+    still needs."""
     check_model(cfg)
     needs = {
-        "moe": "the MoE aux loss and a backward of the moe_gemm kernel "
-               "(dX on transposed weights, a per-expert dW)",
         "ssm": "a backward of the ssd_scan kernel (the reverse scan)",
         "hybrid": "a backward of the RG-LRU scan",
         "audio": "the encoder-decoder's trunk under autograd",
@@ -741,10 +746,10 @@ def check_trainable(cfg: ModelConfig) -> None:
     }
     if cfg.use_mla:
         raise ValueError(f"{cfg.name}: training MLA needs the flash "
-                         f"backward at q/k 192, v 128 and {needs['moe']}")
-    if cfg.family != "dense":
-        raise ValueError(f"{cfg.name}: forward_loss trains the dense "
-                         f"decoders; the {cfg.family} family needs "
+                         f"backward at q/k 192, v 128 (unequal head dims)")
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"{cfg.name}: forward_loss trains the dense and "
+                         f"MoE decoders; the {cfg.family} family needs "
                          f"{needs[cfg.family]}")
 
 
@@ -778,7 +783,11 @@ def _chunked_ce(cfg: ModelConfig, params, h, labels):
 
 def _train_layer(cfg, stack, i, h, positions, tab):
     """Layer ``i`` of the training trunk: its leaves indexed from the
-    stacked ones (``t[i]``, which autograd follows back to them)."""
+    stacked ones (``t[i]``, which autograd follows back to them).  Returns
+    (h, aux) as ``ffn``.  Under remat its recompute must route as the
+    first run did: the router's fp32 matmul, softmax and stable sort see
+    the same inputs and give the same bits (``chip_smoke.py`` phase 13
+    compares the two runs' dispatch plans on the card)."""
     p = _map_spec(stack, lambda path, t: t[i])
     xn = layers.apply_norm(cfg, p["ln1"], h)
     a, _ = layers.attention_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
@@ -786,25 +795,32 @@ def _train_layer(cfg, stack, i, h, positions, tab):
 
 
 def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
-    """Training loss of a dense decoder: ``batch["tokens"]`` (B, S) through
-    the layer stack, the final norm and the chunked cross-entropy against
-    ``batch["labels"]`` (B, S) (< 0: ignored).  The trunk builds no
-    cache; with ``remat`` each layer runs under ``torch.utils.checkpoint``
-    and is recomputed in the backward (``_stack_fwd``'s
-    ``jax.checkpoint``).  Differentiable in every leaf of ``params`` that
-    requires grad."""
+    """Training loss of a dense or MoE decoder: ``batch["tokens"]`` (B, S)
+    through the layer stack, the final norm and the chunked cross-entropy
+    against ``batch["labels"]`` (B, S) (< 0: ignored), plus for MoE
+    ``AUX_COEF`` times the layers' summed load-balance aux over their
+    count.  The trunk builds no cache; with ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward
+    (``_stack_fwd``'s ``jax.checkpoint``).  Differentiable in every leaf of
+    ``params`` that requires grad."""
     check_trainable(cfg)
     h, positions = _assemble_inputs(cfg, params, batch["tokens"])
     tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
     stack = params["layers"]
+    aux = None
     for i in range(cfg.num_layers):
         if remat:
-            h = checkpoint(_train_layer, cfg, stack, i, h, positions, tab,
-                           use_reentrant=False, preserve_rng_state=False)
+            h, a = checkpoint(_train_layer, cfg, stack, i, h, positions, tab,
+                              use_reentrant=False, preserve_rng_state=False)
         else:
-            h = _train_layer(cfg, stack, i, h, positions, tab)
+            h, a = _train_layer(cfg, stack, i, h, positions, tab)
+        if a is not None:
+            aux = a if aux is None else aux + a
     h = layers.apply_norm(cfg, params["final_norm"], h)
-    return _chunked_ce(cfg, params, h, batch["labels"])
+    loss = _chunked_ce(cfg, params, h, batch["labels"])
+    if cfg.is_moe:
+        loss = loss + AUX_COEF * aux / max(cfg.num_layers, 1)
+    return loss
 
 
 def prefill(cfg: ModelConfig, params, tokens, *, frames=None, patches=None):
@@ -859,7 +875,7 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
             a, _, _, _ = layers.attention_decode_ring(
                 cfg, p["attn"], xn, cache["k"][i], cache["v"][i],
                 cache["pos"][i], lengths, rope_tab=tab)
-            h = ffn(cfg, p, h + a)
+            h = ffn(cfg, p, h + a)[0]
         return head_logits(cfg, params, h), cache
     names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
     attn_decode = (layers.mla_decode if cfg.use_mla
@@ -868,7 +884,7 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
         xn = layers.apply_norm(cfg, p["ln1"], h)
         a, _, _ = attn_decode(cfg, p["attn"], xn, cache[names[0]][i],
                               cache[names[1]][i], lengths, rope_tab=tab)
-        h = ffn(cfg, p, h + a)
+        h = ffn(cfg, p, h + a)[0]
     return head_logits(cfg, params, h), cache
 
 

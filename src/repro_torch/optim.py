@@ -9,7 +9,11 @@ the master, and each parameter is the master cast to the leaf's dtype.
 leaf for leaf (in the JAX package's leaf order: sorted keys), and writes
 the parameters and the optimizer state in place under ``torch.no_grad``:
 the serving path's per-layer views (``models/transformer._per_layer``)
-share the parameters' storage and stay valid.  ZeRO-1 sharding of the
+share the parameters' storage and stay valid.  A leaf is updated in
+slices of ``UPDATE_CHUNK`` elements, so that the fp32 temporaries of one
+update stay small beside a large leaf (Qwen3-30B-A3B's stacked expert
+weights hold 201M parameters a layer); every element's arithmetic is the
+same either way.  ZeRO-1 sharding of the
 flat leaves over devices (``n_dev > 1``) and ``opt_state_specs`` wait
 for the port's multi-GPU slice; on one device there is nothing to shard
 and ``zero1`` changes nothing, as in the reference.
@@ -74,6 +78,10 @@ def init_opt_state(params, n_dev: int = 1) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+# elements of a leaf updated at once
+UPDATE_CHUNK = 1 << 26
+
+
 @torch.no_grad()
 def apply_updates(cfg: AdamWConfig, params, grads, opt_state,
                   n_dev: int = 1):
@@ -98,15 +106,19 @@ def apply_updates(cfg: AdamWConfig, params, grads, opt_state,
         raise ValueError(f"apply_updates: {len(pairs)} params, "
                          f"{len(flat_g)} grads")
     for (p, st), g in zip(pairs, flat_g):
-        gf = g.reshape(-1).to(torch.float32) * scale
-        m = cfg.b1 * st["m"] + (1 - cfg.b1) * gf
-        v = cfg.b2 * st["v"] + (1 - cfg.b2) * gf * gf
-        upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        master = st["master"] * (1 - cfg.lr * cfg.weight_decay) - cfg.lr * upd
-        st["m"].copy_(m)
-        st["v"].copy_(v)
-        st["master"].copy_(master)
-        p.copy_(master.reshape(p.shape))
+        flat_p, flat_gl = p.view(-1), g.reshape(-1)
+        for a in range(0, flat_gl.numel(), UPDATE_CHUNK):
+            sl = slice(a, a + UPDATE_CHUNK)
+            gf = flat_gl[sl].to(torch.float32) * scale
+            m = cfg.b1 * st["m"][sl] + (1 - cfg.b1) * gf
+            v = cfg.b2 * st["v"][sl] + (1 - cfg.b2) * gf * gf
+            upd = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+            master = (st["master"][sl] * (1 - cfg.lr * cfg.weight_decay)
+                      - cfg.lr * upd)
+            st["m"][sl].copy_(m)
+            st["v"][sl].copy_(v)
+            st["master"][sl].copy_(master)
+            flat_p[sl].copy_(master)
     opt_state["step"] = step
     return params, opt_state, gnorm
 

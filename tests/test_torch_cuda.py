@@ -48,10 +48,16 @@ pair (held to the plain forward's); the backward kernel holds to its plain
 version on the same out and lse in both types (fp32 atol 1e-4 x the
 largest |gradient| of dq, dk, dv, rtol 1e-4; bf16 2e-2 x the same, rtol
 2e-2: one bf16 rounding of each gradient) at ragged tiles, S = 1, G = 1
-and 3, non-causal at Sq != Skv and head dims 32, 64, 128, gives equal bits over two launches, counts
-by route, and refuses a window or a softcap; reduced fp32 SmolLM-360M's
+and 3, non-causal at Sq != Skv and head dims 32, 64, 128, and windowed,
+softcapped or both at head dims 64, 80 and 128, gives equal bits over two
+launches, counts by route, and refuses unequal head dims and D 256;
+reduced fp32 SmolLM-360M's, Qwen3-30B-A3B's and H2O-Danube-1.8B's
 ``forward_loss`` and every gradient on the card equal the CPU's (loss
 rtol 1e-5, grads atol 1e-4, rtol 1e-3) with the launches remat implies.
+The grouped GEMM's autograd node (``GroupedGemmFn``: dX by the forward
+kernel on the transposed weight, dW by ``moe_gemm_wgrad``) holds to
+autograd through the plain version in both types, and the weight
+gradient gives equal bits over two launches.
 """
 import dataclasses
 import math
@@ -75,6 +81,8 @@ from repro_torch.kernels.fused_sampling.ops import (fused_sample,
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
                                               grouped_gemm_plain, moe_ffn)
+from repro_torch.kernels.moe_gemm_wgrad.ops import (
+    grouped_gemm_wgrad, grouped_gemm_wgrad_plain)
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
@@ -693,6 +701,8 @@ def test_each_launch_is_counted_once(dev):
     grouped_gemm(x, w, be, block_t=16)
     grouped_gemm(x, w, be, block_t=16)
     grouped_gemm(x, w, be, block_t=16)
+    dy = _randn(gen, (32, 16), torch.float32, dev)
+    grouped_gemm_wgrad(x, dy, be, 2, block_t=16)
     st = _randn(gen, (1, 2, 3, 4, 8), torch.float32, dev)
     dec = torch.rand((1, 2, 3), generator=gen, device=dev)
     ssd_state_scan(st, dec)
@@ -703,13 +713,15 @@ def test_each_launch_is_counted_once(dev):
     paged_attention_plain(qd, k, k, table, lengths)
     fused_sample_plain(*rows[:5])
     grouped_gemm_plain(x, w, be, block_t=16)
+    grouped_gemm_wgrad_plain(x, dy, be, 2, block_t=16)
     ssd_state_scan_plain(st, dec)
     flash_attention_bwd_plain(q, k, k, pos, pos, out, lse, out)
     torch.cuda.synchronize()
     assert kernels.launches() == {"flash_attention": 3,
                                   "flash_attention_bwd": 1,
                                   "paged_attention": 1, "fused_sampling": 1,
-                                  "moe_gemm": 3, "ssd_scan": 2}
+                                  "moe_gemm": 3, "moe_gemm_wgrad": 1,
+                                  "ssd_scan": 2}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -1300,14 +1312,177 @@ def test_flash_forward_writes_lse_on_both_routes(dev, dims, dtype):
 
 
 def test_flash_bwd_refuses_a_window_or_a_softcap_on_the_card(dev):
+    """The card's backward takes a window and a softcap (the windowed
+    cases below hold its values); it refuses D 256 (RecurrentGemma's,
+    before the forward runs under autograd) and unequal head dims."""
     gen = torch.Generator(device=dev).manual_seed(34)
     args = _bwd_inputs(gen, dev, torch.float32, 1, 64, 64, 4, 2, 64, True, 0)
     for kw in (dict(window=16), dict(softcap=30.0)):
-        with pytest.raises(ValueError, match="window or softcap"):
-            flash_attention_bwd(*args, **kw)
-        q, k, v = (t.clone().requires_grad_(True) for t in args[:3])
-        with pytest.raises(ValueError, match="window or softcap"):
-            flash_attention(q, k, v, args[3], args[4], **kw)
+        flash_attention_bwd(*args, **kw)
+    q, k, v = (_randn(gen, (1, 64, h, 256), torch.bfloat16,
+                      dev).requires_grad_(True) for h in (4, 1, 1))
+    pos = _pos(1, 0, 64, dev)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, k, v, pos, pos, window=16, softcap=30.0)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_bwd(*args[:2], args[2][..., :32].contiguous(),
+                            *args[3:])
+
+
+# (D, window, softcap): Danube's head dim and window shape, the softcapped
+# rows of phase 3, and both together
+WINDOWED_BWD = [(D, w, c) for D in (64, 80, 128)
+                for w, c in ((96, 0.0), (0, 30.0), (96, 30.0))]
+
+
+def _windowed_bwd_inputs(gen, dev, dtype, D, window, softcap, S=300, B=2,
+                         H=8, Hkv=2):
+    """q scaled so that the scores have a std of ~4: the softcap bites and
+    the softmax leans on a few keys, so a window edge off by a tile moves
+    the gradients."""
+    q = (_randn(gen, (B, S, H, D), torch.float32, dev) * 4.0).to(dtype)
+    k = _randn(gen, (B, S, Hkv, D), dtype, dev)
+    v = _randn(gen, (B, S, Hkv, D), dtype, dev)
+    pos = _pos(B, 0, S, dev)
+    out, lse = fa_ops.flash.flash_attention(q, k, v, pos, pos, causal=True,
+                                            window=window, softcap=softcap,
+                                            return_lse=True)
+    dout = _randn(gen, (B, S, H, D), dtype, dev)
+    return q, k, v, pos, pos, out, lse, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D,window,softcap", WINDOWED_BWD,
+                         ids=[f"D{d}_w{w}_cap{int(c)}"
+                              for d, w, c in WINDOWED_BWD])
+def test_flash_bwd_windowed_softcapped_matches_plain(dev, D, window, softcap,
+                                                     dtype):
+    gen = torch.Generator(device=dev).manual_seed(37 + D)
+    args = _windowed_bwd_inputs(gen, dev, dtype, D, window, softcap)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    fb_ops.reset_routes()
+    got = flash_attention_bwd(*args, **kw)
+    want = flash_attention_bwd_plain(*args, **kw)
+    assert fb_ops.ROUTE_LAUNCHES[fb_ops.route(dtype)] == 1
+    tol = _grad_tol(want, dtype)
+    for g, w in zip(got, want):
+        _close(g, w, dtype, tol)
+    if window:      # the check sees a window edge one tile off
+        wrong = flash_attention_bwd_plain(*args, causal=True,
+                                          window=window + 64,
+                                          softcap=softcap)
+        assert any(not torch.allclose(w.float(), x.float(), **tol)
+                   for w, x in zip(want, wrong))
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_bwd_windowed_gives_equal_bits(dev, D):
+    gen = torch.Generator(device=dev).manual_seed(38)
+    args = _windowed_bwd_inputs(gen, dev, torch.bfloat16, D, 96, 30.0)
+    a = flash_attention_bwd(*args, window=96, softcap=30.0)
+    b = flash_attention_bwd(*args, window=96, softcap=30.0)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _gemm_layout(gen, dev, dtype, experts, block_t, D, F, E):
+    be = torch.tensor(experts, dtype=torch.int32, device=dev)
+    x = _randn(gen, (len(experts) * block_t, D), dtype, dev)
+    w = (0.1 * torch.randn((E, D, F), generator=gen, device=dev)).to(dtype)
+    return x, w, be
+
+
+# (experts of the blocks, block_t, D, F, E): the training layout (block_t
+# 128, wgmma for the forward and dX), decode's block_t 16 (mma), ragged D
+# and F, empty experts and unused blocks
+GEMM_GRAD_CASES = [
+    ([0, 0, 1, 3, 3, 3, -1, -1], 128, 256, 192, 5),
+    ([2, 0, 0, 1, -1], 16, 72, 100, 4),
+    ([1, 1, 1, 0, -1], 64, 128, 64, 3),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", GEMM_GRAD_CASES,
+                         ids=[f"bt{c[1]}_D{c[2]}_F{c[3]}"
+                              for c in GEMM_GRAD_CASES])
+def test_grouped_gemm_fn_matches_plain_autograd(dev, case, dtype):
+    """GroupedGemmFn on the card (forward and dX by the grouped GEMM, dW by
+    its weight-gradient kernel) against autograd through the plain version
+    on the card; atol scaled by each tensor's largest element."""
+    experts, bt, D, F, E = case
+    gen = torch.Generator(device=dev).manual_seed(39)
+    x, w, be = _gemm_layout(gen, dev, dtype, experts, bt, D, F, E)
+    g = _randn(gen, (x.shape[0], F), dtype, dev)
+
+    def run(fn):
+        tx, tw = (t.clone().requires_grad_(True) for t in (x, w))
+        y = fn(tx, tw, be, block_t=bt)
+        y.backward(g)
+        return y.detach(), tx.grad, tw.grad
+
+    kernels.reset_launches()
+    got = run(grouped_gemm)
+    used = kernels.launches()
+    assert used["moe_gemm"] == 2 and used["moe_gemm_wgrad"] == 1
+    want = run(grouped_gemm_plain)
+    for a, b in zip(got, want):
+        scale = b.float().abs().max().item()
+        _close(a, b, dtype, dict(atol=TOL[dtype]["atol"] * max(scale, 1.0),
+                                 rtol=TOL[dtype]["rtol"]))
+    unused = (be < 0).repeat_interleave(bt)
+    assert not got[1][unused].any()
+    for e in set(range(E)) - set(experts):
+        assert not got[2][e].any()
+
+
+def test_grouped_gemm_wgrad_gives_equal_bits(dev):
+    gen = torch.Generator(device=dev).manual_seed(40)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, _, be = _gemm_layout(gen, dev, dtype, [0, 0, 2, 2, 2, -1], 128,
+                                512, 384, 4)
+        dy = _randn(gen, (x.shape[0], 384), dtype, dev)
+        a = grouped_gemm_wgrad(x, dy, be, 4, block_t=128)
+        b = grouped_gemm_wgrad(x, dy, be, 4, block_t=128)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        want = grouped_gemm_wgrad_plain(x, dy, be, 4, block_t=128)
+        scale = want.float().abs().max().item()
+        _close(a, want, dtype, dict(atol=TOL[dtype]["atol"] * scale,
+                                    rtol=TOL[dtype]["rtol"]))
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b", "h2o_danube_1_8b"])
+def test_reduced_moe_and_windowed_forward_loss_on_the_card_matches_cpu(
+        dev, arch):
+    """Reduced fp32 Qwen3-30B-A3B (the grouped GEMM's forward, dX and dW
+    kernels) and H2O-Danube-1.8B (window 64, S 160: the windowed backward
+    kernel): the loss and every leaf's gradient on the card against the
+    CPU's plain versions."""
+    from repro_torch import optim
+    from repro_torch.launch.steps import loss_and_grads
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    cpu = TT.init_params(cfg, 0, "cpu")
+    cuda = optim.tree_map(lambda t: t.to(dev), cpu)
+    gen = torch.Generator().manual_seed(41)
+    toks = torch.randint(2, cfg.vocab_size, (2, 160), generator=gen,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    want_l, want_g = loss_and_grads(cfg, cpu, batch)
+    kernels.reset_launches()
+    got_l, got_g = loss_and_grads(cfg, cuda, {k: t.to(dev)
+                                              for k, t in batch.items()})
+    torch.cuda.synchronize()
+    used = kernels.launches()
+    assert used["flash_attention_bwd"] == cfg.num_layers
+    if cfg.is_moe:
+        assert used["moe_gemm"] == 9 * cfg.num_layers
+        assert used["moe_gemm_wgrad"] == 3 * cfg.num_layers
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=0)
+    for g, w in zip(optim.tree_leaves(got_g), optim.tree_leaves(want_g)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)
 
 
 def test_reduced_forward_loss_on_the_card_matches_cpu(dev):

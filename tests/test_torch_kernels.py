@@ -33,6 +33,8 @@ from repro_torch.kernels.flash_attention_bwd.ops import (
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
                                                     fused_sample_plain)
 from repro_torch.kernels.moe_gemm.ops import grouped_gemm, grouped_gemm_plain
+from repro_torch.kernels.moe_gemm_wgrad.ops import (
+    grouped_gemm_wgrad, grouped_gemm_wgrad_plain)
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
 from repro_torch.kernels.ssd_scan.ops import (ssd_state_scan,
@@ -191,6 +193,9 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     be = torch.tensor([1, -1], dtype=torch.int32)
     assert torch.equal(grouped_gemm(x, w, be, block_t=16),
                        grouped_gemm_plain(x, w, be, block_t=16))
+    dy = torch.from_numpy(r.standard_normal((32, 5)).astype(np.float32))
+    assert torch.equal(grouped_gemm_wgrad(x, dy, be, 2, block_t=16),
+                       grouped_gemm_wgrad_plain(x, dy, be, 2, block_t=16))
     st = torch.from_numpy(r.standard_normal((1, 2, 3, 4, 4))
                           .astype(np.float32))
     dec = torch.from_numpy(r.random((1, 2, 3)).astype(np.float32))
@@ -205,10 +210,12 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     assert kernels.launches() == {"flash_attention": 0,
                                   "flash_attention_bwd": 0,
                                   "paged_attention": 0, "fused_sampling": 0,
-                                  "moe_gemm": 0, "ssd_scan": 0}
+                                  "moe_gemm": 0, "moe_gemm_wgrad": 0,
+                                  "ssd_scan": 0}
     assert set(kernels.KERNELS) == {"flash_attention", "flash_attention_bwd",
                                     "paged_attention", "fused_sampling",
-                                    "moe_gemm", "ssd_scan"}
+                                    "moe_gemm", "moe_gemm_wgrad",
+                                    "ssd_scan"}
     for name in kernels.KERNELS:
         op, plain = kernels.get_kernel(name)
         assert callable(op) and callable(plain)
@@ -342,16 +349,16 @@ def test_flash_bwd_checks_what_tma_needs(name, dtype, monkeypatch):
         fb_ops._check(*args, 0, 0.0)
 
 
-@pytest.mark.parametrize("D", [16, 48, 80, 256])
+@pytest.mark.parametrize("D", [16, 48, 96, 256])
 def test_flash_bwd_refuses_a_head_dim_it_has_no_kernel_for(D):
-    """Head dims outside HEAD_DIMS (32, 64, 128) are refused before any
+    """Head dims outside HEAD_DIMS (32, 64, 80, 128) are refused before any
     launch, in both types."""
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="the kernel takes one of"):
             fb_ops._check(*_bwd_args(dtype, D=D), 0, 0.0)
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
 def test_flash_bwd_length_limit_check(D, monkeypatch):
     """The bf16 route keeps each tile's position range in shared memory,
     so the wrapper refuses a bf16 call whose Sq or Skv passes ``max_len``
@@ -395,12 +402,13 @@ _BWD_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 def _geo(D):
     """(BN, keys of a dK/dV CTA, keys of a consumer's range) at head dim D,
     read from the source's Geo."""
-    bn = re.search(r"static constexpr int BN = D == 128 \? (\d+) : (\d+);",
-                   _BWD_SRC)
+    bn = re.search(r"static constexpr int BN = ((?:D == \d+(?: \|\| )?)+) "
+                   r"\? (\d+) : (\d+);", _BWD_SRC)
     split = re.search(r"static constexpr bool kSplit = D == (\d+);",
                       _BWD_SRC)
     assert bn and split, "Geo's BN / kSplit lines changed"
-    BN = int(bn.group(1)) if D == 128 else int(bn.group(2))
+    narrow = [int(d) for d in re.findall(r"\d+", bn.group(1))]
+    BN = int(bn.group(2)) if D in narrow else int(bn.group(3))
     is_split = D == int(split.group(1))
     return BN, (64 if is_split else 128), is_split
 
@@ -410,15 +418,20 @@ def _ranges(pos, n, rows):
             for t in range(0, n, rows)]
 
 
-def _walks(q_pos, kv_pos, causal, D):
+def _walks(q_pos, kv_pos, causal, D, window=0):
     """Per dK/dV consumer (CTA, c) and dQ consumer: {tile: full} of the
-    streamed tiles it multiplies, as the kernels decide."""
+    streamed tiles it multiplies, as the kernels decide: a CTA walks the
+    tiles not wholly above the causal limit nor wholly outside the window
+    for all its rows, a consumer skips those for its own rows, and takes
+    without the per-element mask those whose every pair is allowed."""
     Sq, Skv = len(q_pos), len(kv_pos)
     BN, BKV, split = _geo(D)
+    w = window
     dkdv, dq = {}, {}
     qr = _ranges(q_pos, Sq, BN)
     for k0 in range(0, Skv, BKV):
         klo = kv_pos[k0:min(k0 + BKV, Skv)].min()
+        khi = kv_pos[k0:min(k0 + BKV, Skv)].max()
         for c in (0,) if split else (0, 1):
             kw0 = k0 + 64 * c
             if kw0 >= Skv:
@@ -427,15 +440,17 @@ def _walks(q_pos, kv_pos, causal, D):
                 kv_pos[kw0:min(kw0 + 64, Skv)].max()
             got = {}
             for t, (lo, hi) in enumerate(qr):
-                if causal and hi < klo:          # not walked
-                    continue
-                if causal and hi < wlo:          # skipped
-                    continue
+                if (causal and hi < klo) or (w > 0 and lo - w >= khi):
+                    continue                     # not walked
+                if (causal and hi < wlo) or (w > 0 and lo - w >= whi):
+                    continue                     # skipped
                 got[t] = (kw0 + 64 <= Skv and (t + 1) * BN <= Sq
-                          and (not causal or whi <= lo))
+                          and (not causal or whi <= lo)
+                          and (w <= 0 or hi - w < wlo))
             dkdv[(kw0, min(kw0 + 64, Skv))] = got
     kr = _ranges(kv_pos, Skv, 64)
     for q0 in range(0, Sq, 128):
+        qlo = q_pos[q0:min(q0 + 128, Sq)].min()
         qhi = q_pos[q0:min(q0 + 128, Sq)].max()
         for qw0 in (q0, q0 + 64):
             if qw0 >= Sq:
@@ -444,42 +459,59 @@ def _walks(q_pos, kv_pos, causal, D):
                 q_pos[qw0:min(qw0 + 64, Sq)].max()
             got = {}
             for t, (lo, hi) in enumerate(kr):
-                if causal and (lo > qhi or lo > whi):
-                    continue
+                if (causal and lo > qhi) or (w > 0 and hi <= qlo - w):
+                    continue                     # not walked
+                if (causal and lo > whi) or (w > 0 and hi <= wlo - w):
+                    continue                     # skipped
                 got[t] = (qw0 + 64 <= Sq and (t + 1) * 64 <= Skv
-                          and (not causal or hi <= wlo))
+                          and (not causal or hi <= wlo)
+                          and (w <= 0 or lo > whi - w))
             dq[(qw0, min(qw0 + 64, Sq))] = got
     return BN, dkdv, dq
 
 
 def _position_sets():
+    """name -> (q positions, kv positions, causal, window)."""
     r = np.random.default_rng(13)
     return {
-        "causal S300": (np.arange(300), np.arange(300), True),
-        "offset q Sq100 Skv300": (np.arange(200, 300), np.arange(300), True),
-        "non-causal Sq40 Skv130": (np.arange(40), np.arange(130), False),
-        "causal Sq1000 G-ring": (np.arange(1000), np.arange(1000), True),
+        "causal S300": (np.arange(300), np.arange(300), True, 0),
+        "offset q Sq100 Skv300": (np.arange(200, 300), np.arange(300), True,
+                                  0),
+        "non-causal Sq40 Skv130": (np.arange(40), np.arange(130), False, 0),
+        "causal Sq1000 G-ring": (np.arange(1000), np.arange(1000), True, 0),
         "one key tile Sq700 Skv48": (np.arange(48, 748), np.arange(48),
-                                     True),
+                                     True, 0),
         "packed rows, shuffled": (r.permutation(260), r.permutation(260),
-                                  True),
+                                  True, 0),
+        "window 64 causal S300": (np.arange(300), np.arange(300), True, 64),
+        "window 100 causal S1000": (np.arange(1000), np.arange(1000), True,
+                                    100),
+        "window 70 offset q Sq100 Skv300": (np.arange(200, 300),
+                                            np.arange(300), True, 70),
+        "window 24 non-causal Sq40 Skv130": (np.arange(40), np.arange(130),
+                                             False, 24),
+        "window 50 packed rows, shuffled": (r.permutation(260),
+                                            r.permutation(260), True, 50),
     }
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 128])
 @pytest.mark.parametrize("case", list(_position_sets()))
 def test_flash_bwd_walk_covers_the_mask(case, D):
     """Every allowed (q row, key) pair is multiplied by its dK/dV consumer
     and by its dQ consumer; a tile taken without the per-element mask has
     every pair allowed and in range; and where positions rise with the
-    index (every set but the shuffled one) a consumer multiplies exactly
-    the tiles that hold an allowed pair of its rows."""
-    q_pos, kv_pos, causal = _position_sets()[case]
+    index (every set but the shuffled ones) a consumer multiplies exactly
+    the tiles that hold an allowed pair of its rows.  The windowed sets
+    skip the tiles wholly outside the window."""
+    q_pos, kv_pos, causal, window = _position_sets()[case]
     Sq, Skv = len(q_pos), len(kv_pos)
     allowed = np.ones((Sq, Skv), bool) if not causal else \
         kv_pos[None, :] <= q_pos[:, None]
-    BN, dkdv, dq = _walks(q_pos, kv_pos, causal, D)
-    monotone = case != "packed rows, shuffled"
+    if window > 0:
+        allowed &= kv_pos[None, :] > q_pos[:, None] - window
+    BN, dkdv, dq = _walks(q_pos, kv_pos, causal, D, window)
+    monotone = "shuffled" not in case
     for (a, z), got in dkdv.items():
         want = {i // BN for i in range(Sq) if allowed[i, a:z].any()}
         assert want <= set(got), (case, a)

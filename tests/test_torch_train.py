@@ -17,7 +17,8 @@ port).  Cases:
   labels -1, logit softcap 0 and 30;
 - ``forward_loss`` and the gradient of every leaf against
   ``jax.value_and_grad(forward_loss)`` on reduced SmolLM-360M,
-  Llama-3.2-1B and Qwen2-0.5B, B 2, S 64, remat on and off; every port
+  Llama-3.2-1B, Qwen2-0.5B (B 2, S 64) and H2O-Danube-1.8B (window 64, S
+  200: past the window), remat on and off; every port
   leaf gets a gradient; loss rtol 1e-5, gradients atol 1e-4, rtol 1e-3 (as
   ``tests/test_models.py::test_flash_vjp_matches_autodiff``);
 - three AdamW steps (``apply_updates``) against ``repro.optim``: params,
@@ -31,9 +32,10 @@ port).  Cases:
 - eight steps of ``python -m repro_torch.launch.train --reduced --device
   cpu --dtype float32`` against the same JAX loop on the same stream and
   weights (rtol 1e-4), with a falling loss;
-- the refusals: ``forward_loss`` on the MoE, SSM, hybrid, audio, vision
-  and MLA families, the card's backward with a window or a softcap,
-  ``--dry``, ``n_dev > 1``.
+- the refusals: ``forward_loss`` on the SSM, hybrid, audio, vision and
+  MLA families, the card's backward at unequal head dims or a head dim it
+  has no kernel for (it takes a window, a softcap and D 80), ``--dry``,
+  ``n_dev > 1``.  The MoE family trains: ``test_torch_train_moe.py``.
 """
 import dataclasses
 
@@ -61,7 +63,7 @@ from repro_torch.models import transformer as TT
 AXES = MeshAxes()
 BWD_TOL = dict(atol=1e-5, rtol=1e-4)
 GRAD_TOL = dict(atol=1e-4, rtol=1e-3)
-DENSE = ["smollm_360m", "llama3_2_1b", "qwen2_0_5b"]
+DENSE = ["smollm_360m", "llama3_2_1b", "qwen2_0_5b", "h2o_danube_1_8b"]
 
 
 def _cfgs(arch):
@@ -169,15 +171,25 @@ def test_flash_attention_fn_saves_what_the_backward_reads():
 
 
 def test_card_backward_refuses_a_window_or_a_softcap():
+    """What the card's backward refuses: v's head dim apart from q's (MLA)
+    and head dims it has no kernel for (48, and RecurrentGemma's 256); a
+    window, a softcap (each alone and together) and D 80 (Danube's) it
+    takes."""
     q = torch.zeros((1, 8, 4, 64))
     k = torch.zeros((1, 8, 2, 64))
-    with pytest.raises(ValueError, match="window"):
-        bwd_ops.check_supported(q, k, k, window=16)
-    with pytest.raises(ValueError, match="softcap"):
-        bwd_ops.check_supported(q, k, k, softcap=30.0)
-    with pytest.raises(ValueError, match="head dims"):
-        bwd_ops.check_supported(q[..., :48], k[..., :48], k[..., :48])
+    bwd_ops.check_supported(q, k, k, window=16)
+    bwd_ops.check_supported(q, k, k, softcap=30.0)
+    bwd_ops.check_supported(q, k, k, window=16, softcap=30.0)
     bwd_ops.check_supported(q, k, k)
+    q80, k80 = torch.zeros((1, 8, 32, 80)), torch.zeros((1, 8, 8, 80))
+    bwd_ops.check_supported(q80, k80, k80, window=4096)
+    for D in (48, 256):
+        with pytest.raises(ValueError, match="head dims"):
+            bwd_ops.check_supported(q[..., :1].expand(1, 8, 4, D),
+                                    k[..., :1].expand(1, 8, 2, D),
+                                    k[..., :1].expand(1, 8, 2, D))
+    with pytest.raises(ValueError, match="head dims"):
+        bwd_ops.check_supported(q, k, k[..., :32])
 
 
 # ---------------------------------------------------------------- loss
@@ -209,7 +221,11 @@ def test_chunked_ce_matches_jax(S, softcap):
     _close(tw.grad, jw, atol=1e-5, rtol=0)
 
 
-def _batch(tcfg, B=2, S=64, seed=1):
+def _batch(tcfg, B=2, S=None, seed=1):
+    """Tokens and labels (B, S); S defaults to 64, or past a sliding
+    window (2 x window + 72)."""
+    if S is None:
+        S = 2 * tcfg.sliding_window + 72 if tcfg.sliding_window else 64
     rng = np.random.default_rng(seed)
     toks = rng.integers(2, tcfg.vocab_size, (B, S)).astype(np.int32)
     labels = toks.copy()
@@ -243,13 +259,13 @@ def test_forward_loss_and_every_leaf_grad_match_jax(arch, remat):
         _close(t.grad, w, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_30b", "mamba2_370m",
-                                  "recurrentgemma_2b", "whisper_base",
-                                  "pixtral_12b", "deepseek_r1"])
+@pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_2b",
+                                  "whisper_base", "pixtral_12b",
+                                  "deepseek_r1"])
 def test_forward_loss_refuses_the_other_families(arch):
     cfg = reduced_config(arch)
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    what = {"qwen3_moe_30b": "moe_gemm", "mamba2_370m": "ssd_scan",
+    what = {"mamba2_370m": "ssd_scan",
             "recurrentgemma_2b": "RG-LRU", "whisper_base": "encoder",
             "pixtral_12b": "patch", "deepseek_r1": "MLA"}[arch]
     with pytest.raises(ValueError, match=what):
@@ -417,6 +433,6 @@ def test_train_driver_saves_a_checkpoint_and_refuses_dry(tmp_path):
     assert extra["steps"] == 1 and "embed" in flat
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train.main(["--dry"])
-    with pytest.raises(ValueError, match="moe_gemm"):
-        train.main(["--arch", "qwen3_moe_30b", "--reduced", "--device",
+    with pytest.raises(ValueError, match="ssd_scan"):
+        train.main(["--arch", "mamba2_370m", "--reduced", "--device",
                     "cpu", "--steps", "1"])
