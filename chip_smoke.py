@@ -114,14 +114,18 @@ result):
    reference's (E, C, D) capacity buffer and, where the card's torch has
    it, ``torch._grouped_mm``.  The grouped GEMM's backward at
    Qwen3-30B-A3B's training shape (4 x 4096 tokens, top-8 of 128 experts,
-   D 2048, F 768, block_t 128): the weight gradient (``moe_gemm_wgrad``,
-   one CTA per expert and output tile on ``mma.sync``) of w1/w3 (D x F)
-   and w2 (F x D) against its plain version in bf16 with equal bits over
-   two launches, at the edges in both types (ragged widths, empty
-   experts, unused blocks, block_t 16 and 64, blocks of one expert apart),
-   and dX through the forward kernel on the transposed weights (on
-   ``wgmma``); timed beside their bounds, the weight gradient also alone,
-   plain and against one ``torch._grouped_mm`` grouped along the rows.
+   D 2048, F 768, block_t 128): the weight gradient (``moe_gemm_wgrad``:
+   bf16 on its ``wgmma`` route, 128 x 256 output tiles fed by TMA through
+   an mbarrier ring) of w1/w3 (D x F) and w2 (F x D) against its plain
+   version with equal bits over two launches, on the route ``ops.route``
+   names; at the edges (``WGRAD_EDGES``: ragged widths, M and N multiples
+   of 8 but not of 64, empty experts, unused blocks, block_t 16, 64 and
+   128, blocks of one expert apart) on wgmma, on the ``mma.sync`` route
+   (every bf16 edge) and on simt (fp32); and dX through the forward
+   kernel on the transposed weights (on ``wgmma``); timed beside their
+   bounds, the weight gradient alone on the wgmma and mma routes (same
+   inputs), plain and against one ``torch._grouped_mm`` grouped along the
+   rows.
    The SSD state
    scan (``ssd_scan``) must give its plain version's bits (``torch.equal``)
    at Mamba2-370M's 8x256 and 32768-token prefill shapes, the JAX test's
@@ -161,7 +165,8 @@ result):
    on "cuda" and on "cpu": ``forward_loss`` and every leaf's gradient,
    then one ``train_step``'s loss, grad norm and AdamW moments, with the
    flash forward launched twice a layer (remat) and the backward once, and
-   an MoE layer's grouped GEMM 9 times and its weight gradient 3 times;
+   an MoE layer's grouped GEMM 9 times and its weight gradient 3 times
+   (all fp32, on the simt routes);
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
    seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
    module granularity (Algorithm 1: attention in sub-batches of 4 of the
@@ -280,7 +285,8 @@ result):
     the forward did, bit for bit; each step must launch the flash forward
     twice a layer and the backward once, the grouped GEMM 9 times a layer
     (forward, recompute, dX), all on wgmma, its weight gradient 3 times a
-    layer, and no plain version; it logs s/step, tokens/s, peak memory,
+    layer, all on wgmma, and no plain version; it logs s/step, tokens/s,
+    peak memory,
     the capacity drops, a step's device time by kernel class beside its
     wall and the active-parameter MFU (``qwen3_moe_train_mfu``).
 
@@ -405,12 +411,14 @@ def reset_counts() -> None:
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
     from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm_wgrad import ops as wgrad_ops
     from repro_torch.kernels.paged_attention import ops as paged_ops
     kernels.reset_launches()
     ops.reset_routes()
     bwd_ops.reset_routes()
     paged_ops.reset_routes()
     moe_ops.reset_routes()
+    wgrad_ops.reset_routes()
 
 
 def check_routes(path: str, used) -> None:
@@ -1692,14 +1700,38 @@ def _grouped_mm_wgrad_ms(timer, gen, dev, T, E, k, M, N):
     return None
 
 
+# the weight gradient's edges: (tag, experts of the blocks in order, block_t,
+# M, N, E); -1 is an unused block, an expert missing from the list has no
+# block.  In bf16 the ones at block_t 64 or 128 with M and N multiples of 8
+# take the wgmma route (M 200 / N 136 are not multiples of its 64-column
+# boxes; M 72 leaves the second consumer warpgroup's rows past M), the rest
+# the mma route; every bf16 edge also runs on the mma route, and fp32 on
+# simt.
+WGRAD_EDGES = [
+    ("ragged M72 N100, empty experts, bt16", [2, 0, 0, 1, -1], 16, 72, 100,
+     4),
+    ("bt64 M128 N64, expert 1 x3", [1, 1, 1, 0, -1], 64, 128, 64, 3),
+    ("blocks of one expert apart, M136 N200", [0, 2, 0, 1, 2], 64, 136, 200,
+     3),
+    ("bt64 M200 N136, empty expert, unused blocks", [0, 2, 0, 2, -1, -1], 64,
+     200, 136, 4),
+    ("bt128 M72 N264, blocks apart, unused block", [2, 0, 0, 2, -1], 128, 72,
+     264, 4),
+    ("bt128 M256 N512, empty experts 2 and 4", [0, 0, 1, 3, 3, 3, -1, -1],
+     128, 256, 512, 5),
+]
+
+
 def check_moe_gemm_wgrad(dev, timer):
     """The grouped GEMM's backward at Qwen3-30B-A3B's training shape: the
     weight gradient (``moe_gemm_wgrad``) of w1/w3 (D x F) and w2 (F x D)
-    against its plain version in bf16, equal bits over two launches, the
-    edges in both types (ragged widths, empty experts, unused blocks,
-    block_t 16 and 64, non-contiguous blocks of one expert); dX through
-    the forward kernel on the transposed weights (wgmma) against its plain
-    version; each timed beside its bound, the weight gradient also against
+    on its ``wgmma`` route against its plain version in bf16, equal bits
+    over two launches, every launch on the route ``ops.route`` names; the
+    edges (``WGRAD_EDGES``) on each route that takes them: wgmma, mma
+    (every bf16 edge) and simt (fp32); dX through the forward kernel on
+    the transposed weights (wgmma) against its plain version; each timed
+    beside its bound, the weight gradient on the wgmma and mma routes
+    alone in the profiler's trace on the same inputs, plain, and against
     one ``torch._grouped_mm`` (a yardstick only)."""
     from repro_torch.kernels.moe_gemm import ops
     from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
@@ -1714,14 +1746,27 @@ def check_moe_gemm_wgrad(dev, timer):
     n_choices = int(plan.keep.sum().item())
     rows, errs, timed = {}, {}, {}
     wgrad = wops.grouped_gemm_wgrad
+
+    def on_route(r, x, dy, bee, Ee, bte):
+        """The weight gradient on route ``r`` through the wrapper's own
+        launch (a route ``ops.route`` would not name for this call, to
+        time or hold it apart); counts nothing."""
+        wops._check(x, dy, bee, Ee, bte)
+        return wops.launch(wops._lib(), x, dy, bee, Ee, bte, r)
+
     for label, (M, N) in (("w1/w3 dW (D x F)", (D, Fe)),
                           ("w2 dW (F x D)", (Fe, D))):
         x = rows_of(_rand(gen, (T, M), torch.bfloat16, dev))
         dy = rows_of(_rand(gen, (T, N), torch.bfloat16, dev))
+        wops.reset_routes()
         got = wgrad(x, dy, be, E, block_t=bt)
         torch.cuda.synchronize()
+        if wops.ROUTE_LAUNCHES != {"wgmma": 1, "mma": 0, "simt": 0}:
+            raise AssertionError(f"moe_gemm_wgrad {label}: launched by "
+                                 f"route {wops.ROUTE_LAUNCHES} (expected "
+                                 f"wgmma)")
         errs[label] = _check(f"moe_gemm_wgrad {label} bt{bt} rows "
-                             f"{x.shape[0]} bf16", got,
+                             f"{x.shape[0]} bf16 (wgmma)", got,
                              _wgrad_plain_blocks(x, dy, be, E, bt),
                              torch.bfloat16)
         again = wgrad(x, dy, be, E, block_t=bt)
@@ -1729,32 +1774,46 @@ def check_moe_gemm_wgrad(dev, timer):
         if not torch.equal(got, again):
             raise AssertionError(f"moe_gemm_wgrad {label}: two launches "
                                  f"gave other bits")
-        log(f"  moe_gemm_wgrad bf16 {label}: two launches, equal bits")
+        log(f"  moe_gemm_wgrad bf16 {label} (wgmma): two launches, equal "
+            f"bits")
         timed[label] = (x, dy, M, N)
         del got, again
-    # the edges, both types: ragged widths, experts with no block, unused
-    # blocks, block_t 16 and 64, one expert's blocks apart
+    # the edges: the route ops.route names, the mma route for every bf16
+    # edge, the simt route for fp32
+    routes_seen = {"wgmma": 0, "mma": 0, "simt": 0}
     for dtype in (torch.bfloat16, torch.float32):
-        for tag, experts, bte, M, N, Ee in (
-                ("ragged M72 N100, empty experts, bt16", [2, 0, 0, 1, -1],
-                 16, 72, 100, 4),
-                ("bt64 M128 N64, expert 1 x3", [1, 1, 1, 0, -1], 64, 128, 64,
-                 3),
-                ("blocks of one expert apart, M136 N200", [0, 2, 0, 1, 2],
-                 64, 136, 200, 3)):
+        for tag, experts, bte, M, N, Ee in WGRAD_EDGES:
             bee = torch.tensor(experts, dtype=torch.int32, device=dev)
             x = _rand(gen, (len(experts) * bte, M), dtype, dev)
             dy = _rand(gen, (len(experts) * bte, N), dtype, dev)
-            got = wgrad(x, dy, bee, Ee, block_t=bte)
-            torch.cuda.synchronize()
             want = wops.grouped_gemm_wgrad_plain(x, dy, bee, Ee, block_t=bte)
             scale = want.float().abs().max().item()
-            _check(f"moe_gemm_wgrad {tag} {str(dtype)[6:]}", got, want,
-                   dtype, dict(atol=TOL[dtype]["atol"] * max(scale, 1.0),
-                               rtol=TOL[dtype]["rtol"]))
-            if any(got[e].any() for e in set(range(Ee)) - set(experts)):
-                raise AssertionError(f"moe_gemm_wgrad {tag}: an expert "
-                                     f"with no block is not zeros")
+            tol = dict(atol=TOL[dtype]["atol"] * max(scale, 1.0),
+                       rtol=TOL[dtype]["rtol"])
+            wops.reset_routes()
+            named = wops.route(dtype, bte, M, N, True)
+            outs = {named: wgrad(x, dy, bee, Ee, block_t=bte)}
+            if wops.ROUTE_LAUNCHES[named] != 1:
+                raise AssertionError(f"moe_gemm_wgrad {tag}: launched by "
+                                     f"route {wops.ROUTE_LAUNCHES} "
+                                     f"(expected {named})")
+            if named == "wgmma":
+                outs["mma"] = on_route("mma", x, dy, bee, Ee, bte)
+                again = wgrad(x, dy, bee, Ee, block_t=bte)
+                torch.cuda.synchronize()
+                if not torch.equal(outs["wgmma"], again):
+                    raise AssertionError(f"moe_gemm_wgrad {tag}: two wgmma "
+                                         f"launches gave other bits")
+            torch.cuda.synchronize()
+            for r, got in outs.items():
+                routes_seen[r] += 1
+                _check(f"moe_gemm_wgrad {tag} {str(dtype)[6:]} ({r})", got,
+                       want, dtype, tol)
+                if any(got[e].any() for e in set(range(Ee)) - set(experts)):
+                    raise AssertionError(f"moe_gemm_wgrad {tag} ({r}): an "
+                                         f"expert with no block is not "
+                                         f"zeros")
+    log(f"  moe_gemm_wgrad edges held on each route: {routes_seen}")
     # dX: the forward kernel on the transposed weights, w1^T (E, F, D) and
     # w2^T (E, D, F), as GroupedGemmFn's backward lays them out
     dx_rows = {}
@@ -1781,25 +1840,33 @@ def check_moe_gemm_wgrad(dev, timer):
             f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
         del wt, dy, got
-    # time the weight gradient at the training shape
+    # time the weight gradient at the training shape: the wgmma route
+    # (what the wrapper names) and the mma route on the same inputs, each
+    # alone in the profiler's trace, in the order mma, wgmma, wgmma, mma
+    entries = KERNEL_ENTRIES["moe_gemm_wgrad"]
     for label, (x, dy, M, N) in timed.items():
         bound, by, nbytes, flops = _wgrad_bound(plan, n_choices, E, M, N, 2)
         ms = timer(lambda: wgrad(x, dy, be, E, block_t=bt), iters=10)
-        alone = timer.kernel_ms(lambda: wgrad(x, dy, be, E, block_t=bt),
-                                KERNEL_ENTRIES["moe_gemm_wgrad"], iters=10)
+        alone = {"wgmma": [], "mma": []}
+        for r in ("mma", "wgmma", "wgmma", "mma"):
+            alone[r].append(timer.kernel_ms(
+                lambda: on_route(r, x, dy, be, E, bt), entries, iters=10))
         plain_ms = timer(lambda: _wgrad_plain_blocks(x, dy, be, E, bt),
                          iters=2, warmup=1)
         lib = _grouped_mm_wgrad_ms(timer, gen, dev, T, E, k, M, N)
         rows[label] = dict(max_abs_err=errs[label], ms=ms,
-                           kernel_alone_ms=alone, plain_ms=plain_ms,
+                           kernel_alone_ms=statistics.median(alone["wgmma"]),
+                           alone_ms_by_route=alone, plain_ms=plain_ms,
                            bound_ms=bound, bound_by=by, library_ms=lib,
                            rows=x.shape[0], block_t=bt,
-                           kept_choices=n_choices)
+                           kept_choices=n_choices, route="wgmma")
         log(f"  moe_gemm_wgrad bf16 {label} (T={T}, top-{k} of {E}, "
             f"{n_choices} kept choices, rows {x.shape[0]}, block_t {bt}): "
-            f"kernel {ms:.4f} ms ({alone:.4f} ms alone in the profiler's "
-            f"trace), plain {plain_ms:.4f} ms, torch._grouped_mm {lib} ms, "
-            f"bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+            f"wgmma route {ms:.4f} ms; alone in the profiler's trace wgmma "
+            f"{alone['wgmma'][0]:.4f} / {alone['wgmma'][1]:.4f} ms, mma "
+            f"{alone['mma'][0]:.4f} / {alone['mma'][1]:.4f} ms; plain "
+            f"{plain_ms:.4f} ms, torch._grouped_mm {lib} ms, bound "
+            f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)")
     print(json.dumps({"moe_gemm_train_shapes": {**rows, **dx_rows}}),
           flush=True)
@@ -1812,8 +1879,9 @@ def check_moe_gemm_wgrad(dev, timer):
                 plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                 bound_by=r["bound_by"], library_ms=r["library_ms"],
                 shape=f"w1/w3 dW at 4 x 4096 tokens, top-{k} of {E}, D{D} "
-                      f"F{Fe} bf16, rows {r['rows']} block_t {bt}; library: "
-                      f"torch._grouped_mm grouped along the rows")
+                      f"F{Fe} bf16, rows {r['rows']} block_t {bt}, wgmma "
+                      f"route; library: torch._grouped_mm grouped along "
+                      f"the rows")
 
 
 def _scan_bound(states):
@@ -2180,6 +2248,7 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
     from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm_wgrad import ops as wgrad_ops
     from repro_torch.launch.steps import loss_and_grads, train_step
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
@@ -2207,12 +2276,16 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
                     ops.ROUTE_LAUNCHES != {"wgmma": 0, "simt": 2 * L}
                     or bwd_ops.ROUTE_LAUNCHES != {"simt": L, "wgmma": 0}
                     or moe_ops.ROUTE_LAUNCHES["simt"] !=
-                    want.get("moe_gemm", 0))):
+                    want.get("moe_gemm", 0)
+                    or wgrad_ops.ROUTE_LAUNCHES["simt"] !=
+                    want.get("moe_gemm_wgrad", 0))):
             raise AssertionError(f"reduced {arch} training on {device}: "
                                  f"launches {used}, flash routes "
                                  f"{ops.ROUTE_LAUNCHES}, backward routes "
                                  f"{bwd_ops.ROUTE_LAUNCHES}, grouped GEMM "
-                                 f"routes {moe_ops.ROUTE_LAUNCHES} (expected "
+                                 f"routes {moe_ops.ROUTE_LAUNCHES}, weight "
+                                 f"gradient routes "
+                                 f"{wgrad_ops.ROUTE_LAUNCHES} (expected "
                                  f"{want}, all fp32)")
         opt = optim.init_opt_state(pt)
         out = train_step(cfg, pt, opt, b, optim.AdamWConfig(lr=1e-3,
@@ -3688,17 +3761,18 @@ def train_moe_path(dev):
     aux over their count, rtol 1e-5); each step must launch the flash
     forward twice a layer (remat) and the backward once, all on wgmma, the
     grouped GEMM 9 times a layer (3 forward, 3 recomputed, 3 dX), all on
-    wgmma, its weight gradient 3 times a layer, no other kernel and no
-    plain version.  Logs s/step, tokens/s, peak memory, the capacity drops
-    of the first step, a step's device time by kernel class beside its
-    wall, and the model FLOPs over active parameters' share of the bf16
-    dense peak.  Returns (launches of the steps, numbers)."""
+    wgmma, its weight gradient 3 times a layer, all on wgmma, no other
+    kernel and no plain version.  Logs s/step, tokens/s, peak memory, the
+    capacity drops of the first step, a step's device time by kernel class
+    beside its wall, and the model FLOPs over active parameters' share of
+    the bf16 dense peak.  Returns (launches of the steps, numbers)."""
     from repro_torch import kernels, optim
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
     from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm_wgrad import ops as wgrad_ops
     from repro_torch.launch.steps import train_step
     from repro_torch.models import moe
     from repro_torch.models import transformer as T
@@ -3769,6 +3843,7 @@ def train_moe_path(dev):
         plain.restore()
     used = kernels.launches()
     routes = dict(moe_ops.ROUTE_LAUNCHES)
+    wgrad_routes = dict(wgrad_ops.ROUTE_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     want = {"flash_attention": 2 * L * steps,
             "flash_attention_bwd": L * steps, "moe_gemm": 9 * L * steps,
@@ -3778,11 +3853,14 @@ def train_moe_path(dev):
                                    "simt": 0} or \
             bwd_ops.ROUTE_LAUNCHES != {"simt": 0, "wgmma": L * steps} or \
             routes != {"wgmma": want["moe_gemm"], "mma": 0, "simt": 0} or \
+            wgrad_routes != {"wgmma": want["moe_gemm_wgrad"], "mma": 0,
+                             "simt": 0} or \
             any(plain.calls.values()):
         raise AssertionError(f"qwen3_moe_30b training: launches {used}, "
                              f"flash by route {ops.ROUTE_LAUNCHES}, "
                              f"backward by route {bwd_ops.ROUTE_LAUNCHES}, "
-                             f"grouped GEMM by route {routes}, plain "
+                             f"grouped GEMM by route {routes}, weight "
+                             f"gradient by route {wgrad_routes}, plain "
                              f"versions called {plain.calls} (expected "
                              f"{want}, all on wgmma, no plain version)")
     # the first step's loss: its cross-entropy + the forward's L layers'
@@ -3822,7 +3900,8 @@ def train_moe_path(dev):
         f"{tokens / step_s:.1f} tokens/s; peak device memory {peak:.2f} GB; "
         f"capacity drops of step 0 by layer "
         f"{[n - k for k, n in kept]} of {kept[0][1]} choices; launches "
-        f"{used}; grouped GEMM by route {routes}; plain versions called "
+        f"{used}; grouped GEMM by route {routes}; weight gradient by "
+        f"route {wgrad_routes}; plain versions called "
         f"{plain.calls}; active-parameter MFU {mfu:.4f}")
     print(json.dumps({"qwen3_moe_train_mfu": mfu,
                       "model_flop_per_step": flops, "s_per_step": step_s}),
@@ -3852,6 +3931,7 @@ def train_moe_path(dev):
     secs_phase = time.perf_counter() - t_phase
     log(f"  phase 13 took {secs_phase:.1f} s")
     return used, dict(layers=L, params=n_params, losses=losses,
+                      gemm_routes=routes, wgrad_routes=wgrad_routes,
                       step_s=step_s, step_secs=secs,
                       tokens_per_s=tokens / step_s, peak_gb=peak, mfu=mfu,
                       init_s=init_s, drops=[n - k for k, n in kept],

@@ -445,36 +445,15 @@ grouped_gemm_wgmma(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-// The 4-D map {cols, rows, mats, 1} (innermost first) of `mats` contiguous
-// row-major bf16 matrices, read in boxes of {64, box_rows, 1, 1} with the
-// 128-byte swizzle; elements outside arrive as zeros.
-cudaError_t make_map(CUtensorMap* map, const void* ptr, int cols, int rows,
-                     int mats, int box_rows) {
-  const PFN_cuTensorMapEncodeTiled_v12000 encode = sm90::map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {cuuint64_t(cols), cuuint64_t(rows),
-                              cuuint64_t(mats), 1};
-  const cuuint64_t row = cuuint64_t(cols) * 2;
-  const cuuint64_t strides[3] = {row, row * rows, row * rows * mats};
-  const cuuint32_t box[4] = {64, cuuint32_t(box_rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int WG>
 cudaError_t launch(const void* x, const void* w, const int* block_expert,
                    void* out, int T_rows, int D, int F, int E, int block_t,
                    cudaStream_t stream) {
   using G = Geo<WG>;
   CUtensorMap tx, tw, to;
-  cudaError_t err = make_map(&tx, x, D, T_rows, 1, G::BM);
-  if (err == cudaSuccess) err = make_map(&tw, w, F, D, E, BK);
-  if (err == cudaSuccess) err = make_map(&to, out, F, T_rows, 1, 64);
+  cudaError_t err = sm90::map_bf16(&tx, x, D, T_rows, 1, G::BM);
+  if (err == cudaSuccess) err = sm90::map_bf16(&tw, w, F, D, E, BK);
+  if (err == cudaSuccess) err = sm90::map_bf16(&to, out, F, T_rows, 1, 64);
   if (err != cudaSuccess) return err;
   auto kern = grouped_gemm_wgmma<WG>;
   static const cudaError_t smem_ok = rt::allow_smem(kern, G::kSmem);

@@ -24,9 +24,9 @@ runs ``GroupedGemmFn``: its forward is the call above; its backward is
 dX = grouped_gemm(dY, w^T, block_expert), the same kernel on the
 expert-transposed weight (E, F, D) (transposed by a copy here: a layout
 flag that reads w transposed is later work), and dW from
-``kernels/moe_gemm_wgrad`` (``repro_grouped_gemm_wgrad``, one CTA per
-expert and output tile walking the expert's blocks).  On the CPU both are
-the plain versions.
+``kernels/moe_gemm_wgrad`` (``repro_grouped_gemm_wgrad``: each output
+tile of an expert summed over the expert's blocks in one CTA, bf16 on its
+own wgmma route).  On the CPU both are the plain versions.
 
 The kernel is bound by bytes: at Qwen3-30B-A3B's 8 x 256 prefill it must
 read 403 MB of expert weights, at decode ~157 MB of the touched experts'.

@@ -11,13 +11,25 @@ whose expert is -1 (unused) is skipped.  It is the dW half of
 the port's path.
 
 The wrapper runs the plain version for tensors on the CPU.  For CUDA
-tensors it checks them, lists the blocks by expert on the device
-(``block_order``: a stable sort, no host sync), launches the kernel on the
-current stream, raises if the launch failed and counts the launch in
-``kernels.LAUNCHES``.  bf16 runs on the tensor cores (``mma.sync``), fp32
-on the CUDA cores; one CTA per (expert, output tile) walks the expert's
-blocks in a fixed order, so there are no atomics and two launches give
-equal bits.
+tensors it checks them, names the kernel's route with ``route()``, lists
+the blocks by expert on the device (``block_order``: a stable sort, no
+host sync), launches the kernel on the current stream, raises if the
+launch failed and counts the launch in ``kernels.LAUNCHES`` and, by
+route, in ``ROUTE_LAUNCHES``.  The three routes (the kernel's note says
+how each works):
+
+- ``"wgmma"``: bf16 with ``block_t`` a multiple of 64, M and N multiples
+  of 8 and 16-byte-aligned x and dy (TMA's stride and alignment rules):
+  every weight gradient of bf16 MoE training.  128 x 256 output tiles on
+  ``wgmma`` with both operands MN-major, x and dy k-tiles fed by TMA
+  through an mbarrier ring, the output stored by TMA.
+- ``"mma"``: every other bf16 call (ragged widths, ``block_t`` 16).
+  128 x 128 tiles on ``mma.sync``.
+- ``"simt"``: fp32, on the CUDA cores.
+
+No route stands in for another: a launch the named route refuses raises.
+On every route one CTA sums an output tile over its expert's blocks in a
+fixed order, so there are no atomics and two launches give equal bits.
 """
 from __future__ import annotations
 
@@ -30,7 +42,30 @@ from repro_torch.kernels import build
 
 NAME = "moe_gemm_wgrad"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODES = {"simt": 0, "mma": 1, "wgmma": 2}
 _LIB = None
+
+# launches by route since the last reset_routes()
+ROUTE_LAUNCHES = {"wgmma": 0, "mma": 0, "simt": 0}
+
+
+def route(dtype, block_t: int, M: int, N: int, aligned: bool) -> str:
+    """The kernel's route for a call: "simt" for fp32; for bf16 "wgmma"
+    when ``block_t`` is a multiple of 64, M and N are multiples of 8 (TMA
+    strides of 16 bytes) and ``aligned`` (x and dy start on 16-byte
+    boundaries), else "mma"."""
+    if dtype == torch.float32:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{NAME}: no route for {dtype}")
+    if block_t % 64 == 0 and M % 8 == 0 and N % 8 == 0 and aligned:
+        return "wgmma"
+    return "mma"
+
+
+def reset_routes() -> None:
+    for key in ROUTE_LAUNCHES:
+        ROUTE_LAUNCHES[key] = 0
 
 
 def grouped_gemm_wgrad_plain(x, dy, block_expert, num_experts: int, *,
@@ -67,7 +102,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     library."""
     fn = lib.repro_grouped_gemm_wgrad
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     return lib
 
@@ -116,15 +151,19 @@ def grouped_gemm_wgrad(x, dy, block_expert, num_experts: int, *,
     if x.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {x.device}")
     _check(x, dy, block_expert, num_experts, block_t)
-    out = launch(_lib(), x, dy, block_expert, num_experts, block_t)
+    r = route(x.dtype, block_t, x.shape[1], dy.shape[1],
+              x.data_ptr() % 16 == 0 and dy.data_ptr() % 16 == 0)
+    out = launch(_lib(), x, dy, block_expert, num_experts, block_t, r)
     kernels.LAUNCHES[NAME] += 1
+    ROUTE_LAUNCHES[r] += 1
     return out
 
 
-def launch(lib, x, dy, block_expert, num_experts: int, block_t: int):
+def launch(lib, x, dy, block_expert, num_experts: int, block_t: int,
+           route_name: str):
     """One launch of ``repro_grouped_gemm_wgrad`` from ``lib`` (see
-    ``bind``) on checked CUDA tensors; raises if the launch failed.  Counts
-    nothing."""
+    ``bind``) on checked CUDA tensors, on route ``route_name``; raises if
+    the launch failed.  Counts nothing."""
     T, M = x.shape
     N = dy.shape[1]
     order, start = block_order(block_expert, num_experts)
@@ -137,7 +176,8 @@ def launch(lib, x, dy, block_expert, num_experts: int, block_t: int):
             out.data_ptr(), T, M, N, num_experts, block_t,
             int(x.data_ptr() % 16 == 0 and M % vec == 0),
             int(dy.data_ptr() % 16 == 0 and N % vec == 0),
-            _DTYPES[x.dtype], stream)
+            _DTYPES[x.dtype], _ROUTE_CODES[route_name], stream)
     if err != 0:
-        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{NAME} kernel launch failed on the "
+                           f"{route_name} route: CUDA error {err}")
     return out

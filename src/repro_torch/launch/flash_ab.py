@@ -3,7 +3,7 @@ turns.
 
     PYTHONPATH=src python -m repro_torch.launch.flash_ab --other DIR \
         [--kernel {flash_attention,flash_attention_bwd,paged_attention,
-                   moe_gemm,fused_sampling}]
+                   moe_gemm,moe_gemm_wgrad,fused_sampling}]
 
 DIR is the root of another checkout of the repository (for example the
 parent commit, unpacked with ``git archive`` into a directory that
@@ -26,7 +26,15 @@ top-8 of 128 experts, rows laid out by the MoE layer's own dispatch
 (``GEMM_SHAPES``); this checkout's kernel runs on the route ``ops.route``
 names; an older library whose entry point has no route argument (before
 the wgmma route) is declared by this tool with its own arguments and picks
-its route itself; ``--kernel fused_sampling`` the sampler at the serving
+its route itself; ``--kernel moe_gemm_wgrad`` the grouped GEMM's weight
+gradient at ``chip_smoke.py`` phase 3's two training shapes
+(``WGRAD_SHAPES``: Qwen3-30B-A3B's 4 x 4096 tokens, top-8 of 128
+experts, w1/w3 dW (D 2048 x F 768) and w2 dW (768 x 2048), rows laid out
+by the MoE layer's dispatch), this checkout's kernel on the route
+``ops.route`` names, an older library without the route argument (before
+the wgmma route) declared with its own arguments, and each checkout's dw
+held to the plain version with phase 3's bf16 tolerance (``plain_err``);
+``--kernel fused_sampling`` the sampler at the serving
 path's rows (``SAMPLING_SHAPES``: Llama-3.2-1B's B8 V128256 without lanes
 and with K = 5 logprob lanes, the batch-1 prefix tail, Qwen3's B8 V151936
 with K = 5; mixed top-k / top-p / min-p rows), checks that ``sampled``,
@@ -63,7 +71,7 @@ from repro_torch.launch.profile import KERNEL_ENTRIES
 from repro_torch.launch.timing import Timer
 
 KERNELS = ("flash_attention", "flash_attention_bwd", "paged_attention",
-           "moe_gemm", "fused_sampling")
+           "moe_gemm", "moe_gemm_wgrad", "fused_sampling")
 # (B, S, H, Hkv, D): Llama-3.2-1B's 4 x 512 and 8 x 256 prefill batches,
 # Qwen3-30B-A3B's 8 x 256, and one 2048-token prompt
 SHAPES = [(4, 512, 32, 8, 64), (8, 256, 32, 8, 64), (8, 256, 32, 4, 128),
@@ -87,6 +95,13 @@ GEMM_SHAPES = [("decode B8 w1", 8, 2048, 768),
                ("prefill 8x256 w1", 2048, 2048, 768),
                ("prefill 8x256 w2", 2048, 768, 2048)]
 GEMM_EXPERTS, GEMM_TOP_K = 128, 8
+
+# (label, tokens, M, N): the weight gradient at Qwen3-30B-A3B's training
+# batch of 4 x 4096 tokens (chip_smoke.py's TRAIN_MOE), w1 (and w3) dW then
+# w2 dW; phase 3's bf16 tolerance against the plain version
+WGRAD_SHAPES = [("train 4x4096 w1 dW", 4 * 4096, 2048, 768),
+                ("train 4x4096 w2 dW", 4 * 4096, 768, 2048)]
+WGRAD_TOL = dict(atol=2e-2, rtol=2e-2)
 
 # (B, V, lanes): Llama-3.2-1B's sampled decode batch without and with K = 5
 # logprob lanes, the batch-1 steps of a prefix-hit tail, Qwen3-30B-A3B's
@@ -190,6 +205,9 @@ def build_other(root: Path, kernel: str = "flash_attention") -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     if kernel == "moe_gemm" and not _gemm_takes_route(src):
         return _bind_gemm_without_route(lib)
+    if kernel == "moe_gemm_wgrad" and not _gemm_takes_route(
+            src, "repro_grouped_gemm_wgrad"):
+        return _bind_wgrad_without_route(lib)
     if kernel == "flash_attention" and not _flash_takes(src, "lse"):
         return _bind_flash_older(lib, _flash_takes(src, "int DV"))
     if kernel == "flash_attention_bwd" and not _bwd_takes_window(src):
@@ -248,10 +266,11 @@ def _bind_flash_older(lib: ctypes.CDLL, takes_dv: bool):
     return types.SimpleNamespace(repro_flash_attention_fwd=call)
 
 
-def _gemm_takes_route(src: Path) -> bool:
-    """Whether a ``moe_gemm.cu``'s C entry point takes the route argument
-    (the wgmma route added it before ``stream``)."""
-    sig = re.search(r"repro_grouped_gemm\(([^)]*)\)", src.read_text())
+def _gemm_takes_route(src: Path, entry: str = "repro_grouped_gemm") -> bool:
+    """Whether the C entry point ``entry`` of a ``moe_gemm.cu`` (or
+    ``moe_gemm_wgrad.cu``) takes the route argument (each kernel's wgmma
+    route added it before ``stream``)."""
+    sig = re.search(rf"{entry}\(([^)]*)\)", src.read_text())
     return sig is not None and "int route" in sig.group(1)
 
 
@@ -265,6 +284,18 @@ def _bind_gemm_without_route(lib: ctypes.CDLL):
                    + [ctypes.c_void_p])
     return types.SimpleNamespace(
         repro_grouped_gemm=lambda *args: fn(*args[:-2], args[-1]))
+
+
+def _bind_wgrad_without_route(lib: ctypes.CDLL):
+    """An older library's ``repro_grouped_gemm_wgrad``, with no route
+    argument, behind the current signature: the route ``ops.launch``
+    passes is dropped (that library runs every bf16 call on mma.sync)."""
+    fn = lib.repro_grouped_gemm_wgrad
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
+    return types.SimpleNamespace(
+        repro_grouped_gemm_wgrad=lambda *args: fn(*args[:-2], args[-1]))
 
 
 def _flash_cases(gen, dev):
@@ -357,6 +388,44 @@ def _gemm_cases(gen, dev):
                lambda lib, a=(xs, w, be, bt, r): ops.launch(lib, *a))
 
 
+def _wgrad_plain(x, dy, be, E, bt, chunk=128):
+    """The weight gradient's plain version ``chunk`` blocks at a time into
+    one fp32 sum (its per-block products at the training shapes take ~7
+    GB at once), cast to x's dtype at the end."""
+    wops = _ops("moe_gemm_wgrad")
+    dw = torch.zeros((E, x.shape[1], dy.shape[1]), dtype=torch.float32,
+                     device=x.device)
+    for i in range(0, be.numel(), chunk):
+        rows = slice(i * bt, (i + chunk) * bt)
+        dw += wops.grouped_gemm_wgrad_plain(x[rows].float(),
+                                            dy[rows].float(),
+                                            be[i:i + chunk], E, block_t=bt)
+    return dw.to(x.dtype)
+
+
+def _wgrad_cases(gen, dev):
+    """(shape, call(lib), plain dw) at each weight-gradient shape: random
+    router logits' top-k through ``dispatch_plan`` at the block size the
+    MoE layer picks, x and dy rows gathered as the layer gathers them."""
+    gops, wops = _ops("moe_gemm"), _ops("moe_gemm_wgrad")
+    E, k = GEMM_EXPERTS, GEMM_TOP_K
+    for label, T, M, N in WGRAD_SHAPES:
+        ids = torch.topk(torch.randn((T, E), generator=gen, device=dev),
+                         k, dim=-1).indices
+        plan = gops.dispatch_plan(ids, E, gops.pick_block_t(T * k, E))
+        tok = torch.arange(T, device=dev).repeat_interleave(k)
+        x, dy = (gops.gather_rows(torch.randn((T, w), generator=gen,
+                                              device=dev).bfloat16(),
+                                  plan, tok) for w in (M, N))
+        be, bt = plan.block_expert, plan.block_t
+        wops._check(x, dy, be, E, bt)
+        r = wops.route(x.dtype, bt, M, N, x.data_ptr() % 16 == 0
+                       and dy.data_ptr() % 16 == 0)
+        yield (f"{label} rows{x.shape[0]} bt{bt} ({r})",
+               lambda lib, a=(x, dy, be, E, bt, r): wops.launch(lib, *a),
+               _wgrad_plain(x, dy, be, E, bt))
+
+
 def _sampling_cases(gen, dev):
     """(shape, call(lib)) at each sampling shape."""
     ops = _ops("fused_sampling")
@@ -418,7 +487,8 @@ def compare(other: Path, kernel: str = "flash_attention") -> list:
     """One row a shape: the other kernel's two times and this one's (ms,
     in the order other, this, this, other), each by CUDA events around the
     call and by the profiler's duration of the kernel alone, and how
-    their outputs differ."""
+    their outputs differ (from each other and, where the case gives one,
+    from the plain version)."""
     if kernel not in KERNELS:
         raise ValueError(f"flash_ab: no A/B for {kernel}, only {KERNELS}")
     dev = torch.device("cuda", 0)
@@ -436,13 +506,26 @@ def compare(other: Path, kernel: str = "flash_attention") -> list:
     cases = {"flash_attention": _flash_cases,
              "flash_attention_bwd": _bwd_cases,
              "paged_attention": _paged_cases, "moe_gemm": _gemm_cases,
+             "moe_gemm_wgrad": _wgrad_cases,
              "fused_sampling": _sampling_cases}[kernel]
     rows = []
-    for shape, fn in cases(gen, dev):
+    for shape, fn, *plain in cases(gen, dev):
         def call(name):
             return fn(libs[name])
 
-        diff = _difference(call("this"), call("other"))
+        outs = {name: call(name) for name in ("this", "other")}
+        diff = _difference(outs["this"], outs["other"])
+        for name, got in outs.items():  # each held to the plain version
+            for want in plain:
+                if not torch.allclose(got.float(), want.float(),
+                                      **WGRAD_TOL):
+                    raise AssertionError(f"{kernel} {shape}: the {name} "
+                                         f"checkout's output differs from "
+                                         f"the plain version past "
+                                         f"{WGRAD_TOL}")
+                diff[f"{name}_plain_err"] = (got.float() - want.float()) \
+                    .abs().max().item()
+        del outs, plain
         times = {name: [] for name in libs}
         alone = {name: [] for name in libs}
         for name in ("other", "this", "this", "other"):
@@ -476,6 +559,9 @@ def main(argv=None) -> int:
                 if "max_abs_diff" in r else
                 f"bits differ in {r['unequal_bits']}, l rel "
                 f"{r['max_rel_diff_l']:.3e}")
+        if "this_plain_err" in r:
+            diff += (f"; max |- plain| this {r['this_plain_err']:.3e}, "
+                     f"other {r['other_plain_err']:.3e}")
         print(f"{args.kernel} {r['shape']}: other {r['other_ms'][0]:.4f} / "
               f"{r['other_ms'][1]:.4f} ms, this {r['this_ms'][0]:.4f} / "
               f"{r['this_ms'][1]:.4f} ms; kernel alone: other "

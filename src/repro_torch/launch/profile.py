@@ -55,7 +55,8 @@ KERNEL_ENTRIES = {
     "paged_attention": ("paged_split_kernel",),
     "fused_sampling": ("fused_sample_kernel",),
     "moe_gemm": ("grouped_gemm_kernel", "grouped_gemm_wgmma"),
-    "moe_gemm_wgrad": ("grouped_gemm_wgrad_kernel",),
+    "moe_gemm_wgrad": ("grouped_gemm_wgrad_kernel",
+                       "grouped_gemm_wgrad_wgmma"),
     "ssd_scan": ("ssd_scan_kernel",),
 }
 

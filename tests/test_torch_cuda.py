@@ -57,7 +57,13 @@ rtol 1e-5, grads atol 1e-4, rtol 1e-3) with the launches remat implies.
 The grouped GEMM's autograd node (``GroupedGemmFn``: dX by the forward
 kernel on the transposed weight, dW by ``moe_gemm_wgrad``) holds to
 autograd through the plain version in both types, and the weight
-gradient gives equal bits over two launches.
+gradient gives equal bits over two launches.  The weight gradient's
+wgmma route (bf16 at block_t 64 and up, M and N multiples of 8) holds to
+its plain version (bf16 atol 2e-2 x the largest |dw|, rtol 2e-2) at
+ragged widths, empty experts, unused blocks, blocks of one expert apart
+and more k-tiles than its ring has stages, with equal bits; each launch
+counts on the route ``route()`` names, and a launch on a route the call
+cannot take raises.
 """
 import dataclasses
 import math
@@ -81,6 +87,7 @@ from repro_torch.kernels.fused_sampling.ops import (fused_sample,
 from repro_torch.kernels.moe_gemm import ops as moe_ops
 from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
                                               grouped_gemm_plain, moe_ffn)
+from repro_torch.kernels.moe_gemm_wgrad import ops as wgrad_ops
 from repro_torch.kernels.moe_gemm_wgrad.ops import (
     grouped_gemm_wgrad, grouped_gemm_wgrad_plain)
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -1424,9 +1431,12 @@ def test_grouped_gemm_fn_matches_plain_autograd(dev, case, dtype):
         return y.detach(), tx.grad, tw.grad
 
     kernels.reset_launches()
+    wgrad_ops.reset_routes()
     got = run(grouped_gemm)
     used = kernels.launches()
     assert used["moe_gemm"] == 2 and used["moe_gemm_wgrad"] == 1
+    assert wgrad_ops.ROUTE_LAUNCHES[wgrad_ops.route(dtype, bt, D, F,
+                                                    True)] == 1
     want = run(grouped_gemm_plain)
     for a, b in zip(got, want):
         scale = b.float().abs().max().item()
@@ -1452,6 +1462,98 @@ def test_grouped_gemm_wgrad_gives_equal_bits(dev):
         scale = want.float().abs().max().item()
         _close(a, want, dtype, dict(atol=TOL[dtype]["atol"] * scale,
                                     rtol=TOL[dtype]["rtol"]))
+
+
+# (experts of the blocks, block_t, M, N, E): the weight gradient's wgmma
+# route at ragged widths (M and N multiples of 8, not of 64; M 72 leaves the
+# second warpgroup's rows past M), empty experts, unused blocks, one
+# expert's blocks apart, more k-tiles than ring stages, Qwen3's widths
+WGRAD_CASES = [
+    ([0, 0, 1, 3, 3, 3, -1, -1], 128, 256, 512, 5),
+    ([1, 1, 1, 0, -1], 64, 128, 64, 3),
+    ([0, 2, 0, 1, 2], 64, 200, 136, 3),
+    ([2, 0, 0, 2, -1], 128, 72, 264, 4),
+    ([0] * 40, 64, 768, 2048, 2),
+    ([4, 9, 9, 0, -1, -1], 128, 2048, 768, 16),
+]
+
+
+@pytest.mark.parametrize("case", WGRAD_CASES,
+                         ids=[f"bt{c[1]}_M{c[2]}_N{c[3]}_E{c[4]}"
+                              for c in WGRAD_CASES])
+def test_wgrad_wgmma_matches_plain(dev, case):
+    experts, bt, M, N, E = case
+    gen = torch.Generator(device=dev).manual_seed(41)
+    be = torch.tensor(experts, dtype=torch.int32, device=dev)
+    x = _randn(gen, (len(experts) * bt, M), torch.bfloat16, dev)
+    dy = _randn(gen, (len(experts) * bt, N), torch.bfloat16, dev)
+    wgrad_ops.reset_routes()
+    got = grouped_gemm_wgrad(x, dy, be, E, block_t=bt)
+    again = grouped_gemm_wgrad(x, dy, be, E, block_t=bt)
+    torch.cuda.synchronize()
+    assert wgrad_ops.ROUTE_LAUNCHES == {"wgmma": 2, "mma": 0, "simt": 0}
+    assert torch.equal(got, again)
+    want = grouped_gemm_wgrad_plain(x, dy, be, E, block_t=bt)
+    scale = want.float().abs().max().item()
+    _close(got, want, torch.bfloat16, dict(atol=2e-2 * scale, rtol=2e-2))
+    for e in set(range(E)) - set(experts):
+        assert not got[e].any()
+
+
+def test_wgrad_routes_count_and_refuse_what_they_cannot_take(dev):
+    """Each launch counts on the route ``route()`` names (wgmma at block_t
+    128, mma at block_t 16 and for a base TMA cannot read, simt for fp32),
+    each in the kernel's total too; a launch on a route the call cannot
+    take raises and runs nothing else."""
+    gen = torch.Generator(device=dev).manual_seed(42)
+    T, M, N, E, bt = 128 * 6, 512, 384, 4, 128
+    x = _randn(gen, (T, M), torch.bfloat16, dev)
+    dy = _randn(gen, (T, N), torch.bfloat16, dev)
+    be = torch.tensor([0, 0, 2, 2, 2, -1], dtype=torch.int32, device=dev)
+    be16 = be.repeat_interleave(bt // 16).contiguous()
+    flat = torch.empty((T * M + 1,), dtype=torch.bfloat16, device=dev)
+    shifted = flat[1:].view(T, M)
+    shifted.copy_(x)
+    kernels.reset_launches()
+    wgrad_ops.reset_routes()
+    outs = [grouped_gemm_wgrad(x, dy, be, E, block_t=bt),
+            grouped_gemm_wgrad(x, dy, be16, E, block_t=16),
+            grouped_gemm_wgrad(shifted, dy, be, E, block_t=bt)]
+    grouped_gemm_wgrad(x.float(), dy.float(), be, E, block_t=bt)
+    torch.cuda.synchronize()
+    assert wgrad_ops.ROUTE_LAUNCHES == {"wgmma": 1, "mma": 2, "simt": 1}
+    assert kernels.launches()["moe_gemm_wgrad"] == 4
+    want = grouped_gemm_wgrad_plain(x, dy, be, E, block_t=bt)
+    scale = want.float().abs().max().item()
+    for got in outs:
+        _close(got, want, torch.bfloat16, dict(atol=2e-2 * scale, rtol=2e-2))
+    lib = wgrad_ops._lib()
+    for args, r in (((x, dy, be16, E, 16), "wgmma"),
+                    ((shifted, dy, be, E, bt), "wgmma"),
+                    ((x[:, :100].contiguous(), dy, be, E, bt), "wgmma"),
+                    ((x.float(), dy.float(), be, E, bt), "mma"),
+                    ((x.float(), dy.float(), be, E, bt), "wgmma"),
+                    ((x, dy, be, E, bt), "simt")):
+        with pytest.raises(RuntimeError, match=f"{r} route"):
+            wgrad_ops.launch(lib, *args, r)
+
+
+def test_wgrad_ab_against_itself(dev):
+    """The A/B tool for the weight gradient (``--kernel moe_gemm_wgrad``):
+    at phase 3's two training shapes, on the wgmma route, equal bits, each
+    side held to the plain version, positive readings."""
+    from repro_torch.launch import flash_ab
+    rows = flash_ab.compare(Path(__file__).resolve().parents[1],
+                            kernel="moe_gemm_wgrad")
+    assert [r["shape"].split(" rows")[0] for r in rows] == [
+        label for label, *_ in flash_ab.WGRAD_SHAPES]
+    for r in rows:
+        assert r["shape"].endswith("(wgmma)")
+        assert r["max_abs_diff"] == 0.0
+        assert r["this_plain_err"] == r["other_plain_err"]
+        assert len(r["this_kernel_ms"]) == len(r["other_kernel_ms"]) == 2
+        assert min(r["this_ms"] + r["other_ms"] + r["this_kernel_ms"]
+                   + r["other_kernel_ms"]) > 0
 
 
 @pytest.mark.parametrize("arch", ["qwen3_moe_30b", "h2o_danube_1_8b"])

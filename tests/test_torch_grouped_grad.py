@@ -4,9 +4,15 @@
 under autograd) against autograd of ``grouped_gemm_plain``, and
 ``kernels/moe_gemm_wgrad/ops.py::grouped_gemm_wgrad_plain`` against a JAX
 einsum over the padded (E, C, D) capacity buffer the reference's MoE
-contracts.  fp32 inputs from ``np.random.default_rng(seed)``.  Tolerances:
+contracts; the weight gradient's ``route()``, and a numpy model of its
+wgmma route's walk (``csrc/moe_gemm_wgrad.cu``: the tiles each CTA takes,
+the rows each k-tile loads, the ring's stage releases) against the plain
+version.  fp32 inputs from ``np.random.default_rng(seed)``.  Tolerances:
 atol 1e-5, rtol 1e-4 (fp32 sums in another order).
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -205,3 +211,142 @@ def test_combine_index_gives_each_drop_its_own_free_row(capacity, block_t):
     y = ops.grouped_gemm(ops.gather_rows(x, plan, torch.arange(N)), w,
                          plan.block_expert, block_t=block_t)
     assert not y[idx[~keep]].any()
+
+
+@pytest.mark.parametrize("dtype,bt,M,N,aligned,want", [
+    (torch.bfloat16, 128, 2048, 768, True, "wgmma"),    # Qwen3's w1 dW
+    (torch.bfloat16, 128, 768, 2048, True, "wgmma"),    # and its w2 dW
+    (torch.bfloat16, 64, 200, 136, True, "wgmma"),
+    (torch.bfloat16, 192, 72, 264, True, "wgmma"),
+    (torch.bfloat16, 16, 2048, 768, True, "mma"),       # decode's block_t
+    (torch.bfloat16, 32, 256, 256, True, "mma"),
+    (torch.bfloat16, 96, 256, 256, True, "mma"),
+    (torch.bfloat16, 128, 100, 768, True, "mma"),       # ragged M
+    (torch.bfloat16, 128, 2048, 772, True, "mma"),      # ragged N
+    (torch.bfloat16, 128, 2048, 768, False, "mma"),     # a base TMA refuses
+    (torch.float32, 128, 2048, 768, True, "simt"),
+    (torch.float32, 16, 72, 100, False, "simt"),
+])
+def test_wgrad_route_follows_type_block_and_widths(dtype, bt, M, N, aligned,
+                                                   want):
+    """The wrapper names the route without a card: bf16 at block_t a
+    multiple of 64, M and N multiples of 8 and 16-byte-aligned bases on
+    wgmma, other bf16 calls on mma, fp32 on simt; no other type."""
+    assert wops.route(dtype, bt, M, N, aligned) == want
+    with pytest.raises(TypeError, match="route"):
+        wops.route(torch.float16, bt, M, N, aligned)
+
+
+# The wgmma route's walk (csrc/moe_gemm_wgrad.cu), modelled in numpy from
+# the constants of the source: one CTA an SM walks output tiles grid apart
+# (N tiles fastest, then M, then experts); its producer loads the k-tiles
+# of a tile's expert's blocks in ``order``, x and dy boxes wholly past M
+# or N not loaded (zeros); its consumers release each k-tile's ring stage
+# once; each tile is stored once, clipped at M and N.
+_WGRAD_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+              / "csrc" / "moe_gemm_wgrad.cu").read_text()
+
+
+def _wgrad_geo():
+    """{BM, BN, BK, STAGES} of the wgmma route, from the source's ``tc``
+    namespace."""
+    tc = _WGRAD_SRC[_WGRAD_SRC.index("namespace tc {"):]
+    geo = {}
+    for name in ("BM", "BN", "BK", "STAGES"):
+        m = re.search(rf"constexpr int {name} = (\d+);", tc)
+        assert m, f"tc::{name} changed"
+        geo[name] = int(m.group(1))
+    return geo
+
+
+def _wgrad_walk(x, dy, be, E, block_t, sms):
+    """(dw, stores, blocks read, released k-tiles by CTA, loaded k-tiles by
+    CTA) of the kernel's walk on ``sms`` SMs; dw's elements never stored
+    stay NaN."""
+    g = _wgrad_geo()
+    BM, BN, BK = g["BM"], g["BN"], g["BK"]
+    assert block_t % BK == 0            # a k-tile never straddles a block
+    T, M = x.shape
+    N = dy.shape[1]
+    order, start = (t.numpy() for t in wops.block_order(torch.from_numpy(be),
+                                                        E))
+    ntn, ntm = -(-N // BN), -(-M // BM)
+    tiles = ntn * ntm * E
+    grid = min(tiles, sms)
+    tpb = block_t // BK
+    dw = np.full((E, M, N), np.nan, np.float64)
+    stores = np.zeros((E, M, N), np.int64)
+    read, released, loaded = set(), {}, {}
+    for cta in range(grid):
+        it, rel = 0, []
+        for t in range(cta, tiles, grid):
+            n0, m0, e = t % ntn * BN, t // ntn % ntm * BM, t // (ntn * ntm)
+            first = start[e]
+            nk = (start[e + 1] - first) * tpb
+            xb = min(BM // 64, (M - m0 + 63) // 64)
+            yb = min(BN // 64, (N - n0 + 63) // 64)
+            acc = np.zeros((BM, BN))
+            for kt in range(nk):
+                blk = order[first + kt // tpb]
+                assert be[blk] == e
+                read.add(int(blk))
+                row = blk * block_t + kt % tpb * BK
+                xs, ys = np.zeros((BK, BM)), np.zeros((BK, BN))
+                mx, ny = min(M, m0 + 64 * xb), min(N, n0 + 64 * yb)
+                xs[:, :mx - m0] = x[row:row + BK, m0:mx]
+                ys[:, :ny - n0] = dy[row:row + BK, n0:ny]
+                acc += xs.T @ ys
+                if kt > 0:
+                    rel.append(it - 1)
+                it += 1
+            if nk > 0:
+                rel.append(it - 1)
+            mh, nh = min(M, m0 + BM) - m0, min(N, n0 + BN) - n0
+            dw[e, m0:m0 + mh, n0:n0 + nh] = acc[:mh, :nh]
+            stores[e, m0:m0 + mh, n0:n0 + nh] += 1
+        released[cta], loaded[cta] = rel, it
+    return dw, stores, read, released, loaded
+
+
+def _wgrad_layouts():
+    """name -> (experts of the blocks, block_t, M, N, E, SMs): random
+    layouts with unused (-1) blocks anywhere, experts with no block and one
+    expert's blocks apart, at block_t 64, 128 and 192, M and N multiples of
+    8 (not all of 64), on 132 SMs (one tile a CTA) and on few (many)."""
+    r = np.random.default_rng(27)
+    out = {}
+    for i, (bt, M, N, E, nb, sms) in enumerate([
+            (64, 200, 136, 5, 9, 132), (128, 72, 264, 4, 6, 132),
+            (64, 256, 512, 6, 10, 3), (192, 136, 72, 3, 5, 2),
+            (128, 128, 256, 8, 7, 5), (64, 64, 520, 2, 4, 1)]):
+        experts = r.integers(-1, E, nb).astype(np.int32)
+        experts[r.integers(0, nb)] = -1
+        out[f"bt{bt} M{M} N{N} E{E} sms{sms} #{i}"] = (experts, bt, M, N, E,
+                                                       sms)
+    return out
+
+
+@pytest.mark.parametrize("case", list(_wgrad_layouts()))
+def test_wgrad_walk_sums_to_the_plain_version(case):
+    """The walk stores every element of dw once, reads only the blocks of
+    each tile's expert (never an unused one), releases each CTA's k-tiles
+    once and in order, and its sums equal the plain version's: an expert
+    with no block gets zeros."""
+    experts, bt, M, N, E, sms = _wgrad_layouts()[case]
+    rng = np.random.default_rng(len(case))
+    T = len(experts) * bt
+    x = rng.standard_normal((T, M)).astype(np.float32)
+    dy = rng.standard_normal((T, N)).astype(np.float32)
+    dw, stores, read, released, loaded = _wgrad_walk(x, dy, experts, E, bt,
+                                                     sms)
+    assert (stores == 1).all()
+    assert read == {b for b, e in enumerate(experts) if e >= 0}
+    for cta, rel in released.items():
+        assert rel == list(range(loaded[cta]))
+    want = wops.grouped_gemm_wgrad_plain(torch.from_numpy(x),
+                                         torch.from_numpy(dy),
+                                         torch.from_numpy(experts), E,
+                                         block_t=bt)
+    np.testing.assert_allclose(dw, want.numpy(), **TOL)
+    for e in set(range(E)) - set(experts.tolist()):
+        assert not dw[e].any()

@@ -33,6 +33,7 @@ from repro_torch.kernels.flash_attention_bwd.ops import (
 from repro_torch.kernels.fused_sampling.ops import (fused_sample,
                                                     fused_sample_plain)
 from repro_torch.kernels.moe_gemm.ops import grouped_gemm, grouped_gemm_plain
+from repro_torch.kernels.moe_gemm_wgrad import ops as wgrad_ops
 from repro_torch.kernels.moe_gemm_wgrad.ops import (
     grouped_gemm_wgrad, grouped_gemm_wgrad_plain)
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
@@ -167,8 +168,10 @@ def test_dense_decode_view_matches_jax_decode_attention(S):
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():
     """On CPU tensors a wrapper is its plain version and launches nothing:
-    the launch counters stay at zero."""
+    the launch counters (and the weight gradient's by route) stay at
+    zero."""
     kernels.reset_launches()
+    wgrad_ops.reset_routes()
     q, k, v = _qkv(6, 1, 16, 16, 4, 2, 32)
     k_attn = k
     pos = _pos(1, 0, 16)
@@ -196,6 +199,12 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     dy = torch.from_numpy(r.standard_normal((32, 5)).astype(np.float32))
     assert torch.equal(grouped_gemm_wgrad(x, dy, be, 2, block_t=16),
                        grouped_gemm_wgrad_plain(x, dy, be, 2, block_t=16))
+    # bf16 at block_t 64 (the wgmma route's call on a card)
+    xb, dyb = (torch.from_numpy(r.standard_normal((128, w))
+                                .astype(np.float32)).bfloat16()
+               for w in (16, 8))
+    assert torch.equal(grouped_gemm_wgrad(xb, dyb, be, 2, block_t=64),
+                       grouped_gemm_wgrad_plain(xb, dyb, be, 2, block_t=64))
     st = torch.from_numpy(r.standard_normal((1, 2, 3, 4, 4))
                           .astype(np.float32))
     dec = torch.from_numpy(r.random((1, 2, 3)).astype(np.float32))
@@ -212,6 +221,7 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
                                   "paged_attention": 0, "fused_sampling": 0,
                                   "moe_gemm": 0, "moe_gemm_wgrad": 0,
                                   "ssd_scan": 0}
+    assert wgrad_ops.ROUTE_LAUNCHES == {"wgmma": 0, "mma": 0, "simt": 0}
     assert set(kernels.KERNELS) == {"flash_attention", "flash_attention_bwd",
                                     "paged_attention", "fused_sampling",
                                     "moe_gemm", "moe_gemm_wgrad",
