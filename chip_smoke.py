@@ -132,6 +132,16 @@ result):
    shapes, one chunk, a ragged N*P and an unaligned view, and is timed
    at the first two by CUDA events and alone in the profiler's trace; no
    PyTorch call computes a linear recurrence, so it has no library
+   yardstick.  Its backward (``ssd_scan_bwd``, the adjoint recurrence:
+   dstates and ddecay, the cell's sum over CTAs as per-tile partials
+   summed in tile order by a second launch) must give the plain
+   backward's dstates bits and ddecay to atol 1e-5 + 1e-7 x the sum of
+   its products' magnitudes, rtol 1e-5, with equal bits over two
+   launches, at Mamba2-370M's training microbatch (8 x 4096 tokens:
+   (8, 32, 64, 128, 64), dfinal None), the forward's serving shapes, the
+   JAX test's shapes, one chunk, a ragged N*P, a ragged tile and an
+   unaligned view, and is timed at the training shape by CUDA events and
+   alone (its two launches summed) beside its bound, with no library
    yardstick;
 4. the serving paths: full-width Llama-3.2-1B in bf16 (random weights from
    a seed) through the port's ``BatchMaster`` and one ``NodeEngine``:
@@ -166,7 +176,8 @@ result):
    then one ``train_step``'s loss, grad norm and AdamW moments, with the
    flash forward launched twice a layer (remat) and the backward once, and
    an MoE layer's grouped GEMM 9 times and its weight gradient 3 times
-   (all fp32, on the simt routes);
+   (all fp32, on the simt routes); reduced fp32 Mamba2-370M the same way,
+   the scan launched twice a layer and its backward once;
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
    seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
    module granularity (Algorithm 1: attention in sub-batches of 4 of the
@@ -288,7 +299,18 @@ result):
     layer, all on wgmma, and no plain version; it logs s/step, tokens/s,
     peak memory,
     the capacity drops, a step's device time by kernel class beside its
-    wall and the active-parameter MFU (``qwen3_moe_train_mfu``).
+    wall and the active-parameter MFU (``qwen3_moe_train_mfu``);
+14. training the SSM: Mamba2-370M (48 layers, d_model 1024, d_inner 2048,
+    32 heads of 64, state 128, vocab 50280; 420M parameters) in bf16 at
+    every published width and full depth, random weights from seed 0, 5
+    steps of 16 x 4096 tokens in 2 microbatches (phase 12's SmolLM
+    shape), remat on, AdamW lr 1e-3: the loss must be finite and fall,
+    and a rerun from seed 0 must repeat the first step's loss bit for
+    bit; every step must launch the scan 192 times (2 x 48 layers x 2
+    microbatches) and its backward 96 times, no other kernel and no plain
+    version; it logs s/step, tokens/s, peak memory, a step's device time
+    by kernel class beside its wall and the MFU (``mamba2_370m_train_mfu``,
+    the SSD's own products counted: ``_model_flops``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -338,6 +360,9 @@ REPLACES = {
     # kernel computes the weight gradient)
     "moe_gemm_wgrad": "src/repro/models/moe.py:70",
     "ssd_scan": "src/repro/kernels/ssd_scan/ssd_scan.py:35",
+    # the VJP of the reference's lax.scan between chunks (no TPU kernel
+    # computes it)
+    "ssd_scan_bwd": "src/repro/models/ssm.py:98",
 }
 # the kernels each serving path must launch; the others it must not
 DENSE_GREEDY = ("flash_attention", "paged_attention")
@@ -1963,6 +1988,123 @@ def check_ssd_scan(dev, timer):
                       "call computes a first-order linear recurrence)")
 
 
+# Mamba2-370M's training microbatch for the scan's backward: 8 x 4096
+# tokens, 32 heads, state 128 x head dim 64, chunks of 64 (phase 14)
+SCAN_BWD_TRAIN = (8, 32, 64, 128, 64)
+
+
+def _scan_bwd_bound(prev, with_final: bool):
+    """Least time for one backward: prev and dprev read once, dstates
+    written once, decay read and ddecay written once (dfinal read once
+    when given), or 4 FLOP per element and chunk at the fp32 peak."""
+    B, H, nc, N, P = prev.shape
+    nbytes = 4 * (3 * prev.numel() + 2 * B * H * nc
+                  + (B * H * N * P if with_final else 0))
+    flops = 4.0 * prev.numel()
+    t_b, t_f = nbytes / PEAK_BYTES, flops / PEAK_FLOPS[torch.float32]
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations", \
+        nbytes
+
+
+def check_ssd_scan_bwd(dev, timer):
+    """The scan's backward (the adjoint recurrence) against its plain
+    version: dstates in its bits (``torch.equal``: the update rounds the
+    product and the sum separately, as ``dprev + d * G`` does), ddecay (a
+    sum of N * P products over a cell's CTAs, in a fixed order) to atol
+    1e-5 + 1e-7 x the sum of the products' magnitudes, rtol 1e-5, and
+    both in equal bits over two launches.  Cases: the training microbatch
+    (``SCAN_BWD_TRAIN``, dfinal None as training calls it), the serving
+    shapes of ``check_ssd_scan`` (with a dfinal), the JAX test's shapes,
+    one chunk, a ragged N*P and an unaligned view.  Timed at the training
+    shape by CUDA events and alone in the profiler's trace (its two
+    launches' medians summed), beside its bound; no PyTorch call computes
+    a linear recurrence's adjoint, so it has no library yardstick."""
+    from repro_torch.kernels.ssd_scan.ops import ssd_state_scan_plain
+    from repro_torch.kernels.ssd_scan_bwd.ops import (
+        ssd_state_scan_bwd, ssd_state_scan_bwd_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    worst = 0.0
+
+    def case(tag, shape, final=False, offset=0):
+        nonlocal worst
+        B, H, nc, N, P = shape
+
+        def view(shp):   # offset > 0: a contiguous view off the 16-byte grid
+            return torch.randn(math.prod(shp) + offset, generator=gen,
+                               device=dev)[offset:].view(shp)
+        d = torch.rand((B, H, nc), generator=gen, device=dev) * 0.9 + 0.05
+        prev = ssd_state_scan_plain(view(shape), d)[0]
+        if offset:
+            prev = view(shape).copy_(prev)
+        dprev = view(shape)
+        dfinal = view((B, H, N, P)) if final else None
+        got = ssd_state_scan_bwd(prev, d, dprev, dfinal)
+        again = ssd_state_scan_bwd(prev, d, dprev, dfinal)
+        torch.cuda.synchronize()
+        want = ssd_state_scan_bwd_plain(prev, d, dprev, dfinal)
+        if not torch.equal(got[0], want[0]):
+            err = (got[0] - want[0]).abs().max().item()
+            raise AssertionError(f"ssd_scan_bwd {tag}: dstates differs from "
+                                 f"its plain version (max abs err {err})")
+        mag = (want[0].abs() * prev.abs()).sum(dim=(-2, -1))
+        err = (got[1] - want[1]).abs()
+        if not (err <= 1e-5 + 1e-7 * mag + 1e-5 * want[1].abs()).all():
+            raise AssertionError(f"ssd_scan_bwd {tag}: ddecay max abs err "
+                                 f"{err.max().item()} past atol 1e-5 + 1e-7 "
+                                 f"x sum|dS * prev| (up to "
+                                 f"{mag.max().item():.1f}), rtol 1e-5")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"ssd_scan_bwd {tag}: two launches differ")
+        worst = max(worst, err.max().item())
+        log(f"  ssd_scan_bwd {tag} {shape}{' dfinal' if final else ''}: "
+            f"dstates equal in bits, ddecay max abs err "
+            f"{err.max().item():.3e} (|ddecay| up to "
+            f"{want[1].abs().max().item():.1f}), equal bits over two "
+            f"launches")
+        return prev, d, dprev, dfinal
+
+    train = case("training 8x4096", SCAN_BWD_TRAIN)
+    case("prefill 8x256", (8, 32, 4, 128, 64), final=True)
+    case("prompt 32768", (1, 32, 512, 128, 64), final=True)
+    case("JAX test", (2, 4, 8, 16, 8), final=True)
+    case("JAX test", (1, 2, 16, 32, 16))
+    case("nc=1", (8, 32, 1, 128, 64), final=True)
+    case("ragged N*P=21", (2, 3, 5, 7, 3), final=True)
+    case("ragged tile N*P=864", (1, 2, 7, 24, 36))
+    case("unaligned view", (2, 4, 6, 16, 8), final=True, offset=1)
+    case("reduced mamba2 N16 P16", (4, 16, 2, 16, 16))
+
+    from repro_torch.launch.profile import KERNEL_ENTRIES
+    prev, d, dprev, _ = train
+    bound, by, nbytes = _scan_bwd_bound(prev, False)
+
+    def call():
+        return ssd_state_scan_bwd(prev, d, dprev)
+    ms = timer(call)
+    alone = {e: timer.kernel_ms(call, (e,))
+             for e in KERNEL_ENTRIES["ssd_scan_bwd"]}
+    alone_ms = sum(alone.values())
+    plain_ms = timer(lambda: ssd_state_scan_bwd_plain(prev, d, dprev),
+                     iters=5)
+    log(f"  ssd_scan_bwd training 8x4096 {SCAN_BWD_TRAIN} fp32: kernel "
+        f"{ms:.4f} ms ({alone_ms:.4f} ms alone in the profiler's trace, "
+        + ", ".join(f"{e} {v:.4f}" for e, v in alone.items())
+        + f": {bound / alone_ms:.3f} of its bound), plain {plain_ms:.4f} "
+        f"ms, bound {bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB: "
+        f"{nbytes / ms / 1e9:.3f} TB/s); no single PyTorch call computes a "
+        f"linear recurrence's adjoint")
+    return dict(name="ssd_scan_bwd", route="cuda",
+                source="src/repro_torch/csrc/ssd_scan_bwd.cu",
+                replaces=REPLACES["ssd_scan_bwd"], max_abs_err=worst,
+                ms=ms, kernel_alone_ms=alone_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None,
+                shape="(B,H,nc,N,P)=(8,32,64,128,64) fp32, dfinal None, "
+                      "mamba2_370m's training microbatch of 8 x 4096; "
+                      "library: none (no single PyTorch call computes a "
+                      "linear recurrence's adjoint)")
+
+
 # ---------------------------------------------------------------- phase 4
 class _PageClock:
     """Host-clock spans of an engine's prefill and decode_page calls,
@@ -2228,6 +2370,8 @@ def reduced_cpu_vs_cuda(dev):
     # window of 64: the backward kernel with a window at D 80
     _reduced_train_pair(dev, "h2o_danube_1_8b", over=dict(head_dim=80),
                         S=160)
+    # the SSM: the scan under SsdScanFn and its backward kernel
+    _reduced_train_pair(dev, "mamba2_370m")
 
 
 def _reduced_train_pair(dev, arch, over=None, S=128):
@@ -2242,7 +2386,8 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
     lr * sign(g) in a first step, either way where g ~ 0).  Remat launches
     the flash forward twice a layer and the backward once; an MoE layer's
     grouped GEMM 9 times (3 forward, 3 recomputed, 3 dX) and its weight
-    gradient 3 times."""
+    gradient 3 times; an SSM layer (no attention) its scan twice and the
+    scan's backward once."""
     from repro_torch import kernels, optim
     from repro_torch.configs import reduced_config
     from repro_torch.kernels.flash_attention import ops
@@ -2266,15 +2411,21 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
         reset_counts()
         loss, grads = loss_and_grads(cfg, pt, b)
         used = kernels.launches()
-        want = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+        if cfg.family == "ssm":
+            want = {"ssd_scan": 2 * L, "ssd_scan_bwd": L}
+        else:
+            want = {"flash_attention": 2 * L, "flash_attention_bwd": L}
         if cfg.is_moe:
             want.update(moe_gemm=9 * L, moe_gemm_wgrad=3 * L)
         if device == "cpu":
             want = {}
         if {k: n for k, n in used.items() if n} != want or (
                 device == "cuda" and (
-                    ops.ROUTE_LAUNCHES != {"wgmma": 0, "simt": 2 * L}
-                    or bwd_ops.ROUTE_LAUNCHES != {"simt": L, "wgmma": 0}
+                    ops.ROUTE_LAUNCHES != {
+                        "wgmma": 0, "simt": want.get("flash_attention", 0)}
+                    or bwd_ops.ROUTE_LAUNCHES != {
+                        "simt": want.get("flash_attention_bwd", 0),
+                        "wgmma": 0}
                     or moe_ops.ROUTE_LAUNCHES["simt"] !=
                     want.get("moe_gemm", 0)
                     or wgrad_ops.ROUTE_LAUNCHES["simt"] !=
@@ -2304,7 +2455,8 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
         for key in ("m", "v"):
             merr = max(merr, (a[key].cpu() - b[key]).abs().max().item())
             ok &= torch.allclose(a[key].cpu(), b[key], atol=1e-6, rtol=1e-3)
-    log(f"  reduced {arch} fp32 training (S {S}): loss cuda {lg.item():.6f} cpu "
+    log(f"  reduced {arch} fp32 training (S {S}): loss cuda {lg.item():.6f} "
+        f"cpu "
         f"{lc.item():.6f}, {len(gg)} leaf gradients max abs err "
         f"{gerr:.3e}; train_step loss {og['loss'].item():.6f} / "
         f"{oc['loss'].item():.6f}, grad norm {og['grad_norm'].item():.6f} / "
@@ -3561,13 +3713,24 @@ def _model_flops(cfg, B: int, S: int, active_only: bool = False) -> float:
     embedding table, which is gathered; with ``active_only`` an MoE
     layer's routed experts count k of E), and attention's forward over the
     pairs its causal (and windowed) mask lets through (2 (D + D) a pair and
-    head) plus its backward (2.5 times)."""
+    head) plus its backward (2.5 times).  A Mamba-2 layer adds its SSD's
+    own products, in chunks of Q = min(64, S) with state N and head dim
+    P: C.B^T 2 Q N a token and group, M.X 2 Q P a token and head, the
+    chunk states 2 N P and the term between chunks 2 N P a token and
+    head, times 3 for the forward and the backward:
+    3 B S L (2 Q N g + h (2 Q P + 4 N P))."""
     from repro_torch.models import transformer as T
     n = T.param_count(cfg, active_only=active_only) \
         - T.padded_vocab(cfg) * cfg.d_model
     pairs = _pairs(S, S, True, cfg.sliding_window)
     attn = 2.0 * 2 * cfg.head_dim * pairs * cfg.num_heads * B
-    return 6.0 * n * B * S + 3.5 * attn * cfg.num_layers
+    flops = 6.0 * n * B * S + 3.5 * attn * cfg.num_layers
+    if cfg.family == "ssm":
+        Q, N, P = min(64, S), cfg.ssm_state, cfg.ssm_head_dim
+        per_token = 2 * Q * N * cfg.ssm_groups + cfg.ssm_heads * (
+            2 * Q * P + 4 * N * P)
+        flops += 3.0 * per_token * B * S * cfg.num_layers
+    return flops
 
 
 class _PlainCalls:
@@ -3580,7 +3743,10 @@ class _PlainCalls:
               "flash_attention_bwd_plain"),
              ("repro_torch.kernels.moe_gemm.ops", "grouped_gemm_plain"),
              ("repro_torch.kernels.moe_gemm_wgrad.ops",
-              "grouped_gemm_wgrad_plain"))
+              "grouped_gemm_wgrad_plain"),
+             ("repro_torch.kernels.ssd_scan.ops", "ssd_state_scan_plain"),
+             ("repro_torch.kernels.ssd_scan_bwd.ops",
+              "ssd_state_scan_bwd_plain"))
 
     def __init__(self):
         import importlib
@@ -3601,19 +3767,20 @@ class _PlainCalls:
             setattr(mod, name, fn)
 
 
-def train_dense_path(dev, arch: str, steps: int, GB: int, S: int,
-                     n_mb: int):
-    """A full-width, full-depth dense decoder (bf16, random weights from
-    seed 0) trained ``steps`` steps through ``launch/steps.py::train_step``:
-    batches of GB x S from ``SyntheticLMStream`` (seed 0) in ``n_mb``
-    microbatches, remat on, AdamW lr 1e-3.  The loss must be finite and
-    fall; each step must launch the flash forward 2 x L x n_mb times (remat
-    runs each layer twice), all on wgmma, the backward wrapper L x n_mb
-    times, all on its bf16 route, no other kernel and no plain version.
-    Logs s/step, tokens/s, peak memory, a step's device time by kernel
-    class beside its wall, the model FLOPs' share of the bf16 dense peak
-    (``mfu``), and whether a second run from seed 0 gives the first two
-    losses' bits.  Returns (launches of the steps, numbers)."""
+def train_path(dev, arch: str, steps: int, GB: int, S: int, n_mb: int):
+    """A full-width, full-depth dense decoder or SSM (bf16, random weights
+    from seed 0) trained ``steps`` steps through
+    ``launch/steps.py::train_step``: batches of GB x S from
+    ``SyntheticLMStream`` (seed 0) in ``n_mb`` microbatches, remat on, AdamW
+    lr 1e-3.  The loss must be finite and fall; each step must launch the
+    flash forward (an SSM: the scan) 2 x L x n_mb times (remat runs each
+    layer twice), all on wgmma, the backward wrapper (an SSM: the scan's)
+    L x n_mb times, all on its bf16 route, no other kernel and no plain
+    version.  Logs s/step, tokens/s, peak memory, a step's device time by
+    kernel class beside its wall, the model FLOPs' share of the bf16 dense
+    peak (``mfu``), and whether a second run from seed 0 gives the first
+    two losses' bits (an SSM must give the first's).  Returns (launches
+    of the steps, numbers)."""
     from repro_torch import kernels, optim
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
@@ -3658,10 +3825,14 @@ def train_dense_path(dev, arch: str, steps: int, GB: int, S: int,
     used = kernels.launches()
     peak = torch.cuda.max_memory_allocated(dev) / 1e9
     fwd, bwd = 2 * L * n_mb * steps, L * n_mb * steps
-    want = {"flash_attention": fwd, "flash_attention_bwd": bwd}
+    names = ("ssd_scan", "ssd_scan_bwd") if cfg.family == "ssm" else \
+        ("flash_attention", "flash_attention_bwd")
+    want = dict(zip(names, (fwd, bwd)))
+    n_flash = want.get("flash_attention", 0)
     if {k: n for k, n in used.items() if n} != want or \
-            ops.ROUTE_LAUNCHES != {"wgmma": fwd, "simt": 0} or \
-            bwd_ops.ROUTE_LAUNCHES != {"simt": 0, "wgmma": bwd} or \
+            ops.ROUTE_LAUNCHES != {"wgmma": n_flash, "simt": 0} or \
+            bwd_ops.ROUTE_LAUNCHES != {
+                "simt": 0, "wgmma": want.get("flash_attention_bwd", 0)} or \
             any(plain.calls.values()):
         raise AssertionError(f"{arch} training: launches {used}, flash by "
                              f"route {ops.ROUTE_LAUNCHES}, backward by route "
@@ -3684,7 +3855,7 @@ def train_dense_path(dev, arch: str, steps: int, GB: int, S: int,
         f"{tokens / step_s:.1f} tokens/s; peak device memory {peak:.2f} GB; "
         f"launches {used}; flash by route {dict(ops.ROUTE_LAUNCHES)}, "
         f"backward by route {dict(bwd_ops.ROUTE_LAUNCHES)} (a step: "
-        f"{2 * L * n_mb} forward, {L * n_mb} backward calls); plain "
+        f"{2 * L * n_mb} {names[0]}, {L * n_mb} {names[1]} calls); plain "
         f"versions called {plain.calls}")
     print(json.dumps({f"{arch}_train_mfu": mfu, "model_flop_per_step": flops,
                       "s_per_step": step_s}), flush=True)
@@ -3717,10 +3888,13 @@ def train_dense_path(dev, arch: str, steps: int, GB: int, S: int,
     log(f"  {arch} a second run from seed 0: losses {again} "
         f"{'equal' if same else 'NOT equal'} to the first run's bits "
         f"(the embedding's backward adds rows in an unspecified order)")
+    if cfg.family == "ssm" and again[0] != losses[0]:
+        raise AssertionError(f"{arch} training: a rerun of the first step "
+                             f"gave the loss {again[0]}, not {losses[0]}")
     gc.collect()
     torch.cuda.empty_cache()
     secs_phase = time.perf_counter() - t_phase
-    log(f"  phase 12 {arch} took {secs_phase:.1f} s")
+    log(f"  training {arch} took {secs_phase:.1f} s")
     return used, dict(losses=losses, step_s=step_s, step_secs=secs,
                       tokens_per_s=tokens / step_s, peak_gb=peak, mfu=mfu,
                       device_ms=device_ms, wall_ms=wall, by_class=by,
@@ -3729,18 +3903,76 @@ def train_dense_path(dev, arch: str, steps: int, GB: int, S: int,
 
 def train_smollm_path(dev):
     """Phase 12's SmolLM-360M leg: 8 steps of 16 x 4096 in 2 microbatches
-    (``train_dense_path``)."""
-    return train_dense_path(dev, "smollm_360m", 8, 16, 4096, 2)
+    (``train_path``)."""
+    return train_path(dev, "smollm_360m", 8, 16, 4096, 2)
 
 
 def train_danube_path(dev):
     """Phase 12's H2O-Danube-1.8B leg (24 layers, d_model 2560, 32/8 heads
     of 80, window 4096): 5 steps of 4 x 8192 in 2 microbatches, so that the
-    window binds (``train_dense_path``).  Five, not three: at AdamW's lr
+    window binds (``train_path``).  Five, not three: at AdamW's lr
     1e-3 the third step's loss rises past the first's (by ~0.9 nats, in
     bf16 and in fp32 on the CUDA-core kernels alike: the optimizer's
     dynamics at this width, PERF.md) and the fifth falls below it."""
-    return train_dense_path(dev, "h2o_danube_1_8b", 5, 4, 8192, 2)
+    return train_path(dev, "h2o_danube_1_8b", 5, 4, 8192, 2)
+
+
+# --------------------------------------------------------------- phase 14
+def train_ssm_path(dev):
+    """Phase 14: Mamba2-370M (48 layers, d_model 1024, d_inner 2048, 32
+    heads of 64, state 128, vocab 50280) in bf16 at every published width
+    and full depth, 5 steps of 16 x 4096 in 2 microbatches (phase 12's
+    SmolLM shape; ``train_path``): the scan twice a layer and microbatch
+    (remat), its backward kernel once, the first step's loss again on a
+    rerun from seed 0.  Then the SSD's share of a step: one layer's
+    ``ssd_chunked`` at a microbatch (random inputs from a seed at the
+    block's scales), its forward and its forward + backward, on the
+    device (the profiler's trace), times L x 2 microbatches x (forward +
+    forward and backward: remat runs the forward twice) over the step's
+    device time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.ssm import ssd_chunked
+    cfg = get_config("mamba2_370m")
+    b, S, n_mb = 8, 4096, 2
+    log(f"  one layer's fp32 SSD intermediates in the forward at a "
+        f"microbatch of {b} x {S}: "
+        f"{_ssd_peak_estimate(cfg, b, S) / 1e9:.2f} GB reckoned")
+    used, st = train_path(dev, "mamba2_370m", 5, b * n_mb, S, n_mb)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    h, p, g, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+        cfg.ssm_state
+    bf = torch.bfloat16
+
+    def leaf(shape, scale=1.0, dtype=bf):
+        return (scale * torch.randn(shape, generator=gen, device=dev)) \
+            .to(dtype).requires_grad_(True)
+    xh, Bm, Cm = leaf((b, S, h, p), 0.5), leaf((b, S, g, n), 0.5), \
+        leaf((b, S, g, n), 0.5)
+    dt = F.softplus(leaf((b, S, h), dtype=torch.float32)).detach() \
+        .requires_grad_(True)
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    gy = torch.randn((b, S, h, p), generator=gen, device=dev)
+
+    def fwd():
+        ssd_chunked(xh, dt, A, Bm, Cm)
+
+    def fwd_bwd():
+        y, _ = ssd_chunked(xh, dt, A, Bm, Cm)
+        y.backward(gy)
+    f_ms, _ = _device_ms(fwd, n=2)
+    fb_ms, fb_by = _device_ms(fwd_bwd, n=2)
+    ssd_ms = cfg.num_layers * n_mb * (f_ms + fb_ms)
+    share = ssd_ms / st["device_ms"]
+    log(f"  one layer's ssd_chunked at {b} x {S} on the device: forward "
+        f"{f_ms:.2f} ms, forward + backward {fb_ms:.2f} ms ("
+        + ", ".join(f"{c} {ms:.2f}" for c, ms in sorted(
+            fb_by.items(), key=lambda kv: -kv[1]))
+        + f"); {cfg.num_layers} layers x {n_mb} microbatches x (forward + "
+        f"forward and backward) = {ssd_ms:.1f} ms, {share:.3f} of the "
+        f"step's {st['device_ms']:.1f} device ms")
+    st.update(ssd_layer_fwd_ms=f_ms, ssd_layer_fwd_bwd_ms=fb_ms,
+              ssd_share=share)
+    return used, st
 
 
 # --------------------------------------------------------------- phase 13
@@ -3986,7 +4218,7 @@ def main() -> int:
     stats = [check_flash(dev, timer), check_flash_bwd(dev, timer),
              check_paged(dev, timer), check_fused_sampling(dev, timer),
              check_moe_gemm(dev, timer), check_moe_gemm_wgrad(dev, timer),
-             check_ssd_scan(dev, timer)]
+             check_ssd_scan(dev, timer), check_ssd_scan_bwd(dev, timer)]
     log(f"  kernel-alone readings traced again after a dropped record: "
         f"{timer.retraced} rounds")
     del timer
@@ -4062,10 +4294,18 @@ def main() -> int:
     print(json.dumps({"train_path_moe": moe_train_stats}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("== 14. training the SSM: Mamba2-370M bf16 at every published "
+        "width and full depth, 5 steps of 16 x 4096")
+    ssm_trained, ssm_train_stats = train_ssm_path(dev)
+    print(json.dumps({"train_path_ssm": ssm_train_stats}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm, "flash_attention_bwd": trained,
-                         "moe_gemm_wgrad": moe_trained}.get(
+                         "moe_gemm_wgrad": moe_trained,
+                         "ssd_scan_bwd": ssm_trained}.get(
             s["name"], greedy)[s["name"]]
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")

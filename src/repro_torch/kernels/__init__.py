@@ -23,6 +23,8 @@ KERNELS = {
     # the grouped GEMM's weight gradient (its backward's dW; no TPU kernel)
     "moe_gemm_wgrad": ("grouped_gemm_wgrad", "grouped_gemm_wgrad_plain"),
     "ssd_scan": ("ssd_state_scan", "ssd_state_scan_plain"),
+    # the scan's backward, the adjoint recurrence (no TPU kernel)
+    "ssd_scan_bwd": ("ssd_state_scan_bwd", "ssd_state_scan_bwd_plain"),
 }
 
 # launches of each kernel since the last reset: a wrapper adds one where

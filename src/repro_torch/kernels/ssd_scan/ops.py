@@ -7,6 +7,10 @@ raises if the launch failed and counts the launch.  Counterpart of
 ``repro.kernels.ssd_scan.ssd_state_scan`` (same arguments, same outputs);
 the kernel gives the plain version's bits (its update rounds the product
 and the sum separately, as ``h * d + s`` does).
+
+``SsdScanFn`` is the scan under autograd, as the models call it: its
+backward (training) is ``kernels/ssd_scan_bwd``'s adjoint recurrence, the
+kernel on CUDA and its plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.kernels import build
+from repro_torch.kernels.ssd_scan_bwd import ops as bwd_ops
 
 NAME = "ssd_scan"
 _LIB = None
@@ -88,3 +93,35 @@ def ssd_state_scan(states, decay):
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
     kernels.LAUNCHES[NAME] += 1
     return prev, final
+
+
+def _aligned(t):
+    """``t`` contiguous and on the 16-byte grid (the kernels' float4
+    path)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+class SsdScanFn(torch.autograd.Function):
+    """``ssd_state_scan`` under autograd: the forward saves ``prev`` and
+    ``decay``; the backward is ``ssd_state_scan_bwd`` (the kernel on
+    CUDA, the plain version on the CPU) on the incoming dprev, with
+    dfinal None when ``final`` took no gradient (training never uses it).
+    With nothing to differentiate (serving) it is one ``ssd_state_scan``
+    and records nothing."""
+
+    @staticmethod
+    def forward(ctx, states, decay):
+        prev, final = ssd_state_scan(states, decay)
+        ctx.save_for_backward(prev, decay)
+        ctx.set_materialize_grads(False)
+        return prev, final
+
+    @staticmethod
+    def backward(ctx, dprev, dfinal):
+        prev, decay = ctx.saved_tensors
+        dprev = (torch.zeros_like(prev) if dprev is None
+                 else _aligned(dprev))
+        if dfinal is not None:
+            dfinal = _aligned(dfinal)
+        return bwd_ops.ssd_state_scan_bwd(prev, decay, dprev, dfinal)

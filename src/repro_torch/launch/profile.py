@@ -58,6 +58,7 @@ KERNEL_ENTRIES = {
     "moe_gemm_wgrad": ("grouped_gemm_wgrad_kernel",
                        "grouped_gemm_wgrad_wgmma"),
     "ssd_scan": ("ssd_scan_kernel",),
+    "ssd_scan_bwd": ("ssd_scan_bwd_kernel", "ssd_scan_bwd_reduce"),
 }
 
 

@@ -3,13 +3,17 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm_360m \\
         [--reduced] --steps 8 --batch 16 --seq 4096 --microbatches 2 \\
         [--device cuda] [--ckpt DIR]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
+        --steps 5 --batch 16 --seq 4096 --microbatches 2
 
 ``--arch`` takes what ``models/transformer.py::check_trainable`` accepts:
-the dense decoders (H2O-Danube-1.8B's sliding window among them) and the
+the dense decoders (H2O-Danube-1.8B's sliding window among them), the
 MoE decoders with GQA attention (Qwen3-30B-A3B, Phi-3.5-MoE; the MoE aux
-is in the loss).  Full depth: a config too large for one card (the full
-Qwen3-30B-A3B's weights, masters and moments) runs out of memory; the
-port's multi-GPU slice will shard it.
+is in the loss) and the Mamba-2 SSM (Mamba2-370M; its scan's backward is
+the ``ssd_scan_bwd`` kernel, and a sequence longer than 64 tokens must be
+a multiple of 64).  Full depth: a config too large for one card (the
+full Qwen3-30B-A3B's weights, masters and moments) runs out of memory;
+the port's multi-GPU slice will shard it.
 
 The counterpart of ``repro.launch.train``'s training path (and of
 ``examples/train_smollm.py``, whose width cut ``--reduced`` gives):

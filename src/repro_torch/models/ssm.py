@@ -5,7 +5,11 @@ tensors: prefill runs the chunked SSD algorithm (a quadratic term within
 each chunk, a state recurrence between chunks: arXiv:2405.21060 Alg. 1)
 and decode the O(1) recurrent step.  The recurrence between chunks runs
 through the ``ssd_scan`` kernel (``kernels/ssd_scan``): the Hopper kernel
-for CUDA tensors, its plain version for CPU tensors.
+for CUDA tensors, its plain version for CPU tensors, as ``SsdScanFn``,
+whose backward (training) is the ``ssd_scan_bwd`` kernel's adjoint
+recurrence; everything else here is torch ops autograd follows (the exponent masked to ``MASK_EXP`` above
+the diagonal before ``exp``, as the reference masks it, so that no
+gradient meets an overflow).
 
 The reference's numerics are kept where they depart from upstream
 Mamba-2: the gated norm is ``rms_norm(y) * silu(z)``, the exponent mask
@@ -30,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import compat
-from repro_torch.kernels import get_kernel
+from repro_torch.kernels.ssd_scan.ops import SsdScanFn
 from repro_torch.models import layers
 from repro_torch.models.api import ModelConfig
 
@@ -130,8 +134,7 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk=64):
     states = heads(torch.matmul(Bg.transpose(-1, -2), by_group(Xw)))
     del Xw
     chunk_decay = torch.exp(cums[..., -1]).contiguous()        # (b,h,nc)
-    scan, _ = get_kernel("ssd_scan")
-    prev, final = scan(states.contiguous(), chunk_decay)
+    prev, final = SsdScanFn.apply(states.contiguous(), chunk_decay)
     del states
     # --- between chunks ---
     y_inter = heads(torch.matmul(Cg, by_group(prev)))          # (b,h,nc,Q,p)

@@ -734,12 +734,11 @@ AUX_COEF = 0.01
 
 def check_trainable(cfg: ModelConfig) -> None:
     """What ``forward_loss`` trains: the dense decoders (H2O-Danube's
-    sliding window among them) and the MoE decoders with GQA attention.
-    Each other family raises ``ValueError`` naming what its training
-    still needs."""
+    sliding window among them), the MoE decoders with GQA attention and
+    the Mamba-2 SSMs.  Each other family raises ``ValueError`` naming what
+    its training still needs."""
     check_model(cfg)
     needs = {
-        "ssm": "a backward of the ssd_scan kernel (the reverse scan)",
         "hybrid": "a backward of the RG-LRU scan",
         "audio": "the encoder-decoder's trunk under autograd",
         "vlm": "the vision decoder's patch prefix under autograd",
@@ -747,9 +746,9 @@ def check_trainable(cfg: ModelConfig) -> None:
     if cfg.use_mla:
         raise ValueError(f"{cfg.name}: training MLA needs the flash "
                          f"backward at q/k 192, v 128 (unequal head dims)")
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"{cfg.name}: forward_loss trains the dense and "
-                         f"MoE decoders; the {cfg.family} family needs "
+    if cfg.family not in ("dense", "moe", "ssm"):
+        raise ValueError(f"{cfg.name}: forward_loss trains the dense, MoE "
+                         f"and SSM decoders; the {cfg.family} family needs "
                          f"{needs[cfg.family]}")
 
 
@@ -784,28 +783,34 @@ def _chunked_ce(cfg: ModelConfig, params, h, labels):
 def _train_layer(cfg, stack, i, h, positions, tab):
     """Layer ``i`` of the training trunk: its leaves indexed from the
     stacked ones (``t[i]``, which autograd follows back to them).  Returns
-    (h, aux) as ``ffn``.  Under remat its recompute must route as the
-    first run did: the router's fp32 matmul, softmax and stable sort see
-    the same inputs and give the same bits (``chip_smoke.py`` phase 13
-    compares the two runs' dispatch plans on the card)."""
+    (h, aux) as ``ffn``; an SSM layer ``h + ssm_fwd(norm(h))`` and no aux,
+    as the reference's ``_layer_fwd`` (its chunked SSD's scan through
+    ``SsdScanFn``).  Under remat its recompute must route as the first run
+    did: the router's fp32 matmul, softmax and stable sort see the same
+    inputs and give the same bits (``chip_smoke.py`` phase 13 compares the
+    two runs' dispatch plans on the card)."""
     p = _map_spec(stack, lambda path, t: t[i])
     xn = layers.apply_norm(cfg, p["ln1"], h)
+    if cfg.family == "ssm":
+        return h + ssm.ssm_fwd(cfg, p["ssm"], xn), None
     a, _ = layers.attention_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
     return ffn(cfg, p, h + a)
 
 
 def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
-    """Training loss of a dense or MoE decoder: ``batch["tokens"]`` (B, S)
-    through the layer stack, the final norm and the chunked cross-entropy
-    against ``batch["labels"]`` (B, S) (< 0: ignored), plus for MoE
-    ``AUX_COEF`` times the layers' summed load-balance aux over their
-    count.  The trunk builds no cache; with ``remat`` each layer runs under
+    """Training loss of a dense, MoE or SSM decoder: ``batch["tokens"]``
+    (B, S) through the layer stack, the final norm and the chunked
+    cross-entropy against ``batch["labels"]`` (B, S) (< 0: ignored), plus
+    for MoE ``AUX_COEF`` times the layers' summed load-balance aux over
+    their count.  The trunk builds no cache (an SSM no state and no rope
+    table); with ``remat`` each layer runs under
     ``torch.utils.checkpoint`` and is recomputed in the backward
     (``_stack_fwd``'s ``jax.checkpoint``).  Differentiable in every leaf of
     ``params`` that requires grad."""
     check_trainable(cfg)
     h, positions = _assemble_inputs(cfg, params, batch["tokens"])
-    tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
+    tab = None if cfg.family == "ssm" else layers.rope_tables(
+        positions, layers.rope_dim(cfg), cfg.rope_theta)
     stack = params["layers"]
     aux = None
     for i in range(cfg.num_layers):

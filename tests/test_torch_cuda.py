@@ -31,7 +31,12 @@ ragged D and F, on each of its routes (bf16 at block_t 64 and up on
 ``wgmma``, other bf16 calls on ``mma.sync``, fp32 on the CUDA cores), to
 equal bits over two launches and to its per-route launch count.
 The SSD state scan gives its plain version's bits (``torch.equal``: it
-rounds the product and the sum separately, as ``h * d + s`` does).  Flash
+rounds the product and the sum separately, as ``h * d + s`` does); its
+backward (``ssd_scan_bwd``) gives the plain backward's dstates bits and
+ddecay to atol 1e-5 + 1e-7 x the sum of the products' magnitudes, rtol
+1e-5 (a sum of N * P products in another order), with equal bits over two
+launches, through ``SsdScanFn`` too, and reduced fp32 Mamba2-370M's
+``forward_loss`` and gradients on the card equal the CPU's.  Flash
 runs at the windowed decoders' head dims, (80, 80) and (256, 256), in
 both types, windowed and softcapped with scores spread so that a window
 edge off by a tile or a dropped cap fails (bf16 atol tied to the output's
@@ -93,8 +98,10 @@ from repro_torch.kernels.moe_gemm_wgrad.ops import (
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
-from repro_torch.kernels.ssd_scan.ops import (ssd_state_scan,
+from repro_torch.kernels.ssd_scan.ops import (SsdScanFn, ssd_state_scan,
                                               ssd_state_scan_plain)
+from repro_torch.kernels.ssd_scan_bwd.ops import (ssd_state_scan_bwd,
+                                                  ssd_state_scan_bwd_plain)
 from repro_torch.launch.flash_ab import (LENGTHS, PAGED_SHAPES,
                                          catch_all_rows, paged_label,
                                          sampling_rows)
@@ -714,6 +721,7 @@ def test_each_launch_is_counted_once(dev):
     dec = torch.rand((1, 2, 3), generator=gen, device=dev)
     ssd_state_scan(st, dec)
     ssd_state_scan(st, dec)
+    ssd_state_scan_bwd(st, dec, st)
     flash_attention_plain(q, k, k, pos, pos)
     out, lse = fa_ops.flash_attention_lse(q, k, k, pos, pos)
     flash_attention_bwd(q, k, k, pos, pos, out, lse, out)
@@ -722,13 +730,14 @@ def test_each_launch_is_counted_once(dev):
     grouped_gemm_plain(x, w, be, block_t=16)
     grouped_gemm_wgrad_plain(x, dy, be, 2, block_t=16)
     ssd_state_scan_plain(st, dec)
+    ssd_state_scan_bwd_plain(st, dec, st)
     flash_attention_bwd_plain(q, k, k, pos, pos, out, lse, out)
     torch.cuda.synchronize()
     assert kernels.launches() == {"flash_attention": 3,
                                   "flash_attention_bwd": 1,
                                   "paged_attention": 1, "fused_sampling": 1,
                                   "moe_gemm": 3, "moe_gemm_wgrad": 1,
-                                  "ssd_scan": 2}
+                                  "ssd_scan": 2, "ssd_scan_bwd": 1}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -1069,6 +1078,103 @@ def test_ssd_scan_kernel_matches_plain_bits(dev, shape, offset):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert not got[0][:, :, 0].any()
+
+
+# (B, H, nc, N, P): the JAX test's shapes, one chunk, Mamba2-370M's state
+# at 16 chunks, a ragged N*P (the scalar path), a ragged tile count
+SCAN_BWD_CASES = [(2, 4, 8, 16, 8), (1, 2, 16, 32, 16), (2, 3, 1, 16, 8),
+                  (2, 32, 16, 128, 64), (2, 3, 5, 7, 3), (1, 2, 7, 24, 36)]
+
+
+def _ddecay_close(got, want, dstates, prev):
+    """ddecay, a sum of N * P products, to atol 1e-5 + 1e-7 x the sum of
+    their magnitudes (~2 ulps of it), rtol 1e-5."""
+    mag = (dstates.abs() * prev.abs()).sum(dim=(-2, -1))
+    err = (got - want).abs()
+    assert (err <= 1e-5 + 1e-7 * mag + 1e-5 * want.abs()).all(), \
+        err.max().item()
+
+
+@pytest.mark.parametrize("shape", SCAN_BWD_CASES,
+                         ids=["x".join(map(str, c)) for c in SCAN_BWD_CASES])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("final", [False, True], ids=["nofinal", "final"])
+def test_ssd_scan_bwd_kernel_matches_plain(dev, shape, offset, final):
+    """dstates in the plain backward's bits, ddecay to a summation-order
+    bound, equal bits over two launches; offset 1 is a contiguous view off
+    the 16-byte grid (the scalar path)."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B, H, nc, N, P = shape
+    n = B * H * nc * N * P
+
+    def view(numel, shp):
+        return torch.randn(numel + offset, generator=gen,
+                           device=dev)[offset:].view(shp)
+    prev = view(n, shape)
+    dprev = view(n, shape)
+    dfinal = view(B * H * N * P, (B, H, N, P)) if final else None
+    dec = torch.rand((B, H, nc), generator=gen, device=dev) * 0.9 + 0.05
+    kernels.reset_launches()
+    got = ssd_state_scan_bwd(prev, dec, dprev, dfinal)
+    again = ssd_state_scan_bwd(prev, dec, dprev, dfinal)
+    torch.cuda.synchronize()
+    assert kernels.launches()["ssd_scan_bwd"] == 2
+    want = ssd_state_scan_bwd_plain(prev, dec, dprev, dfinal)
+    assert torch.equal(got[0], want[0])
+    _ddecay_close(got[1], want[1], want[0], prev)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_ssd_scan_fn_on_the_card_matches_cpu(dev):
+    """``SsdScanFn`` forward and backward on the card (one launch each)
+    against the CPU's plain versions, ``final`` unused (dfinal None)."""
+    gen = torch.Generator().manual_seed(13)
+    shape = (2, 32, 8, 128, 64)
+    st = torch.randn(shape, generator=gen)
+    dec = torch.rand(shape[:3], generator=gen) * 0.9 + 0.05
+    dprev = torch.randn(shape, generator=gen)
+    grads = {}
+    for target in ("cpu", dev):
+        s = st.to(target).clone().requires_grad_(True)
+        d = dec.to(target).clone().requires_grad_(True)
+        kernels.reset_launches()
+        prev, _ = SsdScanFn.apply(s, d)
+        prev.backward(dprev.to(target))
+        used = kernels.launches()
+        want = 1 if target == dev else 0
+        assert used["ssd_scan"] == used["ssd_scan_bwd"] == want, used
+        grads[str(target)] = (prev.detach().cpu(), s.grad.cpu(),
+                              d.grad.cpu())
+    (pc, sc, dc), (pg, sg, dg) = grads.values()
+    assert torch.equal(pc, pg) and torch.equal(sc, sg)
+    _ddecay_close(dg, dc, sc, pc)
+
+
+def test_reduced_ssm_forward_loss_on_the_card_matches_cpu(dev):
+    """Reduced fp32 Mamba2-370M: the loss and every leaf's gradient on the
+    card (the scan twice a layer under remat, its backward once) against
+    the CPU's plain versions."""
+    from repro_torch import optim
+    from repro_torch.launch.steps import loss_and_grads
+    cfg = dataclasses.replace(reduced_config("mamba2_370m"), dtype="float32")
+    cpu = TT.init_params(cfg, 0, "cpu")
+    cuda = optim.tree_map(lambda t: t.to(dev), cpu)
+    gen = torch.Generator().manual_seed(42)
+    toks = torch.randint(2, cfg.vocab_size, (2, 192), generator=gen,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    want_l, want_g = loss_and_grads(cfg, cpu, batch)
+    kernels.reset_launches()
+    got_l, got_g = loss_and_grads(cfg, cuda, {k: t.to(dev)
+                                              for k, t in batch.items()})
+    torch.cuda.synchronize()
+    used = {k: n for k, n in kernels.launches().items() if n}
+    assert used == {"ssd_scan": 2 * cfg.num_layers,
+                    "ssd_scan_bwd": cfg.num_layers}, used
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=0)
+    for g, w in zip(optim.tree_leaves(got_g), optim.tree_leaves(want_g)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)
 
 
 def test_reduced_ssm_model_level_tokens_match_cpu(dev):

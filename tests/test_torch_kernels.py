@@ -40,6 +40,8 @@ from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_attention_plain)
 from repro_torch.kernels.ssd_scan.ops import (ssd_state_scan,
                                               ssd_state_scan_plain)
+from repro_torch.kernels.ssd_scan_bwd.ops import (ssd_state_scan_bwd,
+                                                  ssd_state_scan_bwd_plain)
 from repro_torch.models import flash as tflash
 from repro_torch.models import layers as tlayers
 
@@ -210,6 +212,10 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     dec = torch.from_numpy(r.random((1, 2, 3)).astype(np.float32))
     for g, w in zip(ssd_state_scan(st, dec), ssd_state_scan_plain(st, dec)):
         assert torch.equal(g, w)
+    prev = ssd_state_scan_plain(st, dec)[0]
+    for g, w in zip(ssd_state_scan_bwd(prev, dec, st),
+                    ssd_state_scan_bwd_plain(prev, dec, st)):
+        assert torch.equal(g, w)
     qt, kt, vt, pt = _t(q, k_attn, v, pos)
     out, lse = flash_attention_lse(qt, kt, vt, pt, pt)
     for g, w in zip(flash_attention_bwd(qt, kt, vt, pt, pt, out, lse, out),
@@ -220,12 +226,12 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
                                   "flash_attention_bwd": 0,
                                   "paged_attention": 0, "fused_sampling": 0,
                                   "moe_gemm": 0, "moe_gemm_wgrad": 0,
-                                  "ssd_scan": 0}
+                                  "ssd_scan": 0, "ssd_scan_bwd": 0}
     assert wgrad_ops.ROUTE_LAUNCHES == {"wgmma": 0, "mma": 0, "simt": 0}
     assert set(kernels.KERNELS) == {"flash_attention", "flash_attention_bwd",
                                     "paged_attention", "fused_sampling",
                                     "moe_gemm", "moe_gemm_wgrad",
-                                    "ssd_scan"}
+                                    "ssd_scan", "ssd_scan_bwd"}
     for name in kernels.KERNELS:
         op, plain = kernels.get_kernel(name)
         assert callable(op) and callable(plain)

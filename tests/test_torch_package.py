@@ -207,14 +207,14 @@ def test_encdec_and_vision_configs_are_the_published_ones(monkeypatch):
 
 def test_five_kernels_are_registered_each_with_its_source():
     """Every TPU kernel of the JAX package has its Hopper counterpart, and
-    prefill attention's backward and the grouped GEMM's weight gradient
-    their own kernels: seven registered names, each with a wrapper, a
-    plain version, a launch counter and a ``csrc/<name>.cu`` that
-    ``build.py`` finds."""
+    prefill attention's backward, the grouped GEMM's weight gradient and
+    the SSD scan's backward their own kernels: eight registered names,
+    each with a wrapper, a plain version, a launch counter and a
+    ``csrc/<name>.cu`` that ``build.py`` finds."""
     assert set(kernels.KERNELS) == {"flash_attention", "flash_attention_bwd",
                                     "paged_attention", "fused_sampling",
                                     "moe_gemm", "moe_gemm_wgrad",
-                                    "ssd_scan"}
+                                    "ssd_scan", "ssd_scan_bwd"}
     assert sorted(kernels.KERNELS) == build.kernel_names()
     assert set(kernels.launches()) == set(kernels.KERNELS)
     for name in kernels.KERNELS:

@@ -32,10 +32,11 @@ port).  Cases:
 - eight steps of ``python -m repro_torch.launch.train --reduced --device
   cpu --dtype float32`` against the same JAX loop on the same stream and
   weights (rtol 1e-4), with a falling loss;
-- the refusals: ``forward_loss`` on the SSM, hybrid, audio, vision and
-  MLA families, the card's backward at unequal head dims or a head dim it
+- the refusals: ``forward_loss`` on the hybrid, audio, vision and MLA
+  families, the card's backward at unequal head dims or a head dim it
   has no kernel for (it takes a window, a softcap and D 80), ``--dry``,
-  ``n_dev > 1``.  The MoE family trains: ``test_torch_train_moe.py``.
+  ``n_dev > 1``.  The MoE family trains: ``test_torch_train_moe.py``; the
+  SSM: ``test_torch_train_ssm.py``.
 """
 import dataclasses
 
@@ -259,14 +260,12 @@ def test_forward_loss_and_every_leaf_grad_match_jax(arch, remat):
         _close(t.grad, w, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", ["mamba2_370m", "recurrentgemma_2b",
-                                  "whisper_base", "pixtral_12b",
-                                  "deepseek_r1"])
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "whisper_base",
+                                  "pixtral_12b", "deepseek_r1"])
 def test_forward_loss_refuses_the_other_families(arch):
     cfg = reduced_config(arch)
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    what = {"mamba2_370m": "ssd_scan",
-            "recurrentgemma_2b": "RG-LRU", "whisper_base": "encoder",
+    what = {"recurrentgemma_2b": "RG-LRU", "whisper_base": "encoder",
             "pixtral_12b": "patch", "deepseek_r1": "MLA"}[arch]
     with pytest.raises(ValueError, match=what):
         TT.forward_loss(cfg, {}, {"tokens": toks, "labels": toks})
@@ -433,6 +432,6 @@ def test_train_driver_saves_a_checkpoint_and_refuses_dry(tmp_path):
     assert extra["steps"] == 1 and "embed" in flat
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train.main(["--dry"])
-    with pytest.raises(ValueError, match="ssd_scan"):
-        train.main(["--arch", "mamba2_370m", "--reduced", "--device",
+    with pytest.raises(ValueError, match="RG-LRU"):
+        train.main(["--arch", "recurrentgemma_2b", "--reduced", "--device",
                     "cpu", "--steps", "1"])
