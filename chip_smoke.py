@@ -49,21 +49,27 @@ result):
    S4096 H15/5 and Llama-3.2-1B B4 S4096 H32/8 at (64, 64), B4 S2048
    H32/4 at (128, 128), causal; H2O-Danube-1.8B's B4 S8192 H32/8 at (80,
    80) with its window of 4096; B4 S2048 at D 64 and 128 with a softcap of
-   30; the windowed and softcapped rows with scores spread by SPREAD), in
+   30; RecurrentGemma-2B's B2 S8192 H10/1 at (256, 256) with its window of
+   2048 and softcap of 30; the windowed and softcapped rows with scores
+   spread by SPREAD), in
    fp32 at SmolLM's, and in both types at the edges (S = 100, S = 1, G = 1
    and 3, non-causal at Sq != Skv, an offset q block; D 80 windowed and
    softcapped over ragged tiles and at an offset, tiles wholly past a
-   window, a softcap at D 128, a window without the causal mask);
+   window, a softcap at D 128, a window without the causal mask; D 256 at
+   10 q heads on 1 causal, non-causal at Sq != Skv, and windowed and
+   softcapped over ragged tiles);
    tolerances tied to the scale of the three gradients (fp32 atol 1e-4 x
    the largest |gradient|, rtol 1e-4; bf16 atol min(2e-2, 0.05 rms), rtol
    2e-2), and the plain version with a window one tile wider must fail a
-   windowed bf16 row's; two launches must give equal bits (D 64, 128 and
-   the windowed D 80) and every call land on its type's route; the
-   training shapes are timed through the wrapper, alone (its three
-   kernels' medians summed), plain, and against SDPA's backward
-   (``autograd.grad``; the window as a boolean mask on the
-   memory-efficient backend; none under a softcap) beside the bound (2.5
-   times the forward's operations on the pairs the mask lets through).
+   windowed bf16 row's; two launches must give equal bits (D 64, 128, the
+   windowed D 80 and RecurrentGemma's D 256) and every call land on its
+   type's route; the training shapes are timed through the wrapper, alone
+   (its three kernels' medians summed), plain, and against SDPA's
+   backward (``autograd.grad``; the window as a boolean mask on the
+   memory-efficient backend; none under a softcap, where a windowed row
+   also times SDPA's masked backward without the cap, another function)
+   beside the bound (2.5 times the forward's operations on the pairs the
+   mask lets through).
    Decode attention (``paged_attention``, each sequence and kv head split
    across a cluster of 8 CTAs and merged in distributed shared memory;
    bf16 products on ``mma.sync``, fp32 on the CUDA cores) is held to its
@@ -177,7 +183,10 @@ result):
    flash forward launched twice a layer (remat) and the backward once, and
    an MoE layer's grouped GEMM 9 times and its weight gradient 3 times
    (all fp32, on the simt routes); reduced fp32 Mamba2-370M the same way,
-   the scan launched twice a layer and its backward once;
+   the scan launched twice a layer and its backward once; reduced fp32
+   RecurrentGemma-2B (1 unit + 2 tail layers, window 64, S 160) the same
+   way at head dim 32 and at its published 256, the flash kernels twice
+   and once for its one attention sublayer;
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
    seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
    module granularity (Algorithm 1: attention in sub-batches of 4 of the
@@ -310,7 +319,26 @@ result):
     microbatches) and its backward 96 times, no other kernel and no plain
     version; it logs s/step, tokens/s, peak memory, a step's device time
     by kernel class beside its wall and the MFU (``mamba2_370m_train_mfu``,
-    the SSD's own products counted: ``_model_flops``).
+    the SSD's own products counted: ``_model_flops``);
+15. training the hybrid: RecurrentGemma-2B (26 layers: 8 units of RG-LRU,
+    RG-LRU and local attention, 2 tail RG-LRU layers; d_model 2560, 10
+    heads of 256 on one kv head, lru_width 2560, window 2048, softcap 30,
+    vocab 256000) in bf16 at every published width and full depth, random
+    weights from seed 0, 5 steps of 4 x 8192 tokens in
+    ``HYBRID_MICROBATCHES`` (4) microbatches (so that the window binds; at
+    2 the peak passed 76 GB), remat
+    on (a unit or a tail layer a checkpoint), AdamW lr 3e-4 (at 1e-3 the
+    loss swings and stands above the first after 5 steps): the loss must
+    be finite and fall and a rerun from seed 0 must repeat the first
+    step's loss bit for bit; every step must launch the flash forward 2 x
+    8 x n_mb times and its backward 8 x n_mb times (the 8 attention
+    sublayers), all on wgmma at D 256, no other kernel and no plain
+    version; it logs s/step, tokens/s, peak memory, a step's device time
+    by kernel class beside its wall, the MFU
+    (``recurrentgemma_2b_train_mfu``: attention over the window in the 8
+    attention sublayers) and one rec sublayer's RG-LRU forward and
+    forward + backward device ms at a microbatch with the 18 rec
+    sublayers' share of the step.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -849,8 +877,14 @@ TRAIN_FLASH = {
     # softcapped rows (RecurrentGemma's cap of 30) at D 64 and 128
     "B4 S2048 H32/8 D64 cap30": (4, 2048, 32, 8, 64, 0, 30.0),
     "B4 S2048 H32/4 D128 cap30": (4, 2048, 32, 4, 128, 0, 30.0),
+    # RecurrentGemma-2B's training shape (phase 15's microbatch): 10 q
+    # heads on one kv head of 256, the window of 2048 and the softcap of
+    # 30 on its scores
+    "recurrentgemma B2 S8192 H10/1 D256 w2048 cap30": (2, 8192, 10, 1, 256,
+                                                       2048, 30.0),
 }
 DANUBE_BWD = "danube B4 S8192 H32/8 D80 w4096"
+RG_BWD = "recurrentgemma B2 S8192 H10/1 D256 w2048 cap30"
 
 
 def _grad_tol(wants, dtype):
@@ -1037,6 +1071,13 @@ def check_flash_bwd(dev, timer):
              spread=True)
         case("D32 non-causal Sq40 Skv130 w24", dtype, 2, 40, 130, 4, 2, 32,
              causal=False, window=24, spread=True)
+        # D 256 (RecurrentGemma's heads): causal without a window, Sq !=
+        # Skv, a ragged length under the window and the softcap
+        case("D256 S1000 G10 causal", dtype, 1, 1000, 1000, 10, 1, 256)
+        case("D256 non-causal Sq40 Skv130", dtype, 2, 40, 130, 4, 2, 256,
+             causal=False)
+        case("D256 S300 (ragged tiles) G10 w96 cap30", dtype, 2, 300, 300,
+             10, 1, 256, window=96, softcap=30.0, spread=True)
     if bad:
         raise AssertionError(f"flash_attention_bwd disagrees with its plain "
                              f"version at {bad}")
@@ -1047,7 +1088,7 @@ def check_flash_bwd(dev, timer):
         f"preprocess, dK/dV, dQ; bf16 on wgmma, fp32 on the CUDA "
         f"cores)")
     for shape in ("smollm B8 S4096 H15/5 D64", "B4 S2048 H32/4 D128",
-                  DANUBE_BWD):
+                  DANUBE_BWD, RG_BWD):
         _, args, kw = timed[shape]
         again = [flash_attention_bwd(*args, **kw) for _ in range(2)]
         torch.cuda.synchronize()
@@ -1074,6 +1115,16 @@ def check_flash_bwd(dev, timer):
                            plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms,
                            window=kw["window"], softcap=kw["softcap"])
+        if kw["softcap"] and kw["window"]:
+            # no library call computes a softcapped backward: SDPA's masked
+            # backward at the same shape and window without the cap, a
+            # yardstick of another function
+            nocap = _sdpa_bwd_ms(timer, q, k, v, dout,
+                                 dict(kw, softcap=0.0))
+            rows[shape]["sdpa_masked_nocap_ms"] = nocap
+            log(f"  flash_attention_bwd bf16 {shape}: sdpa's masked "
+                f"backward at the same shape and window without the "
+                f"softcap (another function) {nocap} ms")
         log(f"  flash_attention_bwd bf16 {shape} causal: kernel {ms:.4f} ms "
             f"({alone_ms:.4f} ms alone: its three kernels in the "
             f"profiler's trace), plain {plain_ms:.4f} ms, sdpa backward "
@@ -2372,6 +2423,24 @@ def reduced_cpu_vs_cuda(dev):
                         S=160)
     # the SSM: the scan under SsdScanFn and its backward kernel
     _reduced_train_pair(dev, "mamba2_370m")
+    # the hybrid (1 unit + 2 tail layers, window 64, softcap 30) at head
+    # dim 32 and at its published 256, S 160 past the window: the RG-LRU
+    # scan under LinearScanFn, the backward kernel's fp32 route at D 256
+    _reduced_train_pair(dev, "recurrentgemma_2b", S=160)
+    _reduced_train_pair(dev, "recurrentgemma_2b", over=dict(head_dim=256),
+                        S=160)
+
+
+def _attn_layers(cfg) -> int:
+    """The attention layers of a config: the hybrid's attention sublayers
+    (``block_pattern``'s "attn" in each full unit), the SSM's none, else
+    every layer."""
+    from repro_torch.models import transformer as T
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return T._hybrid_counts(cfg)[0] * cfg.block_pattern.count("attn")
+    return cfg.num_layers
 
 
 def _reduced_train_pair(dev, arch, over=None, S=128):
@@ -2387,7 +2456,8 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
     the flash forward twice a layer and the backward once; an MoE layer's
     grouped GEMM 9 times (3 forward, 3 recomputed, 3 dX) and its weight
     gradient 3 times; an SSM layer (no attention) its scan twice and the
-    scan's backward once."""
+    scan's backward once; the hybrid's attention sublayers as attention
+    layers (its RG-LRU sublayers launch no kernel)."""
     from repro_torch import kernels, optim
     from repro_torch.configs import reduced_config
     from repro_torch.kernels.flash_attention import ops
@@ -2398,7 +2468,7 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
                               **(over or {}))
-    L = cfg.num_layers
+    L, La = cfg.num_layers, _attn_layers(cfg)
     gen = torch.Generator().manual_seed(13)
     toks = torch.randint(2, cfg.vocab_size, (4, S), generator=gen,
                          dtype=torch.int32)
@@ -2414,7 +2484,7 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
         if cfg.family == "ssm":
             want = {"ssd_scan": 2 * L, "ssd_scan_bwd": L}
         else:
-            want = {"flash_attention": 2 * L, "flash_attention_bwd": L}
+            want = {"flash_attention": 2 * La, "flash_attention_bwd": La}
         if cfg.is_moe:
             want.update(moe_gemm=9 * L, moe_gemm_wgrad=3 * L)
         if device == "cpu":
@@ -2455,7 +2525,8 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
         for key in ("m", "v"):
             merr = max(merr, (a[key].cpu() - b[key]).abs().max().item())
             ok &= torch.allclose(a[key].cpu(), b[key], atol=1e-6, rtol=1e-3)
-    log(f"  reduced {arch} fp32 training (S {S}): loss cuda {lg.item():.6f} "
+    log(f"  reduced {arch} fp32 training (S {S}, head dim {cfg.head_dim}): "
+        f"loss cuda {lg.item():.6f} "
         f"cpu "
         f"{lc.item():.6f}, {len(gg)} leaf gradients max abs err "
         f"{gerr:.3e}; train_step loss {og['loss'].item():.6f} / "
@@ -3718,13 +3789,20 @@ def _model_flops(cfg, B: int, S: int, active_only: bool = False) -> float:
     P: C.B^T 2 Q N a token and group, M.X 2 Q P a token and head, the
     chunk states 2 N P and the term between chunks 2 N P a token and
     head, times 3 for the forward and the backward:
-    3 B S L (2 Q N g + h (2 Q P + 4 N P))."""
+    3 B S L (2 Q N g + h (2 Q P + 4 N P)).  The hybrid counts attention
+    in its attention sublayers only (``_attn_layers``: n_units x
+    block_pattern.count("attn")) over ``cfg.local_window``'s pairs; its
+    block-diagonal gates are products whose parameters ``param_count``
+    has, and the RG-LRU scan's elementwise work is left out:
+    6 n B S + 3.5 x 4 dh H B pairs(S, local_window) x n_attn."""
     from repro_torch.models import transformer as T
     n = T.param_count(cfg, active_only=active_only) \
         - T.padded_vocab(cfg) * cfg.d_model
-    pairs = _pairs(S, S, True, cfg.sliding_window)
+    window = cfg.local_window if cfg.family == "hybrid" else \
+        cfg.sliding_window
+    pairs = _pairs(S, S, True, window)
     attn = 2.0 * 2 * cfg.head_dim * pairs * cfg.num_heads * B
-    flops = 6.0 * n * B * S + 3.5 * attn * cfg.num_layers
+    flops = 6.0 * n * B * S + 3.5 * attn * _attn_layers(cfg)
     if cfg.family == "ssm":
         Q, N, P = min(64, S), cfg.ssm_state, cfg.ssm_head_dim
         per_token = 2 * Q * N * cfg.ssm_groups + cfg.ssm_heads * (
@@ -3767,20 +3845,23 @@ class _PlainCalls:
             setattr(mod, name, fn)
 
 
-def train_path(dev, arch: str, steps: int, GB: int, S: int, n_mb: int):
-    """A full-width, full-depth dense decoder or SSM (bf16, random weights
-    from seed 0) trained ``steps`` steps through
+def train_path(dev, arch: str, steps: int, GB: int, S: int, n_mb: int,
+               lr: float = 1e-3):
+    """A full-width, full-depth dense decoder, SSM or hybrid (bf16, random
+    weights from seed 0) trained ``steps`` steps through
     ``launch/steps.py::train_step``: batches of GB x S from
     ``SyntheticLMStream`` (seed 0) in ``n_mb`` microbatches, remat on, AdamW
-    lr 1e-3.  The loss must be finite and fall; each step must launch the
-    flash forward (an SSM: the scan) 2 x L x n_mb times (remat runs each
-    layer twice), all on wgmma, the backward wrapper (an SSM: the scan's)
-    L x n_mb times, all on its bf16 route, no other kernel and no plain
-    version.  Logs s/step, tokens/s, peak memory, a step's device time by
-    kernel class beside its wall, the model FLOPs' share of the bf16 dense
-    peak (``mfu``), and whether a second run from seed 0 gives the first
-    two losses' bits (an SSM must give the first's).  Returns (launches
-    of the steps, numbers)."""
+    at ``lr`` (1e-3, the reference driver's).  The loss must be finite and
+    fall; each step must launch the flash forward (an SSM: the scan) 2 x L
+    x n_mb times (remat runs each layer twice; L the attention layers,
+    ``_attn_layers``), all on wgmma,
+    the backward wrapper (an SSM: the scan's) L x n_mb times, all on its
+    bf16 route, no other kernel and no plain version.  Logs s/step,
+    tokens/s, peak memory, a step's device time by kernel class beside its
+    wall, the model FLOPs' share of the bf16 dense peak (``mfu``), and
+    whether a second run from seed 0 gives the first two losses' bits (an
+    SSM and the hybrid must give the first's).  Returns (launches of the
+    steps, numbers)."""
     from repro_torch import kernels, optim
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
@@ -3791,8 +3872,8 @@ def train_path(dev, arch: str, steps: int, GB: int, S: int, n_mb: int):
 
     t_phase = time.perf_counter()
     cfg = get_config(arch)
-    L = cfg.num_layers
-    ocfg = optim.AdamWConfig(lr=1e-3, zero1=False)
+    L = cfg.num_layers if cfg.family == "ssm" else _attn_layers(cfg)
+    ocfg = optim.AdamWConfig(lr=lr, zero1=False)
     stream = SyntheticLMStream(DataConfig(global_batch=GB, seq_len=S,
                                           vocab_size=cfg.vocab_size, seed=0))
     batches = [{k: torch.from_numpy(v).to(dev)
@@ -3847,9 +3928,11 @@ def train_path(dev, arch: str, steps: int, GB: int, S: int, n_mb: int):
     tokens = GB * S
     flops = _model_flops(cfg, GB, S)
     mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
+    window = cfg.local_window if cfg.family == "hybrid" else \
+        cfg.sliding_window
     log(f"  {arch} bf16 ({T.param_count(cfg):,} parameters, {gb:.3f} GB, "
-        f"window {cfg.sliding_window}), {steps} steps of {GB} x {S} in "
-        f"{n_mb} microbatches, remat: losses "
+        f"window {window}), {steps} steps of {GB} x {S} in "
+        f"{n_mb} microbatches, remat, AdamW lr {lr:g}: losses "
         f"{[round(x, 4) for x in losses]}; {step_s:.3f} s/step (median of "
         f"steps 1-{steps - 1}; step 0 {secs[0]:.3f} s), "
         f"{tokens / step_s:.1f} tokens/s; peak device memory {peak:.2f} GB; "
@@ -3888,7 +3971,7 @@ def train_path(dev, arch: str, steps: int, GB: int, S: int, n_mb: int):
     log(f"  {arch} a second run from seed 0: losses {again} "
         f"{'equal' if same else 'NOT equal'} to the first run's bits "
         f"(the embedding's backward adds rows in an unspecified order)")
-    if cfg.family == "ssm" and again[0] != losses[0]:
+    if cfg.family in ("ssm", "hybrid") and again[0] != losses[0]:
         raise AssertionError(f"{arch} training: a rerun of the first step "
                              f"gave the loss {again[0]}, not {losses[0]}")
     gc.collect()
@@ -3972,6 +4055,91 @@ def train_ssm_path(dev):
         f"step's {st['device_ms']:.1f} device ms")
     st.update(ssd_layer_fwd_ms=f_ms, ssd_layer_fwd_bwd_ms=fb_ms,
               ssd_share=share)
+    return used, st
+
+
+# --------------------------------------------------------------- phase 15
+# microbatches of phase 15's 4 x 8192 tokens: at 2 the peak reached 76.3
+# GB of the card's 80 (46.6 GB of weights, fp32 masters and moments, 13.3
+# GB of fp32 gradient sums; PERF.md), at 4 70.9 GB
+HYBRID_MICROBATCHES = 4
+# AdamW's lr in phase 15: at the reference driver's 1e-3 this model's loss
+# swings by ~0.5 from step to step (clipped updates at grad norms of 1-6)
+# and after 5 steps stands above the first; at 3e-4 it falls (PERF.md)
+HYBRID_LR = 3e-4
+
+
+def _rglru_block(cfg, gen, dev):
+    """One RG-LRU block's leaves (``rglru.param_spec``) drawn from ``gen``
+    in bf16 (``lam`` fp32, by ``lam_init``), each requiring grad."""
+    from repro_torch.models import rglru
+    out = {}
+    for name, (shape, init, *dt) in rglru.param_spec(cfg).items():
+        dtype = torch.float32 if dt else torch.bfloat16
+        if init == "lam":
+            t = rglru.lam_init(shape, gen, dev)
+        elif init == "zeros":
+            t = torch.zeros(shape, device=dev)
+        else:
+            t = torch.randn(shape, generator=gen, device=dev) * init
+        out[name] = t.to(dtype).requires_grad_(True)
+    return out
+
+
+def train_hybrid_path(dev):
+    """Phase 15: RecurrentGemma-2B (26 layers: 8 units of RG-LRU, RG-LRU
+    and local-attention sublayers, then 2 RG-LRU tail layers; d_model
+    2560, 10 q heads on 1 kv head of 256, lru_width 2560, window 2048,
+    softcap 30, vocab 256000) in bf16 at every published width and full
+    depth, 5 steps of 4 x 8192 tokens in ``HYBRID_MICROBATCHES``
+    microbatches (phase 12's Danube tokens, so that the window binds),
+    AdamW at ``HYBRID_LR`` (``train_path``): the flash forward twice and its backward once an
+    attention sublayer and microbatch (8 x 2 x n_mb and 8 x n_mb a step),
+    no other kernel, the first step's loss again on a rerun from seed 0.
+    Then the RG-LRU's share of a step: one rec sublayer's ``rglru_fwd`` at
+    a microbatch (random weights from a seed, x at the block's scale), its
+    forward and its forward + backward on the device (the profiler's
+    trace), times the 18 rec sublayers x the microbatches x (forward +
+    forward and backward: remat runs the forward twice) over the step's
+    device time."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import rglru
+    from repro_torch.models import transformer as T
+    cfg = get_config("recurrentgemma_2b")
+    n_mb, GB, S = HYBRID_MICROBATCHES, 4, 8192
+    b = GB // n_mb
+    used, st = train_path(dev, "recurrentgemma_2b", 5, GB, S, n_mb,
+                          lr=HYBRID_LR)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    p = _rglru_block(cfg, gen, dev)
+    x = (0.5 * torch.randn((b, S, cfg.d_model), generator=gen,
+                           device=dev)).to(torch.bfloat16) \
+        .requires_grad_(True)
+    gy = torch.randn((b, S, cfg.d_model), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad():
+            rglru.rglru_fwd(cfg, p, x)
+
+    def fwd_bwd():
+        rglru.rglru_fwd(cfg, p, x).backward(gy)
+    f_ms, _ = _device_ms(fwd, n=2)
+    fb_ms, fb_by = _device_ms(fwd_bwd, n=2)
+    n_units, n_tail = T._hybrid_counts(cfg)
+    n_rec = n_units * cfg.block_pattern.count("rec") + n_tail
+    rec_ms = n_rec * n_mb * (f_ms + fb_ms)
+    share = rec_ms / st["device_ms"]
+    log(f"  one rec sublayer's rglru_fwd at {b} x {S} on the device: "
+        f"forward {f_ms:.2f} ms, forward + backward {fb_ms:.2f} ms ("
+        + ", ".join(f"{c} {ms:.2f}" for c, ms in sorted(
+            fb_by.items(), key=lambda kv: -kv[1]))
+        + f"); {n_rec} rec sublayers x {n_mb} microbatches x (forward + "
+        f"forward and backward) = {rec_ms:.1f} ms, {share:.3f} of the "
+        f"step's {st['device_ms']:.1f} device ms")
+    st.update(rglru_fwd_ms=f_ms, rglru_fwd_bwd_ms=fb_ms, rglru_share=share,
+              microbatches=n_mb)
+    del p, x, gy
     return used, st
 
 
@@ -4301,12 +4469,21 @@ def main() -> int:
     print(json.dumps({"train_path_ssm": ssm_train_stats}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+
+    log("== 15. training the hybrid: RecurrentGemma-2B bf16 at every "
+        "published width and full depth, 5 steps of 4 x 8192")
+    hybrid_trained, hybrid_train_stats = train_hybrid_path(dev)
+    print(json.dumps({"train_path_hybrid": hybrid_train_stats}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm, "flash_attention_bwd": trained,
                          "moe_gemm_wgrad": moe_trained,
                          "ssd_scan_bwd": ssm_trained}.get(
             s["name"], greedy)[s["name"]]
+        # phase 15's launches of the two attention kernels added
+        s["launches"] += hybrid_trained.get(s["name"], 0)
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

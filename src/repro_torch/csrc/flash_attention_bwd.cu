@@ -12,7 +12,8 @@
 // sliding window masks the keys at or below q position - window; a tanh
 // softcap takes S = tanh(S_pre / cap) cap before the mask and multiplies
 // dS by its chain factor 1 - (S / cap)^2, as the reference's _bwd does.
-// Head dims 32, 64, 80 (H2O-Danube-1.8B) and 128 are instantiated.
+// Head dims 32, 64, 80 (H2O-Danube-1.8B), 128 and 256 (RecurrentGemma-2B)
+// are instantiated.
 //
 // What bounds it on an H100: at the training shape (SmolLM-360M, B=8,
 // S=4096, H=15 on 5, D=64, causal) the work is ~0.65 TFLOP (2.5 times the
@@ -82,6 +83,19 @@
 //   the others do 6) but spills nothing.  The two roles are separate
 //   instantiations of the walk: ptxas serializes every wgmma of a kernel
 //   that issues one on a branch it cannot prove uniform.
+//   D = 256: even one 64 x 256 fp32 accumulator (128 registers) leaves too
+//   few for S^T, dP^T and their fragments, so every accumulator holds half
+//   of its 256 columns (Geo::kHalves = 2, 64 registers).  dK/dV: the two
+//   roles of D = 128 (consumer 0 dV, consumer 1 dK, one 64-key tile, BN =
+//   32), each over the columns of the CTA's half: two CTAs a key tile
+//   (grid y = key tile x 2 + half), each recomputing S^T (and dP^T) whole,
+//   10 units of product work where D = 128 does 7.  dQ: both consumers
+//   take the CTA's 64 q rows (Geo::BR = 64), consumer c adding columns
+//   128 c.. of dQ, with 32-key steps (Geo::BKQ) so that S, dP and their
+//   fragments take 48 registers; each consumer recomputes S and dP whole.
+//   A product of 128 columns is an n128 wgmma over two 64-column boxes
+//   (MN-major B, LBO one box apart), the half's boxes 2 x box apart; S^T =
+//   K Q^T and S = Q K^T run 16 k16 steps over the four boxes of a row.
 // - A softcap and a window are compile-time flags of both walks (CAP, WIN;
 //   four instantiations a head dim): with them as runtime branches the
 //   uncapped, unwindowed walks lost registers to code they never run and
@@ -105,11 +119,11 @@
 //   the grid's slowest dimension, taken from the heaviest end under a causal mask (dK/dV's first key tiles,
 //   dQ's last q tiles): the longest CTAs of every head start first, and the
 //   last wave is short ones.
-// - Shared memory: dK/dV holds K and V (16, 32, 64, 32 KiB at D = 32, 64,
-//   80, 128) and 4 stages of 9, 17, 17, 17 KiB; dQ holds Q and dO (16, 32,
-//   64, 64 KiB) and 4 stages of 9, 17, 33, 33 KiB.  The tile ranges take
-//   what is left of the 227 KiB, which caps Sq and Skv
-//   (repro_flash_bwd_max_len: 244,928 at D = 80 and 128).
+// - Shared memory: dK/dV holds K and V (16, 32, 64, 32, 64 KiB at D = 32,
+//   64, 80, 128, 256) and 4 stages of 9, 17, 17, 17, 33 KiB; dQ holds Q and
+//   dO (16, 32, 64, 64, 64 KiB) and 4 stages of 9, 17, 33, 33, 33 KiB.  The
+//   tile ranges take what is left of the 227 KiB, which caps Sq and Skv
+//   (repro_flash_bwd_max_len: 244,928 at D = 80 and 128, 122,464 at 256).
 // - Where the time goes (PERF.md, SmolLM-360M's shape): the loads and
 //   barriers alone (no products, no exponentials) take ~0.3 ms a kernel;
 //   the rest is the products and, in dQ, the exponentials and splits,
@@ -123,11 +137,13 @@
 // the recomputed S and dP that is 10 units of product work where the bound
 // counts 5: this design's floor is twice the bound.
 //
-// fp32 (the simt kernels, the first version, unchanged) runs the same
-// three steps on the CUDA cores: each thread owns 4 x 4 of a 64 x 64 score
-// tile (rows 4 ty.., keys tx + 16 j) and 4 rows x D/16 columns of an
-// accumulator; a tile is skipped by a block vote on the exact mask before
-// its Q and dO (or K and V) are read.
+// fp32 (the simt kernels, the first version) runs the same three steps on
+// the CUDA cores: each thread owns 4 x 4 of a 64 x 64 score tile (rows
+// 4 ty.., keys tx + 16 j) and 4 rows x D/16 columns of an accumulator; a
+// tile is skipped by a block vote on the exact mask before its Q and dO
+// (or K and V) are read.  At D = 256 the 64-row fp32 tiles of K, V, Q and
+// dO would take 290 KiB, so dK/dV steps over 32 q rows and dQ over 32 keys
+// (2 x 4 and 4 x 2 scores a thread; 210 and 202 KiB).
 // Keys are masked at the true Skv and rows at the true Sq: nothing is
 // padded in the inputs.
 
@@ -150,10 +166,11 @@ constexpr int PS = BK + 4;  // row stride of the P / dS tiles (16-byte rows)
 __host__ __device__ constexpr int pad64(int n) { return (n + 63) / 64 * 64; }
 
 // Lanes of the bf16 preprocess a row: D / 8 (16 bytes each) rounded up to a
-// power of two (16 at D = 80, whose last 6 lanes read nothing), so that a
-// row's lanes sit in one warp and sum by butterfly shuffles.
+// power of two (16 at D = 80, whose last 6 lanes read nothing; the whole
+// warp at D = 256), so that a row's lanes sit in one warp and sum by
+// butterfly shuffles.
 __host__ __device__ constexpr int row_lanes(int D) {
-  return D / 8 <= 4 ? 4 : D / 8 <= 8 ? 8 : 16;
+  return D / 8 <= 4 ? 4 : D / 8 <= 8 ? 8 : D / 8 <= 16 ? 16 : 32;
 }
 
 // sum_d g[d] * o[d] over one row, in every lane of the warp
@@ -242,65 +259,67 @@ flash_bwd_preprocess(const T* __restrict__ out, const T* __restrict__ dout,
   }
 }
 
-// rows [r0, r0 + 64) of a (B, S, heads, D) tensor at (b, head) into a
-// 64 x (D + 1) fp32 tile; rows past S are zeros
-template <typename T, int D>
+// rows [r0, r0 + ROWS) of a (B, S, heads, D) tensor at (b, head) into a
+// ROWS x (D + 1) fp32 tile; rows past S are zeros
+template <typename T, int D, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst,
                                           const T* __restrict__ src, int b,
                                           int r0, int S, int heads,
                                           int head) {
   constexpr int DP = D + 1;
 #pragma unroll 4
-  for (int e = threadIdx.x; e < 64 * D; e += NT) {
+  for (int e = threadIdx.x; e < ROWS * D; e += NT) {
     const int r = e / D, d = e % D, ri = r0 + r;
     const size_t at = (((size_t)b * S + ri) * heads + head) * D + d;
     dst[r * DP + d] = ri < S ? rt::to_f32(src[at]) : 0.f;
   }
 }
 
-// The 4 x 4 scores of this thread, S = A B^T and dP = C E^T over D (A, C:
-// the q-side tiles Q, dO; B, E: the key-side tiles K, V), then P and dS in
-// place of them: P = exp(S * scale - lse) where ok, else 0; dS = P (dP -
-// Dl).  Under a softcap S * scale becomes tanh(S * scale / cap) cap and dS
-// takes the chain factor 1 - tanh^2.
-template <int D>
+// The RI x RJ scores of this thread (rows RI ty + i, keys tx + 16 j), S =
+// A B^T and dP = C E^T over D (A, C: the q-side tiles Q, dO; B, E: the
+// key-side tiles K, V), then P and dS in place of them: P = exp(S * scale -
+// lse) where ok, else 0; dS = P (dP - Dl).  Under a softcap S * scale
+// becomes tanh(S * scale / cap) cap and dS takes the chain factor 1 -
+// tanh^2.
+template <int D, int RI, int RJ>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
                                        const float* Ks, const float* Vs,
-                                       int ty, int tx, const bool (&ok)[4][4],
-                                       const float (&lse)[4],
-                                       const float (&dl)[4], float scale,
-                                       float softcap, float (&p)[4][4],
-                                       float (&ds)[4][4]) {
+                                       int ty, int tx,
+                                       const bool (&ok)[RI][RJ],
+                                       const float (&lse)[RI],
+                                       const float (&dl)[RI], float scale,
+                                       float softcap, float (&p)[RI][RJ],
+                                       float (&ds)[RI][RJ]) {
   constexpr int DP = D + 1;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) p[i][j] = ds[i][j] = 0.f;
+    for (int j = 0; j < RJ; ++j) p[i][j] = ds[i][j] = 0.f;
 #pragma unroll 8
   for (int d = 0; d < D; ++d) {
-    float a[4], c[4], bk[4], bv[4];
+    float a[RI], c[RI], bk[RJ], bv[RJ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      a[i] = Qs[(ty * 4 + i) * DP + d];
-      c[i] = dOs[(ty * 4 + i) * DP + d];
+    for (int i = 0; i < RI; ++i) {
+      a[i] = Qs[(ty * RI + i) * DP + d];
+      c[i] = dOs[(ty * RI + i) * DP + d];
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RJ; ++j) {
       bk[j] = Ks[(tx + 16 * j) * DP + d];
       bv[j] = Vs[(tx + 16 * j) * DP + d];
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < RJ; ++j) {
         p[i][j] = fmaf(a[i], bk[j], p[i][j]);
         ds[i][j] = fmaf(c[i], bv[j], ds[i][j]);
       }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RJ; ++j) {
       float x = p[i][j] * scale, chain = 1.f;
       if (softcap > 0.f) {
         const float th = tanhf(x / softcap);
@@ -313,17 +332,18 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
     }
 }
 
-// The mask of this thread's 4 x 4 pairs; returns whether any is allowed.
-__device__ __forceinline__ int pair_mask(const int (&qp)[4],
-                                         const bool (&qin)[4],
-                                         const int (&kp)[4],
-                                         const bool (&kin)[4], int causal,
-                                         int window, bool (&ok)[4][4]) {
+// The mask of this thread's RI x RJ pairs; returns whether any is allowed.
+template <int RI, int RJ>
+__device__ __forceinline__ int pair_mask(const int (&qp)[RI],
+                                         const bool (&qin)[RI],
+                                         const int (&kp)[RJ],
+                                         const bool (&kin)[RJ], int causal,
+                                         int window, bool (&ok)[RI][RJ]) {
   int any = 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RJ; ++j) {
       bool o = qin[i] && kin[j];
       if (causal) o = o && kp[j] <= qp[i];
       if (window > 0) o = o && kp[j] > qp[i] - window;
@@ -333,7 +353,8 @@ __device__ __forceinline__ int pair_mask(const int (&qp)[4],
   return any;
 }
 
-template <typename T, int D>
+// dK/dV of 64 keys, stepping over QR q rows (64; 32 at D = 256)
+template <typename T, int D, int QR>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_pos,
@@ -343,21 +364,21 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv,
                     int H, int Hkv, int causal, int window, float softcap,
                     float scale) {
-  constexpr int DP = D + 1, DC = D / 16;
+  constexpr int DP = D + 1, DC = D / 16, RI = QR / 16;
   extern __shared__ float smem[];
   float* Ks = smem;             // BK x DP
   float* Vs = Ks + BK * DP;     // BK x DP
-  float* Qs = Vs + BK * DP;     // BQ x DP
-  float* dOs = Qs + BQ * DP;    // BQ x DP
-  float* Ps = dOs + BQ * DP;    // BQ x PS
-  float* dSs = Ps + BQ * PS;    // BQ x PS
+  float* Qs = Vs + BK * DP;     // QR x DP
+  float* dOs = Qs + QR * DP;    // QR x DP
+  float* Ps = dOs + QR * DP;    // QR x PS
+  float* dSs = Ps + QR * PS;    // QR x PS
 
   const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BK;
   const int G = H / Hkv;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  load_tile<T, D>(Ks, k, b, k0, Skv, Hkv, hk);
-  load_tile<T, D>(Vs, v, b, k0, Skv, Hkv, hk);
+  load_tile<T, D, BK>(Ks, k, b, k0, Skv, Hkv, hk);
+  load_tile<T, D, BK>(Vs, v, b, k0, Skv, Hkv, hk);
   int kp[4];
   bool kin[4];
 #pragma unroll
@@ -372,46 +393,46 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
-  const int nqt = (Sq + BQ - 1) / BQ;
+  const int nqt = (Sq + QR - 1) / QR;
   for (int g = 0; g < G; ++g) {
     const int h = hk * G + g;
     for (int qt = 0; qt < nqt; ++qt) {
-      const int q0 = qt * BQ;
-      int qp[4];
-      bool qin[4];
-      float ls[4], dl[4];
+      const int q0 = qt * QR;
+      int qp[RI];
+      bool qin[RI];
+      float ls[RI], dl[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + ty * 4 + i;
+      for (int i = 0; i < RI; ++i) {
+        const int qi = q0 + ty * RI + i;
         qin[i] = qi < Sq;
         const size_t row = ((size_t)b * Sq + qi) * H + h;
         qp[i] = qin[i] ? q_pos[(size_t)b * Sq + qi] : 0;
         ls[i] = qin[i] ? lse[row] : 0.f;
         dl[i] = qin[i] ? Dl[row] : 0.f;
       }
-      bool ok[4][4];
+      bool ok[RI][4];
       const int any = pair_mask(qp, qin, kp, kin, causal, window, ok);
       // also the barrier between the last step's readers and this step's
       // writers of Qs, dOs, Ps and dSs (and, first, the K/V loads)
       if (!__syncthreads_or(any)) continue;
-      load_tile<T, D>(Qs, q, b, q0, Sq, H, h);
-      load_tile<T, D>(dOs, dout, b, q0, Sq, H, h);
+      load_tile<T, D, QR>(Qs, q, b, q0, Sq, H, h);
+      load_tile<T, D, QR>(dOs, dout, b, q0, Sq, H, h);
       __syncthreads();
 
-      float p[4][4], ds[4][4];
+      float p[RI][4], ds[RI][4];
       scores<D>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, softcap, p, ds);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          Ps[(ty * 4 + i) * PS + tx + 16 * j] = p[i][j];
-          dSs[(ty * 4 + i) * PS + tx + 16 * j] = ds[i][j];
+          Ps[(ty * RI + i) * PS + tx + 16 * j] = p[i][j];
+          dSs[(ty * RI + i) * PS + tx + 16 * j] = ds[i][j];
         }
       __syncthreads();
 
       // dV[key] += sum_r P[r, key] dO[r]; dK[key] += sum_r dS[r, key] Q[r]
 #pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
+      for (int r = 0; r < QR; ++r) {
         const float4 pr =
             *reinterpret_cast<const float4*>(Ps + r * PS + ty * 4);
         const float4 sr =
@@ -445,7 +466,8 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+// dQ of 64 q rows, stepping over KR keys (64; 32 at D = 256)
+template <typename T, int D, int KR>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ q_pos,
@@ -454,21 +476,21 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ dout, T* __restrict__ dq, int Sq,
                   int Skv, int H, int Hkv, int causal, int window,
                   float softcap, float scale) {
-  constexpr int DP = D + 1, DC = D / 16;
+  constexpr int DP = D + 1, DC = D / 16, RJ = KR / 16, PK = KR + 4;
   extern __shared__ float smem[];
   float* Qs = smem;             // BQ x DP
   float* dOs = Qs + BQ * DP;    // BQ x DP
-  float* Ks = dOs + BQ * DP;    // BK x DP
-  float* Vs = Ks + BK * DP;     // BK x DP
-  float* dSs = Vs + BK * DP;    // BQ x PS
+  float* Ks = dOs + BQ * DP;    // KR x DP
+  float* Vs = Ks + KR * DP;     // KR x DP
+  float* dSs = Vs + KR * DP;    // BQ x PK
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // last tile first
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  load_tile<T, D>(Qs, q, b, q0, Sq, H, h);
-  load_tile<T, D>(dOs, dout, b, q0, Sq, H, h);
+  load_tile<T, D, BQ>(Qs, q, b, q0, Sq, H, h);
+  load_tile<T, D, BQ>(dOs, dout, b, q0, Sq, H, h);
   int qp[4];
   bool qin[4];
   float ls[4], dl[4];
@@ -487,41 +509,41 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
 
-  const int nkt = (Skv + BK - 1) / BK;
+  const int nkt = (Skv + KR - 1) / KR;
   for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * BK;
-    int kp[4];
-    bool kin[4];
+    const int k0 = kt * KR;
+    int kp[RJ];
+    bool kin[RJ];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < RJ; ++j) {
       const int kj = k0 + tx + 16 * j;
       kin[j] = kj < Skv;
       kp[j] = kin[j] ? kv_pos[(size_t)b * Skv + kj] : 0;
     }
-    bool ok[4][4];
+    bool ok[4][RJ];
     const int any = pair_mask(qp, qin, kp, kin, causal, window, ok);
     // also the barrier between the last step's readers and this step's
     // writers of Ks, Vs and dSs (and, first, the Q/dO loads)
     if (!__syncthreads_or(any)) continue;
-    load_tile<T, D>(Ks, k, b, k0, Skv, Hkv, hk);
-    load_tile<T, D>(Vs, v, b, k0, Skv, Hkv, hk);
+    load_tile<T, D, KR>(Ks, k, b, k0, Skv, Hkv, hk);
+    load_tile<T, D, KR>(Vs, v, b, k0, Skv, Hkv, hk);
     __syncthreads();
 
-    float p[4][4], ds[4][4];
+    float p[4][RJ], ds[4][RJ];
     scores<D>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, softcap, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[(ty * 4 + i) * PS + tx + 16 * j] = ds[i][j];
+      for (int j = 0; j < RJ; ++j)
+        dSs[(ty * 4 + i) * PK + tx + 16 * j] = ds[i][j];
     __syncthreads();
 
     // dQ[r] += sum_key dS[r, key] K[key]
 #pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
+    for (int j = 0; j < KR; ++j) {
       float sv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty * 4 + i) * PS + j];
+      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty * 4 + i) * PK + j];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
         const float kk = Ks[j * DP + tx + 16 * c];
@@ -553,8 +575,6 @@ using bf16 = __nv_bfloat16;
 constexpr int NC = 2;               // consumer warpgroups
 constexpr int NT = 128 * NC + 32;   // threads: the consumers, then the
                                     // producer warp
-constexpr int BR = 64 * NC;         // q rows of a dQ CTA
-constexpr int BK = 64;              // keys a dQ step
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr size_t kSmemLimit = 227 * 1024;  // the most a CTA may take
 
@@ -564,8 +584,8 @@ __host__ __device__ constexpr uint32_t up1024(uint32_t x) {
 
 // Shared-memory geometry at head dim D, offsets from a 1024-aligned base.
 // A TMA box is at most 64 bf16 columns (128 bytes, the swizzle's width);
-// D = 80 and 128 take two boxes a row, stored one after the other (at 80
-// the second holds columns 64..79 and zeros).
+// D = 80, 128 and 256 take two, two and four boxes a row, stored one after
+// the other (at 80 the second holds columns 64..79 and zeros).
 template <int D>
 struct Geo {
   static constexpr int kBoxCols = D < 64 ? D : 64;
@@ -577,13 +597,21 @@ struct Geo {
       D < 64 ? sm90::kSwizzle64 : sm90::kSwizzle128;
   static constexpr int kKSteps = kBoxCols / 16;  // k16 steps a box
   // q rows a dK/dV step
-  static constexpr int BN = D == 80 || D == 128 ? 32 : 64;
+  static constexpr int BN = D == 80 || D == 128 || D == 256 ? 32 : 64;
   static constexpr int kStages = 4;              // ring stages
-  // D = 128: dK and dV would take 128 of a consumer's 168 registers, so the
-  // two consumers share one 64-key tile, consumer 0 adding dV and consumer
-  // 1 dK (both recompute S^T); below it each owns 64 keys and adds both
-  static constexpr bool kSplit = D == 128;
+  // D >= 128: dK and dV would take 128 of a consumer's 168 registers, so
+  // the two consumers share one 64-key tile, consumer 0 adding dV and
+  // consumer 1 dK (both recompute S^T); below it each owns 64 keys and adds
+  // both
+  static constexpr bool kSplit = D >= 128;
+  // D = 256: an accumulator holds half of its columns (kCols), a dK/dV
+  // CTA one half of dK and dV (kHalves CTAs a key tile), and the two dQ
+  // consumers the two halves of one 64-row tile's dQ
+  static constexpr int kHalves = D == 256 ? 2 : 1;
+  static constexpr int kCols = D / kHalves;
   static constexpr int BKV = kSplit ? 64 : 64 * NC;  // keys of a dK/dV CTA
+  static constexpr int BR = 64 * NC / kHalves;       // q rows of a dQ CTA
+  static constexpr int BKQ = D == 256 ? 32 : 64;     // keys a dQ step
   // dK/dV: K and V (BKV rows), then the ring: per stage Q and dO (BN rows)
   // and the (lse, Dl, q position) rows, 3 x BN fp32
   static constexpr uint32_t kKvTx = 2 * BN * kRow + 3 * BN * 4;
@@ -595,9 +623,9 @@ struct Geo {
   static constexpr uint32_t kKvBars = kKvRing + kStages * kKvStage;
   static constexpr uint32_t kKvRed = kKvBars + 8 * (2 * kStages + 1);
   static constexpr uint32_t kKvRanges = kKvRed + 8 * 4;
-  // dQ: Q and dO (BR rows), then per stage K and V (BK rows) and the kv
-  // positions (BK int32)
-  static constexpr uint32_t kQTx = 2 * BK * kRow + BK * 4;
+  // dQ: Q and dO (BR rows), then per stage K and V (BKQ rows) and the kv
+  // positions (BKQ int32)
+  static constexpr uint32_t kQTx = 2 * BKQ * kRow + BKQ * 4;
   static constexpr uint32_t kQStage = up1024(kQTx);
   static constexpr uint32_t kQRing = 2 * BR * kRow;
   static constexpr uint32_t kQBars = kQRing + kStages * kQStage;
@@ -607,11 +635,11 @@ struct Geo {
     return 1024 + kKvRanges + 8 * size_t(nqt);
   }
   static size_t smem_q(int nkt) { return 1024 + kQRanges + 8 * size_t(nkt); }
-  // the most q rows (dK/dV's BN-row tiles) and keys (dQ's 64-key tiles)
+  // the most q rows (dK/dV's BN-row tiles) and keys (dQ's BKQ-key tiles)
   // whose ranges fit the CTA's shared memory
   static int max_len() {
     const size_t q = (kSmemLimit - smem_kv(0)) / 8 * BN;
-    const size_t k = (kSmemLimit - smem_q(0)) / 8 * BK;
+    const size_t k = (kSmemLimit - smem_q(0)) / 8 * BKQ;
     return int(q < k ? q : k);
   }
 };
@@ -710,10 +738,11 @@ __device__ __forceinline__ void store2(bf16* p, float a, float c) {
   *reinterpret_cast<uint32_t*>(p) = sm90::pack_bf16(a, c);
 }
 
-// dK/dV of BKV keys of one kv head.  A consumer thread holds keys r0 and
-// r0 + 8 of its 64 (rows of S^T), q columns 8 j + c0 + {0, 1}.  CAP: a
-// softcap, WIN: a window (window > 0); separate instantiations, so that
-// the walk without them keeps its registers.
+// dK/dV of BKV keys of one kv head (at D = 256 of the columns of one
+// half).  A consumer thread holds keys r0 and r0 + 8 of its 64 (rows of
+// S^T), q columns 8 j + c0 + {0, 1}.  CAP: a softcap, WIN: a window
+// (window > 0); separate instantiations, so that the walk without them
+// keeps its registers.
 template <int D, bool CAP, bool WIN>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -726,7 +755,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      bf16* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
                      int causal, int window, float softcap, float scale) {
   using G = Geo<D>;
-  constexpr int BN = G::BN, BKV = G::BKV, RB = G::kRowBytes;
+  constexpr int BN = G::BN, BKV = G::BKV, RB = G::kRowBytes, NC2 = G::kCols;
   constexpr bool kSplit = G::kSplit;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
@@ -741,10 +770,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   int* qlo = reinterpret_cast<int*>(base + G::kKvRanges);
   int* qhi = qlo + nqt;
 
-  // grid (kv heads x batch rows, key tiles): the key tiles with the most q
-  // tiles (the first, when causal) of every head launch first
+  // grid (kv heads x batch rows, key tiles x halves): the key tiles with the
+  // most q tiles (the first, when causal) of every head launch first
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int k0 = blockIdx.y * BKV;
+  const int k0 = blockIdx.y / G::kHalves * BKV;
+  const int half = blockIdx.y % G::kHalves;  // columns half * kCols..
   const int groups = H / Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -823,6 +853,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   const float s_cap = softcap > 0.f ? scale / softcap : 0.f;
   const float cap_l2e = softcap * kLog2e;
   const uint32_t k_rows = sK + kw * RB, v_rows = sV + kw * RB;
+  // the byte offset of the half's first box in a streamed Q or dO tile
+  const uint32_t col_box = half * (NC2 / G::kBoxCols) * BN * RB;
   sm90::mbar_wait(bar_kv, 0);
 
   // The walk of one consumer.  DV, DK: whether it adds dV and dK (both
@@ -831,11 +863,11 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   // ptxas cannot see to be warpgroup-uniform (it then serializes them).
   auto walk = [&](auto dv_flag, auto dk_flag) {
     constexpr bool DV = decltype(dv_flag)::value, DK = decltype(dk_flag)::value;
-    float acc_v[DV ? D / 2 : 1], acc_k[DK ? D / 2 : 1];
+    float acc_v[DV ? NC2 / 2 : 1], acc_k[DK ? NC2 / 2 : 1];
 #pragma unroll
-    for (int e = 0; e < (DV ? D / 2 : 1); ++e) acc_v[e] = 0.f;
+    for (int e = 0; e < (DV ? NC2 / 2 : 1); ++e) acc_v[e] = 0.f;
 #pragma unroll
-    for (int e = 0; e < (DK ? D / 2 : 1); ++e) acc_k[e] = 0.f;
+    for (int e = 0; e < (DK ? NC2 / 2 : 1); ++e) acc_k[e] = 0.f;
     int i = 0;
     for (int g = 0; g < groups; ++g) {
       for (int t = 0; t < nqt; ++t) {
@@ -909,8 +941,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           }
 
           // dV += P^T dO, then dK += dS^T Q: k steps of 16 q rows, B
-          // MN-major (its 64-column boxes BN rows apart); each accumulator's
-          // products issued together
+          // MN-major (its 64-column boxes BN rows apart; at D = 256 the
+          // half's two); each accumulator's products issued together
           uint32_t ph[DV ? BN / 16 : 1][4], pl[DV ? BN / 16 : 1][4];
           uint32_t sh[DK ? BN / 16 : 1][4], sl[DK ? BN / 16 : 1][4];
 #pragma unroll
@@ -924,19 +956,21 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           if constexpr (DV) {
 #pragma unroll
             for (int kk = 0; kk < BN / 16; ++kk) {
-              const uint64_t bdo = sm90::desc(sdO + kk * 16 * RB, BN * RB,
-                                              G::kAtom, G::kSwizzle);
-              sm90::wgmma_rs<D>(acc_v, ph[kk], bdo, BN * RB);
-              sm90::wgmma_rs<D>(acc_v, pl[kk], bdo, BN * RB);
+              const uint64_t bdo =
+                  sm90::desc(sdO + col_box + kk * 16 * RB, BN * RB,
+                             G::kAtom, G::kSwizzle);
+              sm90::wgmma_rs<NC2>(acc_v, ph[kk], bdo, BN * RB);
+              sm90::wgmma_rs<NC2>(acc_v, pl[kk], bdo, BN * RB);
             }
           }
           if constexpr (DK) {
 #pragma unroll
             for (int kk = 0; kk < BN / 16; ++kk) {
-              const uint64_t bq = sm90::desc(sQ + kk * 16 * RB, BN * RB,
-                                             G::kAtom, G::kSwizzle);
-              sm90::wgmma_rs<D>(acc_k, sh[kk], bq, BN * RB);
-              sm90::wgmma_rs<D>(acc_k, sl[kk], bq, BN * RB);
+              const uint64_t bq =
+                  sm90::desc(sQ + col_box + kk * 16 * RB, BN * RB, G::kAtom,
+                             G::kSwizzle);
+              sm90::wgmma_rs<NC2>(acc_k, sh[kk], bq, BN * RB);
+              sm90::wgmma_rs<NC2>(acc_k, sl[kk], bq, BN * RB);
             }
           }
           sm90::wgmma_commit();
@@ -949,15 +983,16 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
       }
     }
 
-    // dK (scaled once) and dV in bf16, keys past Skv not written
+    // dK (scaled once) and dV in bf16 (the half's columns), keys past Skv
+    // not written
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < NC2 / 8; ++j) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (!(r == 0 ? kin0 : kin1)) continue;
         const size_t o =
             (((size_t)b * Skv + (r == 0 ? kr0 : kr1)) * Hkv + hk) * D +
-            8 * j + c0;
+            half * NC2 + 8 * j + c0;
         if constexpr (DV)
           store2(dv + o, acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
         if constexpr (DK)
@@ -977,7 +1012,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 }
 
 // dQ of BR q rows of one q head.  A consumer thread holds rows r0 and
-// r0 + 8 of its 64, columns 8 j + c0 + {0, 1}.  CAP, WIN: as dK/dV's.
+// r0 + 8 of its 64, columns 8 j + c0 + {0, 1} (at D = 256 of its half).
+// CAP, WIN: as dK/dV's.
 template <int D, bool CAP, bool WIN>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
@@ -991,7 +1027,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    int Sq, int Skv, int H, int Hkv, int causal, int window,
                    float softcap, float scale) {
   using G = Geo<D>;
-  constexpr int RB = G::kRowBytes;
+  constexpr int RB = G::kRowBytes, BR = G::BR, BK = G::BKQ, NC2 = G::kCols;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
@@ -1067,10 +1103,12 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  // ---- consumer cw (warps 4 cw..): q rows qi0 = qw0 + r0 and qi0 + 8
+  // ---- consumer cw (warps 4 cw..): q rows qi0 = qw0 + r0 and qi0 + 8;
+  // at D = 256 both take the CTA's rows, and cw is the columns' half
   const int cw = warp / 4;
+  const int rw = G::kHalves == 1 ? cw : 0, half = G::kHalves == 1 ? 0 : cw;
   const int r0 = 16 * (warp % 4) + lane / 4, c0 = 2 * (lane % 4);
-  const int qw0 = q0 + 64 * cw, qi0 = qw0 + r0, qi1 = qi0 + 8;
+  const int qw0 = q0 + 64 * rw, qi0 = qw0 + r0, qi1 = qi0 + 8;
   const bool qin0 = qi0 < Sq, qin1 = qi1 < Sq;
   const int qp0 = qin0 ? q_pos[(size_t)b * Sq + qi0] : 0;
   const int qp1 = qin1 ? q_pos[(size_t)b * Sq + qi1] : 0;
@@ -1080,18 +1118,20 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const float l2_0 = qin0 ? lrow[qi0] : 0.f, l2_1 = qin1 ? lrow[qi1] : 0.f;
   const float dl0 = qin0 ? lrow[Sqp + qi0] : 0.f;
   const float dl1 = qin1 ? lrow[Sqp + qi1] : 0.f;
-  // the position range of this consumer's rows (warps 2 cw, 2 cw + 1)
-  const int wlo = min(red[2 * cw], red[2 * cw + 1]);
-  const int whi = max(red[4 + 2 * cw], red[4 + 2 * cw + 1]);
+  // the position range of this consumer's rows (warps 2 rw, 2 rw + 1)
+  const int wlo = min(red[2 * rw], red[2 * rw + 1]);
+  const int whi = max(red[4 + 2 * rw], red[4 + 2 * rw + 1]);
   const bool wany = qw0 < Sq, wall = qw0 + 64 <= Sq;
   const float sl2e = scale * kLog2e;
   const float s_cap = softcap > 0.f ? scale / softcap : 0.f;
   const float cap_l2e = softcap * kLog2e;
-  const uint32_t q_rows = sQ + 64 * cw * RB, do_rows = sdO + 64 * cw * RB;
+  const uint32_t q_rows = sQ + 64 * rw * RB, do_rows = sdO + 64 * rw * RB;
+  // the byte offset of the half's first box in a streamed K tile
+  const uint32_t col_box = half * (NC2 / G::kBoxCols) * BK * RB;
 
-  float acc[D / 2];
+  float acc[NC2 / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NC2 / 2; ++i) acc[i] = 0.f;
 
   sm90::mbar_wait(bar_q, 0);
   int i = 0;
@@ -1157,7 +1197,7 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       }
 
       // dQ += dS K: k steps of 16 keys, K MN-major (its 64-column boxes BK
-      // rows apart)
+      // rows apart; at D = 256 the half's two)
       uint32_t sh[BK / 16][4], sl[BK / 16][4];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) split(sh[kk], sl[kk], dp, kk);
@@ -1165,10 +1205,10 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       sm90::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        const uint64_t bk = sm90::desc(sK + kk * 16 * RB, BK * RB, G::kAtom,
-                                       G::kSwizzle);
-        sm90::wgmma_rs<D>(acc, sh[kk], bk, BK * RB);
-        sm90::wgmma_rs<D>(acc, sl[kk], bk, BK * RB);
+        const uint64_t bk = sm90::desc(sK + col_box + kk * 16 * RB, BK * RB,
+                                       G::kAtom, G::kSwizzle);
+        sm90::wgmma_rs<NC2>(acc, sh[kk], bk, BK * RB);
+        sm90::wgmma_rs<NC2>(acc, sl[kk], bk, BK * RB);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
@@ -1178,14 +1218,16 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     ++i;                                                    // done with it
   }
 
-  // dQ (scaled once) in bf16, rows past Sq not written
+  // dQ (scaled once) in bf16 (the half's columns), rows past Sq not
+  // written
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < NC2 / 8; ++j) {
+    const int col = half * NC2 + 8 * j + c0;
     if (qin0)
-      store2(dq + (((size_t)b * Sq + qi0) * H + h) * D + 8 * j + c0,
+      store2(dq + (((size_t)b * Sq + qi0) * H + h) * D + col,
              acc[4 * j] * scale, acc[4 * j + 1] * scale);
     if (qin1)
-      store2(dq + (((size_t)b * Sq + qi1) * H + h) * D + 8 * j + c0,
+      store2(dq + (((size_t)b * Sq + qi1) * H + h) * D + col,
              acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
   }
 }
@@ -1243,6 +1285,7 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
                    int Sq, int Skv, int H, int Hkv, int causal, int window,
                    float softcap, float scale, cudaStream_t stream) {
   using G = Geo<D>;
+  constexpr int BR = G::BR, BK = G::BKQ;
   if (Sq > G::max_len() || Skv > G::max_len()) return cudaErrorInvalidValue;
   const int Sqp = pad64(Sq), Skvp = pad64(Skv);
   CUtensorMap tq, tdo, tk, tv, tld, tq2, tdo2, tk2, tv2, tkp;
@@ -1270,8 +1313,8 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
                             : &flash_bwd_dkdv_wgmma<D, false, false>);
   err = rt::allow_smem(kern_kv, smem_kv);
   if (err != cudaSuccess) return err;
-  kern_kv<<<dim3(Hkv * B, (Skv + G::BKV - 1) / G::BKV), NT, smem_kv,
-              stream>>>(
+  kern_kv<<<dim3(Hkv * B, (Skv + G::BKV - 1) / G::BKV * G::kHalves), NT,
+              smem_kv, stream>>>(
       tq, tdo, tk, tv, tld, q_pos, kv_pos, dk, dv, Sq, Skv, H, Hkv, causal,
       window, softcap, scale);
   err = cudaGetLastError();
@@ -1330,9 +1373,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                                                      H);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    // q rows a dK/dV step and keys a dQ step: 64; 32 at D = 256, whose
+    // 64-row tiles would pass the 227 KiB
+    constexpr int QR = D == 256 ? 32 : BQ, KR = D == 256 ? 32 : BK;
     const size_t smem_kv =
-        sizeof(float) * (2 * BK * DP + 2 * BQ * DP + 2 * BQ * PS);
-    auto kern_kv = flash_bwd_dkdv_simt<T, D>;
+        sizeof(float) * (2 * BK * DP + 2 * QR * DP + 2 * QR * PS);
+    auto kern_kv = flash_bwd_dkdv_simt<T, D, QR>;
     err = rt::allow_smem(kern_kv, smem_kv);
     if (err != cudaSuccess) return err;
     kern_kv<<<dim3((Skv + BK - 1) / BK, Hkv, B), NT, smem_kv, stream>>>(
@@ -1343,8 +1389,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
 
     const size_t smem_q =
-        sizeof(float) * (2 * BQ * DP + 2 * BK * DP + BQ * PS);
-    auto kern_q = flash_bwd_dq_simt<T, D>;
+        sizeof(float) * (2 * BQ * DP + 2 * KR * DP + BQ * (KR + 4));
+    auto kern_q = flash_bwd_dq_simt<T, D, KR>;
     err = rt::allow_smem(kern_q, smem_q);
     if (err != cudaSuccess) return err;
     kern_q<<<dim3((Sq + BQ - 1) / BQ, H, B), NT, smem_q, stream>>>(
@@ -1371,6 +1417,7 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
   REPRO_FLASH_BWD_CASE(64)
   REPRO_FLASH_BWD_CASE(80)
   REPRO_FLASH_BWD_CASE(128)
+  REPRO_FLASH_BWD_CASE(256)
 #undef REPRO_FLASH_BWD_CASE
   return cudaErrorInvalidValue;
 }
@@ -1386,6 +1433,7 @@ extern "C" int repro_flash_bwd_max_len(int D) {
   if (D == 64) return wg::Geo<64>::max_len();
   if (D == 80) return wg::Geo<80>::max_len();
   if (D == 128) return wg::Geo<128>::max_len();
+  if (D == 256) return wg::Geo<256>::max_len();
   return 0;
 }
 

@@ -30,7 +30,7 @@ from repro_torch.models import flash
 NAME = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims the kernel is instantiated for (q, k and v alike)
-HEAD_DIMS = (32, 64, 80, 128)
+HEAD_DIMS = (32, 64, 80, 128, 256)
 _ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 _LIB = None
 
@@ -51,7 +51,7 @@ def max_len(D: int) -> int:
     dim ``D``, as the built kernel computes it (``repro_flash_bwd_max_len``):
     the least and greatest position of each tile it walks, 8 bytes a tile,
     share each CTA's 227 KiB of shared memory with its tiles and its ring.
-    244,928 at D = 80 and 128."""
+    244,928 at D = 80 and 128, 122,464 at D = 256."""
     return _lib().repro_flash_bwd_max_len(D)
 
 
@@ -103,9 +103,9 @@ def _lib():
 def check_supported(q, k, v, *, window=0, softcap=0.0) -> None:
     """Raise ``ValueError`` where the card's kernel cannot take the
     backward: v's head dim apart from q's (MLA's 192 / 128 waits for its
-    own instantiation), or a head dim it is not instantiated for (256,
-    RecurrentGemma's, among them).  Any ``window`` and ``softcap`` are
-    taken.  ``FlashAttentionFn`` asks before its forward runs."""
+    own instantiation), or a head dim it is not instantiated for (one
+    outside ``HEAD_DIMS``).  Any ``window`` and ``softcap`` are taken.
+    ``FlashAttentionFn`` asks before its forward runs."""
     D, Dk, Dv = q.shape[-1], k.shape[-1], v.shape[-1]
     if not D == Dk == Dv or D not in HEAD_DIMS:
         raise ValueError(f"{NAME}: head dims q {D}, k {Dk}, v {Dv}; the "

@@ -5,15 +5,22 @@
         [--device cuda] [--ckpt DIR]
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
         --steps 5 --batch 16 --seq 4096 --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch recurrentgemma_2b --steps 5 --batch 4 --seq 8192 \\
+        --microbatches 4
 
 ``--arch`` takes what ``models/transformer.py::check_trainable`` accepts:
 the dense decoders (H2O-Danube-1.8B's sliding window among them), the
 MoE decoders with GQA attention (Qwen3-30B-A3B, Phi-3.5-MoE; the MoE aux
-is in the loss) and the Mamba-2 SSM (Mamba2-370M; its scan's backward is
+is in the loss), the Mamba-2 SSM (Mamba2-370M; its scan's backward is
 the ``ssd_scan_bwd`` kernel, and a sequence longer than 64 tokens must be
-a multiple of 64).  Full depth: a config too large for one card (the
-full Qwen3-30B-A3B's weights, masters and moments) runs out of memory;
-the port's multi-GPU slice will shard it.
+a multiple of 64) and the RecurrentGemma hybrid (RecurrentGemma-2B: its
+local attention's backward is the flash backward kernel at head dim 256,
+its RG-LRU scan's the adjoint recurrence of ``models/rglru.py::
+LinearScanFn``; remat checkpoints each unit and each tail layer).  Full
+depth: a config too large for one card (the full Qwen3-30B-A3B's
+weights, masters and moments) runs out of memory; the port's multi-GPU
+slice will shard it.
 
 The counterpart of ``repro.launch.train``'s training path (and of
 ``examples/train_smollm.py``, whose width cut ``--reduced`` gives):
@@ -21,7 +28,8 @@ random weights from ``--seed`` (``init_params``), AdamW (lr 1e-3, as the
 reference's driver), ``launch/steps.py::train_step`` with ``remat`` on
 ``--steps`` batches of ``data/pipeline.py::SyntheticLMStream``
 (``labels = tokens``, as the reference's stream).  Prints each step's
-loss, grad norm and tokens/s, and with ``--ckpt`` saves the weights by
+loss, grad norm and tokens/s, on the card the peak device memory, and
+with ``--ckpt`` saves the weights by
 ``runtime/checkpoint.py::save``.  Runs on the card unless ``--device
 cpu``.  ``--dry`` (the reference's compile-only check on a production
 mesh) waits for the port's multi-GPU slice and raises.
@@ -97,6 +105,10 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
         losses.append(loss)
         print(f"step {step} loss {loss:.4f} grad_norm {gnorm:.4f} "
               f"{args.batch * args.seq / secs:.1f} tokens/s", flush=True)
+    if dev.type == "cuda":
+        print(f"peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB",
+              flush=True)
     if args.ckpt:
         from repro_torch.runtime import checkpoint
         checkpoint.save(args.ckpt, params, extra={"steps": args.steps,

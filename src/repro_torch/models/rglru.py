@@ -11,6 +11,13 @@ No TPU kernel computes the recurrence (the JAX package leaves it to XLA),
 and the port's ``ssd_scan`` kernel does not fit it: its decay is one
 scalar per (batch, head, chunk), here every element has its own.
 
+Under autograd (training) the scan runs through ``LinearScanFn``: the
+forward keeps a and h (two (B, S, W) fp32 tensors), and the backward runs
+the adjoint recurrence G_t = dh_t + a_{t+1} G_{t+1}, the same scan over
+the reversed sequence, so that db = G and da_t = G_t h_{t-1}.  Autograd
+through the log-depth scan itself would keep each round's a and b, 2
+ceil(log2 S) tensors of that size (26 at S = 8192).
+
 Gates are block-diagonal with ``RG_BLOCKS`` = 16 blocks, as the reference
 has them; gates and the recurrence run in fp32, projections and the
 causal convolution in the model dtype.  The conv cache holds the last K-1
@@ -93,15 +100,43 @@ def linear_scan(a, b):
     return b
 
 
+class LinearScanFn(torch.autograd.Function):
+    """``linear_scan`` under autograd: h (B, S, W) fp32 from a and b; the
+    backward is the adjoint recurrence G_t = dh_t + a_{t+1} G_{t+1} (G_{S-1}
+    = dh_{S-1}), run by ``linear_scan`` over the reversed sequence with a
+    shifted by one, then db = G and da_t = G_t h_{t-1} (h_{-1} = 0).  Saves
+    a and h only."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        with torch.no_grad():
+            h = linear_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        nxt = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        g = linear_scan(nxt.flip(1), dh.flip(1)).flip(1)
+        prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+        return g * prev, g
+
+
 def rglru_fwd(cfg: ModelConfig, p, x, *, return_state=False):
     """Full-sequence RG-LRU block. x (B,S,D) -> (B,S,D); with
     ``return_state`` also the decode cache {state (B,W) fp32, conv
-    (B,K-1,W)}."""
+    (B,K-1,W)}.  Differentiable (the scan through ``LinearScanFn`` while
+    autograd records)."""
     gate = torch.matmul(x, p["wgate"])
     uraw = torch.matmul(x, p["wx"])
     u = F.silu(_causal_conv(uraw, p["conv"]))
     a, bterm = _gates(p, u)
-    h = linear_scan(a, bterm).to(x.dtype)
+    if torch.is_grad_enabled() and (a.requires_grad or bterm.requires_grad):
+        h = LinearScanFn.apply(a, bterm)
+    else:
+        h = linear_scan(a, bterm)
+    h = h.to(x.dtype)
     y = h * F.gelu(gate, approximate="tanh")
     out = torch.matmul(y, p["wout"])
     if not return_state:

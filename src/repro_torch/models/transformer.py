@@ -533,18 +533,24 @@ def install_rings(cfg: ModelConfig, dst, src):
     return dst
 
 
-def _rg_sub_fwd(cfg, p, h, positions, tab, kind):
+def _rg_sub_fwd(cfg, p, h, positions, tab, kind, want_cache=True):
     """One hybrid sublayer over the sequence: RMSNorm, RG-LRU or local
-    attention (window ``cfg.local_window``), RMSNorm, gelu MLP; returns
-    (h, its prefill cache: the RG-LRU's state and conv, or the ring)."""
+    attention (window ``cfg.local_window``, the softcap on its scores),
+    RMSNorm, gelu MLP; returns (h, its prefill cache: the RG-LRU's state
+    and conv, or the ring; None without ``want_cache``, as in training)."""
     xn = layers.apply_norm(cfg, p["ln1"], h)
+    cache = None
     if kind == "rec":
-        y, cache = rglru.rglru_fwd(cfg, p["t"], xn, return_state=True)
+        if want_cache:
+            y, cache = rglru.rglru_fwd(cfg, p["t"], xn, return_state=True)
+        else:
+            y = rglru.rglru_fwd(cfg, p["t"], xn)
     else:
         y, (k, v) = layers.attention_fwd(cfg, p["t"], xn, positions,
                                          rope_tab=tab,
                                          window=cfg.local_window)
-        cache = _to_ring(k, v, positions, cfg.local_window)
+        if want_cache:
+            cache = _to_ring(k, v, positions, cfg.local_window)
     h = h + y
     return h + layers.mlp_fwd(cfg, p["mlp"],
                               layers.apply_norm(cfg, p["ln2"], h)), cache
@@ -734,22 +740,21 @@ AUX_COEF = 0.01
 
 def check_trainable(cfg: ModelConfig) -> None:
     """What ``forward_loss`` trains: the dense decoders (H2O-Danube's
-    sliding window among them), the MoE decoders with GQA attention and
-    the Mamba-2 SSMs.  Each other family raises ``ValueError`` naming what
-    its training still needs."""
+    sliding window among them), the MoE decoders with GQA attention, the
+    Mamba-2 SSMs and the RecurrentGemma hybrid.  Each other family raises
+    ``ValueError`` naming what its training still needs."""
     check_model(cfg)
     needs = {
-        "hybrid": "a backward of the RG-LRU scan",
         "audio": "the encoder-decoder's trunk under autograd",
         "vlm": "the vision decoder's patch prefix under autograd",
     }
     if cfg.use_mla:
         raise ValueError(f"{cfg.name}: training MLA needs the flash "
                          f"backward at q/k 192, v 128 (unequal head dims)")
-    if cfg.family not in ("dense", "moe", "ssm"):
-        raise ValueError(f"{cfg.name}: forward_loss trains the dense, MoE "
-                         f"and SSM decoders; the {cfg.family} family needs "
-                         f"{needs[cfg.family]}")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(f"{cfg.name}: forward_loss trains the dense, MoE, "
+                         f"SSM and hybrid decoders; the {cfg.family} family "
+                         f"needs {needs[cfg.family]}")
 
 
 def _chunk_ce(cfg, params, h, labels):
@@ -797,28 +802,60 @@ def _train_layer(cfg, stack, i, h, positions, tab):
     return ffn(cfg, p, h + a)
 
 
+def _train_unit(cfg, stack, i, h, positions, tab):
+    """Unit ``i`` of the hybrid's trunk: its sublayers ``b0`` .. over
+    ``cfg.block_pattern`` (``_rg_sub_fwd`` without a cache), the leaves
+    indexed from the stacked ones as ``_train_layer`` indexes them.
+    Returns (h, None): the hybrid has no aux."""
+    p = _map_spec(stack, lambda path, t: t[i])
+    for j, kind in enumerate(cfg.block_pattern):
+        h, _ = _rg_sub_fwd(cfg, p[f"b{j}"], h, positions, tab, kind,
+                           want_cache=False)
+    return h, None
+
+
+def _train_tail(cfg, stack, i, h, positions, tab):
+    """Tail layer ``i`` of the hybrid (an RG-LRU sublayer), as
+    ``_train_unit``."""
+    p = _map_spec(stack, lambda path, t: t[i])
+    return _rg_sub_fwd(cfg, p, h, positions, tab, "rec",
+                       want_cache=False)[0], None
+
+
+def _train_steps(cfg, params):
+    """(step function, its stacked leaves, index) of each step of the
+    training trunk: the layers, or the hybrid's units and then its tail
+    layers (the reference's two ``_stack_fwd`` scans)."""
+    if cfg.family != "hybrid":
+        return [(_train_layer, params["layers"], i)
+                for i in range(cfg.num_layers)]
+    n_units, n_tail = _hybrid_counts(cfg)
+    return [(_train_unit, params["units"], i) for i in range(n_units)] + \
+        [(_train_tail, params["tail"], j) for j in range(n_tail)]
+
+
 def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
-    """Training loss of a dense, MoE or SSM decoder: ``batch["tokens"]``
-    (B, S) through the layer stack, the final norm and the chunked
-    cross-entropy against ``batch["labels"]`` (B, S) (< 0: ignored), plus
-    for MoE ``AUX_COEF`` times the layers' summed load-balance aux over
-    their count.  The trunk builds no cache (an SSM no state and no rope
-    table); with ``remat`` each layer runs under
-    ``torch.utils.checkpoint`` and is recomputed in the backward
-    (``_stack_fwd``'s ``jax.checkpoint``).  Differentiable in every leaf of
-    ``params`` that requires grad."""
+    """Training loss of a dense, MoE, SSM or hybrid decoder:
+    ``batch["tokens"]`` (B, S) through the layer stack (the hybrid's units,
+    then its tail layers), the final norm and the chunked cross-entropy
+    against ``batch["labels"]`` (B, S) (< 0: ignored), plus for MoE
+    ``AUX_COEF`` times the layers' summed load-balance aux over their
+    count.  The trunk builds no cache (an SSM no state and no rope table);
+    with ``remat`` each layer (each hybrid unit, each tail layer) runs
+    under ``torch.utils.checkpoint`` and is recomputed in the backward
+    (``_stack_fwd``'s ``jax.checkpoint`` around one scan step).
+    Differentiable in every leaf of ``params`` that requires grad."""
     check_trainable(cfg)
     h, positions = _assemble_inputs(cfg, params, batch["tokens"])
     tab = None if cfg.family == "ssm" else layers.rope_tables(
         positions, layers.rope_dim(cfg), cfg.rope_theta)
-    stack = params["layers"]
     aux = None
-    for i in range(cfg.num_layers):
+    for fn, stack, i in _train_steps(cfg, params):
         if remat:
-            h, a = checkpoint(_train_layer, cfg, stack, i, h, positions, tab,
+            h, a = checkpoint(fn, cfg, stack, i, h, positions, tab,
                               use_reentrant=False, preserve_rng_state=False)
         else:
-            h, a = _train_layer(cfg, stack, i, h, positions, tab)
+            h, a = fn(cfg, stack, i, h, positions, tab)
         if a is not None:
             aux = a if aux is None else aux + a
     h = layers.apply_norm(cfg, params["final_norm"], h)

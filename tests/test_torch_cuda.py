@@ -53,9 +53,10 @@ pair (held to the plain forward's); the backward kernel holds to its plain
 version on the same out and lse in both types (fp32 atol 1e-4 x the
 largest |gradient| of dq, dk, dv, rtol 1e-4; bf16 2e-2 x the same, rtol
 2e-2: one bf16 rounding of each gradient) at ragged tiles, S = 1, G = 1
-and 3, non-causal at Sq != Skv and head dims 32, 64, 128, and windowed,
-softcapped or both at head dims 64, 80 and 128, gives equal bits over two
-launches, counts by route, and refuses unequal head dims and D 256;
+and 3, non-causal at Sq != Skv and head dims 32, 64, 128 and 256 (10 q
+heads on 1), and windowed, softcapped or both at head dims 64, 80, 128 and
+256, gives equal bits over two launches, counts by route, and refuses
+unequal head dims and D 160;
 reduced fp32 SmolLM-360M's, Qwen3-30B-A3B's and H2O-Danube-1.8B's
 ``forward_loss`` and every gradient on the card equal the CPU's (loss
 rtol 1e-5, grads atol 1e-4, rtol 1e-3) with the launches remat implies.
@@ -1332,6 +1333,11 @@ BWD_CASES = [
     ("one_key_tile_Sq700_Skv48", 2, 700, 48, 4, 2, 64, True, 48),
     # D = 128 at the training length with G = 8: the register budget
     ("D128_S4096_G8", 1, 4096, 4096, 8, 1, 128, True, 0),
+    # D = 256 (RecurrentGemma's 10 q heads on one kv head): the column
+    # halves of dK/dV and dQ, ragged tiles, Sq != Skv
+    ("D256_S300_G10", 2, 300, 300, 10, 1, 256, True, 0),
+    ("noncausal_Sq40_Skv130_D256", 2, 40, 130, 4, 2, 256, False, 0),
+    ("offset_q_Sq64_Skv200_D256", 1, 64, 200, 10, 1, 256, True, 136),
 ]
 
 
@@ -1383,10 +1389,10 @@ def test_flash_bwd_is_deterministic_and_routes_count(dev):
     assert kernels.launches()["flash_attention_bwd"] == 4
 
 
-@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("D", [32, 128, 256])
 def test_flash_bwd_bf16_gives_equal_bits_at_every_head_dim(dev, D):
     """Two launches of the wgmma route on the same inputs give the same
-    bits at head dims 32 and 128 too (64: the test above), causal over
+    bits at head dims 32, 128 and 256 too (64: the test above), causal over
     ragged tiles with G = 4."""
     gen = torch.Generator(device=dev).manual_seed(36)
     args = _bwd_inputs(gen, dev, torch.bfloat16, 2, 300, 300, 8, 2, D, True,
@@ -1426,13 +1432,13 @@ def test_flash_forward_writes_lse_on_both_routes(dev, dims, dtype):
 
 def test_flash_bwd_refuses_a_window_or_a_softcap_on_the_card(dev):
     """The card's backward takes a window and a softcap (the windowed
-    cases below hold its values); it refuses D 256 (RecurrentGemma's,
-    before the forward runs under autograd) and unequal head dims."""
+    cases below hold its values); it refuses D 160 (before the forward
+    runs under autograd) and unequal head dims."""
     gen = torch.Generator(device=dev).manual_seed(34)
     args = _bwd_inputs(gen, dev, torch.float32, 1, 64, 64, 4, 2, 64, True, 0)
     for kw in (dict(window=16), dict(softcap=30.0)):
         flash_attention_bwd(*args, **kw)
-    q, k, v = (_randn(gen, (1, 64, h, 256), torch.bfloat16,
+    q, k, v = (_randn(gen, (1, 64, h, 160), torch.bfloat16,
                       dev).requires_grad_(True) for h in (4, 1, 1))
     pos = _pos(1, 0, 64, dev)
     with pytest.raises(ValueError, match="head dims"):
@@ -1444,7 +1450,7 @@ def test_flash_bwd_refuses_a_window_or_a_softcap_on_the_card(dev):
 
 # (D, window, softcap): Danube's head dim and window shape, the softcapped
 # rows of phase 3, and both together
-WINDOWED_BWD = [(D, w, c) for D in (64, 80, 128)
+WINDOWED_BWD = [(D, w, c) for D in (64, 80, 128, 256)
                 for w, c in ((96, 0.0), (0, 30.0), (96, 30.0))]
 
 
@@ -1489,7 +1495,7 @@ def test_flash_bwd_windowed_softcapped_matches_plain(dev, D, window, softcap,
                    for w, x in zip(want, wrong))
 
 
-@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("D", [64, 80, 128, 256])
 def test_flash_bwd_windowed_gives_equal_bits(dev, D):
     gen = torch.Generator(device=dev).manual_seed(38)
     args = _windowed_bwd_inputs(gen, dev, torch.bfloat16, D, 96, 30.0)
@@ -1688,6 +1694,35 @@ def test_reduced_moe_and_windowed_forward_loss_on_the_card_matches_cpu(
     if cfg.is_moe:
         assert used["moe_gemm"] == 9 * cfg.num_layers
         assert used["moe_gemm_wgrad"] == 3 * cfg.num_layers
+    torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=0)
+    for g, w in zip(optim.tree_leaves(got_g), optim.tree_leaves(want_g)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("head_dim", [32, 256])
+def test_reduced_hybrid_forward_loss_on_the_card_matches_cpu(dev, head_dim):
+    """Reduced fp32 RecurrentGemma-2B (1 unit + 2 tail layers, window 64,
+    softcap 30, S 160) at head dim 32 and at its published 256: the loss
+    and every leaf's gradient on the card (the flash forward twice and
+    its backward once for the one attention sublayer; the RG-LRU scan's
+    backward is PyTorch) against the CPU's plain versions."""
+    from repro_torch import optim
+    from repro_torch.launch.steps import loss_and_grads
+    cfg = dataclasses.replace(reduced_config("recurrentgemma_2b"),
+                              dtype="float32", head_dim=head_dim)
+    cpu = TT.init_params(cfg, 0, "cpu")
+    cuda = optim.tree_map(lambda t: t.to(dev), cpu)
+    gen = torch.Generator().manual_seed(43)
+    toks = torch.randint(2, cfg.vocab_size, (2, 160), generator=gen,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    want_l, want_g = loss_and_grads(cfg, cpu, batch)
+    kernels.reset_launches()
+    got_l, got_g = loss_and_grads(cfg, cuda, {k: t.to(dev)
+                                              for k, t in batch.items()})
+    torch.cuda.synchronize()
+    used = {k: n for k, n in kernels.launches().items() if n}
+    assert used == {"flash_attention": 2, "flash_attention_bwd": 1}, used
     torch.testing.assert_close(got_l.cpu(), want_l, rtol=1e-5, atol=0)
     for g, w in zip(optim.tree_leaves(got_g), optim.tree_leaves(want_g)):
         torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-3)

@@ -365,16 +365,16 @@ def test_flash_bwd_checks_what_tma_needs(name, dtype, monkeypatch):
         fb_ops._check(*args, 0, 0.0)
 
 
-@pytest.mark.parametrize("D", [16, 48, 96, 256])
+@pytest.mark.parametrize("D", [16, 48, 96, 160])
 def test_flash_bwd_refuses_a_head_dim_it_has_no_kernel_for(D):
-    """Head dims outside HEAD_DIMS (32, 64, 80, 128) are refused before any
-    launch, in both types."""
+    """Head dims outside HEAD_DIMS (32, 64, 80, 128, 256) are refused
+    before any launch, in both types."""
     for dtype in (torch.bfloat16, torch.float32):
         with pytest.raises(ValueError, match="the kernel takes one of"):
             fb_ops._check(*_bwd_args(dtype, D=D), 0, 0.0)
 
 
-@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 256])
 def test_flash_bwd_length_limit_check(D, monkeypatch):
     """The bf16 route keeps each tile's position range in shared memory,
     so the wrapper refuses a bf16 call whose Sq or Skv passes ``max_len``
@@ -416,17 +416,28 @@ _BWD_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
 
 def _geo(D):
-    """(BN, keys of a dK/dV CTA, keys of a consumer's range) at head dim D,
-    read from the source's Geo."""
+    """(BN, keys of a dK/dV CTA, whether its consumers share them, q rows
+    of a dQ CTA, whether its consumers share them, keys a dQ step) at head
+    dim D, read from the source's Geo."""
     bn = re.search(r"static constexpr int BN = ((?:D == \d+(?: \|\| )?)+) "
                    r"\? (\d+) : (\d+);", _BWD_SRC)
-    split = re.search(r"static constexpr bool kSplit = D == (\d+);",
+    split = re.search(r"static constexpr bool kSplit = D >= (\d+);",
                       _BWD_SRC)
-    assert bn and split, "Geo's BN / kSplit lines changed"
+    halves = re.search(r"static constexpr int kHalves = D == (\d+) \? 2 : 1;",
+                       _BWD_SRC)
+    br = re.search(r"static constexpr int BR = 64 \* NC / kHalves;",
+                   _BWD_SRC)
+    bkq = re.search(r"static constexpr int BKQ = D == (\d+) \? (\d+) : "
+                    r"(\d+);", _BWD_SRC)
+    assert bn and split and halves and br and bkq, \
+        "Geo's BN / kSplit / kHalves / BR / BKQ lines changed"
     narrow = [int(d) for d in re.findall(r"\d+", bn.group(1))]
     BN = int(bn.group(2)) if D in narrow else int(bn.group(3))
-    is_split = D == int(split.group(1))
-    return BN, (64 if is_split else 128), is_split
+    is_split = D >= int(split.group(1))
+    shared = D == int(halves.group(1))     # dQ's consumers: column halves
+    BKQ = int(bkq.group(2)) if D == int(bkq.group(1)) else int(bkq.group(3))
+    return (BN, (64 if is_split else 128), is_split, 64 if shared else 128,
+            shared, BKQ)
 
 
 def _ranges(pos, n, rows):
@@ -441,7 +452,7 @@ def _walks(q_pos, kv_pos, causal, D, window=0):
     for all its rows, a consumer skips those for its own rows, and takes
     without the per-element mask those whose every pair is allowed."""
     Sq, Skv = len(q_pos), len(kv_pos)
-    BN, BKV, split = _geo(D)
+    BN, BKV, split, BR, shared, BKQ = _geo(D)
     w = window
     dkdv, dq = {}, {}
     qr = _ranges(q_pos, Sq, BN)
@@ -464,11 +475,11 @@ def _walks(q_pos, kv_pos, causal, D, window=0):
                           and (not causal or whi <= lo)
                           and (w <= 0 or hi - w < wlo))
             dkdv[(kw0, min(kw0 + 64, Skv))] = got
-    kr = _ranges(kv_pos, Skv, 64)
-    for q0 in range(0, Sq, 128):
-        qlo = q_pos[q0:min(q0 + 128, Sq)].min()
-        qhi = q_pos[q0:min(q0 + 128, Sq)].max()
-        for qw0 in (q0, q0 + 64):
+    kr = _ranges(kv_pos, Skv, BKQ)
+    for q0 in range(0, Sq, BR):
+        qlo = q_pos[q0:min(q0 + BR, Sq)].min()
+        qhi = q_pos[q0:min(q0 + BR, Sq)].max()
+        for qw0 in (q0,) if shared else (q0, q0 + 64):
             if qw0 >= Sq:
                 continue
             wlo, whi = q_pos[qw0:min(qw0 + 64, Sq)].min(), \
@@ -479,11 +490,11 @@ def _walks(q_pos, kv_pos, causal, D, window=0):
                     continue                     # not walked
                 if (causal and lo > whi) or (w > 0 and hi <= wlo - w):
                     continue                     # skipped
-                got[t] = (qw0 + 64 <= Sq and (t + 1) * 64 <= Skv
+                got[t] = (qw0 + 64 <= Sq and (t + 1) * BKQ <= Skv
                           and (not causal or hi <= wlo)
                           and (w <= 0 or lo > whi - w))
             dq[(qw0, min(qw0 + 64, Sq))] = got
-    return BN, dkdv, dq
+    return BN, BKQ, dkdv, dq
 
 
 def _position_sets():
@@ -511,7 +522,7 @@ def _position_sets():
     }
 
 
-@pytest.mark.parametrize("D", [32, 64, 80, 128])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("case", list(_position_sets()))
 def test_flash_bwd_walk_covers_the_mask(case, D):
     """Every allowed (q row, key) pair is multiplied by its dK/dV consumer
@@ -526,7 +537,7 @@ def test_flash_bwd_walk_covers_the_mask(case, D):
         kv_pos[None, :] <= q_pos[:, None]
     if window > 0:
         allowed &= kv_pos[None, :] > q_pos[:, None] - window
-    BN, dkdv, dq = _walks(q_pos, kv_pos, causal, D, window)
+    BN, BKQ, dkdv, dq = _walks(q_pos, kv_pos, causal, D, window)
     monotone = "shuffled" not in case
     for (a, z), got in dkdv.items():
         want = {i // BN for i in range(Sq) if allowed[i, a:z].any()}
@@ -537,10 +548,10 @@ def test_flash_bwd_walk_covers_the_mask(case, D):
             if full:
                 assert allowed[t * BN:(t + 1) * BN, a:z].all()
     for (a, z), got in dq.items():
-        want = {j // 64 for j in range(Skv) if allowed[a:z, j].any()}
+        want = {j // BKQ for j in range(Skv) if allowed[a:z, j].any()}
         assert want <= set(got), (case, a)
         if monotone:
             assert want == set(got), (case, a)
         for t, full in got.items():
             if full:
-                assert allowed[a:z, t * 64:(t + 1) * 64].all()
+                assert allowed[a:z, t * BKQ:(t + 1) * BKQ].all()

@@ -32,11 +32,11 @@ port).  Cases:
 - eight steps of ``python -m repro_torch.launch.train --reduced --device
   cpu --dtype float32`` against the same JAX loop on the same stream and
   weights (rtol 1e-4), with a falling loss;
-- the refusals: ``forward_loss`` on the hybrid, audio, vision and MLA
-  families, the card's backward at unequal head dims or a head dim it
-  has no kernel for (it takes a window, a softcap and D 80), ``--dry``,
-  ``n_dev > 1``.  The MoE family trains: ``test_torch_train_moe.py``; the
-  SSM: ``test_torch_train_ssm.py``.
+- the refusals: ``forward_loss`` on the audio, vision and MLA families,
+  the card's backward at unequal head dims or a head dim it has no kernel
+  for (it takes a window, a softcap and D 80), ``--dry``, ``n_dev > 1``.
+  The MoE family trains: ``test_torch_train_moe.py``; the SSM:
+  ``test_torch_train_ssm.py``; the hybrid: ``test_torch_train_hybrid.py``.
 """
 import dataclasses
 
@@ -173,9 +173,9 @@ def test_flash_attention_fn_saves_what_the_backward_reads():
 
 def test_card_backward_refuses_a_window_or_a_softcap():
     """What the card's backward refuses: v's head dim apart from q's (MLA)
-    and head dims it has no kernel for (48, and RecurrentGemma's 256); a
-    window, a softcap (each alone and together) and D 80 (Danube's) it
-    takes."""
+    and head dims it has no kernel for (48, 160); a window, a softcap
+    (each alone and together), D 80 (Danube's) and D 256 on one kv head
+    with both (RecurrentGemma's) it takes."""
     q = torch.zeros((1, 8, 4, 64))
     k = torch.zeros((1, 8, 2, 64))
     bwd_ops.check_supported(q, k, k, window=16)
@@ -184,7 +184,9 @@ def test_card_backward_refuses_a_window_or_a_softcap():
     bwd_ops.check_supported(q, k, k)
     q80, k80 = torch.zeros((1, 8, 32, 80)), torch.zeros((1, 8, 8, 80))
     bwd_ops.check_supported(q80, k80, k80, window=4096)
-    for D in (48, 256):
+    q256, k256 = torch.zeros((1, 8, 10, 256)), torch.zeros((1, 8, 1, 256))
+    bwd_ops.check_supported(q256, k256, k256, window=2048, softcap=30.0)
+    for D in (48, 160):
         with pytest.raises(ValueError, match="head dims"):
             bwd_ops.check_supported(q[..., :1].expand(1, 8, 4, D),
                                     k[..., :1].expand(1, 8, 2, D),
@@ -260,13 +262,13 @@ def test_forward_loss_and_every_leaf_grad_match_jax(arch, remat):
         _close(t.grad, w, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "whisper_base",
-                                  "pixtral_12b", "deepseek_r1"])
+@pytest.mark.parametrize("arch", ["whisper_base", "pixtral_12b",
+                                  "deepseek_r1"])
 def test_forward_loss_refuses_the_other_families(arch):
     cfg = reduced_config(arch)
     toks = torch.zeros((1, 8), dtype=torch.int32)
-    what = {"recurrentgemma_2b": "RG-LRU", "whisper_base": "encoder",
-            "pixtral_12b": "patch", "deepseek_r1": "MLA"}[arch]
+    what = {"whisper_base": "encoder", "pixtral_12b": "patch",
+            "deepseek_r1": "MLA"}[arch]
     with pytest.raises(ValueError, match=what):
         TT.forward_loss(cfg, {}, {"tokens": toks, "labels": toks})
 
@@ -432,6 +434,6 @@ def test_train_driver_saves_a_checkpoint_and_refuses_dry(tmp_path):
     assert extra["steps"] == 1 and "embed" in flat
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train.main(["--dry"])
-    with pytest.raises(ValueError, match="RG-LRU"):
-        train.main(["--arch", "recurrentgemma_2b", "--reduced", "--device",
+    with pytest.raises(ValueError, match="encoder"):
+        train.main(["--arch", "whisper_base", "--reduced", "--device",
                     "cpu", "--steps", "1"])
