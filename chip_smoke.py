@@ -50,26 +50,30 @@ result):
    H32/4 at (128, 128), causal; H2O-Danube-1.8B's B4 S8192 H32/8 at (80,
    80) with its window of 4096; B4 S2048 at D 64 and 128 with a softcap of
    30; RecurrentGemma-2B's B2 S8192 H10/1 at (256, 256) with its window of
-   2048 and softcap of 30; the windowed and softcapped rows with scores
+   2048 and softcap of 30; DeepSeek-R1's B2 S4096 H128/128 at MLA's q/k
+   192, v 128, causal; the windowed and softcapped rows with scores
    spread by SPREAD), in
    fp32 at SmolLM's, and in both types at the edges (S = 100, S = 1, G = 1
    and 3, non-causal at Sq != Skv, an offset q block; D 80 windowed and
    softcapped over ragged tiles and at an offset, tiles wholly past a
    window, a softcap at D 128, a window without the causal mask; D 256 at
    10 q heads on 1 causal, non-causal at Sq != Skv, and windowed and
-   softcapped over ragged tiles);
+   softcapped over ragged tiles; (192, 128) over ragged tiles, at S = 1,
+   non-causal at Sq != Skv with G = 2 and at an offset q block);
    tolerances tied to the scale of the three gradients (fp32 atol 1e-4 x
    the largest |gradient|, rtol 1e-4; bf16 atol min(2e-2, 0.05 rms), rtol
    2e-2), and the plain version with a window one tile wider must fail a
    windowed bf16 row's; two launches must give equal bits (D 64, 128, the
-   windowed D 80 and RecurrentGemma's D 256) and every call land on its
-   type's route; the training shapes are timed through the wrapper, alone
-   (its three kernels' medians summed), plain, and against SDPA's
-   backward (``autograd.grad``; the window as a boolean mask on the
-   memory-efficient backend; none under a softcap, where a windowed row
-   also times SDPA's masked backward without the cap, another function)
-   beside the bound (2.5 times the forward's operations on the pairs the
-   mask lets through).
+   windowed D 80, RecurrentGemma's D 256 and DeepSeek-R1's (192, 128)) and
+   every call land on its type's route; the training shapes are timed
+   through the wrapper, alone (its three kernels' medians summed), plain,
+   and against SDPA's backward (``autograd.grad``; the window as a
+   boolean mask on the memory-efficient backend; none under a softcap,
+   where a windowed row also times SDPA's masked backward without the
+   cap, another function; at (192, 128) each backend that takes v's head
+   dim apart from q's, the fastest named) beside the bound (2 (3 Dqk + 2
+   Dv) operations a pair and head the mask lets through: 2.5 times the
+   forward's where Dqk = Dv).
    Decode attention (``paged_attention``, each sequence and kv head split
    across a cluster of 8 CTAs and merged in distributed shared memory;
    bf16 products on ``mma.sync``, fp32 on the CUDA cores) is held to its
@@ -131,7 +135,11 @@ result):
    kernel on the transposed weights (on ``wgmma``); timed beside their
    bounds, the weight gradient alone on the wgmma and mma routes (same
    inputs), plain and against one ``torch._grouped_mm`` grouped along the
-   rows.
+   rows.  At phase 17's widths (DeepSeek-R1's 2 x 4096 tokens, top-8 of 16
+   experts, D 7168, F 2048) the forward of w1/w3 and w2, dX on the
+   transposed weights and the weight gradient of both are held to their
+   plain versions in bf16 on wgmma (the weight gradient with equal bits
+   over two launches) and timed beside their bounds.
    The SSD state
    scan (``ssd_scan``) must give its plain version's bits (``torch.equal``)
    at Mamba2-370M's 8x256 and 32768-token prefill shapes, the JAX test's
@@ -186,7 +194,12 @@ result):
    the scan launched twice a layer and its backward once; reduced fp32
    RecurrentGemma-2B (1 unit + 2 tail layers, window 64, S 160) the same
    way at head dim 32 and at its published 256, the flash kernels twice
-   and once for its one attention sublayer;
+   and once for its one attention sublayer; reduced fp32 Whisper-base (4
+   heads of 64 on 4, 32 stub frames: the encoder's and the
+   cross-attention's kernels non-causal), Pixtral-12B (8 heads of 128 on
+   2, 8 stub patches) and DeepSeek-R1 at MLA's head dims (every flash
+   launch at q/k 192, v 128 on the fp32 route, its grouped GEMM and
+   weight gradient on simt) the same way;
 6. the MoE path: full-width Qwen3-30B-A3B in bf16 (random weights from a
    seed, 61 GB) through ``BatchMaster`` and one ``NodeEngine`` with
    module granularity (Algorithm 1: attention in sub-batches of 4 of the
@@ -338,7 +351,35 @@ result):
     (``recurrentgemma_2b_train_mfu``: attention over the window in the 8
     attention sublayers) and one rec sublayer's RG-LRU forward and
     forward + backward device ms at a microbatch with the 18 rec
-    sublayers' share of the step.
+    sublayers' share of the step;
+16. training the encoder-decoder and the vision decoder: Whisper-base at
+    every published width and full depth, 5 steps of 16 rows of 448
+    decoder tokens over 1536 stub frames in 2 microbatches, and
+    Pixtral-12B at every published width, its depth cut 40 -> 8
+    (``PIXTRAL_TRAIN_LAYERS``: 3.55 B parameters, 56.8 GB at 16 B a
+    parameter), 5 steps of 4 x (1024 stub patches + 3072 tokens) in one
+    microbatch, labels -1 over the patches; bf16, random weights from seed
+    0, stubs from ``launch/train.py::step_batch``, remat on, AdamW at
+    ``TRAIN_LR`` (Whisper 1e-3, Pixtral 1e-4: at 1e-3 and 3e-4 its loss
+    rose within 5 steps): each loss finite and falling, the first loss again
+    bit for bit on a rerun from seed 0; every step the flash forward twice
+    and its backward once per attention call and microbatch (Whisper's 18
+    a forward: 6 encoder, 6 decoder self- and 6 cross-attention, 12 of them
+    non-causal; Pixtral's 8), all on wgmma, no other kernel and no plain
+    version; each logs the reckoned memory before the run, s/step,
+    tokens/s, peak memory, a step's device time by kernel class and the
+    MFU (``whisper_base_train_mfu``, ``pixtral_12b_train_mfu``);
+17. training MLA: DeepSeek-R1 (d_model 7168, MLA with 128 heads, q_lora
+    1536, kv_lora 512, rope 64, top-8 of expert d_ff 2048 with one shared
+    expert of 2048, vocab 129280) in bf16 at every published width, its
+    depth cut 61 -> 2 and its experts 256 -> 16 (3.73 B parameters, 59.6
+    GB at 16 B a parameter), random weights from seed 0, 5 steps of 2 x
+    4096 tokens in one microbatch, remat on, AdamW lr 1e-4 (its loss rose
+    at 1e-3; ``TRAIN_LR``) (phase 13's
+    checks: a finite, falling loss holding the aux, the recompute routed
+    as the forward; every flash launch, forward and backward, at q/k 192,
+    v 128 on wgmma, the grouped GEMM 9 times and its weight gradient 3
+    times a layer on wgmma, no plain version; ``deepseek_r1_train_mfu``).
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -885,6 +926,10 @@ TRAIN_FLASH = {
 }
 DANUBE_BWD = "danube B4 S8192 H32/8 D80 w4096"
 RG_BWD = "recurrentgemma B2 S8192 H10/1 D256 w2048 cap30"
+# DeepSeek-R1's training shape (phase 17's microbatch of 2 x 4096 tokens):
+# 128 q heads on 128 kv heads, q/k 192 (128 + 64 rope columns), v 128
+MLA_BWD = "deepseek B2 S4096 H128/128 D192/128"
+MLA_TRAIN = (2, 4096, 128, 128)     # B, S, H, Hkv
 
 
 def _grad_tol(wants, dtype):
@@ -911,17 +956,21 @@ def _pairs(Sq, Skv, causal, window, q0=0):
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
-def _flash_bwd_bound(q, k, causal=True, window=0):
+def _flash_bwd_bound(q, k, v, causal=True, window=0):
     """(bound ms, bound_by, GFLOP, MB) of one backward call: q, k, v, out,
     dout and lse read once, dq, dk, dv written once, at the card's memory
-    rate, against 2.5 times the forward's operations on the pairs the mask
-    lets through (causal and windowed; every batch row has the same
-    positions here) at its peak for the storage type."""
+    rate, against the products of the pairs the mask lets through (causal
+    and windowed; every batch row has the same positions here) at its peak
+    for the storage type: S = Q K^T (recomputed) and dK = dS^T Q, dQ = dS K
+    over q/k's head dim Dqk, dP = dO V^T and dV = P^T dO over v's Dv, 2 (3
+    Dqk + 2 Dv) a pair and head (2.5 times the forward's 2 (Dqk + Dv) where
+    Dqk = Dv)."""
     B, Sq, H, D = q.shape
-    Skv = k.shape[1]
+    Skv, Dv = k.shape[1], v.shape[3]
     pairs = _pairs(Sq, Skv, causal, window, Skv - Sq if causal else 0)
-    flops = 2.5 * 2.0 * (D + D) * pairs * B * H
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() \
+    flops = 2.0 * (3 * D + 2 * Dv) * pairs * B * H
+    nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+              + 2 * B * Sq * H * Dv) * q.element_size() \
         + B * Sq * H * 4 + (B * Sq + B * Skv) * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -978,17 +1027,47 @@ def _sdpa_bwd_ms(timer, q, k, v, dout, kw):
     return None
 
 
+def _sdpa_bwd_backends_ms(timer, q, k, v, dout, causal=True):
+    """SDPA's backward (``autograd.grad`` of one call) on the same inputs
+    under each backend forced in turn (flash, memory-efficient, cuDNN):
+    {backend: ms} of those that take the call (q/k's head dim apart from
+    v's is refused by some), the refusals logged."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = dout.transpose(1, 2)
+    out = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        try:
+            with sdpa_kernel(backend):
+                o = F.scaled_dot_product_attention(qt, kt, vt,
+                                                   is_causal=causal)
+                out[name] = timer(lambda: torch.autograd.grad(
+                    o, (qt, kt, vt), g, retain_graph=True), iters=10)
+            log(f"  sdpa backward on {name} (q/k {q.shape[3]}, v "
+                f"{v.shape[3]}): {out[name]:.4f} ms")
+        except RuntimeError as exc:
+            log(f"  sdpa backward on {name} refuses q/k {q.shape[3]}, v "
+                f"{v.shape[3]}: {str(exc).splitlines()[0][:200]}")
+        del qt, kt, vt
+    return out
+
+
 def check_flash_bwd(dev, timer):
     """The flash backward's kernel against its plain version on the same
     out and lse, in bf16 at the training shapes (windowed and softcapped
     ones with spread scores) and in both types at the edges; equal bits
-    over two launches at D 64, 80 (windowed) and 128; every call on the
-    route of its type (bf16 on wgmma); timed at the training shapes
-    through the wrapper, alone (the sum of its three kernels' medians in
-    the profiler's trace), its plain version and SDPA's backward
-    (``autograd.grad`` of one ``scaled_dot_product_attention``, timed
-    alone; with a boolean mask for the window, none under a softcap)
-    beside the bound."""
+    over two launches at D 64, 80 (windowed), 128, 256 and MLA's (192,
+    128); every call on the route of its type (bf16 on wgmma); timed at
+    the training shapes through the wrapper, alone (the sum of its three
+    kernels' medians in the profiler's trace), its plain version and
+    SDPA's backward (``autograd.grad`` of one
+    ``scaled_dot_product_attention``, timed alone; with a boolean mask for
+    the window, none under a softcap; at q/k 192, v 128 on each backend
+    that takes the pair, the fastest named) beside the bound."""
     from repro_torch.kernels.flash_attention_bwd import ops
     from repro_torch.kernels.flash_attention_bwd.ops import (
         flash_attention_bwd, flash_attention_bwd_plain)
@@ -1001,12 +1080,13 @@ def check_flash_bwd(dev, timer):
     bad = []
 
     def case(tag, dtype, B, Sq, Skv, H, Hkv, D, causal=True, q0=0,
-             window=0, softcap=0.0, spread=False):
+             window=0, softcap=0.0, spread=False, Dv=None):
+        Dv = D if Dv is None else Dv
         q = _rand(gen, (B, Sq, H, D), dtype, dev)
         if spread:
             q = (q.float() * SPREAD).to(dtype)
         k = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
-        v = _rand(gen, (B, Skv, Hkv, D), dtype, dev)
+        v = _rand(gen, (B, Skv, Hkv, Dv), dtype, dev)
         qp = (torch.arange(Sq, dtype=torch.int32, device=dev) + q0)[None] \
             .expand(B, Sq).contiguous()
         kp = torch.arange(Skv, dtype=torch.int32, device=dev)[None] \
@@ -1014,7 +1094,7 @@ def check_flash_bwd(dev, timer):
         kw = dict(causal=causal, window=window, softcap=softcap)
         out, lse = flash.flash_attention(q, k, v, qp, kp, return_lse=True,
                                          **kw)
-        dout = _rand(gen, (B, Sq, H, D), dtype, dev)
+        dout = _rand(gen, (B, Sq, H, Dv), dtype, dev)
         args = (q, k, v, qp, kp, out, lse, dout)
         got = flash_attention_bwd(*args, **kw)
         calls[ops.route(dtype)] += 1
@@ -1047,6 +1127,9 @@ def check_flash_bwd(dev, timer):
     for tag, (B, S, H, Hkv, D, w, cap) in TRAIN_FLASH.items():
         timed[tag] = case(f"{tag} causal", torch.bfloat16, B, S, S, H, Hkv,
                           D, window=w, softcap=cap, spread=bool(w or cap))
+    B, S, H, Hkv = MLA_TRAIN
+    timed[MLA_BWD] = case(f"{MLA_BWD} causal", torch.bfloat16, B, S, S, H,
+                          Hkv, MLA_HEADS[0], Dv=MLA_HEADS[1])
     B, S, H, Hkv, D = TRAIN_FLASH["smollm B8 S4096 H15/5 D64"][:5]
     case("smollm B8 S4096 H15/5 D64 causal", torch.float32, B, S, S, H,
          Hkv, D)
@@ -1078,6 +1161,15 @@ def check_flash_bwd(dev, timer):
              causal=False)
         case("D256 S300 (ragged tiles) G10 w96 cap30", dtype, 2, 300, 300,
              10, 1, 256, window=96, softcap=30.0, spread=True)
+        # MLA's q/k 192, v 128 (DeepSeek-R1: as many kv heads as q heads)
+        Dq, Dv = MLA_HEADS
+        case("D192/128 S100 (ragged tiles)", dtype, 2, 100, 100, 8, 8, Dq,
+             Dv=Dv)
+        case("D192/128 S1", dtype, 2, 1, 1, 8, 8, Dq, Dv=Dv)
+        case("D192/128 non-causal Sq40 Skv130 G2", dtype, 2, 40, 130, 4, 2,
+             Dq, causal=False, Dv=Dv)
+        case("D192/128 offset q Sq64 Skv200", dtype, 1, 64, 200, 8, 8, Dq,
+             q0=136, Dv=Dv)
     if bad:
         raise AssertionError(f"flash_attention_bwd disagrees with its plain "
                              f"version at {bad}")
@@ -1088,7 +1180,7 @@ def check_flash_bwd(dev, timer):
         f"preprocess, dK/dV, dQ; bf16 on wgmma, fp32 on the CUDA "
         f"cores)")
     for shape in ("smollm B8 S4096 H15/5 D64", "B4 S2048 H32/4 D128",
-                  DANUBE_BWD, RG_BWD):
+                  DANUBE_BWD, RG_BWD, MLA_BWD):
         _, args, kw = timed[shape]
         again = [flash_attention_bwd(*args, **kw) for _ in range(2)]
         torch.cuda.synchronize()
@@ -1102,7 +1194,7 @@ def check_flash_bwd(dev, timer):
     for shape, (e, args, kw) in timed.items():
         q, k, v, qp, kp, out, lse, dout = args
         bound_ms, bound_by, gflop, mb = _flash_bwd_bound(
-            q, k, kw["causal"], kw["window"])
+            q, k, v, kw["causal"], kw["window"])
         ms = timer(lambda: flash_attention_bwd(*args, **kw), iters=10)
         alone_ms = sum(timer.kernel_ms(
             lambda: flash_attention_bwd(*args, **kw), (entry,), iters=10)
@@ -1110,11 +1202,23 @@ def check_flash_bwd(dev, timer):
             if not entry.endswith("_simt"))     # bf16: wgmma
         plain_ms = timer(lambda: flash_attention_bwd_plain(*args, **kw),
                          iters=2, warmup=1)
-        library_ms = _sdpa_bwd_ms(timer, q, k, v, dout, kw)
+        backend = None
+        if v.shape[3] != q.shape[3]:
+            # q/k's head dim apart from v's: each SDPA backend that takes
+            # it, the fastest named
+            by_backend = _sdpa_bwd_backends_ms(timer, q, k, v, dout,
+                                               kw["causal"])
+            backend = min(by_backend, key=by_backend.get) if by_backend \
+                else None
+            library_ms = by_backend.get(backend)
+        else:
+            library_ms = _sdpa_bwd_ms(timer, q, k, v, dout, kw)
         rows[shape] = dict(max_abs_err=e, ms=ms, kernel_alone_ms=alone_ms,
                            plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms,
                            window=kw["window"], softcap=kw["softcap"])
+        if backend is not None:
+            rows[shape]["library_backend"] = backend
         if kw["softcap"] and kw["window"]:
             # no library call computes a softcapped backward: SDPA's masked
             # backward at the same shape and window without the cap, a
@@ -1128,7 +1232,8 @@ def check_flash_bwd(dev, timer):
         log(f"  flash_attention_bwd bf16 {shape} causal: kernel {ms:.4f} ms "
             f"({alone_ms:.4f} ms alone: its three kernels in the "
             f"profiler's trace), plain {plain_ms:.4f} ms, sdpa backward "
-            f"{library_ms} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+            f"{library_ms} ms{f' ({backend})' if backend else ''}, bound "
+            f"{bound_ms:.4f} ms ({bound_by}; "
             f"{gflop:.2f} GFLOP, {mb:.1f} MB)")
     print(json.dumps({"flash_attention_bwd_shapes": rows}), flush=True)
     del timed
@@ -1711,6 +1816,9 @@ def check_moe_gemm(dev, timer):
 # Qwen3-30B-A3B's training shape of the grouped GEMM's backward (phase 13's
 # batch of 4 x 4096 tokens, top-8 of 128 experts), timed in phase 3
 TRAIN_MOE = dict(T=4 * 4096, E=128, k=8, D=2048, F=768)
+# DeepSeek-R1's experts at phase 17's cut: 2 x 4096 tokens, top-8 of 16 of
+# its 256 experts, D 7168, expert F 2048
+TRAIN_MLA_MOE = dict(T=2 * 4096, E=16, k=8, D=7168, F=2048)
 
 
 def _wgrad_bound(plan, n_choices, E, M, N, es):
@@ -1798,6 +1906,84 @@ WGRAD_EDGES = [
 ]
 
 
+def _check_mla_moe_train(dev, timer, gen):
+    """The grouped GEMM at phase 17's widths (``TRAIN_MLA_MOE``), as the
+    MoE layer and ``GroupedGemmFn`` call it: the forward of w1/w3 (D -> F)
+    and w2 (F -> D), dX through the forward kernel on the transposed
+    weights, and the weight gradient of both, each on the wgmma route
+    against its plain version in bf16 (the weight gradient with equal bits
+    over two launches), timed beside its bound.  Returns the rows."""
+    from repro_torch.kernels.moe_gemm import ops
+    from repro_torch.kernels.moe_gemm.ops import grouped_gemm
+    from repro_torch.kernels.moe_gemm_wgrad import ops as wops
+    T, E, k, D, Fe = (TRAIN_MLA_MOE[n] for n in ("T", "E", "k", "D", "F"))
+    plan, rows_of = _routed(gen, dev, T, E, k)
+    be, bt = plan.block_expert, plan.block_t
+    n_choices = int(plan.keep.sum().item())
+    bf = torch.bfloat16
+    rows = {}
+
+    def weights(Di, Do):
+        return (0.02 * torch.randn((E, Di, Do), generator=gen,
+                                   device=dev)).to(bf)
+
+    # (label, the input's width, the weight (E, in, out) as the call gets
+    # it): the forward on w, dX on w's transpose made contiguous
+    w1, w2 = weights(D, Fe), weights(Fe, D)
+    calls = [("w1/w3 forward (D -> F)", D, w1),
+             ("w2 forward (F -> D)", Fe, w2),
+             ("dX of w1/w3 (dy F -> D)", Fe, w1.transpose(1, 2).contiguous()),
+             ("dX of w2 (dy D -> F)", D, w2.transpose(1, 2).contiguous())]
+    for label, Di, w in calls:
+        xs = rows_of(_rand(gen, (T, Di), bf, dev))
+        ops.reset_routes()
+        got = grouped_gemm(xs, w, be, block_t=bt)
+        torch.cuda.synchronize()
+        if ops.ROUTE_LAUNCHES["wgmma"] != 1:
+            raise AssertionError(f"moe_gemm deepseek {label}: launched by "
+                                 f"route {ops.ROUTE_LAUNCHES} (expected "
+                                 f"wgmma)")
+        err = _check(f"moe_gemm deepseek {label} bt{bt} rows "
+                     f"{xs.shape[0]} bf16", got,
+                     _plain_blocks(xs, w, be, block_t=bt), bf)
+        bound, by, nbytes, flops = _gemm_bound(plan, xs, w, n_choices)
+        ms = timer(lambda: grouped_gemm(xs, w, be, block_t=bt))
+        rows[label] = dict(max_abs_err=err, ms=ms, bound_ms=bound,
+                           bound_by=by, route="wgmma")
+        log(f"  moe_gemm bf16 deepseek {label} (T={T}, top-{k} of {E}, "
+            f"{n_choices} kept choices): kernel {ms:.4f} ms, bound "
+            f"{bound:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP)")
+        del xs, got
+    del w1, w2, calls
+    for label, (M, N) in (("w1/w3 dW (D x F)", (D, Fe)),
+                          ("w2 dW (F x D)", (Fe, D))):
+        x = rows_of(_rand(gen, (T, M), bf, dev))
+        dy = rows_of(_rand(gen, (T, N), bf, dev))
+        wops.reset_routes()
+        got = wops.grouped_gemm_wgrad(x, dy, be, E, block_t=bt)
+        again = wops.grouped_gemm_wgrad(x, dy, be, E, block_t=bt)
+        torch.cuda.synchronize()
+        if wops.ROUTE_LAUNCHES != {"wgmma": 2, "mma": 0, "simt": 0} or \
+                not torch.equal(got, again):
+            raise AssertionError(f"moe_gemm_wgrad deepseek {label}: routes "
+                                 f"{wops.ROUTE_LAUNCHES} (expected wgmma), "
+                                 f"equal bits {torch.equal(got, again)}")
+        err = _check(f"moe_gemm_wgrad deepseek {label} bt{bt} bf16 (wgmma, "
+                     f"two launches equal bits)", got,
+                     _wgrad_plain_blocks(x, dy, be, E, bt, chunk=64), bf)
+        bound, by, nbytes, flops = _wgrad_bound(plan, n_choices, E, M, N, 2)
+        ms = timer(lambda: wops.grouped_gemm_wgrad(x, dy, be, E,
+                                                   block_t=bt))
+        rows[label] = dict(max_abs_err=err, ms=ms, bound_ms=bound,
+                           bound_by=by, route="wgmma")
+        log(f"  moe_gemm_wgrad bf16 deepseek {label} (T={T}, top-{k} of "
+            f"{E}): kernel {ms:.4f} ms, bound {bound:.4f} ms by {by} "
+            f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
+        del x, dy, got, again
+    return rows
+
+
 def check_moe_gemm_wgrad(dev, timer):
     """The grouped GEMM's backward at Qwen3-30B-A3B's training shape: the
     weight gradient (``moe_gemm_wgrad``) of w1/w3 (D x F) and w2 (F x D)
@@ -1808,7 +1994,9 @@ def check_moe_gemm_wgrad(dev, timer):
     the transposed weights (wgmma) against its plain version; each timed
     beside its bound, the weight gradient on the wgmma and mma routes
     alone in the profiler's trace on the same inputs, plain, and against
-    one ``torch._grouped_mm`` (a yardstick only)."""
+    one ``torch._grouped_mm`` (a yardstick only).  Then the forward, dX
+    and weight gradient at DeepSeek-R1's phase-17 widths
+    (``_check_mla_moe_train``)."""
     from repro_torch.kernels.moe_gemm import ops
     from repro_torch.kernels.moe_gemm.ops import (grouped_gemm,
                                                   grouped_gemm_plain)
@@ -1947,6 +2135,8 @@ def check_moe_gemm_wgrad(dev, timer):
     print(json.dumps({"moe_gemm_train_shapes": {**rows, **dx_rows}}),
           flush=True)
     del timed
+    print(json.dumps({"moe_gemm_deepseek_train_shapes":
+                      _check_mla_moe_train(dev, timer, gen)}), flush=True)
     r = rows["w1/w3 dW (D x F)"]
     return dict(name="moe_gemm_wgrad", route="cuda",
                 source="src/repro_torch/csrc/moe_gemm_wgrad.cu",
@@ -2429,21 +2619,36 @@ def reduced_cpu_vs_cuda(dev):
     _reduced_train_pair(dev, "recurrentgemma_2b", S=160)
     _reduced_train_pair(dev, "recurrentgemma_2b", over=dict(head_dim=256),
                         S=160)
+    # the encoder-decoder (its encoder and cross-attention non-causal, 32
+    # stub frames) and the vision decoder (8 stub patches) at their
+    # published head dims and groups, and MLA at DeepSeek-R1's head dims,
+    # so that its fp32 kernels run at q/k 192, v 128
+    _reduced_train_pair(dev, "whisper_base",
+                        over=dict(num_heads=4, num_kv_heads=4, head_dim=64))
+    _reduced_train_pair(dev, "pixtral_12b",
+                        over=dict(num_heads=8, num_kv_heads=2, head_dim=128))
+    _reduced_train_pair(dev, "deepseek_r1",
+                        over=dict(head_dim=MLA_HEADS[1],
+                                  rope_head_dim=MLA_HEADS[0] - MLA_HEADS[1]),
+                        flash_dims=MLA_HEADS)
 
 
 def _attn_layers(cfg) -> int:
-    """The attention layers of a config: the hybrid's attention sublayers
-    (``block_pattern``'s "attn" in each full unit), the SSM's none, else
-    every layer."""
+    """The attention calls of a config's forward: the hybrid's attention
+    sublayers (``block_pattern``'s "attn" in each full unit), the SSM's
+    none, the encoder-decoder's encoder layers and its decoder layers
+    twice (self- and cross-attention), else every layer."""
     from repro_torch.models import transformer as T
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return T._hybrid_counts(cfg)[0] * cfg.block_pattern.count("attn")
+    if cfg.family == "audio":
+        return cfg.encoder_layers + 2 * cfg.num_layers
     return cfg.num_layers
 
 
-def _reduced_train_pair(dev, arch, over=None, S=128):
+def _reduced_train_pair(dev, arch, over=None, S=128, flash_dims=None):
     """A reduced fp32 model (``over`` replacing fields) trained on "cuda"
     (the flash forward with lse, the backward kernel and for MoE the
     grouped GEMM and its weight gradient, fp32 on the CUDA cores) and on
@@ -2457,13 +2662,18 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
     grouped GEMM 9 times (3 forward, 3 recomputed, 3 dX) and its weight
     gradient 3 times; an SSM layer (no attention) its scan twice and the
     scan's backward once; the hybrid's attention sublayers as attention
-    layers (its RG-LRU sublayers launch no kernel)."""
+    layers (its RG-LRU sublayers launch no kernel); the encoder-decoder's
+    encoder layers once and decoder layers twice (``_attn_layers``).  The
+    encoder-decoder's batch carries stub frames, the vision decoder's stub
+    patches (``frontend_stub``, labels -1 over them).  With ``flash_dims``
+    every flash launch on "cuda" must be at those (q/k, v) head dims."""
     from repro_torch import kernels, optim
     from repro_torch.configs import reduced_config
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
     from repro_torch.kernels.moe_gemm import ops as moe_ops
     from repro_torch.kernels.moe_gemm_wgrad import ops as wgrad_ops
+    from repro_torch.data.pipeline import frontend_stub
     from repro_torch.launch.steps import loss_and_grads, train_step
     from repro_torch.models import transformer as T
     cfg = dataclasses.replace(reduced_config(arch), dtype="float32",
@@ -2471,15 +2681,24 @@ def _reduced_train_pair(dev, arch, over=None, S=128):
     L, La = cfg.num_layers, _attn_layers(cfg)
     gen = torch.Generator().manual_seed(13)
     toks = torch.randint(2, cfg.vocab_size, (4, S), generator=gen,
-                         dtype=torch.int32)
-    batch = {"tokens": toks, "labels": toks}
+                         dtype=torch.int32).numpy()
+    batch = {k: torch.from_numpy(v) for k, v in frontend_stub(
+        cfg, {"tokens": toks, "labels": toks.copy()},
+        np.random.default_rng(13)).items()}
     params = {"cpu": T.init_params(cfg, seed=3, device="cpu")}
     params["cuda"] = optim.tree_map(lambda t: t.to(dev), params["cpu"])
     got = {}
     for device, pt in params.items():
         b = {k: t.to(pt["embed"].device) for k, t in batch.items()}
         reset_counts()
-        loss, grads = loss_and_grads(cfg, pt, b)
+        shapes = _FlashShapes()
+        try:
+            loss, grads = loss_and_grads(cfg, pt, b)
+        finally:
+            shapes.restore()
+        if flash_dims and device == "cuda":
+            shapes.check(f"reduced {arch} training on cuda", flash_dims,
+                         "simt")
         used = kernels.launches()
         if cfg.family == "ssm":
             want = {"ssd_scan": 2 * L, "ssd_scan_bwd": L}
@@ -3794,21 +4013,56 @@ def _model_flops(cfg, B: int, S: int, active_only: bool = False) -> float:
     block_pattern.count("attn")) over ``cfg.local_window``'s pairs; its
     block-diagonal gates are products whose parameters ``param_count``
     has, and the RG-LRU scan's elementwise work is left out:
-    6 n B S + 3.5 x 4 dh H B pairs(S, local_window) x n_attn."""
+    6 n B S + 3.5 x 4 dh H B pairs(S, local_window) x n_attn.  MLA's
+    attention takes 2 (Dqk + Dv) a pair and head forward and 2 (3 Dqk + 2
+    Dv) backward (q/k heads of head_dim + rope_head_dim, v heads of
+    head_dim).  The vision decoder's S counts text tokens: its layers see
+    P + S positions and ``adapter`` the P patches only.  The
+    encoder-decoder's S counts decoder tokens: its encoder layers,
+    ``adapter`` and the cross-attention's K/V projections see the
+    encoder_seq frames, the rest the S tokens; attention adds the
+    encoder's non-causal pairs, the decoder's causal ones and the
+    cross-attention's S x encoder_seq."""
     from repro_torch.models import transformer as T
     n = T.param_count(cfg, active_only=active_only) \
         - T.padded_vocab(cfg) * cfg.d_model
     window = cfg.local_window if cfg.family == "hybrid" else \
         cfg.sliding_window
-    pairs = _pairs(S, S, True, window)
-    attn = 2.0 * 2 * cfg.head_dim * pairs * cfg.num_heads * B
-    flops = 6.0 * n * B * S + 3.5 * attn * _attn_layers(cfg)
+    H, dh = cfg.num_heads, cfg.head_dim
+    if cfg.family == "audio":
+        Se, D = cfg.encoder_seq, cfg.d_model
+        spec = T.param_shapes(cfg)
+        on_frames = _spec_count(spec["enc_layers"]) + \
+            _spec_count(spec["enc_norm"]) + D * D + sum(
+                _spec_count(spec["layers"]["xattn"][w]) for w in ("wk", "wv"))
+        attn = 2.0 * 2 * dh * H * B * (
+            cfg.encoder_layers * Se * Se
+            + cfg.num_layers * (_pairs(S, S, True, 0) + S * Se))
+        return 6.0 * B * ((n - on_frames) * S + on_frames * Se) + 3.5 * attn
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    pairs = _pairs(S + P, S + P, True, window)
+    if cfg.use_mla:
+        dqk = dh + cfg.rope_head_dim
+        per_pair = 2.0 * (dqk + dh) + 2.0 * (3 * dqk + 2 * dh)
+    else:
+        per_pair = 3.5 * 2.0 * 2 * dh
+    flops = 6.0 * n * B * (S + P) + per_pair * pairs * H * B * \
+        _attn_layers(cfg)
+    if P:       # adapter sees the patches only
+        flops -= 6.0 * cfg.d_model ** 2 * B * S
     if cfg.family == "ssm":
         Q, N, P = min(64, S), cfg.ssm_state, cfg.ssm_head_dim
         per_token = 2 * Q * N * cfg.ssm_groups + cfg.ssm_heads * (
             2 * Q * P + 4 * N * P)
         flops += 3.0 * per_token * B * S * cfg.num_layers
     return flops
+
+
+def _spec_count(spec) -> int:
+    """Parameters of a ``param_shapes`` subtree."""
+    if isinstance(spec, dict):
+        return sum(_spec_count(v) for v in spec.values())
+    return math.prod(spec[0])
 
 
 class _PlainCalls:
@@ -3846,39 +4100,51 @@ class _PlainCalls:
 
 
 def train_path(dev, arch: str, steps: int, GB: int, S: int, n_mb: int,
-               lr: float = 1e-3):
-    """A full-width, full-depth dense decoder, SSM or hybrid (bf16, random
-    weights from seed 0) trained ``steps`` steps through
+               lr: float = 1e-3, over=None):
+    """A full-width dense decoder, SSM, hybrid, encoder-decoder or vision
+    decoder (bf16, random weights from seed 0; full depth unless ``over``
+    replaces fields) trained ``steps`` steps through
     ``launch/steps.py::train_step``: batches of GB x S from
-    ``SyntheticLMStream`` (seed 0) in ``n_mb`` microbatches, remat on, AdamW
-    at ``lr`` (1e-3, the reference driver's).  The loss must be finite and
-    fall; each step must launch the flash forward (an SSM: the scan) 2 x L
-    x n_mb times (remat runs each layer twice; L the attention layers,
-    ``_attn_layers``), all on wgmma,
-    the backward wrapper (an SSM: the scan's) L x n_mb times, all on its
-    bf16 route, no other kernel and no plain version.  Logs s/step,
-    tokens/s, peak memory, a step's device time by kernel class beside its
-    wall, the model FLOPs' share of the bf16 dense peak (``mfu``), and
-    whether a second run from seed 0 gives the first two losses' bits (an
-    SSM and the hybrid must give the first's).  Returns (launches of the
-    steps, numbers)."""
+    ``SyntheticLMStream`` (seed 0; ``launch/train.py::step_batch``, which
+    adds the encoder-decoder's stub frames and the vision decoder's stub
+    patches) in ``n_mb`` microbatches, remat on, AdamW at ``lr`` (1e-3, the
+    reference driver's).  The loss must be finite and fall; each step must
+    launch the flash forward (an SSM: the scan) 2 x L x n_mb times (remat
+    runs each layer twice; L the attention calls of a forward,
+    ``_attn_layers``), all on wgmma, the backward wrapper (an SSM: the
+    scan's) L x n_mb times, all on its bf16 route, no other kernel and no
+    plain version.  Logs the reckoned memory of the weights, fp32 masters
+    and moments and bf16 gradients (16 B a parameter) before the run,
+    s/step, tokens/s, peak memory, a step's device time by kernel class
+    beside its wall, the model FLOPs' share of the bf16 dense peak
+    (``mfu``), and whether a second run from seed 0 gives the first two
+    losses' bits (the SSM, the hybrid, the encoder-decoder and the vision
+    decoder must give the first's).  Returns (launches of the steps,
+    numbers)."""
     from repro_torch import kernels, optim
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
     from repro_torch.launch.steps import train_step
+    from repro_torch.launch.train import step_batch
     from repro_torch.models import transformer as T
 
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(over or {}))
     L = cfg.num_layers if cfg.family == "ssm" else _attn_layers(cfg)
     ocfg = optim.AdamWConfig(lr=lr, zero1=False)
     stream = SyntheticLMStream(DataConfig(global_batch=GB, seq_len=S,
                                           vocab_size=cfg.vocab_size, seed=0))
     batches = [{k: torch.from_numpy(v).to(dev)
-                for k, v in stream.batch_at(i).items()}
+                for k, v in step_batch(cfg, stream, i).items()}
                for i in range(steps + 2)]
+    log(f"  {arch}: {T.param_count(cfg):,} parameters (layers "
+        f"{cfg.num_layers}{f', cut by {over}' if over else ''}), reckoned "
+        f"{T.param_count(cfg) * 16 / 1e9:.2f} GB of weights, fp32 masters "
+        f"and moments and bf16 gradients (16 B a parameter) before "
+        f"activations; batch "
+        + ", ".join(f"{k} {tuple(t.shape)}" for k, t in batches[0].items()))
 
     def run(n):
         params = T.init_params(cfg, 0, dev)
@@ -3971,7 +4237,8 @@ def train_path(dev, arch: str, steps: int, GB: int, S: int, n_mb: int,
     log(f"  {arch} a second run from seed 0: losses {again} "
         f"{'equal' if same else 'NOT equal'} to the first run's bits "
         f"(the embedding's backward adds rows in an unspecified order)")
-    if cfg.family in ("ssm", "hybrid") and again[0] != losses[0]:
+    if cfg.family in ("ssm", "hybrid", "audio", "vlm") and \
+            again[0] != losses[0]:
         raise AssertionError(f"{arch} training: a rerun of the first step "
                              f"gave the loss {again[0]}, not {losses[0]}")
     gc.collect()
@@ -4150,22 +4417,31 @@ def train_hybrid_path(dev):
 MOE_TRAIN_LAYERS = 4
 
 
-def train_moe_path(dev):
-    """Qwen3-30B-A3B (d_model 2048, 32/4 heads of 128, 128 experts top-8 of
-    expert d_ff 768, vocab 151936) in bf16 at every published width with
-    ``MOE_TRAIN_LAYERS`` of its 48 layers, random weights from seed 0,
-    trained 4 steps through ``launch/steps.py::train_step`` on 4 x 4096
-    tokens of ``SyntheticLMStream`` (seed 0), one microbatch, remat on,
-    AdamW lr 1e-3.  The loss must be finite and fall and carry the aux
-    (read off the first step: loss = cross-entropy + AUX_COEF x the layers'
-    aux over their count, rtol 1e-5); each step must launch the flash
-    forward twice a layer (remat) and the backward once, all on wgmma, the
+def train_moe_path(dev, arch: str = "qwen3_moe_30b",
+                   layers: int = MOE_TRAIN_LAYERS, experts=None,
+                   GB: int = 4, S: int = 4096, steps: int = 4,
+                   lr: float = 1e-3, phase: int = 13):
+    """An MoE decoder in bf16 at every published width with ``layers`` of
+    its layers (and ``experts`` of its experts, where given), random
+    weights from seed 0, trained ``steps`` steps through
+    ``launch/steps.py::train_step`` on GB x S tokens of
+    ``SyntheticLMStream`` (seed 0), one microbatch, remat on, AdamW at
+    ``lr``: by default phase 13's Qwen3-30B-A3B (d_model 2048, 32/4 heads of
+    128, 128 experts top-8 of expert d_ff 768, vocab 151936) with
+    ``MOE_TRAIN_LAYERS`` of its 48 layers, 4 steps of 4 x 4096, lr 1e-3.
+    The loss must be finite and fall and carry the aux (read off the first
+    step: loss = cross-entropy + AUX_COEF x the layers' aux over their
+    count, rtol 1e-5); each step must launch the flash forward twice a
+    layer (remat) and the backward once, all on wgmma at the model's
+    (q/k, v) head dims (MLA: head_dim + rope_head_dim, head_dim), the
     grouped GEMM 9 times a layer (3 forward, 3 recomputed, 3 dX), all on
     wgmma, its weight gradient 3 times a layer, all on wgmma, no other
-    kernel and no plain version.  Logs s/step, tokens/s, peak memory, the
-    capacity drops of the first step, a step's device time by kernel class
-    beside its wall, and the model FLOPs over active parameters' share of
-    the bf16 dense peak.  Returns (launches of the steps, numbers)."""
+    kernel and no plain version (a shared expert is a plain gated MLP).
+    Logs the reckoned memory (16 B a parameter) before the run, s/step,
+    tokens/s, peak memory, the capacity drops of the first step, a step's
+    device time by kernel class beside its wall, and the model FLOPs over
+    active parameters' share of the bf16 dense peak.  Returns (launches of
+    the steps, numbers)."""
     from repro_torch import kernels, optim
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
@@ -4178,23 +4454,33 @@ def train_moe_path(dev):
     from repro_torch.models import transformer as T
 
     t_phase = time.perf_counter()
-    full = get_config("qwen3_moe_30b")
-    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
-    L, steps, GB, S = cfg.num_layers, 4, 4, 4096
-    ocfg = optim.AdamWConfig(lr=1e-3, zero1=False)
+    full = get_config(arch)
+    cut = dict(num_layers=layers)
+    if experts:
+        cut["num_experts"] = experts
+    cfg = dataclasses.replace(full, **cut)
+    L = cfg.num_layers
+    dims = (cfg.head_dim + cfg.rope_head_dim if cfg.use_mla
+            else cfg.head_dim, cfg.head_dim)
+    ocfg = optim.AdamWConfig(lr=lr, zero1=False)
     stream = SyntheticLMStream(DataConfig(global_batch=GB, seq_len=S,
                                           vocab_size=cfg.vocab_size, seed=0))
     batches = [{k: torch.from_numpy(v).to(dev)
                 for k, v in stream.batch_at(i).items()}
                for i in range(steps + 2)]
     n_params = T.param_count(cfg)
+    log(f"  {arch}: {n_params:,} parameters with {L} of {full.num_layers} "
+        f"layers and {cfg.num_experts} of {full.num_experts} experts, "
+        f"reckoned {n_params * 16 / 1e9:.2f} GB of weights, fp32 masters "
+        f"and moments and bf16 gradients (16 B a parameter) before "
+        f"activations")
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     params = T.init_params(cfg, 0, dev)
     opt = optim.init_opt_state(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    log(f"  qwen3_moe_30b bf16, {L} of {full.num_layers} layers: "
+    log(f"  {arch} bf16, {L} of {full.num_layers} layers: "
         f"{n_params:,} parameters ({T.param_count(cfg, active_only=True):,} "
         f"active), weights + fp32 masters and moments drawn in "
         f"{init_s:.1f} s, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB")
@@ -4221,6 +4507,7 @@ def train_moe_path(dev):
 
     reset_counts()
     plain = _PlainCalls()
+    shapes = _FlashShapes()
     losses, secs = [], []
     try:
         for i in range(steps):
@@ -4235,12 +4522,14 @@ def train_moe_path(dev):
             secs.append(time.perf_counter() - t0)
             moe.moe_fwd, T._chunked_ce = orig_moe, orig_ce
             moe_ops.dispatch_plan = orig_plan
-            log(f"  qwen3_moe_30b step {i}: loss {losses[-1]:.6f}, grad "
+            log(f"  {arch} step {i}: loss {losses[-1]:.6f}, grad "
                 f"norm {out['grad_norm'].item():.4f}, {secs[-1]:.3f} s")
     finally:
         moe.moe_fwd, T._chunked_ce = orig_moe, orig_ce
         moe_ops.dispatch_plan = orig_plan
         plain.restore()
+        shapes.restore()
+    shapes.check(f"{arch} training", dims, "wgmma")
     used = kernels.launches()
     routes = dict(moe_ops.ROUTE_LAUNCHES)
     wgrad_routes = dict(wgrad_ops.ROUTE_LAUNCHES)
@@ -4256,7 +4545,7 @@ def train_moe_path(dev):
             wgrad_routes != {"wgmma": want["moe_gemm_wgrad"], "mma": 0,
                              "simt": 0} or \
             any(plain.calls.values()):
-        raise AssertionError(f"qwen3_moe_30b training: launches {used}, "
+        raise AssertionError(f"{arch} training: launches {used}, "
                              f"flash by route {ops.ROUTE_LAUNCHES}, "
                              f"backward by route {bwd_ops.ROUTE_LAUNCHES}, "
                              f"grouped GEMM by route {routes}, weight "
@@ -4269,7 +4558,7 @@ def train_moe_path(dev):
     want_loss = float(ces[0]) + T.AUX_COEF * sum(aux_first) / L
     if not all(math.isfinite(a) and a > 0 for a in aux_first) or \
             not math.isclose(losses[0], want_loss, rel_tol=1e-5):
-        raise AssertionError(f"qwen3_moe_30b training: the first step's "
+        raise AssertionError(f"{arch} training: the first step's "
                              f"loss {losses[0]} is not its cross-entropy "
                              f"{float(ces[0])} + {T.AUX_COEF} x the aux "
                              f"{aux_first} / {L}")
@@ -4278,12 +4567,12 @@ def train_moe_path(dev):
                                                     b.block_expert)
         for a, b in zip(plans[:L], plans[L:][::-1]))
     if not same_route:
-        raise AssertionError(f"qwen3_moe_30b training: the recompute routed "
+        raise AssertionError(f"{arch} training: the recompute routed "
                              f"otherwise than the forward ({len(plans)} "
                              f"plans for {L} layers)")
     if not all(math.isfinite(x) for x in losses) or \
             not losses[-1] < losses[0]:
-        raise AssertionError(f"qwen3_moe_30b training: losses {losses} "
+        raise AssertionError(f"{arch} training: losses {losses} "
                              f"(finite and falling expected)")
     kept = [(int(p.keep.sum()), p.keep.numel()) for p in plans[:L]]
     del plans
@@ -4291,9 +4580,10 @@ def train_moe_path(dev):
     tokens = GB * S
     flops = _model_flops(cfg, GB, S, active_only=True)
     mfu = flops / step_s / PEAK_FLOPS[torch.bfloat16]
-    log(f"  qwen3_moe_30b {steps} steps of {GB} x {S}, one microbatch, "
-        f"remat: losses {[round(x, 4) for x in losses]} (step 0: "
-        f"cross-entropy {float(ces[0]):.6f} + {T.AUX_COEF} x aux "
+    log(f"  {arch} {steps} steps of {GB} x {S}, one microbatch, "
+        f"remat, AdamW lr {lr:g}: losses "
+        f"{[round(x, 4) for x in losses]} (step 0: cross-entropy "
+        f"{float(ces[0]):.6f} + {T.AUX_COEF} x aux "
         f"{[round(a, 4) for a in aux_first]} / {L}; the recompute routed "
         f"as the forward, bit for bit); {step_s:.3f} s/step "
         f"(median of steps 1-{steps - 1}; step 0 {secs[0]:.3f} s), "
@@ -4303,9 +4593,10 @@ def train_moe_path(dev):
         f"{used}; grouped GEMM by route {routes}; weight gradient by "
         f"route {wgrad_routes}; plain versions called "
         f"{plain.calls}; active-parameter MFU {mfu:.4f}")
-    print(json.dumps({"qwen3_moe_train_mfu": mfu,
-                      "model_flop_per_step": flops, "s_per_step": step_s}),
-          flush=True)
+    mfu_key = {"qwen3_moe_30b": "qwen3_moe_train_mfu"}.get(
+        arch, f"{arch}_train_mfu")
+    print(json.dumps({mfu_key: mfu, "model_flop_per_step": flops,
+                      "s_per_step": step_s}), flush=True)
 
     i = iter(range(steps, steps + 2))
 
@@ -4318,7 +4609,7 @@ def train_moe_path(dev):
     names = {}
     device_ms, by = _device_ms(one, n=1, names=names)
     wall = (time.perf_counter() - t0) * 1e3 / 2
-    log(f"  qwen3_moe_30b a training step: device time from the profiler's "
+    log(f"  {arch} a training step: device time from the profiler's "
         f"trace {device_ms:.1f} ms ("
         + ", ".join(f"{c} {ms:.1f}" for c, ms in sorted(
             by.items(), key=lambda kv: -kv[1]))
@@ -4329,14 +4620,82 @@ def train_moe_path(dev):
     gc.collect()
     torch.cuda.empty_cache()
     secs_phase = time.perf_counter() - t_phase
-    log(f"  phase 13 took {secs_phase:.1f} s")
-    return used, dict(layers=L, params=n_params, losses=losses,
+    log(f"  phase {phase} took {secs_phase:.1f} s")
+    return used, dict(layers=L, experts=cfg.num_experts, params=n_params,
+                      losses=losses, lr=lr,
                       gemm_routes=routes, wgrad_routes=wgrad_routes,
                       step_s=step_s, step_secs=secs,
                       tokens_per_s=tokens / step_s, peak_gb=peak, mfu=mfu,
                       init_s=init_s, drops=[n - k for k, n in kept],
                       choices=kept[0][1], device_ms=device_ms, wall_ms=wall,
                       by_class=by, seconds=secs_phase)
+
+
+# --------------------------------------------------------------- phase 16
+# Pixtral-12B trained at every published width, its depth cut 40 -> 8:
+# 3,549,516,800 parameters, 56.8 GB of bf16 weights, fp32 masters and
+# moments and bf16 gradients at 16 B a parameter, beside the activations of
+# 4 x (1024 patches + 3072 tokens) in one microbatch (two microbatches
+# would add 14.2 GB of fp32 gradient sums)
+PIXTRAL_TRAIN_LAYERS = 8
+# AdamW's lr in phases 16 and 17: Whisper-base's loss falls at the
+# reference driver's 1e-3; at 1e-3 Pixtral-12B's and DeepSeek-R1's rose
+# from step 2 on (12.29 -> 13.80 and 12.28 -> 14.30 in 5 steps, grad norms
+# up to 24 and 15) and at 3e-4 Pixtral's spiked at step 3 (grad norm 57),
+# so both train at 1e-4 (PERF.md)
+TRAIN_LR = {"whisper_base": 1e-3, "pixtral_12b": 1e-4, "deepseek_r1": 1e-4}
+
+
+def train_encdec_vlm_path(dev):
+    """Phase 16 (``train_path``): Whisper-base (6 encoder and 6 decoder
+    layers, d_model 512, 8 heads of 64, vocab 51865) at every published
+    width and full depth, 5 steps of 16 rows of 448 decoder tokens over
+    1536 stub frames in 2 microbatches; Pixtral-12B (d_model 5120, 32/8
+    heads of 128, d_ff 14336, vocab 131072) at every published width with
+    ``PIXTRAL_TRAIN_LAYERS`` of its 40 layers, 5 steps of 4 x (1024 stub
+    patches + 3072 tokens) in one microbatch, labels -1 over the patches;
+    both bf16, random weights from seed 0, AdamW at ``TRAIN_LR``'s
+    (Whisper 1e-3, Pixtral 1e-4).
+    Each: a finite, falling loss, the first loss again on a rerun from
+    seed 0, the flash forward 2 x L x n_mb and its backward L x n_mb
+    times a step (Whisper: L = 18 attention calls a forward, 12 of them
+    non-causal), all on wgmma, no other kernel.  Returns (launches of both
+    runs' steps summed, numbers by arch)."""
+    used, stats = {}, {}
+    for arch, GB, S, n_mb, over in (
+            ("whisper_base", 16, 448, 2, None),
+            ("pixtral_12b", 4, 3072, 1,
+             dict(num_layers=PIXTRAL_TRAIN_LAYERS))):
+        u, stats[arch] = train_path(dev, arch, 5, GB, S, n_mb,
+                                    lr=TRAIN_LR[arch], over=over)
+        for name, n in u.items():
+            used[name] = used.get(name, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    return used, stats
+
+
+# --------------------------------------------------------------- phase 17
+# DeepSeek-R1 trained at every published width (d_model 7168, MLA with 128
+# heads, q_lora 1536, kv_lora 512, rope 64, top-8, expert and shared d_ff
+# 2048, vocab 129280), its depth cut 61 -> 2 (as phase 9) and its experts
+# 256 -> 16: one full layer with 256 experts holds 13.36 B parameters, 214
+# GB at 16 B a parameter; with 16 experts 2 layers hold 3,725,204,480
+# parameters, 59.6 GB, beside the activations of 2 x 4096 tokens
+MLA_TRAIN_LAYERS, MLA_TRAIN_EXPERTS = 2, 16
+
+
+def train_mla_path(dev):
+    """Phase 17 (``train_moe_path``): DeepSeek-R1 in bf16 at every
+    published width with ``MLA_TRAIN_LAYERS`` of its 61 layers and
+    ``MLA_TRAIN_EXPERTS`` of its 256 experts, 5 steps of 2 x 4096 tokens in
+    one microbatch, AdamW at ``TRAIN_LR``'s 1e-4: every flash launch at q/k
+    192, v 128 on wgmma (the backward too), the grouped GEMM and its
+    weight gradient on wgmma, the aux in the loss, the recompute routed as
+    the forward."""
+    return train_moe_path(dev, "deepseek_r1", layers=MLA_TRAIN_LAYERS,
+                          experts=MLA_TRAIN_EXPERTS, GB=2, S=4096, steps=5,
+                          lr=TRAIN_LR["deepseek_r1"], phase=17)
 
 
 def _leaves(tree):
@@ -4476,14 +4835,35 @@ def main() -> int:
     print(json.dumps({"train_path_hybrid": hybrid_train_stats}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+
+    log(f"== 16. training the encoder-decoder and the vision decoder: "
+        f"Whisper-base bf16 at every published width and full depth, 5 "
+        f"steps of 16 x 448 tokens over 1536 frames; Pixtral-12B at every "
+        f"published width, {PIXTRAL_TRAIN_LAYERS} of its 40 layers, 5 steps "
+        f"of 4 x (1024 patches + 3072 tokens)")
+    encdec_trained, encdec_train_stats = train_encdec_vlm_path(dev)
+    print(json.dumps({"train_path_encdec_vlm": encdec_train_stats}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"== 17. training MLA: DeepSeek-R1 bf16 at every published width, "
+        f"{MLA_TRAIN_LAYERS} of its 61 layers and {MLA_TRAIN_EXPERTS} of "
+        f"its 256 experts, 5 steps of 2 x 4096")
+    mla_trained, mla_train_stats = train_mla_path(dev)
+    print(json.dumps({"train_path_mla": mla_train_stats}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm, "flash_attention_bwd": trained,
                          "moe_gemm_wgrad": moe_trained,
                          "ssd_scan_bwd": ssm_trained}.get(
             s["name"], greedy)[s["name"]]
-        # phase 15's launches of the two attention kernels added
-        s["launches"] += hybrid_trained.get(s["name"], 0)
+        # the launches of phases 15-17 added (the attention kernels; phase
+        # 17's grouped GEMM and its weight gradient too)
+        s["launches"] += sum(t.get(s["name"], 0) for t in (
+            hybrid_trained, encdec_trained, mla_trained))
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

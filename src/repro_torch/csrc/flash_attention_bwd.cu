@@ -3,17 +3,20 @@
 // Replaces the VJP of repro/models/flash.py::flash_attention (_bwd, pure
 // JAX in the reference: the TPU kernel flash_attention_tpu has no
 // backward of its own) under the contract of the port's plain version,
-// repro_torch/models/flash.py::flash_attention_bwd: q (B, Sq, H, D), k and
-// v (B, Skv, Hkv, D) with explicit q/kv positions, causal or not, Sq != Skv
-// and GQA (q head h reads kv head h / (H / Hkv)); from the forward's out
-// (B, Sq, H, D), its log-sum-exp lse (B, Sq, H) fp32 (natural-log units of
-// the scaled, softcapped scores) and dout (B, Sq, H, D), it writes dq, dk,
-// dv in the input type.  The scale is 1/sqrt(D); every sum is fp32.  A
+// repro_torch/models/flash.py::flash_attention_bwd: q and k (B, S, heads,
+// DQ), v (B, Skv, Hkv, DV) with explicit q/kv positions, causal or not, Sq
+// != Skv and GQA (q head h reads kv head h / (H / Hkv)); from the forward's
+// out (B, Sq, H, DV), its log-sum-exp lse (B, Sq, H) fp32 (natural-log units
+// of the scaled, softcapped scores) and dout (B, Sq, H, DV), it writes dq,
+// dk, dv in the input type.  The scale is 1/sqrt(DQ); every sum is fp32.  A
 // sliding window masks the keys at or below q position - window; a tanh
 // softcap takes S = tanh(S_pre / cap) cap before the mask and multiplies
 // dS by its chain factor 1 - (S / cap)^2, as the reference's _bwd does.
-// Head dims 32, 64, 80 (H2O-Danube-1.8B), 128 and 256 (RecurrentGemma-2B)
-// are instantiated.
+// The (q/k, v) head dims (32, 32), (64, 64), (80, 80) (H2O-Danube-1.8B),
+// (128, 128), (192, 128) (DeepSeek-R1's MLA: q/k heads of 128 + 64 rope
+// columns, v heads of 128) and (256, 256) (RecurrentGemma-2B) are
+// instantiated.  The products contract over DQ (S = Q K^T) or DV (dP = dO
+// V^T, and the preprocess's rowsum); dV is DV wide, dK and dQ DQ wide.
 //
 // What bounds it on an H100: at the training shape (SmolLM-360M, B=8,
 // S=4096, H=15 on 5, D=64, causal) the work is ~0.65 TFLOP (2.5 times the
@@ -93,6 +96,16 @@
 //   take the CTA's 64 q rows (Geo::BR = 64), consumer c adding columns
 //   128 c.. of dQ, with 32-key steps (Geo::BKQ) so that S, dP and their
 //   fragments take 48 registers; each consumer recomputes S and dP whole.
+//   (DQ, DV) = (192, 128) (MLA): rows of q and k are three 64-column
+//   boxes, rows of v and dO two (Geo::kRowQK, kRowV).  dK/dV: D = 128's
+//   split roles, BN = 32: consumer 0 adds dV (N = 128, 64 registers),
+//   consumer 1 dK by one n192 wgmma a k step (96 registers, beside S^T,
+//   dP^T and their fragments, 48).  dQ: 64 rows a consumer as at D = 128,
+//   but 32-key steps (Geo::BKQ), as at D = 256: with 64-key steps S, dP
+//   and their fragments (96 registers) beside dQ's 96 would pass the 168,
+//   and Q + dO of 128 rows (80 KiB) with 4 stages of 64 keys (41 KiB
+//   each) the 227 KiB; at 32 keys a stage takes 21 KiB.  S^T = K Q^T and
+//   S = Q K^T run 12 k16 steps over three boxes, dP^T and dP 8 over two.
 //   A product of 128 columns is an n128 wgmma over two 64-column boxes
 //   (MN-major B, LBO one box apart), the half's boxes 2 x box apart; S^T =
 //   K Q^T and S = Q K^T run 16 k16 steps over the four boxes of a row.
@@ -119,11 +132,12 @@
 //   the grid's slowest dimension, taken from the heaviest end under a causal mask (dK/dV's first key tiles,
 //   dQ's last q tiles): the longest CTAs of every head start first, and the
 //   last wave is short ones.
-// - Shared memory: dK/dV holds K and V (16, 32, 64, 32, 64 KiB at D = 32,
-//   64, 80, 128, 256) and 4 stages of 9, 17, 17, 17, 33 KiB; dQ holds Q and
-//   dO (16, 32, 64, 64, 64 KiB) and 4 stages of 9, 17, 33, 33, 33 KiB.  The
-//   tile ranges take what is left of the 227 KiB, which caps Sq and Skv
-//   (repro_flash_bwd_max_len: 244,928 at D = 80 and 128, 122,464 at 256).
+// - Shared memory: dK/dV holds K and V (16, 32, 64, 32, 40, 64 KiB at D =
+//   32, 64, 80, 128, (192, 128), 256) and 4 stages of 9, 17, 17, 17, 21, 33
+//   KiB; dQ holds Q and dO (16, 32, 64, 64, 80, 64 KiB) and 4 stages of 9,
+//   17, 33, 33, 21, 33 KiB.  The tile ranges take what is left of the 227
+//   KiB, which caps Sq and Skv (repro_flash_bwd_max_len: 244,928 at D = 80
+//   and 128, 253,536 at (192, 128), 122,464 at 256).
 // - Where the time goes (PERF.md, SmolLM-360M's shape): the loads and
 //   barriers alone (no products, no exponentials) take ~0.3 ms a kernel;
 //   the rest is the products and, in dQ, the exponentials and splits,
@@ -143,7 +157,8 @@
 // tile is skipped by a block vote on the exact mask before its Q and dO
 // (or K and V) are read.  At D = 256 the 64-row fp32 tiles of K, V, Q and
 // dO would take 290 KiB, so dK/dV steps over 32 q rows and dQ over 32 keys
-// (2 x 4 and 4 x 2 scores a thread; 210 and 202 KiB).
+// (2 x 4 and 4 x 2 scores a thread; 210 and 202 KiB).  At (192, 128) the
+// 64-row tiles fit (195 and 178 KiB).
 // Keys are masked at the true Skv and rows at the true Sq: nothing is
 // padded in the inputs.
 
@@ -187,8 +202,8 @@ __device__ __forceinline__ float row_dot(const T* __restrict__ o,
   return acc;
 }
 
-// Dl = rowsum(dout * out).  Plain (fp32 route): one warp a row, Dl is
-// (B, Sq, H).  Tiled (bf16 route): row_lanes(D) lanes a row, and Dl is the wgmma
+// Dl = rowsum(dout * out) over v's head dim D.  Plain (fp32 route): one
+// warp a row, Dl is (B, Sq, H).  Tiled (bf16 route): row_lanes(D) lanes a row, and Dl is the wgmma
 // kernels' scratch: for each (b, h) three rows of Sqp fp32, lse, Dl and the
 // q position's bits (rows s >= Sq hold 0), rows running s fastest so that
 // neighbours write side by side; then, from the blocks of blockIdx.y = 1,
@@ -276,12 +291,12 @@ __device__ __forceinline__ void load_tile(float* dst,
 }
 
 // The RI x RJ scores of this thread (rows RI ty + i, keys tx + 16 j), S =
-// A B^T and dP = C E^T over D (A, C: the q-side tiles Q, dO; B, E: the
-// key-side tiles K, V), then P and dS in place of them: P = exp(S * scale -
-// lse) where ok, else 0; dS = P (dP - Dl).  Under a softcap S * scale
-// becomes tanh(S * scale / cap) cap and dS takes the chain factor 1 -
-// tanh^2.
-template <int D, int RI, int RJ>
+// A B^T over DQ and dP = C E^T over DV (A, C: the q-side tiles Q, dO; B, E:
+// the key-side tiles K, V; DV <= DQ), then P and dS in place of them: P =
+// exp(S * scale - lse) where ok, else 0; dS = P (dP - Dl).  Under a softcap
+// S * scale becomes tanh(S * scale / cap) cap and dS takes the chain factor
+// 1 - tanh^2.
+template <int DQ, int DV, int RI, int RJ>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
                                        const float* Ks, const float* Vs,
                                        int ty, int tx,
@@ -290,23 +305,23 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
                                        const float (&dl)[RI], float scale,
                                        float softcap, float (&p)[RI][RJ],
                                        float (&ds)[RI][RJ]) {
-  constexpr int DP = D + 1;
+  constexpr int DPQ = DQ + 1, DPV = DV + 1;
 #pragma unroll
   for (int i = 0; i < RI; ++i)
 #pragma unroll
     for (int j = 0; j < RJ; ++j) p[i][j] = ds[i][j] = 0.f;
 #pragma unroll 8
-  for (int d = 0; d < D; ++d) {
+  for (int d = 0; d < DV; ++d) {
     float a[RI], c[RI], bk[RJ], bv[RJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
-      a[i] = Qs[(ty * RI + i) * DP + d];
-      c[i] = dOs[(ty * RI + i) * DP + d];
+      a[i] = Qs[(ty * RI + i) * DPQ + d];
+      c[i] = dOs[(ty * RI + i) * DPV + d];
     }
 #pragma unroll
     for (int j = 0; j < RJ; ++j) {
-      bk[j] = Ks[(tx + 16 * j) * DP + d];
-      bv[j] = Vs[(tx + 16 * j) * DP + d];
+      bk[j] = Ks[(tx + 16 * j) * DPQ + d];
+      bv[j] = Vs[(tx + 16 * j) * DPV + d];
     }
 #pragma unroll
     for (int i = 0; i < RI; ++i)
@@ -315,6 +330,19 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
         p[i][j] = fmaf(a[i], bk[j], p[i][j]);
         ds[i][j] = fmaf(c[i], bv[j], ds[i][j]);
       }
+  }
+  // S's columns past v's head dim (none where DQ = DV)
+#pragma unroll 8
+  for (int d = DV; d < DQ; ++d) {
+    float a[RI], bk[RJ];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) a[i] = Qs[(ty * RI + i) * DPQ + d];
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) bk[j] = Ks[(tx + 16 * j) * DPQ + d];
+#pragma unroll
+    for (int i = 0; i < RI; ++i)
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) p[i][j] = fmaf(a[i], bk[j], p[i][j]);
   }
 #pragma unroll
   for (int i = 0; i < RI; ++i)
@@ -354,7 +382,7 @@ __device__ __forceinline__ int pair_mask(const int (&qp)[RI],
 }
 
 // dK/dV of 64 keys, stepping over QR q rows (64; 32 at D = 256)
-template <typename T, int D, int QR>
+template <typename T, int DQ, int DV, int QR>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ q_pos,
@@ -364,21 +392,22 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
                     T* __restrict__ dk, T* __restrict__ dv, int Sq, int Skv,
                     int H, int Hkv, int causal, int window, float softcap,
                     float scale) {
-  constexpr int DP = D + 1, DC = D / 16, RI = QR / 16;
+  constexpr int DPQ = DQ + 1, DPV = DV + 1, DCK = DQ / 16, DCV = DV / 16;
+  constexpr int RI = QR / 16;
   extern __shared__ float smem[];
-  float* Ks = smem;             // BK x DP
-  float* Vs = Ks + BK * DP;     // BK x DP
-  float* Qs = Vs + BK * DP;     // QR x DP
-  float* dOs = Qs + QR * DP;    // QR x DP
-  float* Ps = dOs + QR * DP;    // QR x PS
+  float* Ks = smem;             // BK x DPQ
+  float* Vs = Ks + BK * DPQ;    // BK x DPV
+  float* Qs = Vs + BK * DPV;    // QR x DPQ
+  float* dOs = Qs + QR * DPQ;   // QR x DPV
+  float* Ps = dOs + QR * DPV;   // QR x PS
   float* dSs = Ps + QR * PS;    // QR x PS
 
   const int b = blockIdx.z, hk = blockIdx.y, k0 = blockIdx.x * BK;
   const int G = H / Hkv;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  load_tile<T, D, BK>(Ks, k, b, k0, Skv, Hkv, hk);
-  load_tile<T, D, BK>(Vs, v, b, k0, Skv, Hkv, hk);
+  load_tile<T, DQ, BK>(Ks, k, b, k0, Skv, Hkv, hk);
+  load_tile<T, DV, BK>(Vs, v, b, k0, Skv, Hkv, hk);
   int kp[4];
   bool kin[4];
 #pragma unroll
@@ -387,11 +416,14 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
     kin[j] = kj < Skv;
     kp[j] = kin[j] ? kv_pos[(size_t)b * Skv + kj] : 0;
   }
-  float acc_k[4][DC], acc_v[4][DC];  // keys 4 ty + i, columns tx + 16 c
+  float acc_k[4][DCK], acc_v[4][DCV];  // keys 4 ty + i, columns tx + 16 c
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < DC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+    for (int c = 0; c < DCK; ++c) acc_k[i][c] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DCV; ++c) acc_v[i][c] = 0.f;
+  }
 
   const int nqt = (Sq + QR - 1) / QR;
   for (int g = 0; g < G; ++g) {
@@ -415,12 +447,13 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
       // also the barrier between the last step's readers and this step's
       // writers of Qs, dOs, Ps and dSs (and, first, the K/V loads)
       if (!__syncthreads_or(any)) continue;
-      load_tile<T, D, QR>(Qs, q, b, q0, Sq, H, h);
-      load_tile<T, D, QR>(dOs, dout, b, q0, Sq, H, h);
+      load_tile<T, DQ, QR>(Qs, q, b, q0, Sq, H, h);
+      load_tile<T, DV, QR>(dOs, dout, b, q0, Sq, H, h);
       __syncthreads();
 
       float p[RI][4], ds[RI][4];
-      scores<D>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, softcap, p, ds);
+      scores<DQ, DV>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, softcap, p,
+                     ds);
 #pragma unroll
       for (int i = 0; i < RI; ++i)
 #pragma unroll
@@ -440,14 +473,18 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
         const float pv[4] = {pr.x, pr.y, pr.z, pr.w};
         const float sv[4] = {sr.x, sr.y, sr.z, sr.w};
 #pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          const float go = dOs[r * DP + tx + 16 * c];
-          const float qq = Qs[r * DP + tx + 16 * c];
+        for (int c = 0; c < DCV; ++c) {
+          const float go = dOs[r * DPV + tx + 16 * c];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+          for (int i = 0; i < 4; ++i)
             acc_v[i][c] = fmaf(pv[i], go, acc_v[i][c]);
+        }
+#pragma unroll
+        for (int c = 0; c < DCK; ++c) {
+          const float qq = Qs[r * DPQ + tx + 16 * c];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
             acc_k[i][c] = fmaf(sv[i], qq, acc_k[i][c]);
-          }
         }
       }
     }
@@ -457,17 +494,18 @@ flash_bwd_dkdv_simt(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int kj = k0 + ty * 4 + i;
     if (kj >= Skv) continue;
-    const size_t base = (((size_t)b * Skv + kj) * Hkv + hk) * D;
+    const size_t row = ((size_t)b * Skv + kj) * Hkv + hk;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      dk[base + tx + 16 * c] = rt::from_f32<T>(acc_k[i][c] * scale);
-      dv[base + tx + 16 * c] = rt::from_f32<T>(acc_v[i][c]);
-    }
+    for (int c = 0; c < DCK; ++c)
+      dk[row * DQ + tx + 16 * c] = rt::from_f32<T>(acc_k[i][c] * scale);
+#pragma unroll
+    for (int c = 0; c < DCV; ++c)
+      dv[row * DV + tx + 16 * c] = rt::from_f32<T>(acc_v[i][c]);
   }
 }
 
 // dQ of 64 q rows, stepping over KR keys (64; 32 at D = 256)
-template <typename T, int D, int KR>
+template <typename T, int DQ, int DV, int KR>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ q_pos,
@@ -476,21 +514,22 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ dout, T* __restrict__ dq, int Sq,
                   int Skv, int H, int Hkv, int causal, int window,
                   float softcap, float scale) {
-  constexpr int DP = D + 1, DC = D / 16, RJ = KR / 16, PK = KR + 4;
+  constexpr int DPQ = DQ + 1, DPV = DV + 1, DC = DQ / 16, RJ = KR / 16;
+  constexpr int PK = KR + 4;
   extern __shared__ float smem[];
-  float* Qs = smem;             // BQ x DP
-  float* dOs = Qs + BQ * DP;    // BQ x DP
-  float* Ks = dOs + BQ * DP;    // KR x DP
-  float* Vs = Ks + KR * DP;     // KR x DP
-  float* dSs = Vs + KR * DP;    // BQ x PK
+  float* Qs = smem;             // BQ x DPQ
+  float* dOs = Qs + BQ * DPQ;   // BQ x DPV
+  float* Ks = dOs + BQ * DPV;   // KR x DPQ
+  float* Vs = Ks + KR * DPQ;    // KR x DPV
+  float* dSs = Vs + KR * DPV;   // BQ x PK
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;  // last tile first
   const int hk = h / (H / Hkv);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
-  load_tile<T, D, BQ>(Qs, q, b, q0, Sq, H, h);
-  load_tile<T, D, BQ>(dOs, dout, b, q0, Sq, H, h);
+  load_tile<T, DQ, BQ>(Qs, q, b, q0, Sq, H, h);
+  load_tile<T, DV, BQ>(dOs, dout, b, q0, Sq, H, h);
   int qp[4];
   bool qin[4];
   float ls[4], dl[4];
@@ -525,12 +564,13 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
     // also the barrier between the last step's readers and this step's
     // writers of Ks, Vs and dSs (and, first, the Q/dO loads)
     if (!__syncthreads_or(any)) continue;
-    load_tile<T, D, KR>(Ks, k, b, k0, Skv, Hkv, hk);
-    load_tile<T, D, KR>(Vs, v, b, k0, Skv, Hkv, hk);
+    load_tile<T, DQ, KR>(Ks, k, b, k0, Skv, Hkv, hk);
+    load_tile<T, DV, KR>(Vs, v, b, k0, Skv, Hkv, hk);
     __syncthreads();
 
     float p[4][RJ], ds[4][RJ];
-    scores<D>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, softcap, p, ds);
+    scores<DQ, DV>(Qs, dOs, Ks, Vs, ty, tx, ok, ls, dl, scale, softcap, p,
+                   ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -546,7 +586,7 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty * 4 + i) * PK + j];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        const float kk = Ks[j * DP + tx + 16 * c];
+        const float kk = Ks[j * DPQ + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(sv[i], kk, acc[i][c]);
       }
@@ -557,7 +597,7 @@ flash_bwd_dq_simt(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + ty * 4 + i;
     if (qi >= Sq) continue;
-    T* o = dq + (((size_t)b * Sq + qi) * H + h) * D;
+    T* o = dq + (((size_t)b * Sq + qi) * H + h) * DQ;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       o[tx + 16 * c] = rt::from_f32<T>(acc[i][c] * scale);
@@ -582,41 +622,50 @@ __host__ __device__ constexpr uint32_t up1024(uint32_t x) {
   return (x + 1023) & ~1023u;
 }
 
-// Shared-memory geometry at head dim D, offsets from a 1024-aligned base.
-// A TMA box is at most 64 bf16 columns (128 bytes, the swizzle's width);
-// D = 80, 128 and 256 take two, two and four boxes a row, stored one after
-// the other (at 80 the second holds columns 64..79 and zeros).
-template <int D>
+// Shared-memory geometry at q/k head dim DQ and v head dim DV, offsets
+// from a 1024-aligned base.  A TMA box is at most 64 bf16 columns (128
+// bytes, the swizzle's width); D = 80, 128, 192 and 256 take two, two,
+// three and four boxes a row, stored one after the other (at 80 the second
+// holds columns 64..79 and zeros).  Rows of Q and K are DQ wide (kRowQK
+// bytes), rows of V and dO DV wide (kRowV).
+template <int DQ, int DV = DQ>
 struct Geo {
-  static constexpr int kBoxCols = D < 64 ? D : 64;
-  static constexpr int kBoxes = (D + kBoxCols - 1) / kBoxCols;
+  static_assert(DV == DQ || (DQ % 64 == 0 && DV % 64 == 0 && DV < DQ),
+                "Geo: v's head dim apart from q's in whole boxes only");
+  static constexpr int kBoxCols = DQ < 64 ? DQ : 64;
+  static constexpr int kBoxesQK = (DQ + kBoxCols - 1) / kBoxCols;
+  static constexpr int kBoxesV = (DV + kBoxCols - 1) / kBoxCols;
   static constexpr int kRowBytes = kBoxCols * 2;
-  static constexpr uint32_t kRow = kBoxes * kRowBytes;  // bytes a tile row
-  static constexpr uint32_t kAtom = 8 * kRowBytes;      // 8 rows of a box
+  static constexpr uint32_t kRowQK = kBoxesQK * kRowBytes;  // a q or k row
+  static constexpr uint32_t kRowV = kBoxesV * kRowBytes;    // a v or dO row
+  static constexpr uint32_t kAtom = 8 * kRowBytes;          // 8 rows of a box
   static constexpr uint64_t kSwizzle =
-      D < 64 ? sm90::kSwizzle64 : sm90::kSwizzle128;
+      DQ < 64 ? sm90::kSwizzle64 : sm90::kSwizzle128;
   static constexpr int kKSteps = kBoxCols / 16;  // k16 steps a box
   // q rows a dK/dV step
-  static constexpr int BN = D == 80 || D == 128 || D == 256 ? 32 : 64;
+  static constexpr int BN = DQ == 80 || DQ >= 128 ? 32 : 64;
   static constexpr int kStages = 4;              // ring stages
-  // D >= 128: dK and dV would take 128 of a consumer's 168 registers, so
-  // the two consumers share one 64-key tile, consumer 0 adding dV and
-  // consumer 1 dK (both recompute S^T); below it each owns 64 keys and adds
-  // both
-  static constexpr bool kSplit = D >= 128;
-  // D = 256: an accumulator holds half of its columns (kCols), a dK/dV
-  // CTA one half of dK and dV (kHalves CTAs a key tile), and the two dQ
-  // consumers the two halves of one 64-row tile's dQ
-  static constexpr int kHalves = D == 256 ? 2 : 1;
-  static constexpr int kCols = D / kHalves;
+  // DQ >= 128: dK and dV would take 128 or more of a consumer's 168
+  // registers, so the two consumers share one 64-key tile, consumer 0
+  // adding dV and consumer 1 dK (both recompute S^T); below it each owns 64
+  // keys and adds both
+  static constexpr bool kSplit = DQ >= 128;
+  // D = 256: an accumulator holds half of its columns (kColsK of dK or dQ,
+  // kColsV of dV), a dK/dV CTA one half of dK and dV (kHalves CTAs a key
+  // tile), and the two dQ consumers the two halves of one 64-row tile's dQ
+  static constexpr int kHalves = DQ == 256 ? 2 : 1;
+  static constexpr int kColsK = DQ / kHalves;
+  static constexpr int kColsV = DV / kHalves;
   static constexpr int BKV = kSplit ? 64 : 64 * NC;  // keys of a dK/dV CTA
   static constexpr int BR = 64 * NC / kHalves;       // q rows of a dQ CTA
-  static constexpr int BKQ = D == 256 ? 32 : 64;     // keys a dQ step
+  // keys a dQ step: 32 from DQ = 192 on (dQ's accumulator takes 96
+  // registers or more, and Q and dO 80 KiB or more)
+  static constexpr int BKQ = DQ >= 192 ? 32 : 64;
   // dK/dV: K and V (BKV rows), then the ring: per stage Q and dO (BN rows)
   // and the (lse, Dl, q position) rows, 3 x BN fp32
-  static constexpr uint32_t kKvTx = 2 * BN * kRow + 3 * BN * 4;
+  static constexpr uint32_t kKvTx = BN * (kRowQK + kRowV) + 3 * BN * 4;
   static constexpr uint32_t kKvStage = up1024(kKvTx);
-  static constexpr uint32_t kKvRing = 2 * BKV * kRow;
+  static constexpr uint32_t kKvRing = BKV * (kRowQK + kRowV);
   // barriers full[kStages], empty[kStages] and the first loads', then int
   // lo[4], hi[4] (the positions of 4 warps' 32 rows), then per tile walked
   // its least and greatest position
@@ -625,9 +674,9 @@ struct Geo {
   static constexpr uint32_t kKvRanges = kKvRed + 8 * 4;
   // dQ: Q and dO (BR rows), then per stage K and V (BKQ rows) and the kv
   // positions (BKQ int32)
-  static constexpr uint32_t kQTx = 2 * BKQ * kRow + BKQ * 4;
+  static constexpr uint32_t kQTx = BKQ * (kRowQK + kRowV) + BKQ * 4;
   static constexpr uint32_t kQStage = up1024(kQTx);
-  static constexpr uint32_t kQRing = 2 * BR * kRow;
+  static constexpr uint32_t kQRing = BR * (kRowQK + kRowV);
   static constexpr uint32_t kQBars = kQRing + kStages * kQStage;
   static constexpr uint32_t kQRed = kQBars + 8 * (2 * kStages + 1);
   static constexpr uint32_t kQRanges = kQRed + 8 * 4;
@@ -717,15 +766,14 @@ __device__ __forceinline__ void split(uint32_t (&hi)[4], uint32_t (&lo)[4],
   }
 }
 
-// d = A B^T over D: A's 64 rows at a_rows, B's N rows at b_rows, both
-// K-major in boxes of 64 columns a_box and b_box bytes apart.
-template <int N, int D>
+// d = A B^T over K columns: A's 64 rows at a_rows, B's N rows at b_rows,
+// both K-major in boxes of G::kBoxCols columns a_box and b_box bytes apart.
+template <int N, int K, class G>
 __device__ __forceinline__ void ss_product(float (&d)[N / 2], uint32_t a_rows,
                                            uint32_t a_box, uint32_t b_rows,
                                            uint32_t b_box) {
-  using G = Geo<D>;
 #pragma unroll
-  for (int k = 0; k < D / 16; ++k) {
+  for (int k = 0; k < K / 16; ++k) {
     const int bx = k / G::kKSteps, col = (k % G::kKSteps) * 32;
     sm90::wgmma_ss<N>(
         d, sm90::desc(a_rows + bx * a_box + col, 16, G::kAtom, G::kSwizzle),
@@ -743,7 +791,7 @@ __device__ __forceinline__ void store2(bf16* p, float a, float c) {
 // S^T), q columns 8 j + c0 + {0, 1}.  CAP: a softcap, WIN: a window
 // (window > 0); separate instantiations, so that the walk without them
 // keeps its registers.
-template <int D, bool CAP, bool WIN>
+template <int DQ, int DV, bool CAP, bool WIN>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
@@ -754,14 +802,15 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
                      const int* __restrict__ kv_pos, bf16* __restrict__ dk,
                      bf16* __restrict__ dv, int Sq, int Skv, int H, int Hkv,
                      int causal, int window, float softcap, float scale) {
-  using G = Geo<D>;
-  constexpr int BN = G::BN, BKV = G::BKV, RB = G::kRowBytes, NC2 = G::kCols;
+  using G = Geo<DQ, DV>;
+  constexpr int BN = G::BN, BKV = G::BKV, RB = G::kRowBytes;
+  constexpr int NK = G::kColsK, NV = G::kColsV;
   constexpr bool kSplit = G::kSplit;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
   unsigned char* base = smem_raw + pad;
-  const uint32_t sK = raw + pad, sV = sK + BKV * G::kRow;
+  const uint32_t sK = raw + pad, sV = sK + BKV * G::kRowQK;
   const uint32_t bar_full = sK + G::kKvBars;  // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * G::kStages;
   const uint32_t bar_kv = bar_empty + 8 * G::kStages;
@@ -774,7 +823,8 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   // most q tiles (the first, when causal) of every head launch first
   const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
   const int k0 = blockIdx.y / G::kHalves * BKV;
-  const int half = blockIdx.y % G::kHalves;  // columns half * kCols..
+  // the CTA's half: columns half * kColsK.. of dK, half * kColsV.. of dV
+  const int half = blockIdx.y % G::kHalves;
   const int groups = H / Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
@@ -785,14 +835,15 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     }
     sm90::mbar_init(bar_kv, 1);
     sm90::fence_mbar_init();
-    sm90::mbar_expect_tx(bar_kv, 2 * BKV * G::kRow);
+    sm90::mbar_expect_tx(bar_kv, BKV * (G::kRowQK + G::kRowV));
 #pragma unroll
-    for (int i = 0; i < G::kBoxes; ++i) {
+    for (int i = 0; i < G::kBoxesQK; ++i)
       sm90::tma_load_4d(sK + i * BKV * RB, &tk, bar_kv, i * G::kBoxCols, hk,
                         k0, b);
+#pragma unroll
+    for (int i = 0; i < G::kBoxesV; ++i)
       sm90::tma_load_4d(sV + i * BKV * RB, &tv, bar_kv, i * G::kBoxCols, hk,
                         k0, b);
-    }
   }
   row_ranges(kv_pos + (size_t)b * Skv, k0, BKV, Skv, red);
   tile_ranges<BN>(q_pos + (size_t)b * Sq, Sq, qlo, qhi);
@@ -821,14 +872,15 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           const uint32_t full = bar_full + 8 * st;
           sm90::mbar_expect_tx(full, G::kKvTx);
 #pragma unroll
-          for (int bx = 0; bx < G::kBoxes; ++bx) {
+          for (int bx = 0; bx < G::kBoxesQK; ++bx)
             sm90::tma_load_4d(dst + bx * BN * RB, &tq, full,
                               bx * G::kBoxCols, h, t * BN, b);
-            sm90::tma_load_4d(dst + BN * G::kRow + bx * BN * RB, &tdo, full,
-                              bx * G::kBoxCols, h, t * BN, b);
-          }
-          sm90::tma_load_4d(dst + 2 * BN * G::kRow, &tld, full, t * BN, 0, h,
-                            b);
+#pragma unroll
+          for (int bx = 0; bx < G::kBoxesV; ++bx)
+            sm90::tma_load_4d(dst + BN * G::kRowQK + bx * BN * RB, &tdo,
+                              full, bx * G::kBoxCols, h, t * BN, b);
+          sm90::tma_load_4d(dst + BN * (G::kRowQK + G::kRowV), &tld, full,
+                            t * BN, 0, h, b);
           ++i;
         }
       }
@@ -853,21 +905,24 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
   const float s_cap = softcap > 0.f ? scale / softcap : 0.f;
   const float cap_l2e = softcap * kLog2e;
   const uint32_t k_rows = sK + kw * RB, v_rows = sV + kw * RB;
-  // the byte offset of the half's first box in a streamed Q or dO tile
-  const uint32_t col_box = half * (NC2 / G::kBoxCols) * BN * RB;
+  // the byte offsets of the half's first box in a streamed Q and dO tile
+  const uint32_t col_box_k = half * (NK / G::kBoxCols) * BN * RB;
+  const uint32_t col_box_v = half * (NV / G::kBoxCols) * BN * RB;
   sm90::mbar_wait(bar_kv, 0);
 
-  // The walk of one consumer.  DV, DK: whether it adds dV and dK (both
-  // below D = 128; under the split consumer 0 adds dV, needing P^T only,
-  // and consumer 1 dK).  Compile-time, so that no wgmma sits on a branch
-  // ptxas cannot see to be warpgroup-uniform (it then serializes them).
+  // The walk of one consumer.  ADD_V, ADD_K: whether it adds dV and dK
+  // (both below D = 128; under the split consumer 0 adds dV, needing P^T
+  // only, and consumer 1 dK).  Compile-time, so that no wgmma sits on a
+  // branch ptxas cannot see to be warpgroup-uniform (it then serializes
+  // them).
   auto walk = [&](auto dv_flag, auto dk_flag) {
-    constexpr bool DV = decltype(dv_flag)::value, DK = decltype(dk_flag)::value;
-    float acc_v[DV ? NC2 / 2 : 1], acc_k[DK ? NC2 / 2 : 1];
+    constexpr bool ADD_V = decltype(dv_flag)::value;
+    constexpr bool ADD_K = decltype(dk_flag)::value;
+    float acc_v[ADD_V ? NV / 2 : 1], acc_k[ADD_K ? NK / 2 : 1];
 #pragma unroll
-    for (int e = 0; e < (DV ? NC2 / 2 : 1); ++e) acc_v[e] = 0.f;
+    for (int e = 0; e < (ADD_V ? NV / 2 : 1); ++e) acc_v[e] = 0.f;
 #pragma unroll
-    for (int e = 0; e < (DK ? NC2 / 2 : 1); ++e) acc_k[e] = 0.f;
+    for (int e = 0; e < (ADD_K ? NK / 2 : 1); ++e) acc_k[e] = 0.f;
     int i = 0;
     for (int g = 0; g < groups; ++g) {
       for (int t = 0; t < nqt; ++t) {
@@ -881,9 +936,10 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
             wall && q0 + BN <= Sq && (!causal || whi <= qlo[t]) &&
             (!WIN || (long long)qhi[t] - window < wlo);
         const uint32_t sQ = sK + G::kKvRing + st * G::kKvStage;
-        const uint32_t sdO = sQ + BN * G::kRow;
+        const uint32_t sdO = sQ + BN * G::kRowQK;
         const float* ld = reinterpret_cast<const float*>(
-            base + G::kKvRing + st * G::kKvStage + 2 * BN * G::kRow);
+            base + G::kKvRing + st * G::kKvStage +
+            BN * (G::kRowQK + G::kRowV));
         sm90::mbar_wait(bar_full + 8 * st, (i / G::kStages) & 1);
         if (!skip) {
           // S^T = K Q^T and (for dK) dP^T = V dO^T
@@ -893,9 +949,9 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           sm90::fence_regs(s);
           sm90::fence_regs(dp);
           sm90::wgmma_fence();
-          ss_product<BN, D>(s, k_rows, BKV * RB, sQ, BN * RB);
-          if constexpr (DK)
-            ss_product<BN, D>(dp, v_rows, BKV * RB, sdO, BN * RB);
+          ss_product<BN, DQ, G>(s, k_rows, BKV * RB, sQ, BN * RB);
+          if constexpr (ADD_K)
+            ss_product<BN, DV, G>(dp, v_rows, BKV * RB, sdO, BN * RB);
           sm90::wgmma_commit();
           sm90::wgmma_wait_all();
           sm90::fence_regs(s);
@@ -932,7 +988,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
               }
               s[4 * j + e] = p0;
               s[4 * j + 2 + e] = p1;
-              if constexpr (DK) {
+              if constexpr (ADD_K) {
                 const float dl = ld[BN + c];
                 dp[4 * j + e] = p0 * (dp[4 * j + e] - dl) * ch0;
                 dp[4 * j + 2 + e] = p1 * (dp[4 * j + 2 + e] - dl) * ch1;
@@ -943,34 +999,34 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
           // dV += P^T dO, then dK += dS^T Q: k steps of 16 q rows, B
           // MN-major (its 64-column boxes BN rows apart; at D = 256 the
           // half's two); each accumulator's products issued together
-          uint32_t ph[DV ? BN / 16 : 1][4], pl[DV ? BN / 16 : 1][4];
-          uint32_t sh[DK ? BN / 16 : 1][4], sl[DK ? BN / 16 : 1][4];
+          uint32_t ph[ADD_V ? BN / 16 : 1][4], pl[ADD_V ? BN / 16 : 1][4];
+          uint32_t sh[ADD_K ? BN / 16 : 1][4], sl[ADD_K ? BN / 16 : 1][4];
 #pragma unroll
           for (int kk = 0; kk < BN / 16; ++kk) {
-            if constexpr (DV) split(ph[kk], pl[kk], s, kk);
-            if constexpr (DK) split(sh[kk], sl[kk], dp, kk);
+            if constexpr (ADD_V) split(ph[kk], pl[kk], s, kk);
+            if constexpr (ADD_K) split(sh[kk], sl[kk], dp, kk);
           }
           sm90::fence_regs(acc_v);
           sm90::fence_regs(acc_k);
           sm90::wgmma_fence();
-          if constexpr (DV) {
+          if constexpr (ADD_V) {
 #pragma unroll
             for (int kk = 0; kk < BN / 16; ++kk) {
               const uint64_t bdo =
-                  sm90::desc(sdO + col_box + kk * 16 * RB, BN * RB,
+                  sm90::desc(sdO + col_box_v + kk * 16 * RB, BN * RB,
                              G::kAtom, G::kSwizzle);
-              sm90::wgmma_rs<NC2>(acc_v, ph[kk], bdo, BN * RB);
-              sm90::wgmma_rs<NC2>(acc_v, pl[kk], bdo, BN * RB);
+              sm90::wgmma_rs<NV>(acc_v, ph[kk], bdo, BN * RB);
+              sm90::wgmma_rs<NV>(acc_v, pl[kk], bdo, BN * RB);
             }
           }
-          if constexpr (DK) {
+          if constexpr (ADD_K) {
 #pragma unroll
             for (int kk = 0; kk < BN / 16; ++kk) {
               const uint64_t bq =
-                  sm90::desc(sQ + col_box + kk * 16 * RB, BN * RB, G::kAtom,
-                             G::kSwizzle);
-              sm90::wgmma_rs<NC2>(acc_k, sh[kk], bq, BN * RB);
-              sm90::wgmma_rs<NC2>(acc_k, sl[kk], bq, BN * RB);
+                  sm90::desc(sQ + col_box_k + kk * 16 * RB, BN * RB,
+                             G::kAtom, G::kSwizzle);
+              sm90::wgmma_rs<NK>(acc_k, sh[kk], bq, BN * RB);
+              sm90::wgmma_rs<NK>(acc_k, sl[kk], bq, BN * RB);
             }
           }
           sm90::wgmma_commit();
@@ -986,17 +1042,20 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
     // dK (scaled once) and dV in bf16 (the half's columns), keys past Skv
     // not written
 #pragma unroll
-    for (int j = 0; j < NC2 / 8; ++j) {
+    for (int r = 0; r < 2; ++r) {
+      if (!(r == 0 ? kin0 : kin1)) continue;
+      const size_t row = ((size_t)b * Skv + (r == 0 ? kr0 : kr1)) * Hkv + hk;
+      if constexpr (ADD_V) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        if (!(r == 0 ? kin0 : kin1)) continue;
-        const size_t o =
-            (((size_t)b * Skv + (r == 0 ? kr0 : kr1)) * Hkv + hk) * D +
-            half * NC2 + 8 * j + c0;
-        if constexpr (DV)
-          store2(dv + o, acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
-        if constexpr (DK)
-          store2(dk + o, acc_k[4 * j + 2 * r] * scale,
+        for (int j = 0; j < NV / 8; ++j)
+          store2(dv + row * DV + half * NV + 8 * j + c0,
+                 acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+      }
+      if constexpr (ADD_K) {
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j)
+          store2(dk + row * DQ + half * NK + 8 * j + c0,
+                 acc_k[4 * j + 2 * r] * scale,
                  acc_k[4 * j + 2 * r + 1] * scale);
       }
     }
@@ -1014,7 +1073,7 @@ flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tq,
 // dQ of BR q rows of one q head.  A consumer thread holds rows r0 and
 // r0 + 8 of its 64, columns 8 j + c0 + {0, 1} (at D = 256 of its half).
 // CAP, WIN: as dK/dV's.
-template <int D, bool CAP, bool WIN>
+template <int DQ, int DV, bool CAP, bool WIN>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tdo,
@@ -1026,13 +1085,13 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
                    const float* __restrict__ scratch, bf16* __restrict__ dq,
                    int Sq, int Skv, int H, int Hkv, int causal, int window,
                    float softcap, float scale) {
-  using G = Geo<D>;
-  constexpr int RB = G::kRowBytes, BR = G::BR, BK = G::BKQ, NC2 = G::kCols;
+  using G = Geo<DQ, DV>;
+  constexpr int RB = G::kRowBytes, BR = G::BR, BK = G::BKQ, NK = G::kColsK;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
   unsigned char* base = smem_raw + pad;
-  const uint32_t sQ = raw + pad, sdO = sQ + BR * G::kRow;
+  const uint32_t sQ = raw + pad, sdO = sQ + BR * G::kRowQK;
   const uint32_t bar_full = sQ + G::kQBars;  // + 8 * stage
   const uint32_t bar_empty = bar_full + 8 * G::kStages;
   const uint32_t bar_q = bar_empty + 8 * G::kStages;
@@ -1055,14 +1114,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
     }
     sm90::mbar_init(bar_q, 1);
     sm90::fence_mbar_init();
-    sm90::mbar_expect_tx(bar_q, 2 * BR * G::kRow);
+    sm90::mbar_expect_tx(bar_q, BR * (G::kRowQK + G::kRowV));
 #pragma unroll
-    for (int i = 0; i < G::kBoxes; ++i) {
+    for (int i = 0; i < G::kBoxesQK; ++i)
       sm90::tma_load_4d(sQ + i * BR * RB, &tq, bar_q, i * G::kBoxCols, h,
                         q0, b);
+#pragma unroll
+    for (int i = 0; i < G::kBoxesV; ++i)
       sm90::tma_load_4d(sdO + i * BR * RB, &tdo, bar_q, i * G::kBoxCols, h,
                         q0, b);
-    }
   }
   row_ranges(q_pos + (size_t)b * Sq, q0, BR, Sq, red);
   tile_ranges<BK>(kv_pos + (size_t)b * Skv, Skv, klo, khi);
@@ -1089,14 +1149,15 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         const uint32_t full = bar_full + 8 * st;
         sm90::mbar_expect_tx(full, G::kQTx);
 #pragma unroll
-        for (int bx = 0; bx < G::kBoxes; ++bx) {
+        for (int bx = 0; bx < G::kBoxesQK; ++bx)
           sm90::tma_load_4d(dst + bx * BK * RB, &tk, full, bx * G::kBoxCols,
                             hk, t * BK, b);
-          sm90::tma_load_4d(dst + BK * G::kRow + bx * BK * RB, &tv, full,
+#pragma unroll
+        for (int bx = 0; bx < G::kBoxesV; ++bx)
+          sm90::tma_load_4d(dst + BK * G::kRowQK + bx * BK * RB, &tv, full,
                             bx * G::kBoxCols, hk, t * BK, b);
-        }
-        sm90::tma_load_4d(dst + 2 * BK * G::kRow, &tkp, full, t * BK, b, 0,
-                          0);
+        sm90::tma_load_4d(dst + BK * (G::kRowQK + G::kRowV), &tkp, full,
+                          t * BK, b, 0, 0);
         ++i;
       }
     }
@@ -1127,11 +1188,11 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   const float cap_l2e = softcap * kLog2e;
   const uint32_t q_rows = sQ + 64 * rw * RB, do_rows = sdO + 64 * rw * RB;
   // the byte offset of the half's first box in a streamed K tile
-  const uint32_t col_box = half * (NC2 / G::kBoxCols) * BK * RB;
+  const uint32_t col_box = half * (NK / G::kBoxCols) * BK * RB;
 
-  float acc[NC2 / 2];
+  float acc[NK / 2];
 #pragma unroll
-  for (int i = 0; i < NC2 / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NK / 2; ++i) acc[i] = 0.f;
 
   sm90::mbar_wait(bar_q, 0);
   int i = 0;
@@ -1145,9 +1206,9 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
         wall && k0 + BK <= Skv && (!causal || khi[t] <= wlo) &&
         (!WIN || (long long)klo[t] > (long long)whi - window);
     const uint32_t sK = sQ + G::kQRing + st * G::kQStage;
-    const uint32_t sV = sK + BK * G::kRow;
+    const uint32_t sV = sK + BK * G::kRowQK;
     const int* kvp = reinterpret_cast<const int*>(
-        base + G::kQRing + st * G::kQStage + 2 * BK * G::kRow);
+        base + G::kQRing + st * G::kQStage + BK * (G::kRowQK + G::kRowV));
     sm90::mbar_wait(bar_full + 8 * st, (i / G::kStages) & 1);
 
     if (!skip) {
@@ -1158,8 +1219,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       sm90::fence_regs(s);
       sm90::fence_regs(dp);
       sm90::wgmma_fence();
-      ss_product<BK, D>(s, q_rows, BR * RB, sK, BK * RB);
-      ss_product<BK, D>(dp, do_rows, BR * RB, sV, BK * RB);
+      ss_product<BK, DQ, G>(s, q_rows, BR * RB, sK, BK * RB);
+      ss_product<BK, DV, G>(dp, do_rows, BR * RB, sV, BK * RB);
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
       sm90::fence_regs(s);
@@ -1207,8 +1268,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t bk = sm90::desc(sK + col_box + kk * 16 * RB, BK * RB,
                                        G::kAtom, G::kSwizzle);
-        sm90::wgmma_rs<NC2>(acc, sh[kk], bk, BK * RB);
-        sm90::wgmma_rs<NC2>(acc, sl[kk], bk, BK * RB);
+        sm90::wgmma_rs<NK>(acc, sh[kk], bk, BK * RB);
+        sm90::wgmma_rs<NK>(acc, sl[kk], bk, BK * RB);
       }
       sm90::wgmma_commit();
       sm90::wgmma_wait_all();
@@ -1221,13 +1282,13 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tq,
   // dQ (scaled once) in bf16 (the half's columns), rows past Sq not
   // written
 #pragma unroll
-  for (int j = 0; j < NC2 / 8; ++j) {
-    const int col = half * NC2 + 8 * j + c0;
+  for (int j = 0; j < NK / 8; ++j) {
+    const int col = half * NK + 8 * j + c0;
     if (qin0)
-      store2(dq + (((size_t)b * Sq + qi0) * H + h) * D + col,
+      store2(dq + (((size_t)b * Sq + qi0) * H + h) * DQ + col,
              acc[4 * j] * scale, acc[4 * j + 1] * scale);
     if (qin1)
-      store2(dq + (((size_t)b * Sq + qi1) * H + h) * D + col,
+      store2(dq + (((size_t)b * Sq + qi1) * H + h) * DQ + col,
              acc[4 * j + 2] * scale, acc[4 * j + 3] * scale);
   }
 }
@@ -1278,28 +1339,28 @@ cudaError_t make_map32(CUtensorMap* map, const void* ptr,
 }
 
 // The dK/dV and dQ launches, after the preprocess has filled `scratch`.
-template <int D>
+template <int DQ, int DV>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
                    const int* q_pos, const int* kv_pos, const bf16* dout,
                    float* scratch, bf16* dq, bf16* dk, bf16* dv, int B,
                    int Sq, int Skv, int H, int Hkv, int causal, int window,
                    float softcap, float scale, cudaStream_t stream) {
-  using G = Geo<D>;
+  using G = Geo<DQ, DV>;
   constexpr int BR = G::BR, BK = G::BKQ;
   if (Sq > G::max_len() || Skv > G::max_len()) return cudaErrorInvalidValue;
   const int Sqp = pad64(Sq), Skvp = pad64(Skv);
   CUtensorMap tq, tdo, tk, tv, tld, tq2, tdo2, tk2, tv2, tkp;
-  cudaError_t err = make_map(&tq, q, D, H, Sq, B, G::BN);
-  if (err == cudaSuccess) err = make_map(&tdo, dout, D, H, Sq, B, G::BN);
-  if (err == cudaSuccess) err = make_map(&tk, k, D, Hkv, Skv, B, G::BKV);
-  if (err == cudaSuccess) err = make_map(&tv, v, D, Hkv, Skv, B, G::BKV);
+  cudaError_t err = make_map(&tq, q, DQ, H, Sq, B, G::BN);
+  if (err == cudaSuccess) err = make_map(&tdo, dout, DV, H, Sq, B, G::BN);
+  if (err == cudaSuccess) err = make_map(&tk, k, DQ, Hkv, Skv, B, G::BKV);
+  if (err == cudaSuccess) err = make_map(&tv, v, DV, Hkv, Skv, B, G::BKV);
   if (err == cudaSuccess)
     err = make_map32(&tld, scratch, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                      {Sqp, 3, H, B}, G::BN, 3);
-  if (err == cudaSuccess) err = make_map(&tq2, q, D, H, Sq, B, BR);
-  if (err == cudaSuccess) err = make_map(&tdo2, dout, D, H, Sq, B, BR);
-  if (err == cudaSuccess) err = make_map(&tk2, k, D, Hkv, Skv, B, BK);
-  if (err == cudaSuccess) err = make_map(&tv2, v, D, Hkv, Skv, B, BK);
+  if (err == cudaSuccess) err = make_map(&tq2, q, DQ, H, Sq, B, BR);
+  if (err == cudaSuccess) err = make_map(&tdo2, dout, DV, H, Sq, B, BR);
+  if (err == cudaSuccess) err = make_map(&tk2, k, DQ, Hkv, Skv, B, BK);
+  if (err == cudaSuccess) err = make_map(&tv2, v, DV, Hkv, Skv, B, BK);
   if (err == cudaSuccess)
     err = make_map32(&tkp, scratch + 3LL * B * H * Sqp,
                      CU_TENSOR_MAP_DATA_TYPE_INT32, {Skvp, B, 1, 1}, BK, 1);
@@ -1307,10 +1368,10 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 
   const size_t smem_kv = G::smem_kv((Sq + G::BN - 1) / G::BN);
   const bool cap = softcap > 0.f, win = window > 0;
-  auto kern_kv = cap ? (win ? &flash_bwd_dkdv_wgmma<D, true, true>
-                            : &flash_bwd_dkdv_wgmma<D, true, false>)
-                     : (win ? &flash_bwd_dkdv_wgmma<D, false, true>
-                            : &flash_bwd_dkdv_wgmma<D, false, false>);
+  auto kern_kv = cap ? (win ? &flash_bwd_dkdv_wgmma<DQ, DV, true, true>
+                            : &flash_bwd_dkdv_wgmma<DQ, DV, true, false>)
+                     : (win ? &flash_bwd_dkdv_wgmma<DQ, DV, false, true>
+                            : &flash_bwd_dkdv_wgmma<DQ, DV, false, false>);
   err = rt::allow_smem(kern_kv, smem_kv);
   if (err != cudaSuccess) return err;
   kern_kv<<<dim3(Hkv * B, (Skv + G::BKV - 1) / G::BKV * G::kHalves), NT,
@@ -1321,10 +1382,10 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
   if (err != cudaSuccess) return err;
 
   const size_t smem_q = G::smem_q((Skv + BK - 1) / BK);
-  auto kern_q = cap ? (win ? &flash_bwd_dq_wgmma<D, true, true>
-                           : &flash_bwd_dq_wgmma<D, true, false>)
-                    : (win ? &flash_bwd_dq_wgmma<D, false, true>
-                           : &flash_bwd_dq_wgmma<D, false, false>);
+  auto kern_q = cap ? (win ? &flash_bwd_dq_wgmma<DQ, DV, true, true>
+                           : &flash_bwd_dq_wgmma<DQ, DV, true, false>)
+                    : (win ? &flash_bwd_dq_wgmma<DQ, DV, false, true>
+                           : &flash_bwd_dq_wgmma<DQ, DV, false, false>);
   err = rt::allow_smem(kern_q, smem_q);
   if (err != cudaSuccess) return err;
   kern_q<<<dim3(H * B, (Sq + BR - 1) / BR), NT, smem_q, stream>>>(
@@ -1335,14 +1396,14 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
 
 }  // namespace wg
 
-template <typename T, int D>
+template <typename T, int DQ, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* q_pos, const int* kv_pos, const void* out,
                    const float* lse, const void* dout, void* dq, void* dk,
                    void* dv, float* Dl, int B, int Sq, int Skv, int H,
                    int Hkv, int causal, int window, float softcap,
                    float scale, cudaStream_t stream) {
-  constexpr int DP = D + 1;
+  constexpr int DPQ = DQ + 1, DPV = DV + 1;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -1352,33 +1413,33 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if constexpr (std::is_same_v<T, __nv_bfloat16>) {
     const long long rows = (long long)B * H * pad64(Sq);
     const long long kvs = (long long)B * pad64(Skv);
-    constexpr int RPB = NT / row_lanes(D);  // rows a block
+    constexpr int RPB = NT / row_lanes(DV);  // rows a block
     const long long br = (rows + RPB - 1) / RPB, bk = (kvs + NT - 1) / NT;
     const long long blocks = br > bk ? br : bk;
-    flash_bwd_preprocess<T, D, true><<<dim3((unsigned)blocks, 2), NT, 0,
-                                       stream>>>(ot, gt, lse, q_pos, kv_pos,
-                                                 Dl, B, Sq, Skv, H);
+    flash_bwd_preprocess<T, DV, true><<<dim3((unsigned)blocks, 2), NT, 0,
+                                        stream>>>(ot, gt, lse, q_pos, kv_pos,
+                                                  Dl, B, Sq, Skv, H);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    return wg::launch<D>(qt, kt, vt, q_pos, kv_pos, gt, Dl,
+    return wg::launch<DQ, DV>(qt, kt, vt, q_pos, kv_pos, gt, Dl,
                          static_cast<T*>(dq), static_cast<T*>(dk),
                          static_cast<T*>(dv), B, Sq, Skv, H, Hkv, causal,
                          window, softcap, scale, stream);
   } else {
     const long long rows = (long long)B * Sq * H;
     constexpr int WB = NT / 32;  // rows (warps) a block
-    flash_bwd_preprocess<T, D, false><<<(unsigned)((rows + WB - 1) / WB), NT,
-                                        0, stream>>>(ot, gt, lse, q_pos,
-                                                     kv_pos, Dl, B, Sq, Skv,
-                                                     H);
+    flash_bwd_preprocess<T, DV, false><<<(unsigned)((rows + WB - 1) / WB),
+                                         NT, 0, stream>>>(ot, gt, lse, q_pos,
+                                                          kv_pos, Dl, B, Sq,
+                                                          Skv, H);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     // q rows a dK/dV step and keys a dQ step: 64; 32 at D = 256, whose
     // 64-row tiles would pass the 227 KiB
-    constexpr int QR = D == 256 ? 32 : BQ, KR = D == 256 ? 32 : BK;
-    const size_t smem_kv =
-        sizeof(float) * (2 * BK * DP + 2 * QR * DP + 2 * QR * PS);
-    auto kern_kv = flash_bwd_dkdv_simt<T, D, QR>;
+    constexpr int QR = DQ == 256 ? 32 : BQ, KR = DQ == 256 ? 32 : BK;
+    const size_t smem_kv = sizeof(float) * (BK * (DPQ + DPV) +
+                                            QR * (DPQ + DPV) + 2 * QR * PS);
+    auto kern_kv = flash_bwd_dkdv_simt<T, DQ, DV, QR>;
     err = rt::allow_smem(kern_kv, smem_kv);
     if (err != cudaSuccess) return err;
     kern_kv<<<dim3((Skv + BK - 1) / BK, Hkv, B), NT, smem_kv, stream>>>(
@@ -1388,9 +1449,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
-    const size_t smem_q =
-        sizeof(float) * (2 * BQ * DP + 2 * KR * DP + BQ * (KR + 4));
-    auto kern_q = flash_bwd_dq_simt<T, D, KR>;
+    const size_t smem_q = sizeof(float) * (BQ * (DPQ + DPV) +
+                                           KR * (DPQ + DPV) + BQ * (KR + 4));
+    auto kern_q = flash_bwd_dq_simt<T, DQ, DV, KR>;
     err = rt::allow_smem(kern_q, smem_q);
     if (err != cudaSuccess) return err;
     kern_q<<<dim3((Sq + BQ - 1) / BQ, H, B), NT, smem_q, stream>>>(
@@ -1400,53 +1461,56 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   }
 }
 
-// The instantiated head dims; ops.py's HEAD_DIMS lists the same.
+// The instantiated (q/k, v) head dims; ops.py's HEAD_DIMS lists the same.
 template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
+cudaError_t dispatch(int D, int Dv, const void* q, const void* k, const void* v,
                      const int* q_pos, const int* kv_pos, const void* out,
                      const float* lse, const void* dout, void* dq, void* dk,
                      void* dv, float* Dl, int B, int Sq, int Skv, int H,
                      int Hkv, int causal, int window, float softcap,
                      float scale, cudaStream_t stream) {
-#define REPRO_FLASH_BWD_CASE(A)                                             \
-  if (D == A)                                                               \
-    return launch<T, A>(q, k, v, q_pos, kv_pos, out, lse, dout, dq, dk, dv, \
-                        Dl, B, Sq, Skv, H, Hkv, causal, window, softcap,    \
-                        scale, stream);
-  REPRO_FLASH_BWD_CASE(32)
-  REPRO_FLASH_BWD_CASE(64)
-  REPRO_FLASH_BWD_CASE(80)
-  REPRO_FLASH_BWD_CASE(128)
-  REPRO_FLASH_BWD_CASE(256)
+#define REPRO_FLASH_BWD_CASE(A, AV)                                         \
+  if (D == A && Dv == AV)                                                   \
+    return launch<T, A, AV>(q, k, v, q_pos, kv_pos, out, lse, dout, dq, dk, \
+                            dv, Dl, B, Sq, Skv, H, Hkv, causal, window,     \
+                            softcap, scale, stream);
+  REPRO_FLASH_BWD_CASE(32, 32)
+  REPRO_FLASH_BWD_CASE(64, 64)
+  REPRO_FLASH_BWD_CASE(80, 80)
+  REPRO_FLASH_BWD_CASE(128, 128)
+  REPRO_FLASH_BWD_CASE(192, 128)
+  REPRO_FLASH_BWD_CASE(256, 256)
 #undef REPRO_FLASH_BWD_CASE
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The most q rows (Sq) and keys (Skv) the bf16 route takes at head dim D:
-// its tile ranges, 8 bytes a tile, share each CTA's 227 KiB of shared
-// memory with the tiles it keeps and its ring.  0 for a head dim the kernel
-// is not instantiated for.
-extern "C" int repro_flash_bwd_max_len(int D) {
-  if (D == 32) return wg::Geo<32>::max_len();
-  if (D == 64) return wg::Geo<64>::max_len();
-  if (D == 80) return wg::Geo<80>::max_len();
-  if (D == 128) return wg::Geo<128>::max_len();
-  if (D == 256) return wg::Geo<256>::max_len();
+// The most q rows (Sq) and keys (Skv) the bf16 route takes at q/k head dim
+// D and v head dim Dv: its tile ranges, 8 bytes a tile, share each CTA's
+// 227 KiB of shared memory with the tiles it keeps and its ring.  0 for a
+// pair the kernel is not instantiated for.
+extern "C" int repro_flash_bwd_max_len(int D, int Dv) {
+  if (D == 32 && Dv == 32) return wg::Geo<32>::max_len();
+  if (D == 64 && Dv == 64) return wg::Geo<64>::max_len();
+  if (D == 80 && Dv == 80) return wg::Geo<80>::max_len();
+  if (D == 128 && Dv == 128) return wg::Geo<128>::max_len();
+  if (D == 192 && Dv == 128) return wg::Geo<192, 128>::max_len();
+  if (D == 256 && Dv == 256) return wg::Geo<256>::max_len();
   return 0;
 }
 
 // Returns the CUDA error of the three launches (0 on success).  D is the
-// head dim of q, k and v alike; window <= 0 and softcap <= 0 mean none.  Dl is fp32 scratch: B * Sq * H for fp32;
+// head dim of q and k, Dv that of v (and of out and dout); window <= 0 and
+// softcap <= 0 mean none.  Dl is fp32 scratch: B * Sq * H for fp32;
 // 3 * B * H * Sqp + B * Skvp for bf16, Sqp and Skvp being Sq and Skv
 // rounded up to a multiple of 64 (16-byte aligned, as TMA reads it).
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* q_pos,
     const void* kv_pos, const void* out, const void* lse, const void* dout,
     void* dq, void* dk, void* dv, void* Dl, int B, int Sq, int Skv, int H,
-    int Hkv, int D, int causal, int window, float softcap, float scale,
-    int dtype, void* stream) {
+    int Hkv, int D, int Dv, int causal, int window, float softcap,
+    float scale, int dtype, void* stream) {
   if (B <= 0 || Sq <= 0 || Skv <= 0 || Hkv <= 0 || H % Hkv != 0)
     return cudaErrorInvalidValue;
   const int* qp = static_cast<const int*>(q_pos);
@@ -1455,12 +1519,12 @@ extern "C" int repro_flash_attention_bwd(
   float* dl = static_cast<float*>(Dl);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == rt::kF32)
-    return dispatch<float>(D, q, k, v, qp, kp, out, ls, dout, dq, dk, dv, dl,
-                           B, Sq, Skv, H, Hkv, causal, window, softcap,
+    return dispatch<float>(D, Dv, q, k, v, qp, kp, out, ls, dout, dq, dk, dv,
+                           dl, B, Sq, Skv, H, Hkv, causal, window, softcap,
                            scale, s);
   if (dtype == rt::kBF16)
-    return dispatch<__nv_bfloat16>(D, q, k, v, qp, kp, out, ls, dout, dq, dk,
-                                   dv, dl, B, Sq, Skv, H, Hkv, causal, window,
-                                   softcap, scale, s);
+    return dispatch<__nv_bfloat16>(D, Dv, q, k, v, qp, kp, out, ls, dout, dq,
+                                   dk, dv, dl, B, Sq, Skv, H, Hkv, causal,
+                                   window, softcap, scale, s);
   return cudaErrorInvalidValue;
 }

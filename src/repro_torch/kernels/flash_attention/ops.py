@@ -188,10 +188,11 @@ class FlashAttentionFn(torch.autograd.Function):
     """``flash_attention`` under autograd: the forward kernel with ``lse``
     on CUDA (the plain forward on the CPU), saving q, k, v, the positions,
     out and lse; the backward kernel on CUDA (the plain backward on the
-    CPU), with the forward's causal flag, window and softcap.  On the card a
-    backward the kernel cannot take (v's head dim apart from q's, an
-    uninstantiated head dim) raises ``ValueError`` before the forward
-    runs."""
+    CPU), with the forward's causal flag, window and softcap.  The two
+    kernels take the same (q/k, v) head-dim pairs (MLA's (192, 128) among
+    them); on the card a pair outside the backward's ``HEAD_DIMS`` raises
+    ``ValueError`` before the forward runs, so that no graph is built
+    whose backward cannot run."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, kv_pos, causal, window, softcap):

@@ -10,9 +10,10 @@ in ``ROUTE_LAUNCHES``: "wgmma" for bf16 inputs (the products on the
 tensor cores by ``wgmma``, the tiles brought by TMA, fp32 sums; q, k, v,
 out and dout must start on a 16-byte boundary, and Sq and Skv may not pass
 ``max_len``), "simt" for fp32 inputs (the CUDA cores).  Both routes take a
-sliding window and a tanh softcap, as the plain version does; v's head dim
-apart from q's (MLA) and head dims outside ``HEAD_DIMS`` are refused on
-the card (``ValueError``); it never falls back to the plain version.
+sliding window and a tanh softcap, as the plain version does, at the (q/k,
+v) head-dim pairs of ``HEAD_DIMS`` (v's apart from q's at MLA's (192,
+128)); any other pair is refused on the card (``ValueError``); it never
+falls back to the plain version.
 ``kernels/flash_attention/ops.py::FlashAttentionFn`` calls it from
 autograd.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -29,8 +31,9 @@ from repro_torch.models import flash
 
 NAME = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the head dims the kernel is instantiated for (q, k and v alike)
-HEAD_DIMS = (32, 64, 80, 128, 256)
+# the (q/k, v) head dims the kernel is instantiated for, on both routes
+HEAD_DIMS = ((32, 32), (64, 64), (80, 80), (128, 128), (192, 128),
+             (256, 256))
 _ROUTES = {torch.float32: "simt", torch.bfloat16: "wgmma"}
 _LIB = None
 
@@ -46,17 +49,20 @@ def route(dtype) -> str:
     return _ROUTES[dtype]
 
 
-def max_len(D: int) -> int:
-    """The most q rows (Sq) and keys (Skv) the bf16 route takes at head
-    dim ``D``, as the built kernel computes it (``repro_flash_bwd_max_len``):
-    the least and greatest position of each tile it walks, 8 bytes a tile,
-    share each CTA's 227 KiB of shared memory with its tiles and its ring.
-    244,928 at D = 80 and 128, 122,464 at D = 256."""
-    return _lib().repro_flash_bwd_max_len(D)
+def max_len(dqk: int, dv: Optional[int] = None) -> int:
+    """The most q rows (Sq) and keys (Skv) the bf16 route takes at q/k head
+    dim ``dqk`` and v head dim ``dv`` (``dqk`` when absent), as the built
+    kernel computes it (``repro_flash_bwd_max_len``): the least and
+    greatest position of each tile it walks, 8 bytes a tile, share each
+    CTA's 227 KiB of shared memory with its tiles and its ring.  244,928 at
+    (80, 80) and (128, 128), 253,536 at (192, 128), 122,464 at (256,
+    256); 0 for a pair it has no instantiation for."""
+    return _lib().repro_flash_bwd_max_len(dqk, dqk if dv is None else dv)
 
 
 def scratch_len(dtype, B: int, Sq: int, Skv: int, H: int) -> int:
-    """fp32 words of the kernel's scratch: Dl (B, Sq, H) on the fp32 route;
+    """fp32 words of the kernel's scratch, whatever the head dims: Dl (B,
+    Sq, H) on the fp32 route;
     on the bf16 route, for each (batch row, q head) the rows' lse, Dl and q
     positions side by side, (B, H, 3, Sqp), then the kv positions (B,
     Skvp), Sqp and Skvp being Sq and Skv rounded up to a multiple of 64 (so
@@ -81,15 +87,16 @@ def flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse, dout, *,
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C entry points of a loaded library:
-    ``repro_flash_attention_bwd`` and, where the library has it (not
-    before the wgmma route), ``repro_flash_bwd_max_len``."""
+    ``repro_flash_attention_bwd`` (q/k's and v's head dims apart) and,
+    where the library has it (not before the wgmma route),
+    ``repro_flash_bwd_max_len``."""
     fn = lib.repro_flash_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     if hasattr(lib, "repro_flash_bwd_max_len"):
         lib.repro_flash_bwd_max_len.restype = ctypes.c_int
-        lib.repro_flash_bwd_max_len.argtypes = [ctypes.c_int]
+        lib.repro_flash_bwd_max_len.argtypes = [ctypes.c_int] * 2
     return lib
 
 
@@ -102,14 +109,15 @@ def _lib():
 
 def check_supported(q, k, v, *, window=0, softcap=0.0) -> None:
     """Raise ``ValueError`` where the card's kernel cannot take the
-    backward: v's head dim apart from q's (MLA's 192 / 128 waits for its
-    own instantiation), or a head dim it is not instantiated for (one
-    outside ``HEAD_DIMS``).  Any ``window`` and ``softcap`` are taken.
+    backward: k's head dim apart from q's, or a (q/k, v) pair it is not
+    instantiated for (one outside ``HEAD_DIMS``; MLA's (192, 128) is
+    one of them).  Any ``window`` and ``softcap`` are taken.
     ``FlashAttentionFn`` asks before its forward runs."""
     D, Dk, Dv = q.shape[-1], k.shape[-1], v.shape[-1]
-    if not D == Dk == Dv or D not in HEAD_DIMS:
+    if D != Dk or (D, Dv) not in HEAD_DIMS:
         raise ValueError(f"{NAME}: head dims q {D}, k {Dk}, v {Dv}; the "
-                         f"kernel takes one of {HEAD_DIMS} for all three")
+                         f"kernel takes one of {HEAD_DIMS} as (q/k, v), q "
+                         f"and k alike")
 
 
 def _check(q, k, v, q_pos, kv_pos, out, lse, dout, window=0, softcap=0.0):
@@ -131,19 +139,20 @@ def _check(q, k, v, q_pos, kv_pos, out, lse, dout, window=0, softcap=0.0):
         raise TypeError(f"{NAME}: lse must be float32, got {lse.dtype}")
     if q_pos.dtype != torch.int32 or kv_pos.dtype != torch.int32:
         raise TypeError(f"{NAME}: positions must be int32")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError(f"{NAME}: q (B,Sq,H,D), k and v (B,Skv,Hkv,D); "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"{NAME}: q (B,Sq,H,Dqk), k (B,Skv,Hkv,Dqk), v "
+                         f"(B,Skv,Hkv,Dv); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     if k.shape[0] != B or H % Hkv:
         raise ValueError(f"{NAME}: q {tuple(q.shape)} vs k {tuple(k.shape)}")
-    if out.shape != q.shape or dout.shape != q.shape or \
+    if out.shape != (B, Sq, H, Dv) or dout.shape != out.shape or \
             lse.shape != (B, Sq, H):
         raise ValueError(f"{NAME}: out {tuple(out.shape)}, dout "
-                         f"{tuple(dout.shape)} must be q's shape "
-                         f"{tuple(q.shape)}, lse {tuple(lse.shape)} "
+                         f"{tuple(dout.shape)} must be (B, Sq, H, Dv) "
+                         f"{(B, Sq, H, Dv)}, lse {tuple(lse.shape)} "
                          f"(B, Sq, H)")
     if q_pos.shape != (B, Sq) or kv_pos.shape != (B, Skv):
         raise ValueError(f"{NAME}: positions {tuple(q_pos.shape)}, "
@@ -161,10 +170,11 @@ def _check(q, k, v, q_pos, kv_pos, out, lse, dout, window=0, softcap=0.0):
                                  f"16-byte boundary (TMA and 16-byte loads "
                                  f"read its tiles), its address is "
                                  f"{t.data_ptr():#x}")
-        limit = max_len(D)
+        limit = max_len(D, Dv)
         if max(Sq, Skv) > limit:
             raise ValueError(f"{NAME}: bf16 takes at most {limit} q rows "
-                             f"and keys at head dim {D} (each CTA keeps "
+                             f"and keys at head dims (q/k {D}, v {Dv}) "
+                             f"(each CTA keeps "
                              f"the position range of every tile it walks "
                              f"in its 227 KiB of shared memory), got Sq "
                              f"{Sq}, Skv {Skv}")
@@ -173,8 +183,9 @@ def _check(q, k, v, q_pos, kv_pos, out, lse, dout, window=0, softcap=0.0):
 def flash_attention_bwd(q, k, v, q_pos, kv_pos, out, lse, dout, *,
                         causal=True, window=0, softcap=0.0):
     """(dq, dk, dv) in the inputs' dtype: the gradients of
-    ``flash_attention`` at q (B,Sq,H,D), k and v (B,Skv,Hkv,D), from its
-    output ``out``, its ``lse`` (B,Sq,H) fp32 and ``dout``."""
+    ``flash_attention`` at q (B,Sq,H,Dqk), k (B,Skv,Hkv,Dqk) and v
+    (B,Skv,Hkv,Dv), from its output ``out`` (B,Sq,H,Dv), its ``lse``
+    (B,Sq,H) fp32 and ``dout`` (out's shape)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, q_pos, kv_pos, out, lse,
                                          dout, causal=causal, window=window,
@@ -195,7 +206,7 @@ def launch(lib, q, k, v, q_pos, kv_pos, out, lse, dout, *, causal,
     launches) on checked CUDA tensors; raises if a launch failed.  Counts
     nothing."""
     B, Sq, H, D = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
+    Skv, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     scratch = torch.empty(scratch_len(q.dtype, B, Sq, Skv, H),
                           dtype=torch.float32, device=q.device)
@@ -205,7 +216,7 @@ def launch(lib, q, k, v, q_pos, kv_pos, out, lse, dout, *, causal,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_pos.data_ptr(),
             kv_pos.data_ptr(), out.data_ptr(), lse.data_ptr(),
             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            scratch.data_ptr(), B, Sq, Skv, H, Hkv, D, int(bool(causal)),
+            scratch.data_ptr(), B, Sq, Skv, H, Hkv, D, Dv, int(bool(causal)),
             int(window), float(softcap), 1.0 / math.sqrt(D),
             _DTYPES[q.dtype], stream)
     if err != 0:

@@ -14,7 +14,9 @@ seed 0).  ``--kernel flash_attention`` (the default) runs the bf16 causal
 prefill shapes that ``chip_smoke.py`` times; ``--kernel
 flash_attention_bwd`` the backward at ``chip_smoke.py`` phase 3's three
 bf16 causal training shapes (``BWD_SHAPES``; out and lse from this
-checkout's forward), holding the two checkouts' (dq, dk, dv) to each other
+checkout's forward; an older library whose entry point takes one head
+dim for q, k and v is declared by this tool with its own arguments),
+holding the two checkouts' (dq, dk, dv) to each other
 with phase 3's tolerance (``bwd_tol``), its "alone" time the sum over the
 library's own bf16 ``__global__`` functions, read from its source (the
 preprocess, dK/dV and dQ kernels); ``--kernel paged_attention``
@@ -210,34 +212,54 @@ def build_other(root: Path, kernel: str = "flash_attention") -> ctypes.CDLL:
         return _bind_wgrad_without_route(lib)
     if kernel == "flash_attention" and not _flash_takes(src, "lse"):
         return _bind_flash_older(lib, _flash_takes(src, "int DV"))
-    if kernel == "flash_attention_bwd" and not _bwd_takes_window(src):
-        return _bind_bwd_older(lib)
+    if kernel == "flash_attention_bwd" and not _bwd_takes(src, "int Dv"):
+        return _bind_bwd_older(lib, _bwd_takes(src, "int window"))
     return _ops(kernel).bind(lib)
 
 
-def _bwd_takes_window(src: Path) -> bool:
-    """Whether a ``flash_attention_bwd.cu``'s C entry point takes a window
-    and a softcap (added for H2O-Danube-1.8B's training)."""
+def _bwd_takes(src: Path, arg: str) -> bool:
+    """Whether a ``flash_attention_bwd.cu``'s C entry point names ``arg``:
+    a window and a softcap (``int window``, added for H2O-Danube-1.8B's
+    training) or v's head dim apart from q's (``int Dv``, added for MLA's
+    training)."""
     sig = re.search(r"repro_flash_attention_bwd\(([^)]*)\)", src.read_text())
-    return sig is not None and "int window" in sig.group(1)
+    return sig is not None and arg in sig.group(1)
 
 
-def _bind_bwd_older(lib: ctypes.CDLL):
-    """An older library's ``repro_flash_attention_bwd``, without the window
-    and softcap arguments, behind the current signature: both must be 0 (as
-    at every shape timed here) and are dropped."""
+def _bind_bwd_older(lib: ctypes.CDLL, takes_window: bool):
+    """An older library's ``repro_flash_attention_bwd``, with one head dim
+    for q, k and v and, before the window, without the window and softcap
+    arguments, behind the current signature: v's head dim must equal q's
+    and the window and softcap be 0 where the library lacks them (as at
+    every shape timed here), and they are dropped.  Its
+    ``repro_flash_bwd_max_len`` (one head dim) is declared the same way."""
     fn = lib.repro_flash_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    n_int, n_float = 7 + takes_window, 1 + takes_window
+    fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * n_int
+                   + [ctypes.c_float] * n_float
+                   + [ctypes.c_int, ctypes.c_void_p])
 
     def call(*args):
-        if args[19] or args[20]:
-            raise ValueError("an older backward takes no window or softcap")
-        return fn(*args[:19], *args[21:])
-    return types.SimpleNamespace(repro_flash_attention_bwd=call,
-                                 repro_flash_bwd_max_len=getattr(
-                                     lib, "repro_flash_bwd_max_len", None))
+        # args: 12 pointers, B, Sq, Skv, H, Hkv, D, Dv (18), causal (19),
+        # window (20), softcap (21), scale, dtype, stream
+        if args[18] != args[17]:
+            raise ValueError("an older backward takes one head dim")
+        if not takes_window:
+            if args[20] or args[21]:
+                raise ValueError("an older backward takes no window or "
+                                 "softcap")
+            return fn(*args[:18], args[19], *args[22:])
+        return fn(*args[:18], *args[19:])
+
+    lim = getattr(lib, "repro_flash_bwd_max_len", None)
+    if lim is not None:
+        lim.restype = ctypes.c_int
+        lim.argtypes = [ctypes.c_int]
+    return types.SimpleNamespace(
+        repro_flash_attention_bwd=call,
+        repro_flash_bwd_max_len=None if lim is None else (
+            lambda D, Dv: lim(D) if D == Dv else 0))
 
 
 def _flash_takes(src: Path, arg: str) -> bool:

@@ -25,14 +25,28 @@ def loss_and_grads(cfg: ModelConfig, params, batch, *, remat: bool = True):
     ``params``, as a tree of the same keys in the leaves' dtypes.  The
     params themselves are not marked: the loss runs on detached aliases
     (the same storage) that require grad.  A leaf the loss does not reach
-    raises."""
+    raises ``ValueError`` naming it (the vision decoder's ``adapter`` in a
+    batch without patches: the reference's gradient there is zeros, and
+    AdamW's weight decay would still move the leaf)."""
     req = optim.tree_map(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss = T.forward_loss(cfg, req, batch, remat=remat)
         leaves = optim.tree_leaves(req)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    missed = [name for name, g in zip(_paths(req), grads) if g is None]
+    if missed:
+        raise ValueError(f"{cfg.name}: the loss does not reach {missed} "
+                         f"(a vision decoder's batch needs its patches)")
     it = iter(grads)
     return loss.detach(), _unflatten(req, it)
+
+
+def _paths(tree, prefix=""):
+    """The dotted path of each leaf, in ``optim.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _paths(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
 
 
 def _unflatten(tree, it):
@@ -45,8 +59,11 @@ def train_step(cfg: ModelConfig, params, opt_state, batch,
                ocfg: optim.AdamWConfig, *, microbatches: int = 1,
                remat: bool = True) -> Dict[str, torch.Tensor]:
     """One training step: the loss and gradients of ``batch`` (``tokens``
-    and ``labels``, (B, S) each, on the params' device), over
-    ``microbatches`` equal slices of B when more than one, then AdamW.
+    and ``labels``, (B, S) each, on the params' device; the
+    encoder-decoder's ``frames`` and the vision decoder's ``patches``
+    beside them, and its labels (B, P + S)), over ``microbatches`` equal
+    slices of B (every key sliced on dim 0) when more than one, then
+    AdamW.
     ``params`` and ``opt_state`` are updated in place.  Returns
     ``{"loss", "grad_norm"}`` (fp32 scalars on the device)."""
     n_mb = microbatches

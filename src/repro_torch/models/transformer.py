@@ -39,6 +39,7 @@ teacher-forced forward.
 """
 from __future__ import annotations
 
+import functools
 import math
 import weakref
 from typing import Any, Callable, Dict, List, Tuple
@@ -587,23 +588,36 @@ def _assemble_inputs(cfg, params, tokens, patches=None):
     return h, positions
 
 
-def _encode(cfg, params, frames):
-    """The encoder over stub frame embeddings (B, Se, D): ``adapter``,
-    sinusoid positions, non-causal self-attention layers without RoPE,
-    then ``enc_norm``.  Returns (states (B, Se, D), positions (B, Se))."""
+def _enc_inputs(cfg, params, frames):
+    """The encoder's input: stub frame embeddings (B, Se, D) times
+    ``adapter`` (an fp32 product, cast to ``cfg.dtype``) plus sinusoid
+    positions.  Returns (h, positions (B, Se))."""
     dt = compat.torch_dtype(cfg.dtype)
     h = torch.matmul(frames.float(), params["adapter"].float()).to(dt)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
-    h = h + layers.sinusoid_pos(positions, cfg.d_model, h.dtype)
+    return h + layers.sinusoid_pos(positions, cfg.d_model, h.dtype), positions
+
+
+def _enc_layer_fwd(cfg, p, h, positions):
+    """One encoder layer: non-causal self-attention without RoPE, the
+    MLP."""
+    xn = layers.apply_norm(cfg, p["ln1"], h)
+    a, _ = layers.attention_fwd(cfg, p["attn"], xn, positions, causal=False,
+                                use_rope=False)
+    h = h + a
+    return h + layers.mlp_fwd(cfg, p["mlp"], layers.apply_norm(cfg, p["ln2"],
+                                                               h))
+
+
+def _encode(cfg, params, frames):
+    """The encoder over stub frame embeddings (B, Se, D): ``_enc_inputs``,
+    its layers, then ``enc_norm``.  Returns (states (B, Se, D), positions
+    (B, Se))."""
+    h, positions = _enc_inputs(cfg, params, frames)
     for p in _per_layer(params, "enc_layers"):
-        xn = layers.apply_norm(cfg, p["ln1"], h)
-        a, _ = layers.attention_fwd(cfg, p["attn"], xn, positions,
-                                    causal=False, use_rope=False)
-        h = h + a
-        h = h + layers.mlp_fwd(cfg, p["mlp"],
-                               layers.apply_norm(cfg, p["ln2"], h))
+        h = _enc_layer_fwd(cfg, p, h, positions)
     return layers.apply_norm(cfg, params["enc_norm"], h), positions
 
 
@@ -665,6 +679,22 @@ def _hybrid_backbone(cfg, params, h, positions, tab):
     return h, cache
 
 
+def _check_stubs(cfg: ModelConfig, frames, patches) -> None:
+    """Raise ``ValueError`` on frames outside the encoder-decoder, patches
+    outside the vision decoder, or the encoder-decoder without frames of
+    (B, encoder_seq, d_model)."""
+    if (frames is not None and cfg.family != "audio") or \
+            (patches is not None and cfg.family != "vlm"):
+        raise ValueError(f"{cfg.name}: frames are Whisper's input and "
+                         f"patches Pixtral's, not the {cfg.family} "
+                         f"family's")
+    if cfg.family == "audio":
+        got = None if frames is None else tuple(frames.shape)
+        if got is None or got[1:] != (cfg.encoder_seq, cfg.d_model):
+            raise ValueError(f"{cfg.name}: the encoder needs frames of (B, "
+                             f"{cfg.encoder_seq}, {cfg.d_model}), got {got}")
+
+
 def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
               patches=None):
     """tokens (B, S) -> (final-normed hidden (B, S', D), cache); the cache
@@ -674,18 +704,10 @@ def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
     with Pixtral's ``patches`` (B, P, D) placed first; the
     encoder-decoder needs ``frames`` (B, encoder_seq, D)."""
     check_model(cfg)
-    if (frames is not None and cfg.family != "audio") or \
-            (patches is not None and cfg.family != "vlm"):
-        raise ValueError(f"{cfg.name}: frames are Whisper's input and "
-                         f"patches Pixtral's, not the {cfg.family} "
-                         f"family's")
+    _check_stubs(cfg, frames, patches)
     h, positions = _assemble_inputs(cfg, params, tokens, patches)
     B, S = positions.shape
     if cfg.family == "audio":
-        got = None if frames is None else tuple(frames.shape)
-        if got is None or got[1:] != (cfg.encoder_seq, cfg.d_model):
-            raise ValueError(f"{cfg.name}: prefill needs frames of (B, "
-                             f"{cfg.encoder_seq}, {cfg.d_model}), got {got}")
         enc, enc_pos = _encode(cfg, params, frames)
         cache = init_cache(cfg, B, S, tokens.device)
         for i, p in enumerate(_per_layer(params)):
@@ -739,22 +761,12 @@ AUX_COEF = 0.01
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """What ``forward_loss`` trains: the dense decoders (H2O-Danube's
-    sliding window among them), the MoE decoders with GQA attention, the
-    Mamba-2 SSMs and the RecurrentGemma hybrid.  Each other family raises
-    ``ValueError`` naming what its training still needs."""
+    """What ``forward_loss`` trains: every family ``check_model`` serves,
+    as the reference's ``forward_loss`` does (dense decoders, a sliding
+    window among them; MoE decoders with GQA or MLA attention; Mamba-2
+    SSMs; the RecurrentGemma hybrid; the Whisper encoder-decoder; the
+    Pixtral vision decoder)."""
     check_model(cfg)
-    needs = {
-        "audio": "the encoder-decoder's trunk under autograd",
-        "vlm": "the vision decoder's patch prefix under autograd",
-    }
-    if cfg.use_mla:
-        raise ValueError(f"{cfg.name}: training MLA needs the flash "
-                         f"backward at q/k 192, v 128 (unequal head dims)")
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise ValueError(f"{cfg.name}: forward_loss trains the dense, MoE, "
-                         f"SSM and hybrid decoders; the {cfg.family} family "
-                         f"needs {needs[cfg.family]}")
 
 
 def _chunk_ce(cfg, params, h, labels):
@@ -790,16 +802,35 @@ def _train_layer(cfg, stack, i, h, positions, tab):
     stacked ones (``t[i]``, which autograd follows back to them).  Returns
     (h, aux) as ``ffn``; an SSM layer ``h + ssm_fwd(norm(h))`` and no aux,
     as the reference's ``_layer_fwd`` (its chunked SSD's scan through
-    ``SsdScanFn``).  Under remat its recompute must route as the first run
-    did: the router's fp32 matmul, softmax and stable sort see the same
-    inputs and give the same bits (``chip_smoke.py`` phase 13 compares the
-    two runs' dispatch plans on the card)."""
+    ``SsdScanFn``); MLA attention through ``mla_fwd`` (``tab`` at
+    ``rope_head_dim``; the flash kernels at q/k dn + dr, v dn).  Under
+    remat its recompute must route as the first run did: the router's fp32
+    matmul, softmax and stable sort see the same inputs and give the same
+    bits (``chip_smoke.py`` phase 13 compares the two runs' dispatch plans
+    on the card)."""
     p = _map_spec(stack, lambda path, t: t[i])
     xn = layers.apply_norm(cfg, p["ln1"], h)
     if cfg.family == "ssm":
         return h + ssm.ssm_fwd(cfg, p["ssm"], xn), None
-    a, _ = layers.attention_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
+    attn_fwd = layers.mla_fwd if cfg.use_mla else layers.attention_fwd
+    a, _ = attn_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
     return ffn(cfg, p, h + a)
+
+
+def _train_enc_layer(cfg, stack, i, h, positions, tab):
+    """Encoder layer ``i`` of the encoder-decoder (``_enc_layer_fwd``), its
+    leaves indexed as ``_train_layer`` indexes them.  Returns (h, None)."""
+    p = _map_spec(stack, lambda path, t: t[i])
+    return _enc_layer_fwd(cfg, p, h, positions), None
+
+
+def _train_dec_layer(cfg, stack, i, h, positions, tab, enc=None):
+    """Decoder layer ``i`` of the encoder-decoder (``_dec_layer_fwd``,
+    its K/V left unkept) on ``enc``, the encoder's (states, positions):
+    every decoder layer reads the same states, so their gradient sums over
+    the layers.  Returns (h, None)."""
+    p = _map_spec(stack, lambda path, t: t[i])
+    return _dec_layer_fwd(cfg, p, h, positions, *enc)[0], None
 
 
 def _train_unit(cfg, stack, i, h, positions, tab):
@@ -822,10 +853,14 @@ def _train_tail(cfg, stack, i, h, positions, tab):
                        want_cache=False)[0], None
 
 
-def _train_steps(cfg, params):
+def _train_steps(cfg, params, enc=None):
     """(step function, its stacked leaves, index) of each step of the
-    training trunk: the layers, or the hybrid's units and then its tail
-    layers (the reference's two ``_stack_fwd`` scans)."""
+    training trunk: the layers, the hybrid's units and then its tail
+    layers, or the encoder-decoder's decoder layers on ``enc`` (the
+    reference's ``_stack_fwd`` scans)."""
+    if cfg.family == "audio":
+        fn = functools.partial(_train_dec_layer, enc=enc)
+        return [(fn, params["layers"], i) for i in range(cfg.num_layers)]
     if cfg.family != "hybrid":
         return [(_train_layer, params["layers"], i)
                 for i in range(cfg.num_layers)]
@@ -834,23 +869,12 @@ def _train_steps(cfg, params):
         [(_train_tail, params["tail"], j) for j in range(n_tail)]
 
 
-def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
-    """Training loss of a dense, MoE, SSM or hybrid decoder:
-    ``batch["tokens"]`` (B, S) through the layer stack (the hybrid's units,
-    then its tail layers), the final norm and the chunked cross-entropy
-    against ``batch["labels"]`` (B, S) (< 0: ignored), plus for MoE
-    ``AUX_COEF`` times the layers' summed load-balance aux over their
-    count.  The trunk builds no cache (an SSM no state and no rope table);
-    with ``remat`` each layer (each hybrid unit, each tail layer) runs
-    under ``torch.utils.checkpoint`` and is recomputed in the backward
-    (``_stack_fwd``'s ``jax.checkpoint`` around one scan step).
-    Differentiable in every leaf of ``params`` that requires grad."""
-    check_trainable(cfg)
-    h, positions = _assemble_inputs(cfg, params, batch["tokens"])
-    tab = None if cfg.family == "ssm" else layers.rope_tables(
-        positions, layers.rope_dim(cfg), cfg.rope_theta)
+def _run_steps(steps, cfg, h, positions, tab, remat):
+    """h through each (step function, stacked leaves, index) of
+    ``steps``, each under ``torch.utils.checkpoint`` with ``remat``.
+    Returns (h, the steps' summed aux or None)."""
     aux = None
-    for fn, stack, i in _train_steps(cfg, params):
+    for fn, stack, i in steps:
         if remat:
             h, a = checkpoint(fn, cfg, stack, i, h, positions, tab,
                               use_reentrant=False, preserve_rng_state=False)
@@ -858,6 +882,42 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
             h, a = fn(cfg, stack, i, h, positions, tab)
         if a is not None:
             aux = a if aux is None else aux + a
+    return h, aux
+
+
+def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
+    """Training loss of every family (``check_trainable``):
+    ``batch["tokens"]`` (B, S) through the layer stack (the hybrid's units,
+    then its tail layers), the final norm and the chunked cross-entropy
+    against ``batch["labels"]`` (< 0: ignored), plus for MoE ``AUX_COEF``
+    times the layers' summed load-balance aux over their count.  The
+    encoder-decoder first runs its encoder over ``batch["frames"]`` (B,
+    encoder_seq, D), a step a layer as the decoder's, and every decoder
+    layer cross-attends to its states.  The vision decoder places
+    ``batch["patches"]`` (B, P, D) times ``adapter`` before the tokens
+    (``_assemble_inputs``): positions and ``labels`` then run over P + S
+    (the reference's labels are -1 over the patches); a batch without
+    patches leaves ``adapter`` out of the loss, as the reference does.
+    The trunk builds no cache (an SSM no state and no rope table); with
+    ``remat`` each layer (each encoder layer, each hybrid unit, each tail
+    layer) runs under ``torch.utils.checkpoint`` and is recomputed in the
+    backward (``_stack_fwd``'s ``jax.checkpoint`` around one scan step).
+    Differentiable in every leaf of ``params`` that requires grad."""
+    check_trainable(cfg)
+    frames, patches = batch.get("frames"), batch.get("patches")
+    _check_stubs(cfg, frames, patches)
+    h, positions = _assemble_inputs(cfg, params, batch["tokens"], patches)
+    tab = None if cfg.family in ("ssm", "audio") else layers.rope_tables(
+        positions, layers.rope_dim(cfg), cfg.rope_theta)
+    enc = None
+    if cfg.family == "audio":
+        eh, enc_pos = _enc_inputs(cfg, params, frames)
+        eh, _ = _run_steps([(_train_enc_layer, params["enc_layers"], i)
+                            for i in range(cfg.encoder_layers)],
+                           cfg, eh, enc_pos, None, remat)
+        enc = (layers.apply_norm(cfg, params["enc_norm"], eh), enc_pos)
+    h, aux = _run_steps(_train_steps(cfg, params, enc), cfg, h, positions,
+                        tab, remat)
     h = layers.apply_norm(cfg, params["final_norm"], h)
     loss = _chunked_ce(cfg, params, h, batch["labels"])
     if cfg.is_moe:

@@ -55,8 +55,11 @@ largest |gradient| of dq, dk, dv, rtol 1e-4; bf16 2e-2 x the same, rtol
 2e-2: one bf16 rounding of each gradient) at ragged tiles, S = 1, G = 1
 and 3, non-causal at Sq != Skv and head dims 32, 64, 128 and 256 (10 q
 heads on 1), and windowed, softcapped or both at head dims 64, 80, 128 and
-256, gives equal bits over two launches, counts by route, and refuses
-unequal head dims and D 160;
+256, and at MLA's q/k 192, v 128 (ragged tiles, S = 1, G = 1 and 2,
+non-causal at Sq != Skv, an offset q block, more q tiles than ring
+stages, a window with a softcap; under autograd through
+``FlashAttentionFn``; ``max_len(192, 128)``), gives equal bits over two
+launches, counts by route, and refuses D 160 and (64, 32);
 reduced fp32 SmolLM-360M's, Qwen3-30B-A3B's and H2O-Danube-1.8B's
 ``forward_loss`` and every gradient on the card equal the CPU's (loss
 rtol 1e-5, grads atol 1e-4, rtol 1e-3) with the launches remat implies.
@@ -1350,14 +1353,19 @@ def _grad_tol(want, dtype):
     return dict(atol=r * scale, rtol=r)
 
 
-def _bwd_inputs(gen, dev, dtype, B, Sq, Skv, H, Hkv, D, causal, q0):
-    q = _randn(gen, (B, Sq, H, D), dtype, dev)
+def _bwd_inputs(gen, dev, dtype, B, Sq, Skv, H, Hkv, D, causal, q0,
+                Dv=None, q_scale=1.0, window=0, softcap=0.0):
+    """q, k (head dim D), v (Dv, D when absent), positions, the plain
+    forward's out and lse, and dout; q scaled by ``q_scale``."""
+    Dv = D if Dv is None else Dv
+    q = (_randn(gen, (B, Sq, H, D), torch.float32, dev) * q_scale).to(dtype)
     k = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
-    v = _randn(gen, (B, Skv, Hkv, D), dtype, dev)
+    v = _randn(gen, (B, Skv, Hkv, Dv), dtype, dev)
     qp, kp = _pos(B, q0, Sq, dev), _pos(B, 0, Skv, dev)
     out, lse = fa_ops.flash.flash_attention(q, k, v, qp, kp, causal=causal,
+                                            window=window, softcap=softcap,
                                             return_lse=True)
-    dout = _randn(gen, (B, Sq, H, D), dtype, dev)
+    dout = _randn(gen, (B, Sq, H, Dv), dtype, dev)
     return q, k, v, qp, kp, out, lse, dout
 
 
@@ -1403,6 +1411,82 @@ def test_flash_bwd_bf16_gives_equal_bits_at_every_head_dim(dev, D):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# MLA's (q/k 192, v 128): (tag, B, Sq, Skv, H, Hkv, causal, q offset,
+# window, softcap); DeepSeek-R1 has as many kv heads as q heads
+MLA_BWD_CASES = [
+    ("S300_G1", 2, 300, 300, 4, 4, True, 0, 0, 0.0),
+    ("S100_ragged_G2", 2, 100, 100, 4, 2, True, 0, 0, 0.0),
+    ("S1", 2, 1, 1, 4, 4, True, 0, 0, 0.0),
+    ("noncausal_Sq40_Skv130", 2, 40, 130, 4, 2, False, 0, 0, 0.0),
+    ("offset_q_Sq64_Skv200", 1, 64, 200, 8, 8, True, 136, 0, 0.0),
+    # a key tile walks more q tiles than the ring has stages
+    ("ring_S1000", 1, 1000, 1000, 4, 4, True, 0, 0, 0.0),
+    # the window and softcap instantiations at this pair
+    ("S300_w96_cap30", 2, 300, 300, 4, 2, True, 0, 96, 30.0),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", MLA_BWD_CASES,
+                         ids=[c[0] for c in MLA_BWD_CASES])
+def test_flash_bwd_at_mla_head_dims_matches_plain(dev, case, dtype):
+    """The backward at q/k 192, v 128 (dq and dk 192 wide, dv 128) against
+    its plain version, on the route of its type; two bf16 launches give
+    equal bits."""
+    _, B, Sq, Skv, H, Hkv, causal, q0, window, softcap = case
+    gen = torch.Generator(device=dev).manual_seed(40)
+    args = _bwd_inputs(gen, dev, dtype, B, Sq, Skv, H, Hkv, 192, causal, q0,
+                       Dv=128, q_scale=4.0 if window else 1.0,
+                       window=window, softcap=softcap)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    kernels.reset_launches()
+    fb_ops.reset_routes()
+    got = flash_attention_bwd(*args, **kw)
+    assert fb_ops.ROUTE_LAUNCHES[fb_ops.route(dtype)] == 1
+    assert kernels.launches()["flash_attention_bwd"] == 1
+    assert [t.shape[-1] for t in got] == [192, 192, 128]
+    want = flash_attention_bwd_plain(*args, **kw)
+    tol = _grad_tol(want, dtype)
+    for g, w in zip(got, want):
+        _close(g, w, dtype, tol)
+    if dtype == torch.bfloat16:
+        again = flash_attention_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_flash_bwd_max_len_at_mla_head_dims(dev):
+    """The built library's length limit at (192, 128): the dQ walk's
+    ranges of 32-key tiles bind; a pair without an instantiation gives
+    0."""
+    assert fb_ops.max_len(192, 128) == 253_536
+    assert fb_ops.max_len(128) == 244_928
+    assert fb_ops.max_len(192) == fb_ops.max_len(64, 32) == 0
+
+
+def test_flash_under_autograd_at_mla_head_dims(dev):
+    """FlashAttentionFn at (192, 128) on the card: the forward with lse and
+    the backward kernel, gradients against autograd through the plain
+    forward (fp32)."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    q, k = (_randn(gen, (2, 96, 4, 192), torch.float32, dev)
+            for _ in range(2))
+    v = _randn(gen, (2, 96, 4, 128), torch.float32, dev)
+    g = _randn(gen, (2, 96, 4, 128), torch.float32, dev)
+    pos = _pos(2, 0, 96, dev)
+    kernels.reset_launches()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention(*leaves, pos, pos).backward(g)
+    used = kernels.launches()
+    assert used["flash_attention"] == 1 and used["flash_attention_bwd"] == 1
+    auto = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    fa_ops.flash.flash_attention(*auto, pos, pos).backward(g)
+    for a, b in zip(leaves, auto):
+        _close(a.grad, b.grad, torch.float32,
+               dict(atol=1e-4 * b.grad.abs().max().item(), rtol=1e-4))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 @pytest.mark.parametrize("dims", fa_ops.HEAD_DIMS,
@@ -1433,7 +1517,7 @@ def test_flash_forward_writes_lse_on_both_routes(dev, dims, dtype):
 def test_flash_bwd_refuses_a_window_or_a_softcap_on_the_card(dev):
     """The card's backward takes a window and a softcap (the windowed
     cases below hold its values); it refuses D 160 (before the forward
-    runs under autograd) and unequal head dims."""
+    runs under autograd) and (q/k 64, v 32)."""
     gen = torch.Generator(device=dev).manual_seed(34)
     args = _bwd_inputs(gen, dev, torch.float32, 1, 64, 64, 4, 2, 64, True, 0)
     for kw in (dict(window=16), dict(softcap=30.0)):

@@ -347,7 +347,7 @@ def test_flash_bwd_checks_what_tma_needs(name, dtype, monkeypatch):
     loads) and raises a ValueError naming the tensor and the cause; fp32
     (the CUDA-core route) takes any base.  The length limit is the built
     kernel's (``max_len``); here any limit the 16 rows are within."""
-    monkeypatch.setattr(fb_ops, "max_len", lambda D: 64)
+    monkeypatch.setattr(fb_ops, "max_len", lambda dqk, dv=None: 64)
     args = _bwd_args(dtype)
     i = ["q", "k", "v", "q_pos", "kv_pos", "out", "lse", "dout"].index(name)
     t = args[i]
@@ -381,7 +381,7 @@ def test_flash_bwd_length_limit_check(D, monkeypatch):
     with a ValueError naming the limit; at the limit, and in fp32 past
     it, the check passes."""
     n = 40
-    monkeypatch.setattr(fb_ops, "max_len", lambda d: n)
+    monkeypatch.setattr(fb_ops, "max_len", lambda dqk, dv=None: n)
     for Sq, Skv, ok in ((n, n, True), (n + 1, n, False), (n, n + 1, False)):
         args = _bwd_args(torch.bfloat16, Sq=Sq, Skv=Skv, D=D)
         if ok:
@@ -415,27 +415,35 @@ _BWD_SRC = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
             / "csrc" / "flash_attention_bwd.cu").read_text()
 
 
+def _holds(cond, D):
+    """Whether a Geo condition on the q/k head dim, clauses ``DQ == n`` or
+    ``DQ >= n`` joined by ``||``, holds at D."""
+    return any(int(n) == D if op == "==" else D >= int(n)
+               for op, n in re.findall(r"DQ (==|>=) (\d+)", cond))
+
+
 def _geo(D):
     """(BN, keys of a dK/dV CTA, whether its consumers share them, q rows
-    of a dQ CTA, whether its consumers share them, keys a dQ step) at head
-    dim D, read from the source's Geo."""
-    bn = re.search(r"static constexpr int BN = ((?:D == \d+(?: \|\| )?)+) "
-                   r"\? (\d+) : (\d+);", _BWD_SRC)
-    split = re.search(r"static constexpr bool kSplit = D >= (\d+);",
-                      _BWD_SRC)
-    halves = re.search(r"static constexpr int kHalves = D == (\d+) \? 2 : 1;",
+    of a dQ CTA, whether its consumers share them, keys a dQ step) at q/k
+    head dim D (the walk's geometry depends on it alone), read from the
+    source's Geo."""
+    cond = r"((?:DQ (?:==|>=) \d+(?: \|\| )?)+)"
+    bn = re.search(rf"static constexpr int BN = {cond} \? (\d+) : (\d+);",
+                   _BWD_SRC)
+    split = re.search(rf"static constexpr bool kSplit = {cond};", _BWD_SRC)
+    halves = re.search(rf"static constexpr int kHalves = {cond} \? 2 : 1;",
                        _BWD_SRC)
     br = re.search(r"static constexpr int BR = 64 \* NC / kHalves;",
                    _BWD_SRC)
-    bkq = re.search(r"static constexpr int BKQ = D == (\d+) \? (\d+) : "
+    bkq = re.search(rf"static constexpr int BKQ = {cond} \? (\d+) : "
                     r"(\d+);", _BWD_SRC)
     assert bn and split and halves and br and bkq, \
         "Geo's BN / kSplit / kHalves / BR / BKQ lines changed"
-    narrow = [int(d) for d in re.findall(r"\d+", bn.group(1))]
-    BN = int(bn.group(2)) if D in narrow else int(bn.group(3))
-    is_split = D >= int(split.group(1))
-    shared = D == int(halves.group(1))     # dQ's consumers: column halves
-    BKQ = int(bkq.group(2)) if D == int(bkq.group(1)) else int(bkq.group(3))
+    BN = int(bn.group(2)) if _holds(bn.group(1), D) else int(bn.group(3))
+    is_split = _holds(split.group(1), D)
+    shared = _holds(halves.group(1), D)    # dQ's consumers: column halves
+    BKQ = int(bkq.group(2)) if _holds(bkq.group(1), D) else \
+        int(bkq.group(3))
     return (BN, (64 if is_split else 128), is_split, 64 if shared else 128,
             shared, BKQ)
 
@@ -522,7 +530,7 @@ def _position_sets():
     }
 
 
-@pytest.mark.parametrize("D", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("D", [32, 64, 80, 128, 192, 256])
 @pytest.mark.parametrize("case", list(_position_sets()))
 def test_flash_bwd_walk_covers_the_mask(case, D):
     """Every allowed (q row, key) pair is multiplied by its dK/dV consumer

@@ -32,11 +32,15 @@ port).  Cases:
 - eight steps of ``python -m repro_torch.launch.train --reduced --device
   cpu --dtype float32`` against the same JAX loop on the same stream and
   weights (rtol 1e-4), with a falling loss;
-- the refusals: ``forward_loss`` on the audio, vision and MLA families,
-  the card's backward at unequal head dims or a head dim it has no kernel
-  for (it takes a window, a softcap and D 80), ``--dry``, ``n_dev > 1``.
+- ``check_trainable`` takes every family of ``ARCH_IDS``;
+- the refusals: the card's backward at a (q/k, v) pair it has no kernel
+  for (it takes a window, a softcap, D 80 and MLA's (192, 128)),
+  ``--dry``, ``n_dev > 1``; the driver trains the encoder-decoder.
   The MoE family trains: ``test_torch_train_moe.py``; the SSM:
-  ``test_torch_train_ssm.py``; the hybrid: ``test_torch_train_hybrid.py``.
+  ``test_torch_train_ssm.py``; the hybrid: ``test_torch_train_hybrid.py``;
+  the encoder-decoder, the vision decoder and MLA:
+  ``test_torch_train_encdec.py``, ``test_torch_train_vlm.py`` and
+  ``test_torch_train_mla.py``.
 """
 import dataclasses
 
@@ -52,7 +56,7 @@ from repro.models import flash as jflash
 from repro.models import transformer as JT
 from repro.models.api import MeshAxes
 from repro_torch import kernels, optim
-from repro_torch.configs import reduced_config
+from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
 from repro_torch.kernels.flash_attention.ops import (FlashAttentionFn,
                                                      flash_attention)
@@ -172,10 +176,11 @@ def test_flash_attention_fn_saves_what_the_backward_reads():
 
 
 def test_card_backward_refuses_a_window_or_a_softcap():
-    """What the card's backward refuses: v's head dim apart from q's (MLA)
-    and head dims it has no kernel for (48, 160); a window, a softcap
-    (each alone and together), D 80 (Danube's) and D 256 on one kv head
-    with both (RecurrentGemma's) it takes."""
+    """What the card's backward refuses: (q/k, v) pairs it has no kernel
+    for ((48, 48), (160, 160), (64, 32), reduced MLA's (48, 32)) and k's
+    head dim apart from q's; a window, a softcap (each alone and
+    together), D 80 (Danube's), D 256 on one kv head with both
+    (RecurrentGemma's) and MLA's (192, 128) it takes."""
     q = torch.zeros((1, 8, 4, 64))
     k = torch.zeros((1, 8, 2, 64))
     bwd_ops.check_supported(q, k, k, window=16)
@@ -186,13 +191,16 @@ def test_card_backward_refuses_a_window_or_a_softcap():
     bwd_ops.check_supported(q80, k80, k80, window=4096)
     q256, k256 = torch.zeros((1, 8, 10, 256)), torch.zeros((1, 8, 1, 256))
     bwd_ops.check_supported(q256, k256, k256, window=2048, softcap=30.0)
-    for D in (48, 160):
+    q192, k192 = torch.zeros((1, 8, 128, 192)), torch.zeros((1, 8, 128, 192))
+    bwd_ops.check_supported(q192, k192, torch.zeros((1, 8, 128, 128)))
+    for D, Dv in ((48, 48), (160, 160), (64, 32), (48, 32)):
         with pytest.raises(ValueError, match="head dims"):
             bwd_ops.check_supported(q[..., :1].expand(1, 8, 4, D),
                                     k[..., :1].expand(1, 8, 2, D),
-                                    k[..., :1].expand(1, 8, 2, D))
+                                    k[..., :1].expand(1, 8, 2, Dv))
     with pytest.raises(ValueError, match="head dims"):
-        bwd_ops.check_supported(q, k, k[..., :32])
+        bwd_ops.check_supported(q192, k192[..., :128],
+                                torch.zeros((1, 8, 128, 128)))
 
 
 # ---------------------------------------------------------------- loss
@@ -262,15 +270,12 @@ def test_forward_loss_and_every_leaf_grad_match_jax(arch, remat):
         _close(t.grad, w, **GRAD_TOL)
 
 
-@pytest.mark.parametrize("arch", ["whisper_base", "pixtral_12b",
-                                  "deepseek_r1"])
-def test_forward_loss_refuses_the_other_families(arch):
-    cfg = reduced_config(arch)
-    toks = torch.zeros((1, 8), dtype=torch.int32)
-    what = {"whisper_base": "encoder", "pixtral_12b": "patch",
-            "deepseek_r1": "MLA"}[arch]
-    with pytest.raises(ValueError, match=what):
-        TT.forward_loss(cfg, {}, {"tokens": toks, "labels": toks})
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_check_trainable_takes_every_family(arch):
+    """Every config trains, at full size and reduced, as the reference's
+    ``forward_loss`` takes every family."""
+    TT.check_trainable(get_config(arch))
+    TT.check_trainable(reduced_config(arch))
 
 
 # ---------------------------------------------------------------- AdamW
@@ -434,6 +439,7 @@ def test_train_driver_saves_a_checkpoint_and_refuses_dry(tmp_path):
     assert extra["steps"] == 1 and "embed" in flat
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         train.main(["--dry"])
-    with pytest.raises(ValueError, match="encoder"):
-        train.main(["--arch", "whisper_base", "--reduced", "--device",
-                    "cpu", "--steps", "1"])
+    # the encoder-decoder trains (each step's batch carries its frames)
+    losses = train.main(["--arch", "whisper_base", "--reduced", "--device",
+                         "cpu", "--steps", "1"])
+    assert len(losses) == 1 and np.isfinite(losses[0])
