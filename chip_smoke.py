@@ -379,7 +379,40 @@ result):
     checks: a finite, falling loss holding the aux, the recompute routed
     as the forward; every flash launch, forward and backward, at q/k 192,
     v 128 on wgmma, the grouped GEMM 9 times and its weight gradient 3
-    times a layer on wgmma, no plain version; ``deepseek_r1_train_mfu``).
+    times a layer on wgmma, no plain version; ``deepseek_r1_train_mfu``);
+18. the multi-GPU training path on one card.  (a) An NCCL process group
+    of world size 1 on the card, the (1, 1) mesh realized over it, every
+    collective of ``distributed/collectives.py`` sent through it once
+    (each returns its input), then 3 steps of
+    ``launch/steps.py::build_cell``'s sharded step of Qwen3-30B-A3B at
+    phase 13's cut (4 layers, 4 x 4096 tokens, remat, AdamW lr 1e-3,
+    ZeRO-1 on) from seed 0: each loss and grad norm must equal phase 13's
+    in bits (a group of one skips its collectives; none is recorded), every
+    flash, flash-backward, grouped-GEMM and weight-gradient launch on
+    wgmma, no plain version; then the loss and its gradients once more
+    with every group's collectives sent through NCCL (``skip_one=False``),
+    so that the tensor-parallel callers run (``embed_share``'s reduce,
+    ``_train_layer``'s ``copy_in`` / ``reduce_out`` pairs,
+    ``_chunk_ce_tp``): loss rtol 1e-5, gradients TOL[bf16] of scale, only
+    all-reduces.  (b) Rank by rank at tp 8, at full width, B2 S4096: one
+    Llama-3.2-1B and one Qwen3-30B-A3B layer, each sublayer forward and
+    backward through the port's shares (``attention_share``,
+    ``ffn_share``) on each rank's slices (``shard_params``: 4 q heads over
+    1 kv head, Qwen3's kv replicated and sliced to head m // 2; 1/8 of the
+    MLP columns; 16 of 128 experts), the partials summed in rank order in
+    bf16 where ``_train_layer`` all-reduces them, held with every gradient
+    to the one-device sublayer within TOL[bf16] of each tensor's scale, 8
+    launches of each flash kernel a layer and 48 grouped-GEMM and 24
+    weight-gradient launches for the MoE, no plain version; Qwen3's
+    embedding over 8 vocab shards (``embed_share``, equal bits) and its
+    cross-entropy (``ce_shard`` merged by ``ce_merge``: value rtol 1e-5,
+    dh and dlm_head TOL[bf16] of scale); the flash kernel timed at the
+    head shard (H 4 over Hkv 1, D 64 and 128) beside the one-device
+    heads.  It prints
+    ``{"multi_gpu_path": ...}`` with the kernel shapes, step times and
+    peak memory.  NCCL at world size above 1 is not exercised here (one
+    card): ``tests/test_torch_cuda.py::test_sharded_training_over_every_card``
+    runs it on a machine with more.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -4490,8 +4523,8 @@ def train_moe_path(dev, arch: str = "qwen3_moe_30b",
     orig_moe, orig_ce, orig_plan = moe.moe_fwd, T._chunked_ce, \
         moe_ops.dispatch_plan
 
-    def rec_moe(c, p, x):
-        y, aux = orig_moe(c, p, x)
+    def rec_moe(c, p, x, *share):
+        y, aux = orig_moe(c, p, x, *share)
         auxes.append(aux.detach())
         return y, aux
 
@@ -4508,7 +4541,7 @@ def train_moe_path(dev, arch: str = "qwen3_moe_30b",
     reset_counts()
     plain = _PlainCalls()
     shapes = _FlashShapes()
-    losses, secs = [], []
+    losses, gnorms, secs = [], [], []
     try:
         for i in range(steps):
             if i == 0:
@@ -4519,11 +4552,12 @@ def train_moe_path(dev, arch: str = "qwen3_moe_30b",
             out = train_step(cfg, params, opt, batches[i], ocfg,
                              microbatches=1, remat=True)
             losses.append(out["loss"].item())
+            gnorms.append(out["grad_norm"].item())
             secs.append(time.perf_counter() - t0)
             moe.moe_fwd, T._chunked_ce = orig_moe, orig_ce
             moe_ops.dispatch_plan = orig_plan
             log(f"  {arch} step {i}: loss {losses[-1]:.6f}, grad "
-                f"norm {out['grad_norm'].item():.4f}, {secs[-1]:.3f} s")
+                f"norm {gnorms[-1]:.4f}, {secs[-1]:.3f} s")
     finally:
         moe.moe_fwd, T._chunked_ce = orig_moe, orig_ce
         moe_ops.dispatch_plan = orig_plan
@@ -4622,7 +4656,7 @@ def train_moe_path(dev, arch: str = "qwen3_moe_30b",
     secs_phase = time.perf_counter() - t_phase
     log(f"  phase {phase} took {secs_phase:.1f} s")
     return used, dict(layers=L, experts=cfg.num_experts, params=n_params,
-                      losses=losses, lr=lr,
+                      losses=losses, grad_norms=gnorms, lr=lr,
                       gemm_routes=routes, wgrad_routes=wgrad_routes,
                       step_s=step_s, step_secs=secs,
                       tokens_per_s=tokens / step_s, peak_gb=peak, mfu=mfu,
@@ -4696,6 +4730,624 @@ def train_mla_path(dev):
     return train_moe_path(dev, "deepseek_r1", layers=MLA_TRAIN_LAYERS,
                           experts=MLA_TRAIN_EXPERTS, GB=2, S=4096, steps=5,
                           lr=TRAIN_LR["deepseek_r1"], phase=17)
+
+
+# --------------------------------------------------------------- phase 18
+# the (q/k, v) head dims and kernel shapes of a rank at tp 8 (phase 18b)
+TP8 = 8
+TP8_BATCH = (2, 4096)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _KernelShapes:
+    """Records the shapes of every flash forward / backward, grouped-GEMM
+    and weight-gradient launch while a path runs (each wrapper's
+    ``launch``, wrapped here until ``restore``)."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.flash_attention_bwd import ops as fb
+        from repro_torch.kernels.moe_gemm import ops as mg
+        from repro_torch.kernels.moe_gemm_wgrad import ops as mw
+        self.seen = {"flash_attention": set(), "flash_attention_bwd": set(),
+                     "moe_gemm": set(), "moe_gemm_wgrad": set()}
+        self.orig = []
+
+        def wrap(mod, name, shape_of):
+            fn = mod.launch
+            self.orig.append((mod, fn))
+
+            def record(*a, **kw):
+                self.seen[name].add(shape_of(*a, **kw))
+                return fn(*a, **kw)
+            mod.launch = record
+
+        attn = lambda lib, q, k, v, *a, **kw: (  # noqa: E731
+            f"B{q.shape[0]} S{q.shape[1]} H{q.shape[2]}/{k.shape[2]} "
+            f"D{q.shape[3]}/{v.shape[3]}")
+        wrap(fa, "flash_attention", attn)
+        wrap(fb, "flash_attention_bwd", attn)
+        wrap(mg, "moe_gemm", lambda lib, x, w, *a, **kw:
+             f"rows {x.shape[0]} E{w.shape[0]} {w.shape[1]}x{w.shape[2]}")
+        wrap(mw, "moe_gemm_wgrad", lambda lib, x, dy, be, E, *a, **kw:
+             f"rows {x.shape[0]} E{E} {x.shape[1]}x{dy.shape[1]}")
+
+    def restore(self):
+        for mod, fn in self.orig:
+            mod.launch = fn
+
+    def shapes(self):
+        return {k: sorted(v) for k, v in self.seen.items() if v}
+
+
+def _nccl_world_one(mesh, dev):
+    """Every collective of ``distributed/collectives.py`` sent through the
+    NCCL group of one rank (``skip_one=False``): each returns its input
+    and the conjugate pairs pass values and gradients through.  Returns
+    the calls made."""
+    from repro_torch.distributed import collectives as C
+    g = dataclasses.replace(mesh.comm.world, skip_one=False)
+    x = torch.arange(4096.0, device=dev).reshape(64, 64)
+    C.reset_events()
+    for fn in (g.all_reduce, g.all_gather, g.reduce_scatter, g.all_to_all):
+        if not torch.equal(fn(x), x):
+            raise AssertionError(f"NCCL at world size 1: {fn.__name__} "
+                                 f"changed its input")
+    xr = x.clone().requires_grad_(True)
+    out = g.reduce_out(g.copy_in(xr) * 2.0)
+    (dx,) = torch.autograd.grad(out.sum(), xr)
+    if not (torch.equal(out, 2 * x) and torch.equal(dx, torch.full_like(
+            x, 2.0))):
+        raise AssertionError("NCCL at world size 1: the conjugate pairs "
+                             "moved a value")
+    torch.cuda.synchronize()
+    n = len(C.EVENTS)
+    C.reset_events()
+    return n
+
+
+def _sent_callers(cell, params, batch, comm):
+    """The sharded loss and its gradients on ``batch`` through ``comm``
+    and through the same groups with every collective sent
+    (``skip_one=False``, a group of one is no longer trivial): the model
+    group's callers run (``embed_share`` and its reduce,
+    ``_train_layer``'s ``copy_in`` / ``reduce_out`` pairs around
+    ``attention_share`` and ``ffn_share``, ``_chunk_ce_tp``'s
+    ``ce_shard`` / ``ce_merge`` over the group), each all-reduce through
+    NCCL at world size 1.  The loss within rtol 1e-5 of the skipped run's
+    (``ce_merge``'s rescaled sum rounds otherwise than ``logsumexp``) and
+    every leaf's gradient within TOL[bf16] of its scale; every collective
+    an all-reduce, as many as the design predicts at remat on (those of
+    ``tests/test_torch_distributed.py``'s ``AR_LAYER`` / ``AR_CE_CHUNK``):
+    the embedding's; a MoE layer's three row-parallel reduces, the
+    attention's again in the recompute and three ``copy_in``s backward; a
+    cross-entropy chunk's three reduces, again in the recompute, and h's
+    ``copy_in``; the count of labels over the data group; no plain
+    version.  Returns the numbers."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import transformer as T
+    cfg = cell.cfg
+    b = cell.local_batch(batch)
+    l1, g1 = loss_and_grads(cfg, params, b, comm=comm)
+    sent = C.Comm(**{f: dataclasses.replace(getattr(comm, f),
+                                            skip_one=False)
+                     for f in ("model", "data", "world")})
+    C.reset_events()
+    plain = _PlainCalls()
+    try:
+        l2, g2 = loss_and_grads(cfg, params, b, comm=sent)
+        torch.cuda.synchronize()
+    finally:
+        plain.restore()
+    kinds = {k for k, _, _ in C.EVENTS}
+    n = len(C.EVENTS)
+    C.reset_events()
+    chunks = -(-b["tokens"].shape[1] // T.CE_CHUNK)
+    want = 1 + 7 * cfg.num_layers + 7 * chunks + 1
+    if kinds != {"all-reduce"} or n != want or any(plain.calls.values()):
+        raise AssertionError(f"phase 18 (a), collectives sent: {n} "
+                             f"{kinds} ({want} all-reduces expected), "
+                             f"plain versions called {plain.calls}")
+    rel = abs(l2.item() - l1.item()) / abs(l1.item())
+    if not rel <= 1e-5:
+        raise AssertionError(f"phase 18 (a), collectives sent: loss "
+                             f"{l2.item()} vs {l1.item()}")
+    worst = 0.0
+    for (path, a), (_, w) in zip(_paths_of(g2), _paths_of(g1)):
+        worst = max(worst, _scaled_check(
+            f"collectives sent, d{'.'.join(path)}", a, w, quiet=True))
+    del g1, g2
+    return dict(collectives=n, loss=l2.item(),
+                loss_rel_err=rel, worst_grad_err_over_scale=worst)
+
+
+def train_sharded_path(dev, phase13):
+    """Phase 18 (a): the multi-GPU training path on one card.  An NCCL
+    process group of world size 1 on the card, the (1, 1) mesh realized
+    over it (``launch/mesh.py``), and 3 steps of ``build_cell``'s sharded
+    step of Qwen3-30B-A3B at phase 13's cut (``MOE_TRAIN_LAYERS`` layers,
+    4 x 4096 tokens, one microbatch, remat, AdamW lr 1e-3 with ZeRO-1 on)
+    from seed 0: each loss and grad norm must equal phase 13's one-device
+    ``train_step`` in bits (every collective of a group of one is skipped),
+    every flash, flash-backward, grouped-GEMM and weight-gradient launch on
+    wgmma and no plain version.  Also sends every collective through the
+    NCCL group once (``_nccl_world_one``).  Returns (launches, numbers)."""
+    import torch.distributed as dist
+
+    from repro_torch import kernels, optim
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
+    from repro_torch.kernels.moe_gemm import ops as moe_ops
+    from repro_torch.kernels.moe_gemm_wgrad import ops as wgrad_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import build_cell
+
+    t_phase = time.perf_counter()
+    steps, (GB, S), L = 3, (4, 4096), MOE_TRAIN_LAYERS
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.Mesh(("data", "model"), (1, 1)).realize("cuda")
+        n_nccl = _nccl_world_one(mesh, dev)
+        cell = build_cell("qwen3_moe_30b", "train_4k", mesh,
+                          batch_seq=(GB, S), over=dict(num_layers=L),
+                          exact_microbatches=1,
+                          opt_cfg=optim.AdamWConfig(lr=1e-3))
+        cfg = cell.cfg
+        stream = SyntheticLMStream(DataConfig(
+            global_batch=GB, seq_len=S,
+            vocab_size=get_config("qwen3_moe_30b").vocab_size, seed=0))
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in stream.batch_at(i).items()}
+                   for i in range(steps)]
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt = cell.init_state(0, dev)
+        reset_counts()
+        C.reset_events()
+        plain = _PlainCalls()
+        shapes = _KernelShapes()
+        losses, gnorms, secs = [], [], []
+        try:
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = cell.step(params, opt, batches[i])
+                losses.append(out["loss"].item())
+                gnorms.append(out["grad_norm"].item())
+                secs.append(time.perf_counter() - t0)
+                log(f"  sharded qwen3_moe_30b step {i}: loss "
+                    f"{losses[-1]:.6f}, grad norm {gnorms[-1]:.4f}, "
+                    f"{secs[-1]:.3f} s")
+        finally:
+            plain.restore()
+            shapes.restore()
+        used = kernels.launches()
+        routes = (dict(ops.ROUTE_LAUNCHES), dict(bwd_ops.ROUTE_LAUNCHES),
+                  dict(moe_ops.ROUTE_LAUNCHES),
+                  dict(wgrad_ops.ROUTE_LAUNCHES))
+        stats = C.collective_stats()
+        n_events = len(C.EVENTS)
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        del opt
+        sent = _sent_callers(cell, params, batches[0], mesh.comm)
+        del params
+    finally:
+        dist.destroy_process_group()
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_bwd": L * steps, "moe_gemm": 9 * L * steps,
+            "moe_gemm_wgrad": 3 * L * steps}
+    if {k: n for k, n in used.items() if n} != want or \
+            [r.get("wgmma", 0) for r in routes] != [
+                want["flash_attention"], want["flash_attention_bwd"],
+                want["moe_gemm"], want["moe_gemm_wgrad"]] or \
+            any(plain.calls.values()):
+        raise AssertionError(f"phase 18 (a): launches {used}, by route "
+                             f"{routes}, plain versions called "
+                             f"{plain.calls} (expected {want}, all on "
+                             f"wgmma, no plain version)")
+    want_l = phase13["losses"][:steps]
+    want_g = phase13["grad_norms"][:steps]
+    if losses != want_l or gnorms != want_g:
+        raise AssertionError(f"phase 18 (a): losses {losses}, grad norms "
+                             f"{gnorms}: not phase 13's bits ({want_l}, "
+                             f"{want_g})")
+    if n_events or stats["total_wire_bytes"]:
+        raise AssertionError(f"phase 18 (a): {n_events} collectives "
+                             f"recorded in groups of one: {stats}")
+    step_s = statistics.median(secs[1:])
+    log(f"  phase 18 (a) Qwen3-30B-A3B bf16, {L} layers, {steps} steps of "
+        f"{GB} x {S} through build_cell's sharded step on an NCCL group of "
+        f"one (mesh {mesh.shape}, ZeRO-1 on): losses {losses} and grad "
+        f"norms {gnorms} equal phase 13's bits; {step_s:.3f} s/step (median "
+        f"of steps 1-{steps - 1}; phase 13 {phase13['step_s']:.3f}); peak "
+        f"device memory {peak:.2f} GB (phase 13 {phase13['peak_gb']:.2f}); "
+        f"launches {used}, all on wgmma, no plain version; collectives "
+        f"skipped in groups of one (none recorded); {n_nccl} collectives "
+        f"sent through NCCL at world size 1 and returned their inputs; "
+        f"the loss through the tensor-parallel callers with every "
+        f"collective sent: {sent['collectives']} all-reduces, loss rel err "
+        f"{sent['loss_rel_err']:.2e}, worst gradient |err| / scale "
+        f"{sent['worst_grad_err_over_scale']:.2e}")
+    secs_phase = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    return used, dict(losses=losses, grad_norms=gnorms, step_s=step_s,
+                      step_secs=secs, phase13_step_s=phase13["step_s"],
+                      peak_gb=peak, nccl_world1_calls=n_nccl,
+                      tp_callers_through_nccl=sent,
+                      kernel_shapes=shapes.shapes(), seconds=secs_phase,
+                      equal_bits=True)
+
+
+def _rank_mesh(m: int):
+    """A (1, TP8) mesh's rank ``m`` without a process group: what
+    ``shard_params`` reads."""
+    from repro_torch.launch import mesh as mesh_lib
+    return mesh_lib.Mesh(("data", "model"), (1, TP8), rank=m)
+
+
+def _sum_grads(full, specs, local_grads):
+    """The full gradient of each leaf from the ranks' local ones: a split
+    leaf's slices put in place, a replicated leaf's parts summed (what the
+    model group's ``copy_in`` sums)."""
+    from repro_torch.distributed import sharding as shd
+    out = {}
+    for path, t in _paths_of(full):
+        acc = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+        sp = _at(specs, path)
+        for m, grads in enumerate(local_grads):
+            g = grads.get(path)
+            if g is not None:
+                sl = shd.dim_slices(sp, t.shape, {"data": 1, "model": TP8},
+                                    {"data": 0, "model": m})
+                acc[sl] += g.float()
+        out[path] = acc
+    return out
+
+
+def _paths_of(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths_of(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tp8_layer(dev, arch: str):
+    """One decoder layer of ``arch`` at every published width on B2 S4096,
+    forward and backward, in its two sublayers as ``_train_layer`` runs
+    them: ``attention_share`` on h, and ``ffn_share`` (the MLP or the MoE)
+    on the one-device attention's output, so that the router sees the
+    same bits on both sides.  Each runs on one device (tp 1) and rank by
+    rank at tp 8 on each rank's slices (``shard_params``): its q-head
+    shard (``layers.tp_attention_params``) and its MLP columns or its 16
+    of 128 experts (``moe.moe_fwd``), the partial outputs summed in rank
+    order in bf16 where ``_train_layer`` all-reduces them, one upstream
+    gradient a sublayer.  The rank-summed outputs, input gradients, aux
+    and every leaf's gradient (split leaves' slices put in place,
+    replicated ones' parts summed: what ``copy_in`` sums) are held to the
+    one device's within TOL[bf16] of each tensor's scale.  Returns
+    (launches of the ranks, numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import MeshAxes
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    B, S = TP8_BATCH
+    gen = torch.Generator(device=dev).manual_seed(18)
+    stack = T.init_params(cfg, 18, dev)["layers"]
+    specs = shd.param_specs(cfg, MeshAxes(), TP8, "tp")["layers"]
+    rand = lambda: torch.randn((B, S, cfg.d_model), generator=gen,  # noqa
+                               device=dev).to(torch.bfloat16)
+    h0, g_a, g_f = rand(), rand(), rand()
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    tab = layers.rope_tables(pos, layers.rope_dim(cfg), cfg.rope_theta)
+
+    def req(tree):
+        return {k: req(v) if isinstance(v, dict) else
+                v.detach().requires_grad_(True) for k, v in tree.items()}
+
+    def loss_of(out, g, aux):
+        return (out.float() * g.float()).sum() + (0.0 if aux is None
+                                                  else aux)
+
+    # one device
+    one = req(stack)
+    p1 = _map_layer(one, lambda t: t[0])
+    ha = h0.detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_a1 = ha + T.attention_share(cfg, p1, ha, pos, tab)
+    hf = out_a1.detach().requires_grad_(True)
+    y1, aux1 = T.ffn_share(cfg, p1, hf)
+    out_f1 = hf + y1
+    leaves1 = [t for _, t in _paths_of(one)]
+    ga1 = torch.autograd.grad(loss_of(out_a1, g_a, None), [ha] + leaves1,
+                              allow_unused=True)
+    gf1 = torch.autograd.grad(loss_of(out_f1, g_f, aux1), [hf] + leaves1,
+                              allow_unused=True)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+
+    # rank by rank
+    reset_counts()
+    plain = _PlainCalls()
+    shapes = _KernelShapes()
+    try:
+        locs = [req(shd.shard_params(stack, specs, _rank_mesh(m)))
+                for m in range(TP8)]
+        pms = [_map_layer(loc, lambda t: t[0]) for loc in locs]
+        ha8 = h0.detach().requires_grad_(True)
+        hf8 = hf.detach().requires_grad_(True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = None
+        for m, pm in enumerate(pms):
+            part = T.attention_share(cfg, pm, ha8, pos, tab, m, TP8)
+            a = part if a is None else a + part
+        out_a8 = ha8 + a
+        y, aux8 = None, None
+        for m, pm in enumerate(pms):
+            part, ap = T.ffn_share(cfg, pm, hf8, m, TP8)
+            y = part if y is None else y + part
+            if ap is not None:
+                aux8 = ap if aux8 is None else aux8 + ap
+        out_f8 = hf8 + y
+        leaves8 = [t for loc in locs for _, t in _paths_of(loc)]
+        ga8 = torch.autograd.grad(loss_of(out_a8, g_a, None),
+                                  [ha8] + leaves8, allow_unused=True)
+        gf8 = torch.autograd.grad(loss_of(out_f8, g_f, aux8),
+                                  [hf8] + leaves8, allow_unused=True)
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t0
+    finally:
+        plain.restore()
+        shapes.restore()
+    used = kernels_launches()
+    paths = [p for p, _ in _paths_of(one)]
+    n = len(paths)
+    errs = {"attention out": _scaled_check(f"{arch} tp8 attention out",
+                                           out_a8, out_a1),
+            "attention dh": _scaled_check(f"{arch} tp8 attention dh",
+                                          ga8[0], ga1[0]),
+            "ffn out": _scaled_check(f"{arch} tp8 ffn out", out_f8, out_f1),
+            "ffn dh": _scaled_check(f"{arch} tp8 ffn dh", gf8[0], gf1[0])}
+    for grads8, grads1 in ((ga8, ga1), (gf8, gf1)):
+        local = [{p: grads8[1 + m * n + i] for i, p in enumerate(paths)}
+                 for m in range(TP8)]
+        full8 = _sum_grads(one, specs, local)
+        for p, g1 in zip(paths, grads1[1:]):
+            if g1 is None:
+                continue
+            name = ".".join(p)
+            errs[name] = _scaled_check(f"{arch} tp8 d{name}", full8[p], g1,
+                                       quiet=True)
+    if cfg.is_moe:
+        a8, a1 = aux8.item(), aux1.item()
+        errs["aux"] = abs(a8 - a1) / a1
+        if errs["aux"] > 1e-5:
+            raise AssertionError(f"{arch} tp8: aux {a8} != "
+                                 f"{a1}")
+    want = {"flash_attention": TP8, "flash_attention_bwd": TP8}
+    if cfg.is_moe:
+        want.update(moe_gemm=6 * TP8, moe_gemm_wgrad=3 * TP8)
+    if {k: v for k, v in used.items() if v} != want or \
+            any(plain.calls.values()):
+        raise AssertionError(f"{arch} tp8: launches {used}, plain versions "
+                             f"called {plain.calls} (expected {want})")
+    worst = max(v for k, v in errs.items() if k != "aux")
+    log(f"  {arch} one layer at B{B} S{S}, tp {TP8} rank by rank: both "
+        f"blocks' outputs, input gradients and all {n} leaves' gradients "
+        f"within TOL[bf16] of each tensor's scale (worst |err| / scale "
+        f"{worst:.3e}{', aux rel err %.2e' % errs['aux'] if cfg.is_moe else ''}"
+        f"); launches {used}; kernel shapes {shapes.shapes()}; fwd + bwd "
+        f"one device {one_s * 1e3:.1f} ms, 8 ranks in turn "
+        f"{tp_s * 1e3:.1f} ms (host clock)")
+    del locs, pms, one, ga1, gf1, ga8, gf8
+    return used, dict(worst_err_over_scale=worst,
+                      aux_rel_err=errs.get("aux"),
+                      one_device_ms=one_s * 1e3, ranks_in_turn_ms=tp_s * 1e3,
+                      kernel_shapes=shapes.shapes(), launches=used)
+
+
+def kernels_launches():
+    from repro_torch import kernels
+    return kernels.launches()
+
+
+def _map_layer(tree, fn):
+    return {k: _map_layer(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _scaled_check(name, got, want, quiet=False):
+    """|got - want| within TOL[bf16] of ``want``'s scale: atol 2e-2 x
+    max |want|, rtol 2e-2.  Returns max |err| / scale."""
+    got, want = got.float(), want.float()
+    scale = max(want.abs().max().item(), 1e-30)
+    err = (got - want).abs().max().item()
+    tol = TOL[torch.bfloat16]
+    ok = torch.isfinite(got).all() and torch.allclose(
+        got, want, atol=tol["atol"] * scale, rtol=tol["rtol"])
+    if not quiet or not ok:
+        log(f"  {name}: max_abs_err={err:.3e} (scale {scale:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the ranks' sum disagrees with one "
+                             f"device (max abs err {err}, scale {scale})")
+    return err / scale
+
+
+def _tp8_vocab(dev):
+    """Qwen3-30B-A3B's vocabulary-parallel ends at tp 8 on B2 S4096, each
+    rank on its shard of 18,992 rows or columns, as ``forward_loss`` runs
+    them over a model group: the embedding (``embed_share``, the ranks'
+    rows summed in rank order where ``forward_loss`` all-reduces them)
+    against ``_embed_tokens`` (equal bits: one rank owns each token), its
+    ``embed`` gradient within TOL[bf16] of its scale; and the
+    cross-entropy, chunk by chunk (``CE_CHUNK``), each rank's
+    ``ce_shard`` merged by ``ce_merge`` over a leading rank axis (the max
+    and the sums ``_chunk_ce_tp`` takes over the group), its value and the
+    gradients of h and ``lm_head`` held to the one-device
+    ``_chunked_ce``'s (value rtol 1e-5; gradients TOL[bf16] of their
+    scale)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config("qwen3_moe_30b")
+    B, S = TP8_BATCH
+    V = T.padded_vocab(cfg)
+    Vl = V // TP8
+    gen = torch.Generator(device=dev).manual_seed(19)
+    W = (torch.randn((cfg.d_model, V), generator=gen, device=dev)
+         / math.sqrt(cfg.d_model)).to(torch.bfloat16)
+    E = torch.randn((V, cfg.d_model), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    g_e = torch.randn((B, S, cfg.d_model), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    h0 = torch.randn((B, S, cfg.d_model), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    labels = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device=dev, dtype=torch.int32)
+    labels[:, :7] = -1
+
+    # the embedding
+    E1 = E.detach().requires_grad_(True)
+    e1 = T._embed_tokens(cfg, {"embed": E1}, tokens)
+    (dE1,) = torch.autograd.grad((e1.float() * g_e.float()).sum(), [E1])
+    Es = [E[m * Vl:(m + 1) * Vl].contiguous().requires_grad_(True)
+          for m in range(TP8)]
+    e8 = None
+    for m, Em in enumerate(Es):
+        part = T.embed_share(cfg, {"embed": Em}, tokens, m, TP8)
+        e8 = part if e8 is None else e8 + part
+    dEs = torch.autograd.grad((e8.float() * g_e.float()).sum(), Es)
+    if not torch.equal(e8, e1):
+        raise AssertionError("qwen3_moe_30b tp8 embedding: the ranks' sum "
+                             "is not the one-device embedding's bits")
+    e_e = _scaled_check("qwen3_moe_30b tp8 dembed", torch.cat(dEs), dE1)
+    del E1, e1, dE1, Es, e8, dEs
+
+    # the cross-entropy
+    W1, h1 = W.detach().requires_grad_(True), h0.detach().requires_grad_(True)
+    t0 = time.perf_counter()
+    loss1 = T._chunked_ce(cfg, {"lm_head": W1}, h1, labels)
+    dh1, dW1 = torch.autograd.grad(loss1, [h1, W1])
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    Ws = [W[:, m * Vl:(m + 1) * Vl].contiguous().requires_grad_(True)
+          for m in range(TP8)]
+    h8 = h0.detach().requires_grad_(True)
+    t0 = time.perf_counter()
+    tot = torch.zeros((), dtype=torch.float32, device=dev)
+    cnt = torch.zeros((), dtype=torch.float32, device=dev)
+    for s0 in range(0, S, T.CE_CHUNK):
+        hc, lc = h8[:, s0:s0 + T.CE_CHUNK], labels[:, s0:s0 + T.CE_CHUNK]
+        stats = [T.ce_shard(cfg, {"lm_head": w}, hc, lc, m, TP8)
+                 for m, w in enumerate(Ws)]
+        mx, se, ll = (torch.stack(t) for t in zip(*stats))
+        t, n = T.ce_merge(mx, se, ll, lc, lambda x: x.amax(0),
+                          lambda x: x.sum(0))
+        tot, cnt = tot + t, cnt + n
+    loss8 = tot / cnt
+    grads = torch.autograd.grad(loss8, [h8] + Ws)
+    torch.cuda.synchronize()
+    tp_ms = (time.perf_counter() - t0) * 1e3
+    if not math.isclose(loss8.item(), loss1.item(), rel_tol=1e-5):
+        raise AssertionError(f"tp8 cross-entropy {loss8.item()} != "
+                             f"{loss1.item()}")
+    e_h = _scaled_check("qwen3_moe_30b tp8 CE dh", grads[0], dh1)
+    e_w = _scaled_check("qwen3_moe_30b tp8 CE dlm_head",
+                        torch.cat(grads[1:], dim=1), dW1)
+    log(f"  qwen3_moe_30b embedding over {TP8} vocab shards of {Vl} rows, "
+        f"B{B} S{S}: equal bits, dembed |err| / scale {e_e:.2e}; "
+        f"cross-entropy over {TP8} shards of {Vl} columns: "
+        f"{loss8.item():.6f} vs one device {loss1.item():.6f}; one device "
+        f"{one_ms:.1f} ms, 8 shards in turn {tp_ms:.1f} ms (host clock)")
+    return dict(loss=loss8.item(), one_device_loss=loss1.item(),
+                dh_err_over_scale=e_h, dlm_head_err_over_scale=e_w,
+                embed_equal_bits=True, dembed_err_over_scale=e_e,
+                vocab_shard=Vl, one_device_ms=one_ms, shards_in_turn_ms=tp_ms)
+
+
+def _tp8_flash_times(dev):
+    """The flash forward, and forward + backward under autograd, at a
+    rank's tp-8 head shard (H 4 over Hkv 1) and at the one-device layer's
+    heads, B2 S4096 bf16, causal: CUDA-event medians of 20 (``Timer``)."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch.timing import Timer
+    timer = Timer(dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    B, S = TP8_BATCH
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S) \
+        .contiguous()
+    out = {}
+    for tag, H, Hkv, D in (("llama tp8 rank", 4, 1, 64),
+                           ("llama one device", 32, 8, 64),
+                           ("qwen3 tp8 rank", 4, 1, 128),
+                           ("qwen3 one device", 32, 4, 128)):
+        q, k, v = (_rand(gen, (B, S, h, D), torch.bfloat16, dev)
+                   .requires_grad_(True) for h in (H, Hkv, Hkv))
+        dout = _rand(gen, (B, S, H, D), torch.bfloat16, dev)
+        with torch.no_grad():
+            fwd = timer(lambda: flash_attention(q, k, v, pos, pos))
+        both = timer(lambda: torch.autograd.grad(
+            flash_attention(q, k, v, pos, pos), (q, k, v), dout))
+        out[f"B{B} S{S} H{H}/{Hkv} D{D} ({tag})"] = dict(fwd_ms=fwd,
+                                                        fwd_bwd_ms=both)
+        log(f"  flash at B{B} S{S} H{H}/{Hkv} D{D} ({tag}): forward "
+            f"{fwd:.3f} ms, forward + backward {both:.3f} ms")
+    del timer
+    return out
+
+
+def tp8_layers_path(dev):
+    """Phase 18 (b): rank by rank at tp 8 on one card, at full width: one
+    Llama-3.2-1B decoder layer and one Qwen3-30B-A3B MoE layer
+    (``_tp8_layer``), Qwen3-30B-A3B's vocab-parallel cross-entropy
+    and embedding (``_tp8_vocab``), and the flash kernel's times at the head shard
+    (``_tp8_flash_times``); the peak device memory over them.  Returns
+    (launches of the layers, numbers)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    used, stats = {}, {}
+    for arch in ("llama3_2_1b", "qwen3_moe_30b"):
+        u, stats[arch] = _tp8_layer(dev, arch)
+        for name, n in u.items():
+            used[name] = used.get(name, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats["vocab_parallel"] = _tp8_vocab(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["flash_times"] = _tp8_flash_times(dev)
+    stats["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 18 (b) took {stats['seconds']:.1f} s, peak device memory "
+        f"{stats['peak_gb']:.2f} GB")
+    return used, stats
 
 
 def _leaves(tree):
@@ -4854,16 +5506,33 @@ def main() -> int:
     print(json.dumps({"train_path_mla": mla_train_stats}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+
+    log(f"== 18. the multi-GPU training path on one card: (a) an NCCL group "
+        f"of one, build_cell's sharded step of Qwen3-30B-A3B at phase 13's "
+        f"cut ({MOE_TRAIN_LAYERS} layers, 3 steps of 4 x 4096, ZeRO-1); (b) "
+        f"rank by rank at tp {TP8}: a Llama-3.2-1B and a Qwen3-30B-A3B layer "
+        f"and the vocab-parallel cross-entropy at B2 S4096")
+    sharded_trained, sharded_stats = train_sharded_path(dev,
+                                                        moe_train_stats)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp8_used, tp8_stats = tp8_layers_path(dev)
+    print(json.dumps({"multi_gpu_path": {"sharded_step": sharded_stats,
+                                         "tp8_rank_by_rank": tp8_stats}}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm, "flash_attention_bwd": trained,
                          "moe_gemm_wgrad": moe_trained,
                          "ssd_scan_bwd": ssm_trained}.get(
             s["name"], greedy)[s["name"]]
-        # the launches of phases 15-17 added (the attention kernels; phase
-        # 17's grouped GEMM and its weight gradient too)
+        # the launches of phases 15-18 added (the attention kernels; phase
+        # 17's and 18's grouped GEMM and its weight gradient too)
         s["launches"] += sum(t.get(s["name"], 0) for t in (
-            hybrid_trained, encdec_trained, mla_trained))
+            hybrid_trained, encdec_trained, mla_trained, sharded_trained,
+            tp8_used))
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

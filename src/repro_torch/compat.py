@@ -2,7 +2,9 @@
 
 * ``resolve_device``: every entry point takes ``device=``.  The default
   is ``"cuda"``, and without a card that raises: nothing carries on on
-  the CPU unless the caller asks for ``device="cpu"``.
+  the CPU unless the caller asks for ``device="cpu"``.  ``"meta"`` gives
+  tensors without storage (shapes for the sharding rules and the dry
+  run).
 * bf16 has no numpy dtype, and the host store (``memory/paged_kv.py``)
   holds numpy pages.  Pages of a bf16 cache are kept as ``uint16`` bit
   views; ``to_numpy`` / ``from_numpy`` convert at the boundary, and the
@@ -25,7 +27,7 @@ def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: ``"cuda"`` unless the caller
     names another.  Raises when CUDA is asked for and absent."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -241,26 +241,31 @@ class DispatchPlan(NamedTuple):
 def dispatch_plan(expert_ids, num_experts: int, block_t: int,
                   capacity: Optional[int] = None) -> DispatchPlan:
     """Plan the grouped GEMM's rows for flat choices ``expert_ids`` (N,) in
-    [0, E).  With ``capacity`` C a choice whose rank among its expert's
+    [0, E].  With ``capacity`` C a choice whose rank among its expert's
     choices (in flat order) is >= C is dropped, as in
     ``repro.models.moe._moe_local``: the stable sort puts each expert's
     choices in flat order, so a choice's rank is its position in its
-    group and the kept ones are each group's first C."""
+    group and the kept ones are each group's first C.  A choice of id E
+    (an expert another rank holds, ``models/moe.py::_moe_shard_body``) is
+    dropped and takes no rank in any group."""
     ids = expert_ids.reshape(-1).long()
     N, E, dev = ids.numel(), num_experts, ids.device
     order = torch.argsort(ids, stable=True)
     sid = ids[order]
-    counts = torch.zeros((E,), dtype=torch.long, device=dev).scatter_add_(
-        0, ids, torch.ones_like(ids))
+    counts = torch.zeros((E + 1,), dtype=torch.long, device=dev) \
+        .scatter_add_(0, ids, torch.ones_like(ids))
     grp_start = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(N, device=dev) - grp_start[sid]
+    counts = counts[:E]
     kept = counts if capacity is None else counts.clamp(max=capacity)
     padded = (kept + block_t - 1) // block_t * block_t
     cum = torch.cumsum(padded, 0)
     rows = (-(-N // block_t) + E) * block_t        # static, as the reference
-    keep_sorted = (rank_sorted < capacity if capacity is not None
-                   else torch.ones_like(sid, dtype=torch.bool))
-    dest_sorted = torch.where(keep_sorted, cum[sid] - padded[sid]
+    keep_sorted = sid < E
+    if capacity is not None:
+        keep_sorted &= rank_sorted < capacity
+    sidc = sid.clamp(max=E - 1)
+    dest_sorted = torch.where(keep_sorted, cum[sidc] - padded[sidc]
                               + rank_sorted, rows)
     dest = torch.empty_like(dest_sorted).scatter_(0, order, dest_sorted)
     starts = torch.arange(rows // block_t, device=dev) * block_t

@@ -1,0 +1,217 @@
+"""The meta-device dry run: every (arch x shape) cell on the production
+meshes, reckoned per rank from the sharding specs and the shapes alone.
+
+The port's counterpart of ``repro.launch.dryrun``, which lowers and
+compiles each cell against 256 or 512 placeholder TPU devices and reads
+XLA's memory analysis.  Here nothing is compiled and nothing is
+allocated on a device: for each cell on ``(16, 8)`` and ``(2, 16, 8)``
+(``launch/mesh.py::make_production_mesh``) it sums one rank's bytes of
+
+* parameters: each leaf's local slice under its spec (regime ``tp``; a
+  decode shape's ``decode``), in its dtype;
+* gradients, in the leaves' dtypes, and with more than one microbatch
+  (``launch/steps.py::_auto_microbatches``) their fp32 sums beside them;
+* the ZeRO-1 state: fp32 master, m and v of the rank's part of every
+  flat leaf (``optim.py``'s layout, 12 B an element);
+* the batch: int32 tokens and labels of the rank's rows, and the stub
+  frames or patches (bf16);
+* for a serving shape, the decode cache's local slice
+  (``distributed/sharding.py::cache_specs``, sequence over ``model``),
+
+and compares the sum with the card's 80 GB, as it does the peak while
+the weights are drawn (``Cell.init_state``: each rank draws its slices,
+``init_params`` with ``part``, beside the largest single draw's fp32
+temporary and its cast, a whole unstacked leaf or one layer or expert
+of a stacked one).  Activations and the
+allocator's slack are left out: the sums are reckonings, not
+measurements.  A serving cell reckons its parameters and cache only (no
+gradients, optimizer or batch beyond its tokens).  Each cell is one JSON
+file, as the reference's ``_save``; the run counts ok, skipped and
+failed cells and exits 1 on a failure.  ``runs`` says whether the
+port's ``build_cell`` takes the cell today.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID|all]
+        [--shape NAME|all] [--mesh single|multi|both] [--outdir DIR]
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+import traceback
+from typing import Dict, List, Optional
+
+from repro_torch import optim
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps
+from repro_torch.models import transformer as T
+from repro_torch.models.api import SHAPES, shape_applicable
+
+HBM_BYTES = 80e9        # one H100 SXM's device memory, 80 GB
+
+
+def _local(shape, spec, sizes: Dict[str, int]) -> int:
+    n = 1
+    for d, entry in zip(shape, spec):
+        parts = 1
+        for a in shd._axes_of(entry):
+            parts *= sizes[a]
+        n *= d // parts if d % parts == 0 else d
+    return n
+
+
+def _leaves(spec_tree, shape_tree, path=()):
+    if isinstance(shape_tree, dict):
+        for k in sorted(shape_tree):
+            yield from _leaves(spec_tree[k], shape_tree[k], path + (k,))
+    else:
+        yield path, spec_tree, shape_tree
+
+
+def _draw_bytes(path, leaf, dt) -> int:
+    """Bytes of ``init_params``'s largest temporary for one leaf: its
+    fp32 draw and the cast, of the whole leaf or of one unit (a layer;
+    an expert of an (L, E, ., .) leaf) of a stacked one."""
+    dims = leaf[0]
+    if leaf[1] in ("ones", "zeros"):
+        return 0
+    if path[0] in ("layers", "enc_layers", "units", "tail"):
+        dims = dims[2:] if path[-2] == "moe" and len(dims) == 4 \
+            else dims[1:]
+    return math.prod(dims) * (4 + dt.itemsize)
+
+
+def reckon(arch: str, shape_name: str, mesh: mesh_lib.Mesh) -> Dict:
+    """One rank's reckoned bytes of a cell on an abstract ``mesh``."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    axes = mesh_lib.mesh_axes(mesh)
+    sizes = mesh.shape
+    tp, n_dev = sizes["model"], mesh.size
+    data = mesh_lib.batch_extent(mesh)
+    B, S = shape.global_batch, shape.seq_len
+    regime = "decode" if shape.kind == "decode" else "tp"
+    pspecs = shd.param_specs(cfg, axes, tp, regime, n_dev=n_dev)
+    pshapes = T.param_shapes(cfg)
+    out = {"parameters": 0, "gradients": 0, "grad_accumulators": 0,
+           "zero1_state": 0, "batch": 0, "cache": 0}
+    n_params, draw = 0, 0
+    for path, spec, leaf in _leaves(pspecs, pshapes):
+        dims, dt = leaf[0], T._leaf_dtype(cfg, leaf)
+        n = _local(dims, spec, sizes)
+        n_params += n
+        draw = max(draw, _draw_bytes(path, leaf, dt))
+        out["parameters"] += n * dt.itemsize
+        if shape.kind != "train":
+            continue
+        out["gradients"] += n * dt.itemsize
+        split = tp > 1 and optim._model_split(spec)
+        flat = n if split else math.prod(dims)
+        parts = data if split else n_dev
+        out["zero1_state"] += 12 * (-(-flat // parts))
+    n_mb = 1
+    rows = B // data if B % data == 0 else B
+    if shape.kind == "train":
+        n_mb = steps._auto_microbatches(cfg, B, S, data, 4)
+        if n_mb > 1:
+            out["grad_accumulators"] = 4 * n_params
+        out["batch"] = rows * S * 4 * 2
+        stub = cfg.num_patches if cfg.family == "vlm" else (
+            cfg.encoder_seq if cfg.family == "audio" else 0)
+        out["batch"] += rows * stub * cfg.d_model * 2
+    else:
+        out["batch"] = rows * (S * 4 if shape.kind == "prefill" else 8)
+        cache = T.init_cache(cfg, B, S, device="meta")
+        cspecs = shd.cache_specs(cfg, axes, tp, B, data)
+        for _, spec, t in _leaves(cspecs, cache):
+            out["cache"] += _local(t.shape, spec, sizes) * t.element_size()
+    total = sum(out.values())
+    init_peak = out["parameters"] + draw
+    runs, why = True, ""
+    try:
+        steps.build_cell(arch, shape_name, mesh)
+    except NotImplementedError as e:
+        runs, why = False, str(e)
+    return {"per_rank_bytes": out, "per_rank_total_bytes": total,
+            "per_rank_init_peak_bytes": init_peak,
+            "per_rank_parameters": n_params, "microbatches": n_mb,
+            "fits_80gb": max(total, init_peak) < HBM_BYTES, "runs": runs,
+            "why_not": why,
+            "note": shd.explain(cfg, tp)}
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool,
+             outdir: Optional[str]) -> Dict:
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    tag = f"{arch}.{shape_name}.{'multi' if multi_pod else 'single'}"
+    ok, why = shape_applicable(get_config(arch), SHAPES[shape_name])
+    if not ok:
+        rec = {"cell": tag, "status": "skipped", "why": why}
+        print(f"SKIP {tag}: {why}")
+    else:
+        t0 = time.perf_counter()
+        try:
+            rec = {"cell": tag, "status": "ok",
+                   "kind": SHAPES[shape_name].kind, "mesh": mesh.shape,
+                   **reckon(arch, shape_name, mesh),
+                   "reckon_s": time.perf_counter() - t0}
+            print(f"OK   {tag} {rec['per_rank_total_bytes'] / 1e9:.2f} GB "
+                  f"a rank (parameters "
+                  f"{rec['per_rank_bytes']['parameters'] / 1e9:.2f}, "
+                  f"{rec['microbatches']} microbatches; drawing the "
+                  f"weights {rec['per_rank_init_peak_bytes'] / 1e9:.2f}) "
+                  f"fits={rec['fits_80gb']} runs={rec['runs']}")
+        except Exception as e:  # noqa: BLE001 - record the failure, go on
+            rec = {"cell": tag, "status": "fail",
+                   "error": f"{type(e).__name__}: {e}",
+                   "traceback": traceback.format_exc()[-2000:]}
+            print(f"FAIL {tag}: {type(e).__name__}: {str(e)[:200]}")
+    if outdir:
+        _save(outdir, tag, rec)
+    return rec
+
+
+def _save(outdir: str, tag: str, rec: Dict) -> None:
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, tag + ".json"), "w") as f:
+        json.dump(rec, f, indent=1, default=str)
+
+
+def run(archs: List[str], shapes: List[str], meshes: List[bool],
+        outdir: Optional[str]) -> List[Dict]:
+    """Every cell; prints the counts and raises ``SystemExit(1)`` on a
+    failure.  Returns the records."""
+    t0 = time.perf_counter()
+    results = [run_cell(a, s, mp, outdir)
+               for a in archs for s in shapes for mp in meshes]
+    n = {k: sum(r["status"] == k for r in results)
+         for k in ("ok", "skipped", "fail")}
+    print(f"\n== dry run: {n['ok']} ok, {n['skipped']} skipped, "
+          f"{n['fail']} failed in {time.perf_counter() - t0:.1f}s ==",
+          flush=True)
+    if n["fail"]:
+        raise SystemExit(1)
+    return results
+
+
+def main(argv=None) -> List[Dict]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="all")
+    ap.add_argument("--shape", default="all")
+    ap.add_argument("--mesh", default="both",
+                    choices=["single", "multi", "both"])
+    ap.add_argument("--outdir", default="build/dryrun")
+    args = ap.parse_args(argv)
+    archs = ARCH_IDS if args.arch == "all" else [args.arch]
+    shapes = list(SHAPES) if args.shape == "all" else [args.shape]
+    meshes = {"single": [False], "multi": [True],
+              "both": [False, True]}[args.mesh]
+    return run(archs, shapes, meshes, args.outdir)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,26 +1,47 @@
-"""The training step on one device: the port's counterpart of the body of
-``repro.launch.steps._build_train``.
+"""The training step, on one device and over a mesh: the port's
+counterpart of ``repro.launch.steps``.
 
 ``train_step`` takes the loss's gradients (``models/transformer.py::
 forward_loss``) with respect to every parameter leaf, over ``microbatches``
 slices of the batch on dim 0 (grads accumulated in fp32, summed and then
 divided by the count, as the reference's scan does; the loss, an MoE
 decoder's aux included, is averaged the same way), and applies one AdamW
-step (``optim.apply_updates``).  The mesh, the shardings and
-``build_cell`` wait for the port's multi-GPU slice.
+step (``optim.apply_updates``).  With ``comm`` (a
+``distributed/collectives.py::Comm``) it is one rank's step on the
+multi-GPU path: its local parameter slices, its data shard of the batch,
+tensor and expert parallelism over the model group inside
+``forward_loss``, ZeRO-1 over every rank in ``apply_updates``; the loss
+it returns is the data group's sum of the ranks' terms, the batch's.
+
+``build_cell`` builds the train kind of a (arch x shape) cell on a mesh
+(``launch/mesh.py``): the microbatch count (``_auto_microbatches``), the
+parameter, batch and optimizer specs (``distributed/sharding.py``,
+regime ``tp``), and a ``Cell`` whose ``init_state`` draws this rank's
+slices of the weights, whose ``local_batch`` takes this rank's rows of
+a global batch (microbatch j's data shard, as the reference's
+``_mb_split`` keeps the DP shard on dim 1), and whose ``step`` runs
+``train_step`` over the realized mesh's groups.  The serving kinds
+(``prefill``, ``decode``) and ``train_regime="fsdp"`` raise, naming the
+ROADMAP item that queues them.
 """
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch import optim
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import LOCAL
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
-from repro_torch.models.api import ModelConfig
+from repro_torch.models.api import SHAPES, ModelConfig, shape_applicable
 
 
-def loss_and_grads(cfg: ModelConfig, params, batch, *, remat: bool = True):
+def loss_and_grads(cfg: ModelConfig, params, batch, *, remat: bool = True,
+                   comm=LOCAL):
     """(loss, grads): ``forward_loss`` and its gradient at every leaf of
     ``params``, as a tree of the same keys in the leaves' dtypes.  The
     params themselves are not marked: the loss runs on detached aliases
@@ -30,7 +51,7 @@ def loss_and_grads(cfg: ModelConfig, params, batch, *, remat: bool = True):
     AdamW's weight decay would still move the leaf)."""
     req = optim.tree_map(lambda t: t.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss = T.forward_loss(cfg, req, batch, remat=remat)
+        loss = T.forward_loss(cfg, req, batch, remat=remat, comm=comm)
         leaves = optim.tree_leaves(req)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     missed = [name for name, g in zip(_paths(req), grads) if g is None]
@@ -57,18 +78,23 @@ def _unflatten(tree, it):
 
 def train_step(cfg: ModelConfig, params, opt_state, batch,
                ocfg: optim.AdamWConfig, *, microbatches: int = 1,
-               remat: bool = True) -> Dict[str, torch.Tensor]:
+               remat: bool = True, comm=LOCAL,
+               specs=None) -> Dict[str, torch.Tensor]:
     """One training step: the loss and gradients of ``batch`` (``tokens``
     and ``labels``, (B, S) each, on the params' device; the
     encoder-decoder's ``frames`` and the vision decoder's ``patches``
     beside them, and its labels (B, P + S)), over ``microbatches`` equal
     slices of B (every key sliced on dim 0) when more than one, then
-    AdamW.
+    AdamW.  Over ``comm`` the params are this rank's slices under
+    ``specs``, ``batch`` its rows (``Cell.local_batch``) and the
+    optimizer state ``optim.init_opt_state``'s parts over ``comm``; on
+    one device (``LOCAL``) nothing is sent.
     ``params`` and ``opt_state`` are updated in place.  Returns
     ``{"loss", "grad_norm"}`` (fp32 scalars on the device)."""
     n_mb = microbatches
     if n_mb <= 1:
-        loss, grads = loss_and_grads(cfg, params, batch, remat=remat)
+        loss, grads = loss_and_grads(cfg, params, batch, remat=remat,
+                                     comm=comm)
     else:
         B = batch["tokens"].shape[0]
         if B % n_mb:
@@ -79,7 +105,7 @@ def train_step(cfg: ModelConfig, params, opt_state, batch,
         grads = None
         for j in range(n_mb):
             mb = {k: t[j * b:(j + 1) * b] for k, t in batch.items()}
-            l, g = loss_and_grads(cfg, params, mb, remat=remat)
+            l, g = loss_and_grads(cfg, params, mb, remat=remat, comm=comm)
             if grads is None:       # 0 + g, exactly as the reference's
                 grads = optim.tree_map(lambda x: x.float(), g)
                 loss = l
@@ -90,5 +116,137 @@ def train_step(cfg: ModelConfig, params, opt_state, batch,
             del g
         loss = loss / n_mb
         grads = optim.tree_map(lambda a: a.div_(n_mb), grads)
-    _, _, gnorm = optim.apply_updates(ocfg, params, grads, opt_state)
+    loss = comm.data.all_reduce(loss)
+    _, _, gnorm = optim.apply_updates(ocfg, params, grads, opt_state,
+                                      comm.n_dev, comm=comm, specs=specs)
     return {"loss": loss, "grad_norm": gnorm}
+
+
+# ---------------------------------------------------------------------------
+# cells over a mesh
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Cell:
+    """One train cell on a mesh.  ``batch`` and ``seq`` are the global
+    batch's; ``mesh`` may be abstract (specs, shapes, the dry run) or
+    realized (``init_state``, ``step``)."""
+    arch: str
+    shape: str
+    cfg: ModelConfig
+    mesh: mesh_lib.Mesh
+    batch: int
+    seq: int
+    microbatches: int
+    param_specs: Any
+    batch_specs: Dict[str, Any]
+    ocfg: optim.AdamWConfig
+    note: str = ""
+
+    @property
+    def comm(self):
+        if self.mesh.rank is None:
+            raise ValueError("the cell's mesh is abstract: realize it")
+        return self.mesh.comm
+
+    def init_state(self, seed: int = 0, device=None) -> Tuple[Any, Any]:
+        """(this rank's parameter slices, its optimizer parts):
+        ``init_params(cfg, seed)`` cut by ``shard_params``, drawn a slice
+        at a time (``part``) so that the full tree is never held."""
+        params = T.init_params(self.cfg, seed, device, part=shd.part_of(
+            self.param_specs, self.mesh))
+        return params, self.init_opt(params)
+
+    def init_opt(self, params):
+        return optim.init_opt_state(params, self.mesh.size, comm=self.comm,
+                                    specs=self.param_specs)
+
+    def local_batch(self, batch: Dict[str, torch.Tensor]):
+        """This rank's rows of a global batch: for each key split on dim
+        0, microbatch j's (rows [j b, (j+1) b)) data shard, microbatches
+        in order; a key the batch specs replicate stays whole."""
+        d = mesh_lib.batch_extent(self.mesh)
+        c = self.comm.data.rank
+        n = self.microbatches
+        out = {}
+        for k, t in batch.items():
+            if d == 1 or self.batch_specs.get(k, (None,))[0] is None:
+                out[k] = t
+                continue
+            B = t.shape[0]
+            if B % (n * d):
+                raise ValueError(f"{k}: batch {B} does not split into "
+                                 f"{n} microbatches over {d} data ranks")
+            b = B // n // d
+            v = t.reshape((n, d, b) + tuple(t.shape[1:]))[:, c]
+            out[k] = v.reshape((n * b,) + tuple(t.shape[1:]))
+        return out
+
+    def step(self, params, opt_state, batch, *, remat: bool = True):
+        """One ``train_step`` of this rank on its rows of the global
+        ``batch``."""
+        return train_step(self.cfg, params, opt_state,
+                          self.local_batch(batch), self.ocfg,
+                          microbatches=self.microbatches, remat=remat,
+                          comm=self.comm, specs=self.param_specs)
+
+
+def _auto_microbatches(cfg, B, S, mesh_batch, floor, target=2 * 2**30):
+    """Pick the microbatch count so the per-device remat stash (one hidden
+    state per layer per microbatch) stays under ``target`` bytes."""
+    L = cfg.num_layers + cfg.encoder_layers
+    n = 1
+    while n < floor and B % (2 * n * mesh_batch) == 0:
+        n *= 2
+    per_layer = lambda nn: (B // mesh_batch // nn) * S * cfg.d_model * 2
+    while (L * per_layer(n) > target and B % (2 * n * mesh_batch) == 0
+           and B // mesh_batch // n > 1):
+        n *= 2
+    return n
+
+
+QUEUED = {
+    "prefill": "prefill cells",
+    "decode": "the decode regime (a sequence-split KV cache)",
+    "fsdp": "fsdp",
+}
+
+
+def build_cell(arch, shape_name: str, mesh: mesh_lib.Mesh, *,
+               opt_cfg: Optional[optim.AdamWConfig] = None,
+               microbatches: int = 4,
+               exact_microbatches: Optional[int] = None,
+               train_regime: str = "tp",
+               batch_seq: Optional[Tuple[int, int]] = None,
+               over: Optional[Dict[str, Any]] = None) -> Cell:
+    """The train cell of ``arch`` (an arch id or a ``ModelConfig``) x
+    ``shape_name`` on ``mesh``.  ``batch_seq`` overrides the shape's
+    (global batch, sequence) and ``over`` replaces config fields (a depth
+    cut, ``num_layers``; a dtype)."""
+    if isinstance(arch, ModelConfig):
+        cfg, arch = arch, arch.name
+    else:
+        cfg = get_config(arch)
+    if over:
+        cfg = dataclasses.replace(cfg, **over)
+    shape = SHAPES[shape_name]
+    ok, why = shape_applicable(cfg, shape)
+    if not ok:
+        raise ValueError(f"{arch} x {shape_name}: {why}")
+    if shape.kind != "train" or train_regime != "tp":
+        item = QUEUED[shape.kind if shape.kind != "train" else train_regime]
+        raise NotImplementedError(
+            f"{arch} x {shape_name} ({shape.kind}, regime {train_regime}) "
+            f"waits for {item} (ROADMAP Queue A, the multi-device path)")
+    axes = mesh_lib.mesh_axes(mesh)
+    tp = mesh.shape["model"]
+    T.check_trainable(cfg, tp)
+    mesh_batch = mesh_lib.batch_extent(mesh)
+    B, S = batch_seq or (shape.global_batch, shape.seq_len)
+    n_mb = (exact_microbatches if exact_microbatches
+            else _auto_microbatches(cfg, B, S, mesh_batch, microbatches))
+    return Cell(arch, shape_name, cfg, mesh, B, S, n_mb,
+                shd.param_specs(cfg, axes, tp, "tp", n_dev=mesh.size),
+                shd.batch_specs(cfg, axes, B, mesh_batch, "train"),
+                opt_cfg or optim.AdamWConfig(), note=shd.explain(cfg, tp))

@@ -28,7 +28,7 @@ patches a row before its ``--seq`` text tokens, labels -1 over them).
 The stub embeddings are ``data/pipeline.py::frontend_stub``'s, drawn
 from (``--seed``, step).  Full depth: a config too large for one card
 (the full Qwen3-30B-A3B's or DeepSeek-R1's weights, masters and
-moments) runs out of memory; the port's multi-GPU slice will shard it.
+moments) runs out of memory on one; across cards it shards (below).
 
 The counterpart of ``repro.launch.train``'s training path (and of
 ``examples/train_smollm.py``, whose width cut ``--reduced`` gives):
@@ -40,13 +40,41 @@ tokens).  Prints each step's
 loss, grad norm and tokens/s, on the card the peak device memory, and
 with ``--ckpt`` saves the weights by
 ``runtime/checkpoint.py::save``.  Runs on the card unless ``--device
-cpu``.  ``--dry`` (the reference's compile-only check on a production
-mesh) waits for the port's multi-GPU slice and raises.
+cpu``.
+
+Across ranks (``torchrun``'s ``WORLD_SIZE`` above 1, or ``--tp``) it
+joins the process group (NCCL on the card, gloo on the CPU; without
+``torchrun``'s address a one-rank group on ``tcp://localhost``), builds
+the (WORLD / tp, tp) mesh and trains through
+``launch/steps.py::build_cell``'s sharded step: tensor and expert
+parallelism over ``model`` (``--tp``, the world by default), data
+parallelism over ``data``, ZeRO-1 over every rank; each rank draws the
+full weights from ``--seed`` and keeps its slices, and rank 0 prints (each
+step with its collectives' counts and ring wire bytes,
+``distributed/collectives.py::collective_stats``).
+Dense and MoE decoders whose q heads split over ``--tp``:
+
+    torchrun --nproc-per-node 8 -m repro_torch.launch.train \
+        --arch qwen3_moe_30b --steps 4 --batch 16 --seq 4096 \
+        --microbatches 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_1b \
+        --reduced --device cpu --dtype float32 --tp 1
+
+``--layers`` cuts the depth (as ``chip_smoke.py``'s phases do).
+``--sample-params PATH`` saves (``torch.save``, rank 0) each step's loss
+and grad norm and a fixed sample of the full parameters before the first
+step and after each: every k-th element of each leaf's flat, 4096 at
+most, gathered over the mesh on the multi-GPU path (what a one-card and
+a multi-card run of the same command are compared by).  ``--dry`` runs
+the meta-device dry run (``launch/dryrun.py``) for
+``--arch`` on the production meshes, all shapes, and allocates nothing.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
+import socket
 import time
 from typing import Dict, List, Optional
 
@@ -90,19 +118,26 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dtype", default=None,
                     help="override the config's dtype (e.g. float32)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--dry", action="store_true")
+    ap.add_argument("--tp", type=int, default=0,
+                    help="ranks of the model axis (multi-GPU path)")
+    ap.add_argument("--outdir", default="build/dryrun",
+                    help="--dry's records")
+    ap.add_argument("--sample-params", default=None,
+                    help="save losses, grad norms and parameter samples")
     args = ap.parse_args(argv)
     if args.dry:
-        raise NotImplementedError(
-            "--dry (compile the train cell on a production mesh) waits for "
-            "the port's multi-GPU slice (ROADMAP Queue A)")
+        from repro_torch.launch import dryrun
+        return dryrun.main(["--arch", args.arch, "--outdir", args.outdir])
 
     dev = compat.resolve_device(args.device)
-    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    if args.dtype:
-        cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    cfg = _config(args)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or args.tp:
+        return _main_sharded(args, cfg, dev)
     T.check_trainable(cfg)
     params = T.init_params(cfg, args.seed, dev)
     ocfg = optim.AdamWConfig(lr=LR, zero1=False)
@@ -114,6 +149,7 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
           f"batch {args.batch} x {args.seq} in {args.microbatches} "
           f"microbatches, on {dev}", flush=True)
     losses = []
+    rec = _Record(args.sample_params, lambda: params)
     for step in range(args.steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in step_batch(cfg, stream, step, args.seed).items()}
@@ -124,8 +160,10 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
         loss, gnorm = float(out["loss"]), float(out["grad_norm"])
         secs = time.perf_counter() - t0
         losses.append(loss)
+        rec.step(loss, gnorm)
         print(f"step {step} loss {loss:.4f} grad_norm {gnorm:.4f} "
               f"{args.batch * args.seq / secs:.1f} tokens/s", flush=True)
+    rec.save()
     if dev.type == "cuda":
         print(f"peak device memory "
               f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB",
@@ -136,6 +174,143 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
                                                   "arch": args.arch})
         print(f"checkpoint saved to {args.ckpt}", flush=True)
     return losses
+
+
+SAMPLE = 4096
+
+
+def _sample(params, n: int = SAMPLE):
+    """Every k-th element of each leaf's flat (k = numel // n, at least
+    1), n at most, as fp32 on the CPU, keyed by the leaf's dotted path."""
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (k,))
+            return
+        flat = t.detach().reshape(-1)
+        out[".".join(path)] = flat[::max(1, flat.numel() // n)][:n] \
+            .to("cpu", torch.float32, copy=True)
+
+    walk(params, ())
+    return out
+
+
+class _Record:
+    """``--sample-params``: each step's loss and grad norm and
+    ``_sample`` of the full parameters (``full()``; every rank calls it,
+    a collective on the multi-GPU path) before the first step and after
+    each, saved by the lead rank; nothing without a path."""
+
+    def __init__(self, path, full, lead: bool = True):
+        self.path, self.full, self.lead = path, full, lead
+        self.data = {"loss": [], "grad_norm": [], "params": []}
+        self._take()
+
+    def _take(self):
+        if self.path:
+            self.data["params"].append(_sample(self.full()))
+
+    def step(self, loss: float, gnorm: float):
+        self.data["loss"].append(loss)
+        self.data["grad_norm"].append(gnorm)
+        self._take()
+
+    def save(self):
+        if self.path and self.lead:
+            torch.save(self.data, self.path)
+
+
+def _config(args):
+    """``--arch``'s config, reduced with ``--reduced``, its dtype and
+    depth replaced by ``--dtype`` and ``--layers``."""
+    cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    over = {}
+    if args.dtype:
+        over["dtype"] = args.dtype
+    if args.layers:
+        over["num_layers"] = args.layers
+    return dataclasses.replace(cfg, **over)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _main_sharded(args, base, dev) -> List[float]:
+    """The loop over a mesh of every rank of the process group."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import collectives
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import build_cell
+
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    rank = int(os.environ.get("RANK", "0"))
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "MASTER_ADDR" in os.environ:
+        dist.init_process_group(backend)
+    else:
+        dist.init_process_group(
+            backend, init_method=f"tcp://localhost:{_free_port()}",
+            rank=0, world_size=1)
+    try:
+        tp = args.tp or world
+        if world % tp:
+            raise ValueError(f"--tp {tp} does not divide {world} ranks")
+        mesh = mesh_lib.Mesh(("data", "model"), (world // tp, tp)) \
+            .realize(dev.type)
+        cell = build_cell(base, "train_4k", mesh,
+                          batch_seq=(args.batch, args.seq),
+                          exact_microbatches=args.microbatches,
+                          opt_cfg=optim.AdamWConfig(lr=LR))
+        cfg = cell.cfg
+        params, opt = cell.init_state(args.seed, dev)
+        stream = SyntheticLMStream(DataConfig(
+            global_batch=args.batch, seq_len=args.seq,
+            vocab_size=cfg.vocab_size, seed=args.seed))
+        lead = rank == 0
+        rec = _Record(args.sample_params, lambda: shd.gather_params(
+            params, cell.param_specs, mesh), lead)
+        if lead:
+            print(f"{cfg.name}: {T.param_count(cfg):,} parameters, "
+                  f"{cfg.dtype}, mesh {mesh.shape} ({cell.note}), batch "
+                  f"{args.batch} x {args.seq} in {cell.microbatches} "
+                  f"microbatches, on {dev.type}", flush=True)
+        losses = []
+        for step in range(args.steps):
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     step_batch(cfg, stream, step, args.seed).items()}
+            _sync(dev)
+            collectives.reset_events()
+            t0 = time.perf_counter()
+            out = cell.step(params, opt, batch)
+            loss, gnorm = float(out["loss"]), float(out["grad_norm"])
+            secs = time.perf_counter() - t0
+            losses.append(loss)
+            rec.step(loss, gnorm)
+            if lead:
+                st = collectives.collective_stats()
+                print(f"step {step} loss {loss:.4f} grad_norm {gnorm:.4f} "
+                      f"{args.batch * args.seq / secs:.1f} tokens/s; "
+                      f"collectives {st['counts']}, "
+                      f"{st['total_wire_bytes'] / 1e6:.1f} MB on the wire "
+                      f"(rank 0)", flush=True)
+        rec.save()
+        if lead and dev.type == "cuda":
+            print(f"peak device memory (rank 0) "
+                  f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB",
+                  flush=True)
+        return losses
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -268,6 +268,42 @@ def attention_fwd(cfg: ModelConfig, p, x, positions, *, rope_tab=None,
     return _merge_heads(o, p["wo"]), (k, v)
 
 
+def kv_heads_of_rank(cfg: ModelConfig, m: int, tp: int):
+    """The kv heads [lo, hi) that rank ``m`` of ``tp``'s q heads [m H/tp,
+    (m+1) H/tp) attend to, when the kv heads do not split over ``tp``
+    (their weights replicated): Qwen3-30B-A3B's 32 q heads over 4 kv
+    heads at tp 8 give rank m kv head m // 2.  Raises when the rank's q
+    heads do not map onto whole groups of one size."""
+    H, Hkv = cfg.num_heads, cfg.num_kv_heads
+    Hl, G = H // tp, H // Hkv
+    if G % Hl and Hl % G:
+        raise NotImplementedError(
+            f"{cfg.name}: {Hl} q heads a rank over groups of {G} do not "
+            f"map onto whole kv heads")
+    lo = m * Hl // G
+    return lo, lo + max(Hl // G, 1)
+
+
+def tp_attention_params(cfg: ModelConfig, p, m: int, tp: int,
+                        copy=lambda t: t):
+    """Rank ``m``'s attention leaves for ``attention_fwd``: ``p`` holds its
+    q-head shard of ``wq`` / ``wo`` / ``bq``; kv leaves that split over
+    ``tp`` are its shard already, and replicated ones are sliced to
+    ``kv_heads_of_rank``, each after ``copy`` (the model group's
+    ``copy_in``: every rank holds a part of a replicated weight's
+    gradient)."""
+    if cfg.num_kv_heads % tp == 0:
+        return p
+    lo, hi = kv_heads_of_rank(cfg, m, tp)
+    out = dict(p)
+    for name in ("wk", "wv"):
+        out[name] = copy(p[name])[:, lo:hi]
+    for name in ("bk", "bv"):
+        if name in p:
+            out[name] = copy(p[name])[lo:hi]
+    return out
+
+
 def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
                      rope_tab=None, use_rope: bool = True):
     """One-token decode; returns (out, k_cache, v_cache), the caches

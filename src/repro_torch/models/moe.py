@@ -12,8 +12,9 @@ capacity C counts every row of the forward, and a choice whose rank among
 its expert's choices in flat token-major order is >= C is dropped) but
 runs only the kept choices, sorted by expert, through the ``moe_gemm``
 grouped GEMM: three launches per layer.  The result equals the
-reference's.  The expert-parallel shard_map path waits for the multi-GPU
-slice.
+reference's.  ``_moe_shard_body`` is one rank's share of the
+expert-parallel layer (``models/transformer.py::_train_layer``
+all-reduces the partial outputs over the model group).
 
 Under autograd the router (an fp32 matmul and softmax), the gather and the
 combine stay plain torch ops, and the grouped GEMMs run
@@ -41,10 +42,11 @@ def expert_capacity(cfg: ModelConfig, tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8, floor of 8 slots
 
 
-def _route(cfg: ModelConfig, wg, xt):
-    """Router: (vals (T,k) fp32, ids (T,k) int64, aux fp32 scalar).  Top-k
-    breaks ties to the lowest expert id (``lax.top_k``'s rule; a stable
-    descending sort, since ``torch.topk`` leaves tie order open)."""
+def _route_terms(cfg: ModelConfig, wg, xt):
+    """Router: (vals (T,k) fp32, ids (T,k) int64, the load-balance aux's
+    terms (E,) fp32, whose sum is the aux).  Top-k breaks ties to the
+    lowest expert id (``lax.top_k``'s rule; a stable descending sort,
+    since ``torch.topk`` leaves tie order open)."""
     logits = torch.matmul(xt.float(), wg)
     probs = torch.softmax(logits, dim=-1)
     k = cfg.experts_per_token
@@ -57,18 +59,41 @@ def _route(cfg: ModelConfig, wg, xt):
         .index_add_(0, ids.reshape(-1),
                     torch.ones((ids.numel(),), device=xt.device)) \
         / ids.numel() * E
-    aux = torch.sum(f * probs.mean(0))
-    return vals, ids, aux
+    return vals, ids, f * probs.mean(0)
 
 
-def _moe_local(cfg: ModelConfig, p, x):
-    """Capacity-bounded MoE on one device, x (B, S, D) -> ((B, S, D),
-    aux), through the grouped GEMM on the kept choices."""
+def _route(cfg: ModelConfig, wg, xt):
+    """Router: (vals (T,k) fp32, ids (T,k) int64, aux fp32 scalar)."""
+    vals, ids, terms = _route_terms(cfg, wg, xt)
+    return vals, ids, torch.sum(terms)
+
+
+def _moe_shard_body(cfg: ModelConfig, p, x, m: int = 0, tp: int = 1):
+    """Rank ``m`` of ``tp``'s share of the capacity-bounded MoE,
+    x (B, S, D) -> (partial (B, S, D), partial aux): the counterpart of
+    ``repro.models.moe._moe_shard_body``.  ``p`` holds the router ``wg``
+    (D, E) whole and this rank's E/tp experts [m E/tp, (m+1) E/tp) of
+    ``w1`` / ``w3`` / ``w2``.  Routing runs on the whole x; the choices
+    kept are those of a local expert whose rank among their expert's
+    choices (flat order over x's T tokens) is below C =
+    ``expert_capacity(cfg, T)``: that rank is the same counted over all
+    experts or within the block, so ``dispatch_plan`` over local ids (the
+    others as E/tp, dropped) drops what the reference drops.  The partial
+    output sums the local experts' weighted outputs and the partial aux
+    the local experts' terms: each sums over the ranks (the caller's
+    all-reduce) to the layer's.  At tp = 1 it is ``_moe_local``."""
     B, S, D = x.shape
     xt = x.reshape(-1, D)
-    vals, ids, aux = _route(cfg, p["wg"], xt)
+    vals, ids, terms = _route_terms(cfg, p["wg"], xt)
     T, k, E = xt.shape[0], cfg.experts_per_token, cfg.num_experts
-    plan = moe_ops.dispatch_plan(ids, E, moe_ops.pick_block_t(T * k, E),
+    El = E // tp
+    lo = m * El
+    if p["w1"].shape[0] != El:
+        raise ValueError(f"_moe_shard_body: {p['w1'].shape[0]} local "
+                         f"experts, {E}/{tp} expected")
+    flat = ids.reshape(-1)
+    local = torch.where((flat >= lo) & (flat < lo + El), flat - lo, El)
+    plan = moe_ops.dispatch_plan(local, El, moe_ops.pick_block_t(T * k, E),
                                  capacity=expert_capacity(cfg, T))
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     y = moe_ops.grouped_ffn(moe_ops.gather_rows(xt, plan, tok), plan,
@@ -78,12 +103,21 @@ def _moe_local(cfg: ModelConfig, p, x):
     gathered = y[moe_ops.combine_index(plan)]
     w = torch.where(plan.keep, vals.reshape(-1), 0.0).to(x.dtype)
     out = (gathered * w[:, None]).reshape(T, k, D).sum(1)
-    return out.reshape(B, S, D), aux
+    return out.reshape(B, S, D), torch.sum(terms[lo:lo + El])
 
 
-def moe_fwd(cfg: ModelConfig, p, x):
-    """MoE with shared experts, x (B, S, D) -> ((B, S, D), aux)."""
-    y, aux = _moe_local(cfg, p, x)
+def _moe_local(cfg: ModelConfig, p, x):
+    """Capacity-bounded MoE on one device, x (B, S, D) -> ((B, S, D),
+    aux), through the grouped GEMM on the kept choices."""
+    return _moe_shard_body(cfg, p, x)
+
+
+def moe_fwd(cfg: ModelConfig, p, x, m: int = 0, tp: int = 1):
+    """MoE with shared experts, x (B, S, D) -> ((B, S, D), aux); rank
+    ``m`` of ``tp``'s partial (output, aux) over its experts
+    (``_moe_shard_body``) and its columns of the shared experts, which sum
+    over the ranks to the layer's."""
+    y, aux = _moe_shard_body(cfg, p, x, m, tp)
     if cfg.num_shared_experts > 0:
         y = y + layers.mlp_fwd(cfg, p["shared"], x)
     return y, aux

@@ -49,6 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import compat
+from repro_torch.distributed.collectives import LOCAL
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models.api import ModelConfig
 
@@ -213,7 +214,8 @@ def _leaf_dtype(cfg: ModelConfig, spec) -> torch.dtype:
     return compat.torch_dtype(spec[2] if len(spec) > 2 else cfg.dtype)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device=None):
+def init_params(cfg: ModelConfig, seed: int = 0, device=None, *,
+                part=None):
     """Random weights drawn from a seeded ``torch.Generator`` on the target
     device (normal draws in fp32, scaled in place, cast to each leaf's
     dtype).  A stacked layer leaf is drawn one layer at a time into its
@@ -222,7 +224,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
     (DeepSeek-R1's ``moe.w1`` is 7.5 GB a layer in bf16; drawn a layer at
     a time its fp32 draw would take 15.0 GB, an expert at a time 58.7 MB).
     They are not the JAX package's draws; use ``params_from_numpy`` for
-    those."""
+    those.
+
+    ``part(path, shape)``, a tuple of one slice a dim
+    (``distributed/sharding.py::part_of``), keeps only that part of each
+    leaf: every draw is still made, in the same order, so the result is
+    ``shard_params`` of the full tree in bits, but the full tree is never
+    held (a rank of a model larger than one card draws its slices on its
+    card)."""
     dev = compat.resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -234,25 +243,33 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None):
 
     def make(path, spec):
         shape, scale, dt = spec[0], spec[1], _leaf_dtype(cfg, spec)
+        sl = (slice(None),) * len(shape) if part is None \
+            else part(path, shape)
+        idx = [range(n)[s] for n, s in zip(shape, sl)]
+        local = tuple(len(r) for r in idx)
         if scale == "ones":
-            return torch.ones(shape, dtype=dt, device=dev)
+            return torch.ones(local, dtype=dt, device=dev)
         if scale == "zeros":
-            return torch.zeros(shape, dtype=dt, device=dev)
+            return torch.zeros(local, dtype=dt, device=dev)
         if scale == "a_log":
-            return ssm.a_log_init(shape[-1], dev).expand(shape).to(dt) \
+            return ssm.a_log_init(shape[-1], dev).expand(shape)[sl].to(dt) \
                 .contiguous()
         if scale == "lam":
-            return rglru.lam_init(shape, gen, dev).to(dt)
+            return rglru.lam_init(shape, gen, dev)[sl].to(dt).contiguous()
         if path[0] not in ("layers", "enc_layers", "units", "tail"):
-            return draw(shape, scale, dt)
-        out = torch.empty(shape, dtype=dt, device=dev)
+            return draw(shape, scale, dt)[sl].contiguous()
+        out = torch.empty(local, dtype=dt, device=dev)
         experts = path[-2] == "moe" and len(shape) == 4   # (L, E, ., .)
         for i in range(shape[0]):
             if experts:
                 for e in range(shape[1]):
-                    out[i, e] = draw(shape[2:], scale, dt)
+                    x = draw(shape[2:], scale, dt)
+                    if i in idx[0] and e in idx[1]:
+                        out[idx[0].index(i), idx[1].index(e)] = x[sl[2:]]
             else:
-                out[i] = draw(shape[1:], scale, dt)
+                x = draw(shape[1:], scale, dt)
+                if i in idx[0]:
+                    out[idx[0].index(i)] = x[sl[1:]]
         return out
 
     return _map_spec(param_shapes(cfg), make)
@@ -460,15 +477,47 @@ def install_cache(cfg: ModelConfig, dst, src):
     return dst
 
 
-def ffn(cfg: ModelConfig, p, h):
-    """The layer's second half on the residual stream h: RMSNorm, then
-    the MoE (``models/moe.py``) or the gated MLP, added back to h.  Returns
-    (h, aux): the MoE's load-balance aux (fp32 scalar), None for the MLP."""
-    xn = layers.apply_norm(cfg, p["ln2"], h)
+def _same(t):
+    return t
+
+
+def attention_share(cfg: ModelConfig, p, h, positions, tab, m: int = 0,
+                    tp: int = 1, copy=_same):
+    """The layer's attention sublayer on the residual stream h, or rank
+    ``m`` of ``tp``'s partial output of it: RMSNorm, then attention over
+    the rank's q-head shard (``layers.tp_attention_params``; MLA whole at
+    tp 1) through ``wo``'s rows of those heads.  The ranks' outputs sum to
+    the sublayer's (the caller's reduce).  ``copy`` wraps what every rank
+    reads whole (the model group's ``copy_in``: its gradient sums over the
+    ranks); at tp 1 it is the identity and this is the one-device
+    sublayer."""
+    xn = copy(layers.apply_norm(cfg, p["ln1"], h))
+    if cfg.use_mla:
+        return layers.mla_fwd(cfg, p["attn"], xn, positions,
+                              rope_tab=tab)[0]
+    pa = layers.tp_attention_params(cfg, p["attn"], m, tp, copy)
+    return layers.attention_fwd(cfg, pa, xn, positions, rope_tab=tab)[0]
+
+
+def ffn_share(cfg: ModelConfig, p, h, m: int = 0, tp: int = 1, copy=_same):
+    """The layer's second sublayer on h, or rank ``m`` of ``tp``'s partial
+    of it, as ``attention_share``: RMSNorm, then the MoE over the rank's
+    E/tp experts and shared-expert columns (``moe.moe_fwd``, the router
+    whole) or the gated MLP over its columns.  Returns (partial output,
+    partial aux): the MoE's load-balance aux (fp32 scalar), None for the
+    MLP; each sums over the ranks to the layer's."""
+    xn = copy(layers.apply_norm(cfg, p["ln2"], h))
     if cfg.is_moe:
-        y, aux = moe.moe_fwd(cfg, p["moe"], xn)
-        return h + y, aux
-    return h + layers.mlp_fwd(cfg, p["mlp"], xn), None
+        pm = dict(p["moe"], wg=copy(p["moe"]["wg"]))
+        return moe.moe_fwd(cfg, pm, xn, m, tp)
+    return layers.mlp_fwd(cfg, p["mlp"], xn), None
+
+
+def ffn(cfg: ModelConfig, p, h):
+    """The layer's second half on the residual stream h, added back to h
+    (``ffn_share`` on one device).  Returns (h, aux)."""
+    y, aux = ffn_share(cfg, p, h)
+    return h + y, aux
 
 
 def _to_ring(k, v, positions, window: int):
@@ -760,13 +809,35 @@ CE_CHUNK = 512
 AUX_COEF = 0.01
 
 
-def check_trainable(cfg: ModelConfig) -> None:
+def check_trainable(cfg: ModelConfig, tp: int = 1) -> None:
     """What ``forward_loss`` trains: every family ``check_model`` serves,
     as the reference's ``forward_loss`` does (dense decoders, a sliding
     window among them; MoE decoders with GQA or MLA attention; Mamba-2
     SSMs; the RecurrentGemma hybrid; the Whisper encoder-decoder; the
-    Pixtral vision decoder)."""
+    Pixtral vision decoder).  Over a model group of ``tp`` > 1 ranks:
+    dense and MoE decoders with GQA attention whose q heads split over
+    ``tp`` (``distributed/sharding.py::attention_mode`` "heads"); the
+    rest raises, naming what ROADMAP Queue A queues for it."""
     check_model(cfg)
+    if tp <= 1:
+        return
+    why = None
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+        why = ("the SSM, RG-LRU, MLA, encoder-decoder and vision TP rules "
+               "at run time")
+    elif cfg.num_heads % tp:
+        why = "seq attention mode"
+    elif padded_vocab(cfg) % tp:
+        why = "a replicated vocabulary"
+    elif cfg.is_moe and (cfg.num_experts % tp or (
+            cfg.num_shared_experts and cfg.shared_d_ff % tp)):
+        why = "replicated experts"
+    elif not cfg.is_moe and cfg.d_ff % tp:
+        why = "a replicated MLP"
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name} at tp {tp}: waits for {why} (ROADMAP Queue A, the "
+            f"multi-device path)")
 
 
 def _chunk_ce(cfg, params, h, labels):
@@ -779,25 +850,78 @@ def _chunk_ce(cfg, params, h, labels):
     return ((lse - ll[..., 0]) * valid).sum(), valid.sum()
 
 
-def _chunked_ce(cfg: ModelConfig, params, h, labels):
+def ce_shard(cfg, params, h, labels, m: int = 0, tp: int = 1, copy=_same):
+    """Rank ``m`` of ``tp``'s statistics of one chunk's cross-entropy over
+    its vocabulary shard of ``lm_head`` (V/tp columns, h read through
+    ``copy`` as ``attention_share`` reads it): each row's max logit
+    (detached: a shift), the sum of the exponentials past it, and the
+    label's logit where this shard owns the label (0 elsewhere).
+    ``ce_merge`` combines the ranks'."""
+    logits = logits_fn(cfg, params, copy(h))
+    Vl = logits.shape[-1]
+    mx = logits.detach().amax(-1)
+    se = torch.exp(logits - mx[..., None]).sum(-1)
+    t = labels.long() - m * Vl
+    own = (t >= 0) & (t < Vl)
+    ll = torch.gather(logits, -1, t.clamp(0, Vl - 1)[..., None])[..., 0]
+    return mx, se, torch.where(own, ll, 0.0)
+
+
+def ce_merge(mx, se, ll, labels, max_over, sum_over):
+    """(sum of the valid rows' losses, their count) of one chunk from the
+    ranks' ``ce_shard`` statistics, ``max_over`` and ``sum_over``
+    reducing over the ranks (on the multi-GPU path the model group's
+    all-reduce of the max and its ``reduce_out``): each rank's sum of
+    exponentials rescaled to the global max, the log-sum-exp, minus the
+    label's logit."""
+    top = max_over(mx)
+    lse = torch.log(sum_over(se * torch.exp(mx - top))) + top
+    valid = (labels >= 0).float()
+    return ((lse - sum_over(ll)) * valid).sum(), valid.sum()
+
+
+def _chunk_ce_tp(cfg, params, h, labels, model):
+    """``_chunk_ce`` over the model group ``model``, the vocabulary split
+    across it: this rank's ``ce_shard`` merged by the group's
+    collectives."""
+    stats = ce_shard(cfg, params, h, labels, model.rank, model.size,
+                     model.copy_in)
+    return ce_merge(*stats, labels, lambda t: model.all_reduce(t, "max"),
+                    model.reduce_out)
+
+
+def _chunked_ce(cfg: ModelConfig, params, h, labels, comm=LOCAL):
     """Mean cross-entropy of ``labels`` (B, S) against the logits of the
     final hidden states ``h`` (B, S, D), without the (B, S, V) logits:
     chunks of ``CE_CHUNK`` positions, each under ``torch.utils.checkpoint``
     so its backward recomputes the chunk's (B, c, V) fp32 logits instead
     of keeping them (``repro.models.transformer._chunked_ce``'s
     ``jax.checkpoint``).  The label of position t scores position t's
-    logits, unshifted, as the reference does."""
+    logits, unshifted, as the reference does.  Over ``comm``
+    (``distributed/collectives.py::Comm``) the vocabulary splits over its
+    model group (``_chunk_ce_tp``) and this rank's summed loss is divided
+    by the count of valid labels over its data group: the data group's
+    sum of the results is the batch's mean.  A model group of one keeps
+    ``_chunk_ce``'s ``logsumexp``, whose bits ``ce_merge``'s rescaled sum
+    would not give."""
+    model = comm.model
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for s0 in range(0, h.shape[1], CE_CHUNK):
-        t, n = checkpoint(_chunk_ce, cfg, params, h[:, s0:s0 + CE_CHUNK],
-                          labels[:, s0:s0 + CE_CHUNK], use_reentrant=False,
-                          preserve_rng_state=False)
+        args = (cfg, params, h[:, s0:s0 + CE_CHUNK],
+                labels[:, s0:s0 + CE_CHUNK])
+        if model.trivial:
+            t, n = checkpoint(_chunk_ce, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            t, n = checkpoint(_chunk_ce_tp, *args, model,
+                              use_reentrant=False, preserve_rng_state=False)
         tot, cnt = tot + t, cnt + n
+    cnt = comm.data.all_reduce(cnt)
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def _train_layer(cfg, stack, i, h, positions, tab):
+def _train_layer(cfg, stack, i, h, positions, tab, comm=LOCAL):
     """Layer ``i`` of the training trunk: its leaves indexed from the
     stacked ones (``t[i]``, which autograd follows back to them).  Returns
     (h, aux) as ``ffn``; an SSM layer ``h + ssm_fwd(norm(h))`` and no aux,
@@ -807,14 +931,21 @@ def _train_layer(cfg, stack, i, h, positions, tab):
     remat its recompute must route as the first run did: the router's fp32
     matmul, softmax and stable sort see the same inputs and give the same
     bits (``chip_smoke.py`` phase 13 compares the two runs' dispatch plans
-    on the card)."""
+    on the card).  Each sublayer is this rank's share over the model group
+    of ``comm`` (``attention_share``, ``ffn_share``) and the partial
+    outputs (and aux) are all-reduced (``reduce_out``); in a group of one
+    both are the one-device sublayers and nothing is sent."""
     p = _map_spec(stack, lambda path, t: t[i])
-    xn = layers.apply_norm(cfg, p["ln1"], h)
     if cfg.family == "ssm":
+        xn = layers.apply_norm(cfg, p["ln1"], h)
         return h + ssm.ssm_fwd(cfg, p["ssm"], xn), None
-    attn_fwd = layers.mla_fwd if cfg.use_mla else layers.attention_fwd
-    a, _ = attn_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
-    return ffn(cfg, p, h + a)
+    model = comm.model
+    share = dict(m=model.rank, tp=model.size, copy=model.copy_in)
+    h = h + model.reduce_out(attention_share(cfg, p, h, positions, tab,
+                                             **share))
+    y, aux = ffn_share(cfg, p, h, **share)
+    return h + model.reduce_out(y), (None if aux is None
+                                     else model.reduce_out(aux))
 
 
 def _train_enc_layer(cfg, stack, i, h, positions, tab):
@@ -853,17 +984,17 @@ def _train_tail(cfg, stack, i, h, positions, tab):
                        want_cache=False)[0], None
 
 
-def _train_steps(cfg, params, enc=None):
+def _train_steps(cfg, params, enc=None, comm=LOCAL):
     """(step function, its stacked leaves, index) of each step of the
     training trunk: the layers, the hybrid's units and then its tail
     layers, or the encoder-decoder's decoder layers on ``enc`` (the
-    reference's ``_stack_fwd`` scans)."""
+    reference's ``_stack_fwd`` scans); the layers take ``comm``."""
     if cfg.family == "audio":
         fn = functools.partial(_train_dec_layer, enc=enc)
         return [(fn, params["layers"], i) for i in range(cfg.num_layers)]
     if cfg.family != "hybrid":
-        return [(_train_layer, params["layers"], i)
-                for i in range(cfg.num_layers)]
+        fn = functools.partial(_train_layer, comm=comm)
+        return [(fn, params["layers"], i) for i in range(cfg.num_layers)]
     n_units, n_tail = _hybrid_counts(cfg)
     return [(_train_unit, params["units"], i) for i in range(n_units)] + \
         [(_train_tail, params["tail"], j) for j in range(n_tail)]
@@ -885,7 +1016,21 @@ def _run_steps(steps, cfg, h, positions, tab, remat):
     return h, aux
 
 
-def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
+def embed_share(cfg, params, tokens, m: int = 0, tp: int = 1):
+    """Rank ``m`` of ``tp``'s partial embedding of ``tokens`` over its
+    vocabulary shard of ``embed`` (``padded_vocab``/tp rows): the rows of
+    the tokens it owns, zeros for the others.  The ranks' sum is
+    ``_embed_tokens``'s for the dense and MoE decoders."""
+    emb = params["embed"]
+    Vl = emb.shape[0]
+    t = tokens.long() - m * Vl
+    own = (t >= 0) & (t < Vl)
+    return torch.where(own[..., None], emb[t.clamp(0, Vl - 1)], 0.0) \
+        .to(emb.dtype)
+
+
+def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
+                 comm=LOCAL):
     """Training loss of every family (``check_trainable``):
     ``batch["tokens"]`` (B, S) through the layer stack (the hybrid's units,
     then its tail layers), the final norm and the chunked cross-entropy
@@ -902,11 +1047,34 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
     ``remat`` each layer (each encoder layer, each hybrid unit, each tail
     layer) runs under ``torch.utils.checkpoint`` and is recomputed in the
     backward (``_stack_fwd``'s ``jax.checkpoint`` around one scan step).
-    Differentiable in every leaf of ``params`` that requires grad."""
-    check_trainable(cfg)
+    Differentiable in every leaf of ``params`` that requires grad.
+
+    Over ``comm`` (``distributed/collectives.py::Comm``) the loss is this
+    rank's share on the multi-GPU path: ``params`` hold its local slices
+    (``distributed/sharding.py::shard_params``, regime ``tp``) and
+    ``batch`` its data shard; the embedding, each layer and the
+    cross-entropy split over the model group, and the result is this
+    rank's term of the data group's sum (the cross-entropy over the
+    group's count of valid labels, the MoE aux over the group's size: the
+    reference's ``pmean`` of the aux over every axis).  In groups of one
+    every collective is skipped, and the loss and its gradients are the
+    one device's, bit for bit."""
+    model = comm.model
+    check_trainable(cfg, model.size)
     frames, patches = batch.get("frames"), batch.get("patches")
     _check_stubs(cfg, frames, patches)
-    h, positions = _assemble_inputs(cfg, params, batch["tokens"], patches)
+    if not model.trivial:
+        # the vocabulary split over the group; at tp 1 ``_assemble_inputs``
+        # also places the vision decoder's patches and scales the hybrid's
+        # embedding, which ``check_trainable`` keeps off this path
+        h = model.reduce_out(embed_share(cfg, params, batch["tokens"],
+                                         model.rank, model.size))
+        B, S = h.shape[:2]
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S)
+    else:
+        h, positions = _assemble_inputs(cfg, params, batch["tokens"],
+                                        patches)
     tab = None if cfg.family in ("ssm", "audio") else layers.rope_tables(
         positions, layers.rope_dim(cfg), cfg.rope_theta)
     enc = None
@@ -916,11 +1084,13 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True):
                             for i in range(cfg.encoder_layers)],
                            cfg, eh, enc_pos, None, remat)
         enc = (layers.apply_norm(cfg, params["enc_norm"], eh), enc_pos)
-    h, aux = _run_steps(_train_steps(cfg, params, enc), cfg, h, positions,
-                        tab, remat)
+    h, aux = _run_steps(_train_steps(cfg, params, enc, comm), cfg, h,
+                        positions, tab, remat)
     h = layers.apply_norm(cfg, params["final_norm"], h)
-    loss = _chunked_ce(cfg, params, h, batch["labels"])
+    loss = _chunked_ce(cfg, params, h, batch["labels"], comm)
     if cfg.is_moe:
+        if not comm.data.trivial:
+            aux = aux / comm.data.size
         loss = loss + AUX_COEF * aux / max(cfg.num_layers, 1)
     return loss
 

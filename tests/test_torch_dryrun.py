@@ -1,0 +1,128 @@
+"""The port's meta-device dry run (``launch/dryrun.py``) on the CPU.
+
+Llama-3.2-1B and Qwen3-30B-A3B, every shape, on the production meshes
+(16, 8) and (2, 16, 8), with no card: one JSON record a cell, ok or
+skipped, none failed.  Each train cell's reckoned parameter bytes equal
+the local slices ``shard_params`` cuts from the meta-device template on
+rank 0; its gradients match the parameters (bf16), its fp32 sums are 4 B
+a local parameter when it has more than one microbatch, and its ZeRO-1
+state is 12 B a parameter over the ranks (within the padding).  The full
+Qwen3-30B-A3B at ``train_4k`` on (16, 8) holds about 3.9 B parameters a
+rank and fits in 80 GB before activations; the full DeepSeek-R1 does
+not; on one node (1, 8) Qwen3-30B-A3B's ZeRO-1 state alone is ~46 GB
+and the rank's sum ~77 GB before activations.
+"""
+import json
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import dryrun
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.models import transformer as TT
+
+
+@pytest.fixture(scope="module")
+def records(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dry")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        recs = dryrun.run(["llama3_2_1b", "qwen3_moe_30b"],
+                          list(dryrun.SHAPES), [False, True], str(out))
+    return out, recs
+
+
+def _rec(recs, tag):
+    return next(r for r in recs if r["cell"] == tag)
+
+
+def test_every_cell_is_recorded(records):
+    out, recs = records
+    assert len(recs) == 2 * 4 * 2
+    assert {r["status"] for r in recs} == {"ok", "skipped"}
+    files = sorted(p.name for p in out.glob("*.json"))
+    assert len(files) == 16
+    on_disk = json.loads((out / "qwen3_moe_30b.train_4k.single.json")
+                         .read_text())
+    assert on_disk["status"] == "ok" and on_disk["runs"] is True
+    assert _rec(recs, "llama3_2_1b.long_500k.multi")["status"] == "skipped"
+    assert _rec(recs, "llama3_2_1b.decode_32k.single")["runs"] is False
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen3_moe_30b"])
+@pytest.mark.parametrize("multi", [False, True], ids=["single", "multi"])
+def test_train_reckoning_matches_the_sliced_template(records, arch, multi):
+    _, recs = records
+    rec = _rec(recs, f"{arch}.train_4k.{'multi' if multi else 'single'}")
+    mesh = mesh_lib.make_production_mesh(multi_pod=multi)
+    rank0 = mesh_lib.Mesh(mesh.axis_names, mesh.sizes, rank=0)
+    cfg = get_config(arch)
+    specs = shd.param_specs(cfg, mesh_lib.mesh_axes(mesh), 8, "tp")
+    local = shd.shard_params(TT.param_template(cfg), specs, rank0)
+    leaves = list(_leaves(local))
+    assert all(t.device.type == "meta" for t in leaves)
+    n = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    b = rec["per_rank_bytes"]
+    assert rec["per_rank_parameters"] == n
+    assert b["parameters"] == nbytes == b["gradients"]
+    assert rec["microbatches"] > 1 and b["grad_accumulators"] == 4 * n
+    total = TT.param_count(cfg)
+    assert 12 * total / mesh.size <= b["zero1_state"] \
+        <= 12 * total / mesh.size + 12 * 2 * len(leaves)
+    assert rec["per_rank_total_bytes"] == sum(b.values())
+    assert rec["fits_80gb"] and rec["per_rank_total_bytes"] < 80e9
+
+
+def test_qwen3_on_the_production_mesh_and_on_one_node(records):
+    _, recs = records
+    rec = _rec(recs, "qwen3_moe_30b.train_4k.single")
+    assert 3.8e9 < rec["per_rank_parameters"] < 4.0e9
+    assert 7.6e9 < rec["per_rank_bytes"]["parameters"] < 8.0e9
+    node = mesh_lib.Mesh(("data", "model"), (1, 8))
+    one = dryrun.reckon("qwen3_moe_30b", "train_4k", node)
+    assert 44e9 < one["per_rank_bytes"]["zero1_state"] < 48e9
+    # 77 GB before activations: under 3 GB of the card left for them
+    assert 75e9 < one["per_rank_total_bytes"] < 80e9
+    ds = dryrun.reckon("deepseek_r1", "train_4k",
+                       mesh_lib.make_production_mesh())
+    assert not ds["fits_80gb"] and not ds["runs"]
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen3_moe_30b"])
+def test_the_peak_while_drawing_the_weights(records, arch):
+    """Each rank draws its slices (``init_params`` with ``part``), so the
+    peak while the weights are drawn is its parameters plus the largest
+    single draw: the padded vocabulary's fp32 draw and its bf16 cast (the
+    embedding and ``lm_head``; 1.87 GB for Qwen3-30B-A3B), not the full
+    tree."""
+    _, recs = records
+    rec = _rec(recs, f"{arch}.train_4k.single")
+    cfg = get_config(arch)
+    draw = TT.padded_vocab(cfg) * cfg.d_model * (4 + 2)
+    assert rec["per_rank_init_peak_bytes"] == \
+        rec["per_rank_bytes"]["parameters"] + draw
+    assert rec["per_rank_init_peak_bytes"] < 80e9
+    if cfg.is_moe:  # under a quarter of the full tree's 61 GB in bf16
+        assert rec["per_rank_init_peak_bytes"] < TT.param_count(cfg) * 2 / 4
+
+
+def test_serving_cells_reckon_the_cache(records):
+    _, recs = records
+    rec = _rec(recs, "llama3_2_1b.decode_32k.single")
+    cfg = get_config("llama3_2_1b")
+    # k and v of (L, B/16, S/8, Hkv, dh) in bf16
+    want = 2 * cfg.num_layers * (128 // 16) * (32768 // 8) \
+        * cfg.num_kv_heads * cfg.head_dim * 2
+    assert rec["per_rank_bytes"]["cache"] == want
+    assert rec["per_rank_bytes"]["gradients"] == 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree

@@ -50,6 +50,8 @@ from repro_torch.models import layers, transformer
 from repro_torch import optim
 from repro_torch.kernels.flash_attention_bwd import ops as fb
 from repro_torch.launch import steps, train
+from repro_torch.launch import dryrun, mesh
+from repro_torch.distributed import collectives, sharding
 print("imported", sorted(m for m, mod in sys.modules.items()
                          if mod is not None
                          and m.split(".")[0] in ("jax", "repro", "ml_dtypes")))

@@ -113,8 +113,8 @@ def test_moe_loss_carries_the_aux(monkeypatch):
     auxes, ces = [], []
     orig_moe, orig_ce = TT.moe.moe_fwd, TT._chunked_ce
 
-    def moe_fwd(cfg, p, x):
-        y, aux = orig_moe(cfg, p, x)
+    def moe_fwd(cfg, p, x, *share):
+        y, aux = orig_moe(cfg, p, x, *share)
         auxes.append(aux)
         return y, aux
 

@@ -1,0 +1,199 @@
+"""One rank of ``test_torch_distributed.py``'s process groups.
+
+    python tests/torch_dist_worker.py RANK WORLD [POD,]DATA,MODEL INIT_FILE IN OUT
+
+Joins a ``gloo`` group of WORLD ranks through ``file://INIT_FILE``,
+realizes the (DATA, MODEL) or (POD, DATA, MODEL) mesh, runs every task of the pickled list IN
+(numpy inputs, fp32) on its slices through the port's multi-GPU path,
+and pickles its results (numpy) to OUT.  Imports the port only.
+"""
+import dataclasses
+import pickle
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch import optim
+from repro_torch.configs import reduced_config
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import sharding as shd
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch import steps
+from repro_torch.models import moe
+from repro_torch.models import transformer as T
+from repro_torch.models.api import MeshAxes
+
+
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    return tree.detach().numpy()
+
+
+def _t(tree, grad=False):
+    if isinstance(tree, dict):
+        return {k: _t(v, grad) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree)).requires_grad_(grad)
+
+
+def config(arch, over):
+    return dataclasses.replace(reduced_config(arch), dtype="float32",
+                               **(over or {}))
+
+
+def _leaves(tree):
+    return optim.tree_leaves(tree)
+
+
+def task_moe(mesh, job):
+    """The expert-parallel MoE: this rank's experts, the partial output
+    and aux all-reduced; gradients of x (through ``copy_in``), the router
+    and the local experts."""
+    cfg = config(job["arch"], job.get("over"))
+    comm = mesh.comm
+    m, tp = comm.model.rank, comm.tp
+    El = cfg.num_experts // tp
+    p = {"wg": _t(job["p"]["wg"], True)}
+    for k in ("w1", "w3", "w2"):
+        p[k] = _t(job["p"][k][m * El:(m + 1) * El], True)
+    x = _t(job["x"], True)
+    xin = comm.model.copy_in(x)
+    pin = dict(p, wg=comm.model.copy_in(p["wg"]))
+    y, aux = moe._moe_shard_body(cfg, pin, xin, m, tp)
+    y, aux = comm.model.reduce_out(y), comm.model.reduce_out(aux)
+    loss = (y * _t(job["g"])).sum() + aux
+    grads = torch.autograd.grad(loss, [x, p["wg"], p["w1"], p["w3"],
+                                       p["w2"]])
+    return dict(y=_np(y), aux=_np(aux),
+                grads=[g.numpy() for g in grads])
+
+
+def task_layer(mesh, job):
+    """One training layer (``_train_layer``, remat off) on this rank's
+    slices: its output and the gradients of h and of its local leaves."""
+    cfg = config(job["arch"], job.get("over"))
+    specs = shd.param_specs(cfg, MeshAxes(), mesh.comm.tp, "tp")["layers"]
+    stack = shd.shard_params(_t(job["p"]), specs, mesh)
+    stack = optim.tree_map(lambda t: t.requires_grad_(True), stack)
+    h = _t(job["h"], True)
+    S = h.shape[1]
+    pos = torch.arange(S, dtype=torch.int32)[None].expand(h.shape[0], S)
+    tab = T.layers.rope_tables(pos, T.layers.rope_dim(cfg), cfg.rope_theta)
+    out, aux = T._train_layer(cfg, stack, 0, h, pos, tab, comm=mesh.comm)
+    loss = (out * _t(job["g"])).sum()
+    if aux is not None:
+        loss = loss + aux
+    leaves = _leaves(stack)
+    grads = torch.autograd.grad(loss, [h] + leaves)
+    return dict(out=_np(out), dh=grads[0].numpy(),
+                grads=[g.numpy() for g in grads[1:]])
+
+
+def task_ce(mesh, job):
+    """The vocab-parallel chunked cross-entropy on this rank's
+    ``lm_head`` columns: its value and the gradients of h and the local
+    columns."""
+    cfg = config(job["arch"], job.get("over"))
+    comm = mesh.comm
+    W = _t(job["lm_head"])
+    Vl = W.shape[1] // comm.tp
+    W = W[:, comm.model.rank * Vl:(comm.model.rank + 1) * Vl] \
+        .contiguous().requires_grad_(True)
+    h = _t(job["h"], True)
+    loss = T._chunked_ce(cfg, {"lm_head": W}, h, _t(job["labels"]), comm)
+    dh, dw = torch.autograd.grad(loss, [h, W])
+    return dict(loss=_np(loss), dh=dh.numpy(), dw=dw.numpy())
+
+
+def _gathered(specs, params, opt, mesh):
+    full = shd.gather_params(params, specs, mesh)
+    st = optim.gather_opt_state(opt, params, mesh.comm, specs)
+    st = {"leaves": shd.gather_params(st["leaves"], _opt_specs(specs),
+                                      mesh), "step": st["step"]}
+    return _np(full), {"leaves": _np(st["leaves"]),
+                       "step": int(st["step"])}
+
+
+def _opt_specs(specs):
+    """Each leaf's spec for its gathered master, m and v (local shapes)."""
+    return optim.tree_map(lambda sp: {"master": sp, "m": sp, "v": sp},
+                          specs)
+
+
+def task_zero(mesh, job):
+    """ZeRO-1: ``apply_updates`` over every rank on this rank's slices of
+    the full gradients (model-split leaves sliced, the rest whole); the
+    grad norms and the gathered parameters and optimizer state after
+    each step."""
+    cfg = config(job["arch"], job.get("over"))
+    specs = shd.param_specs(cfg, MeshAxes(), mesh.comm.tp, "tp")
+    params = shd.shard_params(_t(job["params"]), specs, mesh)
+    ocfg = optim.AdamWConfig(**job["ocfg"])
+    opt = optim.init_opt_state(params, mesh.size, comm=mesh.comm,
+                               specs=specs)
+    out = {"init": _gathered(specs, params, opt, mesh), "steps": []}
+    for g in job["grads"]:
+        gl = shd.shard_params(_t(g), specs, mesh)
+        # the data ranks' gradients sum to the full: rank 0 of each data
+        # group holds it, the others zeros
+        if mesh.comm.data.rank:
+            gl = optim.tree_map(torch.zeros_like, gl)
+        _, _, gn = optim.apply_updates(ocfg, params, gl, opt, mesh.size,
+                                       comm=mesh.comm, specs=specs)
+        out["steps"].append((float(gn), _gathered(specs, params, opt,
+                                                  mesh)))
+    return out
+
+
+def task_train(mesh, job):
+    """``build_cell``'s sharded step: each step's loss and grad norm, the
+    gathered parameters and optimizer state after it, and each step's
+    collective stats."""
+    cfg = config(job["arch"], job.get("over"))
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    B, S = job["tokens"][0].shape
+    cell = steps.build_cell(job["arch"], "train_4k", mesh,
+                            batch_seq=(B, S), over=over,
+                            exact_microbatches=job["microbatches"],
+                            opt_cfg=optim.AdamWConfig(**job["ocfg"]))
+    params = shd.shard_params(_t(job["params"]), cell.param_specs, mesh)
+    opt = cell.init_opt(params)
+    out = {"steps": [], "microbatches": cell.microbatches}
+    for toks, labels in zip(job["tokens"], job["labels"]):
+        C.reset_events()
+        r = cell.step(params, opt, {"tokens": _t(toks),
+                                    "labels": _t(labels)})
+        stats = C.collective_stats()
+        out["steps"].append((float(r["loss"]), float(r["grad_norm"]),
+                             stats, _gathered(cell.param_specs, params, opt,
+                                              mesh)))
+    return out
+
+
+TASKS = {"moe": task_moe, "layer": task_layer, "ce": task_ce,
+         "zero": task_zero, "train": task_train}
+
+
+def main(argv):
+    rank, world = int(argv[1]), int(argv[2])
+    sizes = tuple(int(x) for x in argv[3].split(","))
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{argv[4]}",
+                            rank=rank, world_size=world)
+    try:
+        names = ("data", "model") if len(sizes) == 2 else \
+            ("pod", "data", "model")
+        mesh = mesh_lib.Mesh(names, sizes).realize("cpu")
+        with open(argv[5], "rb") as f:
+            jobs = pickle.load(f)
+        results = [TASKS[job["task"]](mesh, job) for job in jobs]
+        with open(argv[6], "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv)
