@@ -86,6 +86,12 @@ result):
    length one page short must fail its tolerance) and at the contract's
    edges in both types (length 0 must give exact zeros, length 1, ranks
    left empty, a full table and one past it, groups of 16, 4, 7 and 3);
+   its log-sum-exp output (``lse``, the decode regime's shard statistics)
+   is held to the plain version's in both types (``LSE_TOL``; -1e30 on a
+   length-0 row; the output equal in bits to a launch without it) at the
+   first shape and at a rank's shard of Llama-3.2-1B's ``decode_32k``
+   over four cards (``RANK_PAGED``: B32 over 32768, H32/8 D64), which is
+   also timed with and without it;
    every launch must land on the route of its type, two launches must
    give equal bits in both types, each timed row is also read alone in
    the profiler's trace, and the fp32 route is timed at the first shape.
@@ -413,6 +419,30 @@ result):
     peak memory.  NCCL at world size above 1 is not exercised here (one
     card): ``tests/test_torch_cuda.py::test_sharded_training_over_every_card``
     runs it on a machine with more.
+19. the multi-GPU serving path on one card: ``build_cell``'s prefill and
+    decode cells of Llama-3.2-1B in bf16 at every published width and full
+    depth on an NCCL group of one (random weights from seed 0; each cell's
+    ``init_state`` equal in bits to ``init_params``).  (a) The prefill cell
+    on 4 prompts of 2048 tokens into a cache of 32768, then 16 decode-cell
+    steps: every token equal in bits to the one-device ``prefill`` (its
+    cache installed in ``init_cache``'s) and ``decode_step``; then again
+    with every collective sent through NCCL (``skip_one=False``: the
+    decode regime's shard attention, ``merge_shards``, the vocabulary
+    argmax and the prefill's re-layout run at tp 1): the same tokens and
+    the collectives the design predicts (a prefill 1 + 2 L all-reduces,
+    an all-gather and 2 all-to-alls; a step 1 + 3 L all-reduces and an
+    all-gather).  (b) The decode cell at a rank's share of ``decode_32k``
+    over four cards, B 32 x 32768 (a 34.4 GB cache of random bf16
+    values, row i at length 32752 - i), 16 steps: ms a step, output
+    tokens/s, peak memory, the paged kernel's launches by route (every
+    one on mma), no plain version, with the collectives skipped and sent
+    (the shard attention with its lse, ``merge_shards`` and the
+    vocabulary argmax at tp 1).  (c) Rank by rank at tp 4 in one process:
+    one layer of that cache split in 4 sequence shards, each rank's
+    ``decode_attention_shard`` merged by ``merge_shards``, against the
+    whole cache's launch within TOL[bf16] (the merge rounds twice) and
+    the plain version in fp32.  It prints ``{"multi_gpu_serving": ...}``.  Four cards:
+    ``tests/test_torch_cuda.py::test_sharded_serving_over_every_card``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -516,6 +546,11 @@ SERVED_PAGED = {
 # scores of std 1, tanh(s / 30) * 30 ~ s); their bf16 outputs are held to
 # atol min(2e-2, 0.05 * rms(plain)), rtol 2e-2
 SPREAD = 15.0
+# a rank's decode attention in the decode regime: Llama-3.2-1B's
+# decode_32k (B 128 x 32768) over four cards of data 1 would hold B 128
+# over 8192 a rank; phase 19 (b) serves the same bytes a layer as B 32
+# over the whole 32768 on one card, rows at 32768 - 16 and below
+RANK_PAGED = (32, 32768, 32, 8, 64, [32768 - 16 - i for i in range(32)])
 
 
 def log(msg: str) -> None:
@@ -645,11 +680,11 @@ class _PagedShapes:
         from repro_torch.kernels.paged_attention import ops
         self.ops, self.orig, self.seen = ops, ops.launch, []
 
-        def record(lib, q, k_pool, v_pool, table, lengths):
+        def record(lib, q, k_pool, v_pool, table, lengths, lse=None):
             self.seen.append((q.shape[1] // k_pool.shape[2], q.shape[2],
                               table.shape[1] * k_pool.shape[1],
                               ops.route(q.dtype)))
-            return self.orig(lib, q, k_pool, v_pool, table, lengths)
+            return self.orig(lib, q, k_pool, v_pool, table, lengths, lse)
         ops.launch = record
 
     def restore(self):
@@ -716,14 +751,16 @@ def _flash_bound(q, k, v, qp, kp, window=0, causal=True):
 def _refuses_wrong(name, want, wrong, what, tol):
     """The row's check must see a kernel that computes ``wrong`` (a plain
     version wronged on purpose) in place of ``want``: some output must
-    fall outside the row's tolerance ``tol``."""
+    fall outside the row's tolerance ``tol``.  Returns the wrong output's
+    max abs err."""
     off = ~torch.isclose(wrong.float(), want.float(), **tol)
+    err = (wrong.float() - want.float()).abs().max().item()
     log(f"  {name}: the check refuses the {what}: {int(off.sum())} of "
-        f"{off.numel()} outputs out of tolerance, max abs err "
-        f"{(wrong.float() - want.float()).abs().max().item():.3e} (atol "
-        f"{tol['atol']:.3e})")
+        f"{off.numel()} outputs out of tolerance, max abs err {err:.3e} "
+        f"(atol {tol['atol']:.3e})")
     if not off.any():
         raise AssertionError(f"{name}: the check cannot see the {what}")
+    return err
 
 
 def _refuses_wrong_windows(name, q, k, v, qp, kp, kw, want, tol):
@@ -1307,7 +1344,7 @@ def check_paged(dev, timer):
             .reshape(B, mp).to(torch.int32)
         return q, kp, vp, table
 
-    def case(tag, dtype, q, kp, vp, table, lengths):
+    def case(tag, dtype, q, kp, vp, table, lengths, tol=None):
         got = paged_attention(q, kp, vp, table, lengths)
         calls[ops.route(dtype)] += 1
         torch.cuda.synchronize()
@@ -1317,7 +1354,7 @@ def check_paged(dev, timer):
                 raise AssertionError(f"paged_attention {tag}: the length-0 "
                                      f"row {r} is not exact zeros")
         return _check(f"paged_attention {tag} {str(dtype)[6:]}", got, want,
-                      dtype)
+                      dtype, tol)
 
     # the four timed decode shapes (Llama-3.2-1B, Qwen3-30B-A3B monolithic
     # and at b_attn 4, the prefix-hit tail), in bf16; the first in fp32
@@ -1382,6 +1419,37 @@ def check_paged(dev, timer):
         kp, vp, table, _, _ = dense_view(2, 64, 2, 128, dtype)
         case("length past cache D128", dtype, q, kp, vp, table,
              torch.tensor([65, 3], dtype=torch.int32, device=dev))
+    # the log-sum-exp output at the first shape and at a rank's shard of
+    # the decode regime, in both types, two rows of each at length 0
+    lse_err = {}
+    for shape in (PAGED_SHAPES[0], RANK_PAGED):
+        B, S, H, Hkv, D, lens = shape
+        lens = [0] + list(lens[1:-1]) + [0]
+        label = paged_label(B, S, H, Hkv, D, lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _rand(gen, (B, H, D), dtype, dev)
+            kp, vp, table, _, _ = dense_view(B, S, Hkv, D, dtype)
+            lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+            got = paged_attention(q, kp, vp, table, lengths, lse)
+            bare = paged_attention(q, kp, vp, table, lengths)
+            calls[ops.route(dtype)] += 2
+            want_lse = torch.empty_like(lse)
+            want = paged_attention_plain(q, kp, vp, table, lengths, want_lse)
+            torch.cuda.synchronize()
+            tag = f"paged_attention lse {label} {str(dtype)[6:]}"
+            if not torch.equal(got, bare):
+                raise AssertionError(f"{tag}: the output with lse differs "
+                                     f"from the launch without it")
+            if not (lse[lengths == 0] == ops.NEG).all():
+                raise AssertionError(f"{tag}: a length-0 row's lse is not "
+                                     f"-1e30")
+            _check(f"paged_attention {label} (with lse)", got, want, dtype,
+                   _scaled_tol(want, dtype))
+            lse_err[f"{label} {str(dtype)[6:]}"] = _check(
+                tag, lse, want_lse, torch.float32, LSE_TOL[dtype])
+            del q, kp, vp, table, lse, want_lse, got, bare, want
+        torch.cuda.empty_cache()
     if ops.ROUTE_LAUNCHES != calls:
         raise AssertionError(f"paged_attention launches by route "
                              f"{ops.ROUTE_LAUNCHES}, expected {calls}")
@@ -1417,13 +1485,45 @@ def check_paged(dev, timer):
     rows = {}
     first = paged_label(*PAGED_SHAPES[0])
     timed[f"fp32 {first}"] = (err32, main32, kc32, vc32)
+    # a rank's shard of the decode regime, bf16, timed with lse as the
+    # decode cell launches it (its alone time also without)
+    B, S, H, Hkv, D, lens = RANK_PAGED
+    rank_label = f"rank {paged_label(*RANK_PAGED)}"
+    q = _rand(gen, (B, H, D), torch.bfloat16, dev)
+    kp, vp, table, kc, vc = dense_view(B, S, Hkv, D, torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    rank_lse = torch.empty((B, H), dtype=torch.float32, device=dev)
+    # rows ~32,750 keys long average N(0, 1) values to an rms of ~9e-3:
+    # TOL's atol would pass a kernel that loses a shard of the row, so the
+    # check is held to the output's scale and must refuse a V summed
+    # wrong over one cluster rank's eighth of each row (its statistics,
+    # from K alone, right)
+    want = paged_attention_plain(q, kp, vp, table, lengths)
+    tol = _scaled_tol(want, torch.bfloat16)
+    err = case(rank_label, torch.bfloat16, q, kp, vp, table, lengths, tol)
+    vw = vc.clone()
+    vw[:, S - S // 8:] = 0
+    rank_refused = _refuses_wrong(
+        f"paged_attention {rank_label}", want, paged_attention_plain(
+            q, kp, vw.view(vp.shape), table, lengths),
+        "V of each row's last eighth zeroed", tol)
+    log(f"  paged_attention {rank_label}: tolerance atol {tol['atol']:.3e} "
+        f"rtol {tol['rtol']:.0e}; kernel err {err:.3e}, wronged plain "
+        f"{rank_refused:.3e}")
+    del want, vw
+    timed[rank_label] = (err, (q, kp, vp, table, lengths, rank_lse), kc, vc)
     for label, (e, args, kc, vc) in timed.items():
-        q, kp, vp, table, lengths = args
+        q, kp, vp, table, lengths = args[:5]
         bound_ms, bound_by, mb = bound(q, kp, table, lengths)
         ms = timer(lambda: paged_attention(*args))
         alone_ms = timer.kernel_ms(lambda: paged_attention(*args),
                                    KERNEL_ENTRIES["paged_attention"])
         plain_ms = timer(lambda: paged_attention_plain(*args), iters=5)
+        extra = {}
+        if len(args) > 5:       # timed with lse: alone without it too
+            extra["kernel_alone_ms_without_lse"] = timer.kernel_ms(
+                lambda: paged_attention(*args[:5]),
+                KERNEL_ENTRIES["paged_attention"])
         mask = (torch.arange(kc.shape[1], device=dev)[None, :]
                 < lengths[:, None])[:, None, None, :]
         sdpa = _sdpa(q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2),
@@ -1434,13 +1534,19 @@ def check_paged(dev, timer):
         rows[label] = dict(max_abs_err=e, ms=ms, kernel_alone_ms=alone_ms,
                            plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=library_ms,
-                           host_us=host_us, library_host_us=library_host_us)
-        log(f"  paged_attention {str(q.dtype)[6:]} {label}: kernel "
-            f"{ms:.4f} ms "
-            f"({alone_ms:.4f} ms alone in the profiler's trace), plain "
+                           host_us=host_us, library_host_us=library_host_us,
+                           **extra)
+        log(f"  paged_attention {str(q.dtype)[6:]} {label}"
+            f"{' with lse' if extra else ''}: kernel {ms:.4f} ms "
+            f"({alone_ms:.4f} ms alone in the profiler's trace"
+            + (f", {extra['kernel_alone_ms_without_lse']:.4f} without lse"
+               if extra else "") + f"), plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{bound_ms:.6f} ms ({bound_by}; {mb:.2f} MB); host "
             f"{host_us:.1f} us a call, sdpa's {library_host_us:.1f} us")
+    del timed, kc, vc, q, kp, vp
+    torch.cuda.empty_cache()
+    rows["lse_max_abs_err"] = lse_err
     print(json.dumps({"paged_attention_shapes": rows}), flush=True)
     return dict(name="paged_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_attention.cu",
@@ -5358,6 +5464,311 @@ def _leaves(tree):
             yield v
 
 
+# --------------------------------------------------------------- phase 19
+SERVE_PROMPTS = (4, 2048)       # (a): prompts x tokens
+SERVE_MAX_LEN = 32768
+SERVE_STEPS = 16
+
+
+class _ServePlainCalls(_PlainCalls):
+    """``_PlainCalls`` and the paged kernel's plain version."""
+    NAMES = _PlainCalls.NAMES + (("repro_torch.kernels.paged_attention.ops",
+                                  "paged_attention_plain"),)
+
+
+def _kinds(events):
+    out = {}
+    for kind, _, _ in events:
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def _serve_cells(cfg, mesh, params, prompts):
+    """``build_cell``'s prefill cell on ``prompts`` into ``SERVE_MAX_LEN``,
+    then ``SERVE_STEPS`` decode-cell steps from its cache: (the tokens, the
+    prefill's logits, the collectives of the prefill and of each step, ms
+    of each step)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch.steps import build_cell
+    B, S = prompts.shape
+    pc = build_cell(cfg, "prefill_32k", mesh, batch_seq=(B, S),
+                    max_len=SERVE_MAX_LEN)
+    dc = build_cell(cfg, "decode_32k", mesh, batch_seq=(B, SERVE_MAX_LEN))
+    C.reset_events()
+    logits, cache = pc.step(params, {"tokens": prompts})
+    events = [_kinds(C.EVENTS)]
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    lengths = torch.full((B,), S, dtype=torch.int32, device=prompts.device)
+    tokens, secs = [tok], []
+    for _ in range(SERVE_STEPS):
+        C.reset_events()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, cache, lengths = dc.step(params, cache, tok, lengths)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        events.append(_kinds(C.EVENTS))
+        tokens.append(tok)
+    C.reset_events()
+    del cache
+    return torch.stack(tokens), logits, events, secs
+
+
+def serve_sharded_path(dev):
+    """Phase 19: the multi-GPU serving path on one card (see the module's
+    docstring).  Returns (launches of the cells' runs, numbers)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3_2_1b")
+    L = cfg.num_layers
+    B, S = SERVE_PROMPTS
+    gen = torch.Generator(device=dev).manual_seed(19)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev, dtype=torch.int32)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.Mesh(("data", "model"), (1, 1)).realize("cuda")
+        params = T.init_params(cfg, 0, dev)
+        for shape in ("prefill_32k", "decode_32k"):
+            drawn = build_cell("llama3_2_1b", shape, mesh).init_state(0, dev)
+            if not all(torch.equal(a, b) for a, b in zip(_leaves(drawn),
+                                                         _leaves(params))):
+                raise AssertionError(f"phase 19: the {shape} cell's "
+                                     f"init_state is not init_params' bits")
+            del drawn
+        # the one-device reference
+        logits0, cache = T.prefill(cfg, params, prompts)
+        cache = T.install_cache(cfg, T.init_cache(cfg, B, SERVE_MAX_LEN,
+                                                  dev), cache)
+        tok = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)
+        want = [tok]
+        for i in range(SERVE_STEPS):
+            tok, cache = T.decode_step(cfg, params, cache, tok,
+                                       torch.full((B,), S + i,
+                                                  dtype=torch.int32,
+                                                  device=dev))
+            want.append(tok)
+        want = torch.stack(want)
+        del cache
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        plain = _ServePlainCalls()
+        try:
+            got, logits1, ev_skip, secs = _serve_cells(cfg, mesh, params,
+                                                       prompts)
+            sent = dataclasses.replace(mesh, comm=C.Comm(**{
+                f: dataclasses.replace(getattr(mesh.comm, f), skip_one=False)
+                for f in ("model", "data", "world")}))
+            got_s, logits_s, ev_sent, secs_s = _serve_cells(cfg, sent,
+                                                            params, prompts)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            bench, layer0 = _rank_decode(dev, {"skipped": mesh,
+                                               "sent": sent})
+        finally:
+            plain.restore()
+        used = kernels_launches()
+        routes = dict(paged_ops.ROUTE_LAUNCHES)
+        merge = _merge_rank_by_rank(dev, *layer0)
+        del layer0
+    finally:
+        dist.destroy_process_group()
+    if not (torch.equal(got, want) and torch.equal(logits1, logits0)):
+        raise AssertionError("phase 19 (a): the cells' tokens or logits are "
+                             "not the one-device path's bits")
+    if not (torch.equal(got_s, want) and torch.equal(logits_s, logits0)):
+        raise AssertionError("phase 19 (a), collectives sent: the tokens or "
+                             "logits are not the one-device path's bits")
+    if any(ev_skip):
+        raise AssertionError(f"phase 19 (a): collectives recorded in groups "
+                             f"of one: {ev_skip}")
+    design = [{"all-reduce": 1 + 2 * L, "all-gather": 1, "all-to-all": 2}] \
+        + [{"all-reduce": 1 + 3 * L, "all-gather": 1}] * SERVE_STEPS
+    if ev_sent != design:
+        raise AssertionError(f"phase 19 (a), collectives sent: {ev_sent[:2]} "
+                             f"..., the design {design[:2]} ...")
+    steps_b = bench["steps"]
+    want_used = {"flash_attention": 2 * L,
+                 "paged_attention": (2 * SERVE_STEPS + steps_b) * L}
+    if {k: n for k, n in used.items() if n} != want_used or \
+            routes != {"mma": want_used["paged_attention"], "simt": 0} or \
+            any(plain.calls.values()):
+        raise AssertionError(f"phase 19: launches {used}, paged by route "
+                             f"{routes}, plain versions called "
+                             f"{plain.calls} (expected {want_used}, paged "
+                             f"all on mma, no plain version)")
+    step_ms = statistics.median(secs) * 1e3
+    step_ms_s = statistics.median(secs_s) * 1e3
+    n_sent = sum(sum(e.values()) for e in ev_sent)
+    log(f"  phase 19 (a) Llama-3.2-1B bf16, {B} prompts of {S} into "
+        f"{SERVE_MAX_LEN}, {SERVE_STEPS} steps through build_cell's prefill "
+        f"and decode cells on an NCCL group of one: tokens and logits equal "
+        f"the one-device prefill + decode_step in bits, collectives skipped "
+        f"({step_ms:.3f} ms/step) and sent ({n_sent} collectives, as "
+        f"designed: {ev_sent[0]} the prefill, {ev_sent[1]} a step; "
+        f"{step_ms_s:.3f} ms/step)")
+    log(f"  phase 19 (b) the decode cell at B{bench['batch']} x "
+        f"{bench['seq']} ({bench['cache_gb']:.1f} GB of cache), collectives "
+        f"skipped: {bench['skipped']['ms_per_step']:.3f} ms/step, "
+        f"{bench['skipped']['tokens_per_s']:.1f} output tokens/s; sent "
+        f"(shard attention with lse, merge, vocabulary argmax): "
+        f"{bench['sent']['ms_per_step']:.3f} ms/step, "
+        f"{bench['sent']['tokens_per_s']:.1f} tokens/s; peak "
+        f"{bench['peak_gb']:.2f} GB; launches {used}, paged by route "
+        f"{routes}, no plain version")
+    secs_phase = time.perf_counter() - t_phase
+    log(f"  phase 19 took {secs_phase:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return used, dict(equal_bits=True, step_ms=step_ms,
+                      step_ms_collectives_sent=step_ms_s,
+                      collectives_sent=ev_sent[:2], rank_decode=bench,
+                      merge_rank_by_rank=merge,
+                      launches=used, paged_routes=routes,
+                      seconds=secs_phase)
+
+
+def _rank_decode(dev, meshes):
+    """Phase 19 (b): ``RANK_PAGED``'s batch and cache through the decode
+    cell of Llama-3.2-1B on each mesh of ``meshes`` (tag -> mesh: the
+    group of one with its collectives skipped, which decodes as one
+    device does, and sent, which runs the decode regime's shard attention
+    with its lse, ``merge_shards`` and the vocabulary argmax), the cache
+    filled once with random bf16 values, ``SERVE_STEPS`` steps a mesh from
+    the same lengths, each timed on the host clock after a synchronize."""
+    from repro_torch.launch.steps import build_cell
+    B, S = RANK_PAGED[0], RANK_PAGED[1]
+    torch.cuda.reset_peak_memory_stats(dev)
+    cells = {tag: build_cell("llama3_2_1b", "decode_32k", m,
+                             batch_seq=(B, S)) for tag, m in meshes.items()}
+    cell = next(iter(cells.values()))
+    params = cell.init_state(0, dev)
+    cache = cell.init_cache(dev)
+    gen = torch.Generator(device=dev).manual_seed(191)
+    for leaf in cache.values():
+        for i in range(leaf.shape[0]):
+            leaf[i].normal_(generator=gen)
+    tok0 = torch.randint(0, cell.cfg.vocab_size, (B,), generator=gen,
+                         device=dev, dtype=torch.int32)
+    cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+    out = dict(batch=B, seq=S, steps=len(cells) * SERVE_STEPS,
+               cache_gb=cache_gb)
+    for tag, c in cells.items():
+        tok = tok0
+        start = torch.tensor(RANK_PAGED[5], dtype=torch.int32, device=dev)
+        lengths, secs = start, []
+        for _ in range(SERVE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, cache, lengths = c.step(params, cache, tok, lengths)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        if not torch.equal(lengths, start + SERVE_STEPS) or \
+                not ((tok >= 0) & (tok < cell.cfg.vocab_size)).all():
+            raise AssertionError(f"phase 19 (b) {tag}: lengths "
+                                 f"{lengths.tolist()[:4]}")
+        out[tag] = dict(ms_per_step=statistics.median(secs[1:]) * 1e3,
+                        step_ms=[x * 1e3 for x in secs],
+                        tokens_per_s=B * (SERVE_STEPS - 1) / sum(secs[1:]))
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    layer0 = (cache["k"][0].clone(), cache["v"][0].clone())
+    del params, cache
+    return out, layer0
+
+
+class _StackedGroup:
+    """A stand-in model group over the ranks' tensors stacked on dim 0
+    (rank by rank in one process): its all-reduce folds them in rank
+    order and hands every rank the result."""
+    trivial = False
+
+    def __init__(self, size):
+        self.size = size
+
+    def all_reduce(self, x, op="sum"):
+        r = x[0]
+        for t in x[1:]:
+            r = torch.maximum(r, t) if op == "max" else r + t
+        return torch.stack([r] * self.size)
+
+
+def _merge_rank_by_rank(dev, k, v, tp: int = 4):
+    """Phase 19 (c): one layer's decode attention over a cache (B, S, Hkv,
+    dh) in bf16 split in ``tp`` sequence shards, each rank's
+    ``decode_attention_shard`` (the kernel with its lse) merged by
+    ``merge_shards`` over a stand-in group, against the whole cache's
+    kernel launch (one bf16 rounding; the merge rounds each shard's output
+    and then the sum) and the plain version in fp32, at ``_scaled_tol``:
+    the outputs, averages over ~32,750 keys, have an rms of ~9e-3.  The
+    check must refuse the merge with the last shard left out.  Rows at
+    ``RANK_PAGED``'s lengths, one of them 0, one at a shard boundary.
+    Returns the errors and the tolerance."""
+    from repro_torch.kernels.paged_attention.ops import paged_attention_plain
+    from repro_torch.models import layers
+    B, S, Hkv, dh = k.shape
+    H = RANK_PAGED[2]
+    S_l = S // tp
+    gen = torch.Generator(device=dev).manual_seed(192)
+    q = _rand(gen, (B, 1, H, dh), torch.bfloat16, dev)
+    lens = list(RANK_PAGED[5])
+    lens[1], lens[-1] = 0, S_l          # an empty row, one at a boundary
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    whole = layers.decode_attention(q, k, v, lengths)
+    parts = [layers.decode_attention_shard(
+        q, k[:, m * S_l:(m + 1) * S_l].contiguous(),
+        v[:, m * S_l:(m + 1) * S_l].contiguous(), lengths, m, S_l)
+        for m in range(tp)]
+    merged = layers.merge_shards(torch.stack([o for o, _ in parts]),
+                                 torch.stack([x for _, x in parts]),
+                                 _StackedGroup(tp))
+    page = math.gcd(S, 16)
+    table = torch.arange(B * S // page, dtype=torch.int32,
+                         device=dev).reshape(B, S // page)
+    plain = paged_attention_plain(
+        q[:, 0].float(), k.float().view(-1, page, Hkv, dh),
+        v.float().view(-1, page, Hkv, dh), table, lengths)
+    torch.cuda.synchronize()
+    if any(not torch.equal(merged[m], merged[0]) for m in range(tp)) or \
+            merged[0][1].any():
+        raise AssertionError("phase 19 (c): the ranks' merges differ, or "
+                             "the empty row is not zeros")
+    name = f"phase 19 (c) decode attention over {tp} shards of {S_l}, merged"
+    tol = _scaled_tol(whole, torch.bfloat16)
+    err = _check(f"{name}, vs the whole cache", merged[0], whole,
+                 torch.bfloat16, tol)
+    err_plain = _check(f"{name}, vs the plain version in fp32",
+                       merged[0][:, 0].float(), plain, torch.bfloat16,
+                       _scaled_tol(plain, torch.bfloat16))
+    err_whole = (whole[:, 0].float() - plain).abs().max().item()
+    log(f"  phase 19 (c): the whole cache's launch vs fp32 plain "
+        f"max_abs_err={err_whole:.3e}")
+    # the check must refuse a merge that leaves the last rank's shard out
+    dropped = layers.merge_shards(torch.stack([o for o, _ in parts[:-1]]),
+                                  torch.stack([x for _, x in parts[:-1]]),
+                                  _StackedGroup(tp - 1))[0]
+    err_dropped = _refuses_wrong(f"{name}, vs the whole cache", whole,
+                                 dropped, "merge without the last shard",
+                                 tol)
+    return dict(tp=tp, atol=tol["atol"], rtol=tol["rtol"],
+                merged_vs_whole=err, merged_vs_plain_fp32=err_plain,
+                whole_vs_plain_fp32=err_whole,
+                without_last_shard_vs_whole=err_dropped)
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5522,17 +5933,25 @@ def main() -> int:
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    log("== 19. the multi-GPU serving path on one card: build_cell's "
+        "prefill and decode cells of Llama-3.2-1B bf16 at every published "
+        "width and full depth on an NCCL group of one, collectives skipped "
+        "and sent; the decode cell at a rank's B32 x 32768")
+    served_used, served_stats = serve_sharded_path(dev)
+    print(json.dumps({"multi_gpu_serving": served_stats}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm, "flash_attention_bwd": trained,
                          "moe_gemm_wgrad": moe_trained,
                          "ssd_scan_bwd": ssm_trained}.get(
             s["name"], greedy)[s["name"]]
-        # the launches of phases 15-18 added (the attention kernels; phase
+        # the launches of phases 15-19 added (the attention kernels; phase
         # 17's and 18's grouped GEMM and its weight gradient too)
         s["launches"] += sum(t.get(s["name"], 0) for t in (
             hybrid_trained, encdec_trained, mla_trained, sharded_trained,
-            tp8_used))
+            tp8_used, served_used))
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

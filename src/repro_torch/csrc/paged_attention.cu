@@ -10,6 +10,10 @@
 // reads nothing and gives zeros, as the TPU kernel does.  The serving path
 // passes its dense slot cache of one layer, (B, max_len, Hkv, D), as the
 // pool view (B * max_len / page, page, Hkv, D) with the identity table.
+// With lse (B, H) fp32 given (not null), it also writes each (row, query
+// head)'s natural-log log-sum-exp of its scaled scores over the first
+// lengths positions, -1e30 for a row of length 0: the statistics a merge
+// of sequence shards across ranks needs (models/layers.py::merge_shards).
 //
 // What bounds it on an H100: bytes.  Each cached key and value is read
 // once and used for G dot products, about 2G FLOP per bf16 pair of bytes,
@@ -264,8 +268,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                    const T* __restrict__ v_pool,
                    const int* __restrict__ page_table,
                    const int* __restrict__ lengths, T* __restrict__ out,
-                   int H, int Hkv, int page, int log2_page, int max_pages,
-                   float scale_log2) {
+                   float* __restrict__ lse, int H, int Hkv, int page,
+                   int log2_page, int max_pages, float scale_log2) {
   using Gm = Geo<T, D>;
   constexpr bool kF32 = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -281,6 +285,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   if (len == 0) {   // the whole cluster alike: read nothing, write zeros
     for (int e = tid; e < share; e += NT) orow[e] = rt::from_f32<T>(0.f);
+    if (lse != nullptr && rank == 0 && tid < G)
+      lse[(size_t)b * H + hk * G + tid] = rt::kNeg;
     return;
   }
 
@@ -511,13 +517,17 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
       A += a * racc[c * share + e];
     }
     orow[e] = rt::from_f32<T>(A / fmaxf(L, 1e-30f));
+    // one writer a row: the rank and thread that hold its column 0;
+    // M is in log2 units of the scaled scores
+    if (lse != nullptr && (rank * share + e) % D == 0)
+      lse[(size_t)b * H + hk * G + g] = (M + log2f(L)) * 0.6931471805599453f;
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
-                   const int* table, const int* lengths, void* out, int B,
-                   int H, int Hkv, int page, int max_pages, float scale,
+                   const int* table, const int* lengths, void* out, float* lse,
+                   int B, int H, int Hkv, int page, int max_pages, float scale,
                    cudaStream_t stream) {
   using Gm = Geo<T, D>;
   // the page-table slice of the longest rank range: ceil(ntiles / C)
@@ -536,26 +546,27 @@ cudaError_t launch(const void* q, const void* k_pool, const void* v_pool,
   const dim3 grid(C * Hkv, B);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), table, lengths, static_cast<T*>(out), H,
-      Hkv, page, log2_page, max_pages, scale * 1.4426950408889634f);
+      static_cast<const T*>(v_pool), table, lengths, static_cast<T*>(out), lse,
+      H, Hkv, page, log2_page, max_pages, scale * 1.4426950408889634f);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(int D, const void* q, const void* k_pool,
                      const void* v_pool, const int* table, const int* lengths,
-                     void* out, int B, int H, int Hkv, int page_size,
-                     int max_pages, float scale, cudaStream_t stream) {
+                     void* out, float* lse, int B, int H, int Hkv,
+                     int page_size, int max_pages, float scale,
+                     cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k_pool, v_pool, table, lengths, out, B, H, Hkv,
-                           page_size, max_pages, scale, stream);
+      return launch<T, 32>(q, k_pool, v_pool, table, lengths, out, lse, B, H,
+                           Hkv, page_size, max_pages, scale, stream);
     case 64:
-      return launch<T, 64>(q, k_pool, v_pool, table, lengths, out, B, H, Hkv,
-                           page_size, max_pages, scale, stream);
+      return launch<T, 64>(q, k_pool, v_pool, table, lengths, out, lse, B, H,
+                           Hkv, page_size, max_pages, scale, stream);
     case 128:
-      return launch<T, 128>(q, k_pool, v_pool, table, lengths, out, B, H,
-                            Hkv, page_size, max_pages, scale, stream);
+      return launch<T, 128>(q, k_pool, v_pool, table, lengths, out, lse, B,
+                            H, Hkv, page_size, max_pages, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -564,12 +575,14 @@ cudaError_t dispatch(int D, const void* q, const void* k_pool,
 }  // namespace
 
 // Returns the CUDA error of the launch (0 on success).  K/V pools must
-// start on a 16-byte boundary (cp.async); the wrapper checks it.
+// start on a 16-byte boundary (cp.async); the wrapper checks it.  lse, the
+// last argument, is a (B, H) fp32 output or null (none written); a caller
+// built against the entry without it passes one argument fewer.
 extern "C" int repro_paged_attention_fwd(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* lengths, void* out, int B, int H,
     int Hkv, int D, int page_size, int max_pages, float scale, int dtype,
-    void* stream) {
+    void* stream, void* lse) {
   if (B <= 0 || B > 65535 || Hkv <= 0 || H % Hkv != 0 || H / Hkv > MAXG ||
       page_size <= 0 || max_pages <= 0 ||
       reinterpret_cast<uintptr_t>(k_pool) % 16 ||
@@ -578,11 +591,12 @@ extern "C" int repro_paged_attention_fwd(
   const int* tab = static_cast<const int*>(page_table);
   const int* len = static_cast<const int*>(lengths);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ls = static_cast<float*>(lse);
   if (dtype == rt::kF32)
-    return dispatch<float>(D, q, k_pool, v_pool, tab, len, out, B, H, Hkv,
+    return dispatch<float>(D, q, k_pool, v_pool, tab, len, out, ls, B, H, Hkv,
                            page_size, max_pages, scale, s);
   if (dtype == rt::kBF16)
-    return dispatch<__nv_bfloat16>(D, q, k_pool, v_pool, tab, len, out, B, H,
-                                   Hkv, page_size, max_pages, scale, s);
+    return dispatch<__nv_bfloat16>(D, q, k_pool, v_pool, tab, len, out, ls, B,
+                                   H, Hkv, page_size, max_pages, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -10,7 +10,9 @@ Three regimes, as in ``repro.distributed.sharding``:
   whisper 8, recurrentgemma 10) fall back to sequence-parallel attention
   (``attention_mode`` "seq").
 * ``decode`` (serve): batch over the DP axes; KV-cache sequence over
-  ``model``; experts over ``model``; attention projections replicated.
+  ``model``; experts over ``model``; attention projections replicated
+  (``launch/steps.py``'s decode cell; ``shard_cache`` / ``gather_cache``
+  cut and join a cache under ``cache_specs``).
 * ``fsdp`` (ZeRO-3): every weight sharded over all axes on its largest
   divisible dim.
 
@@ -237,7 +239,7 @@ def explain(cfg: ModelConfig, tp: int) -> str:
 
 
 # ---------------------------------------------------------------------------
-# the weight bridge's multi-rank leg
+# the weight bridge's multi-rank leg (parameters and decode caches)
 # ---------------------------------------------------------------------------
 
 
@@ -305,6 +307,21 @@ def gather_params(local, specs, mesh):
         return out
 
     return _map(local, join)
+
+
+def shard_cache(cache, specs, mesh):
+    """The cache's leg of the bridge: each leaf of a full decode cache
+    (``init_cache``, or a one-device prefill's installed in one) cut to this
+    rank's slice under ``cache_specs`` (rows over the batch axes, sequence
+    over ``model``), each its own contiguous tensor: the paged kernel's
+    16-byte checks and ``decode_attention``'s pool view need that."""
+    return shard_params(cache, specs, mesh)
+
+
+def gather_cache(local, specs, mesh):
+    """Inverse of ``shard_cache``: every rank's cache slices gathered into
+    the full cache (on every rank), through the world group."""
+    return gather_params(local, specs, mesh)
 
 
 def _parts(entry, sizes) -> int:

@@ -9,7 +9,11 @@ softmax states in distributed shared memory.  Its products have two
 routes, chosen by the storage type: bf16 on the tensor cores
 (``mma.sync``), fp32 on the CUDA cores; each launch is counted in
 ``kernels.LAUNCHES`` and, by route, in ``ROUTE_LAUNCHES``.  A row of length
-0 (a free slot) gives zeros, as the TPU kernel does.
+0 (a free slot) gives zeros, as the TPU kernel does.  Given ``lse``, a (B, H)
+fp32 tensor, the same launch also writes each (row, query head)'s log-sum-exp
+of its scaled scores (``NEG`` for a row of length 0): the statistics with
+which ``models/layers.py::merge_shards`` joins the outputs of a cache's
+sequence shards held by other ranks.
 """
 from __future__ import annotations
 
@@ -46,11 +50,13 @@ def reset_routes() -> None:
         ROUTE_LAUNCHES[key] = 0
 
 
-def paged_attention_plain(q, k_pool, v_pool, page_table, lengths):
+def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, lse=None):
     """Gather each sequence's pages through the table, then a masked
     softmax over its first ``lengths`` positions (fp32 statistics).  A row
     with ``lengths <= 0`` attends to nothing and gives zeros, as
-    ``paged_attention_tpu`` does."""
+    ``paged_attention_tpu`` does.  With ``lse`` ((B, H) fp32) it also
+    fills each row and head's natural-log log-sum-exp of the masked
+    scaled scores, ``NEG`` for a row of length 0."""
     B, H, dh = q.shape
     _, page, Hkv, _ = k_pool.shape
     max_pages = page_table.shape[1]
@@ -69,6 +75,9 @@ def paged_attention_plain(q, k_pool, v_pool, page_table, lengths):
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgs,bshd->bhgd", p / torch.clamp_min(l, 1e-30), v)
     out = torch.where((lengths > 0)[:, None, None, None], out, 0.0)
+    if lse is not None:
+        stat = (m + torch.log(l))[..., 0].reshape(B, H)
+        lse.copy_(torch.where((lengths > 0)[:, None], stat, NEG))
     return out.reshape(B, H, -1).to(q.dtype)
 
 
@@ -78,7 +87,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn = lib.repro_paged_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_void_p])
     return lib
 
 
@@ -89,7 +99,7 @@ def _lib():
     return _LIB
 
 
-def _check(q, k_pool, v_pool, page_table, lengths):
+def _check(q, k_pool, v_pool, page_table, lengths, lse=None):
     dev = q.device
     for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
                     ("page_table", page_table), ("lengths", lengths)):
@@ -120,6 +130,12 @@ def _check(q, k_pool, v_pool, page_table, lengths):
             lengths.shape != (B,):
         raise ValueError(f"{NAME}: page_table {tuple(page_table.shape)}, "
                          f"lengths {tuple(lengths.shape)} vs batch {B}")
+    if lse is not None and (lse.device != dev or lse.dtype != torch.float32
+                            or lse.shape != (B, H)
+                            or not lse.is_contiguous()):
+        raise ValueError(f"{NAME}: lse must be a contiguous ({B}, {H}) "
+                         f"float32 tensor on {dev}, got {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}")
     # K/V rows arrive by 16-byte cp.async (their strides, D * 2 bytes and
     # up, are multiples of 16 at every head dim)
     for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
@@ -128,23 +144,27 @@ def _check(q, k_pool, v_pool, page_table, lengths):
                              f"boundary, its address is {t.data_ptr():#x}")
 
 
-def paged_attention(q, k_pool, v_pool, page_table, lengths):
+def paged_attention(q, k_pool, v_pool, page_table, lengths, lse=None):
     """q (B,H,D); pools (num_pages, page, Hkv, D); page_table (B,max_pages)
-    int32; lengths (B,) int32 -> (B,H,D) in q's dtype."""
+    int32; lengths (B,) int32 -> (B,H,D) in q's dtype.  ``lse``: None, or a
+    (B, H) fp32 tensor that the launch fills with each row's log-sum-exp."""
     if q.device.type == "cpu":
-        return paged_attention_plain(q, k_pool, v_pool, page_table, lengths)
+        return paged_attention_plain(q, k_pool, v_pool, page_table, lengths,
+                                     lse)
     if q.device.type != "cuda":
         raise ValueError(f"{NAME}: unsupported device {q.device}")
-    _check(q, k_pool, v_pool, page_table, lengths)
-    out = launch(_lib(), q, k_pool, v_pool, page_table, lengths)
+    _check(q, k_pool, v_pool, page_table, lengths, lse)
+    out = launch(_lib(), q, k_pool, v_pool, page_table, lengths, lse)
     kernels.LAUNCHES[NAME] += 1
     ROUTE_LAUNCHES[route(q.dtype)] += 1
     return out
 
 
-def launch(lib, q, k_pool, v_pool, page_table, lengths):
+def launch(lib, q, k_pool, v_pool, page_table, lengths, lse=None):
     """One launch of ``repro_paged_attention_fwd`` from ``lib`` on checked
-    CUDA tensors; raises if the launch failed.  Counts nothing."""
+    CUDA tensors (``lse`` None: a null pointer, which a library built
+    without the argument never reads); raises if the launch failed.  Counts
+    nothing."""
     B, H, D = q.shape
     _, page, Hkv, _ = k_pool.shape
     out = torch.empty_like(q)
@@ -154,7 +174,8 @@ def launch(lib, q, k_pool, v_pool, page_table, lengths):
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
             Hkv, D, page, page_table.shape[1], 1.0 / math.sqrt(D),
-            _DTYPES[q.dtype], stream)
+            _DTYPES[q.dtype], stream,
+            None if lse is None else lse.data_ptr())
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
     return out

@@ -28,7 +28,9 @@ measurements.  A serving cell reckons its parameters and cache only (no
 gradients, optimizer or batch beyond its tokens).  Each cell is one JSON
 file, as the reference's ``_save``; the run counts ok, skipped and
 failed cells and exits 1 on a failure.  ``runs`` says whether the
-port's ``build_cell`` takes the cell today.
+port's ``build_cell`` takes the cell today: the train cells of the dense
+and MoE decoders whose q heads split, and the serving cells of the dense
+and MoE GQA decoders (a prefill's q heads split too).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID|all]
         [--shape NAME|all] [--mesh single|multi|both] [--outdir DIR]

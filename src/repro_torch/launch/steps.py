@@ -13,15 +13,37 @@ tensor and expert parallelism over the model group inside
 ``forward_loss``, ZeRO-1 over every rank in ``apply_updates``; the loss
 it returns is the data group's sum of the ranks' terms, the batch's.
 
-``build_cell`` builds the train kind of a (arch x shape) cell on a mesh
-(``launch/mesh.py``): the microbatch count (``_auto_microbatches``), the
-parameter, batch and optimizer specs (``distributed/sharding.py``,
-regime ``tp``), and a ``Cell`` whose ``init_state`` draws this rank's
-slices of the weights, whose ``local_batch`` takes this rank's rows of
-a global batch (microbatch j's data shard, as the reference's
-``_mb_split`` keeps the DP shard on dim 1), and whose ``step`` runs
-``train_step`` over the realized mesh's groups.  The serving kinds
-(``prefill``, ``decode``) and ``train_regime="fsdp"`` raise, naming the
+``build_cell`` builds a (arch x shape) cell on a mesh (``launch/mesh.py``)
+of each kind of the reference's ``build_cell``:
+
+* ``train``: the microbatch count (``_auto_microbatches``), the
+  parameter, batch and optimizer specs (``distributed/sharding.py``,
+  regime ``tp``), and a ``Cell`` whose ``init_state`` draws this rank's
+  slices of the weights, whose ``local_batch`` takes this rank's rows of
+  a global batch (microbatch j's data shard, as the reference's
+  ``_mb_split`` keeps the DP shard on dim 1), and whose ``step`` runs
+  ``train_step`` over the realized mesh's groups.  ``train_regime=
+  "fsdp"`` raises, naming the ROADMAP item that queues it.
+* ``prefill`` (the reference's ``_build_prefill``): the ``tp`` regime's
+  parameter specs and the decode cache's (``cache_specs``); a
+  ``PrefillCell`` whose ``step(params, batch)`` runs ``transformer.
+  prefill`` over the mesh on this rank's rows of a global batch
+  (``batch_seq`` its (batch, prompt length)) and returns (the last
+  position's logits (B_l, 1, V), gathered over the model group; this
+  rank's cache in the decode layout, ``max_len`` positions split over
+  ``model``: the reference's ``_prefill_cache_specs``).
+* ``decode`` (``_build_decode``): the ``decode`` regime's specs (the
+  attention weights replicated, experts and MLP columns over ``model``)
+  and a ``DecodeCell`` whose ``init_state`` draws this rank's slices,
+  ``init_cache`` makes its zero shard of the cache (rows over the batch
+  axes, the sequence over ``model``: flash-decoding), and ``step(params,
+  cache, tokens, lengths)`` on this rank's rows (``local_batch``)
+  returns ``(next_tokens, cache, lengths + 1)`` as the reference's
+  ``serve_step``, the cache updated in place.  A decode cell built on the
+  same mesh, batch and ``max_len`` takes a prefill cell's cache as it is.
+
+The serving kinds take the dense and MoE decoders with GQA attention
+(``transformer.check_servable``); the other families raise, naming the
 ROADMAP item that queues them.
 """
 from __future__ import annotations
@@ -31,7 +53,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch import optim
+from repro_torch import compat, optim
 from repro_torch.configs import get_config
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import LOCAL
@@ -146,9 +168,7 @@ class Cell:
 
     @property
     def comm(self):
-        if self.mesh.rank is None:
-            raise ValueError("the cell's mesh is abstract: realize it")
-        return self.mesh.comm
+        return _comm(self.mesh)
 
     def init_state(self, seed: int = 0, device=None) -> Tuple[Any, Any]:
         """(this rank's parameter slices, its optimizer parts):
@@ -166,22 +186,7 @@ class Cell:
         """This rank's rows of a global batch: for each key split on dim
         0, microbatch j's (rows [j b, (j+1) b)) data shard, microbatches
         in order; a key the batch specs replicate stays whole."""
-        d = mesh_lib.batch_extent(self.mesh)
-        c = self.comm.data.rank
-        n = self.microbatches
-        out = {}
-        for k, t in batch.items():
-            if d == 1 or self.batch_specs.get(k, (None,))[0] is None:
-                out[k] = t
-                continue
-            B = t.shape[0]
-            if B % (n * d):
-                raise ValueError(f"{k}: batch {B} does not split into "
-                                 f"{n} microbatches over {d} data ranks")
-            b = B // n // d
-            v = t.reshape((n, d, b) + tuple(t.shape[1:]))[:, c]
-            out[k] = v.reshape((n * b,) + tuple(t.shape[1:]))
-        return out
+        return _rows(batch, self.batch_specs, self.mesh, self.microbatches)
 
     def step(self, params, opt_state, batch, *, remat: bool = True):
         """One ``train_step`` of this rank on its rows of the global
@@ -190,6 +195,127 @@ class Cell:
                           self.local_batch(batch), self.ocfg,
                           microbatches=self.microbatches, remat=remat,
                           comm=self.comm, specs=self.param_specs)
+
+
+def _comm(mesh):
+    """A cell's groups: its realized mesh's ``Comm``."""
+    if mesh.rank is None:
+        raise ValueError("the cell's mesh is abstract: realize it")
+    return mesh.comm
+
+
+def _rows(batch, specs, mesh, n: int = 1):
+    """``Cell.local_batch`` of ``n`` microbatches."""
+    d = mesh_lib.batch_extent(mesh)
+    c = _comm(mesh).data.rank
+    out = {}
+    for k, t in batch.items():
+        if d == 1 or specs.get(k, (None,))[0] is None:
+            out[k] = t
+            continue
+        B = t.shape[0]
+        if B % (n * d):
+            raise ValueError(f"{k}: batch {B} does not split into "
+                             f"{n} microbatches over {d} data ranks")
+        b = B // n // d
+        v = t.reshape((n, d, b) + tuple(t.shape[1:]))[:, c]
+        out[k] = v.reshape((n * b,) + tuple(t.shape[1:]))
+    return out
+
+
+@dataclasses.dataclass
+class ServeCell:
+    """A serving cell on a mesh (the ``prefill`` and ``decode`` kinds):
+    ``batch`` the global batch, ``seq`` the prompt length (prefill) or the
+    cache's (decode), ``max_len`` the cache's positions, split over
+    ``model`` in shards of ``max_len / tp``."""
+    arch: str
+    shape: str
+    kind: str
+    cfg: ModelConfig
+    mesh: mesh_lib.Mesh
+    batch: int
+    seq: int
+    max_len: int
+    param_specs: Any
+    batch_specs: Dict[str, Any]
+    cache_specs: Any
+    note: str = ""
+
+    @property
+    def comm(self):
+        return _comm(self.mesh)
+
+    def init_state(self, seed: int = 0, device=None):
+        """This rank's parameter slices under ``param_specs``: the
+        full tree of ``init_params(cfg, seed)`` cut by ``shard_params``,
+        drawn a slice at a time (``part``)."""
+        return T.init_params(self.cfg, seed, device, part=shd.part_of(
+            self.param_specs, self.mesh))
+
+    def init_cache(self, device=None):
+        """This rank's zero shard of the decode cache under
+        ``cache_specs``: {"k", "v"} of (L, B_l, max_len / tp, Hkv, dh),
+        each leaf its own tensor."""
+        dev = compat.resolve_device(device)
+        part = shd.part_of(self.cache_specs, self.mesh)
+        full = T.init_cache(self.cfg, self.batch, self.max_len,
+                            device="meta")
+        return {k: torch.zeros(t[part((k,), t.shape)].shape, dtype=t.dtype,
+                               device=dev) for k, t in full.items()}
+
+    def local_batch(self, batch: Dict[str, torch.Tensor]):
+        """This rank's rows of a global batch (``tokens``, a decode's
+        ``lengths``): each key split on dim 0 over the data ranks in their
+        order; a key the batch specs replicate stays whole."""
+        return _rows(batch, self.batch_specs, self.mesh)
+
+
+class PrefillCell(ServeCell):
+    def step(self, params, batch: Dict[str, torch.Tensor]):
+        """``transformer.prefill`` of this rank's rows of the global
+        ``batch`` over the mesh: (the last position's logits (B_l, 1, V),
+        this rank's cache in the decode layout, ``max_len`` positions)."""
+        b = self.local_batch(batch)
+        return T.prefill(self.cfg, params, b["tokens"], comm=self.comm,
+                         max_len=self.max_len)
+
+
+class DecodeCell(ServeCell):
+    def step(self, params, cache, tokens, lengths):
+        """One greedy step of this rank's rows (``local_batch``) over the
+        mesh: ``(next_tokens, cache, lengths + 1)``, the cache (this
+        rank's shard) updated in place."""
+        nxt, cache = T.decode_step(self.cfg, params, cache, tokens, lengths,
+                                   self.comm)
+        return nxt, cache, lengths + 1
+
+
+def _serve_cell(cfg, arch, shape, mesh, batch_seq, max_len) -> ServeCell:
+    """``build_cell``'s prefill and decode kinds."""
+    kind = shape.kind
+    axes = mesh_lib.mesh_axes(mesh)
+    tp = mesh.shape["model"]
+    T.check_servable(cfg, tp, kind)
+    mesh_batch = mesh_lib.batch_extent(mesh)
+    B, S = batch_seq or (shape.global_batch, shape.seq_len)
+    if kind == "decode" and max_len not in (None, S):
+        raise ValueError(f"a decode cell's cache holds its {S} positions, "
+                         f"not max_len {max_len}")
+    n = max_len or S
+    if n < S or n % tp:
+        raise ValueError(f"{arch} x {shape.name}: a cache of {n} positions "
+                         f"(the sequence {S}) does not split over {tp} ranks")
+    regime = "tp" if kind == "prefill" else "decode"
+    note = shd.explain(cfg, tp) if kind == "prefill" else (
+        f"attention replicated, cache sequence over model ({n // tp} "
+        f"positions a rank)" + (f", EP {cfg.num_experts}/{tp} experts per "
+                                f"shard" if cfg.is_moe else ""))
+    return (PrefillCell if kind == "prefill" else DecodeCell)(
+        arch, shape.name, kind, cfg, mesh, B, S, n,
+        shd.param_specs(cfg, axes, tp, regime),
+        shd.batch_specs(cfg, axes, B, mesh_batch, kind),
+        shd.cache_specs(cfg, axes, tp, B, mesh_batch), note=note)
 
 
 def _auto_microbatches(cfg, B, S, mesh_batch, floor, target=2 * 2**30):
@@ -206,11 +332,7 @@ def _auto_microbatches(cfg, B, S, mesh_batch, floor, target=2 * 2**30):
     return n
 
 
-QUEUED = {
-    "prefill": "prefill cells",
-    "decode": "the decode regime (a sequence-split KV cache)",
-    "fsdp": "fsdp",
-}
+QUEUED = {"fsdp": "fsdp"}
 
 
 def build_cell(arch, shape_name: str, mesh: mesh_lib.Mesh, *,
@@ -219,11 +341,14 @@ def build_cell(arch, shape_name: str, mesh: mesh_lib.Mesh, *,
                exact_microbatches: Optional[int] = None,
                train_regime: str = "tp",
                batch_seq: Optional[Tuple[int, int]] = None,
-               over: Optional[Dict[str, Any]] = None) -> Cell:
-    """The train cell of ``arch`` (an arch id or a ``ModelConfig``) x
-    ``shape_name`` on ``mesh``.  ``batch_seq`` overrides the shape's
-    (global batch, sequence) and ``over`` replaces config fields (a depth
-    cut, ``num_layers``; a dtype)."""
+               over: Optional[Dict[str, Any]] = None,
+               max_len: Optional[int] = None):
+    """The cell of ``arch`` (an arch id or a ``ModelConfig``) x
+    ``shape_name`` on ``mesh``: a train ``Cell``, or a ``PrefillCell`` or
+    ``DecodeCell`` for the serving shapes.  ``batch_seq`` overrides the
+    shape's (global batch, sequence) and ``over`` replaces config fields
+    (a depth cut, ``num_layers``; a dtype); ``max_len`` is a prefill's
+    cache length (default the sequence, the reference's)."""
     if isinstance(arch, ModelConfig):
         cfg, arch = arch, arch.name
     else:
@@ -234,11 +359,13 @@ def build_cell(arch, shape_name: str, mesh: mesh_lib.Mesh, *,
     ok, why = shape_applicable(cfg, shape)
     if not ok:
         raise ValueError(f"{arch} x {shape_name}: {why}")
-    if shape.kind != "train" or train_regime != "tp":
-        item = QUEUED[shape.kind if shape.kind != "train" else train_regime]
+    if shape.kind != "train":
+        return _serve_cell(cfg, arch, shape, mesh, batch_seq, max_len)
+    if train_regime != "tp":
         raise NotImplementedError(
             f"{arch} x {shape_name} ({shape.kind}, regime {train_regime}) "
-            f"waits for {item} (ROADMAP Queue A, the multi-device path)")
+            f"waits for {QUEUED[train_regime]} (ROADMAP Queue A, the "
+            f"multi-device path)")
     axes = mesh_lib.mesh_axes(mesh)
     tp = mesh.shape["model"]
     T.check_trainable(cfg, tp)

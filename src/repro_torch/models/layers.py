@@ -21,7 +21,12 @@ it.  So does sliding-window decode over a ring cache
 (``attention_decode_ring``: H2O-Danube, RecurrentGemma's local
 attention), whose window and softcap lie outside the paged kernel's
 contract.  On CPU tensors the kernel wrappers run their plain PyTorch
-versions.
+versions.  In the decode regime of the multi-GPU path each rank attends
+over its sequence shard of the cache (``decode_attention_shard``: the
+paged kernel with its log-sum-exp output) and the ranks' partial
+attentions merge over the model group (``merge_shards``, flash-decoding's
+merge, which the reference gets from XLA's partitioning of its whole-cache
+einsum).
 
 Caches are written in place (the JAX package donates them instead):
 ``cache_update``, ``attention_decode``, ``attention_decode_ring`` and
@@ -137,11 +142,13 @@ def chunked_attention(q, k, v, q_positions, kv_positions, *,
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
-                     softcap: float = 0.0):
+                     softcap: float = 0.0, lse=None):
     """One-token attention, q (B, 1, H, dh), against a dense cache
     (B, S, Hkv, dh) whose first ``lengths`` positions are valid.  The cache
     is passed to ``paged_attention`` as the pool (B*S/page, page, Hkv, dh)
-    with the identity page table: a view, no copy."""
+    with the identity page table: a view, no copy.  ``lse``: None, or a
+    (B, H) fp32 tensor the same launch fills with each row's log-sum-exp
+    (``decode_attention_shard``)."""
     if window or softcap:
         raise NotImplementedError(
             "decode attention with a window or a softcap is outside the "
@@ -154,8 +161,44 @@ def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,
     table = torch.arange(B * S // page, dtype=torch.int32,
                          device=q.device).reshape(B, S // page)
     o = paged_attention(q.reshape(B, H, dh).contiguous(), k_pool, v_pool,
-                        table, lengths.to(torch.int32).contiguous())
+                        table, lengths.to(torch.int32).contiguous(), lse)
     return o.reshape(B, 1, H, -1)
+
+
+def decode_attention_shard(q, k_shard, v_shard, lengths, m: int, S_l: int,
+                           *, softcap: float = 0.0):
+    """Rank ``m``'s part of one-token attention over a cache whose sequence
+    is split over the ranks in shards of ``S_l`` positions (the decode
+    regime, ``distributed/sharding.py::cache_specs``): q (B, 1, H, dh)
+    against its shard (B, S_l, Hkv, dh), i.e. positions [m S_l, (m+1) S_l)
+    of each row, of which the first ``lengths`` (global) are valid, so
+    ``clamp(lengths - m S_l, 0, S_l)`` locally.  Returns (out (B, 1, H,
+    dv) in q's dtype, lse (B, 1, H) fp32): the shard's softmax-weighted
+    values and the log-sum-exp of its scores (``NEG``, -1e30, where it
+    holds none of the row), which ``merge_shards`` joins across ranks."""
+    local = (lengths - m * S_l).clamp(0, S_l)
+    B, _, H, _ = q.shape
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device)
+    o = decode_attention(q, k_shard, v_shard, local, softcap=softcap,
+                         lse=lse)
+    return o, lse.reshape(B, 1, H)
+
+
+def merge_shards(o, lse, group):
+    """The attention of the whole sequence from each rank's
+    ``decode_attention_shard`` over ``group`` (the model group: flash-
+    decoding's merge): M = max over the ranks of lse, w = exp(lse - M),
+    then one fp32 sum over the ranks of ``[w o, w]`` (concatenated on the
+    last dim), and ``sum(w o) / max(sum(w), 1e-30)`` in o's dtype.  ``o``
+    (..., dv) and ``lse`` (...) of any leading shape.  A row no rank holds
+    (all lse -1e30) gives zeros, as a length-0 row does on one device.  In
+    a trivial group (one rank, collectives skipped) ``o`` itself."""
+    if group.trivial:
+        return o
+    M = group.all_reduce(lse, "max")
+    w = torch.exp(lse - M)[..., None]
+    s = group.all_reduce(torch.cat([o.float() * w, w], dim=-1))
+    return (s[..., :-1] / torch.clamp_min(s[..., -1:], 1e-30)).to(o.dtype)
 
 
 def decode_attention_ring(q, k_cache, v_cache, pos_cache, lengths, *,

@@ -29,6 +29,13 @@ beside the encoder's cross-attention K/V ``{"xk", "xv"}`` of (L, B,
 encoder_seq, Hkv, dh); ``install_cache`` takes a prefill's cache of
 either full-attention family into ``init_cache``'s longer one.
 
+Over a ``distributed/collectives.py::Comm`` the dense and MoE decoders
+also train (``forward_loss``, the ``tp`` regime) and serve
+(``prefill`` in the ``tp`` regime, its cache handed over in the decode
+layout; ``decode_step`` in the decode regime over a sequence-split
+cache) as one rank of a mesh; in groups of one each is the one-device
+function, bit for bit.
+
 A windowed prefill returns the reference's ring, min(window, S) slots
 (``_to_ring``); ``install_ring`` re-lays it into ``init_cache``'s ring of
 min(window, max_len) slots before decode.  Decoding straight from the
@@ -482,7 +489,7 @@ def _same(t):
 
 
 def attention_share(cfg: ModelConfig, p, h, positions, tab, m: int = 0,
-                    tp: int = 1, copy=_same):
+                    tp: int = 1, copy=_same, want_kv: bool = False):
     """The layer's attention sublayer on the residual stream h, or rank
     ``m`` of ``tp``'s partial output of it: RMSNorm, then attention over
     the rank's q-head shard (``layers.tp_attention_params``; MLA whole at
@@ -490,13 +497,16 @@ def attention_share(cfg: ModelConfig, p, h, positions, tab, m: int = 0,
     the sublayer's (the caller's reduce).  ``copy`` wraps what every rank
     reads whole (the model group's ``copy_in``: its gradient sums over the
     ranks); at tp 1 it is the identity and this is the one-device
-    sublayer."""
+    sublayer.  With ``want_kv`` returns (output, (k, v)): the K/V of the
+    kv heads the rank's q heads read (MLA: its latent cache leaves), what
+    a prefill keeps."""
     xn = copy(layers.apply_norm(cfg, p["ln1"], h))
     if cfg.use_mla:
-        return layers.mla_fwd(cfg, p["attn"], xn, positions,
-                              rope_tab=tab)[0]
-    pa = layers.tp_attention_params(cfg, p["attn"], m, tp, copy)
-    return layers.attention_fwd(cfg, pa, xn, positions, rope_tab=tab)[0]
+        out = layers.mla_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
+    else:
+        pa = layers.tp_attention_params(cfg, p["attn"], m, tp, copy)
+        out = layers.attention_fwd(cfg, pa, xn, positions, rope_tab=tab)
+    return out if want_kv else out[0]
 
 
 def ffn_share(cfg: ModelConfig, p, h, m: int = 0, tp: int = 1, copy=_same):
@@ -751,9 +761,14 @@ def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
     a window the reference's prefill rings of min(window, S) slots
     (``install_rings`` takes them to a decode cache).  S' is S, or P + S
     with Pixtral's ``patches`` (B, P, D) placed first; the
-    encoder-decoder needs ``frames`` (B, encoder_seq, D)."""
+    encoder-decoder needs ``frames`` (B, encoder_seq, D).  The dense and
+    MoE decoders with GQA attention run ``_prefill_trunk`` on one
+    device."""
     check_model(cfg)
     _check_stubs(cfg, frames, patches)
+    if _serves_split(cfg):
+        h, k, v = _prefill_trunk(cfg, params, tokens, LOCAL.model)
+        return h, {"k": k, "v": v}
     h, positions = _assemble_inputs(cfg, params, tokens, patches)
     B, S = positions.shape
     if cfg.family == "audio":
@@ -827,17 +842,57 @@ def check_trainable(cfg: ModelConfig, tp: int = 1) -> None:
                "at run time")
     elif cfg.num_heads % tp:
         why = "seq attention mode"
-    elif padded_vocab(cfg) % tp:
-        why = "a replicated vocabulary"
-    elif cfg.is_moe and (cfg.num_experts % tp or (
-            cfg.num_shared_experts and cfg.shared_d_ff % tp)):
-        why = "replicated experts"
-    elif not cfg.is_moe and cfg.d_ff % tp:
-        why = "a replicated MLP"
+    else:
+        why = _split_refusal(cfg, tp)
     if why:
         raise NotImplementedError(
             f"{cfg.name} at tp {tp}: waits for {why} (ROADMAP Queue A, the "
             f"multi-device path)")
+
+
+def _split_refusal(cfg: ModelConfig, tp: int):
+    """What of a dense or MoE decoder does not split over ``tp`` ranks
+    (its vocabulary, experts or MLP columns), or None."""
+    if padded_vocab(cfg) % tp:
+        return "a replicated vocabulary"
+    if cfg.is_moe and (cfg.num_experts % tp or (
+            cfg.num_shared_experts and cfg.shared_d_ff % tp)):
+        return "replicated experts"
+    if not cfg.is_moe and cfg.d_ff % tp:
+        return "a replicated MLP"
+    return None
+
+
+# what each family waits for in the serving cells (ROADMAP Queue A item 3)
+_SERVE_QUEUED = {"ssm": "the SSM's rules", "hybrid": "the RG-LRU hybrid's "
+                 "rules", "audio": "the encoder-decoder's rules",
+                 "vlm": "the vision decoder's rules"}
+
+
+def check_servable(cfg: ModelConfig, tp: int, kind: str) -> None:
+    """What the serving cells of ``launch/steps.py::build_cell`` take
+    (``kind`` "prefill" or "decode") over a model group of ``tp`` ranks:
+    the dense and MoE decoders with GQA attention and a full-length cache
+    (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M, Qwen3-30B-A3B, Phi-3.5-MoE)
+    whose vocabulary and experts or MLP columns split over ``tp``; a
+    prefill runs the ``tp`` regime's q-head split, so its heads must split
+    too (the decode regime replicates the attention weights).  The rest
+    raises, naming what ROADMAP Queue A item 3 queues for it."""
+    check_model(cfg)
+    if cfg.sliding_window > 0:
+        why = "the windowed ring's rules (its positions over model)"
+    elif cfg.use_mla:
+        why = "MLA's latent cache rules (ckv, kr over model)"
+    elif cfg.family not in ("dense", "moe"):
+        why = _SERVE_QUEUED[cfg.family]
+    elif kind == "prefill" and cfg.num_heads % tp:
+        why = "seq attention mode (a prefill whose heads do not split)"
+    else:
+        why = _split_refusal(cfg, tp) if tp > 1 else None
+    if why:
+        raise NotImplementedError(
+            f"{cfg.name} {kind} at tp {tp}: waits for {why} (ROADMAP Queue "
+            f"A item 3, the multi-device path)")
 
 
 def _chunk_ce(cfg, params, h, labels):
@@ -1095,15 +1150,158 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
     return loss
 
 
-def prefill(cfg: ModelConfig, params, tokens, *, frames=None, patches=None):
+def prefill(cfg: ModelConfig, params, tokens, *, frames=None, patches=None,
+            comm=LOCAL, max_len=None):
     """Prefill: returns (last-position logits (B, 1, V), cache).  Whisper
     needs ``frames`` (B, encoder_seq, D); Pixtral takes ``patches`` (B, P,
-    D) before the tokens, so its cache holds P + S positions."""
+    D) before the tokens, so its cache holds P + S positions.  With
+    ``max_len`` the full-attention cache is ``init_cache``'s of max_len
+    positions, the prefill's in the first S.
+
+    The dense and MoE decoders with GQA attention run ``_prefill_shard``
+    over ``comm``: on the multi-GPU path one rank's prefill in the ``tp``
+    regime, the logits all-gathered and the cache this rank's sequence
+    shard in the decode layout; in groups of one (``LOCAL``) every
+    collective is skipped and it is the one-device prefill.  Over a model
+    group of more than one rank, or one whose collectives are sent, the
+    other families raise (``check_servable``)."""
+    if _serves_split(cfg) or not comm.model.trivial:
+        _check_stubs(cfg, frames, patches)
+        return _prefill_shard(cfg, params, tokens, comm.model,
+                              max_len or tokens.shape[1])
     h, cache = _backbone(cfg, params, tokens, frames=frames, patches=patches)
-    return logits_fn(cfg, params, h[:, -1:, :]), cache
+    logits = logits_fn(cfg, params, h[:, -1:, :])
+    if max_len is not None and max_len != h.shape[1]:
+        cache = install_cache(cfg, init_cache(cfg, tokens.shape[0], max_len,
+                                              tokens.device), cache)
+    return logits, cache
 
 
-def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
+def _serves_split(cfg: ModelConfig) -> bool:
+    """The dense and MoE decoders with GQA attention and a full-length
+    cache, what the serving cells take: their prefill and decode step run
+    the multi-GPU bodies (``_prefill_shard``, ``_decode_shard_logits``)
+    over every ``comm``, ``LOCAL`` included."""
+    return cfg.family in ("dense", "moe") and not cfg.use_mla \
+        and cfg.sliding_window == 0
+
+
+def _prefill_trunk(cfg: ModelConfig, params, tokens, model):
+    """Rank ``model.rank``'s trunk of a prefill of tokens (B, S) over the
+    model group in the ``tp`` regime (``params`` its slices under
+    ``param_specs(..., "tp")``; in a group of one the whole tree): the
+    embedding over its vocabulary rows, each layer's ``attention_share``
+    (its q heads through ``flash_attention``) and ``ffn_share`` (its
+    experts or MLP columns), each reduced over the group (the MoE's aux
+    dropped: serving has no loss), then the final norm.  Returns (h (B,
+    S, D), k, v): the K/V of the kv heads its q heads read, (L, B, S, Hl,
+    dh) each.  Collectives: 1 + 2 L all-reduces."""
+    m, tp = model.rank, model.size
+    B, S = tokens.shape
+    h = model.all_reduce(embed_share(cfg, params, tokens, m, tp))
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=h.device)[None].expand(B, S)
+    tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
+    dt = compat.torch_dtype(cfg.dtype)
+    ks = vs = None
+    for i, p in enumerate(_per_layer(params)):
+        a, (k, v) = attention_share(cfg, p, h, positions, tab, m, tp,
+                                    want_kv=True)
+        if ks is None:
+            ks = k.new_empty((cfg.num_layers,) + k.shape, dtype=dt)
+            vs = v.new_empty((cfg.num_layers,) + v.shape, dtype=dt)
+        ks[i], vs[i] = k, v
+        h = h + model.all_reduce(a)
+        h = h + model.all_reduce(ffn_share(cfg, p, h, m, tp)[0])
+    return layers.apply_norm(cfg, params["final_norm"], h), ks, vs
+
+
+def _prefill_shard(cfg: ModelConfig, params, tokens, model, max_len: int):
+    """Rank ``model.rank``'s prefill of tokens (B, S) over the model group
+    in the ``tp`` regime: ``_prefill_trunk``, then its ``lm_head`` columns
+    of the last position.  Returns (the logits (B, 1, V) all-gathered over
+    the group, as the reference's out sharding ``P(Bax, None, None)``
+    holds them; the cache in the decode layout, ``_to_decode_layout``:
+    {"k", "v"} of (L, B, max_len / tp, Hkv, dh), positions [m S_l, (m+1)
+    S_l) of every kv head, zeros past S).  Collectives: 1 + 2 L
+    all-reduces, one all-gather, one all-to-all a cache leaf; in a trivial
+    group none, and the one-device prefill."""
+    check_servable(cfg, model.size, "prefill")
+    tp = model.size
+    B, S = tokens.shape
+    if max_len < S or max_len % tp:
+        raise ValueError(f"prefill over {tp} ranks: max_len {max_len} must "
+                         f"hold the {S} positions and split in {tp}")
+    h, k, v = _prefill_trunk(cfg, params, tokens, model)
+    part = logits_fn(cfg, params, h[:, -1:, :])            # (B, 1, V/tp)
+    logits = model.all_gather(part[None]).permute(1, 2, 0, 3) \
+        .reshape(B, 1, tp * part.shape[-1])
+    return logits, {"k": _to_decode_layout(cfg, k, model, max_len),
+                    "v": _to_decode_layout(cfg, v, model, max_len)}
+
+
+def kv_owners(cfg: ModelConfig, tp: int):
+    """(rank, local head) of each kv head after a ``tp``-regime prefill:
+    a kv head's K/V is taken from the first rank whose q heads read it
+    (``layers.kv_heads_of_rank`` when the kv heads are replicated:
+    Qwen3-30B-A3B's 4 at tp 8 sit on ranks 0, 2, 4, 6)."""
+    Hkv = cfg.num_kv_heads
+    if Hkv % tp == 0:
+        Hl = Hkv // tp
+        return [(j // Hl, j % Hl) for j in range(Hkv)]
+    out = {}
+    for r in range(tp):
+        lo, hi = layers.kv_heads_of_rank(cfg, r, tp)
+        for j in range(lo, hi):
+            out.setdefault(j, (r, j - lo))
+    if sorted(out) != list(range(Hkv)):
+        raise ValueError(f"{cfg.name}: at tp {tp} only kv heads "
+                         f"{sorted(out)} of {Hkv} have an owner")
+    return [out[j] for j in range(Hkv)]
+
+
+def seq_blocks(t, tp: int, max_len: int):
+    """A rank's K or V of every position and of its kv heads, (L, B, S,
+    Hl, dh), as the ``tp`` sequence blocks of a ``max_len`` cache (zeros
+    past S), (tp, L, B, max_len / tp, Hl, dh): what it sends to each rank
+    in ``_to_decode_layout``'s all-to-all; a view of t when S is
+    ``max_len``."""
+    L, B, S, Hl, dh = t.shape
+    S_l = max_len // tp
+    if S == max_len:
+        return t.reshape(L, B, tp, S_l, Hl, dh).permute(2, 0, 1, 3, 4, 5)
+    out = t.new_zeros((tp, L, B, S_l, Hl, dh))
+    for r in range(tp):
+        lo, hi = r * S_l, min(S, (r + 1) * S_l)
+        if hi > lo:
+            out[r, :, :, :hi - lo] = t[:, :, lo:hi]
+    return out
+
+
+def heads_of_blocks(cfg: ModelConfig, recv, tp: int):
+    """This rank's sequence block of every kv head from what each rank
+    sent it, recv (tp, L, B, S_l, Hl, dh) in rank order: each kv head
+    taken from its first owner (``kv_owners``).  Returns a contiguous
+    (L, B, S_l, Hkv, dh)."""
+    _, L, B, S_l, Hl, dh = recv.shape
+    flat = recv.permute(1, 2, 3, 0, 4, 5).reshape(L, B, S_l, tp * Hl, dh)
+    own = [r * Hl + i for r, i in kv_owners(cfg, tp)]
+    if own == list(range(tp * Hl)):         # every kv head held once
+        return flat.contiguous()
+    return flat.index_select(3, torch.tensor(own, device=recv.device))
+
+
+def _to_decode_layout(cfg: ModelConfig, t, model, max_len: int):
+    """Heads to sequence: each rank's K or V of its kv heads over every
+    position (L, B, S, Hl, dh) to its sequence shard of every kv head,
+    (L, B, max_len / tp, Hkv, dh): one all-to-all over the model group of
+    ``seq_blocks``, then ``heads_of_blocks``."""
+    recv = model.all_to_all(seq_blocks(t, model.size, max_len))
+    return heads_of_blocks(cfg, recv, model.size)
+
+
+def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths,
+                       comm=LOCAL):
     """One decode step: tokens (B,), lengths (B,) -> (raw next-token
     logits (B, V) fp32, cache).  Writes each row's new K/V (MLA: c_kv and
     k_rope) at ``lengths`` in place (dropped for rows at or past the cache
@@ -1112,8 +1310,16 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths):
     state advances too, and its tokens are discarded, as in the JAX
     scan).  The encoder-decoder adds sinusoid positions at ``lengths``
     and reads its cross-attention cache; Pixtral's ``lengths`` count its
-    patches."""
+    patches.  The dense and MoE decoders with GQA attention run
+    ``_decode_shard_logits`` over ``comm``: on the multi-GPU path one
+    rank's step in the decode regime, its logits its vocabulary shard (B,
+    V / tp); in groups of one (``LOCAL``) the one-device step.  Over a
+    model group of more than one rank, or one whose collectives are sent,
+    the other families raise (``check_servable``)."""
     check_model(cfg)
+    if _serves_split(cfg) or not comm.model.trivial:
+        return _decode_shard_logits(cfg, params, cache, tokens, lengths,
+                                    comm.model)
     h = _embed_tokens(cfg, params, tokens[:, None])
     if cfg.family == "audio":
         h = h + layers.sinusoid_pos(lengths[:, None], cfg.d_model, h.dtype)
@@ -1166,10 +1372,84 @@ def head_logits(cfg: ModelConfig, params, h):
     return logits_fn(cfg, params, h)[:, 0, :]
 
 
-def decode_step(cfg: ModelConfig, params, cache, tokens, lengths):
-    """One greedy decode step -> (next tokens (B,) int32, cache)."""
-    logits, cache = decode_step_logits(cfg, params, cache, tokens, lengths)
-    return torch.argmax(logits, dim=-1).to(torch.int32), cache
+def decode_step(cfg: ModelConfig, params, cache, tokens, lengths,
+                comm=LOCAL):
+    """One greedy decode step -> (next tokens (B,) int32, cache).  Over
+    ``comm`` the argmax of the ranks' vocabulary shards
+    (``argmax_shards``)."""
+    logits, cache = decode_step_logits(cfg, params, cache, tokens, lengths,
+                                       comm)
+    if comm.model.trivial:
+        return torch.argmax(logits, dim=-1).to(torch.int32), cache
+    return argmax_shards(logits, comm.model), cache
+
+
+def _decode_layer_shard(cfg, p, h, c, lengths, tab, model):
+    """One layer's decode step on rank ``model.rank`` of the decode
+    regime, h (B, 1, D): RMSNorm and q, k, v of every head (the attention
+    weights replicated); the new K/V written at ``lengths`` by the rank
+    whose shard of S_l positions holds it (``cache_update`` drops the
+    others' writes, and a finished row's at ``lengths`` = S on every
+    rank: the reference's ``_cache_update_dus``); the rank's shard
+    attention (``layers.decode_attention_shard``, RoPE at the global
+    positions) merged over the group (``layers.merge_shards``: an
+    all-reduce of the lse's max and one of the weighted sums); ``wo``;
+    the rank's experts or MLP columns (``ffn_share``, the MoE's aux
+    dropped) all-reduced."""
+    m, tp = model.rank, model.size
+    xn = layers.apply_norm(cfg, p["ln1"], h)
+    q, k, v = layers.attention_qkv(cfg, p["attn"], xn, lengths[:, None],
+                                   rope_tab=tab)
+    S_l = c["k"].shape[1]
+    layers.cache_update(c["k"], k, lengths - m * S_l)
+    layers.cache_update(c["v"], v, lengths - m * S_l)
+    o, lse = layers.decode_attention_shard(q, c["k"], c["v"], lengths + 1,
+                                           m, S_l, softcap=cfg.logit_softcap)
+    o = layers.merge_shards(o, lse, model)
+    h = h + layers._merge_heads(o, p["attn"]["wo"])
+    return h + model.all_reduce(ffn_share(cfg, p, h, m, tp)[0])
+
+
+def _decode_shard_logits(cfg: ModelConfig, params, cache, tokens, lengths,
+                         model):
+    """Rank ``model.rank``'s decode step in the decode regime (the port's
+    ``serve_step`` body): ``params`` its slices under ``param_specs(...,
+    "decode")``, ``cache`` its sequence shard {"k", "v"} of (L, B, S_l,
+    Hkv, dh) (``distributed/sharding.py::cache_specs``), tokens and
+    lengths its rows.  The embedding over its vocabulary rows reduced, each
+    layer ``_decode_layer_shard``, the final norm and its ``lm_head``
+    columns.  Returns (its logits' vocabulary shard (B, V / tp) fp32,
+    cache updated in place).  Collectives: 1 + 3 L all-reduces; in a
+    trivial group none (``merge_shards`` returns the one shard's output),
+    and the one-device step."""
+    check_servable(cfg, model.size, "decode")
+    h = model.all_reduce(embed_share(cfg, params, tokens[:, None],
+                                     model.rank, model.size))
+    tab = layers.rope_tables(lengths[:, None], layers.rope_dim(cfg),
+                             cfg.rope_theta)
+    for i, p in enumerate(_per_layer(params)):
+        h = _decode_layer_shard(cfg, p, h, {k: t[i] for k, t in
+                                            cache.items()}, lengths, tab,
+                                model)
+    return head_logits(cfg, params, h), cache
+
+
+def argmax_shards(logits, model):
+    """The greedy token of each row from the ranks' vocabulary shards of
+    its logits, logits (B, V / tp) on rank m holding columns [m V/tp,
+    (m+1) V/tp): each rank's (max logit, its global index) all-gathered
+    (one all-gather of (tp, B, 2) fp32, not of the logits), then the
+    greatest value, the lowest index on ties (the first rank, and within
+    it ``torch.argmax``'s first), as ``torch.argmax`` and ``jnp.argmax``
+    over the whole row pick.  Returns (B,) int32."""
+    Vl = logits.shape[-1]
+    idx = torch.argmax(logits, dim=-1)
+    val = torch.gather(logits, -1, idx[:, None])[:, 0].float()
+    # indices below 2^24 are exact in fp32
+    pair = torch.stack([val, (idx + model.rank * Vl).float()], dim=-1)
+    every = model.all_gather(pair[None])                   # (tp, B, 2)
+    best = torch.argmax(every[..., 0], dim=0)
+    return torch.gather(every[..., 1], 0, best[None])[0].to(torch.int32)
 
 
 def pack_logprob_block(tokens, logits, lp_k: int):

@@ -585,6 +585,33 @@ def test_paged_is_deterministic_and_routes_count(dev, dtype):
     assert kernels.launches()["paged_attention"] == 2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("H,Hkv,D,S", [(32, 8, 64, 2048), (32, 4, 128, 512),
+                                       (8, 8, 64, 96), (14, 2, 32, 64)])
+def test_paged_lse_matches_plain(dev, dtype, H, Hkv, D, S):
+    """The kernel's log-sum-exp output (the decode regime's shard
+    statistics) against the plain version's, length-0 rows -1e30 (fp32
+    atol 1e-4, bf16 atol 1e-3, rtol 1e-4: the sums' order); the output
+    equal in bits to the launch without it."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q, kp, vp, table = _paged_dense(gen, 6, S, H, Hkv, D, dtype, dev)
+    lengths = torch.tensor([0, 1, S // 3, S - 1, S, 0], dtype=torch.int32,
+                           device=dev)
+    lse = torch.full((6, H), 7.0, device=dev)
+    got = paged_attention(q, kp, vp, table, lengths, lse)
+    want_lse = torch.empty_like(lse)
+    want = paged_attention_plain(q, kp, vp, table, lengths, want_lse)
+    torch.cuda.synchronize()
+    assert torch.equal(got, paged_attention(q, kp, vp, table, lengths))
+    _close(got, want, dtype)
+    tol = 1e-4 if dtype == torch.float32 else 1e-3
+    assert torch.allclose(lse, want_lse, atol=tol, rtol=1e-4)
+    assert (lse[lengths == 0] == pa_ops.NEG).all()
+    with pytest.raises(ValueError, match="lse"):
+        paged_attention(q, kp, vp, table, lengths, lse[:, :-1])
+
+
 def test_paged_rejects_a_misaligned_pool(dev):
     """K/V rows arrive by 16-byte cp.async: a contiguous pool view that
     starts 2 bytes in raises before any launch."""
@@ -2053,3 +2080,78 @@ def test_sharded_training_over_every_card(dev, arch, dp, tmp_path):
     assert max(gaps["gnorm"][1:]) <= b["gnorm"], gaps
     assert gaps["moved"][0] <= b["moved0"], gaps
     assert max(gaps["moved"][1:]) <= b["moved"], gaps
+
+
+# Bound of the first decode step's logits over every card against one
+# card's, relative to their largest magnitude (fp32, Llama-3.2-1B at
+# every published width, 2 layers), from the readings of four H100s
+# (PERF.md: 2.76e-6 over (1, 4), 2.43e-6 over (2, 2)) with a margin of
+# ten: the sums' order moves a logit by a few ulps of the largest; a
+# shard merged with a wrong weight or a stale position moves it by the
+# value's scale
+SERVING_LOGITS_BOUND = 3e-5
+
+
+def _serve_record(args, path, nproc=0, timeout=600):
+    """What ``tests/torch_serve_worker.py`` saves: one process, or
+    ``nproc`` under ``torch.distributed.run``."""
+    import os
+    import subprocess
+    import sys
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src"))
+    cmd = [sys.executable]
+    if nproc:
+        cmd += ["-m", "torch.distributed.run", "--standalone",
+                f"--nproc-per-node={nproc}"]
+    cmd += [str(here / "torch_serve_worker.py"), str(path)] + args
+    out = subprocess.run(cmd, env=env, timeout=timeout, capture_output=True,
+                         text=True)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    return torch.load(path)
+
+
+def test_sharded_serving_over_every_card(dev, tmp_path):
+    """``build_cell``'s prefill and decode cells over every card of the
+    machine (NCCL, ``tests/torch_serve_worker.py`` under torchrun): fp32
+    Llama-3.2-1B at every published width with 2 layers, 4 prompts of 1024
+    tokens into a cache of 4096, then 16 greedy steps, over (1, cards)
+    (the cache's sequence over every card) and (2, cards / 2), against the
+    one-device ``prefill`` and ``decode_step`` on one card: every token
+    equal, the first step's logits within ``SERVING_LOGITS_BOUND`` of
+    their scale.  With four cards or more it then reads the bf16 decode
+    cell at its real size over (1, cards): Llama-3.2-1B at full depth at
+    ``decode_32k`` (B 128 x 32768, 34.4 GB of cache a rank at four) and
+    Qwen3-30B-A3B at full depth (48 layers) at B 32 x 32768, 16 steps
+    each: ms a step, tokens/s, peaks and one step's collectives, printed
+    as one JSON line each.  Skips with fewer than two cards."""
+    import json
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards (has {n})")
+    want = _serve_record([], tmp_path / "one.pt")
+    scale = want["logits0"].abs().max().item()
+    gaps = {}
+    for data in (1, 2):
+        got = _serve_record(["--data", str(data)], tmp_path / f"d{data}.pt",
+                            nproc=n)
+        gaps[f"({data}, {n // data})"] = dict(
+            tokens_equal=bool(torch.equal(got["tokens"], want["tokens"])),
+            logits_gap=(got["logits0"] - want["logits0"]).abs().max().item()
+            / scale)
+    print(json.dumps({"sharded_serving": {"cards": n, "gaps": gaps}}))
+    for g in gaps.values():
+        assert g["tokens_equal"], gaps
+        assert g["logits_gap"] <= SERVING_LOGITS_BOUND, gaps
+    if n < 4:
+        return
+    for arch, layers, B in (("llama3_2_1b", 0, 128),
+                            ("qwen3_moe_30b", 0, 32)):
+        rec = _serve_record(["--mode", "bench", "--arch", arch, "--layers",
+                             str(layers), "--dtype", "bfloat16", "--batch",
+                             str(B), "--seq", "32768"],
+                            tmp_path / f"{arch}.pt", nproc=n)
+        print(json.dumps({"sharded_serving_bf16": rec}))
+        assert rec["final_lengths_ok"]
+        assert rec["paged_launches_by_route"]["simt"] == 0
+        assert rec["paged_launches_by_route"]["mma"] == 16 * rec["layers"]

@@ -48,7 +48,7 @@ def test_every_cell_is_recorded(records):
                          .read_text())
     assert on_disk["status"] == "ok" and on_disk["runs"] is True
     assert _rec(recs, "llama3_2_1b.long_500k.multi")["status"] == "skipped"
-    assert _rec(recs, "llama3_2_1b.decode_32k.single")["runs"] is False
+    assert _rec(recs, "llama3_2_1b.decode_32k.single")["runs"] is True
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen3_moe_30b"])
@@ -110,14 +110,24 @@ def test_the_peak_while_drawing_the_weights(records, arch):
 
 
 def test_serving_cells_reckon_the_cache(records):
+    """Each serving cell of Llama-3.2-1B and Qwen3-30B-A3B runs
+    (``build_cell`` takes it) and reckons k and v of (L, B / data, S / 8,
+    Hkv, dh) in bf16 a rank, no gradients; the decode regime replicates
+    the attention weights, so its parameters outweigh the prefill's."""
     _, recs = records
-    rec = _rec(recs, "llama3_2_1b.decode_32k.single")
-    cfg = get_config("llama3_2_1b")
-    # k and v of (L, B/16, S/8, Hkv, dh) in bf16
-    want = 2 * cfg.num_layers * (128 // 16) * (32768 // 8) \
-        * cfg.num_kv_heads * cfg.head_dim * 2
-    assert rec["per_rank_bytes"]["cache"] == want
-    assert rec["per_rank_bytes"]["gradients"] == 0
+    for arch in ("llama3_2_1b", "qwen3_moe_30b"):
+        cfg = get_config(arch)
+        for shape, B in (("decode_32k", 128), ("prefill_32k", 32)):
+            for mesh, data in (("single", 16), ("multi", 32)):
+                rec = _rec(recs, f"{arch}.{shape}.{mesh}")
+                assert rec["status"] == "ok" and rec["runs"] is True, rec
+                want = 2 * cfg.num_layers * (B // data) * (32768 // 8) \
+                    * cfg.num_kv_heads * cfg.head_dim * 2
+                assert rec["per_rank_bytes"]["cache"] == want
+                assert rec["per_rank_bytes"]["gradients"] == 0
+        dec = _rec(recs, f"{arch}.decode_32k.single")["per_rank_bytes"]
+        pre = _rec(recs, f"{arch}.prefill_32k.single")["per_rank_bytes"]
+        assert dec["parameters"] > pre["parameters"]
 
 
 def _leaves(tree):

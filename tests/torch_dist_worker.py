@@ -1,4 +1,5 @@
-"""One rank of ``test_torch_distributed.py``'s process groups.
+"""One rank of the process groups of ``test_torch_distributed.py`` and
+``test_torch_decode_regime.py``.
 
     python tests/torch_dist_worker.py RANK WORLD [POD,]DATA,MODEL INIT_FILE IN OUT
 
@@ -172,8 +173,67 @@ def task_train(mesh, job):
     return out
 
 
+def _events():
+    """(kind, count) of the collectives recorded since the last reset,
+    groups of one included."""
+    out = {}
+    for kind, _, _ in C.EVENTS:
+        out[kind] = out.get(kind, 0) + 1
+    return out
+
+
+def task_serve(mesh, job):
+    """``build_cell``'s prefill cell on the global prompts, then ``steps``
+    decode-cell steps from its cache: the prefill logits of this rank's
+    rows, the cache gathered from every rank (``gather_cache``) after the
+    prefill and after the last step (and whether ``shard_cache`` cuts the
+    gathered cache back into this rank's, each leaf contiguous), the first step's logits (gathered
+    over the model group) and each step's tokens of this rank's rows, and
+    the collectives of the prefill and of each step."""
+    cfg = config(job["arch"], job.get("over"))
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    toks = _t(job["tokens"])
+    B, S = toks.shape
+    n = job["max_len"]
+    pc = steps.build_cell(job["arch"], "prefill_32k", mesh, batch_seq=(B, S),
+                          over=over, max_len=n)
+    dc = steps.build_cell(job["arch"], "decode_32k", mesh, batch_seq=(B, n),
+                          over=over)
+    full = _t(job["params"])
+    pp = shd.shard_params(full, pc.param_specs, mesh)
+    dp = shd.shard_params(full, dc.param_specs, mesh)
+    C.reset_events()
+    logits, cache = pc.step(pp, {"tokens": toks})
+    out = {"prefill_events": _events(), "prefill_logits": _np(logits),
+           "cache_shape": {k: tuple(t.shape) for k, t in cache.items()}}
+    whole = shd.gather_cache(cache, dc.cache_specs, mesh)
+    out["cache0"] = _np(whole)
+    recut = shd.shard_cache(whole, dc.cache_specs, mesh)
+    out["recut_equal"] = all(torch.equal(recut[k], t) and
+                             recut[k].is_contiguous()
+                             for k, t in cache.items())
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    lengths = torch.full(tok.shape, S, dtype=torch.int32)
+    model = mesh.comm.model
+    part, _ = T.decode_step_logits(cfg, dp, {k: t.clone() for k, t in
+                                             cache.items()}, tok, lengths,
+                                   mesh.comm)
+    every = model.all_gather(part[None])
+    out["step0_logits"] = _np(every.permute(1, 0, 2).reshape(
+        part.shape[0], -1))
+    out["tokens"], out["step_events"] = [tok.numpy()], []
+    for _ in range(job["steps"]):
+        C.reset_events()
+        tok, cache, lengths = dc.step(dp, cache, tok, lengths)
+        out["step_events"].append(_events())
+        out["tokens"].append(tok.numpy())
+    out["cache_end"] = _np(shd.gather_cache(cache, dc.cache_specs, mesh))
+    out["lengths"] = lengths.numpy()
+    return out
+
+
 TASKS = {"moe": task_moe, "layer": task_layer, "ce": task_ce,
-         "zero": task_zero, "train": task_train}
+         "zero": task_zero, "train": task_train, "serve": task_serve}
 
 
 def main(argv):
