@@ -443,6 +443,28 @@ result):
     whole cache's launch within TOL[bf16] (the merge rounds twice) and
     the plain version in fp32.  It prints ``{"multi_gpu_serving": ...}``.  Four cards:
     ``tests/test_torch_cuda.py::test_sharded_serving_over_every_card``.
+20. the rest of the training regimes on one card.  (a) ``build_cell``'s
+    ``fsdp`` cell (ZeRO-3) of SmolLM-360M in bf16 at every published width
+    with 8 of its 32 layers on an NCCL group of one, every collective sent
+    (each leaf gathered where it is read, again in the recompute, and its
+    gradient reduce-scattered), 3 steps of 4 x 4096: each loss and grad
+    norm equal in bits to the one-device ``train_step``'s, the gathers and
+    reduce-scatters a step as designed, every flash launch on wgmma.  (b)
+    The ``seq`` attention shares (q rows over the ranks, K/V of every
+    position) of one SmolLM-360M and one Qwen2-0.5B layer at tp 4, rank by
+    rank, B2 S4096 bf16: the rank sum's output at ``_scaled_tol`` of the
+    one-device sublayer and its gradients within TOL[bf16] of scale; the
+    check refuses a sum without the last rank and shares whose q
+    positions are not offset.  (c) Both flash kernels at each seq rank's
+    shape of SmolLM's B8 S4096 H15/5 D64 (1024 q rows at their offset
+    against 4096 keys) against their plain versions, timed alone, with
+    their bounds and SDPA's times under the rank's mask.  (d) Qwen2-0.5B's
+    prefill cell in the ``seq`` mode and its decode cell at full depth in
+    fp32 over 4 ranks run as threads on the card: the one-device tokens,
+    the collectives as designed.  It prints ``{"multi_gpu_seq_fsdp":
+    ...}``.  Four cards: ``tests/test_torch_cuda.py``'s ``smollm_seq`` and
+    ``smollm_fsdp`` training cases, Qwen2-0.5B in the serving case, and
+    ``test_seq_and_fsdp_bf16_readings_over_every_card``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -1026,7 +1048,7 @@ def _pairs(Sq, Skv, causal, window, q0=0):
     return int(torch.clamp(hi - lo, min=0).sum())
 
 
-def _flash_bwd_bound(q, k, v, causal=True, window=0):
+def _flash_bwd_bound(q, k, v, causal=True, window=0, q0=None):
     """(bound ms, bound_by, GFLOP, MB) of one backward call: q, k, v, out,
     dout and lse read once, dq, dk, dv written once, at the card's memory
     rate, against the products of the pairs the mask lets through (causal
@@ -1034,10 +1056,13 @@ def _flash_bwd_bound(q, k, v, causal=True, window=0):
     for the storage type: S = Q K^T (recomputed) and dK = dS^T Q, dQ = dS K
     over q/k's head dim Dqk, dP = dO V^T and dV = P^T dO over v's Dv, 2 (3
     Dqk + 2 Dv) a pair and head (2.5 times the forward's 2 (Dqk + Dv) where
-    Dqk = Dv)."""
+    Dqk = Dv).  The q rows sit at positions ``q0``.. (by default the last
+    Sq of the keys' when causal)."""
     B, Sq, H, D = q.shape
     Skv, Dv = k.shape[1], v.shape[3]
-    pairs = _pairs(Sq, Skv, causal, window, Skv - Sq if causal else 0)
+    if q0 is None:
+        q0 = Skv - Sq if causal else 0
+    pairs = _pairs(Sq, Skv, causal, window, q0)
     flops = 2.0 * (3 * D + 2 * Dv) * pairs * B * H
     nbytes = (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
               + 2 * B * Sq * H * Dv) * q.element_size() \
@@ -5769,6 +5794,615 @@ def _merge_rank_by_rank(dev, k, v, tp: int = 4):
                 without_last_shard_vs_whole=err_dropped)
 
 
+# --------------------------------------------------------------- phase 20
+SEQ_TP = 4
+# (a): SmolLM-360M's depth cut and batch for the fsdp step on a group of one
+FSDP_LAYERS, FSDP_BATCH, FSDP_STEPS = 8, (4, 4096), 3
+# (b): one layer, B2 S4096
+SEQ_SHARE_BATCH = (2, 4096)
+# (c): the seq ranks' flash shapes, phase 3's SmolLM B8 S4096 H15/5 D64
+SEQ_FLASH = (8, 4096, 15, 5, 64)
+# (d): Qwen2-0.5B fp32 prompts x tokens, the cache's positions, steps
+SEQ_SERVE = (4, 2048, 4096, 8)
+
+
+def _expect_launches(path, used, want, plain, routes=()):
+    """The path launched each kernel of ``want`` as many times as it
+    says and no other, called no plain version (``plain``, a
+    ``_PlainCalls``), and each (name, launches by route, route) of
+    ``routes`` took that route every time."""
+    got = {k: n for k, n in used.items() if n}
+    off = [(name, r) for name, r, route in routes
+           if r.get(route, 0) != want.get(name, 0)]
+    if got != want or off or any(plain.calls.values()):
+        raise AssertionError(f"{path}: launches {got}, expected {want}; "
+                             f"by route {off}; plain versions called "
+                             f"{plain.calls}")
+
+
+def _sent(mesh):
+    """``mesh`` with every group's collectives sent (``skip_one=False``)."""
+    from repro_torch.distributed import collectives as C
+    return dataclasses.replace(mesh, comm=C.Comm(**{
+        f: dataclasses.replace(getattr(mesh.comm, f), skip_one=False)
+        for f in ("model", "data", "world")}))
+
+
+def _fsdp_design(cfg):
+    """The collectives of an fsdp step at remat on over a world whose
+    size divides every leaf's largest dim (one card's): each leaf
+    gathered where it is read (a layer's leaves twice: the recompute
+    gathers again) and its gradient reduce-scattered once; the label
+    count, the loss and the grad norm all-reduced."""
+    from repro_torch.models import transformer as T
+    shapes = T.param_shapes(cfg)
+    per_layer = sum(1 for _ in _leaves(shapes["layers"]))
+    top = sum(1 for k, v in shapes.items() if k != "layers"
+              for _ in (_leaves(v) if isinstance(v, dict) else [v]))
+    L = cfg.num_layers
+    return {"all-gather": top + 2 * L * per_layer,
+            "reduce-scatter": top + L * per_layer, "all-reduce": 3}
+
+
+def train_fsdp_path(dev):
+    """Phase 20 (a): ``build_cell``'s fsdp cell (ZeRO-3) of SmolLM-360M at
+    every published width, ``FSDP_LAYERS`` of its 32 layers, on an NCCL
+    group of one with every collective sent (``skip_one=False``: each
+    leaf's shard gathered where it is read and its gradient
+    reduce-scattered, through NCCL at world size 1), ``FSDP_STEPS`` steps
+    of ``FSDP_BATCH`` from seed 0 (lr 1e-3, remat): each loss and grad
+    norm equal in bits to the one-device ``train_step``'s on the same
+    weights and batches, each step's collectives as ``_fsdp_design``
+    predicts, every flash and flash-backward launch on wgmma, no plain
+    version.  Returns (launches of the fsdp steps, numbers)."""
+    import torch.distributed as dist
+
+    from repro_torch import optim
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.distributed import collectives as C
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention_bwd import ops as bwd_ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import build_cell, train_step
+    from repro_torch.models import transformer as T
+
+    L, (GB, S), steps = FSDP_LAYERS, FSDP_BATCH, FSDP_STEPS
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = _sent(mesh_lib.Mesh(("data", "model"), (1, 1))
+                     .realize("cuda"))
+        cell = build_cell("smollm_360m", "train_4k", mesh,
+                          batch_seq=(GB, S), over=dict(num_layers=L),
+                          train_regime="fsdp",
+                          opt_cfg=optim.AdamWConfig(lr=1e-3))
+        cfg = cell.cfg
+        stream = SyntheticLMStream(DataConfig(
+            global_batch=GB, seq_len=S, vocab_size=cfg.vocab_size, seed=0))
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in stream.batch_at(i).items()}
+                   for i in range(steps)]
+        # the one-device step
+        p0 = T.init_params(cfg, 0, dev)
+        o0 = optim.init_opt_state(p0)
+        ocfg0 = optim.AdamWConfig(lr=1e-3, zero1=False)
+        want_l, want_g, secs0 = [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = train_step(cfg, p0, o0, b, ocfg0)
+            want_l.append(out["loss"].item())
+            want_g.append(out["grad_norm"].item())
+            secs0.append(time.perf_counter() - t0)
+        del p0, o0
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the fsdp cell, every collective sent
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, opt = cell.init_state(0, dev)
+        reset_counts()
+        plain = _PlainCalls()
+        losses, gnorms, secs, events, wire = [], [], [], [], []
+        try:
+            for b in batches:
+                C.reset_events()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = cell.step(params, opt, b)
+                losses.append(out["loss"].item())
+                gnorms.append(out["grad_norm"].item())
+                secs.append(time.perf_counter() - t0)
+                events.append(_kinds(C.EVENTS))
+                wire.append(sum(n for _, n, _ in C.EVENTS))
+        finally:
+            plain.restore()
+        used = kernels_launches()
+        routes = (dict(ops.ROUTE_LAUNCHES), dict(bwd_ops.ROUTE_LAUNCHES))
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        C.reset_events()
+        del params, opt
+    finally:
+        dist.destroy_process_group()
+    design = _fsdp_design(cfg)
+    _expect_launches("phase 20 (a)", used, {
+        "flash_attention": 2 * L * steps, "flash_attention_bwd": L * steps},
+        plain, [("flash_attention", routes[0], "wgmma"),
+                ("flash_attention_bwd", routes[1], "wgmma")])
+    if losses != want_l or gnorms != want_g:
+        raise AssertionError(f"phase 20 (a): fsdp losses {losses}, grad "
+                             f"norms {gnorms}: not the one-device step's "
+                             f"bits ({want_l}, {want_g})")
+    if events != [design] * steps:
+        raise AssertionError(f"phase 20 (a): collectives {events}, the "
+                             f"design {design} a step")
+    step_s, one_s = statistics.median(secs[1:]), statistics.median(secs0[1:])
+    log(f"  phase 20 (a) SmolLM-360M bf16, {L} layers, {steps} steps of "
+        f"{GB} x {S} through build_cell's fsdp cell on an NCCL group of one, "
+        f"every collective sent: losses {losses} and grad norms {gnorms} "
+        f"equal the one-device step's bits; {events[0]} a step, as "
+        f"designed ({wire[0] / 1e6:.1f} MB raw); {step_s:.3f} s/step "
+        f"(one device {one_s:.3f}); peak {peak:.2f} GB; launches {used}, "
+        f"all on wgmma, no plain version")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return used, dict(losses=losses, grad_norms=gnorms, equal_bits=True,
+                      collectives_a_step=events[0], raw_mb_a_step=wire[0]
+                      / 1e6, step_s=step_s, one_device_step_s=one_s,
+                      step_secs=secs, one_device_step_secs=secs0,
+                      peak_gb=peak)
+
+
+def _seq_share_layer(dev, arch: str):
+    """Phase 20 (b) for ``arch``: one layer's attention sublayer at every
+    published width on ``SEQ_SHARE_BATCH``, bf16, forward and backward, on
+    one device and rank by rank at tp ``SEQ_TP`` in the ``seq`` mode
+    (``attention_share``: each rank's q rows against every key, the
+    attention leaves whole), the ranks' outputs and every gradient summed
+    in rank order in bf16 (what ``_train_layer``'s reduce and ``copy_in``
+    sum), held to the one-device sublayer: the output (each row from one
+    rank) at ``_scaled_tol``, the gradients of h and of every leaf (sums
+    of the ranks' bf16 partials, each rounded before the sum) within
+    TOL[bf16] of each tensor's scale (``_scaled_check``, as phase 18 (b)
+    holds its rank sums).  The output's check must refuse the sum without
+    the last rank's rows and shares whose q positions are not offset.  Attention biases are drawn (zeros at
+    ``init_params``).  Returns (launches, numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    tp, (B, S) = SEQ_TP, SEQ_SHARE_BATCH
+    if not T.seq_split(cfg, tp):
+        raise AssertionError(f"{arch}: its heads split over {tp}")
+    gen = torch.Generator(device=dev).manual_seed(20)
+    stack = T.init_params(cfg, 20, dev)["layers"]
+    p = _map_layer({k: stack[k] for k in ("ln1", "attn")}, lambda t: t[0])
+    del stack
+    for k in ("bq", "bk", "bv"):
+        if k in p["attn"]:
+            p["attn"][k] = _rand(gen, p["attn"][k].shape, torch.bfloat16,
+                                 dev) * 0.1
+    h0 = _rand(gen, (B, S, cfg.d_model), torch.bfloat16, dev)
+    up = _rand(gen, (B, S, cfg.d_model), torch.bfloat16, dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S)
+    tab = layers.rope_tables(pos, layers.rope_dim(cfg), cfg.rope_theta)
+
+    def req(tree):
+        return {k: req(v) if isinstance(v, dict) else
+                v.detach().requires_grad_(True) for k, v in tree.items()}
+
+    def run(ranks, n):
+        """The shares of ``ranks`` of ``n`` summed in bf16, and the
+        gradients of h and of each leaf (the ranks' parts summed)."""
+        h = h0.detach().requires_grad_(True)
+        locs = [req(p) for _ in ranks]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = None
+        for m, loc in zip(ranks, locs):
+            part = T.attention_share(cfg, loc, h, pos, tab, m, n)
+            out = part if out is None else out + part
+        leaves = [t for loc in locs for _, t in _paths_of(loc)]
+        grads = torch.autograd.grad((out.float() * up.float()).sum(),
+                                    [h] + leaves)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k = len(leaves) // len(locs)
+        summed = {}
+        for i, (path, _) in enumerate(_paths_of(p)):
+            for m in range(len(locs)):
+                g = grads[1 + m * k + i]
+                summed[path] = g if path not in summed else summed[path] + g
+        return out, grads[0], summed, secs
+
+    reset_counts()
+    plain = _PlainCalls()
+    try:
+        one, dh1, g1, one_s = run([0], 1)
+        out, dh, g, tp_s = run(range(tp), tp)
+        # wronged: the last rank's rows dropped; q positions from 0
+        parts_off = None
+        flash = layers.chunked_attention
+        layers.chunked_attention = lambda q, k, v, qp, kp, **kw: flash(
+            q, k, v, kp[:, :q.shape[1]], kp, **kw)
+        try:
+            with torch.no_grad():
+                parts_off = sum(T.attention_share(cfg, p, h0, pos, tab, m,
+                                                  tp) for m in range(tp))
+        finally:
+            layers.chunked_attention = flash
+        with torch.no_grad():
+            dropped = sum(T.attention_share(cfg, p, h0, pos, tab, m, tp)
+                          for m in range(tp - 1))
+    finally:
+        plain.restore()
+    used = kernels_launches()
+    tol = _scaled_tol(one, torch.bfloat16)
+    errs = {"out": _check(f"phase 20 (b) {arch} seq tp{tp} out", out, one,
+                          torch.bfloat16, tol),
+            "dh over scale": _scaled_check(f"phase 20 (b) {arch} seq tp{tp} "
+                                           f"dh", dh, dh1)}
+    for path, w in g1.items():
+        name = ".".join(path)
+        errs[f"d{name} over scale"] = _scaled_check(
+            f"phase 20 (b) {arch} seq tp{tp} d{name}", g[path], w)
+    wrong = {"without the last rank": _refuses_wrong(
+        f"phase 20 (b) {arch} seq tp{tp} out", one, dropped,
+        "sum without the last rank's rows", tol),
+        "q positions not offset": _refuses_wrong(
+        f"phase 20 (b) {arch} seq tp{tp} out", one, parts_off,
+        "shares whose q positions are not offset", tol)}
+    # forward: one device, the ranks, the wronged positions' ranks and all
+    # but the last rank; backward: one device and the ranks
+    _expect_launches(f"phase 20 (b) {arch}", used, {
+        "flash_attention": 1 + tp + tp + tp - 1,
+        "flash_attention_bwd": 1 + tp}, plain)
+    log(f"  phase 20 (b) {arch} attention at B{B} S{S}, seq mode over "
+        f"{tp} ranks ({[T.seq_rows(S, m, tp) for m in range(tp)]}): out, "
+        f"dh and {len(g1)} leaves' gradients within _scaled_tol; fwd + bwd "
+        f"one device {one_s * 1e3:.1f} ms, {tp} ranks in turn "
+        f"{tp_s * 1e3:.1f} ms (host clock)")
+    return used, dict(max_abs_err=errs, atol_out=tol["atol"],
+                      wronged_max_abs_err=wrong, one_device_ms=one_s * 1e3,
+                      ranks_in_turn_ms=tp_s * 1e3)
+
+
+def _sdpa_masked(timer, q, k, v, qp, kp, dout=None):
+    """SDPA on q (B, Sq, H, D) at positions qp against k, v at kp under
+    their causal mask as an explicit boolean ``attn_mask`` (GQA through
+    ``enable_gqa``, else K/V repeated to the q heads): the forward's ms,
+    or with ``dout`` the backward's (``autograd.grad`` of one call).  None
+    where every route refuses."""
+    mask = kp[0][None, :] <= qp[0][:, None]
+    G = q.shape[2] // k.shape[2]
+    for gqa in (True, False):
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(
+            dout is not None) for x in (
+            q, k if gqa else k.repeat_interleave(G, 2),
+            v if gqa else v.repeat_interleave(G, 2)))
+        try:
+            if dout is None:
+                with torch.no_grad():
+                    return timer(_sdpa(qt, kt, vt, attn_mask=mask)
+                                 if gqa else lambda: F.
+                                 scaled_dot_product_attention(
+                                     qt, kt, vt, attn_mask=mask))
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=gqa)
+            g = dout.transpose(1, 2)
+            return timer(lambda: torch.autograd.grad(
+                o, (qt, kt, vt), g, retain_graph=True), iters=10)
+        except RuntimeError as exc:
+            log(f"  sdpa with a mask (enable_gqa={gqa}) refuses "
+                f"Sq{q.shape[1]} Skv{k.shape[1]}: "
+                f"{str(exc).splitlines()[0][:160]}")
+    return None
+
+
+def seq_flash_ranks(dev):
+    """Phase 20 (c): both flash kernels at each seq rank's shape of
+    ``SEQ_FLASH`` (SmolLM-360M, B8 S4096 H15/5 D64 bf16, causal; rank m
+    of ``SEQ_TP`` the q rows [1024 m, 1024 (m+1)) at their positions
+    against all 4096 keys) against their plain versions (the forward at
+    ``_scaled_tol``, the backward at ``_grad_tol``; the keys past the
+    rank's last row get no gradient), timed through the wrapper (CUDA
+    events), alone (``Timer.kernel_ms``; the backward's three kernels
+    summed), the plain versions, SDPA with the rank's causal mask as a
+    boolean ``attn_mask`` (and for the last rank, whose mask is the
+    lower-right causal one, ``causal_lower_right``), and the bound (the
+    rank's pairs).  Returns {rank: numbers}."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_attention_bwd.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.launch.profile import KERNEL_ENTRIES
+    from repro_torch.launch.timing import Timer
+    from repro_torch.models import flash, transformer as T
+    timer = Timer(dev)
+    B, S, H, Hkv, D = SEQ_FLASH
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k = _rand(gen, (B, S, Hkv, D), torch.bfloat16, dev)
+    v = _rand(gen, (B, S, Hkv, D), torch.bfloat16, dev)
+    kp = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S) \
+        .contiguous()
+    out = {}
+    for m in range(SEQ_TP):
+        lo, hi = T.seq_rows(S, m, SEQ_TP)
+        tag = f"rank {m} rows [{lo}, {hi})"
+        q = _rand(gen, (B, hi - lo, H, D), torch.bfloat16, dev)
+        qp = kp[:, lo:hi].contiguous()
+        fwd = lambda: flash_attention(q, k, v, qp, kp)  # noqa: E731
+        want = flash_attention_plain(q, k, v, qp, kp)
+        e_fwd = _check(f"phase 20 (c) flash_attention {tag}", fwd(), want,
+                       torch.bfloat16, _scaled_tol(want, torch.bfloat16))
+        o, lse = flash.flash_attention(q, k, v, qp, kp, return_lse=True)
+        dout = _rand(gen, o.shape, torch.bfloat16, dev)
+        args = (q, k, v, qp, kp, o, lse, dout)
+        got = flash_attention_bwd(*args)
+        wants = flash_attention_bwd_plain(*args)
+        tol = _grad_tol(wants, torch.bfloat16)
+        e_bwd = [_check(f"phase 20 (c) flash_attention_bwd {tag} {name}", g,
+                        w, torch.bfloat16, tol)
+                 for g, w, name in zip(got, wants, ("dq", "dk", "dv"))]
+        if got[1][:, hi:].any() or got[2][:, hi:].any():
+            raise AssertionError(f"phase 20 (c) {tag}: keys past the rank's "
+                                 f"rows got a gradient")
+        bwd = lambda: flash_attention_bwd(*args)  # noqa: E731
+        b_fwd, by_fwd, _, _ = _flash_bound(q, k, v, qp, kp)
+        b_bwd, by_bwd, _, _ = _flash_bwd_bound(q, k, v, q0=lo)
+        row = dict(
+            fwd=dict(max_abs_err=e_fwd, ms=timer(fwd),
+                     alone_ms=timer.kernel_ms(
+                         fwd, KERNEL_ENTRIES["flash_attention"]),
+                     plain_ms=timer(lambda: flash_attention_plain(
+                         q, k, v, qp, kp), iters=2, warmup=1),
+                     bound_ms=b_fwd, bound_by=by_fwd,
+                     sdpa_mask_ms=_sdpa_masked(timer, q, k, v, qp, kp)),
+            bwd=dict(max_abs_err=max(e_bwd), ms=timer(bwd, iters=10),
+                     alone_ms=sum(timer.kernel_ms(bwd, (entry,), iters=10)
+                                  for entry in KERNEL_ENTRIES[
+                                      "flash_attention_bwd"]
+                                  if not entry.endswith("_simt")),
+                     plain_ms=timer(lambda: flash_attention_bwd_plain(
+                         *args), iters=2, warmup=1),
+                     bound_ms=b_bwd, bound_by=by_bwd,
+                     sdpa_mask_ms=_sdpa_masked(timer, q, k, v, qp, kp,
+                                               dout)))
+        if hi == S:
+            from torch.nn.attention.bias import causal_lower_right
+            qt = q.transpose(1, 2)
+            kt, vt = (x.transpose(1, 2).repeat_interleave(H // Hkv, 1)
+                      for x in (k, v))
+            row["fwd"]["sdpa_lower_right_ms"] = timer(
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=causal_lower_right(hi - lo, S)))
+        for d in ("fwd", "bwd"):
+            r = row[d]
+            log(f"  phase 20 (c) flash {d} {tag}: kernel {r['ms']:.4f} ms "
+                f"({r['alone_ms']:.4f} alone), plain {r['plain_ms']:.4f}, "
+                f"sdpa with the mask {r['sdpa_mask_ms']}, bound "
+                f"{r['bound_ms']:.4f} ({r['bound_by']})"
+                + (f", sdpa causal_lower_right "
+                   f"{r['sdpa_lower_right_ms']:.4f}"
+                   if "sdpa_lower_right_ms" in r else ""))
+        out[tag] = row
+        del got, wants, args, o, lse, dout
+    del timer
+    return out
+
+
+class _ThreadGroup:
+    """A model group of ``size`` ranks run as threads of one process on
+    one card (the serving cells' collectives, rank by rank with the
+    ranks in step): each collective puts the rank's tensor in its slot,
+    waits for every rank, and folds the slots in rank order; the calls
+    by kind are counted a rank."""
+
+    def __init__(self, size: int):
+        import threading
+        self.size, self.slots = size, [None] * size
+        self.barrier = threading.Barrier(size, timeout=300)
+        self.calls = [dict() for _ in range(size)]
+
+    def rank(self, m: int):
+        return _ThreadRank(self, m)
+
+
+class _ThreadRank:
+    trivial = False
+
+    def __init__(self, group, m):
+        self.group, self.rank, self.size = group, m, group.size
+
+    def _exchange(self, kind, x):
+        g = self.group
+        g.calls[self.rank][kind] = g.calls[self.rank].get(kind, 0) + 1
+        g.slots[self.rank] = x
+        g.barrier.wait()
+        xs = list(g.slots)
+        g.barrier.wait()
+        return xs
+
+    def all_reduce(self, x, op="sum"):
+        xs = self._exchange("all-reduce", x.detach())
+        r = xs[0]
+        for t in xs[1:]:
+            r = torch.maximum(r, t) if op == "max" else r + t
+        return r
+
+    def all_gather(self, x):
+        return torch.cat(self._exchange("all-gather", x.contiguous()), 0)
+
+
+def _in_threads(fns):
+    """Each of ``fns`` in a thread of its own; their results in order (the
+    first exception raised again, the others' barriers broken)."""
+    import threading
+    res, errs = [None] * len(fns), []
+
+    def run(i):
+        try:
+            res[i] = fns[i]()
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            errs.append(exc)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return res
+
+
+def serve_seq_path(dev):
+    """Phase 20 (d): Qwen2-0.5B's serving cells at every published width
+    and full depth, fp32, over a model group of ``SEQ_TP`` ranks run rank
+    by rank as threads on the card (``_ThreadGroup``): its 14 q heads do
+    not split over 4, so the prefill cell runs the ``seq`` mode (each
+    rank's q rows against every key, the cache's block of every kv head
+    kept without an all-to-all), then the decode cell's steps.  Prompts
+    and cache of ``SEQ_SERVE``; random weights from seed 0, each rank's
+    slices cut by ``shard_params``.  Every rank's tokens equal the
+    one-device ``prefill`` + ``decode_step``'s; the logits and the ranks'
+    cache blocks joined within TOL[fp32] of the one device's; each rank's
+    collectives as designed (a prefill 1 + 2 L all-reduces and an
+    all-gather, a step 1 + 3 L and one).  Returns (launches of the
+    cells, numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as T
+
+    B, S, n, steps = SEQ_SERVE
+    tp = SEQ_TP
+    cfg = dataclasses.replace(get_config("qwen2_0_5b"), dtype="float32")
+    L = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(22)
+    prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                            device=dev, dtype=torch.int32)
+    params = T.init_params(cfg, 0, dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits0, cache0 = T.prefill(cfg, params, prompts, max_len=n)
+    tok = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)
+    want = [tok]
+    for i in range(steps):
+        tok, cache0 = T.decode_step(cfg, params, cache0, tok, torch.full(
+            (B,), S + i, dtype=torch.int32, device=dev))
+        want.append(tok)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    group = _ThreadGroup(tp)
+    meshes = [mesh_lib.Mesh(("data", "model"), (1, tp), rank=m,
+                            comm=C.Comm(model=group.rank(m)))
+              for m in range(tp)]
+    pcs = [build_cell(cfg, "prefill_32k", mm, batch_seq=(B, S), max_len=n)
+           for mm in meshes]
+    dcs = [build_cell(cfg, "decode_32k", mm, batch_seq=(B, n))
+           for mm in meshes]
+    if pcs[0].note != "attention=seq":
+        raise AssertionError(f"phase 20 (d): {pcs[0].note}")
+    pp = [shd.shard_params(params, c.param_specs, c.mesh) for c in pcs]
+    dp = [shd.shard_params(params, c.param_specs, c.mesh) for c in dcs]
+    del params
+
+    def rank(m):
+        logits, cache = pcs[m].step(pp[m], {"tokens": prompts})
+        block = {k: t.clone() for k, t in cache.items()}
+        calls = dict(group.calls[m])
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+        toks = [tok]
+        for _ in range(steps):
+            tok, cache, lengths = dcs[m].step(dp[m], cache, tok, lengths)
+            toks.append(tok)
+        return logits, block, calls, torch.stack(toks)
+
+    reset_counts()
+    plain = _ServePlainCalls()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = _in_threads([lambda m=m: rank(m) for m in range(tp)])
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t0
+    finally:
+        plain.restore()
+    used = kernels_launches()
+    want = torch.stack(want)
+    for m, (logits, block, calls, toks) in enumerate(res):
+        if not torch.equal(toks, want):
+            raise AssertionError(f"phase 20 (d) rank {m}: tokens "
+                                 f"{toks[:, 0].tolist()} ... not the one "
+                                 f"device's {want[:, 0].tolist()} ...")
+        _check(f"phase 20 (d) rank {m} prefill logits", logits, logits0,
+               torch.float32)
+        prefill_calls = {"all-reduce": 1 + 2 * L, "all-gather": 1}
+        if calls != prefill_calls or group.calls[m] != {
+                "all-reduce": 1 + 2 * L + steps * (1 + 3 * L),
+                "all-gather": 1 + steps}:
+            raise AssertionError(f"phase 20 (d) rank {m}: collectives "
+                                 f"{calls} then {group.calls[m]}")
+    for name in ("k", "v"):
+        joined = torch.cat([r[1][name] for r in res], dim=2)
+        _check(f"phase 20 (d) the ranks' cache blocks joined, {name}",
+               joined[:, :, :S], cache0[name][:, :, :S], torch.float32)
+        if joined[:, :, S:].any():
+            raise AssertionError("phase 20 (d): cache past the prompt")
+    _expect_launches("phase 20 (d)", used, {
+        "flash_attention": L * tp, "paged_attention": L * steps * tp},
+        plain)
+    log(f"  phase 20 (d) Qwen2-0.5B fp32, {B} prompts of {S} into {n}, "
+        f"{steps} steps, the cells over {tp} ranks as threads (seq "
+        f"prefill): tokens equal the one device's; {res[0][2]} a prefill "
+        f"and {1 + 3 * L} all-reduces + 1 all-gather a step a rank; one "
+        f"device {one_s:.2f} s, the ranks {tp_s:.2f} s (host clock)")
+    del pp, dp, cache0, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return used, dict(tokens_equal=True, one_device_s=one_s,
+                      ranks_in_threads_s=tp_s, launches=used)
+
+
+def seq_fsdp_path(dev):
+    """Phase 20: (a) ``train_fsdp_path``, (b) ``_seq_share_layer`` of
+    SmolLM-360M and Qwen2-0.5B, (c) ``seq_flash_ranks``, (d)
+    ``serve_seq_path``.  Returns (launches of (a), (b) and (d), numbers)."""
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    used, stats = {}, {}
+
+    def add(u):
+        for name, k in u.items():
+            used[name] = used.get(name, 0) + k
+
+    u, stats["fsdp_step"] = train_fsdp_path(dev)
+    add(u)
+    for arch in ("smollm_360m", "qwen2_0_5b"):
+        u, stats[f"seq_share_{arch}"] = _seq_share_layer(dev, arch)
+        add(u)
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats["seq_flash_ranks"] = seq_flash_ranks(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    u, stats["seq_serving"] = serve_seq_path(dev)
+    add(u)
+    stats["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 20 took {stats['seconds']:.1f} s, peak device memory "
+        f"{stats['peak_gb']:.2f} GB")
+    return used, stats
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5941,17 +6575,28 @@ def main() -> int:
     print(json.dumps({"multi_gpu_serving": served_stats}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"== 20. the rest of the training regimes on one card: (a) "
+        f"build_cell's fsdp cell of SmolLM-360M bf16 ({FSDP_LAYERS} layers) "
+        f"on an NCCL group of one, every collective sent; (b) the seq "
+        f"attention shares of SmolLM-360M and Qwen2-0.5B at tp {SEQ_TP}, "
+        f"rank by rank; (c) both flash kernels at each seq rank's shape; "
+        f"(d) Qwen2-0.5B's seq prefill and decode cells over {SEQ_TP} "
+        f"ranks as threads")
+    seq_used, seq_stats = seq_fsdp_path(dev)
+    print(json.dumps({"multi_gpu_seq_fsdp": seq_stats}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm, "flash_attention_bwd": trained,
                          "moe_gemm_wgrad": moe_trained,
                          "ssd_scan_bwd": ssm_trained}.get(
             s["name"], greedy)[s["name"]]
-        # the launches of phases 15-19 added (the attention kernels; phase
+        # the launches of phases 15-20 added (the attention kernels; phase
         # 17's and 18's grouped GEMM and its weight gradient too)
         s["launches"] += sum(t.get(s["name"], 0) for t in (
             hybrid_trained, encdec_trained, mla_trained, sharded_trained,
-            tp8_used, served_used))
+            tp8_used, served_used, seq_used))
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

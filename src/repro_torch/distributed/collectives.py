@@ -21,8 +21,11 @@ of the transport on one card).
 The conjugate pairs of tensor parallelism are autograd functions over a
 group: ``Group.copy_in`` (identity forward, all-reduce backward: before
 a column-parallel product, and on a replicated weight whose gradient
-each rank holds only a part of) and ``Group.reduce_out`` (all-reduce
-forward, identity backward: after a row-parallel product).
+each rank holds only a part of; several tensors' gradients in one
+all-reduce) and ``Group.reduce_out`` (all-reduce forward, identity
+backward: after a row-parallel product).  The ``fsdp`` regime's
+``FsdpGather`` gathers a weight's shards where the model reads it
+(all-gather forward, reduce-scatter backward).
 
 The reduce-scatter is ``reduce_scatter_tensor`` (not
 ``reduce_scatter_single``, which torch 2.11 lacks).
@@ -167,11 +170,14 @@ class Group:
         dist.all_to_all_single(out, x, group=self.pg)
         return out
 
-    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
-        """Identity forward, all-reduce (sum) of the gradient backward."""
+    def copy_in(self, *xs: torch.Tensor):
+        """Identity forward, all-reduce (sum) of the gradient backward.
+        Given several tensors, returns them as a tuple and sums their
+        gradients in one all-reduce (of their flats concatenated)."""
         if self.trivial:
-            return x
-        return _CopyIn.apply(x, self)
+            return xs[0] if len(xs) == 1 else xs
+        out = _CopyIn.apply(self, *xs)
+        return out[0] if len(xs) == 1 else out
 
     def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
         """All-reduce (sum) forward, identity backward."""
@@ -182,13 +188,24 @@ class Group:
 
 class _CopyIn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, group, *xs):
         ctx.group = group
-        return x.view_as(x)
+        return tuple(x.view_as(x) for x in xs)
 
     @staticmethod
-    def backward(ctx, dy):
-        return ctx.group.all_reduce(dy), None
+    def backward(ctx, *dys):
+        if len(dys) == 1:
+            return None, ctx.group.all_reduce(dys[0])
+        dt = dys[0].dtype
+        for d in dys[1:]:
+            dt = torch.promote_types(dt, d.dtype)
+        s = ctx.group.all_reduce(torch.cat([d.reshape(-1).to(dt)
+                                            for d in dys]))
+        out, a = [], 0
+        for d in dys:
+            out.append(s[a:a + d.numel()].view_as(d).to(d.dtype))
+            a += d.numel()
+        return (None,) + tuple(out)
 
 
 class _ReduceOut(torch.autograd.Function):
@@ -201,6 +218,72 @@ class _ReduceOut(torch.autograd.Function):
         return dy, None
 
 
+class _Gather(torch.autograd.Function):
+    """A leaf's shard to the whole leaf: all-gather over ``group`` on dim
+    ``dim`` forward; backward the gradient reduce-scattered over
+    ``group`` on that dim, then all-reduced over ``rest`` (the ranks
+    that hold the same shard)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rest):
+        ctx.dim, ctx.group, ctx.rest = dim, group, rest
+        full = group.all_gather(x.movedim(dim, 0).contiguous())
+        return full.movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, dy):
+        g = ctx.group.reduce_scatter(dy.movedim(ctx.dim, 0).contiguous())
+        g = ctx.rest.all_reduce(g.movedim(0, ctx.dim).contiguous())
+        return g, None, None, None
+
+
+class FsdpGather:
+    """The ``fsdp`` regime's weights (ZeRO-3): each rank holds its shard
+    of every leaf under ``specs`` (``distributed/sharding.py::
+    param_specs(..., "fsdp")``) and the model gathers a leaf where it
+    reads it.  A leaf split over every mesh axis is gathered over the
+    world; one split over ``model`` alone (the fallback of ``_fsdp_rule``)
+    over the model group, its gradient then summed over the data group;
+    a replicated one is read as it is, its gradient summed over the
+    world (``Group.copy_in``).  ``groups`` is the mesh's ``Comm``."""
+
+    def __init__(self, specs, groups: "Comm"):
+        self.specs, self.groups = specs, groups
+
+    def _split(self, spec):
+        """(dim, gather group, group of the ranks holding the same shard)
+        of a spec; dim None for a replicated leaf."""
+        g = self.groups
+        for d, entry in enumerate(spec):
+            if entry is None:
+                continue
+            if entry == "model":
+                return d, g.model, g.data
+            return d, g.world, ONE
+        return None, ONE, g.world
+
+    def __call__(self, path, t: torch.Tensor) -> torch.Tensor:
+        """The whole leaf at ``path`` from this rank's shard ``t``, or of
+        a stacked leaf one layer's (``t`` one dim short of the spec,
+        whose leading entry is the layer axis), differentiable."""
+        sp = self.specs
+        for k in path:
+            sp = sp[k]
+        dim, group, rest = self._split(sp[len(sp) - t.dim():])
+        if dim is None:
+            return rest.copy_in(t)
+        if group.trivial and rest.trivial:
+            return t
+        return _Gather.apply(t, dim, group, rest)
+
+    def first_holder(self, spec) -> bool:
+        """Whether this rank is the first of the ranks that hold the same
+        shard of a leaf under ``spec`` (its gradient counts once in the
+        global norm)."""
+        _, _, rest = self._split(spec)
+        return rest.rank == 0
+
+
 ONE = Group("one")
 
 
@@ -210,10 +293,13 @@ class Comm:
     expert-parallel axis), ``data`` (every batch axis: ``pod`` and
     ``data`` flattened) and ``world``; world rank = data index x model
     size + model index, so the world group's order is the reference's
-    flat layout over ``(*batch, "model")``."""
+    flat layout over ``(*batch, "model")``.  In the ``fsdp`` regime
+    ``model`` is a group of one, ``data`` the world, and ``fsdp`` the
+    ``FsdpGather`` of the rank's weight shards (None elsewhere)."""
     model: Group = ONE
     data: Group = ONE
     world: Group = ONE
+    fsdp: Optional[FsdpGather] = None
 
     @property
     def tp(self) -> int:

@@ -31,8 +31,6 @@ import torch
 from repro_torch.models import transformer as T
 from repro_torch.models.api import MeshAxes, ModelConfig
 
-STACKS = ("layers", "units", "tail", "enc_layers")
-
 
 def _div(n, tp):
     return tp > 0 and n % tp == 0
@@ -61,7 +59,7 @@ def param_specs(cfg: ModelConfig, axes: MeshAxes, tp: int, regime: str,
     all_ax = axis_entry(axes.batch + ((M,) if M else ()))
 
     def rule(names, spec):
-        stacked = names[0] in STACKS
+        stacked = names[0] in T.STACKS
         shape = spec[0][1:] if stacked else spec[0]
         if regime == "fsdp":
             sp = _fsdp_rule(shape, n_dev, all_ax, tp, M)

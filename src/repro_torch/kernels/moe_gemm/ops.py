@@ -46,7 +46,7 @@ zero rows.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -239,15 +239,17 @@ class DispatchPlan(NamedTuple):
 
 
 def dispatch_plan(expert_ids, num_experts: int, block_t: int,
-                  capacity: Optional[int] = None) -> DispatchPlan:
+                  capacity=None) -> DispatchPlan:
     """Plan the grouped GEMM's rows for flat choices ``expert_ids`` (N,) in
     [0, E].  With ``capacity`` C a choice whose rank among its expert's
     choices (in flat order) is >= C is dropped, as in
     ``repro.models.moe._moe_local``: the stable sort puts each expert's
     choices in flat order, so a choice's rank is its position in its
-    group and the kept ones are each group's first C.  A choice of id E
-    (an expert another rank holds, ``models/moe.py::_moe_shard_body``) is
-    dropped and takes no rank in any group."""
+    group and the kept ones are each group's first C.  ``capacity`` may
+    be an int or an (E,) tensor, one C an expert (the slots that earlier
+    ranks' choices left it, ``models/moe.py::_moe_shard_body``).  A
+    choice of id E (an expert another rank holds) is dropped and takes no
+    rank in any group."""
     ids = expert_ids.reshape(-1).long()
     N, E, dev = ids.numel(), num_experts, ids.device
     order = torch.argsort(ids, stable=True)
@@ -257,14 +259,18 @@ def dispatch_plan(expert_ids, num_experts: int, block_t: int,
     grp_start = torch.cumsum(counts, 0) - counts
     rank_sorted = torch.arange(N, device=dev) - grp_start[sid]
     counts = counts[:E]
-    kept = counts if capacity is None else counts.clamp(max=capacity)
+    sidc = sid.clamp(max=E - 1)
+    if isinstance(capacity, torch.Tensor):
+        kept = torch.minimum(counts, capacity)
+        capacity = capacity[sidc]
+    else:
+        kept = counts if capacity is None else counts.clamp(max=capacity)
     padded = (kept + block_t - 1) // block_t * block_t
     cum = torch.cumsum(padded, 0)
     rows = (-(-N // block_t) + E) * block_t        # static, as the reference
     keep_sorted = sid < E
     if capacity is not None:
         keep_sorted &= rank_sorted < capacity
-    sidc = sid.clamp(max=E - 1)
     dest_sorted = torch.where(keep_sorted, cum[sidc] - padded[sidc]
                               + rank_sorted, rows)
     dest = torch.empty_like(dest_sorted).scatter_(0, order, dest_sorted)

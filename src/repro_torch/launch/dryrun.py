@@ -28,9 +28,15 @@ measurements.  A serving cell reckons its parameters and cache only (no
 gradients, optimizer or batch beyond its tokens).  Each cell is one JSON
 file, as the reference's ``_save``; the run counts ok, skipped and
 failed cells and exits 1 on a failure.  ``runs`` says whether the
-port's ``build_cell`` takes the cell today: the train cells of the dense
-and MoE decoders whose q heads split, and the serving cells of the dense
-and MoE GQA decoders (a prefill's q heads split too).
+port's ``build_cell`` takes the cell today: the train and serving cells
+of the dense and MoE GQA decoders, their attention over the q heads or,
+where those do not split over ``model`` (SmolLM-360M's 15 and
+Qwen2-0.5B's 14 over 8), over the q positions (the ``seq`` mode).
+``collectives`` counts, by kind, what one rank sends a step as the
+port's design issues it (``design_collectives``): a prefill 1 + 2 L
+all-reduces and one all-gather, and in the ``heads`` mode two
+all-to-alls (the cache's re-layout), none in the ``seq`` mode.  The dry
+run stays in the ``tp`` and ``decode`` regimes, as the reference's does.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID|all]
         [--shape NAME|all] [--mesh single|multi|both] [--outdir DIR]
@@ -133,6 +139,8 @@ def reckon(arch: str, shape_name: str, mesh: mesh_lib.Mesh) -> Dict:
             out["cache"] += _local(t.shape, spec, sizes) * t.element_size()
     total = sum(out.values())
     init_peak = out["parameters"] + draw
+    leaves = list(_leaves(pspecs, pshapes))
+    split = sum(tp > 1 and optim._model_split(spec) for _, spec, _ in leaves)
     runs, why = True, ""
     try:
         steps.build_cell(arch, shape_name, mesh)
@@ -143,7 +151,61 @@ def reckon(arch: str, shape_name: str, mesh: mesh_lib.Mesh) -> Dict:
             "per_rank_parameters": n_params, "microbatches": n_mb,
             "fits_80gb": max(total, init_peak) < HBM_BYTES, "runs": runs,
             "why_not": why,
+            "collectives": design_collectives(cfg, shape.kind, tp, data, n_mb,
+                                              S, len(leaves), split),
             "note": shd.explain(cfg, tp)}
+
+
+# all-reduces a layer sends in a training microbatch over a model group,
+# at remat on: its row-parallel outputs (the attention's, the FFN's, an
+# MoE's aux) forward, the attention's again in the recompute (which stops
+# at the last saved tensor), and one a copy backward (the attention's
+# input with its whole leaves, the FFN's input, an MoE's router); a
+# cross-entropy chunk's three merges, again in the recompute, and its
+# input's copy
+AR_LAYER = {"dense": 2 + 1 + 2, "moe": 3 + 1 + 3}
+AR_CE_CHUNK = 3 + 3 + 1
+
+
+def design_collectives(cfg, kind: str, tp: int, data: int, n_mb: int,
+                       S: int, n_leaves: int, split: int) -> Dict[str, int]:
+    """The collectives one rank issues a step, by kind, as the port's
+    design predicts (groups of one send nothing).  A decode step: 1 + 3 L
+    all-reduces (the embedding; a layer's lse max, merged sum and FFN)
+    and the argmax's all-gather.  A prefill: 1 + 2 L all-reduces, the
+    logits' all-gather, and in the ``heads`` attention mode the cache's
+    two all-to-alls (the ``seq`` mode keeps its block).  A train step
+    (``tp`` regime): ``n_mb`` microbatches of the embedding's, ``AR_LAYER``
+    a layer's and ``AR_CE_CHUNK`` a chunk's all-reduces over the model
+    group, the label count a microbatch and the loss over the data group
+    and the grad norm over the world; ZeRO-1's reduce-scatter of each of
+    the ``n_leaves`` over the data group, and its all-gather of each
+    (over the data group the ``split`` leaves split over ``model``, over
+    the world the rest)."""
+    out: Dict[str, int] = {}
+
+    def add(k, n):
+        if n:
+            out[k] = out.get(k, 0) + n
+
+    L = cfg.num_layers
+    if tp > 1 and kind == "decode":
+        add("all-reduce", 1 + 3 * L)
+        add("all-gather", 1)
+    elif tp > 1 and kind == "prefill":
+        add("all-reduce", 1 + 2 * L)
+        add("all-gather", 1)
+        add("all-to-all", 0 if T.seq_split(cfg, tp) else 2)
+    elif kind == "train":
+        chunks = -(-S // T.CE_CHUNK)
+        per_layer = AR_LAYER["moe" if cfg.is_moe else "dense"]
+        add("all-reduce", (tp > 1) * n_mb * (1 + L * per_layer
+                                             + chunks * AR_CE_CHUNK))
+        add("all-reduce", (data > 1) * (n_mb + 1) + (tp * data > 1))
+        add("reduce-scatter", (data > 1) * n_leaves)
+        add("all-gather", (data > 1) * split
+            + (tp * data > 1) * (n_leaves - split))
+    return out
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool,

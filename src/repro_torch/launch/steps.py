@@ -22,8 +22,16 @@ of each kind of the reference's ``build_cell``:
   slices of the weights, whose ``local_batch`` takes this rank's rows of
   a global batch (microbatch j's data shard, as the reference's
   ``_mb_split`` keeps the DP shard on dim 1), and whose ``step`` runs
-  ``train_step`` over the realized mesh's groups.  ``train_regime=
-  "fsdp"`` raises, naming the ROADMAP item that queues it.
+  ``train_step`` over the realized mesh's groups.  Dense and MoE
+  decoders whose q heads do not split over ``model`` run their attention
+  in the ``seq`` mode (``transformer.attention_share``).
+  ``train_regime="fsdp"`` (the reference's ZeRO-3, ``_build_train``): the
+  whole mesh is the data-parallel world (``MeshAxes(batch=(*batch,
+  "model"), model=None)``), the batch splits over every rank in one
+  microbatch, ``param_specs(..., "fsdp")`` places each leaf's shards,
+  and the step runs the one-device trunk of every family on the leaves
+  gathered where they are read (``collectives.FsdpGather``), AdamW on
+  each rank's shards.
 * ``prefill`` (the reference's ``_build_prefill``): the ``tp`` regime's
   parameter specs and the decode cache's (``cache_specs``); a
   ``PrefillCell`` whose ``step(params, batch)`` runs ``transformer.
@@ -43,8 +51,9 @@ of each kind of the reference's ``build_cell``:
   same mesh, batch and ``max_len`` takes a prefill cell's cache as it is.
 
 The serving kinds take the dense and MoE decoders with GQA attention
-(``transformer.check_servable``); the other families raise, naming the
-ROADMAP item that queues them.
+(``transformer.check_servable``), a prefill in the ``seq`` mode where
+the q heads do not split; the other families raise, naming the ROADMAP
+item that queues them.
 """
 from __future__ import annotations
 
@@ -56,10 +65,11 @@ import torch
 from repro_torch import compat, optim
 from repro_torch.configs import get_config
 from repro_torch.distributed import sharding as shd
-from repro_torch.distributed.collectives import LOCAL
+from repro_torch.distributed.collectives import LOCAL, ONE, Comm, FsdpGather
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import transformer as T
-from repro_torch.models.api import SHAPES, ModelConfig, shape_applicable
+from repro_torch.models.api import (SHAPES, MeshAxes, ModelConfig,
+                                    shape_applicable)
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch, *, remat: bool = True,
@@ -165,10 +175,18 @@ class Cell:
     batch_specs: Dict[str, Any]
     ocfg: optim.AdamWConfig
     note: str = ""
+    regime: str = "tp"
 
     @property
     def comm(self):
-        return _comm(self.mesh)
+        """The mesh's groups; in the ``fsdp`` regime a model group of
+        one, the world as the data group, and the ``FsdpGather`` of this
+        rank's shards."""
+        comm = _comm(self.mesh)
+        if self.regime != "fsdp":
+            return comm
+        return Comm(model=ONE, data=comm.world, world=comm.world,
+                    fsdp=FsdpGather(self.param_specs, comm))
 
     def init_state(self, seed: int = 0, device=None) -> Tuple[Any, Any]:
         """(this rank's parameter slices, its optimizer parts):
@@ -186,7 +204,11 @@ class Cell:
         """This rank's rows of a global batch: for each key split on dim
         0, microbatch j's (rows [j b, (j+1) b)) data shard, microbatches
         in order; a key the batch specs replicate stays whole."""
-        return _rows(batch, self.batch_specs, self.mesh, self.microbatches)
+        if self.regime == "fsdp":
+            return _rows(batch, self.batch_specs, self.mesh.size,
+                         self.comm.world.rank)
+        return _rows(batch, self.batch_specs, mesh_lib.batch_extent(
+            self.mesh), _comm(self.mesh).data.rank, self.microbatches)
 
     def step(self, params, opt_state, batch, *, remat: bool = True):
         """One ``train_step`` of this rank on its rows of the global
@@ -204,10 +226,9 @@ def _comm(mesh):
     return mesh.comm
 
 
-def _rows(batch, specs, mesh, n: int = 1):
-    """``Cell.local_batch`` of ``n`` microbatches."""
-    d = mesh_lib.batch_extent(mesh)
-    c = _comm(mesh).data.rank
+def _rows(batch, specs, d: int, c: int, n: int = 1):
+    """``Cell.local_batch`` of ``n`` microbatches: data shard ``c`` of
+    ``d``."""
     out = {}
     for k, t in batch.items():
         if d == 1 or specs.get(k, (None,))[0] is None:
@@ -268,7 +289,8 @@ class ServeCell:
         """This rank's rows of a global batch (``tokens``, a decode's
         ``lengths``): each key split on dim 0 over the data ranks in their
         order; a key the batch specs replicate stays whole."""
-        return _rows(batch, self.batch_specs, self.mesh)
+        return _rows(batch, self.batch_specs, mesh_lib.batch_extent(
+            self.mesh), _comm(self.mesh).data.rank)
 
 
 class PrefillCell(ServeCell):
@@ -332,9 +354,6 @@ def _auto_microbatches(cfg, B, S, mesh_batch, floor, target=2 * 2**30):
     return n
 
 
-QUEUED = {"fsdp": "fsdp"}
-
-
 def build_cell(arch, shape_name: str, mesh: mesh_lib.Mesh, *,
                opt_cfg: Optional[optim.AdamWConfig] = None,
                microbatches: int = 4,
@@ -348,7 +367,8 @@ def build_cell(arch, shape_name: str, mesh: mesh_lib.Mesh, *,
     ``DecodeCell`` for the serving shapes.  ``batch_seq`` overrides the
     shape's (global batch, sequence) and ``over`` replaces config fields
     (a depth cut, ``num_layers``; a dtype); ``max_len`` is a prefill's
-    cache length (default the sequence, the reference's)."""
+    cache length (default the sequence, the reference's).
+    ``train_regime`` is a train cell's: "tp" or "fsdp"."""
     if isinstance(arch, ModelConfig):
         cfg, arch = arch, arch.name
     else:
@@ -361,16 +381,22 @@ def build_cell(arch, shape_name: str, mesh: mesh_lib.Mesh, *,
         raise ValueError(f"{arch} x {shape_name}: {why}")
     if shape.kind != "train":
         return _serve_cell(cfg, arch, shape, mesh, batch_seq, max_len)
-    if train_regime != "tp":
-        raise NotImplementedError(
-            f"{arch} x {shape_name} ({shape.kind}, regime {train_regime}) "
-            f"waits for {QUEUED[train_regime]} (ROADMAP Queue A, the "
-            f"multi-device path)")
+    if train_regime not in ("tp", "fsdp"):
+        raise ValueError(f"train_regime {train_regime!r}: 'tp' or 'fsdp'")
     axes = mesh_lib.mesh_axes(mesh)
     tp = mesh.shape["model"]
+    B, S = batch_seq or (shape.global_batch, shape.seq_len)
+    if train_regime == "fsdp":
+        # ZeRO-3: the whole mesh is the data-parallel world
+        T.check_trainable(cfg, 1)
+        axes = MeshAxes(batch=axes.batch + (axes.model,), model=None)
+        return Cell(arch, shape_name, cfg, mesh, B, S, 1,
+                    shd.param_specs(cfg, axes, tp, "fsdp", n_dev=mesh.size),
+                    shd.batch_specs(cfg, axes, B, mesh.size, "train"),
+                    opt_cfg or optim.AdamWConfig(),
+                    note=f"fsdp over {mesh.size} ranks", regime="fsdp")
     T.check_trainable(cfg, tp)
     mesh_batch = mesh_lib.batch_extent(mesh)
-    B, S = batch_seq or (shape.global_batch, shape.seq_len)
     n_mb = (exact_microbatches if exact_microbatches
             else _auto_microbatches(cfg, B, S, mesh_batch, microbatches))
     return Cell(arch, shape_name, cfg, mesh, B, S, n_mb,

@@ -60,6 +60,11 @@ Dense and MoE decoders whose q heads split over ``--tp``:
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3_2_1b \
         --reduced --device cpu --dtype float32 --tp 1
 
+``main(argv, regime="fsdp")`` (no flag: the reference reaches the
+regime only through ``build_cell``) trains the ``fsdp`` cell instead:
+ZeRO-3 over every rank, each leaf's shards gathered where the model
+reads it, every family.
+
 ``--layers`` cuts the depth (as ``chip_smoke.py``'s phases do).
 ``--sample-params PATH`` saves (``torch.save``, rank 0) each step's loss
 and grad norm and a fixed sample of the full parameters before the first
@@ -106,8 +111,10 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def main(argv: Optional[List[str]] = None) -> List[float]:
-    """Runs the loop; returns each step's loss."""
+def main(argv: Optional[List[str]] = None, regime: str = "tp"
+         ) -> List[float]:
+    """Runs the loop; returns each step's loss.  ``regime`` is the
+    multi-GPU path's train regime ("tp" or "fsdp")."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="smollm_360m")
     ap.add_argument("--reduced", action="store_true")
@@ -136,8 +143,9 @@ def main(argv: Optional[List[str]] = None) -> List[float]:
 
     dev = compat.resolve_device(args.device)
     cfg = _config(args)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or args.tp:
-        return _main_sharded(args, cfg, dev)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 or args.tp or \
+            regime != "tp":
+        return _main_sharded(args, cfg, dev, regime)
     T.check_trainable(cfg)
     params = T.init_params(cfg, args.seed, dev)
     ocfg = optim.AdamWConfig(lr=LR, zero1=False)
@@ -240,8 +248,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _main_sharded(args, base, dev) -> List[float]:
-    """The loop over a mesh of every rank of the process group."""
+def _main_sharded(args, base, dev, regime: str = "tp") -> List[float]:
+    """The loop over a mesh of every rank of the process group, in the
+    train ``regime``."""
     import torch.distributed as dist
 
     from repro_torch.distributed import collectives
@@ -270,7 +279,8 @@ def _main_sharded(args, base, dev) -> List[float]:
         cell = build_cell(base, "train_4k", mesh,
                           batch_seq=(args.batch, args.seq),
                           exact_microbatches=args.microbatches,
-                          opt_cfg=optim.AdamWConfig(lr=LR))
+                          opt_cfg=optim.AdamWConfig(lr=LR),
+                          train_regime=regime)
         cfg = cell.cfg
         params, opt = cell.init_state(args.seed, dev)
         stream = SyntheticLMStream(DataConfig(

@@ -327,23 +327,21 @@ def kv_heads_of_rank(cfg: ModelConfig, m: int, tp: int):
     return lo, lo + max(Hl // G, 1)
 
 
-def tp_attention_params(cfg: ModelConfig, p, m: int, tp: int,
-                        copy=lambda t: t):
+def tp_attention_params(cfg: ModelConfig, p, m: int, tp: int):
     """Rank ``m``'s attention leaves for ``attention_fwd``: ``p`` holds its
     q-head shard of ``wq`` / ``wo`` / ``bq``; kv leaves that split over
-    ``tp`` are its shard already, and replicated ones are sliced to
-    ``kv_heads_of_rank``, each after ``copy`` (the model group's
-    ``copy_in``: every rank holds a part of a replicated weight's
-    gradient)."""
+    ``tp`` are its shard already, and replicated ones (read through the
+    model group's ``copy_in`` by the caller: every rank holds a part of
+    their gradient) are sliced to ``kv_heads_of_rank``."""
     if cfg.num_kv_heads % tp == 0:
         return p
     lo, hi = kv_heads_of_rank(cfg, m, tp)
     out = dict(p)
     for name in ("wk", "wv"):
-        out[name] = copy(p[name])[:, lo:hi]
+        out[name] = p[name][:, lo:hi]
     for name in ("bk", "bv"):
         if name in p:
-            out[name] = copy(p[name])[lo:hi]
+            out[name] = p[name][lo:hi]
     return out
 
 

@@ -42,17 +42,23 @@ def expert_capacity(cfg: ModelConfig, tokens: int) -> int:
     return max(8, -(-c // 8) * 8)  # round up to 8, floor of 8 slots
 
 
-def _route_terms(cfg: ModelConfig, wg, xt):
-    """Router: (vals (T,k) fp32, ids (T,k) int64, the load-balance aux's
-    terms (E,) fp32, whose sum is the aux).  Top-k breaks ties to the
-    lowest expert id (``lax.top_k``'s rule; a stable descending sort,
-    since ``torch.topk`` leaves tie order open)."""
+def _router(cfg: ModelConfig, wg, xt):
+    """(vals (T,k) fp32, ids (T,k) int64, probs (T,E) fp32).  Top-k
+    breaks ties to the lowest expert id (``lax.top_k``'s rule; a stable
+    descending sort, since ``torch.topk`` leaves tie order open)."""
     logits = torch.matmul(xt.float(), wg)
     probs = torch.softmax(logits, dim=-1)
     k = cfg.experts_per_token
     vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
     vals, ids = vals[:, :k], ids[:, :k]
     vals = vals / torch.clamp_min(vals.sum(-1, keepdim=True), 1e-9)
+    return vals, ids, probs
+
+
+def _route_terms(cfg: ModelConfig, wg, xt):
+    """Router: (vals (T,k) fp32, ids (T,k) int64, the load-balance aux's
+    terms (E,) fp32, whose sum is the aux)."""
+    vals, ids, probs = _router(cfg, wg, xt)
     # Switch-style load-balance aux: E * sum_e f_e * p_e
     E = cfg.num_experts
     f = torch.zeros((E,), dtype=torch.float32, device=xt.device) \
@@ -62,13 +68,36 @@ def _route_terms(cfg: ModelConfig, wg, xt):
     return vals, ids, f * probs.mean(0)
 
 
+def _spread_route_terms(cfg: ModelConfig, wg, xt, route):
+    """``_route_terms`` of this rank's rows xt of a batch split in order
+    over the data group ``route`` (the ``fsdp`` regime, whose reference
+    routes the global batch as one ``_moe_local``): its choices are a
+    contiguous block of the global flat order, so one all-gather of each
+    rank's (E,) choice counts gives each expert's choices before this
+    rank's.  The terms are this rank's share of the global aux, E f_e
+    from the global counts times its rows' sum of p_e over the global
+    token count: they sum over the group (the caller's loss) to the
+    whole batch's.  Returns (vals, ids, terms, the earlier ranks' counts
+    (E,), the global token count)."""
+    vals, ids, probs = _router(cfg, wg, xt)
+    E, k = cfg.num_experts, cfg.experts_per_token
+    counts = torch.zeros((E,), dtype=torch.long, device=xt.device) \
+        .index_add_(0, ids.reshape(-1), torch.ones_like(ids.reshape(-1)))
+    every = route.all_gather(counts[None])             # (ranks, E)
+    T_all = xt.shape[0] * route.size
+    f = every.sum(0).float() / (T_all * k) * E
+    return (vals, ids, f * probs.sum(0) / T_all, every[:route.rank].sum(0),
+            T_all)
+
+
 def _route(cfg: ModelConfig, wg, xt):
     """Router: (vals (T,k) fp32, ids (T,k) int64, aux fp32 scalar)."""
     vals, ids, terms = _route_terms(cfg, wg, xt)
     return vals, ids, torch.sum(terms)
 
 
-def _moe_shard_body(cfg: ModelConfig, p, x, m: int = 0, tp: int = 1):
+def _moe_shard_body(cfg: ModelConfig, p, x, m: int = 0, tp: int = 1,
+                    route=None):
     """Rank ``m`` of ``tp``'s share of the capacity-bounded MoE,
     x (B, S, D) -> (partial (B, S, D), partial aux): the counterpart of
     ``repro.models.moe._moe_shard_body``.  ``p`` holds the router ``wg``
@@ -81,20 +110,33 @@ def _moe_shard_body(cfg: ModelConfig, p, x, m: int = 0, tp: int = 1):
     others as E/tp, dropped) drops what the reference drops.  The partial
     output sums the local experts' weighted outputs and the partial aux
     the local experts' terms: each sums over the ranks (the caller's
-    all-reduce) to the layer's.  At tp = 1 it is ``_moe_local``."""
+    all-reduce) to the layer's.  At tp = 1 it is ``_moe_local``.
+
+    With a non-trivial group ``route`` x is this rank's rows of a batch
+    split over the group in order, routed as the whole batch is
+    (``_spread_route_terms``): C counts every rank's tokens, expert e
+    keeps C less the earlier ranks' choices of e, and the partial aux is
+    this rank's share of the whole batch's."""
     B, S, D = x.shape
     xt = x.reshape(-1, D)
-    vals, ids, terms = _route_terms(cfg, p["wg"], xt)
     T, k, E = xt.shape[0], cfg.experts_per_token, cfg.num_experts
     El = E // tp
     lo = m * El
     if p["w1"].shape[0] != El:
         raise ValueError(f"_moe_shard_body: {p['w1'].shape[0]} local "
                          f"experts, {E}/{tp} expected")
+    if route is None or route.trivial:
+        vals, ids, terms = _route_terms(cfg, p["wg"], xt)
+        capacity = expert_capacity(cfg, T)
+    else:
+        vals, ids, terms, before, T_all = _spread_route_terms(
+            cfg, p["wg"], xt, route)
+        capacity = (expert_capacity(cfg, T_all)
+                    - before[lo:lo + El]).clamp(min=0)
     flat = ids.reshape(-1)
     local = torch.where((flat >= lo) & (flat < lo + El), flat - lo, El)
     plan = moe_ops.dispatch_plan(local, El, moe_ops.pick_block_t(T * k, E),
-                                 capacity=expert_capacity(cfg, T))
+                                 capacity=capacity)
     tok = torch.arange(T, device=x.device).repeat_interleave(k)
     y = moe_ops.grouped_ffn(moe_ops.gather_rows(xt, plan, tok), plan,
                             p["w1"], p["w3"], p["w2"],
@@ -112,12 +154,13 @@ def _moe_local(cfg: ModelConfig, p, x):
     return _moe_shard_body(cfg, p, x)
 
 
-def moe_fwd(cfg: ModelConfig, p, x, m: int = 0, tp: int = 1):
+def moe_fwd(cfg: ModelConfig, p, x, m: int = 0, tp: int = 1, route=None):
     """MoE with shared experts, x (B, S, D) -> ((B, S, D), aux); rank
     ``m`` of ``tp``'s partial (output, aux) over its experts
-    (``_moe_shard_body``) and its columns of the shared experts, which sum
-    over the ranks to the layer's."""
-    y, aux = _moe_shard_body(cfg, p, x, m, tp)
+    (``_moe_shard_body``, routed over the data group ``route`` where one
+    is given) and its columns of the shared experts, which sum over the
+    ranks to the layer's."""
+    y, aux = _moe_shard_body(cfg, p, x, m, tp, route)
     if cfg.num_shared_experts > 0:
         y = y + layers.mlp_fwd(cfg, p["shared"], x)
     return y, aux

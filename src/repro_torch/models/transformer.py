@@ -33,8 +33,11 @@ Over a ``distributed/collectives.py::Comm`` the dense and MoE decoders
 also train (``forward_loss``, the ``tp`` regime) and serve
 (``prefill`` in the ``tp`` regime, its cache handed over in the decode
 layout; ``decode_step`` in the decode regime over a sequence-split
-cache) as one rank of a mesh; in groups of one each is the one-device
-function, bit for bit.
+cache) as one rank of a mesh, their attention split over q heads or,
+where those do not split, over q positions (the ``seq`` mode,
+``_seq_share``); in the ``fsdp`` regime (``comm.fsdp``) every family
+trains, each rank on its shards gathered where they are read.  In
+groups of one each is the one-device function, bit for bit.
 
 A windowed prefill returns the reference's ring, min(window, S) slots
 (``_to_ring``); ``install_ring`` re-lays it into ``init_cache``'s ring of
@@ -211,6 +214,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
+# the top-level keys whose leaves stack the layers on a leading axis
+STACKS = ("layers", "enc_layers", "units", "tail")
+
+
 def _map_spec(spec, fn, path=()):
     if isinstance(spec, dict):
         return {k: _map_spec(v, fn, path + (k,)) for k, v in spec.items()}
@@ -263,7 +270,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None, *,
                 .contiguous()
         if scale == "lam":
             return rglru.lam_init(shape, gen, dev)[sl].to(dt).contiguous()
-        if path[0] not in ("layers", "enc_layers", "units", "tail"):
+        if path[0] not in STACKS:
             return draw(shape, scale, dt)[sl].contiguous()
         out = torch.empty(local, dtype=dt, device=dev)
         experts = path[-2] == "moe" and len(shape) == 4   # (L, E, ., .)
@@ -484,8 +491,24 @@ def install_cache(cfg: ModelConfig, dst, src):
     return dst
 
 
-def _same(t):
-    return t
+def _same(*ts):
+    return ts[0] if len(ts) == 1 else ts
+
+
+def seq_split(cfg: ModelConfig, tp: int) -> bool:
+    """Whether attention over ``tp`` ranks runs in the ``seq`` mode
+    (``distributed/sharding.py::attention_mode``): the q heads do not
+    split over them."""
+    return tp > 1 and cfg.num_heads % tp != 0
+
+
+def seq_rows(S: int, m: int, tp: int) -> Tuple[int, int]:
+    """The q rows [lo, hi) of rank ``m`` of ``tp`` in the ``seq`` mode:
+    the reference's contiguous ``P(batch, model, None, None)`` split,
+    ceil(S / tp) rows a rank (the last ranks' fewer or none when S does
+    not split)."""
+    c = -(-S // tp)
+    return min(S, m * c), min(S, (m + 1) * c)
 
 
 def attention_share(cfg: ModelConfig, p, h, positions, tab, m: int = 0,
@@ -499,27 +522,81 @@ def attention_share(cfg: ModelConfig, p, h, positions, tab, m: int = 0,
     ranks); at tp 1 it is the identity and this is the one-device
     sublayer.  With ``want_kv`` returns (output, (k, v)): the K/V of the
     kv heads the rank's q heads read (MLA: its latent cache leaves), what
-    a prefill keeps."""
-    xn = copy(layers.apply_norm(cfg, p["ln1"], h))
+    a prefill keeps.  The kv leaves that do not split over ``tp`` are
+    read whole, through the same ``copy`` as the normed input (one
+    all-reduce of their gradients).  When the q heads do not split over
+    ``tp`` (``seq_split``) the rank's share is ``_seq_share``'s."""
+    if seq_split(cfg, tp):
+        out = _seq_share(cfg, p, h, positions, tab, m, tp, copy)
+        return out if want_kv else out[0]
+    attn = p["attn"]
+    whole = [] if cfg.use_mla or cfg.num_kv_heads % tp == 0 else \
+        sorted(k for k in ("wk", "wv", "bk", "bv") if k in attn)
+    xn, *ws = _copied(copy, layers.apply_norm(cfg, p["ln1"], h),
+                      *(attn[k] for k in whole))
     if cfg.use_mla:
-        out = layers.mla_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
+        out = layers.mla_fwd(cfg, attn, xn, positions, rope_tab=tab)
     else:
-        pa = layers.tp_attention_params(cfg, p["attn"], m, tp, copy)
+        pa = layers.tp_attention_params(cfg, dict(attn, **dict(zip(whole,
+                                                                   ws))),
+                                        m, tp)
         out = layers.attention_fwd(cfg, pa, xn, positions, rope_tab=tab)
     return out if want_kv else out[0]
 
 
-def ffn_share(cfg: ModelConfig, p, h, m: int = 0, tp: int = 1, copy=_same):
+def _copied(copy, *ts):
+    """``copy`` of the tensors ``ts``, as a tuple."""
+    out = copy(*ts)
+    return out if len(ts) > 1 else (out,)
+
+
+def _seq_share(cfg: ModelConfig, p, h, positions, tab, m: int, tp: int,
+               copy):
+    """Rank ``m`` of ``tp``'s share of the attention sublayer in the
+    ``seq`` mode (q positions over the model group, K/V replicated; the
+    attention leaves replicated, ``_leaf_rule``): RMSNorm of the whole h;
+    k and v of every position; q of the rank's rows ``seq_rows`` only,
+    RoPE at their positions; ``flash_attention`` of those rows at their
+    positions against every key (causal, the window and softcap as
+    configured); ``wo`` on the rows, placed in a (B, S, D) tensor of
+    zeros, which the caller reduces as the ``heads`` mode's partial.  The
+    normed input and every attention leaf pass through one ``copy`` (one
+    all-reduce of their gradients: each rank's rows give a part of every
+    one).  Returns (output, (k, v)): every kv head's K/V at every
+    position."""
+    attn = p["attn"]
+    names = sorted(attn)
+    xn, *ws = _copied(copy, layers.apply_norm(cfg, p["ln1"], h),
+                      *(attn[k] for k in names))
+    pa = dict(zip(names, ws))
+    k, v = layers.kv_from_states(cfg, pa, xn)
+    k = layers.apply_rope(k, tab)
+    S = h.shape[1]
+    lo, hi = seq_rows(S, m, tp)
+    if hi == lo:
+        return torch.zeros_like(h), (k, v)
+    q = layers.apply_rope(layers._q_proj(cfg, pa, xn[:, lo:hi]),
+                          (tab[0][:, lo:hi], tab[1][:, lo:hi]))
+    o = layers.chunked_attention(q, k, v, positions[:, lo:hi], positions,
+                                 window=cfg.sliding_window,
+                                 softcap=cfg.logit_softcap)
+    y = layers._merge_heads(o, pa["wo"])
+    return torch.nn.functional.pad(y, (0, 0, lo, S - hi)), (k, v)
+
+
+def ffn_share(cfg: ModelConfig, p, h, m: int = 0, tp: int = 1, copy=_same,
+              route=None):
     """The layer's second sublayer on h, or rank ``m`` of ``tp``'s partial
     of it, as ``attention_share``: RMSNorm, then the MoE over the rank's
     E/tp experts and shared-expert columns (``moe.moe_fwd``, the router
-    whole) or the gated MLP over its columns.  Returns (partial output,
+    whole; routed over the data group ``route`` as one batch where one is
+    given) or the gated MLP over its columns.  Returns (partial output,
     partial aux): the MoE's load-balance aux (fp32 scalar), None for the
     MLP; each sums over the ranks to the layer's."""
     xn = copy(layers.apply_norm(cfg, p["ln2"], h))
     if cfg.is_moe:
         pm = dict(p["moe"], wg=copy(p["moe"]["wg"]))
-        return moe.moe_fwd(cfg, pm, xn, m, tp)
+        return moe.moe_fwd(cfg, pm, xn, m, tp, route)
     return layers.mlp_fwd(cfg, p["mlp"], xn), None
 
 
@@ -830,9 +907,10 @@ def check_trainable(cfg: ModelConfig, tp: int = 1) -> None:
     window among them; MoE decoders with GQA or MLA attention; Mamba-2
     SSMs; the RecurrentGemma hybrid; the Whisper encoder-decoder; the
     Pixtral vision decoder).  Over a model group of ``tp`` > 1 ranks:
-    dense and MoE decoders with GQA attention whose q heads split over
-    ``tp`` (``distributed/sharding.py::attention_mode`` "heads"); the
-    rest raises, naming what ROADMAP Queue A queues for it."""
+    dense and MoE decoders with GQA attention, their q heads split over
+    ``tp`` (``distributed/sharding.py::attention_mode`` "heads") or, where
+    they do not split, their q positions (``seq_split``); the rest raises,
+    naming what ROADMAP Queue A item 3 queues for it."""
     check_model(cfg)
     if tp <= 1:
         return
@@ -840,14 +918,12 @@ def check_trainable(cfg: ModelConfig, tp: int = 1) -> None:
     if cfg.family not in ("dense", "moe") or cfg.use_mla:
         why = ("the SSM, RG-LRU, MLA, encoder-decoder and vision TP rules "
                "at run time")
-    elif cfg.num_heads % tp:
-        why = "seq attention mode"
     else:
         why = _split_refusal(cfg, tp)
     if why:
         raise NotImplementedError(
-            f"{cfg.name} at tp {tp}: waits for {why} (ROADMAP Queue A, the "
-            f"multi-device path)")
+            f"{cfg.name} at tp {tp}: waits for {why} (ROADMAP Queue A item "
+            f"3, the multi-device path)")
 
 
 def _split_refusal(cfg: ModelConfig, tp: int):
@@ -875,9 +951,10 @@ def check_servable(cfg: ModelConfig, tp: int, kind: str) -> None:
     the dense and MoE decoders with GQA attention and a full-length cache
     (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M, Qwen3-30B-A3B, Phi-3.5-MoE)
     whose vocabulary and experts or MLP columns split over ``tp``; a
-    prefill runs the ``tp`` regime's q-head split, so its heads must split
-    too (the decode regime replicates the attention weights).  The rest
-    raises, naming what ROADMAP Queue A item 3 queues for it."""
+    prefill runs the ``tp`` regime's q-head split, or its q-position
+    split where the heads do not split (``seq_split``; the decode regime
+    replicates the attention weights).  The rest raises, naming what
+    ROADMAP Queue A item 3 queues for it."""
     check_model(cfg)
     if cfg.sliding_window > 0:
         why = "the windowed ring's rules (its positions over model)"
@@ -885,8 +962,6 @@ def check_servable(cfg: ModelConfig, tp: int, kind: str) -> None:
         why = "MLA's latent cache rules (ckv, kr over model)"
     elif cfg.family not in ("dense", "moe"):
         why = _SERVE_QUEUED[cfg.family]
-    elif kind == "prefill" and cfg.num_heads % tp:
-        why = "seq attention mode (a prefill whose heads do not split)"
     else:
         why = _split_refusal(cfg, tp) if tp > 1 else None
     if why:
@@ -976,9 +1051,38 @@ def _chunked_ce(cfg: ModelConfig, params, h, labels, comm=LOCAL):
     return tot / torch.clamp_min(cnt, 1.0)
 
 
-def _train_layer(cfg, stack, i, h, positions, tab, comm=LOCAL):
+def _index(stack, i):
+    return _map_spec(stack, lambda path, t: t[i])
+
+
+def _taker(comm, name: str):
+    """``(stack, i) -> layer i's leaves`` of the stack ``name``: ``t[i]``
+    of each stacked leaf (``_index``), and in the ``fsdp`` regime each
+    gathered whole from this rank's shard there (``comm.fsdp``), so that
+    a layer's weights are whole only while it runs (and again in its
+    recompute under remat)."""
+    if comm.fsdp is None:
+        return _index
+    return lambda stack, i: _map_spec(
+        stack, lambda path, t: comm.fsdp((name,) + path, t[i]))
+
+
+def _gather_unstacked(params, comm):
+    """``params`` with each leaf outside the layer stacks (the embedding,
+    ``lm_head``, the final and encoder norms, ``adapter``) gathered whole
+    in the ``fsdp`` regime; the stacks stay this rank's shards."""
+    if comm.fsdp is None:
+        return params
+    return {k: v if k in STACKS else
+            _map_spec(v, lambda path, t, k=k: comm.fsdp((k,) + path, t))
+            if isinstance(v, dict) else comm.fsdp((k,), v)
+            for k, v in params.items()}
+
+
+def _train_layer(cfg, stack, i, h, positions, tab, comm=LOCAL, take=_index):
     """Layer ``i`` of the training trunk: its leaves indexed from the
-    stacked ones (``t[i]``, which autograd follows back to them).  Returns
+    stacked ones (``take``: ``t[i]``, which autograd follows back to them;
+    gathered in the ``fsdp`` regime, ``_taker``).  Returns
     (h, aux) as ``ffn``; an SSM layer ``h + ssm_fwd(norm(h))`` and no aux,
     as the reference's ``_layer_fwd`` (its chunked SSD's scan through
     ``SsdScanFn``); MLA attention through ``mla_fwd`` (``tab`` at
@@ -989,8 +1093,11 @@ def _train_layer(cfg, stack, i, h, positions, tab, comm=LOCAL):
     on the card).  Each sublayer is this rank's share over the model group
     of ``comm`` (``attention_share``, ``ffn_share``) and the partial
     outputs (and aux) are all-reduced (``reduce_out``); in a group of one
-    both are the one-device sublayers and nothing is sent."""
-    p = _map_spec(stack, lambda path, t: t[i])
+    both are the one-device sublayers and nothing is sent.  In the
+    ``fsdp`` regime an MoE routes the data group's rows as one batch, as
+    the reference's ``_moe_local`` on the global batch does (one
+    all-gather of the expert counts a layer, again in the recompute)."""
+    p = take(stack, i)
     if cfg.family == "ssm":
         xn = layers.apply_norm(cfg, p["ln1"], h)
         return h + ssm.ssm_fwd(cfg, p["ssm"], xn), None
@@ -998,44 +1105,43 @@ def _train_layer(cfg, stack, i, h, positions, tab, comm=LOCAL):
     share = dict(m=model.rank, tp=model.size, copy=model.copy_in)
     h = h + model.reduce_out(attention_share(cfg, p, h, positions, tab,
                                              **share))
-    y, aux = ffn_share(cfg, p, h, **share)
+    y, aux = ffn_share(cfg, p, h, **share,
+                       route=None if comm.fsdp is None else comm.data)
     return h + model.reduce_out(y), (None if aux is None
                                      else model.reduce_out(aux))
 
 
-def _train_enc_layer(cfg, stack, i, h, positions, tab):
+def _train_enc_layer(cfg, stack, i, h, positions, tab, take=_index):
     """Encoder layer ``i`` of the encoder-decoder (``_enc_layer_fwd``), its
-    leaves indexed as ``_train_layer`` indexes them.  Returns (h, None)."""
-    p = _map_spec(stack, lambda path, t: t[i])
-    return _enc_layer_fwd(cfg, p, h, positions), None
+    leaves taken as ``_train_layer`` takes them.  Returns (h, None)."""
+    return _enc_layer_fwd(cfg, take(stack, i), h, positions), None
 
 
-def _train_dec_layer(cfg, stack, i, h, positions, tab, enc=None):
+def _train_dec_layer(cfg, stack, i, h, positions, tab, enc=None,
+                     take=_index):
     """Decoder layer ``i`` of the encoder-decoder (``_dec_layer_fwd``,
     its K/V left unkept) on ``enc``, the encoder's (states, positions):
     every decoder layer reads the same states, so their gradient sums over
     the layers.  Returns (h, None)."""
-    p = _map_spec(stack, lambda path, t: t[i])
-    return _dec_layer_fwd(cfg, p, h, positions, *enc)[0], None
+    return _dec_layer_fwd(cfg, take(stack, i), h, positions, *enc)[0], None
 
 
-def _train_unit(cfg, stack, i, h, positions, tab):
+def _train_unit(cfg, stack, i, h, positions, tab, take=_index):
     """Unit ``i`` of the hybrid's trunk: its sublayers ``b0`` .. over
     ``cfg.block_pattern`` (``_rg_sub_fwd`` without a cache), the leaves
-    indexed from the stacked ones as ``_train_layer`` indexes them.
+    taken from the stacked ones as ``_train_layer`` takes them.
     Returns (h, None): the hybrid has no aux."""
-    p = _map_spec(stack, lambda path, t: t[i])
+    p = take(stack, i)
     for j, kind in enumerate(cfg.block_pattern):
         h, _ = _rg_sub_fwd(cfg, p[f"b{j}"], h, positions, tab, kind,
                            want_cache=False)
     return h, None
 
 
-def _train_tail(cfg, stack, i, h, positions, tab):
+def _train_tail(cfg, stack, i, h, positions, tab, take=_index):
     """Tail layer ``i`` of the hybrid (an RG-LRU sublayer), as
     ``_train_unit``."""
-    p = _map_spec(stack, lambda path, t: t[i])
-    return _rg_sub_fwd(cfg, p, h, positions, tab, "rec",
+    return _rg_sub_fwd(cfg, take(stack, i), h, positions, tab, "rec",
                        want_cache=False)[0], None
 
 
@@ -1043,16 +1149,20 @@ def _train_steps(cfg, params, enc=None, comm=LOCAL):
     """(step function, its stacked leaves, index) of each step of the
     training trunk: the layers, the hybrid's units and then its tail
     layers, or the encoder-decoder's decoder layers on ``enc`` (the
-    reference's ``_stack_fwd`` scans); the layers take ``comm``."""
+    reference's ``_stack_fwd`` scans); the layers take ``comm``, and each
+    step its leaves through ``_taker(comm, stack)``."""
+    part = functools.partial
     if cfg.family == "audio":
-        fn = functools.partial(_train_dec_layer, enc=enc)
+        fn = part(_train_dec_layer, enc=enc, take=_taker(comm, "layers"))
         return [(fn, params["layers"], i) for i in range(cfg.num_layers)]
     if cfg.family != "hybrid":
-        fn = functools.partial(_train_layer, comm=comm)
+        fn = part(_train_layer, comm=comm, take=_taker(comm, "layers"))
         return [(fn, params["layers"], i) for i in range(cfg.num_layers)]
     n_units, n_tail = _hybrid_counts(cfg)
-    return [(_train_unit, params["units"], i) for i in range(n_units)] + \
-        [(_train_tail, params["tail"], j) for j in range(n_tail)]
+    unit = part(_train_unit, take=_taker(comm, "units"))
+    tail = part(_train_tail, take=_taker(comm, "tail"))
+    return [(unit, params["units"], i) for i in range(n_units)] + \
+        [(tail, params["tail"], j) for j in range(n_tail)]
 
 
 def _run_steps(steps, cfg, h, positions, tab, remat):
@@ -1113,11 +1223,21 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
     group's count of valid labels, the MoE aux over the group's size: the
     reference's ``pmean`` of the aux over every axis).  In groups of one
     every collective is skipped, and the loss and its gradients are the
-    one device's, bit for bit."""
+    one device's, bit for bit.
+
+    In the ``fsdp`` regime (``comm.fsdp``; ``comm.model`` a group of one,
+    ``comm.data`` the world) ``params`` hold this rank's shards of every
+    leaf under ``param_specs(..., "fsdp")`` and ``batch`` its rows: the
+    one-device trunk of every family runs on each leaf gathered whole
+    where it is read (``_gather_unstacked``, ``_taker``), an MoE routes
+    the world's rows as one batch (``moe._spread_route_terms``: its
+    capacity and aux the global batch's), and the loss is this rank's
+    term of the world's sum."""
     model = comm.model
     check_trainable(cfg, model.size)
     frames, patches = batch.get("frames"), batch.get("patches")
     _check_stubs(cfg, frames, patches)
+    params = _gather_unstacked(params, comm)
     if not model.trivial:
         # the vocabulary split over the group; at tp 1 ``_assemble_inputs``
         # also places the vision decoder's patches and scales the hybrid's
@@ -1135,7 +1255,9 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
     enc = None
     if cfg.family == "audio":
         eh, enc_pos = _enc_inputs(cfg, params, frames)
-        eh, _ = _run_steps([(_train_enc_layer, params["enc_layers"], i)
+        fn = functools.partial(_train_enc_layer,
+                               take=_taker(comm, "enc_layers"))
+        eh, _ = _run_steps([(fn, params["enc_layers"], i)
                             for i in range(cfg.encoder_layers)],
                            cfg, eh, enc_pos, None, remat)
         enc = (layers.apply_norm(cfg, params["enc_norm"], eh), enc_pos)
@@ -1144,7 +1266,7 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
     h = layers.apply_norm(cfg, params["final_norm"], h)
     loss = _chunked_ce(cfg, params, h, batch["labels"], comm)
     if cfg.is_moe:
-        if not comm.data.trivial:
+        if not comm.data.trivial and comm.fsdp is None:
             aux = aux / comm.data.size
         loss = loss + AUX_COEF * aux / max(cfg.num_layers, 1)
     return loss
@@ -1195,7 +1317,9 @@ def _prefill_trunk(cfg: ModelConfig, params, tokens, model):
     experts or MLP columns), each reduced over the group (the MoE's aux
     dropped: serving has no loss), then the final norm.  Returns (h (B,
     S, D), k, v): the K/V of the kv heads its q heads read, (L, B, S, Hl,
-    dh) each.  Collectives: 1 + 2 L all-reduces."""
+    dh) each; in the ``seq`` mode (``seq_split``) its q rows' attention
+    and every kv head's K/V, (L, B, S, Hkv, dh).  Collectives: 1 + 2 L
+    all-reduces."""
     m, tp = model.rank, model.size
     B, S = tokens.shape
     h = model.all_reduce(embed_share(cfg, params, tokens, m, tp))
@@ -1224,8 +1348,9 @@ def _prefill_shard(cfg: ModelConfig, params, tokens, model, max_len: int):
     holds them; the cache in the decode layout, ``_to_decode_layout``:
     {"k", "v"} of (L, B, max_len / tp, Hkv, dh), positions [m S_l, (m+1)
     S_l) of every kv head, zeros past S).  Collectives: 1 + 2 L
-    all-reduces, one all-gather, one all-to-all a cache leaf; in a trivial
-    group none, and the one-device prefill."""
+    all-reduces, one all-gather, one all-to-all a cache leaf (none in the
+    ``seq`` mode: every rank holds every kv head at every position); in a
+    trivial group none, and the one-device prefill."""
     check_servable(cfg, model.size, "prefill")
     tp = model.size
     B, S = tokens.shape
@@ -1295,9 +1420,26 @@ def _to_decode_layout(cfg: ModelConfig, t, model, max_len: int):
     """Heads to sequence: each rank's K or V of its kv heads over every
     position (L, B, S, Hl, dh) to its sequence shard of every kv head,
     (L, B, max_len / tp, Hkv, dh): one all-to-all over the model group of
-    ``seq_blocks``, then ``heads_of_blocks``."""
+    ``seq_blocks``, then ``heads_of_blocks``.  In the ``seq`` mode the
+    rank holds every kv head already and keeps its block, with no
+    exchange (``seq_block``)."""
+    if seq_split(cfg, model.size):
+        return seq_block(t, model.rank, model.size, max_len)
     recv = model.all_to_all(seq_blocks(t, model.size, max_len))
     return heads_of_blocks(cfg, recv, model.size)
+
+
+def seq_block(t, m: int, tp: int, max_len: int):
+    """Positions [m S_l, (m+1) S_l) of t (L, B, S, Hkv, dh), S_l = max_len
+    / tp, zeros past S: rank ``m``'s block of ``seq_blocks``, a new
+    contiguous tensor."""
+    L, B, S, Hkv, dh = t.shape
+    S_l = max_len // tp
+    out = t.new_zeros((L, B, S_l, Hkv, dh))
+    lo, hi = m * S_l, min(S, (m + 1) * S_l)
+    if hi > lo:
+        out[:, :, :hi - lo] = t[:, :, lo:hi]
+    return out
 
 
 def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths,

@@ -33,6 +33,13 @@ each rank's squares of its parts, so each element counts once.  On one
 device nothing is padded or sent, and the arithmetic is that of the
 one-device optimizer; ``zero1`` then changes nothing, as in the
 reference.
+
+In the ``fsdp`` regime (``comm.fsdp``, ZeRO-3) the parameters are each
+rank's shards and their gradients arrive summed over the world (the
+gathers' backward); each rank keeps the master and moments of its
+shards and updates them as one device does, and the global norm counts
+each shard once, on the first rank that holds it
+(``FsdpGather.first_holder``).
 """
 from __future__ import annotations
 
@@ -133,11 +140,12 @@ def init_opt_state(params, n_dev: int = 1, *, comm=None,
     ``params`` are this rank's local slices."""
     comm, of = _layout(comm, specs, n_dev)
     sp = iter(_spec_leaves(specs, params))
+    zero1 = n_dev > 1 and comm.fsdp is None
 
     def make(p):
         split, mult = of(next(sp))
         f = p.detach().reshape(-1).to(torch.float32)
-        if n_dev > 1:
+        if zero1:
             pad = (-f.numel()) % mult
             f = torch.cat([f, f.new_zeros(pad)])
             n = f.numel() // comm.data.size
@@ -206,18 +214,25 @@ def apply_updates(cfg: AdamWConfig, params, grads, opt_state,
     if len(pairs) != len(flat_g):
         raise ValueError(f"apply_updates: {len(pairs)} params, "
                          f"{len(flat_g)} grads")
-    layout = [of(sp) for sp in _spec_leaves(specs, params)]
-    if n_dev > 1:
+    spec_leaves = _spec_leaves(specs, params)
+    layout = [of(sp) for sp in spec_leaves]
+    zero1 = n_dev > 1 and comm.fsdp is None
+    counted = flat_g
+    if zero1:
         flat_g = [_part(g.reshape(-1), split, mult, comm)
                   for g, (split, mult) in zip(flat_g, layout)]
-    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in flat_g)
+        counted = flat_g
+    elif comm.fsdp is not None:
+        counted = [g for g, sp in zip(flat_g, spec_leaves)
+                   if comm.fsdp.first_holder(sp)]
+    sq = sum(torch.sum(torch.square(g.to(torch.float32))) for g in counted)
     gnorm = torch.sqrt(comm.world.all_reduce(sq))
     scale = torch.clamp_max(cfg.max_grad_norm / torch.clamp_min(gnorm, 1e-12),
                             1.0)
 
     for (p, st), g, (split, _) in zip(pairs, flat_g, layout):
         flat_gl = g.reshape(-1)
-        upd_p = p.view(-1) if n_dev == 1 else None
+        upd_p = None if zero1 else p.view(-1)
         for a in range(0, flat_gl.numel(), UPDATE_CHUNK):
             sl = slice(a, a + UPDATE_CHUNK)
             gf = flat_gl[sl].to(torch.float32) * scale
@@ -260,6 +275,10 @@ def gather_opt_state(opt_state, params, comm, specs) -> Dict[str, Any]:
         return {k: group.all_gather(st[k])[:p.numel()].reshape(p.shape)
                 for k in ("master", "m", "v")}
 
+    if comm.fsdp is not None:       # each rank's shard's state
+        return {"leaves": tree_map(lambda p, st: {
+            k: st[k].reshape(p.shape) for k in ("master", "m", "v")},
+            params, opt_state["leaves"]), "step": opt_state["step"]}
     flat = [join(p, st) for p, st in _pairs(params, opt_state["leaves"])]
     return {"leaves": _unflatten_like(params, flat),
             "step": opt_state["step"]}

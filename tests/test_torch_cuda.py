@@ -1416,6 +1416,31 @@ def test_flash_bwd_kernel_matches_plain(dev, case, dtype):
         _close(g, w, dtype, tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("m", [0, 1, 3])
+def test_flash_at_a_seq_rank_matches_plain(dev, m, dtype):
+    """The flash forward and backward at rank ``m`` of 4 of the ``seq``
+    attention mode: the rank's q rows [256 m, 256 (m+1)) of S 1024 at
+    their positions against every key (SmolLM-360M's 15 q heads on 5 kv
+    heads, D 64, causal; rank 0's rows see a quarter of the keys, rank
+    3's all), against the plain versions."""
+    B, S, H, Hkv, D, tp = 2, 1024, 15, 5, 64, 4
+    lo, hi = TT.seq_rows(S, m, tp)
+    gen = torch.Generator(device=dev).manual_seed(37 + m)
+    args = _bwd_inputs(gen, dev, dtype, B, hi - lo, S, H, Hkv, D, True, lo)
+    q, k, v, qp, kp = args[:5]
+    _close(flash_attention(q, k, v, qp, kp),
+           flash_attention_plain(q, k, v, qp, kp), dtype)
+    got = flash_attention_bwd(*args)
+    want = flash_attention_bwd_plain(*args)
+    tol = _grad_tol(want, dtype)
+    for g, w in zip(got, want):
+        _close(g, w, dtype, tol)
+    # keys past the rank's last row get no gradient
+    assert not got[1][:, hi:].any() and not got[2][:, hi:].any()
+
+
 def test_flash_bwd_is_deterministic_and_routes_count(dev):
     gen = torch.Generator(device=dev).manual_seed(32)
     kernels.reset_launches()
@@ -2021,11 +2046,24 @@ def _train_record(args, path, timeout=600):
 # of one rank's part leaves a quarter of a leaf an update (~lr) away.
 SHARDED_BOUNDS = {"loss0": 3e-6, "gnorm0": 2e-6, "loss": 5e-4,
                   "gnorm": 1e-2, "moved0": 1e-2, "moved": 0.2}
+# SmolLM-360M's cases (the seq mode over (1, cards), fsdp over every card),
+# from two equal readings of four H100s (PERF.md): a dense model drifts
+# less, so its bounds are tighter: loss gaps read 8.4e-8 at step 0 and
+# 1.7e-7 after (x12), grad norm gaps 0 at step 0 and 3.3e-6 after (x12,
+# and 1e-6 where 0 was read), no sampled element lr / 2 away after any
+# update (the bound stays 1e-2: a stale or misplaced gather moves a
+# quarter of a leaf)
+SMOLLM_BOUNDS = {"loss0": 1e-6, "gnorm0": 1e-6, "loss": 2e-6, "gnorm": 4e-5,
+                 "moved0": 1e-2, "moved": 1e-2}
 
 
-@pytest.mark.parametrize("arch,dp", [("qwen3_moe_30b", 1), ("llama3_2_1b", 2)],
-                         ids=["qwen3_tp_all_cards", "llama_dp2_tp_rest"])
-def test_sharded_training_over_every_card(dev, arch, dp, tmp_path):
+@pytest.mark.parametrize("arch,dp,regime", [
+    ("qwen3_moe_30b", 1, "tp"), ("llama3_2_1b", 2, "tp"),
+    ("smollm_360m", 1, "tp"), ("smollm_360m", 1, "fsdp"),
+    ("qwen3_moe_30b", 1, "fsdp")],
+    ids=["qwen3_tp_all_cards", "llama_dp2_tp_rest", "smollm_seq_all_cards",
+         "smollm_fsdp_all_cards", "qwen3_fsdp_all_cards"])
+def test_sharded_training_over_every_card(dev, arch, dp, regime, tmp_path):
     """``launch/train.py`` under torchrun over every card of the machine
     (NCCL), at every published width with 2 layers in fp32, 3 steps of 4 x
     1024 tokens, against the same command on one card: Qwen3-30B-A3B over
@@ -2033,7 +2071,13 @@ def test_sharded_training_over_every_card(dev, arch, dp, tmp_path):
     replicated past 4 cards), Llama-3.2-1B over (2, cards / 2) in 2
     microbatches (data parallelism: the MoE's capacity and aux are per
     data shard, as the reference's, so only a dense model equals one
-    card there).  Each rank draws its slices of the weights
+    card there); SmolLM-360M over a model axis of all the cards in the
+    ``seq`` attention mode (its 15 q heads split over none of 2, 4 or 8)
+    and in the ``fsdp`` regime (``tests/torch_fsdp_worker.py``: ZeRO-3
+    over every card, the batch over every card), and Qwen3-30B-A3B in the
+    ``fsdp`` regime (its MoE routing the cards' rows as one batch, as one
+    card routes the whole batch).  Each rank draws its
+    slices of the weights
     (``init_params`` with ``part``): the sampled parameters before the
     first step equal one card's in bits.  Loss and grad norm within
     ``SHARDED_BOUNDS`` (relative; step 0 from the same weights, the
@@ -2041,7 +2085,8 @@ def test_sharded_training_over_every_card(dev, arch, dp, tmp_path):
     either way, and a router choice near a tie flips with the summation
     order), and after each update at most ``SHARDED_BOUNDS["moved0"]``
     (the first) or ``["moved"]`` (the later) of every leaf's sampled
-    elements more than lr / 2 from one card's.  The readings are
+    elements more than lr / 2 from one card's; SmolLM-360M's cases within
+    ``SMOLLM_BOUNDS``.  The readings are
     printed.  Skips with fewer than two cards."""
     import json
     n = torch.cuda.device_count()
@@ -2051,10 +2096,15 @@ def test_sharded_training_over_every_card(dev, arch, dp, tmp_path):
               "2", "--dtype", "float32", "--steps", "3", "--batch", "4",
               "--seq", "1024", "--microbatches", str(dp)]
     want = _train_record(common, tmp_path / "one.pt")
-    got = _train_record(
-        ["-m", "torch.distributed.run", "--standalone",
-         f"--nproc-per-node={n}"] + common + ["--tp", str(n // dp)],
-        tmp_path / "all.pt")
+    run = ["-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}"]
+    if regime == "fsdp":
+        got = _train_record(run + [str(Path(__file__).resolve().parent
+                                       / "torch_fsdp_worker.py")]
+                            + common[2:], tmp_path / "all.pt")
+    else:
+        got = _train_record(run + common + ["--tp", str(n // dp)],
+                            tmp_path / "all.pt")
     lr = 1e-3
     assert len(want["loss"]) == len(got["loss"]) == 3
     rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
@@ -2070,10 +2120,11 @@ def test_sharded_training_over_every_card(dev, arch, dp, tmp_path):
         gaps["max_abs"].append(max((g[k] - w[k]).abs().max().item()
                                    for k in w))
     print(json.dumps({"sharded_training": {"arch": arch, "cards": n,
-                                           "dp": dp, "gaps": gaps}}))
+                                           "dp": dp, "regime": regime,
+                                           "gaps": gaps}}))
     for k, w in want["params"][0].items():
         assert torch.equal(got["params"][0][k], w), k
-    b = SHARDED_BOUNDS
+    b = SMOLLM_BOUNDS if arch == "smollm_360m" else SHARDED_BOUNDS
     assert gaps["loss"][0] <= b["loss0"], gaps
     assert gaps["gnorm"][0] <= b["gnorm0"], gaps
     assert max(gaps["loss"][1:]) <= b["loss"], gaps
@@ -2119,7 +2170,10 @@ def test_sharded_serving_over_every_card(dev, tmp_path):
     (the cache's sequence over every card) and (2, cards / 2), against the
     one-device ``prefill`` and ``decode_step`` on one card: every token
     equal, the first step's logits within ``SERVING_LOGITS_BOUND`` of
-    their scale.  With four cards or more it then reads the bf16 decode
+    their scale; the same for Qwen2-0.5B over (1, cards),
+    whose 14 q heads over 4 or 8 cards prefill in the ``seq`` attention
+    mode (each rank's q rows against every key, the cache's block kept
+    without an all-to-all).  With four cards or more it then reads the bf16 decode
     cell at its real size over (1, cards): Llama-3.2-1B at full depth at
     ``decode_32k`` (B 128 x 32768, 34.4 GB of cache a rank at four) and
     Qwen3-30B-A3B at full depth (48 layers) at B 32 x 32768, 16 steps
@@ -2129,16 +2183,19 @@ def test_sharded_serving_over_every_card(dev, tmp_path):
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip(f"needs two or more cards (has {n})")
-    want = _serve_record([], tmp_path / "one.pt")
-    scale = want["logits0"].abs().max().item()
     gaps = {}
-    for data in (1, 2):
-        got = _serve_record(["--data", str(data)], tmp_path / f"d{data}.pt",
-                            nproc=n)
-        gaps[f"({data}, {n // data})"] = dict(
-            tokens_equal=bool(torch.equal(got["tokens"], want["tokens"])),
-            logits_gap=(got["logits0"] - want["logits0"]).abs().max().item()
-            / scale)
+    for arch, datas in (("llama3_2_1b", (1, 2)), ("qwen2_0_5b", (1,))):
+        common = ["--arch", arch]
+        want = _serve_record(common, tmp_path / f"{arch}_one.pt")
+        scale = want["logits0"].abs().max().item()
+        for data in datas:
+            got = _serve_record(common + ["--data", str(data)],
+                                tmp_path / f"{arch}_d{data}.pt", nproc=n)
+            gaps[f"{arch} ({data}, {n // data})"] = dict(
+                tokens_equal=bool(torch.equal(got["tokens"],
+                                              want["tokens"])),
+                logits_gap=(got["logits0"] - want["logits0"]).abs().max()
+                .item() / scale)
     print(json.dumps({"sharded_serving": {"cards": n, "gaps": gaps}}))
     for g in gaps.values():
         assert g["tokens_equal"], gaps
@@ -2155,3 +2212,69 @@ def test_sharded_serving_over_every_card(dev, tmp_path):
         assert rec["final_lengths_ok"]
         assert rec["paged_launches_by_route"]["simt"] == 0
         assert rec["paged_launches_by_route"]["mma"] == 16 * rec["layers"]
+
+
+def _train_readings(args, nproc=0, timeout=900):
+    """One ``launch/train.py`` run (under ``torch.distributed.run`` over
+    ``nproc`` cards when given; ``args`` start with the module or script):
+    each step's loss, tokens/s, collectives and wire MB (rank 0's), the
+    median tokens/s of steps 1 on, and the peak device memory (rank
+    0's), read off its output."""
+    import os
+    import re
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=str(
+        Path(__file__).resolve().parents[1] / "src"))
+    cmd = [sys.executable]
+    if nproc:
+        cmd += ["-m", "torch.distributed.run", "--standalone",
+                f"--nproc-per-node={nproc}"]
+    out = subprocess.run(cmd + args, env=env, timeout=timeout,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    steps = [dict(loss=float(m[0]), tokens_per_s=float(m[1]),
+                  collectives=m[2], wire_mb=float(m[3]) if m[3] else None)
+             for m in re.findall(
+                 r"step \d+ loss (\S+) grad_norm \S+ (\S+) tokens/s"
+                 r"(?:; collectives (\{[^}]*\}), (\S+) MB on the wire)?",
+                 out.stdout)]
+    peak = re.search(r"peak device memory (?:\(rank 0\) )?(\S+) GB",
+                     out.stdout)
+    return {"steps": steps, "peak_gb": float(peak[1]),
+            "tokens_per_s": sorted(s["tokens_per_s"] for s in steps[1:])[
+                (len(steps) - 1) // 2]}
+
+
+def test_seq_and_fsdp_bf16_readings_over_every_card(dev):
+    """bf16 readings of the two training regimes of the four-card cases
+    above at their real sizes, printed as JSON: Qwen2-0.5B at full depth,
+    8 x 4096 in 2 microbatches, in the ``seq`` attention mode over (1,
+    cards) against the ``heads`` mode over (cards / 2, 2) (its 14 heads
+    split over 2); SmolLM-360M at full depth, 16 x 4096, in the ``fsdp``
+    regime over every card (one microbatch, 16 / cards rows a card)
+    against ``launch/train.py`` on one card (2 microbatches).  Tokens/s
+    (median of steps 1-3), the peak of rank 0, and rank 0's collectives
+    and wire bytes a step; each loss finite.  Skips with fewer than four
+    cards."""
+    import json
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs four or more cards (has {n})")
+    train = ["-m", "repro_torch.launch.train", "--steps", "4", "--seq",
+             "4096"]
+    qwen = train + ["--arch", "qwen2_0_5b", "--batch", "8",
+                    "--microbatches", "2"]
+    smol = ["--arch", "smollm_360m", "--batch", "16"]
+    fsdp = str(Path(__file__).resolve().parent / "torch_fsdp_worker.py")
+    rec = {"cards": n,
+           "qwen2_seq": _train_readings(qwen, n),
+           "qwen2_heads": _train_readings(qwen + ["--tp", "2"], n),
+           "smollm_fsdp": _train_readings([fsdp] + train[2:] + smol, n),
+           "smollm_one_card": _train_readings(train + smol
+                                              + ["--microbatches", "2"])}
+    print(json.dumps({"seq_fsdp_bf16": rec}))
+    for r in rec.values():
+        if isinstance(r, dict):
+            assert len(r["steps"]) == 4 and all(
+                math.isfinite(s["loss"]) for s in r["steps"]), r

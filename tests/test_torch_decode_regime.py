@@ -415,11 +415,12 @@ def test_refusals():
             with pytest.raises(NotImplementedError,
                                match=f"{item}.*ROADMAP Queue A item 3"):
                 steps.build_cell(arch, shape, m2)
-    # a prefill runs the q-head split: qwen2's 14 heads over 4 ranks wait
-    # for the seq attention mode; its decode replicates the attention
+    # a prefill runs the q-head split, or where the heads do not split
+    # (qwen2's 14 over 4 ranks) the seq mode; its decode replicates the
+    # attention
     m4 = mesh_lib.make_test_mesh(1, 4)
-    with pytest.raises(NotImplementedError, match="seq attention mode"):
-        steps.build_cell("qwen2_0_5b", "prefill_32k", m4)
+    pc = steps.build_cell("qwen2_0_5b", "prefill_32k", m4)
+    assert isinstance(pc, steps.PrefillCell) and pc.note == "attention=seq"
     assert isinstance(steps.build_cell("qwen2_0_5b", "decode_32k", m4),
                       steps.DecodeCell)
     m3 = mesh_lib.make_test_mesh(1, 3)

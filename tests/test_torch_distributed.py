@@ -66,6 +66,7 @@ from repro.models.api import MeshAxes as JAxes
 from repro_torch import optim
 from repro_torch.configs import reduced_config
 from repro_torch.distributed import sharding as shd
+from repro_torch.launch import dryrun
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps
 from repro_torch.models import moe
@@ -78,15 +79,6 @@ JOIN_S = 240.0
 AX = JAxes()
 OCFG = dict(lr=1e-3, max_grad_norm=1.0)
 OCFG_B2 = 0.95
-# all-reduces of one step a tp 2 design predicts, at remat on: the
-# embedding's sum (1); a layer's row-parallel outputs (attention, FFN,
-# and an MoE's aux) in the forward, the attention's again in the
-# recompute (which stops at the last saved tensor), and one per
-# copy_in in the backward (attention and FFN inputs, the router); a
-# cross-entropy chunk's max, sum of exponentials and label logit, in the
-# forward and its recompute, and h's copy_in; the grad norm (1)
-AR_LAYER = {"dense": 2 + 1 + 2, "moe": 3 + 1 + 3}
-AR_CE_CHUNK = 3 + 3 + 1
 
 
 def _cfgs(arch, **over):
@@ -109,6 +101,12 @@ def run_groups(tmp_path: Path, groups, timeout: float = JOIN_S):
     worker processes, all groups at once; returns each group's per-rank
     results.  Polls the processes with a deadline and kills them all when
     it passes."""
+    return join_groups(start_groups(tmp_path, groups), timeout)
+
+
+def start_groups(tmp_path: Path, groups):
+    """``run_groups``' processes started; ``join_groups`` waits for them
+    (the caller may work meanwhile)."""
     procs, logs, names = [], [], []
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     for sizes, jobs in groups:
@@ -126,7 +124,14 @@ def run_groups(tmp_path: Path, groups, timeout: float = JOIN_S):
                  ",".join(map(str, sizes)), str(tmp_path / f"init_{tag}"),
                  str(inp), str(tmp_path / f"out_{tag}_{r}.pkl")],
                 env=env, stdout=log, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + timeout
+    return tmp_path, groups, procs, logs, names, time.monotonic()
+
+
+def join_groups(started, timeout: float = JOIN_S):
+    """The results of ``start_groups``' processes, as ``run_groups``
+    returns them; the deadline counts from their start."""
+    tmp_path, groups, procs, logs, names, t0 = started
+    deadline = t0 + timeout
     try:
         while any(p.poll() is None for p in procs):
             if time.monotonic() > deadline:
@@ -504,24 +509,29 @@ def test_collective_stats_of_the_sharded_step(groups, sizes, arch):
     n_mb = job["microbatches"]
     chunks = -(-job["tokens"][0].shape[1] // TT.CE_CHUNK)
     split = sum("model" in sp for _, sp in leaves)
+    # the dry run's accounting of the design, held here to what the ranks
+    # send: at (1, 2) the model group's all-reduces (the embedding, each
+    # layer's and each cross-entropy chunk's) and the grad norm, and the
+    # world's gathers of the replicated leaves (the model-split ones stay
+    # whole on their rank, a data group of one); over data ranks the
+    # count of valid labels a microbatch, the loss and the grad norm, one
+    # reduce-scatter and one gather a leaf (the (pod, data) group of the
+    # multi-pod axes alike)
+    want = dryrun.design_collectives(
+        cfg, "train", sizes[-1], int(np.prod(sizes[:-1])), n_mb,
+        job["tokens"][0].shape[1], len(leaves), split * (sizes[-1] > 1))
+    if sizes == (1, 2):
+        kind = "moe" if cfg.is_moe else "dense"
+        assert want["all-reduce"] == n_mb * (
+            1 + cfg.num_layers * dryrun.AR_LAYER[kind]
+            + chunks * dryrun.AR_CE_CHUNK) + 1
+    else:
+        assert want == {"all-reduce": n_mb + 2,
+                        "reduce-scatter": len(leaves),
+                        "all-gather": len(leaves)}
     for r in res:
         for _, _, stats, _ in r["steps"]:
             c = stats["counts"]
-            if sizes == (1, 2):
-                kind = "moe" if cfg.is_moe else "dense"
-                ar = n_mb * (1 + cfg.num_layers * AR_LAYER[kind]
-                             + chunks * AR_CE_CHUNK) + 1
-                # the world gathers the replicated leaves; the model-split
-                # ones stay whole on their rank (a data group of one)
-                want = {"all-reduce": ar,
-                        "all-gather": len(leaves) - split}
-            else:
-                # the count of valid labels a microbatch, the loss and the
-                # grad norm; one reduce-scatter and one gather a leaf (the
-                # (pod, data) group of the multi-pod axes alike)
-                want = {"all-reduce": n_mb + 2,
-                        "reduce-scatter": len(leaves),
-                        "all-gather": len(leaves)}
             assert c == want, (sizes, arch, c, want)
             if sizes[-1] == 1:
                 padded = sum(-(-int(np.prod(_get(job["params"], path).shape))
@@ -561,16 +571,27 @@ def test_sharded_step_on_one_rank_is_the_one_device_step_bit_for_bit():
 
 def test_refusals():
     mesh = mesh_lib.make_test_mesh(1, 2)
-    for arch in ("smollm_360m", "mamba2_370m", "deepseek_r1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the SSM, RG-LRU, MLA, encoder-decoder and vision rules wait (Queue
+    # A item 3.2); heads that do not split run the seq mode
+    for arch in ("recurrentgemma_2b", "mamba2_370m", "deepseek_r1",
+                 "whisper_base", "pixtral_12b"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue A item 3"):
             steps.build_cell(arch, "train_4k", mesh)
-    # the serving cells take the dense and MoE GQA decoders; an SSM waits
-    for shape in ("prefill_32k", "decode_32k"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            steps.build_cell("mamba2_370m", shape, mesh)
-    with pytest.raises(NotImplementedError, match="fsdp"):
+    assert steps.build_cell("smollm_360m", "train_4k", mesh).note == \
+        "attention=seq"
+    # the serving cells take the dense and MoE GQA decoders; an SSM waits,
+    # and MLA's latent cache
+    for arch in ("mamba2_370m", "deepseek_r1"):
+        for shape in ("prefill_32k", "decode_32k"):
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                steps.build_cell(arch, shape, mesh)
+    # fsdp takes every family; no other regime exists
+    assert steps.build_cell("mamba2_370m", "train_4k", mesh,
+                            train_regime="fsdp").regime == "fsdp"
+    with pytest.raises(ValueError, match="train_regime"):
         steps.build_cell("llama3_2_1b", "train_4k", mesh,
-                         train_regime="fsdp")
+                         train_regime="zero2")
     with pytest.raises(ValueError, match="abstract"):
         steps.build_cell("llama3_2_1b", "train_4k", mesh).comm
     # ZeRO-1 needs the specs, a comm of its size, and zero1

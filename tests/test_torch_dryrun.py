@@ -136,3 +136,28 @@ def _leaves(tree):
             yield from _leaves(tree[k])
     else:
         yield tree
+
+
+@pytest.mark.parametrize("arch", ["smollm_360m", "qwen2_0_5b"])
+def test_seq_cells_run_with_the_designs_collectives(arch):
+    """SmolLM-360M's 15 and Qwen2-0.5B's 14 q heads do not split over the
+    production mesh's model axis of 8: their train and prefill cells run
+    in the ``seq`` attention mode.  A prefill's collectives are 1 + 2 L
+    all-reduces and the logits' all-gather, without the ``heads`` mode's
+    two all-to-alls (Llama-3.2-1B's).  The gloo runs hold the design's
+    counts to what the ranks send (``test_torch_distributed.
+    test_collective_stats_of_the_sharded_step``, ``test_torch_seq_fsdp.
+    test_seq_train_step_matches_jax``, ``test_seq_prefill_cell_matches_jax``).
+    """
+    mesh = mesh_lib.make_production_mesh()
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        pre = dryrun.reckon(arch, "prefill_32k", mesh)
+        train = dryrun.reckon(arch, "train_4k", mesh)
+        llama = dryrun.reckon("llama3_2_1b", "prefill_32k", mesh)
+    assert pre["runs"] and train["runs"], (pre["why_not"], train["why_not"])
+    assert pre["note"] == train["note"] == "attention=seq"
+    assert pre["collectives"] == {"all-reduce": 1 + 2 * L, "all-gather": 1}
+    assert llama["collectives"]["all-to-all"] == 2

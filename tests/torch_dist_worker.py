@@ -1,5 +1,5 @@
-"""One rank of the process groups of ``test_torch_distributed.py`` and
-``test_torch_decode_regime.py``.
+"""One rank of the process groups of ``test_torch_distributed.py``,
+``test_torch_decode_regime.py`` and ``test_torch_seq_fsdp.py``.
 
     python tests/torch_dist_worker.py RANK WORLD [POD,]DATA,MODEL INIT_FILE IN OUT
 
@@ -108,9 +108,9 @@ def task_ce(mesh, job):
     return dict(loss=_np(loss), dh=dh.numpy(), dw=dw.numpy())
 
 
-def _gathered(specs, params, opt, mesh):
+def _gathered(specs, params, opt, mesh, comm=None):
     full = shd.gather_params(params, specs, mesh)
-    st = optim.gather_opt_state(opt, params, mesh.comm, specs)
+    st = optim.gather_opt_state(opt, params, comm or mesh.comm, specs)
     st = {"leaves": shd.gather_params(st["leaves"], _opt_specs(specs),
                                       mesh), "step": st["step"]}
     return _np(full), {"leaves": _np(st["leaves"]),
@@ -148,10 +148,30 @@ def task_zero(mesh, job):
     return out
 
 
+def _one_device(cfg, params, batches, ocfg, microbatches=1):
+    """The one-device ``train_step`` from the full ``params`` on each of
+    ``batches``: each step's loss, grad norm, parameters and optimizer
+    state (copies)."""
+    opt = optim.init_opt_state(params)
+    ocfg = optim.AdamWConfig(**dict(ocfg, zero1=False))
+    out = []
+    for batch in batches:
+        w = steps.train_step(cfg, params, opt, _t(batch), ocfg,
+                             microbatches=microbatches)
+        out.append((float(w["loss"]), float(w["grad_norm"]),
+                    optim.tree_map(lambda t: t.detach().numpy().copy(),
+                                   params),
+                    {"leaves": optim.tree_map(lambda t: t.numpy().copy(),
+                                              opt["leaves"]),
+                     "step": int(opt["step"])}))
+    return out
+
+
 def task_train(mesh, job):
     """``build_cell``'s sharded step: each step's loss and grad norm, the
     gathered parameters and optimizer state after it, and each step's
-    collective stats."""
+    collective stats; with ``one_device``, also ``_one_device``'s steps
+    from the same weights."""
     cfg = config(job["arch"], job.get("over"))
     over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     B, S = job["tokens"][0].shape
@@ -170,6 +190,47 @@ def task_train(mesh, job):
         out["steps"].append((float(r["loss"]), float(r["grad_norm"]),
                              stats, _gathered(cell.param_specs, params, opt,
                                               mesh)))
+    if job.get("one_device"):
+        out["one_device"] = _one_device(
+            cfg, _t(job["params"]), [{"tokens": t, "labels": l} for t, l in
+                                     zip(job["tokens"], job["labels"])],
+            job["ocfg"], job["microbatches"])
+    return out
+
+
+def task_fsdp(mesh, job):
+    """``build_cell``'s ``fsdp`` step (ZeRO-3 over every rank) on this
+    rank's shards: the full weights of ``params`` cut by ``shard_params``,
+    or with ``seed`` drawn by ``init_state``; each step's loss and grad
+    norm, its collective stats, and the gathered parameters and optimizer
+    state after it.  With ``seed``, also the one-device ``train_step`` on
+    the whole batch in one microbatch from ``init_params(cfg, seed)``:
+    its loss, grad norm, parameters and optimizer state after each
+    step."""
+    cfg = config(job["arch"], job.get("over"))
+    over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    B, S = job["batches"][0]["tokens"].shape
+    ocfg = optim.AdamWConfig(**job["ocfg"])
+    cell = steps.build_cell(job["arch"], "train_4k", mesh, batch_seq=(B, S),
+                            over=over, train_regime="fsdp", opt_cfg=ocfg)
+    if "params" in job:
+        params = shd.shard_params(_t(job["params"]), cell.param_specs, mesh)
+        opt = cell.init_opt(params)
+    else:
+        params, opt = cell.init_state(job["seed"], "cpu")
+    out = {"steps": [], "microbatches": cell.microbatches,
+           "rows": cell.local_batch(_t(job["batches"][0]))["tokens"].shape}
+    for batch in job["batches"]:
+        C.reset_events()
+        r = cell.step(params, opt, _t(batch))
+        stats = C.collective_stats()
+        out["steps"].append((float(r["loss"]), float(r["grad_norm"]),
+                             stats, _gathered(cell.param_specs, params, opt,
+                                              mesh, cell.comm)))
+    if "seed" in job:
+        out["one_device"] = _one_device(
+            cfg, T.init_params(cfg, job["seed"], "cpu"), job["batches"],
+            job["ocfg"])
     return out
 
 
@@ -233,7 +294,8 @@ def task_serve(mesh, job):
 
 
 TASKS = {"moe": task_moe, "layer": task_layer, "ce": task_ce,
-         "zero": task_zero, "train": task_train, "serve": task_serve}
+         "zero": task_zero, "train": task_train, "serve": task_serve,
+         "fsdp": task_fsdp}
 
 
 def main(argv):
