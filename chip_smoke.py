@@ -465,6 +465,35 @@ result):
     ...}``.  Four cards: ``tests/test_torch_cuda.py``'s ``smollm_seq`` and
     ``smollm_fsdp`` training cases, Qwen2-0.5B in the serving case, and
     ``test_seq_and_fsdp_bf16_readings_over_every_card``.
+21. the attention families over a model group on one card.  (a) One
+    DeepSeek-R1 layer at every published width (16 of its 256 experts)
+    rank by rank at tp 8, B2 S4096 bf16, as phase 18 (b): MLA's attention
+    share (16 q heads a rank, the latent projections and norms read
+    whole) and the MoE share with its shared expert's columns, outputs,
+    input gradients and every leaf's gradient within TOL[bf16] of scale;
+    the check refuses ``wq_a``'s gradient of one rank alone and the
+    shared expert added whole on every rank.  (b) One DeepSeek-R1 layer's
+    absorbed decode for a rank's B32 over a latent cache of 32768 in 4
+    sequence shards rank by rank, merged after ``wv_b``, against the whole
+    cache's at ``_scaled_tol``; the check refuses the merge without rank
+    0's shard; the merge's bytes a rank beside the value- and
+    latent-space reckonings.  (c) H2O-Danube-1.8B at full width and depth:
+    ``build_cell``'s prefill cell (4 prompts of 6144, longer than the
+    window, into 8192: a ring of 4096 slots) and 16 decode-cell steps on
+    an NCCL group of one with every collective sent give the one-device
+    tokens and logits in bits, with the design's collectives; then one
+    layer's ring in 4 slot blocks rank by rank, merged, against the whole
+    ring (the refusal as (b)), with the ring attention's and the merge's
+    times.  (d) Pixtral-12B (8 layers) the same with 1024 patches before
+    512 tokens into 2048, then one layer's paged decode in 4 shards.  (e)
+    The flash forward and backward at a DeepSeek-R1 rank's 32 heads (B2
+    S4096, q/k 192, v 128, causal) and the grouped GEMM's forward and dX
+    at a rank's 64 of 256 experts, against their plain versions, timed
+    alone, with their bounds and the library calls' times.  It prints
+    ``{"multi_gpu_attention_families": ...}``.  Four cards:
+    ``tests/test_torch_cuda.py``'s ``deepseek_tp`` and ``pixtral_tp``
+    training cases, DeepSeek-R1, Pixtral-12B and H2O-Danube-1.8B in the
+    serving case, and ``test_deepseek_decode_256_experts_over_every_card``.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -5162,7 +5191,7 @@ def _at(tree, path):
     return tree
 
 
-def _tp8_layer(dev, arch: str):
+def _tp8_layer(dev, arch: str, over=None):
     """One decoder layer of ``arch`` at every published width on B2 S4096,
     forward and backward, in its two sublayers as ``_train_layer`` runs
     them: ``attention_share`` on h, and ``ffn_share`` (the MLP or the MoE)
@@ -5176,14 +5205,17 @@ def _tp8_layer(dev, arch: str):
     and every leaf's gradient (split leaves' slices put in place,
     replicated ones' parts summed: what ``copy_in`` sums) are held to the
     one device's within TOL[bf16] of each tensor's scale.  Returns
-    (launches of the ranks, numbers)."""
+    (launches of the ranks, numbers).  ``over`` replaces config fields
+    (phase 21's DeepSeek-R1: 16 experts); for MLA two wronged versions
+    must fail the same checks: ``wq_a``'s gradient left unreduced (one
+    rank's part), and the shared expert added whole on every rank."""
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import layers
     from repro_torch.models import transformer as T
     from repro_torch.models.api import MeshAxes
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=1)
+    cfg = dataclasses.replace(get_config(arch), num_layers=1, **(over or {}))
     B, S = TP8_BATCH
     gen = torch.Generator(device=dev).manual_seed(18)
     stack = T.init_params(cfg, 18, dev)["layers"]
@@ -5279,6 +5311,18 @@ def _tp8_layer(dev, arch: str):
         if errs["aux"] > 1e-5:
             raise AssertionError(f"{arch} tp8: aux {a8} != "
                                  f"{a1}")
+    controls = {}
+    if cfg.use_mla:
+        i = paths.index(("attn", "wq_a"))
+        controls["wq_a unreduced"] = _refuses_scaled(
+            f"{arch} tp8 dattn.wq_a", ga8[1 + i], ga1[1 + i],
+            "gradient of rank 0 alone (unreduced)")
+        with torch.no_grad():
+            shared = layers.mlp_fwd(cfg, p1["moe"]["shared"],
+                                    layers.apply_norm(cfg, p1["ln2"], hf))
+        controls["shared whole on every rank"] = _refuses_scaled(
+            f"{arch} tp8 ffn out", out_f8 + (TP8 - 1) * shared, out_f1,
+            "shared expert added whole on every rank")
     want = {"flash_attention": TP8, "flash_attention_bwd": TP8}
     if cfg.is_moe:
         want.update(moe_gemm=6 * TP8, moe_gemm_wgrad=3 * TP8)
@@ -5296,9 +5340,25 @@ def _tp8_layer(dev, arch: str):
         f"{tp_s * 1e3:.1f} ms (host clock)")
     del locs, pms, one, ga1, gf1, ga8, gf8
     return used, dict(worst_err_over_scale=worst,
-                      aux_rel_err=errs.get("aux"),
+                      aux_rel_err=errs.get("aux"), controls=controls,
                       one_device_ms=one_s * 1e3, ranks_in_turn_ms=tp_s * 1e3,
                       kernel_shapes=shapes.shapes(), launches=used)
+
+
+def _refuses_scaled(name, wrong, want, what):
+    """``_scaled_check``'s tolerance must refuse ``wrong`` (a wronged
+    version's result) in place of ``want``.  Returns max |err| / scale."""
+    wrong, want = wrong.float(), want.float()
+    scale = max(want.abs().max().item(), 1e-30)
+    tol = TOL[torch.bfloat16]
+    err = (wrong - want).abs().max().item()
+    ok = torch.allclose(wrong, want, atol=tol["atol"] * scale,
+                        rtol=tol["rtol"])
+    log(f"  {name}: the check refuses the {what}: max_abs_err={err:.3e} "
+        f"(scale {scale:.3e})")
+    if ok:
+        raise AssertionError(f"{name}: the check cannot see the {what}")
+    return err / scale
 
 
 def kernels_launches():
@@ -6404,6 +6464,485 @@ def seq_fsdp_path(dev):
 
 
 # ---------------------------------------------------------------- main
+# --------------------------------------------------------------- phase 21
+ATTN_TP = 4
+# (a): DeepSeek-R1's experts in the one layer rank by rank at tp 8
+MLA_LAYER_EXPERTS = 16
+# (b): a DeepSeek-R1 rank's decode batch over its latent cache
+MLA_DECODE = (32, 32768)
+# (c), (d): prompts, tokens a prompt (Pixtral's after its patches), the
+# cache's positions; decode steps
+WINDOW_SERVE = (4, 6144, 8192)
+VLM_SERVE = (4, 512, 2048)
+ATTN_STEPS = 16
+# (e): a DeepSeek-R1 rank's flash shape at tp 4 and its experts' GEMMs
+MLA_RANK_FLASH = (2, 4096, 128 // ATTN_TP)
+MLA_RANK_MOE = dict(T=2 * 4096, E=256, El=256 // ATTN_TP, k=8, D=7168,
+                    F=2048)
+
+
+class _RecordingGroup(_StackedGroup):
+    """``_StackedGroup`` that records the bytes one rank sends into each
+    all-reduce (its slice of the stacked tensor)."""
+
+    def __init__(self, size):
+        super().__init__(size)
+        self.sent = []
+
+    def all_reduce(self, x, op="sum"):
+        self.sent.append(x[0].numel() * x[0].element_size())
+        return super().all_reduce(x, op)
+
+
+def _shards_vs_whole(name, whole, parts, tp):
+    """The ranks' (out, lse) ``parts`` merged by ``merge_shards`` over a
+    recording stand-in group against the whole cache's output ``whole``
+    at ``_scaled_tol``; the check must refuse the merge without rank 0's
+    shard (every row holds positions there).  Returns (numbers, the bytes a rank sent)."""
+    from repro_torch.models import layers
+    group = _RecordingGroup(tp)
+    merged = layers.merge_shards(torch.stack([o for o, _ in parts]),
+                                 torch.stack([x for _, x in parts]), group)
+    torch.cuda.synchronize()
+    if any(not torch.equal(merged[m], merged[0]) for m in range(tp)):
+        raise AssertionError(f"{name}: the ranks' merges differ")
+    tol = _scaled_tol(whole, torch.bfloat16)
+    err = _check(f"{name}, {tp} shards merged vs the whole cache",
+                 merged[0], whole, torch.bfloat16, tol)
+    dropped = layers.merge_shards(
+        torch.stack([o for o, _ in parts[1:]]),
+        torch.stack([x for _, x in parts[1:]]), _StackedGroup(tp - 1))[0]
+    err_dropped = _refuses_wrong(f"{name}, vs the whole cache", whole,
+                                 dropped, "merge without rank 0's shard",
+                                 tol)
+    return dict(tp=tp, atol=tol["atol"], rtol=tol["rtol"],
+                merged_vs_whole=err,
+                without_first_shard_vs_whole=err_dropped), sum(group.sent)
+
+
+def _mla_decode_ranks(dev, attn, cfg, timer):
+    """Phase 21 (b): one DeepSeek-R1 layer's absorbed decode
+    (``layers.mla_decode_shard``, every MLA weight replicated) for a
+    rank's ``MLA_DECODE`` batch over a random bf16 latent cache, split in
+    ``ATTN_TP`` sequence shards rank by rank and merged in value space
+    (after ``wv_b``) against the whole cache's; rows at the cache's end,
+    one at a shard boundary, one finished (its write dropped).  The token
+    is written once, by the owner.  Returns numbers: the merge's bytes a
+    rank (lse max and weighted sum, measured off the calls) beside the
+    reckonings in value and in latent space, and CUDA-event times."""
+    from repro_torch.models import layers
+    B, S = MLA_DECODE
+    tp, S_l = ATTN_TP, S // ATTN_TP
+    H, dn, r = cfg.num_heads, cfg.head_dim, cfg.kv_lora_rank
+    gen = torch.Generator(device=dev).manual_seed(211)
+    ckv = _rand(gen, (B, S, r), torch.bfloat16, dev)
+    kr = _rand(gen, (B, S, cfg.rope_head_dim), torch.bfloat16, dev)
+    x = _rand(gen, (B, 1, cfg.d_model), torch.bfloat16, dev)
+    lens = [S - 16 - i for i in range(B)]
+    lens[1], lens[2] = S_l - 1, S           # a boundary, a finished row
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tab = layers.rope_tables(lengths[:, None], cfg.rope_head_dim,
+                             cfg.rope_theta)
+    wc, wr = ckv.clone(), kr.clone()
+    whole, _ = layers.mla_decode_shard(cfg, attn, x, wc, wr, lengths,
+                                       rope_tab=tab)
+    shards = [(ckv[:, m * S_l:(m + 1) * S_l].clone(),
+               kr[:, m * S_l:(m + 1) * S_l].clone()) for m in range(tp)]
+    parts = [layers.mla_decode_shard(cfg, attn, x, c, k, lengths, m,
+                                     rope_tab=tab)
+             for m, (c, k) in enumerate(shards)]
+    if not (torch.equal(torch.cat([c for c, _ in shards], 1), wc) and
+            torch.equal(torch.cat([k for _, k in shards], 1), wr)):
+        raise AssertionError("phase 21 (b): the owners' writes are not the "
+                             "whole cache's")
+    out, sent = _shards_vs_whole("phase 21 (b) MLA decode", whole, parts, tp)
+    out.update(batch=B, seq=S, heads=H,
+               merge_bytes_a_rank=sent,
+               reckoned_value_space=B * H * (dn + 1) * 4 + B * H * 4,
+               reckoned_latent_space=B * H * (r + 1) * 4 + B * H * 4,
+               whole_ms=timer(lambda: layers.mla_decode_shard(
+                   cfg, attn, x, wc, wr, lengths, rope_tab=tab), iters=5),
+               shard_ms=timer(lambda: layers.mla_decode_shard(
+                   cfg, attn, x, *shards[-1], lengths, tp - 1,
+                   rope_tab=tab), iters=5),
+               merge_ms=timer(lambda: layers.merge_shards(
+                   torch.stack([o for o, _ in parts]),
+                   torch.stack([z for _, z in parts]), _StackedGroup(tp)),
+                   iters=5))
+    log(f"  phase 21 (b) MLA decode B{B} over {S} at tp {tp}: merge "
+        f"{sent} B a rank a layer (value space reckoned "
+        f"{out['reckoned_value_space']}, latent space "
+        f"{out['reckoned_latent_space']}); whole cache "
+        f"{out['whole_ms']:.4f} ms, a shard {out['shard_ms']:.4f} ms, the "
+        f"merge's arithmetic {out['merge_ms']:.4f} ms (CUDA events)")
+    return out
+
+
+def _ring_ranks(dev, cfg, attn, c, lengths, timer):
+    """Phase 21 (c): one H2O-Danube-1.8B layer's windowed decode over the
+    decode cell's ring ``c`` (k, v (B, Wd, Hkv, dh), pos (B, Wd)) split in
+    ``ATTN_TP`` slot blocks rank by rank (``layers.ring_decode_shard``:
+    the owner writes k, v and the position) and merged, against the whole
+    ring's; the slots written equal.  Times: the ring attention's einsums
+    over the whole ring and over a block, and the merge's arithmetic."""
+    from repro_torch.models import layers
+    tp = ATTN_TP
+    Wd = c["pos"].shape[1]
+    Wl = Wd // tp
+    gen = torch.Generator(device=dev).manual_seed(212)
+    x = _rand(gen, (lengths.shape[0], 1, cfg.d_model), torch.bfloat16, dev)
+    tab = layers.rope_tables(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+    whole_c = {k: t.clone() for k, t in c.items()}
+    whole, _ = layers.ring_decode_shard(cfg, attn, x, whole_c["k"],
+                                        whole_c["v"], whole_c["pos"],
+                                        lengths, rope_tab=tab)
+    shards = [{k: t[:, m * Wl:(m + 1) * Wl].clone() for k, t in c.items()}
+              for m in range(tp)]
+    parts = [layers.ring_decode_shard(cfg, attn, x, sh["k"], sh["v"],
+                                      sh["pos"], lengths, m, tp,
+                                      rope_tab=tab)
+             for m, sh in enumerate(shards)]
+    for k in c:
+        if not torch.equal(torch.cat([sh[k] for sh in shards], 1),
+                           whole_c[k]):
+            raise AssertionError(f"phase 21 (c): the owners' writes of "
+                                 f"{k} are not the whole ring's")
+    out, sent = _shards_vs_whole("phase 21 (c) ring decode", whole, parts,
+                                 tp)
+    q = _rand(gen, (lengths.shape[0], 1, cfg.num_heads, cfg.head_dim),
+              torch.bfloat16, dev)
+    ring = lambda t: layers.decode_attention_ring(  # noqa: E731
+        q, t["k"], t["v"], t["pos"], lengths + 1, window=cfg.sliding_window)
+    out.update(slots=Wd, merge_bytes_a_rank=sent,
+               einsum_whole_ms=timer(lambda: ring(whole_c), iters=10),
+               einsum_shard_ms=timer(lambda: ring(shards[0]), iters=10),
+               merge_ms=timer(lambda: layers.merge_shards(
+                   torch.stack([o for o, _ in parts]),
+                   torch.stack([z for _, z in parts]), _StackedGroup(tp)),
+                   iters=10))
+    log(f"  phase 21 (c) ring decode over {Wd} slots at tp {tp}: the "
+        f"attention's einsums {out['einsum_whole_ms']:.4f} ms whole, "
+        f"{out['einsum_shard_ms']:.4f} ms a block of {Wl}; the merge's "
+        f"arithmetic {out['merge_ms']:.4f} ms, {sent} B a rank a layer "
+        f"(CUDA events)")
+    return out
+
+
+def _paged_ranks(dev, cfg, c, lengths):
+    """Phase 21 (d): one Pixtral-12B layer's decode attention over the
+    decode cell's cache (k, v (B, S, Hkv, dh)) in ``ATTN_TP`` sequence
+    shards, each rank's ``decode_attention_shard`` (the paged kernel with
+    its lse) merged, against the whole cache's kernel launch."""
+    from repro_torch.models import layers
+    tp = ATTN_TP
+    k, v = c["k"], c["v"]
+    S_l = k.shape[1] // tp
+    gen = torch.Generator(device=dev).manual_seed(213)
+    q = _rand(gen, (k.shape[0], 1, cfg.num_heads, cfg.head_dim),
+              torch.bfloat16, dev)
+    whole = layers.decode_attention(q, k, v, lengths)
+    parts = [layers.decode_attention_shard(
+        q, k[:, m * S_l:(m + 1) * S_l].contiguous(),
+        v[:, m * S_l:(m + 1) * S_l].contiguous(), lengths, m, S_l)
+        for m in range(tp)]
+    return _shards_vs_whole("phase 21 (d) paged decode", whole, parts,
+                            tp)[0]
+
+
+def _serve_one_card(dev, arch, cfg, params, prompts, n, patches=None):
+    """Phase 21 (c), (d): the one-device serving (``prefill``, its cache
+    installed: a ring's re-laid into ``init_cache``'s, ``decode_step``s)
+    against ``build_cell``'s prefill and decode cells on an NCCL group of
+    one with every collective sent: tokens and logits equal in bits, the
+    collectives the design's.  Returns (launches of the cells, numbers,
+    the decode cell's cache and lengths after its steps)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as T
+    B, S = prompts.shape
+    P = 0 if patches is None else patches.shape[1]
+    L = cfg.num_layers
+    logits0, cache = T.prefill(cfg, params, prompts, patches=patches)
+    full = T.init_cache(cfg, B, n, dev)
+    cache = T.install_rings(cfg, full, cache) if cfg.sliding_window else \
+        T.install_cache(cfg, full, cache)
+    tok = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)
+    want = [tok]
+    for i in range(ATTN_STEPS):
+        tok, cache = T.decode_step(cfg, params, cache, tok, torch.full(
+            (B,), S + P + i, dtype=torch.int32, device=dev))
+        want.append(tok)
+    want = torch.stack(want)
+    del cache, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = _sent(mesh_lib.Mesh(("data", "model"), (1, 1)).realize("cuda"))
+    pc = build_cell(cfg, "prefill_32k", mesh, batch_seq=(B, S + P),
+                    max_len=n)
+    dc = build_cell(cfg, "decode_32k", mesh, batch_seq=(B, n))
+    reset_counts()
+    plain = _ServePlainCalls()
+    try:
+        C.reset_events()
+        batch = {"tokens": prompts}
+        if patches is not None:
+            batch["patches"] = patches
+        logits1, cache = pc.step(params, batch)
+        events = [_kinds(C.EVENTS)]
+        tok = torch.argmax(logits1[:, -1], dim=-1).to(torch.int32)
+        lengths = torch.full((B,), S + P, dtype=torch.int32, device=dev)
+        got, secs = [tok], []
+        for _ in range(ATTN_STEPS):
+            C.reset_events()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tok, cache, lengths = dc.step(params, cache, tok, lengths)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            events.append(_kinds(C.EVENTS))
+            got.append(tok)
+    finally:
+        plain.restore()
+    used = kernels_launches()
+    C.reset_events()
+    if not (torch.equal(torch.stack(got), want) and
+            torch.equal(logits1, logits0)):
+        raise AssertionError(f"phase 21 {arch}: the cells' tokens or logits "
+                             f"are not the one-device path's bits")
+    design = [dryrun.design_collectives(cfg, "prefill", 2, 1, 1, S + P, 0,
+                                        0)] + [dryrun.design_collectives(
+                                            cfg, "decode", 2, 1, 1, n, 0,
+                                            0)] * ATTN_STEPS
+    if events != design:
+        raise AssertionError(f"phase 21 {arch}: collectives {events[:2]} "
+                             f"..., the design {design[:2]} ...")
+    decode = "paged_attention" if not cfg.sliding_window else None
+    want_used = {"flash_attention": L}
+    if decode:
+        want_used[decode] = ATTN_STEPS * L
+    _expect_launches(f"phase 21 {arch}", used, want_used, plain)
+    step_ms = statistics.median(secs[1:]) * 1e3
+    n_sent = sum(sum(e.values()) for e in events)
+    log(f"  phase 21 {arch} bf16, {B} prompts of {S + P} positions into "
+        f"{n}, {ATTN_STEPS} steps through build_cell's cells on an NCCL "
+        f"group of one, every collective sent ({n_sent}: {events[0]} the "
+        f"prefill, {events[1]} a step, as designed): tokens and logits "
+        f"equal the one-device path in bits; {step_ms:.3f} ms a step; "
+        f"launches {used}")
+    return used, dict(equal_bits=True, step_ms=step_ms,
+                      collectives=events[:2], launches=used), cache, lengths
+
+
+def _mla_rank_kernels(dev):
+    """Phase 21 (e): the flash forward and backward at a DeepSeek-R1
+    rank's head count (``MLA_RANK_FLASH``: 32 of 128 heads at tp 4, q/k
+    192, v 128, causal, bf16) and the grouped GEMM's forward and dX at a
+    rank's 64 of 256 experts (``MLA_RANK_MOE``: the choices of B2 S4096's
+    top-8 that fall to the rank, routed as ``_moe_shard_body`` routes
+    them), each against its plain version, timed through the wrapper
+    (CUDA events), alone (``Timer.kernel_ms``), the plain version, the
+    library call and the bound."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_attention_bwd.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.moe_gemm import ops as mops
+    from repro_torch.launch.profile import KERNEL_ENTRIES
+    from repro_torch.launch.timing import Timer
+    from repro_torch.models import flash
+    timer = Timer(dev)
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(214)
+    B, S, H = MLA_RANK_FLASH
+    Dq, Dv = MLA_HEADS
+    q = _rand(gen, (B, S, H, Dq), bf, dev)
+    k = _rand(gen, (B, S, H, Dq), bf, dev)
+    v = _rand(gen, (B, S, H, Dv), bf, dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S) \
+        .contiguous()
+    tag = f"B{B} S{S} H{H}/{H} D{Dq}/{Dv} causal"
+    want = flash_attention_plain(q, k, v, pos, pos)
+    e_fwd = _check(f"phase 21 (e) flash_attention {tag}",
+                   flash_attention(q, k, v, pos, pos), want, bf,
+                   _scaled_tol(want, bf))
+    o, lse = flash.flash_attention(q, k, v, pos, pos, return_lse=True)
+    dout = _rand(gen, o.shape, bf, dev)
+    args = (q, k, v, pos, pos, o, lse, dout)
+    wants = flash_attention_bwd_plain(*args)
+    tol = _grad_tol(wants, bf)
+    e_bwd = max(_check(f"phase 21 (e) flash_attention_bwd {tag} {nm}", g, w,
+                       bf, tol)
+                for g, w, nm in zip(flash_attention_bwd(*args), wants,
+                                    ("dq", "dk", "dv")))
+    del wants
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd = lambda: flash_attention(q, k, v, pos, pos)  # noqa: E731
+    bwd = lambda: flash_attention_bwd(*args)  # noqa: E731
+    b_fwd, by_fwd, _, _ = _flash_bound(q, k, v, pos, pos)
+    b_bwd, by_bwd, _, _ = _flash_bwd_bound(q, k, v)
+    by_backend = _sdpa_bwd_backends_ms(timer, q, k, v, dout)
+    try:
+        sdpa_ms = timer(_sdpa(qt, kt, vt, is_causal=True))
+    except RuntimeError as e:
+        sdpa_ms = None
+        log(f"  sdpa refuses {tag}: {str(e).splitlines()[0]}")
+    rows = {"flash_attention": dict(
+        shape=tag, max_abs_err=e_fwd, ms=timer(fwd),
+        alone_ms=timer.kernel_ms(fwd, KERNEL_ENTRIES["flash_attention"]),
+        plain_ms=timer(lambda: flash_attention_plain(q, k, v, pos, pos),
+                       iters=2, warmup=1),
+        bound_ms=b_fwd, bound_by=by_fwd, library_ms=sdpa_ms),
+        "flash_attention_bwd": dict(
+        shape=tag, max_abs_err=e_bwd, ms=timer(bwd, iters=10),
+        alone_ms=sum(timer.kernel_ms(bwd, (entry,), iters=10)
+                     for entry in KERNEL_ENTRIES["flash_attention_bwd"]
+                     if not entry.endswith("_simt")),
+        plain_ms=timer(lambda: flash_attention_bwd_plain(*args), iters=2,
+                       warmup=1),
+        bound_ms=b_bwd, bound_by=by_bwd,
+        library_ms=min(by_backend.values()) if by_backend else None,
+        library_by_backend=by_backend)}
+    del args, o, lse, dout, q, k, v, qt, kt, vt, want
+    torch.cuda.empty_cache()
+
+    cfgm = MLA_RANK_MOE
+    T_, E, El, kk, D, Fe = (cfgm[x] for x in ("T", "E", "El", "k", "D", "F"))
+    ids = torch.topk(torch.randn((T_, E), generator=gen, device=dev),
+                     kk).indices.reshape(-1)
+    local = torch.where(ids < El, ids, El)      # rank 0's experts
+    plan = mops.dispatch_plan(local, El, mops.pick_block_t(T_ * kk, E))
+    tok = torch.arange(T_, device=dev).repeat_interleave(kk)
+    be, bt = plan.block_expert, plan.block_t
+    n_choices = int(plan.keep.sum().item())
+    w1 = (0.02 * torch.randn((El, D, Fe), generator=gen, device=dev)).to(bf)
+    for label, Di, w in (("w1 forward (D -> F)", D, w1),
+                         ("dX of w1 (dy F -> D)", Fe,
+                          w1.transpose(1, 2).contiguous())):
+        xs = mops.gather_rows(_rand(gen, (T_, Di), bf, dev), plan, tok)
+        mops.reset_routes()
+        got = mops.grouped_gemm(xs, w, be, block_t=bt)
+        torch.cuda.synchronize()
+        if mops.ROUTE_LAUNCHES["wgmma"] != 1:
+            raise AssertionError(f"phase 21 (e) moe_gemm {label}: routes "
+                                 f"{mops.ROUTE_LAUNCHES}")
+        err = _check(f"phase 21 (e) moe_gemm {label} at {El} of {E} experts",
+                     got, _plain_blocks(xs, w, be, block_t=bt), bf)
+        bound, by, nbytes, flops = _gemm_bound(plan, xs, w, n_choices)
+        call = lambda: mops.grouped_gemm(xs, w, be, block_t=bt)  # noqa
+        gmm_ms = None
+        if hasattr(torch, "_grouped_mm"):
+            counts = torch.bincount(local[local < El], minlength=El)
+            xa = _rand(gen, (int(counts.sum().item()), Di), bf, dev)
+            offs = torch.cumsum(counts, 0).to(torch.int32)
+            gmm_ms = timer(lambda: torch._grouped_mm(xa, w, offs=offs))
+        rows[f"moe_gemm {label}"] = dict(
+            shape=f"{n_choices} choices of T{T_} top-{kk} on {El} of {E} "
+                  f"experts, D{D} F{Fe}",
+            max_abs_err=err, ms=timer(call),
+            alone_ms=timer.kernel_ms(call, KERNEL_ENTRIES["moe_gemm"]),
+            plain_ms=timer(lambda: _plain_blocks(xs, w, be, block_t=bt),
+                           iters=2, warmup=1),
+            bound_ms=bound, bound_by=by, library_ms=gmm_ms)
+        del xs, got
+    del w1
+    for name, r in rows.items():
+        log(f"  phase 21 (e) {name} {r['shape']}: kernel {r['ms']:.4f} ms "
+            f"({r['alone_ms']:.4f} alone), plain {r['plain_ms']:.4f}, "
+            f"library {r['library_ms']}, bound {r['bound_ms']:.4f} "
+            f"({r['bound_by']})")
+    del timer
+    return rows
+
+
+def attn_families_path(dev):
+    """Phase 21: the attention families over a model group on one card
+    (see the module's docstring).  Returns (launches of the paths,
+    numbers)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.timing import Timer
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats, used = {}, {}
+
+    def add(u):
+        for name, n in u.items():
+            used[name] = used.get(name, 0) + n
+
+    # (a) one DeepSeek-R1 layer rank by rank at tp 8
+    u, stats["mla_layer_tp8"] = _tp8_layer(
+        dev, "deepseek_r1", over=dict(num_experts=MLA_LAYER_EXPERTS))
+    add(u)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) its decode shards at tp 4
+    timer = Timer(dev)
+    cfg = dataclasses.replace(get_config("deepseek_r1"), num_layers=1,
+                              num_experts=MLA_LAYER_EXPERTS)
+    attn = T.init_params(cfg, 21, dev, part=lambda path, shape: tuple(
+        slice(None) if path[:2] == ("layers", "attn") else slice(0, 1)
+        for _ in shape))["layers"]["attn"]
+    stats["mla_decode_tp4"] = _mla_decode_ranks(
+        dev, {k: t[0] for k, t in attn.items()}, cfg, timer)
+    del attn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        # (c) Danube's ring over a prompt longer than its window
+        cfg = get_config("h2o_danube_1_8b")
+        B, S, n = WINDOW_SERVE
+        gen = torch.Generator(device=dev).manual_seed(215)
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                device=dev, dtype=torch.int32)
+        params = T.init_params(cfg, 0, dev)
+        u, stats["danube"], cache, lengths = _serve_one_card(
+            dev, "h2o_danube_1_8b", cfg, params, prompts, n)
+        add(u)
+        stats["danube"]["ring_tp4"] = _ring_ranks(
+            dev, cfg, T._per_layer(params)[0]["attn"],
+            {k: t[0] for k, t in cache.items()}, lengths, timer)
+        del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (d) Pixtral's patch prefix, phase 16's depth
+        cfg = dataclasses.replace(get_config("pixtral_12b"),
+                                  num_layers=PIXTRAL_TRAIN_LAYERS)
+        B, S, n = VLM_SERVE
+        prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                device=dev, dtype=torch.int32)
+        patches = _rand(gen, (B, cfg.num_patches, cfg.d_model),
+                        torch.bfloat16, dev)
+        params = T.init_params(cfg, 0, dev)
+        u, stats["pixtral"], cache, lengths = _serve_one_card(
+            dev, "pixtral_12b", cfg, params, prompts, n, patches)
+        add(u)
+        stats["pixtral"]["paged_tp4"] = _paged_ranks(
+            dev, cfg, {k: t[0] for k, t in cache.items()}, lengths)
+        del params, cache
+    finally:
+        dist.destroy_process_group()
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) the kernels at a DeepSeek-R1 rank's shapes
+    stats["rank_kernels"] = _mla_rank_kernels(dev)
+    stats["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 21 took {stats['seconds']:.1f} s, peak device memory "
+        f"{stats['peak_gb']:.2f} GB")
+    return used, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -6586,17 +7125,29 @@ def main() -> int:
     print(json.dumps({"multi_gpu_seq_fsdp": seq_stats}), flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"== 21. the attention families over a model group on one card: "
+        f"(a) a DeepSeek-R1 layer ({MLA_LAYER_EXPERTS} experts) rank by "
+        f"rank at tp {TP8}; (b) its latent decode in {ATTN_TP} shards; "
+        f"(c) H2O-Danube-1.8B's and (d) Pixtral-12B's serving cells on an "
+        f"NCCL group of one, every collective sent, and their decode "
+        f"shards at tp {ATTN_TP}; (e) the kernels at a DeepSeek-R1 rank's "
+        f"shapes")
+    attn_used, attn_stats = attn_families_path(dev)
+    print(json.dumps({"multi_gpu_attention_families": attn_stats}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm, "flash_attention_bwd": trained,
                          "moe_gemm_wgrad": moe_trained,
                          "ssd_scan_bwd": ssm_trained}.get(
             s["name"], greedy)[s["name"]]
-        # the launches of phases 15-20 added (the attention kernels; phase
+        # the launches of phases 15-21 added (the attention kernels; phase
         # 17's and 18's grouped GEMM and its weight gradient too)
         s["launches"] += sum(t.get(s["name"], 0) for t in (
             hybrid_trained, encdec_trained, mla_trained, sharded_trained,
-            tp8_used, served_used, seq_used))
+            tp8_used, served_used, seq_used, attn_used))
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -29,14 +29,19 @@ gradients, optimizer or batch beyond its tokens).  Each cell is one JSON
 file, as the reference's ``_save``; the run counts ok, skipped and
 failed cells and exits 1 on a failure.  ``runs`` says whether the
 port's ``build_cell`` takes the cell today: the train and serving cells
-of the dense and MoE GQA decoders, their attention over the q heads or,
-where those do not split over ``model`` (SmolLM-360M's 15 and
-Qwen2-0.5B's 14 over 8), over the q positions (the ``seq`` mode).
+of the dense, MoE and vision decoders (GQA, DeepSeek-R1's MLA, Pixtral-12B,
+H2O-Danube-1.8B's ring, its ``long_500k`` among them), their attention
+over the q heads or, where GQA heads do not split over ``model``
+(SmolLM-360M's 15 and Qwen2-0.5B's 14 over 8), over the q positions (the
+``seq`` mode); the SSM, the hybrid and the encoder-decoder do not run.
 ``collectives`` counts, by kind, what one rank sends a step as the
 port's design issues it (``design_collectives``): a prefill 1 + 2 L
 all-reduces and one all-gather, and in the ``heads`` mode two
-all-to-alls (the cache's re-layout), none in the ``seq`` mode.  The dry
-run stays in the ``tp`` and ``decode`` regimes, as the reference's does.
+all-to-alls (the K/V re-layout, a ring's over its slots), none in the
+``seq`` mode and none for MLA (every rank holds the latent); a decode
+step 1 + 3 L all-reduces and one all-gather, whatever the cache.  The
+dry run stays in the ``tp`` and ``decode`` regimes, as the reference's
+does.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID|all]
         [--shape NAME|all] [--mesh single|multi|both] [--outdir DIR]
@@ -160,7 +165,8 @@ def reckon(arch: str, shape_name: str, mesh: mesh_lib.Mesh) -> Dict:
 # at remat on: its row-parallel outputs (the attention's, the FFN's, an
 # MoE's aux) forward, the attention's again in the recompute (which stops
 # at the last saved tensor), and one a copy backward (the attention's
-# input with its whole leaves, the FFN's input, an MoE's router); a
+# input with its whole leaves, MLA's latent projections and norms among
+# them, the FFN's input, a shared expert's too, an MoE's router); a
 # cross-entropy chunk's three merges, again in the recompute, and its
 # input's copy
 AR_LAYER = {"dense": 2 + 1 + 2, "moe": 3 + 1 + 3}
@@ -172,9 +178,12 @@ def design_collectives(cfg, kind: str, tp: int, data: int, n_mb: int,
     """The collectives one rank issues a step, by kind, as the port's
     design predicts (groups of one send nothing).  A decode step: 1 + 3 L
     all-reduces (the embedding; a layer's lse max, merged sum and FFN)
-    and the argmax's all-gather.  A prefill: 1 + 2 L all-reduces, the
-    logits' all-gather, and in the ``heads`` attention mode the cache's
-    two all-to-alls (the ``seq`` mode keeps its block).  A train step
+    and the argmax's all-gather, for a GQA cache, MLA's latent or a ring.
+    A prefill: 1 + 2 L all-reduces, the logits' all-gather, and in the
+    ``heads`` attention mode the two all-to-alls of K and V (a ring's
+    over its slots; its positions, the same on every rank, are cut
+    without a send); the ``seq`` mode keeps its block, and MLA, whose
+    latent every rank holds, its ``seq_block``.  A train step
     (``tp`` regime): ``n_mb`` microbatches of the embedding's, ``AR_LAYER``
     a layer's and ``AR_CE_CHUNK`` a chunk's all-reduces over the model
     group, the label count a microbatch and the loss over the data group
@@ -195,7 +204,7 @@ def design_collectives(cfg, kind: str, tp: int, data: int, n_mb: int,
     elif tp > 1 and kind == "prefill":
         add("all-reduce", 1 + 2 * L)
         add("all-gather", 1)
-        add("all-to-all", 0 if T.seq_split(cfg, tp) else 2)
+        add("all-to-all", 0 if cfg.use_mla or T.seq_split(cfg, tp) else 2)
     elif kind == "train":
         chunks = -(-S // T.CE_CHUNK)
         per_layer = AR_LAYER["moe" if cfg.is_moe else "dense"]

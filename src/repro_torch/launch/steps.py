@@ -22,9 +22,10 @@ of each kind of the reference's ``build_cell``:
   slices of the weights, whose ``local_batch`` takes this rank's rows of
   a global batch (microbatch j's data shard, as the reference's
   ``_mb_split`` keeps the DP shard on dim 1), and whose ``step`` runs
-  ``train_step`` over the realized mesh's groups.  Dense and MoE
-  decoders whose q heads do not split over ``model`` run their attention
-  in the ``seq`` mode (``transformer.attention_share``).
+  ``train_step`` over the realized mesh's groups.  Dense, MoE (MLA
+  among them) and vision decoders train in it; GQA decoders whose q
+  heads do not split over ``model`` run their attention in the ``seq``
+  mode (``transformer.attention_share``).
   ``train_regime="fsdp"`` (the reference's ZeRO-3, ``_build_train``): the
   whole mesh is the data-parallel world (``MeshAxes(batch=(*batch,
   "model"), model=None)``), the batch splits over every rank in one
@@ -50,10 +51,12 @@ of each kind of the reference's ``build_cell``:
   ``serve_step``, the cache updated in place.  A decode cell built on the
   same mesh, batch and ``max_len`` takes a prefill cell's cache as it is.
 
-The serving kinds take the dense and MoE decoders with GQA attention
-(``transformer.check_servable``), a prefill in the ``seq`` mode where
-the q heads do not split; the other families raise, naming the ROADMAP
-item that queues them.
+The serving kinds take the dense, MoE and vision decoders
+(``transformer.check_servable``: GQA, MLA's latent cache, a window's ring
+of min(window, ``max_len``) slots over ``model``), a prefill in the
+``seq`` mode where GQA q heads do not split; the vision decoder's prefill
+batch holds its ``patches`` beside seq - P tokens.  The SSM, the hybrid
+and the encoder-decoder raise, naming the ROADMAP item that queues them.
 """
 from __future__ import annotations
 
@@ -275,15 +278,19 @@ class ServeCell:
             self.param_specs, self.mesh))
 
     def init_cache(self, device=None):
-        """This rank's zero shard of the decode cache under
+        """This rank's empty shard of the decode cache under
         ``cache_specs``: {"k", "v"} of (L, B_l, max_len / tp, Hkv, dh),
-        each leaf its own tensor."""
+        MLA's {"ckv", "kr"}, or a ring's {"k", "v", "pos"} of its Wd / tp
+        slots, each leaf its own tensor filled as ``init_cache`` fills it
+        (zeros; a ring's positions -1, empty)."""
         dev = compat.resolve_device(device)
         part = shd.part_of(self.cache_specs, self.mesh)
         full = T.init_cache(self.cfg, self.batch, self.max_len,
                             device="meta")
-        return {k: torch.zeros(t[part((k,), t.shape)].shape, dtype=t.dtype,
-                               device=dev) for k, t in full.items()}
+        fill = T.init_cache(self.cfg, 1, 1, device="cpu")
+        return {k: torch.full(t[part((k,), t.shape)].shape,
+                              fill[k].reshape(-1)[0].item(), dtype=t.dtype,
+                              device=dev) for k, t in full.items()}
 
     def local_batch(self, batch: Dict[str, torch.Tensor]):
         """This rank's rows of a global batch (``tokens``, a decode's
@@ -297,10 +304,20 @@ class PrefillCell(ServeCell):
     def step(self, params, batch: Dict[str, torch.Tensor]):
         """``transformer.prefill`` of this rank's rows of the global
         ``batch`` over the mesh: (the last position's logits (B_l, 1, V),
-        this rank's cache in the decode layout, ``max_len`` positions)."""
+        this rank's cache in the decode layout, ``max_len`` positions).
+        The vision decoder's batch holds ``patches`` (B, P, D) beside its
+        tokens (B, seq - P), which together fill the cell's ``seq``
+        positions, as the reference's prefill batch does."""
         b = self.local_batch(batch)
-        return T.prefill(self.cfg, params, b["tokens"], comm=self.comm,
-                         max_len=self.max_len)
+        patches = b.get("patches")
+        n = b["tokens"].shape[1] + (0 if patches is None
+                                    else patches.shape[1])
+        if n != self.seq:
+            raise ValueError(f"{self.arch} x {self.shape}: a prompt of {n} "
+                             f"positions (patches and tokens) in a cell of "
+                             f"{self.seq}")
+        return T.prefill(self.cfg, params, b["tokens"], patches=patches,
+                         comm=self.comm, max_len=self.max_len)
 
 
 class DecodeCell(ServeCell):
@@ -328,11 +345,18 @@ def _serve_cell(cfg, arch, shape, mesh, batch_seq, max_len) -> ServeCell:
     if n < S or n % tp:
         raise ValueError(f"{arch} x {shape.name}: a cache of {n} positions "
                          f"(the sequence {S}) does not split over {tp} ranks")
+    if cfg.family == "vlm" and kind == "prefill" and S <= cfg.num_patches:
+        raise ValueError(f"{arch} x {shape.name}: {S} positions hold no "
+                         f"token after the {cfg.num_patches} patches")
+    T.ring_slots(cfg, n, tp)
     regime = "tp" if kind == "prefill" else "decode"
+    Wd = T.ring_slots(cfg, n)
+    held = (f"ring slots over model ({Wd // tp} of {Wd} a rank)" if Wd else
+            f"cache sequence over model ({n // tp} positions a rank)")
     note = shd.explain(cfg, tp) if kind == "prefill" else (
-        f"attention replicated, cache sequence over model ({n // tp} "
-        f"positions a rank)" + (f", EP {cfg.num_experts}/{tp} experts per "
-                                f"shard" if cfg.is_moe else ""))
+        f"attention replicated, {held}" + (
+            f", EP {cfg.num_experts}/{tp} experts per shard" if cfg.is_moe
+            else ""))
     return (PrefillCell if kind == "prefill" else DecodeCell)(
         arch, shape.name, kind, cfg, mesh, B, S, n,
         shd.param_specs(cfg, axes, tp, regime),

@@ -65,7 +65,8 @@ regime only through ``build_cell``) trains the ``fsdp`` cell instead:
 ZeRO-3 over every rank, each leaf's shards gathered where the model
 reads it, every family.
 
-``--layers`` cuts the depth (as ``chip_smoke.py``'s phases do).
+``--layers`` cuts the depth and ``--experts`` an MoE's routed experts (as
+``chip_smoke.py``'s phases do).
 ``--sample-params PATH`` saves (``torch.save``, rank 0) each step's loss
 and grad norm and a fixed sample of the full parameters before the first
 step and after each: every k-th element of each leaf's flat, 4096 at
@@ -127,6 +128,8 @@ def main(argv: Optional[List[str]] = None, regime: str = "tp"
                     help="override the config's dtype (e.g. float32)")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the config's depth to this many layers")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="cut an MoE config's routed experts to this many")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--dry", action="store_true")
@@ -231,14 +234,17 @@ class _Record:
 
 
 def _config(args):
-    """``--arch``'s config, reduced with ``--reduced``, its dtype and
-    depth replaced by ``--dtype`` and ``--layers``."""
+    """``--arch``'s config, reduced with ``--reduced``, its dtype, depth
+    and routed experts replaced by ``--dtype``, ``--layers`` and
+    ``--experts``."""
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     over = {}
     if args.dtype:
         over["dtype"] = args.dtype
     if args.layers:
         over["num_layers"] = args.layers
+    if args.experts:
+        over["num_experts"] = args.experts
     return dataclasses.replace(cfg, **over)
 
 

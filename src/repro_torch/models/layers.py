@@ -23,10 +23,11 @@ attention), whose window and softcap lie outside the paged kernel's
 contract.  On CPU tensors the kernel wrappers run their plain PyTorch
 versions.  In the decode regime of the multi-GPU path each rank attends
 over its sequence shard of the cache (``decode_attention_shard``: the
-paged kernel with its log-sum-exp output) and the ranks' partial
-attentions merge over the model group (``merge_shards``, flash-decoding's
-merge, which the reference gets from XLA's partitioning of its whole-cache
-einsum).
+paged kernel with its log-sum-exp output; MLA's latent shard,
+``mla_decode_shard``; a ring's block of slots, ``ring_decode_shard``) and
+the ranks' partial attentions merge over the model group
+(``merge_shards``, flash-decoding's merge, which the reference gets from
+XLA's partitioning of its whole-cache einsum).
 
 Caches are written in place (the JAX package donates them instead):
 ``cache_update``, ``attention_decode``, ``attention_decode_ring`` and
@@ -207,7 +208,10 @@ def decode_attention_ring(q, k_cache, v_cache, pos_cache, lengths, *,
     Hkv, dh) whose slots hold the positions ``pos_cache`` (B, Wc) (-1:
     empty): a slot counts if its position is below ``lengths`` and within
     ``window`` of the newest, ``lengths`` - 1.  fp32 scores and softmax,
-    as the reference's einsums."""
+    as the reference's einsums.  Returns (out (B, 1, H, dv) in q's dtype,
+    lse (B, 1, H) fp32): the log-sum-exp of the counted scores (-1e30
+    where no slot counts), what ``merge_shards`` needs of a rank's
+    slots."""
     B, _, H, dh = q.shape
     Wc, Hkv, dv = k_cache.shape[1], k_cache.shape[2], v_cache.shape[3]
     G = H // Hkv
@@ -224,7 +228,8 @@ def decode_attention_ring(q, k_cache, v_cache, pos_cache, lengths, *,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.einsum("bhgs,bshd->bhgd", p / torch.clamp_min(l, 1e-30),
                        v_cache.float())
-    return out.reshape(B, 1, H, dv).to(q.dtype)
+    return out.reshape(B, 1, H, dv).to(q.dtype), \
+        (m + torch.log(l)).reshape(B, 1, H)
 
 
 def cache_update(cache, new, lengths):
@@ -375,17 +380,37 @@ def attention_decode_ring(cfg: ModelConfig, p, x, k_cache, v_cache,
     (B, Wc, Hkv, dh), ``pos_cache`` (B, Wc): the token at position
     ``lengths`` goes to slot ``lengths % Wc``, in place; attends over
     ``window`` positions (``cfg.sliding_window`` when absent).  Returns
-    (out, k_cache, v_cache, pos_cache)."""
+    (out, k_cache, v_cache, pos_cache): ``ring_decode_shard`` on the whole
+    ring, through ``wo``."""
+    o, _ = ring_decode_shard(cfg, p, x, k_cache, v_cache, pos_cache,
+                             lengths, window=window, rope_tab=rope_tab)
+    return _merge_heads(o, p["wo"]), k_cache, v_cache, pos_cache
+
+
+def ring_decode_shard(cfg: ModelConfig, p, x, k_shard, v_shard, pos_shard,
+                      lengths, m: int = 0, tp: int = 1, *, window=None,
+                      rope_tab=None):
+    """Rank ``m`` of ``tp``'s part of one-token sliding-window decode over
+    a ring of Wd = ``tp`` Wl slots split over the ranks in blocks of Wl
+    (the decode regime, ``distributed/sharding.py::cache_specs``: slots
+    [m Wl, (m+1) Wl) of ``k``, ``v`` and ``pos`` here, (B, Wl, Hkv, dh)
+    and (B, Wl)).  q, k, v of every head (the attention weights
+    replicated); the token at position ``lengths`` goes to slot ``lengths
+    % Wd``, written with its position by the rank that holds the slot
+    (``cache_update`` drops the others' writes); the rank's slots attended
+    as ``decode_attention_ring`` does (their positions are global).
+    Returns (out (B, 1, H, dh) in x's dtype, lse (B, 1, H) fp32), which
+    ``merge_shards`` joins across ranks; at tp 1 the whole ring's
+    attention."""
     w = cfg.sliding_window if window is None else window
     q, k, v = attention_qkv(cfg, p, x, lengths[:, None], rope_tab=rope_tab)
-    slot = lengths % k_cache.shape[1]
-    cache_update(k_cache, k, slot)
-    cache_update(v_cache, v, slot)
-    rows = torch.arange(pos_cache.shape[0], device=pos_cache.device)
-    pos_cache[rows, slot.long()] = lengths.to(pos_cache.dtype)
-    o = decode_attention_ring(q, k_cache, v_cache, pos_cache, lengths + 1,
-                              window=w, softcap=cfg.logit_softcap)
-    return _merge_heads(o, p["wo"]), k_cache, v_cache, pos_cache
+    Wl = k_shard.shape[1]
+    slot = lengths % (Wl * tp) - m * Wl
+    cache_update(k_shard, k, slot)
+    cache_update(v_shard, v, slot)
+    cache_update(pos_shard, lengths[:, None], slot)
+    return decode_attention_ring(q, k_shard, v_shard, pos_shard, lengths + 1,
+                                 window=w, softcap=cfg.logit_softcap)
 
 
 # ---------------------------------------------------------------------------
@@ -430,24 +455,48 @@ def mla_decode(cfg: ModelConfig, p, x, ckv_cache, krope_cache, lengths, *,
     """Absorbed one-token decode in latent space: writes the token's c_kv
     and k_rope at ``lengths`` of the (B, S, r) caches in place, then
     attends over positions < lengths + 1 in fp32; returns (out,
-    ckv_cache, krope_cache)."""
+    ckv_cache, krope_cache): ``mla_decode_shard`` on the whole cache,
+    through ``wo``."""
+    o, _ = mla_decode_shard(cfg, p, x, ckv_cache, krope_cache, lengths,
+                            rope_tab=rope_tab)
+    return _merge_heads(o, p["wo"]), ckv_cache, krope_cache
+
+
+def mla_decode_shard(cfg: ModelConfig, p, x, ckv_shard, kr_shard, lengths,
+                     m: int = 0, *, rope_tab=None):
+    """Rank ``m``'s part of MLA's absorbed one-token decode over a latent
+    cache split over the ranks in sequence shards of S_l positions (the
+    decode regime: positions [m S_l, (m+1) S_l) of ``ckv`` and ``kr``
+    here, (B, S_l, r) and (B, S_l, dr)), every MLA weight replicated.  The
+    token's c_kv and k_rope are written at ``lengths - m S_l`` (the owner
+    writes; ``cache_update`` drops the others' writes and a finished
+    row's); the absorbed scores of every head against the shard's
+    positions below ``clamp(lengths + 1 - m S_l, 0, S_l)`` in fp32, their
+    softmax over the latent values, cast to x's dtype and taken through
+    ``wv_b``.  Returns (out (B, 1, H, dn), lse (B, 1, H) fp32): the merge
+    (``merge_shards``) runs in value space, after ``wv_b``, which is
+    linear, so it is the merge of the latent outputs (dn + 1 floats a
+    head sent, not r + 1); at m 0 over the whole cache the one-device
+    decode."""
     q_nope, q_rope, c_kv, k_rope = mla_project(cfg, p, x, lengths[:, None],
                                                rope_tab=rope_tab)
-    cache_update(ckv_cache, c_kv, lengths)
-    cache_update(krope_cache, k_rope, lengths)
+    S_l = ckv_shard.shape[1]
+    cache_update(ckv_shard, c_kv, lengths - m * S_l)
+    cache_update(kr_shard, k_rope, lengths - m * S_l)
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
     scale = 1.0 / math.sqrt(cfg.head_dim + cfg.rope_head_dim)
-    ckv = ckv_cache.float()
+    ckv = ckv_shard.float()
     s = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(), ckv)
          + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
-                        krope_cache.float())) * scale
-    S = ckv_cache.shape[1]
-    mask = torch.arange(S, device=x.device)[None, :] < (lengths + 1)[:, None]
+                        kr_shard.float())) * scale
+    local = (lengths + 1 - m * S_l).clamp(0, S_l)
+    mask = torch.arange(S_l, device=x.device)[None, :] < local[:, None]
     s = torch.where(mask[:, None, None, :], s, -1e30)
     pattn = torch.softmax(s, dim=-1)
     o_lat = torch.einsum("bhqs,bsr->bqhr", pattn, ckv).to(x.dtype)
     o = torch.einsum("bqhr,rhk->bqhk", o_lat, p["wv_b"])
-    return _merge_heads(o, p["wo"]), ckv_cache, krope_cache
+    lse = torch.logsumexp(s, dim=-1).permute(0, 2, 1)       # (B, 1, H)
+    return o, lse
 
 
 # ---------------------------------------------------------------------------

@@ -29,18 +29,21 @@ beside the encoder's cross-attention K/V ``{"xk", "xv"}`` of (L, B,
 encoder_seq, Hkv, dh); ``install_cache`` takes a prefill's cache of
 either full-attention family into ``init_cache``'s longer one.
 
-Over a ``distributed/collectives.py::Comm`` the dense and MoE decoders
-also train (``forward_loss``, the ``tp`` regime) and serve
-(``prefill`` in the ``tp`` regime, its cache handed over in the decode
-layout; ``decode_step`` in the decode regime over a sequence-split
-cache) as one rank of a mesh, their attention split over q heads or,
-where those do not split, over q positions (the ``seq`` mode,
-``_seq_share``); in the ``fsdp`` regime (``comm.fsdp``) every family
-trains, each rank on its shards gathered where they are read.  In
-groups of one each is the one-device function, bit for bit.
+Over a ``distributed/collectives.py::Comm`` the dense, MoE and vision
+decoders (GQA or MLA attention, a sliding window among them) also train
+(``forward_loss``, the ``tp`` regime) and serve (``prefill`` in the
+``tp`` regime, its cache handed over in the decode layout;
+``decode_step`` in the decode regime over a sequence-split cache, MLA's
+latent cache split the same way, a window's ring split by slots) as one
+rank of a mesh, their attention split over q heads or, where GQA heads
+do not split, over q positions (the ``seq`` mode, ``_seq_share``); in
+the ``fsdp`` regime (``comm.fsdp``) every family trains, each rank on
+its shards gathered where they are read.  In groups of one each is the
+one-device function, bit for bit: these families' prefill and decode
+step run the multi-GPU bodies on one device too.
 
 A windowed prefill returns the reference's ring, min(window, S) slots
-(``_to_ring``); ``install_ring`` re-lays it into ``init_cache``'s ring of
+(``fold_ring``; the hybrid's ``_to_ring``); ``install_ring`` re-lays it into ``init_cache``'s ring of
 min(window, max_len) slots before decode.  Decoding straight from the
 prefill's ring, as the reference's shapes would have it, writes position
 S into slot S % S = 0 while position 0 is still in the window whenever S
@@ -515,33 +518,48 @@ def attention_share(cfg: ModelConfig, p, h, positions, tab, m: int = 0,
                     tp: int = 1, copy=_same, want_kv: bool = False):
     """The layer's attention sublayer on the residual stream h, or rank
     ``m`` of ``tp``'s partial output of it: RMSNorm, then attention over
-    the rank's q-head shard (``layers.tp_attention_params``; MLA whole at
-    tp 1) through ``wo``'s rows of those heads.  The ranks' outputs sum to
+    the rank's q-head shard (``layers.tp_attention_params``; MLA's q,
+    k_nope and v of its heads from its shards of ``wq_b``, ``wk_b`` and
+    ``wv_b``, the latent and its norms from the replicated ``MLA_WHOLE``)
+    through ``wo``'s rows of those heads.  The ranks' outputs sum to
     the sublayer's (the caller's reduce).  ``copy`` wraps what every rank
     reads whole (the model group's ``copy_in``: its gradient sums over the
     ranks); at tp 1 it is the identity and this is the one-device
     sublayer.  With ``want_kv`` returns (output, (k, v)): the K/V of the
     kv heads the rank's q heads read (MLA: its latent cache leaves), what
-    a prefill keeps.  The kv leaves that do not split over ``tp`` are
-    read whole, through the same ``copy`` as the normed input (one
-    all-reduce of their gradients).  When the q heads do not split over
+    a prefill keeps, the same on every rank).  The kv leaves that do not
+    split over ``tp`` (MLA's ``MLA_WHOLE``) are read whole, through the
+    same ``copy`` as the normed input (one all-reduce of their
+    gradients).  MLA whose q heads do not split raises: it has no ``seq``
+    mode.  When the q heads do not split over
     ``tp`` (``seq_split``) the rank's share is ``_seq_share``'s."""
-    if seq_split(cfg, tp):
+    attn = p["attn"]
+    if cfg.use_mla:
+        if cfg.num_heads % tp:
+            raise NotImplementedError(f"{cfg.name}: MLA's {cfg.num_heads} "
+                                      f"q heads do not split over {tp} ranks")
+        whole = MLA_WHOLE
+    elif seq_split(cfg, tp):
         out = _seq_share(cfg, p, h, positions, tab, m, tp, copy)
         return out if want_kv else out[0]
-    attn = p["attn"]
-    whole = [] if cfg.use_mla or cfg.num_kv_heads % tp == 0 else \
-        sorted(k for k in ("wk", "wv", "bk", "bv") if k in attn)
+    else:
+        whole = [] if cfg.num_kv_heads % tp == 0 else \
+            sorted(k for k in ("wk", "wv", "bk", "bv") if k in attn)
     xn, *ws = _copied(copy, layers.apply_norm(cfg, p["ln1"], h),
                       *(attn[k] for k in whole))
+    pa = dict(attn, **dict(zip(whole, ws)))
     if cfg.use_mla:
-        out = layers.mla_fwd(cfg, attn, xn, positions, rope_tab=tab)
+        out = layers.mla_fwd(cfg, pa, xn, positions, rope_tab=tab)
     else:
-        pa = layers.tp_attention_params(cfg, dict(attn, **dict(zip(whole,
-                                                                   ws))),
-                                        m, tp)
-        out = layers.attention_fwd(cfg, pa, xn, positions, rope_tab=tab)
+        out = layers.attention_fwd(
+            cfg, layers.tp_attention_params(cfg, pa, m, tp), xn, positions,
+            rope_tab=tab)
     return out if want_kv else out[0]
+
+
+# MLA's leaves every rank of the ``tp`` regime reads whole (``_leaf_rule``):
+# the low-rank down-projections and their norms
+MLA_WHOLE = ("kv_norm", "q_norm", "wkv_a", "wq_a")
 
 
 def _copied(copy, *ts):
@@ -609,20 +627,11 @@ def ffn(cfg: ModelConfig, p, h):
 
 def _to_ring(k, v, positions, window: int):
     """Full (B, S, Hkv, dh) K/V folded into the reference's prefill ring of
-    Wc = min(window, S) slots: the last Wc positions, each at slot
-    position % Wc, positions (B, Wc) int32 (-1: empty)."""
-    B, S = k.shape[0], k.shape[1]
-    Wc = min(window, S)
-    k_r, v_r = k[:, S - Wc:], v[:, S - Wc:]
-    pos_r = positions[:, S - Wc:].to(torch.int32)
-    rows = torch.arange(B, device=k.device)[:, None]
-    slot = (pos_r % Wc).long()
-    k_ring, v_ring = torch.zeros_like(k_r), torch.zeros_like(v_r)
-    k_ring[rows, slot] = k_r
-    v_ring[rows, slot] = v_r
-    pos_ring = torch.full((B, Wc), -1, dtype=torch.int32, device=k.device)
-    pos_ring[rows, slot] = pos_r
-    return {"k": k_ring, "v": v_ring, "pos": pos_ring}
+    Wc = min(window, S) slots (``fold_ring``): the last Wc positions, each
+    at slot position % Wc, positions (B, Wc) int32 (-1: empty)."""
+    Wc = min(window, k.shape[1])
+    return {"k": fold_ring(k, Wc), "v": fold_ring(v, Wc),
+            "pos": fold_ring(positions.to(torch.int32), Wc, -1)}
 
 
 def install_ring(dst, src):
@@ -709,18 +718,29 @@ def _rg_sub_decode(cfg, p, h, c, lengths, tab, kind):
 
 
 def _assemble_inputs(cfg, params, tokens, patches=None):
-    """Token embeddings, after Pixtral's stub patch embeddings (B, P, D)
-    times ``adapter`` when given (positions then run over P + S); for the
-    encoder-decoder plus sinusoid positions.  Returns (h, positions)."""
-    h = _embed_tokens(cfg, params, tokens)
+    """Token embeddings, after Pixtral's stub patch embeddings
+    (``place_patches``); for the encoder-decoder plus sinusoid positions.
+    Returns (h, positions)."""
+    h, positions = place_patches(cfg, params, _embed_tokens(cfg, params,
+                                                            tokens), patches)
+    if cfg.family == "audio":
+        h = h + layers.sinusoid_pos(positions, cfg.d_model, h.dtype)
+    return h, positions
+
+
+def place_patches(cfg, params, h, patches=None):
+    """The token embeddings ``h`` (B, S, D) after Pixtral's stub patch
+    embeddings (B, P, D) times ``adapter`` when given (an fp32 product,
+    cast to h's dtype); positions then run over P + S.  Over a model group
+    h is the reduced embedding (the ranks' ``embed_share`` summed) and the
+    patches are placed once, after the reduce: placed before it they would
+    count once a rank.  Returns (h, positions (B, S'))."""
     if cfg.family == "vlm" and patches is not None:
         pe = torch.matmul(patches.float(), params["adapter"].float())
         h = torch.cat([pe.to(h.dtype), h], dim=1)
     B, S = h.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=h.device)[None].expand(B, S)
-    if cfg.family == "audio":
-        h = h + layers.sinusoid_pos(positions, cfg.d_model, h.dtype)
     return h, positions
 
 
@@ -838,14 +858,13 @@ def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
     a window the reference's prefill rings of min(window, S) slots
     (``install_rings`` takes them to a decode cache).  S' is S, or P + S
     with Pixtral's ``patches`` (B, P, D) placed first; the
-    encoder-decoder needs ``frames`` (B, encoder_seq, D).  The dense and
-    MoE decoders with GQA attention run ``_prefill_trunk`` on one
-    device."""
+    encoder-decoder needs ``frames`` (B, encoder_seq, D).  The dense, MoE
+    and vision decoders (``_serves_split``: MLA and the window among them)
+    run ``_prefill_trunk`` on one device."""
     check_model(cfg)
     _check_stubs(cfg, frames, patches)
     if _serves_split(cfg):
-        h, k, v = _prefill_trunk(cfg, params, tokens, LOCAL.model)
-        return h, {"k": k, "v": v}
+        return _prefill_trunk(cfg, params, tokens, LOCAL.model, patches)
     h, positions = _assemble_inputs(cfg, params, tokens, patches)
     B, S = positions.shape
     if cfg.family == "audio":
@@ -866,28 +885,7 @@ def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
             h = h + y
         return layers.apply_norm(cfg, params["final_norm"], h), cache
     tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
-    if cfg.family == "hybrid":
-        h, cache = _hybrid_backbone(cfg, params, h, positions, tab)
-        return layers.apply_norm(cfg, params["final_norm"], h), cache
-    if cfg.sliding_window > 0:
-        rings = []
-        for p in _per_layer(params):
-            xn = layers.apply_norm(cfg, p["ln1"], h)
-            a, (k, v) = layers.attention_fwd(cfg, p["attn"], xn, positions,
-                                             rope_tab=tab)
-            rings.append(_to_ring(k, v, positions, cfg.sliding_window))
-            h = ffn(cfg, p, h + a)[0]
-        return layers.apply_norm(cfg, params["final_norm"], h), \
-            _stacked(rings)
-    cache = init_cache(cfg, B, S, tokens.device)
-    names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
-    attn_fwd = layers.mla_fwd if cfg.use_mla else layers.attention_fwd
-    for i, p in enumerate(_per_layer(params)):
-        xn = layers.apply_norm(cfg, p["ln1"], h)
-        a, kv = attn_fwd(cfg, p["attn"], xn, positions, rope_tab=tab)
-        for name, t in zip(names, kv):
-            cache[name][i] = t
-        h = ffn(cfg, p, h + a)[0]
+    h, cache = _hybrid_backbone(cfg, params, h, positions, tab)
     return layers.apply_norm(cfg, params["final_norm"], h), cache
 
 
@@ -907,17 +905,17 @@ def check_trainable(cfg: ModelConfig, tp: int = 1) -> None:
     window among them; MoE decoders with GQA or MLA attention; Mamba-2
     SSMs; the RecurrentGemma hybrid; the Whisper encoder-decoder; the
     Pixtral vision decoder).  Over a model group of ``tp`` > 1 ranks:
-    dense and MoE decoders with GQA attention, their q heads split over
-    ``tp`` (``distributed/sharding.py::attention_mode`` "heads") or, where
-    they do not split, their q positions (``seq_split``); the rest raises,
-    naming what ROADMAP Queue A item 3 queues for it."""
+    dense and MoE decoders (GQA or MLA attention) and the vision decoder,
+    their q heads split over ``tp`` (``distributed/sharding.py::
+    attention_mode`` "heads") or, where GQA heads do not split, their q
+    positions (``seq_split``); the rest raises, naming what ROADMAP Queue
+    A item 3 queues for it."""
     check_model(cfg)
     if tp <= 1:
         return
     why = None
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
-        why = ("the SSM, RG-LRU, MLA, encoder-decoder and vision TP rules "
-               "at run time")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        why = "the SSM, RG-LRU and encoder-decoder TP rules at run time"
     else:
         why = _split_refusal(cfg, tp)
     if why:
@@ -927,10 +925,13 @@ def check_trainable(cfg: ModelConfig, tp: int = 1) -> None:
 
 
 def _split_refusal(cfg: ModelConfig, tp: int):
-    """What of a dense or MoE decoder does not split over ``tp`` ranks
-    (its vocabulary, experts or MLP columns), or None."""
+    """What of a dense, MoE or vision decoder does not split over ``tp``
+    ranks (its vocabulary, experts or MLP columns, MLA's q heads), or
+    None."""
     if padded_vocab(cfg) % tp:
         return "a replicated vocabulary"
+    if cfg.use_mla and cfg.num_heads % tp:
+        return "MLA q heads that do not split (MLA has no seq mode)"
     if cfg.is_moe and (cfg.num_experts % tp or (
             cfg.num_shared_experts and cfg.shared_d_ff % tp)):
         return "replicated experts"
@@ -941,26 +942,23 @@ def _split_refusal(cfg: ModelConfig, tp: int):
 
 # what each family waits for in the serving cells (ROADMAP Queue A item 3)
 _SERVE_QUEUED = {"ssm": "the SSM's rules", "hybrid": "the RG-LRU hybrid's "
-                 "rules", "audio": "the encoder-decoder's rules",
-                 "vlm": "the vision decoder's rules"}
+                 "rules", "audio": "the encoder-decoder's rules"}
 
 
 def check_servable(cfg: ModelConfig, tp: int, kind: str) -> None:
     """What the serving cells of ``launch/steps.py::build_cell`` take
-    (``kind`` "prefill" or "decode") over a model group of ``tp`` ranks:
-    the dense and MoE decoders with GQA attention and a full-length cache
-    (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M, Qwen3-30B-A3B, Phi-3.5-MoE)
-    whose vocabulary and experts or MLP columns split over ``tp``; a
-    prefill runs the ``tp`` regime's q-head split, or its q-position
-    split where the heads do not split (``seq_split``; the decode regime
-    replicates the attention weights).  The rest raises, naming what
-    ROADMAP Queue A item 3 queues for it."""
+    (``kind`` "prefill" or "decode") over a model group of ``tp`` ranks
+    (``_serves_split``): the dense and MoE decoders with GQA attention
+    and a full-length cache (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M,
+    Qwen3-30B-A3B, Phi-3.5-MoE), with MLA's latent cache (DeepSeek-R1) or
+    a sliding window's ring (H2O-Danube-1.8B), and the vision decoder
+    (Pixtral-12B), whose vocabulary and experts or MLP columns split over
+    ``tp``; a prefill runs the ``tp`` regime's q-head split, or its
+    q-position split where GQA heads do not split (``seq_split``; the
+    decode regime replicates the attention weights).  The rest raises,
+    naming what ROADMAP Queue A item 3 queues for it."""
     check_model(cfg)
-    if cfg.sliding_window > 0:
-        why = "the windowed ring's rules (its positions over model)"
-    elif cfg.use_mla:
-        why = "MLA's latent cache rules (ckv, kr over model)"
-    elif cfg.family not in ("dense", "moe"):
+    if not _serves_split(cfg):
         why = _SERVE_QUEUED[cfg.family]
     else:
         why = _split_refusal(cfg, tp) if tp > 1 else None
@@ -1239,14 +1237,14 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
     _check_stubs(cfg, frames, patches)
     params = _gather_unstacked(params, comm)
     if not model.trivial:
-        # the vocabulary split over the group; at tp 1 ``_assemble_inputs``
-        # also places the vision decoder's patches and scales the hybrid's
-        # embedding, which ``check_trainable`` keeps off this path
-        h = model.reduce_out(embed_share(cfg, params, batch["tokens"],
-                                         model.rank, model.size))
-        B, S = h.shape[:2]
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=h.device)[None].expand(B, S)
+        # the vocabulary split over the group, the patches placed after
+        # its reduce; the hybrid's scaled embedding and the
+        # encoder-decoder's positions ``check_trainable`` keeps off this
+        # path.  ``adapter``'s gradient is then the whole one on every
+        # rank (the residual stream's gradient is), as a norm's is
+        h, positions = place_patches(cfg, params, model.reduce_out(
+            embed_share(cfg, params, batch["tokens"], model.rank,
+                        model.size)), patches)
     else:
         h, positions = _assemble_inputs(cfg, params, batch["tokens"],
                                         patches)
@@ -1278,19 +1276,22 @@ def prefill(cfg: ModelConfig, params, tokens, *, frames=None, patches=None,
     needs ``frames`` (B, encoder_seq, D); Pixtral takes ``patches`` (B, P,
     D) before the tokens, so its cache holds P + S positions.  With
     ``max_len`` the full-attention cache is ``init_cache``'s of max_len
-    positions, the prefill's in the first S.
+    positions, the prefill's in the first S, and a window's ring
+    ``init_cache``'s of min(window, max_len) slots (``install_ring``'s
+    layout); without it a ring is the reference's of min(window, S).
 
-    The dense and MoE decoders with GQA attention run ``_prefill_shard``
-    over ``comm``: on the multi-GPU path one rank's prefill in the ``tp``
-    regime, the logits all-gathered and the cache this rank's sequence
-    shard in the decode layout; in groups of one (``LOCAL``) every
-    collective is skipped and it is the one-device prefill.  Over a model
-    group of more than one rank, or one whose collectives are sent, the
-    other families raise (``check_servable``)."""
+    The dense, MoE and vision decoders (``_serves_split``) run
+    ``_prefill_shard`` over ``comm``: on the multi-GPU path one rank's
+    prefill in the ``tp`` regime, the logits all-gathered and the cache
+    this rank's shard in the decode layout; in groups of one (``LOCAL``)
+    every collective is skipped and it is the one-device prefill.  Over a
+    model group of more than one rank, or one whose collectives are sent,
+    the other families raise (``check_servable``)."""
     if _serves_split(cfg) or not comm.model.trivial:
         _check_stubs(cfg, frames, patches)
-        return _prefill_shard(cfg, params, tokens, comm.model,
-                              max_len or tokens.shape[1])
+        n = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+        return _prefill_shard(cfg, params, tokens, comm.model, max_len or n,
+                              patches)
     h, cache = _backbone(cfg, params, tokens, frames=frames, patches=patches)
     logits = logits_fn(cfg, params, h[:, -1:, :])
     if max_len is not None and max_len != h.shape[1]:
@@ -1300,69 +1301,134 @@ def prefill(cfg: ModelConfig, params, tokens, *, frames=None, patches=None,
 
 
 def _serves_split(cfg: ModelConfig) -> bool:
-    """The dense and MoE decoders with GQA attention and a full-length
-    cache, what the serving cells take: their prefill and decode step run
-    the multi-GPU bodies (``_prefill_shard``, ``_decode_shard_logits``)
-    over every ``comm``, ``LOCAL`` included."""
-    return cfg.family in ("dense", "moe") and not cfg.use_mla \
-        and cfg.sliding_window == 0
+    """The dense, MoE and vision decoders, what the serving cells take
+    (GQA with a full-length cache, MLA's latent cache, a sliding window's
+    ring): their prefill and decode step run the multi-GPU bodies
+    (``_prefill_shard``, ``_decode_shard_logits``) over every ``comm``,
+    ``LOCAL`` included."""
+    return cfg.family in ("dense", "moe", "vlm")
 
 
-def _prefill_trunk(cfg: ModelConfig, params, tokens, model):
+def _prefill_trunk(cfg: ModelConfig, params, tokens, model, patches=None,
+                   slots=None):
     """Rank ``model.rank``'s trunk of a prefill of tokens (B, S) over the
     model group in the ``tp`` regime (``params`` its slices under
     ``param_specs(..., "tp")``; in a group of one the whole tree): the
-    embedding over its vocabulary rows, each layer's ``attention_share``
-    (its q heads through ``flash_attention``) and ``ffn_share`` (its
-    experts or MLP columns), each reduced over the group (the MoE's aux
-    dropped: serving has no loss), then the final norm.  Returns (h (B,
-    S, D), k, v): the K/V of the kv heads its q heads read, (L, B, S, Hl,
-    dh) each; in the ``seq`` mode (``seq_split``) its q rows' attention
-    and every kv head's K/V, (L, B, S, Hkv, dh).  Collectives: 1 + 2 L
-    all-reduces."""
+    embedding over its vocabulary rows reduced, the vision decoder's
+    ``patches`` placed after the reduce (``place_patches``: S' = P + S
+    positions), each layer's ``attention_share`` (its q heads through
+    ``flash_attention``) and ``ffn_share`` (its experts or MLP columns),
+    each reduced over the group (the MoE's aux dropped: serving has no
+    loss), then the final norm.  Returns (h (B, S', D), cache): {"k", "v"}
+    of the kv heads its q heads read, (L, B, S', Hl, dh) each (in the
+    ``seq`` mode, ``seq_split``, its q rows' attention and every kv head);
+    MLA's {"ckv", "kr"} of every position, (L, B, S', r) and (L, B, S',
+    dr), the same on every rank; a window's ring of ``slots`` (default
+    min(window, S')) {"k", "v"} of its kv heads, (L, B, slots, Hl, dh),
+    and "pos" (B, slots), each layer's K/V folded in as it is made
+    (``fold_ring``).  Collectives: 1 + 2 L all-reduces."""
     m, tp = model.rank, model.size
-    B, S = tokens.shape
-    h = model.all_reduce(embed_share(cfg, params, tokens, m, tp))
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=h.device)[None].expand(B, S)
+    h, positions = place_patches(cfg, params, model.all_reduce(embed_share(
+        cfg, params, tokens, m, tp)), patches)
+    S = positions.shape[1]
     tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
     dt = compat.torch_dtype(cfg.dtype)
-    ks = vs = None
+    ring = slots or min(cfg.sliding_window, S) if cfg.sliding_window else 0
+    kept = None
     for i, p in enumerate(_per_layer(params)):
-        a, (k, v) = attention_share(cfg, p, h, positions, tab, m, tp,
-                                    want_kv=True)
-        if ks is None:
-            ks = k.new_empty((cfg.num_layers,) + k.shape, dtype=dt)
-            vs = v.new_empty((cfg.num_layers,) + v.shape, dtype=dt)
-        ks[i], vs[i] = k, v
+        a, kv = attention_share(cfg, p, h, positions, tab, m, tp,
+                                want_kv=True)
+        if ring:
+            kv = [fold_ring(t, ring) for t in kv]
+        if kept is None:
+            kept = [t.new_empty((cfg.num_layers,) + t.shape, dtype=dt)
+                    for t in kv]
+        for buf, t in zip(kept, kv):
+            buf[i] = t
         h = h + model.all_reduce(a)
         h = h + model.all_reduce(ffn_share(cfg, p, h, m, tp)[0])
-    return layers.apply_norm(cfg, params["final_norm"], h), ks, vs
+    h = layers.apply_norm(cfg, params["final_norm"], h)
+    if cfg.use_mla:
+        return h, {"ckv": kept[0], "kr": kept[1]}
+    cache = {"k": kept[0], "v": kept[1]}
+    if ring:
+        cache["pos"] = fold_ring(positions.to(torch.int32), ring, -1)
+    return h, cache
 
 
-def _prefill_shard(cfg: ModelConfig, params, tokens, model, max_len: int):
-    """Rank ``model.rank``'s prefill of tokens (B, S) over the model group
-    in the ``tp`` regime: ``_prefill_trunk``, then its ``lm_head`` columns
-    of the last position.  Returns (the logits (B, 1, V) all-gathered over
-    the group, as the reference's out sharding ``P(Bax, None, None)``
-    holds them; the cache in the decode layout, ``_to_decode_layout``:
-    {"k", "v"} of (L, B, max_len / tp, Hkv, dh), positions [m S_l, (m+1)
-    S_l) of every kv head, zeros past S).  Collectives: 1 + 2 L
-    all-reduces, one all-gather, one all-to-all a cache leaf (none in the
-    ``seq`` mode: every rank holds every kv head at every position); in a
-    trivial group none, and the one-device prefill."""
+def fold_ring(t, slots: int, empty=0):
+    """t (B, S, ...) over positions 0 .. S-1 folded into a ring of
+    ``slots``: the newest min(slots, S) positions p at slot p % slots, the
+    other slots ``empty`` (``install_ring``'s layout; with slots
+    min(window, S) the reference's prefill ring, ``_to_ring``).  Returns
+    (B, slots, ...)."""
+    S = t.shape[1]
+    keep = min(slots, S)
+    idx = torch.arange(S - keep, S, device=t.device) % slots
+    out = t.new_full((t.shape[0], slots) + tuple(t.shape[2:]), empty)
+    out[:, idx] = t[:, S - keep:]
+    return out
+
+
+def _prefill_shard(cfg: ModelConfig, params, tokens, model, max_len: int,
+                   patches=None):
+    """Rank ``model.rank``'s prefill of tokens (B, S) (and the vision
+    decoder's ``patches`` (B, P, D) before them: S' = P + S positions)
+    over the model group in the ``tp`` regime: ``_prefill_trunk``, then
+    its ``lm_head`` columns of the last position.  Returns (the logits (B,
+    1, V) all-gathered over the group, as the reference's out sharding
+    ``P(Bax, None, None)`` holds them; the cache in the decode layout,
+    ``_to_decode_cache``: this rank's shard of ``max_len`` / tp positions,
+    or of a window's Wd / tp ring slots, Wd = min(window, max_len), zeros
+    past S').  Collectives: 1 + 2 L all-reduces, one all-gather, one
+    all-to-all a K/V leaf (none in the ``seq`` mode, where every rank
+    holds every kv head, and none for MLA, whose latent every rank holds);
+    in a trivial group none, and the one-device prefill."""
     check_servable(cfg, model.size, "prefill")
     tp = model.size
-    B, S = tokens.shape
+    B = tokens.shape[0]
+    S = tokens.shape[1] + (0 if patches is None else patches.shape[1])
     if max_len < S or max_len % tp:
         raise ValueError(f"prefill over {tp} ranks: max_len {max_len} must "
                          f"hold the {S} positions and split in {tp}")
-    h, k, v = _prefill_trunk(cfg, params, tokens, model)
+    Wd = ring_slots(cfg, max_len, tp)
+    h, cache = _prefill_trunk(cfg, params, tokens, model, patches, Wd)
     part = logits_fn(cfg, params, h[:, -1:, :])            # (B, 1, V/tp)
     logits = model.all_gather(part[None]).permute(1, 2, 0, 3) \
         .reshape(B, 1, tp * part.shape[-1])
-    return logits, {"k": _to_decode_layout(cfg, k, model, max_len),
-                    "v": _to_decode_layout(cfg, v, model, max_len)}
+    return logits, _to_decode_cache(cfg, cache, model, max_len)
+
+
+def ring_slots(cfg: ModelConfig, max_len: int, tp: int = 1):
+    """A window's decode ring slots Wd = min(window, max_len) (0 without a
+    window); raises ``ValueError`` when they do not split over ``tp``
+    ranks."""
+    if not cfg.sliding_window:
+        return 0
+    Wd = min(cfg.sliding_window, max_len)
+    if Wd % tp:
+        raise ValueError(f"{cfg.name}: a ring of {Wd} slots does not split "
+                         f"over {tp} ranks")
+    return Wd
+
+
+def _to_decode_cache(cfg: ModelConfig, cache, model, max_len: int):
+    """A prefill trunk's cache in the decode layout of rank ``model.rank``
+    (``distributed/sharding.py::cache_specs``): K/V to its sequence shard
+    of every kv head (``_to_decode_layout``: one all-to-all a leaf); a
+    ring's K/V the same over its slots, its "pos" (the same on every rank)
+    cut to its slots without a send, one copy a layer; MLA's latent its
+    ``seq_block``, with no exchange."""
+    m, tp = model.rank, model.size
+    if cfg.use_mla:
+        return {k: seq_block(t, m, tp, max_len) for k, t in cache.items()}
+    n = cache["pos"].shape[-1] if "pos" in cache else max_len
+    out = {k: _to_decode_layout(cfg, cache[k], model, n) for k in ("k", "v")}
+    if "pos" in cache:
+        Wl = n // tp
+        out["pos"] = cache["pos"][None, :, m * Wl:(m + 1) * Wl].expand(
+            (cfg.num_layers,) + cache["pos"].shape[:1] + (Wl,)).contiguous()
+    return out
 
 
 def kv_owners(cfg: ModelConfig, tp: int):
@@ -1430,12 +1496,12 @@ def _to_decode_layout(cfg: ModelConfig, t, model, max_len: int):
 
 
 def seq_block(t, m: int, tp: int, max_len: int):
-    """Positions [m S_l, (m+1) S_l) of t (L, B, S, Hkv, dh), S_l = max_len
-    / tp, zeros past S: rank ``m``'s block of ``seq_blocks``, a new
-    contiguous tensor."""
-    L, B, S, Hkv, dh = t.shape
+    """Positions [m S_l, (m+1) S_l) of t (L, B, S, ...), (L, B, S, Hkv,
+    dh) K/V or MLA's (L, B, S, r) latent, S_l = max_len / tp, zeros past
+    S: rank ``m``'s block of ``seq_blocks``, a new contiguous tensor."""
+    L, B, S = t.shape[:3]
     S_l = max_len // tp
-    out = t.new_zeros((L, B, S_l, Hkv, dh))
+    out = t.new_zeros((L, B, S_l) + tuple(t.shape[3:]))
     lo, hi = m * S_l, min(S, (m + 1) * S_l)
     if hi > lo:
         out[:, :, :hi - lo] = t[:, :, lo:hi]
@@ -1452,12 +1518,13 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths,
     state advances too, and its tokens are discarded, as in the JAX
     scan).  The encoder-decoder adds sinusoid positions at ``lengths``
     and reads its cross-attention cache; Pixtral's ``lengths`` count its
-    patches.  The dense and MoE decoders with GQA attention run
-    ``_decode_shard_logits`` over ``comm``: on the multi-GPU path one
-    rank's step in the decode regime, its logits its vocabulary shard (B,
-    V / tp); in groups of one (``LOCAL``) the one-device step.  Over a
-    model group of more than one rank, or one whose collectives are sent,
-    the other families raise (``check_servable``)."""
+    patches.  The dense, MoE and vision decoders (``_serves_split``: MLA
+    and the window among them) run ``_decode_shard_logits`` over
+    ``comm``: on the multi-GPU path one rank's step in the decode regime,
+    its logits its vocabulary shard (B, V / tp); in groups of one
+    (``LOCAL``) the one-device step.  Over a model group of more than one
+    rank, or one whose collectives are sent, the other families raise
+    (``check_servable``)."""
     check_model(cfg)
     if _serves_split(cfg) or not comm.model.trivial:
         return _decode_shard_logits(cfg, params, cache, tokens, lengths,
@@ -1477,34 +1544,16 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths,
                                   {k: v[i] for k, v in cache.items()})
             h = h + y
         return head_logits(cfg, params, h), cache
-    positions = lengths[:, None]
-    tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
-    if cfg.family == "hybrid":
-        for u, p in enumerate(_per_layer(params, "units")):
-            for i, kind in enumerate(cfg.block_pattern):
-                c = {k: t[u] for k, t in cache["units"][f"b{i}"].items()}
-                h = _rg_sub_decode(cfg, p[f"b{i}"], h, c, lengths, tab, kind)
-        if "tail" in cache:
-            for j, p in enumerate(_per_layer(params, "tail")):
-                c = {k: t[j] for k, t in cache["tail"].items()}
-                h = _rg_sub_decode(cfg, p, h, c, lengths, tab, "rec")
-        return head_logits(cfg, params, h), cache
-    if cfg.sliding_window > 0:
-        for i, p in enumerate(_per_layer(params)):
-            xn = layers.apply_norm(cfg, p["ln1"], h)
-            a, _, _, _ = layers.attention_decode_ring(
-                cfg, p["attn"], xn, cache["k"][i], cache["v"][i],
-                cache["pos"][i], lengths, rope_tab=tab)
-            h = ffn(cfg, p, h + a)[0]
-        return head_logits(cfg, params, h), cache
-    names = ("ckv", "kr") if cfg.use_mla else ("k", "v")
-    attn_decode = (layers.mla_decode if cfg.use_mla
-                   else layers.attention_decode)
-    for i, p in enumerate(_per_layer(params)):
-        xn = layers.apply_norm(cfg, p["ln1"], h)
-        a, _, _ = attn_decode(cfg, p["attn"], xn, cache[names[0]][i],
-                              cache[names[1]][i], lengths, rope_tab=tab)
-        h = ffn(cfg, p, h + a)[0]
+    tab = layers.rope_tables(lengths[:, None], layers.rope_dim(cfg),
+                             cfg.rope_theta)
+    for u, p in enumerate(_per_layer(params, "units")):
+        for i, kind in enumerate(cfg.block_pattern):
+            c = {k: t[u] for k, t in cache["units"][f"b{i}"].items()}
+            h = _rg_sub_decode(cfg, p[f"b{i}"], h, c, lengths, tab, kind)
+    if "tail" in cache:
+        for j, p in enumerate(_per_layer(params, "tail")):
+            c = {k: t[j] for k, t in cache["tail"].items()}
+            h = _rg_sub_decode(cfg, p, h, c, lengths, tab, "rec")
     return head_logits(cfg, params, h), cache
 
 
@@ -1537,16 +1586,28 @@ def _decode_layer_shard(cfg, p, h, c, lengths, tab, model):
     positions) merged over the group (``layers.merge_shards``: an
     all-reduce of the lse's max and one of the weighted sums); ``wo``;
     the rank's experts or MLP columns (``ffn_share``, the MoE's aux
-    dropped) all-reduced."""
+    dropped) all-reduced.  MLA's latent shard runs
+    ``layers.mla_decode_shard`` (merged after ``wv_b``) and a window's
+    ring of slots ``layers.ring_decode_shard`` (the owner writes k, v and
+    the position) in place of the shard attention."""
     m, tp = model.rank, model.size
     xn = layers.apply_norm(cfg, p["ln1"], h)
-    q, k, v = layers.attention_qkv(cfg, p["attn"], xn, lengths[:, None],
-                                   rope_tab=tab)
-    S_l = c["k"].shape[1]
-    layers.cache_update(c["k"], k, lengths - m * S_l)
-    layers.cache_update(c["v"], v, lengths - m * S_l)
-    o, lse = layers.decode_attention_shard(q, c["k"], c["v"], lengths + 1,
-                                           m, S_l, softcap=cfg.logit_softcap)
+    if cfg.use_mla:
+        o, lse = layers.mla_decode_shard(cfg, p["attn"], xn, c["ckv"],
+                                         c["kr"], lengths, m, rope_tab=tab)
+    elif "pos" in c:
+        o, lse = layers.ring_decode_shard(cfg, p["attn"], xn, c["k"],
+                                          c["v"], c["pos"], lengths, m, tp,
+                                          rope_tab=tab)
+    else:
+        q, k, v = layers.attention_qkv(cfg, p["attn"], xn, lengths[:, None],
+                                       rope_tab=tab)
+        S_l = c["k"].shape[1]
+        layers.cache_update(c["k"], k, lengths - m * S_l)
+        layers.cache_update(c["v"], v, lengths - m * S_l)
+        o, lse = layers.decode_attention_shard(q, c["k"], c["v"],
+                                               lengths + 1, m, S_l,
+                                               softcap=cfg.logit_softcap)
     o = layers.merge_shards(o, lse, model)
     h = h + layers._merge_heads(o, p["attn"]["wo"])
     return h + model.all_reduce(ffn_share(cfg, p, h, m, tp)[0])
@@ -1557,7 +1618,8 @@ def _decode_shard_logits(cfg: ModelConfig, params, cache, tokens, lengths,
     """Rank ``model.rank``'s decode step in the decode regime (the port's
     ``serve_step`` body): ``params`` its slices under ``param_specs(...,
     "decode")``, ``cache`` its sequence shard {"k", "v"} of (L, B, S_l,
-    Hkv, dh) (``distributed/sharding.py::cache_specs``), tokens and
+    Hkv, dh) (``distributed/sharding.py::cache_specs``; MLA's {"ckv",
+    "kr"} of (L, B, S_l, r); a ring's slots {"k", "v", "pos"}), tokens and
     lengths its rows.  The embedding over its vocabulary rows reduced, each
     layer ``_decode_layer_shard``, the final norm and its ``lm_head``
     columns.  Returns (its logits' vocabulary shard (B, V / tp) fp32,

@@ -2057,12 +2057,20 @@ SMOLLM_BOUNDS = {"loss0": 1e-6, "gnorm0": 1e-6, "loss": 2e-6, "gnorm": 4e-5,
                  "moved0": 1e-2, "moved": 1e-2}
 
 
+# the config cuts of a four-card case beside its 2 layers: DeepSeek-R1 at 8
+# of its 256 experts (its fp32 weights, gradients, master and moments at 2
+# layers: 60 GB on the one card it is held to; phase 17's 16 would be 74.5)
+CUTS = {"deepseek_r1": ["--experts", "8"]}
+
+
 @pytest.mark.parametrize("arch,dp,regime", [
     ("qwen3_moe_30b", 1, "tp"), ("llama3_2_1b", 2, "tp"),
     ("smollm_360m", 1, "tp"), ("smollm_360m", 1, "fsdp"),
-    ("qwen3_moe_30b", 1, "fsdp")],
+    ("qwen3_moe_30b", 1, "fsdp"), ("deepseek_r1", 1, "tp"),
+    ("pixtral_12b", 1, "tp")],
     ids=["qwen3_tp_all_cards", "llama_dp2_tp_rest", "smollm_seq_all_cards",
-         "smollm_fsdp_all_cards", "qwen3_fsdp_all_cards"])
+         "smollm_fsdp_all_cards", "qwen3_fsdp_all_cards", "deepseek_tp",
+         "pixtral_tp"])
 def test_sharded_training_over_every_card(dev, arch, dp, regime, tmp_path):
     """``launch/train.py`` under torchrun over every card of the machine
     (NCCL), at every published width with 2 layers in fp32, 3 steps of 4 x
@@ -2076,7 +2084,9 @@ def test_sharded_training_over_every_card(dev, arch, dp, regime, tmp_path):
     and in the ``fsdp`` regime (``tests/torch_fsdp_worker.py``: ZeRO-3
     over every card, the batch over every card), and Qwen3-30B-A3B in the
     ``fsdp`` regime (its MoE routing the cards' rows as one batch, as one
-    card routes the whole batch).  Each rank draws its
+    card routes the whole batch); DeepSeek-R1 (MLA, 8 experts and its
+    shared expert, ``CUTS``) and Pixtral-12B (its 1024 patches before the
+    1024 tokens) over a model axis of all the cards.  Each rank draws its
     slices of the weights
     (``init_params`` with ``part``): the sampled parameters before the
     first step equal one card's in bits.  Loss and grad norm within
@@ -2094,7 +2104,7 @@ def test_sharded_training_over_every_card(dev, arch, dp, regime, tmp_path):
         pytest.skip(f"needs two or more cards (has {n})")
     common = ["-m", "repro_torch.launch.train", "--arch", arch, "--layers",
               "2", "--dtype", "float32", "--steps", "3", "--batch", "4",
-              "--seq", "1024", "--microbatches", str(dp)]
+              "--seq", "1024", "--microbatches", str(dp)] + CUTS.get(arch, [])
     want = _train_record(common, tmp_path / "one.pt")
     run = ["-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={n}"]
@@ -2212,6 +2222,68 @@ def test_sharded_serving_over_every_card(dev, tmp_path):
         assert rec["final_lengths_ok"]
         assert rec["paged_launches_by_route"]["simt"] == 0
         assert rec["paged_launches_by_route"]["mma"] == 16 * rec["layers"]
+
+
+# the attention families' serving cases over (1, cards): (arch, the
+# worker's arguments beside fp32 and 2 layers)
+ATTN_SERVING = (("deepseek_r1", ["--experts", "16"]),
+                ("pixtral_12b", []),
+                ("h2o_danube_1_8b", ["--seq", "5120", "--max-len", "8192"]))
+
+
+def test_attention_families_serving_over_every_card(dev, tmp_path):
+    """``build_cell``'s prefill and decode cells over (1, cards) as
+    ``test_sharded_serving_over_every_card``'s, fp32 at every published
+    width with 2 layers, against the one-device ``prefill`` and
+    ``decode_step`` on one card: DeepSeek-R1 (16 of its 256 experts) over
+    its latent cache, Pixtral-12B with 1024 patches before its 1024
+    tokens, H2O-Danube-1.8B with a prompt of 5120 (its window of 4096
+    wrapped) into a ring of 4096 slots over the cards.  Every token
+    equal, the first step's logits within ``SERVING_LOGITS_BOUND`` of
+    their scale.  Skips with fewer than two cards."""
+    import json
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards (has {n})")
+    gaps = {}
+    for arch, extra in ATTN_SERVING:
+        common = ["--arch", arch, "--layers", "2"] + extra
+        want = _serve_record(common, tmp_path / f"{arch}_one.pt")
+        scale = want["logits0"].abs().max().item()
+        got = _serve_record(common, tmp_path / f"{arch}_all.pt", nproc=n)
+        gaps[f"{arch} (1, {n})"] = dict(
+            tokens_equal=bool(torch.equal(got["tokens"], want["tokens"])),
+            logits_gap=(got["logits0"] - want["logits0"]).abs().max()
+            .item() / scale)
+    print(json.dumps({"attention_families_serving": {"cards": n,
+                                                     "gaps": gaps}}))
+    for g in gaps.values():
+        assert g["tokens_equal"], gaps
+        assert g["logits_gap"] <= SERVING_LOGITS_BOUND, gaps
+
+
+def test_deepseek_decode_256_experts_over_every_card(dev, tmp_path):
+    """The configuration no card holds: DeepSeek-R1's ``decode_32k`` cell
+    in bf16 at every published width with 4 layers and all 256 experts
+    (4 x 26.7 GB of experts), B 32 x 32768 over (1, cards): each rank its
+    256 / cards experts, the replicated MLA weights and its 32768 / cards
+    positions of the latent cache (random values), 16 steps: ms a step,
+    tokens/s, the peak of every rank and one step's collectives (counts,
+    ring wire bytes a rank), printed as JSON.  Skips with fewer than four
+    cards."""
+    import json
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs four or more cards (has {n})")
+    rec = _serve_record(["--mode", "bench", "--arch", "deepseek_r1",
+                         "--layers", "4", "--dtype", "bfloat16", "--batch",
+                         "32", "--seq", "32768"], tmp_path / "ds.pt",
+                        nproc=n, timeout=900)
+    print(json.dumps({"deepseek_decode_256_experts": rec}))
+    assert rec["final_lengths_ok"]
+    assert rec["collectives_a_step"]["counts"] == {"all-reduce": 1 + 3 * 4,
+                                                   "all-gather": 1}
+    assert max(rec["peak_gb_by_rank"]) < 80
 
 
 def _train_readings(args, nproc=0, timeout=900):

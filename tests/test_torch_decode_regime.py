@@ -34,7 +34,8 @@ weights from the JAX package's ``init_params``.  Cases:
   ``decode_step`` bit for bit, with the collectives skipped and with
   them sent through a stand-in group of one (the sharded code path at
   tp 1);
-- (f) the refusals.
+- (f) the refusals: the SSM, the hybrid and the encoder-decoder wait;
+  MLA, the vision decoder and the window's ring build.
 """
 import dataclasses
 import functools
@@ -407,14 +408,17 @@ def test_refusals():
     m2 = mesh_lib.make_test_mesh(1, 2)
     for arch, item in (("mamba2_370m", "SSM"), ("recurrentgemma_2b",
                                                 "RG-LRU"),
-                       ("h2o_danube_1_8b", "windowed ring"),
-                       ("deepseek_r1", "MLA's latent cache"),
-                       ("whisper_base", "encoder-decoder"),
-                       ("pixtral_12b", "vision decoder")):
+                       ("whisper_base", "encoder-decoder")):
         for shape in ("decode_32k", "prefill_32k"):
             with pytest.raises(NotImplementedError,
                                match=f"{item}.*ROADMAP Queue A item 3"):
                 steps.build_cell(arch, shape, m2)
+    # MLA's latent cache, the vision decoder and the window's ring serve
+    for arch in ("deepseek_r1", "pixtral_12b", "h2o_danube_1_8b"):
+        assert isinstance(steps.build_cell(arch, "prefill_32k", m2),
+                          steps.PrefillCell)
+        assert isinstance(steps.build_cell(arch, "decode_32k", m2),
+                          steps.DecodeCell)
     # a prefill runs the q-head split, or where the heads do not split
     # (qwen2's 14 over 4 ranks) the seq mode; its decode replicates the
     # attention

@@ -571,21 +571,23 @@ def test_sharded_step_on_one_rank_is_the_one_device_step_bit_for_bit():
 
 def test_refusals():
     mesh = mesh_lib.make_test_mesh(1, 2)
-    # the SSM, RG-LRU, MLA, encoder-decoder and vision rules wait (Queue
-    # A item 3.2); heads that do not split run the seq mode
-    for arch in ("recurrentgemma_2b", "mamba2_370m", "deepseek_r1",
-                 "whisper_base", "pixtral_12b"):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue A item 3"):
-            steps.build_cell(arch, "train_4k", mesh)
+    # the SSM, RG-LRU and encoder-decoder rules wait (Queue A item 3.2),
+    # in training and in the serving cells; heads that do not split run
+    # the seq mode; MLA and the vision decoder train
+    for arch in ("recurrentgemma_2b", "mamba2_370m", "whisper_base"):
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP Queue A item 3"):
+                steps.build_cell(arch, shape, mesh)
     assert steps.build_cell("smollm_360m", "train_4k", mesh).note == \
         "attention=seq"
-    # the serving cells take the dense and MoE GQA decoders; an SSM waits,
-    # and MLA's latent cache
-    for arch in ("mamba2_370m", "deepseek_r1"):
-        for shape in ("prefill_32k", "decode_32k"):
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                steps.build_cell(arch, shape, mesh)
+    for arch in ("deepseek_r1", "pixtral_12b"):
+        assert steps.build_cell(arch, "train_4k", mesh).note.startswith(
+            "attention=heads")
+    # MLA has no seq mode: q heads that do not split refuse
+    with pytest.raises(NotImplementedError, match="MLA q heads"):
+        steps.build_cell("deepseek_r1", "train_4k", mesh_lib.make_test_mesh(
+            1, 3), over=dict(num_heads=4, vocab_size=129264))
     # fsdp takes every family; no other regime exists
     assert steps.build_cell("mamba2_370m", "train_4k", mesh,
                             train_regime="fsdp").regime == "fsdp"

@@ -9,8 +9,11 @@ a local parameter when it has more than one microbatch, and its ZeRO-1
 state is 12 B a parameter over the ranks (within the padding).  The full
 Qwen3-30B-A3B at ``train_4k`` on (16, 8) holds about 3.9 B parameters a
 rank and fits in 80 GB before activations; the full DeepSeek-R1 does
-not; on one node (1, 8) Qwen3-30B-A3B's ZeRO-1 state alone is ~46 GB
-and the rank's sum ~77 GB before activations.
+not (though ``build_cell`` takes it); on one node (1, 8) Qwen3-30B-A3B's
+ZeRO-1 state alone is ~46 GB
+and the rank's sum ~77 GB before activations.  DeepSeek-R1's and
+Pixtral-12B's train and serving cells and H2O-Danube-1.8B's serving cells
+run, with the design's collectives (no all-to-all for MLA's prefill).
 """
 import json
 
@@ -88,7 +91,8 @@ def test_qwen3_on_the_production_mesh_and_on_one_node(records):
     assert 75e9 < one["per_rank_total_bytes"] < 80e9
     ds = dryrun.reckon("deepseek_r1", "train_4k",
                        mesh_lib.make_production_mesh())
-    assert not ds["fits_80gb"] and not ds["runs"]
+    # build_cell takes it (MLA in the tp regime); it does not fit
+    assert not ds["fits_80gb"] and ds["runs"]
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen3_moe_30b"])
@@ -161,3 +165,53 @@ def test_seq_cells_run_with_the_designs_collectives(arch):
     assert pre["note"] == train["note"] == "attention=seq"
     assert pre["collectives"] == {"all-reduce": 1 + 2 * L, "all-gather": 1}
     assert llama["collectives"]["all-to-all"] == 2
+
+
+ATTN_CELLS = [("deepseek_r1", s) for s in ("train_4k", "prefill_32k",
+                                           "decode_32k")] \
+    + [("pixtral_12b", s) for s in ("train_4k", "prefill_32k",
+                                    "decode_32k")] \
+    + [("h2o_danube_1_8b", s) for s in ("prefill_32k", "decode_32k",
+                                        "long_500k")]
+
+
+@pytest.mark.parametrize("arch,shape", ATTN_CELLS,
+                         ids=[f"{a}-{s}" for a, s in ATTN_CELLS])
+def test_attention_family_cells_run_with_the_designs_collectives(arch,
+                                                                 shape):
+    """DeepSeek-R1's MLA and Pixtral-12B's vision decoder in the train and
+    both serving cells, and H2O-Danube-1.8B's ring in the serving cells
+    (``long_500k`` among them), run on the production mesh (16, 8).  A
+    prefill's collectives are 1 + 2 L all-reduces and the logits'
+    all-gather, with the two all-to-alls of K and V (a ring's over its
+    slots) and none for MLA, whose latent every rank holds; a decode step
+    1 + 3 L all-reduces and the argmax's all-gather, whatever the cache.
+    The gloo runs hold these counts to what the ranks send
+    (``test_torch_attn_families_tp.py``).  The ring's cache is its 4096
+    slots over the model axis, at any sequence."""
+    mesh = mesh_lib.make_production_mesh()
+    cfg = get_config(arch)
+    L = cfg.num_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        rec = dryrun.reckon(arch, shape, mesh)
+    assert rec["runs"], rec["why_not"]
+    kind = dryrun.SHAPES[shape].kind
+    if kind == "prefill":
+        want = {"all-reduce": 1 + 2 * L, "all-gather": 1}
+        if not cfg.use_mla:
+            want["all-to-all"] = 2
+        assert rec["collectives"] == want
+    elif kind == "decode":
+        assert rec["collectives"] == {"all-reduce": 1 + 3 * L,
+                                      "all-gather": 1}
+    else:
+        assert rec["note"] == "attention=heads" + (
+            f", EP {cfg.num_experts}/8 experts per shard" if cfg.is_moe
+            else "")
+    if cfg.sliding_window and kind == "decode":
+        B = dryrun.SHAPES[shape].global_batch
+        rows = B // 16 if B % 16 == 0 else B
+        slots = cfg.sliding_window // 8
+        assert rec["per_rank_bytes"]["cache"] == L * rows * slots * (
+            2 * cfg.num_kv_heads * cfg.head_dim * 2 + 4)

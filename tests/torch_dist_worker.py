@@ -182,10 +182,12 @@ def task_train(mesh, job):
     params = shd.shard_params(_t(job["params"]), cell.param_specs, mesh)
     opt = cell.init_opt(params)
     out = {"steps": [], "microbatches": cell.microbatches}
-    for toks, labels in zip(job["tokens"], job["labels"]):
+    for i, (toks, labels) in enumerate(zip(job["tokens"], job["labels"])):
+        batch = {"tokens": _t(toks), "labels": _t(labels)}
+        if "patches" in job:        # the vision decoder's
+            batch["patches"] = _t(job["patches"][i])
         C.reset_events()
-        r = cell.step(params, opt, {"tokens": _t(toks),
-                                    "labels": _t(labels)})
+        r = cell.step(params, opt, batch)
         stats = C.collective_stats()
         out["steps"].append((float(r["loss"]), float(r["grad_norm"]),
                              stats, _gathered(cell.param_specs, params, opt,
@@ -248,13 +250,21 @@ def task_serve(mesh, job):
     decode-cell steps from its cache: the prefill logits of this rank's
     rows, the cache gathered from every rank (``gather_cache``) after the
     prefill and after the last step (and whether ``shard_cache`` cuts the
-    gathered cache back into this rank's, each leaf contiguous), the first step's logits (gathered
-    over the model group) and each step's tokens of this rank's rows, and
-    the collectives of the prefill and of each step."""
+    gathered cache back into this rank's, each leaf contiguous), the first
+    step's logits (gathered over the model group) and each step's tokens
+    of this rank's rows, and the collectives of the prefill and of each
+    step.  The vision decoder's prompts hold ``patches`` before the
+    tokens; ``lengths``, where given, are the rows' positions at the first
+    step (else the prompt's)."""
     cfg = config(job["arch"], job.get("over"))
     over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     toks = _t(job["tokens"])
-    B, S = toks.shape
+    batch = {"tokens": toks}
+    if "patches" in job:
+        batch["patches"] = _t(job["patches"])
+    B = toks.shape[0]
+    S = toks.shape[1] + (batch["patches"].shape[1] if "patches" in job
+                         else 0)
     n = job["max_len"]
     pc = steps.build_cell(job["arch"], "prefill_32k", mesh, batch_seq=(B, S),
                           over=over, max_len=n)
@@ -264,7 +274,7 @@ def task_serve(mesh, job):
     pp = shd.shard_params(full, pc.param_specs, mesh)
     dp = shd.shard_params(full, dc.param_specs, mesh)
     C.reset_events()
-    logits, cache = pc.step(pp, {"tokens": toks})
+    logits, cache = pc.step(pp, batch)
     out = {"prefill_events": _events(), "prefill_logits": _np(logits),
            "cache_shape": {k: tuple(t.shape) for k, t in cache.items()}}
     whole = shd.gather_cache(cache, dc.cache_specs, mesh)
@@ -275,6 +285,8 @@ def task_serve(mesh, job):
                              for k, t in cache.items())
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     lengths = torch.full(tok.shape, S, dtype=torch.int32)
+    if "lengths" in job:
+        lengths = dc.local_batch({"lengths": _t(job["lengths"])})["lengths"]
     model = mesh.comm.model
     part, _ = T.decode_step_logits(cfg, dp, {k: t.clone() for k, t in
                                              cache.items()}, tok, lengths,

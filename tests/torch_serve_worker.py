@@ -8,8 +8,10 @@ The mesh is (D, N / D) over ("data", "model"); NCCL on the cards, gloo
 with ``--device cpu``.  Rank 0 writes what it read to OUT (``torch.save``).
 
 ``check``: the prefill cell on ``--batch`` random prompts of ``--seq``
-tokens into a cache of ``--max-len``, then ``--steps`` decode-cell steps:
-each step's tokens and the first step's logits, gathered over the mesh.
+tokens (the vision decoder's after its ``num_patches`` random patches)
+into a cache of ``--max-len`` (a window's ring of min(window, max-len)
+slots), then ``--steps`` decode-cell steps: each step's tokens and the
+first step's logits, gathered over the mesh.
 Run as one process (no ``torch.distributed.run``) it runs the one-device
 ``prefill`` and ``decode_step`` instead, the reference the mesh is held
 to.
@@ -30,6 +32,7 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch import compat
 from repro_torch.configs import get_config, reduced_config
 from repro_torch.distributed import collectives as C
 from repro_torch.kernels.paged_attention import ops as paged_ops
@@ -43,6 +46,8 @@ def _config(args):
     over = dict(dtype=args.dtype)
     if args.layers:
         over["num_layers"] = args.layers
+    if args.experts:
+        over["num_experts"] = args.experts
     return dataclasses.replace(cfg, **over)
 
 
@@ -54,11 +59,13 @@ def _sync(dev):
 def _one_device(args, cfg, dev):
     """The reference: ``prefill`` (its cache installed in one of
     ``--max-len``) and ``decode_step`` on one device."""
-    toks = _prompts(args, cfg, dev)
+    toks, patches = _prompts(args, cfg, dev)
     params = T.init_params(cfg, args.seed, dev)
-    logits, cache = T.prefill(cfg, params, toks, max_len=args.max_len)
+    logits, cache = T.prefill(cfg, params, toks, patches=patches,
+                              max_len=args.max_len)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    lengths = torch.full(tok.shape, args.seq, dtype=torch.int32, device=dev)
+    lengths = torch.full(tok.shape, _positions(args, cfg),
+                         dtype=torch.int32, device=dev)
     first, _ = T.decode_step_logits(cfg, params, {k: t.clone() for k, t in
                                                   cache.items()}, tok,
                                     lengths)
@@ -70,24 +77,40 @@ def _one_device(args, cfg, dev):
 
 
 def _prompts(args, cfg, dev):
+    """(tokens, the vision decoder's patches or None), from ``--seed``."""
     gen = torch.Generator().manual_seed(args.seed)
-    return torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
+    toks = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
                          generator=gen, dtype=torch.int32).to(dev)
+    if cfg.family != "vlm":
+        return toks, None
+    patches = torch.randn((args.batch, cfg.num_patches, cfg.d_model),
+                          generator=gen)
+    return toks, patches.to(dev, compat.torch_dtype(cfg.dtype))
+
+
+def _positions(args, cfg):
+    """A prompt's positions: its tokens, after the vision decoder's
+    patches."""
+    return args.seq + (cfg.num_patches if cfg.family == "vlm" else 0)
 
 
 def _check(args, cfg, mesh, dev):
     over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    n = _positions(args, cfg)
     pc = build_cell(args.arch, "prefill_32k", mesh,
-                    batch_seq=(args.batch, args.seq), over=over,
+                    batch_seq=(args.batch, n), over=over,
                     max_len=args.max_len)
     dc = build_cell(args.arch, "decode_32k", mesh,
                     batch_seq=(args.batch, args.max_len), over=over)
     comm = mesh.comm
-    logits, cache = pc.step(pc.init_state(args.seed, dev),
-                            {"tokens": _prompts(args, cfg, dev)})
+    toks, patches = _prompts(args, cfg, dev)
+    batch = {"tokens": toks}
+    if patches is not None:
+        batch["patches"] = patches
+    logits, cache = pc.step(pc.init_state(args.seed, dev), batch)
     params = dc.init_state(args.seed, dev)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
-    lengths = torch.full(tok.shape, args.seq, dtype=torch.int32, device=dev)
+    lengths = torch.full(tok.shape, n, dtype=torch.int32, device=dev)
     part, _ = T.decode_step_logits(cfg, params, {k: t.clone() for k, t in
                                                  cache.items()}, tok,
                                    lengths, comm)
@@ -169,6 +192,8 @@ def main():
     ap.add_argument("--mode", choices=["check", "bench"], default="check")
     ap.add_argument("--arch", default="llama3_2_1b")
     ap.add_argument("--layers", type=int, default=0, help="0: full depth")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="0: every routed expert")
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--data", type=int, default=1)
