@@ -494,6 +494,35 @@ result):
     ``tests/test_torch_cuda.py``'s ``deepseek_tp`` and ``pixtral_tp``
     training cases, DeepSeek-R1, Pixtral-12B and H2O-Danube-1.8B in the
     serving case, and ``test_deepseek_decode_256_experts_over_every_card``.
+22. the recurrent and encoder-decoder families over a model group on one
+    card.  (a) ``build_cell``'s ``tp`` train cell on an NCCL group of one,
+    3 steps each of Mamba2-370M (full depth, 4 x 4096), RecurrentGemma-2B
+    (1 unit + 2 tail layers, 2 x 8192) and Whisper-base (full, 16 x 448
+    over 1536 frames), bf16, AdamW lr 1e-4: losses and grad norms equal
+    the one-device ``train_step``'s in bits; then the loss and its
+    gradients with every collective sent, as many all-reduces as the
+    design's, the loss within rtol 1e-5 and every gradient finite (their
+    gap to the skipped run's recorded).  (b) One layer of each at every
+    published width, rank by rank against the one-device layer:
+    Mamba2-370M's SSM layer at tp 8 (its ranks as threads: the gated
+    norm's mean square is summed over them), RecurrentGemma-2B's RG-LRU and local-attention sublayers
+    at tp 2 (heads) and tp 4 (``seq``), Whisper-base's decoder layer with
+    its cross-attention at tp 8; outputs and every gradient within
+    TOL[bf16] of scale, and the check refuses the SSM norm over a rank's
+    channels, B's gradient of one rank alone and Whisper's positions
+    added before the embedding's reduce.  (c) Their serving cells on the
+    NCCL group of one, collectives skipped and sent: Mamba2-370M 4 x 4096
+    and 16 steps, RecurrentGemma-2B 4 x 3072 into 4096 (its ring of 2048
+    wrapped), Whisper-base 4 x 32 into 448; tokens and logits equal the
+    one-device path's bits, the sent collectives the design's; Whisper's
+    cross cache in 4 shards merged against the whole at ``_scaled_tol``,
+    refusing the merge without rank 0's shard.  (d) ``ssd_scan`` and
+    ``ssd_scan_bwd`` at a Mamba2-370M rank's 4 of 32 heads, and the flash
+    forward and backward at RecurrentGemma-2B's ``seq`` rank 3 of 4, timed
+    against their plain versions and bounds.  It prints
+    ``{"multi_gpu_recurrent_encdec": ...}``.  Four cards:
+    ``tests/test_torch_cuda.py``'s ``mamba_tp``, ``recurrentgemma_tp`` and
+    ``whisper_tp`` training cases and the three in the serving case.
 
 The line before the last is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {...}}``.
@@ -4981,8 +5010,7 @@ def _sent_callers(cell, params, batch, comm):
     ``attention_share`` and ``ffn_share``, ``_chunk_ce_tp``'s
     ``ce_shard`` / ``ce_merge`` over the group), each all-reduce through
     NCCL at world size 1.  The loss within rtol 1e-5 of the skipped run's
-    (``ce_merge``'s rescaled sum rounds otherwise than ``logsumexp``) and
-    every leaf's gradient within TOL[bf16] of its scale; every collective
+    and every leaf's gradient within TOL[bf16] of its scale; every collective
     an all-reduce, as many as the design predicts at remat on (those of
     ``tests/test_torch_distributed.py``'s ``AR_LAYER`` / ``AR_CE_CHUNK``):
     the embedding's; a MoE layer's three row-parallel reduces, the
@@ -5458,8 +5486,8 @@ def _tp8_vocab(dev):
         hc, lc = h8[:, s0:s0 + T.CE_CHUNK], labels[:, s0:s0 + T.CE_CHUNK]
         stats = [T.ce_shard(cfg, {"lm_head": w}, hc, lc, m, TP8)
                  for m, w in enumerate(Ws)]
-        mx, se, ll = (torch.stack(t) for t in zip(*stats))
-        t, n = T.ce_merge(mx, se, ll, lc, lambda x: x.amax(0),
+        lse, ll = (torch.stack(t) for t in zip(*stats))
+        t, n = T.ce_merge(lse, ll, lc, lambda x: x.amax(0),
                           lambda x: x.sum(0))
         tot, cnt = tot + t, cnt + n
     loss8 = tot / cnt
@@ -6295,6 +6323,12 @@ class _ThreadRank:
     def all_gather(self, x):
         return torch.cat(self._exchange("all-gather", x.contiguous()), 0)
 
+    def reduce_out(self, x):            # forward only: serving
+        return self.all_reduce(x)
+
+    def copy_in(self, *xs):
+        return xs[0] if len(xs) == 1 else xs
+
 
 def _in_threads(fns):
     """Each of ``fns`` in a thread of its own; their results in order (the
@@ -6943,6 +6977,699 @@ def attn_families_path(dev):
     return used, stats
 
 
+# --------------------------------------------------------------- phase 22
+REC_TP_STEPS = 3
+# (a): the tp train cell on an NCCL group of one: (arch, config overrides,
+# global batch, sequence); RecurrentGemma-2B cut to 1 unit + 2 tail
+REC_TRAIN = (("mamba2_370m", {}, 4, 4096),
+             ("recurrentgemma_2b", dict(num_layers=5), 2, 8192),
+             ("whisper_base", {}, 16, 448))
+REC_TRAIN_LR = 1e-4
+# (b): one layer rank by rank: (batch, sequence) and the tp of each case
+REC_LAYER = (2, 4096)
+REC_LAYER_WHISPER = (2, 448)
+# (c): (arch, prompts, prompt tokens, cache positions); decode steps
+REC_SERVE = (("mamba2_370m", 4, 4096, 4096),
+             ("recurrentgemma_2b", 4, 3072, 4096),
+             ("whisper_base", 4, 32, 448))
+REC_STEPS = 16
+# (d): the kernels at a rank's shapes: Mamba2-370M's 4 of 32 heads at
+# tp 8 over (a)'s 4 x 4096 tokens; RecurrentGemma-2B's seq rank 3 of 4
+# over (a)'s 2 x 8192
+REC_RANK_SCAN = (4, 32 // 8, 4096 // 64, 128, 64)
+REC_RANK_FLASH = (2, 8192, 4, 3)
+
+
+class _ThreadSum:
+    """A model group of ``size`` ranks whose forwards run as threads on
+    one card (each rank's handle from ``rank``), its collectives in the
+    autograd graph: an all-reduce puts the rank's tensor in its slot,
+    waits for every rank and returns the slots' sum in rank order, a
+    differentiable sum over tensors of every rank's graph; ``copy_in`` is
+    the identity (the ranks read one h, whose gradient autograd sums) and
+    ``reduce_out`` and ``reduce_whole`` are that sum.  One backward from
+    the main thread then runs the ranks' graphs as one: the card's
+    autograd engine runs a device's nodes on one thread, so ranks that
+    wait for each other in their backward could not."""
+
+    def __init__(self, size: int):
+        import threading
+        self.size, self.slots = size, [None] * size
+        self.barrier = threading.Barrier(size, timeout=300)
+
+    def rank(self, m: int):
+        return _ThreadSumRank(self, m)
+
+
+class _ThreadSumRank:
+    trivial = False
+
+    def __init__(self, group, m):
+        self.group, self.rank, self.size = group, m, group.size
+
+    def all_reduce(self, x, op="sum"):
+        g = self.group
+        g.slots[self.rank] = x
+        g.barrier.wait()
+        r = g.slots[0]
+        for t in g.slots[1:]:
+            r = torch.maximum(r, t) if op == "max" else r + t
+        g.barrier.wait()
+        return r
+
+    reduce_out = reduce_whole = all_reduce
+
+    def copy_in(self, *xs):
+        return xs[0] if len(xs) == 1 else xs
+
+
+def _rank_leaves(stack, specs, tp, m):
+    """Rank ``m`` of ``tp``'s slices of layer 0 of a stacked tree, as
+    leaves that require grad."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_lib
+    loc = shd.shard_params(stack, specs, mesh_lib.Mesh(
+        ("data", "model"), (1, tp), rank=m))
+    return _map_layer(loc, lambda t: t[0].detach().requires_grad_(True))
+
+
+def _layer_specs(specs):
+    return _map_layer(specs, lambda sp: sp[1:])
+
+
+def _full_grad(path, one, specs, locs, tp, reduced):
+    """The whole gradient of the leaf at ``path`` from the ranks' local
+    ones: a split leaf's slices put in place; a replicated leaf's rank 0
+    gradient when ``reduced`` (its ranks' parts summed by ``copy_in``),
+    else the ranks' parts summed."""
+    from repro_torch.distributed import sharding as shd
+    t, sp = _at(one, path), _at(specs, path)
+    acc = torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+    if reduced and all(e is None for e in sp):
+        return _at(locs[0], path).grad.float()
+    for m, loc in enumerate(locs):
+        g = _at(loc, path).grad
+        if g is not None:
+            acc[shd.dim_slices(sp, t.shape, {"data": 1, "model": tp},
+                               {"data": 0, "model": m})] += g.float()
+    return acc
+
+
+def _rank_sum_check(name, run, stack, specs, h0, up, tp, extra=()):
+    """``run(p, h, m, tp, *extra)`` on one device and summed over the
+    ranks in one process (``copy`` the identity: a whole leaf's gradient
+    is the ranks' parts summed) on layer 0 of ``stack``: the outputs, the
+    gradients of h and of the ``extra`` inputs, and every leaf's gradient
+    within TOL[bf16] of scale (``_scaled_check``).  Returns (the worst
+    error over scale, the one-device output, the ranks' local leaves)."""
+    lsp = _layer_specs(specs)
+    one = _map_layer(stack, lambda t: t[0].detach().requires_grad_(True))
+    locs = [_rank_leaves(stack, specs, tp, m) for m in range(tp)]
+    sides = []
+    for n, ps in ((1, [one]), (tp, locs)):
+        h = h0.clone().requires_grad_(True)
+        xs = [x.clone().requires_grad_(True) for x in extra]
+        y = None
+        for m, p in enumerate(ps):
+            part = run(p, h, m, n, *xs)
+            y = part if y is None else y + part
+        (y.float() * up).sum().backward()
+        sides.append([y.detach(), h.grad] + [x.grad for x in xs])
+    worst = 0.0
+    for what, got, want in zip(["out", "dh"] + [f"d{i}" for i in
+                                                range(len(extra))],
+                               sides[1], sides[0]):
+        worst = max(worst, _scaled_check(f"{name} {what}", got, want,
+                                         quiet=True))
+    for path, t in _paths_of(one):
+        if t.grad is not None:
+            worst = max(worst, _scaled_check(
+                f"{name} d{'.'.join(path)}",
+                _full_grad(path, one, lsp, locs, tp, False), t.grad,
+                quiet=True))
+    log(f"  {name}: outputs, input and leaf gradients of the ranks' sum "
+        f"within TOL[bf16] of scale (worst |err| / scale {worst:.2e})")
+    return worst, sides[0][0], locs
+
+
+def _ssm_layer_threads(dev, cfg, stack, specs, h0, up, tp, *,
+                       norm_group=True):
+    """The SSM layer's share on each of ``tp`` ranks, its forward run as
+    threads over a ``_ThreadSum`` on the card (the gated norm's mean
+    square summed over them), then one backward of rank 0's reduced
+    output against ``up``: (the reduced output, h with its gradient, the
+    ranks' local leaves with their gradients: a replicated leaf's, B's
+    and C's among them, its part)."""
+    from repro_torch.models import transformer as T
+    group = _ThreadSum(tp)
+    locs = [_rank_leaves(stack, specs, tp, m) for m in range(tp)]
+    h = h0.clone().requires_grad_(True)
+
+    def rank(m):
+        torch.cuda.set_device(dev)
+        g = group.rank(m)
+        return g.reduce_out(T.ssm_share(cfg, locs[m], h, g.copy_in,
+                                        g if norm_group else None))
+
+    y = _in_threads([lambda m=m: rank(m) for m in range(tp)])[0]
+    (y.float() * up).sum().backward()
+    return y.detach(), h, locs
+
+
+def _rec_layers_rank_by_rank(dev):
+    """Phase 22 (b): one layer of each family at every published width,
+    bf16, B2 S4096 (Whisper's decoder S448 over 1536 encoder states),
+    rank by rank against the one-device layer: Mamba2-370M's SSM layer at
+    tp 8 (its ranks' forwards as threads over a ``_ThreadSum``: the gated
+    norm's mean square is summed over them; B and C read whole),
+    RecurrentGemma-2B's RG-LRU sublayer and its local attention
+    sublayer at tp 2 (heads) and tp 4 (``seq``), Whisper-base's
+    decoder layer (self-attention, cross-attention on the states, MLP)
+    at tp 8.  Outputs, input gradients and every leaf's gradient within
+    TOL[bf16] of scale; the check refuses the SSM norm over a rank's
+    channels alone, B's gradient left unreduced and Whisper's positions
+    added on every rank before the embedding's reduce."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.models.api import MeshAxes
+    bf = torch.bfloat16
+    B, S = REC_LAYER
+    gen = torch.Generator(device=dev).manual_seed(221)
+    out = {}
+
+    def setup(arch, tp, n_layers, S):
+        cfg = dataclasses.replace(get_config(arch), num_layers=n_layers)
+        params = T.init_params(cfg, 22, dev)
+        specs = shd.param_specs(cfg, MeshAxes(), tp, "tp")
+        h0 = _rand(gen, (B, S, cfg.d_model), bf, dev)
+        up = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+        return cfg, params, specs, h0, up
+
+    # Mamba-2 at tp 8, threads
+    tp = 8
+    cfg, params, specs, h0, up = setup("mamba2_370m", tp, 1, S)
+    stack, sp = params["layers"], specs["layers"]
+    one = _map_layer(stack, lambda t: t[0].detach().requires_grad_(True))
+    h1 = h0.clone().requires_grad_(True)
+    y1 = T.ssm_share(cfg, one, h1)
+    (y1.float() * up).sum().backward()
+    y8, h8, locs = _ssm_layer_threads(dev, cfg, stack, sp, h0, up, tp)
+    worst = max(_scaled_check("phase 22 (b) SSM tp8 out", y8, y1),
+                _scaled_check("phase 22 (b) SSM tp8 dh", h8.grad, h1.grad))
+    lsp = _layer_specs(sp)
+    for path, t in _paths_of(one):
+        worst = max(worst, _scaled_check(
+            f"phase 22 (b) SSM tp8 d{'.'.join(path)}",
+            _full_grad(path, one, lsp, locs, tp, False), t.grad,
+            quiet=True))
+    wrong, _, _ = _ssm_layer_threads(dev, cfg, stack, sp, h0, up, tp,
+                                     norm_group=False)
+    e_norm = _refuses_scaled("phase 22 (b) SSM tp8 out", wrong, y1,
+                             "gated norm over a rank's channels alone")
+    e_wb = _refuses_scaled("phase 22 (b) SSM tp8 dwB",
+                           locs[0]["ssm"]["wB"].grad, one["ssm"]["wB"].grad,
+                           "wB's gradient of one rank alone (unreduced)")
+    out["ssm_tp8"] = dict(worst_err_over_scale=worst,
+                          norm_over_rank_refused=e_norm,
+                          wB_unreduced_refused=e_wb)
+    del params, stack, one, locs, h8, wrong
+    # RecurrentGemma-2B: the RG-LRU and the ring sublayers
+    for tp in (2, 4):
+        cfg, params, specs, h0, up = setup("recurrentgemma_2b", tp, 3, S)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None] \
+            .expand(B, S)
+        tab = layers.rope_tables(pos, layers.rope_dim(cfg), cfg.rope_theta)
+        mode = "seq" if T.seq_split(cfg, tp) else "heads"
+        w_rec, _, _ = _rank_sum_check(
+            f"phase 22 (b) RG-LRU sublayer tp{tp}",
+            lambda p, h, m, n: T.rglru_share(cfg, p, h),
+            params["units"]["b0"], specs["units"]["b0"], h0, up, tp)
+        w_att, _, _ = _rank_sum_check(
+            f"phase 22 (b) local attention tp{tp} ({mode})",
+            lambda p, h, m, n: T.attention_share(
+                cfg, p, h, pos, tab, m, n, leaves="t",
+                window=cfg.local_window),
+            params["units"]["b2"], specs["units"]["b2"], h0, up, tp)
+        out[f"recurrentgemma_tp{tp}"] = dict(mode=mode, rglru_worst=w_rec,
+                                             attention_worst=w_att)
+        del params
+    # Whisper-base's decoder layer at tp 8
+    tp = 8
+    Bw, Sw = REC_LAYER_WHISPER
+    B = Bw
+    cfg, params, specs, h0, up = setup("whisper_base", tp, 1, Sw)
+    pos = torch.arange(Sw, dtype=torch.int32, device=dev)[None].expand(B, Sw)
+    Se = cfg.encoder_seq
+    enc = _rand(gen, (B, Se, cfg.d_model), bf, dev)
+    enc_pos = torch.arange(Se, dtype=torch.int32, device=dev)[None] \
+        .expand(B, Se)
+    stack, sp = params["layers"], specs["layers"]
+    w = max(
+        _rank_sum_check("phase 22 (b) Whisper self-attention tp8",
+                        lambda p, h, m, n: T.attention_share(
+                            cfg, p, h, pos, None, m, n), stack, sp, h0, up,
+                        tp)[0],
+        _rank_sum_check("phase 22 (b) Whisper cross-attention tp8",
+                        lambda p, h, m, n, e: T.attention_share(
+                            cfg, p, h, pos, None, m, n, leaves="xattn",
+                            norm="ln2", causal=False, states=(e, enc_pos)),
+                        stack, sp, h0, up, tp, (enc,))[0],
+        _rank_sum_check("phase 22 (b) Whisper MLP tp8",
+                        lambda p, h, m, n: T.ffn_share(
+                            cfg, p, h, m, n, norm="ln3")[0], stack, sp, h0,
+                        up, tp)[0])
+    tokens = torch.randint(0, cfg.vocab_size, (B, Sw), generator=gen,
+                           device=dev)
+    want, _ = T._assemble_inputs(cfg, params, tokens)
+    Vl = T.padded_vocab(cfg) // tp
+    shares = [T.embed_share(cfg, dict(params, embed=params["embed"][
+        m * Vl:(m + 1) * Vl]), tokens, m, tp) for m in range(tp)]
+    got, _ = T.embed_finish(cfg, params, sum(shares))
+    if not torch.equal(got, want):
+        raise AssertionError("phase 22 (b): Whisper's embedding reduced, "
+                             "then its positions, is not the one-device "
+                             "input's bits")
+    e_pos = _refuses_scaled("phase 22 (b) Whisper embedding", sum(
+        T.embed_finish(cfg, params, s)[0] for s in shares), want,
+        "positions added on every rank before the reduce")
+    out["whisper_tp8"] = dict(worst_err_over_scale=w,
+                              positions_before_reduce_refused=e_pos)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _rec_train_one_card(dev, arch, over, GB, S):
+    """Phase 22 (a) for one family: ``REC_TP_STEPS`` one-device
+    ``train_step``s from seed 0, then the same steps through
+    ``build_cell``'s ``tp`` cell on the NCCL group of one (its groups of
+    one skip their collectives): equal losses and grad norms in bits;
+    then the loss and its gradients with every collective of the model
+    and data groups sent: as many all-reduces as the design's
+    (``dryrun._train_all_reduces``, a cross-entropy chunk's
+    ``AR_CE_CHUNK``, the label count), the loss and every gradient the
+    skipped run's bits (both runs merge the cross-entropy's shards,
+    ``ce_merge``; at world size 1 NCCL's sums are identities).  Returns
+    (launches, numbers)."""
+    from repro_torch import kernels, optim
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import build_cell, train_step
+    from repro_torch.launch.train import step_batch
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch), **over)
+    stream = SyntheticLMStream(DataConfig(global_batch=GB, seq_len=S,
+                                          vocab_size=cfg.vocab_size, seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in step_batch(cfg, stream, i).items()}
+               for i in range(REC_TP_STEPS)]
+    reset_counts()
+    plain = _PlainCalls()
+    try:
+        params = T.init_params(cfg, 0, dev)
+        opt = optim.init_opt_state(params)
+        ocfg = optim.AdamWConfig(lr=REC_TRAIN_LR, zero1=False)
+        want = [train_step(cfg, params, opt, b, ocfg) for b in batches]
+        want = [(w["loss"].item(), w["grad_norm"].item()) for w in want]
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        mesh = mesh_lib.Mesh(("data", "model"), (1, 1)).realize("cuda")
+        cell = build_cell(cfg, "train_4k", mesh, batch_seq=(GB, S),
+                          exact_microbatches=1,
+                          opt_cfg=optim.AdamWConfig(lr=REC_TRAIN_LR))
+        params, opt = cell.init_state(0, dev)
+        C.reset_events()
+        got, secs = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = cell.step(params, opt, b)
+            got.append((r["loss"].item(), r["grad_norm"].item()))
+            secs.append(time.perf_counter() - t0)
+        skipped = len(C.EVENTS)
+        del opt
+        if got != want:
+            raise AssertionError(f"phase 22 (a) {arch}: the tp cell's losses "
+                                 f"and grad norms {got} are not the "
+                                 f"one-device step's bits {want}")
+        from repro_torch.launch.steps import loss_and_grads
+        comm = mesh.comm
+        l1, g1 = loss_and_grads(cfg, params, batches[0], comm=comm)
+        sent = C.Comm(**{f: dataclasses.replace(getattr(comm, f),
+                                                skip_one=False)
+                         for f in ("model", "data", "world")})
+        C.reset_events()
+        l2, g2 = loss_and_grads(cfg, params, batches[0], comm=sent)
+        torch.cuda.synchronize()
+        events = _kinds(C.EVENTS)
+        C.reset_events()
+    finally:
+        plain.restore()
+    used = kernels.launches()
+    if skipped:
+        raise AssertionError(f"phase 22 (a) {arch}: {skipped} collectives "
+                             f"recorded in groups of one")
+    chunks = -(-batches[0]["labels"].shape[1] // T.CE_CHUNK)
+    design = {"all-reduce": dryrun._train_all_reduces(cfg)
+              + chunks * dryrun.AR_CE_CHUNK + 1}
+    if events != design:
+        raise AssertionError(f"phase 22 (a) {arch}: collectives sent "
+                             f"{events}, the design's {design}")
+    if not torch.equal(l2, l1):
+        raise AssertionError(f"phase 22 (a) {arch}, collectives sent: loss "
+                             f"{l2.item()} is not the skipped run's bits "
+                             f"{l1.item()}")
+    unequal = [".".join(path) for (path, a), (_, w)
+               in zip(_paths_of(g2), _paths_of(g1)) if not torch.equal(a, w)]
+    if unequal:
+        raise AssertionError(f"phase 22 (a) {arch}, collectives sent: the "
+                             f"gradients of {unequal} are not the skipped "
+                             f"run's bits")
+    if any(plain.calls.values()):
+        raise AssertionError(f"phase 22 (a) {arch}: plain versions called "
+                             f"{plain.calls}")
+    step_s = statistics.median(secs[1:])
+    log(f"  phase 22 (a) {arch} bf16 ({cfg.num_layers} layers), "
+        f"{REC_TP_STEPS} steps of {GB} x {S} through build_cell's tp cell on "
+        f"an NCCL group of one: losses and grad norms {got} equal the "
+        f"one-device step's bits; {step_s:.3f} s a step; with every "
+        f"collective sent {events} (the design's), the loss and "
+        f"{sum(1 for _ in _paths_of(g1))} gradients the skipped run's "
+        f"bits; launches {used}")
+    del params, g1, g2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return used, dict(losses=[g[0] for g in got],
+                      grad_norms=[g[1] for g in got], step_s=step_s,
+                      collectives_sent=events, equal_bits=True)
+
+
+def _rec_serve_one_card(dev, arch, cfg, params, prompts, n, frames=None):
+    """Phase 22 (c) for one family: the one-device serving (``prefill``,
+    its cache installed: the hybrid's rings re-laid, Whisper's K/V into
+    ``init_cache``'s; ``REC_STEPS`` ``decode_step``s) against
+    ``build_cell``'s prefill and decode cells on the NCCL group of one,
+    its collectives skipped and then sent: tokens and logits equal in
+    bits, the sent collectives the design's.  Returns (launches, numbers,
+    the decode cell's cache and lengths after its steps)."""
+    from repro_torch.distributed import collectives as C
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as T
+    B, S = prompts.shape
+    logits0, cache = T.prefill(cfg, params, prompts, frames=frames)
+    if cfg.family == "hybrid":
+        cache = T.install_rings(cfg, T.init_cache(cfg, B, n, dev), cache)
+    elif cfg.family == "audio":
+        cache = T.install_cache(cfg, T.init_cache(cfg, B, n, dev), cache)
+    tok = torch.argmax(logits0[:, -1], dim=-1).to(torch.int32)
+    want = [tok]
+    for i in range(REC_STEPS):
+        tok, cache = T.decode_step(cfg, params, cache, tok, torch.full(
+            (B,), S + i, dtype=torch.int32, device=dev))
+        want.append(tok)
+    want = torch.stack(want)
+    del cache
+    batch = {"tokens": prompts}
+    if frames is not None:
+        batch["frames"] = frames
+    base = mesh_lib.Mesh(("data", "model"), (1, 1)).realize("cuda")
+    stats = {}
+    plain = _ServePlainCalls()
+    try:
+        for sent in (False, True):
+            mesh = _sent(base) if sent else base
+            pc = build_cell(cfg, "prefill_32k", mesh, batch_seq=(B, S),
+                            max_len=n)
+            dc = build_cell(cfg, "decode_32k", mesh, batch_seq=(B, n))
+            C.reset_events()
+            logits1, cache = pc.step(params, batch)
+            events = [_kinds(C.EVENTS)]
+            tok = torch.argmax(logits1[:, -1], dim=-1).to(torch.int32)
+            lengths = torch.full((B,), S, dtype=torch.int32, device=dev)
+            got, secs = [tok], []
+            for _ in range(REC_STEPS):
+                C.reset_events()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tok, cache, lengths = dc.step(params, cache, tok, lengths)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                events.append(_kinds(C.EVENTS))
+                got.append(tok)
+            if not (torch.equal(torch.stack(got), want) and
+                    torch.equal(logits1, logits0)):
+                raise AssertionError(f"phase 22 (c) {arch}: the cells' tokens "
+                                     f"or logits, collectives "
+                                     f"{'sent' if sent else 'skipped'}, are "
+                                     f"not the one-device path's bits")
+            design = [dryrun.design_collectives(
+                cfg, "prefill", 2, 1, 1, S, 0, 0)] + [
+                dryrun.design_collectives(cfg, "decode", 2, 1, 1, n, 0,
+                                          0)] * REC_STEPS
+            if events != (design if sent else [{}] * (REC_STEPS + 1)):
+                raise AssertionError(f"phase 22 (c) {arch}: collectives "
+                                     f"{events[:2]} ..., the design "
+                                     f"{design[:2]} ...")
+            stats["sent" if sent else "skipped"] = dict(
+                step_ms=statistics.median(secs[1:]) * 1e3,
+                collectives=events[:2])
+    finally:
+        plain.restore()
+    C.reset_events()
+    if any(plain.calls.values()):
+        raise AssertionError(f"phase 22 (c) {arch}: plain versions called "
+                             f"{plain.calls}")
+    log(f"  phase 22 (c) {arch} bf16, {B} prompts of {S} into {n}, "
+        f"{REC_STEPS} steps through build_cell's cells on an NCCL group of "
+        f"one, collectives skipped and sent ({stats['sent']['collectives']} "
+        f"the prefill and a step, as designed): tokens and logits equal "
+        f"the one-device path in bits; "
+        f"{stats['skipped']['step_ms']:.3f} / {stats['sent']['step_ms']:.3f} "
+        f"ms a step skipped / sent")
+    return dict(stats, equal_bits=True), cache, lengths
+
+
+def _cross_ranks(dev, cfg, c):
+    """Phase 22 (c): one Whisper-base layer's cross-attention over the
+    decode cell's cross cache (xk, xv (B, 1536, 8, 64)) in ``ATTN_TP``
+    sequence shards, each rank's ``decode_attention_shard`` at the
+    encoder's whole length merged, against the whole cache's launch."""
+    from repro_torch.models import layers
+    tp = ATTN_TP
+    k, v = c["xk"], c["xv"]
+    Se = k.shape[1]
+    S_l = Se // tp
+    gen = torch.Generator(device=dev).manual_seed(223)
+    q = _rand(gen, (k.shape[0], 1, cfg.num_heads, cfg.head_dim),
+              torch.bfloat16, dev)
+    enc_len = torch.full((k.shape[0],), Se, dtype=torch.int32, device=dev)
+    whole = layers.decode_attention(q, k, v, enc_len)
+    parts = [layers.decode_attention_shard(
+        q, k[:, m * S_l:(m + 1) * S_l].contiguous(),
+        v[:, m * S_l:(m + 1) * S_l].contiguous(), enc_len, m, S_l)
+        for m in range(tp)]
+    return _shards_vs_whole("phase 22 (c) cross decode", whole, parts,
+                            tp)[0]
+
+
+def _rec_rank_kernels(dev):
+    """Phase 22 (d): ``ssd_scan`` and ``ssd_scan_bwd`` at a Mamba2-370M
+    rank's 4 of 32 heads at tp 8 (``REC_RANK_SCAN``, fp32), and the flash
+    forward and backward at RecurrentGemma-2B's ``seq`` rank 3 of 4 (its
+    q rows [6144, 8192) of B2 S8192 against every key, 10 heads on 1 of
+    256, window 2048, softcap 30, bf16), each against its plain version,
+    timed through the wrapper (CUDA events), alone (``Timer.kernel_ms``;
+    the backward's kernels summed), the plain version and the bound; no
+    library call takes the softcap or computes the scans."""
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.flash_attention_bwd.ops import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.ssd_scan.ops import (ssd_state_scan,
+                                                  ssd_state_scan_plain)
+    from repro_torch.kernels.ssd_scan_bwd.ops import (
+        ssd_state_scan_bwd, ssd_state_scan_bwd_plain)
+    from repro_torch.launch.profile import KERNEL_ENTRIES
+    from repro_torch.launch.timing import Timer
+    from repro_torch.models import flash
+    from repro_torch.models import transformer as T
+    timer = Timer(dev)
+    gen = torch.Generator(device=dev).manual_seed(224)
+    rows = {}
+    shape = REC_RANK_SCAN
+    Bs, Hs, nc = shape[:3]
+    s = torch.randn(shape, generator=gen, device=dev)
+    d = torch.rand((Bs, Hs, nc), generator=gen, device=dev) * 0.9 + 0.05
+    got, want = ssd_state_scan(s, d), ssd_state_scan_plain(s, d)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("phase 22 (d) ssd_scan at a rank's heads: not "
+                             "its plain version's bits")
+    bound, by, _ = _scan_bound(s)
+    call = lambda: ssd_state_scan(s, d)  # noqa: E731
+    tag = f"(B,H,nc,N,P)={shape} fp32, a tp-8 rank's 4 of 32 heads"
+    rows["ssd_scan"] = dict(
+        shape=tag, max_abs_err=0.0, ms=timer(call),
+        alone_ms=timer.kernel_ms(call, KERNEL_ENTRIES["ssd_scan"]),
+        plain_ms=timer(lambda: ssd_state_scan_plain(s, d), iters=5),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    prev = want[0]
+    dprev = torch.randn(shape, generator=gen, device=dev)
+    got = ssd_state_scan_bwd(prev, d, dprev)
+    want = ssd_state_scan_bwd_plain(prev, d, dprev)
+    if not torch.equal(got[0], want[0]):
+        raise AssertionError("phase 22 (d) ssd_scan_bwd at a rank's heads: "
+                             "dstates not its plain version's bits")
+    mag = (want[0].abs() * prev.abs()).sum(dim=(-2, -1))
+    err = (got[1] - want[1]).abs()
+    if not (err <= 1e-5 + 1e-7 * mag + 1e-5 * want[1].abs()).all():
+        raise AssertionError(f"phase 22 (d) ssd_scan_bwd: ddecay max abs err "
+                             f"{err.max().item()}")
+    bound, by, _ = _scan_bwd_bound(prev, False)
+    call = lambda: ssd_state_scan_bwd(prev, d, dprev)  # noqa: E731
+    rows["ssd_scan_bwd"] = dict(
+        shape=tag, max_abs_err=err.max().item(), ms=timer(call),
+        alone_ms=sum(timer.kernel_ms(call, (e,))
+                     for e in KERNEL_ENTRIES["ssd_scan_bwd"]),
+        plain_ms=timer(lambda: ssd_state_scan_bwd_plain(prev, d, dprev),
+                       iters=5),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    del s, d, prev, dprev, got, want
+    bf = torch.bfloat16
+    B, S, tp, m = REC_RANK_FLASH
+    H, Hkv, D, W, cap = 10, 1, 256, 2048, 30.0
+    lo, hi = T.seq_rows(S, m, tp)
+    q = (0.5 * torch.randn((B, hi - lo, H, D), generator=gen, device=dev)) \
+        .to(bf)
+    k = (0.5 * torch.randn((B, S, Hkv, D), generator=gen, device=dev)).to(bf)
+    v = _rand(gen, (B, S, Hkv, D), bf, dev)
+    kp = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S) \
+        .contiguous()
+    qp = kp[:, lo:hi].contiguous()
+    kw = dict(window=W, softcap=cap)
+    tag = (f"rank {m} of {tp}: rows [{lo}, {hi}) of B{B} S{S} H{H}/{Hkv} "
+           f"D{D} window {W} softcap {cap:g}")
+    fwd = lambda: flash_attention(q, k, v, qp, kp, **kw)  # noqa: E731
+    want = flash_attention_plain(q, k, v, qp, kp, **kw)
+    e_fwd = _check(f"phase 22 (d) flash_attention {tag}", fwd(), want, bf,
+                   _scaled_tol(want, bf))
+    o, lse = flash.flash_attention(q, k, v, qp, kp, return_lse=True, **kw)
+    dout = _rand(gen, o.shape, bf, dev)
+    args = (q, k, v, qp, kp, o, lse, dout)
+    wants = flash_attention_bwd_plain(*args, **kw)
+    tol = _grad_tol(wants, bf)
+    e_bwd = max(_check(f"phase 22 (d) flash_attention_bwd {tag} {nm}", g, w,
+                       bf, tol)
+                for g, w, nm in zip(flash_attention_bwd(*args, **kw), wants,
+                                    ("dq", "dk", "dv")))
+    del wants
+    bwd = lambda: flash_attention_bwd(*args, **kw)  # noqa: E731
+    b_fwd, by_fwd, _, _ = _flash_bound(q, k, v, qp, kp, window=W)
+    b_bwd, by_bwd, _, _ = _flash_bwd_bound(q, k, v, window=W, q0=lo)
+    rows["flash_attention"] = dict(
+        shape=tag, max_abs_err=e_fwd, ms=timer(fwd),
+        alone_ms=timer.kernel_ms(fwd, KERNEL_ENTRIES["flash_attention"]),
+        plain_ms=timer(lambda: flash_attention_plain(q, k, v, qp, kp, **kw),
+                       iters=2, warmup=1),
+        bound_ms=b_fwd, bound_by=by_fwd, library_ms=None)
+    rows["flash_attention_bwd"] = dict(
+        shape=tag, max_abs_err=e_bwd, ms=timer(bwd, iters=10),
+        alone_ms=sum(timer.kernel_ms(bwd, (entry,), iters=10)
+                     for entry in KERNEL_ENTRIES["flash_attention_bwd"]
+                     if not entry.endswith("_simt")),
+        plain_ms=timer(lambda: flash_attention_bwd_plain(*args, **kw),
+                       iters=2, warmup=1),
+        bound_ms=b_bwd, bound_by=by_bwd, library_ms=None)
+    del args, o, lse, dout, q, k, v
+    for name, r in rows.items():
+        log(f"  phase 22 (d) {name} {r['shape']}: kernel {r['ms']:.4f} ms "
+            f"({r['alone_ms']:.4f} alone), plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} ({r['bound_by']}), "
+            f"{r['bound_ms'] / r['alone_ms']:.3f} of it alone; no library "
+            f"call")
+    del timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rec_encdec_path(dev):
+    """Phase 22: the recurrent and encoder-decoder families over a model
+    group on one card (see the module's docstring).  Returns (launches of
+    the paths, numbers)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    stats, used = {}, {}
+
+    def add(u):
+        for name, n in u.items():
+            used[name] = used.get(name, 0) + n
+
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    try:
+        # (a) the tp train cell
+        stats["train"] = {}
+        for arch, over, GB, S in REC_TRAIN:
+            u, stats["train"][arch] = _rec_train_one_card(dev, arch, over,
+                                                          GB, S)
+            add(u)
+        # (c) the serving cells
+        stats["serve"] = {}
+        gen = torch.Generator(device=dev).manual_seed(222)
+        for arch, B, S, n in REC_SERVE:
+            cfg = get_config(arch)
+            params = T.init_params(cfg, 0, dev)
+            prompts = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                    device=dev, dtype=torch.int32)
+            frames = None if cfg.family != "audio" else _rand(
+                gen, (B, cfg.encoder_seq, cfg.d_model), torch.float32, dev)
+            reset_counts()
+            st, cache, _ = _rec_serve_one_card(dev, arch, cfg, params,
+                                               prompts, n, frames)
+            add(kernels_launches())
+            if arch == "whisper_base":
+                st["cross_tp4"] = _cross_ranks(
+                    dev, cfg, {k: t[0] for k, t in cache.items()})
+            stats["serve"][arch] = st
+            del params, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    # (b) one layer rank by rank
+    reset_counts()
+    stats["layers"] = _rec_layers_rank_by_rank(dev)
+    add(kernels_launches())
+    missed = [k for k in ("flash_attention", "flash_attention_bwd",
+                          "paged_attention", "ssd_scan", "ssd_scan_bwd")
+              if not used.get(k)]
+    if missed:
+        raise AssertionError(f"phase 22: the families' paths launched no "
+                             f"{missed} (launches {used})")
+    # (d) the kernels at a rank's shapes
+    stats["rank_kernels"] = _rec_rank_kernels(dev)
+    stats["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    stats["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 22 took {stats['seconds']:.1f} s, peak device memory "
+        f"{stats['peak_gb']:.2f} GB; launches {used}")
+    return used, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device is available")
@@ -7137,17 +7864,32 @@ def main() -> int:
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
+    log(f"== 22. the recurrent and encoder-decoder families over a model "
+        f"group on one card: (a) build_cell's tp cell of Mamba2-370M, "
+        f"RecurrentGemma-2B (1 unit + 2 tail) and Whisper-base on an NCCL "
+        f"group of one, {REC_TP_STEPS} steps each, collectives skipped "
+        f"and sent; (b) one layer of each rank by rank (Mamba-2 at tp 8 "
+        f"as threads, RecurrentGemma's RG-LRU and ring at tp 2 and 4, "
+        f"Whisper's decoder layer at tp 8); (c) their serving cells, "
+        f"collectives skipped and sent, Whisper's cross cache in "
+        f"{ATTN_TP} shards; (d) the kernels at a rank's shapes")
+    rec_used, rec_stats = rec_encdec_path(dev)
+    print(json.dumps({"multi_gpu_recurrent_encdec": rec_stats}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
     for s in stats:     # each kernel's count from the path it was added for
         s["launches"] = {"fused_sampling": sampled, "moe_gemm": moe_greedy,
                          "ssd_scan": ssm, "flash_attention_bwd": trained,
                          "moe_gemm_wgrad": moe_trained,
                          "ssd_scan_bwd": ssm_trained}.get(
             s["name"], greedy)[s["name"]]
-        # the launches of phases 15-21 added (the attention kernels; phase
-        # 17's and 18's grouped GEMM and its weight gradient too)
+        # the launches of phases 15-22 added (the attention kernels; phase
+        # 17's and 18's grouped GEMM and its weight gradient too; phase
+        # 22's scans)
         s["launches"] += sum(t.get(s["name"], 0) for t in (
             hybrid_trained, encdec_trained, mla_trained, sharded_trained,
-            tp8_used, served_used, seq_used, attn_used))
+            tp8_used, served_used, seq_used, attn_used, rec_used))
 
     log(f"== chip_smoke took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -23,7 +23,10 @@ group: ``Group.copy_in`` (identity forward, all-reduce backward: before
 a column-parallel product, and on a replicated weight whose gradient
 each rank holds only a part of; several tensors' gradients in one
 all-reduce) and ``Group.reduce_out`` (all-reduce forward, identity
-backward: after a row-parallel product).  The ``fsdp`` regime's
+backward: after a row-parallel product); ``Group.reduce_whole``, the
+two composed (all-reduce both ways), sums the ranks' terms of a
+statistic every rank reads whole (the SSM's gated norm over its split
+channels).  The ``fsdp`` regime's
 ``FsdpGather`` gathers a weight's shards where the model reads it
 (all-gather forward, reduce-scatter backward).
 
@@ -184,6 +187,15 @@ class Group:
         if self.trivial:
             return x
         return _ReduceOut.apply(x, self)
+
+    def reduce_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """All-reduce (sum) forward and backward: ``copy_in`` of
+        ``reduce_out``.  For a sum of the ranks' terms that every rank
+        then reads whole, each rank's output depending on it through its
+        own shard (the mean square of the SSM's gated norm over the
+        group's channels): the gradient of a rank's term is the ranks'
+        gradients of the sum, summed."""
+        return self.copy_in(self.reduce_out(x))
 
 
 class _CopyIn(torch.autograd.Function):

@@ -311,14 +311,18 @@ def shard_cache(cache, specs, mesh):
     """The cache's leg of the bridge: each leaf of a full decode cache
     (``init_cache``, or a one-device prefill's installed in one) cut to this
     rank's slice under ``cache_specs`` (rows over the batch axes, sequence
-    over ``model``), each its own contiguous tensor: the paged kernel's
-    16-byte checks and ``decode_attention``'s pool view need that."""
+    or ring slots over ``model``, the SSM's and RG-LRU's states and
+    convolutions over their channels; a nested cache, the hybrid's
+    ``{"units": {"b<i>": ...}, "tail": ...}``, leaf by leaf), each its own
+    contiguous tensor: the paged kernel's 16-byte checks and
+    ``decode_attention``'s pool view need that."""
     return shard_params(cache, specs, mesh)
 
 
 def gather_cache(local, specs, mesh):
     """Inverse of ``shard_cache``: every rank's cache slices gathered into
-    the full cache (on every rank), through the world group."""
+    the full cache (on every rank, nested as it is), through the world
+    group."""
     return gather_params(local, specs, mesh)
 
 

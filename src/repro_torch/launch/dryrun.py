@@ -29,19 +29,22 @@ gradients, optimizer or batch beyond its tokens).  Each cell is one JSON
 file, as the reference's ``_save``; the run counts ok, skipped and
 failed cells and exits 1 on a failure.  ``runs`` says whether the
 port's ``build_cell`` takes the cell today: the train and serving cells
-of the dense, MoE and vision decoders (GQA, DeepSeek-R1's MLA, Pixtral-12B,
-H2O-Danube-1.8B's ring, its ``long_500k`` among them), their attention
-over the q heads or, where GQA heads do not split over ``model``
-(SmolLM-360M's 15 and Qwen2-0.5B's 14 over 8), over the q positions (the
-``seq`` mode); the SSM, the hybrid and the encoder-decoder do not run.
+of every family (GQA, DeepSeek-R1's MLA, Pixtral-12B, H2O-Danube-1.8B's
+ring, Mamba2-370M's channels, RecurrentGemma-2B's RG-LRU and local
+attention, Whisper-base's encoder and cross-attention; ``long_500k``
+where it applies), their attention over the q heads or, where the q
+heads do not split over ``model`` (SmolLM-360M's 15, Qwen2-0.5B's 14 and
+RecurrentGemma-2B's 10 over 8), over the q positions (the ``seq`` mode).
 ``collectives`` counts, by kind, what one rank sends a step as the
-port's design issues it (``design_collectives``): a prefill 1 + 2 L
-all-reduces and one all-gather, and in the ``heads`` mode two
-all-to-alls (the K/V re-layout, a ring's over its slots), none in the
-``seq`` mode and none for MLA (every rank holds the latent); a decode
-step 1 + 3 L all-reduces and one all-gather, whatever the cache.  The
-dry run stays in the ``tp`` and ``decode`` regimes, as the reference's
-does.
+port's design issues it (``design_collectives``): a decoder's prefill 1
++ 2 L all-reduces and one all-gather, and in the ``heads`` mode two
+all-to-alls (the K/V re-layout, a ring's over its slots; Whisper's four
+with its cross K/V), none in the ``seq`` mode, none for MLA (every rank
+holds the latent) or an SSM; a decoder's decode step 1 + 3 L
+all-reduces and one all-gather, whatever the cache (an SSM's 1 + 2 L,
+the hybrid's 2 an RG-LRU and 3 a ring sublayer, Whisper's 5 a layer).
+The dry run stays in the ``tp`` and ``decode`` regimes, as the
+reference's does.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch ID|all]
         [--shape NAME|all] [--mesh single|multi|both] [--outdir DIR]
@@ -173,42 +176,90 @@ AR_LAYER = {"dense": 2 + 1 + 2, "moe": 3 + 1 + 3}
 AR_CE_CHUNK = 3 + 3 + 1
 
 
+def _step_all_reduces(n: int) -> int:
+    """All-reduces of one remat step (one ``torch.utils.checkpoint``)
+    whose forward sends ``n``, each of a reduced sublayer, whose backward
+    sends ``n`` (the copies and, for the SSM, its norm's sum), and whose
+    recompute stops before the last: 3 n - 1."""
+    return 3 * n - 1
+
+
+def _train_all_reduces(cfg) -> int:
+    """All-reduces one training microbatch sends over a model group of
+    more than one rank, the cross-entropy aside: the embedding's, then a
+    step each: a dense or MoE layer ``AR_LAYER``; an SSM layer the gated
+    norm's sum and the block's output (``_step_all_reduces(2)``); a
+    hybrid unit two a sublayer (RG-LRU or attention, and the MLP) and a
+    tail layer the same; an encoder-decoder's encoder layers as a dense
+    layer, its decoder layers three sublayers each, and the copy of the
+    encoder's states every decoder layer reads."""
+    L = cfg.num_layers
+    if cfg.family == "hybrid":
+        n_units, n_tail = T._hybrid_counts(cfg)
+        return 1 + n_units * _step_all_reduces(2 * len(cfg.block_pattern)) \
+            + n_tail * _step_all_reduces(2)
+    if cfg.family == "audio":
+        return 2 + cfg.encoder_layers * _step_all_reduces(2) \
+            + L * _step_all_reduces(3)
+    if cfg.family == "ssm":
+        return 1 + L * _step_all_reduces(2)
+    return 1 + L * AR_LAYER["moe" if cfg.is_moe else "dense"]
+
+
+def _serve_all_reduces(cfg, kind: str) -> int:
+    """All-reduces of a serving step over a model group: the embedding's,
+    then a prefill's two a reduced sublayer (an SSM layer's norm and
+    output; the encoder-decoder's encoder layers two, its decoder layers
+    three), a decode step's a layer's lse max and merged sum (twice for
+    the encoder-decoder: self and cross) and its FFN, an SSM's or RG-LRU
+    sublayer's norm or output and (the RG-LRU) its MLP."""
+    L = cfg.num_layers
+    if cfg.family == "audio":
+        return 1 + (2 * cfg.encoder_layers + 3 * L if kind == "prefill"
+                    else 5 * L)
+    if kind == "prefill" or cfg.family == "ssm":
+        return 1 + 2 * L
+    if cfg.family == "hybrid":
+        n_units, n_tail = T._hybrid_counts(cfg)
+        n_attn = n_units * cfg.block_pattern.count("attn")
+        return 1 + 3 * n_attn + 2 * (L - n_attn)
+    return 1 + 3 * L
+
+
 def design_collectives(cfg, kind: str, tp: int, data: int, n_mb: int,
                        S: int, n_leaves: int, split: int) -> Dict[str, int]:
     """The collectives one rank issues a step, by kind, as the port's
-    design predicts (groups of one send nothing).  A decode step: 1 + 3 L
-    all-reduces (the embedding; a layer's lse max, merged sum and FFN)
-    and the argmax's all-gather, for a GQA cache, MLA's latent or a ring.
-    A prefill: 1 + 2 L all-reduces, the logits' all-gather, and in the
-    ``heads`` attention mode the two all-to-alls of K and V (a ring's
-    over its slots; its positions, the same on every rank, are cut
-    without a send); the ``seq`` mode keeps its block, and MLA, whose
-    latent every rank holds, its ``seq_block``.  A train step
-    (``tp`` regime): ``n_mb`` microbatches of the embedding's, ``AR_LAYER``
-    a layer's and ``AR_CE_CHUNK`` a chunk's all-reduces over the model
-    group, the label count a microbatch and the loss over the data group
-    and the grad norm over the world; ZeRO-1's reduce-scatter of each of
-    the ``n_leaves`` over the data group, and its all-gather of each
-    (over the data group the ``split`` leaves split over ``model``, over
-    the world the rest)."""
+    design predicts (groups of one send nothing).  A decode step: the
+    all-reduces of ``_serve_all_reduces`` (1 + 3 L for a GQA cache, MLA's
+    latent or a ring) and the argmax's all-gather.  A prefill: its
+    all-reduces (1 + 2 L for a decoder or an SSM), the logits'
+    all-gather, and in the ``heads`` attention mode an all-to-all of
+    each K/V leaf (two; the encoder-decoder's four with its cross K/V; a
+    ring's over its slots; its positions, the same on every rank, are
+    cut without a send); the ``seq`` mode keeps its block, MLA, whose
+    latent every rank holds, its ``seq_block``, and an SSM has no K/V.
+    A train step (``tp`` regime): ``n_mb`` microbatches of
+    ``_train_all_reduces`` and ``AR_CE_CHUNK`` a chunk's all-reduces over
+    the model group, the label count a microbatch and the loss over the
+    data group and the grad norm over the world; ZeRO-1's reduce-scatter
+    of each of the ``n_leaves`` over the data group, and its all-gather
+    of each (over the data group the ``split`` leaves split over
+    ``model``, over the world the rest)."""
     out: Dict[str, int] = {}
 
     def add(k, n):
         if n:
             out[k] = out.get(k, 0) + n
 
-    L = cfg.num_layers
-    if tp > 1 and kind == "decode":
-        add("all-reduce", 1 + 3 * L)
+    if tp > 1 and kind in ("decode", "prefill"):
+        add("all-reduce", _serve_all_reduces(cfg, kind))
         add("all-gather", 1)
-    elif tp > 1 and kind == "prefill":
-        add("all-reduce", 1 + 2 * L)
-        add("all-gather", 1)
-        add("all-to-all", 0 if cfg.use_mla or T.seq_split(cfg, tp) else 2)
+        if kind == "prefill" and not (cfg.use_mla or cfg.family == "ssm"
+                                      or T.seq_split(cfg, tp)):
+            add("all-to-all", 4 if cfg.family == "audio" else 2)
     elif kind == "train":
         chunks = -(-S // T.CE_CHUNK)
-        per_layer = AR_LAYER["moe" if cfg.is_moe else "dense"]
-        add("all-reduce", (tp > 1) * n_mb * (1 + L * per_layer
+        add("all-reduce", (tp > 1) * n_mb * (_train_all_reduces(cfg)
                                              + chunks * AR_CE_CHUNK))
         add("all-reduce", (data > 1) * (n_mb + 1) + (tp * data > 1))
         add("reduce-scatter", (data > 1) * n_leaves)

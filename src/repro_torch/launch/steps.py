@@ -22,10 +22,14 @@ of each kind of the reference's ``build_cell``:
   slices of the weights, whose ``local_batch`` takes this rank's rows of
   a global batch (microbatch j's data shard, as the reference's
   ``_mb_split`` keeps the DP shard on dim 1), and whose ``step`` runs
-  ``train_step`` over the realized mesh's groups.  Dense, MoE (MLA
-  among them) and vision decoders train in it; GQA decoders whose q
-  heads do not split over ``model`` run their attention in the ``seq``
-  mode (``transformer.attention_share``).
+  ``train_step`` over the realized mesh's groups.  Every family trains
+  in it: the dense, MoE (MLA among them) and vision decoders, the SSM
+  (its channels and heads over ``model``, the gated norm's mean square
+  all-reduced), the RecurrentGemma hybrid (its RG-LRU channels and gate
+  blocks, its local attention) and the Whisper encoder-decoder (its
+  encoder, self- and cross-attention); attention whose q heads do not
+  split over ``model`` runs in the ``seq`` mode
+  (``transformer.attention_share``).
   ``train_regime="fsdp"`` (the reference's ZeRO-3, ``_build_train``): the
   whole mesh is the data-parallel world (``MeshAxes(batch=(*batch,
   "model"), model=None)``), the batch splits over every rank in one
@@ -51,12 +55,16 @@ of each kind of the reference's ``build_cell``:
   ``serve_step``, the cache updated in place.  A decode cell built on the
   same mesh, batch and ``max_len`` takes a prefill cell's cache as it is.
 
-The serving kinds take the dense, MoE and vision decoders
-(``transformer.check_servable``: GQA, MLA's latent cache, a window's ring
-of min(window, ``max_len``) slots over ``model``), a prefill in the
-``seq`` mode where GQA q heads do not split; the vision decoder's prefill
-batch holds its ``patches`` beside seq - P tokens.  The SSM, the hybrid
-and the encoder-decoder raise, naming the ROADMAP item that queues them.
+The serving kinds take every family (``transformer.check_servable``:
+GQA, MLA's latent cache, a window's ring of min(window, ``max_len``)
+slots over ``model`` (the hybrid's ``local_window``), the SSM's and the
+RG-LRU's states and convolutions over their channels, the
+encoder-decoder's self and cross caches over their sequences), a prefill
+in the ``seq`` mode where GQA q heads do not split; the vision decoder's
+prefill batch holds its ``patches`` beside seq - P tokens, the
+encoder-decoder's its ``frames``.  A model whose vocabulary, MLP, SSM
+channels or RG-LRU gate blocks, or ring, do not split raises, naming
+what does not.
 """
 from __future__ import annotations
 
@@ -280,17 +288,20 @@ class ServeCell:
     def init_cache(self, device=None):
         """This rank's empty shard of the decode cache under
         ``cache_specs``: {"k", "v"} of (L, B_l, max_len / tp, Hkv, dh),
-        MLA's {"ckv", "kr"}, or a ring's {"k", "v", "pos"} of its Wd / tp
-        slots, each leaf its own tensor filled as ``init_cache`` fills it
-        (zeros; a ring's positions -1, empty)."""
+        MLA's {"ckv", "kr"}, a ring's {"k", "v", "pos"} of its Wd / tp
+        slots, the encoder-decoder's {"xk", "xv"} beside k and v, the
+        SSM's and RG-LRU's leaves over the rank's heads and channels (the
+        hybrid's nested tree), each leaf its own tensor filled as
+        ``init_cache`` fills it (zeros; a ring's positions -1, empty)."""
         dev = compat.resolve_device(device)
         part = shd.part_of(self.cache_specs, self.mesh)
         full = T.init_cache(self.cfg, self.batch, self.max_len,
                             device="meta")
         fill = T.init_cache(self.cfg, 1, 1, device="cpu")
-        return {k: torch.full(t[part((k,), t.shape)].shape,
-                              fill[k].reshape(-1)[0].item(), dtype=t.dtype,
-                              device=dev) for k, t in full.items()}
+        return T._map_spec(full, lambda path, t: torch.full(
+            t[part(path, t.shape)].shape,
+            shd._get(fill, path).reshape(-1)[0].item(), dtype=t.dtype,
+            device=dev))
 
     def local_batch(self, batch: Dict[str, torch.Tensor]):
         """This rank's rows of a global batch (``tokens``, a decode's
@@ -307,7 +318,8 @@ class PrefillCell(ServeCell):
         this rank's cache in the decode layout, ``max_len`` positions).
         The vision decoder's batch holds ``patches`` (B, P, D) beside its
         tokens (B, seq - P), which together fill the cell's ``seq``
-        positions, as the reference's prefill batch does."""
+        positions, and the encoder-decoder's its ``frames`` (B,
+        encoder_seq, D), as the reference's prefill batch does."""
         b = self.local_batch(batch)
         patches = b.get("patches")
         n = b["tokens"].shape[1] + (0 if patches is None
@@ -317,7 +329,8 @@ class PrefillCell(ServeCell):
                              f"positions (patches and tokens) in a cell of "
                              f"{self.seq}")
         return T.prefill(self.cfg, params, b["tokens"], patches=patches,
-                         comm=self.comm, max_len=self.max_len)
+                         frames=b.get("frames"), comm=self.comm,
+                         max_len=self.max_len)
 
 
 class DecodeCell(ServeCell):
@@ -349,10 +362,21 @@ def _serve_cell(cfg, arch, shape, mesh, batch_seq, max_len) -> ServeCell:
         raise ValueError(f"{arch} x {shape.name}: {S} positions hold no "
                          f"token after the {cfg.num_patches} patches")
     T.ring_slots(cfg, n, tp)
+    if cfg.family == "audio" and cfg.encoder_seq % tp:
+        raise ValueError(f"{arch} x {shape.name}: a cross cache of "
+                         f"{cfg.encoder_seq} encoder positions does not "
+                         f"split over {tp} ranks")
     regime = "tp" if kind == "prefill" else "decode"
     Wd = T.ring_slots(cfg, n)
     held = (f"ring slots over model ({Wd // tp} of {Wd} a rank)" if Wd else
             f"cache sequence over model ({n // tp} positions a rank)")
+    if cfg.family == "ssm":
+        held = "SSM state and conv over model (channel TP)"
+    elif cfg.family == "hybrid":
+        held += ", RG-LRU state and conv over model (channel TP)"
+    elif cfg.family == "audio":
+        held += (f", cross cache over model ({cfg.encoder_seq // tp} "
+                 f"encoder positions a rank)")
     note = shd.explain(cfg, tp) if kind == "prefill" else (
         f"attention replicated, {held}" + (
             f", EP {cfg.num_experts}/{tp} experts per shard" if cfg.is_moe

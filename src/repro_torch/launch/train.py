@@ -52,7 +52,11 @@ parallelism over ``data``, ZeRO-1 over every rank; each rank draws the
 full weights from ``--seed`` and keeps its slices, and rank 0 prints (each
 step with its collectives' counts and ring wire bytes,
 ``distributed/collectives.py::collective_stats``).
-Dense and MoE decoders whose q heads split over ``--tp``:
+Every family shards (``check_trainable``): the dense, MoE and vision
+decoders, Mamba-2 over its channels and heads, RecurrentGemma over its
+RG-LRU channels and gate blocks, Whisper over its encoder's, self- and
+cross-attention's heads; attention whose q heads do not split over
+``--tp`` runs over q positions (the ``seq`` mode):
 
     torchrun --nproc-per-node 8 -m repro_torch.launch.train \
         --arch qwen3_moe_30b --steps 4 --batch 16 --seq 4096 \

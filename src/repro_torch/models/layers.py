@@ -18,11 +18,11 @@ the identity table; cross-attention decode reads the encoder's K/V cache
 the same way).  MLA's absorbed decode attends over the latent cache in
 fp32 PyTorch, as the JAX package's einsums do: no TPU kernel computes
 it.  So does sliding-window decode over a ring cache
-(``attention_decode_ring``: H2O-Danube, RecurrentGemma's local
-attention), whose window and softcap lie outside the paged kernel's
-contract.  On CPU tensors the kernel wrappers run their plain PyTorch
-versions.  In the decode regime of the multi-GPU path each rank attends
-over its sequence shard of the cache (``decode_attention_shard``: the
+(``ring_decode_shard``: H2O-Danube, RecurrentGemma's local attention),
+whose window and softcap lie outside the paged kernel's contract.  On
+CPU tensors the kernel wrappers run their plain PyTorch versions.  In
+the decode regime of the multi-GPU path each rank attends over its
+sequence shard of the cache (``decode_attention_shard``: the
 paged kernel with its log-sum-exp output; MLA's latent shard,
 ``mla_decode_shard``; a ring's block of slots, ``ring_decode_shard``) and
 the ranks' partial attentions merge over the model group
@@ -30,8 +30,8 @@ the ranks' partial attentions merge over the model group
 XLA's partitioning of its whole-cache einsum).
 
 Caches are written in place (the JAX package donates them instead):
-``cache_update``, ``attention_decode``, ``attention_decode_ring`` and
-``mla_decode`` return the same tensors they were given.
+``cache_update``, ``attention_decode`` and ``mla_decode`` return the
+same tensors they were given.
 
 ``cfg.logit_softcap`` caps the attention scores as well as the logits,
 as the reference applies it (``repro.models.layers.attention_fwd`` and
@@ -363,30 +363,6 @@ def attention_decode(cfg: ModelConfig, p, x, k_cache, v_cache, lengths, *,
     return _merge_heads(o, p["wo"]), k_cache, v_cache
 
 
-def cross_attention_decode(cfg: ModelConfig, p, x, xk, xv):
-    """One token's cross-attention, x (B, 1, D), over every position of
-    the encoder's K/V cache ``xk`` / ``xv`` (B, Se, Hkv, dh), through
-    ``paged_attention`` (``decode_attention``: the identity page table,
-    lengths Se); the cache is read, never written."""
-    q = _q_proj(cfg, p, x)
-    enc_len = torch.full((x.shape[0],), xk.shape[1], dtype=torch.int32,
-                         device=x.device)
-    return _merge_heads(decode_attention(q, xk, xv, enc_len), p["wo"])
-
-
-def attention_decode_ring(cfg: ModelConfig, p, x, k_cache, v_cache,
-                          pos_cache, lengths, *, window=None, rope_tab=None):
-    """One-token sliding-window decode against a ring cache of Wc slots
-    (B, Wc, Hkv, dh), ``pos_cache`` (B, Wc): the token at position
-    ``lengths`` goes to slot ``lengths % Wc``, in place; attends over
-    ``window`` positions (``cfg.sliding_window`` when absent).  Returns
-    (out, k_cache, v_cache, pos_cache): ``ring_decode_shard`` on the whole
-    ring, through ``wo``."""
-    o, _ = ring_decode_shard(cfg, p, x, k_cache, v_cache, pos_cache,
-                             lengths, window=window, rope_tab=rope_tab)
-    return _merge_heads(o, p["wo"]), k_cache, v_cache, pos_cache
-
-
 def ring_decode_shard(cfg: ModelConfig, p, x, k_shard, v_shard, pos_shard,
                       lengths, m: int = 0, tp: int = 1, *, window=None,
                       rope_tab=None):
@@ -401,7 +377,8 @@ def ring_decode_shard(cfg: ModelConfig, p, x, k_shard, v_shard, pos_shard,
     as ``decode_attention_ring`` does (their positions are global).
     Returns (out (B, 1, H, dh) in x's dtype, lse (B, 1, H) fp32), which
     ``merge_shards`` joins across ranks; at tp 1 the whole ring's
-    attention."""
+    attention (``window``: RecurrentGemma's ``local_window``, else
+    ``cfg.sliding_window``)."""
     w = cfg.sliding_window if window is None else window
     q, k, v = attention_qkv(cfg, p, x, lengths[:, None], rope_tab=rope_tab)
     Wl = k_shard.shape[1]

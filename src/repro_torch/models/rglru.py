@@ -127,7 +127,16 @@ def rglru_fwd(cfg: ModelConfig, p, x, *, return_state=False):
     """Full-sequence RG-LRU block. x (B,S,D) -> (B,S,D); with
     ``return_state`` also the decode cache {state (B,W) fp32, conv
     (B,K-1,W)}.  Differentiable (the scan through ``LinearScanFn`` while
-    autograd records)."""
+    autograd records).
+
+    ``p`` may be one rank's channel shard (the ``tp`` and ``decode``
+    regimes, ``distributed/sharding.py``): channels [m W/tp, (m+1) W/tp)
+    of ``wx``, ``wgate``, ``conv`` and ``lam`` are gate blocks [m
+    ``RG_BLOCKS``/tp, (m+1) ``RG_BLOCKS``/tp) of ``Wa``, ``Wi``, ``ba``
+    and ``bi``, so the gates and the recurrence are the rank's own,
+    ``wout``'s rows give its partial output (the ranks' sum is the
+    block's) and its cache is its shard of the decode cache; the widths
+    are read off the leaves."""
     gate = torch.matmul(x, p["wgate"])
     uraw = torch.matmul(x, p["wx"])
     u = F.silu(_causal_conv(uraw, p["conv"]))

@@ -142,13 +142,42 @@ def ssd_chunked(xh, dt, A, Bm, Cm, *, chunk=64):
     return y.reshape(b, h, s, p).permute(0, 2, 1, 3), final
 
 
-def ssm_fwd(cfg: ModelConfig, p, x, *, chunk=64, return_state=False):
+def gated_norm(y, w, z, group=None, eps: float = 1e-6):
+    """The gated norm ``rms_norm(y, w) * silu(z)`` over the last dim.
+    Over a model ``group`` y, w and z are the rank's equal shard of that
+    dim (the split channels): the mean square is the mean of the ranks'
+    means, their sum through ``group.reduce_whole`` (all-reduced forward
+    and backward: every rank's output depends on every rank's channels)
+    over the group's size.  A trivial group (or none) is ``rms_norm``; a
+    group of one whose collectives are sent gives its bits too (the sum
+    of one term, over 1)."""
+    if group is None or group.trivial:
+        return layers.rms_norm(y, w, eps) * F.silu(z)
+    yf = y.float()
+    ms = group.reduce_whole(torch.mean(yf * yf, dim=-1, keepdim=True))
+    yf = yf * torch.rsqrt(ms / group.size + eps)
+    return yf.to(y.dtype) * w * F.silu(z)
+
+
+def ssm_fwd(cfg: ModelConfig, p, x, *, chunk=64, return_state=False,
+            group=None):
     """Full-sequence Mamba-2 block. x (B,S,D) -> (B,S,D); with
     ``return_state`` also the decode cache {conv_x, conv_B, conv_C,
     state}.  For S < K-1 the conv caches are zero-padded on the left, as
-    stepwise decode from a zero cache holds them."""
+    stepwise decode from a zero cache holds them.
+
+    ``p`` may be one rank's channel shard (the ``tp`` and ``decode``
+    regimes, ``distributed/sharding.py``): ``wz``, ``wx``, ``conv_x``,
+    ``norm_w`` and ``wout``'s rows over its W/tp channels, ``wdt``,
+    ``dt_bias``, ``A_log`` and ``D_skip`` over their H/tp heads, B and C
+    whole (one group, shared by every head); the widths are read off the
+    leaves.  The convolutions and the scan are then the rank's own, the
+    gated norm's mean square is taken over ``group`` (``gated_norm``)
+    and the output is the rank's partial, which the ranks' sum makes the
+    block's; its cache is the rank's shard of the decode cache."""
     B, S, D = x.shape
-    H, P, N = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    H, P, N = p["A_log"].shape[-1], cfg.ssm_head_dim, cfg.ssm_state
+    W = p["wx"].shape[-1]
     z = torch.matmul(x, p["wz"])
     uraw = torch.matmul(x, p["wx"])
     Braw = torch.matmul(x, p["wB"])
@@ -162,8 +191,8 @@ def ssm_fwd(cfg: ModelConfig, p, x, *, chunk=64, return_state=False):
     y, Hlast = ssd_chunked(xh, dt, A, Bm.reshape(B, S, cfg.ssm_groups, N),
                            Cm.reshape(B, S, cfg.ssm_groups, N), chunk=chunk)
     y = y + p["D_skip"][:, None] * xh.float()
-    y = y.reshape(B, S, cfg.d_inner).to(x.dtype)
-    y = layers.rms_norm(y, p["norm_w"]) * F.silu(z)
+    y = y.reshape(B, S, W).to(x.dtype)
+    y = gated_norm(y, p["norm_w"], z, group)
     out = torch.matmul(y, p["wout"])
     if not return_state:
         return out
@@ -178,11 +207,13 @@ def ssm_fwd(cfg: ModelConfig, p, x, *, chunk=64, return_state=False):
                  "conv_C": tail(Craw), "state": Hlast}
 
 
-def ssm_decode(cfg: ModelConfig, p, x, cache):
+def ssm_decode(cfg: ModelConfig, p, x, cache, group=None):
     """One-token recurrent step. x (B,1,D); cache as ``init_ssm_cache``
-    gives it.  Its leaves are written in place; returns (out, cache)."""
+    gives it.  Its leaves are written in place; returns (out, cache).  A
+    rank's channel shard of ``p`` and of the cache (state over its heads,
+    ``conv_x`` over its channels) gives its partial, as ``ssm_fwd``."""
     B = x.shape[0]
-    H, P, N, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, \
+    H, P, N, g = p["A_log"].shape[-1], cfg.ssm_head_dim, cfg.ssm_state, \
         cfg.ssm_groups
     z = torch.matmul(x, p["wz"])
     uraw = torch.matmul(x, p["wx"])
@@ -205,8 +236,8 @@ def ssm_decode(cfg: ModelConfig, p, x, cache):
         (Bh * dt[:, :, None])[..., None] * xh[:, :, None, :]
     y = torch.matmul(Ch[:, :, None, :], state)[:, :, 0] + \
         p["D_skip"][:, None] * xh
-    y = y.reshape(B, 1, cfg.d_inner).to(x.dtype)
-    y = layers.rms_norm(y, p["norm_w"]) * F.silu(z)
+    y = y.reshape(B, 1, p["wx"].shape[-1]).to(x.dtype)
+    y = gated_norm(y, p["norm_w"], z, group)
     out = torch.matmul(y, p["wout"])
     for name, new in (("conv_x", cx), ("conv_B", cB), ("conv_C", cC),
                       ("state", state)):

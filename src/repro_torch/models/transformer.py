@@ -29,21 +29,24 @@ beside the encoder's cross-attention K/V ``{"xk", "xv"}`` of (L, B,
 encoder_seq, Hkv, dh); ``install_cache`` takes a prefill's cache of
 either full-attention family into ``init_cache``'s longer one.
 
-Over a ``distributed/collectives.py::Comm`` the dense, MoE and vision
-decoders (GQA or MLA attention, a sliding window among them) also train
-(``forward_loss``, the ``tp`` regime) and serve (``prefill`` in the
+Over a ``distributed/collectives.py::Comm`` every family also trains
+(``forward_loss``, the ``tp`` regime) and serves (``prefill`` in the
 ``tp`` regime, its cache handed over in the decode layout;
 ``decode_step`` in the decode regime over a sequence-split cache, MLA's
-latent cache split the same way, a window's ring split by slots) as one
-rank of a mesh, their attention split over q heads or, where GQA heads
-do not split, over q positions (the ``seq`` mode, ``_seq_share``); in
-the ``fsdp`` regime (``comm.fsdp``) every family trains, each rank on
-its shards gathered where they are read.  In groups of one each is the
-one-device function, bit for bit: these families' prefill and decode
-step run the multi-GPU bodies on one device too.
+latent cache split the same way, a window's ring split by slots, the
+encoder-decoder's cross cache by encoder positions) as one rank of a
+mesh: attention split over q heads or, where they do not split, over q
+positions (the ``seq`` mode, ``_seq_share``); the SSM over its channels
+and heads (its gated norm's mean square all-reduced), the RG-LRU over
+its channels and gate blocks, their states and convolutions split the
+same way in both regimes.  In the ``fsdp`` regime (``comm.fsdp``) every
+family trains, each rank on its shards gathered where they are read.
+In groups of one each is the one-device function, bit for bit: every
+family's trunk (``_blocks``, ``_block_fwd``, ``_decode_block``) is the
+multi-GPU body, run on one device too.
 
 A windowed prefill returns the reference's ring, min(window, S) slots
-(``fold_ring``; the hybrid's ``_to_ring``); ``install_ring`` re-lays it into ``init_cache``'s ring of
+(``fold_ring``); ``install_ring`` re-lays it into ``init_cache``'s ring of
 min(window, max_len) slots before decode.  Decoding straight from the
 prefill's ring, as the reference's shapes would have it, writes position
 S into slot S % S = 0 while position 0 is still in the window whenever S
@@ -393,11 +396,31 @@ def _per_layer(params, stack: str = "layers") -> List[Dict[str, Any]]:
 
 
 def _embed_tokens(cfg, params, tokens):
-    h = params["embed"][tokens.long()]
-    if cfg.family == "hybrid":      # gemma: times sqrt(d_model), rounded
-        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
-                             device=h.device)   # to h's dtype first
-    return h
+    return _gemma_scale(cfg, params["embed"][tokens.long()])
+
+
+def _gemma_scale(cfg, h):
+    """The hybrid's embedding times sqrt(d_model), the factor rounded to
+    h's dtype first (gemma's); the others' as it is."""
+    if cfg.family != "hybrid":
+        return h
+    return h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype,
+                            device=h.device)
+
+
+def embed_finish(cfg, params, h, patches=None):
+    """The embedding's rows h (B, S, D) made the trunk's input: the
+    hybrid's scale (``_gemma_scale``), Pixtral's patches placed before
+    them (``place_patches``), the encoder-decoder's sinusoid positions
+    added.  Over a model group h is the ranks' ``embed_share`` summed and
+    this runs once, after the reduce: before it the patches and the
+    positions would count once a rank (the scale is the same either way:
+    the reduce adds zeros to the owning rank's row).  Returns (h,
+    positions (B, S'))."""
+    h, positions = place_patches(cfg, params, _gemma_scale(cfg, h), patches)
+    if cfg.family == "audio":
+        h = h + layers.sinusoid_pos(positions, cfg.d_model, h.dtype)
+    return h, positions
 
 
 def logits_fn(cfg, params, h):
@@ -515,51 +538,75 @@ def seq_rows(S: int, m: int, tp: int) -> Tuple[int, int]:
 
 
 def attention_share(cfg: ModelConfig, p, h, positions, tab, m: int = 0,
-                    tp: int = 1, copy=_same, want_kv: bool = False):
+                    tp: int = 1, copy=_same, want_kv: bool = False, *,
+                    leaves: str = "attn", norm: str = "ln1", window=None,
+                    causal: bool = True, states=None):
     """The layer's attention sublayer on the residual stream h, or rank
-    ``m`` of ``tp``'s partial output of it: RMSNorm, then attention over
-    the rank's q-head shard (``layers.tp_attention_params``; MLA's q,
-    k_nope and v of its heads from its shards of ``wq_b``, ``wk_b`` and
-    ``wv_b``, the latent and its norms from the replicated ``MLA_WHOLE``)
-    through ``wo``'s rows of those heads.  The ranks' outputs sum to
-    the sublayer's (the caller's reduce).  ``copy`` wraps what every rank
-    reads whole (the model group's ``copy_in``: its gradient sums over the
-    ranks); at tp 1 it is the identity and this is the one-device
-    sublayer.  With ``want_kv`` returns (output, (k, v)): the K/V of the
-    kv heads the rank's q heads read (MLA: its latent cache leaves), what
-    a prefill keeps, the same on every rank).  The kv leaves that do not
-    split over ``tp`` (MLA's ``MLA_WHOLE``) are read whole, through the
+    ``m`` of ``tp``'s partial output of it: the norm ``p[norm]``, then
+    attention over the rank's q-head shard of the leaves ``p[leaves]``
+    (``layers.tp_attention_params``; MLA's q, k_nope and v of its heads
+    from its shards of ``wq_b``, ``wk_b`` and ``wv_b``, the latent and its
+    norms from the replicated ``MLA_WHOLE``) through ``wo``'s rows of
+    those heads.  The ranks' outputs sum to the sublayer's (the caller's
+    reduce).  ``copy`` wraps what every rank reads whole (the model
+    group's ``copy_in``: its gradient sums over the ranks); at tp 1 it is
+    the identity and this is the one-device sublayer.  With ``want_kv``
+    returns (output, (k, v)): the K/V of the kv heads the rank's q heads
+    read (MLA: its latent cache leaves), what a prefill keeps, the same
+    on every rank).  The kv leaves that do not split over ``tp``
+    (``MLA_WHOLE``, a replicated kv head) are read whole, through the
     same ``copy`` as the normed input (one all-reduce of their
     gradients).  MLA whose q heads do not split raises: it has no ``seq``
-    mode.  When the q heads do not split over
-    ``tp`` (``seq_split``) the rank's share is ``_seq_share``'s."""
-    attn = p["attn"]
+    mode.  When the q heads do not split over ``tp`` (``seq_split``) the
+    rank's share is ``_seq_share``'s.
+
+    The same share serves every attention sublayer of the port: the
+    decoders' (``leaves`` "attn"), the hybrid's local attention
+    (``leaves`` "t", ``window`` ``cfg.local_window``), the encoder's
+    (``causal`` False) and the encoder-decoder's cross-attention
+    (``leaves`` "xattn", ``norm`` "ln2", ``causal`` False, ``states``
+    the encoder's (states, positions): K/V from the rank's ``wk`` /
+    ``wv`` heads over them; the caller reads the states through its
+    ``copy`` once).  ``window`` None is ``cfg.sliding_window``; RoPE is
+    applied where ``tab`` is given, none where it is None (the
+    encoder-decoder)."""
+    attn = p[leaves]
+    w = cfg.sliding_window if window is None else window
     if cfg.use_mla:
         if cfg.num_heads % tp:
             raise NotImplementedError(f"{cfg.name}: MLA's {cfg.num_heads} "
                                       f"q heads do not split over {tp} ranks")
         whole = MLA_WHOLE
     elif seq_split(cfg, tp):
-        out = _seq_share(cfg, p, h, positions, tab, m, tp, copy)
+        out = _seq_share(cfg, p, h, positions, tab, m, tp, copy,
+                         leaves=leaves, norm=norm, window=w, causal=causal,
+                         states=states)
         return out if want_kv else out[0]
     else:
         whole = [] if cfg.num_kv_heads % tp == 0 else \
             sorted(k for k in ("wk", "wv", "bk", "bv") if k in attn)
-    xn, *ws = _copied(copy, layers.apply_norm(cfg, p["ln1"], h),
+    xn, *ws = _copied(copy, layers.apply_norm(cfg, p[norm], h),
                       *(attn[k] for k in whole))
     pa = dict(attn, **dict(zip(whole, ws)))
     if cfg.use_mla:
         out = layers.mla_fwd(cfg, pa, xn, positions, rope_tab=tab)
     else:
+        pa = layers.tp_attention_params(cfg, pa, m, tp)
+        kv = None if states is None else layers.kv_from_states(cfg, pa,
+                                                               states[0])
         out = layers.attention_fwd(
-            cfg, layers.tp_attention_params(cfg, pa, m, tp), xn, positions,
-            rope_tab=tab)
+            cfg, pa, xn, positions, rope_tab=tab, window=w, causal=causal,
+            use_rope=tab is not None, kv=kv,
+            kv_positions=None if states is None else states[1])
     return out if want_kv else out[0]
 
 
 # MLA's leaves every rank of the ``tp`` regime reads whole (``_leaf_rule``):
 # the low-rank down-projections and their norms
 MLA_WHOLE = ("kv_norm", "q_norm", "wkv_a", "wq_a")
+# the SSM's leaves every rank reads whole: B and C (one group, shared by
+# every head) and their convolutions
+SSM_WHOLE = ("conv_B", "conv_C", "wB", "wC")
 
 
 def _copied(copy, *ts):
@@ -569,53 +616,90 @@ def _copied(copy, *ts):
 
 
 def _seq_share(cfg: ModelConfig, p, h, positions, tab, m: int, tp: int,
-               copy):
+               copy, *, leaves: str = "attn", norm: str = "ln1",
+               window: int = 0, causal: bool = True, states=None):
     """Rank ``m`` of ``tp``'s share of the attention sublayer in the
     ``seq`` mode (q positions over the model group, K/V replicated; the
-    attention leaves replicated, ``_leaf_rule``): RMSNorm of the whole h;
-    k and v of every position; q of the rank's rows ``seq_rows`` only,
-    RoPE at their positions; ``flash_attention`` of those rows at their
-    positions against every key (causal, the window and softcap as
-    configured); ``wo`` on the rows, placed in a (B, S, D) tensor of
-    zeros, which the caller reduces as the ``heads`` mode's partial.  The
-    normed input and every attention leaf pass through one ``copy`` (one
-    all-reduce of their gradients: each rank's rows give a part of every
-    one).  Returns (output, (k, v)): every kv head's K/V at every
-    position."""
-    attn = p["attn"]
+    attention leaves replicated, ``_leaf_rule``): the norm of the whole
+    h; k and v of every position (of the encoder's ``states`` for the
+    cross-attention); q of the rank's rows ``seq_rows`` only, RoPE at
+    their positions where ``tab`` is given; ``flash_attention`` of those
+    rows at their positions against every key (causal or not, ``window``
+    and the softcap as configured); ``wo`` on the rows, placed in a (B,
+    S, D) tensor of zeros, which the caller reduces as the ``heads``
+    mode's partial.  The normed input and every attention leaf pass
+    through one ``copy`` (one all-reduce of their gradients: each rank's
+    rows give a part of every one).  Leaves, norm and the rest as
+    ``attention_share``.  Returns (output, (k, v)): every kv head's K/V
+    at every position."""
+    attn = p[leaves]
     names = sorted(attn)
-    xn, *ws = _copied(copy, layers.apply_norm(cfg, p["ln1"], h),
+    xn, *ws = _copied(copy, layers.apply_norm(cfg, p[norm], h),
                       *(attn[k] for k in names))
     pa = dict(zip(names, ws))
-    k, v = layers.kv_from_states(cfg, pa, xn)
-    k = layers.apply_rope(k, tab)
+    if states is None:
+        k, v = layers.kv_from_states(cfg, pa, xn)
+        kv_pos = positions
+        if tab is not None:
+            k = layers.apply_rope(k, tab)
+    else:
+        (k, v), kv_pos = layers.kv_from_states(cfg, pa, states[0]), states[1]
     S = h.shape[1]
     lo, hi = seq_rows(S, m, tp)
     if hi == lo:
         return torch.zeros_like(h), (k, v)
-    q = layers.apply_rope(layers._q_proj(cfg, pa, xn[:, lo:hi]),
-                          (tab[0][:, lo:hi], tab[1][:, lo:hi]))
-    o = layers.chunked_attention(q, k, v, positions[:, lo:hi], positions,
-                                 window=cfg.sliding_window,
+    q = layers._q_proj(cfg, pa, xn[:, lo:hi])
+    if tab is not None:
+        q = layers.apply_rope(q, (tab[0][:, lo:hi], tab[1][:, lo:hi]))
+    o = layers.chunked_attention(q, k, v, positions[:, lo:hi], kv_pos,
+                                 causal=causal, window=window,
                                  softcap=cfg.logit_softcap)
     y = layers._merge_heads(o, pa["wo"])
     return torch.nn.functional.pad(y, (0, 0, lo, S - hi)), (k, v)
 
 
 def ffn_share(cfg: ModelConfig, p, h, m: int = 0, tp: int = 1, copy=_same,
-              route=None):
-    """The layer's second sublayer on h, or rank ``m`` of ``tp``'s partial
-    of it, as ``attention_share``: RMSNorm, then the MoE over the rank's
-    E/tp experts and shared-expert columns (``moe.moe_fwd``, the router
-    whole; routed over the data group ``route`` as one batch where one is
-    given) or the gated MLP over its columns.  Returns (partial output,
-    partial aux): the MoE's load-balance aux (fp32 scalar), None for the
-    MLP; each sums over the ranks to the layer's."""
-    xn = copy(layers.apply_norm(cfg, p["ln2"], h))
+              route=None, norm: str = "ln2"):
+    """The layer's feed-forward sublayer on h, or rank ``m`` of ``tp``'s
+    partial of it, as ``attention_share``: the norm ``p[norm]`` (the
+    encoder-decoder's decoder layers: "ln3"), then the MoE over the
+    rank's E/tp experts and shared-expert columns (``moe.moe_fwd``, the
+    router whole; routed over the data group ``route`` as one batch where
+    one is given) or the gated MLP over its columns.  Returns (partial
+    output, partial aux): the MoE's load-balance aux (fp32 scalar), None
+    for the MLP; each sums over the ranks to the layer's."""
+    xn = copy(layers.apply_norm(cfg, p[norm], h))
     if cfg.is_moe:
         pm = dict(p["moe"], wg=copy(p["moe"]["wg"]))
         return moe.moe_fwd(cfg, pm, xn, m, tp, route)
     return layers.mlp_fwd(cfg, p["mlp"], xn), None
+
+
+def ssm_share(cfg: ModelConfig, p, h, copy=_same, group=None,
+              want_cache: bool = False):
+    """The SSM layer's block on h (its norm, then ``ssm.ssm_fwd``), or one
+    rank's partial of it on its channel shard of ``p["ssm"]``: the normed
+    input and ``SSM_WHOLE`` read through one ``copy`` (each rank's heads
+    give a part of B's and C's gradients), the gated norm's mean square
+    over ``group`` (the model group).  The ranks' outputs sum to the
+    block's.  With ``want_cache`` returns (output, the rank's decode
+    cache)."""
+    ps = p["ssm"]
+    xn, *ws = _copied(copy, layers.apply_norm(cfg, p["ln1"], h),
+                      *(ps[k] for k in SSM_WHOLE))
+    return ssm.ssm_fwd(cfg, dict(ps, **dict(zip(SSM_WHOLE, ws))), xn,
+                       return_state=want_cache, group=group)
+
+
+def rglru_share(cfg: ModelConfig, p, h, copy=_same,
+                want_cache: bool = False):
+    """The hybrid's RG-LRU sublayer on h (its norm, then
+    ``rglru.rglru_fwd`` of ``p["t"]``), or one rank's partial of it on its
+    channel shard (its gate blocks; the recurrence is the rank's own),
+    the normed input read through ``copy``.  With ``want_cache`` returns
+    (output, the rank's state and conv)."""
+    xn = copy(layers.apply_norm(cfg, p["ln1"], h))
+    return rglru.rglru_fwd(cfg, p["t"], xn, return_state=want_cache)
 
 
 def ffn(cfg: ModelConfig, p, h):
@@ -625,18 +709,9 @@ def ffn(cfg: ModelConfig, p, h):
     return h + y, aux
 
 
-def _to_ring(k, v, positions, window: int):
-    """Full (B, S, Hkv, dh) K/V folded into the reference's prefill ring of
-    Wc = min(window, S) slots (``fold_ring``): the last Wc positions, each
-    at slot position % Wc, positions (B, Wc) int32 (-1: empty)."""
-    Wc = min(window, k.shape[1])
-    return {"k": fold_ring(k, Wc), "v": fold_ring(v, Wc),
-            "pos": fold_ring(positions.to(torch.int32), Wc, -1)}
-
-
 def install_ring(dst, src):
     """Re-lay a prefill ring ``src`` ({"k", "v", "pos"} of Ws slots, as
-    ``_to_ring`` makes it, with any leading axes) into ``dst``, a ring of
+    ``_prefill_trunk`` makes it, with any leading axes) into ``dst``, a ring of
     ``init_cache``'s Wd = min(window, max_len) slots with the same leading
     axes, in place: each of the newest Wd positions p goes to slot p % Wd;
     the other slots are emptied (zeros, position -1).  Decode then writes
@@ -679,53 +754,10 @@ def install_rings(cfg: ModelConfig, dst, src):
     return dst
 
 
-def _rg_sub_fwd(cfg, p, h, positions, tab, kind, want_cache=True):
-    """One hybrid sublayer over the sequence: RMSNorm, RG-LRU or local
-    attention (window ``cfg.local_window``, the softcap on its scores),
-    RMSNorm, gelu MLP; returns (h, its prefill cache: the RG-LRU's state
-    and conv, or the ring; None without ``want_cache``, as in training)."""
-    xn = layers.apply_norm(cfg, p["ln1"], h)
-    cache = None
-    if kind == "rec":
-        if want_cache:
-            y, cache = rglru.rglru_fwd(cfg, p["t"], xn, return_state=True)
-        else:
-            y = rglru.rglru_fwd(cfg, p["t"], xn)
-    else:
-        y, (k, v) = layers.attention_fwd(cfg, p["t"], xn, positions,
-                                         rope_tab=tab,
-                                         window=cfg.local_window)
-        if want_cache:
-            cache = _to_ring(k, v, positions, cfg.local_window)
-    h = h + y
-    return h + layers.mlp_fwd(cfg, p["mlp"],
-                              layers.apply_norm(cfg, p["ln2"], h)), cache
-
-
-def _rg_sub_decode(cfg, p, h, c, lengths, tab, kind):
-    """One hybrid sublayer's decode step; its cache ``c`` (one unit's or
-    tail layer's views) is written in place."""
-    xn = layers.apply_norm(cfg, p["ln1"], h)
-    if kind == "rec":
-        y, _ = rglru.rglru_decode(cfg, p["t"], xn, c)
-    else:
-        y, _, _, _ = layers.attention_decode_ring(
-            cfg, p["t"], xn, c["k"], c["v"], c["pos"], lengths,
-            window=cfg.local_window, rope_tab=tab)
-    h = h + y
-    return h + layers.mlp_fwd(cfg, p["mlp"],
-                              layers.apply_norm(cfg, p["ln2"], h))
-
-
 def _assemble_inputs(cfg, params, tokens, patches=None):
-    """Token embeddings, after Pixtral's stub patch embeddings
-    (``place_patches``); for the encoder-decoder plus sinusoid positions.
-    Returns (h, positions)."""
-    h, positions = place_patches(cfg, params, _embed_tokens(cfg, params,
-                                                            tokens), patches)
-    if cfg.family == "audio":
-        h = h + layers.sinusoid_pos(positions, cfg.d_model, h.dtype)
-    return h, positions
+    """Token embeddings on one device, after Pixtral's stub patch
+    embeddings (``embed_finish``).  Returns (h, positions)."""
+    return embed_finish(cfg, params, params["embed"][tokens.long()], patches)
 
 
 def place_patches(cfg, params, h, patches=None):
@@ -756,83 +788,95 @@ def _enc_inputs(cfg, params, frames):
     return h + layers.sinusoid_pos(positions, cfg.d_model, h.dtype), positions
 
 
-def _enc_layer_fwd(cfg, p, h, positions):
-    """One encoder layer: non-causal self-attention without RoPE, the
-    MLP."""
-    xn = layers.apply_norm(cfg, p["ln1"], h)
-    a, _ = layers.attention_fwd(cfg, p["attn"], xn, positions, causal=False,
-                                use_rope=False)
-    h = h + a
-    return h + layers.mlp_fwd(cfg, p["mlp"], layers.apply_norm(cfg, p["ln2"],
-                                                               h))
+def _window(cfg: ModelConfig) -> int:
+    """The attention window of the model's windowed sublayers: the
+    hybrid's ``local_window``, else ``cfg.sliding_window`` (0: none)."""
+    return cfg.local_window if cfg.family == "hybrid" else cfg.sliding_window
 
 
-def _encode(cfg, params, frames):
-    """The encoder over stub frame embeddings (B, Se, D): ``_enc_inputs``,
-    its layers, then ``enc_norm``.  Returns (states (B, Se, D), positions
-    (B, Se))."""
+def _blocks(cfg: ModelConfig, params):
+    """(kind, leaves, cache path, index) of each step of the decoder trunk
+    in order: "layer" (a dense, MoE or vision decoder layer), "ssm", the
+    hybrid's "rec" and "attn" sublayers (its units' ``b0`` .., then its
+    tail layers), "dec" (an encoder-decoder decoder layer).  The cache
+    path is where the step's cache leaves sit in the cache tree (() for a
+    flat cache), the index their position on the leaves' leading axis."""
+    if cfg.family == "hybrid":
+        for i, p in enumerate(_per_layer(params, "units")):
+            for j, kind in enumerate(cfg.block_pattern):
+                yield kind, p[f"b{j}"], ("units", f"b{j}"), i
+        if "tail" in params:
+            for i, p in enumerate(_per_layer(params, "tail")):
+                yield "rec", p, ("tail",), i
+        return
+    kind = {"ssm": "ssm", "audio": "dec"}.get(cfg.family, "layer")
+    for i, p in enumerate(_per_layer(params)):
+        yield kind, p, (), i
+
+
+def _block_fwd(cfg: ModelConfig, kind: str, p, h, positions, tab, model,
+               *, want_cache: bool = False, slots: int = 0, enc=None,
+               route=None):
+    """One step of a trunk over the sequence on rank ``model.rank`` of the
+    model group (the ``tp`` regime; in a group of one the one-device
+    step): each sublayer this rank's share (``attention_share``,
+    ``ffn_share``, ``ssm_share``, ``rglru_share``), its input read
+    through the group's ``copy_in`` and its partial output all-reduced
+    (``reduce_out``) into h.  ``kind`` as ``_blocks`` gives it, or "enc"
+    (an encoder layer: non-causal, no RoPE).  "dec" runs the causal
+    self-attention, the cross-attention on ``enc`` (the encoder's states
+    and positions) and the MLP.  Returns (h, the FFN's partial aux or
+    None, the step's cache or None): with ``want_cache`` its K/V ({"k",
+    "v"}; MLA's {"ckv", "kr"}; folded into a ring of ``slots`` where the
+    sublayer is windowed; the decoder layer's {"k", "v", "xk", "xv"}),
+    the SSM's or the RG-LRU's decode cache, each the rank's."""
+    reduce, copy = model.reduce_out, model.copy_in
+    share = dict(m=model.rank, tp=model.size, copy=copy)
+    if kind == "ssm":
+        y = ssm_share(cfg, p, h, copy, model, want_cache)
+        y, cache = y if want_cache else (y, None)
+        return h + reduce(y), None, cache
+    cache = None
+    if kind == "rec":
+        y = rglru_share(cfg, p, h, copy, want_cache)
+        y, cache = y if want_cache else (y, None)
+    else:
+        y, kv = attention_share(
+            cfg, p, h, positions, tab, **share, want_kv=True,
+            leaves="t" if kind == "attn" else "attn",
+            window=_window(cfg), causal=kind != "enc")
+        if kind == "dec":
+            h = h + reduce(y)
+            y, xkv = attention_share(cfg, p, h, positions, None, **share,
+                                     want_kv=True, leaves="xattn",
+                                     norm="ln2", causal=False, states=enc)
+            kv = tuple(kv) + tuple(xkv)
+        if want_cache:
+            if slots and kind != "enc":
+                kv = [fold_ring(t, slots) for t in kv]
+            names = ("ckv", "kr") if cfg.use_mla else ("k", "v", "xk", "xv")
+            cache = dict(zip(names, kv))
+    h = h + reduce(y)
+    y, aux = ffn_share(cfg, p, h, **share, route=route,
+                       norm="ln3" if kind == "dec" else "ln2")
+    return h + reduce(y), aux, cache
+
+
+def _encoder(cfg: ModelConfig, params, frames, model):
+    """The encoder over stub frame embeddings (B, Se, D) on rank
+    ``model.rank`` of the model group: ``_enc_inputs`` (on every rank, as
+    the vision patches are placed), its layers (``_block_fwd`` "enc"),
+    then ``enc_norm``.  Returns (states (B, Se, D), positions (B, Se)),
+    whole on every rank."""
     h, positions = _enc_inputs(cfg, params, frames)
     for p in _per_layer(params, "enc_layers"):
-        h = _enc_layer_fwd(cfg, p, h, positions)
+        h = _block_fwd(cfg, "enc", p, h, positions, None, model)[0]
     return layers.apply_norm(cfg, params["enc_norm"], h), positions
 
 
-def _dec_layer_fwd(cfg, p, h, positions, enc, enc_pos):
-    """One decoder layer of the encoder-decoder over the sequence: causal
-    self-attention without RoPE, non-causal cross-attention on the
-    encoder states, the MLP.  Returns (h, (k, v, xk, xv))."""
-    xn = layers.apply_norm(cfg, p["ln1"], h)
-    a, (k, v) = layers.attention_fwd(cfg, p["attn"], xn, positions,
-                                     causal=True, use_rope=False)
-    h = h + a
-    xk, xv = layers.kv_from_states(cfg, p["xattn"], enc)
-    xn = layers.apply_norm(cfg, p["ln2"], h)
-    a, _ = layers.attention_fwd(cfg, p["xattn"], xn, positions,
-                                causal=False, kv=(xk, xv),
-                                kv_positions=enc_pos)
-    h = h + a
-    h = h + layers.mlp_fwd(cfg, p["mlp"], layers.apply_norm(cfg, p["ln3"],
-                                                            h))
-    return h, (k, v, xk, xv)
-
-
-def _dec_layer_decode(cfg, p, h, c, lengths):
-    """One decoder layer's decode step; its cache ``c`` (one layer's
-    views of k, v, xk, xv) is written in place (k and v at ``lengths``)."""
-    xn = layers.apply_norm(cfg, p["ln1"], h)
-    a, _, _ = layers.attention_decode(cfg, p["attn"], xn, c["k"], c["v"],
-                                      lengths, use_rope=False)
-    h = h + a
-    xn = layers.apply_norm(cfg, p["ln2"], h)
-    h = h + layers.cross_attention_decode(cfg, p["xattn"], xn, c["xk"],
-                                          c["xv"])
-    return h + layers.mlp_fwd(cfg, p["mlp"],
-                              layers.apply_norm(cfg, p["ln3"], h))
-
-
-def _stacked(per_layer):
-    """A list of per-layer cache dicts -> one dict of stacked leaves."""
-    return {k: torch.stack([c[k] for c in per_layer])
-            for k in per_layer[0]}
-
-
-def _hybrid_backbone(cfg, params, h, positions, tab):
-    units = []
-    for p in _per_layer(params, "units"):
-        c = {}
-        for i, kind in enumerate(cfg.block_pattern):
-            h, c[f"b{i}"] = _rg_sub_fwd(cfg, p[f"b{i}"], h, positions, tab,
-                                        kind)
-        units.append(c)
-    cache = {"units": {b: _stacked([u[b] for u in units])
-                       for b in units[0]}}
-    if "tail" in params:
-        tail = []
-        for p in _per_layer(params, "tail"):
-            h, c = _rg_sub_fwd(cfg, p, h, positions, tab, "rec")
-            tail.append(c)
-        cache["tail"] = _stacked(tail)
-    return h, cache
+def _encode(cfg, params, frames):
+    """The encoder on one device (``_encoder``)."""
+    return _encoder(cfg, params, frames, LOCAL.model)
 
 
 def _check_stubs(cfg: ModelConfig, frames, patches) -> None:
@@ -853,40 +897,17 @@ def _check_stubs(cfg: ModelConfig, frames, patches) -> None:
 
 def _backbone(cfg: ModelConfig, params, tokens, *, frames=None,
               patches=None):
-    """tokens (B, S) -> (final-normed hidden (B, S', D), cache); the cache
-    is ``init_cache``'s leaves at max_len S', an SSM's decode cache, or for
+    """tokens (B, S) -> (final-normed hidden (B, S', D), cache) on one
+    device: ``_prefill_trunk`` over ``LOCAL``.  The cache is
+    ``init_cache``'s leaves at max_len S', an SSM's decode cache, or for
     a window the reference's prefill rings of min(window, S) slots
     (``install_rings`` takes them to a decode cache).  S' is S, or P + S
     with Pixtral's ``patches`` (B, P, D) placed first; the
-    encoder-decoder needs ``frames`` (B, encoder_seq, D).  The dense, MoE
-    and vision decoders (``_serves_split``: MLA and the window among them)
-    run ``_prefill_trunk`` on one device."""
+    encoder-decoder needs ``frames`` (B, encoder_seq, D)."""
     check_model(cfg)
     _check_stubs(cfg, frames, patches)
-    if _serves_split(cfg):
-        return _prefill_trunk(cfg, params, tokens, LOCAL.model, patches)
-    h, positions = _assemble_inputs(cfg, params, tokens, patches)
-    B, S = positions.shape
-    if cfg.family == "audio":
-        enc, enc_pos = _encode(cfg, params, frames)
-        cache = init_cache(cfg, B, S, tokens.device)
-        for i, p in enumerate(_per_layer(params)):
-            h, kv = _dec_layer_fwd(cfg, p, h, positions, enc, enc_pos)
-            for name, t in zip(("k", "v", "xk", "xv"), kv):
-                cache[name][i] = t
-        return layers.apply_norm(cfg, params["final_norm"], h), cache
-    if cfg.family == "ssm":
-        cache = init_cache(cfg, B, S, tokens.device)
-        for i, p in enumerate(_per_layer(params)):
-            xn = layers.apply_norm(cfg, p["ln1"], h)
-            y, c = ssm.ssm_fwd(cfg, p["ssm"], xn, return_state=True)
-            for name, t in c.items():
-                cache[name][i] = t
-            h = h + y
-        return layers.apply_norm(cfg, params["final_norm"], h), cache
-    tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
-    h, cache = _hybrid_backbone(cfg, params, h, positions, tab)
-    return layers.apply_norm(cfg, params["final_norm"], h), cache
+    return _prefill_trunk(cfg, params, tokens, LOCAL.model, patches,
+                          frames=frames)
 
 
 # ---------------------------------------------------------------------------
@@ -904,29 +925,25 @@ def check_trainable(cfg: ModelConfig, tp: int = 1) -> None:
     as the reference's ``forward_loss`` does (dense decoders, a sliding
     window among them; MoE decoders with GQA or MLA attention; Mamba-2
     SSMs; the RecurrentGemma hybrid; the Whisper encoder-decoder; the
-    Pixtral vision decoder).  Over a model group of ``tp`` > 1 ranks:
-    dense and MoE decoders (GQA or MLA attention) and the vision decoder,
-    their q heads split over ``tp`` (``distributed/sharding.py::
-    attention_mode`` "heads") or, where GQA heads do not split, their q
-    positions (``seq_split``); the rest raises, naming what ROADMAP Queue
-    A item 3 queues for it."""
+    Pixtral vision decoder), over a model group of ``tp`` ranks too:
+    attention over the q heads (``distributed/sharding.py::
+    attention_mode`` "heads") or, where GQA heads do not split, over the
+    q positions (``seq_split``); the SSM's channels and heads, the
+    RG-LRU's channels and gate blocks, the experts or MLP columns and the
+    vocabulary split over ``tp``.  A model whose rules leave one of these
+    replicated raises, naming it (``_split_refusal``)."""
     check_model(cfg)
-    if tp <= 1:
-        return
-    why = None
-    if cfg.family not in ("dense", "moe", "vlm"):
-        why = "the SSM, RG-LRU and encoder-decoder TP rules at run time"
-    else:
-        why = _split_refusal(cfg, tp)
+    why = _split_refusal(cfg, tp) if tp > 1 else None
     if why:
         raise NotImplementedError(
-            f"{cfg.name} at tp {tp}: waits for {why} (ROADMAP Queue A item "
-            f"3, the multi-device path)")
+            f"{cfg.name} at tp {tp}: {why} (the tp regime splits it over "
+            f"the model group)")
 
 
 def _split_refusal(cfg: ModelConfig, tp: int):
-    """What of a dense, MoE or vision decoder does not split over ``tp``
-    ranks (its vocabulary, experts or MLP columns, MLA's q heads), or
+    """What of a model does not split over ``tp`` ranks under the
+    reference's rules (its vocabulary, experts or MLP columns, MLA's q
+    heads, the SSM's channels and heads, the RG-LRU's gate blocks), or
     None."""
     if padded_vocab(cfg) % tp:
         return "a replicated vocabulary"
@@ -937,81 +954,76 @@ def _split_refusal(cfg: ModelConfig, tp: int):
         return "replicated experts"
     if not cfg.is_moe and cfg.d_ff % tp:
         return "a replicated MLP"
+    if cfg.family == "ssm" and (cfg.d_inner % tp or cfg.ssm_heads % tp or
+                                cfg.ssm_groups > 1):
+        return (f"SSM channels or heads that do not split ({cfg.d_inner} "
+                f"channels, {cfg.ssm_heads} heads, {cfg.ssm_groups} groups; "
+                f"B and C are replicated, so one group)")
+    if cfg.family == "hybrid" and (cfg.lru_width % tp or
+                                   rglru.RG_BLOCKS % tp):
+        return (f"RG-LRU gate blocks that do not split ({rglru.RG_BLOCKS} "
+                f"blocks of {cfg.lru_width} channels: the rules would "
+                f"split the channels and replicate the gates, or the "
+                f"reverse)")
     return None
-
-
-# what each family waits for in the serving cells (ROADMAP Queue A item 3)
-_SERVE_QUEUED = {"ssm": "the SSM's rules", "hybrid": "the RG-LRU hybrid's "
-                 "rules", "audio": "the encoder-decoder's rules"}
 
 
 def check_servable(cfg: ModelConfig, tp: int, kind: str) -> None:
     """What the serving cells of ``launch/steps.py::build_cell`` take
-    (``kind`` "prefill" or "decode") over a model group of ``tp`` ranks
-    (``_serves_split``): the dense and MoE decoders with GQA attention
-    and a full-length cache (Llama-3.2-1B, Qwen2-0.5B, SmolLM-360M,
-    Qwen3-30B-A3B, Phi-3.5-MoE), with MLA's latent cache (DeepSeek-R1) or
-    a sliding window's ring (H2O-Danube-1.8B), and the vision decoder
-    (Pixtral-12B), whose vocabulary and experts or MLP columns split over
-    ``tp``; a prefill runs the ``tp`` regime's q-head split, or its
-    q-position split where GQA heads do not split (``seq_split``; the
-    decode regime replicates the attention weights).  The rest raises,
-    naming what ROADMAP Queue A item 3 queues for it."""
+    (``kind`` "prefill" or "decode") over a model group of ``tp`` ranks:
+    every family, whose vocabulary, experts or MLP columns, SSM channels
+    and heads or RG-LRU gate blocks split over ``tp`` (``_split_refusal``;
+    a window's ring must split too, ``ring_slots``).  A prefill runs the
+    ``tp`` regime's q-head split, or its q-position split where GQA heads
+    do not split (``seq_split``); the decode regime replicates the
+    attention weights and splits the caches' sequence (GQA, MLA's latent,
+    the encoder-decoder's self and cross caches), a ring's slots, or the
+    SSM's and RG-LRU's states and convolutions by channel.  The rest
+    raises, naming what does not split."""
     check_model(cfg)
-    if not _serves_split(cfg):
-        why = _SERVE_QUEUED[cfg.family]
-    else:
-        why = _split_refusal(cfg, tp) if tp > 1 else None
+    why = _split_refusal(cfg, tp) if tp > 1 else None
     if why:
         raise NotImplementedError(
-            f"{cfg.name} {kind} at tp {tp}: waits for {why} (ROADMAP Queue "
-            f"A item 3, the multi-device path)")
-
-
-def _chunk_ce(cfg, params, h, labels):
-    """(sum of the valid rows' losses, their count) of one chunk: fp32
-    logits, logsumexp minus the label's logit, labels < 0 left out."""
-    logits = logits_fn(cfg, params, h)
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])
-    valid = (labels >= 0).float()
-    return ((lse - ll[..., 0]) * valid).sum(), valid.sum()
+            f"{cfg.name} {kind} at tp {tp}: {why} (the serving cells split "
+            f"it over the model group)")
 
 
 def ce_shard(cfg, params, h, labels, m: int = 0, tp: int = 1, copy=_same):
     """Rank ``m`` of ``tp``'s statistics of one chunk's cross-entropy over
     its vocabulary shard of ``lm_head`` (V/tp columns, h read through
-    ``copy`` as ``attention_share`` reads it): each row's max logit
-    (detached: a shift), the sum of the exponentials past it, and the
-    label's logit where this shard owns the label (0 elsewhere).
-    ``ce_merge`` combines the ranks'."""
+    ``copy`` as ``attention_share`` reads it): each row's log-sum-exp of
+    the shard's fp32 logits, and the label's logit where this shard owns
+    the label (0 elsewhere).  ``ce_merge`` combines the ranks'."""
     logits = logits_fn(cfg, params, copy(h))
     Vl = logits.shape[-1]
-    mx = logits.detach().amax(-1)
-    se = torch.exp(logits - mx[..., None]).sum(-1)
+    lse = torch.logsumexp(logits, dim=-1)
     t = labels.long() - m * Vl
     own = (t >= 0) & (t < Vl)
     ll = torch.gather(logits, -1, t.clamp(0, Vl - 1)[..., None])[..., 0]
-    return mx, se, torch.where(own, ll, 0.0)
+    return lse, torch.where(own, ll, 0.0)
 
 
-def ce_merge(mx, se, ll, labels, max_over, sum_over):
+def ce_merge(lse, ll, labels, max_over, sum_over):
     """(sum of the valid rows' losses, their count) of one chunk from the
     ranks' ``ce_shard`` statistics, ``max_over`` and ``sum_over``
     reducing over the ranks (on the multi-GPU path the model group's
-    all-reduce of the max and its ``reduce_out``): each rank's sum of
-    exponentials rescaled to the global max, the log-sum-exp, minus the
-    label's logit."""
-    top = max_over(mx)
-    lse = torch.log(sum_over(se * torch.exp(mx - top))) + top
+    all-reduce of the max and its ``reduce_out``): the ranks'
+    log-sum-exps joined past their max (detached: a shift), minus the
+    label's logit, labels < 0 left out.  One rank's log-sum-exp comes
+    back in its bits, and so does its gradient (exp(0) is 1, log 1 is
+    0), so a group of one gives one device's loss and gradients whether
+    its collectives are skipped or sent."""
+    top = max_over(lse.detach())
+    lse = torch.log(sum_over(torch.exp(lse - top))) + top
     valid = (labels >= 0).float()
     return ((lse - sum_over(ll)) * valid).sum(), valid.sum()
 
 
 def _chunk_ce_tp(cfg, params, h, labels, model):
-    """``_chunk_ce`` over the model group ``model``, the vocabulary split
-    across it: this rank's ``ce_shard`` merged by the group's
-    collectives."""
+    """(sum of the valid rows' losses, their count) of one chunk over the
+    model group ``model``, the vocabulary split across it: this rank's
+    ``ce_shard`` merged by the group's collectives (in a trivial group
+    the one device's chunk: the collectives are identities)."""
     stats = ce_shard(cfg, params, h, labels, model.rank, model.size,
                      model.copy_in)
     return ce_merge(*stats, labels, lambda t: model.all_reduce(t, "max"),
@@ -1029,21 +1041,16 @@ def _chunked_ce(cfg: ModelConfig, params, h, labels, comm=LOCAL):
     (``distributed/collectives.py::Comm``) the vocabulary splits over its
     model group (``_chunk_ce_tp``) and this rank's summed loss is divided
     by the count of valid labels over its data group: the data group's
-    sum of the results is the batch's mean.  A model group of one keeps
-    ``_chunk_ce``'s ``logsumexp``, whose bits ``ce_merge``'s rescaled sum
-    would not give."""
+    sum of the results is the batch's mean.  One device runs the same
+    merge (``ce_merge`` keeps its bits)."""
     model = comm.model
     tot = torch.zeros((), dtype=torch.float32, device=h.device)
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for s0 in range(0, h.shape[1], CE_CHUNK):
         args = (cfg, params, h[:, s0:s0 + CE_CHUNK],
                 labels[:, s0:s0 + CE_CHUNK])
-        if model.trivial:
-            t, n = checkpoint(_chunk_ce, *args, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            t, n = checkpoint(_chunk_ce_tp, *args, model,
-                              use_reentrant=False, preserve_rng_state=False)
+        t, n = checkpoint(_chunk_ce_tp, *args, model, use_reentrant=False,
+                          preserve_rng_state=False)
         tot, cnt = tot + t, cnt + n
     cnt = comm.data.all_reduce(cnt)
     return tot / torch.clamp_min(cnt, 1.0)
@@ -1089,76 +1096,74 @@ def _train_layer(cfg, stack, i, h, positions, tab, comm=LOCAL, take=_index):
     matmul, softmax and stable sort see the same inputs and give the same
     bits (``chip_smoke.py`` phase 13 compares the two runs' dispatch plans
     on the card).  Each sublayer is this rank's share over the model group
-    of ``comm`` (``attention_share``, ``ffn_share``) and the partial
-    outputs (and aux) are all-reduced (``reduce_out``); in a group of one
-    both are the one-device sublayers and nothing is sent.  In the
-    ``fsdp`` regime an MoE routes the data group's rows as one batch, as
-    the reference's ``_moe_local`` on the global batch does (one
-    all-gather of the expert counts a layer, again in the recompute)."""
-    p = take(stack, i)
-    if cfg.family == "ssm":
-        xn = layers.apply_norm(cfg, p["ln1"], h)
-        return h + ssm.ssm_fwd(cfg, p["ssm"], xn), None
-    model = comm.model
-    share = dict(m=model.rank, tp=model.size, copy=model.copy_in)
-    h = h + model.reduce_out(attention_share(cfg, p, h, positions, tab,
-                                             **share))
-    y, aux = ffn_share(cfg, p, h, **share,
-                       route=None if comm.fsdp is None else comm.data)
-    return h + model.reduce_out(y), (None if aux is None
-                                     else model.reduce_out(aux))
+    of ``comm`` (``_block_fwd``) and the partial outputs (and aux) are
+    all-reduced (``reduce_out``); in a group of one they are the
+    one-device sublayers and nothing is sent.  In the ``fsdp`` regime an
+    MoE routes the data group's rows as one batch, as the reference's
+    ``_moe_local`` on the global batch does (one all-gather of the expert
+    counts a layer, again in the recompute)."""
+    h, aux, _ = _block_fwd(
+        cfg, "ssm" if cfg.family == "ssm" else "layer", take(stack, i), h,
+        positions, tab, comm.model,
+        route=None if comm.fsdp is None else comm.data)
+    return h, None if aux is None else comm.model.reduce_out(aux)
 
 
-def _train_enc_layer(cfg, stack, i, h, positions, tab, take=_index):
-    """Encoder layer ``i`` of the encoder-decoder (``_enc_layer_fwd``), its
-    leaves taken as ``_train_layer`` takes them.  Returns (h, None)."""
-    return _enc_layer_fwd(cfg, take(stack, i), h, positions), None
+def _train_enc_layer(cfg, stack, i, h, positions, tab, comm=LOCAL,
+                     take=_index):
+    """Encoder layer ``i`` of the encoder-decoder (``_block_fwd`` "enc"),
+    its leaves taken as ``_train_layer`` takes them.  Returns (h, None)."""
+    return _block_fwd(cfg, "enc", take(stack, i), h, positions, None,
+                      comm.model)[0], None
 
 
 def _train_dec_layer(cfg, stack, i, h, positions, tab, enc=None,
-                     take=_index):
-    """Decoder layer ``i`` of the encoder-decoder (``_dec_layer_fwd``,
+                     comm=LOCAL, take=_index):
+    """Decoder layer ``i`` of the encoder-decoder (``_block_fwd`` "dec",
     its K/V left unkept) on ``enc``, the encoder's (states, positions):
     every decoder layer reads the same states, so their gradient sums over
-    the layers.  Returns (h, None)."""
-    return _dec_layer_fwd(cfg, take(stack, i), h, positions, *enc)[0], None
+    the layers (and, over a model group, over the ranks: ``forward_loss``
+    reads them through one ``copy_in``).  Returns (h, None)."""
+    return _block_fwd(cfg, "dec", take(stack, i), h, positions, None,
+                      comm.model, enc=enc)[0], None
 
 
-def _train_unit(cfg, stack, i, h, positions, tab, take=_index):
+def _train_unit(cfg, stack, i, h, positions, tab, comm=LOCAL, take=_index):
     """Unit ``i`` of the hybrid's trunk: its sublayers ``b0`` .. over
-    ``cfg.block_pattern`` (``_rg_sub_fwd`` without a cache), the leaves
-    taken from the stacked ones as ``_train_layer`` takes them.
-    Returns (h, None): the hybrid has no aux."""
+    ``cfg.block_pattern`` (``_block_fwd`` "rec" or "attn", without a
+    cache), the leaves taken from the stacked ones as ``_train_layer``
+    takes them.  Returns (h, None): the hybrid has no aux."""
     p = take(stack, i)
     for j, kind in enumerate(cfg.block_pattern):
-        h, _ = _rg_sub_fwd(cfg, p[f"b{j}"], h, positions, tab, kind,
-                           want_cache=False)
+        h = _block_fwd(cfg, kind, p[f"b{j}"], h, positions, tab,
+                       comm.model)[0]
     return h, None
 
 
-def _train_tail(cfg, stack, i, h, positions, tab, take=_index):
+def _train_tail(cfg, stack, i, h, positions, tab, comm=LOCAL, take=_index):
     """Tail layer ``i`` of the hybrid (an RG-LRU sublayer), as
     ``_train_unit``."""
-    return _rg_sub_fwd(cfg, take(stack, i), h, positions, tab, "rec",
-                       want_cache=False)[0], None
+    return _block_fwd(cfg, "rec", take(stack, i), h, positions, tab,
+                      comm.model)[0], None
 
 
 def _train_steps(cfg, params, enc=None, comm=LOCAL):
     """(step function, its stacked leaves, index) of each step of the
     training trunk: the layers, the hybrid's units and then its tail
     layers, or the encoder-decoder's decoder layers on ``enc`` (the
-    reference's ``_stack_fwd`` scans); the layers take ``comm``, and each
-    step its leaves through ``_taker(comm, stack)``."""
+    reference's ``_stack_fwd`` scans); each step takes ``comm`` and its
+    leaves through ``_taker(comm, stack)``."""
     part = functools.partial
     if cfg.family == "audio":
-        fn = part(_train_dec_layer, enc=enc, take=_taker(comm, "layers"))
+        fn = part(_train_dec_layer, enc=enc, comm=comm,
+                  take=_taker(comm, "layers"))
         return [(fn, params["layers"], i) for i in range(cfg.num_layers)]
     if cfg.family != "hybrid":
         fn = part(_train_layer, comm=comm, take=_taker(comm, "layers"))
         return [(fn, params["layers"], i) for i in range(cfg.num_layers)]
     n_units, n_tail = _hybrid_counts(cfg)
-    unit = part(_train_unit, take=_taker(comm, "units"))
-    tail = part(_train_tail, take=_taker(comm, "tail"))
+    unit = part(_train_unit, comm=comm, take=_taker(comm, "units"))
+    tail = part(_train_tail, comm=comm, take=_taker(comm, "tail"))
     return [(unit, params["units"], i) for i in range(n_units)] + \
         [(tail, params["tail"], j) for j in range(n_tail)]
 
@@ -1237,12 +1242,12 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
     _check_stubs(cfg, frames, patches)
     params = _gather_unstacked(params, comm)
     if not model.trivial:
-        # the vocabulary split over the group, the patches placed after
-        # its reduce; the hybrid's scaled embedding and the
-        # encoder-decoder's positions ``check_trainable`` keeps off this
-        # path.  ``adapter``'s gradient is then the whole one on every
-        # rank (the residual stream's gradient is), as a norm's is
-        h, positions = place_patches(cfg, params, model.reduce_out(
+        # the vocabulary split over the group; the hybrid's scale, the
+        # patches and the encoder-decoder's positions after its reduce
+        # (``embed_finish``).  ``adapter``'s gradient is then the whole
+        # one on every rank (the residual stream's gradient is), as a
+        # norm's is
+        h, positions = embed_finish(cfg, params, model.reduce_out(
             embed_share(cfg, params, batch["tokens"], model.rank,
                         model.size)), patches)
     else:
@@ -1252,13 +1257,16 @@ def forward_loss(cfg: ModelConfig, params, batch, *, remat: bool = True,
         positions, layers.rope_dim(cfg), cfg.rope_theta)
     enc = None
     if cfg.family == "audio":
+        # the encoder on every rank, its layers split as the decoder's;
+        # its states read by every decoder layer through one copy_in
         eh, enc_pos = _enc_inputs(cfg, params, frames)
-        fn = functools.partial(_train_enc_layer,
+        fn = functools.partial(_train_enc_layer, comm=comm,
                                take=_taker(comm, "enc_layers"))
         eh, _ = _run_steps([(fn, params["enc_layers"], i)
                             for i in range(cfg.encoder_layers)],
                            cfg, eh, enc_pos, None, remat)
-        enc = (layers.apply_norm(cfg, params["enc_norm"], eh), enc_pos)
+        enc = (model.copy_in(layers.apply_norm(cfg, params["enc_norm"], eh)),
+               enc_pos)
     h, aux = _run_steps(_train_steps(cfg, params, enc, comm), cfg, h,
                         positions, tab, remat)
     h = layers.apply_norm(cfg, params["final_norm"], h)
@@ -1278,89 +1286,77 @@ def prefill(cfg: ModelConfig, params, tokens, *, frames=None, patches=None,
     ``max_len`` the full-attention cache is ``init_cache``'s of max_len
     positions, the prefill's in the first S, and a window's ring
     ``init_cache``'s of min(window, max_len) slots (``install_ring``'s
-    layout); without it a ring is the reference's of min(window, S).
+    layout); without it a ring is the reference's of min(window, S).  An
+    SSM's cache and the RG-LRU's states do not grow with ``max_len``.
 
-    The dense, MoE and vision decoders (``_serves_split``) run
-    ``_prefill_shard`` over ``comm``: on the multi-GPU path one rank's
-    prefill in the ``tp`` regime, the logits all-gathered and the cache
-    this rank's shard in the decode layout; in groups of one (``LOCAL``)
-    every collective is skipped and it is the one-device prefill.  Over a
-    model group of more than one rank, or one whose collectives are sent,
-    the other families raise (``check_servable``)."""
-    if _serves_split(cfg) or not comm.model.trivial:
-        _check_stubs(cfg, frames, patches)
-        n = tokens.shape[1] + (0 if patches is None else patches.shape[1])
-        return _prefill_shard(cfg, params, tokens, comm.model, max_len or n,
-                              patches)
-    h, cache = _backbone(cfg, params, tokens, frames=frames, patches=patches)
-    logits = logits_fn(cfg, params, h[:, -1:, :])
-    if max_len is not None and max_len != h.shape[1]:
-        cache = install_cache(cfg, init_cache(cfg, tokens.shape[0], max_len,
-                                              tokens.device), cache)
-    return logits, cache
-
-
-def _serves_split(cfg: ModelConfig) -> bool:
-    """The dense, MoE and vision decoders, what the serving cells take
-    (GQA with a full-length cache, MLA's latent cache, a sliding window's
-    ring): their prefill and decode step run the multi-GPU bodies
-    (``_prefill_shard``, ``_decode_shard_logits``) over every ``comm``,
-    ``LOCAL`` included."""
-    return cfg.family in ("dense", "moe", "vlm")
+    Every family runs ``_prefill_shard`` over ``comm``: on the multi-GPU
+    path one rank's prefill in the ``tp`` regime, the logits all-gathered
+    and the cache this rank's shard in the decode layout; in groups of
+    one (``LOCAL``) every collective is skipped and it is the one-device
+    prefill."""
+    _check_stubs(cfg, frames, patches)
+    n = tokens.shape[1] + (0 if patches is None else patches.shape[1])
+    return _prefill_shard(cfg, params, tokens, comm.model, max_len or n,
+                          patches, frames)
 
 
 def _prefill_trunk(cfg: ModelConfig, params, tokens, model, patches=None,
-                   slots=None):
+                   slots=None, frames=None):
     """Rank ``model.rank``'s trunk of a prefill of tokens (B, S) over the
     model group in the ``tp`` regime (``params`` its slices under
     ``param_specs(..., "tp")``; in a group of one the whole tree): the
-    embedding over its vocabulary rows reduced, the vision decoder's
-    ``patches`` placed after the reduce (``place_patches``: S' = P + S
-    positions), each layer's ``attention_share`` (its q heads through
-    ``flash_attention``) and ``ffn_share`` (its experts or MLP columns),
-    each reduced over the group (the MoE's aux dropped: serving has no
-    loss), then the final norm.  Returns (h (B, S', D), cache): {"k", "v"}
-    of the kv heads its q heads read, (L, B, S', Hl, dh) each (in the
-    ``seq`` mode, ``seq_split``, its q rows' attention and every kv head);
-    MLA's {"ckv", "kr"} of every position, (L, B, S', r) and (L, B, S',
-    dr), the same on every rank; a window's ring of ``slots`` (default
-    min(window, S')) {"k", "v"} of its kv heads, (L, B, slots, Hl, dh),
-    and "pos" (B, slots), each layer's K/V folded in as it is made
-    (``fold_ring``).  Collectives: 1 + 2 L all-reduces."""
+    embedding over its vocabulary rows reduced, then ``embed_finish``
+    (the hybrid's scale, the vision decoder's ``patches`` placed: S' = P
+    + S positions, the encoder-decoder's positions), the encoder-decoder's
+    encoder over ``frames`` (``_encoder``), each step of ``_blocks``
+    (``_block_fwd`` without gradients: each sublayer's share reduced over
+    the group; the MoE's aux dropped: serving has no loss), then the
+    final norm.  Returns (h (B, S', D), cache): each step's cache stacked
+    at its path, {"k", "v"} of the kv heads its q heads read, (L, B, S',
+    Hl, dh) each (in the ``seq`` mode, ``seq_split``, every kv head;
+    the encoder-decoder's cross K/V {"xk", "xv"} the same over the
+    encoder's positions); MLA's {"ckv", "kr"} of every position, the
+    same on every rank; a window's ring of ``slots`` (default min(window,
+    S')) {"k", "v"} of its kv heads and "pos", each step's K/V folded in
+    as it is made (``fold_ring``); the SSM's and the RG-LRU's decode
+    caches over the rank's heads and channels (the hybrid's nested
+    {"units": {"b<i>": ...}, "tail": ...}).  Collectives: 1 + 2 a
+    reduced sublayer all-reduces (an SSM layer's norm counts as one)."""
     m, tp = model.rank, model.size
-    h, positions = place_patches(cfg, params, model.all_reduce(embed_share(
+    h, positions = embed_finish(cfg, params, model.all_reduce(embed_share(
         cfg, params, tokens, m, tp)), patches)
     S = positions.shape[1]
-    tab = layers.rope_tables(positions, layers.rope_dim(cfg), cfg.rope_theta)
+    tab = None if cfg.family in ("ssm", "audio") else layers.rope_tables(
+        positions, layers.rope_dim(cfg), cfg.rope_theta)
+    enc = None if frames is None else _encoder(cfg, params, frames, model)
+    ring = slots or min(_window(cfg), S) if _window(cfg) else 0
     dt = compat.torch_dtype(cfg.dtype)
-    ring = slots or min(cfg.sliding_window, S) if cfg.sliding_window else 0
-    kept = None
-    for i, p in enumerate(_per_layer(params)):
-        a, kv = attention_share(cfg, p, h, positions, tab, m, tp,
-                                want_kv=True)
-        if ring:
-            kv = [fold_ring(t, ring) for t in kv]
-        if kept is None:
-            kept = [t.new_empty((cfg.num_layers,) + t.shape, dtype=dt)
-                    for t in kv]
-        for buf, t in zip(kept, kv):
-            buf[i] = t
-        h = h + model.all_reduce(a)
-        h = h + model.all_reduce(ffn_share(cfg, p, h, m, tp)[0])
-    h = layers.apply_norm(cfg, params["final_norm"], h)
-    if cfg.use_mla:
-        return h, {"ckv": kept[0], "kr": kept[1]}
-    cache = {"k": kept[0], "v": kept[1]}
-    if ring:
-        cache["pos"] = fold_ring(positions.to(torch.int32), ring, -1)
-    return h, cache
+    cache, count = {}, {}
+    for kind, p, path, i in _blocks(cfg, params):
+        count[path] = max(count.get(path, 0), i + 1)
+    for kind, p, path, i in _blocks(cfg, params):
+        h, _, c = _block_fwd(cfg, kind, p, h, positions, tab, model,
+                             want_cache=True, slots=ring, enc=enc)
+        node = cache
+        for k in path:
+            node = node.setdefault(k, {})
+        for name, t in c.items():
+            if name not in node:
+                node[name] = t.new_empty((count[path],) + t.shape,
+                                         dtype=t.dtype if name in (
+                                             "state", "conv") else dt)
+            node[name][i] = t
+        if ring and kind in ("layer", "attn") and "pos" not in node:
+            pos = fold_ring(positions.to(torch.int32), ring, -1)
+            node["pos"] = pos[None].expand((count[path],) + pos.shape)
+    return layers.apply_norm(cfg, params["final_norm"], h), cache
 
 
 def fold_ring(t, slots: int, empty=0):
     """t (B, S, ...) over positions 0 .. S-1 folded into a ring of
     ``slots``: the newest min(slots, S) positions p at slot p % slots, the
     other slots ``empty`` (``install_ring``'s layout; with slots
-    min(window, S) the reference's prefill ring, ``_to_ring``).  Returns
+    min(window, S) the reference's prefill ring).  Returns
     (B, slots, ...)."""
     S = t.shape[1]
     keep = min(slots, S)
@@ -1371,19 +1367,20 @@ def fold_ring(t, slots: int, empty=0):
 
 
 def _prefill_shard(cfg: ModelConfig, params, tokens, model, max_len: int,
-                   patches=None):
+                   patches=None, frames=None):
     """Rank ``model.rank``'s prefill of tokens (B, S) (and the vision
-    decoder's ``patches`` (B, P, D) before them: S' = P + S positions)
-    over the model group in the ``tp`` regime: ``_prefill_trunk``, then
-    its ``lm_head`` columns of the last position.  Returns (the logits (B,
-    1, V) all-gathered over the group, as the reference's out sharding
-    ``P(Bax, None, None)`` holds them; the cache in the decode layout,
-    ``_to_decode_cache``: this rank's shard of ``max_len`` / tp positions,
-    or of a window's Wd / tp ring slots, Wd = min(window, max_len), zeros
-    past S').  Collectives: 1 + 2 L all-reduces, one all-gather, one
-    all-to-all a K/V leaf (none in the ``seq`` mode, where every rank
-    holds every kv head, and none for MLA, whose latent every rank holds);
-    in a trivial group none, and the one-device prefill."""
+    decoder's ``patches`` (B, P, D) before them: S' = P + S positions;
+    the encoder-decoder's ``frames``) over the model group in the ``tp``
+    regime: ``_prefill_trunk``, then its ``lm_head`` columns of the last
+    position.  Returns (the logits (B, 1, V) all-gathered over the group,
+    as the reference's out sharding ``P(Bax, None, None)`` holds them; the
+    cache in the decode layout, ``_to_decode_cache``: this rank's shard of
+    ``max_len`` / tp positions, or of a window's Wd / tp ring slots, Wd =
+    min(window, max_len), zeros past S'; the SSM's and RG-LRU's leaves as
+    the trunk made them).  Collectives: the trunk's all-reduces, one
+    all-gather, one all-to-all a K/V leaf (none in the ``seq`` mode, where
+    every rank holds every kv head, and none for MLA, whose latent every
+    rank holds); in a trivial group none, and the one-device prefill."""
     check_servable(cfg, model.size, "prefill")
     tp = model.size
     B = tokens.shape[0]
@@ -1392,7 +1389,8 @@ def _prefill_shard(cfg: ModelConfig, params, tokens, model, max_len: int,
         raise ValueError(f"prefill over {tp} ranks: max_len {max_len} must "
                          f"hold the {S} positions and split in {tp}")
     Wd = ring_slots(cfg, max_len, tp)
-    h, cache = _prefill_trunk(cfg, params, tokens, model, patches, Wd)
+    h, cache = _prefill_trunk(cfg, params, tokens, model, patches, Wd,
+                              frames)
     part = logits_fn(cfg, params, h[:, -1:, :])            # (B, 1, V/tp)
     logits = model.all_gather(part[None]).permute(1, 2, 0, 3) \
         .reshape(B, 1, tp * part.shape[-1])
@@ -1401,11 +1399,11 @@ def _prefill_shard(cfg: ModelConfig, params, tokens, model, max_len: int,
 
 def ring_slots(cfg: ModelConfig, max_len: int, tp: int = 1):
     """A window's decode ring slots Wd = min(window, max_len) (0 without a
-    window); raises ``ValueError`` when they do not split over ``tp``
-    ranks."""
-    if not cfg.sliding_window:
+    window; the hybrid's ``local_window``); raises ``ValueError`` when
+    they do not split over ``tp`` ranks."""
+    if not _window(cfg):
         return 0
-    Wd = min(cfg.sliding_window, max_len)
+    Wd = min(_window(cfg), max_len)
     if Wd % tp:
         raise ValueError(f"{cfg.name}: a ring of {Wd} slots does not split "
                          f"over {tp} ranks")
@@ -1414,20 +1412,33 @@ def ring_slots(cfg: ModelConfig, max_len: int, tp: int = 1):
 
 def _to_decode_cache(cfg: ModelConfig, cache, model, max_len: int):
     """A prefill trunk's cache in the decode layout of rank ``model.rank``
-    (``distributed/sharding.py::cache_specs``): K/V to its sequence shard
-    of every kv head (``_to_decode_layout``: one all-to-all a leaf); a
-    ring's K/V the same over its slots, its "pos" (the same on every rank)
-    cut to its slots without a send, one copy a layer; MLA's latent its
-    ``seq_block``, with no exchange."""
+    (``distributed/sharding.py::cache_specs``), at every node of a nested
+    cache: K/V to its sequence shard of every kv head
+    (``_to_decode_layout``: one all-to-all a leaf; the encoder-decoder's
+    cross K/V over the encoder's ``encoder_seq`` positions); a ring's K/V
+    the same over its slots, its "pos" (the same on every rank) cut to
+    its slots without a send; MLA's latent its ``seq_block``, with no
+    exchange; the SSM's and RG-LRU's leaves, already its shard, as they
+    are."""
     m, tp = model.rank, model.size
-    if cfg.use_mla:
-        return {k: seq_block(t, m, tp, max_len) for k, t in cache.items()}
-    n = cache["pos"].shape[-1] if "pos" in cache else max_len
-    out = {k: _to_decode_layout(cfg, cache[k], model, n) for k in ("k", "v")}
     if "pos" in cache:
+        n = cache["pos"].shape[-1]
         Wl = n // tp
-        out["pos"] = cache["pos"][None, :, m * Wl:(m + 1) * Wl].expand(
-            (cfg.num_layers,) + cache["pos"].shape[:1] + (Wl,)).contiguous()
+        return dict({k: _to_decode_layout(cfg, cache[k], model, n)
+                     for k in ("k", "v")},
+                    pos=cache["pos"][..., m * Wl:(m + 1) * Wl].contiguous())
+    out = {}
+    for k, t in cache.items():
+        if isinstance(t, dict):
+            out[k] = _to_decode_cache(cfg, t, model, max_len)
+        elif k in ("ckv", "kr"):
+            out[k] = seq_block(t, m, tp, max_len)
+        elif k in ("k", "v"):
+            out[k] = _to_decode_layout(cfg, t, model, max_len)
+        elif k in ("xk", "xv"):
+            out[k] = _to_decode_layout(cfg, t, model, cfg.encoder_seq)
+        else:
+            out[k] = t
     return out
 
 
@@ -1518,43 +1529,13 @@ def decode_step_logits(cfg: ModelConfig, params, cache, tokens, lengths,
     state advances too, and its tokens are discarded, as in the JAX
     scan).  The encoder-decoder adds sinusoid positions at ``lengths``
     and reads its cross-attention cache; Pixtral's ``lengths`` count its
-    patches.  The dense, MoE and vision decoders (``_serves_split``: MLA
-    and the window among them) run ``_decode_shard_logits`` over
-    ``comm``: on the multi-GPU path one rank's step in the decode regime,
-    its logits its vocabulary shard (B, V / tp); in groups of one
-    (``LOCAL``) the one-device step.  Over a model group of more than one
-    rank, or one whose collectives are sent, the other families raise
-    (``check_servable``)."""
+    patches.  Every family runs ``_decode_shard_logits`` over ``comm``:
+    on the multi-GPU path one rank's step in the decode regime, its
+    logits its vocabulary shard (B, V / tp); in groups of one (``LOCAL``)
+    the one-device step."""
     check_model(cfg)
-    if _serves_split(cfg) or not comm.model.trivial:
-        return _decode_shard_logits(cfg, params, cache, tokens, lengths,
-                                    comm.model)
-    h = _embed_tokens(cfg, params, tokens[:, None])
-    if cfg.family == "audio":
-        h = h + layers.sinusoid_pos(lengths[:, None], cfg.d_model, h.dtype)
-        for i, p in enumerate(_per_layer(params)):
-            h = _dec_layer_decode(cfg, p, h,
-                                  {k: t[i] for k, t in cache.items()},
-                                  lengths)
-        return head_logits(cfg, params, h), cache
-    if cfg.family == "ssm":
-        for i, p in enumerate(_per_layer(params)):
-            xn = layers.apply_norm(cfg, p["ln1"], h)
-            y, _ = ssm.ssm_decode(cfg, p["ssm"], xn,
-                                  {k: v[i] for k, v in cache.items()})
-            h = h + y
-        return head_logits(cfg, params, h), cache
-    tab = layers.rope_tables(lengths[:, None], layers.rope_dim(cfg),
-                             cfg.rope_theta)
-    for u, p in enumerate(_per_layer(params, "units")):
-        for i, kind in enumerate(cfg.block_pattern):
-            c = {k: t[u] for k, t in cache["units"][f"b{i}"].items()}
-            h = _rg_sub_decode(cfg, p[f"b{i}"], h, c, lengths, tab, kind)
-    if "tail" in cache:
-        for j, p in enumerate(_per_layer(params, "tail")):
-            c = {k: t[j] for k, t in cache["tail"].items()}
-            h = _rg_sub_decode(cfg, p, h, c, lengths, tab, "rec")
-    return head_logits(cfg, params, h), cache
+    return _decode_shard_logits(cfg, params, cache, tokens, lengths,
+                                comm.model)
 
 
 def head_logits(cfg: ModelConfig, params, h):
@@ -1575,66 +1556,119 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, lengths,
     return argmax_shards(logits, comm.model), cache
 
 
-def _decode_layer_shard(cfg, p, h, c, lengths, tab, model):
-    """One layer's decode step on rank ``model.rank`` of the decode
-    regime, h (B, 1, D): RMSNorm and q, k, v of every head (the attention
-    weights replicated); the new K/V written at ``lengths`` by the rank
-    whose shard of S_l positions holds it (``cache_update`` drops the
-    others' writes, and a finished row's at ``lengths`` = S on every
-    rank: the reference's ``_cache_update_dus``); the rank's shard
-    attention (``layers.decode_attention_shard``, RoPE at the global
-    positions) merged over the group (``layers.merge_shards``: an
-    all-reduce of the lse's max and one of the weighted sums); ``wo``;
-    the rank's experts or MLP columns (``ffn_share``, the MoE's aux
-    dropped) all-reduced.  MLA's latent shard runs
-    ``layers.mla_decode_shard`` (merged after ``wv_b``) and a window's
-    ring of slots ``layers.ring_decode_shard`` (the owner writes k, v and
-    the position) in place of the shard attention."""
+def _attn_decode_shard(cfg, pa, xn, c, lengths, tab, model, window=None):
+    """Rank ``model.rank``'s one-token attention over its shard ``c`` of a
+    layer's cache in the decode regime, merged over the group, through
+    ``wo``: q, k, v of every head from ``pa`` (the attention weights
+    replicated; RoPE where ``tab`` is given); the new K/V written at
+    ``lengths`` by the rank whose shard of S_l positions holds it
+    (``cache_update`` drops the others' writes, and a finished row's at
+    ``lengths`` = S on every rank: the reference's
+    ``_cache_update_dus``); the rank's shard attention
+    (``layers.decode_attention_shard``, RoPE at the global positions)
+    merged over the group (``layers.merge_shards``: an all-reduce of the
+    lse's max and one of the weighted sums).  MLA's latent shard runs
+    ``layers.mla_decode_shard`` (merged after ``wv_b``) and a ring of
+    slots ``layers.ring_decode_shard`` (the owner writes k, v and the
+    position; ``window``) in place of the shard attention."""
     m, tp = model.rank, model.size
-    xn = layers.apply_norm(cfg, p["ln1"], h)
     if cfg.use_mla:
-        o, lse = layers.mla_decode_shard(cfg, p["attn"], xn, c["ckv"],
-                                         c["kr"], lengths, m, rope_tab=tab)
+        o, lse = layers.mla_decode_shard(cfg, pa, xn, c["ckv"], c["kr"],
+                                         lengths, m, rope_tab=tab)
     elif "pos" in c:
-        o, lse = layers.ring_decode_shard(cfg, p["attn"], xn, c["k"],
-                                          c["v"], c["pos"], lengths, m, tp,
-                                          rope_tab=tab)
+        o, lse = layers.ring_decode_shard(cfg, pa, xn, c["k"], c["v"],
+                                          c["pos"], lengths, m, tp,
+                                          window=window, rope_tab=tab)
     else:
-        q, k, v = layers.attention_qkv(cfg, p["attn"], xn, lengths[:, None],
-                                       rope_tab=tab)
+        q, k, v = layers.attention_qkv(cfg, pa, xn, lengths[:, None],
+                                       rope_tab=tab,
+                                       use_rope=tab is not None)
         S_l = c["k"].shape[1]
         layers.cache_update(c["k"], k, lengths - m * S_l)
         layers.cache_update(c["v"], v, lengths - m * S_l)
         o, lse = layers.decode_attention_shard(q, c["k"], c["v"],
                                                lengths + 1, m, S_l,
                                                softcap=cfg.logit_softcap)
-    o = layers.merge_shards(o, lse, model)
-    h = h + layers._merge_heads(o, p["attn"]["wo"])
-    return h + model.all_reduce(ffn_share(cfg, p, h, m, tp)[0])
+    return layers._merge_heads(layers.merge_shards(o, lse, model), pa["wo"])
+
+
+def _cross_decode_shard(cfg, pa, xn, c, model):
+    """Rank ``model.rank``'s one-token cross-attention over its sequence
+    shard of the encoder's K/V (``xk``, ``xv`` (B, Se / tp, Hkv, dh), read
+    only), every position of which counts, merged over the group
+    (``layers.decode_attention_shard`` at the encoder's whole length, then
+    ``layers.merge_shards``), through ``wo``."""
+    q = layers._q_proj(cfg, pa, xn)
+    S_l = c["xk"].shape[1]
+    enc_len = torch.full((xn.shape[0],), S_l * model.size, dtype=torch.int32,
+                         device=xn.device)
+    o, lse = layers.decode_attention_shard(q, c["xk"], c["xv"], enc_len,
+                                           model.rank, S_l)
+    return layers._merge_heads(layers.merge_shards(o, lse, model), pa["wo"])
+
+
+def _decode_block(cfg, kind, p, h, c, lengths, tab, model):
+    """One step of ``_blocks`` decoding one token on rank ``model.rank``
+    of the decode regime, h (B, 1, D), its cache views ``c`` written in
+    place: the attention sublayers' merged shards (``_attn_decode_shard``;
+    the hybrid's ring at ``local_window``; the encoder-decoder's causal
+    self-attention, then its cross-attention, ``_cross_decode_shard``),
+    whole on every rank; the SSM and the RG-LRU on the rank's channels
+    (``ssm.ssm_decode`` with its gated norm over the group,
+    ``rglru.rglru_decode``), their partial outputs all-reduced; the
+    rank's experts or MLP columns (``ffn_share``, the MoE's aux dropped)
+    all-reduced."""
+    m, tp = model.rank, model.size
+    xn = layers.apply_norm(cfg, p["ln1"], h)
+    if kind == "ssm":
+        y, _ = ssm.ssm_decode(cfg, p["ssm"], xn, c, group=model)
+        return h + model.all_reduce(y)
+    if kind == "rec":
+        y, _ = rglru.rglru_decode(cfg, p["t"], xn, c)
+        h = h + model.all_reduce(y)
+    else:
+        h = h + _attn_decode_shard(cfg, p["t" if kind == "attn" else "attn"],
+                                   xn, c, lengths, tab, model, _window(cfg))
+    if kind == "dec":
+        h = h + _cross_decode_shard(
+            cfg, p["xattn"], layers.apply_norm(cfg, p["ln2"], h), c, model)
+    y, _ = ffn_share(cfg, p, h, m, tp, norm="ln3" if kind == "dec" else "ln2")
+    return h + model.all_reduce(y)
 
 
 def _decode_shard_logits(cfg: ModelConfig, params, cache, tokens, lengths,
                          model):
     """Rank ``model.rank``'s decode step in the decode regime (the port's
     ``serve_step`` body): ``params`` its slices under ``param_specs(...,
-    "decode")``, ``cache`` its sequence shard {"k", "v"} of (L, B, S_l,
-    Hkv, dh) (``distributed/sharding.py::cache_specs``; MLA's {"ckv",
-    "kr"} of (L, B, S_l, r); a ring's slots {"k", "v", "pos"}), tokens and
-    lengths its rows.  The embedding over its vocabulary rows reduced, each
-    layer ``_decode_layer_shard``, the final norm and its ``lm_head``
-    columns.  Returns (its logits' vocabulary shard (B, V / tp) fp32,
-    cache updated in place).  Collectives: 1 + 3 L all-reduces; in a
-    trivial group none (``merge_shards`` returns the one shard's output),
-    and the one-device step."""
+    "decode")``, ``cache`` its shard under ``distributed/sharding.py::
+    cache_specs`` ({"k", "v"} of (L, B, S_l, Hkv, dh); MLA's {"ckv",
+    "kr"} of (L, B, S_l, r); a ring's slots {"k", "v", "pos"}; the
+    encoder-decoder's {"xk", "xv"} of its Se / tp encoder positions
+    beside k and v; the SSM's and RG-LRU's leaves over its heads and
+    channels; the hybrid's nested), tokens and lengths its rows.  The
+    embedding over its vocabulary rows reduced (the hybrid's scale, the
+    encoder-decoder's positions at ``lengths`` added after it), each step
+    ``_decode_block``, the final norm and its ``lm_head`` columns.
+    Returns (its logits' vocabulary shard (B, V / tp) fp32, cache updated
+    in place).  Collectives: 1 + 3 L all-reduces for a decoder (a
+    layer's lse max, merged sum and FFN), 1 + 2 L an SSM, 1 + 2 an RG-LRU
+    and 3 a ring sublayer for the hybrid, 1 + 5 L the encoder-decoder; in
+    a trivial group none (``merge_shards`` returns the one shard's
+    output), and the one-device step."""
     check_servable(cfg, model.size, "decode")
-    h = model.all_reduce(embed_share(cfg, params, tokens[:, None],
-                                     model.rank, model.size))
-    tab = layers.rope_tables(lengths[:, None], layers.rope_dim(cfg),
-                             cfg.rope_theta)
-    for i, p in enumerate(_per_layer(params)):
-        h = _decode_layer_shard(cfg, p, h, {k: t[i] for k, t in
-                                            cache.items()}, lengths, tab,
-                                model)
+    h = _gemma_scale(cfg, model.all_reduce(embed_share(
+        cfg, params, tokens[:, None], model.rank, model.size)))
+    if cfg.family == "audio":
+        h = h + layers.sinusoid_pos(lengths[:, None], cfg.d_model, h.dtype)
+    tab = None if cfg.family in ("ssm", "audio") else layers.rope_tables(
+        lengths[:, None], layers.rope_dim(cfg), cfg.rope_theta)
+    for kind, p, path, i in _blocks(cfg, params):
+        node = cache
+        for k in path:
+            node = node[k]
+        h = _decode_block(cfg, kind, p, h, {k: t[i] for k, t in
+                                            node.items()}, lengths, tab,
+                          model)
     return head_logits(cfg, params, h), cache
 
 

@@ -2059,18 +2059,22 @@ SMOLLM_BOUNDS = {"loss0": 1e-6, "gnorm0": 1e-6, "loss": 2e-6, "gnorm": 4e-5,
 
 # the config cuts of a four-card case beside its 2 layers: DeepSeek-R1 at 8
 # of its 256 experts (its fp32 weights, gradients, master and moments at 2
-# layers: 60 GB on the one card it is held to; phase 17's 16 would be 74.5)
-CUTS = {"deepseek_r1": ["--experts", "8"]}
+# layers: 60 GB on the one card it is held to; phase 17's 16 would be 74.5);
+# RecurrentGemma-2B at 3 layers, one unit (RG-LRU, RG-LRU, local
+# attention), so that its attention runs (2 layers are 2 tail RG-LRUs)
+CUTS = {"deepseek_r1": ["--experts", "8"],
+        "recurrentgemma_2b": ["--layers", "3"]}
 
 
 @pytest.mark.parametrize("arch,dp,regime", [
     ("qwen3_moe_30b", 1, "tp"), ("llama3_2_1b", 2, "tp"),
     ("smollm_360m", 1, "tp"), ("smollm_360m", 1, "fsdp"),
     ("qwen3_moe_30b", 1, "fsdp"), ("deepseek_r1", 1, "tp"),
-    ("pixtral_12b", 1, "tp")],
+    ("pixtral_12b", 1, "tp"), ("mamba2_370m", 1, "tp"),
+    ("recurrentgemma_2b", 1, "tp"), ("whisper_base", 1, "tp")],
     ids=["qwen3_tp_all_cards", "llama_dp2_tp_rest", "smollm_seq_all_cards",
          "smollm_fsdp_all_cards", "qwen3_fsdp_all_cards", "deepseek_tp",
-         "pixtral_tp"])
+         "pixtral_tp", "mamba_tp", "recurrentgemma_tp", "whisper_tp"])
 def test_sharded_training_over_every_card(dev, arch, dp, regime, tmp_path):
     """``launch/train.py`` under torchrun over every card of the machine
     (NCCL), at every published width with 2 layers in fp32, 3 steps of 4 x
@@ -2086,7 +2090,13 @@ def test_sharded_training_over_every_card(dev, arch, dp, regime, tmp_path):
     ``fsdp`` regime (its MoE routing the cards' rows as one batch, as one
     card routes the whole batch); DeepSeek-R1 (MLA, 8 experts and its
     shared expert, ``CUTS``) and Pixtral-12B (its 1024 patches before the
-    1024 tokens) over a model axis of all the cards.  Each rank draws its
+    1024 tokens) over a model axis of all the cards; Mamba2-370M (its
+    channels and heads over the cards, the gated norm's mean square
+    all-reduced), RecurrentGemma-2B (one unit, ``CUTS``: its RG-LRU
+    channels and gate blocks over the cards, its 10 attention heads in
+    the ``seq`` mode at 4 or 8) and Whisper-base (2 decoder layers beside
+    its 6 encoder layers, 1536 stub frames a row) over a model axis of
+    all the cards.  Each rank draws its
     slices of the weights
     (``init_params`` with ``part``): the sampled parameters before the
     first step equal one card's in bits.  Loss and grad norm within
@@ -2225,10 +2235,16 @@ def test_sharded_serving_over_every_card(dev, tmp_path):
 
 
 # the attention families' serving cases over (1, cards): (arch, the
-# worker's arguments beside fp32 and 2 layers)
+# worker's arguments beside fp32 and 2 layers); then the recurrent and
+# encoder-decoder families': Mamba2-370M over its channels, RecurrentGemma-2B
+# at one unit with a prompt of 2560 (its window of 2048 wrapped) into a
+# ring of 2048 slots, Whisper-base 32 tokens into 448 over 1536 frames
 ATTN_SERVING = (("deepseek_r1", ["--experts", "16"]),
                 ("pixtral_12b", []),
-                ("h2o_danube_1_8b", ["--seq", "5120", "--max-len", "8192"]))
+                ("h2o_danube_1_8b", ["--seq", "5120", "--max-len", "8192"]),
+                ("mamba2_370m", []),
+                ("recurrentgemma_2b", ["--layers", "3", "--seq", "2560"]),
+                ("whisper_base", ["--seq", "32", "--max-len", "448"]))
 
 
 def test_attention_families_serving_over_every_card(dev, tmp_path):
@@ -2238,9 +2254,12 @@ def test_attention_families_serving_over_every_card(dev, tmp_path):
     ``decode_step`` on one card: DeepSeek-R1 (16 of its 256 experts) over
     its latent cache, Pixtral-12B with 1024 patches before its 1024
     tokens, H2O-Danube-1.8B with a prompt of 5120 (its window of 4096
-    wrapped) into a ring of 4096 slots over the cards.  Every token
-    equal, the first step's logits within ``SERVING_LOGITS_BOUND`` of
-    their scale.  Skips with fewer than two cards."""
+    wrapped) into a ring of 4096 slots over the cards; Mamba2-370M (its
+    states and convolutions over the cards), RecurrentGemma-2B (one unit,
+    a prompt of 2560 wrapping its ring of 2048 slots) and Whisper-base
+    (its self and cross caches over the cards).  Every token equal, the
+    first step's logits within ``SERVING_LOGITS_BOUND`` of their scale.
+    Skips with fewer than two cards."""
     import json
     n = torch.cuda.device_count()
     if n < 2:
@@ -2316,6 +2335,27 @@ def _train_readings(args, nproc=0, timeout=900):
     return {"steps": steps, "peak_gb": float(peak[1]),
             "tokens_per_s": sorted(s["tokens_per_s"] for s in steps[1:])[
                 (len(steps) - 1) // 2]}
+
+
+def test_recurrentgemma_bf16_tp_reading_over_every_card(dev):
+    """A bf16 reading of the hybrid's ``tp`` step at its real size,
+    printed as JSON: RecurrentGemma-2B at full depth (26 layers), 4 x 8192
+    in 4 microbatches (``chip_smoke.py`` phase 15's batch and microbatches
+    on one card) over (1, cards): its RG-LRU channels and gate blocks over
+    the cards, its 10 attention heads in the ``seq`` mode.  Tokens/s
+    (median of steps 1-3), the peak of rank 0, rank 0's collectives and
+    wire bytes a step; each loss finite.  Skips with fewer than four
+    cards."""
+    import json
+    n = torch.cuda.device_count()
+    if n < 4:
+        pytest.skip(f"needs four or more cards (has {n})")
+    rec = _train_readings(["-m", "repro_torch.launch.train", "--arch",
+                           "recurrentgemma_2b", "--steps", "4", "--batch",
+                           "4", "--seq", "8192", "--microbatches", "4"], n)
+    print(json.dumps({"recurrentgemma_tp_bf16": dict(rec, cards=n)}))
+    assert len(rec["steps"]) == 4 and all(
+        math.isfinite(s["loss"]) for s in rec["steps"]), rec
 
 
 def test_seq_and_fsdp_bf16_readings_over_every_card(dev):

@@ -331,7 +331,9 @@ def test_serving_collectives_are_the_designs(groups, arch, over, sizes):
 class SentOne:
     """A model group of one whose collectives are sent (not skipped),
     each returning a copy of its input, as one rank's NCCL or gloo call
-    does: the sharded code path at tp 1, without a process group."""
+    does: the sharded code path at tp 1, without a process group (its
+    ``reduce_out`` and ``copy_in`` as forward: serving differentiates
+    nothing)."""
     trivial, size, rank = False, 1, 0
 
     def __init__(self):
@@ -349,6 +351,12 @@ class SentOne:
 
     def all_to_all(self, x):
         return self._call("all-to-all", x)
+
+    def reduce_out(self, x):
+        return self.all_reduce(x)
+
+    def copy_in(self, *xs):
+        return xs[0] if len(xs) == 1 else xs
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_1b", "qwen3_moe_30b"])
@@ -406,13 +414,23 @@ def _leaves(tree):
 
 def test_refusals():
     m2 = mesh_lib.make_test_mesh(1, 2)
-    for arch, item in (("mamba2_370m", "SSM"), ("recurrentgemma_2b",
-                                                "RG-LRU"),
-                       ("whisper_base", "encoder-decoder")):
-        for shape in ("decode_32k", "prefill_32k"):
-            with pytest.raises(NotImplementedError,
-                               match=f"{item}.*ROADMAP Queue A item 3"):
-                steps.build_cell(arch, shape, m2)
+    # the SSM, the RG-LRU hybrid and the encoder-decoder serve; where
+    # their rules leave a part replicated, or the hybrid's ring does not
+    # split, the cell refuses, naming it
+    # (31 SSM heads over 2; 16 gate blocks over 32 ranks)
+    for arch, item, over, tp in (
+            ("mamba2_370m", "SSM channels", dict(d_model=1000), 2),
+            ("recurrentgemma_2b", "RG-LRU gate blocks", None, 32),
+            ("whisper_base", "replicated MLP", dict(d_ff=2049), 2)):
+        for shape, cell in (("decode_32k", steps.DecodeCell),
+                            ("prefill_32k", steps.PrefillCell)):
+            assert isinstance(steps.build_cell(arch, shape, m2), cell)
+            with pytest.raises(NotImplementedError, match=item):
+                steps.build_cell(arch, shape, mesh_lib.make_test_mesh(1, tp),
+                                 over=over)
+    with pytest.raises(ValueError, match="ring of 2047 slots"):
+        steps.build_cell("recurrentgemma_2b", "decode_32k", m2,
+                         over=dict(local_window=2047))
     # MLA's latent cache, the vision decoder and the window's ring serve
     for arch in ("deepseek_r1", "pixtral_12b", "h2o_danube_1_8b"):
         assert isinstance(steps.build_cell(arch, "prefill_32k", m2),

@@ -571,14 +571,22 @@ def test_sharded_step_on_one_rank_is_the_one_device_step_bit_for_bit():
 
 def test_refusals():
     mesh = mesh_lib.make_test_mesh(1, 2)
-    # the SSM, RG-LRU and encoder-decoder rules wait (Queue A item 3.2),
-    # in training and in the serving cells; heads that do not split run
-    # the seq mode; MLA and the vision decoder train
+    # the SSM, RG-LRU and encoder-decoder train and serve over the model
+    # group, their channels split; where a rule would leave a part
+    # replicated, the cell refuses, naming it
     for arch in ("recurrentgemma_2b", "mamba2_370m", "whisper_base"):
         for shape in ("train_4k", "prefill_32k", "decode_32k"):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP Queue A item 3"):
-                steps.build_cell(arch, shape, mesh)
+            steps.build_cell(arch, shape, mesh)
+    assert "channel TP" in steps.build_cell("mamba2_370m", "train_4k",
+                                            mesh).note
+    for arch, over, tp, what in (
+            ("mamba2_370m", dict(ssm_groups=2), 2, "SSM channels"),
+            ("recurrentgemma_2b", None, 32, "RG-LRU gate blocks"),
+            ("whisper_base", dict(d_ff=2049), 2, "replicated MLP")):
+        for shape in ("train_4k", "prefill_32k", "decode_32k"):
+            with pytest.raises(NotImplementedError, match=what):
+                steps.build_cell(arch, shape, mesh_lib.make_test_mesh(1, tp),
+                                 over=over)
     assert steps.build_cell("smollm_360m", "train_4k", mesh).note == \
         "attention=seq"
     for arch in ("deepseek_r1", "pixtral_12b"):

@@ -12,8 +12,9 @@ rank and fits in 80 GB before activations; the full DeepSeek-R1 does
 not (though ``build_cell`` takes it); on one node (1, 8) Qwen3-30B-A3B's
 ZeRO-1 state alone is ~46 GB
 and the rank's sum ~77 GB before activations.  DeepSeek-R1's and
-Pixtral-12B's train and serving cells and H2O-Danube-1.8B's serving cells
-run, with the design's collectives (no all-to-all for MLA's prefill).
+Pixtral-12B's train and serving cells, H2O-Danube-1.8B's serving cells,
+and Mamba2-370M's, RecurrentGemma-2B's and Whisper-base's cells run, with
+the design's collectives (no all-to-all for MLA's or the SSM's prefill).
 """
 import json
 
@@ -172,7 +173,21 @@ ATTN_CELLS = [("deepseek_r1", s) for s in ("train_4k", "prefill_32k",
     + [("pixtral_12b", s) for s in ("train_4k", "prefill_32k",
                                     "decode_32k")] \
     + [("h2o_danube_1_8b", s) for s in ("prefill_32k", "decode_32k",
-                                        "long_500k")]
+                                        "long_500k")] \
+    + [(a, s) for a in ("mamba2_370m", "recurrentgemma_2b", "whisper_base")
+       for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+       if not (a == "whisper_base" and s == "long_500k")]
+# the recurrent and encoder-decoder families on (16, 8): a prefill's and a
+# decode step's all-reduces (Mamba2-370M 1 + 2 x 48 both; RecurrentGemma-
+# 2B 1 + 2 x 26 sublayers, and a step 1 + 2 x 18 RG-LRU + 3 x 8 ring
+# sublayers; Whisper-base 1 + 2 x 6 encoder + 3 x 6 decoder layers, and
+# a step 1 + 5 x 6), a prefill's all-to-alls (Whisper's K, V and cross K,
+# V; none for the SSM, and none for the hybrid's 10 heads over 8, the seq
+# mode), and a train cell's note
+FAMILY_CELLS = {"mamba2_370m": (97, 97, 0, "attention=seq, channel TP"),
+                "recurrentgemma_2b": (53, 61, 0,
+                                      "attention=seq, channel TP"),
+                "whisper_base": (31, 31, 4, "attention=heads")}
 
 
 @pytest.mark.parametrize("arch,shape", ATTN_CELLS,
@@ -180,15 +195,20 @@ ATTN_CELLS = [("deepseek_r1", s) for s in ("train_4k", "prefill_32k",
 def test_attention_family_cells_run_with_the_designs_collectives(arch,
                                                                  shape):
     """DeepSeek-R1's MLA and Pixtral-12B's vision decoder in the train and
-    both serving cells, and H2O-Danube-1.8B's ring in the serving cells
-    (``long_500k`` among them), run on the production mesh (16, 8).  A
-    prefill's collectives are 1 + 2 L all-reduces and the logits'
-    all-gather, with the two all-to-alls of K and V (a ring's over its
-    slots) and none for MLA, whose latent every rank holds; a decode step
-    1 + 3 L all-reduces and the argmax's all-gather, whatever the cache.
-    The gloo runs hold these counts to what the ranks send
-    (``test_torch_attn_families_tp.py``).  The ring's cache is its 4096
-    slots over the model axis, at any sequence."""
+    both serving cells, H2O-Danube-1.8B's ring in the serving cells
+    (``long_500k`` among them), and Mamba2-370M, RecurrentGemma-2B and
+    Whisper-base in every cell that applies, run on the production mesh
+    (16, 8).  A decoder's prefill collectives are 1 + 2 L all-reduces and
+    the logits' all-gather, with the two all-to-alls of K and V (a ring's
+    over its slots) and none for MLA, whose latent every rank holds; a
+    decode step 1 + 3 L all-reduces and the argmax's all-gather, whatever
+    the cache; the other families' are ``FAMILY_CELLS``'.  The gloo runs
+    hold these counts to what the ranks send
+    (``test_torch_attn_families_tp.py``,
+    ``test_torch_recurrent_encdec_tp.py``).  The rings' caches are their
+    4096 (Danube) or 2048 (RecurrentGemma) slots over the model axis, at
+    any sequence, beside the RG-LRU's states and convolutions over its
+    channels."""
     mesh = mesh_lib.make_production_mesh()
     cfg = get_config(arch)
     L = cfg.num_layers
@@ -197,6 +217,27 @@ def test_attention_family_cells_run_with_the_designs_collectives(arch,
         rec = dryrun.reckon(arch, shape, mesh)
     assert rec["runs"], rec["why_not"]
     kind = dryrun.SHAPES[shape].kind
+    if arch in FAMILY_CELLS:
+        pre, dec, a2a, note = FAMILY_CELLS[arch]
+        want = {"train": None, "prefill": {"all-reduce": pre,
+                                           "all-gather": 1},
+                "decode": {"all-reduce": dec, "all-gather": 1}}[kind]
+        if kind == "prefill" and a2a:
+            want["all-to-all"] = a2a
+        if want is None:
+            assert rec["note"] == note
+        else:
+            assert rec["collectives"] == want
+        if cfg.family == "hybrid" and kind == "decode":
+            B = dryrun.SHAPES[shape].global_batch
+            rows = B // 16 if B % 16 == 0 else B
+            n_units, n_tail = TT._hybrid_counts(cfg)
+            Wl, W = cfg.local_window // 8, cfg.lru_width // 8
+            n_rec = n_units * 2 + n_tail
+            assert rec["per_rank_bytes"]["cache"] == rows * (
+                n_units * Wl * (2 * cfg.head_dim * 2 + 4)
+                + n_rec * (W * 4 + 3 * W * 2))
+        return
     if kind == "prefill":
         want = {"all-reduce": 1 + 2 * L, "all-gather": 1}
         if not cfg.use_mla:

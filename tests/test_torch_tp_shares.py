@@ -192,8 +192,8 @@ def test_merged_cross_entropy_shards_match_jax(tp, softcap):
         hc, lc = hh[:, s0:s0 + TT.CE_CHUNK], tl[:, s0:s0 + TT.CE_CHUNK]
         stats = [TT.ce_shard(cfg, {"lm_head": w}, hc, lc, m, tp)
                  for m, w in enumerate(ws)]
-        mx, se, ll = (torch.stack(t) for t in zip(*stats))
-        t, n = TT.ce_merge(mx, se, ll, lc, lambda x: x.amax(0),
+        lse, ll = (torch.stack(t) for t in zip(*stats))
+        t, n = TT.ce_merge(lse, ll, lc, lambda x: x.amax(0),
                            lambda x: x.sum(0))
         tot, cnt = tot + t, cnt + n
     loss = tot / cnt

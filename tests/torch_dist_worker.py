@@ -184,8 +184,9 @@ def task_train(mesh, job):
     out = {"steps": [], "microbatches": cell.microbatches}
     for i, (toks, labels) in enumerate(zip(job["tokens"], job["labels"])):
         batch = {"tokens": _t(toks), "labels": _t(labels)}
-        if "patches" in job:        # the vision decoder's
-            batch["patches"] = _t(job["patches"][i])
+        for k in ("patches", "frames"):     # the vision decoder's, Whisper's
+            if k in job:
+                batch[k] = _t(job[k][i])
         C.reset_events()
         r = cell.step(params, opt, batch)
         stats = C.collective_stats()
@@ -260,8 +261,9 @@ def task_serve(mesh, job):
     over = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     toks = _t(job["tokens"])
     batch = {"tokens": toks}
-    if "patches" in job:
-        batch["patches"] = _t(job["patches"])
+    for k in ("patches", "frames"):
+        if k in job:
+            batch[k] = _t(job[k])
     B = toks.shape[0]
     S = toks.shape[1] + (batch["patches"].shape[1] if "patches" in job
                          else 0)
@@ -276,21 +278,21 @@ def task_serve(mesh, job):
     C.reset_events()
     logits, cache = pc.step(pp, batch)
     out = {"prefill_events": _events(), "prefill_logits": _np(logits),
-           "cache_shape": {k: tuple(t.shape) for k, t in cache.items()}}
+           "cache_shape": T._map_spec(cache, lambda _, t: tuple(t.shape))}
     whole = shd.gather_cache(cache, dc.cache_specs, mesh)
     out["cache0"] = _np(whole)
     recut = shd.shard_cache(whole, dc.cache_specs, mesh)
-    out["recut_equal"] = all(torch.equal(recut[k], t) and
-                             recut[k].is_contiguous()
-                             for k, t in cache.items())
+    out["recut_equal"] = all(
+        torch.equal(a, b) and a.is_contiguous() for a, b in
+        zip(optim.tree_leaves(recut), optim.tree_leaves(cache)))
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     lengths = torch.full(tok.shape, S, dtype=torch.int32)
     if "lengths" in job:
         lengths = dc.local_batch({"lengths": _t(job["lengths"])})["lengths"]
     model = mesh.comm.model
-    part, _ = T.decode_step_logits(cfg, dp, {k: t.clone() for k, t in
-                                             cache.items()}, tok, lengths,
-                                   mesh.comm)
+    part, _ = T.decode_step_logits(
+        cfg, dp, T._map_spec(cache, lambda _, t: t.clone()), tok, lengths,
+        mesh.comm)
     every = model.all_gather(part[None])
     out["step0_logits"] = _np(every.permute(1, 0, 2).reshape(
         part.shape[0], -1))

@@ -8,10 +8,11 @@ The mesh is (D, N / D) over ("data", "model"); NCCL on the cards, gloo
 with ``--device cpu``.  Rank 0 writes what it read to OUT (``torch.save``).
 
 ``check``: the prefill cell on ``--batch`` random prompts of ``--seq``
-tokens (the vision decoder's after its ``num_patches`` random patches)
-into a cache of ``--max-len`` (a window's ring of min(window, max-len)
-slots), then ``--steps`` decode-cell steps: each step's tokens and the
-first step's logits, gathered over the mesh.
+tokens (the vision decoder's after its ``num_patches`` random patches,
+the encoder-decoder's over ``encoder_seq`` random frames) into a cache of
+``--max-len`` (a window's ring of min(window, max-len) slots; an SSM's or
+the hybrid's states beside), then ``--steps`` decode-cell steps: each
+step's tokens and the first step's logits, gathered over the mesh.
 Run as one process (no ``torch.distributed.run``) it runs the one-device
 ``prefill`` and ``decode_step`` instead, the reference the mesh is held
 to.
@@ -59,15 +60,14 @@ def _sync(dev):
 def _one_device(args, cfg, dev):
     """The reference: ``prefill`` (its cache installed in one of
     ``--max-len``) and ``decode_step`` on one device."""
-    toks, patches = _prompts(args, cfg, dev)
+    toks, stubs = _prompts(args, cfg, dev)
     params = T.init_params(cfg, args.seed, dev)
-    logits, cache = T.prefill(cfg, params, toks, patches=patches,
+    logits, cache = T.prefill(cfg, params, toks, **stubs,
                               max_len=args.max_len)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     lengths = torch.full(tok.shape, _positions(args, cfg),
                          dtype=torch.int32, device=dev)
-    first, _ = T.decode_step_logits(cfg, params, {k: t.clone() for k, t in
-                                                  cache.items()}, tok,
+    first, _ = T.decode_step_logits(cfg, params, _clone(cache), tok,
                                     lengths)
     tokens = [tok]
     for i in range(args.steps):
@@ -77,15 +77,21 @@ def _one_device(args, cfg, dev):
 
 
 def _prompts(args, cfg, dev):
-    """(tokens, the vision decoder's patches or None), from ``--seed``."""
+    """(tokens, {the vision decoder's "patches" or the encoder-decoder's
+    "frames"}), from ``--seed``."""
     gen = torch.Generator().manual_seed(args.seed)
     toks = torch.randint(0, cfg.vocab_size, (args.batch, args.seq),
                          generator=gen, dtype=torch.int32).to(dev)
-    if cfg.family != "vlm":
-        return toks, None
-    patches = torch.randn((args.batch, cfg.num_patches, cfg.d_model),
-                          generator=gen)
-    return toks, patches.to(dev, compat.torch_dtype(cfg.dtype))
+    n = {"vlm": cfg.num_patches, "audio": cfg.encoder_seq}.get(cfg.family)
+    if n is None:
+        return toks, {}
+    stub = torch.randn((args.batch, n, cfg.d_model), generator=gen)
+    key = "patches" if cfg.family == "vlm" else "frames"
+    return toks, {key: stub.to(dev, compat.torch_dtype(cfg.dtype))}
+
+
+def _clone(cache):
+    return T._map_spec(cache, lambda path, t: t.clone())
 
 
 def _positions(args, cfg):
@@ -103,16 +109,13 @@ def _check(args, cfg, mesh, dev):
     dc = build_cell(args.arch, "decode_32k", mesh,
                     batch_seq=(args.batch, args.max_len), over=over)
     comm = mesh.comm
-    toks, patches = _prompts(args, cfg, dev)
-    batch = {"tokens": toks}
-    if patches is not None:
-        batch["patches"] = patches
+    toks, stubs = _prompts(args, cfg, dev)
+    batch = dict(stubs, tokens=toks)
     logits, cache = pc.step(pc.init_state(args.seed, dev), batch)
     params = dc.init_state(args.seed, dev)
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
     lengths = torch.full(tok.shape, n, dtype=torch.int32, device=dev)
-    part, _ = T.decode_step_logits(cfg, params, {k: t.clone() for k, t in
-                                                 cache.items()}, tok,
+    part, _ = T.decode_step_logits(cfg, params, _clone(cache), tok,
                                    lengths, comm)
     rows = comm.model.all_gather(part[None]).permute(1, 0, 2) \
         .reshape(part.shape[0], -1)
@@ -135,7 +138,7 @@ def _bench(args, cfg, mesh, dev):
     params = cell.init_state(args.seed, dev)
     cache = cell.init_cache(dev)
     gen = torch.Generator(device=dev).manual_seed(args.seed + mesh.rank)
-    for leaf in cache.values():
+    for leaf in _leaves(cache):
         for i in range(leaf.shape[0]):
             leaf[i].normal_(generator=gen)
     _sync(dev)
@@ -161,7 +164,8 @@ def _bench(args, cfg, mesh, dev):
     peak = torch.tensor([torch.cuda.max_memory_allocated(dev) / 1e9
                          if dev.type == "cuda" else 0.0], device=dev)
     peaks = mesh.comm.world.all_gather(peak)
-    cache_gb = sum(t.numel() * t.element_size() for t in cache.values()) / 1e9
+    cache_gb = sum(t.numel() * t.element_size()
+                   for t in _leaves(cache)) / 1e9
     param_gb = sum(t.numel() * t.element_size()
                    for t in _leaves(params)) / 1e9
     return {"arch": args.arch, "layers": cfg.num_layers, "dtype": args.dtype,
